@@ -1,0 +1,68 @@
+"""Attention dispatch (port of ``ops/attention.py``).
+
+q, k, v are (B, H, L, D). On CUDA tensors, sequences with at least 512
+queries and 512 keys go to the flash kernel (the JAX package's
+``_flash_eligible`` rule); everything else, and everything on the CPU,
+runs :func:`plain_attention`, the counterpart of the JAX ``_xla_attention``:
+fp32 logits with the scale applied after the product, fp32 softmax, the
+probabilities cast to the input dtype before the PV product.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .flash_attention import flash_attention
+
+
+def plain_attention(q, k, v, bias=None, causal: bool = False,
+                    scale: Optional[float] = None):
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    if causal:
+        q_len, k_len = logits.shape[-2:]
+        mask = torch.ones((q_len, k_len), dtype=torch.bool,
+                          device=q.device).tril(k_len - q_len)
+        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+def _flash_eligible(q, k) -> bool:
+    return q.is_cuda and q.shape[-2] >= 512 and k.shape[-2] >= 512
+
+
+def dot_product_attention(q, k, v, bias=None, causal: bool = False,
+                          scale: Optional[float] = None):
+    """Scaled dot-product attention over (B, H, L, D) tensors."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _flash_eligible(q, k):
+        return flash_attention(q, k, v, bias=bias, causal=causal, scale=scale)
+    return plain_attention(q, k, v, bias, causal, scale)
+
+
+def attention_blhd(q, k, v, bias=None, causal: bool = False, **kw):
+    """Attention over (B, L, H, D) tensors; output (B, L, H, D)."""
+    out = dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), bias=bias, causal=causal,
+                                **kw)
+    return out.transpose(1, 2)
+
+
+def multi_head_attention(q, k, v, num_heads: int, bias=None,
+                         causal: bool = False, **kw):
+    """Attention over (B, L, D_model) activations with head split/merge."""
+    b, lq, dm = q.shape
+    lk = k.shape[1]
+    d = dm // num_heads
+    out = attention_blhd(q.reshape(b, lq, num_heads, d),
+                         k.reshape(b, lk, num_heads, d),
+                         v.reshape(b, lk, num_heads, d),
+                         bias=bias, causal=causal, **kw)
+    return out.reshape(b, lq, dm)

@@ -1,0 +1,27 @@
+"""Inference dtype policy (port of ``utils/dtypes.py``)."""
+
+from __future__ import annotations
+
+import re
+
+import torch
+from torch import nn
+
+POLICIES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+_NORM_PATH = re.compile(r"(^|_)(norm|ln)($|_|\d)|groupnorm|layernorm|rms",
+                        re.IGNORECASE)
+
+
+def cast_params_for_inference(module: nn.Module,
+                              dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """Store conv and linear weights and biases (and embeddings) in the
+    compute dtype, in place; parameters of norm layers (a path component
+    matching norm/ln) stay fp32, since they feed fp32 statistics."""
+    for name, p in module.named_parameters():
+        if not p.is_floating_point():
+            continue
+        norm = any(_NORM_PATH.search(part) for part in name.split("."))
+        if p.dim() >= 2 or (p.dim() == 1 and not norm):
+            p.data = p.data.to(dtype)
+    return module

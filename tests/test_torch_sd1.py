@@ -1,0 +1,125 @@
+"""The SD1 text→image slice, JAX package against the PyTorch port, on the CPU.
+
+The JAX ``SD1Generator`` runs the reduced bundle of
+``tests/test_sd1.py::_FakeModels`` (1-layer CLIP, 32-channel UNet, full VAE
+decoder; 64x64, 3 k-LMS steps, CFG, batch 1), in fp32. The port gets the
+same parameters through ``SD1Models.from_jax`` and the same initial-latent
+noise (drawn here from the key the JAX generator draws it from), since
+seeds cannot match across frameworks. The uint8 images must agree to ±1;
+the final latents before decode to rtol 1e-4 / atol 1e-4.
+"""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from from_ddpm_to_stable_diffusion_tpu.models import sd1 as jsd1
+from from_ddpm_to_stable_diffusion_tpu.pipelines import sd1 as jpipe
+from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import sd1 as tpipe
+from tests.test_torch_models import jax_random_params
+
+H = W = 64
+STEPS = 3
+
+
+class _Tokenizer:
+    """Stand-in with the duck-typed ``encode_batch`` both pipelines call."""
+
+    def encode_batch(self, texts):
+        ids = np.zeros((len(texts), 77), np.int32)
+        for i, text in enumerate(texts):
+            codes = [ord(ch) % 63 + 1 for ch in text][:77]
+            ids[i, :len(codes)] = codes
+        return ids
+
+
+@pytest.fixture(scope="module")
+def jax_bundle():
+    clip = jsd1.CLIPText(vocab_size=64, num_layers=1, num_heads=4,
+                         embed_dim=768)
+    unet = jsd1.SD1UNet(model_channels=32, num_heads=4)
+    decoder = jsd1.VAEDecoder()
+    params = {
+        "clip": jax_random_params(clip, jnp.zeros((1, 77), jnp.int32),
+                                  seed=1),
+        "unet": jax_random_params(unet, jnp.zeros((1, 8, 8, 4)),
+                                  jnp.zeros((1, 77, 768)),
+                                  jnp.zeros((1, 320)), seed=2),
+        "decoder": jax_random_params(decoder, jnp.zeros((1, 8, 8, 4)),
+                                     seed=3),
+    }
+    return types.SimpleNamespace(clip=clip, unet=unet, decoder=decoder,
+                                 encoder=None, params=params)
+
+
+def _jax_noise(seed, shape):
+    """The initial-latent draw of the JAX SD1Generator and generate()."""
+    _, noise_key, _, _ = jax.random.split(jax.random.key(seed), 4)
+    return np.asarray(jax.random.normal(noise_key, shape))
+
+
+def test_sd1_txt2img_slice_matches_jax(jax_bundle):
+    seed, prompts = 7, ["a cat"]
+    want_img = jpipe.SD1Generator(jax_bundle, sampler="k_lms",
+                                  n_inference_steps=STEPS, height=H,
+                                  width=W)(prompts, seed=seed)
+    want_lat = jpipe.generate(prompts, jax_bundle, height=H, width=W,
+                              n_inference_steps=STEPS, seed=seed,
+                              return_latents=True)
+
+    models = tpipe.SD1Models.from_jax(jax_bundle.params, clip_heads=4,
+                                      unet_heads=4)
+    gen = tpipe.SD1Generator(models, sampler="k_lms", n_inference_steps=STEPS,
+                             height=H, width=W)
+    noise = _jax_noise(seed, (1, H // 8, W // 8, 4))
+    got_img = gen(prompts, noise=noise)
+    assert got_img.shape == want_img.shape == (1, H, W, 3)
+    assert got_img.dtype == np.uint8
+    np.testing.assert_allclose(got_img.astype(np.int16),
+                               want_img.astype(np.int16), atol=1)
+    assert want_img.std() > 0
+
+    with torch.inference_mode():
+        context = gen._encode_text(prompts, None)
+        latents = gen._sample(torch.tensor(noise)
+                              * gen.tables["initial_scale"], context)
+    np.testing.assert_allclose(latents.numpy(), np.asarray(want_lat),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_text_conditioning_matches_jax(jax_bundle):
+    """A tokenizer's ids for [prompts | uncond prompts] through CLIP."""
+    prompts, uncond = ["a cat", "two dogs"], ["", "blurry"]
+    tok = _Tokenizer()
+    want = jax.jit(jax_bundle.clip.apply)(
+        {"params": jax_bundle.params["clip"]},
+        jnp.asarray(tok.encode_batch(prompts + uncond)))
+    models = tpipe.SD1Models.from_jax(jax_bundle.params, clip_heads=4,
+                                      unet_heads=4)
+    gen = tpipe.SD1Generator(models, tokenizer=tok, height=H, width=W)
+    with torch.inference_mode():
+        got = gen._encode_text(prompts, uncond)
+    assert got.shape == (4, 77, 768)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_sd1_generator_contract(jax_bundle):
+    models = tpipe.SD1Models.from_jax(jax_bundle.params, clip_heads=4,
+                                      unet_heads=4)
+    gen = tpipe.SD1Generator(models, n_inference_steps=1, height=H, width=W)
+    a, b = gen(["a"], seed=3), gen(["a"], seed=3)
+    np.testing.assert_array_equal(a, b)
+    assert np.abs(a.astype(int) - gen(["a"], seed=4).astype(int)).max() > 0
+    with pytest.raises(ValueError):
+        gen(["a"], noise=np.zeros((2, 8, 8, 4), np.float32))
+    with pytest.raises(ValueError):
+        gen(["a"], uncond_prompts=["x", "y"])
+    with pytest.raises(ValueError):
+        tpipe.SD1Generator(models, height=100)
+    with pytest.raises(NotImplementedError):
+        tpipe.SD1Generator(models, sampler="k_euler")
