@@ -3,14 +3,14 @@
 // Replaces two Pallas TPU kernels of the JAX package:
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
 //     (single pass over the whole K/V of one (b, h); SD1 UNet at 64^2,
-//     q/k/v (2B, 8, 4096, 40))
+//     q/k/v (2B, 8, 4096, 40); tiny-SD UNet at 64^2, (B, 1, 4096, 128))
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel
-//     (blocked online softmax; SD1 UNet at 32^2, (2B, 8, 1024, 80), and the
-//     VAE decoder's one-head mid attention, (B, 1, 4096, 512))
+//     (blocked online softmax; SD1 UNet at 32^2, (2B, 8, 1024, 80), the
+//     VAE decoder's one-head mid attention, (B, 1, 4096, 512), and the
+//     tiny-SD UNet at 32^2, (B, 1 or 2, 1024, 128))
 // It computes what both compute (out in the input dtype, lse = m + log l in
 // fp32), not their block structure: the TPU's sequential key-block grid axis
-// becomes a loop inside the block, and one code path serves all three head
-// dims.
+// becomes a loop inside the block, and one code path serves all head dims.
 //
 // What bounds it on the H100: at the path's shapes attention is compute
 // bound (4096 keys: ~2,000 flop per byte of q, k, v and out), so the limits
@@ -18,13 +18,15 @@
 // is the simple correct form: mma.sync m16n8k16 (bf16 -> fp32) with the
 // logit tile S staged through shared memory, one block per (b*h, 64 queries)
 // (32 at d=512). The head dim is zero-padded to a multiple of 16 in shared
-// memory only (d=40 -> 48); device memory is never padded. d=512 keeps its
+// memory only (d=40 -> 48); device memory is never padded. d=128 keeps the
+// 16 x 128 output tile of a warp in 64 fp32 accumulators and uses ~80 KB of
+// dynamic shared memory. d=512 keeps its
 // output accumulator split over 8 warps (4 column slices x 2 row groups) so
 // that no thread holds more than 64 fp32 accumulators, and uses ~187 KB of
 // dynamic shared memory. Small q tiles keep the grid large enough for 132
 // SMs at CFG batch 1 (2*8*4096/64 = 1024 blocks at 64^2). Only the padded
-// head dims of the SD1 path are instantiated (48, 80, 512); others return
-// cudaErrorInvalidValue.
+// head dims of the SD1 and tiny-SD paths are instantiated (48, 80, 128,
+// 512); others return cudaErrorInvalidValue.
 // Later work: wgmma + TMA, softmax in registers, K/V double buffering.
 
 #include <cuda_bf16.h>
@@ -294,6 +296,7 @@ extern "C" int fdsd_flash_fwd(const void* q, const void* k, const void* v,
     break;
     FDSD_SMALL_D(48)  // SD1 UNet at 64^2: d = 40
     FDSD_SMALL_D(80)  // SD1 UNet at 32^2: d = 80
+    FDSD_SMALL_D(128)  // tiny-SD UNet: d = 128
 #undef FDSD_SMALL_D
     case 512:  // SD1 VAE mid attention
       err = launch<512, 32, 64, 2, 4>(q, k, v, out, lse, B, H, Lq, Lk, d,

@@ -1,0 +1,496 @@
+// Flash-attention backward for Hopper (sm_90a): bf16 in and out, fp32
+// softmax reconstruction and accumulators. Two kernels, as in the JAX
+// package:
+//   K3 flash_bwd_dq_kernel replaces
+//     from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
+//   K4 flash_bwd_dkv_kernel replaces
+//     from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dkv_kernel
+// in their no-mask form (ragged Lq and Lk only). Both recompute the
+// probabilities under the forward's saved lse, P = exp(scale*QK^T - lse),
+// with delta = rowsum(dO * out) computed beforehand (fp32, by the caller):
+//   dS = P * (dO V^T - delta),  dQ = scale * dS K,
+//   dK = scale * dS^T Q,        dV = P^T dO.
+// The TPU's sequential grid axis (key blocks for dq, query blocks for dk/dv)
+// becomes a loop inside the block.
+//
+// What bounds them on the H100: at the tiny-SD shapes (B*H = 32, L = 4096,
+// d = 128) K3 does 3 and K4 4 L^2*d products per (b, h), thousands of flop
+// per byte of q, k, v and dO: compute bound, so the limits are tensor-core
+// issue rate and the exponentials. This first version is the simple correct
+// form, like K1: mma.sync m16n8k16 (bf16 -> fp32), operands staged through
+// shared memory, and the operands that a product needs along the other
+// axis kept as a transposed copy in shared memory (no ldmatrix). Tiles that
+// get a transposed copy are loaded row-fastest, so the transposed 2-byte
+// stores of a warp fall on consecutive addresses (no bank conflicts).
+//
+// Register budget, the design's main constraint at d = 128:
+// - K3: one block per (b*h, 64 queries), 4 warps of 16 query rows; 32-key
+//   tiles keep S and dP at 16 fp32 registers each beside the 64 of the
+//   16 x 128 dQ accumulator. dS goes from the accumulators straight into
+//   the A operand of the dS K product.
+// - K4: one block per (b*h, 64 keys), 8 warps as 4 row groups of 16 keys
+//   x 2 column halves. In the S^T / dP^T phase a half is 32 of the 64
+//   queries of the tile; P^T and dS^T go through shared memory as bf16; in
+//   the accumulation phase a half is 64 of the 128 head dims, so the dK and
+//   dV accumulators take 32 registers each instead of 64 (~123 KB of
+//   dynamic shared memory, one block per SM).
+// Only the tiny-SD head dim, 128, is instantiated; others return
+// cudaErrorInvalidValue.
+// Later work: wgmma + TMA, ldmatrix.trans instead of transposed copies,
+// K/V double buffering, one fused kernel with atomics for dq.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kPadLse = 1e30f;  // padded query rows: P = exp(s - 1e30) = 0
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D += A(16x16, row) * B(16x8, col); bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment (rows r0..r0+15, k kk..kk+15) of a row-major bf16 tile.
+__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* s,
+                                       int stride, int r0, int kk, int g,
+                                       int t) {
+  const __nv_bfloat16* p = s + (r0 + g) * stride + kk + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * stride);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * stride + 8);
+}
+
+// B fragment (k kk..kk+15, n n0..n0+7) from a tile stored with one row per
+// n and k contiguous.
+__device__ __forceinline__ void load_b(uint32_t* b, const __nv_bfloat16* s,
+                                       int stride, int n0, int kk, int g,
+                                       int t) {
+  const __nv_bfloat16* p = s + (n0 + g) * stride + kk + 2 * t;
+  b[0] = ld32(p);
+  b[1] = ld32(p + 8);
+}
+
+// Copies rows [r0, r0+R) of a (len x d) strided bf16 matrix into a
+// row-major smem tile (zero beyond len and d) and, if tr is set, its
+// transpose (one smem row per head dim). With a transposed copy the row
+// index runs fastest across threads, so that a warp's transposed stores hit
+// consecutive addresses; without one the 16-byte vectors of a row do, so
+// that a warp's global loads are contiguous.
+template <int R, int DP, int NT>
+__device__ __forceinline__ void load_tile(const __nv_bfloat16* src,
+                                          long long sl, int r0, int len,
+                                          int d, __nv_bfloat16* rows,
+                                          int rstride, __nv_bfloat16* tr,
+                                          int tstride) {
+  constexpr int kVecs = DP / 8;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = threadIdx.x; i < R * kVecs; i += NT) {
+    const int r = tr != nullptr ? i % R : i / kVecs;
+    const int c = tr != nullptr ? i / R : i % kVecs;
+    uint4 val = zero;
+    if (r0 + r < len && c * 8 < d)
+      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * sl + c * 8);
+    *reinterpret_cast<uint4*>(rows + r * rstride + c * 8) = val;
+    if (tr != nullptr) {
+      const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&val);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) tr[(c * 8 + e) * tstride + r] = e8[e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K3: dq
+template <int DP, int BQ, int BK>
+struct DqCfg {
+  static constexpr int kWarps = BQ / 16;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kRow = DP + 8;  // bf16 row stride: Q, dO, K, V
+  static constexpr int kKt = BK + 8;   // bf16 row stride: K^T
+  static constexpr int kSmemBytes =
+      (2 * BQ * kRow + 2 * BK * kRow + DP * kKt) * 2;
+};
+
+template <int DP, int BQ, int BK>
+__global__ void __launch_bounds__(DqCfg<DP, BQ, BK>::kThreads)
+flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk,
+                    int d, long long qsb, long long qsh, long long qsl,
+                    long long ksb, long long ksh, long long ksl,
+                    long long vsb, long long vsh, long long vsl,
+                    long long gsb, long long gsh, long long gsl,
+                    long long dsb, long long dsh, long long dsl, float scale) {
+  using C = DqCfg<DP, BQ, BK>;
+  constexpr int NT = C::kThreads;
+  constexpr int kSTiles = BK / 8;  // key n-tiles of S and dP per warp
+  constexpr int kDTiles = DP / 8;  // head-dim n-tiles of dQ per warp
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* g_s = q_s + BQ * C::kRow;
+  __nv_bfloat16* k_s = g_s + BQ * C::kRow;
+  __nv_bfloat16* v_s = k_s + BK * C::kRow;
+  __nv_bfloat16* kt_s = v_s + BK * C::kRow;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = blockIdx.y * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16;
+  const int r0 = q0 + row0 + g, r1 = r0 + 8;
+
+  load_tile<BQ, DP, NT>(q + b * qsb + h * qsh, qsl, q0, Lq, d, q_s, C::kRow,
+                        nullptr, 0);
+  load_tile<BQ, DP, NT>(dout + b * gsb + h * gsh, gsl, q0, Lq, d, g_s,
+                        C::kRow, nullptr, 0);
+  const float* lse_b = lse + (long long)blockIdx.x * Lq;
+  const float* dl_b = delta + (long long)blockIdx.x * Lq;
+  const float lse0 = r0 < Lq ? lse_b[r0] : kPadLse;
+  const float lse1 = r1 < Lq ? lse_b[r1] : kPadLse;
+  const float dl0 = r0 < Lq ? dl_b[r0] : 0.f;
+  const float dl1 = r1 < Lq ? dl_b[r1] : 0.f;
+
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
+  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
+  const int n_kt = (Lk + BK - 1) / BK;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's readers of k_s, v_s, kt_s are done
+    load_tile<BK, DP, NT>(kb, ksl, k0, Lk, d, k_s, C::kRow, kt_s, C::kKt);
+    load_tile<BK, DP, NT>(vb, vsl, k0, Lk, d, v_s, C::kRow, nullptr, 0);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows x BK keys.
+    float s[kSTiles][4], dp[kSTiles][4];
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      uint32_t aq[4], ag[4];
+      load_a(aq, q_s, C::kRow, row0, kk, g, t);
+      load_a(ag, g_s, C::kRow, row0, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j) {
+        uint32_t bk[2], bv[2];
+        load_b(bk, k_s, C::kRow, j * 8, kk, g, t);
+        load_b(bv, v_s, C::kRow, j * 8, kk, g, t);
+        mma16816(s[j], aq, bk);
+        mma16816(dp[j], ag, bv);
+      }
+    }
+    // dS = P * (dP - delta), P = exp(scale * S - lse), zero past Lk.
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + 2 * t + (e & 1);
+        const float l = e < 2 ? lse0 : lse1;
+        const float dl = e < 2 ? dl0 : dl1;
+        const float p = col < Lk ? __expf(s[j][e] * scale - l) : 0.f;
+        s[j][e] = p * (dp[j][e] - dl);
+      }
+    }
+    // dQ += dS K: dS is the A operand straight from the accumulators.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < kDTiles; ++j) {
+        uint32_t bb[2];
+        load_b(bb, kt_s, C::kKt, j * 8, kk * 16, g, t);
+        mma16816(acc[j], a, bb);
+      }
+    }
+  }
+
+  __nv_bfloat16* ob = dq + b * dsb + h * dsh;
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (col < d) {
+      if (r0 < Lq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * dsl + col) =
+            __floats2bfloat162_rn(acc[j][0] * scale, acc[j][1] * scale);
+      if (r1 < Lq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r1 * dsl + col) =
+            __floats2bfloat162_rn(acc[j][2] * scale, acc[j][3] * scale);
+    }
+  }
+}
+
+// ----------------------------------------------------------- K4: dk, dv
+template <int DP, int BK, int BQ>
+struct DkvCfg {
+  static constexpr int WM = BK / 16;  // row groups of 16 keys
+  static constexpr int WN = 2;        // column halves
+  static constexpr int kThreads = WM * WN * 32;
+  static constexpr int kRow = DP + 8;  // bf16 row stride: K, V, Q, dO
+  static constexpr int kTr = BQ + 8;   // bf16 row stride: Q^T, dO^T, P^T, dS^T
+  static constexpr int kSmemBytes =
+      (2 * BK * kRow + 2 * BQ * kRow + 2 * DP * kTr + 2 * BK * kTr) * 2 +
+      2 * BQ * 4;
+  static_assert((BQ / 8) % WN == 0 && (DP / 8) % WN == 0, "even warp split");
+};
+
+template <int DP, int BK, int BQ>
+__global__ void __launch_bounds__(DkvCfg<DP, BK, BQ>::kThreads)
+flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk,
+                     int d, long long qsb, long long qsh, long long qsl,
+                     long long ksb, long long ksh, long long ksl,
+                     long long vsb, long long vsh, long long vsl,
+                     long long gsb, long long gsh, long long gsl,
+                     long long dksb, long long dksh, long long dksl,
+                     long long dvsb, long long dvsh, long long dvsl,
+                     float scale) {
+  using C = DkvCfg<DP, BK, BQ>;
+  constexpr int NT = C::kThreads;
+  constexpr int kSTiles = BQ / 8 / C::WN;  // query n-tiles of S^T per warp
+  constexpr int kDTiles = DP / 8 / C::WN;  // head-dim n-tiles of dK, dV
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* v_s = k_s + BK * C::kRow;
+  __nv_bfloat16* q_s = v_s + BK * C::kRow;
+  __nv_bfloat16* g_s = q_s + BQ * C::kRow;
+  __nv_bfloat16* qt_s = g_s + BQ * C::kRow;
+  __nv_bfloat16* gt_s = qt_s + DP * C::kTr;
+  __nv_bfloat16* pt_s = gt_s + DP * C::kTr;
+  __nv_bfloat16* dst_s = pt_s + BK * C::kTr;
+  float* lse_s = reinterpret_cast<float*>(dst_s + BK * C::kTr);
+  float* dl_s = lse_s + BQ;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = blockIdx.y * BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % C::WM, wn = warp / C::WM;
+  const int row0 = wm * 16;
+
+  load_tile<BK, DP, NT>(k + b * ksb + h * ksh, ksl, k0, Lk, d, k_s, C::kRow,
+                        nullptr, 0);
+  load_tile<BK, DP, NT>(v + b * vsb + h * vsh, vsl, k0, Lk, d, v_s, C::kRow,
+                        nullptr, 0);
+
+  float acc_k[kDTiles][4], acc_v[kDTiles][4];
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+
+  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
+  const __nv_bfloat16* gb = dout + b * gsb + h * gsh;
+  const float* lse_b = lse + (long long)blockIdx.x * Lq;
+  const float* dl_b = delta + (long long)blockIdx.x * Lq;
+  const int n_qt = (Lq + BQ - 1) / BQ;
+  for (int it = 0; it < n_qt; ++it) {
+    const int q0 = it * BQ;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<BQ, DP, NT>(qb, qsl, q0, Lq, d, q_s, C::kRow, qt_s, C::kTr);
+    load_tile<BQ, DP, NT>(gb, gsl, q0, Lq, d, g_s, C::kRow, gt_s, C::kTr);
+    for (int i = threadIdx.x; i < BQ; i += NT) {
+      const bool in = q0 + i < Lq;
+      lse_s[i] = in ? lse_b[q0 + i] : kPadLse;
+      dl_s[i] = in ? dl_b[q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ/WN queries per warp.
+    float s[kSTiles][4], dp[kSTiles][4];
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      uint32_t ak[4], av[4];
+      load_a(ak, k_s, C::kRow, row0, kk, g, t);
+      load_a(av, v_s, C::kRow, row0, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j) {
+        const int n0 = (wn * kSTiles + j) * 8;
+        uint32_t bq[2], bg[2];
+        load_b(bq, q_s, C::kRow, n0, kk, g, t);
+        load_b(bg, g_s, C::kRow, n0, kk, g, t);
+        mma16816(s[j], ak, bq);
+        mma16816(dp[j], av, bg);
+      }
+    }
+    // P^T = exp(scale * S^T - lse), dS^T = P^T * (dP^T - delta): to smem.
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) {
+      const int col = (wn * kSTiles + j) * 8 + 2 * t;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = row0 + g + 8 * hr;
+        const float p0 = __expf(s[j][2 * hr] * scale - lse_s[col]);
+        const float p1 = __expf(s[j][2 * hr + 1] * scale - lse_s[col + 1]);
+        const float ds0 = p0 * (dp[j][2 * hr] - dl_s[col]);
+        const float ds1 = p1 * (dp[j][2 * hr + 1] - dl_s[col + 1]);
+        *reinterpret_cast<uint32_t*>(pt_s + r * C::kTr + col) =
+            pack_bf16(p0, p1);
+        *reinterpret_cast<uint32_t*>(dst_s + r * C::kTr + col) =
+            pack_bf16(ds0, ds1);
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q: 16 keys x DP/WN head dims per warp.
+#pragma unroll
+    for (int kk = 0; kk < BQ; kk += 16) {
+      uint32_t ap[4], ads[4];
+      load_a(ap, pt_s, C::kTr, row0, kk, g, t);
+      load_a(ads, dst_s, C::kTr, row0, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < kDTiles; ++j) {
+        const int n0 = (wn * kDTiles + j) * 8;
+        uint32_t bg[2], bq[2];
+        load_b(bg, gt_s, C::kTr, n0, kk, g, t);
+        load_b(bq, qt_s, C::kTr, n0, kk, g, t);
+        mma16816(acc_v[j], ap, bg);
+        mma16816(acc_k[j], ads, bq);
+      }
+    }
+  }
+
+  const int r0 = k0 + row0 + g, r1 = r0 + 8;
+  __nv_bfloat16* kout = dk + b * dksb + h * dksh;
+  __nv_bfloat16* vout = dv + b * dvsb + h * dvsh;
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j) {
+    const int col = (wn * kDTiles + j) * 8 + 2 * t;
+    if (col < d) {
+      if (r0 < Lk) {
+        *reinterpret_cast<__nv_bfloat162*>(kout + r0 * dksl + col) =
+            __floats2bfloat162_rn(acc_k[j][0] * scale, acc_k[j][1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(vout + r0 * dvsl + col) =
+            __floats2bfloat162_rn(acc_v[j][0], acc_v[j][1]);
+      }
+      if (r1 < Lk) {
+        *reinterpret_cast<__nv_bfloat162*>(kout + r1 * dksl + col) =
+            __floats2bfloat162_rn(acc_k[j][2] * scale, acc_k[j][3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(vout + r1 * dvsl + col) =
+            __floats2bfloat162_rn(acc_v[j][2], acc_v[j][3]);
+      }
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int DP>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* g, const void* lse, const void* delta,
+                      void* dq, int B, int H, int Lq, int Lk, int d,
+                      const long long* st, float scale, cudaStream_t stream) {
+  constexpr int BQ = 64, BK = 32;
+  using C = DqCfg<DP, BQ, BK>;
+  auto kernel = flash_bwd_dq_kernel<DP, BQ, BK>;
+  cudaError_t err = set_smem(kernel, C::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * H, (Lq + BQ - 1) / BQ);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), H, Lq, Lk, d, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
+      st[13], st[14], scale);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* g, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int H, int Lq, int Lk, int d,
+                       const long long* st, float scale, cudaStream_t stream) {
+  constexpr int BK = 64, BQ = 64;
+  using C = DkvCfg<DP, BK, BQ>;
+  auto kernel = flash_bwd_dkv_kernel<DP, BK, BQ>;
+  cudaError_t err = set_smem(kernel, C::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * H, (Lk + BK - 1) / BK);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, Lq,
+      Lk, d, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// strides: (batch, head, seq) element strides of q, k, v, dO, dq (15
+// values); the head-dim stride is 1. lse and delta are (B, H, Lq)
+// contiguous fp32.
+extern "C" int fdsd_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* g, const void* lse,
+                                 const void* delta, void* dq, int B, int H,
+                                 int Lq, int Lk, int d,
+                                 const long long* strides, float scale,
+                                 void* stream) {
+  if ((d + 15) / 16 * 16 != 128)  // tiny-SD UNet self-attention only
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_dq<128>(q, k, v, g, lse, delta, dq, B, H, Lq,
+                                         Lk, d, strides, scale,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
+// strides: (batch, head, seq) element strides of q, k, v, dO, dk, dv (18
+// values); lse and delta as above.
+extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                  const void* g, const void* lse,
+                                  const void* delta, void* dk, void* dv,
+                                  int B, int H, int Lq, int Lk, int d,
+                                  const long long* strides, float scale,
+                                  void* stream) {
+  if ((d + 15) / 16 * 16 != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_dkv<128>(q, k, v, g, lse, delta, dk, dv, B,
+                                          H, Lq, Lk, d, strides, scale,
+                                          static_cast<cudaStream_t>(stream)));
+}

@@ -29,6 +29,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, out, lse, B, H, Lq, Lk, d, strides[12], scale, stream
     "fdsd_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P],
+    # q, k, v, dO, lse, delta, dq, B, H, Lq, Lk, d, strides[15], scale, stream
+    "fdsd_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                          _F, _P],
+    # q, k, v, dO, lse, delta, dk, dv, B, H, Lq, Lk, d, strides[18], scale,
+    # stream
+    "fdsd_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P, _F, _P],
     # x, scale, bias, y, part, stats, B, HW, C, G, eps, silu, is_bf16,
     # threads, rows_per_chunk, n_chunks, stream
     "fdsd_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,

@@ -1,19 +1,28 @@
-"""Flash-attention forward over (B, H, L, D) (port of ``ops/flash_attention.py``).
+"""Flash attention over (B, H, L, D), forward and backward (port of
+``ops/flash_attention.py``).
 
-On CUDA tensors :func:`flash_attention_forward` launches the kernel of
-``csrc/flash_attention.cu``, which stands in for both Pallas forward bodies
-of the JAX package (``_fwd_kernel_wide`` and ``_fwd_kernel``). On CPU
+Forward: on CUDA tensors :func:`flash_attention_forward` launches the kernel
+of ``csrc/flash_attention.cu``, which stands in for both Pallas forward
+bodies of the JAX package (``_fwd_kernel_wide`` and ``_fwd_kernel``). On CPU
 tensors it runs :func:`flash_attention_plain`. Same contract as the JAX
 forward: ``out`` in the input dtype with shape (B, H, Lq, D), ``lse`` fp32
 with shape (B, H, Lq).
 
-The kernel reads q, k and v through their strides (only the head dim must
-be contiguous), so the fused-QKV projection's q|k|v column slices go in
-without a copy, and it writes ``out`` into (B, Lq, H, D) memory returned as
-a (B, H, Lq, D) view, so merging heads afterwards is free.
+Backward: :func:`flash_attention_backward` launches the two kernels of
+``csrc/flash_attention_bwd.cu`` (dq, and dk with dv; the Pallas
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) on CUDA tensors and runs
+:func:`flash_attention_bwd_plain` on CPU tensors. Both recompute the
+probabilities under the forward's saved lse; delta = Σ dO·out is a plain
+fp32 reduction, as the JAX package computes it in XLA.
+:func:`flash_attention` is differentiable through :class:`FlashAttention`.
+
+The kernels read q, k, v and dO through their strides (only the head dim
+must be contiguous), so the fused-QKV projection's q|k|v column slices go in
+without a copy, and they write ``out``, dq, dk and dv into (B, L, H, D)
+memory returned as (B, H, L, D) views, so merging heads afterwards is free.
 
 Not ported yet (see ROADMAP.md): additive bias, causal and segment-id
-masks, and the backward kernels.
+masks, forward and backward.
 """
 
 from __future__ import annotations
@@ -25,8 +34,10 @@ import torch
 
 from . import _build
 
-# head dims the kernel is instantiated for: padded to 48, 80 or 512
-_KERNEL_HEAD_DIMS = (40, 48, 72, 80, 512)
+# head dims the forward kernel is instantiated for: padded to 48, 80, 128
+# or 512; the backward kernels take head dim 128 (tiny-SD's UNet)
+_KERNEL_HEAD_DIMS = (40, 48, 72, 80, 128, 512)
+_BWD_HEAD_DIMS = (128,)
 
 
 def flash_attention_plain(q, k, v, scale: Optional[float] = None):
@@ -42,6 +53,24 @@ def flash_attention_plain(q, k, v, scale: Optional[float] = None):
     return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
+def flash_attention_bwd_plain(q, k, v, out, lse, g,
+                              scale: Optional[float] = None):
+    """(dq, dk, dv) in plain PyTorch, the kernels' contract: P rebuilt in
+    fp32 as exp(scale·QKᵀ − lse), delta = Σ_d dO·out in fp32, and P and dS
+    cast to the input dtype before the products that take them."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse[..., None])
+    delta = (gf * out.float()).sum(-1, keepdim=True)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), gf)
+    ds = (p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta)).to(q.dtype)
+    dq = torch.matmul(ds.float(), kf) * scale
+    dk = torch.matmul(ds.float().transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_operand(name, x, like):
     if x.device != like.device or x.dtype != like.dtype:
         raise ValueError(f"{name} must be on {like.device} in {like.dtype}")
@@ -52,31 +81,47 @@ def _check_operand(name, x, like):
         raise ValueError(f"{name} is not 16-byte aligned")
 
 
-def flash_attention_cuda(q, k, v, scale: Optional[float] = None):
-    """The CUDA kernel: (out, lse) for bf16 (B, H, L, D) CUDA tensors."""
+def _check_qkv(q, k, v, fn, head_dims):
+    """(b, h, lq, lk, d) after the checks every kernel wrapper makes."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, L, D)")
     if not q.is_cuda:
-        raise ValueError("flash_attention_cuda needs CUDA tensors")
+        raise ValueError(f"{fn} needs CUDA tensors")
     if q.dtype != torch.bfloat16:
-        raise TypeError(f"the flash kernel takes bf16, not {q.dtype}")
+        raise TypeError(f"the flash kernels take bf16, not {q.dtype}")
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if k.shape != (b, h, lk, d) or v.shape != k.shape or lk == 0:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"head dim {d}: the kernel takes "
-                                  f"{_KERNEL_HEAD_DIMS}")
+    if d not in head_dims:
+        raise NotImplementedError(f"head dim {d}: {fn} takes {head_dims}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, q)
+    return b, h, lq, lk, d
+
+
+def _blhd(like, n):
+    """Empty (B, H, n, D) view of (B, n, H, D) memory."""
+    b, h, _, d = like.shape
+    return torch.empty((b, n, h, d), device=like.device,
+                       dtype=like.dtype).transpose(1, 2)
+
+
+def _strides(*xs):
+    return (ctypes.c_longlong * (3 * len(xs)))(
+        *(s for x in xs for s in x.stride()[:3]))
+
+
+def flash_attention_cuda(q, k, v, scale: Optional[float] = None):
+    """The CUDA kernel: (out, lse) for bf16 (B, H, L, D) CUDA tensors."""
+    b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_cuda",
+                                 _KERNEL_HEAD_DIMS)
     if scale is None:
         scale = d ** -0.5
-    out = torch.empty((b, lq, h, d), device=q.device,
-                      dtype=q.dtype).transpose(1, 2)
+    out = _blhd(q, lq)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for x in (q, k, v, out) for s in x.stride()[:3]))
+    strides = _strides(q, k, v, out)
     lib = _build.load()
     err = lib.fdsd_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -97,10 +142,107 @@ def flash_attention_forward(q, k, v, scale: Optional[float] = None):
     return flash_attention_plain(q, k, v, scale)
 
 
+def _check_bwd(q, k, v, g, lse, delta):
+    dims = _check_qkv(q, k, v, "the flash backward kernels", _BWD_HEAD_DIMS)
+    _check_operand("dO", g, q)
+    if g.shape != q.shape:
+        raise ValueError(f"dO {tuple(g.shape)} must be {tuple(q.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (x.shape != q.shape[:3] or x.dtype != torch.float32
+                or not x.is_contiguous() or x.device != q.device):
+            raise ValueError(f"{name} must be contiguous fp32 (B, H, Lq)")
+    return dims
+
+
+def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
+                                scale: Optional[float] = None):
+    """K3: dq from bf16 CUDA q, k, v, dO (= ``g``) and fp32 (B, H, Lq)
+    ``lse`` and ``delta`` = Σ_d dO·out."""
+    b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta)
+    scale = d ** -0.5 if scale is None else scale
+    dq = _blhd(q, lq)
+    strides = _strides(q, k, v, g, dq)
+    err = _build.load().fdsd_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, lq, lk, d,
+        ctypes.cast(strides, ctypes.c_void_p), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "fdsd_flash_bwd_dq")
+    flash_attention_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
+                                 scale: Optional[float] = None):
+    """K4: (dk, dv) from the inputs of :func:`flash_attention_bwd_dq_cuda`."""
+    b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta)
+    scale = d ** -0.5 if scale is None else scale
+    dk, dv = _blhd(k, lk), _blhd(v, lk)
+    strides = _strides(q, k, v, g, dk, dv)
+    err = _build.load().fdsd_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+        lq, lk, d, ctypes.cast(strides, ctypes.c_void_p), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "fdsd_flash_bwd_dkv")
+    flash_attention_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq_cuda.launches = 0
+flash_attention_bwd_dkv_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, g,
+                             scale: Optional[float] = None):
+    """(dq, dk, dv) for bf16 CUDA tensors through K3 and K4, with ``out``
+    and ``lse`` from :func:`flash_attention_cuda` and ``g`` = dO. A dO whose
+    head dim is not contiguous (or whose other strides are not multiples
+    of 8) is copied first; the kernels read it through its strides
+    otherwise. delta = Σ_d dO·out is a plain fp32 reduction."""
+    if out.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} must be {tuple(q.shape)}")
+    g = g.to(q.dtype)
+    if (g.stride(-1) != 1 or any(s % 8 for s in g.stride()[:-1])
+            or g.data_ptr() % 16):
+        g = g.contiguous()
+    delta = (g.float() * out.float()).sum(-1)
+    lse = lse.contiguous()
+    dq = flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta, scale)
+    return (dq, *flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta, scale))
+
+
+def flash_attention_backward(q, k, v, out, lse, g,
+                             scale: Optional[float] = None):
+    """(dq, dk, dv): the kernels on CUDA tensors, the plain version on CPU."""
+    if q.is_cuda:
+        return flash_attention_bwd_cuda(q, k, v, out, lse, g, scale)
+    return flash_attention_bwd_plain(q, k, v, out, lse, g, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: :func:`flash_attention_forward`, saving q, k, v, out, lse.
+    Backward: :func:`flash_attention_backward` (the JAX ``_vjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, out, lse, g, ctx.scale),
+                None)
+
+
 def flash_attention(q, k, v, bias=None, segment_ids=None,
                     causal: bool = False, scale: Optional[float] = None):
-    """Flash attention over (B, H, L, D); returns (B, H, Lq, D)."""
+    """Flash attention over (B, H, L, D); returns (B, H, Lq, D).
+    Differentiable in q, k and v."""
     if bias is not None or segment_ids is not None or causal:
         raise NotImplementedError(
             "bias, segment_ids and causal masks are not ported yet")
-    return flash_attention_forward(q, k, v, scale)[0]
+    return FlashAttention.apply(q, k, v, scale)

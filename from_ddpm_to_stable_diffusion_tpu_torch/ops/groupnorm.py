@@ -7,6 +7,11 @@ Pallas kernel is a TPU measurement and is not carried over. On a CPU tensor
 it runs the plain versions, which follow the JAX package's XLA formulas per
 dtype: two-pass fp32 statistics for fp32 input, one-pass E[x²]−E[x]²
 (clamped at 0) for bf16 input.
+
+:func:`group_norm` is differentiable through :class:`GroupNormFunction`,
+whose backward is :func:`group_norm_bwd_plain`, the port of the JAX
+package's ``_fused_bwd``. That backward is XLA code there, not a Pallas
+kernel, so plain PyTorch is its counterpart here on every device.
 """
 
 from __future__ import annotations
@@ -125,13 +130,8 @@ def group_norm_cuda(x, num_groups, scale, bias, eps=1e-5, act=None):
 group_norm_cuda.launches = 0
 
 
-def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
-               bias: torch.Tensor, eps: float = 1e-5,
-               act: Optional[str] = None) -> torch.Tensor:
-    """GroupNorm over the last (channel) axis of an N...C tensor, fp32
-    statistics, output in the input dtype; ``act='silu'`` fuses the SiLU."""
-    if x.shape[-1] % num_groups:
-        raise ValueError(f"C={x.shape[-1]} is not a multiple of {num_groups}")
+def group_norm_forward(x, num_groups, scale, bias, eps=1e-5, act=None):
+    """The kernel on a CUDA tensor, the plain version of x's dtype on CPU."""
     if x.is_cuda:
         return group_norm_cuda(x.contiguous(), num_groups,
                                scale.float().contiguous(),
@@ -139,6 +139,63 @@ def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
     if x.dtype == torch.bfloat16:
         return group_norm_plain_one_pass(x, num_groups, scale, bias, eps, act)
     return group_norm_plain(x, num_groups, scale, bias, eps, act)
+
+
+def group_norm_bwd_plain(x, scale, bias, dy, num_groups, eps=1e-5, act=None):
+    """(dx, dscale, dbias) of :func:`group_norm` (JAX ``_fused_bwd``):
+    recomputes one-pass fp32 statistics with per-channel partials, the
+    variance clamped at 0, and follows the SiLU chain when ``act='silu'``."""
+    b, c = x.shape[0], x.shape[-1]
+    cg = c // num_groups
+    xf = x.reshape(b, -1, c).float()
+    n = xf.shape[1] * cg
+
+    def group_mean(v):                    # (B, S, C) -> (B, 1, C)
+        g = v.sum(dim=1).reshape(b, num_groups, cg).sum(-1) / n
+        return g.repeat_interleave(cg, dim=-1)[:, None, :]
+
+    mean_c = group_mean(xf)
+    var_c = group_mean(xf * xf) - mean_c * mean_c
+    inv_c = torch.rsqrt(torch.clamp(var_c, min=0.0) + eps)
+    xhat = (xf - mean_c) * inv_c
+    dyf = dy.reshape(b, -1, c).float()
+    if act == "silu":
+        z = xhat * scale.float() + bias.float()
+        sig = torch.sigmoid(z)
+        dyf = dyf * sig * (1.0 + z * (1.0 - sig))
+    dscale = (dyf * xhat).sum(dim=(0, 1)).to(scale.dtype)
+    dbias = dyf.sum(dim=(0, 1)).to(bias.dtype)
+    dxhat = dyf * scale.float()
+    dx = inv_c * (dxhat - group_mean(dxhat) - xhat * group_mean(dxhat * xhat))
+    return dx.reshape(x.shape).to(x.dtype), dscale, dbias
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """Forward: :func:`group_norm_forward`, saving x, scale and bias.
+    Backward: :func:`group_norm_bwd_plain` (the JAX ``_fused_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, act):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.cfg = (num_groups, eps, act)
+        return group_norm_forward(x, num_groups, scale, bias, eps, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias = ctx.saved_tensors
+        return (*group_norm_bwd_plain(x, scale, bias, dy, *ctx.cfg),
+                None, None, None)
+
+
+def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
+               bias: torch.Tensor, eps: float = 1e-5,
+               act: Optional[str] = None) -> torch.Tensor:
+    """GroupNorm over the last (channel) axis of an N...C tensor, fp32
+    statistics, output in the input dtype; ``act='silu'`` fuses the SiLU.
+    Differentiable in x, scale and bias."""
+    if x.shape[-1] % num_groups:
+        raise ValueError(f"C={x.shape[-1]} is not a multiple of {num_groups}")
+    return GroupNormFunction.apply(x, scale, bias, num_groups, eps, act)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):

@@ -1,12 +1,18 @@
-"""SD1 noise / sigma schedules, host numpy in float64.
+"""Noise and sigma schedules, host numpy in float64 (port of
+``ops/schedules.py``).
 
-Copies of the four table builders of
-``from_ddpm_to_stable_diffusion_tpu/ops/schedules.py`` that the k-LMS path
-needs (the JAX module cannot be imported without jax). The tests hold them
-against the JAX functions and ``tests/goldens/goldens.npz``.
+Copies of the table builders of
+``from_ddpm_to_stable_diffusion_tpu/ops/schedules.py`` that the k-LMS and
+DDPM paths need (the JAX module cannot be imported without jax), and the
+warmup-cosine learning rate as a plain function of the update count. The
+tests hold them against the JAX functions and ``tests/goldens/goldens.npz``.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -58,3 +64,54 @@ def lms_coefficients(sigmas: np.ndarray, order: int = 4, start_step: int = 0,
                     y *= (x - sigmas[t - j]) / (sigmas[t - i] - sigmas[t - j])
             table[t, i] = _trapezoid(y=y, x=x)
     return table
+
+
+@dataclasses.dataclass(frozen=True)
+class DDPMTables:
+    """DDPM q-sample / ancestral-sampling coefficients, (T,) float32 each."""
+
+    betas: np.ndarray
+    sqrt_alphas_bar: np.ndarray           # √ᾱ, q-sample signal coefficient
+    sqrt_one_minus_alphas_bar: np.ndarray  # √(1−ᾱ), q-sample noise coefficient
+    coeff1: np.ndarray                    # √(1/α)
+    coeff2: np.ndarray                    # coeff1·(1−α)/√(1−ᾱ)
+    posterior_var: np.ndarray             # β·(1−ᾱ_{t−1})/(1−ᾱ)
+    sampler_var: np.ndarray               # [posterior_var[1], betas[1:]]
+
+
+def ddpm_tables(beta_1: float, beta_T: float, T: int) -> DDPMTables:
+    """β linear in [β₁, β_T]; everything derived in float64, stored float32."""
+    betas = np.linspace(beta_1, beta_T, T, dtype=np.float64)
+    alphas = 1.0 - betas
+    alphas_bar = np.cumprod(alphas)
+    alphas_bar_prev = np.concatenate([[1.0], alphas_bar[:-1]])
+    coeff1 = np.sqrt(1.0 / alphas)
+    coeff2 = coeff1 * (1.0 - alphas) / np.sqrt(1.0 - alphas_bar)
+    posterior_var = betas * (1.0 - alphas_bar_prev) / (1.0 - alphas_bar)
+    sampler_var = np.concatenate([posterior_var[1:2], betas[1:]])
+    f32 = lambda a: a.astype(np.float32)
+    return DDPMTables(
+        betas=f32(betas), sqrt_alphas_bar=f32(np.sqrt(alphas_bar)),
+        sqrt_one_minus_alphas_bar=f32(np.sqrt(1.0 - alphas_bar)),
+        coeff1=f32(coeff1), coeff2=f32(coeff2),
+        posterior_var=f32(posterior_var), sampler_var=f32(sampler_var))
+
+
+def cosine_warmup_lr(base_lr: float, max_lr: float, warmup_epochs: int,
+                     total_epochs: int, steps_per_epoch: int = 1,
+                     min_lr: Optional[float] = None) -> Callable[[int], float]:
+    """``schedule(count) -> lr``: epoch-granular linear warmup base→max, then
+    a cosine anneal to ``min_lr`` (0). ``count`` is the number of optimizer
+    updates made before this one, so the first update uses ``base_lr``."""
+    min_lr = 0.0 if min_lr is None else min_lr
+    cosine_epochs = max(total_epochs - warmup_epochs, 1)
+
+    def schedule(count: int) -> float:
+        epoch = count // steps_per_epoch
+        if epoch < warmup_epochs:
+            return base_lr + (max_lr - base_lr) * epoch / max(warmup_epochs, 1)
+        progress = min(max((epoch - warmup_epochs) / cosine_epochs, 0.0), 1.0)
+        return min_lr + 0.5 * (max_lr - min_lr) * (1 + math.cos(math.pi
+                                                              * progress))
+
+    return schedule

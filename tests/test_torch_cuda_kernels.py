@@ -8,6 +8,13 @@ They import nothing of JAX, so on a machine without it run them as
 Tolerances: bf16 outputs to 2e-2 absolute (the bf16 flash tolerance of
 tests/test_flash_attention.py), lse to 1e-3; GroupNorm bf16 to two bf16
 ulps (rtol = atol = 1.6e-2), fp32 to 1e-4 against the two-pass version.
+Flash backward (K3 dq, K4 dk and dv), bf16 against the plain backward on
+the same inputs: each gradient to 2e-2 of its largest magnitude, five bf16
+ulps (both round P and dS to bf16 before their products and their outputs
+to bf16, so they differ by output roundings, a few flipped roundings of P
+and dS, and the fp32 summation order). The GroupNorm autograd backward is
+plain PyTorch on every device: on the card it must equal the same function
+on the same tensors.
 """
 
 import pytest
@@ -35,7 +42,8 @@ def _randn(gen, *shape, dtype=torch.bfloat16):
 @pytest.mark.parametrize("b,h,lq,lk,d", [
     (1, 1, 64, 64, 40), (2, 3, 100, 130, 40), (1, 2, 257, 63, 48),
     (2, 2, 65, 1000, 80), (1, 4, 128, 192, 72), (1, 1, 33, 77, 80),
-    (2, 1, 100, 300, 512)])
+    (2, 1, 100, 300, 512), (1, 2, 1000, 777, 128), (2, 1, 33, 200, 128),
+    (1, 1, 130, 17, 128)])
 def test_flash_kernel_matches_plain(gen, b, h, lq, lk, d):
     q, k, v = (_randn(gen, b, h, n, d) for n in (lq, lk, lk))
     out, lse = tfa.flash_attention_cuda(q, k, v)
@@ -70,6 +78,77 @@ def test_flash_kernel_refuses_what_it_does_not_take(gen):
         tfa.flash_attention_cuda(q, q[..., 1:9], q[..., 1:9])
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(q, q, q, causal=True)
+    q80 = _randn(gen, 1, 1, 64, 80)
+    out, lse = tfa.flash_attention_cuda(q80, q80, q80)
+    with pytest.raises(NotImplementedError):   # no backward at d=80
+        tfa.flash_attention_bwd_cuda(q80, q80, q80, out, lse, q80)
+
+
+def _bwd_close(got, want):
+    for a, w in zip(got, want):
+        a, w = a.float(), w.float()
+        tol = 2e-2 * w.abs().max().item()
+        assert (a - w).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("b,h,lq,lk", [
+    (1, 2, 1000, 777), (2, 1, 40, 40), (1, 1, 63, 200), (1, 2, 300, 50),
+    (1, 1, 4096, 64)])
+def test_flash_backward_kernels_match_plain(gen, b, h, lq, lk):
+    """Ragged Lq and Lk, L < 64, Lq != Lk, at head dim 128."""
+    d = 128
+    q, g = (_randn(gen, b, h, lq, d) for _ in range(2))
+    k, v = (_randn(gen, b, h, lk, d) for _ in range(2))
+    out, lse = tfa.flash_attention_cuda(q, k, v)
+    n3 = tfa.flash_attention_bwd_dq_cuda.launches
+    n4 = tfa.flash_attention_bwd_dkv_cuda.launches
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+    assert tfa.flash_attention_bwd_dq_cuda.launches == n3 + 1
+    assert tfa.flash_attention_bwd_dkv_cuda.launches == n4 + 1
+    for a, x in zip(got, (q, k, v)):
+        assert a.dtype == torch.bfloat16 and a.shape == x.shape
+    _bwd_close(got, tfa.flash_attention_bwd_plain(q, k, v, out, lse, g))
+
+
+def test_flash_backward_reads_strided_slices_and_dout(gen):
+    """q|k|v column slices of one fused projection and a dO that is a
+    (B, H, L, D) view of (B, L, H·D) memory, and one that is not
+    contiguous in the head dim (copied first)."""
+    b, l, h, d = 2, 600, 2, 128
+    qkv = _randn(gen, b, l, 3 * h * d)
+    q, k, v = (t.reshape(b, l, h, d).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+    out, lse = tfa.flash_attention_cuda(q, k, v)
+    g = _randn(gen, b, l, h * d).reshape(b, l, h, d).transpose(1, 2)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g)
+    _bwd_close(tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g), want)
+    g_t = g.contiguous().transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert g_t.stride(-1) != 1
+    _bwd_close(tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g_t), want)
+
+
+def test_flash_autograd_launches_the_kernels(gen):
+    """Through attention dispatch and autograd, as the trainer runs it."""
+    b, l, h, d = 2, 1024, 2, 128
+    qkv = _randn(gen, b, l, 3 * h * d).requires_grad_()
+    counts = lambda: (tfa.flash_attention_cuda.launches,
+                      tfa.flash_attention_bwd_dq_cuda.launches,
+                      tfa.flash_attention_bwd_dkv_cuda.launches)
+    n = counts()
+    q, k, v = qkv.chunk(3, dim=-1)
+    out = tattn.multi_head_attention(q, k, v, h)
+    g = _randn(gen, b, l, h * d)
+    out.backward(g)
+    assert counts() == (n[0] + 1, n[1] + 1, n[2] + 1)
+    ref = qkv.detach().clone().requires_grad_()
+    rq, rk, rv = (t.reshape(b, l, h, d).transpose(1, 2)
+                  for t in ref.chunk(3, dim=-1))
+    ro, rl = tfa.flash_attention_plain(rq, rk, rv)
+    want = tfa.flash_attention_bwd_plain(rq, rk, rv, ro, rl,
+                                         g.reshape(b, l, h, d).transpose(1, 2))
+    got = [t.reshape(b, l, h, d).transpose(1, 2)
+           for t in qkv.grad.chunk(3, dim=-1)]
+    _bwd_close(got, want)
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 7, 320), (1, 16, 16, 960),
@@ -94,3 +173,23 @@ def test_group_norm_kernel_matches_plain(gen, shape, dtype, act):
         ref = tgn.group_norm_plain_one_pass(x, 32, scale, bias, 1e-5, act)
         torch.testing.assert_close(got.float(), ref.float(), rtol=1.6e-2,
                                    atol=1.6e-2)
+
+
+@pytest.mark.parametrize("shape,act", [((4, 16, 16, 128), "silu"),
+                                       ((2, 8, 8, 256), None)])
+def test_group_norm_autograd_on_the_card(gen, shape, act):
+    """Forward through K2, backward the plain ``_fused_bwd`` port."""
+    c = shape[-1]
+    x = (_randn(gen, *shape, dtype=torch.float32) * 2 + 0.5).to(
+        torch.bfloat16).requires_grad_()
+    scale = (1.0 + 0.1 * _randn(gen, c, dtype=torch.float32)).requires_grad_()
+    bias = (0.1 * _randn(gen, c, dtype=torch.float32)).requires_grad_()
+    dy = _randn(gen, *shape)
+    n = tgn.group_norm_cuda.launches
+    tgn.group_norm(x, 32, scale, bias, 1e-5, act).backward(dy)
+    assert tgn.group_norm_cuda.launches == n + 1
+    want = tgn.group_norm_bwd_plain(x.detach(), scale.detach(),
+                                    bias.detach(), dy, 32, 1e-5, act)
+    for a, w in zip((x.grad, scale.grad, bias.grad), want):
+        assert a.dtype == w.dtype
+        torch.testing.assert_close(a, w, rtol=0, atol=0)

@@ -281,11 +281,14 @@ def test_kernel_wrappers_take_only_cuda_tensors():
 
 
 def test_port_never_imports_jax():
+    port = "from_ddpm_to_stable_diffusion_tpu_torch"
+    modules = ["pipelines.sd1", "pipelines.ddpm_trainer", "io.from_jax",
+               "io.data", "models.tiny_unet", "samplers.ddpm",
+               "utils.config"]
     code = ("import sys\n"
-            "import from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1\n"
-            "import from_ddpm_to_stable_diffusion_tpu_torch.io.from_jax\n"
+            + "".join(f"import {port}.{m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'flax', 'regex'))\n"
+            "             ('jax', 'jaxlib', 'flax', 'regex', 'yaml'))\n"
             "assert not bad, bad\n"
             "assert 'from_ddpm_to_stable_diffusion_tpu' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
