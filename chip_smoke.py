@@ -11,30 +11,46 @@ two summary lines:
 2. build: builds the CUDA kernels from ``csrc/`` (nvcc) and prints the time
    and ptxas's register, spill and shared-memory lines.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the SD1 and tiny-SD paths give it, in bf16 (and GroupNorm in
-   fp32), with max errors and both times: K1 flash forward, K2 GroupNorm,
-   K3 / K4 flash backward (dq; dk and dv), and the GroupNorm backward.
+   the shapes the SD1, tiny-SD and SD3 paths give it, in bf16 (and
+   GroupNorm in fp32), with max errors, both times, the least time the card
+   could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16,
+   whichever is larger) and the time of the one PyTorch call that computes
+   the same function (a yardstick only; nothing in the port calls it): K1
+   flash forward, K2 GroupNorm, K3 / K4 flash backward (dq; dk and dv), K5
+   position-masked flash forward (the four SD3 shapes, online and bounded;
+   two-segment causal / valid_len masks, a ragged key tail, head dim 128,
+   fully masked rows; the joint attention over 154 + 4096 tokens against
+   plain attention over the concatenated sequence), and the GroupNorm
+   backward.
 4. SD1: full-width SD1 (CLIP, 860M UNet, VAE decoder) with random weights
    from a seed, ``SD1Generator`` at 512x512, 50 k-LMS steps, CFG 7.5: two
    batch-1 requests, then one batch-4 request. Checks the images, the final
    latents, and the kernel launch counts of every request.
-5. training: the tiny-SD ``DDPMTrainer`` at ``TinySDConfig()`` defaults
+5. SD3: full-width SD3-medium (CLIP-L, CLIP-G, T5-XXL, the depth-24 MMDiT,
+   the 16-channel VAE decoder; random weights from a seed, bf16, all
+   resident), ``SD3Inferencer.gen_image`` at 1024x1024, 50 flow-Euler
+   steps, CFG 5, shift 3, zero tokens: a cold request, a warm timed one and
+   a profiled one (device time by kernel family, device idle share).
+   Checks the images, the final latents and the launches of K5 (4 per
+   block), K1 (the VAE's mid attention) and K2 per request.
+6. training: the tiny-SD ``DDPMTrainer`` at ``TinySDConfig()`` defaults
    (64x64, batch 32, base 128 x [1,2,2,2], 3 classes, dropout 0.1, bf16
    over fp32 parameters, AdamW, clip 1.0, warmup-cosine LR) on
    ``SyntheticImageDataset``: warm-up steps, timed steps (CUDA events),
    profiled steps (device time by kernel family, device idle share).
    Checks finite losses and gradients, moved parameters, and the launches
    of K1, K3, K4 and K2 per step.
-6. gradient check: loss and gradient of one batch of 4 on the card (bf16,
+7. gradient check: loss and gradient of one batch of 4 on the card (bf16,
    kernels) against the same weights and inputs on the CPU (fp32, plain
    versions), dropout off, as relative L2 errors of the whole flattened
    gradient and of each self-attention leaf of the six flash blocks; then
    the same check on two planted faults of the flash backward (dk and dv
    swapped; dq without its scale), which it must catch.
-7. sampling: ``trainer.sample`` of 4 labels, CFG as one batch-8 forward,
-   T = 1000; checks the images and the launches.
+8. sampling: ``DDPMTrainer.sample`` of 4 labels, CFG as one batch-8
+   forward, over T = 250 steps (the trained weights under a config with a
+   shorter chain, to keep the run short); checks the images and the launches.
 
-Every kernel's launch count is set to 0 just before each of the SD1,
+Every kernel's launch count is set to 0 just before each of the SD1, SD3,
 training and sampling phases and read just after. The last two lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
 card's name and power limit come on the line before them. Imports nothing
@@ -61,8 +77,17 @@ K2_PER_REQUEST = 61 * 50 + 30
 # dec7 at 64^2; enc3, dec4, dec5 at 32^2) take K1, and their backward K3
 # and K4; 39 GroupNorms (28 in 14 ResBlocks, 10 TransformerBlock norm_in,
 # the tail). The GroupNorm backward is plain PyTorch, so no K2 there.
-TRAIN_PER_STEP = dict(K1=6, K3=6, K4=6, K2=39)
-SAMPLE_T = 1000
+TRAIN_PER_STEP = dict(K1=6, K3=6, K4=6, K2=39, K5=0)
+SAMPLE_T = 250
+# SD3 request: 4 position-masked flash calls (context and x queries against
+# context and x keys) in each of 24 joint blocks x 50 steps; the VAE
+# decoder's one mid attention over 128 x 128 tokens takes K1; 30 GroupNorms
+# in the decoder (2 in each of 14 res blocks, the attention's, the tail).
+SD3_DEPTH, SD3_STEPS = 24, 50
+SD3_PER_REQUEST = dict(K1=1, K2=30, K3=0, K4=0, K5=4 * SD3_DEPTH * SD3_STEPS)
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16, data sheet
+PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
+PEAK_BYTES = 3.35e12       # HBM3
 TPU_KERNELS = "from_ddpm_to_stable_diffusion_tpu/ops/"
 # Relative L2 error of the flattened gradient, card (bf16 compute, kernels)
 # against CPU (fp32, plain versions). bf16 keeps 8 significant bits, so
@@ -123,7 +148,8 @@ def kernel_counters():
 
     return dict(K1=fa.flash_attention_cuda, K2=gn.group_norm_cuda,
                 K3=fa.flash_attention_bwd_dq_cuda,
-                K4=fa.flash_attention_bwd_dkv_cuda)
+                K4=fa.flash_attention_bwd_dkv_cuda,
+                K5=fa.flash_attention_pos_cuda)
 
 
 def reset_counts():
@@ -150,15 +176,38 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def attn_bound(b, h, lq, lk, d, n_products=2, n_q_like=2, n_k_like=2,
+               n_stats=1):
+    """Unmasked attention-shaped work in bf16: ``n_products`` Lq x Lk x d
+    products (2 flop per multiply-add), ``n_q_like`` (Lq, d) and
+    ``n_k_like`` (Lk, d) bf16 tensors and ``n_stats`` fp32 (Lq,) row
+    statistics, each moved once."""
+    flops = 2.0 * n_products * b * h * lq * lk * d
+    nbytes = b * h * (2.0 * d * (n_q_like * lq + n_k_like * lk)
+                      + 4.0 * n_stats * lq)
+    return bound(flops, nbytes)
+
+
 def _close(a, b, rtol, atol):
     a, b = a.float(), b.float()
     return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
 
 
 def phase_kernels(card):
-    """Each kernel against its plain version at the path's shapes."""
+    """Each kernel against its plain version at the paths' shapes, with its
+    bound and the library call's time. Returns, per kernel, the largest
+    error over all cases and the times at the shape reported for it."""
     import torch
+    import torch.nn.functional as F
 
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import attention as attn
     from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
     from from_ddpm_to_stable_diffusion_tpu_torch.ops import groupnorm as gn
 
@@ -167,13 +216,28 @@ def phase_kernels(card):
     bf16 = torch.bfloat16
     results = {}
 
+    def record(name, err, report, **times):
+        r = results.setdefault(name, dict(err=0.0))
+        r["err"] = max(r["err"], err)
+        if report:
+            r.update(times)
+
+    def tail(ms, plain_ms, bound_ms, bound_by, library_ms):
+        return (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                f"{100 * bound_ms / ms:.1f} % of it reached) [{card}]")
+
+    sdpa = F.scaled_dot_product_attention
+
     # K1: q, k, v are column slices of one fused projection, as on the path.
+    # The first case is the one reported (SD1 UNet at 64^2); the last but
+    # one is the SD3 VAE's mid attention over 128 x 128 tokens.
     attn_cases = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
                   (1, 1, 4096, 4096, 512), (1, 2, 1000, 777, 80),
                   (32, 1, 4096, 4096, 128), (32, 2, 1024, 1024, 128),
-                  (1, 2, 1000, 777, 128)]
-    k1 = dict(err=0.0, ms=None, plain_ms=None)
-    for b, h, lq, lk, d in attn_cases:
+                  (1, 2, 1000, 777, 128), (1, 1, 16384, 16384, 512)]
+    bwd_reported = False
+    for i, (b, h, lq, lk, d) in enumerate(attn_cases):
         split = lambda x, n: [t.reshape(b, n, h, d).transpose(1, 2)
                               for t in x.chunk(x.shape[-1] // (h * d), -1)]
         q = split(rnd(b, lq, h * d).to(bf16), lq)[0]
@@ -183,63 +247,73 @@ def phase_kernels(card):
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
-        ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v))
-        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 5, 1)
+        del ref, ref_lse
+        times = dict(zip(("bound_ms", "bound_by"), attn_bound(b, h, lq, lk, d)),
+                     ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v)),
+                     plain_ms=cuda_ms(
+                         lambda: fa.flash_attention_plain(q, k, v), 5, 1),
+                     library_ms=cuda_ms(lambda: sdpa(q, k, v), 10, 2))
         print(f"K1 flash fwd (B,H,Lq,Lk,D)=({b},{h},{lq},{lk},{d}) bf16: "
               f"max|out err|={err:.3e} (atol 2e-2) max|lse err|="
-              f"{lse_err:.3e} (atol 1e-3); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms [{card}]", flush=True)
+              f"{lse_err:.3e} (atol 1e-3); {tail(**times)}", flush=True)
         check(err <= 2e-2 and lse_err <= 1e-3,
               f"K1 disagrees at {(b, h, lq, lk, d)}: {err} / {lse_err}")
-        k1["err"] = max(k1["err"], err)
-        if k1["ms"] is None:          # report the SD1 64^2 UNet shape
-            k1["ms"], k1["plain_ms"] = ms, plain_ms
-        if d == 128:
-            bwd_errs = phase_kernels_bwd(card, q, k, v, out, lse, gen)
-            for name, e in bwd_errs.items():
-                results.setdefault(name, dict(err=0.0, ms=None,
-                                              plain_ms=None))
-                r = results[name]
-                r["err"] = max(r["err"], e["err"])
-                if r["ms"] is None:   # report the tiny-SD 64^2 shape
-                    r["ms"], r["plain_ms"] = e["ms"], e["plain_ms"]
-    results["K1"] = k1
+        record("K1", err, i == 0, **times)
+        if d == 128:    # the first of them (tiny-SD at 64^2) is reported
+            for name, e in phase_kernels_bwd(card, q, k, v, out, lse, gen,
+                                             tail).items():
+                record(name, e.pop("err"), not bwd_reported, **e)
+            bwd_reported = True
 
     fp32 = torch.float32
+    # The first case is the one reported (SD1 UNet at 64^2); the last two
+    # are the largest and the widest GroupNorm of the SD3 VAE decoder.
     gn_cases = [((2, 64, 64, 320), "silu", bf16),
                 ((2, 32, 32, 640), "silu", bf16),
                 ((2, 8, 8, 1280), "silu", bf16),
                 ((8, 64, 64, 320), "silu", bf16),
                 ((1, 512, 512, 128), None, bf16),
                 ((1, 512, 512, 128), None, fp32),
-                ((32, 64, 64, 128), "silu", bf16)]
-    k2 = dict(err=0.0, ms=None, plain_ms=None)
-    for shape, act, dtype in gn_cases:
+                ((32, 64, 64, 128), "silu", bf16),
+                ((1, 1024, 1024, 128), "silu", bf16),
+                ((1, 128, 128, 512), "silu", bf16)]
+    for i, (shape, act, dtype) in enumerate(gn_cases):
         c = shape[-1]
         x = (rnd(*shape) * 2.0 + 0.5).to(dtype)
         scale = 1.0 + 0.1 * rnd(c)
         bias = 0.1 * rnd(c)
         y = gn.group_norm_cuda(x, 32, scale, bias, 1e-5, act)
         if dtype == fp32:
-            ref = gn.group_norm_plain(x, 32, scale, bias, 1e-5, act)
             rtol, atol, plain = 0.0, 1e-4, gn.group_norm_plain
         else:
-            ref = gn.group_norm_plain_one_pass(x, 32, scale, bias, 1e-5, act)
             rtol, atol, plain = 1.6e-2, 1.6e-2, gn.group_norm_plain_one_pass
+        ref = plain(x, 32, scale, bias, 1e-5, act)
         torch.cuda.synchronize()
         err = (y.float() - ref.float()).abs().max().item()
-        ms = cuda_ms(lambda: gn.group_norm_cuda(x, 32, scale, bias, 1e-5, act))
-        plain_ms = cuda_ms(lambda: plain(x, 32, scale, bias, 1e-5, act), 5, 1)
+        ok = _close(y, ref, rtol, atol)
+        del ref
+        x_nchw, w, bb = x.permute(0, 3, 1, 2), scale.to(dtype), bias.to(dtype)
+        if act == "silu":
+            library = lambda: F.silu(F.group_norm(x_nchw, 32, w, bb, 1e-5))
+        else:
+            library = lambda: F.group_norm(x_nchw, 32, w, bb, 1e-5)
+        # x read and y written once; ~10 fp32 operations per element
+        # (statistics, normalise, affine, SiLU) outside the tensor cores
+        times = dict(zip(("bound_ms", "bound_by"),
+                         bound(10.0 * x.numel(),
+                               2.0 * x.numel() * x.element_size() + 8.0 * c,
+                               PEAK_FP32_FLOPS)),
+                     ms=cuda_ms(lambda: gn.group_norm_cuda(x, 32, scale, bias,
+                                                           1e-5, act)),
+                     plain_ms=cuda_ms(lambda: plain(x, 32, scale, bias, 1e-5,
+                                                    act), 5, 1),
+                     library_ms=cuda_ms(library, 10, 2))
         name = "fp32 two-pass" if dtype == fp32 else "bf16 one-pass"
         print(f"K2 group norm {shape} act={act} {dtype} vs plain {name}: "
-              f"max|err|={err:.3e} (rtol {rtol}, atol {atol}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]", flush=True)
-        check(_close(y, ref, rtol, atol), f"K2 disagrees at {shape} {dtype}")
-        if dtype == bf16:
-            k2["err"] = max(k2["err"], err)
-        if k2["ms"] is None:          # report the 64^2 UNet shape
-            k2["ms"], k2["plain_ms"] = ms, plain_ms
-    results["K2"] = k2
+              f"max|err|={err:.3e} (rtol {rtol}, atol {atol}); "
+              f"{tail(**times)}", flush=True)
+        check(ok, f"K2 disagrees at {shape} {dtype}")
+        record("K2", err if dtype == bf16 else 0.0, i == 0, **times)
 
     # The GroupNorm backward (a plain port of the JAX _fused_bwd, no
     # kernel) at the tiny-SD 64^2 shape, as the trainer runs it.
@@ -250,16 +324,124 @@ def phase_kernels(card):
                                                  1e-5, "silu"), 10, 2)
     print(f"GroupNorm backward (plain, autograd Function) (32,64,64,128) "
           f"act=silu bf16: {ms:.4f} ms [{card}]", flush=True)
+    del x, dy
+
+    # K5 at the four shapes of the SD3 joint attention (CFG batch 2, 24
+    # heads of 64): q, k, v are slices of the fused (B, L, 3, H, D)
+    # projections, as the MMDiT passes them. The x-by-x call is reported.
+    b, h, d = 2, 24, 64
+    z = torch.zeros(2, dtype=torch.int32, device="cuda")
+    fused = {n: rnd(b, n, 3 * h * d).to(bf16).reshape(b, n, 3, h, d)
+             for n in (154, 4096)}
+    pick = lambda n, i: fused[n][:, :, i].transpose(1, 2)
+    for lq, lk in ((154, 154), (154, 4096), (4096, 154), (4096, 4096)):
+        q, k, v = pick(lq, 0), pick(lk, 1), pick(lk, 2)
+        ref, ref_lse = fa.flash_attention_pos_plain(q, k, v, z, z)
+        plain_ms = cuda_ms(
+            lambda: fa.flash_attention_pos_plain(q, k, v, z, z), 5, 1)
+        library_ms = cuda_ms(lambda: sdpa(q, k, v), 10, 2)
+        bound_ms, bound_by = attn_bound(b, h, lq, lk, d)
+        for stability in ("online", "bounded"):
+            run = lambda: fa.flash_attention_pos_cuda(q, k, v, z, z,
+                                                      stability=stability)
+            out, lse = run()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            times = dict(ms=cuda_ms(run), plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+            print(f"K5 flash fwd pos (B,H,Lq,Lk,D)=({b},{h},{lq},{lk},{d}) "
+                  f"{stability} bf16: max|out err|={err:.3e} (atol 2e-2) "
+                  f"max|lse err|={lse_err:.3e} (atol 1e-3); {tail(**times)}",
+                  flush=True)
+            check(err <= 2e-2 and lse_err <= 1e-3, f"K5 {stability} disagrees "
+                  f"at {(b, h, lq, lk, d)}: {err} / {lse_err}")
+            record("K5", err, (lq, lk, stability) == (4096, 4096, "online"),
+                   **times)
+        del ref, ref_lse
+
+    # K5's masks at a smaller size: (B, H, Lq, Lk, D), query and key
+    # offsets, segment boundaries, causal, valid_len.
+    off = lambda a, c: torch.tensor([a, c], dtype=torch.int32, device="cuda")
+    mask_cases = [
+        ("two segments, causal", (1, 4, 1000, 1000, 64), (1000, 3000),
+         (0, 2000), 512, 500, True, None),
+        ("two segments, valid_len", (1, 4, 1000, 1000, 64), (1000, 3000),
+         (0, 2000), 512, 500, False, 2300),
+        ("two segments, causal and valid_len", (1, 4, 1000, 1000, 64),
+         (1000, 3000), (0, 2000), 512, 500, True, 2300),
+        ("ragged key tail", (2, 3, 300, 777, 64), (0, 0), (0, 0), None, None,
+         False, None),
+        ("head dim 128, causal", (1, 2, 1000, 777, 128), (500, 2000),
+         (0, 1500), 600, 400, True, None),
+        ("fully masked rows", (1, 4, 1000, 1000, 64), (100, 5000),
+         (3000, 4000), 512, 500, True, None),
+    ]
+    for what, (b_, h_, lq, lk, d_), qo, ko, seg_q, seg_k, causal, valid in \
+            mask_cases:
+        q, k, v = (rnd(b_, h_, n, d_).to(bf16) for n in (lq, lk, lk))
+        kw = dict(causal=causal, valid_len=valid, seg_q=seg_q, seg_k=seg_k)
+        ref, ref_lse = fa.flash_attention_pos_plain(q, k, v, off(*qo),
+                                                    off(*ko), **kw)
+        seen = ref_lse > -1e29
+        for stability in ("online", "bounded"):
+            out, lse = fa.flash_attention_pos_cuda(
+                q, k, v, off(*qo), off(*ko), stability=stability, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float())[seen].abs().max().item()
+            lse_err = (lse - ref_lse)[seen].abs().max().item()
+            blank = bool((lse[~seen] <= -1e29).all()) and not bool(
+                out[~seen].any())
+            print(f"K5 {what} ({b_},{h_},{lq},{lk},{d_}) {stability}: "
+                  f"max|out err|={err:.3e} (atol 2e-2) max|lse err|="
+                  f"{lse_err:.3e} (atol 1e-3) on {int(seen.sum())} rows that "
+                  f"see a key; {int((~seen).sum())} rows that see none give "
+                  f"out = 0, lse <= -1e29: {blank}", flush=True)
+            check(err <= 2e-2 and lse_err <= 1e-3 and blank,
+                  f"K5 {stability} disagrees at {what}: {err} / {lse_err} / "
+                  f"{blank}")
+            record("K5", err, False)
+        if what == "fully masked rows":
+            check(int((~seen).sum()) == 4 * 512, "expected 512 blank rows")
+
+    # The joint attention of one MMDiT block: four K5 launches and two
+    # merges against plain attention over the concatenated 4250 tokens.
+    b, h, d = 2, 24, 64
+    ctx = [pick(154, i) for i in range(3)]
+    xs = [pick(4096, i) for i in range(3)]
+    cat = [torch.cat([c_, x_], dim=2) for c_, x_ in zip(ctx, xs)]
+    ref = attn.plain_attention(*cat)
+    for stability in ("online", "bounded"):
+        run = lambda: fa.joint_flash_attention(*ctx, *xs, d ** -0.5, stability)
+        n0 = fa.flash_attention_pos_cuda.launches
+        oc, ox = run()
+        torch.cuda.synchronize()
+        check(fa.flash_attention_pos_cuda.launches == n0 + 4,
+              "joint attention did not launch K5 four times")
+        err = (torch.cat([oc, ox], dim=2).float() - ref.float()).abs().max(
+            ).item()
+        print(f"joint attention (2,24,154+4096,64) {stability}: max|err|="
+              f"{err:.3e} (atol 2e-2) against plain attention over the "
+              f"concatenated sequence; 4 x K5 + 2 merges "
+              f"{cuda_ms(run, 10, 2):.4f} ms, plain "
+              f"{cuda_ms(lambda: attn.plain_attention(*cat), 3, 1):.4f} ms, "
+              f"library (one call, concatenated) "
+              f"{cuda_ms(lambda: sdpa(*cat), 10, 2):.4f} ms [{card}]",
+              flush=True)
+        check(err <= 2e-2, f"joint attention {stability} disagrees: {err}")
     return results
 
 
-def phase_kernels_bwd(card, q, k, v, out, lse, gen):
+def phase_kernels_bwd(card, q, k, v, out, lse, gen, tail):
     """K3 and K4 against the plain backward on K1's inputs and outputs."""
     import torch
+    import torch.nn.functional as F
 
     from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
 
     b, h, lq, d = q.shape
+    lk = k.shape[2]
     # dO as the out-projection's gradient arrives: a view of (B, Lq, H*D)
     g = torch.randn((b, lq, h * d), generator=gen, device="cuda").to(
         q.dtype).reshape(b, lq, h, d).transpose(1, 2)
@@ -276,19 +458,31 @@ def phase_kernels_bwd(card, q, k, v, out, lse, gen):
         errs[name] = err
         line.append(f"max|{name} err|={err:.3e} (max|{name}|={ref:.3e}, "
                     f"tol 2e-2 of it)")
+    del got, want
     delta = (g.float() * out.float()).sum(-1)
-    ms3 = cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, g, lse,
-                                                         delta), 10, 2)
-    ms4 = cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, g, lse,
-                                                          delta), 10, 2)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse,
-                                                            g), 3, 1)
-    print(f"K3/K4 flash bwd (B,H,Lq,Lk,D)=({b},{h},{lq},{k.shape[2]},{d}) "
-          f"bf16: {'; '.join(line)}; K3 {ms3:.4f} ms, K4 {ms4:.4f} ms, "
-          f"plain dq+dk+dv {plain_ms:.4f} ms [{card}]", flush=True)
-    return dict(K3=dict(err=errs["dq"], ms=ms3, plain_ms=plain_ms),
-                K4=dict(err=max(errs["dk"], errs["dv"]), ms=ms4,
-                        plain_ms=plain_ms))
+    # the library's backward gives dq, dk and dv in one call
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl)
+    shared = dict(
+        plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, g), 3, 1),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), g, retain_graph=True), 5, 1))
+    # K3: S, dP and dQ products; reads q, k, v, dO, writes dq.
+    # K4: S, dP, dV and dK products; reads q, k, v, dO, writes dk, dv.
+    t3 = dict(zip(("bound_ms", "bound_by"),
+                  attn_bound(b, h, lq, lk, d, 3, 3, 2, 2)), **shared,
+              ms=cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+                  q, k, v, g, lse, delta), 10, 2))
+    t4 = dict(zip(("bound_ms", "bound_by"),
+                  attn_bound(b, h, lq, lk, d, 4, 2, 4, 2)), **shared,
+              ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+                  q, k, v, g, lse, delta), 10, 2))
+    print(f"K3/K4 flash bwd (B,H,Lq,Lk,D)=({b},{h},{lq},{lk},{d}) bf16: "
+          f"{'; '.join(line)}; plain and library compute dq, dk and dv "
+          f"together; K3: {tail(**t3)}; K4: {tail(**t4)}", flush=True)
+    return dict(K3=dict(err=errs["dq"], **t3),
+                K4=dict(err=max(errs["dk"], errs["dv"]), **t4))
 
 
 def phase_sd1(card):
@@ -361,10 +555,103 @@ def phase_sd1(card):
     return launches
 
 
+def phase_sd3(card):
+    """SD3-medium at full width and depth: 1024^2, 50 flow-Euler steps,
+    CFG 5 as one batch-2 MMDiT forward, shift 3, bf16, zero tokens."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer, SD3Models)
+
+    t0 = time.perf_counter()
+    models = SD3Models.initialize(
+        torch.Generator(device="cuda").manual_seed(0), "cuda", "bf16",
+        depth=SD3_DEPTH, pos_embed_max_size=192)
+    torch.cuda.synchronize()
+    groups = {f.name: getattr(models, f.name)
+              for f in dataclasses.fields(models)}
+    sizes = {n: sum(p.numel() for p in m.parameters())
+             for n, m in groups.items()}
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"SD3: random-init SD3-medium bundle, {sum(sizes.values())} params "
+          f"{sizes}, bf16, {held:.2f} GiB resident, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    inf = SD3Inferencer(models, shift=3.0)
+
+    step_events, final_latents = [], []
+
+    def on_mmdit(module, args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        step_events.append(ev)
+
+    def on_decoder(module, args):
+        final_latents.append(args[0].detach().clone())
+
+    hooks = [models.mmdit.register_forward_pre_hook(on_mmdit),
+             models.vae_decoder.register_forward_pre_hook(on_decoder)]
+    tokens = np.zeros((1, 77), np.int32)
+    request = lambda seed: inf.gen_image(
+        tokens, width=1024, height=1024, steps=SD3_STEPS, cfg_scale=5.0,
+        seed=seed)
+
+    reset_counts()
+    warm_ms = None
+    for what, seed in (("cold", 1), ("warm", 2), ("profiled", 3)):
+        n0 = read_counts()
+        step_events.clear()
+        final_latents.clear()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if what == "profiled":
+            images, wall_ms, fams, n_kernels, rows = profile_device(
+                lambda: request(seed))
+        else:
+            images = request(seed)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        n1 = read_counts()
+        got = {k: n1[k] - n0[k] for k in n1}
+        step_ms = (step_events[0].elapsed_time(step_events[-1])
+                   / (len(step_events) - 1))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"SD3 request ({what}) seed={seed}: {wall_ms / 1e3:.3f} "
+              f"s/image, {step_ms:.2f} ms/denoise step (MMDiT batch 2, 154 + "
+              f"4096 tokens), peak {peak:.2f} GiB, launches {got} [{card}]",
+              flush=True)
+        check(images.shape == (1, 1024, 1024, 3) and str(images.dtype) ==
+              "uint8", f"SD3 image shape/dtype {images.shape} {images.dtype}")
+        check(float(images.std()) > 0.0, "constant SD3 image")
+        check(len(final_latents) == 1 and final_latents[0].shape
+              == (1, 128, 128, 16)
+              and bool(torch.isfinite(final_latents[0]).all()),
+              "SD3 final latents not finite or misshaped")
+        check(len(step_events) == SD3_STEPS,
+              f"{len(step_events)} MMDiT calls, not {SD3_STEPS}")
+        check(got == SD3_PER_REQUEST,
+              f"SD3 launches {got} != {SD3_PER_REQUEST}")
+        if what == "warm":
+            warm_ms = wall_ms
+    busy = sum(fams.values())
+    print(f"SD3 profile of one request (torch.profiler, kernel rows only): "
+          f"device busy {busy:.1f} ms over {n_kernels} kernels; wall under "
+          f"the profiler {wall_ms:.1f} ms, unprofiled warm {warm_ms:.1f} ms; "
+          f"device idle share {1.0 - busy / warm_ms:.3f} (1 - busy / "
+          f"unprofiled warm request) [{card}]", flush=True)
+    print_profile(fams, rows, 1, "request")
+    launches = read_counts()
+    for hook in hooks:
+        hook.remove()
+    return launches
+
+
 def _family(name: str) -> str:
-    """Kernel family of a CUDA kernel name, for the training profile."""
+    """Kernel family of a CUDA kernel name, for the device profiles."""
     n = name.lower()
-    for key, fam in (("flash_fwd", "K1 flash fwd"),
+    for key, fam in (("flash_fwd_pos", "K5 flash fwd pos"),
+                     ("flash_fwd", "K1 flash fwd"),
                      ("flash_bwd_dq", "K3 flash bwd dq"),
                      ("flash_bwd_dkv", "K4 flash bwd dk/dv"),
                      ("gn_", "K2 group norm"),
@@ -376,7 +663,8 @@ def _family(name: str) -> str:
                      ("dgrad", "cuDNN convolutions"),
                      ("wgrad", "cuDNN convolutions"),
                      ("gemm", "GEMMs"), ("cutlass", "GEMMs"),
-                     ("xmma", "GEMMs"), ("copy", "copies / casts"),
+                     ("xmma", "GEMMs"), ("nvjet", "GEMMs"),
+                     ("copy", "copies / casts"),
                      ("cat", "copies / casts"),
                      ("elementwise", "elementwise")):
         if key in n:
@@ -384,9 +672,10 @@ def _family(name: str) -> str:
     return "other"
 
 
-def profile_steps(trainer, state, batches, card):
-    """Device time by kernel family over a few profiled steps; returns the
-    state and the device busy time per step (sum of kernel time)."""
+def profile_device(run):
+    """Runs ``run()`` under torch.profiler. Returns its result, the wall
+    time in ms, device time in ms by kernel family, the number of kernels,
+    and the rows (ms, count, name) of the kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -394,11 +683,10 @@ def profile_steps(trainer, state, batches, card):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for images, labels in batches:
-            state, _ = trainer.train_step(state, images, labels)
+        result = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fams, n_kernels, top = {}, 0, []
+    fams, n_kernels, rows = {}, 0, []
     for e in prof.key_averages():
         # kernel rows only: user annotations (Optimizer.step#...) also get a
         # device-side range, which would count their kernels twice
@@ -412,17 +700,35 @@ def profile_steps(trainer, state, batches, card):
         fam = _family(e.key)
         fams[fam] = fams.get(fam, 0.0) + us / 1e3
         n_kernels += e.count
-        top.append((us / 1e3, e.count, e.key[:90]))
+        rows.append((us / 1e3, e.count, e.key[:90]))
+    return result, wall_ms, fams, n_kernels, rows
+
+
+def print_profile(fams, rows, n, unit):
+    busy = sum(fams.values())
+    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam:24s} {ms / n:9.3f} ms/{unit} {100 * ms / busy:5.1f} %")
+    for ms, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"  top: {ms / n:8.3f} ms/{unit} x{count // n:5d}/{unit} {key}")
+
+
+def profile_steps(trainer, state, batches, card):
+    """Device time by kernel family over a few profiled steps; returns the
+    state and the device busy time per step (sum of kernel time)."""
+    def run():
+        st = state
+        for images, labels in batches:
+            st, _ = trainer.train_step(st, images, labels)
+        return st
+
+    state, wall_ms, fams, n_kernels, rows = profile_device(run)
     busy = sum(fams.values())
     n = len(batches)
     print(f"training profile over {n} steps (torch.profiler, kernel rows "
           f"only): device busy {busy / n:.2f} ms/step, {n_kernels // n} "
           f"kernels/step; wall under the profiler {wall_ms / n:.2f} ms/step "
           f"[{card}]", flush=True)
-    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:24s} {ms / n:9.3f} ms/step {100 * ms / busy:5.1f} %")
-    for ms, count, key in sorted(top, reverse=True)[:12]:
-        print(f"  top: {ms / n:8.3f} ms/step x{count // n:4d}/step {key}")
+    print_profile(fams, rows, n, "step")
     return state, busy / n
 
 
@@ -626,29 +932,35 @@ def phase_grad_check(card):
 
 
 def phase_sampling(card, trainer, state):
-    """CFG ancestral sampling of 4 labels, one batch-8 forward per step."""
+    """CFG ancestral sampling of 4 labels, one batch-8 forward per step,
+    with the trained weights under a config whose chain has SAMPLE_T steps."""
     import torch
 
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
+        DDPMTrainer)
+
+    cfg = dataclasses.replace(trainer.cfg, T=SAMPLE_T)
+    sampler = DDPMTrainer(cfg, device="cuda")
     labels = [1, 2, 3, 1]
     reset_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    images = trainer.sample(state, labels)
+    images = sampler.sample(state, labels)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = read_counts()
-    s = trainer.cfg.img_size
-    print(f"sampling: {len(labels)} images, T={trainer.cfg.T}, CFG "
-          f"w={trainer.cfg.w} (UNet batch {2 * len(labels)}): {secs:.3f} s, "
-          f"{1e3 * secs / trainer.cfg.T:.2f} ms/step, launches {launches} "
-          f"[{card}]", flush=True)
+    s = cfg.img_size
+    print(f"sampling: {len(labels)} images, T={cfg.T}, CFG w={cfg.w} (UNet "
+          f"batch {2 * len(labels)}): {secs:.3f} s, "
+          f"{1e3 * secs / cfg.T:.2f} ms/step, launches {launches} [{card}]",
+          flush=True)
     check(tuple(images.shape) == (len(labels), s, s, 3),
           f"samples {tuple(images.shape)}")
     check(bool(torch.isfinite(images).all()) and
           images.abs().max().item() <= 1.0, "samples not finite in [-1, 1]")
     check(float(images.std()) > 0.0, "constant samples")
-    check(launches == dict(K1=6 * SAMPLE_T, K2=39 * SAMPLE_T, K3=0, K4=0),
-          f"sampling launches {launches}")
+    check(launches == dict(K1=6 * SAMPLE_T, K2=39 * SAMPLE_T, K3=0, K4=0,
+                           K5=0), f"sampling launches {launches}")
     return launches
 
 
@@ -656,32 +968,49 @@ def main():
     card = phase_device()
     phase_build()
     kernels = phase_kernels(card)
-    runs = [phase_sd1(card)]
+    paths = ("sd1", "sd3", "training", "sampling")
+    runs = [phase_sd1(card), phase_sd3(card)]
     trainer, state, train_launches, _ = phase_training(card)
     runs.append(train_launches)
     phase_grad_check(card)
     runs.append(phase_sampling(card, trainer, state))
-    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     pkg = "from_ddpm_to_stable_diffusion_tpu_torch/csrc/"
-    entry = lambda name, src, replaces, k, **kw: dict(
-        name=name, route="cuda", source=pkg + src,
-        replaces=TPU_KERNELS + replaces, **kw, launches=launches[k],
-        launches_by_path=dict(zip(("sd1", "training", "sampling"),
-                                  (r[k] for r in runs))),
-        max_abs_err=kernels[k]["err"], ms=kernels[k]["ms"],
-        plain_ms=kernels[k]["plain_ms"])
+
+    def entry(name, src, replaces, k, **kw):
+        r = kernels[k]
+        return dict(
+            name=name, route="cuda", source=pkg + src,
+            replaces=TPU_KERNELS + replaces, **kw,
+            launches=sum(run[k] for run in runs),
+            launches_by_path={p: run[k] for p, run in zip(paths, runs)},
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"])
+
+    together = "dq, dk and dv together"
     summary = {"kernels": [
         entry("flash_attention_fwd", "flash_attention.cu",
               "flash_attention.py:242", "K1",
-              also_replaces=[TPU_KERNELS + "flash_attention.py:119"]),
+              also_replaces=[TPU_KERNELS + "flash_attention.py:119"],
+              timed_at="(B,H,Lq,Lk,D)=(2,8,4096,4096,40)",
+              library="F.scaled_dot_product_attention"),
         entry("group_norm_silu", "groupnorm.cu", "groupnorm_pallas.py:29",
-              "K2"),
+              "K2", timed_at="(2,64,64,320) + SiLU",
+              library="F.group_norm + F.silu"),
         entry("flash_attention_bwd_dq", "flash_attention_bwd.cu",
-              "flash_attention.py:682", "K3",
-              plain_computes="dq, dk and dv together"),
+              "flash_attention.py:682", "K3", plain_computes=together,
+              library_computes=together,
+              timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
+              library="backward of F.scaled_dot_product_attention"),
         entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
-              "flash_attention.py:764", "K4",
-              plain_computes="dq, dk and dv together"),
+              "flash_attention.py:764", "K4", plain_computes=together,
+              library_computes=together,
+              timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
+              library="backward of F.scaled_dot_product_attention"),
+        entry("flash_attention_fwd_pos", "flash_attention_pos.cu",
+              "flash_attention.py:1237", "K5",
+              timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64) online",
+              library="F.scaled_dot_product_attention"),
     ]}
     print(card)
     if FAILURES:

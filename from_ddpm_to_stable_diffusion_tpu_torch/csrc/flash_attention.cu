@@ -29,27 +29,14 @@
 // 512); others return cudaErrorInvalidValue.
 // Later work: wgmma + TMA, softmax in registers, K/V double buffering.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma.cuh"
 
 namespace {
 
+using fdsd::ld32;
+using fdsd::mma16816;
+
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A(16x16, row) * B(16x8, col); bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // DP: head dim padded to 16; BQ x BK: query x key tile; WM row groups of 16
 // queries x WN column slices = warps of the block.

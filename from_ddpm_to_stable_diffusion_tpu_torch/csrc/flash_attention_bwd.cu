@@ -39,32 +39,15 @@
 // Later work: wgmma + TMA, ldmatrix.trans instead of transposed copies,
 // K/V double buffering, one fused kernel with atomics for dq.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma.cuh"
 
 namespace {
 
+using fdsd::ld32;
+using fdsd::mma16816;
+using fdsd::pack_bf16;
+
 constexpr float kPadLse = 1e30f;  // padded query rows: P = exp(s - 1e30) = 0
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D += A(16x16, row) * B(16x8, col); bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // A fragment (rows r0..r0+15, k kk..kk+15) of a row-major bf16 tile.
 __device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* s,

@@ -50,7 +50,7 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"{'/'.join(path)}: {a.ndim}-D kernel")
         out[".".join(path[:-1] + (_RENAMES.get(name, name),))] = \
-            torch.from_numpy(np.ascontiguousarray(a))
+            torch.from_numpy(np.array(a, order="C"))
     return out
 
 

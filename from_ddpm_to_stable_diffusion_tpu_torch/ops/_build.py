@@ -1,9 +1,10 @@
 """Builds ``csrc/*.cu`` into one shared library with ``nvcc`` and loads it.
 
 The library has a plain C interface (no PyTorch headers), so a build takes
-seconds. It is built at first use into ``_build/`` inside this package,
-under a name keyed on a hash of the sources and flags, and reused while
-neither changes. Each C entry launches on the stream it is given and
+seconds: one ``nvcc -c`` per source, all started together, then one link.
+It is built at first use into ``_build/`` inside this package, under a name
+keyed on a hash of the sources, headers and flags, and reused while none of
+them changes. Each C entry launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception.
 """
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -36,6 +37,10 @@ _SIGNATURES = {
     # stream
     "fdsd_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _P, _F, _P],
+    # q, k, v, out, lse, q_off, k_off, B, H, Lq, Lk, d, strides[12], scale,
+    # seg_q, seg_k, valid_len, has_valid, causal, bounded, stream
+    "fdsd_flash_fwd_pos": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                           _F, _I, _I, _I, _I, _I, _I, _P],
     # x, scale, bias, y, part, stats, B, HW, C, G, eps, silu, is_bf16,
     # threads, rows_per_chunk, n_chunks, stream
     "fdsd_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
@@ -64,10 +69,41 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfdsd_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(path: Path) -> str:
+    """Every source to an object file in parallel, then one link; returns
+    nvcc's output. The temporary files carry the process id, so two
+    processes that build at once do not write into each other's files."""
+    nvcc, tag = _nvcc(), f"{path.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objects)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outputs = [proc.communicate()[0] for proc in procs]
+        cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objects)])
+        failed = [i for i, proc in enumerate(procs) if proc.returncode]
+        if not failed:
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            outputs.append(link.stdout + link.stderr)
+            failed = [len(procs)] if link.returncode else []
+        log = "".join(outputs)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                " ".join(cmds[i]) for i in failed) + "\n" + log)
+        os.replace(tmp, path)
+    finally:
+        for f in (*objects, tmp):
+            f.unlink(missing_ok=True)
+    return log
 
 
 def load():
@@ -79,16 +115,8 @@ def load():
         path = library_path()
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, _sources())]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{build_log}")
-            os.replace(tmp, path)
+            build_log = _compile(path)
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():

@@ -6,6 +6,7 @@ queries and 512 keys go to the flash kernel (the JAX package's
 runs :func:`plain_attention`, the counterpart of the JAX ``_xla_attention``:
 fp32 logits with the scale applied after the product, fp32 softmax, the
 probabilities cast to the input dtype before the PV product.
+:func:`joint_attention_blhd` is the MMDiT's attention over two streams.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, joint_flash_attention
 
 
 def plain_attention(q, k, v, bias=None, causal: bool = False,
@@ -66,3 +67,28 @@ def multi_head_attention(q, k, v, num_heads: int, bias=None,
                          v.reshape(b, lk, num_heads, d),
                          bias=bias, causal=causal, **kw)
     return out.reshape(b, lq, dm)
+
+
+def joint_attention_blhd(ctx_qkv, x_qkv, stability: str = "online"):
+    """MMDiT joint attention over [context | x]. Inputs are (q, k, v)
+    triples in (B, L, H, D); returns (ctx_out, x_out) in the same layout.
+
+    The JAX package's rule: when the x stream is flash eligible (CUDA, at
+    least 512 queries and keys) the streams are not concatenated and all
+    four query-stream x key-stream pairs go to the position-masked flash
+    kernel, the short context pairs too, merged through their
+    log-sum-exps; otherwise the streams are concatenated and attended by
+    :func:`plain_attention`."""
+    qc, kc, vc = (a.transpose(1, 2) for a in ctx_qkv)
+    qx, kx, vx = (a.transpose(1, 2) for a in x_qkv)
+    scale = qx.shape[-1] ** -0.5
+    if _flash_eligible(qx, kx):
+        oc, ox = joint_flash_attention(qc, kc, vc, qx, kx, vx, scale,
+                                       stability)
+    else:
+        lc = qc.shape[2]
+        q, k, v = (torch.cat(ab, dim=2)
+                   for ab in ((qc, qx), (kc, kx), (vc, vx)))
+        out = plain_attention(q, k, v, None, False, scale)
+        oc, ox = out[:, :, :lc], out[:, :, lc:]
+    return oc.transpose(1, 2), ox.transpose(1, 2)

@@ -1,5 +1,6 @@
-"""Flash attention over (B, H, L, D), forward and backward (port of
-``ops/flash_attention.py``).
+"""Flash attention over (B, H, L, D), forward and backward, and the
+position-masked forward with the split-KV joint attention built on it (port
+of ``ops/flash_attention.py``).
 
 Forward: on CUDA tensors :func:`flash_attention_forward` launches the kernel
 of ``csrc/flash_attention.cu``, which stands in for both Pallas forward
@@ -21,8 +22,19 @@ must be contiguous), so the fused-QKV projection's q|k|v column slices go in
 without a copy, and they write ``out``, dq, dk and dv into (B, L, H, D)
 memory returned as (B, H, L, D) views, so merging heads afterwards is free.
 
-Not ported yet (see ROADMAP.md): additive bias, causal and segment-id
-masks, forward and backward.
+Position-masked forward: :func:`flash_attention_pos` masks by global
+position (two offset segments per side, ``valid_len``, causal, the ragged
+key tail) and returns (out, lse); on CUDA tensors it launches the kernel of
+``csrc/flash_attention_pos.cu`` (the Pallas ``_fwd_kernel_pos``), on CPU
+tensors :func:`flash_attention_pos_plain`. :func:`joint_flash_attention`
+is the MMDiT's attention over [context | x] without concatenation: four
+position-masked calls merged exactly through their log-sum-exps by
+:func:`merge_attention_partials`. Forward only.
+
+Not ported yet (see ROADMAP.md): the additive bias, causal and segment-id
+masks of :func:`flash_attention`, forward and backward (B2); the
+position-masked backward kernels that ring attention and MMDiT training
+need, and with them the backward of :func:`joint_flash_attention` (B6).
 """
 
 from __future__ import annotations
@@ -38,6 +50,8 @@ from . import _build
 # or 512; the backward kernels take head dim 128 (tiny-SD's UNet)
 _KERNEL_HEAD_DIMS = (40, 48, 72, 80, 128, 512)
 _BWD_HEAD_DIMS = (128,)
+_POS_HEAD_DIMS = (64, 128)
+NEG_INF = -1e30   # lse of a row with no visible key
 
 
 def flash_attention_plain(q, k, v, scale: Optional[float] = None):
@@ -246,3 +260,155 @@ def flash_attention(q, k, v, bias=None, segment_ids=None,
         raise NotImplementedError(
             "bias, segment_ids and causal masks are not ported yet")
     return FlashAttention.apply(q, k, v, scale)
+
+
+# --------------------------------------------------------------------------
+# Position-masked forward and the split-KV joint attention
+# --------------------------------------------------------------------------
+def _positions(n: int, offsets, seg: int):
+    """Global positions of local indices 0..n-1: ``offsets[0] + idx`` below
+    ``seg``, ``offsets[1] + idx - seg`` from it on."""
+    idx = torch.arange(n, device=offsets.device)
+    return torch.where(idx < seg, offsets[0] + idx, offsets[1] + (idx - seg))
+
+
+def _pos_args(q, k, scale, seg_q, seg_k, stability):
+    if stability not in ("online", "bounded"):
+        raise ValueError(f"stability must be online|bounded: {stability}")
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    seg_q = q.shape[2] if seg_q is None else int(seg_q)
+    seg_k = k.shape[2] if seg_k is None else int(seg_k)
+    return scale, seg_q, seg_k
+
+
+def flash_attention_pos_plain(q, k, v, q_offsets, kv_offsets, *,
+                              causal: bool = False,
+                              scale: Optional[float] = None,
+                              seg_q: Optional[int] = None,
+                              seg_k: Optional[int] = None,
+                              valid_len: Optional[int] = None,
+                              stability: str = "online"):
+    """(out, lse) of :func:`flash_attention_pos` in plain PyTorch: explicit
+    positions and mask, fp32 logits and softmax, the probabilities cast to
+    v's dtype before the PV product. A row with no visible key gives
+    out = 0 and lse = -1e30. Both stabilities compute the same function, so
+    ``stability`` is only validated."""
+    scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, stability)
+    lq, lk = q.shape[2], k.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    col_pos = _positions(lk, kv_offsets, seg_k)
+    visible = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if valid_len is not None:
+        visible &= (col_pos < valid_len)[None, :]
+    if causal:
+        row_pos = _positions(lq, q_offsets, seg_q)
+        visible &= col_pos[None, :] <= row_pos[:, None]
+    s = s.masked_fill(~visible, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * visible
+    l = p.sum(dim=-1, keepdim=True)
+    safe_l = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / safe_l
+    lse = torch.where(l == 0, torch.full_like(l, NEG_INF),
+                      m + torch.log(safe_l))
+    return out.to(q.dtype), lse.squeeze(-1)
+
+
+def flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, *,
+                             causal: bool = False,
+                             scale: Optional[float] = None,
+                             seg_q: Optional[int] = None,
+                             seg_k: Optional[int] = None,
+                             valid_len: Optional[int] = None,
+                             stability: str = "online"):
+    """K5: (out, lse) for bf16 (B, H, L, D) CUDA tensors, D 64 or 128. The
+    offsets are int32 (2,) tensors on q's device; the kernel reads them, so
+    nothing waits for the host."""
+    b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_pos_cuda",
+                                 _POS_HEAD_DIMS)
+    scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, stability)
+    if not scale > 0:
+        raise ValueError(f"scale must be positive, got {scale}")
+    for name, off in (("q_offsets", q_offsets), ("kv_offsets", kv_offsets)):
+        if (off.device != q.device or off.dtype != torch.int32
+                or off.shape != (2,) or not off.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 (2,) tensor "
+                             f"on {q.device}")
+    out = _blhd(q, lq)
+    lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+    strides = _strides(q, k, v, out)
+    err = _build.load().fdsd_flash_fwd_pos(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), q_offsets.data_ptr(), kv_offsets.data_ptr(), b, h,
+        lq, lk, d, ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
+        0 if valid_len is None else int(valid_len), int(valid_len is not None),
+        int(bool(causal)), int(stability == "bounded"),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "fdsd_flash_fwd_pos")
+    flash_attention_pos_cuda.launches += 1
+    return out, lse
+
+
+flash_attention_pos_cuda.launches = 0
+
+
+def flash_attention_pos(q, k, v, q_offsets, kv_offsets, **kw):
+    """Flash attention with global-position masking: (out, lse).
+
+    q (B, H, Lq, D) and k, v (B, H, Lk, D) are local blocks of a longer
+    sequence; ``q_offsets`` / ``kv_offsets`` are int32 (2,) tensors with the
+    global offsets of the two contiguous segments each block is made of
+    (boundary at local index ``seg_q`` / ``seg_k``; the default is one
+    span). Masked: keys at a position >= ``valid_len`` (if given), and keys
+    after the query's position when ``causal``. lse is fp32 (B, H, Lq); a
+    fully masked row gives lse = -1e30 and out = 0. ``stability``:
+    "online" keeps a running max, "bounded" a fixed max of 0 (exact while
+    |scale*q.k| stays inside the fp32 exp range, as qk-norm guarantees).
+    Not differentiable. The kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    if q.is_cuda:
+        return flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, **kw)
+    return flash_attention_pos_plain(q, k, v, q_offsets, kv_offsets, **kw)
+
+
+def merge_attention_partials(o1, lse1, o2, lse2):
+    """Combine two attention partials over disjoint key sets exactly,
+    through their log-sum-exps: (out, lse)."""
+    m = torch.maximum(lse1, lse2)
+    w1, w2 = torch.exp(lse1 - m), torch.exp(lse2 - m)
+    denom = w1 + w2
+    out = (o1 * (w1 / denom)[..., None].to(o1.dtype)
+           + o2 * (w2 / denom)[..., None].to(o2.dtype))
+    return out, m + torch.log(denom)
+
+
+class JointFlashAttention(torch.autograd.Function):
+    """Forward of :func:`joint_flash_attention`; its backward needs the
+    position-masked backward kernels, which are not ported yet."""
+
+    @staticmethod
+    def forward(ctx, qc, kc, vc, qx, kx, vx, scale, stability):
+        z = torch.zeros(2, dtype=torch.int32, device=qc.device)
+        f = lambda q, k, v: flash_attention_pos(q, k, v, z, z, scale=scale,
+                                                stability=stability)
+        o_c, _ = merge_attention_partials(*f(qc, kc, vc), *f(qc, kx, vx))
+        o_x, _ = merge_attention_partials(*f(qx, kc, vc), *f(qx, kx, vx))
+        return o_c, o_x
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the backward of joint_flash_attention needs the position-masked "
+            "backward kernels (ROADMAP.md B6), which are not ported yet")
+
+
+def joint_flash_attention(qc, kc, vc, qx, kx, vx,
+                          scale: Optional[float] = None,
+                          stability: str = "online"):
+    """Joint attention over [context | x] without concatenation or padding.
+    All tensors (B, H, L, D); returns (out_c, out_x): each query stream
+    attends over both key streams, as four :func:`flash_attention_pos`
+    calls merged by :func:`merge_attention_partials`; equal to attention
+    over the concatenated sequence up to floating-point reassociation.
+    Forward only."""
+    return JointFlashAttention.apply(qc, kc, vc, qx, kx, vx, scale, stability)

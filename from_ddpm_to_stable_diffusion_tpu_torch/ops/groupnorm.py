@@ -1,5 +1,5 @@
-"""GroupNorm (+ optional fused SiLU) over channels-last activations, and
-LayerNorm (port of ``ops/groupnorm.py``).
+"""GroupNorm (+ optional fused SiLU) over channels-last activations,
+LayerNorm and RMSNorm (port of ``ops/groupnorm.py``).
 
 :func:`group_norm` launches the CUDA kernel (``csrc/groupnorm.cu``) on a
 CUDA tensor, always: the JAX package's batch >= 8 / VMEM-fit rule for its
@@ -200,6 +200,18 @@ def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
     """LayerNorm over the last axis with fp32 statistics and affine, output
-    in x's dtype."""
-    return F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(),
+    in x's dtype; ``scale`` and ``bias`` may each be None."""
+    return F.layer_norm(x.float(), x.shape[-1:],
+                        None if scale is None else scale.float(),
+                        None if bias is None else bias.float(),
                         eps).to(x.dtype)
+
+
+def rms_norm(x, scale=None, eps: float = 1e-6):
+    """RMSNorm over the last axis (the MMDiT's qk-norm, T5's layer norm): no
+    mean subtraction, fp32 statistics, output in x's dtype."""
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    if scale is not None:
+        out = out * scale.float()
+    return out.to(x.dtype)

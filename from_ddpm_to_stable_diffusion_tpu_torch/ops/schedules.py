@@ -2,9 +2,9 @@
 ``ops/schedules.py``).
 
 Copies of the table builders of
-``from_ddpm_to_stable_diffusion_tpu/ops/schedules.py`` that the k-LMS and
-DDPM paths need (the JAX module cannot be imported without jax), and the
-warmup-cosine learning rate as a plain function of the update count. The
+``from_ddpm_to_stable_diffusion_tpu/ops/schedules.py`` that the k-LMS, DDPM
+and SD3 flow paths need (the JAX module cannot be imported without jax), and
+the warmup-cosine learning rate as a plain function of the update count. The
 tests hold them against the JAX functions and ``tests/goldens/goldens.npz``.
 """
 
@@ -95,6 +95,30 @@ def ddpm_tables(beta_1: float, beta_T: float, T: int) -> DDPMTables:
         sqrt_one_minus_alphas_bar=f32(np.sqrt(1.0 - alphas_bar)),
         coeff1=f32(coeff1), coeff2=f32(coeff2),
         posterior_var=f32(posterior_var), sampler_var=f32(sampler_var))
+
+
+def flow_sigma(timestep, shift: float = 1.0, num_timesteps: int = 1000):
+    """SD3 discrete-flow σ(t) = shift·(t/1000) / (1 + (shift−1)·(t/1000))."""
+    t = timestep / float(num_timesteps)
+    if shift == 1.0:
+        return t
+    return shift * t / (1.0 + (shift - 1.0) * t)
+
+
+def flow_timestep(sigma, num_timesteps: int = 1000):
+    """The timestep fed to the MMDiT: σ·1000."""
+    return sigma * float(num_timesteps)
+
+
+def sd3_sigma_schedule(steps: int = 50, shift: float = 3.0,
+                       num_timesteps: int = 1000) -> np.ndarray:
+    """(steps+1,) σ trajectory: σ(linspace(t_max, t_min, steps)), then 0; the
+    σ table is indexed 1..1000, so σ_min = σ(1) and σ_max = σ(1000)."""
+    ts = flow_sigma(np.arange(1, num_timesteps + 1, dtype=np.float64), shift,
+                    num_timesteps)
+    timesteps = np.linspace(flow_timestep(ts[-1], num_timesteps),
+                            flow_timestep(ts[0], num_timesteps), steps)
+    return np.append(flow_sigma(timesteps, shift, num_timesteps), 0.0)
 
 
 def cosine_warmup_lr(base_lr: float, max_lr: float, warmup_epochs: int,

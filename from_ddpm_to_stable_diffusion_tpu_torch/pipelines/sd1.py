@@ -34,9 +34,11 @@ from ..utils.dtypes import POLICIES, cast_params_for_inference
 def flax_default_init_(module: nn.Module, generator: torch.Generator):
     """Re-draw every parameter with Flax's default initializers, in place:
     lecun_normal (fan-in truncated normal) conv and linear kernels, zero
-    biases, unit norm scales, fan-in normal embeddings, zero
-    ``position_value``. Keeps random-weight activations in the range the
-    JAX package's random-init runs see."""
+    biases, unit norm scales, fan-in normal embeddings, zero position
+    tables, and the JAX modules' own choices for T5's
+    ``relative_attention_bias`` (standard normal) and CLIP's
+    ``text_projection`` (identity). Keeps random-weight activations in the
+    range the JAX package's random-init runs see."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
@@ -53,9 +55,13 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator):
         parent = module.get_submodule(name.rpartition(".")[0])
         if isinstance(parent, (nn.Linear, nn.Conv2d, nn.Embedding)):
             continue
-        if leaf == "weight":      # GroupNorm / LayerNorm scale
+        if leaf == "weight" or leaf.endswith("_scale"):   # norm scales
             p.fill_(1.0)
-        else:                     # norm biases, CLIP position_value
+        elif leaf == "relative_attention_bias":
+            p.normal_(0.0, 1.0, generator=generator)
+        elif leaf == "text_projection":
+            p.copy_(torch.eye(p.shape[0], device=p.device))
+        else:                     # norm biases, position tables
             p.zero_()
     return module
 
@@ -91,7 +97,7 @@ class SD1Models:
         return cls(*mods)
 
     @classmethod
-    def from_jax(cls, params: Mapping, device="cpu", dtype: str = "fp32",
+    def from_jax(cls, params: Mapping, device="cuda", dtype: str = "fp32",
                  clip_heads: int = 12, unet_heads: int = 8) -> "SD1Models":
         """The JAX package's ``SD1Models.params`` (``clip``, ``unet``,
         ``decoder`` trees; ``encoder`` is not used until img2img is

@@ -15,6 +15,10 @@ to bf16, so they differ by output roundings, a few flipped roundings of P
 and dS, and the fp32 summation order). The GroupNorm autograd backward is
 plain PyTorch on every device: on the card it must equal the same function
 on the same tensors.
+The position-masked forward (K5) against its plain version: out to 2e-2 on
+the rows that see a key, lse to 1e-3 there; rows that see none must give
+out = 0 exactly and lse <= -1e29. The joint attention against plain
+attention over the concatenated sequence: 2e-2 (two bf16 partials merged).
 """
 
 import pytest
@@ -193,3 +197,121 @@ def test_group_norm_autograd_on_the_card(gen, shape, act):
     for a, w in zip((x.grad, scale.grad, bias.grad), want):
         assert a.dtype == w.dtype
         torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
+# ------------------------------------------------ K5, position-masked forward
+def _offsets(a, b):
+    return torch.tensor([a, b], dtype=torch.int32, device="cuda")
+
+
+def _pos_check(q, k, v, qo, ko, **kw):
+    n = tfa.flash_attention_pos_cuda.launches
+    out, lse = tfa.flash_attention_pos(q, k, v, qo, ko, **kw)
+    assert tfa.flash_attention_pos_cuda.launches == n + 1
+    ref, ref_lse = tfa.flash_attention_pos_plain(q, k, v, qo, ko, **kw)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert out.shape == q.shape and lse.shape == q.shape[:3]
+    seen = ref_lse > -1e29
+    if bool(seen.any()):
+        assert (out.float() - ref.float())[seen].abs().max().item() <= 2e-2
+        assert (lse - ref_lse)[seen].abs().max().item() <= 1e-3
+    assert bool((lse[~seen] <= -1e29).all())
+    assert not bool(out[~seen].any())
+    return seen
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+@pytest.mark.parametrize("b,h,lq,lk,d", [
+    (2, 3, 154, 154, 64), (1, 2, 154, 700, 64), (1, 2, 700, 154, 64),
+    (1, 2, 512, 512, 64), (2, 1, 33, 1000, 128), (1, 1, 257, 63, 128),
+    (1, 1, 1, 1, 64)])
+def test_pos_kernel_unmasked_matches_plain(gen, stability, b, h, lq, lk, d):
+    q, k, v = (_randn(gen, b, h, n, d) for n in (lq, lk, lk))
+    z = _offsets(0, 0)
+    seen = _pos_check(q, k, v, z, z, stability=stability)
+    assert bool(seen.all())
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v)
+    out, lse = tfa.flash_attention_pos(q, k, v, z, z, stability=stability)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+@pytest.mark.parametrize("causal,valid_len", [(True, None), (False, 300),
+                                              (True, 300), (False, 0),
+                                              (True, 5)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_pos_kernel_two_segments_masks(gen, stability, causal, valid_len, d):
+    """Zig-zag layout: each side holds two chunks of a longer sequence, so
+    whole tiles are skipped, some are half masked, and some rows see no
+    key at all."""
+    lq, lk, seg_q, seg_k = 200, 330, 128, 130
+    q, k, v = (_randn(gen, 1, 2, n, d) for n in (lq, lk, lk))
+    qo, ko = _offsets(128, 640), _offsets(0, 512)
+    seen = _pos_check(q, k, v, qo, ko, causal=causal, valid_len=valid_len,
+                      seg_q=seg_q, seg_k=seg_k, stability=stability)
+    if valid_len == 0:
+        assert not bool(seen.any())
+    ko2 = _offsets(400, 900)    # causal: the first q segment sees nothing
+    seen = _pos_check(q, k, v, qo, ko2, causal=causal, valid_len=valid_len,
+                      seg_q=seg_q, seg_k=seg_k, stability=stability)
+    if causal:
+        assert not bool(seen[:, :, :seg_q].any())
+
+
+def test_pos_kernel_reads_strided_slices_and_scale(gen):
+    """q, k, v as slices of the MMDiT's fused (B, L, 3, H, D) projection."""
+    b, l, h, d = 2, 300, 4, 64
+    qkv = _randn(gen, b, l, 3 * h * d).reshape(b, l, 3, h, d)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    assert not q.is_contiguous()
+    z = _offsets(0, 0)
+    _pos_check(q, k, v, z, z, scale=0.2)
+    out, _ = tfa.flash_attention_pos(q, k, v, z, z)
+    assert out.transpose(1, 2).is_contiguous()      # (B, L, H, D) memory
+
+
+def test_pos_kernel_refuses_what_it_does_not_take(gen):
+    q = _randn(gen, 1, 1, 64, 64)
+    z = _offsets(0, 0)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_pos(q.float(), q.float(), q.float(), z, z)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention_pos(*(_randn(gen, 1, 1, 64, 40),) * 3, z, z)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_pos(q, q, q, z.cpu(), z)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_pos(q, q, q, z.long(), z)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_pos(q, q, q, z, z, stability="fast")
+    with pytest.raises(ValueError):
+        tfa.flash_attention_pos(q, q, q, z, z, scale=-1.0)
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+@pytest.mark.parametrize("lc,lx", [(154, 1024), (26, 512), (154, 300)])
+def test_joint_attention_matches_concatenated_plain(gen, stability, lc, lx):
+    """Through ``joint_attention_blhd``: an eligible x stream (>= 512) takes
+    four K5 launches, a short one the concatenated plain attention."""
+    b, h, d = 2, 3, 64
+    ctx = [_randn(gen, b, lc, h, d) for _ in range(3)]
+    x = [_randn(gen, b, lx, h, d) for _ in range(3)]
+    n = tfa.flash_attention_pos_cuda.launches
+    oc, ox = tattn.joint_attention_blhd(ctx, x, stability=stability)
+    assert tfa.flash_attention_pos_cuda.launches == n + (4 if lx >= 512
+                                                         else 0)
+    q, k, v = (torch.cat([c, a], dim=1).transpose(1, 2)
+               for c, a in zip(ctx, x))
+    ref = tattn.plain_attention(q, k, v).transpose(1, 2)
+    assert oc.shape == (b, lc, h, d) and ox.shape == (b, lx, h, d)
+    got = torch.cat([oc, ox], dim=1)
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_joint_attention_backward_is_not_ported(gen):
+    b, h, d = 1, 2, 64
+    ts = [_randn(gen, b, h, n, d).requires_grad_()
+          for n in (30, 30, 30, 600, 600, 600)]
+    oc, ox = tfa.joint_flash_attention(*ts)
+    with pytest.raises(NotImplementedError, match="B6"):
+        (oc.float().sum() + ox.float().sum()).backward()

@@ -282,9 +282,10 @@ def test_kernel_wrappers_take_only_cuda_tensors():
 
 def test_port_never_imports_jax():
     port = "from_ddpm_to_stable_diffusion_tpu_torch"
-    modules = ["pipelines.sd1", "pipelines.ddpm_trainer", "io.from_jax",
-               "io.data", "models.tiny_unet", "samplers.ddpm",
-               "utils.config"]
+    modules = ["pipelines.sd1", "pipelines.ddpm_trainer", "pipelines.sd3",
+               "io.from_jax", "io.data", "models.tiny_unet", "models.mmdit",
+               "models.text_encoders", "models.sd3_vae", "samplers.ddpm",
+               "samplers.flow", "utils.config"]
     code = ("import sys\n"
             + "".join(f"import {port}.{m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

@@ -71,7 +71,8 @@ def test_sd1_txt2img_slice_matches_jax(jax_bundle):
                               n_inference_steps=STEPS, seed=seed,
                               return_latents=True)
 
-    models = tpipe.SD1Models.from_jax(jax_bundle.params, clip_heads=4,
+    models = tpipe.SD1Models.from_jax(jax_bundle.params, device="cpu",
+                                      clip_heads=4,
                                       unet_heads=4)
     gen = tpipe.SD1Generator(models, sampler="k_lms", n_inference_steps=STEPS,
                              height=H, width=W)
@@ -98,7 +99,8 @@ def test_text_conditioning_matches_jax(jax_bundle):
     want = jax.jit(jax_bundle.clip.apply)(
         {"params": jax_bundle.params["clip"]},
         jnp.asarray(tok.encode_batch(prompts + uncond)))
-    models = tpipe.SD1Models.from_jax(jax_bundle.params, clip_heads=4,
+    models = tpipe.SD1Models.from_jax(jax_bundle.params, device="cpu",
+                                      clip_heads=4,
                                       unet_heads=4)
     gen = tpipe.SD1Generator(models, tokenizer=tok, height=H, width=W)
     with torch.inference_mode():
@@ -108,8 +110,23 @@ def test_text_conditioning_matches_jax(jax_bundle):
                                rtol=1e-4)
 
 
+def test_entry_points_default_to_the_card():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU, as these tests do."""
+    import inspect
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import (
+        ddpm_trainer, sd3)
+
+    for fn in (tpipe.SD1Models.from_jax, sd3.SD3Models.from_jax,
+               sd3.SD3Models.initialize, ddpm_trainer.DDPMTrainer.__init__):
+        default = inspect.signature(fn).parameters["device"].default
+        assert str(default) == "cuda", (fn.__qualname__, default)
+
+
 def test_sd1_generator_contract(jax_bundle):
-    models = tpipe.SD1Models.from_jax(jax_bundle.params, clip_heads=4,
+    models = tpipe.SD1Models.from_jax(jax_bundle.params, device="cpu",
+                                      clip_heads=4,
                                       unet_heads=4)
     gen = tpipe.SD1Generator(models, n_inference_steps=1, height=H, width=W)
     a, b = gen(["a"], seed=3), gen(["a"], seed=3)
