@@ -20,8 +20,13 @@ two summary lines:
    position-masked flash forward (the four SD3 shapes, online and bounded;
    two-segment causal / valid_len masks, a ragged key tail, head dim 128,
    fully masked rows; the joint attention over 154 + 4096 tokens against
-   plain attention over the concatenated sequence), and the GroupNorm
-   backward.
+   plain attention over the concatenated sequence), K6 / K7
+   position-masked flash backward (dq; dk and dv) under the merged lse of
+   the joint attention (the four shapes; two-segment causal / valid_len
+   masks, a ragged x length, head dim 128, rows masked in one partial only
+   and rows masked everywhere; the joint backward as a whole against
+   autograd through plain attention over the concatenated sequence), and
+   the GroupNorm backward.
 4. SD1: full-width SD1 (CLIP, 860M UNet, VAE decoder) with random weights
    from a seed, ``SD1Generator`` at 512x512, 50 k-LMS steps, CFG 7.5: two
    batch-1 requests, then one batch-4 request. Checks the images, the final
@@ -49,9 +54,25 @@ two summary lines:
 8. sampling: ``DDPMTrainer.sample`` of 4 labels, CFG as one batch-8
    forward, over T = 250 steps (the trained weights under a config with a
    shorter chain, to keep the run short); checks the images and the launches.
+9. MMDiT training: ``MMDiTTrainer`` at SD3-medium's width and depth
+   (``MMDiTConfig()``: depth 24, hidden 1536, 24 heads of 64) and SD3's
+   operating point (latent 128: 4096 x tokens + 154 context tokens), batch
+   2, bf16 over fp32 parameters, random weights from seed 0, normal
+   latents, context and pooled vectors from a numpy seed: warm-up steps,
+   timed steps (CUDA events), one profiled step. Checks finite losses, the
+   fixed batch's loss before and after, and the launches per step of K5,
+   K6 and K7 (4 per block each).
+10. MMDiT gradient check: a depth-2 MMDiT at 529 ragged x tokens + 154
+   context tokens, batch 2, on the card (bf16, kernels) against the CPU
+   (fp32, plain versions): the whole gradient and the qkv leaves of both
+   streams; then a planted fault of the joint backward it must catch.
+11. MMDiT sampling: ``MMDiTTrainer.sample`` of 2 latents in a few CFG
+   flow-Euler steps from the trained state; checks the latents and the
+   launches of K5.
 
 Every kernel's launch count is set to 0 just before each of the SD1, SD3,
-training and sampling phases and read just after. The last two lines are a
+training, sampling, MMDiT training and MMDiT sampling phases and read just
+after. The last two lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
 card's name and power limit come on the line before them. Imports nothing
 of JAX.
@@ -77,14 +98,23 @@ K2_PER_REQUEST = 61 * 50 + 30
 # dec7 at 64^2; enc3, dec4, dec5 at 32^2) take K1, and their backward K3
 # and K4; 39 GroupNorms (28 in 14 ResBlocks, 10 TransformerBlock norm_in,
 # the tail). The GroupNorm backward is plain PyTorch, so no K2 there.
-TRAIN_PER_STEP = dict(K1=6, K3=6, K4=6, K2=39, K5=0)
+TRAIN_PER_STEP = dict(K1=6, K3=6, K4=6, K2=39, K5=0, K6=0, K7=0)
 SAMPLE_T = 250
 # SD3 request: 4 position-masked flash calls (context and x queries against
 # context and x keys) in each of 24 joint blocks x 50 steps; the VAE
 # decoder's one mid attention over 128 x 128 tokens takes K1; 30 GroupNorms
 # in the decoder (2 in each of 14 res blocks, the attention's, the tail).
 SD3_DEPTH, SD3_STEPS = 24, 50
-SD3_PER_REQUEST = dict(K1=1, K2=30, K3=0, K4=0, K5=4 * SD3_DEPTH * SD3_STEPS)
+SD3_PER_REQUEST = dict(K1=1, K2=30, K3=0, K4=0, K5=4 * SD3_DEPTH * SD3_STEPS,
+                       K6=0, K7=0)
+# MMDiT train step: in each of the 24 joint blocks the forward launches K5
+# four times (context and x queries against context and x keys) and the
+# backward K6 and K7 four times each, under the merged lse; the MMDiT has no
+# GroupNorm and nothing takes the unmasked kernels. A CFG sampling step is
+# one forward of batch 2B.
+MMDIT_PER_STEP = dict(K1=0, K2=0, K3=0, K4=0, K5=4 * SD3_DEPTH,
+                      K6=4 * SD3_DEPTH, K7=4 * SD3_DEPTH)
+MMDIT_SAMPLE_STEPS = 4
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16, data sheet
 PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
 PEAK_BYTES = 3.35e12       # HBM3
@@ -149,7 +179,8 @@ def kernel_counters():
     return dict(K1=fa.flash_attention_cuda, K2=gn.group_norm_cuda,
                 K3=fa.flash_attention_bwd_dq_cuda,
                 K4=fa.flash_attention_bwd_dkv_cuda,
-                K5=fa.flash_attention_pos_cuda)
+                K5=fa.flash_attention_pos_cuda, K6=fa.flash_bwd_pos_dq_cuda,
+                K7=fa.flash_bwd_pos_dkv_cuda)
 
 
 def reset_counts():
@@ -430,7 +461,186 @@ def phase_kernels(card):
               f"{cuda_ms(lambda: sdpa(*cat), 10, 2):.4f} ms [{card}]",
               flush=True)
         check(err <= 2e-2, f"joint attention {stability} disagrees: {err}")
+    del ref, cat
+    for name, e in phase_kernels_pos_bwd(card, ctx, xs, rnd, off,
+                                         tail).items():
+        record(name, e.pop("err"), True, **e)
     return results
+
+
+def phase_kernels_pos_bwd(card, ctx, xs, rnd, off, tail):
+    """K6 and K7 against ``flash_bwd_pos_plain``: at the four shapes of the
+    joint attention under the merged (global) lse and delta, at small masked
+    cases, and the joint backward as a whole against autograd through plain
+    attention over the concatenated sequence. Returns the largest errors and
+    the times at the x-by-x shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import attention as attn
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    z = off(0, 0)
+    worst = dict(K6=0.0, K7=0.0)
+    reported = {}
+
+    def compare(what, q, k, v, g, lse, delta, qo, ko, **kw):
+        """Errors of (dq, dk, dv) relative to each gradient's largest
+        magnitude; tolerance 2e-2 of it (five bf16 ulps, as K3 / K4), with
+        an absolute floor of 1e-6 where a gradient is zero everywhere."""
+        got = (fa.flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, qo, ko, **kw),
+               *fa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, qo, ko,
+                                          **kw))
+        want = fa.flash_bwd_pos_plain(q, k, v, g, lse, delta, qo, ko, **kw)
+        torch.cuda.synchronize()
+        line = []
+        for name, kern, a, w in zip(("dq", "dk", "dv"), ("K6", "K7", "K7"),
+                                    got, want):
+            err = (a.float() - w.float()).abs().max().item()
+            ref = w.float().abs().max().item()
+            finite = bool(torch.isfinite(a).all())
+            check(finite and err <= 2e-2 * ref + 1e-6,
+                  f"{kern} {name} disagrees at {what}: {err} > 2e-2 * {ref} "
+                  f"(finite: {finite})")
+            worst[kern] = max(worst[kern], err)
+            line.append(f"max|{name} err|={err:.3e} (max|{name}|={ref:.3e})")
+        return "; ".join(line) + "; tol 2e-2 of the largest magnitude"
+
+    # The four partials of one MMDiT block (CFG-free batch 2, 24 heads of
+    # 64): q, k, v are slices of the fused projections; dO is a (B, H, L, D)
+    # view of (B, L, H*D) memory, as the out-projection's gradient arrives;
+    # lse and delta are those of the merged forward over both key streams.
+    b, h, d = 2, 24, 64
+    streams = dict(c=ctx, x=xs)
+    stats = {}
+    for s_, (q, _, _) in streams.items():
+        n = q.shape[2]
+        g = rnd(b, n, h * d).to(bf16).reshape(b, n, h, d).transpose(1, 2)
+        out, lse = fa.merge_attention_partials(
+            *fa.flash_attention_pos(q, ctx[1], ctx[2], z, z),
+            *fa.flash_attention_pos(q, xs[1], xs[2], z, z))
+        stats[s_] = (g, lse.contiguous(), (g.float() * out.float()).sum(-1))
+    for sq, sk in (("c", "c"), ("c", "x"), ("x", "c"), ("x", "x")):
+        q, (_, k, v) = streams[sq][0], streams[sk]
+        g, lse, delta = stats[sq]
+        lq, lk = q.shape[2], k.shape[2]
+        errs = compare((b, h, lq, lk, d), q, k, v, g, lse, delta, z, z)
+        # the library's backward gives dq, dk and dv in one call
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl)
+        shared = dict(
+            plain_ms=cuda_ms(lambda: fa.flash_bwd_pos_plain(
+                q, k, v, g, lse, delta, z, z), 3, 1),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                ol, (ql, kl, vl), g, retain_graph=True), 5, 1))
+        # K6: S, dP and dQ products; reads q, k, v, dO, writes dq.
+        # K7: S, dP, dV and dK products; reads q, k, v, dO, writes dk, dv.
+        t6 = dict(zip(("bound_ms", "bound_by"),
+                      attn_bound(b, h, lq, lk, d, 3, 3, 2, 2)), **shared,
+                  ms=cuda_ms(lambda: fa.flash_bwd_pos_dq_cuda(
+                      q, k, v, g, lse, delta, z, z), 10, 2))
+        t7 = dict(zip(("bound_ms", "bound_by"),
+                      attn_bound(b, h, lq, lk, d, 4, 2, 4, 2)), **shared,
+                  ms=cuda_ms(lambda: fa.flash_bwd_pos_dkv_cuda(
+                      q, k, v, g, lse, delta, z, z), 10, 2))
+        print(f"K6/K7 flash bwd pos (B,H,Lq,Lk,D)=({b},{h},{lq},{lk},{d}) "
+              f"bf16, global lse: {errs}; plain and library compute dq, dk "
+              f"and dv together; K6: {tail(**t6)}; K7: {tail(**t7)}",
+              flush=True)
+        del ol, ql, kl, vl
+        if (sq, sk) == ("x", "x"):
+            reported = dict(K6=t6, K7=t7)
+
+    # Masks at a smaller size, under a lse that is global over TWO key
+    # blocks at different positions: (B, H, Lq, Lk, D), query offsets, the
+    # two blocks' key offsets, segment boundaries, causal, valid_len.
+    mask_cases = [
+        ("two segments, causal", (1, 4, 1000, 1000, 64), (1000, 3000),
+         [(0, 2000), (500, 2500)], 512, 500, True, None),
+        ("two segments, valid_len", (1, 4, 1000, 1000, 64), (1000, 3000),
+         [(0, 2000), (500, 2500)], 512, 500, False, 2300),
+        ("two segments, causal and valid_len", (1, 4, 1000, 1000, 64),
+         (1000, 3000), [(0, 2000), (500, 2500)], 512, 500, True, 2300),
+        ("ragged x length 529 against 154", (2, 3, 529, 154, 64), (0, 0),
+         [(0, 0), (154, 154)], None, None, False, None),
+        ("head dim 128, causal", (1, 2, 1000, 777, 128), (500, 2000),
+         [(0, 1500), (300, 1700)], 600, 400, True, None),
+        ("rows masked in one partial only", (1, 4, 1000, 1000, 64),
+         (100, 5000), [(3000, 4000), (0, 50)], 512, 500, True, None),
+        ("rows masked everywhere", (1, 4, 1000, 1000, 64), (100, 5000),
+         [(3000, 4000), (3500, 4500)], 512, 500, True, None),
+    ]
+    for what, (b_, h_, lq, lk, d_), qo, kos, seg_q, seg_k, causal, valid in \
+            mask_cases:
+        q, g = (rnd(b_, h_, lq, d_).to(bf16) for _ in range(2))
+        blocks = [tuple(rnd(b_, h_, lk, d_).to(bf16) for _ in range(2))
+                  for _ in kos]
+        kw = dict(causal=causal, valid_len=valid, seg_q=seg_q, seg_k=seg_k)
+        parts = [fa.flash_attention_pos_plain(q, k, v, off(*qo), off(*ko),
+                                              **kw)
+                 for (k, v), ko in zip(blocks, kos)]
+        out, lse = fa.merge_attention_partials(*parts[0], *parts[1])
+        delta = (g.float() * out.float()).sum(-1)
+        blank = int((lse <= -1e29).sum())
+        one_only = int(((parts[0][1] <= -1e29) & (lse > -1e29)).sum())
+        for i, ((k, v), ko) in enumerate(zip(blocks, kos)):
+            errs = compare(f"{what}, block {i}", q, k, v, g, lse, delta,
+                           off(*qo), off(*ko), **kw)
+            print(f"K6/K7 {what} ({b_},{h_},{lq},{lk},{d_}) key block {i}: "
+                  f"{errs}; {blank} rows see no key anywhere, {one_only} "
+                  f"see none in block 0 only", flush=True)
+        if what == "rows masked everywhere":
+            check(blank == 4 * 512, f"expected 2048 blank rows, got {blank}")
+        if what == "rows masked in one partial only":
+            check(blank == 0 and one_only == 4 * 512,
+                  f"expected 2048 rows masked in block 0 only: {one_only}, "
+                  f"{blank} blank")
+
+    # The joint backward of one MMDiT block: 4 x K5, then 4 x K6 + 4 x K7 and
+    # the sums, against autograd through plain attention over the
+    # concatenated 4250 tokens. Tolerance 3e-2 of each gradient's largest
+    # magnitude: two bf16 partials summed on top of the kernels' own 2e-2.
+    b, h, d = 2, 24, 64
+    leaves = [t.detach().requires_grad_() for t in (*ctx, *xs)]
+    g_c, g_x = stats["c"][0], stats["x"][0]
+    before = read_counts()
+    oc, ox = fa.joint_flash_attention(*leaves, d ** -0.5, "online")
+    got = torch.autograd.grad((oc, ox), leaves, (g_c, g_x),
+                              retain_graph=True)
+    torch.cuda.synchronize()
+    after = read_counts()
+    check([after[k] - before[k] for k in ("K5", "K6", "K7")] == [4, 4, 4],
+          "joint attention forward + backward did not launch K5, K6 and K7 "
+          "four times each")
+    ms = cuda_ms(lambda: torch.autograd.grad((oc, ox), leaves, (g_c, g_x),
+                                             retain_graph=True), 5, 1)
+    del oc, ox
+    ref_leaves = [t.detach().requires_grad_() for t in leaves]
+    cat = [torch.cat([c_, x_], dim=2)
+           for c_, x_ in zip(ref_leaves[:3], ref_leaves[3:])]
+    ref = attn.plain_attention(*cat)
+    want = torch.autograd.grad(ref, ref_leaves, torch.cat([g_c, g_x], dim=2))
+    del ref
+    ql, kl, vl = (t.detach().requires_grad_() for t in cat)
+    ol = F.scaled_dot_product_attention(ql, kl, vl)
+    gl = torch.cat([g_c, g_x], dim=2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), gl, retain_graph=True), 5, 1)
+    line = []
+    for name, a, w in zip(("dq_c", "dk_c", "dv_c", "dq_x", "dk_x", "dv_x"),
+                          got, want):
+        err = (a.float() - w.float()).abs().max().item()
+        ref_max = w.float().abs().max().item()
+        check(bool(torch.isfinite(a).all()) and err <= 3e-2 * ref_max,
+              f"joint backward {name} disagrees: {err} > 3e-2 * {ref_max}")
+        line.append(f"{name} {err:.3e}/{ref_max:.3e}")
+    print(f"joint attention backward (2,24,154+4096,64): max|err| / max|grad| "
+          f"{', '.join(line)} (tol 3e-2) against autograd through plain "
+          f"attention over the concatenated sequence; 4 x K6 + 4 x K7 + "
+          f"deltas and sums {ms:.4f} ms, library backward (one call, "
+          f"concatenated) {library_ms:.4f} ms [{card}]", flush=True)
+    return {k: dict(err=worst[k], **reported[k]) for k in ("K6", "K7")}
 
 
 def phase_kernels_bwd(card, q, k, v, out, lse, gen, tail):
@@ -651,6 +861,8 @@ def _family(name: str) -> str:
     """Kernel family of a CUDA kernel name, for the device profiles."""
     n = name.lower()
     for key, fam in (("flash_fwd_pos", "K5 flash fwd pos"),
+                     ("flash_bwd_pos_dq", "K6 flash bwd pos dq"),
+                     ("flash_bwd_pos_dkv", "K7 flash bwd pos dk/dv"),
                      ("flash_fwd", "K1 flash fwd"),
                      ("flash_bwd_dq", "K3 flash bwd dq"),
                      ("flash_bwd_dkv", "K4 flash bwd dk/dv"),
@@ -960,7 +1172,257 @@ def phase_sampling(card, trainer, state):
           images.abs().max().item() <= 1.0, "samples not finite in [-1, 1]")
     check(float(images.std()) > 0.0, "constant samples")
     check(launches == dict(K1=6 * SAMPLE_T, K2=39 * SAMPLE_T, K3=0, K4=0,
-                           K5=0), f"sampling launches {launches}")
+                           K5=0, K6=0, K7=0), f"sampling launches {launches}")
+    return launches
+
+
+# The qkv projections of both streams: where a fault of K6 or K7 lands first.
+MMDIT_QKV_LEAVES = re.compile(r"^joint_block\d+\.(context|x)_block\.qkv\.")
+
+
+def mmdit_batch(batch, img_size, context_len, model_cfg, seed):
+    """Normal latents, context and pooled vectors from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda *shape: rng.standard_normal(shape, dtype=np.float32)
+    return (f32(batch, img_size, img_size, model_cfg.in_channels),
+            f32(batch, context_len, model_cfg.context_dim),
+            f32(batch, model_cfg.adm_in_channels))
+
+
+def phase_mmdit_training(card):
+    """``MMDiTTrainer`` at SD3-medium's width and depth, latent 128 (4096 x
+    tokens + 154 context tokens), batch 2, bf16 over fp32 parameters."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.mmdit import MMDiTConfig
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.mmdit_trainer import (
+        MMDiTTrainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        FlowTrainConfig)
+
+    model_cfg = MMDiTConfig()
+    cfg = FlowTrainConfig(img_size=128, context_len=154, batch_size=2,
+                          dtype="bf16")
+    check((model_cfg.depth, model_cfg.hidden_size) == (SD3_DEPTH, 1536),
+          "MMDiTConfig() is not SD3-medium's")
+    warm, timed = 2, 5
+    n_steps = warm + timed + 1          # the last one under the profiler
+    t0 = time.perf_counter()
+    trainer = MMDiTTrainer(model_cfg, cfg, device="cuda")
+    state = trainer.create_state(steps_per_epoch=n_steps)
+    latents, context, y = (torch.from_numpy(a).cuda() for a in mmdit_batch(
+        cfg.batch_size, cfg.img_size, cfg.context_len, model_cfg, seed=0))
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    fixed = dict(
+        t_lin=torch.sigmoid(torch.randn(2, generator=gen, device="cuda")),
+        noise=torch.randn(latents.shape, generator=gen, device="cuda"),
+        drop=torch.zeros(2, dtype=torch.bool, device="cuda"))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"MMDiT training: {trainer.num_params(state)} params (fp32), batch "
+          f"{cfg.batch_size}, latent {cfg.img_size} -> 4096 + "
+          f"{cfg.context_len} tokens, bf16 compute, {held:.2f} GiB of fp32 "
+          f"weights resident (AdamW makes its moments at step 1); set-up "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def fixed_loss():
+        with torch.no_grad():
+            return trainer.loss(state, latents, context, y, **fixed).item()
+
+    loss_before = fixed_loss()
+    reset_counts()
+    losses = []
+    for _ in range(warm):
+        state, loss = trainer.train_step(state, latents, context, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(timed):
+        state, loss = trainer.train_step(state, latents, context, y)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3 / timed
+    step_ms = start.elapsed_time(end) / timed
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def one_step():
+        return trainer.train_step(state, latents, context, y)
+
+    (state, loss), wall_ms, fams, n_kernels, rows = profile_device(one_step)
+    losses.append(loss)
+    launches = read_counts()
+    loss_after = fixed_loss()
+    busy = sum(fams.values())
+    idle = 1.0 - busy / step_ms
+    losses = torch.stack(losses).float().cpu()
+    print(f"MMDiT training: {timed} timed steps: {step_ms:.2f} ms/step (CUDA "
+          f"events; host {host_ms:.2f} ms/step), "
+          f"{1e3 * cfg.batch_size / step_ms:.3f} img/s, peak {peak:.2f} GiB, "
+          f"losses {[round(v, 4) for v in losses.tolist()]}, the fixed "
+          f"batch's loss {loss_before:.5f} before and {loss_after:.5f} after "
+          f"{n_steps} steps, launches {launches} over {n_steps} steps "
+          f"[{card}]", flush=True)
+    print(f"MMDiT training profile of one step (torch.profiler, kernel rows "
+          f"only): device busy {busy:.2f} ms over {n_kernels} kernels; wall "
+          f"under the profiler {wall_ms:.2f} ms; device idle share "
+          f"{idle:.3f} (1 - busy / unprofiled step) [{card}]", flush=True)
+    print_profile(fams, rows, 1, "step")
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
+    check(loss_after < loss_before, f"the fixed batch's loss did not fall: "
+          f"{loss_before} -> {loss_after}")
+    params = state.params
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in params.values()), "missing or non-finite gradient")
+    for name, per_step in MMDIT_PER_STEP.items():
+        check(launches[name] == per_step * n_steps,
+              f"{name} launches {launches[name]} != {per_step} x {n_steps}")
+    return trainer, state, launches
+
+
+def phase_mmdit_grad_check(card):
+    """Loss and gradient of a depth-2 MMDiT (hidden 128, 2 heads of 64) at
+    latent 46 (529 x tokens, ragged against the 64-row tiles) + 154 context
+    tokens, batch 2: card (bf16 compute, K5 / K6 / K7) against CPU (fp32,
+    plain versions), as the whole flattened gradient and the qkv leaves of
+    both streams; then the same check on a planted fault of the joint
+    backward (dk and dv swapped), which it must catch."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.mmdit import MMDiTConfig
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
+        TrainState)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.mmdit_trainer import (
+        MMDiTTrainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        flax_default_init_)
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        FlowTrainConfig)
+
+    model_cfg = MMDiTConfig(depth=2, adm_in_channels=64, context_dim=128,
+                            pos_embed_max_size=32)
+    cfg = FlowTrainConfig(img_size=46, context_len=154, batch_size=2,
+                          dtype="bf16")
+    on_card = MMDiTTrainer(model_cfg, cfg, device="cuda")
+    on_cpu = MMDiTTrainer(model_cfg, dataclasses.replace(cfg, dtype="fp32"),
+                          device="cpu")
+    card_model = flax_default_init_(on_card.make_model(),
+                                    torch.Generator("cuda").manual_seed(7))
+    cpu_model = on_cpu.make_model()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               card_model.state_dict().items()})
+    latents, context, y = mmdit_batch(2, cfg.img_size, cfg.context_len,
+                                      model_cfg, seed=7)
+    gen = torch.Generator().manual_seed(7)
+    draws = dict(t_lin=torch.sigmoid(torch.randn(2, generator=gen)),
+                 noise=torch.randn(latents.shape, generator=gen),
+                 drop=torch.zeros(2, dtype=torch.bool))
+
+    def loss_and_grads(trainer, model):
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss = trainer.loss(TrainState(model.train(), None, None), latents,
+                            context, y, **draws)
+        loss.backward()
+        grads = {n: p.grad.float().flatten().cpu()
+                 for n, p in model.named_parameters()}
+        return loss.item(), grads, time.perf_counter() - t0
+
+    l_cpu, g_cpu, s_cpu = loss_and_grads(on_cpu, cpu_model)
+    qkv = [n for n in g_cpu if MMDIT_QKV_LEAVES.search(n)]
+    check(len(qkv) == 8, f"qkv leaves {qkv}")
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+
+    def errors(g_card):
+        whole = rel(torch.cat(list(g_card.values())),
+                    torch.cat(list(g_cpu.values())))
+        leaves = {n: rel(g_card[n], g_cpu[n]) for n in g_cpu
+                  if g_cpu[n].norm() > 0}
+        return whole, leaves, max(qkv, key=leaves.get)
+
+    def passes(whole, leaves, loss_rel):
+        return (whole <= GRAD_REL_TOL and loss_rel <= GRAD_REL_TOL
+                and all(leaves[n] <= GRAD_REL_TOL for n in qkv))
+
+    n0 = read_counts()
+    l_card, g_card, s_card = loss_and_grads(on_card, card_model)
+    n1 = read_counts()
+    got = {k: n1[k] - n0[k] for k in ("K5", "K6", "K7")}
+    check(got == dict(K5=8, K6=8, K7=8),
+          f"the small MMDiT launched {got}, not 4 per block of each")
+    whole, leaves, worst_qkv = errors(g_card)
+    worst = max(leaves, key=leaves.get)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    print(f"MMDiT gradient check (depth 2, 529 + 154 tokens, batch 2): loss "
+          f"card {l_card:.6f} cpu {l_cpu:.6f} (rel {loss_rel:.3e}); flattened "
+          f"gradient ({sum(g.numel() for g in g_cpu.values())} values) rel L2 "
+          f"err {whole:.3e}; worst qkv leaf ({len(qkv)} leaves) {worst_qkv} "
+          f"{leaves[worst_qkv]:.3e}; worst leaf of all {worst} "
+          f"{leaves[worst]:.3e} (reported only); tol {GRAD_REL_TOL} on the "
+          f"whole, the loss and each qkv leaf; card {s_card:.2f} s, cpu fp32 "
+          f"{s_cpu:.2f} s", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in g_card.values()),
+          "non-finite card gradient")
+    check(passes(whole, leaves, loss_rel),
+          f"card gradient off the CPU's: whole {whole}, loss rel {loss_rel}, "
+          f"qkv leaf {worst_qkv} {leaves[worst_qkv]}")
+
+    # Control: the same check must fail on a planted fault of the backward.
+    bwd = fa.flash_bwd_pos
+
+    def swap_dk_dv(*args, **kw):
+        dq, dk, dv = bwd(*args, **kw)
+        return dq, dv, dk
+
+    fa.flash_bwd_pos = swap_dk_dv
+    try:
+        l_bad, g_bad, _ = loss_and_grads(on_card, card_model)
+    finally:
+        fa.flash_bwd_pos = bwd
+    whole_b, leaves_b, worst_b = errors(g_bad)
+    caught = not passes(whole_b, leaves_b, abs(l_bad - l_cpu) / abs(l_cpu))
+    print(f"MMDiT gradient check control (dk/dv swapped in the joint "
+          f"backward): whole {whole_b:.3e} "
+          f"({'above' if whole_b > GRAD_REL_TOL else 'within'} tol), worst "
+          f"qkv leaf {worst_b} {leaves_b[worst_b]:.3e}: "
+          f"{'caught' if caught else 'MISSED'}", flush=True)
+    check(caught, "the MMDiT gradient check missed the planted fault")
+    return whole
+
+
+def phase_mmdit_sampling(card, trainer, state):
+    """``MMDiTTrainer.sample`` of 2 latents from the trained state: CFG as
+    one batch-4 forward per flow-Euler step."""
+    import torch
+
+    cfg = trainer.cfg
+    _, context, y = mmdit_batch(2, cfg.img_size, cfg.context_len,
+                                trainer.model_cfg, seed=1)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    latents = trainer.sample(state, context, y, steps=MMDIT_SAMPLE_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = read_counts()
+    print(f"MMDiT sampling: 2 latents, {MMDIT_SAMPLE_STEPS} flow-Euler steps, "
+          f"CFG w={cfg.w} (MMDiT batch 4): {secs:.3f} s, "
+          f"{1e3 * secs / MMDIT_SAMPLE_STEPS:.2f} ms/step, launches "
+          f"{launches} [{card}]", flush=True)
+    s_ = cfg.img_size
+    check(tuple(latents.shape) == (2, s_, s_, 16), f"{tuple(latents.shape)}")
+    check(bool(torch.isfinite(latents).all()), "sampled latents not finite")
+    check(float(latents.std()) > 0.0, "constant sampled latents")
+    want = dict.fromkeys(launches, 0)
+    want["K5"] = MMDIT_PER_STEP["K5"] * MMDIT_SAMPLE_STEPS
+    check(launches == want, f"MMDiT sampling launches {launches} != {want}")
     return launches
 
 
@@ -968,12 +1430,24 @@ def main():
     card = phase_device()
     phase_build()
     kernels = phase_kernels(card)
-    paths = ("sd1", "sd3", "training", "sampling")
+    import gc
+
+    import torch
+
+    paths = ("sd1", "sd3", "training", "sampling", "mmdit_training",
+             "mmdit_sampling")
     runs = [phase_sd1(card), phase_sd3(card)]
     trainer, state, train_launches, _ = phase_training(card)
     runs.append(train_launches)
     phase_grad_check(card)
     runs.append(phase_sampling(card, trainer, state))
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()   # the serving bundles are gone: room to train
+    trainer, state, train_launches = phase_mmdit_training(card)
+    runs.append(train_launches)
+    phase_mmdit_grad_check(card)
+    runs.append(phase_mmdit_sampling(card, trainer, state))
     pkg = "from_ddpm_to_stable_diffusion_tpu_torch/csrc/"
 
     def entry(name, src, replaces, k, **kw):
@@ -1011,13 +1485,21 @@ def main():
               "flash_attention.py:1237", "K5",
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64) online",
               library="F.scaled_dot_product_attention"),
+        entry("flash_attention_bwd_pos_dq", "flash_attention_pos_bwd.cu",
+              "flash_attention.py:1446", "K6", plain_computes=together,
+              library_computes=together,
+              timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
+              library="backward of F.scaled_dot_product_attention"),
+        entry("flash_attention_bwd_pos_dkv", "flash_attention_pos_bwd.cu",
+              "flash_attention.py:1504", "K7", plain_computes=together,
+              library_computes=together,
+              timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
+              library="backward of F.scaled_dot_product_attention"),
     ]}
     print(card)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         sys.exit(1)
-    import torch
-
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The JAX package's Flax parameter trees -> this package's ``state_dict``s.
+"""The JAX package's Flax parameter trees <-> this package's ``state_dict``s.
 
 The port names its submodules after the Flax parameter paths, so the
 conversion only renames and transposes leaves (the reverse of
@@ -8,11 +8,16 @@ conversion only renames and transposes leaves (the reverse of
 - 2-D ``kernel`` (I, O) -> linear ``weight`` (O, I)
 - ``scale`` -> norm ``weight``; ``embedding`` -> embedding ``weight``
 - every other leaf (``bias``, ``position_value``) keeps its name.
+
+:func:`jax_params_from_module` goes the other way (a trained port model, or
+its EMA, as the tree the JAX trainer keeps in ``TrainState.params`` /
+``ema_params``); it needs the module, since a port ``weight`` is a Flax
+``kernel``, ``scale`` or ``embedding`` depending on the layer that owns it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -70,3 +75,35 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
                              f"{tuple(own[key].shape)}")
     module.load_state_dict(sd)
     return module
+
+
+def jax_params_from_module(
+        module: nn.Module,
+        params: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
+    """The Flax parameter tree (nested dict of numpy arrays, in each
+    parameter's own dtype widened to fp32 for bf16) of ``module``: the
+    inverse of :func:`state_dict_from_jax`. ``params`` (name -> tensor, e.g.
+    a trainer's ``ema_params``) replaces the module's own values."""
+    own = dict(module.named_parameters())
+    if params is not None and set(params) != set(own):
+        raise ValueError("params must name exactly the module's parameters")
+    tree: dict = {}
+    for name, p in (own if params is None else params).items():
+        *path, leaf = name.split(".")
+        parent = module.get_submodule(".".join(path))
+        a = p.detach()
+        a = (a.float() if a.dtype == torch.bfloat16 else a).cpu().numpy()
+        if leaf == "weight":
+            if isinstance(parent, nn.Conv2d):
+                leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+            elif isinstance(parent, nn.Linear):
+                leaf, a = "kernel", a.T
+            elif isinstance(parent, nn.Embedding):
+                leaf = "embedding"
+            else:
+                leaf = "scale"
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.array(a, order="C")
+    return tree

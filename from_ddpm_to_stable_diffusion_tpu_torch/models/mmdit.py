@@ -9,8 +9,14 @@ attend over both streams (:func:`..ops.attention.joint_attention_blhd`,
 which on the card runs the position-masked flash kernel four times per
 block). hidden = 64·depth and heads = depth, so the head dim is always 64.
 The last block's context side is ``pre_only``: it gives keys and values
-only. NHWC in and out; the modules compute in the dtype their weights are
-stored in and the output is fp32.
+only. NHWC in and out, the output fp32.
+
+dtype: without ``compute_dtype`` every linear and the patchify conv compute
+in the dtype their weights are stored in (serving stores bf16 weights).
+With ``compute_dtype`` (training: the JAX ``MMDiT(dtype=...)`` over fp32
+parameters) inputs, weights and biases are cast to it at each call and the
+parameters stay as stored; LayerNorm and the q / k norms keep fp32
+statistics and gains either way. ``torch.autocast`` is not used.
 
 Not ported yet (ROADMAP.md): sequence-parallel attention (``ring``,
 ``ulysses``), the Switch-MoE MLP, int8 projections, pipeline parallelism.
@@ -40,10 +46,13 @@ def modulate(x, shift, scale):
 class MLPEmbedder(nn.Module):
     """Linear → SiLU → Linear (the timestep and pooled-vector embedders)."""
 
-    def __init__(self, in_features: int, hidden_size: int):
+    def __init__(self, in_features: int, hidden_size: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.fc1 = Linear(in_features, hidden_size)
-        self.fc2 = Linear(hidden_size, hidden_size)
+        self.fc1 = Linear(in_features, hidden_size,
+                          compute_dtype=compute_dtype)
+        self.fc2 = Linear(hidden_size, hidden_size,
+                          compute_dtype=compute_dtype)
 
     def forward(self, x):
         return self.fc2(F.silu(self.fc1(x)))
@@ -76,19 +85,20 @@ class DismantledBlock(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 pre_only: bool = False, qk_norm: Optional[str] = None):
+                 pre_only: bool = False, qk_norm: Optional[str] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        hs = hidden_size
+        hs, dt = hidden_size, compute_dtype
         self.num_heads, self.head_dim = num_heads, hs // num_heads
         self.pre_only = pre_only
-        self.qkv = Linear(hs, 3 * hs, bias=qkv_bias)
+        self.qkv = Linear(hs, 3 * hs, bias=qkv_bias, compute_dtype=dt)
         self.ln_q = QKNorm(qk_norm, self.head_dim)
         self.ln_k = QKNorm(qk_norm, self.head_dim)
-        self.adaLN = Linear(hs, (2 if pre_only else 6) * hs)
+        self.adaLN = Linear(hs, (2 if pre_only else 6) * hs, compute_dtype=dt)
         if not pre_only:
-            self.proj = Linear(hs, hs)
-            self.mlp_fc1 = Linear(hs, int(hs * mlp_ratio))
-            self.mlp_fc2 = Linear(int(hs * mlp_ratio), hs)
+            self.proj = Linear(hs, hs, compute_dtype=dt)
+            self.mlp_fc1 = Linear(hs, int(hs * mlp_ratio), compute_dtype=dt)
+            self.mlp_fc2 = Linear(int(hs * mlp_ratio), hs, compute_dtype=dt)
 
     def _mods(self, c):
         m = self.adaLN(F.silu(c))
@@ -132,16 +142,18 @@ class JointBlock(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  context_pre_only: bool = False,
                  qk_norm: Optional[str] = None,
-                 stability: Optional[str] = None):
+                 stability: Optional[str] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.context_pre_only = context_pre_only
         self.stability = stability or ("bounded" if qk_norm else "online")
         self.context_block = DismantledBlock(
             hidden_size, num_heads, mlp_ratio, qkv_bias,
-            pre_only=context_pre_only, qk_norm=qk_norm)
+            pre_only=context_pre_only, qk_norm=qk_norm,
+            compute_dtype=compute_dtype)
         self.x_block = DismantledBlock(
             hidden_size, num_heads, mlp_ratio, qkv_bias, pre_only=False,
-            qk_norm=qk_norm)
+            qk_norm=qk_norm, compute_dtype=compute_dtype)
 
     def forward(self, context, x, c):
         ctx_qkv, ctx_state = self.context_block.pre_attention(context, c)
@@ -209,11 +221,14 @@ class MMDiTConfig:
 
 class MMDiT(nn.Module):
     """x (B, H, W, C) NHWC latent, t (B,) timesteps, y (B, adm) pooled
-    conditioning, context (B, Lc, context_dim) -> (B, H, W, C) fp32."""
+    conditioning, context (B, Lc, context_dim) -> (B, H, W, C) fp32.
+    ``compute_dtype``: see the module docstring."""
 
-    def __init__(self, config: MMDiTConfig = MMDiTConfig()):
+    def __init__(self, config: MMDiTConfig = MMDiTConfig(),
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        cfg = config
+        cfg, dt = config, compute_dtype
+        self.compute_dtype = compute_dtype
         for name, off in (("attention_impl", "flash"), ("int8_mm", False),
                           ("moe_experts", None)):
             if getattr(cfg, name) != off:
@@ -221,25 +236,28 @@ class MMDiT(nn.Module):
                     f"{name}={getattr(cfg, name)!r} is not ported yet")
         self.config = cfg
         hs, p = cfg.hidden_size, cfg.patch_size
-        self.x_embedder = Conv2d(cfg.in_channels, hs, p, stride=p)
+        self.x_embedder = Conv2d(cfg.in_channels, hs, p, stride=p,
+                                 compute_dtype=dt)
         self.pos_embed = nn.Parameter(
             torch.zeros(1, cfg.pos_embed_max_size ** 2, hs))
-        self.t_embedder = MLPEmbedder(256, hs)
+        self.t_embedder = MLPEmbedder(256, hs, dt)
         if cfg.adm_in_channels is not None:
-            self.y_embedder = MLPEmbedder(cfg.adm_in_channels, hs)
+            self.y_embedder = MLPEmbedder(cfg.adm_in_channels, hs, dt)
         if cfg.context_dim is not None:
-            self.context_embedder = Linear(cfg.context_dim, hs)
+            self.context_embedder = Linear(cfg.context_dim, hs,
+                                           compute_dtype=dt)
         for i in range(cfg.depth):
             self.add_module(f"joint_block{i}", JointBlock(
                 hs, cfg.depth, cfg.mlp_ratio, cfg.qkv_bias,
                 context_pre_only=(i == cfg.depth - 1), qk_norm=cfg.qk_norm,
-                stability=cfg.stability))
-        self.final_adaLN = Linear(hs, 2 * hs)
-        self.final_linear = Linear(hs, p * p * cfg.in_channels)
+                stability=cfg.stability, compute_dtype=dt))
+        self.final_adaLN = Linear(hs, 2 * hs, compute_dtype=dt)
+        self.final_linear = Linear(hs, p * p * cfg.in_channels,
+                                   compute_dtype=dt)
 
     def forward(self, x, t, y=None, context=None):
         cfg = self.config
-        dt = self.x_embedder.weight.dtype
+        dt = self.compute_dtype or self.x_embedder.weight.dtype
         b, h, w, _ = x.shape
         p = cfg.patch_size
         hp, wp = h // p, w // p

@@ -41,6 +41,14 @@ _SIGNATURES = {
     # seg_q, seg_k, valid_len, has_valid, causal, bounded, stream
     "fdsd_flash_fwd_pos": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                            _F, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, dO, lse, delta, dq, q_off, k_off, B, H, Lq, Lk, d, strides[15],
+    # scale, seg_q, seg_k, valid_len, has_valid, causal, stream
+    "fdsd_flash_bwd_pos_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _P, _F, _I, _I, _I, _I, _I, _P],
+    # q, k, v, dO, lse, delta, dk, dv, q_off, k_off, B, H, Lq, Lk, d,
+    # strides[18], scale, seg_q, seg_k, valid_len, has_valid, causal, stream
+    "fdsd_flash_bwd_pos_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _P, _F, _I, _I, _I, _I, _I, _P],
     # x, scale, bias, y, part, stats, B, HW, C, G, eps, silu, is_bf16,
     # threads, rows_per_chunk, n_chunks, stream
     "fdsd_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,

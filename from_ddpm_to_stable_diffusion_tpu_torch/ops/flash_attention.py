@@ -1,6 +1,6 @@
 """Flash attention over (B, H, L, D), forward and backward, and the
-position-masked forward with the split-KV joint attention built on it (port
-of ``ops/flash_attention.py``).
+position-masked forward and backward with the split-KV joint attention built
+on them (port of ``ops/flash_attention.py``).
 
 Forward: on CUDA tensors :func:`flash_attention_forward` launches the kernel
 of ``csrc/flash_attention.cu``, which stands in for both Pallas forward
@@ -26,15 +26,20 @@ Position-masked forward: :func:`flash_attention_pos` masks by global
 position (two offset segments per side, ``valid_len``, causal, the ragged
 key tail) and returns (out, lse); on CUDA tensors it launches the kernel of
 ``csrc/flash_attention_pos.cu`` (the Pallas ``_fwd_kernel_pos``), on CPU
-tensors :func:`flash_attention_pos_plain`. :func:`joint_flash_attention`
-is the MMDiT's attention over [context | x] without concatenation: four
-position-masked calls merged exactly through their log-sum-exps by
-:func:`merge_attention_partials`. Forward only.
+tensors :func:`flash_attention_pos_plain`. Position-masked backward:
+:func:`flash_bwd_pos` gives (dq, dk, dv) of one query block against one key
+block under a caller-supplied *global* lse and delta, with the same masks;
+on CUDA tensors the two kernels of ``csrc/flash_attention_pos_bwd.cu`` (the
+Pallas ``_bwd_dq_kernel_pos`` and ``_bwd_dkv_kernel_pos``), on CPU tensors
+:func:`flash_bwd_pos_plain`. :func:`joint_flash_attention` is the MMDiT's
+attention over [context | x] without concatenation: four position-masked
+calls merged exactly through their log-sum-exps by
+:func:`merge_attention_partials`, and in the backward four
+:func:`flash_bwd_pos` calls under the merged lse whose partial gradients
+add up (:class:`JointFlashAttention`).
 
 Not ported yet (see ROADMAP.md): the additive bias, causal and segment-id
-masks of :func:`flash_attention`, forward and backward (B2); the
-position-masked backward kernels that ring attention and MMDiT training
-need, and with them the backward of :func:`joint_flash_attention` (B6).
+masks of :func:`flash_attention`, forward and backward (B2).
 """
 
 from __future__ import annotations
@@ -156,8 +161,8 @@ def flash_attention_forward(q, k, v, scale: Optional[float] = None):
     return flash_attention_plain(q, k, v, scale)
 
 
-def _check_bwd(q, k, v, g, lse, delta):
-    dims = _check_qkv(q, k, v, "the flash backward kernels", _BWD_HEAD_DIMS)
+def _check_bwd(q, k, v, g, lse, delta, head_dims=_BWD_HEAD_DIMS):
+    dims = _check_qkv(q, k, v, "the flash backward kernels", head_dims)
     _check_operand("dO", g, q)
     if g.shape != q.shape:
         raise ValueError(f"dO {tuple(g.shape)} must be {tuple(q.shape)}")
@@ -207,6 +212,17 @@ flash_attention_bwd_dq_cuda.launches = 0
 flash_attention_bwd_dkv_cuda.launches = 0
 
 
+def _kernel_operand(g, dtype):
+    """``g`` as the kernels can read it: in ``dtype``, copied only when its
+    head dim is not contiguous, another stride is not a multiple of 8 or it
+    is not 16-byte aligned."""
+    g = g.to(dtype)
+    if (g.stride(-1) != 1 or any(s % 8 for s in g.stride()[:-1])
+            or g.data_ptr() % 16):
+        g = g.contiguous()
+    return g
+
+
 def flash_attention_bwd_cuda(q, k, v, out, lse, g,
                              scale: Optional[float] = None):
     """(dq, dk, dv) for bf16 CUDA tensors through K3 and K4, with ``out``
@@ -216,10 +232,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, g,
     otherwise. delta = Σ_d dO·out is a plain fp32 reduction."""
     if out.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} must be {tuple(q.shape)}")
-    g = g.to(q.dtype)
-    if (g.stride(-1) != 1 or any(s % 8 for s in g.stride()[:-1])
-            or g.data_ptr() % 16):
-        g = g.contiguous()
+    g = _kernel_operand(g, q.dtype)
     delta = (g.float() * out.float()).sum(-1)
     lse = lse.contiguous()
     dq = flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta, scale)
@@ -263,7 +276,7 @@ def flash_attention(q, k, v, bias=None, segment_ids=None,
 
 
 # --------------------------------------------------------------------------
-# Position-masked forward and the split-KV joint attention
+# Position-masked forward and backward, and the split-KV joint attention
 # --------------------------------------------------------------------------
 def _positions(n: int, offsets, seg: int):
     """Global positions of local indices 0..n-1: ``offsets[0] + idx`` below
@@ -281,6 +294,18 @@ def _pos_args(q, k, scale, seg_q, seg_k, stability):
     return scale, seg_q, seg_k
 
 
+def _visible(lq, lk, q_offsets, kv_offsets, seg_q, seg_k, causal, valid_len):
+    """(Lq, Lk) bool: which key each query sees, from explicit positions."""
+    col_pos = _positions(lk, kv_offsets, seg_k)
+    visible = torch.ones((lq, lk), dtype=torch.bool, device=col_pos.device)
+    if valid_len is not None:
+        visible &= (col_pos < valid_len)[None, :]
+    if causal:
+        row_pos = _positions(lq, q_offsets, seg_q)
+        visible &= col_pos[None, :] <= row_pos[:, None]
+    return visible
+
+
 def flash_attention_pos_plain(q, k, v, q_offsets, kv_offsets, *,
                               causal: bool = False,
                               scale: Optional[float] = None,
@@ -296,13 +321,8 @@ def flash_attention_pos_plain(q, k, v, q_offsets, kv_offsets, *,
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, stability)
     lq, lk = q.shape[2], k.shape[2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    col_pos = _positions(lk, kv_offsets, seg_k)
-    visible = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
-    if valid_len is not None:
-        visible &= (col_pos < valid_len)[None, :]
-    if causal:
-        row_pos = _positions(lq, q_offsets, seg_q)
-        visible &= col_pos[None, :] <= row_pos[:, None]
+    visible = _visible(lq, lk, q_offsets, kv_offsets, seg_q, seg_k, causal,
+                       valid_len)
     s = s.masked_fill(~visible, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * visible
@@ -312,6 +332,16 @@ def flash_attention_pos_plain(q, k, v, q_offsets, kv_offsets, *,
     lse = torch.where(l == 0, torch.full_like(l, NEG_INF),
                       m + torch.log(safe_l))
     return out.to(q.dtype), lse.squeeze(-1)
+
+
+def _check_pos(q, scale, q_offsets, kv_offsets):
+    if not scale > 0:
+        raise ValueError(f"scale must be positive, got {scale}")
+    for name, off in (("q_offsets", q_offsets), ("kv_offsets", kv_offsets)):
+        if (off.device != q.device or off.dtype != torch.int32
+                or off.shape != (2,) or not off.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 (2,) tensor "
+                             f"on {q.device}")
 
 
 def flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, *,
@@ -327,13 +357,7 @@ def flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, *,
     b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_pos_cuda",
                                  _POS_HEAD_DIMS)
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, stability)
-    if not scale > 0:
-        raise ValueError(f"scale must be positive, got {scale}")
-    for name, off in (("q_offsets", q_offsets), ("kv_offsets", kv_offsets)):
-        if (off.device != q.device or off.dtype != torch.int32
-                or off.shape != (2,) or not off.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous int32 (2,) tensor "
-                             f"on {q.device}")
+    _check_pos(q, scale, q_offsets, kv_offsets)
     out = _blhd(q, lq)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
     strides = _strides(q, k, v, out)
@@ -364,11 +388,118 @@ def flash_attention_pos(q, k, v, q_offsets, kv_offsets, **kw):
     fully masked row gives lse = -1e30 and out = 0. ``stability``:
     "online" keeps a running max, "bounded" a fixed max of 0 (exact while
     |scale*q.k| stays inside the fp32 exp range, as qk-norm guarantees).
-    Not differentiable. The kernel on CUDA tensors, the plain version on
-    CPU tensors."""
+    Not differentiable by itself (see :func:`flash_bwd_pos`). The kernel
+    on CUDA tensors, the plain version on CPU tensors."""
     if q.is_cuda:
         return flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, **kw)
     return flash_attention_pos_plain(q, k, v, q_offsets, kv_offsets, **kw)
+
+
+def flash_bwd_pos_plain(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
+                        causal: bool = False, scale: Optional[float] = None,
+                        seg_q: Optional[int] = None,
+                        seg_k: Optional[int] = None,
+                        valid_len: Optional[int] = None):
+    """(dq, dk, dv) of :func:`flash_bwd_pos` in plain PyTorch: explicit
+    positions and mask, P = exp(scale·QKᵀ − lse) in fp32 where the key is
+    visible and 0 elsewhere (selected, so a row whose lse is -1e30 stays
+    finite), dS = P·(dO·Vᵀ − delta), and P and dS cast to the input dtype
+    before the products that take them, as the kernels do."""
+    scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, "online")
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    visible = _visible(q.shape[2], k.shape[2], q_offsets, kv_offsets, seg_q,
+                       seg_k, causal, valid_len)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.where(visible, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _pos_bwd_args(q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q,
+                  seg_k):
+    dims = _check_bwd(q, k, v, g, lse, delta, _POS_HEAD_DIMS)
+    scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, "online")
+    _check_pos(q, scale, q_offsets, kv_offsets)
+    return dims, scale, seg_q, seg_k
+
+
+def flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
+                          causal: bool = False, scale: Optional[float] = None,
+                          seg_q: Optional[int] = None,
+                          seg_k: Optional[int] = None,
+                          valid_len: Optional[int] = None):
+    """K6: dq of :func:`flash_bwd_pos` for bf16 (B, H, L, D) CUDA tensors,
+    D 64 or 128; ``lse`` and ``delta`` contiguous fp32 (B, H, Lq), the
+    offsets int32 (2,) tensors on q's device."""
+    (b, h, lq, lk, d), scale, seg_q, seg_k = _pos_bwd_args(
+        q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k)
+    dq = _blhd(q, lq)
+    strides = _strides(q, k, v, g, dq)
+    err = _build.load().fdsd_flash_bwd_pos_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), q_offsets.data_ptr(),
+        kv_offsets.data_ptr(), b, h, lq, lk, d,
+        ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
+        0 if valid_len is None else int(valid_len), int(valid_len is not None),
+        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "fdsd_flash_bwd_pos_dq")
+    flash_bwd_pos_dq_cuda.launches += 1
+    return dq
+
+
+def flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
+                           causal: bool = False,
+                           scale: Optional[float] = None,
+                           seg_q: Optional[int] = None,
+                           seg_k: Optional[int] = None,
+                           valid_len: Optional[int] = None):
+    """K7: (dk, dv) from the inputs of :func:`flash_bwd_pos_dq_cuda`."""
+    (b, h, lq, lk, d), scale, seg_q, seg_k = _pos_bwd_args(
+        q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k)
+    dk, dv = _blhd(k, lk), _blhd(v, lk)
+    strides = _strides(q, k, v, g, dk, dv)
+    err = _build.load().fdsd_flash_bwd_pos_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        q_offsets.data_ptr(), kv_offsets.data_ptr(), b, h, lq, lk, d,
+        ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
+        0 if valid_len is None else int(valid_len), int(valid_len is not None),
+        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "fdsd_flash_bwd_pos_dkv")
+    flash_bwd_pos_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_pos_dq_cuda.launches = 0
+flash_bwd_pos_dkv_cuda.launches = 0
+
+
+def flash_bwd_pos(q, k, v, g, lse, delta, q_offsets, kv_offsets, **kw):
+    """(dq, dk, dv) of a local block of queries against a local block of
+    keys under the *global* softmax: ``lse`` is the log-sum-exp (B, H, Lq)
+    fp32 of the merged forward over every key block, ``delta`` = Σ_d dO·out
+    (B, H, Lq) fp32 with the merged ``out``, ``g`` = dO. Masks, offsets,
+    ``seg_q`` / ``seg_k``, ``valid_len`` and ``causal`` as in
+    :func:`flash_attention_pos` (the backward is the same function for both
+    stabilities). The contributions of several key blocks add up: dq over
+    the key blocks a query block saw, dk and dv over the query blocks that
+    saw a key block. The kernels on CUDA tensors (dO is copied only when
+    they cannot read it through its strides), the plain version on CPU
+    tensors."""
+    if not q.is_cuda:
+        return flash_bwd_pos_plain(q, k, v, g, lse, delta, q_offsets,
+                                   kv_offsets, **kw)
+    g = _kernel_operand(g, q.dtype)
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dq = flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets,
+                               **kw)
+    return (dq, *flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, q_offsets,
+                                        kv_offsets, **kw))
 
 
 def merge_attention_partials(o1, lse1, o2, lse2):
@@ -383,23 +514,39 @@ def merge_attention_partials(o1, lse1, o2, lse2):
 
 
 class JointFlashAttention(torch.autograd.Function):
-    """Forward of :func:`joint_flash_attention`; its backward needs the
-    position-masked backward kernels, which are not ported yet."""
+    """Forward of :func:`joint_flash_attention`, saving q, k, v of both
+    streams and both merged outputs and log-sum-exps. Backward (the JAX
+    ``_joint_vjp_bwd``): each of the four partials' :func:`flash_bwd_pos`
+    runs under the merged lse and delta = Σ_d dO·out of its query stream;
+    the two partial gradients of each input, in the input dtype, are added
+    in fp32 and rounded once more."""
 
     @staticmethod
     def forward(ctx, qc, kc, vc, qx, kx, vx, scale, stability):
         z = torch.zeros(2, dtype=torch.int32, device=qc.device)
         f = lambda q, k, v: flash_attention_pos(q, k, v, z, z, scale=scale,
                                                 stability=stability)
-        o_c, _ = merge_attention_partials(*f(qc, kc, vc), *f(qc, kx, vx))
-        o_x, _ = merge_attention_partials(*f(qx, kc, vc), *f(qx, kx, vx))
+        o_c, lse_c = merge_attention_partials(*f(qc, kc, vc), *f(qc, kx, vx))
+        o_x, lse_x = merge_attention_partials(*f(qx, kc, vc), *f(qx, kx, vx))
+        ctx.save_for_backward(qc, kc, vc, qx, kx, vx, o_c, o_x, lse_c, lse_x)
+        ctx.scale = scale
         return o_c, o_x
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the backward of joint_flash_attention needs the position-masked "
-            "backward kernels (ROADMAP.md B6), which are not ported yet")
+    def backward(ctx, g_c, g_x):
+        qc, kc, vc, qx, kx, vx, o_c, o_x, lse_c, lse_x = ctx.saved_tensors
+        z = torch.zeros(2, dtype=torch.int32, device=qc.device)
+        bwd = lambda q, k, v, g, lse, delta: flash_bwd_pos(
+            q, k, v, g, lse, delta, z, z, scale=ctx.scale)
+        delta_c = (g_c.float() * o_c.float()).sum(-1)
+        delta_x = (g_x.float() * o_x.float()).sum(-1)
+        dqc1, dkc1, dvc1 = bwd(qc, kc, vc, g_c, lse_c, delta_c)
+        dqc2, dkx1, dvx1 = bwd(qc, kx, vx, g_c, lse_c, delta_c)
+        dqx1, dkc2, dvc2 = bwd(qx, kc, vc, g_x, lse_x, delta_x)
+        dqx2, dkx2, dvx2 = bwd(qx, kx, vx, g_x, lse_x, delta_x)
+        add = lambda a, b: (a.float() + b.float()).to(a.dtype)
+        return (add(dqc1, dqc2), add(dkc1, dkc2), add(dvc1, dvc2),
+                add(dqx1, dqx2), add(dkx1, dkx2), add(dvx1, dvx2), None, None)
 
 
 def joint_flash_attention(qc, kc, vc, qx, kx, vx,
@@ -410,5 +557,7 @@ def joint_flash_attention(qc, kc, vc, qx, kx, vx,
     attends over both key streams, as four :func:`flash_attention_pos`
     calls merged by :func:`merge_attention_partials`; equal to attention
     over the concatenated sequence up to floating-point reassociation.
-    Forward only."""
+    Differentiable in all six tensors."""
+    if scale is None:
+        scale = qx.shape[-1] ** -0.5
     return JointFlashAttention.apply(qc, kc, vc, qx, kx, vx, scale, stability)

@@ -24,6 +24,7 @@ from typing import Callable, Dict, Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 from torch.func import functional_call
 
 from ..io.from_jax import load_jax_params
@@ -42,7 +43,7 @@ class TrainState:
     """The model (its parameters), the optimizer with its moments, the LR
     schedule, the number of updates made, and the optional EMA."""
 
-    model: TinyUNet
+    model: nn.Module
     optimizer: torch.optim.AdamW
     schedule: Callable[[int], float]
     step: int = 0
@@ -66,6 +67,41 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float):
     return norm
 
 
+def new_train_state(model: nn.Module, cfg, steps_per_epoch: int) -> TrainState:
+    """The state both trainers start from: AdamW with optax's defaults at
+    the warmup-cosine rate of ``cfg`` (lr, max_lr, warmup_epochs, epoch),
+    no update made, and a copy of the parameters as the EMA when
+    ``cfg.ema_decay``."""
+    schedule = cosine_warmup_lr(cfg.lr, cfg.max_lr, cfg.warmup_epochs,
+                                cfg.epoch, max(1, steps_per_epoch))
+    optimizer = torch.optim.AdamW(model.parameters(), lr=schedule(0),
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=1e-4)
+    ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
+           if cfg.ema_decay else None)
+    return TrainState(model, optimizer, schedule, 0, ema)
+
+
+def apply_update(state: TrainState, loss: torch.Tensor, grad_clip: float,
+                 ema_decay: Optional[float]) -> None:
+    """One update of ``state`` in place from a scalar ``loss``: backward,
+    the global gradient norm clipped to ``grad_clip``, AdamW at the rate of
+    the update count before this one, the EMA, and the count."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    params = list(state.model.parameters())
+    clip_by_global_norm_([p.grad for p in params], grad_clip)
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.schedule(state.step)
+    state.optimizer.step()
+    if state.ema_params is not None:
+        ema = list(state.ema_params.values())
+        with torch.no_grad():
+            torch._foreach_mul_(ema, ema_decay)
+            torch._foreach_add_(ema, params, alpha=1.0 - ema_decay)
+    state.step += 1
+
+
 class DDPMTrainer:
     """Pixel-space DDPM training of the class-conditional :class:`TinyUNet`."""
 
@@ -76,7 +112,7 @@ class DDPMTrainer:
                 "micro-batch per update")
         self.cfg = config
         self.device = torch.device(device)
-        self.dtype = POLICIES[config.dtype]
+        self.dtype = POLICIES[config.dtype].compute_dtype
         self.sample_shape = (config.img_size, config.img_size,
                              config.img_channel)
         self.tables = ddpm_tables(config.beta_1, config.beta_T, config.T)
@@ -109,14 +145,7 @@ class DDPMTrainer:
             flax_default_init_(model, torch.Generator(
                 device=self.device).manual_seed(cfg.seed))
         model = model.to(memory_format=torch.channels_last).train()
-        schedule = cosine_warmup_lr(cfg.lr, cfg.max_lr, cfg.warmup_epochs,
-                                    cfg.epoch, max(1, steps_per_epoch))
-        optimizer = torch.optim.AdamW(model.parameters(), lr=schedule(0),
-                                      betas=(0.9, 0.999), eps=1e-8,
-                                      weight_decay=1e-4)
-        ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
-               if cfg.ema_decay else None)
-        return TrainState(model, optimizer, schedule, 0, ema)
+        return new_train_state(model, cfg, steps_per_epoch)
 
     def num_params(self, state: TrainState) -> int:
         return sum(p.numel() for p in state.model.parameters())
@@ -139,19 +168,7 @@ class DDPMTrainer:
         model = state.model.train()
         loss = ddpm_loss(model, self.tables, x0, labels, cfg.T, gen, t=t,
                          noise=noise).sum() / (cfg.batch_size ** 2)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        params = list(model.parameters())
-        clip_by_global_norm_([p.grad for p in params], cfg.grad_clip)
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.schedule(state.step)
-        state.optimizer.step()
-        if state.ema_params is not None:
-            d, ema = cfg.ema_decay, list(state.ema_params.values())
-            with torch.no_grad():
-                torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, params, alpha=1.0 - d)
-        state.step += 1
+        apply_update(state, loss, cfg.grad_clip, cfg.ema_decay)
         return state, loss.detach()
 
     def fit(self, loader: Iterable, state: Optional[TrainState] = None,

@@ -68,7 +68,7 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator):
 
 def _prepare(module: nn.Module, device, dtype: str) -> nn.Module:
     if dtype == "bf16":
-        cast_params_for_inference(module, POLICIES[dtype])
+        cast_params_for_inference(module, POLICIES[dtype].compute_dtype)
     elif dtype != "fp32":
         raise ValueError(f"unknown dtype {dtype!r}")
     return module.to(device=device,

@@ -1,13 +1,28 @@
-"""Inference dtype policy (port of ``utils/dtypes.py``)."""
+"""Mixed-precision policies and the inference cast (port of
+``utils/dtypes.py``)."""
 
 from __future__ import annotations
 
+import dataclasses
 import re
 
 import torch
 from torch import nn
 
-POLICIES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypePolicy:
+    param_dtype: torch.dtype     # dtype parameters are stored in
+    compute_dtype: torch.dtype   # dtype activations and matmuls run in
+    name: str = ""
+
+
+POLICIES = {
+    "fp32": DTypePolicy(torch.float32, torch.float32, "fp32"),
+    "bf16": DTypePolicy(torch.float32, torch.bfloat16, "bf16"),
+    "full_bf16": DTypePolicy(torch.bfloat16, torch.bfloat16, "full_bf16"),
+}
 
 _NORM_PATH = re.compile(r"(^|_)(norm|ln)($|_|\d)|groupnorm|layernorm|rms",
                         re.IGNORECASE)

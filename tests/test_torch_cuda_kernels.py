@@ -19,6 +19,11 @@ The position-masked forward (K5) against its plain version: out to 2e-2 on
 the rows that see a key, lse to 1e-3 there; rows that see none must give
 out = 0 exactly and lse <= -1e29. The joint attention against plain
 attention over the concatenated sequence: 2e-2 (two bf16 partials merged).
+The position-masked backward (K6 dq, K7 dk and dv) against its plain version
+under the same global lse and delta: as K3 / K4, 2e-2 of each gradient's
+largest magnitude; rows that see no key, here or anywhere, give finite
+gradients. The joint attention's gradients against autograd through plain
+attention over the concatenated sequence: 3e-2 of the largest magnitude.
 """
 
 import pytest
@@ -308,10 +313,135 @@ def test_joint_attention_matches_concatenated_plain(gen, stability, lc, lx):
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
 
 
-def test_joint_attention_backward_is_not_ported(gen):
-    b, h, d = 1, 2, 64
-    ts = [_randn(gen, b, h, n, d).requires_grad_()
-          for n in (30, 30, 30, 600, 600, 600)]
-    oc, ox = tfa.joint_flash_attention(*ts)
-    with pytest.raises(NotImplementedError, match="B6"):
-        (oc.float().sum() + ox.float().sum()).backward()
+# --------------------------------- K6 / K7, position-masked backward kernels
+def _global_stats(q, kvs, g, qo, kos, **kw):
+    """The merged lse of ``q`` over the key blocks ``kvs`` and delta = Σ dO·out
+    with the merged output: what the caller of ``flash_bwd_pos`` holds."""
+    out, lse = tfa.flash_attention_pos_plain(q, *kvs[0], qo, kos[0], **kw)
+    for (k, v), ko in zip(kvs[1:], kos[1:]):
+        out, lse = tfa.merge_attention_partials(
+            out, lse, *tfa.flash_attention_pos_plain(q, k, v, qo, ko, **kw))
+    return lse.contiguous(), (g.float() * out.float()).sum(-1)
+
+
+def _pos_bwd_check(q, k, v, g, lse, delta, qo, ko, **kw):
+    n6 = tfa.flash_bwd_pos_dq_cuda.launches
+    n7 = tfa.flash_bwd_pos_dkv_cuda.launches
+    got = tfa.flash_bwd_pos(q, k, v, g, lse, delta, qo, ko, **kw)
+    assert tfa.flash_bwd_pos_dq_cuda.launches == n6 + 1
+    assert tfa.flash_bwd_pos_dkv_cuda.launches == n7 + 1
+    want = tfa.flash_bwd_pos_plain(q, k, v, g, lse, delta, qo, ko, **kw)
+    for a, w, x in zip(got, want, (q, k, v)):
+        assert a.dtype == torch.bfloat16 and a.shape == x.shape
+        assert bool(torch.isfinite(a).all())
+        a, w = a.float(), w.float()
+        # five bf16 ulps of the largest gradient, and an absolute floor for
+        # a gradient that is zero everywhere (nothing visible)
+        assert (a - w).abs().max().item() <= 2e-2 * w.abs().max().item() + 1e-6
+    return got
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", [
+    (2, 3, 154, 154, 64), (1, 2, 154, 700, 64), (1, 2, 529, 154, 64),
+    (1, 2, 529, 529, 64), (2, 1, 33, 1000, 128), (1, 1, 257, 63, 128),
+    (1, 1, 1, 1, 64)])
+def test_pos_backward_kernels_unmasked_match_plain(gen, b, h, lq, lk, d):
+    """Ragged Lq and Lk under the lse of this block alone; equal to the
+    unmasked plain backward too."""
+    q, g = (_randn(gen, b, h, lq, d) for _ in range(2))
+    k, v = (_randn(gen, b, h, lk, d) for _ in range(2))
+    z = _offsets(0, 0)
+    lse, delta = _global_stats(q, [(k, v)], g, z, [z])
+    got = _pos_bwd_check(q, k, v, g, lse, delta, z, z)
+    out, lse1 = tfa.flash_attention_plain(q, k, v)
+    for a, w in zip(got, tfa.flash_attention_bwd_plain(q, k, v, out, lse1, g)):
+        # the floor: with one key dq is exactly 0 there and rounding noise here
+        assert ((a.float() - w.float()).abs().max().item()
+                <= 2e-2 * w.float().abs().max().item() + 1e-6)
+
+
+@pytest.mark.parametrize("causal,valid_len", [(True, None), (False, 300),
+                                              (True, 300), (False, 0),
+                                              (True, 5)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_pos_backward_kernels_two_segments_masks(gen, causal, valid_len, d):
+    """Zig-zag layout under a global lse over two key blocks: tiles skipped,
+    tiles half masked, rows that see a key only in the other block (causal:
+    the first q segment sees nothing of the second block), and with
+    valid_len = 0 rows that see none anywhere (lse = -1e30): finite
+    gradients, and zero ones where nothing is visible."""
+    lq, lk, seg_q, seg_k = 200, 330, 128, 130
+    q, g = (_randn(gen, 1, 2, lq, d) for _ in range(2))
+    kvs = [tuple(_randn(gen, 1, 2, lk, d) for _ in range(2)) for _ in range(2)]
+    qo, kos = _offsets(128, 640), [_offsets(0, 512), _offsets(400, 900)]
+    kw = dict(causal=causal, valid_len=valid_len, seg_q=seg_q, seg_k=seg_k)
+    lse, delta = _global_stats(q, kvs, g, qo, kos, **kw)
+    for (k, v), ko in zip(kvs, kos):
+        dq, dk, dv = _pos_bwd_check(q, k, v, g, lse, delta, qo, ko, **kw)
+        if valid_len == 0:
+            assert not bool(dq.any() or dk.any() or dv.any())
+
+
+def test_pos_backward_reads_strided_slices_and_dout(gen):
+    """q, k, v as slices of the MMDiT's fused (B, L, 3, H, D) projection, dO
+    a (B, H, L, D) view of (B, L, H·D) memory and one whose head dim is not
+    contiguous (copied first); a scale other than the default."""
+    b, l, h, d = 2, 300, 4, 64
+    qkv = _randn(gen, b, l, 3 * h * d).reshape(b, l, 3, h, d)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    g = _randn(gen, b, l, h * d).reshape(b, l, h, d).transpose(1, 2)
+    z = _offsets(0, 0)
+    lse, delta = _global_stats(q, [(k, v)], g, z, [z], scale=0.2)
+    got = _pos_bwd_check(q, k, v, g, lse, delta, z, z, scale=0.2)
+    assert all(a.transpose(1, 2).is_contiguous() for a in got)
+    g_t = g.contiguous().transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert g_t.stride(-1) != 1
+    _pos_bwd_check(q, k, v, g_t, lse, delta, z, z, scale=0.2)
+
+
+def test_pos_backward_kernels_refuse_what_they_do_not_take(gen):
+    q = _randn(gen, 1, 1, 64, 64)
+    z = _offsets(0, 0)
+    st = torch.zeros(1, 1, 64, device="cuda")
+    with pytest.raises(TypeError):
+        tfa.flash_bwd_pos_dq_cuda(*(q.float(),) * 4, st, st, z, z)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_bwd_pos_dkv_cuda(*(_randn(gen, 1, 1, 64, 40),) * 4, st, st,
+                                   z, z)
+    with pytest.raises(ValueError):
+        tfa.flash_bwd_pos_dq_cuda(q, q, q, q, st.double(), st, z, z)
+    with pytest.raises(ValueError):
+        tfa.flash_bwd_pos_dq_cuda(q, q, q, q, st, st, z.cpu(), z)
+    with pytest.raises(ValueError):
+        tfa.flash_bwd_pos_dkv_cuda(q, q, q, q[:, :, :32], st, st, z, z)
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+@pytest.mark.parametrize("lc,lx", [(154, 1024), (26, 529)])
+def test_joint_attention_backward_matches_concatenated_plain(gen, stability,
+                                                             lc, lx):
+    """Gradients through ``joint_attention_blhd`` (4 x K5 forward, 4 x K6 and
+    4 x K7 backward, sums) against autograd through plain attention over the
+    concatenated sequence: 3e-2 of each gradient's largest magnitude (two
+    bf16 partials summed, on top of the kernels' own 2e-2)."""
+    b, h, d = 2, 3, 64
+    fused = [_randn(gen, b, n, 3, h, d).requires_grad_() for n in (lc, lx)]
+    ctx, x = ([f[:, :, i] for i in range(3)] for f in fused)
+    counts = lambda: (tfa.flash_attention_pos_cuda.launches,
+                      tfa.flash_bwd_pos_dq_cuda.launches,
+                      tfa.flash_bwd_pos_dkv_cuda.launches)
+    n = counts()
+    oc, ox = tattn.joint_attention_blhd(ctx, x, stability=stability)
+    gc, gx = _randn(gen, b, lc, h, d), _randn(gen, b, lx, h, d)
+    got = torch.autograd.grad((oc, ox), fused, (gc, gx))
+    assert counts() == (n[0] + 4, n[1] + 4, n[2] + 4)
+    q, k, v = (torch.cat([c, a], dim=1).transpose(1, 2)
+               for c, a in zip(ctx, x))
+    ref = tattn.plain_attention(q, k, v).transpose(1, 2)
+    want = torch.autograd.grad(ref, fused, torch.cat([gc, gx], dim=1))
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        for i in range(3):     # dq, dk, dv: each against its own magnitude
+            ai, wi = a[:, :, i].float(), w[:, :, i].float()
+            assert ((ai - wi).abs().max().item()
+                    <= 3e-2 * wi.abs().max().item())

@@ -283,7 +283,7 @@ def test_kernel_wrappers_take_only_cuda_tensors():
 def test_port_never_imports_jax():
     port = "from_ddpm_to_stable_diffusion_tpu_torch"
     modules = ["pipelines.sd1", "pipelines.ddpm_trainer", "pipelines.sd3",
-               "io.from_jax", "io.data", "models.tiny_unet", "models.mmdit",
+               "pipelines.mmdit_trainer", "utils.dtypes", "io.from_jax", "io.data", "models.tiny_unet", "models.mmdit",
                "models.text_encoders", "models.sd3_vae", "samplers.ddpm",
                "samplers.flow", "utils.config"]
     code = ("import sys\n"

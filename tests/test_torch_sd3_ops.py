@@ -186,14 +186,6 @@ def test_joint_flash_attention_matches_jax(stability, lc, lx):
                                ref.numpy(), atol=ATOL, rtol=RTOL)
 
 
-def test_joint_flash_attention_backward_raises():
-    ts = [torch.from_numpy(_rand((1, 2, n, 16), i)).requires_grad_()
-          for i, n in enumerate((5, 5, 5, 9, 9, 9))]
-    oc, ox = tfa.joint_flash_attention(*ts)
-    with pytest.raises(NotImplementedError, match="B6"):
-        (oc.sum() + ox.sum()).backward()
-
-
 def test_joint_attention_blhd_matches_jax():
     """(B, L, H, D) triples; on the CPU both packages concatenate the
     streams and run their plain attention."""
