@@ -26,7 +26,14 @@ two summary lines:
    masks, a ragged x length, head dim 128, rows masked in one partial only
    and rows masked everywhere; the joint backward as a whole against
    autograd through plain attention over the concatenated sequence), and
-   the GroupNorm backward.
+   the GroupNorm backward; then the causal, bias and segment-id forms of
+   K1, K3 and K4 (with dbias) at head dims 64 and 128: the TinyVLM's causal
+   584 tokens and its tower's 576, causal 4096 tokens at head dim 128, T5's
+   biased 512 tokens, 4096 tokens packed from 8 ragged sequences (alone,
+   causal, with a bias), causal Lq != Lk, rows that see no key; each with a
+   bound that counts the visible pairs only, and two planted faults (a
+   causal mask off by one, a dbias tile left unwritten) that the comparison
+   must catch.
 4. SD1: full-width SD1 (CLIP, 860M UNet, VAE decoder) with random weights
    from a seed, ``SD1Generator`` at 512x512, 50 k-LMS steps, CFG 7.5: two
    batch-1 requests, then one batch-4 request. Checks the images, the final
@@ -37,7 +44,10 @@ two summary lines:
    steps, CFG 5, shift 3, zero tokens: a cold request, a warm timed one and
    a profiled one (device time by kernel family, device idle share).
    Checks the images, the final latents and the launches of K5 (4 per
-   block), K1 (the VAE's mid attention) and K2 per request.
+   block), K1 (the VAE's mid attention) and K2 per request. Then the
+   bundle's T5-XXL encoder alone on (2, 512) token ids, the longest prompt
+   SD3 admits: its 24 attentions take K1 in the bias form; the output is
+   held against the same encoder through plain attention on the card.
 6. training: the tiny-SD ``DDPMTrainer`` at ``TinySDConfig()`` defaults
    (64x64, batch 32, base 128 x [1,2,2,2], 3 classes, dropout 0.1, bf16
    over fp32 parameters, AdamW, clip 1.0, warmup-cosine LR) on
@@ -69,10 +79,21 @@ two summary lines:
 11. MMDiT sampling: ``MMDiTTrainer.sample`` of 2 latents in a few CFG
    flow-Euler steps from the trained state; checks the latents and the
    launches of K5.
+12. TinyVLM training: ``VLMTrainer`` with the SigLIP-base tower (hidden 768,
+   12 layers, 12 heads of 64, patch 16) on 384 x 384 captioned shapes (576
+   patch tokens) and a decoder of width 768, depth 12 over 576 + 8 tokens,
+   batch 16, bf16 over fp32 parameters: warm-up, timed and one profiled
+   step. Checks finite losses, the fixed batch's loss before and after, and
+   the launches per step of K1 (12 no-mask, 12 causal), K3 and K4.
+13. TinyVLM gradient check: 2 tower layers + 2 decoder blocks at the same
+   widths and lengths, batch 4, card (bf16, kernels) against CPU (fp32,
+   plain versions); then a planted fault of the flash backward.
+14. TinyVLM decoding: ``caption_accuracy`` on held-out images through
+   ``greedy_decode`` (7 forwards); the accuracy is printed, not judged.
 
 Every kernel's launch count is set to 0 just before each of the SD1, SD3,
-training, sampling, MMDiT training and MMDiT sampling phases and read just
-after. The last two lines are a
+training, sampling, MMDiT training, MMDiT sampling, T5, TinyVLM training and
+TinyVLM decoding phases and read just after. The last two lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
 card's name and power limit come on the line before them. Imports nothing
 of JAX.
@@ -115,6 +136,17 @@ SD3_PER_REQUEST = dict(K1=1, K2=30, K3=0, K4=0, K5=4 * SD3_DEPTH * SD3_STEPS,
 MMDIT_PER_STEP = dict(K1=0, K2=0, K3=0, K4=0, K5=4 * SD3_DEPTH,
                       K6=4 * SD3_DEPTH, K7=4 * SD3_DEPTH)
 MMDIT_SAMPLE_STEPS = 4
+# TinyVLM train step: the 12 tower layers attend over 576 patch tokens (K1
+# without a mask) and the 12 decoder blocks over 576 + 8 tokens (K1 causal);
+# the backward launches K3 and K4 once for each. Greedy decoding of 8 slots
+# is 7 forwards. The T5-XXL encoder's 24 blocks share one bias.
+VLM_LAYERS = 12
+VLM_PER_STEP = dict(K1=2 * VLM_LAYERS, K2=0, K3=2 * VLM_LAYERS,
+                    K4=2 * VLM_LAYERS, K5=0, K6=0, K7=0)
+VLM_DECODE_FORWARDS = 7
+T5_PER_CALL = dict(K1=24, K2=0, K3=0, K4=0, K5=0, K6=0, K7=0)
+NO_MASK, CAUSAL, BIASED = ((False, False, False), (True, False, False),
+                           (False, True, False))
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16, data sheet
 PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
 PEAK_BYTES = 3.35e12       # HBM3
@@ -186,6 +218,8 @@ def kernel_counters():
 def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
+        if hasattr(fn, "forms"):
+            fn.forms.clear()
 
 
 def read_counts():
@@ -465,7 +499,217 @@ def phase_kernels(card):
     for name, e in phase_kernels_pos_bwd(card, ctx, xs, rnd, off,
                                          tail).items():
         record(name, e.pop("err"), True, **e)
+    del ctx, xs, fused
+    torch.cuda.empty_cache()
+    forms = phase_kernels_masks(card, rnd, tail)
+    for case in forms:
+        for name in ("K1", "K3", "K4"):
+            record(name, case[name]["max_abs_err"], False)
+    results["forms"] = forms
     return results
+
+
+def phase_kernels_masks(card, rnd, tail):
+    """The causal, bias and segment-id forms of K1, K3 and K4 (and their
+    no-mask form at head dim 64) against the plain versions under the same
+    masks. Returns one record per timed case: the shape, the form, and for
+    each kernel its error, time, plain time, library time and bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    sdpa = F.scaled_dot_product_attention
+    records = []
+
+    def packed_ids(b, n, n_seq, seed):
+        """(B, n) int32: each row packs n_seq sorted ragged sequences."""
+        rng = np.random.default_rng(seed)
+        rows = []
+        for _ in range(b):
+            cuts = np.sort(rng.choice(np.arange(64, n - 64), n_seq - 1,
+                                      replace=False))
+            rows.append(np.repeat(np.arange(n_seq), np.diff(
+                np.concatenate([[0], cuts, [n]]))))
+        return torch.from_numpy(np.stack(rows).astype(np.int32)).cuda()
+
+    def run(what, b, h, lq, lk, d, causal=False, bias_bh=None, ids=None,
+            scale=None, timed=True, blank_rows=False):
+        if lq == lk:    # q|k|v column slices of one fused projection
+            q, k, v = (t.reshape(b, lq, h, d).transpose(1, 2) for t in
+                       rnd(b, lq, 3 * h * d).to(bf16).chunk(3, -1))
+        else:
+            q, k, v = (rnd(b, h, n, d).to(bf16) for n in (lq, lk, lk))
+        g = rnd(b, lq, h * d).to(bf16).reshape(b, lq, h, d).transpose(1, 2)
+        bias = (None if bias_bh is None
+                else (0.5 * rnd(*bias_bh, lq, lk)).to(bf16))
+        masks = dict(bias=bias, segment_ids=ids, causal=causal)
+        need = bias is not None
+        out, lse = fa.flash_attention_cuda(q, k, v, scale, **masks)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, scale, **masks)
+        seen = ref_lse > -1e29
+        n_blank = int((~seen).sum())
+        err = (out.float() - ref.float())[seen].abs().max().item()
+        lse_err = (lse - ref_lse)[seen].abs().max().item()
+        blank = bool((lse[~seen] <= -1e29).all()) and not bool(
+            out[~seen].any())
+        check(err <= 2e-2 and lse_err <= 1e-3 and blank
+              and (n_blank > 0) == blank_rows,
+              f"K1 {what} disagrees: {err} / {lse_err} / blank rows "
+              f"{n_blank} zero: {blank}")
+        del ref, ref_lse
+        if need:    # NaNs in the allocator's pool: an unwritten tile shows
+            junk = torch.full((b, h, lq, lk), float("nan"), device="cuda")
+            del junk
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, scale,
+                                          **masks, need_dbias=need)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, scale,
+                                            **masks, need_dbias=need)
+        torch.cuda.synchronize()
+        errs, line = {}, []
+        for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+            e = (a.float() - w.float()).abs().max().item()
+            top = w.float().abs().max().item()
+            finite = bool(torch.isfinite(a).all())
+            check(finite and e <= 2e-2 * top + 1e-6 and a.shape == w.shape,
+                  f"{name} {what} disagrees: {e} > 2e-2 * {top} (finite: "
+                  f"{finite})")
+            errs[name] = e
+            line.append(f"{name} {e:.3e}/{top:.3e}")
+        head = (f"masks {what} (B,H,Lq,Lk,D)=({b},{h},{lq},{lk},{d}): K1 "
+                f"max|out err|={err:.3e} (atol 2e-2) max|lse err|="
+                f"{lse_err:.3e} (atol 1e-3), {n_blank} rows see no key (out "
+                f"= 0, lse <= -1e29: {blank}); K3/K4 max|err|/max|grad| "
+                f"{', '.join(line)} (tol 2e-2)")
+        if not timed:
+            print(head, flush=True)
+            return (q, k, v, g, bias, out, lse), got, want
+        del got, want
+
+        # The bound counts the pairs the mask admits: products of 2*d flop
+        # each over them; q, k, v, dO, the outputs, the row statistics, the
+        # bias (and dbias in its shape) and the ids moved once.
+        vis = fa._visible_pairs(lq, lk, ids, causal, "cuda")
+        pairs = (b * lq * lk if vis is None
+                 else int(vis.sum()) * (b // vis.shape[0]))
+        del vis
+        side = (0 if bias is None else bias.numel() * bias.element_size()) + (
+            0 if ids is None else 4 * b * (lq + lk))
+
+        def bnd(n_products, n_q_like, n_k_like, n_stats, n_bias):
+            return dict(zip(("bound_ms", "bound_by"), bound(
+                2.0 * n_products * pairs * h * d,
+                b * h * (2.0 * d * (n_q_like * lq + n_k_like * lk)
+                         + 4.0 * n_stats * lq) + n_bias * side)))
+
+        # the library call: one mask argument that says the same
+        lib = dict(scale=scale)
+        if ids is None and bias is None:
+            lib["is_causal"] = causal
+        else:
+            mask = fa._visible_pairs(lq, lk, ids, causal, "cuda")
+            if bias is None:
+                lib["attn_mask"] = mask
+            elif mask is None:
+                lib["attn_mask"] = bias
+            else:
+                lib["attn_mask"] = bias.expand(b, h, lq, lk).masked_fill(
+                    ~mask, float("-inf"))
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = sdpa(ql, kl, vl, **lib)
+        delta = (g.float() * out.float()).sum(-1)
+        fwd = dict(ms=cuda_ms(lambda: fa.flash_attention_cuda(
+                       q, k, v, scale, **masks)),
+                   plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                       q, k, v, scale, **masks), 3, 1),
+                   library_ms=cuda_ms(lambda: sdpa(q, k, v, **lib), 10, 2),
+                   **bnd(2, 2, 2, 1, 1))
+        shared = dict(
+            plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, out, lse, g, scale, **masks, need_dbias=need), 3, 1),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                ol, (ql, kl, vl), g, retain_graph=True), 5, 1))
+        t3 = dict(ms=cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+                      q, k, v, g, lse, delta, scale, **masks,
+                      need_dbias=need), 10, 2),
+                  **shared, **bnd(3, 3, 2, 2, 2 if need else 1))
+        t4 = dict(ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+                      q, k, v, g, lse, delta, scale, **masks), 10, 2),
+                  **shared, **bnd(4, 2, 4, 2, 1))
+        print(f"{head}; {100.0 * pairs / (b * lq * lk):.1f} % of the pairs "
+              f"visible; K1: {tail(**fwd)}; the plain backward computes dq, "
+              f"dk, dv{' and dbias' if need else ''} together, the library's "
+              f"dq, dk and dv; K3{' with dbias' if need else ''}: "
+              f"{tail(**t3)}; K4: "
+              f"{tail(**t4)}", flush=True)
+        records.append(dict(
+            form=what, shape=[b, h, lq, lk, d],
+            visible_share=pairs / (b * lq * lk),
+            K1=dict(max_abs_err=err, **fwd),
+            K3=dict(max_abs_err=max(errs["dq"], errs.get("dbias", 0.0)), **t3),
+            K4=dict(max_abs_err=max(errs["dk"], errs["dv"]), **t4)))
+        return (q, k, v, g, bias, out, lse), None, None
+
+    # The shapes of the TinyVLM step: the tower's 576 tokens without a mask,
+    # the decoder's 576 + 8 causal; causal at head dim 128; T5's shared bias.
+    run("none, SigLIP tower", 16, 12, 576, 576, 64)
+    (q, k, v, *_, out, _), _, _ = run("causal, TinyVLM decoder", 16, 12, 584,
+                                      584, 64, causal=True)
+    # Planted fault: a causal mask off by one (col < row) must be caught.
+    diag = torch.zeros(584, 584, device="cuda").fill_diagonal_(-1e30)
+    strict, _ = fa.flash_attention_plain(q, k, v, bias=diag[None, None],
+                                         causal=True)
+    off_by_one = (out.float() - strict.float()).abs().max().item()
+    print(f"masks control (causal off by one: the kernel against a plain "
+          f"version that hides the diagonal): max|out err|={off_by_one:.3e}: "
+          f"{'caught' if off_by_one > 2e-2 else 'MISSED'}", flush=True)
+    check(off_by_one > 2e-2, "a causal mask off by one was not caught")
+    del q, k, v, out, strict, diag
+    run("causal", 2, 8, 4096, 4096, 128, causal=True)
+    run("bias, T5-XXL", 2, 64, 512, 512, 64, bias_bh=(1, 64), scale=1.0)
+    ids = packed_ids(2, 4096, 8, seed=5)
+    run("segments", 2, 12, 4096, 4096, 64, ids=(ids, ids))
+    run("segments + causal", 2, 12, 4096, 4096, 64, ids=(ids, ids),
+        causal=True)
+    run("segments + bias", 2, 12, 4096, 4096, 64, ids=(ids, ids),
+        bias_bh=(1, 12))
+    torch.cuda.empty_cache()
+
+    # Smaller cases, errors only: causal at Lq != Lk (the kernels count rows
+    # and columns from 0), rows that see no key, every form at once.
+    run("causal, Lq > Lk", 2, 3, 777, 300, 64, causal=True, timed=False)
+    run("causal, Lq < Lk", 2, 3, 300, 777, 128, causal=True, timed=False)
+    iq = torch.arange(600, device="cuda")
+    lonely = torch.where(iq % 50 == 3, 7, iq // 200).int()[None]
+    run("segments, rows that see no key", 1, 4, 600, 600, 64,
+        ids=(lonely, (iq // 200).int()[None]), timed=False, blank_rows=True)
+    ids = packed_ids(2, 333, 3, seed=6)
+    (q, k, v, g, bias, out, lse), got, want = run(
+        "causal + bias + segments", 2, 3, 333, 333, 128, causal=True,
+        bias_bh=(2, 3), ids=(ids, ids), timed=False)
+    # Planted fault: a dbias tile that K3 skips (keys 64..95 of the first 32
+    # queries lie above the diagonal) left as the allocator had it.
+    delta = (g.float() * out.float()).sum(-1)
+    _, ds = fa.flash_attention_bwd_dq_cuda(
+        q, k, v, g, lse.contiguous(), delta, bias=bias, segment_ids=(ids, ids),
+        causal=True, need_dbias=True)
+    clean = (ds.sum_to_size(bias.shape).to(bf16).float()
+             - want[3].float()).abs().max().item()
+    check(not bool(ds[:, :, :32, 64:96].any()), "K3 wrote dbias above the "
+          "diagonal")
+    ds[:, :, :32, 64:96] = 1.0
+    dirty = (ds.sum_to_size(bias.shape).to(bf16).float()
+             - want[3].float()).abs().max().item()
+    top = want[3].float().abs().max().item()
+    print(f"masks control (a skipped dbias tile left unwritten): max|dbias "
+          f"err| {clean:.3e} as the kernel writes it, {dirty:.3e} with the "
+          f"tile at 1 (tol 2e-2 * {top:.3e}): "
+          f"{'caught' if dirty > 2e-2 * top else 'MISSED'}", flush=True)
+    check(clean <= 2e-2 * top and dirty > 2e-2 * top,
+          "an unwritten dbias tile was not caught")
+    return records
 
 
 def phase_kernels_pos_bwd(card, ctx, xs, rnd, off, tail):
@@ -854,6 +1098,79 @@ def phase_sd3(card):
     launches = read_counts()
     for hook in hooks:
         hook.remove()
+    return launches, phase_t5(card, models.t5)
+
+
+def phase_t5(card, t5):
+    """The T5-XXL encoder on (2, 512) token ids: every block's attention
+    over 512 tokens takes K1 with the shared bucket bias (scale 1.0). Each
+    block's attention sub-layer is held against the same sub-layer through
+    plain attention on the same input (the plain path's activations), and
+    the whole encoder is timed both ways."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import attention as attn
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops.groupnorm import rms_norm
+
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, t5.config.vocab_size, (2, 512))).cuda()
+    eligible = attn._flash_eligible
+
+    def plainly(fn):
+        attn._flash_eligible = lambda q, k: False
+        try:
+            return fn()
+        finally:
+            attn._flash_eligible = eligible
+
+    reset_counts()
+    with torch.no_grad():
+        out = t5(tokens)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        forms = dict(kernel_counters()["K1"].forms)
+        ms = cuda_ms(lambda: t5(tokens), 3, 1)
+        ref = plainly(lambda: t5(tokens))
+        plain_ms = plainly(lambda: cuda_ms(lambda: t5(tokens), 3, 1))
+        # block by block, both paths fed the plain path's activations
+        x, bias, worst = t5.embed_tokens(tokens), None, (0.0, 1.0, 0)
+        for i in range(t5.config.num_layers):
+            block = getattr(t5, f"block{i}")
+            h = rms_norm(x, block.ln1_scale, eps=1e-6)
+            got, shared_bias = block.attn(h, bias)
+            want, _ = plainly(lambda: block.attn(h, bias))
+            err = (got.float() - want.float()).abs().max().item()
+            top = want.float().abs().max().item()
+            if err / top > worst[0] / worst[1]:
+                worst = (err, top, i)
+            bias = shared_bias
+            x, _ = plainly(lambda: block(x, bias))
+    free = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    # Both paths round P and the attention output to bf16 (8 significant
+    # bits) and sum in another order: the sub-layer's output (after the
+    # bf16 out-projection) agrees to a few bf16 ulps of its largest entry.
+    # Over 24 blocks the two encoders drift apart all the same: with random
+    # weights and unscaled logits (q.k has a standard deviation near 8) the
+    # softmax is sharp, each block multiplies a rounding difference, and the
+    # residual stream grows until one of its bf16 ulps is 0.25; that drift
+    # is printed, not judged.
+    print(f"T5-XXL encoder (24 blocks, 64 heads of 64) on (2, 512) tokens, "
+          f"bf16: {ms:.2f} ms/call through K1 with bias, {plain_ms:.2f} "
+          f"ms/call through plain attention; block by block on the same "
+          f"input the worst attention sub-layer differs by max|err|="
+          f"{worst[0]:.3e} of max|output|={worst[1]:.3e} (block {worst[2]}, "
+          f"tol 3e-2 of it); "
+          f"free-running, the two encoders' outputs differ by rel L2 "
+          f"{free:.3e} (not judged); launches {launches}, forms {forms} "
+          f"[{card}]", flush=True)
+    check(tuple(out.shape) == (2, 512, t5.config.d_model)
+          and bool(torch.isfinite(out).all()), "T5 output misshaped")
+    check(worst[0] <= 3e-2 * worst[1], f"a T5 attention through K1 disagrees "
+          f"with the plain path: {worst[0]} > 3e-2 * {worst[1]} at block "
+          f"{worst[2]}")
+    check(launches == T5_PER_CALL and forms == {BIASED: 24},
+          f"T5 launches {launches} forms {forms}")
     return launches
 
 
@@ -1118,12 +1435,12 @@ def phase_grad_check(card):
     # Controls: the same check must fail on a planted fault of K3 or K4.
     bwd = fa.flash_attention_bwd_cuda
 
-    def swap_dk_dv(q, k, v, out, lse, g, scale):
-        dq, dk, dv = bwd(q, k, v, out, lse, g, scale)
+    def swap_dk_dv(q, k, v, out, lse, g, scale, **masks):
+        dq, dk, dv = bwd(q, k, v, out, lse, g, scale, **masks)
         return dq, dv, dk
 
-    def unscaled_dq(q, k, v, out, lse, g, scale):
-        dq, dk, dv = bwd(q, k, v, out, lse, g, scale)
+    def unscaled_dq(q, k, v, out, lse, g, scale, **masks):
+        dq, dk, dv = bwd(q, k, v, out, lse, g, scale, **masks)
         return dq / (scale or q.shape[-1] ** -0.5), dk, dv
 
     for fault, planted in (("dk/dv swapped", swap_dk_dv),
@@ -1426,6 +1743,266 @@ def phase_mmdit_sampling(card, trainer, state):
     return launches
 
 
+VLM_VOCAB_SIZE = 20
+# The qkv projections of the tower and the decoder: where a fault of K3 or
+# K4 (no-mask and causal form) lands first.
+VLM_QKV_LEAVES = re.compile(r"^(vision\.layer|block)\d+\.attn\.qkv\.")
+
+
+def vlm_trainer(device, dtype, layers, **kw):
+    """``VLMTrainer`` with the SigLIP-base tower and a decoder of width 768,
+    both cut to ``layers`` layers."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.siglip import (
+        SiglipVisionConfig)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.vlm_trainer import (
+        VLMTrainer)
+
+    return VLMTrainer(VLM_VOCAB_SIZE, dim=768, depth=layers, num_heads=12,
+                      max_text_len=8, dtype=dtype, device=device,
+                      vision_cfg=SiglipVisionConfig(num_hidden_layers=layers),
+                      **kw)
+
+
+def vlm_batch(dataset, start, n):
+    import numpy as np
+
+    images, tokens = zip(*(dataset.load(i) for i in range(start, start + n)))
+    return np.stack(images), np.stack(tokens)
+
+
+def phase_vlm_training(card):
+    """``VLMTrainer`` at SigLIP-base width and depth on 384^2 captioned
+    shapes: 576 patch tokens in the tower, 584 causal tokens in the decoder,
+    batch 16, bf16 over fp32 parameters."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.shapes_dataset import (
+        VLM_VOCAB, CaptionedShapesDataset)
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.siglip import (
+        SiglipVisionConfig)
+
+    check(len(VLM_VOCAB) == VLM_VOCAB_SIZE and SiglipVisionConfig()
+          == SiglipVisionConfig(768, 3072, 12, 12, 3, 224, 16, 1e-6),
+          "the vocabulary or SiglipVisionConfig() is not the expected one")
+    batch, warm, timed = 16, 2, 5
+    n_steps = warm + timed + 1          # the last one under the profiler
+    t0 = time.perf_counter()
+    trainer = vlm_trainer("cuda", "bf16", VLM_LAYERS, warmup_steps=2,
+                          total_steps=1000)
+    state = trainer.create_state(384)
+    data = CaptionedShapesDataset(batch * n_steps, img_size=384, seed=0)
+    batches = [tuple(torch.from_numpy(a).cuda()
+                     for a in vlm_batch(data, i * batch, batch))
+               for i in range(n_steps)]
+    fixed = batches[0]
+    torch.cuda.synchronize()
+    print(f"TinyVLM training: {trainer.num_params(state)} params (fp32), "
+          f"SigLIP-base tower on 384^2 images (576 patch tokens), decoder "
+          f"width 768 depth {VLM_LAYERS} over 576 + 8 tokens, batch {batch}, "
+          f"bf16 compute; set-up {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    def fixed_loss():
+        with torch.no_grad():
+            return trainer.loss(state, *fixed).item()
+
+    loss_before = fixed_loss()
+    reset_counts()
+    losses = []
+    for images, tokens in batches[:warm]:
+        state, loss = trainer.train_step(state, images, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for images, tokens in batches[warm:warm + timed]:
+        state, loss = trainer.train_step(state, images, tokens)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3 / timed
+    step_ms = start.elapsed_time(end) / timed
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (state, loss), wall_ms, fams, n_kernels, rows = profile_device(
+        lambda: trainer.train_step(state, *batches[-1]))
+    losses.append(loss)
+    launches = read_counts()
+    forms = {k: dict(fn.forms) for k, fn in kernel_counters().items()
+             if k in ("K1", "K3", "K4")}
+    loss_after = fixed_loss()
+    busy = sum(fams.values())
+    idle = 1.0 - busy / step_ms
+    losses = torch.stack(losses).float().cpu()
+    print(f"TinyVLM training: {timed} timed steps: {step_ms:.2f} ms/step "
+          f"(CUDA events; host {host_ms:.2f} ms/step), "
+          f"{1e3 * batch / step_ms:.2f} img/s, peak {peak:.2f} GiB, losses "
+          f"{[round(v, 4) for v in losses.tolist()]}, the fixed batch's loss "
+          f"{loss_before:.5f} before and {loss_after:.5f} after {n_steps} "
+          f"steps (the first at lr 0), launches {launches} over {n_steps} "
+          f"steps, by form (causal, bias, segments) {forms} [{card}]",
+          flush=True)
+    print(f"TinyVLM training profile of one step (torch.profiler, kernel "
+          f"rows only): device busy {busy:.2f} ms over {n_kernels} kernels; "
+          f"wall under the profiler {wall_ms:.2f} ms; device idle share "
+          f"{idle:.3f} (1 - busy / unprofiled step) [{card}]", flush=True)
+    print_profile(fams, rows, 1, "step")
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
+    check(loss_after < loss_before, f"the fixed batch's loss did not fall: "
+          f"{loss_before} -> {loss_after}")
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in state.params.values()),
+          "missing or non-finite gradient")
+    for name, per_step in VLM_PER_STEP.items():
+        check(launches[name] == per_step * n_steps,
+              f"{name} launches {launches[name]} != {per_step} x {n_steps}")
+    half = {NO_MASK: VLM_LAYERS * n_steps, CAUSAL: VLM_LAYERS * n_steps}
+    check(all(f == half for f in forms.values()),
+          f"forms {forms}: not {VLM_LAYERS} no-mask and {VLM_LAYERS} causal "
+          f"launches per step of each kernel")
+    return trainer, state, launches, dict(step_ms=step_ms, idle=idle,
+                                          peak_gib=peak)
+
+
+def phase_vlm_grad_check(card):
+    """Loss and gradient of a TinyVLM of 2 tower layers and 2 decoder blocks
+    at the full widths and lengths (576 and 584 tokens, 12 heads of 64),
+    batch 4: card (bf16 compute, K1 / K3 / K4 without a mask and causal)
+    against CPU (fp32, plain versions), as the whole flattened gradient and
+    the qkv leaves; then the same check on a planted fault of the flash
+    backward (dk and dv swapped), which it must catch."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.shapes_dataset import (
+        CaptionedShapesDataset)
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
+        TrainState)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        flax_default_init_)
+
+    on_card = vlm_trainer("cuda", "bf16", 2)
+    on_cpu = vlm_trainer("cpu", "fp32", 2)
+    card_model = flax_default_init_(on_card.make_model(384),
+                                    torch.Generator("cuda").manual_seed(7))
+    cpu_model = on_cpu.make_model(384)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               card_model.state_dict().items()})
+    images, tokens = vlm_batch(CaptionedShapesDataset(4, 384, seed=7), 0, 4)
+
+    def loss_and_grads(trainer, model):
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss = trainer.loss(TrainState(model.train(), None, None), images,
+                            tokens)
+        loss.backward()
+        grads = {n: p.grad.float().flatten().cpu()
+                 for n, p in model.named_parameters()}
+        return loss.item(), grads, time.perf_counter() - t0
+
+    l_cpu, g_cpu, s_cpu = loss_and_grads(on_cpu, cpu_model)
+    qkv = [n for n in g_cpu if VLM_QKV_LEAVES.search(n)]
+    check(len(qkv) == 8, f"qkv leaves {qkv}")
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+
+    def errors(g_card):
+        whole = rel(torch.cat(list(g_card.values())),
+                    torch.cat(list(g_cpu.values())))
+        leaves = {n: rel(g_card[n], g_cpu[n]) for n in g_cpu
+                  if g_cpu[n].norm() > 0}
+        return whole, leaves, max(qkv, key=leaves.get)
+
+    def passes(whole, leaves, loss_rel):
+        return (whole <= GRAD_REL_TOL and loss_rel <= GRAD_REL_TOL
+                and all(leaves[n] <= GRAD_REL_TOL for n in qkv))
+
+    n0 = read_counts()
+    l_card, g_card, s_card = loss_and_grads(on_card, card_model)
+    n1 = read_counts()
+    got = {k: n1[k] - n0[k] for k in ("K1", "K3", "K4")}
+    check(got == dict(K1=4, K3=4, K4=4),
+          f"the small TinyVLM launched {got}, not one per layer of each")
+    whole, leaves, worst_qkv = errors(g_card)
+    worst = max(leaves, key=leaves.get)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    print(f"TinyVLM gradient check (2 + 2 layers, 576 and 584 tokens, batch "
+          f"4): loss card {l_card:.6f} cpu {l_cpu:.6f} (rel {loss_rel:.3e}); "
+          f"flattened gradient ({sum(g.numel() for g in g_cpu.values())} "
+          f"values) rel L2 err {whole:.3e}; worst qkv leaf ({len(qkv)} "
+          f"leaves) {worst_qkv} {leaves[worst_qkv]:.3e}; worst leaf of all "
+          f"{worst} {leaves[worst]:.3e} (reported only); tol {GRAD_REL_TOL} "
+          f"on the whole, the loss and each qkv leaf; card {s_card:.2f} s, "
+          f"cpu fp32 {s_cpu:.2f} s", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in g_card.values()),
+          "non-finite card gradient")
+    check(passes(whole, leaves, loss_rel),
+          f"card gradient off the CPU's: whole {whole}, loss rel {loss_rel}, "
+          f"qkv leaf {worst_qkv} {leaves[worst_qkv]}")
+
+    bwd = fa.flash_attention_bwd_cuda
+
+    def swap_dk_dv(*args, **kw):
+        dq, dk, dv = bwd(*args, **kw)
+        return dq, dv, dk
+
+    fa.flash_attention_bwd_cuda = swap_dk_dv
+    try:
+        l_bad, g_bad, _ = loss_and_grads(on_card, card_model)
+    finally:
+        fa.flash_attention_bwd_cuda = bwd
+    whole_b, leaves_b, worst_b = errors(g_bad)
+    caught = not passes(whole_b, leaves_b, abs(l_bad - l_cpu) / abs(l_cpu))
+    print(f"TinyVLM gradient check control (dk/dv swapped): whole "
+          f"{whole_b:.3e} ({'above' if whole_b > GRAD_REL_TOL else 'within'} "
+          f"tol), worst qkv leaf {worst_b} {leaves_b[worst_b]:.3e}: "
+          f"{'caught' if caught else 'MISSED'}", flush=True)
+    check(caught, "the TinyVLM gradient check missed the planted fault")
+    return whole
+
+
+def phase_vlm_decoding(card, trainer, state):
+    """``caption_accuracy`` on 8 held-out images through ``greedy_decode``:
+    7 fixed-shape forwards of batch 8. The accuracy is printed, not judged:
+    the model has taken a handful of steps."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.shapes_dataset import (
+        CaptionedShapesDataset)
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.tiny_vlm import (
+        greedy_decode)
+
+    held_out = CaptionedShapesDataset(8, img_size=384, seed=1)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    accuracy = trainer.caption_accuracy(state, held_out, n=8, batch_size=8)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = read_counts()
+    forms = dict(kernel_counters()["K1"].forms)
+    images, captions = vlm_batch(held_out, 0, 8)
+    tokens = greedy_decode(state.model, images)
+    shown = [held_out.decode(row) for row in tokens.cpu().numpy()[:2]]
+    print(f"TinyVLM decoding: caption_accuracy on 8 held-out images "
+          f"{accuracy:.3f} (not judged), {secs:.3f} s for "
+          f"{VLM_DECODE_FORWARDS} forwards of batch 8 "
+          f"({1e3 * secs / VLM_DECODE_FORWARDS:.2f} ms/forward, data made on "
+          f"the host included); first decodes {shown} for "
+          f"{[held_out.decode(c) for c in captions[:2]]}; launches "
+          f"{launches}, forms {forms} [{card}]", flush=True)
+    check(0.0 <= accuracy <= 1.0 and tuple(tokens.shape) == (8, 8)
+          and bool((tokens[:, 0] == 1).all())
+          and int(tokens.max()) < VLM_VOCAB_SIZE, "decoded tokens misshaped")
+    want = dict.fromkeys(launches, 0)
+    want["K1"] = VLM_PER_STEP["K1"] * VLM_DECODE_FORWARDS
+    n = VLM_LAYERS * VLM_DECODE_FORWARDS
+    check(launches == want and forms == {NO_MASK: n, CAUSAL: n},
+          f"TinyVLM decoding launches {launches} != {want}, forms {forms}")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -1434,9 +2011,9 @@ def main():
 
     import torch
 
-    paths = ("sd1", "sd3", "training", "sampling", "mmdit_training",
-             "mmdit_sampling")
-    runs = [phase_sd1(card), phase_sd3(card)]
+    paths = ("sd1", "sd3", "t5", "training", "sampling", "mmdit_training",
+             "mmdit_sampling", "vlm_training", "vlm_decoding")
+    runs = [phase_sd1(card), *phase_sd3(card)]
     trainer, state, train_launches, _ = phase_training(card)
     runs.append(train_launches)
     phase_grad_check(card)
@@ -1448,7 +2025,20 @@ def main():
     runs.append(train_launches)
     phase_mmdit_grad_check(card)
     runs.append(phase_mmdit_sampling(card, trainer, state))
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer, state, train_launches, _ = phase_vlm_training(card)
+    runs.append(train_launches)
+    phase_vlm_grad_check(card)
+    runs.append(phase_vlm_decoding(card, trainer, state))
     pkg = "from_ddpm_to_stable_diffusion_tpu_torch/csrc/"
+
+    def forms_of(k):
+        """The masked forms of one kernel: each timed case's record."""
+        return [dict(form=case["form"], shape=case["shape"],
+                     visible_share=case["visible_share"], **case[k])
+                for case in kernels["forms"]]
 
     def entry(name, src, replaces, k, **kw):
         r = kernels[k]
@@ -1467,7 +2057,7 @@ def main():
               "flash_attention.py:242", "K1",
               also_replaces=[TPU_KERNELS + "flash_attention.py:119"],
               timed_at="(B,H,Lq,Lk,D)=(2,8,4096,4096,40)",
-              library="F.scaled_dot_product_attention"),
+              library="F.scaled_dot_product_attention", forms=forms_of("K1")),
         entry("group_norm_silu", "groupnorm.cu", "groupnorm_pallas.py:29",
               "K2", timed_at="(2,64,64,320) + SiLU",
               library="F.group_norm + F.silu"),
@@ -1475,12 +2065,14 @@ def main():
               "flash_attention.py:682", "K3", plain_computes=together,
               library_computes=together,
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
-              library="backward of F.scaled_dot_product_attention"),
+              library="backward of F.scaled_dot_product_attention",
+              forms=forms_of("K3")),
         entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
               "flash_attention.py:764", "K4", plain_computes=together,
               library_computes=together,
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
-              library="backward of F.scaled_dot_product_attention"),
+              library="backward of F.scaled_dot_product_attention",
+              forms=forms_of("K4")),
         entry("flash_attention_fwd_pos", "flash_attention_pos.cu",
               "flash_attention.py:1237", "K5",
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64) online",

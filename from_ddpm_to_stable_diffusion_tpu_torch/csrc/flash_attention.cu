@@ -26,15 +26,33 @@
 // dynamic shared memory. Small q tiles keep the grid large enough for 132
 // SMs at CFG batch 1 (2*8*4096/64 = 1024 blocks at 64^2). Only the padded
 // head dims of the SD1 and tiny-SD paths are instantiated (48, 80, 128,
-// 512); others return cudaErrorInvalidValue.
+// 512) and 64 (the SigLIP tower and the TinyVLM decoder, 12 heads of 64 over
+// 576 and 584 tokens; T5-XXL, 64 heads of 64 over 512 tokens); others return
+// cudaErrorInvalidValue.
+//
+// The masks of _fwd_kernel are template parameters beside the head dim, so
+// the no-mask instantiations stay the code they were: CAUSAL (col <= row from
+// index 0 on both sides; key tiles above the diagonal are not visited),
+// HAS_BIAS (an additive bias read through its strides, added in fp32 after
+// the scale) and HAS_SEG (segment ids: same-id pairs only; the loop runs over
+// the key tiles [lo, hi] whose id range overlaps the query tile's, and skips
+// a tile inside that range whose ids are disjoint). They compose, and are
+// instantiated at head dims 64 and 128. In these forms a masked logit is
+// *selected* to probability 0 (not exp(-1e30 - max)), so a row that sees no
+// key gives out = 0 and lse = -1e30 where the Pallas online body gives the
+// mean of the visited v.
 // Later work: wgmma + TMA, softmax in registers, K/V double buffering.
 
+#include "mask.cuh"
 #include "mma.cuh"
 
 namespace {
 
 using fdsd::ld32;
+using fdsd::load_bias;
+using fdsd::MaskArgs;
 using fdsd::mma16816;
+using fdsd::seg_overlap;
 
 constexpr float kNegInf = -1e30f;
 
@@ -56,7 +74,8 @@ struct Cfg {
                 "a row's softmax threads sit in one warp");
 };
 
-template <int DP, int BQ, int BK, int WM, int WN>
+template <int DP, int BQ, int BK, int WM, int WN, bool CAUSAL, bool HAS_BIAS,
+          bool HAS_SEG>
 __global__ void __launch_bounds__(WM * WN * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -66,8 +85,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  long long qsb, long long qsh, long long qsl,
                  long long ksb, long long ksh, long long ksl,
                  long long vsb, long long vsh, long long vsl,
-                 long long osb, long long osh, long long osl, float scale) {
+                 long long osb, long long osh, long long osl, float scale,
+                 const MaskArgs m) {
   using C = Cfg<DP, BQ, BK, WM, WN>;
+  // any masked form: a masked logit is selected to probability 0
+  constexpr bool kSelect = CAUSAL || HAS_BIAS || HAS_SEG;
   constexpr int NT = C::kThreads;
   constexpr int kVecs = DP / 8;            // 16-byte vectors per padded row
   constexpr int kSTiles = BK / 8 / WN;     // key n-tiles per warp (S)
@@ -115,8 +137,30 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < kOTiles; ++j)
     o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
+  // The key tiles this block visits: all of them; below the diagonal when
+  // causal; the range whose segment ids overlap this query tile's.
   const int n_kt = (Lk + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  int kt_begin = 0, kt_end = n_kt;
+  if (CAUSAL) kt_end = min(n_kt, (q0 + BQ - 1) / BK + 1);
+  const int* q_bound = nullptr;
+  const int* k_bounds = nullptr;
+  int qid0 = -1, qid1 = -1;  // segment ids of this thread's two query rows
+  if (HAS_SEG) {
+    const int tile = b * gridDim.y + blockIdx.y;
+    kt_begin = max(kt_begin, m.lo[tile]);
+    kt_end = min(kt_end, m.hi[tile] + 1);
+    q_bound = m.q_bounds + 2 * tile;
+    k_bounds = m.kv_bounds + 2 * b * n_kt;
+    const int* ids = m.q_ids + static_cast<long long>(b) * Lq;
+    if (q0 + row0 + g < Lq) qid0 = ids[q0 + row0 + g];
+    if (q0 + row0 + g + 8 < Lq) qid1 = ids[q0 + row0 + g + 8];
+  }
+  const int* kv_ids = HAS_SEG ? m.kv_ids + static_cast<long long>(b) * Lk
+                              : nullptr;
+  const long long bias_base = HAS_BIAS ? b * m.bs[0] + h * m.bs[1] : 0;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    if (HAS_SEG && !seg_overlap(q_bound, k_bounds + 2 * kt)) continue;
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers of k_s, vt_s, p_s are done
     for (int i = tid; i < BK * kVecs; i += NT) {
@@ -158,8 +202,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int r = row0 + g + (e >= 2 ? 8 : 0);
         const int cc = col + (e & 1);
-        s_s[r * C::kSStride + cc] = (k0 + cc < Lk) ? sacc[j][e] * scale
-                                                    : kNegInf;
+        float val = sacc[j][e] * scale;
+        bool visible = k0 + cc < Lk;
+        if (HAS_BIAS && visible && q0 + r < Lq)
+          val += load_bias(m, bias_base, q0 + r, k0 + cc);
+        if (CAUSAL) visible = visible && k0 + cc <= q0 + r;
+        if (HAS_SEG && visible)
+          visible = kv_ids[k0 + cc] == (e >= 2 ? qid1 : qid0);
+        s_s[r * C::kSStride + cc] = visible ? val : kNegInf;
       }
     }
     __syncthreads();
@@ -180,7 +230,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        const float p = __expf(srow[c] - m_new);
+        const float p = (kSelect && srow[c] <= kNegInf)
+                            ? 0.f
+                            : __expf(srow[c] - m_new);
         sum += p;
         prow[c] = __float2bfloat16(p);
       }
@@ -221,7 +273,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // l_s / m_s were last written before the final softmax barrier.
+  // l_s / m_s were last written before the final softmax barrier; a masked
+  // form may have visited no tile at all.
+  if (kSelect) __syncthreads();
   const int r0 = q0 + row0 + g, r1 = r0 + 8;
   const float l0 = l_s[row0 + g], l1 = l_s[row0 + g + 8];
   const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
@@ -246,12 +300,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DP, int BQ, int BK, int WM, int WN>
+template <int DP, int BQ, int BK, int WM, int WN, bool CAUSAL = false,
+          bool HAS_BIAS = false, bool HAS_SEG = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int H, int Lq, int Lk, int d,
-                   const long long* st, float scale, cudaStream_t stream) {
+                   const long long* st, float scale, const MaskArgs& m,
+                   cudaStream_t stream) {
   using C = Cfg<DP, BQ, BK, WM, WN>;
-  auto kernel = flash_fwd_kernel<DP, BQ, BK, WM, WN>;
+  auto kernel = flash_fwd_kernel<DP, BQ, BK, WM, WN, CAUSAL, HAS_BIAS, HAS_SEG>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -260,34 +316,82 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), H, Lq, Lk, d, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale);
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, m);
   return cudaGetLastError();
+}
+
+// The masked forms at one head dim; code = 4*causal + 2*has_bias + has_seg.
+template <int DP>
+cudaError_t launch_masked(int code, const void* q, const void* k,
+                          const void* v, void* out, void* lse, int B, int H,
+                          int Lq, int Lk, int d, const long long* st,
+                          float scale, const MaskArgs& m, cudaStream_t s) {
+  switch (code) {
+#define FDSD_FORM(CODE, C, BI, SE)                                          \
+  case CODE:                                                                \
+    return launch<DP, 64, 64, 4, 1, C, BI, SE>(q, k, v, out, lse, B, H, Lq, \
+                                               Lk, d, st, scale, m, s);
+    FDSD_FORM(1, false, false, true)
+    FDSD_FORM(2, false, true, false)
+    FDSD_FORM(3, false, true, true)
+    FDSD_FORM(4, true, false, false)
+    FDSD_FORM(5, true, false, true)
+    FDSD_FORM(6, true, true, false)
+    FDSD_FORM(7, true, true, true)
+#undef FDSD_FORM
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// strides: 12 element strides, (batch, head, seq) for q, k, v, out; the
-// head-dim stride is 1. lse is (B, H, Lq) contiguous fp32.
+// strides: 16 element strides, (batch, head, seq) for q, k, v, out, then
+// (batch, head, row, col) for the bias; the head-dim stride is 1. lse is
+// (B, H, Lq) contiguous fp32. bias (fp32, or bf16 when bias_bf16) and the six
+// segment arrays of mask.cuh are null when the form is not asked for; the
+// masked forms take head dims 64 and 128.
 extern "C" int fdsd_flash_fwd(const void* q, const void* k, const void* v,
-                              void* out, void* lse, int B, int H, int Lq,
-                              int Lk, int d, const long long* strides,
-                              float scale, void* stream) {
+                              void* out, void* lse, const void* bias,
+                              const void* q_ids, const void* kv_ids,
+                              const void* q_bounds, const void* kv_bounds,
+                              const void* lo, const void* hi, int B, int H,
+                              int Lq, int Lk, int d, const long long* strides,
+                              float scale, int causal, int bias_bf16,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int dp = (d + 15) / 16 * 16;
+  const MaskArgs m = fdsd::make_mask_args(bias, strides + 12, bias_bf16,
+                                          q_ids, kv_ids, q_bounds, kv_bounds,
+                                          lo, hi);
+  const int code = 4 * (causal != 0) + 2 * (bias != nullptr) +
+                   (q_ids != nullptr);
+  if (code != 0) {
+    if (d == 64)
+      return static_cast<int>(launch_masked<64>(code, q, k, v, out, lse, B, H,
+                                                Lq, Lk, d, strides, scale, m,
+                                                s));
+    if (d == 128)
+      return static_cast<int>(launch_masked<128>(code, q, k, v, out, lse, B,
+                                                 H, Lq, Lk, d, strides, scale,
+                                                 m, s));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err;
   switch (dp) {
 #define FDSD_SMALL_D(DP)                                                    \
   case DP:                                                                  \
     err = launch<DP, 64, 64, 4, 1>(q, k, v, out, lse, B, H, Lq, Lk, d,      \
-                                   strides, scale, s);                      \
+                                   strides, scale, m, s);                   \
     break;
     FDSD_SMALL_D(48)  // SD1 UNet at 64^2: d = 40
+    FDSD_SMALL_D(64)  // SigLIP tower: d = 64
     FDSD_SMALL_D(80)  // SD1 UNet at 32^2: d = 80
     FDSD_SMALL_D(128)  // tiny-SD UNet: d = 128
 #undef FDSD_SMALL_D
     case 512:  // SD1 VAE mid attention
       err = launch<512, 32, 64, 2, 4>(q, k, v, out, lse, B, H, Lq, Lk, d,
-                                      strides, scale, s);
+                                      strides, scale, m, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

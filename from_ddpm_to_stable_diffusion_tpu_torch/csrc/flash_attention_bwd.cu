@@ -5,8 +5,20 @@
 //     from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
 //   K4 flash_bwd_dkv_kernel replaces
 //     from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dkv_kernel
-// in their no-mask form (ragged Lq and Lk only). Both recompute the
-// probabilities under the forward's saved lse, P = exp(scale*QK^T - lse),
+// in every form of theirs: ragged Lq and Lk, and as template parameters
+// beside the head dim (so the no-mask instantiations stay the code they
+// were) CAUSAL (col <= row from index 0 on both sides), HAS_BIAS (an additive
+// bias read through its strides, added in fp32 after the scale) and HAS_SEG
+// (segment ids: same-id pairs only). Tiles with no visible pair are not
+// visited: K3 stops at the diagonal and K4 starts at it when causal, and with
+// segment ids the loop runs over the tiles [lo, hi] of the other axis whose
+// id range overlaps this block's and skips a disjoint tile inside it. With a
+// bias that needs a gradient K3 also writes dbias = dS, fp32 (B, H, Lq, Lk):
+// every tile exactly once, zeros where the tile is skipped, so the caller
+// reduces it over the bias's broadcast axes without a memset. Both recompute
+// the probabilities under the forward's saved lse, P = exp(scale*QK^T + bias
+// - lse), selected to 0 where the mask hides the key (never multiplied: a row
+// that saw no key has lse = -1e30),
 // with delta = rowsum(dO * out) computed beforehand (fp32, by the caller):
 //   dS = P * (dO V^T - delta),  dQ = scale * dS K,
 //   dK = scale * dS^T Q,        dV = P^T dO.
@@ -34,19 +46,24 @@
 //   the accumulation phase a half is 64 of the 128 head dims, so the dK and
 //   dV accumulators take 32 registers each instead of 64 (~123 KB of
 //   dynamic shared memory, one block per SM).
-// Only the tiny-SD head dim, 128, is instantiated; others return
-// cudaErrorInvalidValue.
+// Head dims 128 (tiny-SD) and 64 (SigLIP tower, TinyVLM decoder, T5) are
+// instantiated, each in the eight forms; others return cudaErrorInvalidValue.
 // Later work: wgmma + TMA, ldmatrix.trans instead of transposed copies,
 // K/V double buffering, one fused kernel with atomics for dq.
 
+#include "mask.cuh"
 #include "mma.cuh"
 
 namespace {
 
 using fdsd::ld32;
+using fdsd::load_bias;
+using fdsd::MaskArgs;
 using fdsd::mma16816;
 using fdsd::pack_bf16;
+using fdsd::seg_overlap;
 
+constexpr float kNegInf = -1e30f;
 constexpr float kPadLse = 1e30f;  // padded query rows: P = exp(s - 1e30) = 0
 
 // A fragment (rows r0..r0+15, k kk..kk+15) of a row-major bf16 tile.
@@ -110,7 +127,7 @@ struct DqCfg {
       (2 * BQ * kRow + 2 * BK * kRow + DP * kKt) * 2;
 };
 
-template <int DP, int BQ, int BK>
+template <int DP, int BQ, int BK, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
 __global__ void __launch_bounds__(DqCfg<DP, BQ, BK>::kThreads)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -123,7 +140,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     long long ksb, long long ksh, long long ksl,
                     long long vsb, long long vsh, long long vsl,
                     long long gsb, long long gsh, long long gsl,
-                    long long dsb, long long dsh, long long dsl, float scale) {
+                    long long dsb, long long dsh, long long dsl, float scale,
+                    float* __restrict__ dbias, const MaskArgs m) {
   using C = DqCfg<DP, BQ, BK>;
   constexpr int NT = C::kThreads;
   constexpr int kSTiles = BK / 8;  // key n-tiles of S and dP per warp
@@ -161,9 +179,47 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 
   const __nv_bfloat16* kb = k + b * ksb + h * ksh;
   const __nv_bfloat16* vb = v + b * vsb + h * vsh;
+  // The key tiles with a visible pair: all of them; up to the diagonal when
+  // causal; the range whose segment ids overlap this query tile's.
   const int n_kt = (Lk + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  int kt_begin = 0, kt_end = n_kt;
+  if (CAUSAL) kt_end = min(n_kt, (q0 + BQ - 1) / BK + 1);
+  const int* q_bound = nullptr;
+  const int* k_bounds = nullptr;
+  int qid0 = -1, qid1 = -1;  // segment ids of this thread's two query rows
+  if (HAS_SEG) {
+    const int tile = b * gridDim.y + blockIdx.y;
+    kt_begin = max(kt_begin, m.lo[tile]);
+    kt_end = min(kt_end, m.hi[tile] + 1);
+    q_bound = m.q_bounds + 2 * tile;
+    k_bounds = m.kv_bounds + 2 * b * n_kt;
+    const int* ids = m.q_ids + static_cast<long long>(b) * Lq;
+    if (r0 < Lq) qid0 = ids[r0];
+    if (r1 < Lq) qid1 = ids[r1];
+  }
+  const int* kv_ids = HAS_SEG ? m.kv_ids + static_cast<long long>(b) * Lk
+                              : nullptr;
+  const long long bias_base = HAS_BIAS ? b * m.bs[0] + h * m.bs[1] : 0;
+  // dbias: every tile of this block's rows is written, skipped ones as zeros.
+  const bool write_db = HAS_BIAS && dbias != nullptr;
+  float* db = write_db
+                  ? dbias + static_cast<long long>(blockIdx.x) * Lq * Lk
+                  : nullptr;
+  const int kt_first = write_db ? 0 : kt_begin;
+  const int kt_last = write_db ? n_kt : kt_end;
+
+  for (int kt = kt_first; kt < kt_last; ++kt) {
     const int k0 = kt * BK;
+    bool run = kt >= kt_begin && kt < kt_end;
+    if (HAS_SEG && run) run = seg_overlap(q_bound, k_bounds + 2 * kt);
+    if (!run) {
+      if (write_db)
+        for (int i = threadIdx.x; i < BQ * BK; i += NT) {
+          const int r = q0 + i / BK, c = k0 + i % BK;
+          if (r < Lq && c < Lk) db[static_cast<long long>(r) * Lk + c] = 0.f;
+        }
+      continue;
+    }
     __syncthreads();  // the previous tile's readers of k_s, v_s, kt_s are done
     load_tile<BK, DP, NT>(kb, ksl, k0, Lk, d, k_s, C::kRow, kt_s, C::kKt);
     load_tile<BK, DP, NT>(vb, vsl, k0, Lk, d, v_s, C::kRow, nullptr, 0);
@@ -189,16 +245,28 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
         mma16816(dp[j], ag, bv);
       }
     }
-    // dS = P * (dP - delta), P = exp(scale * S - lse), zero past Lk.
+    // dS = P * (dP - delta), P = exp(scale * S + bias - lse), zero past Lk
+    // and where the mask hides the key.
 #pragma unroll
     for (int j = 0; j < kSTiles; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + j * 8 + 2 * t + (e & 1);
+        const int row = e < 2 ? r0 : r1;
         const float l = e < 2 ? lse0 : lse1;
         const float dl = e < 2 ? dl0 : dl1;
-        const float p = col < Lk ? __expf(s[j][e] * scale - l) : 0.f;
+        float sv = s[j][e] * scale;
+        bool visible = col < Lk;
+        if (HAS_BIAS && visible && row < Lq) {
+          sv += load_bias(m, bias_base, row, col);
+          visible = sv > kNegInf;
+        }
+        if (CAUSAL) visible = visible && col <= row;
+        if (HAS_SEG && visible) visible = kv_ids[col] == (e < 2 ? qid0 : qid1);
+        const float p = visible ? __expf(sv - l) : 0.f;
         s[j][e] = p * (dp[j][e] - dl);
+        if (HAS_BIAS && write_db && row < Lq && col < Lk)
+          db[static_cast<long long>(row) * Lk + col] = s[j][e];
       }
     }
     // dQ += dS K: dS is the A operand straight from the accumulators.
@@ -242,11 +310,11 @@ struct DkvCfg {
   static constexpr int kTr = BQ + 8;   // bf16 row stride: Q^T, dO^T, P^T, dS^T
   static constexpr int kSmemBytes =
       (2 * BK * kRow + 2 * BQ * kRow + 2 * DP * kTr + 2 * BK * kTr) * 2 +
-      2 * BQ * 4;
+      3 * BQ * 4;  // lse, delta and segment id of each query of the tile
   static_assert((BQ / 8) % WN == 0 && (DP / 8) % WN == 0, "even warp split");
 };
 
-template <int DP, int BK, int BQ>
+template <int DP, int BK, int BQ, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
 __global__ void __launch_bounds__(DkvCfg<DP, BK, BQ>::kThreads)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -262,7 +330,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      long long gsb, long long gsh, long long gsl,
                      long long dksb, long long dksh, long long dksl,
                      long long dvsb, long long dvsh, long long dvsl,
-                     float scale) {
+                     float scale, const MaskArgs m) {
   using C = DkvCfg<DP, BK, BQ>;
   constexpr int NT = C::kThreads;
   constexpr int kSTiles = BQ / 8 / C::WN;  // query n-tiles of S^T per warp
@@ -279,6 +347,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* dst_s = pt_s + BK * C::kTr;
   float* lse_s = reinterpret_cast<float*>(dst_s + BK * C::kTr);
   float* dl_s = lse_s + BQ;
+  int* qid_s = reinterpret_cast<int*>(dl_s + BQ);
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int k0 = blockIdx.y * BK;
@@ -302,8 +371,31 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* gb = dout + b * gsb + h * gsh;
   const float* lse_b = lse + (long long)blockIdx.x * Lq;
   const float* dl_b = delta + (long long)blockIdx.x * Lq;
+  // The query tiles with a visible pair: all of them; from the diagonal on
+  // when causal (the first tile whose last row reaches this key tile); the
+  // range whose segment ids overlap this key tile's.
   const int n_qt = (Lq + BQ - 1) / BQ;
-  for (int it = 0; it < n_qt; ++it) {
+  int it_begin = 0, it_end = n_qt;
+  if (CAUSAL) it_begin = k0 / BQ;
+  const int* k_bound = nullptr;
+  const int* q_bounds = nullptr;
+  const int* q_ids = nullptr;
+  int kid0 = -2, kid1 = -2;  // segment ids of this thread's two key rows
+  if (HAS_SEG) {
+    const int tile = b * gridDim.y + blockIdx.y;
+    it_begin = max(it_begin, m.lo[tile]);
+    it_end = min(it_end, m.hi[tile] + 1);
+    k_bound = m.kv_bounds + 2 * tile;
+    q_bounds = m.q_bounds + 2 * b * n_qt;
+    q_ids = m.q_ids + static_cast<long long>(b) * Lq;
+    const int* ids = m.kv_ids + static_cast<long long>(b) * Lk;
+    if (k0 + row0 + g < Lk) kid0 = ids[k0 + row0 + g];
+    if (k0 + row0 + g + 8 < Lk) kid1 = ids[k0 + row0 + g + 8];
+  }
+  const long long bias_base = HAS_BIAS ? b * m.bs[0] + h * m.bs[1] : 0;
+
+  for (int it = it_begin; it < it_end; ++it) {
+    if (HAS_SEG && !seg_overlap(k_bound, q_bounds + 2 * it)) continue;
     const int q0 = it * BQ;
     __syncthreads();  // the previous tile's readers are done
     load_tile<BQ, DP, NT>(qb, qsl, q0, Lq, d, q_s, C::kRow, qt_s, C::kTr);
@@ -312,6 +404,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       const bool in = q0 + i < Lq;
       lse_s[i] = in ? lse_b[q0 + i] : kPadLse;
       dl_s[i] = in ? dl_b[q0 + i] : 0.f;
+      if (HAS_SEG) qid_s[i] = in ? q_ids[q0 + i] : -1;
     }
     __syncthreads();
 
@@ -336,15 +429,30 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
         mma16816(dp[j], av, bg);
       }
     }
-    // P^T = exp(scale * S^T - lse), dS^T = P^T * (dP^T - delta): to smem.
+    // P^T = exp(scale * S^T + bias^T - lse), selected to 0 where the mask
+    // hides the key; dS^T = P^T * (dP^T - delta): to smem.
 #pragma unroll
     for (int j = 0; j < kSTiles; ++j) {
       const int col = (wn * kSTiles + j) * 8 + 2 * t;
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int r = row0 + g + 8 * hr;
-        const float p0 = __expf(s[j][2 * hr] * scale - lse_s[col]);
-        const float p1 = __expf(s[j][2 * hr + 1] * scale - lse_s[col + 1]);
+        float pv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + r, query = q0 + col + e;
+          float sv = s[j][2 * hr + e] * scale;
+          bool visible = true;
+          if (HAS_BIAS && key < Lk && query < Lq) {
+            sv += load_bias(m, bias_base, query, key);
+            visible = sv > kNegInf;
+          }
+          if (CAUSAL) visible = visible && key <= query;
+          if (HAS_SEG)
+            visible = visible && (hr ? kid1 : kid0) == qid_s[col + e];
+          pv[e] = visible ? __expf(sv - lse_s[col + e]) : 0.f;
+        }
+        const float p0 = pv[0], p1 = pv[1];
         const float ds0 = p0 * (dp[j][2 * hr] - dl_s[col]);
         const float ds1 = p1 * (dp[j][2 * hr + 1] - dl_s[col + 1]);
         *reinterpret_cast<uint32_t*>(pt_s + r * C::kTr + col) =
@@ -402,14 +510,15 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int DP>
+template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* g, const void* lse, const void* delta,
-                      void* dq, int B, int H, int Lq, int Lk, int d,
-                      const long long* st, float scale, cudaStream_t stream) {
+                      void* dq, void* dbias, int B, int H, int Lq, int Lk,
+                      int d, const long long* st, float scale,
+                      const MaskArgs& m, cudaStream_t stream) {
   constexpr int BQ = 64, BK = 32;
   using C = DqCfg<DP, BQ, BK>;
-  auto kernel = flash_bwd_dq_kernel<DP, BQ, BK>;
+  auto kernel = flash_bwd_dq_kernel<DP, BQ, BK, CAUSAL, HAS_BIAS, HAS_SEG>;
   cudaError_t err = set_smem(kernel, C::kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Lq + BQ - 1) / BQ);
@@ -419,18 +528,19 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dq), H, Lq, Lk, d, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
-      st[13], st[14], scale);
+      st[13], st[14], scale, static_cast<float*>(dbias), m);
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* g, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int H, int Lq, int Lk, int d,
-                       const long long* st, float scale, cudaStream_t stream) {
+                       const long long* st, float scale, const MaskArgs& m,
+                       cudaStream_t stream) {
   constexpr int BK = 64, BQ = 64;
   using C = DkvCfg<DP, BK, BQ>;
-  auto kernel = flash_bwd_dkv_kernel<DP, BK, BQ>;
+  auto kernel = flash_bwd_dkv_kernel<DP, BK, BQ, CAUSAL, HAS_BIAS, HAS_SEG>;
   cudaError_t err = set_smem(kernel, C::kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Lk + BK - 1) / BK);
@@ -441,39 +551,101 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, Lq,
       Lk, d, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
-      scale);
+      scale, m);
   return cudaGetLastError();
+}
+
+// Calls LAUNCH<DP, causal, has_bias, has_seg>(ARGS) for the form `code` =
+// 4*causal + 2*has_bias + has_seg.
+#define FDSD_FORMS(LAUNCH, DP, code, ...)                          \
+  switch (code) {                                                  \
+    case 0: return LAUNCH<DP, false, false, false>(__VA_ARGS__);   \
+    case 1: return LAUNCH<DP, false, false, true>(__VA_ARGS__);    \
+    case 2: return LAUNCH<DP, false, true, false>(__VA_ARGS__);    \
+    case 3: return LAUNCH<DP, false, true, true>(__VA_ARGS__);     \
+    case 4: return LAUNCH<DP, true, false, false>(__VA_ARGS__);    \
+    case 5: return LAUNCH<DP, true, false, true>(__VA_ARGS__);     \
+    case 6: return LAUNCH<DP, true, true, false>(__VA_ARGS__);     \
+    default: return LAUNCH<DP, true, true, true>(__VA_ARGS__);     \
+  }
+
+template <int DP>
+cudaError_t dispatch_dq(int code, const void* q, const void* k, const void* v,
+                        const void* g, const void* lse, const void* delta,
+                        void* dq, void* dbias, int B, int H, int Lq, int Lk,
+                        int d, const long long* st, float scale,
+                        const MaskArgs& m, cudaStream_t s) {
+  FDSD_FORMS(launch_dq, DP, code, q, k, v, g, lse, delta, dq, dbias, B, H, Lq,
+             Lk, d, st, scale, m, s)
+}
+
+template <int DP>
+cudaError_t dispatch_dkv(int code, const void* q, const void* k,
+                         const void* v, const void* g, const void* lse,
+                         const void* delta, void* dk, void* dv, int B, int H,
+                         int Lq, int Lk, int d, const long long* st,
+                         float scale, const MaskArgs& m, cudaStream_t s) {
+  FDSD_FORMS(launch_dkv, DP, code, q, k, v, g, lse, delta, dk, dv, B, H, Lq,
+             Lk, d, st, scale, m, s)
 }
 
 }  // namespace
 
-// strides: (batch, head, seq) element strides of q, k, v, dO, dq (15
-// values); the head-dim stride is 1. lse and delta are (B, H, Lq)
-// contiguous fp32.
+// strides: (batch, head, seq) element strides of q, k, v, dO, dq, then
+// (batch, head, row, col) of the bias (19 values); the head-dim stride is 1.
+// lse and delta are (B, H, Lq) contiguous fp32. bias (fp32, or bf16 when
+// bias_bf16), dbias (fp32 (B, H, Lq, Lk) contiguous, only with a bias) and
+// the six segment arrays of mask.cuh are null when not asked for.
 extern "C" int fdsd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse,
-                                 const void* delta, void* dq, int B, int H,
-                                 int Lq, int Lk, int d,
-                                 const long long* strides, float scale,
-                                 void* stream) {
-  if ((d + 15) / 16 * 16 != 128)  // tiny-SD UNet self-attention only
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_dq<128>(q, k, v, g, lse, delta, dq, B, H, Lq,
-                                         Lk, d, strides, scale,
-                                         static_cast<cudaStream_t>(stream)));
+                                 const void* delta, void* dq, void* dbias,
+                                 const void* bias, const void* q_ids,
+                                 const void* kv_ids, const void* q_bounds,
+                                 const void* kv_bounds, const void* lo,
+                                 const void* hi, int B, int H, int Lq, int Lk,
+                                 int d, const long long* strides, float scale,
+                                 int causal, int bias_bf16, void* stream) {
+  const MaskArgs m = fdsd::make_mask_args(bias, strides + 15, bias_bf16,
+                                          q_ids, kv_ids, q_bounds, kv_bounds,
+                                          lo, hi);
+  const int code = 4 * (causal != 0) + 2 * (bias != nullptr) +
+                   (q_ids != nullptr);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return static_cast<int>(dispatch_dq<64>(code, q, k, v, g, lse, delta, dq,
+                                            dbias, B, H, Lq, Lk, d, strides,
+                                            scale, m, s));
+  if (d == 128)
+    return static_cast<int>(dispatch_dq<128>(code, q, k, v, g, lse, delta, dq,
+                                             dbias, B, H, Lq, Lk, d, strides,
+                                             scale, m, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// strides: (batch, head, seq) element strides of q, k, v, dO, dk, dv (18
-// values); lse and delta as above.
+// strides: (batch, head, seq) element strides of q, k, v, dO, dk, dv, then
+// (batch, head, row, col) of the bias (22 values); the rest as above.
 extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* g, const void* lse,
                                   const void* delta, void* dk, void* dv,
-                                  int B, int H, int Lq, int Lk, int d,
-                                  const long long* strides, float scale,
-                                  void* stream) {
-  if ((d + 15) / 16 * 16 != 128)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_dkv<128>(q, k, v, g, lse, delta, dk, dv, B,
-                                          H, Lq, Lk, d, strides, scale,
-                                          static_cast<cudaStream_t>(stream)));
+                                  const void* bias, const void* q_ids,
+                                  const void* kv_ids, const void* q_bounds,
+                                  const void* kv_bounds, const void* lo,
+                                  const void* hi, int B, int H, int Lq, int Lk,
+                                  int d, const long long* strides, float scale,
+                                  int causal, int bias_bf16, void* stream) {
+  const MaskArgs m = fdsd::make_mask_args(bias, strides + 18, bias_bf16,
+                                          q_ids, kv_ids, q_bounds, kv_bounds,
+                                          lo, hi);
+  const int code = 4 * (causal != 0) + 2 * (bias != nullptr) +
+                   (q_ids != nullptr);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return static_cast<int>(dispatch_dkv<64>(code, q, k, v, g, lse, delta, dk,
+                                             dv, B, H, Lq, Lk, d, strides,
+                                             scale, m, s));
+  if (d == 128)
+    return static_cast<int>(dispatch_dkv<128>(code, q, k, v, g, lse, delta,
+                                              dk, dv, B, H, Lq, Lk, d,
+                                              strides, scale, m, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -157,8 +157,9 @@ class T5Attention(nn.Module):
             bucket = t5_relative_position_bucket(
                 pos[None, :] - pos[:, None], cfg.rel_buckets,
                 cfg.rel_max_distance)
+            # (1, H, L, L), contiguous: every block's attention reads it
             past_bias = self.relative_attention_bias[bucket.long()].permute(
-                2, 0, 1)[None]                       # (1, H, L, L)
+                2, 0, 1)[None].contiguous()
         out = multi_head_attention(self.q(x), self.k(x), self.v(x),
                                    cfg.num_heads, bias=past_bias, scale=1.0)
         return self.o(out), past_bias

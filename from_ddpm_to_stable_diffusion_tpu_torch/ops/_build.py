@@ -28,15 +28,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, out, lse, B, H, Lq, Lk, d, strides[12], scale, stream
-    "fdsd_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P],
-    # q, k, v, dO, lse, delta, dq, B, H, Lq, Lk, d, strides[15], scale, stream
-    "fdsd_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                          _F, _P],
-    # q, k, v, dO, lse, delta, dk, dv, B, H, Lq, Lk, d, strides[18], scale,
-    # stream
-    "fdsd_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _P, _F, _P],
+    # The flash kernels' mask arguments (csrc/mask.cuh), null when absent:
+    # bias, q_ids, kv_ids, q_bounds, kv_bounds, lo, hi; then, after the
+    # scale, the flags causal and bias_bf16.
+    # q, k, v, out, lse, masks[7], B, H, Lq, Lk, d, strides[12 + 4], scale,
+    # causal, bias_bf16, stream
+    "fdsd_flash_fwd": [_P] * 5 + [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I, _P],
+    # q, k, v, dO, lse, delta, dq, dbias, masks[7], B, H, Lq, Lk, d,
+    # strides[15 + 4], scale, causal, bias_bf16, stream
+    "fdsd_flash_bwd_dq": [_P] * 8 + [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I,
+                                                            _P],
+    # q, k, v, dO, lse, delta, dk, dv, masks[7], B, H, Lq, Lk, d,
+    # strides[18 + 4], scale, causal, bias_bf16, stream
+    "fdsd_flash_bwd_dkv": [_P] * 8 + [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I,
+                                                             _P],
     # q, k, v, out, lse, q_off, k_off, B, H, Lq, Lk, d, strides[12], scale,
     # seg_q, seg_k, valid_len, has_valid, causal, bounded, stream
     "fdsd_flash_fwd_pos": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,

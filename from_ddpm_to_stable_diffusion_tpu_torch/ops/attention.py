@@ -39,12 +39,29 @@ def _flash_eligible(q, k) -> bool:
 
 
 def dot_product_attention(q, k, v, bias=None, causal: bool = False,
-                          scale: Optional[float] = None):
-    """Scaled dot-product attention over (B, H, L, D) tensors."""
+                          scale: Optional[float] = None, segment_ids=None,
+                          seg_max_kv_blocks: Optional[int] = None):
+    """Scaled dot-product attention over (B, H, L, D) tensors.
+
+    ``segment_ids``: optional (q_ids (B, Lq), kv_ids (B, Lk)) masking of
+    packed sequences to same-id pairs. ``seg_max_kv_blocks``: the JAX
+    package's static bound for packed layouts, validated on the flash path
+    and ignored on the plain one (see :func:`flash_attention`).
+
+    ``causal`` on the flash path counts rows and columns from index 0 (the
+    kernels' rule), on the plain path it aligns the diagonal bottom-right,
+    as the JAX package does; the two agree for Lq = Lk."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _flash_eligible(q, k):
-        return flash_attention(q, k, v, bias=bias, causal=causal, scale=scale)
+        return flash_attention(q, k, v, bias=bias, segment_ids=segment_ids,
+                               causal=causal, scale=scale,
+                               seg_max_kv_blocks=seg_max_kv_blocks)
+    if segment_ids is not None:
+        same = (segment_ids[0][:, None, :, None]
+                == segment_ids[1][:, None, None, :])
+        seg_bias = torch.where(same, 0.0, -1e30)
+        bias = seg_bias if bias is None else bias + seg_bias
     return plain_attention(q, k, v, bias, causal, scale)
 
 

@@ -38,12 +38,18 @@ calls merged exactly through their log-sum-exps by
 :func:`flash_bwd_pos` calls under the merged lse whose partial gradients
 add up (:class:`JointFlashAttention`).
 
-Not ported yet (see ROADMAP.md): the additive bias, causal and segment-id
-masks of :func:`flash_attention`, forward and backward (B2).
+Masks of :func:`flash_attention` (the Pallas ``_fwd_kernel``,
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` in their bias, causal and
+segment-id forms): an additive bias read through its strides (dbias from the
+dq kernel's dS tiles), ``causal`` (col <= row from index 0 on both sides) and
+``segment_ids`` with tile skipping from per-tile id ranges; they compose, in
+the kernels at head dims 64 and 128. A row that sees no key gives out = 0
+and lse = -1e30, and the backward selects masked probabilities to 0.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -51,45 +57,220 @@ import torch
 
 from . import _build
 
-# head dims the forward kernel is instantiated for: padded to 48, 80, 128
-# or 512; the backward kernels take head dim 128 (tiny-SD's UNet)
-_KERNEL_HEAD_DIMS = (40, 48, 72, 80, 128, 512)
-_BWD_HEAD_DIMS = (128,)
+# head dims the forward kernel is instantiated for: padded to 48, 64, 80, 128
+# or 512; the backward kernels, and the masked forms of all three, take 64
+# (SigLIP, the TinyVLM decoder, T5) and 128 (tiny-SD's UNet)
+_KERNEL_HEAD_DIMS = (40, 48, 64, 72, 80, 128, 512)
+_BWD_HEAD_DIMS = (64, 128)
+_MASK_HEAD_DIMS = (64, 128)
 _POS_HEAD_DIMS = (64, 128)
 NEG_INF = -1e30   # lse of a row with no visible key
+# (query tile, key tile) of K1, K3 and K4: the sizes the segment-id tile
+# bounds and ranges handed to each kernel are built at
+_FWD_TILES, _DQ_TILES, _DKV_TILES = (64, 64), (64, 32), (64, 64)
 
 
-def flash_attention_plain(q, k, v, scale: Optional[float] = None):
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _visible_pairs(lq, lk, segment_ids, causal, device):
+    """Bool mask broadcastable to (B, H, Lq, Lk) of the pairs the masks
+    admit, or None without masks. Causal is the kernels' rule: col <= row
+    from index 0 on both sides (top-left aligned, unlike ``plain_attention``,
+    which aligns bottom-right; the two agree for Lq = Lk)."""
+    visible = None
+    if causal:
+        row = torch.arange(lq, device=device)[:, None]
+        visible = (torch.arange(lk, device=device)[None, :] <= row)[None, None]
+    if segment_ids is not None:
+        q_ids, kv_ids = segment_ids
+        same = q_ids[:, None, :, None] == kv_ids[:, None, None, :]
+        visible = same if visible is None else visible & same
+    return visible
+
+
+def flash_attention_plain(q, k, v, scale: Optional[float] = None, *,
+                          bias=None, segment_ids=None, causal: bool = False):
     """(out, lse) in plain PyTorch: fp32 logits and softmax statistics, the
-    probabilities cast to v's dtype before the PV product, as the kernels do."""
+    probabilities cast to v's dtype before the PV product, as the kernels do.
+    ``bias`` is added in fp32 after the scale; ``segment_ids`` = (q_ids
+    (B, Lq), kv_ids (B, Lk)) admits same-id pairs only; ``causal`` admits
+    col <= row. A masked probability is selected to 0, so a row that sees no
+    key gives out = 0 and lse = -1e30."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    if bias is not None:
+        s = s + bias.float()
+    visible = _visible_pairs(q.shape[2], k.shape[2], segment_ids, causal,
+                             q.device)
+    if visible is None and bias is None:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        out = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+        return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+    if visible is not None:
+        s = s.masked_fill(~visible, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True).clamp(min=NEG_INF)
+    p = torch.where(s > NEG_INF, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p.to(v.dtype).float(), v.float()) / l
-    return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+    safe_l = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / safe_l
+    lse = torch.where(l == 0, torch.full_like(l, NEG_INF),
+                      m + torch.log(safe_l))
+    return out.to(q.dtype), lse.squeeze(-1)
+
+
+def _reduce_dbias(ds, bias):
+    """dS (B, H, Lq, Lk) fp32 summed over the axes ``bias`` is broadcast
+    over, in the bias's shape and dtype."""
+    return ds.sum_to_size(bias.shape).to(bias.dtype)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, g,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None, *, bias=None,
+                              segment_ids=None, causal: bool = False,
+                              need_dbias: bool = False):
     """(dq, dk, dv) in plain PyTorch, the kernels' contract: P rebuilt in
-    fp32 as exp(scale·QKᵀ − lse), delta = Σ_d dO·out in fp32, and P and dS
-    cast to the input dtype before the products that take them."""
+    fp32 as exp(scale·QKᵀ + bias − lse) and selected to 0 where the masks of
+    :func:`flash_attention_plain` hide the key, delta = Σ_d dO·out in fp32,
+    and P and dS cast to the input dtype before the products that take them.
+    With ``need_dbias`` also dbias: dS in fp32 summed over the axes the bias
+    is broadcast over, in the bias's dtype, as a fourth value."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
-    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
-                  - lse[..., None])
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - lse[..., None])
+    visible = _visible_pairs(q.shape[2], k.shape[2], segment_ids, causal,
+                             q.device)
+    if bias is not None:
+        hidden = s <= NEG_INF
+        visible = ~hidden if visible is None else visible & ~hidden
+    if visible is not None:
+        p = torch.where(visible, p, torch.zeros_like(p))
     delta = (gf * out.float()).sum(-1, keepdim=True)
     dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), gf)
-    ds = (p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta)).to(q.dtype)
+    ds32 = p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta)
+    ds = ds32.to(q.dtype)
     dq = torch.matmul(ds.float(), kf) * scale
     dk = torch.matmul(ds.float().transpose(-1, -2), qf) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if need_dbias:
+        return (*grads, _reduce_dbias(ds32, bias))
+    return grads
 
 
+# --------------------------------------------------------------------------
+# Segment ids: tile bounds, loop ranges and the seg_max_kv_blocks hint
+# --------------------------------------------------------------------------
+def _seg_bounds(ids, block: int):
+    """(B, n, 2) int32 [min, max] id of each ``block``-wide tile of ``ids``
+    (B, L); the last tile is padded with -1, the id of no real token (the
+    JAX ``_seg_inputs``)."""
+    b, n = ids.shape
+    pad = _cdiv(n, block) * block - n
+    tiles = torch.nn.functional.pad(ids.to(torch.int32), (0, pad),
+                                    value=-1).reshape(b, -1, block)
+    return torch.stack([tiles.amin(2), tiles.amax(2)], dim=-1).contiguous()
+
+
+def _seg_block_ranges(q_bounds, kv_bounds):
+    """First and last overlapping tile of the other axis, per tile: (q_lo,
+    q_hi) each (B, n_q) over key tiles and (k_lo, k_hi) each (B, n_k) over
+    query tiles; [0, 0] where nothing overlaps (the kernels' own overlap
+    test then skips tile 0). The JAX ``_seg_block_ranges``."""
+    overlap = ((q_bounds[:, :, None, 0] <= kv_bounds[:, None, :, 1])
+               & (kv_bounds[:, None, :, 0] <= q_bounds[:, :, None, 1]))
+
+    def ranges(ov):
+        n = ov.shape[-1]
+        any_ = ov.any(-1)
+        first = ov.int().argmax(-1)
+        last = n - 1 - ov.flip(-1).int().argmax(-1)
+        zero = torch.zeros_like(first)
+        return (torch.where(any_, first, zero).to(torch.int32).contiguous(),
+                torch.where(any_, last, zero).to(torch.int32).contiguous())
+
+    return (*ranges(overlap), *ranges(overlap.transpose(1, 2)))
+
+
+def _check_segment_ids(segment_ids, b, lq, lk, device):
+    q_ids, kv_ids = segment_ids
+    if (tuple(q_ids.shape) != (b, lq) or tuple(kv_ids.shape) != (b, lk)
+            or q_ids.device != device or kv_ids.device != device):
+        raise ValueError(f"segment_ids must be (q_ids ({b}, {lq}), kv_ids "
+                         f"({b}, {lk})) on {device}")
+    return (q_ids.to(torch.int32).contiguous(),
+            kv_ids.to(torch.int32).contiguous())
+
+
+def _seg_kernel_args(segment_ids, q, lk, tiles, over: str):
+    """The six int32 arrays of ``csrc/mask.cuh`` at a kernel's own tile
+    sizes: ids, tile bounds and the loop range of the blocks of a grid that
+    runs over ``over`` ("q" for K1 and K3, "k" for K4)."""
+    b, _, lq, _ = q.shape
+    q_ids, kv_ids = _check_segment_ids(segment_ids, b, lq, lk, q.device)
+    q_bounds, kv_bounds = _seg_bounds(q_ids, tiles[0]), _seg_bounds(kv_ids,
+                                                                    tiles[1])
+    q_lo, q_hi, k_lo, k_hi = _seg_block_ranges(q_bounds, kv_bounds)
+    lo, hi = (q_lo, q_hi) if over == "q" else (k_lo, k_hi)
+    return [q_ids, kv_ids, q_bounds, kv_bounds, lo, hi]
+
+
+def _jax_blocks(lq: int, lk: int, d: int, block_q: int = 1024,
+                block_k: int = 1024):
+    """The JAX package's block sizes for these lengths (``_flash_fwd``): the
+    units ``seg_max_kv_blocks`` is given in."""
+    if d > 256:
+        block_q, block_k = min(block_q, 512), min(block_k, 512)
+    block_q = min(block_q, _cdiv(lq, 128) * 128)
+    block_k = min(block_k, _cdiv(lk, 128) * 128)
+    if block_q >= lq and lq >= 512:      # _occupancy_block_q
+        block_q = _cdiv(block_q // 2, 128) * 128
+    return block_q, block_k
+
+
+def check_seg_hint(segment_ids, lq: int, lk: int, d: int,
+                   seg_max_kv_blocks: Optional[int], has_bias: bool) -> None:
+    """Validates ``seg_max_kv_blocks`` as the JAX package does for concrete
+    ids, forward and backward: the hint, in units of the JAX key block,
+    must cover the key blocks any query block's segments overlap, and the
+    bound derived from it the query blocks any key block's overlap. The
+    kernels here walk each block's own range whatever the hint says, so it
+    changes no result; an undersized one is still the caller's error."""
+    if segment_ids is None or seg_max_kv_blocks is None:
+        return
+    if has_bias:
+        raise ValueError(
+            "seg_max_kv_blocks with bias is unsupported (dbias tiles "
+            "outside the truncated grid would stay unwritten)")
+    block_q, block_k = _jax_blocks(lq, lk, d)
+    n_q, n_k = _cdiv(lq, block_q), _cdiv(lk, block_k)
+    hint = int(seg_max_kv_blocks)
+    nq_side = (hint if block_q == block_k
+               else _cdiv((2 * hint - 1) * block_k, block_q) + 1)
+    q_lo, q_hi, k_lo, k_hi = _seg_block_ranges(
+        _seg_bounds(segment_ids[0], block_q),
+        _seg_bounds(segment_ids[1], block_k))
+    for lo, hi, extent, full, axis in (
+            (q_lo, q_hi, min(n_k, hint), n_k, "k blocks per q block"),
+            (k_lo, k_hi, min(n_q, nq_side), n_q, "q blocks per k block")):
+        needed = int((hi - lo + 1).max())
+        if extent < full and extent < needed:
+            raise ValueError(
+                f"truncated grid extent {extent} < {needed} required by "
+                f"this packing layout (max overlapping {axis}); raise "
+                "seg_max_kv_blocks")
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
 def _check_operand(name, x, like):
     if x.device != like.device or x.dtype != like.dtype:
         raise ValueError(f"{name} must be on {like.device} in {like.dtype}")
@@ -127,38 +308,90 @@ def _blhd(like, n):
                        dtype=like.dtype).transpose(1, 2)
 
 
-def _strides(*xs):
-    return (ctypes.c_longlong * (3 * len(xs)))(
-        *(s for x in xs for s in x.stride()[:3]))
+def _strides(*xs, bias=None):
+    """(batch, head, seq) element strides of each tensor, then the bias's
+    four (zeros without one), as a C array."""
+    flat = [s for x in xs for s in x.stride()[:3]]
+    flat += [0, 0, 0, 0] if bias is None else list(bias.stride())
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def flash_attention_cuda(q, k, v, scale: Optional[float] = None):
-    """The CUDA kernel: (out, lse) for bf16 (B, H, L, D) CUDA tensors."""
+def _mask_args(q, lk, bias, segment_ids, causal, fn, tiles, over):
+    """What a masked launch passes besides q, k, v: the bias expanded to
+    (B, H, Lq, Lk) without a copy (stride 0 on its broadcast axes; cast to
+    fp32 first if it is neither fp32 nor bf16), its pointer, the six segment
+    pointers and the two flags. The segment tensors are returned too: the
+    caller holds them until its kernel is enqueued, so that no output it
+    allocates meanwhile takes their memory."""
+    b, h, lq, d = q.shape
+    masked = bias is not None or segment_ids is not None or causal
+    if masked and d not in _MASK_HEAD_DIMS:
+        raise NotImplementedError(
+            f"head dim {d}: the masked forms of {fn} take {_MASK_HEAD_DIMS}")
+    keep = []
+    if bias is not None:
+        if bias.device != q.device:
+            raise ValueError(f"bias must be on {q.device}")
+        if bias.dtype not in (torch.float32, torch.bfloat16):
+            bias = bias.float()
+        if bias.dim() != 4:
+            raise ValueError("bias must be 4-D, broadcastable to "
+                             f"({b}, {h}, {lq}, {lk})")
+        bias = bias.expand(b, h, lq, lk)
+        keep.append(bias)
+    seg = [None] * 6
+    if segment_ids is not None:
+        seg = _seg_kernel_args(segment_ids, q, lk, tiles, over)
+        keep += seg
+    ptrs = [None if bias is None else bias.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in seg)]
+    flags = (int(bool(causal)),
+             int(bias is not None and bias.dtype == torch.bfloat16))
+    return bias, ptrs, flags, keep
+
+
+def _count_launch(fn, bias, segment_ids, causal):
+    """One more launch of ``fn``'s kernel, and of its form (causal, bias,
+    segment ids) in ``fn.forms``."""
+    fn.launches += 1
+    fn.forms[(bool(causal), bias is not None, segment_ids is not None)] += 1
+
+
+def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
+                         bias=None, segment_ids=None, causal: bool = False):
+    """K1, the CUDA kernel: (out, lse) for bf16 (B, H, L, D) CUDA tensors,
+    with the masks of :func:`flash_attention_plain` (head dim 64 or 128)."""
     b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_cuda",
                                  _KERNEL_HEAD_DIMS)
     if scale is None:
         scale = d ** -0.5
+    bias, ptrs, flags, _held = _mask_args(
+        q, lk, bias, segment_ids, causal, "flash_attention_cuda", _FWD_TILES,
+        "q")
     out = _blhd(q, lq)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
-    strides = _strides(q, k, v, out)
+    strides = _strides(q, k, v, out, bias=bias)
     lib = _build.load()
     err = lib.fdsd_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), *ptrs, b, h, lq, lk, d,
+        ctypes.cast(strides, ctypes.c_void_p), float(scale), *flags,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fdsd_flash_fwd")
-    flash_attention_cuda.launches += 1
+    _count_launch(flash_attention_cuda, bias, segment_ids, causal)
     return out, lse
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.forms = collections.Counter()
 
 
-def flash_attention_forward(q, k, v, scale: Optional[float] = None):
-    """(out, lse): the kernel on CUDA tensors, the plain version on CPU."""
+def flash_attention_forward(q, k, v, scale: Optional[float] = None, **masks):
+    """(out, lse): the kernel on CUDA tensors, the plain version on CPU.
+    ``masks``: ``bias``, ``segment_ids``, ``causal``."""
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, scale)
-    return flash_attention_plain(q, k, v, scale)
+        return flash_attention_cuda(q, k, v, scale, **masks)
+    return flash_attention_plain(q, k, v, scale, **masks)
 
 
 def _check_bwd(q, k, v, g, lse, delta, head_dims=_BWD_HEAD_DIMS):
@@ -174,42 +407,61 @@ def _check_bwd(q, k, v, g, lse, delta, head_dims=_BWD_HEAD_DIMS):
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
-                                scale: Optional[float] = None):
+                                scale: Optional[float] = None, *, bias=None,
+                                segment_ids=None, causal: bool = False,
+                                need_dbias: bool = False):
     """K3: dq from bf16 CUDA q, k, v, dO (= ``g``) and fp32 (B, H, Lq)
-    ``lse`` and ``delta`` = Σ_d dO·out."""
+    ``lse`` and ``delta`` = Σ_d dO·out, under the masks of the forward.
+    With ``need_dbias`` returns (dq, dS): the kernel also writes dS = the
+    bias's gradient before any reduction, fp32 (B, H, Lq, Lk), every tile
+    once and zeros where it skips one."""
     b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta)
     scale = d ** -0.5 if scale is None else scale
+    if need_dbias and bias is None:
+        raise ValueError("need_dbias without a bias")
+    bias, ptrs, flags, _held = _mask_args(
+        q, lk, bias, segment_ids, causal, "flash_attention_bwd_dq_cuda",
+        _DQ_TILES, "q")
     dq = _blhd(q, lq)
-    strides = _strides(q, k, v, g, dq)
+    ds = (torch.empty((b, h, lq, lk), device=q.device, dtype=torch.float32)
+          if need_dbias else None)
+    strides = _strides(q, k, v, g, dq, bias=bias)
     err = _build.load().fdsd_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, lq, lk, d,
-        ctypes.cast(strides, ctypes.c_void_p), float(scale),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        None if ds is None else ds.data_ptr(), *ptrs, b, h, lq, lk, d,
+        ctypes.cast(strides, ctypes.c_void_p), float(scale), *flags,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fdsd_flash_bwd_dq")
-    flash_attention_bwd_dq_cuda.launches += 1
-    return dq
+    _count_launch(flash_attention_bwd_dq_cuda, bias, segment_ids, causal)
+    return (dq, ds) if need_dbias else dq
 
 
 def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
-                                 scale: Optional[float] = None):
+                                 scale: Optional[float] = None, *, bias=None,
+                                 segment_ids=None, causal: bool = False):
     """K4: (dk, dv) from the inputs of :func:`flash_attention_bwd_dq_cuda`."""
     b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta)
     scale = d ** -0.5 if scale is None else scale
+    bias, ptrs, flags, _held = _mask_args(
+        q, lk, bias, segment_ids, causal, "flash_attention_bwd_dkv_cuda",
+        _DKV_TILES, "k")
     dk, dv = _blhd(k, lk), _blhd(v, lk)
-    strides = _strides(q, k, v, g, dk, dv)
+    strides = _strides(q, k, v, g, dk, dv, bias=bias)
     err = _build.load().fdsd_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
-        lq, lk, d, ctypes.cast(strides, ctypes.c_void_p), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *ptrs, b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p),
+        float(scale), *flags, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fdsd_flash_bwd_dkv")
-    flash_attention_bwd_dkv_cuda.launches += 1
+    _count_launch(flash_attention_bwd_dkv_cuda, bias, segment_ids, causal)
     return dk, dv
 
 
 flash_attention_bwd_dq_cuda.launches = 0
 flash_attention_bwd_dkv_cuda.launches = 0
+flash_attention_bwd_dq_cuda.forms = collections.Counter()
+flash_attention_bwd_dkv_cuda.forms = collections.Counter()
 
 
 def _kernel_operand(g, dtype):
@@ -224,55 +476,88 @@ def _kernel_operand(g, dtype):
 
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, g,
-                             scale: Optional[float] = None):
+                             scale: Optional[float] = None, *, bias=None,
+                             segment_ids=None, causal: bool = False,
+                             need_dbias: bool = False):
     """(dq, dk, dv) for bf16 CUDA tensors through K3 and K4, with ``out``
-    and ``lse`` from :func:`flash_attention_cuda` and ``g`` = dO. A dO whose
-    head dim is not contiguous (or whose other strides are not multiples
-    of 8) is copied first; the kernels read it through its strides
-    otherwise. delta = Σ_d dO·out is a plain fp32 reduction."""
+    and ``lse`` from :func:`flash_attention_cuda` under the same masks and
+    ``g`` = dO. A dO whose head dim is not contiguous (or whose other
+    strides are not multiples of 8) is copied first; the kernels read it
+    through its strides otherwise. delta = Σ_d dO·out is a plain fp32
+    reduction. With ``need_dbias`` a fourth value: K3's dS tiles summed over
+    the bias's broadcast axes and cast to its dtype, plain PyTorch as the
+    JAX package leaves it to XLA."""
     if out.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} must be {tuple(q.shape)}")
     g = _kernel_operand(g, q.dtype)
     delta = (g.float() * out.float()).sum(-1)
     lse = lse.contiguous()
-    dq = flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta, scale)
-    return (dq, *flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta, scale))
+    masks = dict(bias=bias, segment_ids=segment_ids, causal=causal)
+    dq = flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta, scale, **masks,
+                                     need_dbias=need_dbias)
+    dkv = flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, **masks)
+    if need_dbias:
+        dq, ds = dq
+        return (dq, *dkv, _reduce_dbias(ds, bias))
+    return (dq, *dkv)
 
 
 def flash_attention_backward(q, k, v, out, lse, g,
-                             scale: Optional[float] = None):
-    """(dq, dk, dv): the kernels on CUDA tensors, the plain version on CPU."""
+                             scale: Optional[float] = None, **masks):
+    """(dq, dk, dv[, dbias]): the kernels on CUDA tensors, the plain version
+    on CPU. ``masks``: ``bias``, ``segment_ids``, ``causal``,
+    ``need_dbias``."""
     if q.is_cuda:
-        return flash_attention_bwd_cuda(q, k, v, out, lse, g, scale)
-    return flash_attention_bwd_plain(q, k, v, out, lse, g, scale)
+        return flash_attention_bwd_cuda(q, k, v, out, lse, g, scale, **masks)
+    return flash_attention_bwd_plain(q, k, v, out, lse, g, scale, **masks)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Forward: :func:`flash_attention_forward`, saving q, k, v, out, lse.
-    Backward: :func:`flash_attention_backward` (the JAX ``_vjp_bwd``)."""
+    """Forward: :func:`flash_attention_forward`, saving q, k, v, out, lse and
+    the bias and segment ids. Backward: :func:`flash_attention_backward`
+    (the JAX ``_vjp_bwd``); dbias only when the bias needs a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_attention_forward(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
+    def forward(ctx, q, k, v, bias, q_ids, kv_ids, causal, scale):
+        segment_ids = None if q_ids is None else (q_ids, kv_ids)
+        out, lse = flash_attention_forward(
+            q, k, v, scale, bias=bias, segment_ids=segment_ids, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse, bias, q_ids, kv_ids)
+        ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*flash_attention_backward(q, k, v, out, lse, g, ctx.scale),
-                None)
+        q, k, v, out, lse, bias, q_ids, kv_ids = ctx.saved_tensors
+        need_dbias = bias is not None and ctx.needs_input_grad[3]
+        grads = flash_attention_backward(
+            q, k, v, out, lse, g, ctx.scale, bias=bias,
+            segment_ids=None if q_ids is None else (q_ids, kv_ids),
+            causal=ctx.causal, need_dbias=need_dbias)
+        return (*grads[:3], grads[3] if need_dbias else None, None, None,
+                None, None)
 
 
 def flash_attention(q, k, v, bias=None, segment_ids=None,
-                    causal: bool = False, scale: Optional[float] = None):
+                    causal: bool = False, scale: Optional[float] = None,
+                    seg_max_kv_blocks: Optional[int] = None):
     """Flash attention over (B, H, L, D); returns (B, H, Lq, D).
-    Differentiable in q, k and v."""
-    if bias is not None or segment_ids is not None or causal:
-        raise NotImplementedError(
-            "bias, segment_ids and causal masks are not ported yet")
-    return FlashAttention.apply(q, k, v, scale)
+    Differentiable in q, k, v and bias.
+
+    ``bias``: additive, broadcastable to (B, H, Lq, Lk), fp32 or bf16, added
+    in fp32 after the scale. ``segment_ids``: (q_ids (B, Lq), kv_ids
+    (B, Lk)) integer ids of packed sequences; attention is masked to
+    same-id pairs and composes with ``causal`` and ``bias``; ragged lengths
+    are the case "pad tokens get an id no real token uses". ``causal``
+    admits col <= row counted from index 0 on both sides. A query that sees
+    no key gives 0. ``seg_max_kv_blocks`` is the JAX package's static bound
+    on the key blocks (of its own block size) any query block's segments
+    overlap; here the kernels walk each tile's own range, so the hint is
+    only validated (:func:`check_seg_hint`)."""
+    check_seg_hint(segment_ids, q.shape[2], k.shape[2], q.shape[3],
+                   seg_max_kv_blocks, bias is not None)
+    q_ids, kv_ids = (None, None) if segment_ids is None else segment_ids
+    return FlashAttention.apply(q, k, v, bias, q_ids, kv_ids, causal, scale)
 
 
 # --------------------------------------------------------------------------

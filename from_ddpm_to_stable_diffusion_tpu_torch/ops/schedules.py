@@ -139,3 +139,26 @@ def cosine_warmup_lr(base_lr: float, max_lr: float, warmup_epochs: int,
                                                               * progress))
 
     return schedule
+
+
+def warmup_cosine_decay_lr(init_lr: float, peak_lr: float, warmup_steps: int,
+                           decay_steps: int,
+                           end_lr: float = 0.0) -> Callable[[int], float]:
+    """``schedule(count) -> lr`` of ``optax.warmup_cosine_decay_schedule``:
+    linear from ``init_lr`` to ``peak_lr`` over ``warmup_steps`` updates,
+    then a cosine from ``peak_lr`` to ``end_lr`` that ends at update
+    ``decay_steps`` and stays there. ``count`` is the number of updates made
+    before this one, so with ``init_lr`` = 0 the first update moves
+    nothing."""
+    cosine_steps = decay_steps - warmup_steps
+    if cosine_steps <= 0:
+        raise ValueError("decay_steps must exceed warmup_steps")
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return init_lr + (peak_lr - init_lr) * count / warmup_steps
+        progress = min(count - warmup_steps, cosine_steps) / cosine_steps
+        cosine = 0.5 * (1.0 + math.cos(math.pi * progress))
+        return end_lr + (peak_lr - end_lr) * cosine
+
+    return schedule

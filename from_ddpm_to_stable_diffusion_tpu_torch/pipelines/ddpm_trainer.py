@@ -67,18 +67,21 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float):
     return norm
 
 
-def new_train_state(model: nn.Module, cfg, steps_per_epoch: int) -> TrainState:
-    """The state both trainers start from: AdamW with optax's defaults at
-    the warmup-cosine rate of ``cfg`` (lr, max_lr, warmup_epochs, epoch),
-    no update made, and a copy of the parameters as the EMA when
-    ``cfg.ema_decay``."""
-    schedule = cosine_warmup_lr(cfg.lr, cfg.max_lr, cfg.warmup_epochs,
-                                cfg.epoch, max(1, steps_per_epoch))
+def new_train_state(model: nn.Module, cfg, steps_per_epoch: int = 1, *,
+                    schedule: Optional[Callable[[int], float]] = None,
+                    weight_decay: float = 1e-4) -> TrainState:
+    """The state the trainers start from: AdamW with optax's defaults and
+    ``weight_decay`` at ``schedule``, by default the warmup-cosine rate of
+    ``cfg`` (lr, max_lr, warmup_epochs, epoch); no update made, and a copy
+    of the parameters as the EMA when ``cfg`` has an ``ema_decay``."""
+    if schedule is None:
+        schedule = cosine_warmup_lr(cfg.lr, cfg.max_lr, cfg.warmup_epochs,
+                                    cfg.epoch, max(1, steps_per_epoch))
     optimizer = torch.optim.AdamW(model.parameters(), lr=schedule(0),
                                   betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=1e-4)
+                                  weight_decay=weight_decay)
     ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
-           if cfg.ema_decay else None)
+           if getattr(cfg, "ema_decay", None) else None)
     return TrainState(model, optimizer, schedule, 0, ema)
 
 

@@ -23,6 +23,7 @@ from torch import nn
 
 from ..io.from_jax import load_jax_params
 from ..models.sd1 import CLIPText, SD1UNet, VAEDecoder
+from ..models.siglip import SiglipVisionModel
 from ..ops.embeddings import sd1_time_embedding
 from ..ops.image import to_uint8
 from ..samplers.k_samplers import (KSamplerConfig, make_sampler_body,
@@ -38,7 +39,9 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator):
     tables, and the JAX modules' own choices for T5's
     ``relative_attention_bias`` (standard normal) and CLIP's
     ``text_projection`` (identity). Keeps random-weight activations in the
-    range the JAX package's random-init runs see."""
+    range the JAX package's random-init runs see. The SigLIP tower's
+    ``position_embedding`` and the TinyVLM's ``text_pos`` are normal(0.02)
+    tables there, unlike CLIP's zero position table."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
@@ -61,6 +64,9 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator):
             p.normal_(0.0, 1.0, generator=generator)
         elif leaf == "text_projection":
             p.copy_(torch.eye(p.shape[0], device=p.device))
+        elif leaf == "text_pos" or (leaf == "position_embedding"
+                                    and isinstance(parent, SiglipVisionModel)):
+            p.normal_(0.0, 0.02, generator=generator)
         else:                     # norm biases, position tables
             p.zero_()
     return module

@@ -24,6 +24,10 @@ under the same global lse and delta: as K3 / K4, 2e-2 of each gradient's
 largest magnitude; rows that see no key, here or anywhere, give finite
 gradients. The joint attention's gradients against autograd through plain
 attention over the concatenated sequence: 3e-2 of the largest magnitude.
+The causal, bias and segment-id forms of K1, K3 and K4 against the plain
+versions under the same masks: the same tolerances; dbias (fp32 dS tiles
+summed over the bias's broadcast axes) to 2e-2 of its largest magnitude;
+rows that see no key give out = 0, lse <= -1e29 and finite gradients.
 """
 
 import pytest
@@ -82,10 +86,10 @@ def test_flash_kernel_refuses_what_it_does_not_take(gen):
     with pytest.raises(TypeError):
         tfa.flash_attention_cuda(q.float(), q.float(), q.float())
     with pytest.raises(NotImplementedError):
-        tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 64),) * 3)
+        tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 96),) * 3)
     with pytest.raises(ValueError):
         tfa.flash_attention_cuda(q, q[..., 1:9], q[..., 1:9])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):   # masked forms: d 64 and 128
         tfa.flash_attention(q, q, q, causal=True)
     q80 = _randn(gen, 1, 1, 64, 80)
     out, lse = tfa.flash_attention_cuda(q80, q80, q80)
@@ -445,3 +449,115 @@ def test_joint_attention_backward_matches_concatenated_plain(gen, stability,
             ai, wi = a[:, :, i].float(), w[:, :, i].float()
             assert ((ai - wi).abs().max().item()
                     <= 3e-2 * wi.abs().max().item())
+
+
+# --------------------------------------------------------------------------
+# The causal, bias and segment-id forms of K1, K3 and K4
+# --------------------------------------------------------------------------
+def _segments(kind, b, lq, lk):
+    """(q_ids, kv_ids) int32 on the card, or None."""
+    if kind is None:
+        return None
+    idx_q, idx_k = (torch.arange(n, device="cuda") for n in (lq, lk))
+    if kind == "one":            # all one segment
+        ids = lambda idx: torch.zeros_like(idx)
+    elif kind == "each":         # every token its own segment
+        ids = lambda idx: idx
+    elif kind == "packed":       # sorted ragged sequences of ~L/5 tokens
+        ids = lambda idx: (idx * 5) // max(lq, lk) + (idx > 37).int()
+    elif kind == "ragged":       # real tokens id 0, query pad -1, key pad -2
+        q_ids = torch.where(idx_q < lq - lq // 3, 0, -1)
+        kv_ids = torch.where(idx_k < lk - lk // 4, 0, -2)
+        return (q_ids.int()[None].expand(b, -1).contiguous(),
+                kv_ids.int()[None].expand(b, -1).contiguous())
+    elif kind == "no key":       # queries of segment 7 have no key at all
+        q_ids = torch.where(idx_q % 50 == 3, 7, (idx_q * 3) // lq)
+        kv_ids = (idx_k * 3) // lk
+        return (q_ids.int()[None].expand(b, -1).contiguous(),
+                kv_ids.int()[None].expand(b, -1).contiguous())
+    return (ids(idx_q).int()[None].expand(b, -1).contiguous(),
+            ids(idx_k).int()[None].expand(b, -1).contiguous())
+
+
+MASK_CASES = [
+    # b, h, lq, lk, d, causal, bias shape (None: no bias), segments
+    (2, 3, 584, 584, 64, True, None, None),
+    (1, 2, 513, 513, 64, True, None, None),
+    (1, 2, 1, 1, 64, True, None, None),
+    (1, 2, 300, 777, 128, True, None, None),       # Lq != Lk, top-left rule
+    (1, 2, 777, 300, 64, True, None, None),
+    (1, 4, 512, 512, 64, False, (1, 4), None),     # T5: stride 0 over batch
+    (2, 3, 200, 333, 128, False, (1, 1), None),    # stride 0 over both
+    (2, 3, 200, 333, 64, True, (2, 3), None),
+    (2, 2, 600, 600, 64, False, None, "packed"),
+    (2, 2, 600, 600, 128, True, None, "packed"),
+    (2, 2, 600, 600, 64, True, (1, 2), "packed"),
+    (1, 2, 513, 513, 64, False, None, "one"),
+    (1, 2, 200, 200, 64, False, None, "each"),
+    (1, 2, 200, 200, 128, True, (1, 1), "each"),
+    (2, 2, 300, 400, 64, False, None, "ragged"),
+    (1, 2, 600, 600, 64, False, None, "no key"),
+    (1, 2, 600, 600, 128, True, (1, 2), "no key"),
+]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,causal,bias_bh,seg", MASK_CASES)
+def test_flash_mask_forms_match_plain(gen, b, h, lq, lk, d, causal, bias_bh,
+                                      seg):
+    q, g = (_randn(gen, b, h, lq, d) for _ in range(2))
+    k, v = (_randn(gen, b, h, lk, d) for _ in range(2))
+    bias = None
+    if bias_bh is not None:
+        dtype = torch.float32 if d == 64 else torch.bfloat16
+        bias = _randn(gen, *bias_bh, lq, lk, dtype=dtype)
+    masks = dict(bias=bias, segment_ids=_segments(seg, b, lq, lk),
+                 causal=causal)
+    out, lse = tfa.flash_attention_cuda(q, k, v, **masks)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, **masks)
+    seen = ref_lse > -1e29
+    if seg in ("ragged", "no key"):
+        assert int((~seen).sum()) > 0
+    else:
+        assert bool(seen.all())
+    assert (out.float() - ref.float())[seen].abs().max().item() <= 2e-2
+    assert (lse - ref_lse)[seen].abs().max().item() <= 1e-3
+    assert bool((lse[~seen] <= -1e29).all()) and not bool(out[~seen].any())
+    need = bias is not None
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **masks,
+                                       need_dbias=need)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g, **masks,
+                                         need_dbias=need)
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    # The floor is for a gradient that is zero everywhere; where every
+    # token is its own segment P = 1, so dS = dP - delta is rounding noise of
+    # two summation orders, and dq and dk are that noise on both sides.
+    floor = 1e-3 if seg == "each" else 1e-6
+    for a, w in zip(got, want):
+        a, w = a.float(), w.float()
+        assert (a - w).abs().max().item() <= (2e-2 * w.abs().max().item()
+                                              + floor)
+    if need:
+        assert got[3].shape == bias.shape and got[3].dtype == bias.dtype
+
+
+def test_flash_masks_through_dispatch_and_autograd(gen):
+    """Causal attention over 584 tokens and biased attention over 512, as
+    the TinyVLM decoder and T5 reach them: one launch of K1, K3 and K4 each,
+    gradients for q, k, v and the bias."""
+    counts = lambda: (tfa.flash_attention_cuda.launches,
+                      tfa.flash_attention_bwd_dq_cuda.launches,
+                      tfa.flash_attention_bwd_dkv_cuda.launches)
+    b, l, h, d = 2, 584, 12, 64
+    qkv = _randn(gen, b, l, 3 * h * d).requires_grad_()
+    n = counts()
+    out = tattn.multi_head_attention(*qkv.chunk(3, dim=-1), h, causal=True)
+    out.backward(_randn(gen, b, l, h * d))
+    assert counts() == tuple(c + 1 for c in n)
+    assert bool(torch.isfinite(qkv.grad).all()) and bool(qkv.grad.any())
+    q, k, v = (_randn(gen, 1, 4, 512, 64).requires_grad_() for _ in range(3))
+    bias = _randn(gen, 1, 4, 512, 512).requires_grad_()
+    n = counts()
+    out = tattn.dot_product_attention(q, k, v, bias=bias, scale=1.0)
+    out.backward(_randn(gen, 1, 4, 512, 64))
+    assert counts() == tuple(c + 1 for c in n)
+    assert bias.grad.shape == bias.shape and bool(bias.grad.any())

@@ -274,8 +274,9 @@ def test_kernel_wrappers_take_only_cuda_tensors():
                                  v.to(torch.bfloat16))
     with pytest.raises(ValueError):
         tgn.group_norm_cuda(x, 32, ones, zeros)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q, k, v, causal=True)
+    causal = tfa.flash_attention(q, k, v, causal=True)   # the plain version
+    torch.testing.assert_close(causal, tattn.plain_attention(
+        q, k, v, causal=True), atol=2e-5, rtol=1e-5)
     assert (tfa.flash_attention_cuda.launches,
             tgn.group_norm_cuda.launches) == (n1, n2)
 
@@ -285,7 +286,9 @@ def test_port_never_imports_jax():
     modules = ["pipelines.sd1", "pipelines.ddpm_trainer", "pipelines.sd3",
                "pipelines.mmdit_trainer", "utils.dtypes", "io.from_jax", "io.data", "models.tiny_unet", "models.mmdit",
                "models.text_encoders", "models.sd3_vae", "samplers.ddpm",
-               "samplers.flow", "utils.config"]
+               "samplers.flow", "utils.config", "pipelines.vlm_trainer",
+               "models.siglip", "models.tiny_vlm", "io.shapes_dataset",
+               "ops.attention", "ops.flash_attention"]
     code = ("import sys\n"
             + "".join(f"import {port}.{m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

@@ -116,10 +116,12 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import (
-        ddpm_trainer, sd3)
+        ddpm_trainer, mmdit_trainer, sd3, vlm_trainer)
 
     for fn in (tpipe.SD1Models.from_jax, sd3.SD3Models.from_jax,
-               sd3.SD3Models.initialize, ddpm_trainer.DDPMTrainer.__init__):
+               sd3.SD3Models.initialize, ddpm_trainer.DDPMTrainer.__init__,
+               mmdit_trainer.MMDiTTrainer.__init__,
+               vlm_trainer.VLMTrainer.__init__):
         default = inspect.signature(fn).parameters["device"].default
         assert str(default) == "cuda", (fn.__qualname__, default)
 
