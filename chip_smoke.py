@@ -8,8 +8,10 @@ two summary lines:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (nvidia-smi) and the TF32 switches, which it turns off.
-2. build: builds the CUDA kernels from ``csrc/`` (nvcc) and prints the time
-   and ptxas's register, spill and shared-memory lines.
+2. build: builds the CUDA kernels from ``csrc/`` (nvcc) into two shared
+   objects, the bf16 flash kernels with GroupNorm and the fp32 flash kernels
+   (``csrc/fp32/``), and prints each one's time and ptxas's register, spill
+   and shared-memory lines.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the SD1, tiny-SD and SD3 paths give it, in bf16 (and
    GroupNorm in fp32), with max errors, both times, the least time the card
@@ -33,11 +35,26 @@ two summary lines:
    causal, with a bias), causal Lq != Lk, rows that see no key; each with a
    bound that counts the visible pairs only, and two planted faults (a
    causal mask off by one, a dbias tile left unwritten) that the comparison
-   must catch.
+   must catch; a packing of 64 sequences of 64 tokens beside the seeded one.
+   Then the fp32 form of K1 and K3 - K7 against the plain fp32 versions (TF32
+   off) at the shapes the fp32 defaults give them: out and lse within 1e-4,
+   each gradient within 1e-4 of its largest magnitude, the plain version fed
+   operands rounded once to bf16 outside that and at least ten times
+   farther off than the kernel; with the time of one
+   ``scaled_dot_product_attention`` call on the same fp32 inputs and the
+   bound at the CUDA cores' fp32 rate (67 TFLOP/s), the route these take.
 4. SD1: full-width SD1 (CLIP, 860M UNet, VAE decoder) with random weights
    from a seed, ``SD1Generator`` at 512x512, 50 k-LMS steps, CFG 7.5: two
    batch-1 requests, then one batch-4 request. Checks the images, the final
-   latents, and the kernel launch counts of every request.
+   latents, and the kernel launch counts of every request. Then the rest of
+   the generator on the same bundle: a request with each of the four
+   samplers at 50 steps, img2img at strength 0.8 from a seeded uint8 image
+   (40 steps; the VAE encoder's attention is one K1 launch at head dim 512),
+   ``do_cfg=False``, the same ``per_sample_seeds`` entry at batch 1 and
+   inside a batch of 4 (equal initial latents, bit for bit), and a weighted
+   prompt through the tokenizer with a synthetic vocabulary. Then SD1 in
+   fp32 (``SD1Models``' default dtype from a JAX tree), 10 steps, through
+   the fp32 kernels against the same request through plain attention.
 5. SD3: full-width SD3-medium (CLIP-L, CLIP-G, T5-XXL, the depth-24 MMDiT,
    the 16-channel VAE decoder; random weights from a seed, bf16, all
    resident), ``SD3Inferencer.gen_image`` at 1024x1024, 50 flow-Euler
@@ -47,7 +64,9 @@ two summary lines:
    block), K1 (the VAE's mid attention) and K2 per request. Then the
    bundle's T5-XXL encoder alone on (2, 512) token ids, the longest prompt
    SD3 admits: its 24 attentions take K1 in the bias form; the output is
-   held against the same encoder through plain attention on the card.
+   held against the same encoder through plain attention on the card. Then
+   (the bf16 bundle freed) SD3-medium in fp32, 28.7 GiB of weights, 4 steps
+   at 1024x1024 through the fp32 kernels against plain attention.
 6. training: the tiny-SD ``DDPMTrainer`` at ``TinySDConfig()`` defaults
    (64x64, batch 32, base 128 x [1,2,2,2], 3 classes, dropout 0.1, bf16
    over fp32 parameters, AdamW, clip 1.0, warmup-cosine LR) on
@@ -90,10 +109,17 @@ two summary lines:
    plain versions); then a planted fault of the flash backward.
 14. TinyVLM decoding: ``caption_accuracy`` on held-out images through
    ``greedy_decode`` (7 forwards); the accuracy is printed, not judged.
+15. fp32 training: two steps each of ``VLMTrainer`` at its default dtype
+   (fp32) on 384 x 384 images, ``TinySDConfig(dtype="fp32")`` and
+   ``FlowTrainConfig(dtype="fp32")`` with the depth-24 MMDiT, through the
+   fp32 kernels and again through plain attention from the same seeds: the
+   losses and the last step's gradient must agree, and the fp32 launch
+   counts are asserted (a run that reached no fp32 kernel fails).
 
-Every kernel's launch count is set to 0 just before each of the SD1, SD3,
-training, sampling, MMDiT training, MMDiT sampling, T5, TinyVLM training and
-TinyVLM decoding phases and read just after. The last two lines are a
+Every kernel's launch count is set to 0 just before each of the SD1, SD1
+generator, SD3, training, sampling, MMDiT training, MMDiT sampling, T5,
+TinyVLM training, TinyVLM decoding and fp32 paths and read just after (before
+the plain-attention run it is compared with). The last two lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
 card's name and power limit come on the line before them. Imports nothing
 of JAX.
@@ -101,7 +127,10 @@ of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import gc
 import json
 import re
 import subprocess
@@ -192,15 +221,16 @@ def phase_device():
 def phase_build():
     from from_ddpm_to_stable_diffusion_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    _build.load()
-    nvcc = _build.build_seconds
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{'cached' if nvcc is None else f'{nvcc:.2f} s'}) -> "
-          f"{_build.library_path().name}", flush=True)
-    for line in _build.build_log.splitlines():
-        if "Used" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip().removeprefix("ptxas info    :"))
+    for name in ("kernels", "kernels_fp32"):   # bf16 + GroupNorm; fp32 flash
+        t0 = time.perf_counter()
+        _build.load(name)
+        nvcc, log = _build.builds[name]
+        print(f"build {name}: {time.perf_counter() - t0:.2f} s (nvcc "
+              f"{'cached' if nvcc is None else f'{nvcc:.2f} s'}) -> "
+              f"{_build.library_path(name).name}", flush=True)
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line or "Compiling" in line:
+                print("  ptxas:", line.strip().removeprefix("ptxas info    :"))
 
 
 def kernel_counters():
@@ -218,12 +248,42 @@ def kernel_counters():
 def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
-        if hasattr(fn, "forms"):
-            fn.forms.clear()
+        for counter in ("forms", "dtypes"):
+            if hasattr(fn, counter):
+                getattr(fn, counter).clear()
 
 
 def read_counts():
     return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def read_fp32_counts():
+    """Launches of each flash kernel's fp32 form since the last reset."""
+    return {k: fn.dtypes["fp32"] for k, fn in kernel_counters().items()
+            if hasattr(fn, "dtypes")}
+
+
+@contextlib.contextmanager
+def plain_attention_only():
+    """Every attention of the port through its plain path on the card:
+    ``dot_product_attention(use_flash=False)`` whoever calls it, and the
+    joint attention through plain attention over the concatenated streams.
+    The oracle of a whole request or train step."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import attention as attn
+
+    saved = attn.dot_product_attention, attn._flash_eligible
+    attn.dot_product_attention = functools.partial(saved[0], use_flash=False)
+    attn._flash_eligible = lambda q, k: False
+    try:
+        yield
+    finally:
+        attn.dot_product_attention, attn._flash_eligible = saved
+
+
+def rel_l2(a, b):
+    """|a - b| / |b| over all elements, in fp64."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -506,7 +566,7 @@ def phase_kernels(card):
         for name in ("K1", "K3", "K4"):
             record(name, case[name]["max_abs_err"], False)
     results["forms"] = forms
-    return results
+    return results, tail
 
 
 def phase_kernels_masks(card, rnd, tail):
@@ -675,6 +735,11 @@ def phase_kernels_masks(card, rnd, tail):
         causal=True)
     run("segments + bias", 2, 12, 4096, 4096, 64, ids=(ids, ids),
         bias_bh=(1, 12))
+    # Many short sequences: 64 of 64 tokens a row, 1/64 of the pairs visible
+    # and one tile in 64 to visit: where the tile skip matters most.
+    short = (torch.arange(4096, device="cuda") // 64).int().expand(2, -1)
+    run("segments, 64 sequences of 64 tokens", 2, 12, 4096, 4096, 64,
+        ids=(short, short))
     torch.cuda.empty_cache()
 
     # Smaller cases, errors only: causal at Lq != Lk (the kernels count rows
@@ -1006,7 +1071,7 @@ def phase_sd1(card):
     launches = read_counts()
     for h in hooks:
         h.remove()
-    return launches
+    return launches, models
 
 
 def phase_sd3(card):
@@ -1757,8 +1822,10 @@ def vlm_trainer(device, dtype, layers, **kw):
     from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.vlm_trainer import (
         VLMTrainer)
 
+    if dtype is not None:       # None: the trainer's own default
+        kw["dtype"] = dtype
     return VLMTrainer(VLM_VOCAB_SIZE, dim=768, depth=layers, num_heads=12,
-                      max_text_len=8, dtype=dtype, device=device,
+                      max_text_len=8, device=device,
                       vision_cfg=SiglipVisionConfig(num_hidden_layers=layers),
                       **kw)
 
@@ -2003,17 +2070,705 @@ def phase_vlm_decoding(card, trainer, state):
     return launches
 
 
+# --------------------------------------------------------------------------
+# The fp32 forms of the flash kernels
+# --------------------------------------------------------------------------
+FP32_ROUTE = "fp32 FMA on the CUDA cores"
+# out and lse absolute, each gradient relative to its largest magnitude; the
+# plain version fed operands rounded once to bf16 must fall outside it, and
+# the kernel must stay ten times closer to the plain version than that fault.
+FP32_TOL = 1e-4
+# A whole fp32 request or train step through the fp32 kernels against the
+# same through plain attention: relative L2 of the final latents, relative
+# error of each loss, relative L2 of the last step's gradient. The two
+# differ by fp32 summation order in every attention (~1e-6 each), carried
+# through the network; an attention that rounded an operand to bf16 once
+# would show ~1e-2.
+E2E_FP32_TOL = 1e-4
+
+
+def fp32_bound(b, h, lq, lk, d, n_products, n_q_like, n_k_like, n_stats,
+               share=1.0):
+    """Attention-shaped work on fp32 tensors at the CUDA cores' fp32 rate
+    (the route the fp32 kernels take): ``n_products`` products over the
+    ``share`` of the Lq x Lk pairs the mask admits, (Lq, d) and (Lk, d)
+    fp32 tensors and fp32 row statistics moved once."""
+    flops = 2.0 * n_products * share * b * h * lq * lk * d
+    nbytes = b * h * (4.0 * d * (n_q_like * lq + n_k_like * lk)
+                      + 4.0 * n_stats * lq)
+    return dict(zip(("bound_ms", "bound_by"),
+                    bound(flops, nbytes, PEAK_FP32_FLOPS)))
+
+
+def phase_kernels_fp32(card, tail):
+    """Each fp32 form against its plain fp32 version (TF32 off) at the shape
+    its path gives it, with the planted single-rounding fault, the times and
+    the bound. Returns kernel name -> list of records."""
+    import torch
+    import torch.nn.functional as F
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import attention as attn
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    rounded = lambda *xs: [x.bfloat16().float() for x in xs]
+    sdpa = F.scaled_dot_product_attention
+    records = {k: [] for k in ("K1", "K3", "K4", "K5", "K6", "K7")}
+
+    def judge(name, what, err, fault, scale=1.0):
+        """The kernel inside the tolerance, the fault outside it, and ten
+        times between them."""
+        tol = FP32_TOL * scale
+        ok = err <= tol and fault > tol and 10.0 * err <= fault
+        check(ok, f"{name} fp32 {what}: err {err:.3e}, planted fault "
+                  f"{fault:.3e}, tol {tol:.3e}")
+        return f"{err:.3e} (fault {fault:.3e}, tol {tol:.3e})"
+
+    def fused(b, lq, lk, h, d):
+        """q, k, v as column slices of fused projections, and dO."""
+        split = lambda x, n: [t.reshape(b, n, h, d).transpose(1, 2)
+                              for t in x.chunk(x.shape[-1] // (h * d), -1)]
+        q = split(rnd(b, lq, h * d), lq)[0]
+        k, v = split(rnd(b, lk, 2 * h * d), lk)
+        g = rnd(b, lq, h * d).reshape(b, lq, h, d).transpose(1, 2)
+        return q, k, v, g
+
+    def backward_case(names, what, shape, share, run_dq, run_dkv, got, want,
+                      bad, plain, library):
+        line, errs = [], {}
+        for name, a, w, f in zip(("dq", "dk", "dv"), got, want, bad):
+            top = w.abs().max().item()
+            check(a.dtype == torch.float32 and bool(torch.isfinite(a).all()),
+                  f"{names} fp32 {what}: {name} not finite fp32")
+            errs[name] = (a - w).abs().max().item()
+            line.append(f"{name} " + judge(
+                names, f"{what} {name}", errs[name],
+                (f - w).abs().max().item(), top))
+        shared = dict(plain_ms=cuda_ms(plain, 2, 1),
+                      library_ms=cuda_ms(library, 3, 1))
+        t_dq = dict(ms=cuda_ms(run_dq, 5, 1), **shared,
+                    **fp32_bound(*shape, 3, 3, 2, 2, share))
+        t_dkv = dict(ms=cuda_ms(run_dkv, 5, 1), **shared,
+                     **fp32_bound(*shape, 4, 2, 4, 2, share))
+        k_dq, k_dkv = names.split(" / ")
+        print(f"{names} fp32 {what} (B,H,Lq,Lk,D)={shape}: max|err| "
+              f"{', '.join(line)}; the plain and library backward compute "
+              f"dq, dk and dv together; {k_dq}: {tail(**t_dq)}; {k_dkv}: "
+              f"{tail(**t_dkv)}", flush=True)
+        base = dict(form=what, shape=list(shape), route=FP32_ROUTE)
+        records[k_dq].append(dict(base, max_abs_err=errs["dq"], **t_dq))
+        records[k_dkv].append(dict(base, max_abs_err=max(errs["dk"],
+                                                         errs["dv"]), **t_dkv))
+
+    # K1, K3, K4: (B, H, Lq, Lk, D), causal, with the backward
+    cases = [
+        ((2, 8, 4096, 4096, 40), False, False),      # SD1 UNet at 64^2
+        ((2, 8, 1024, 1024, 80), False, False),      # SD1 UNet at 32^2
+        ((1, 1, 4096, 4096, 512), False, False),     # SD1 VAE mid attention
+        ((1, 1, 16384, 16384, 512), False, False),   # SD3 VAE mid attention
+        ((16, 12, 576, 576, 64), False, True),       # SigLIP tower
+        ((16, 12, 584, 584, 64), True, True),        # TinyVLM decoder
+        ((32, 1, 4096, 4096, 128), False, True),     # tiny-SD UNet at 64^2
+    ]
+    for shape, causal, with_bwd in cases:
+        b, h, lq, lk, d = shape
+        q, k, v, g = fused(b, lq, lk, h, d)
+        what = "causal" if causal else "none"
+        share = (lq + 1) / (2.0 * lq) if causal else 1.0
+        run = lambda: fa.flash_attention_cuda(q, k, v, causal=causal)
+        plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal)
+        out, lse = run()
+        ref, ref_lse = plain()
+        bad, _ = fa.flash_attention_plain(*rounded(q, k, v), causal=causal)
+        torch.cuda.synchronize()
+        check(out.dtype == lse.dtype == torch.float32, "K1 fp32 dtypes")
+        err = (out - ref).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        fault = (bad - ref).abs().max().item()
+        del ref, ref_lse, bad
+        verdict = judge("K1", f"{what} {shape}", max(err, lse_err), fault)
+        times = dict(ms=cuda_ms(run, 5, 1), plain_ms=cuda_ms(plain, 2, 1),
+                     library_ms=cuda_ms(
+                         lambda: sdpa(q, k, v, is_causal=causal), 3, 1),
+                     **fp32_bound(*shape, 2, 2, 2, 1, share))
+        print(f"K1 fp32 {what} (B,H,Lq,Lk,D)={shape}: max|out err|={err:.3e} "
+              f"max|lse err|={lse_err:.3e}; worst {verdict}; {tail(**times)}",
+              flush=True)
+        records["K1"].append(dict(form=what, shape=list(shape),
+                                  route=FP32_ROUTE, max_abs_err=err,
+                                  lse_err=lse_err, fault_err=fault, **times))
+        if not with_bwd:
+            continue
+        masks = dict(causal=causal)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **masks)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, **masks)
+        bad = fa.flash_attention_bwd_plain(*rounded(q, k, v), out, lse,
+                                           *rounded(g), **masks)
+        delta = (g * out).sum(-1)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = sdpa(ql, kl, vl, is_causal=causal)
+        backward_case(
+            "K3 / K4", what, shape, share,
+            lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
+                                                   **masks),
+            lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
+                                                    **masks),
+            got, want, bad,
+            lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                                 **masks),
+            lambda: torch.autograd.grad(ol, (ql, kl, vl), g,
+                                        retain_graph=True))
+        del got, want, bad, ol
+    torch.cuda.empty_cache()
+
+    # K5, K6, K7 at the four shapes of the SD3 joint attention, offsets 0
+    b, h, d = 2, 24, 64
+    z = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for lq, lk in ((154, 154), (154, 4096), (4096, 154), (4096, 4096)):
+        shape = (b, h, lq, lk, d)
+        q, k, v, g = fused(b, lq, lk, h, d)
+        ref, ref_lse = fa.flash_attention_pos_plain(q, k, v, z, z)
+        bad, _ = fa.flash_attention_pos_plain(*rounded(q, k, v), z, z)
+        fault = (bad - ref).abs().max().item()
+        plain_ms = cuda_ms(
+            lambda: fa.flash_attention_pos_plain(q, k, v, z, z), 2, 1)
+        library_ms = cuda_ms(lambda: sdpa(q, k, v), 3, 1)
+        for stability in ("online", "bounded"):
+            run = lambda: fa.flash_attention_pos_cuda(q, k, v, z, z,
+                                                      stability=stability)
+            out, lse = run()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            verdict = judge("K5", f"{stability} {shape}", max(err, lse_err),
+                            fault)
+            times = dict(ms=cuda_ms(run, 5, 1), plain_ms=plain_ms,
+                         library_ms=library_ms,
+                         **fp32_bound(*shape, 2, 2, 2, 1))
+            print(f"K5 fp32 {stability} (B,H,Lq,Lk,D)={shape}: max|out err|="
+                  f"{err:.3e} max|lse err|={lse_err:.3e}; worst {verdict}; "
+                  f"{tail(**times)}", flush=True)
+            records["K5"].append(dict(form=stability, shape=list(shape),
+                                      route=FP32_ROUTE, max_abs_err=err,
+                                      lse_err=lse_err, fault_err=fault,
+                                      **times))
+        del bad
+        delta = (g * ref).sum(-1)
+        got = fa.flash_bwd_pos(q, k, v, g, ref_lse, delta, z, z)
+        want = fa.flash_bwd_pos_plain(q, k, v, g, ref_lse, delta, z, z)
+        bad = fa.flash_bwd_pos_plain(*rounded(q, k, v), *rounded(g), ref_lse,
+                                     delta, z, z)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = sdpa(ql, kl, vl)
+        backward_case(
+            "K6 / K7", "offsets 0", shape, 1.0,
+            lambda: fa.flash_bwd_pos_dq_cuda(q, k, v, g, ref_lse, delta, z,
+                                             z),
+            lambda: fa.flash_bwd_pos_dkv_cuda(q, k, v, g, ref_lse, delta, z,
+                                              z),
+            got, want, bad,
+            lambda: fa.flash_bwd_pos_plain(q, k, v, g, ref_lse, delta, z, z),
+            lambda: torch.autograd.grad(ol, (ql, kl, vl), g,
+                                        retain_graph=True))
+        del got, want, bad, ol, ref, ref_lse
+    torch.cuda.empty_cache()
+
+    # The masks of K5 - K7 (two segments, causal, valid_len; rows that see
+    # no key) and the joint attention with its gradients, errors only.
+    off = lambda a, c: torch.tensor([a, c], dtype=torch.int32, device="cuda")
+    for what, (lq, lk), qo, ko, kw in (
+            ("two segments, causal and valid_len", (1000, 1000),
+             (1000, 3000), (0, 2000),
+             dict(seg_q=512, seg_k=500, causal=True, valid_len=2300)),
+            ("rows that see no key", (1000, 1000), (100, 5000), (3000, 4000),
+             dict(seg_q=512, seg_k=500, causal=True))):
+        q, k, v, g = fused(1, lq, lk, 4, 64)
+        out, lse = fa.flash_attention_pos_cuda(q, k, v, off(*qo), off(*ko),
+                                               **kw)
+        ref, ref_lse = fa.flash_attention_pos_plain(q, k, v, off(*qo),
+                                                    off(*ko), **kw)
+        seen = ref_lse > -1e29
+        err = (out - ref).abs().max().item()
+        lse_err = (lse - ref_lse)[seen].abs().max().item()
+        blank = bool((lse[~seen] <= -1e29).all()) and not bool(
+            out[~seen].any())
+        delta = (g * out).sum(-1)
+        got = fa.flash_bwd_pos(q, k, v, g, lse, delta, off(*qo), off(*ko),
+                               **kw)
+        want = fa.flash_bwd_pos_plain(q, k, v, g, lse, delta, off(*qo),
+                                      off(*ko), **kw)
+        grad_err = max((a - w).abs().max().item() / w.abs().max().item()
+                       for a, w in zip(got, want))
+        print(f"K5 - K7 fp32 {what} (1,4,{lq},{lk},64): max|out err|="
+              f"{err:.3e} max|lse err|={lse_err:.3e} max|grad err|/max|grad|="
+              f"{grad_err:.3e} (tol {FP32_TOL}); {int((~seen).sum())} rows see "
+              f"no key (out = 0, lse <= -1e29: {blank})", flush=True)
+        check(max(err, lse_err, grad_err) <= FP32_TOL and blank
+              and bool((~seen).any()) == (what == "rows that see no key")
+              and not bool(got[0][~seen].any()),
+              f"K5 - K7 fp32 {what} disagree")
+    ts = [t.detach().requires_grad_() for n in (154, 4096)
+          for t in fused(2, n, n, 24, 64)[:3]]
+    n0 = read_fp32_counts()
+    oc, ox = fa.joint_flash_attention(*ts)
+    gc_, gx = rnd(2, 24, 154, 64), rnd(2, 24, 4096, 64)
+    torch.autograd.backward([oc, ox], [gc_, gx])
+    n1 = read_fp32_counts()
+    check([n1[k] - n0[k] for k in ("K5", "K6", "K7")] == [4, 4, 4],
+          "the fp32 joint attention did not launch K5, K6, K7 four times")
+    refs = [t.detach().clone().requires_grad_() for t in ts]
+    cat = lambda a, c: torch.cat([a, c], dim=2)
+    out = attn.plain_attention(cat(refs[0], refs[3]), cat(refs[1], refs[4]),
+                               cat(refs[2], refs[5]))
+    out.backward(cat(gc_, gx))
+    err = (cat(oc, ox) - out).abs().max().item()
+    grad_err = max((t.grad - r.grad).abs().max().item()
+                   / r.grad.abs().max().item() for t, r in zip(ts, refs))
+    print(f"joint attention fp32 (2,24,154+4096,64) and its gradients against "
+          f"autograd through plain attention over the concatenated sequence: "
+          f"max|out err|={err:.3e} max|grad err|/max|grad|={grad_err:.3e} "
+          f"(tol {FP32_TOL})", flush=True)
+    check(err <= FP32_TOL and grad_err <= FP32_TOL,
+          f"the fp32 joint attention disagrees: {err} / {grad_err}")
+    del ts, refs, out, oc, ox
+    torch.cuda.empty_cache()
+    return records
+
+
+# --------------------------------------------------------------------------
+# The SD1 generator, whole, at full width in bf16
+# --------------------------------------------------------------------------
+SLICE_WORDS = ["a", "photograph", "of", "an", "astronaut", "riding", "horse",
+               "watercolor", "fox", "in", "the", "snow", "blurry", "red"]
+
+
+def phase_sd1_slice(card, models):
+    """The rest of ``SD1Generator`` on the bundle of the SD1 phase, 512x512:
+    a request with each sampler at 50 steps, img2img at strength 0.8,
+    ``do_cfg=False``, ``per_sample_seeds`` at batch 1 and inside a batch of
+    4, and a weighted prompt through the tokenizer."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.tokenizer import (
+        CLIPTokenizer, build_simple_vocab)
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        SAMPLERS, SD1Generator)
+
+    step_events = []
+
+    def on_unet(module, args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        step_events.append((ev, args[0].shape[0]))
+
+    encoder_k1 = []
+    hooks = [
+        models.unet.register_forward_pre_hook(on_unet),
+        models.encoder.mid_attn.register_forward_pre_hook(
+            lambda m, a: encoder_k1.append(-fa.flash_attention_cuda.launches)),
+        models.encoder.mid_attn.register_forward_hook(
+            lambda m, a, o: encoder_k1.append(
+                fa.flash_attention_cuda.launches))]
+    prompt = ["a photograph of an astronaut riding a horse"]
+
+    def request(what, sd, prompts, n_unet, unet_batch, k1, **kw):
+        step_events.clear()
+        n0 = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        images = sd(prompts, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        n1 = read_counts()
+        got_k1 = n1["K1"] - n0["K1"]
+        step_ms = (step_events[0][0].elapsed_time(step_events[-1][0])
+                   / (len(step_events) - 1))
+        b = len(prompts)
+        print(f"SD1 {what}: {secs:.3f} s, {secs / b:.3f} s/image, "
+              f"{step_ms:.2f} ms/denoise step ({len(step_events)} UNet calls "
+              f"of batch {step_events[0][1]}), K1 launches {got_k1}, K2 "
+              f"{n1['K2'] - n0['K2']} [{card}]", flush=True)
+        check(images.shape == (b, 512, 512, 3) and str(images.dtype)
+              == "uint8" and float(images.std()) > 0.0,
+              f"SD1 {what}: bad images {images.shape} {images.dtype}")
+        check(len(step_events) == n_unet
+              and {n for _, n in step_events} == {unet_batch},
+              f"SD1 {what}: {len(step_events)} UNet calls of batches "
+              f"{ {n for _, n in step_events} }, not {n_unet} of {unet_batch}")
+        check(got_k1 == k1, f"SD1 {what}: K1 launches {got_k1} != {k1}")
+        return images
+
+    reset_counts()
+    size = dict(height=512, width=512)
+    for sampler in SAMPLERS:
+        sd = SD1Generator(models, sampler=sampler, n_inference_steps=50,
+                          cfg_scale=7.5, **size)
+        request(f"txt2img {sampler}, 50 steps, CFG 7.5", sd, prompt, 50, 2,
+                K1_PER_REQUEST, seed=11)
+
+    # img2img: strength 0.8 of 50 steps = the last 40; one more K1 launch,
+    # the encoder's one-head attention over 64 x 64 tokens at head dim 512
+    source = np.random.default_rng(0).integers(0, 256, (512, 512, 3),
+                                               dtype=np.uint8)
+    sd = SD1Generator(models, sampler="k_lms", n_inference_steps=50, **size)
+    request("img2img k_lms, strength 0.8 (40 of 50 steps)", sd, prompt, 40, 2,
+            10 * 40 + 2, seed=12, input_images=[source], strength=0.8)
+    check(len(encoder_k1) == 2 and sum(encoder_k1) == 1,
+          f"the VAE encoder's attention launched K1 {sum(encoder_k1)} times")
+
+    sd = SD1Generator(models, sampler="k_lms", n_inference_steps=50,
+                      do_cfg=False, **size)
+    request("txt2img k_lms, do_cfg=False", sd, prompt, 50, 1, K1_PER_REQUEST,
+            seed=13)
+
+    # per_sample_seeds: seed 1234 alone and as the third of a batch of four
+    sd = SD1Generator(models, sampler="k_euler", n_inference_steps=20, **size)
+    seeds = [7, None, 1234, 9]
+    alone = sd.initial_noise(1, per_sample_seeds=[1234])
+    among = sd.initial_noise(4, seed=5, per_sample_seeds=seeds)
+    check(torch.equal(alone[0], among[2]) and not torch.equal(among[0],
+                                                              among[2]),
+          "per_sample_seeds: the initial latents depend on the batch")
+    one = request("per_sample_seeds [1234], k_euler, 20 steps", sd, prompt,
+                  20, 2, 10 * 20 + 1, per_sample_seeds=[1234])
+    four = request("per_sample_seeds [7, None, 1234, 9], k_euler, 20 steps",
+                   sd, ["a watercolor fox in the snow"] * 2 + prompt
+                   + ["a horse"], 20, 8, 10 * 20 + 1, seed=5,
+                   per_sample_seeds=seeds)
+    diff = np.abs(one[0].astype(np.int16) - four[2].astype(np.int16))
+    print(f"per_sample_seeds: initial latents of seed 1234 equal bit for bit "
+          f"at batch 1 and as sample 3 of 4; the two images differ by at most "
+          f"{int(diff.max())} levels (mean {float(diff.mean()):.4f}); another "
+          f"sample of the batch differs from it by up to "
+          f"{int(np.abs(four[0].astype(np.int16) - four[2]).max())}",
+          flush=True)
+
+    # a weighted prompt through the tokenizer (synthetic vocabulary)
+    tok = CLIPTokenizer(*build_simple_vocab(SLICE_WORDS))
+    ids = tok.encode(prompt[0])
+    check(len(ids) == 77 and ids[0] == tok.bos_id and tok.eos_id in ids[1:],
+          "the tokenizer's ids are not BOS ... EOS padded to 77")
+    plain_sd = SD1Generator(models, tokenizer=tok, sampler="k_euler",
+                            n_inference_steps=20, **size)
+    weighted_sd = SD1Generator(models, tokenizer=tok, sampler="k_euler",
+                               n_inference_steps=20, prompt_weighting=True,
+                               **size)
+    text = ["a photograph of an (astronaut:1.4) riding a [horse]"]
+    base = request("tokenized prompt, no weighting", plain_sd, prompt, 20, 2,
+                   10 * 20 + 1, seed=14, uncond_prompts=["blurry"])
+    same = request("weighted syntax with every weight 1", weighted_sd, prompt,
+                   20, 2, 10 * 20 + 1, seed=14, uncond_prompts=["blurry"])
+    moved = request("weighted prompt (astronaut:1.4) [horse]", weighted_sd,
+                    text, 20, 2, 10 * 20 + 1, seed=14,
+                    uncond_prompts=["blurry"])
+    d_same = int(np.abs(base.astype(np.int16) - same).max())
+    d_moved = int(np.abs(base.astype(np.int16) - moved).max())
+    print(f"prompt weighting: weight 1 everywhere changes the image by "
+          f"{d_same} levels, (astronaut:1.4) [horse] by up to {d_moved}",
+          flush=True)
+    check(d_same == 0 and d_moved > 0, "prompt weights: the identity moved "
+          "the image or the weights did not")
+    launches = read_counts()
+    for hook in hooks:
+        hook.remove()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# The port's fp32 defaults, end to end, each against plain attention
+# --------------------------------------------------------------------------
+def fp32_launch_check(what, want):
+    """The fp32 launches since the last reset are ``want`` and no flash
+    kernel ran in bf16; returns (all launches, fp32 launches)."""
+    counts, fp32 = read_counts(), read_fp32_counts()
+    check(fp32 == dict(dict.fromkeys(fp32, 0), **want),
+          f"{what}: fp32 launches {fp32}, expected {want}")
+    check(all(counts[k] == n for k, n in fp32.items()),
+          f"{what}: some flash launches were not fp32: {counts} vs {fp32}")
+    return counts, fp32
+
+
+def phase_sd1_fp32(card):
+    """``SD1Models`` at its ``from_jax`` default dtype, fp32: 512x512, 10
+    k-LMS steps, against the same request through plain attention."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        SD1Generator, SD1Models)
+
+    models = SD1Models.initialize(
+        torch.Generator(device="cuda").manual_seed(0), "cuda", "fp32")
+    check(next(models.unet.parameters()).dtype == torch.float32, "not fp32")
+    sd = SD1Generator(models, sampler="k_lms", n_inference_steps=10,
+                      height=512, width=512)
+    latents = []
+    hook = models.decoder.register_forward_pre_hook(
+        lambda m, a: latents.append(a[0].detach().clone()))
+    prompt = ["a lighthouse at dusk"]
+    sd(prompt, seed=21)                                   # warm-up
+    reset_counts()
+    latents.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    images = sd(prompt, seed=21)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts, fp32 = fp32_launch_check("fp32 SD1", dict(K1=10 * 10 + 1))
+    with plain_attention_only():
+        t = time.perf_counter()
+        want = sd(prompt, seed=21)
+        torch.cuda.synchronize()
+        plain_secs = time.perf_counter() - t
+    hook.remove()
+    err = rel_l2(latents[0], latents[1])
+    diff = int(np.abs(images.astype(np.int16) - want).max())
+    print(f"fp32 SD1 (SD1Models default dtype), 512^2, 10 k-LMS steps, CFG "
+          f"7.5: {secs:.3f} s/image through the fp32 kernels, {plain_secs:.3f} "
+          f"s through plain attention, peak {peak:.2f} GiB; fp32 launches "
+          f"{fp32}; final latents rel L2 {err:.3e} (tol {E2E_FP32_TOL}), "
+          f"images differ by at most {diff} levels (tol 1) [{card}]",
+          flush=True)
+    check(images.shape == (1, 512, 512, 3) and float(images.std()) > 0,
+          "fp32 SD1: bad image")
+    check(err <= E2E_FP32_TOL and diff <= 1,
+          f"fp32 SD1 disagrees with plain attention: {err} / {diff}")
+    return counts, fp32
+
+
+def phase_sd3_fp32(card):
+    """``SD3Models`` at its ``from_jax`` default dtype, fp32, at full width
+    and depth (7.7 B parameters, 28.7 GiB): 1024x1024, 4 flow-Euler steps,
+    against the same request through plain attention."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer, SD3Models)
+
+    t0 = time.perf_counter()
+    models = SD3Models.initialize(
+        torch.Generator(device="cuda").manual_seed(0), "cuda", "fp32",
+        depth=SD3_DEPTH, pos_embed_max_size=192)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    check(next(models.mmdit.parameters()).dtype == torch.float32, "not fp32")
+    inf = SD3Inferencer(models, shift=3.0)
+    latents = []
+    hook = models.vae_decoder.register_forward_pre_hook(
+        lambda m, a: latents.append(a[0].detach().clone()))
+    tokens = np.zeros((1, 77), np.int32)
+    steps = 4
+    request = lambda: inf.gen_image(tokens, width=1024, height=1024,
+                                    steps=steps, cfg_scale=5.0, seed=31)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    images = request()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts, fp32 = fp32_launch_check(
+        "fp32 SD3", dict(K5=4 * SD3_DEPTH * steps, K1=1))
+    with plain_attention_only():
+        t = time.perf_counter()
+        want = request()
+        torch.cuda.synchronize()
+        plain_secs = time.perf_counter() - t
+    hook.remove()
+    err = rel_l2(latents[0], latents[1])
+    diff = int(np.abs(images.astype(np.int16) - want).max())
+    print(f"fp32 SD3 (SD3Models default dtype), depth {SD3_DEPTH}, {held:.2f} "
+          f"GiB of fp32 weights (set-up {t - t0:.1f} s), 1024^2, {steps} "
+          f"flow-Euler steps, CFG 5: {secs:.3f} s/image through the fp32 "
+          f"kernels (cold), {plain_secs:.3f} s through plain attention, peak "
+          f"{peak:.2f} GiB; fp32 launches {fp32}; final latents rel L2 "
+          f"{err:.3e} (tol {E2E_FP32_TOL}), images differ by at most {diff} "
+          f"levels (tol 1) [{card}]", flush=True)
+    check(images.shape == (1, 1024, 1024, 3) and float(images.std()) > 0,
+          "fp32 SD3: bad image")
+    check(err <= E2E_FP32_TOL and diff <= 1,
+          f"fp32 SD3 disagrees with plain attention: {err} / {diff}")
+    return counts, fp32
+
+
+def fp32_train_run(build, n_steps):
+    """``n_steps`` train steps from fixed seeds. ``build()`` -> (trainer,
+    state, step) with ``step(state, i) -> (state, loss)``. Returns the
+    losses, the last step's flattened gradient (on the host), that step's
+    time, the peak memory and the parameter count."""
+    import torch
+
+    torch.manual_seed(0)                # dropout draws from the global state
+    trainer, state, step = build()
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(n_steps):
+        if i == n_steps - 1:
+            start.record()
+        state, loss = step(state, i)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    grads = torch.cat([p.grad.flatten().cpu() for p in state.params.values()])
+    result = (torch.stack(losses).float().cpu(), grads,
+              start.elapsed_time(end),
+              torch.cuda.max_memory_allocated() / 2 ** 30,
+              trainer.num_params(state))
+    del trainer, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def fp32_train_pair(card, what, build, n_steps, per_step):
+    """Train steps of a trainer whose compute dtype is fp32 through the fp32
+    kernels, then the same steps from the same seeds through plain
+    attention: the losses and the last step's gradients must agree."""
+    import torch
+
+    reset_counts()
+    losses, grads, ms, peak, n_params = fp32_train_run(build, n_steps)
+    counts, fp32 = fp32_launch_check(
+        what, {k: n * n_steps for k, n in per_step.items()})
+    with plain_attention_only():
+        want_losses, want_grads, plain_ms, plain_peak, _ = fp32_train_run(
+            build, n_steps)
+    loss_err = ((losses - want_losses).abs() / want_losses.abs()).max().item()
+    grad_err = rel_l2(grads, want_grads)
+    del grads, want_grads
+    print(f"{what}: {n_params} fp32 parameters, fp32 compute, {n_steps} "
+          f"steps: last step {ms:.2f} ms through the fp32 kernels (peak "
+          f"{peak:.2f} GiB), {plain_ms:.2f} ms through plain attention (peak "
+          f"{plain_peak:.2f} GiB); fp32 launches {fp32}; losses "
+          f"{[round(v, 5) for v in losses.tolist()]} against "
+          f"{[round(v, 5) for v in want_losses.tolist()]} (max rel "
+          f"{loss_err:.3e}, tol {E2E_FP32_TOL}); last step's gradient rel L2 "
+          f"{grad_err:.3e} (tol {E2E_FP32_TOL}) [{card}]", flush=True)
+    check(bool(torch.isfinite(losses).all()) and loss_err <= E2E_FP32_TOL
+          and grad_err <= E2E_FP32_TOL,
+          f"{what} disagrees with plain attention: {loss_err} / {grad_err}")
+    return counts, fp32
+
+
+def phase_train_fp32(card):
+    """The three trainers at fp32 compute: ``VLMTrainer`` at its default
+    dtype on 384x384 images, ``TinySDConfig(dtype="fp32")`` and
+    ``FlowTrainConfig(dtype="fp32")`` with the MMDiT at SD3-medium's width
+    and depth (``MMDiTConfig`` ties them: hidden = 64 x depth). The MMDiT
+    runs at latent 128 (4096 + 154 tokens), batch 1, through the kernels
+    alone: plain attention would save 24 x 1.7 GB of probabilities beside
+    33 GB of parameters, gradients and moments. It is held against plain
+    attention at latent 64 (1024 + 154 tokens), batch 2."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.data import (
+        DataLoader, SyntheticImageDataset)
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.shapes_dataset import (
+        CaptionedShapesDataset)
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.mmdit import MMDiTConfig
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
+        DDPMTrainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.mmdit_trainer import (
+        MMDiTTrainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        FlowTrainConfig, TinySDConfig)
+
+    runs = []
+    n_steps = 2
+
+    def build_vlm():
+        trainer = vlm_trainer("cuda", None, VLM_LAYERS, warmup_steps=1,
+                              total_steps=1000)
+        check(trainer.policy.compute_dtype == torch.float32,
+              "VLMTrainer's default dtype is not fp32")
+        data = CaptionedShapesDataset(16 * n_steps, img_size=384, seed=0)
+        batches = [tuple(torch.from_numpy(a).cuda()
+                         for a in vlm_batch(data, 16 * i, 16))
+                   for i in range(n_steps)]
+        return (trainer, trainer.create_state(384),
+                lambda state, i: trainer.train_step(state, *batches[i]))
+
+    runs.append(fp32_train_pair(
+        card, "fp32 TinyVLM (VLMTrainer default dtype), batch 16, 576 + 8 "
+        "tokens", build_vlm, n_steps,
+        dict(K1=2 * VLM_LAYERS, K3=2 * VLM_LAYERS, K4=2 * VLM_LAYERS)))
+
+    def build_tiny_sd():
+        cfg = TinySDConfig(dtype="fp32")
+        loader = DataLoader(SyntheticImageDataset(
+            cfg.batch_size * n_steps, cfg.img_size, cfg.img_channel,
+            cfg.num_class, seed=cfg.seed), cfg.batch_size, seed=cfg.seed)
+        batches = list(loader)
+        trainer = DDPMTrainer(cfg, device="cuda")
+        return (trainer, trainer.create_state(len(loader)),
+                lambda state, i: trainer.train_step(state, *batches[i]))
+
+    runs.append(fp32_train_pair(
+        card, 'fp32 tiny-SD (TinySDConfig(dtype="fp32")), batch 32 at 64^2',
+        build_tiny_sd, n_steps, dict(K1=6, K3=6, K4=6)))
+
+    def build_mmdit(img_size, batch):
+        model_cfg = MMDiTConfig()
+        cfg = FlowTrainConfig(img_size=img_size, context_len=154,
+                              batch_size=batch, dtype="fp32")
+        trainer = MMDiTTrainer(model_cfg, cfg, device="cuda")
+        data = [torch.from_numpy(a).cuda() for a in mmdit_batch(
+            batch, img_size, cfg.context_len, model_cfg, seed=0)]
+        return (trainer, trainer.create_state(steps_per_epoch=n_steps),
+                lambda state, i: trainer.train_step(state, *data))
+
+    per_step = dict(K5=4 * SD3_DEPTH, K6=4 * SD3_DEPTH, K7=4 * SD3_DEPTH)
+    what = 'fp32 MMDiT (FlowTrainConfig(dtype="fp32")), depth 24'
+    reset_counts()
+    losses, _, ms, peak, n_params = fp32_train_run(
+        functools.partial(build_mmdit, 128, 1), n_steps)
+    runs.append(fp32_launch_check(
+        what, {k: n * n_steps for k, n in per_step.items()}))
+    print(f"{what}, {n_params} fp32 parameters, batch 1, latent 128 -> 4096 "
+          f"+ 154 tokens, {n_steps} steps through the fp32 kernels: last step "
+          f"{ms:.2f} ms, peak {peak:.2f} GiB, losses "
+          f"{[round(v, 5) for v in losses.tolist()]}, fp32 launches "
+          f"{runs[-1][1]} [{card}]", flush=True)
+    check(bool(torch.isfinite(losses).all()), f"{what}: non-finite loss")
+    runs.append(fp32_train_pair(
+        card, what + ", batch 2, latent 64 -> 1024 + 154 tokens",
+        functools.partial(build_mmdit, 64, 2), n_steps, per_step))
+    return runs
+
+
 def main():
     card = phase_device()
     phase_build()
-    kernels = phase_kernels(card)
-    import gc
-
+    kernels, tail = phase_kernels(card)
+    kernels_fp32 = phase_kernels_fp32(card, tail)
     import torch
 
-    paths = ("sd1", "sd3", "t5", "training", "sampling", "mmdit_training",
-             "mmdit_sampling", "vlm_training", "vlm_decoding")
-    runs = [phase_sd1(card), *phase_sd3(card)]
+    paths = ("sd1", "sd1_slice", "sd3", "t5", "training", "sampling",
+             "mmdit_training", "mmdit_sampling", "vlm_training",
+             "vlm_decoding", "sd1_fp32", "sd3_fp32", "vlm_fp32",
+             "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64")
+    sd1_launches, sd1_models = phase_sd1(card)
+    runs = [sd1_launches, phase_sd1_slice(card, sd1_models)]
+    del sd1_models
+    fp32_runs = [phase_sd1_fp32(card)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += phase_sd3(card)
+    gc.collect()
+    torch.cuda.empty_cache()   # the bf16 SD3 bundle is gone: room for fp32
+    fp32_runs.append(phase_sd3_fp32(card))
+    gc.collect()
+    torch.cuda.empty_cache()
     trainer, state, train_launches, _ = phase_training(card)
     runs.append(train_launches)
     phase_grad_check(card)
@@ -2032,6 +2787,13 @@ def main():
     runs.append(train_launches)
     phase_vlm_grad_check(card)
     runs.append(phase_vlm_decoding(card, trainer, state))
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32_runs += phase_train_fp32(card)
+    runs += [counts for counts, _ in fp32_runs]
+    fp32_by_path = dict(zip(paths[-len(fp32_runs):],
+                            (fp32 for _, fp32 in fp32_runs)))
     pkg = "from_ddpm_to_stable_diffusion_tpu_torch/csrc/"
 
     def forms_of(k):
@@ -2042,6 +2804,13 @@ def main():
 
     def entry(name, src, replaces, k, **kw):
         r = kernels[k]
+        if k in kernels_fp32:   # the fp32 form: its source, records, launches
+            kw.update(
+                fp32_source=pkg + ("fp32/flash_f32_fwd.cu" if k in ("K1", "K5")
+                                   else "fp32/flash_f32_bwd.cu"),
+                fp32=kernels_fp32[k],
+                fp32_launches_by_path={p: n[k]
+                                       for p, n in fp32_by_path.items()})
         return dict(
             name=name, route="cuda", source=pkg + src,
             replaces=TPU_KERNELS + replaces, **kw,

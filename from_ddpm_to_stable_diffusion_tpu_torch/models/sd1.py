@@ -1,7 +1,8 @@
-"""SD1 models: CLIP text encoder, UNet, VAE decoder (port of ``models/sd1.py``).
+"""SD1 models: CLIP text encoder, UNet, VAE encoder and decoder (port of
+``models/sd1.py``).
 
 Topology, submodule names and NHWC layouts follow the JAX modules one to
-one. The VAE encoder (img2img) is not ported yet.
+one.
 """
 
 from __future__ import annotations
@@ -172,7 +173,7 @@ class SD1UNet(nn.Module):
 
 
 # --------------------------------------------------------------------------
-# VAE decoder
+# VAE
 # --------------------------------------------------------------------------
 class VAEResBlock(nn.Module):
     """GN+SiLU+conv ×2 with a 1×1 skip; no time input."""
@@ -203,6 +204,52 @@ class VAEAttentionBlock(nn.Module):
         b, h, w, c = x.shape
         y = self.attn(self.norm(x).reshape(b, h * w, c))
         return x + y.reshape(b, h, w, c)
+
+
+class _Downsample(Conv2d):
+    """Stride-2 3x3 conv after an asymmetric (0, 1, 0, 1) pad: right and
+    bottom only, no other padding, whatever the size (Flax ``SAME`` and
+    ``padding=1`` both differ from it on odd sizes)."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, channels, 3, stride=2, padding=0)
+
+    def forward(self, x):
+        return super().forward(F.pad(x, (0, 0, 0, 1, 0, 1)))
+
+
+class VAEEncoder(nn.Module):
+    """Image (B, H, W, 3) in [-1, 1] and noise (B, H/8, W/8, 4) -> scaled
+    latent: z = (mean + std * noise) * SD1_LATENT_SCALE in fp32, the
+    log-variance clamped to [-30, 20]."""
+
+    _RES = [(128, 128), (128, 128), (128, 256), (256, 256), (256, 512),
+            (512, 512), (512, 512), (512, 512), (512, 512), (512, 512)]
+    _DOWN = {1: ("down0", 128), 3: ("down1", 256), 5: ("down2", 512)}
+
+    def __init__(self):
+        super().__init__()
+        self.conv_in = Conv2d(3, 128, 3, padding=1)
+        for i, (cin, cout) in enumerate(self._RES):
+            self.add_module(f"res{i}", VAEResBlock(cin, cout))
+        for name, channels in self._DOWN.values():
+            self.add_module(name, _Downsample(channels))
+        self.mid_attn = VAEAttentionBlock(512)
+        self.norm_out = GroupNorm(512, 32, act="silu")
+        self.conv_out = Conv2d(512, 8, 3, padding=1)
+        self.conv_quant = Conv2d(8, 8, 1)
+
+    def forward(self, x, noise):
+        h = self.conv_in(x.to(_dtype(self)))
+        for i in range(9):
+            h = getattr(self, f"res{i}")(h)
+            if i in self._DOWN:
+                h = getattr(self, self._DOWN[i][0])(h)
+        h = self.res9(self.mid_attn(h))
+        h = self.conv_quant(self.conv_out(self.norm_out(h)))
+        mean, log_var = h.float().chunk(2, dim=-1)
+        std = torch.exp(0.5 * log_var.clamp(-30.0, 20.0))
+        return (mean + std * noise.float()) * SD1_LATENT_SCALE
 
 
 class VAEDecoder(nn.Module):

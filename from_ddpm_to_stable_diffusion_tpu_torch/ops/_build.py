@@ -1,9 +1,12 @@
-"""Builds ``csrc/*.cu`` into one shared library with ``nvcc`` and loads it.
+"""Builds the CUDA sources into two shared libraries with ``nvcc`` and loads
+them: ``csrc/*.cu`` (the bf16 flash kernels and GroupNorm) and
+``csrc/fp32/*.cu`` (the fp32 forms of the flash kernels), each at its own
+first use, so that a bf16 caller never waits for the fp32 build.
 
-The library has a plain C interface (no PyTorch headers), so a build takes
+A library has a plain C interface (no PyTorch headers), so a build takes
 seconds: one ``nvcc -c`` per source, all started together, then one link.
-It is built at first use into ``_build/`` inside this package, under a name
-keyed on a hash of the sources, headers and flags, and reused while none of
+It is built into ``_build/`` inside this package, under a name keyed on a
+hash of its sources, the headers and the flags, and reused while none of
 them changes. Each C entry launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception.
@@ -59,11 +62,29 @@ _SIGNATURES = {
     "fdsd_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                         _I, _I, _I, _P],
 }
+_SIGNATURES_FP32 = {
+    # q, k, v, out, lse, B, H, Lq, Lk, d, strides[12], scale, causal, stream
+    "fdsd_flash_fwd_f32": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, dO, lse, delta, dq, B, H, Lq, Lk, d, strides[15], scale,
+    # causal, stream
+    "fdsd_flash_bwd_dq_f32": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, dO, lse, delta, dk, dv, B, H, Lq, Lk, d, strides[18], scale,
+    # causal, stream
+    "fdsd_flash_bwd_dkv_f32": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
+    # the position-masked entries take the arguments of their bf16 namesakes
+    **{name + "_f32": _SIGNATURES[name] for name in (
+        "fdsd_flash_fwd_pos", "fdsd_flash_bwd_pos_dq",
+        "fdsd_flash_bwd_pos_dkv")},
+}
+# library name -> (its sources' directory, its entries)
+_LIBRARIES = {"kernels": (CSRC, _SIGNATURES),
+              "kernels_fp32": (CSRC / "fp32", _SIGNATURES_FP32)}
 
 _lock = threading.Lock()
-_lib = None
-build_seconds = None   # wall time of the nvcc run, None if the cached .so was used
-build_log = ""         # nvcc's output (-Xptxas -v: registers, spills, smem)
+_libs = {}
+# library name -> (wall time of its nvcc run, None if the cached .so was
+# used; nvcc's output: registers, spills and shared memory from -Xptxas -v)
+builds = {}
 
 
 def _nvcc() -> str:
@@ -76,27 +97,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
+def _sources(name: str = "kernels"):
+    return sorted(_LIBRARIES[name][0].glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(name: str = "kernels") -> Path:
+    """Where library ``name`` is built: keyed on its sources, its own headers
+    and those of ``csrc/`` (the fp32 sources include them)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+    headers = {*CSRC.glob("*.cuh"), *_LIBRARIES[name][0].glob("*.cuh")}
+    for src in _sources(name) + sorted(headers):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libfdsd_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libfdsd_{name}_{h.hexdigest()[:16]}.so"
 
 
-def _compile(path: Path) -> str:
+def _compile(path: Path, sources) -> str:
     """Every source to an object file in parallel, then one link; returns
     nvcc's output. The temporary files carry the process id, so two
     processes that build at once do not write into each other's files."""
     nvcc, tag = _nvcc(), f"{path.stem}.{os.getpid()}"
-    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = BUILD_DIR / f"{tag}.so.tmp"
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-            for src, obj in zip(_sources(), objects)]
+            for src, obj in zip(sources, objects)]
     try:
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -119,24 +143,26 @@ def _compile(path: Path) -> str:
     return log
 
 
-def load():
-    """The loaded kernel library, built first if needed."""
-    global _lib, build_seconds, build_log
+def load(name: str = "kernels"):
+    """Library ``name`` loaded, built first if needed: "kernels" (bf16 flash
+    kernels, GroupNorm) or "kernels_fp32" (the fp32 flash kernels)."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
+        if name in _libs:
+            return _libs[name]
+        path = library_path(name)
+        seconds, log = None, ""
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
-            build_log = _compile(path)
-            build_seconds = time.perf_counter() - t0
+            log = _compile(path, _sources(name))
+            seconds = time.perf_counter() - t0
+        builds[name] = (seconds, log)
         lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        for entry, argtypes in _LIBRARIES[name][1].items():
+            fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
+        _libs[name] = lib
         return lib
 
 

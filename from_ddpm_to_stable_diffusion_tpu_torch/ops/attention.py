@@ -39,9 +39,14 @@ def _flash_eligible(q, k) -> bool:
 
 
 def dot_product_attention(q, k, v, bias=None, causal: bool = False,
-                          scale: Optional[float] = None, segment_ids=None,
+                          scale: Optional[float] = None,
+                          use_flash: Optional[bool] = None, segment_ids=None,
                           seg_max_kv_blocks: Optional[int] = None):
     """Scaled dot-product attention over (B, H, L, D) tensors.
+
+    ``use_flash``: ``None`` follows :func:`_flash_eligible`; ``True`` forces
+    the flash kernels (CUDA tensors only: on CPU tensors it raises, there is
+    no kernel to force) and ``False`` forces :func:`plain_attention`.
 
     ``segment_ids``: optional (q_ids (B, Lq), kv_ids (B, Lk)) masking of
     packed sequences to same-id pairs. ``seg_max_kv_blocks``: the JAX
@@ -53,7 +58,12 @@ def dot_product_attention(q, k, v, bias=None, causal: bool = False,
     as the JAX package does; the two agree for Lq = Lk."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if _flash_eligible(q, k):
+    if use_flash is None:
+        use_flash = _flash_eligible(q, k)
+    elif use_flash and not q.is_cuda:
+        raise ValueError("use_flash=True needs CUDA tensors: the flash "
+                         "kernels do not run on the CPU")
+    if use_flash:
         return flash_attention(q, k, v, bias=bias, segment_ids=segment_ids,
                                causal=causal, scale=scale,
                                seg_max_kv_blocks=seg_max_kv_blocks)

@@ -45,6 +45,17 @@ dq kernel's dS tiles), ``causal`` (col <= row from index 0 on both sides) and
 ``segment_ids`` with tile skipping from per-tile id ranges; they compose, in
 the kernels at head dims 64 and 128. A row that sees no key gives out = 0
 and lse = -1e30, and the backward selects masked probabilities to 0.
+
+Dtypes: every kernel has a bf16 form (tensor cores, ``csrc/*.cu``) and an
+fp32 form (``csrc/fp32/*.cu``: every product in fp32 FMAs with fp32
+accumulation, out, lse and the gradients fp32, nothing rounded to a narrower
+type, as the Pallas kernels ask for ``Precision.HIGHEST`` on fp32 inputs).
+The fp32 forms are a shared library of their own, built when an fp32 launch
+first asks for it. They cover the head dims the port's fp32 defaults reach
+(``_FP32_*`` below), without a mask or causal; with a bias or segment ids,
+or at another head dim, an fp32 CUDA tensor raises ``NotImplementedError``.
+Each wrapper counts its launches by dtype in ``.dtypes`` beside
+``.launches``.
 """
 
 from __future__ import annotations
@@ -64,6 +75,12 @@ _KERNEL_HEAD_DIMS = (40, 48, 64, 72, 80, 128, 512)
 _BWD_HEAD_DIMS = (64, 128)
 _MASK_HEAD_DIMS = (64, 128)
 _POS_HEAD_DIMS = (64, 128)
+# the fp32 forms: K1 at every forward head dim and causal at 64 (TinyVLM's
+# decoder), K3 / K4 at 64 and 128 and causal at 64, K5 / K6 / K7 at 64
+_FP32_HEAD_DIMS = _KERNEL_HEAD_DIMS
+_FP32_BWD_HEAD_DIMS = (64, 128)
+_FP32_CAUSAL_HEAD_DIMS = (64,)
+_FP32_POS_HEAD_DIMS = (64,)
 NEG_INF = -1e30   # lse of a row with no visible key
 # (query tile, key tile) of K1, K3 and K4: the sizes the segment-id tile
 # bounds and ranges handed to each kernel are built at
@@ -271,29 +288,44 @@ def check_seg_hint(segment_ids, lq: int, lk: int, d: int,
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
+def _readable(x) -> bool:
+    """Can the kernels read ``x`` through its strides? The head dim
+    contiguous, every other stride a multiple of 16 bytes (8 bf16 or 4 fp32
+    elements) and the start 16-byte aligned."""
+    vec = 16 // x.element_size()
+    return (x.stride(-1) == 1 and not any(s % vec for s in x.stride()[:-1])
+            and x.data_ptr() % 16 == 0)
+
+
 def _check_operand(name, x, like):
     if x.device != like.device or x.dtype != like.dtype:
         raise ValueError(f"{name} must be on {like.device} in {like.dtype}")
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]):
-        raise ValueError(f"{name}: the head dim must be contiguous and the "
-                         f"other strides multiples of 8, got {x.stride()}")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name} is not 16-byte aligned")
+    if not _readable(x):
+        raise ValueError(
+            f"{name}: the head dim must be contiguous, the other strides "
+            f"multiples of {16 // x.element_size()} and the start 16-byte "
+            f"aligned, got strides {x.stride()}")
 
 
-def _check_qkv(q, k, v, fn, head_dims):
-    """(b, h, lq, lk, d) after the checks every kernel wrapper makes."""
+def _check_qkv(q, k, v, fn, head_dims, fp32_dims=()):
+    """(b, h, lq, lk, d) after the checks every kernel wrapper makes.
+    ``head_dims`` are the bf16 form's, ``fp32_dims`` the fp32 form's."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, L, D)")
     if not q.is_cuda:
         raise ValueError(f"{fn} needs CUDA tensors")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the flash kernels take bf16, not {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the flash kernels take bf16 or fp32, not {q.dtype}")
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if k.shape != (b, h, lk, d) or v.shape != k.shape or lk == 0:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if q.dtype == torch.float32 and d not in fp32_dims:
+        raise NotImplementedError(
+            f"head dim {d} in fp32: the fp32 form of {fn} takes {fp32_dims}"
+            + (f"; pass bf16 tensors (it takes {head_dims})"
+               if d in head_dims else ""))
     if d not in head_dims:
         raise NotImplementedError(f"head dim {d}: {fn} takes {head_dims}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -350,21 +382,59 @@ def _mask_args(q, lk, bias, segment_ids, causal, fn, tiles, over):
     return bias, ptrs, flags, keep
 
 
-def _count_launch(fn, bias, segment_ids, causal):
-    """One more launch of ``fn``'s kernel, and of its form (causal, bias,
-    segment ids) in ``fn.forms``."""
+def _count_launch(fn, q, bias=None, segment_ids=None, causal=False):
+    """One more launch of ``fn``'s kernel: in ``fn.launches``, by q's dtype
+    in ``fn.dtypes`` and, where ``fn`` has masked forms, by form (causal,
+    bias, segment ids) in ``fn.forms``."""
     fn.launches += 1
-    fn.forms[(bool(causal), bias is not None, segment_ids is not None)] += 1
+    fn.dtypes["fp32" if q.dtype == torch.float32 else "bf16"] += 1
+    if hasattr(fn, "forms"):
+        fn.forms[(bool(causal), bias is not None,
+                  segment_ids is not None)] += 1
+
+
+def _fp32_masks(q, fn, bias, segment_ids, causal) -> bool:
+    """Is this an fp32 launch? Raises for the forms that exist in bf16
+    only."""
+    if q.dtype != torch.float32:
+        return False
+    if bias is not None or segment_ids is not None:
+        raise NotImplementedError(
+            f"{fn}: the bias and segment-id forms take bf16 only; pass bf16 "
+            "q, k, v (fp32 runs without a mask or with causal=True)")
+    if causal and q.shape[-1] not in _FP32_CAUSAL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{fn}: causal=True in fp32 takes head dims "
+            f"{_FP32_CAUSAL_HEAD_DIMS}; pass bf16 q, k, v at head dim "
+            f"{q.shape[-1]}")
+    return True
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
 
 
 def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
                          bias=None, segment_ids=None, causal: bool = False):
-    """K1, the CUDA kernel: (out, lse) for bf16 (B, H, L, D) CUDA tensors,
-    with the masks of :func:`flash_attention_plain` (head dim 64 or 128)."""
+    """K1, the CUDA kernel: (out, lse) for bf16 or fp32 (B, H, L, D) CUDA
+    tensors, with the masks of :func:`flash_attention_plain` (head dim 64 or
+    128; in fp32 only ``causal``, at head dim 64)."""
     b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_cuda",
-                                 _KERNEL_HEAD_DIMS)
+                                 _KERNEL_HEAD_DIMS, _FP32_HEAD_DIMS)
     if scale is None:
         scale = d ** -0.5
+    if _fp32_masks(q, "flash_attention_cuda", bias, segment_ids, causal):
+        out = _blhd(q, lq)
+        lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+        strides = _strides(q, k, v, out)
+        err = _build.load("kernels_fp32").fdsd_flash_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, lq, lk, d,
+            ctypes.cast(strides, ctypes.c_void_p), float(scale),
+            int(bool(causal)), _stream(q))
+        _build.check(err, "fdsd_flash_fwd_f32")
+        _count_launch(flash_attention_cuda, q, causal=causal)
+        return out, lse
     bias, ptrs, flags, _held = _mask_args(
         q, lk, bias, segment_ids, causal, "flash_attention_cuda", _FWD_TILES,
         "q")
@@ -376,14 +446,15 @@ def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *ptrs, b, h, lq, lk, d,
         ctypes.cast(strides, ctypes.c_void_p), float(scale), *flags,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _stream(q))
     _build.check(err, "fdsd_flash_fwd")
-    _count_launch(flash_attention_cuda, bias, segment_ids, causal)
+    _count_launch(flash_attention_cuda, q, bias, segment_ids, causal)
     return out, lse
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.forms = collections.Counter()
+flash_attention_cuda.dtypes = collections.Counter()
 
 
 def flash_attention_forward(q, k, v, scale: Optional[float] = None, **masks):
@@ -394,8 +465,10 @@ def flash_attention_forward(q, k, v, scale: Optional[float] = None, **masks):
     return flash_attention_plain(q, k, v, scale, **masks)
 
 
-def _check_bwd(q, k, v, g, lse, delta, head_dims=_BWD_HEAD_DIMS):
-    dims = _check_qkv(q, k, v, "the flash backward kernels", head_dims)
+def _check_bwd(q, k, v, g, lse, delta, head_dims=_BWD_HEAD_DIMS,
+               fp32_dims=_FP32_BWD_HEAD_DIMS):
+    dims = _check_qkv(q, k, v, "the flash backward kernels", head_dims,
+                      fp32_dims)
     _check_operand("dO", g, q)
     if g.shape != q.shape:
         raise ValueError(f"dO {tuple(g.shape)} must be {tuple(q.shape)}")
@@ -419,6 +492,18 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
     scale = d ** -0.5 if scale is None else scale
     if need_dbias and bias is None:
         raise ValueError("need_dbias without a bias")
+    if _fp32_masks(q, "flash_attention_bwd_dq_cuda", bias, segment_ids,
+                   causal):
+        dq = _blhd(q, lq)
+        strides = _strides(q, k, v, g, dq)
+        err = _build.load("kernels_fp32").fdsd_flash_bwd_dq_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, lq, lk, d,
+            ctypes.cast(strides, ctypes.c_void_p), float(scale),
+            int(bool(causal)), _stream(q))
+        _build.check(err, "fdsd_flash_bwd_dq_f32")
+        _count_launch(flash_attention_bwd_dq_cuda, q, causal=causal)
+        return dq
     bias, ptrs, flags, _held = _mask_args(
         q, lk, bias, segment_ids, causal, "flash_attention_bwd_dq_cuda",
         _DQ_TILES, "q")
@@ -431,9 +516,9 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         None if ds is None else ds.data_ptr(), *ptrs, b, h, lq, lk, d,
         ctypes.cast(strides, ctypes.c_void_p), float(scale), *flags,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _stream(q))
     _build.check(err, "fdsd_flash_bwd_dq")
-    _count_launch(flash_attention_bwd_dq_cuda, bias, segment_ids, causal)
+    _count_launch(flash_attention_bwd_dq_cuda, q, bias, segment_ids, causal)
     return (dq, ds) if need_dbias else dq
 
 
@@ -443,6 +528,18 @@ def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
     """K4: (dk, dv) from the inputs of :func:`flash_attention_bwd_dq_cuda`."""
     b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta)
     scale = d ** -0.5 if scale is None else scale
+    if _fp32_masks(q, "flash_attention_bwd_dkv_cuda", bias, segment_ids,
+                   causal):
+        dk, dv = _blhd(k, lk), _blhd(v, lk)
+        strides = _strides(q, k, v, g, dk, dv)
+        err = _build.load("kernels_fp32").fdsd_flash_bwd_dkv_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p),
+            float(scale), int(bool(causal)), _stream(q))
+        _build.check(err, "fdsd_flash_bwd_dkv_f32")
+        _count_launch(flash_attention_bwd_dkv_cuda, q, causal=causal)
+        return dk, dv
     bias, ptrs, flags, _held = _mask_args(
         q, lk, bias, segment_ids, causal, "flash_attention_bwd_dkv_cuda",
         _DKV_TILES, "k")
@@ -452,9 +549,9 @@ def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *ptrs, b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p),
-        float(scale), *flags, torch.cuda.current_stream(q.device).cuda_stream)
+        float(scale), *flags, _stream(q))
     _build.check(err, "fdsd_flash_bwd_dkv")
-    _count_launch(flash_attention_bwd_dkv_cuda, bias, segment_ids, causal)
+    _count_launch(flash_attention_bwd_dkv_cuda, q, bias, segment_ids, causal)
     return dk, dv
 
 
@@ -462,29 +559,28 @@ flash_attention_bwd_dq_cuda.launches = 0
 flash_attention_bwd_dkv_cuda.launches = 0
 flash_attention_bwd_dq_cuda.forms = collections.Counter()
 flash_attention_bwd_dkv_cuda.forms = collections.Counter()
+flash_attention_bwd_dq_cuda.dtypes = collections.Counter()
+flash_attention_bwd_dkv_cuda.dtypes = collections.Counter()
 
 
 def _kernel_operand(g, dtype):
     """``g`` as the kernels can read it: in ``dtype``, copied only when its
-    head dim is not contiguous, another stride is not a multiple of 8 or it
-    is not 16-byte aligned."""
+    head dim is not contiguous, another stride is not a multiple of 16 bytes
+    or it is not 16-byte aligned."""
     g = g.to(dtype)
-    if (g.stride(-1) != 1 or any(s % 8 for s in g.stride()[:-1])
-            or g.data_ptr() % 16):
-        g = g.contiguous()
-    return g
+    return g if _readable(g) else g.contiguous()
 
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, g,
                              scale: Optional[float] = None, *, bias=None,
                              segment_ids=None, causal: bool = False,
                              need_dbias: bool = False):
-    """(dq, dk, dv) for bf16 CUDA tensors through K3 and K4, with ``out``
-    and ``lse`` from :func:`flash_attention_cuda` under the same masks and
-    ``g`` = dO. A dO whose head dim is not contiguous (or whose other
-    strides are not multiples of 8) is copied first; the kernels read it
-    through its strides otherwise. delta = Σ_d dO·out is a plain fp32
-    reduction. With ``need_dbias`` a fourth value: K3's dS tiles summed over
+    """(dq, dk, dv) for bf16 or fp32 CUDA tensors through K3 and K4, with
+    ``out`` and ``lse`` from :func:`flash_attention_cuda` under the same
+    masks and ``g`` = dO. A dO whose head dim is not contiguous (or whose
+    other strides are not multiples of 16 bytes) is copied first; the
+    kernels read it through its strides otherwise. delta = Σ_d dO·out is a
+    plain fp32 reduction. With ``need_dbias`` a fourth value: K3's dS tiles summed over
     the bias's broadcast axes and cast to its dtype, plain PyTorch as the
     JAX package leaves it to XLA."""
     if out.shape != q.shape:
@@ -629,6 +725,13 @@ def _check_pos(q, scale, q_offsets, kv_offsets):
                              f"on {q.device}")
 
 
+def _pos_entry(q, name):
+    """The C entry ``name`` of the library for q's dtype."""
+    if q.dtype == torch.float32:
+        return getattr(_build.load("kernels_fp32"), name + "_f32")
+    return getattr(_build.load(), name)
+
+
 def flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, *,
                              causal: bool = False,
                              scale: Optional[float] = None,
@@ -636,29 +739,29 @@ def flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, *,
                              seg_k: Optional[int] = None,
                              valid_len: Optional[int] = None,
                              stability: str = "online"):
-    """K5: (out, lse) for bf16 (B, H, L, D) CUDA tensors, D 64 or 128. The
-    offsets are int32 (2,) tensors on q's device; the kernel reads them, so
-    nothing waits for the host."""
+    """K5: (out, lse) for bf16 (B, H, L, D) CUDA tensors, D 64 or 128, or
+    fp32 ones, D 64. The offsets are int32 (2,) tensors on q's device; the
+    kernel reads them, so nothing waits for the host."""
     b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_pos_cuda",
-                                 _POS_HEAD_DIMS)
+                                 _POS_HEAD_DIMS, _FP32_POS_HEAD_DIMS)
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, stability)
     _check_pos(q, scale, q_offsets, kv_offsets)
     out = _blhd(q, lq)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
     strides = _strides(q, k, v, out)
-    err = _build.load().fdsd_flash_fwd_pos(
+    err = _pos_entry(q, "fdsd_flash_fwd_pos")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), q_offsets.data_ptr(), kv_offsets.data_ptr(), b, h,
         lq, lk, d, ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
         0 if valid_len is None else int(valid_len), int(valid_len is not None),
-        int(bool(causal)), int(stability == "bounded"),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(bool(causal)), int(stability == "bounded"), _stream(q))
     _build.check(err, "fdsd_flash_fwd_pos")
-    flash_attention_pos_cuda.launches += 1
+    _count_launch(flash_attention_pos_cuda, q)
     return out, lse
 
 
 flash_attention_pos_cuda.launches = 0
+flash_attention_pos_cuda.dtypes = collections.Counter()
 
 
 def flash_attention_pos(q, k, v, q_offsets, kv_offsets, **kw):
@@ -707,7 +810,8 @@ def flash_bwd_pos_plain(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
 
 def _pos_bwd_args(q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q,
                   seg_k):
-    dims = _check_bwd(q, k, v, g, lse, delta, _POS_HEAD_DIMS)
+    dims = _check_bwd(q, k, v, g, lse, delta, _POS_HEAD_DIMS,
+                      _FP32_POS_HEAD_DIMS)
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, "online")
     _check_pos(q, scale, q_offsets, kv_offsets)
     return dims, scale, seg_q, seg_k
@@ -719,21 +823,21 @@ def flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
                           seg_k: Optional[int] = None,
                           valid_len: Optional[int] = None):
     """K6: dq of :func:`flash_bwd_pos` for bf16 (B, H, L, D) CUDA tensors,
-    D 64 or 128; ``lse`` and ``delta`` contiguous fp32 (B, H, Lq), the
-    offsets int32 (2,) tensors on q's device."""
+    D 64 or 128, or fp32 ones, D 64; ``lse`` and ``delta`` contiguous fp32
+    (B, H, Lq), the offsets int32 (2,) tensors on q's device."""
     (b, h, lq, lk, d), scale, seg_q, seg_k = _pos_bwd_args(
         q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k)
     dq = _blhd(q, lq)
     strides = _strides(q, k, v, g, dq)
-    err = _build.load().fdsd_flash_bwd_pos_dq(
+    err = _pos_entry(q, "fdsd_flash_bwd_pos_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), q_offsets.data_ptr(),
         kv_offsets.data_ptr(), b, h, lq, lk, d,
         ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
         0 if valid_len is None else int(valid_len), int(valid_len is not None),
-        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+        int(bool(causal)), _stream(q))
     _build.check(err, "fdsd_flash_bwd_pos_dq")
-    flash_bwd_pos_dq_cuda.launches += 1
+    _count_launch(flash_bwd_pos_dq_cuda, q)
     return dq
 
 
@@ -748,20 +852,22 @@ def flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
         q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k)
     dk, dv = _blhd(k, lk), _blhd(v, lk)
     strides = _strides(q, k, v, g, dk, dv)
-    err = _build.load().fdsd_flash_bwd_pos_dkv(
+    err = _pos_entry(q, "fdsd_flash_bwd_pos_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         q_offsets.data_ptr(), kv_offsets.data_ptr(), b, h, lq, lk, d,
         ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
         0 if valid_len is None else int(valid_len), int(valid_len is not None),
-        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+        int(bool(causal)), _stream(q))
     _build.check(err, "fdsd_flash_bwd_pos_dkv")
-    flash_bwd_pos_dkv_cuda.launches += 1
+    _count_launch(flash_bwd_pos_dkv_cuda, q)
     return dk, dv
 
 
 flash_bwd_pos_dq_cuda.launches = 0
 flash_bwd_pos_dkv_cuda.launches = 0
+flash_bwd_pos_dq_cuda.dtypes = collections.Counter()
+flash_bwd_pos_dkv_cuda.dtypes = collections.Counter()
 
 
 def flash_bwd_pos(q, k, v, g, lse, delta, q_offsets, kv_offsets, **kw):

@@ -28,6 +28,10 @@ The causal, bias and segment-id forms of K1, K3 and K4 against the plain
 versions under the same masks: the same tolerances; dbias (fp32 dS tiles
 summed over the bias's broadcast axes) to 2e-2 of its largest magnitude;
 rows that see no key give out = 0, lse <= -1e29 and finite gradients.
+The fp32 forms of K1, K3 - K7 against the plain fp32 versions (TF32 off):
+out and lse to 1e-4 absolute, each gradient to 1e-4 of its largest
+magnitude; the plain version fed operands rounded once to bf16 must fall
+outside that, so a kernel that rounded an operand would be caught.
 """
 
 import pytest
@@ -83,8 +87,10 @@ def test_flash_kernel_reads_strided_views(gen):
 
 def test_flash_kernel_refuses_what_it_does_not_take(gen):
     q = _randn(gen, 1, 1, 64, 40)
-    with pytest.raises(TypeError):
-        tfa.flash_attention_cuda(q.float(), q.float(), q.float())
+    with pytest.raises(TypeError):         # bf16 and fp32 only
+        tfa.flash_attention_cuda(q.half(), q.half(), q.half())
+    assert tfa.flash_attention_cuda(q.float(), q.float(),
+                                    q.float())[0].dtype == torch.float32
     with pytest.raises(NotImplementedError):
         tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 96),) * 3)
     with pytest.raises(ValueError):
@@ -283,8 +289,10 @@ def test_pos_kernel_reads_strided_slices_and_scale(gen):
 def test_pos_kernel_refuses_what_it_does_not_take(gen):
     q = _randn(gen, 1, 1, 64, 64)
     z = _offsets(0, 0)
-    with pytest.raises(TypeError):
-        tfa.flash_attention_pos(q.float(), q.float(), q.float(), z, z)
+    with pytest.raises(TypeError):         # bf16 and fp32 only
+        tfa.flash_attention_pos(q.half(), q.half(), q.half(), z, z)
+    assert tfa.flash_attention_pos(q.float(), q.float(), q.float(), z,
+                                   z)[0].dtype == torch.float32
     with pytest.raises(NotImplementedError):
         tfa.flash_attention_pos(*(_randn(gen, 1, 1, 64, 40),) * 3, z, z)
     with pytest.raises(ValueError):
@@ -407,8 +415,10 @@ def test_pos_backward_kernels_refuse_what_they_do_not_take(gen):
     q = _randn(gen, 1, 1, 64, 64)
     z = _offsets(0, 0)
     st = torch.zeros(1, 1, 64, device="cuda")
-    with pytest.raises(TypeError):
-        tfa.flash_bwd_pos_dq_cuda(*(q.float(),) * 4, st, st, z, z)
+    with pytest.raises(TypeError):         # bf16 and fp32 only
+        tfa.flash_bwd_pos_dq_cuda(*(q.half(),) * 4, st, st, z, z)
+    assert tfa.flash_bwd_pos_dq_cuda(*(q.float(),) * 4, st, st, z,
+                                     z).dtype == torch.float32
     with pytest.raises(NotImplementedError):
         tfa.flash_bwd_pos_dkv_cuda(*(_randn(gen, 1, 1, 64, 40),) * 4, st, st,
                                    z, z)
@@ -561,3 +571,185 @@ def test_flash_masks_through_dispatch_and_autograd(gen):
     out.backward(_randn(gen, 1, 4, 512, 64))
     assert counts() == tuple(c + 1 for c in n)
     assert bias.grad.shape == bias.shape and bool(bias.grad.any())
+
+
+# ------------------------------------------------------------- fp32 forms
+F32_ATOL = 1e-4
+
+
+def _f32_close(got, want, what=""):
+    assert got.dtype == torch.float32 and got.shape == want.shape, what
+    assert torch.isfinite(got).all(), what
+    tol = F32_ATOL * (1.0 if what in ("out", "lse")
+                      else want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol, what
+
+
+def _rounded(*xs):
+    return [x.bfloat16().float() for x in xs]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,causal", [
+    (1, 2, 64, 64, 40, False), (2, 2, 529, 300, 40, False),
+    (1, 2, 257, 63, 48, False), (1, 2, 65, 1000, 80, False),
+    (1, 2, 128, 192, 72, False), (2, 1, 100, 529, 512, False),
+    (1, 2, 529, 777, 128, False), (1, 1, 130, 17, 128, False),
+    (2, 2, 529, 529, 64, False), (2, 2, 529, 529, 64, True),
+    (1, 2, 200, 529, 64, True), (1, 2, 529, 200, 64, True),
+    (1, 1, 33, 33, 64, True)])
+def test_fp32_flash_forward_matches_plain(gen, b, h, lq, lk, d, causal):
+    """K1 in fp32: small and ragged lengths, Lq != Lk under causal."""
+    q, k, v = (_randn(gen, b, h, n, d, dtype=torch.float32)
+               for n in (lq, lk, lk))
+    n = tfa.flash_attention_cuda.dtypes["fp32"]
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal)
+    assert tfa.flash_attention_cuda.dtypes["fp32"] == n + 1
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal=causal)
+    _f32_close(out, ref, "out")
+    _f32_close(lse, ref_lse, "lse")
+    bad, _ = tfa.flash_attention_plain(*_rounded(q, k, v), causal=causal)
+    assert (bad - ref).abs().max().item() > F32_ATOL     # the planted fault
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,causal", [
+    (2, 2, 529, 300, 64, False), (1, 2, 40, 40, 64, False),
+    (1, 1, 63, 200, 128, False), (1, 2, 529, 777, 128, False),
+    (2, 2, 529, 529, 64, True), (1, 2, 200, 529, 64, True),
+    (1, 2, 529, 200, 64, True)])
+def test_fp32_flash_backward_matches_plain(gen, b, h, lq, lk, d, causal):
+    """K3 / K4 in fp32; under causal with Lq > Lk the last keys' columns and
+    with Lq < Lk whole key tiles see no query."""
+    q, g = (_randn(gen, b, h, lq, d, dtype=torch.float32) for _ in range(2))
+    k, v = (_randn(gen, b, h, lk, d, dtype=torch.float32) for _ in range(2))
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal)
+    n3 = tfa.flash_attention_bwd_dq_cuda.dtypes["fp32"]
+    n4 = tfa.flash_attention_bwd_dkv_cuda.dtypes["fp32"]
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal=causal)
+    assert tfa.flash_attention_bwd_dq_cuda.dtypes["fp32"] == n3 + 1
+    assert tfa.flash_attention_bwd_dkv_cuda.dtypes["fp32"] == n4 + 1
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    bad = tfa.flash_attention_bwd_plain(*_rounded(q, k, v), out, lse,
+                                        *_rounded(g), causal=causal)
+    for what, a, w, f in zip(("dq", "dk", "dv"), got, want, bad):
+        _f32_close(a, w, what)
+        assert (f - w).abs().max().item() > F32_ATOL * w.abs().max().item()
+
+
+def test_fp32_flash_reads_strided_views_through_autograd(gen):
+    """q|k|v column slices of a fused fp32 projection (strides in multiples
+    of 4 elements) through the dispatch and autograd, as VLMTrainer's
+    default dtype runs them."""
+    b, l, h, d = 2, 584, 2, 64
+    qkv = _randn(gen, b, l, 3 * h * d, dtype=torch.float32).requires_grad_()
+    wrappers = (tfa.flash_attention_cuda, tfa.flash_attention_bwd_dq_cuda,
+                tfa.flash_attention_bwd_dkv_cuda)
+    n = [w.dtypes["fp32"] for w in wrappers]
+    q, k, v = qkv.chunk(3, dim=-1)
+    out = tattn.multi_head_attention(q, k, v, h, causal=True)
+    g = _randn(gen, b, l, h * d, dtype=torch.float32)
+    out.backward(g)
+    assert [w.dtypes["fp32"] for w in wrappers] == [c + 1 for c in n]
+    rq, rk, rv = (t.reshape(b, l, h, d).transpose(1, 2).contiguous()
+                  for t in qkv.detach().chunk(3, dim=-1))
+    ro, rl = tfa.flash_attention_plain(rq, rk, rv, causal=True)
+    _f32_close(out.detach().reshape(b, l, h, d).transpose(1, 2), ro, "out")
+    want = tfa.flash_attention_bwd_plain(
+        rq, rk, rv, ro, rl, g.reshape(b, l, h, d).transpose(1, 2),
+        causal=True)
+    for what, a, w in zip(("dq", "dk", "dv"), qkv.grad.chunk(3, dim=-1),
+                          want):
+        _f32_close(a.reshape(b, l, h, d).transpose(1, 2), w, what)
+    plain = tattn.dot_product_attention(rq, rk, rv, causal=True,
+                                        use_flash=False)
+    assert (plain - ro).abs().max().item() <= F32_ATOL
+    forced = tattn.dot_product_attention(rq[:, :, :100], rk[:, :, :100],
+                                         rv[:, :, :100], use_flash=True)
+    _f32_close(forced, tfa.flash_attention_plain(
+        rq[:, :, :100], rk[:, :, :100], rv[:, :, :100])[0], "out")
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+@pytest.mark.parametrize("lq,lk,kw", [
+    (529, 154, {}), (154, 529, {}), (64, 64, {}),
+    (300, 529, dict(causal=True, seg_q=100, valid_len=400)),
+    (200, 170, dict(causal=True, seg_q=128, seg_k=100))])
+def test_fp32_pos_forward_and_backward_match_plain(gen, stability, lq, lk,
+                                                   kw):
+    """K5, K6, K7 in fp32 at head dim 64: ragged lengths, two segments,
+    ``valid_len``, and (last case) rows that see no key."""
+    f32 = dict(dtype=torch.float32)
+    q, g = (_randn(gen, 2, 2, lq, 64, **f32) for _ in range(2))
+    k, v = (_randn(gen, 2, 2, lk, 64, **f32) for _ in range(2))
+    i32 = lambda *xs: torch.tensor(xs, dtype=torch.int32, device="cuda")
+    last = kw.get("seg_k") == 100
+    q_off = i32(128, 640) if last else i32(3, 40)
+    k_off = i32(400, 900) if last else i32(0, 0)
+    scale = 0.02 if stability == "bounded" else None
+    counts = lambda: [w.dtypes["fp32"] for w in (
+        tfa.flash_attention_pos_cuda, tfa.flash_bwd_pos_dq_cuda,
+        tfa.flash_bwd_pos_dkv_cuda)]
+    n = counts()
+    out, lse = tfa.flash_attention_pos_cuda(q, k, v, q_off, k_off,
+                                            stability=stability, scale=scale,
+                                            **kw)
+    ref, ref_lse = tfa.flash_attention_pos_plain(
+        q, k, v, q_off, k_off, stability=stability, scale=scale, **kw)
+    seen = ref_lse > -1e29
+    assert seen.any() and (last == (not seen.all()))
+    _f32_close(out, ref, "out")
+    assert not out[~seen].any() and (lse[~seen] <= -1e29).all()
+    assert (lse[seen] - ref_lse[seen]).abs().max().item() <= F32_ATOL
+    delta = (g * out).sum(-1)
+    got = tfa.flash_bwd_pos(q, k, v, g, lse, delta, q_off, k_off, scale=scale,
+                            **kw)
+    assert counts() == [c + 1 for c in n]
+    want = tfa.flash_bwd_pos_plain(q, k, v, g, lse, delta, q_off, k_off,
+                                   scale=scale, **kw)
+    for what, a, w in zip(("dq", "dk", "dv"), got, want):
+        _f32_close(a, w, what)
+    assert not got[0][~seen].any()
+
+
+def test_fp32_joint_attention_matches_concatenated(gen):
+    """The MMDiT's joint attention and its gradients in fp32 (4 x K5, then
+    4 x K6 and 4 x K7 under the merged lse) against autograd through plain
+    attention over the concatenated sequence."""
+    f32 = dict(dtype=torch.float32)
+    ts = [_randn(gen, 1, 2, n, 64, **f32).requires_grad_()
+          for n in (154, 154, 154, 529, 529, 529)]
+    oc, ox = tfa.joint_flash_attention(*ts)
+    gc, gx = _randn(gen, 1, 2, 154, 64, **f32), _randn(gen, 1, 2, 529, 64,
+                                                        **f32)
+    torch.autograd.backward([oc, ox], [gc, gx])
+    refs = [t.detach().clone().requires_grad_() for t in ts]
+    cat = lambda a, b: torch.cat([a, b], dim=2)
+    out = tattn.plain_attention(cat(refs[0], refs[3]), cat(refs[1], refs[4]),
+                                cat(refs[2], refs[5]))
+    out.backward(cat(gc, gx))
+    _f32_close(oc.detach(), out[:, :, :154].detach(), "out")
+    _f32_close(ox.detach(), out[:, :, 154:].detach(), "out")
+    for t, r in zip(ts, refs):
+        _f32_close(t.grad, r.grad, "grad")
+
+
+def test_fp32_forms_not_ported_raise_with_the_dtype_to_pass(gen):
+    f32 = dict(dtype=torch.float32)
+    q = _randn(gen, 1, 2, 64, 64, **f32)
+    ids = torch.zeros(1, 64, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="pass bf16"):
+        tfa.flash_attention_cuda(q, q, q, bias=q[:, :, :, :64])
+    with pytest.raises(NotImplementedError, match="pass bf16"):
+        tfa.flash_attention(q, q, q, segment_ids=(ids, ids))
+    q128 = _randn(gen, 1, 1, 64, 128, **f32)
+    with pytest.raises(NotImplementedError, match="causal=True in fp32"):
+        tfa.flash_attention_cuda(q128, q128, q128, causal=True)
+    z = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="fp32 form.*pass bf16"):
+        tfa.flash_attention_pos_cuda(q128, q128, q128, z, z)
+    q80 = _randn(gen, 1, 1, 64, 80, **f32)
+    out, lse = tfa.flash_attention_cuda(q80, q80, q80)
+    with pytest.raises(NotImplementedError, match="head dim 80 in fp32"):
+        tfa.flash_attention_bwd_cuda(q80, q80, q80, out, lse, q80)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 66, **f32)[..., :64],)
+                                 * 3)

@@ -94,10 +94,17 @@ def test_k_lms_trajectory_matches_golden():
 
 
 def test_unported_samplers_raise():
-    for method in ("k_euler", "k_euler_ancestral", "dpmpp_2m"):
-        with pytest.raises(NotImplementedError):
-            tks.make_sampler_body(lambda x, t: x,
-                                  tks.KSamplerConfig(method=method))
+    """No sampler of the JAX module is unported any more: the three that
+    used to raise build, the ancestral one only with a source of noise, and
+    an unknown name still raises."""
+    for method in ("k_euler", "dpmpp_2m"):
+        tks.make_sampler_body(lambda x, t: x,
+                              tks.KSamplerConfig(method=method))
+    ancestral = tks.KSamplerConfig(method="k_euler_ancestral")
+    tks.make_sampler_body(lambda x, t: x, ancestral,
+                          generator=torch.Generator())
+    with pytest.raises(ValueError, match="generator or step_noise"):
+        tks.make_sampler_body(lambda x, t: x, ancestral)
     with pytest.raises(ValueError):
         tks.make_sampler_body(lambda x, t: x, tks.KSamplerConfig(method="x"))
 
@@ -288,7 +295,8 @@ def test_port_never_imports_jax():
                "models.text_encoders", "models.sd3_vae", "samplers.ddpm",
                "samplers.flow", "utils.config", "pipelines.vlm_trainer",
                "models.siglip", "models.tiny_vlm", "io.shapes_dataset",
-               "ops.attention", "ops.flash_attention"]
+               "ops.attention", "ops.flash_attention", "io.tokenizer",
+               "io.prompt_weights", "samplers.k_samplers", "models.sd1"]
     code = ("import sys\n"
             + "".join(f"import {port}.{m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

@@ -124,6 +124,21 @@ def test_entry_points_default_to_the_card():
                vlm_trainer.VLMTrainer.__init__):
         default = inspect.signature(fn).parameters["device"].default
         assert str(default) == "cuda", (fn.__qualname__, default)
+    # generate() and SD1Generator run where the bundle lies (from_jax puts
+    # it on the card by default): they take no device of their own, and
+    # their arguments are the JAX ones, plus the test hooks
+    for fn, jax_fn, dropped in (
+            (tpipe.generate, jpipe.generate, {"loop"}),
+            (tpipe.SD1Generator.__init__, jpipe.SD1Generator.__init__,
+             {"mesh"}),
+            (tpipe.SD1Generator.__call__, jpipe.SD1Generator.__call__,
+             set())):
+        names = list(inspect.signature(fn).parameters)
+        want = [n for n in inspect.signature(jax_fn).parameters
+                if n not in dropped]
+        assert "device" not in names
+        hooks = {"noise", "enc_noise", "step_noise"}
+        assert [n for n in names if n not in hooks] == want, fn.__qualname__
 
 
 def test_sd1_generator_contract(jax_bundle):
@@ -140,5 +155,8 @@ def test_sd1_generator_contract(jax_bundle):
         gen(["a"], uncond_prompts=["x", "y"])
     with pytest.raises(ValueError):
         tpipe.SD1Generator(models, height=100)
-    with pytest.raises(NotImplementedError):
-        tpipe.SD1Generator(models, sampler="k_euler")
+    tpipe.SD1Generator(models, sampler="k_euler")      # ported since
+    with pytest.raises(ValueError, match="unknown sampler value 'k_heun'"):
+        tpipe.SD1Generator(models, sampler="k_heun")
+    with pytest.raises(NotImplementedError, match="queue A2"):
+        tpipe.SD1Generator(models, loop="trajectory")
