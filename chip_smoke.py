@@ -11,14 +11,18 @@ two summary lines:
 2. build: builds the CUDA kernels from ``csrc/`` (nvcc) into two shared
    objects, the bf16 flash kernels with GroupNorm and the fp32 flash kernels
    (``csrc/fp32/``), and prints each one's time and ptxas's register, spill
-   and shared-memory lines.
+   and shared-memory lines; then counts the wgmma (HGMMA) and TMA (UTMALDG,
+   UBLKCP) instructions of each K1 kernel in the library's SASS
+   (``cuobjdump -sass``) and fails unless all 18 instantiations of the sm90
+   K1 (``csrc/flash_attention_sm90.cu``) have both.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the SD1, tiny-SD and SD3 paths give it, in bf16 (and
    GroupNorm in fp32), with max errors, both times, the least time the card
    could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16,
    whichever is larger) and the time of the one PyTorch call that computes
    the same function (a yardstick only; nothing in the port calls it): K1
-   flash forward, K2 GroupNorm, K3 / K4 flash backward (dq; dk and dv), K5
+   flash forward (TMA / wgmma at every head dim but 512), K2 GroupNorm, K3 / K4
+   flash backward (dq; dk and dv), K5
    position-masked flash forward (the four SD3 shapes, online and bounded;
    two-segment causal / valid_len masks, a ragged key tail, head dim 128,
    fully masked rows; the joint attention over 154 + 4096 tokens against
@@ -32,10 +36,13 @@ two summary lines:
    K1, K3 and K4 (with dbias) at head dims 64 and 128: the TinyVLM's causal
    584 tokens and its tower's 576, causal 4096 tokens at head dim 128, T5's
    biased 512 tokens, 4096 tokens packed from 8 ragged sequences (alone,
-   causal, with a bias), causal Lq != Lk, rows that see no key; each with a
+   causal, with a bias), causal Lq != Lk, rows that see no key (K1 also by
+   its own device time from torch.profiler beside its wall time); each with a
    bound that counts the visible pairs only, and two planted faults (a
    causal mask off by one, a dbias tile left unwritten) that the comparison
    must catch; a packing of 64 sequences of 64 tokens beside the seeded one.
+   Then K1's host path at small shapes (the wrapper and its C entry alone,
+   microseconds per call, beside the kernel's own time); again beside T5.
    Then the fp32 form of K1 and K3 - K7 against the plain fp32 versions (TF32
    off) at the shapes the fp32 defaults give them: out and lse within 1e-4,
    each gradient within 1e-4 of its largest magnitude, the plain version fed
@@ -46,7 +53,10 @@ two summary lines:
 4. SD1: full-width SD1 (CLIP, 860M UNet, VAE decoder) with random weights
    from a seed, ``SD1Generator`` at 512x512, 50 k-LMS steps, CFG 7.5: two
    batch-1 requests, then one batch-4 request. Checks the images, the final
-   latents, and the kernel launch counts of every request. Then the rest of
+   latents, the kernel launch counts of every request, and that K1 took the
+   sm90 kernel (the VAE's d = 512 attention aside). Then one profiled
+   request at batch 1 and one at batch 4: device-busy ms, idle share and
+   K1's share of the device time. Then the rest of
    the generator on the same bundle: a request with each of the four
    samplers at 50 steps, img2img at strength 0.8 from a seeded uint8 image
    (40 steps; the VAE encoder's attention is one K1 launch at head dim 512),
@@ -64,7 +74,8 @@ two summary lines:
    block), K1 (the VAE's mid attention) and K2 per request. Then the
    bundle's T5-XXL encoder alone on (2, 512) token ids, the longest prompt
    SD3 admits: its 24 attentions take K1 in the bias form; the output is
-   held against the same encoder through plain attention on the card. Then
+   held against the same encoder through plain attention on the card, and
+   both are timed (10 calls) with the device-busy time of one call. Then
    (the bf16 bundle freed) SD3-medium in fp32, 28.7 GiB of weights, 4 steps
    at 1024x1024 through the fp32 kernels against plain attention.
 6. training: the tiny-SD ``DDPMTrainer`` at ``TinySDConfig()`` defaults
@@ -119,7 +130,8 @@ two summary lines:
 Every kernel's launch count is set to 0 just before each of the SD1, SD1
 generator, SD3, training, sampling, MMDiT training, MMDiT sampling, T5,
 TinyVLM training, TinyVLM decoding and fp32 paths and read just after (before
-the plain-attention run it is compared with). The last two lines are a
+the plain-attention run it is compared with), K1's also by the kernel it ran
+(sm90, d512, fp32). The last two lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
 card's name and power limit come on the line before them. Imports nothing
 of JAX.
@@ -229,8 +241,108 @@ def phase_build():
               f"{'cached' if nvcc is None else f'{nvcc:.2f} s'}) -> "
               f"{_build.library_path(name).name}", flush=True)
         for line in log.splitlines():
-            if "Used" in line or "spill" in line or "Compiling" in line:
+            # C75xx: ptxas serialised or fenced wgmma instructions itself
+            if ("Used" in line or "spill" in line or "Compiling" in line
+                    or "(C75" in line):
                 print("  ptxas:", line.strip().removeprefix("ptxas info    :"))
+    sass_check(_build.library_path("kernels"))
+
+
+# The sm90 K1 instantiations: 4 padded head dims without a mask, 7 mask
+# forms at head dims 64 and 128.
+K1_SM90_KERNELS = 4 + 2 * 7
+
+
+def sass_check(library):
+    """Counts, in each K1 kernel of the built library, the wgmma (HGMMA) and
+    TMA (UTMALDG, UBLKCP) instructions of its SASS (cuobjdump -sass), and
+    checks that every sm90 instantiation has both and the d = 512 one
+    neither."""
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "flash_fwd" in m.group(1) and (
+                "pos" not in m.group(1)) else None
+            if fn:
+                counts[fn] = [0, 0]
+        elif fn:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += "UTMALDG" in line or "UBLKCP" in line
+    sm90 = {f: c for f, c in counts.items() if "sm90" in f}
+    for f, (hgmma, tma) in sorted(counts.items()):
+        # template arguments: padded head dim, then causal, bias, segments
+        inst = re.search(r"kernelILi(\d+)E(?:Lb(\d)ELb(\d)ELb(\d)E)?", f)
+        what = (f"DP={inst.group(1)} causal/bias/segments="
+                f"{'/'.join(inst.groups('-')[1:])}" if inst else f[-40:])
+        print(f"  sass K1 {'sm90' if f in sm90 else 'mma.sync'} {what}: "
+              f"HGMMA {hgmma}, UTMALDG/UBLKCP {tma}", flush=True)
+    check(len(sm90) == K1_SM90_KERNELS and all(
+        h > 0 and t > 0 for h, t in sm90.values()),
+        f"the sm90 K1 kernels lack wgmma or TMA in their SASS: {sm90}")
+    check(all(c == [0, 0] for f, c in counts.items() if f not in sm90),
+          "the d = 512 K1 kernel is expected on mma.sync")
+
+
+# K1's timed cases, which compare_revisions.py times too. Without a mask,
+# (B, H, Lq, Lk, D): the first is reported (SD1 UNet at 64^2), the last is
+# the SD3 VAE's mid attention over 128 x 128 tokens.
+K1_SHAPES = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
+             (1, 1, 4096, 4096, 512), (1, 2, 1000, 777, 80),
+             (32, 1, 4096, 4096, 128), (32, 2, 1024, 1024, 128),
+             (1, 2, 1000, 777, 128), (1, 1, 16384, 16384, 512)]
+# The mask forms at the TinyVLM step's shapes (the tower's 576 tokens, the
+# decoder's 576 + 8 causal), causal at head dim 128, T5's bias shared over
+# the batch, and packed sequences: (form, (B, H, Lq, Lk, D), masks), where
+# masks holds ``causal``, ``bias_bh`` (the bias's (B, H) before it is
+# broadcast), ``ids`` (see k1_segment_ids) and ``scale``.
+K1_FORMS = [
+    ("none, SigLIP tower", (16, 12, 576, 576, 64), {}),
+    ("causal, TinyVLM decoder", (16, 12, 584, 584, 64), dict(causal=True)),
+    ("causal", (2, 8, 4096, 4096, 128), dict(causal=True)),
+    ("bias, T5-XXL", (2, 64, 512, 512, 64), dict(bias_bh=(1, 64), scale=1.0)),
+    ("segments", (2, 12, 4096, 4096, 64), dict(ids="packed")),
+    ("segments + causal", (2, 12, 4096, 4096, 64),
+     dict(ids="packed", causal=True)),
+    ("segments + bias", (2, 12, 4096, 4096, 64),
+     dict(ids="packed", bias_bh=(1, 12))),
+    # 1/64 of the pairs visible and one tile in 64 to visit: where the tile
+    # skip matters most
+    ("segments, 64 sequences of 64 tokens", (2, 12, 4096, 4096, 64),
+     dict(ids="short")),
+]
+
+
+def packed_ids(b, n, n_seq, seed):
+    """(B, n) int32 on the card: each row packs n_seq sorted ragged
+    sequences."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(b):
+        cuts = np.sort(rng.choice(np.arange(64, n - 64), n_seq - 1,
+                                  replace=False))
+        rows.append(np.repeat(np.arange(n_seq), np.diff(
+            np.concatenate([[0], cuts, [n]]))))
+    return torch.from_numpy(np.stack(rows).astype(np.int32)).cuda()
+
+
+def k1_segment_ids(kind, b, n):
+    """K1_FORMS' segment ids: "packed", 8 ragged sequences a row, or
+    "short", 64 sequences of 64 tokens."""
+    import torch
+
+    if kind == "packed":
+        return packed_ids(b, n, 8, seed=5)
+    return (torch.arange(n, device="cuda") // 64).int().expand(b, -1)
 
 
 def kernel_counters():
@@ -248,13 +360,21 @@ def kernel_counters():
 def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
-        for counter in ("forms", "dtypes"):
+        for counter in ("forms", "dtypes", "routes"):
             if hasattr(fn, counter):
                 getattr(fn, counter).clear()
 
 
+class Counts(dict):
+    """Launches by kernel; ``k1_routes``: K1's launches by the kernel they
+    ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32")."""
+
+
 def read_counts():
-    return {k: fn.launches for k, fn in kernel_counters().items()}
+    fns = kernel_counters()
+    counts = Counts((k, fn.launches) for k, fn in fns.items())
+    counts.k1_routes = dict(getattr(fns["K1"], "routes", {}))
+    return counts
 
 
 def read_fp32_counts():
@@ -355,14 +475,8 @@ def phase_kernels(card):
     sdpa = F.scaled_dot_product_attention
 
     # K1: q, k, v are column slices of one fused projection, as on the path.
-    # The first case is the one reported (SD1 UNet at 64^2); the last but
-    # one is the SD3 VAE's mid attention over 128 x 128 tokens.
-    attn_cases = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
-                  (1, 1, 4096, 4096, 512), (1, 2, 1000, 777, 80),
-                  (32, 1, 4096, 4096, 128), (32, 2, 1024, 1024, 128),
-                  (1, 2, 1000, 777, 128), (1, 1, 16384, 16384, 512)]
     bwd_reported = False
-    for i, (b, h, lq, lk, d) in enumerate(attn_cases):
+    for i, (b, h, lq, lk, d) in enumerate(K1_SHAPES):
         split = lambda x, n: [t.reshape(b, n, h, d).transpose(1, 2)
                               for t in x.chunk(x.shape[-1] // (h * d), -1)]
         q = split(rnd(b, lq, h * d).to(bf16), lq)[0]
@@ -574,7 +688,6 @@ def phase_kernels_masks(card, rnd, tail):
     no-mask form at head dim 64) against the plain versions under the same
     masks. Returns one record per timed case: the shape, the form, and for
     each kernel its error, time, plain time, library time and bound."""
-    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -583,17 +696,6 @@ def phase_kernels_masks(card, rnd, tail):
     bf16 = torch.bfloat16
     sdpa = F.scaled_dot_product_attention
     records = []
-
-    def packed_ids(b, n, n_seq, seed):
-        """(B, n) int32: each row packs n_seq sorted ragged sequences."""
-        rng = np.random.default_rng(seed)
-        rows = []
-        for _ in range(b):
-            cuts = np.sort(rng.choice(np.arange(64, n - 64), n_seq - 1,
-                                      replace=False))
-            rows.append(np.repeat(np.arange(n_seq), np.diff(
-                np.concatenate([[0], cuts, [n]]))))
-        return torch.from_numpy(np.stack(rows).astype(np.int32)).cuda()
 
     def run(what, b, h, lq, lk, d, causal=False, bias_bh=None, ids=None,
             scale=None, timed=True, blank_rows=False):
@@ -686,6 +788,12 @@ def phase_kernels_masks(card, rnd, tail):
                        q, k, v, scale, **masks), 3, 1),
                    library_ms=cuda_ms(lambda: sdpa(q, k, v, **lib), 10, 2),
                    **bnd(2, 2, 2, 1, 1))
+        # the kernel's own device time (profiler kernel rows): the wall time
+        # of a segment-id call also holds the wrapper's tile ranges
+        fams = device_families(lambda: [fa.flash_attention_cuda(
+            q, k, v, scale, **masks) for _ in range(10)], "K1 flash fwd")
+        device_ms = (fams["K1 flash fwd"] / 10 if "K1 flash fwd" in fams
+                     else None)
         shared = dict(
             plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
                 q, k, v, out, lse, g, scale, **masks, need_dbias=need), 3, 1),
@@ -698,8 +806,10 @@ def phase_kernels_masks(card, rnd, tail):
         t4 = dict(ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
                       q, k, v, g, lse, delta, scale, **masks), 10, 2),
                   **shared, **bnd(4, 2, 4, 2, 1))
+        dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
         print(f"{head}; {100.0 * pairs / (b * lq * lk):.1f} % of the pairs "
-              f"visible; K1: {tail(**fwd)}; the plain backward computes dq, "
+              f"visible; K1: {tail(**fwd)}, kernel device time {dev} "
+              f"(profiler); the plain backward computes dq, "
               f"dk, dv{' and dbias' if need else ''} together, the library's "
               f"dq, dk and dv; K3{' with dbias' if need else ''}: "
               f"{tail(**t3)}; K4: "
@@ -707,16 +817,22 @@ def phase_kernels_masks(card, rnd, tail):
         records.append(dict(
             form=what, shape=[b, h, lq, lk, d],
             visible_share=pairs / (b * lq * lk),
-            K1=dict(max_abs_err=err, **fwd),
+            K1=dict(max_abs_err=err, device_ms=device_ms, **fwd),
             K3=dict(max_abs_err=max(errs["dq"], errs.get("dbias", 0.0)), **t3),
             K4=dict(max_abs_err=max(errs["dk"], errs["dv"]), **t4)))
         return (q, k, v, g, bias, out, lse), None, None
 
-    # The shapes of the TinyVLM step: the tower's 576 tokens without a mask,
-    # the decoder's 576 + 8 causal; causal at head dim 128; T5's shared bias.
-    run("none, SigLIP tower", 16, 12, 576, 576, 64)
-    (q, k, v, *_, out, _), _, _ = run("causal, TinyVLM decoder", 16, 12, 584,
-                                      584, 64, causal=True)
+    for what, shape, m in K1_FORMS:
+        ids = m.get("ids")
+        ids = None if ids is None else (k1_segment_ids(ids, shape[0],
+                                                       shape[2]),) * 2
+        kept, _, _ = run(what, *shape, causal=m.get("causal", False),
+                         bias_bh=m.get("bias_bh"), ids=ids,
+                         scale=m.get("scale"))
+        if what == "causal, TinyVLM decoder":
+            q, k, v, *_, out, _ = kept
+        del kept
+    torch.cuda.empty_cache()
     # Planted fault: a causal mask off by one (col < row) must be caught.
     diag = torch.zeros(584, 584, device="cuda").fill_diagonal_(-1e30)
     strict, _ = fa.flash_attention_plain(q, k, v, bias=diag[None, None],
@@ -727,20 +843,6 @@ def phase_kernels_masks(card, rnd, tail):
           f"{'caught' if off_by_one > 2e-2 else 'MISSED'}", flush=True)
     check(off_by_one > 2e-2, "a causal mask off by one was not caught")
     del q, k, v, out, strict, diag
-    run("causal", 2, 8, 4096, 4096, 128, causal=True)
-    run("bias, T5-XXL", 2, 64, 512, 512, 64, bias_bh=(1, 64), scale=1.0)
-    ids = packed_ids(2, 4096, 8, seed=5)
-    run("segments", 2, 12, 4096, 4096, 64, ids=(ids, ids))
-    run("segments + causal", 2, 12, 4096, 4096, 64, ids=(ids, ids),
-        causal=True)
-    run("segments + bias", 2, 12, 4096, 4096, 64, ids=(ids, ids),
-        bias_bh=(1, 12))
-    # Many short sequences: 64 of 64 tokens a row, 1/64 of the pairs visible
-    # and one tile in 64 to visit: where the tile skip matters most.
-    short = (torch.arange(4096, device="cuda") // 64).int().expand(2, -1)
-    run("segments, 64 sequences of 64 tokens", 2, 12, 4096, 4096, 64,
-        ids=(short, short))
-    torch.cuda.empty_cache()
 
     # Smaller cases, errors only: causal at Lq != Lk (the kernels count rows
     # and columns from 0), rows that see no key, every form at once.
@@ -775,6 +877,69 @@ def phase_kernels_masks(card, rnd, tail):
     check(clean <= 2e-2 * top and dirty > 2e-2 * top,
           "an unwritten dbias tile was not caught")
     return records
+
+
+def k1_launch_path(card, where, n=2000):
+    """The host's part of a K1 call, at small shapes whose kernels take a
+    few microseconds, so that back-to-back calls run at the host's pace:
+    the wrapper (``flash_attention_cuda``) and its C entry alone
+    (``fdsd_flash_fwd`` on arguments made once), each ``n`` calls on the
+    host clock, and the kernel's own device time (profiler). Returns
+    {case: (wrapper us, C entry us, kernel us)}."""
+    import ctypes
+
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import _build
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    out_us = {}
+    for what, (b, h, n_tok, d), biased in (
+            ("d=64, no mask", (1, 2, 128, 64), False),
+            ("d=80, no mask", (1, 2, 128, 80), False),
+            ("d=64, bias shared over the batch", (2, 2, 128, 64), True)):
+        q, k, v = (t.reshape(b, n_tok, h, d).transpose(1, 2) for t in
+                   torch.randn(b, n_tok, 3 * h * d, generator=gen,
+                               device="cuda").to(torch.bfloat16).chunk(3, -1))
+        bias = (torch.randn(1, h, n_tok, n_tok, generator=gen, device="cuda")
+                .to(torch.bfloat16).expand(b, -1, -1, -1) if biased else None)
+        call = lambda: fa.flash_attention_cuda(q, k, v, bias=bias)
+        out = torch.empty(b, n_tok, h, d, device="cuda",
+                          dtype=torch.bfloat16).transpose(1, 2)
+        lse = torch.empty(b, h, n_tok, device="cuda")
+        flat = [st for x in (q, k, v, out) for st in x.stride()[:3]]
+        flat += [0] * 4 if bias is None else list(bias.stride())
+        strides = (ctypes.c_longlong * 16)(*flat)
+        args = ([x.data_ptr() for x in (q, k, v, out, lse)]
+                + [None if bias is None else bias.data_ptr()] + [None] * 6
+                + [b, h, n_tok, n_tok, d, ctypes.cast(strides,
+                                                      ctypes.c_void_p),
+                   d ** -0.5, 0, int(biased), stream])
+        entry = lambda: _build.check(lib.fdsd_flash_fwd(*args),
+                                     "fdsd_flash_fwd")
+        us = []
+        for fn in (call, entry):
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            us.append((time.perf_counter() - t) * 1e6 / n)
+        fams = device_families(lambda: [entry() for _ in range(100)],
+                               "K1 flash fwd")
+        us.append(1e3 * fams["K1 flash fwd"] / 100 if "K1 flash fwd" in fams
+                  else float("nan"))
+        print(f"K1 launch path ({where}), {what}, (B,H,L,D)=({b},{h},{n_tok},"
+              f"{d}): wrapper {us[0]:.2f} us/call, C entry alone "
+              f"{us[1]:.2f} us/call ({n} calls back to back, host clock), "
+              f"kernel {us[2]:.2f} us (profiler) [{card}]", flush=True)
+        out_us[what] = tuple(us)
+    return out_us
 
 
 def phase_kernels_pos_bwd(card, ctx, xs, rnd, off, tail):
@@ -1039,6 +1204,7 @@ def phase_sd1(card):
     requests = [(prompts[:1], 1), (prompts[1:2], 2), (prompts, 3)]
 
     reset_counts()
+    wall = {}   # batch -> s of its last unprofiled request
     for prompt_batch, seed in requests:
         b = len(prompt_batch)
         n0 = read_counts()
@@ -1068,9 +1234,41 @@ def phase_sd1(card):
         check(len(step_events) == 50, f"{len(step_events)} UNet calls, not 50")
         check(k1 == K1_PER_REQUEST, f"K1 launches {k1} != {K1_PER_REQUEST}")
         check(k2 == K2_PER_REQUEST, f"K2 launches {k2} != {K2_PER_REQUEST}")
+        wall[b] = secs
     launches = read_counts()
+    routes = dict(kernel_counters()["K1"].routes)
+    print(f"SD1 K1 launches by kernel over the {len(requests)} requests: "
+          f"{routes}", flush=True)
+    check(routes == {"sm90": 500 * len(requests), "d512": len(requests)},
+          f"SD1's K1 launches did not take the sm90 kernel (d = 512 aside): "
+          f"{routes}")
     for h in hooks:
         h.remove()
+    # One profiled request at batch 1 and at batch 4 (after the counted
+    # ones): device busy time, idle share against the unprofiled request of
+    # the same batch, and K1's share of the device time.
+    for prompt_batch, seed in ((prompts[:1], 1), (prompts, 3)):
+        b = len(prompt_batch)
+        for _ in range(3):  # a profile that recorded no kernel is run again
+            n0 = read_counts()["K1"]
+            images, wall_ms, fams, n_kernels, rows = profile_device(
+                lambda: sd(prompt_batch, seed=seed))
+            if fams:
+                break
+        check(bool(fams), f"torch.profiler recorded no kernel of the SD1 "
+              f"request at bs={b}")
+        busy = sum(fams.values()) or float("nan")
+        k1_ms = fams.get("K1 flash fwd", 0.0)
+        print(f"SD1 profile of one request bs={b} (torch.profiler, kernel rows "
+              f"only): device busy {busy:.1f} ms over {n_kernels} kernels, K1 "
+              f"{k1_ms:.1f} ms ({100 * k1_ms / busy:.1f} % of busy); wall under "
+              f"the profiler {wall_ms:.1f} ms, unprofiled {1e3 * wall[b]:.1f} "
+              f"ms; device idle share {1.0 - busy / (1e3 * wall[b]):.3f} (1 - "
+              f"busy / unprofiled request) [{card}]", flush=True)
+        print_profile(fams, rows, 1, "request")
+        check(read_counts()["K1"] - n0 == K1_PER_REQUEST
+              and images.shape == (b, 512, 512, 3),
+              "the profiled SD1 request did not run its K1 launches")
     return launches, models
 
 
@@ -1195,9 +1393,11 @@ def phase_t5(card, t5):
         torch.cuda.synchronize()
         launches = read_counts()
         forms = dict(kernel_counters()["K1"].forms)
-        ms = cuda_ms(lambda: t5(tokens), 3, 1)
+        ms = cuda_ms(lambda: t5(tokens), 10, 1)
+        busy = device_families(lambda: t5(tokens), "K1 flash fwd")
         ref = plainly(lambda: t5(tokens))
-        plain_ms = plainly(lambda: cuda_ms(lambda: t5(tokens), 3, 1))
+        plain_ms = plainly(lambda: cuda_ms(lambda: t5(tokens), 10, 1))
+        plain_busy = plainly(lambda: device_families(lambda: t5(tokens)))
         # block by block, both paths fed the plain path's activations
         x, bias, worst = t5.embed_tokens(tokens), None, (0.0, 1.0, 0)
         for i in range(t5.config.num_layers):
@@ -1220,9 +1420,15 @@ def phase_t5(card, t5):
     # softmax is sharp, each block multiplies a rounding difference, and the
     # residual stream grows until one of its bf16 ulps is 0.25; that drift
     # is printed, not judged.
+    def busy_of(fams):
+        return (f"device busy {sum(fams.values()):.2f} ms, K1 "
+                f"{fams.get('K1 flash fwd', 0.0):.2f} ms" if fams
+                else "device busy not measured")
+
     print(f"T5-XXL encoder (24 blocks, 64 heads of 64) on (2, 512) tokens, "
-          f"bf16: {ms:.2f} ms/call through K1 with bias, {plain_ms:.2f} "
-          f"ms/call through plain attention; block by block on the same "
+          f"bf16: {ms:.2f} ms/call through K1 with bias ({busy_of(busy)}; "
+          f"profiler, one call), {plain_ms:.2f} ms/call through plain "
+          f"attention ({busy_of(plain_busy)}); block by block on the same "
           f"input the worst attention sub-layer differs by max|err|="
           f"{worst[0]:.3e} of max|output|={worst[1]:.3e} (block {worst[2]}, "
           f"tol 3e-2 of it); "
@@ -1236,6 +1442,9 @@ def phase_t5(card, t5):
           f"{worst[2]}")
     check(launches == T5_PER_CALL and forms == {BIASED: 24},
           f"T5 launches {launches} forms {forms}")
+    # the same host path in this process, after the SD3 requests: where the
+    # T5 call idles, is it K1's launch?
+    k1_launch_path(card, "after the SD3 requests, beside T5")
     return launches
 
 
@@ -1296,6 +1505,19 @@ def profile_device(run):
         n_kernels += e.count
         rows.append((us / 1e3, e.count, e.key[:90]))
     return result, wall_ms, fams, n_kernels, rows
+
+
+def device_families(run, want=None):
+    """Device ms by kernel family of one ``run()`` under torch.profiler.
+    Now and then the profiler records no kernel row of a window (or none of
+    family ``want``): up to three windows are profiled, so ``run`` must be
+    safe to repeat. Returns {} when none recorded one."""
+    fams = {}
+    for _ in range(3):
+        fams = profile_device(run)[2]
+        if fams and (want is None or want in fams):
+            break
+    return fams
 
 
 def print_profile(fams, rows, n, unit):
@@ -1410,7 +1632,8 @@ def phase_training(card):
     for name, per_step in TRAIN_PER_STEP.items():
         check(launches[name] == per_step * n_steps,
               f"{name} launches {launches[name]} != {per_step} x {n_steps}")
-    return trainer, state, launches, dict(step_ms=step_ms, idle=idle,
+    return trainer, state, launches, dict(step_ms=step_ms, host_ms=host_ms,
+                                          busy_ms=busy, idle=idle,
                                           peak_gib=peak)
 
 
@@ -1929,7 +2152,8 @@ def phase_vlm_training(card):
     check(all(f == half for f in forms.values()),
           f"forms {forms}: not {VLM_LAYERS} no-mask and {VLM_LAYERS} causal "
           f"launches per step of each kernel")
-    return trainer, state, launches, dict(step_ms=step_ms, idle=idle,
+    return trainer, state, launches, dict(step_ms=step_ms, host_ms=host_ms,
+                                          busy_ms=busy, idle=idle,
                                           peak_gib=peak)
 
 
@@ -2750,6 +2974,7 @@ def main():
     card = phase_device()
     phase_build()
     kernels, tail = phase_kernels(card)
+    k1_launch_path(card, "after the kernel phase")
     kernels_fp32 = phase_kernels_fp32(card, tail)
     import torch
 
@@ -2820,11 +3045,36 @@ def main():
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"])
 
+    def by_route(route):
+        """K1's launches on one of its kernels, from the paths' runs."""
+        per_path = {p: run.k1_routes.get(route, 0)
+                    for p, run in zip(paths, runs)}
+        return dict(launches=sum(per_path.values()),
+                    launches_by_path=per_path)
+
+    check(all(sum(run.k1_routes.values()) == run["K1"] for run in runs),
+          "K1's launches by route do not add up to its launches: "
+          f"{[(run.k1_routes, run['K1']) for run in runs]}")
     together = "dq, dk and dv together"
     summary = {"kernels": [
-        entry("flash_attention_fwd", "flash_attention.cu",
+        entry("flash_attention_fwd", "flash_attention_sm90.cu",
               "flash_attention.py:242", "K1",
               also_replaces=[TPU_KERNELS + "flash_attention.py:119"],
+              design=("bf16 at head dims 40, 48, 64, 72, 80, 128 and every "
+                      "mask form: one block of 3 warpgroups per 128 queries, "
+                      "a producer issuing TMA (Q once, K/V tiles of 128 keys "
+                      "in a 2-stage mbarrier ring, the bias tile staged in "
+                      "its own dtype by cp.async) and two consumers running "
+                      "wgmma m64n128k16 for S = QK^T from shared memory, "
+                      "the online softmax in registers, and wgmma in RS "
+                      "form for O += PV with V MN-major; 128-byte swizzle at "
+                      "DP 64/128, 32-byte at 48/80"),
+              d512=dict(source=pkg + "flash_attention.cu",
+                        design="mma.sync m16n8k16, S through shared memory, "
+                               "one block per 32 queries (not redesigned: "
+                               "queue B3)",
+                        **by_route("d512")),
+              sm90=by_route("sm90"),
               timed_at="(B,H,Lq,Lk,D)=(2,8,4096,4096,40)",
               library="F.scaled_dot_product_attention", forms=forms_of("K1")),
         entry("group_norm_silu", "groupnorm.cu", "groupnorm_pallas.py:29",

@@ -1,0 +1,237 @@
+#!/usr/bin/env python3
+"""Times two checkouts of the port against each other on one GPU, with the
+cases, timers and phases of ``chip_smoke.py``.
+
+    python3 compare_revisions.py DIR_A DIR_B [--only PART[,PART...]]
+
+Each of DIR_A, DIR_B is the root of a checkout (this repository at some
+commit, e.g. unpacked with ``git archive``). The measurement runs four
+times, in the order A, B, B, A, each in a fresh process that imports and
+builds that checkout's package but takes its cases, timers and phases from
+the ``chip_smoke.py`` beside this file, so that both checkouts are measured
+alike. Each run's output is printed with its label; then, for every number,
+both of A's and both of B's values.
+
+Parts, all of them unless ``--only`` names some:
+  - launch: K1's host path at small shapes (``chip_smoke.k1_launch_path``:
+    the wrapper and its C entry alone, us per call, and the kernel's us);
+  - kernels: K1 at ``chip_smoke.K1_SHAPES`` and ``K1_FORMS``, wall ms per
+    call (``cuda_ms``) and the kernel's own device ms per call (profiler
+    kernel rows of K1 over 10 calls);
+  - training: ``chip_smoke.phase_training`` (the tiny-SD step) and
+    ``phase_sampling`` (T = 250);
+  - vlm: ``chip_smoke.phase_vlm_training`` (the TinyVLM step);
+  - sd1: an SD1 request (random weights, 512², 50 k-LMS steps, CFG 7.5) at
+    batch 1 (the second of two) and 4, wall s, and the device-busy ms of one
+    profiled batch-1 request;
+  - t5: the T5-XXL encoder of the SD3-medium bundle on (2, 512) tokens, ms
+    per call, device-busy ms of one profiled call and K1's part of it;
+  - sd3: an SD3-medium request (1024², 50 steps, CFG 5), wall s of the
+    second of two and device-busy ms of a third.
+Needs a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PARTS = ("launch", "kernels", "training", "vlm", "sd1", "t5", "sd3")
+K1 = "K1 flash fwd"
+
+
+def _chip_smoke():
+    """This tree's chip_smoke.py, whichever package the process imports."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def _kernels(cs, out):
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    bf16 = torch.bfloat16
+    cases = [("none", shape, {}) for shape in cs.K1_SHAPES] + cs.K1_FORMS
+    for name, (b, h, lq, lk, d), m in cases:
+        if lq == lk:    # q|k|v column slices of one fused projection
+            q, k, v = (t.reshape(b, lq, h, d).transpose(1, 2) for t in
+                       rnd(b, lq, 3 * h * d).to(bf16).chunk(3, -1))
+        else:
+            q, k, v = (rnd(b, h, n, d).to(bf16) for n in (lq, lk, lk))
+        masks = dict(causal=m.get("causal", False))
+        if "bias_bh" in m:
+            masks["bias"] = (0.5 * rnd(*m["bias_bh"], lq, lk)).to(bf16)
+        if "ids" in m:
+            masks["segment_ids"] = (cs.k1_segment_ids(m["ids"], b, lq),) * 2
+        call = lambda: fa.flash_attention_cuda(q, k, v, m.get("scale"),
+                                               **masks)
+        fams = cs.device_families(lambda: [call() for _ in range(10)], K1)
+        key = f"K1 {name} {(b, h, lq, lk, d)}"
+        out[key + " wall ms"] = cs.cuda_ms(call)
+        out[key + " device ms"] = fams[K1] / 10 if K1 in fams else None
+        del q, k, v, masks
+    torch.cuda.empty_cache()
+
+
+def _sd1(cs, out):
+    import gc
+
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        SD1Generator, SD1Models)
+
+    models = SD1Models.initialize(torch.Generator(device="cuda").manual_seed(
+        0), "cuda", "bf16")
+    sd = SD1Generator(models, sampler="k_lms", n_inference_steps=50,
+                      cfg_scale=7.5, height=512, width=512)
+    prompts = ["a photograph of an astronaut riding a horse"] * 4
+
+    def request(n, seed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sd(prompts[:n], seed=seed)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    request(1, 1)
+    out["SD1 bs=1 s/request"] = request(1, 2)
+    out["SD1 bs=4 s/request"] = request(4, 3)
+    out["SD1 bs=1 device busy ms"] = sum(cs.device_families(
+        lambda: sd(prompts[:1], seed=4)).values())
+    del sd, models
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _sd3_bundle(cs, out, parts):
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer, SD3Models)
+
+    models = SD3Models.initialize(torch.Generator(device="cuda").manual_seed(
+        0), "cuda", "bf16", depth=24, pos_embed_max_size=192)
+    if "t5" in parts:
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, models.t5.config.vocab_size, (2, 512))).cuda()
+        with torch.no_grad():
+            call = lambda: models.t5(tokens)
+            out["T5 (2, 512) ms/call"] = cs.cuda_ms(call)
+            fams = cs.device_families(call, K1)
+            out["T5 (2, 512) device busy ms"] = sum(fams.values())
+            out["T5 (2, 512) K1 device ms"] = fams.get(K1)
+    if "sd3" not in parts:
+        return
+    inf = SD3Inferencer(models, shift=3.0)
+    zero = np.zeros((1, 77), np.int32)
+
+    def sd3(seed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        inf.gen_image(zero, width=1024, height=1024, steps=50, cfg_scale=5.0,
+                      seed=seed)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    sd3(1)
+    out["SD3 s/request"] = sd3(2)
+    out["SD3 device busy ms"] = sum(cs.device_families(
+        lambda: sd3(3)).values())
+
+
+def measure(parts):
+    # the package of the checkout this process runs in, not of this file's
+    sys.path[:] = [os.getcwd()] + [p for p in sys.path
+                                   if os.path.abspath(p or ".") != HERE]
+    import gc
+
+    import torch
+
+    import from_ddpm_to_stable_diffusion_tpu_torch as pkg
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import _build
+
+    cs = _chip_smoke()
+    card = cs.phase_device()
+    out = {"card": card, "package": os.path.dirname(pkg.__file__)}
+    _build.load()
+    out["nvcc s"] = _build.builds["kernels"][0]
+    if "launch" in parts:
+        for what, us in cs.k1_launch_path(card, "fresh process").items():
+            for unit, x in zip(("wrapper", "C entry", "kernel"), us):
+                out[f"K1 launch path, {what}: {unit} us"] = x
+    if "kernels" in parts:
+        _kernels(cs, out)
+    if "training" in parts:
+        trainer, state, _, step = cs.phase_training(card)
+        for key, x in step.items():
+            out[f"tiny-SD step {key}"] = x
+        t = time.perf_counter()
+        cs.phase_sampling(card, trainer, state)
+        out["tiny-SD sampling T=250 s"] = time.perf_counter() - t
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "vlm" in parts:
+        trainer, state, _, step = cs.phase_vlm_training(card)
+        for key, x in step.items():
+            out[f"TinyVLM step {key}"] = x
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "sd1" in parts:
+        _sd1(cs, out)
+    if "t5" in parts or "sd3" in parts:
+        _sd3_bundle(cs, out, parts)
+    print(json.dumps(out), flush=True)
+
+
+def main(argv):
+    if argv[:1] == ["--measure"]:
+        measure(argv[1].split(","))
+        return
+    only = ",".join(PARTS)
+    if "--only" in argv:
+        i = argv.index("--only")
+        only, argv = argv[i + 1], argv[:i] + argv[i + 2:]
+    if len(argv) != 2 or not set(only.split(",")) <= set(PARTS):
+        sys.exit(__doc__)
+    dirs = dict(A=os.path.abspath(argv[0]), B=os.path.abspath(argv[1]))
+    runs = []
+    for label in "ABBA":
+        env = dict(os.environ, PYTHONPATH=dirs[label])
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--measure", only],
+            cwd=dirs[label], env=env, capture_output=True, text=True)
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(f"{label}| {line}", flush=True)
+        if proc.returncode or not lines:
+            sys.exit(f"run {label} in {dirs[label]} failed:\n"
+                     f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        runs.append((label, json.loads(lines[-1])))
+    keys = [k for k in runs[0][1] if k not in ("card", "package")]
+    print(f"A = {dirs['A']}, B = {dirs['B']}; runs in the order A B B A on "
+          f"{runs[0][1]['card']}")
+    fmt = lambda xs: " / ".join("-" if x is None else f"{x:.4f}" for x in xs)
+    for key in keys:
+        a = [r.get(key) for lab, r in runs if lab == "A"]
+        b = [r.get(key) for lab, r in runs if lab == "B"]
+        print(f"  {key}: A {fmt(a)}  B {fmt(b)}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

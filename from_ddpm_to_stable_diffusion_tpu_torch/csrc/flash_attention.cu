@@ -1,58 +1,30 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 softmax.
+// Flash-attention forward at head dim 512 for Hopper (sm_90a), bf16 in,
+// fp32 softmax: K1 for the VAE's one-head mid attention (SD1 decoder and
+// encoder, (B, 1, 4096, 512); SD3 decoder, (1, 1, 16384, 512)). The other
+// head dims and every mask form run on the TMA / wgmma kernel of
+// flash_attention_sm90.cu, whose C entry fdsd_flash_fwd hands d = 512 here.
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces, at d = 512, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
-//     (single pass over the whole K/V of one (b, h); SD1 UNet at 64^2,
-//     q/k/v (2B, 8, 4096, 40); tiny-SD UNet at 64^2, (B, 1, 4096, 128))
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel
-//     (blocked online softmax; SD1 UNet at 32^2, (2B, 8, 1024, 80), the
-//     VAE decoder's one-head mid attention, (B, 1, 4096, 512), and the
-//     tiny-SD UNet at 32^2, (B, 1 or 2, 1024, 128))
-// It computes what both compute (out in the input dtype, lse = m + log l in
-// fp32), not their block structure: the TPU's sequential key-block grid axis
-// becomes a loop inside the block, and one code path serves all head dims.
+// (no mask), computing what they compute (out in bf16, lse = m + log l in
+// fp32) with the TPU's sequential key-block grid axis as a loop in the block.
 //
-// What bounds it on the H100: at the path's shapes attention is compute
-// bound (4096 keys: ~2,000 flop per byte of q, k, v and out), so the limits
-// are tensor-core issue rate and the softmax's exponentials. This first version
-// is the simple correct form: mma.sync m16n8k16 (bf16 -> fp32) with the
-// logit tile S staged through shared memory, one block per (b*h, 64 queries)
-// (32 at d=512). The head dim is zero-padded to a multiple of 16 in shared
-// memory only (d=40 -> 48); device memory is never padded. d=128 keeps the
-// 16 x 128 output tile of a warp in 64 fp32 accumulators and uses ~80 KB of
-// dynamic shared memory. d=512 keeps its
-// output accumulator split over 8 warps (4 column slices x 2 row groups) so
-// that no thread holds more than 64 fp32 accumulators, and uses ~187 KB of
-// dynamic shared memory. Small q tiles keep the grid large enough for 132
-// SMs at CFG batch 1 (2*8*4096/64 = 1024 blocks at 64^2). Only the padded
-// head dims of the SD1 and tiny-SD paths are instantiated (48, 80, 128,
-// 512) and 64 (the SigLIP tower and the TinyVLM decoder, 12 heads of 64 over
-// 576 and 584 tokens; T5-XXL, 64 heads of 64 over 512 tokens); others return
-// cudaErrorInvalidValue.
-//
-// The masks of _fwd_kernel are template parameters beside the head dim, so
-// the no-mask instantiations stay the code they were: CAUSAL (col <= row from
-// index 0 on both sides; key tiles above the diagonal are not visited),
-// HAS_BIAS (an additive bias read through its strides, added in fp32 after
-// the scale) and HAS_SEG (segment ids: same-id pairs only; the loop runs over
-// the key tiles [lo, hi] whose id range overlaps the query tile's, and skips
-// a tile inside that range whose ids are disjoint). They compose, and are
-// instantiated at head dims 64 and 128. In these forms a masked logit is
-// *selected* to probability 0 (not exp(-1e30 - max)), so a row that sees no
-// key gives out = 0 and lse = -1e30 where the Pallas online body gives the
-// mean of the visited v.
-// Later work: wgmma + TMA, softmax in registers, K/V double buffering.
+// What bounds it on the H100: operations (4096 keys: ~2,000 flop per byte),
+// so tensor-core issue rate and the exponentials. This form stays on
+// mma.sync m16n8k16 with the logit tile S staged through shared memory, one
+// block of 8 warps per (b*h, 32 queries): the output accumulator is split
+// over 4 column slices x 2 row groups so that no thread holds more than 64
+// fp32 accumulators, ~187 KB of dynamic shared memory. It reaches ~3 % of
+// its bound; a 64 x 512 fp32 accumulator split across warpgroups is the
+// wgmma design it still needs.
 
-#include "mask.cuh"
 #include "mma.cuh"
 
 namespace {
 
 using fdsd::ld32;
-using fdsd::load_bias;
-using fdsd::MaskArgs;
 using fdsd::mma16816;
-using fdsd::seg_overlap;
 
 constexpr float kNegInf = -1e30f;
 
@@ -74,8 +46,7 @@ struct Cfg {
                 "a row's softmax threads sit in one warp");
 };
 
-template <int DP, int BQ, int BK, int WM, int WN, bool CAUSAL, bool HAS_BIAS,
-          bool HAS_SEG>
+template <int DP, int BQ, int BK, int WM, int WN>
 __global__ void __launch_bounds__(WM * WN * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -85,11 +56,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  long long qsb, long long qsh, long long qsl,
                  long long ksb, long long ksh, long long ksl,
                  long long vsb, long long vsh, long long vsl,
-                 long long osb, long long osh, long long osl, float scale,
-                 const MaskArgs m) {
+                 long long osb, long long osh, long long osl, float scale) {
   using C = Cfg<DP, BQ, BK, WM, WN>;
-  // any masked form: a masked logit is selected to probability 0
-  constexpr bool kSelect = CAUSAL || HAS_BIAS || HAS_SEG;
   constexpr int NT = C::kThreads;
   constexpr int kVecs = DP / 8;            // 16-byte vectors per padded row
   constexpr int kSTiles = BK / 8 / WN;     // key n-tiles per warp (S)
@@ -137,30 +105,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < kOTiles; ++j)
     o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
-  // The key tiles this block visits: all of them; below the diagonal when
-  // causal; the range whose segment ids overlap this query tile's.
   const int n_kt = (Lk + BK - 1) / BK;
-  int kt_begin = 0, kt_end = n_kt;
-  if (CAUSAL) kt_end = min(n_kt, (q0 + BQ - 1) / BK + 1);
-  const int* q_bound = nullptr;
-  const int* k_bounds = nullptr;
-  int qid0 = -1, qid1 = -1;  // segment ids of this thread's two query rows
-  if (HAS_SEG) {
-    const int tile = b * gridDim.y + blockIdx.y;
-    kt_begin = max(kt_begin, m.lo[tile]);
-    kt_end = min(kt_end, m.hi[tile] + 1);
-    q_bound = m.q_bounds + 2 * tile;
-    k_bounds = m.kv_bounds + 2 * b * n_kt;
-    const int* ids = m.q_ids + static_cast<long long>(b) * Lq;
-    if (q0 + row0 + g < Lq) qid0 = ids[q0 + row0 + g];
-    if (q0 + row0 + g + 8 < Lq) qid1 = ids[q0 + row0 + g + 8];
-  }
-  const int* kv_ids = HAS_SEG ? m.kv_ids + static_cast<long long>(b) * Lk
-                              : nullptr;
-  const long long bias_base = HAS_BIAS ? b * m.bs[0] + h * m.bs[1] : 0;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    if (HAS_SEG && !seg_overlap(q_bound, k_bounds + 2 * kt)) continue;
+  for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers of k_s, vt_s, p_s are done
     for (int i = tid; i < BK * kVecs; i += NT) {
@@ -202,14 +148,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int r = row0 + g + (e >= 2 ? 8 : 0);
         const int cc = col + (e & 1);
-        float val = sacc[j][e] * scale;
-        bool visible = k0 + cc < Lk;
-        if (HAS_BIAS && visible && q0 + r < Lq)
-          val += load_bias(m, bias_base, q0 + r, k0 + cc);
-        if (CAUSAL) visible = visible && k0 + cc <= q0 + r;
-        if (HAS_SEG && visible)
-          visible = kv_ids[k0 + cc] == (e >= 2 ? qid1 : qid0);
-        s_s[r * C::kSStride + cc] = visible ? val : kNegInf;
+        s_s[r * C::kSStride + cc] =
+            k0 + cc < Lk ? sacc[j][e] * scale : kNegInf;
       }
     }
     __syncthreads();
@@ -230,9 +170,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        const float p = (kSelect && srow[c] <= kNegInf)
-                            ? 0.f
-                            : __expf(srow[c] - m_new);
+        const float p = __expf(srow[c] - m_new);
         sum += p;
         prow[c] = __float2bfloat16(p);
       }
@@ -273,9 +211,6 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // l_s / m_s were last written before the final softmax barrier; a masked
-  // form may have visited no tile at all.
-  if (kSelect) __syncthreads();
   const int r0 = q0 + row0 + g, r1 = r0 + 8;
   const float l0 = l_s[row0 + g], l1 = l_s[row0 + g + 8];
   const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
@@ -300,14 +235,18 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DP, int BQ, int BK, int WM, int WN, bool CAUSAL = false,
-          bool HAS_BIAS = false, bool HAS_SEG = false>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int H, int Lq, int Lk, int d,
-                   const long long* st, float scale, const MaskArgs& m,
-                   cudaStream_t stream) {
+}  // namespace
+
+namespace fdsd {
+
+// strides: the 12 (batch, head, seq) element strides of q, k, v and out.
+cudaError_t flash_fwd_d512(const void* q, const void* k, const void* v,
+                           void* out, void* lse, int B, int H, int Lq, int Lk,
+                           const long long* st, float scale,
+                           cudaStream_t stream) {
+  constexpr int DP = 512, BQ = 32, BK = 64, WM = 2, WN = 4;
   using C = Cfg<DP, BQ, BK, WM, WN>;
-  auto kernel = flash_fwd_kernel<DP, BQ, BK, WM, WN, CAUSAL, HAS_BIAS, HAS_SEG>;
+  auto kernel = flash_fwd_kernel<DP, BQ, BK, WM, WN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -315,86 +254,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), H, Lq, Lk, d, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, m);
+      static_cast<float*>(lse), H, Lq, Lk, 512, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale);
   return cudaGetLastError();
 }
 
-// The masked forms at one head dim; code = 4*causal + 2*has_bias + has_seg.
-template <int DP>
-cudaError_t launch_masked(int code, const void* q, const void* k,
-                          const void* v, void* out, void* lse, int B, int H,
-                          int Lq, int Lk, int d, const long long* st,
-                          float scale, const MaskArgs& m, cudaStream_t s) {
-  switch (code) {
-#define FDSD_FORM(CODE, C, BI, SE)                                          \
-  case CODE:                                                                \
-    return launch<DP, 64, 64, 4, 1, C, BI, SE>(q, k, v, out, lse, B, H, Lq, \
-                                               Lk, d, st, scale, m, s);
-    FDSD_FORM(1, false, false, true)
-    FDSD_FORM(2, false, true, false)
-    FDSD_FORM(3, false, true, true)
-    FDSD_FORM(4, true, false, false)
-    FDSD_FORM(5, true, false, true)
-    FDSD_FORM(6, true, true, false)
-    FDSD_FORM(7, true, true, true)
-#undef FDSD_FORM
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-// strides: 16 element strides, (batch, head, seq) for q, k, v, out, then
-// (batch, head, row, col) for the bias; the head-dim stride is 1. lse is
-// (B, H, Lq) contiguous fp32. bias (fp32, or bf16 when bias_bf16) and the six
-// segment arrays of mask.cuh are null when the form is not asked for; the
-// masked forms take head dims 64 and 128.
-extern "C" int fdsd_flash_fwd(const void* q, const void* k, const void* v,
-                              void* out, void* lse, const void* bias,
-                              const void* q_ids, const void* kv_ids,
-                              const void* q_bounds, const void* kv_bounds,
-                              const void* lo, const void* hi, int B, int H,
-                              int Lq, int Lk, int d, const long long* strides,
-                              float scale, int causal, int bias_bf16,
-                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dp = (d + 15) / 16 * 16;
-  const MaskArgs m = fdsd::make_mask_args(bias, strides + 12, bias_bf16,
-                                          q_ids, kv_ids, q_bounds, kv_bounds,
-                                          lo, hi);
-  const int code = 4 * (causal != 0) + 2 * (bias != nullptr) +
-                   (q_ids != nullptr);
-  if (code != 0) {
-    if (d == 64)
-      return static_cast<int>(launch_masked<64>(code, q, k, v, out, lse, B, H,
-                                                Lq, Lk, d, strides, scale, m,
-                                                s));
-    if (d == 128)
-      return static_cast<int>(launch_masked<128>(code, q, k, v, out, lse, B,
-                                                 H, Lq, Lk, d, strides, scale,
-                                                 m, s));
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err;
-  switch (dp) {
-#define FDSD_SMALL_D(DP)                                                    \
-  case DP:                                                                  \
-    err = launch<DP, 64, 64, 4, 1>(q, k, v, out, lse, B, H, Lq, Lk, d,      \
-                                   strides, scale, m, s);                   \
-    break;
-    FDSD_SMALL_D(48)  // SD1 UNet at 64^2: d = 40
-    FDSD_SMALL_D(64)  // SigLIP tower: d = 64
-    FDSD_SMALL_D(80)  // SD1 UNet at 32^2: d = 80
-    FDSD_SMALL_D(128)  // tiny-SD UNet: d = 128
-#undef FDSD_SMALL_D
-    case 512:  // SD1 VAE mid attention
-      err = launch<512, 32, 64, 2, 4>(q, k, v, out, lse, B, H, Lq, Lk, d,
-                                      strides, scale, m, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
-}
+}  // namespace fdsd

@@ -1,0 +1,657 @@
+// Flash-attention forward for Hopper (sm_90a) on TMA and wgmma: bf16 in,
+// fp32 softmax, out bf16 + lse fp32. K1 at head dims 40, 48, 64, 72, 80 and
+// 128, in every mask form; d = 512 stays on the mma.sync kernel of
+// flash_attention.cu, which this file's C entry hands it to.
+//
+// Replaces two Pallas TPU kernels of the JAX package:
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
+//     (single pass over the whole K/V of one (b, h): SD1 UNet at 64^2,
+//     (2B, 8, 4096, 40); tiny-SD at 64^2, (B, 1, 4096, 128))
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel
+//     (blocked online softmax with bias, causal, key tail and segment ids:
+//     SD1 at 32^2, (2B, 8, 1024, 80); tiny-SD at 32^2; the SigLIP tower and
+//     TinyVLM decoder, (16, 12, 576 | 584, 64), causal in the decoder; T5-XXL,
+//     (2, 64, 512, 64) with a (1, 64, 512, 512) bias)
+// It computes what both compute, not their block structure: the TPU's
+// sequential key-block grid axis is a loop inside the block.
+//
+// What bounds it on the H100: at 4096 keys attention does ~2,000 flop per
+// byte of q, k, v and out, so operations: the tensor cores' issue rate and,
+// at small head dims, the exponentials (one per logit on the 16-per-clock
+// MUFU pipe). The mma.sync form it replaces reached ~5 % of the bound: S
+// went through shared memory, V was transposed there by scalar stores,
+// operands were loaded with 32-bit loads, global loads were synchronous, and
+// mma.sync is not the full tensor-core rate on Hopper.
+//
+// Design. One block of three warpgroups per (b*h, 128 queries):
+//  - a producer warpgroup gives up its registers (setmaxnreg 40); one thread
+//    issues TMA: the Q tile once, then K and V tiles of 128 keys into a ring
+//    of two stages with full / empty mbarriers, so the next tile's copy
+//    overlaps this tile's products. The
+//    tensor maps are 4-D (D, L, H, B) over the operands' own strides (q, k,
+//    v may be column slices of one fused projection), encoded on the host
+//    per call; keys and queries past the end and head-dim columns past d
+//    come in as zeros (d = 40 -> 48, 72 -> 80). In the bias form its 128
+//    threads also stage the bias tile in shared memory in the bias's dtype
+//    (one stage, XOR-swizzled against bank conflicts) by cp.async from the
+//    bias's strides; a stride of 0 (T5's bias over the batch) is fine.
+//  - two consumer warpgroups of 64 query rows (setmaxnreg 232): S = Q K^T
+//    by wgmma m64n128k16 with both operands K-major in shared memory as TMA
+//    wrote them; the online softmax in registers on the accumulators (row
+//    max and sum across the quad, exp2 with scale * log2 e folded in); P
+//    converted to bf16 in registers is the A operand of O += P V (wgmma in
+//    RS form), V the MN-major B operand read as it lies: no transposed copy.
+//    Each product is waited for before its registers are read; the two
+//    consumer warpgroups interleave on their own.
+//  - swizzle: 128-byte at DP = 64 and 128, 32-byte atoms of 16 columns at
+//    DP = 48 and 80 (rows of 96 and 160 bytes), so no MMA work is spent on
+//    padding past the next multiple of 16.
+// Masks are template parameters, so the no-mask form carries no mask code:
+// causal visits no key tile above the diagonal and masks per logit only where
+// a tile crosses it; the key tail is masked on the last tile only (TMA's
+// zeros are logits of 0, not masked ones); segment ids walk the tile range
+// [lo, hi] of mask.cuh at (128, 128) tiles in every role, skip a tile whose
+// ids are disjoint, and mask per logit only where the two tiles are not one
+// same segment. In the masked forms a masked logit is selected to
+// probability 0, so a row that sees no key gives out = 0, lse = -1e30.
+// Out is written from the accumulators through its strides, rows past Lq
+// are not written; lse is (B, H, Lq) fp32, the contract K3 and K4 read.
+// Later work: overlap one tile's softmax with the next tile's Q K^T (tried:
+// ptxas serialised the wgmmas, C7515, and every form got 5-20 % slower),
+// FA3's ping-pong of the two consumer warpgroups, a persistent grid.
+
+#include "mask.cuh"
+#include "sm90.cuh"
+
+namespace fdsd {
+// The d = 512 forward (mma.sync), in flash_attention.cu.
+cudaError_t flash_fwd_d512(const void* q, const void* k, const void* v,
+                           void* out, void* lse, int B, int H, int Lq, int Lk,
+                           const long long* st, float scale,
+                           cudaStream_t stream);
+}  // namespace fdsd
+
+namespace {
+
+namespace s9 = fdsd::sm90;
+using fdsd::MaskArgs;
+using fdsd::seg_overlap;
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kBQ = 128, kBK = 128;
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kConsumers = 256;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+template <int DP, bool HAS_BIAS>
+struct Cfg {
+  static constexpr int W = DP % 64 == 0 ? 64 : 16;  // columns per swizzle row
+  static constexpr int kChunks = DP / W;
+  static constexpr int kStages = 2;  // K/V ring
+  static constexpr uint32_t kLayout = W == 64 ? 1 : 3;  // 128B / 32B swizzle
+  static constexpr uint32_t kAtom = 8 * W * 2;          // 8 rows of a chunk
+  static constexpr int kQChunk = kBQ * W * 2;
+  static constexpr int kKVChunk = kBK * W * 2;
+  static constexpr int kQBytes = kBQ * DP * 2;
+  static constexpr int kKVBytes = kBK * DP * 2;  // one K or V tile
+  static constexpr int kKOff = kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kKVBytes;
+  static constexpr int kBiasOff = kVOff + kStages * kKVBytes;
+  static constexpr int kBarOff = kBiasOff + (HAS_BIAS ? kBQ * kBK * 4 : 0);
+  // Q full, K/V full and empty per stage, bias full and empty
+  static constexpr int kBars = 1 + 2 * kStages + 2;
+  static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
+  static_assert(kSmemBytes <= 232448, "shared memory");
+  static_assert(DP % 16 == 0 && DP <= 128, "head dim");
+};
+
+struct Params {
+  __nv_bfloat16* out;
+  float* lse;
+  int H, Lq, Lk, d, n_qt;
+  long long os[3];  // out's (batch, head, seq) element strides
+  float scale;
+  MaskArgs m;
+};
+
+// The bias tile in shared memory, in the bias's own dtype T: row r, column
+// c at r * kBK + (c ^ 8 * (r % 8)). The swizzle keeps each 16-byte vector
+// whole, and a quad's pair reads of eight rows fall in distinct banks.
+__device__ __forceinline__ int bias_at(int r, int c) {
+  return r * kBK + (c ^ ((r & 7) << 3));
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// The producer warpgroup's 128 threads copy the bias tile (rows q0.., keys
+// k0..; zeros past Lq and Lk) into shared memory, each ending with one
+// arrival on `full`. Where the key axis is contiguous and rows start on 16
+// bytes: 16-byte cp.async copies (zero-filled past the ends), which hold no
+// registers, so a thread keeps all of its V / kBK of the tile in flight;
+// else one element at a time.
+template <typename T>
+__device__ __forceinline__ void stage_bias(T* tile, const MaskArgs& m,
+                                           long long base, int q0, int k0,
+                                           int Lq, int Lk, int tid,
+                                           uint32_t full) {
+  constexpr int V = 16 / sizeof(T), kVecs = kBK / V, kRows = 128 / kVecs;
+  const T* bias = static_cast<const T*>(m.bias);
+  const bool vec =
+      m.bs[3] == 1 && m.bs[2] % V == 0 &&
+      reinterpret_cast<uintptr_t>(bias + base + q0 * m.bs[2] + k0) % 16 == 0;
+  if (vec) {
+    // the producer holds 40 registers: a short unroll and running pointers
+    const int rr = tid / kVecs, c0 = (tid % kVecs) * V;
+    const int bytes = max(0, min(V, Lk - k0 - c0)) * sizeof(T);
+    const T* src = bias + base + (q0 + rr) * m.bs[2] + k0 + c0;
+    const long long step = kRows * m.bs[2];
+#pragma unroll 2
+    for (int r = rr; r < kBQ; r += kRows, src += step)
+      s9::cp_async_16(s9::smem_u32(tile + bias_at(r, c0)),
+                      q0 + r < Lq && bytes > 0 ? src : bias,
+                      q0 + r < Lq ? bytes : 0);
+    s9::cp_async_mbar_arrive(full);  // when this thread's copies have landed
+    return;
+  }
+  const int col = k0 + tid;  // thread tid: column tid of every row
+#pragma unroll 2
+  for (int r = 0; r < kBQ; ++r)
+    tile[bias_at(r, tid)] =
+        q0 + r < Lq && col < Lk ? bias[base + (q0 + r) * m.bs[2] +
+                                       col * m.bs[3]]
+                                : T(0.f);
+  s9::mbar_arrive(full);
+}
+
+// logit = scale * s + bias in fp32, for this thread's rows rl0 and rl1.
+template <typename T>
+__device__ __forceinline__ void add_bias(float (&s)[kBK / 2], const T* tile,
+                                         int rl0, int rl1, int t,
+                                         float scale) {
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    const float2 b0 = load_pair(tile + bias_at(rl0, 8 * j + 2 * t));
+    const float2 b1 = load_pair(tile + bias_at(rl1, 8 * j + 2 * t));
+    s[4 * j] = fmaf(s[4 * j], scale, b0.x);
+    s[4 * j + 1] = fmaf(s[4 * j + 1], scale, b0.y);
+    s[4 * j + 2] = fmaf(s[4 * j + 2], scale, b1.x);
+    s[4 * j + 3] = fmaf(s[4 * j + 3], scale, b1.y);
+  }
+}
+
+template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const Params p) {
+  using C = Cfg<DP, HAS_BIAS>;
+  constexpr bool kSelect = CAUSAL || HAS_BIAS || HAS_SEG;
+
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = s9::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1 KB
+  float* bias_s =
+      reinterpret_cast<float*>(smem_raw + (base - raw) + C::kBiasOff);
+  const uint32_t q_s = base, k_s = base + C::kKOff, v_s = base + C::kVOff;
+  const uint32_t q_full = base + C::kBarOff;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * C::kStages;
+  const uint32_t bias_full = empty0 + 8 * C::kStages, bias_empty = bias_full + 8;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x / p.n_qt;
+  int qt = blockIdx.x % p.n_qt;
+  if (CAUSAL) qt = p.n_qt - 1 - qt;  // the longest rows start first
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = qt * kBQ;
+
+  if (tid == 0) {
+    s9::mbar_init(q_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      s9::mbar_init(full0 + 8 * s, 1);
+      s9::mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    if (HAS_BIAS) {
+      s9::mbar_init(bias_full, 128);
+      s9::mbar_init(bias_empty, kConsumers);
+    }
+    s9::mbar_init_fence();
+  } else if (tid == 32) {  // fetch the descriptors while barriers are set up
+    s9::prefetch_tensormap(&tq);
+    s9::prefetch_tensormap(&tk);
+    s9::prefetch_tensormap(&tv);
+  }
+  __syncthreads();
+
+  // The key tiles this block visits, the same walk in every role: all of
+  // them; up to the diagonal when causal; the range whose segment ids
+  // overlap this query tile's, less the disjoint tiles inside it.
+  const int n_kt = (p.Lk + kBK - 1) / kBK;
+  int kt_begin = 0, kt_end = n_kt;
+  if (CAUSAL) kt_end = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
+  const int* q_bound = nullptr;
+  const int* k_bounds = nullptr;
+  if (HAS_SEG) {
+    const int tile = b * p.n_qt + qt;
+    kt_begin = max(kt_begin, p.m.lo[tile]);
+    kt_end = min(kt_end, p.m.hi[tile] + 1);
+    q_bound = p.m.q_bounds + 2 * tile;
+    k_bounds = p.m.kv_bounds + 2 * b * n_kt;
+  }
+
+  if (tid < 128) {
+    // ------------------------------------------------------------ producer
+    s9::reg_dealloc<kProducerRegs>();
+    if (tid == 0) {
+      s9::mbar_expect_tx(q_full, C::kQBytes);
+      for (int c = 0; c < C::kChunks; ++c)
+        s9::tma_load_4d(q_s + c * C::kQChunk, &tq, q_full, c * C::W, q0, h, b);
+    }
+    const long long bias_base = HAS_BIAS ? b * p.m.bs[0] + h * p.m.bs[1] : 0;
+    int stage = 0;
+    uint32_t phase = 0, bias_phase = 0;
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+      if (HAS_SEG && !seg_overlap(q_bound, k_bounds + 2 * kt)) continue;
+      const int k0 = kt * kBK;
+      if (tid == 0) {
+        const uint32_t full = full0 + 8 * stage;
+        s9::mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        s9::mbar_expect_tx(full, 2 * C::kKVBytes);
+        for (int c = 0; c < C::kChunks; ++c) {
+          const int off = stage * C::kKVBytes + c * C::kKVChunk;
+          s9::tma_load_4d(k_s + off, &tk, full, c * C::W, k0, h, b);
+          s9::tma_load_4d(v_s + off, &tv, full, c * C::W, k0, h, b);
+        }
+      }
+      if (HAS_BIAS) {
+        s9::mbar_wait(bias_empty, bias_phase ^ 1);
+        if (p.m.bias_bf16)
+          stage_bias(reinterpret_cast<__nv_bfloat16*>(bias_s), p.m,
+                     bias_base, q0, k0, p.Lq, p.Lk, tid, bias_full);
+        else
+          stage_bias(bias_s, p.m, bias_base, q0, k0, p.Lq, p.Lk, tid,
+                     bias_full);
+        bias_phase ^= 1;
+      }
+      if (++stage == C::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    s9::reg_alloc<kConsumerRegs>();
+    const int cw = (tid - 128) / 128;  // query rows 64*cw .. 64*cw + 63
+    const int warp = (tid / 32) % 4, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int rl0 = 64 * cw + 16 * warp + g, rl1 = rl0 + 8;  // tile rows
+    const int r0 = q0 + rl0, r1 = q0 + rl1;
+    const int* kv_ids = nullptr;
+    int qid0 = -1, qid1 = -1;
+    if (HAS_SEG) {
+      kv_ids = p.m.kv_ids + static_cast<long long>(b) * p.Lk;
+      const int* ids = p.m.q_ids + static_cast<long long>(b) * p.Lq;
+      if (r0 < p.Lq) qid0 = ids[r0];
+      if (r1 < p.Lq) qid1 = ids[r1];
+    }
+    // exp(x * scale) = exp2(x * c); with a bias the logits are scaled first
+    const float c = HAS_BIAS ? kLog2e : p.scale * kLog2e;
+    float m0 = kNegInf, m1 = kNegInf;  // running row max (logit units)
+    float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+    float o[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float s[kBK / 2];
+    const uint32_t q_rows = q_s + cw * 64 * C::W * 2;  // this group's Q rows
+
+    s9::mbar_wait(q_full, 0);  // also when no tile is visited: TMA is done
+    int stage = 0;
+    uint32_t phase = 0, bias_phase = 0;
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+      if (HAS_SEG && !seg_overlap(q_bound, k_bounds + 2 * kt)) continue;
+      const int k0 = kt * kBK;
+      const uint32_t ks = k_s + stage * C::kKVBytes;
+      const uint32_t vs = v_s + stage * C::kKVBytes;
+      // Which per-logit masks this tile needs; the segment ids of this
+      // thread's 32 key columns are loaded before the wait, so that their
+      // latency hides behind the copy and Q K^T.
+      bool need_mask = k0 + kBK > p.Lk;
+      if (CAUSAL) need_mask = need_mask || k0 + kBK - 1 > q0 + 64 * cw;
+      int kv_id[HAS_SEG ? kBK / 8 : 1][2];
+      bool seg_mask = false;  // the two tiles are not all one segment
+      if (HAS_SEG) {
+        const int* kb = k_bounds + 2 * kt;
+        seg_mask = !(q_bound[0] == q_bound[1] && kb[0] == kb[1] &&
+                     q_bound[0] == kb[0]);
+        need_mask = need_mask || seg_mask;
+        if (seg_mask) {
+#pragma unroll
+          for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = k0 + 8 * j + 2 * t + e;
+              kv_id[j][e] = col < p.Lk ? kv_ids[col] : -1;
+            }
+        }
+      }
+      s9::mbar_wait(full0 + 8 * stage, phase);
+
+      // S = Q K^T: 64 rows x 128 keys, raw logits.
+      s9::fence_regs(s);
+      s9::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t chunk = kk * 16 / C::W, off = (kk * 16 % C::W) * 2;
+        s9::wgmma_ss_n128(
+            s,
+            s9::smem_desc(q_rows + chunk * C::kQChunk + off, 16, C::kAtom,
+                          C::kLayout),
+            s9::smem_desc(ks + chunk * C::kKVChunk + off, 16, C::kAtom,
+                          C::kLayout),
+            kk > 0);
+      }
+      s9::wgmma_commit();
+      s9::wgmma_wait<0>();
+      s9::fence_regs(s);
+
+      if (HAS_BIAS) {  // logit = scale * s + bias, in fp32
+        s9::mbar_wait(bias_full, bias_phase);
+        if (p.m.bias_bf16)
+          add_bias(s, reinterpret_cast<const __nv_bfloat16*>(bias_s), rl0,
+                   rl1, t, p.scale);
+        else
+          add_bias(s, bias_s, rl0, rl1, t, p.scale);
+        s9::mbar_arrive(bias_empty);
+        bias_phase ^= 1;
+      }
+
+      // Per-logit masks, only on the tiles that need them.
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * j + 2 * t + (e & 1);
+            bool visible = col < p.Lk;
+            if (CAUSAL) visible = visible && col <= (e < 2 ? r0 : r1);
+            if (HAS_SEG && seg_mask)
+              visible = visible && kv_id[j][e & 1] == (e < 2 ? qid0 : qid1);
+            if (!visible) s[4 * j + e] = kNegInf;
+          }
+        }
+      }
+
+      // Online softmax in registers.
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      // a row with nothing visible yet subtracts 0: its P stays 0
+      const float mu0 = kSelect && mn0 == kNegInf ? 0.f : mn0;
+      const float mu1 = kSelect && mn1 == kNegInf ? 0.f : mn1;
+      const float al0 = s9::exp2_approx((m0 - mu0) * c);
+      const float al1 = s9::exp2_approx((m1 - mu1) * c);
+      m0 = mn0;
+      m1 = mn1;
+      const float sub0 = mu0 * c, sub1 = mu1 * c;
+      float sum0 = 0.f, sum1 = 0.f;
+      uint32_t pa[kBK / 16][4];  // P in bf16: the A fragments of P V
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        float pr[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[4 * j + e];
+          pr[e] = s9::exp2_approx(fmaf(x, c, -(e < 2 ? sub0 : sub1)));
+          if (kSelect && x <= kNegInf) pr[e] = 0.f;  // selected, not exp'd
+        }
+        sum0 += pr[0] + pr[1];
+        sum1 += pr[2] + pr[3];
+        __nv_bfloat162 lo = __floats2bfloat162_rn(pr[0], pr[1]);
+        __nv_bfloat162 hi = __floats2bfloat162_rn(pr[2], pr[3]);
+        pa[j / 2][(j & 1) * 2] = *reinterpret_cast<uint32_t*>(&lo);
+        pa[j / 2][(j & 1) * 2 + 1] = *reinterpret_cast<uint32_t*>(&hi);
+      }
+      l0 = l0 * al0 + sum0;
+      l1 = l1 * al1 + sum1;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        o[4 * j] *= al0;
+        o[4 * j + 1] *= al0;
+        o[4 * j + 2] *= al1;
+        o[4 * j + 3] *= al1;
+      }
+
+      // O += P V: V MN-major, the k-step kk is keys 16kk .. 16kk + 15.
+      s9::fence_regs(o);
+      s9::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        s9::wgmma_rs<DP>(o, pa[kk],
+                         s9::smem_desc(vs + kk * 16 * C::W * 2, C::kKVChunk,
+                                       C::kAtom, C::kLayout),
+                         1);
+      s9::wgmma_commit();
+      s9::wgmma_wait<0>();
+      s9::fence_regs(o);
+      s9::mbar_arrive(empty0 + 8 * stage);  // K and V of this stage are read
+      if (++stage == C::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // Epilogue: O / l in bf16 through out's strides; lse = m + log l.
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
+    const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+    __nv_bfloat16* ob = p.out + b * p.os[0] + h * p.os[1];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < p.d) {
+        if (r0 < p.Lq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + r0 * p.os[2] + col) =
+              __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        if (r1 < p.Lq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + r1 * p.os[2] + col) =
+              __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
+    }
+    if (t == 0) {
+      float* lb = p.lse + static_cast<long long>(bh) * p.Lq;
+      const float to_ln = c * kLn2;  // logit units -> natural log
+      if (r0 < p.Lq) lb[r0] = l0 == 0.f ? kNegInf : m0 * to_ln + logf(l0);
+      if (r1 < p.Lq) lb[r1] = l1 == 0.f ? kNegInf : m1 * to_ln + logf(l1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- host side
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A (D, L, H, B) tensor map of a bf16 operand over its (batch, head, seq)
+// element strides (head dim contiguous), box W columns x `rows` rows.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int d, int L, int H,
+                     int B, const long long* st, int W, int rows,
+                     CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const long long elem[3] = {st[2], st[1], st[0]};  // seq, head, batch
+  cuuint64_t strides[3];
+  cuuint64_t extent = dims[0] * 2;  // bytes spanned by the dims below
+  for (int i = 0; i < 3; ++i) {
+    // a dim of size 1 is never stepped: give it a dense stride
+    strides[i] = dims[i + 1] == 1 ? extent
+                                  : static_cast<cuuint64_t>(elem[i]) * 2;
+    extent = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(W),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DP, bool CAUSAL = false, bool HAS_BIAS = false,
+          bool HAS_SEG = false>
+cudaError_t launch(const void* q, const void* k, const void* v, int B,
+                   const long long* st, const Params& p,
+                   cudaStream_t stream) {
+  using C = Cfg<DP, HAS_BIAS>;
+  const CUtensorMapSwizzle sw =
+      C::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, q, p.d, p.Lq, p.H, B, st, C::W, kBQ, sw);
+  if (err == cudaSuccess)
+    err = make_map(&tk, k, p.d, p.Lk, p.H, B, st + 3, C::W, kBK, sw);
+  if (err == cudaSuccess)
+    err = make_map(&tv, v, p.d, p.Lk, p.H, B, st + 6, C::W, kBK, sw);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_sm90_kernel<DP, CAUSAL, HAS_BIAS, HAS_SEG>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<p.n_qt * B * p.H, kThreads, C::kSmemBytes, stream>>>(tq, tk, tv,
+                                                                 p);
+  return cudaGetLastError();
+}
+
+// The masked forms at one head dim; code = 4*causal + 2*has_bias + has_seg.
+template <int DP>
+cudaError_t launch_masked(int code, const void* q, const void* k,
+                          const void* v, int B, const long long* st,
+                          const Params& p, cudaStream_t s) {
+  switch (code) {
+#define FDSD_FORM(CODE, CA, BI, SE) \
+  case CODE:                        \
+    return launch<DP, CA, BI, SE>(q, k, v, B, st, p, s);
+    FDSD_FORM(1, false, false, true)
+    FDSD_FORM(2, false, true, false)
+    FDSD_FORM(3, false, true, true)
+    FDSD_FORM(4, true, false, false)
+    FDSD_FORM(5, true, false, true)
+    FDSD_FORM(6, true, true, false)
+    FDSD_FORM(7, true, true, true)
+#undef FDSD_FORM
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// strides: 16 element strides, (batch, head, seq) for q, k, v, out, then
+// (batch, head, row, col) for the bias; the head-dim stride is 1. lse is
+// (B, H, Lq) contiguous fp32. bias (fp32, or bf16 when bias_bf16) and the six
+// segment arrays of mask.cuh are null when the form is not asked for. Head
+// dims 40, 48, 64, 72, 80 and 128 run here, the masked forms at 64 and 128;
+// d = 512 (no mask) goes to flash_attention.cu; others return
+// cudaErrorInvalidValue.
+extern "C" int fdsd_flash_fwd(const void* q, const void* k, const void* v,
+                              void* out, void* lse, const void* bias,
+                              const void* q_ids, const void* kv_ids,
+                              const void* q_bounds, const void* kv_bounds,
+                              const void* lo, const void* hi, int B, int H,
+                              int Lq, int Lk, int d, const long long* strides,
+                              float scale, int causal, int bias_bf16,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int code = 4 * (causal != 0) + 2 * (bias != nullptr) +
+                   (q_ids != nullptr);
+  if (d == 512) {
+    if (code != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(fdsd::flash_fwd_d512(q, k, v, out, lse, B, H, Lq,
+                                                 Lk, strides, scale, s));
+  }
+  Params p;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.H = H;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.d = d;
+  p.n_qt = (Lq + kBQ - 1) / kBQ;
+  for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
+  p.scale = scale;
+  p.m = fdsd::make_mask_args(bias, strides + 12, bias_bf16, q_ids, kv_ids,
+                             q_bounds, kv_bounds, lo, hi);
+  cudaError_t err;
+  if (code != 0) {
+    if (d == 64)
+      err = launch_masked<64>(code, q, k, v, B, strides, p, s);
+    else if (d == 128)
+      err = launch_masked<128>(code, q, k, v, B, strides, p, s);
+    else
+      err = cudaErrorInvalidValue;
+    return static_cast<int>(err);
+  }
+  switch ((d + 15) / 16 * 16) {
+    case 48:  // SD1 UNet at 64^2: d = 40
+      err = launch<48>(q, k, v, B, strides, p, s);
+      break;
+    case 64:  // SigLIP tower, TinyVLM decoder, T5
+      err = launch<64>(q, k, v, B, strides, p, s);
+      break;
+    case 80:  // SD1 UNet at 32^2: d = 80 (and 72)
+      err = launch<80>(q, k, v, B, strides, p, s);
+      break;
+    case 128:  // tiny-SD UNet
+      err = launch<128>(q, k, v, B, strides, p, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

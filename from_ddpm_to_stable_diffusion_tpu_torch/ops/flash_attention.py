@@ -2,9 +2,11 @@
 position-masked forward and backward with the split-KV joint attention built
 on them (port of ``ops/flash_attention.py``).
 
-Forward: on CUDA tensors :func:`flash_attention_forward` launches the kernel
-of ``csrc/flash_attention.cu``, which stands in for both Pallas forward
-bodies of the JAX package (``_fwd_kernel_wide`` and ``_fwd_kernel``). On CPU
+Forward: on CUDA tensors :func:`flash_attention_forward` launches K1, which
+stands in for both Pallas forward bodies of the JAX package
+(``_fwd_kernel_wide`` and ``_fwd_kernel``): in bf16 the TMA / wgmma kernel of
+``csrc/flash_attention_sm90.cu`` at every head dim but 512, and the mma.sync
+kernel of ``csrc/flash_attention.cu`` at 512 (:func:`k1_route`). On CPU
 tensors it runs :func:`flash_attention_plain`. Same contract as the JAX
 forward: ``out`` in the input dtype with shape (B, H, Lq, D), ``lse`` fp32
 with shape (B, H, Lq).
@@ -69,8 +71,9 @@ import torch
 from . import _build
 
 # head dims the forward kernel is instantiated for: padded to 48, 64, 80, 128
-# or 512; the backward kernels, and the masked forms of all three, take 64
-# (SigLIP, the TinyVLM decoder, T5) and 128 (tiny-SD's UNet)
+# (the sm90 kernel) or 512 (the mma.sync one); the backward kernels, and the
+# masked forms of all three, take 64 (SigLIP, the TinyVLM decoder, T5) and
+# 128 (tiny-SD's UNet)
 _KERNEL_HEAD_DIMS = (40, 48, 64, 72, 80, 128, 512)
 _BWD_HEAD_DIMS = (64, 128)
 _MASK_HEAD_DIMS = (64, 128)
@@ -82,9 +85,9 @@ _FP32_BWD_HEAD_DIMS = (64, 128)
 _FP32_CAUSAL_HEAD_DIMS = (64,)
 _FP32_POS_HEAD_DIMS = (64,)
 NEG_INF = -1e30   # lse of a row with no visible key
-# (query tile, key tile) of K1, K3 and K4: the sizes the segment-id tile
-# bounds and ranges handed to each kernel are built at
-_FWD_TILES, _DQ_TILES, _DKV_TILES = (64, 64), (64, 32), (64, 64)
+# (query tile, key tile) of K1 (the sm90 kernel), K3 and K4: the sizes the
+# segment-id tile bounds and ranges handed to each kernel are built at
+_FWD_TILES, _DQ_TILES, _DKV_TILES = (128, 128), (64, 32), (64, 64)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -307,9 +310,10 @@ def _check_operand(name, x, like):
             f"aligned, got strides {x.stride()}")
 
 
-def _check_qkv(q, k, v, fn, head_dims, fp32_dims=()):
+def _check_qkv(q, k, v, fn, head_dims=None, fp32_dims=()):
     """(b, h, lq, lk, d) after the checks every kernel wrapper makes.
-    ``head_dims`` are the bf16 form's, ``fp32_dims`` the fp32 form's."""
+    ``head_dims`` are the bf16 form's, ``fp32_dims`` the fp32 form's; with
+    none, the caller checks the head dim (K1: :func:`k1_route`)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, L, D)")
     if not q.is_cuda:
@@ -321,13 +325,14 @@ def _check_qkv(q, k, v, fn, head_dims, fp32_dims=()):
     if k.shape != (b, h, lk, d) or v.shape != k.shape or lk == 0:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if q.dtype == torch.float32 and d not in fp32_dims:
-        raise NotImplementedError(
-            f"head dim {d} in fp32: the fp32 form of {fn} takes {fp32_dims}"
-            + (f"; pass bf16 tensors (it takes {head_dims})"
-               if d in head_dims else ""))
-    if d not in head_dims:
-        raise NotImplementedError(f"head dim {d}: {fn} takes {head_dims}")
+    if head_dims is not None:
+        if q.dtype == torch.float32 and d not in fp32_dims:
+            raise NotImplementedError(
+                f"head dim {d} in fp32: the fp32 form of {fn} takes "
+                f"{fp32_dims}" + (f"; pass bf16 tensors (it takes "
+                                  f"{head_dims})" if d in head_dims else ""))
+        if d not in head_dims:
+            raise NotImplementedError(f"head dim {d}: {fn} takes {head_dims}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, q)
     return b, h, lq, lk, d
@@ -338,6 +343,11 @@ def _blhd(like, n):
     b, h, _, d = like.shape
     return torch.empty((b, n, h, d), device=like.device,
                        dtype=like.dtype).transpose(1, 2)
+
+
+def _lse_like(q):
+    """Empty fp32 (B, H, Lq) row statistics for q."""
+    return torch.empty(q.shape[:3], device=q.device, dtype=torch.float32)
 
 
 def _strides(*xs, bias=None):
@@ -382,15 +392,30 @@ def _mask_args(q, lk, bias, segment_ids, causal, fn, tiles, over):
     return bias, ptrs, flags, keep
 
 
-def _count_launch(fn, q, bias=None, segment_ids=None, causal=False):
+def _count_launch(fn, q, bias=None, segment_ids=None, causal=False,
+                  route=None):
     """One more launch of ``fn``'s kernel: in ``fn.launches``, by q's dtype
-    in ``fn.dtypes`` and, where ``fn`` has masked forms, by form (causal,
-    bias, segment ids) in ``fn.forms``."""
+    in ``fn.dtypes``, where ``fn`` has masked forms by form (causal, bias,
+    segment ids) in ``fn.forms``, and by ``route`` in ``fn.routes``."""
     fn.launches += 1
+    if route is not None:
+        fn.routes[route] += 1
     fn.dtypes["fp32" if q.dtype == torch.float32 else "bf16"] += 1
     if hasattr(fn, "forms"):
         fn.forms[(bool(causal), bias is not None,
                   segment_ids is not None)] += 1
+
+
+def _check_fp32_form(fn, d, causal, bias, segments) -> None:
+    """Raises for the forms of ``fn`` that exist in bf16 only."""
+    if bias or segments:
+        raise NotImplementedError(
+            f"{fn}: the bias and segment-id forms take bf16 only; pass bf16 "
+            "q, k, v (fp32 runs without a mask or with causal=True)")
+    if causal and d not in _FP32_CAUSAL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{fn}: causal=True in fp32 takes head dims "
+            f"{_FP32_CAUSAL_HEAD_DIMS}; pass bf16 q, k, v at head dim {d}")
 
 
 def _fp32_masks(q, fn, bias, segment_ids, causal) -> bool:
@@ -398,15 +423,8 @@ def _fp32_masks(q, fn, bias, segment_ids, causal) -> bool:
     only."""
     if q.dtype != torch.float32:
         return False
-    if bias is not None or segment_ids is not None:
-        raise NotImplementedError(
-            f"{fn}: the bias and segment-id forms take bf16 only; pass bf16 "
-            "q, k, v (fp32 runs without a mask or with causal=True)")
-    if causal and q.shape[-1] not in _FP32_CAUSAL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{fn}: causal=True in fp32 takes head dims "
-            f"{_FP32_CAUSAL_HEAD_DIMS}; pass bf16 q, k, v at head dim "
-            f"{q.shape[-1]}")
+    _check_fp32_form(fn, q.shape[-1], causal, bias is not None,
+                     segment_ids is not None)
     return True
 
 
@@ -414,18 +432,55 @@ def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
+             segments: bool = False) -> str:
+    """Which K1 kernel a CUDA launch of this dtype, head dim and form runs:
+    "sm90" (``csrc/flash_attention_sm90.cu``, TMA and wgmma: bf16 at every
+    head dim but 512, every mask form at 64 and 128), "d512" (the mma.sync
+    kernel of ``csrc/flash_attention.cu``, bf16 without a mask) or "fp32"
+    (``csrc/fp32/flash_f32_fwd.cu``). Raises ``NotImplementedError`` naming
+    what the kernels take for any other."""
+    fn = "flash_attention_cuda"
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the flash kernels take bf16 or fp32, not {dtype}")
+    if dtype == torch.float32:
+        if d not in _FP32_HEAD_DIMS:
+            raise NotImplementedError(
+                f"head dim {d} in fp32: the fp32 form of {fn} takes "
+                f"{_FP32_HEAD_DIMS}")
+        _check_fp32_form(fn, d, causal, bias, segments)
+        return "fp32"
+    if d not in _KERNEL_HEAD_DIMS:
+        raise NotImplementedError(f"head dim {d}: {fn} takes "
+                                  f"{_KERNEL_HEAD_DIMS}")
+    if (causal or bias or segments) and d not in _MASK_HEAD_DIMS:
+        raise NotImplementedError(
+            f"head dim {d}: the masked forms of {fn} take {_MASK_HEAD_DIMS}")
+    return "d512" if d == 512 else "sm90"
+
+
+def _tma_operand(x):
+    """``x`` as a TMA tensor map can describe it: copied only when a stride
+    is 0 on an axis longer than 1 (an expanded tensor)."""
+    if any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
+        return x.contiguous()
+    return x
+
+
 def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
                          bias=None, segment_ids=None, causal: bool = False):
     """K1, the CUDA kernel: (out, lse) for bf16 or fp32 (B, H, L, D) CUDA
     tensors, with the masks of :func:`flash_attention_plain` (head dim 64 or
-    128; in fp32 only ``causal``, at head dim 64)."""
-    b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_cuda",
-                                 _KERNEL_HEAD_DIMS, _FP32_HEAD_DIMS)
+    128; in fp32 only ``causal``, at head dim 64). Which kernel runs:
+    :func:`k1_route`; launches are counted by route in ``.routes``."""
+    b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_cuda")
+    route = k1_route(q.dtype, d, bool(causal), bias is not None,
+                     segment_ids is not None)
     if scale is None:
         scale = d ** -0.5
-    if _fp32_masks(q, "flash_attention_cuda", bias, segment_ids, causal):
+    if route == "fp32":
         out = _blhd(q, lq)
-        lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+        lse = _lse_like(q)
         strides = _strides(q, k, v, out)
         err = _build.load("kernels_fp32").fdsd_flash_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -433,13 +488,15 @@ def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
             ctypes.cast(strides, ctypes.c_void_p), float(scale),
             int(bool(causal)), _stream(q))
         _build.check(err, "fdsd_flash_fwd_f32")
-        _count_launch(flash_attention_cuda, q, causal=causal)
+        _count_launch(flash_attention_cuda, q, causal=causal, route=route)
         return out, lse
+    if route == "sm90":
+        q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
     bias, ptrs, flags, _held = _mask_args(
         q, lk, bias, segment_ids, causal, "flash_attention_cuda", _FWD_TILES,
         "q")
     out = _blhd(q, lq)
-    lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+    lse = _lse_like(q)
     strides = _strides(q, k, v, out, bias=bias)
     lib = _build.load()
     err = lib.fdsd_flash_fwd(
@@ -448,13 +505,14 @@ def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
         ctypes.cast(strides, ctypes.c_void_p), float(scale), *flags,
         _stream(q))
     _build.check(err, "fdsd_flash_fwd")
-    _count_launch(flash_attention_cuda, q, bias, segment_ids, causal)
+    _count_launch(flash_attention_cuda, q, bias, segment_ids, causal, route)
     return out, lse
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.forms = collections.Counter()
 flash_attention_cuda.dtypes = collections.Counter()
+flash_attention_cuda.routes = collections.Counter()
 
 
 def flash_attention_forward(q, k, v, scale: Optional[float] = None, **masks):
@@ -747,7 +805,7 @@ def flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, *,
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, stability)
     _check_pos(q, scale, q_offsets, kv_offsets)
     out = _blhd(q, lq)
-    lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+    lse = _lse_like(q)
     strides = _strides(q, k, v, out)
     err = _pos_entry(q, "fdsd_flash_fwd_pos")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -28,6 +28,10 @@ The causal, bias and segment-id forms of K1, K3 and K4 against the plain
 versions under the same masks: the same tolerances; dbias (fp32 dS tiles
 summed over the bias's broadcast axes) to 2e-2 of its largest magnitude;
 rows that see no key give out = 0, lse <= -1e29 and finite gradients.
+K1 on TMA and wgmma (``csrc/flash_attention_sm90.cu``) at the same
+tolerances, at lengths around its 128-row tiles, on fused-projection slices,
+with broadcast biases, segment ids at its tiles, and into out / lse buffers
+filled with NaN; its launches counted by route.
 The fp32 forms of K1, K3 - K7 against the plain fp32 versions (TF32 off):
 out and lse to 1e-4 absolute, each gradient to 1e-4 of its largest
 magnitude; the plain version fed operands rounded once to bf16 must fall
@@ -571,6 +575,111 @@ def test_flash_masks_through_dispatch_and_autograd(gen):
     out.backward(_randn(gen, 1, 4, 512, 64))
     assert counts() == tuple(c + 1 for c in n)
     assert bias.grad.shape == bias.shape and bool(bias.grad.any())
+
+
+# ------------------------------------------------- K1 on TMA and wgmma
+def _k1_check(q, k, v, **masks):
+    out, lse = tfa.flash_attention_cuda(q, k, v, **masks)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, **masks)
+    seen = ref_lse > -1e29
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float())[seen].abs().max().item() <= 2e-2
+    assert (lse - ref_lse)[seen].abs().max().item() <= 1e-3
+    assert bool((lse[~seen] <= -1e29).all()) and not bool(out[~seen].any())
+    return out, lse
+
+
+EDGE_LENGTHS = (1, 127, 128, 129, 257)
+
+
+@pytest.mark.parametrize("lk", EDGE_LENGTHS)
+@pytest.mark.parametrize("lq", EDGE_LENGTHS)
+def test_sm90_k1_lengths_around_its_tiles(gen, lq, lk):
+    """Lq and Lk around the 128-row tiles (Lk < 128 too), at the four
+    padded head dims (40 -> 48, 64, 72 -> 80, 128) and causal at 64."""
+    for d in (40, 64, 72, 128):
+        q, k, v = (_randn(gen, 2, 3, n, d) for n in (lq, lk, lk))
+        _k1_check(q, k, v)
+    q, k, v = (_randn(gen, 2, 3, n, 64) for n in (lq, lk, lk))
+    _k1_check(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("d", [40, 72])
+def test_sm90_k1_reads_fused_projection_slices(gen, d):
+    """q|k|v column slices of one (B, L, 3*H*D) projection: the tensor maps
+    start 2*H*D bytes apart with head offsets of 2*D = 80 / 144 bytes."""
+    b, l, h = 2, 333, 5
+    q, k, v = (t.reshape(b, l, h, d).transpose(1, 2)
+               for t in _randn(gen, b, l, 3 * h * d).chunk(3, dim=-1))
+    n = tfa.flash_attention_cuda.routes["sm90"]
+    _k1_check(q, k, v)
+    assert tfa.flash_attention_cuda.routes["sm90"] == n + 1
+
+
+@pytest.mark.parametrize("lq,lk", [(512, 512), (200, 333)])
+@pytest.mark.parametrize("bias_bh", [(1, 4), (1, 1), (2, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sm90_k1_bias_broadcast_strides(gen, lq, lk, bias_bh, dtype):
+    """T5's bias, stride 0 over the batch, and stride 0 over both leading
+    axes or over the heads; rows of 333 keys are not 16-byte aligned."""
+    q, k, v = (_randn(gen, 2, 4, n, 64) for n in (lq, lk, lk))
+    bias = 4.0 * _randn(gen, *bias_bh, lq, lk, dtype=dtype)
+    _k1_check(q, k, v, bias=bias, scale=1.0)
+    _k1_check(q, k, v, bias=bias, causal=True)
+
+
+@pytest.mark.parametrize("kind", ["tile-aligned", "straddling", "no key"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k1_segments_at_its_tiles(gen, kind, d):
+    """Segment ids at the kernel's (128, 128) tiles: sequences that fill
+    whole tiles (no per-logit mask), sequences across tile edges, and rows
+    whose id no key has."""
+    assert tfa._FWD_TILES == (128, 128)
+    b, l = 2, 700
+    idx = torch.arange(l, device="cuda")
+    ids = {"tile-aligned": idx // 256, "straddling": (idx * 7) // l,
+           "no key": idx // 128}[kind].int()[None].expand(b, -1).contiguous()
+    kv_ids = ids if kind != "no key" else torch.where(
+        ids == 2, 9, ids).int().contiguous()
+    q, k, v = (_randn(gen, b, 3, l, d) for _ in range(3))
+    for causal in (False, True):
+        _k1_check(q, k, v, segment_ids=(ids, kv_ids), causal=causal)
+
+
+def test_sm90_k1_writes_every_row(gen, monkeypatch):
+    """out and lse are handed to the kernel filled with NaN: every row, in
+    every form, must be written (rows that see no key as 0)."""
+    blhd = tfa._blhd
+    monkeypatch.setattr(tfa, "_blhd", lambda like, n: blhd(like, n).fill_(
+        float("nan")))
+    monkeypatch.setattr(tfa, "_lse_like", lambda q: torch.full(
+        q.shape[:3], float("nan"), device=q.device))
+    idx = torch.arange(300, device="cuda")
+    ids = torch.where(idx % 50 == 3, 7, idx // 100).int()[None]
+    cases = [((1, 2, 300, 300, 40), {}), ((2, 3, 129, 257, 128), {}),
+             ((1, 2, 300, 300, 64), dict(causal=True)),
+             ((1, 2, 300, 300, 64), dict(segment_ids=(ids, idx.int()[None]
+                                                      // 100))),
+             ((1, 2, 300, 300, 128), dict(bias=_randn(gen, 1, 2, 300, 300)))]
+    for (b, h, lq, lk, d), masks in cases:
+        q, k, v = (_randn(gen, b, h, n, d) for n in (lq, lk, lk))
+        out, lse = _k1_check(q, k, v, **masks)
+        assert bool(torch.isfinite(out).all()) and bool(
+            torch.isfinite(lse).all())
+
+
+def test_k1_launches_by_route(gen):
+    """bf16 at d != 512 takes the sm90 kernel, d = 512 the mma.sync one,
+    fp32 the fp32 library; each launch is counted under its route."""
+    routes = tfa.flash_attention_cuda.routes
+    for d, dtype, route in ((40, torch.bfloat16, "sm90"),
+                            (512, torch.bfloat16, "d512"),
+                            (64, torch.float32, "fp32")):
+        q = _randn(gen, 1, 1, 130, d, dtype=dtype)
+        n = dict(routes)
+        tfa.flash_attention_cuda(q, q, q)
+        assert routes[route] == n.get(route, 0) + 1
+        assert sum(routes.values()) == sum(n.values()) + 1
 
 
 # ------------------------------------------------------------- fp32 forms
