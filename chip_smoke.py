@@ -12,17 +12,20 @@ two summary lines:
    objects, the bf16 flash kernels with GroupNorm and the fp32 flash kernels
    (``csrc/fp32/``), and prints each one's time and ptxas's register, spill
    and shared-memory lines; then counts the wgmma (HGMMA) and TMA (UTMALDG,
-   UBLKCP) instructions of each K1 kernel in the library's SASS
+   UBLKCP) instructions of each K1 and K4 kernel in the library's SASS
    (``cuobjdump -sass``) and fails unless all 18 instantiations of the sm90
-   K1 (``csrc/flash_attention_sm90.cu``) have both.
+   K1 (``csrc/flash_attention_sm90.cu``), the d = 512 K1
+   (``csrc/flash_attention.cu``) and all 16 of the sm90 K4
+   (``csrc/flash_attention_bwd_sm90.cu``) have both.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the SD1, tiny-SD and SD3 paths give it, in bf16 (and
    GroupNorm in fp32), with max errors, both times, the least time the card
    could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16,
    whichever is larger) and the time of the one PyTorch call that computes
    the same function (a yardstick only; nothing in the port calls it): K1
-   flash forward (TMA / wgmma at every head dim but 512), K2 GroupNorm, K3 / K4
-   flash backward (dq; dk and dv), K5
+   flash forward (TMA / wgmma; at d = 512 also with its keys split over 1
+   and 2 blocks per query tile), K2 GroupNorm, K3 / K4 flash backward (dq;
+   dk and dv, K4 on TMA / wgmma), K5
    position-masked flash forward (the four SD3 shapes, online and bounded;
    two-segment causal / valid_len masks, a ragged key tail, head dim 128,
    fully masked rows; the joint attention over 154 + 4096 tokens against
@@ -131,7 +134,8 @@ Every kernel's launch count is set to 0 just before each of the SD1, SD1
 generator, SD3, training, sampling, MMDiT training, MMDiT sampling, T5,
 TinyVLM training, TinyVLM decoding and fp32 paths and read just after (before
 the plain-attention run it is compared with), K1's also by the kernel it ran
-(sm90, d512, fp32). The last two lines are a
+(sm90, d512, fp32), K4's by the kernel it ran (sm90, fp32). The last two
+lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
 card's name and power limit come on the line before them. Imports nothing
 of JAX.
@@ -249,15 +253,16 @@ def phase_build():
 
 
 # The sm90 K1 instantiations: 4 padded head dims without a mask, 7 mask
-# forms at head dims 64 and 128.
-K1_SM90_KERNELS = 4 + 2 * 7
+# forms at head dims 64 and 128; the d = 512 K1; the sm90 K4: 8 forms at
+# head dims 64 and 128.
+K1_SM90_KERNELS, K1_D512_KERNELS, K4_SM90_KERNELS = 4 + 2 * 7, 1, 2 * 8
 
 
 def sass_check(library):
-    """Counts, in each K1 kernel of the built library, the wgmma (HGMMA) and
-    TMA (UTMALDG, UBLKCP) instructions of its SASS (cuobjdump -sass), and
-    checks that every sm90 instantiation has both and the d = 512 one
-    neither."""
+    """Counts, in each K1 and K4 kernel of the built library, the wgmma
+    (HGMMA) and TMA (UTMALDG, UBLKCP) instructions of its SASS (cuobjdump
+    -sass), and checks that every sm90 instantiation of K1 and K4 and the
+    d = 512 K1 have both."""
     import shutil
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -268,26 +273,34 @@ def sass_check(library):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if "flash_fwd" in m.group(1) and (
-                "pos" not in m.group(1)) else None
+            name = m.group(1)
+            fn = name if (("flash_fwd" in name and "pos" not in name)
+                          or "flash_bwd_dkv" in name) else None
             if fn:
                 counts[fn] = [0, 0]
         elif fn:
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += "UTMALDG" in line or "UBLKCP" in line
-    sm90 = {f: c for f, c in counts.items() if "sm90" in f}
-    for f, (hgmma, tma) in sorted(counts.items()):
-        # template arguments: padded head dim, then causal, bias, segments
-        inst = re.search(r"kernelILi(\d+)E(?:Lb(\d)ELb(\d)ELb(\d)E)?", f)
-        what = (f"DP={inst.group(1)} causal/bias/segments="
-                f"{'/'.join(inst.groups('-')[1:])}" if inst else f[-40:])
-        print(f"  sass K1 {'sm90' if f in sm90 else 'mma.sync'} {what}: "
-              f"HGMMA {hgmma}, UTMALDG/UBLKCP {tma}", flush=True)
-    check(len(sm90) == K1_SM90_KERNELS and all(
-        h > 0 and t > 0 for h, t in sm90.values()),
-        f"the sm90 K1 kernels lack wgmma or TMA in their SASS: {sm90}")
-    check(all(c == [0, 0] for f, c in counts.items() if f not in sm90),
-          "the d = 512 K1 kernel is expected on mma.sync")
+    kinds = {"K1 sm90": "flash_fwd_sm90", "K1 d512": "flash_fwd_d512",
+             "K4 sm90": "flash_bwd_dkv_sm90"}
+    want = {"K1 sm90": K1_SM90_KERNELS, "K1 d512": K1_D512_KERNELS,
+            "K4 sm90": K4_SM90_KERNELS}
+    found = {kind: {f: c for f, c in counts.items() if key in f}
+             for kind, key in kinds.items()}
+    for kind, fns in found.items():
+        for f, (hgmma, tma) in sorted(fns.items()):
+            # template arguments: padded head dim, then causal, bias, segments
+            inst = re.search(r"kernelILi(\d+)E(?:Lb(\d)ELb(\d)ELb(\d)E)?", f)
+            what = (f"DP={inst.group(1)} causal/bias/segments="
+                    f"{'/'.join(inst.groups('-')[1:])}" if inst else "DP=512")
+            print(f"  sass {kind} {what}: HGMMA {hgmma}, UTMALDG/UBLKCP {tma}",
+                  flush=True)
+        check(len(fns) == want[kind] and all(
+            h > 0 and t > 0 for h, t in fns.values()),
+            f"the {kind} kernels lack wgmma or TMA in their SASS: {fns}")
+    check(len(counts) == sum(want.values()),
+          f"K1 / K4 kernels off the sm90 routes: "
+          f"{sorted(set(counts) - {f for fns in found.values() for f in fns})}")
 
 
 # K1's timed cases, which compare_revisions.py times too. Without a mask,
@@ -367,13 +380,16 @@ def reset_counts():
 
 class Counts(dict):
     """Launches by kernel; ``k1_routes``: K1's launches by the kernel they
-    ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32")."""
+    ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32");
+    ``k4_routes``: K4's (``flash_attention_bwd_dkv_cuda.routes``: "sm90",
+    "fp32")."""
 
 
 def read_counts():
     fns = kernel_counters()
     counts = Counts((k, fn.launches) for k, fn in fns.items())
     counts.k1_routes = dict(getattr(fns["K1"], "routes", {}))
+    counts.k4_routes = dict(getattr(fns["K4"], "routes", {}))
     return counts
 
 
@@ -476,6 +492,7 @@ def phase_kernels(card):
 
     # K1: q, k, v are column slices of one fused projection, as on the path.
     bwd_reported = False
+    results["d512"] = []
     for i, (b, h, lq, lk, d) in enumerate(K1_SHAPES):
         split = lambda x, n: [t.reshape(b, n, h, d).transpose(1, 2)
                               for t in x.chunk(x.shape[-1] // (h * d), -1)]
@@ -498,6 +515,23 @@ def phase_kernels(card):
         check(err <= 2e-2 and lse_err <= 1e-3,
               f"K1 disagrees at {(b, h, lq, lk, d)}: {err} / {lse_err}")
         record("K1", err, i == 0, **times)
+        if d == 512:    # its keys over 1 and 2 blocks per query tile
+            split_ms, chosen = {}, fa.k1_d512_splits(b, h, lq, lk,
+                                                     fa._sm_count(q.device))
+            for n in (1, 2):
+                o_n, l_n = fa._flash_fwd_d512(q, k, v, d ** -0.5, n)
+                err_n = (o_n.float() - out.float()).abs().max().item()
+                check(err_n <= 2e-2 and (l_n - lse).abs().max().item() <= 1e-3,
+                      f"K1 d=512 with {n} key splits disagrees at "
+                      f"{(b, h, lq, lk, d)}: {err_n}")
+                split_ms[n] = cuda_ms(
+                    lambda: fa._flash_fwd_d512(q, k, v, d ** -0.5, n))
+            print(f"K1 d=512 key splits ({b},{h},{lq},{lk},{d}): 1 split "
+                  f"{split_ms[1]:.4f} ms, 2 splits {split_ms[2]:.4f} ms; the "
+                  f"route takes {chosen} [{card}]", flush=True)
+            results["d512"].append(dict(
+                shape=[b, h, lq, lk, d], max_abs_err=err, splits=chosen,
+                split_ms=split_ms, **times))
         if d == 128:    # the first of them (tiny-SD at 64^2) is reported
             for name, e in phase_kernels_bwd(card, q, k, v, out, lse, gen,
                                              tail).items():
@@ -806,14 +840,22 @@ def phase_kernels_masks(card, rnd, tail):
         t4 = dict(ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
                       q, k, v, g, lse, delta, scale, **masks), 10, 2),
                   **shared, **bnd(4, 2, 4, 2, 1))
+        fams = device_families(lambda: [fa.flash_attention_bwd_dkv_cuda(
+            q, k, v, g, lse, delta, scale, **masks) for _ in range(10)],
+            "K4 flash bwd dk/dv")
+        t4["device_ms"] = (fams["K4 flash bwd dk/dv"] / 10
+                           if "K4 flash bwd dk/dv" in fams else None)
         dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
+        dev4 = ("not measured" if t4["device_ms"] is None
+                else f"{t4['device_ms']:.4f} ms")
         print(f"{head}; {100.0 * pairs / (b * lq * lk):.1f} % of the pairs "
               f"visible; K1: {tail(**fwd)}, kernel device time {dev} "
               f"(profiler); the plain backward computes dq, "
               f"dk, dv{' and dbias' if need else ''} together, the library's "
               f"dq, dk and dv; K3{' with dbias' if need else ''}: "
               f"{tail(**t3)}; K4: "
-              f"{tail(**t4)}", flush=True)
+              f"{tail(**{k: x for k, x in t4.items() if k != 'device_ms'})}, "
+              f"kernel device time {dev4} (profiler)", flush=True)
         records.append(dict(
             form=what, shape=[b, h, lq, lk, d],
             visible_share=pairs / (b * lq * lk),
@@ -1452,6 +1494,7 @@ def _family(name: str) -> str:
     """Kernel family of a CUDA kernel name, for the device profiles."""
     n = name.lower()
     for key, fam in (("flash_fwd_pos", "K5 flash fwd pos"),
+                     ("merge_d512", "K1 flash fwd"),
                      ("flash_bwd_pos_dq", "K6 flash bwd pos dq"),
                      ("flash_bwd_pos_dkv", "K7 flash bwd pos dk/dv"),
                      ("flash_fwd", "K1 flash fwd"),
@@ -3045,16 +3088,19 @@ def main():
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"])
 
-    def by_route(route):
-        """K1's launches on one of its kernels, from the paths' runs."""
-        per_path = {p: run.k1_routes.get(route, 0)
+    def by_route(route, kernel="k1"):
+        """K1's (or K4's) launches on one of its kernels, from the paths'
+        runs."""
+        per_path = {p: getattr(run, kernel + "_routes").get(route, 0)
                     for p, run in zip(paths, runs)}
         return dict(launches=sum(per_path.values()),
                     launches_by_path=per_path)
 
-    check(all(sum(run.k1_routes.values()) == run["K1"] for run in runs),
-          "K1's launches by route do not add up to its launches: "
-          f"{[(run.k1_routes, run['K1']) for run in runs]}")
+    for k in ("K1", "K4"):
+        routes = [getattr(run, k.lower() + "_routes") for run in runs]
+        check(all(sum(r.values()) == run[k] for r, run in zip(routes, runs)),
+              f"{k}'s launches by route do not add up to its launches: "
+              f"{[(r, run[k]) for r, run in zip(routes, runs)]}")
     together = "dq, dk and dv together"
     summary = {"kernels": [
         entry("flash_attention_fwd", "flash_attention_sm90.cu",
@@ -3070,10 +3116,19 @@ def main():
                       "form for O += PV with V MN-major; 128-byte swizzle at "
                       "DP 64/128, 32-byte at 48/80"),
               d512=dict(source=pkg + "flash_attention.cu",
-                        design="mma.sync m16n8k16, S through shared memory, "
-                               "one block per 32 queries (not redesigned: "
-                               "queue B3)",
-                        **by_route("d512")),
+                        design=("bf16 at head dim 512: one block of 3 "
+                                "warpgroups per 64 queries (and key split), a "
+                                "producer issuing TMA (Q once, K and V tiles "
+                                "of 64 keys on their own single-stage "
+                                "mbarriers) and two consumers, each owning "
+                                "256 output columns, splitting S = QK^T by "
+                                "keys (wgmma m64n32k16 SS), exchanging row "
+                                "maxima under a named barrier, writing P in "
+                                "bf16 to a swizzled shared tile and running "
+                                "O += PV as wgmma m64n256k16 SS with V "
+                                "MN-major; below 132 query tiles the keys "
+                                "split over up to 4 blocks, merged by lse"),
+                        timed=kernels["d512"], **by_route("d512")),
               sm90=by_route("sm90"),
               timed_at="(B,H,Lq,Lk,D)=(2,8,4096,4096,40)",
               library="F.scaled_dot_product_attention", forms=forms_of("K1")),
@@ -3086,9 +3141,19 @@ def main():
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
               forms=forms_of("K3")),
-        entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+        entry("flash_attention_bwd_dkv", "flash_attention_bwd_sm90.cu",
               "flash_attention.py:764", "K4", plain_computes=together,
               library_computes=together,
+              design=("bf16 at head dims 64 and 128 in every form: one block "
+                      "of 3 warpgroups per 128 keys, a producer issuing TMA "
+                      "(K and V once, Q and dO tiles of 64 queries in a "
+                      "2-stage mbarrier ring, lse and delta stored beside "
+                      "them, the bias tile staged by cp.async) and two "
+                      "consumers of 64 keys computing S^T = KQ^T and dP^T = "
+                      "VdO^T with the keys as wgmma's M (m64n64k16 SS), P^T "
+                      "and dS^T in registers as the A operand of dV += "
+                      "P^T dO and dK += dS^T Q (wgmma RS, dO and Q MN-major)"),
+              sm90=by_route("sm90", "k4"),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
               forms=forms_of("K4")),

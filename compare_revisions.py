@@ -15,9 +15,12 @@ both of A's and both of B's values.
 Parts, all of them unless ``--only`` names some:
   - launch: K1's host path at small shapes (``chip_smoke.k1_launch_path``:
     the wrapper and its C entry alone, us per call, and the kernel's us);
-  - kernels: K1 at ``chip_smoke.K1_SHAPES`` and ``K1_FORMS``, wall ms per
-    call (``cuda_ms``) and the kernel's own device ms per call (profiler
-    kernel rows of K1 over 10 calls);
+  - kernels: K1 at ``chip_smoke.K1_SHAPES`` and ``K1_FORMS``, K3 and K4 at
+    the head-dim-128 shapes of ``K1_SHAPES`` and the TinyVLM's two forms of
+    ``K1_FORMS``, K2 at the SD1 UNet's and the largest SD3 VAE decoder's
+    GroupNorm, K5, K6 and K7 at the SD3 joint attention's x-by-x shape: wall
+    ms per call (``cuda_ms``) and the kernel's own device ms per call
+    (profiler kernel rows of its family over 10 calls);
   - training: ``chip_smoke.phase_training`` (the tiny-SD step) and
     ``phase_sampling`` (T = 250);
   - vlm: ``chip_smoke.phase_vlm_training`` (the TinyVLM step);
@@ -82,6 +85,59 @@ def _kernels(cs, out):
         out[key + " wall ms"] = cs.cuda_ms(call)
         out[key + " device ms"] = fams[K1] / 10 if K1 in fams else None
         del q, k, v, masks
+    torch.cuda.empty_cache()
+    _other_kernels(cs, out, rnd)
+
+
+def _timed(cs, out, key, family, call):
+    """Wall ms (``cuda_ms``) and device ms (profiler rows of ``family``) per
+    call."""
+    fams = cs.device_families(lambda: [call() for _ in range(10)], family)
+    out[key + " wall ms"] = cs.cuda_ms(call, 10, 2)
+    out[key + " device ms"] = fams[family] / 10 if family in fams else None
+
+
+def _other_kernels(cs, out, rnd):
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import groupnorm as gn
+
+    bf16 = torch.bfloat16
+    cases = [("none", s, {}) for s in cs.K1_SHAPES if s[-1] == 128]
+    cases += [f for f in cs.K1_FORMS if f[1] in ((16, 12, 576, 576, 64),
+                                                  (16, 12, 584, 584, 64))]
+    for name, (b, h, lq, lk, d), m in cases:
+        q, g = (rnd(b, h, lq, d).to(bf16) for _ in range(2))
+        k, v = (rnd(b, h, lk, d).to(bf16) for _ in range(2))
+        causal = m.get("causal", False)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal)
+        delta = (g.float() * o.float()).sum(-1)
+        key = f"{name} {(b, h, lq, lk, d)}"
+        _timed(cs, out, "K3 " + key, "K3 flash bwd dq",
+               lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
+                                                      causal=causal))
+        _timed(cs, out, "K4 " + key, "K4 flash bwd dk/dv",
+               lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
+                                                       causal=causal))
+        del q, g, k, v, o
+    for shape in ((2, 64, 64, 320), (1, 1024, 1024, 128)):
+        x = rnd(*shape).to(bf16)
+        w, bb = 1.0 + 0.1 * rnd(shape[-1]), 0.1 * rnd(shape[-1])
+        _timed(cs, out, f"K2 {shape} silu", "K2 group norm",
+               lambda: gn.group_norm_cuda(x, 32, w, bb, 1e-5, "silu"))
+    b, h, n, d = 2, 24, 4096, 64
+    q, k, v, g = (rnd(b, h, n, d).to(bf16) for _ in range(4))
+    z = torch.zeros(2, dtype=torch.int32, device="cuda")
+    o, lse = fa.flash_attention_pos_cuda(q, k, v, z, z)
+    delta = (g.float() * o.float()).sum(-1)
+    key = f"{(b, h, n, n, d)}"
+    _timed(cs, out, "K5 " + key, "K5 flash fwd pos",
+           lambda: fa.flash_attention_pos_cuda(q, k, v, z, z))
+    _timed(cs, out, "K6 " + key, "K6 flash bwd pos dq",
+           lambda: fa.flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, z, z))
+    _timed(cs, out, "K7 " + key, "K7 flash bwd pos dk/dv",
+           lambda: fa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, z, z))
     torch.cuda.empty_cache()
 
 

@@ -1,55 +1,41 @@
-// Flash-attention backward for Hopper (sm_90a): bf16 in and out, fp32
-// softmax reconstruction and accumulators. Two kernels, as in the JAX
-// package:
-//   K3 flash_bwd_dq_kernel replaces
-//     from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
-//   K4 flash_bwd_dkv_kernel replaces
-//     from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dkv_kernel
-// in every form of theirs: ragged Lq and Lk, and as template parameters
-// beside the head dim (so the no-mask instantiations stay the code they
-// were) CAUSAL (col <= row from index 0 on both sides), HAS_BIAS (an additive
-// bias read through its strides, added in fp32 after the scale) and HAS_SEG
-// (segment ids: same-id pairs only). Tiles with no visible pair are not
-// visited: K3 stops at the diagonal and K4 starts at it when causal, and with
-// segment ids the loop runs over the tiles [lo, hi] of the other axis whose
-// id range overlaps this block's and skips a disjoint tile inside it. With a
-// bias that needs a gradient K3 also writes dbias = dS, fp32 (B, H, Lq, Lk):
-// every tile exactly once, zeros where the tile is skipped, so the caller
-// reduces it over the bias's broadcast axes without a memset. Both recompute
-// the probabilities under the forward's saved lse, P = exp(scale*QK^T + bias
-// - lse), selected to 0 where the mask hides the key (never multiplied: a row
-// that saw no key has lse = -1e30),
-// with delta = rowsum(dO * out) computed beforehand (fp32, by the caller):
-//   dS = P * (dO V^T - delta),  dQ = scale * dS K,
-//   dK = scale * dS^T Q,        dV = P^T dO.
-// The TPU's sequential grid axis (key blocks for dq, query blocks for dk/dv)
-// becomes a loop inside the block.
+// Flash-attention backward dq (K3) for Hopper (sm_90a): bf16 in and out,
+// fp32 softmax reconstruction and accumulators. flash_bwd_dq_kernel replaces
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
+// in every form of its: ragged Lq and Lk, and as template parameters beside
+// the head dim (so the no-mask instantiations stay the code they were)
+// CAUSAL (col <= row from index 0 on both sides), HAS_BIAS (an additive bias
+// read through its strides, added in fp32 after the scale) and HAS_SEG
+// (segment ids: same-id pairs only). Key tiles with no visible pair are not
+// visited: the loop stops at the diagonal when causal, and with segment ids
+// runs over the key tiles [lo, hi] whose id range overlaps this block's and
+// skips a disjoint tile inside it. With a bias that needs a gradient it also
+// writes dbias = dS, fp32 (B, H, Lq, Lk): every tile exactly once, zeros
+// where the tile is skipped, so the caller reduces it over the bias's
+// broadcast axes without a memset. It recomputes the probabilities under the
+// forward's saved lse, P = exp(scale*QK^T + bias - lse), selected to 0 where
+// the mask hides the key (never multiplied: a row that saw no key has
+// lse = -1e30), with delta = rowsum(dO * out) computed beforehand (fp32, by
+// the caller): dS = P * (dO V^T - delta), dQ = scale * dS K. The TPU's
+// sequential key-block grid axis becomes a loop inside the block. dk and dv
+// (K4) are the TMA / wgmma kernel of flash_attention_bwd_sm90.cu.
 //
-// What bounds them on the H100: at the tiny-SD shapes (B*H = 32, L = 4096,
-// d = 128) K3 does 3 and K4 4 L^2*d products per (b, h), thousands of flop
-// per byte of q, k, v and dO: compute bound, so the limits are tensor-core
-// issue rate and the exponentials. This first version is the simple correct
-// form, like K1: mma.sync m16n8k16 (bf16 -> fp32), operands staged through
-// shared memory, and the operands that a product needs along the other
-// axis kept as a transposed copy in shared memory (no ldmatrix). Tiles that
-// get a transposed copy are loaded row-fastest, so the transposed 2-byte
-// stores of a warp fall on consecutive addresses (no bank conflicts).
+// What bounds it on the H100: at the tiny-SD shapes (B*H = 32, L = 4096,
+// d = 128) it does 3 L^2*d products per (b, h), thousands of flop per byte
+// of q, k, v and dO: compute bound, so the limits are tensor-core issue rate
+// and the exponentials. This first version is the simple correct form:
+// mma.sync m16n8k16 (bf16 -> fp32), operands staged through shared memory,
+// and K, which the dS K product needs along the other axis, kept as a
+// transposed copy in shared memory (no ldmatrix), loaded row-fastest so that
+// the transposed 2-byte stores of a warp fall on consecutive addresses.
 //
-// Register budget, the design's main constraint at d = 128:
-// - K3: one block per (b*h, 64 queries), 4 warps of 16 query rows; 32-key
-//   tiles keep S and dP at 16 fp32 registers each beside the 64 of the
-//   16 x 128 dQ accumulator. dS goes from the accumulators straight into
-//   the A operand of the dS K product.
-// - K4: one block per (b*h, 64 keys), 8 warps as 4 row groups of 16 keys
-//   x 2 column halves. In the S^T / dP^T phase a half is 32 of the 64
-//   queries of the tile; P^T and dS^T go through shared memory as bf16; in
-//   the accumulation phase a half is 64 of the 128 head dims, so the dK and
-//   dV accumulators take 32 registers each instead of 64 (~123 KB of
-//   dynamic shared memory, one block per SM).
+// Register budget, the design's main constraint at d = 128: one block per
+// (b*h, 64 queries), 4 warps of 16 query rows; 32-key tiles keep S and dP at
+// 16 fp32 registers each beside the 64 of the 16 x 128 dQ accumulator. dS
+// goes from the accumulators straight into the A operand of the dS K product.
 // Head dims 128 (tiny-SD) and 64 (SigLIP tower, TinyVLM decoder, T5) are
 // instantiated, each in the eight forms; others return cudaErrorInvalidValue.
-// Later work: wgmma + TMA, ldmatrix.trans instead of transposed copies,
-// K/V double buffering, one fused kernel with atomics for dq.
+// Later work: wgmma + TMA as K4 has, ldmatrix.trans instead of the
+// transposed copy, one fused kernel with atomics for dq.
 
 #include "mask.cuh"
 #include "mma.cuh"
@@ -300,210 +286,6 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// ----------------------------------------------------------- K4: dk, dv
-template <int DP, int BK, int BQ>
-struct DkvCfg {
-  static constexpr int WM = BK / 16;  // row groups of 16 keys
-  static constexpr int WN = 2;        // column halves
-  static constexpr int kThreads = WM * WN * 32;
-  static constexpr int kRow = DP + 8;  // bf16 row stride: K, V, Q, dO
-  static constexpr int kTr = BQ + 8;   // bf16 row stride: Q^T, dO^T, P^T, dS^T
-  static constexpr int kSmemBytes =
-      (2 * BK * kRow + 2 * BQ * kRow + 2 * DP * kTr + 2 * BK * kTr) * 2 +
-      3 * BQ * 4;  // lse, delta and segment id of each query of the tile
-  static_assert((BQ / 8) % WN == 0 && (DP / 8) % WN == 0, "even warp split");
-};
-
-template <int DP, int BK, int BQ, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
-__global__ void __launch_bounds__(DkvCfg<DP, BK, BQ>::kThreads)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk,
-                     int d, long long qsb, long long qsh, long long qsl,
-                     long long ksb, long long ksh, long long ksl,
-                     long long vsb, long long vsh, long long vsl,
-                     long long gsb, long long gsh, long long gsl,
-                     long long dksb, long long dksh, long long dksl,
-                     long long dvsb, long long dvsh, long long dvsl,
-                     float scale, const MaskArgs m) {
-  using C = DkvCfg<DP, BK, BQ>;
-  constexpr int NT = C::kThreads;
-  constexpr int kSTiles = BQ / 8 / C::WN;  // query n-tiles of S^T per warp
-  constexpr int kDTiles = DP / 8 / C::WN;  // head-dim n-tiles of dK, dV
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* v_s = k_s + BK * C::kRow;
-  __nv_bfloat16* q_s = v_s + BK * C::kRow;
-  __nv_bfloat16* g_s = q_s + BQ * C::kRow;
-  __nv_bfloat16* qt_s = g_s + BQ * C::kRow;
-  __nv_bfloat16* gt_s = qt_s + DP * C::kTr;
-  __nv_bfloat16* pt_s = gt_s + DP * C::kTr;
-  __nv_bfloat16* dst_s = pt_s + BK * C::kTr;
-  float* lse_s = reinterpret_cast<float*>(dst_s + BK * C::kTr);
-  float* dl_s = lse_s + BQ;
-  int* qid_s = reinterpret_cast<int*>(dl_s + BQ);
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int k0 = blockIdx.y * BK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp % C::WM, wn = warp / C::WM;
-  const int row0 = wm * 16;
-
-  load_tile<BK, DP, NT>(k + b * ksb + h * ksh, ksl, k0, Lk, d, k_s, C::kRow,
-                        nullptr, 0);
-  load_tile<BK, DP, NT>(v + b * vsb + h * vsh, vsl, k0, Lk, d, v_s, C::kRow,
-                        nullptr, 0);
-
-  float acc_k[kDTiles][4], acc_v[kDTiles][4];
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
-
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* gb = dout + b * gsb + h * gsh;
-  const float* lse_b = lse + (long long)blockIdx.x * Lq;
-  const float* dl_b = delta + (long long)blockIdx.x * Lq;
-  // The query tiles with a visible pair: all of them; from the diagonal on
-  // when causal (the first tile whose last row reaches this key tile); the
-  // range whose segment ids overlap this key tile's.
-  const int n_qt = (Lq + BQ - 1) / BQ;
-  int it_begin = 0, it_end = n_qt;
-  if (CAUSAL) it_begin = k0 / BQ;
-  const int* k_bound = nullptr;
-  const int* q_bounds = nullptr;
-  const int* q_ids = nullptr;
-  int kid0 = -2, kid1 = -2;  // segment ids of this thread's two key rows
-  if (HAS_SEG) {
-    const int tile = b * gridDim.y + blockIdx.y;
-    it_begin = max(it_begin, m.lo[tile]);
-    it_end = min(it_end, m.hi[tile] + 1);
-    k_bound = m.kv_bounds + 2 * tile;
-    q_bounds = m.q_bounds + 2 * b * n_qt;
-    q_ids = m.q_ids + static_cast<long long>(b) * Lq;
-    const int* ids = m.kv_ids + static_cast<long long>(b) * Lk;
-    if (k0 + row0 + g < Lk) kid0 = ids[k0 + row0 + g];
-    if (k0 + row0 + g + 8 < Lk) kid1 = ids[k0 + row0 + g + 8];
-  }
-  const long long bias_base = HAS_BIAS ? b * m.bs[0] + h * m.bs[1] : 0;
-
-  for (int it = it_begin; it < it_end; ++it) {
-    if (HAS_SEG && !seg_overlap(k_bound, q_bounds + 2 * it)) continue;
-    const int q0 = it * BQ;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<BQ, DP, NT>(qb, qsl, q0, Lq, d, q_s, C::kRow, qt_s, C::kTr);
-    load_tile<BQ, DP, NT>(gb, gsl, q0, Lq, d, g_s, C::kRow, gt_s, C::kTr);
-    for (int i = threadIdx.x; i < BQ; i += NT) {
-      const bool in = q0 + i < Lq;
-      lse_s[i] = in ? lse_b[q0 + i] : kPadLse;
-      dl_s[i] = in ? dl_b[q0 + i] : 0.f;
-      if (HAS_SEG) qid_s[i] = in ? q_ids[q0 + i] : -1;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ/WN queries per warp.
-    float s[kSTiles][4], dp[kSTiles][4];
-#pragma unroll
-    for (int j = 0; j < kSTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t ak[4], av[4];
-      load_a(ak, k_s, C::kRow, row0, kk, g, t);
-      load_a(av, v_s, C::kRow, row0, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < kSTiles; ++j) {
-        const int n0 = (wn * kSTiles + j) * 8;
-        uint32_t bq[2], bg[2];
-        load_b(bq, q_s, C::kRow, n0, kk, g, t);
-        load_b(bg, g_s, C::kRow, n0, kk, g, t);
-        mma16816(s[j], ak, bq);
-        mma16816(dp[j], av, bg);
-      }
-    }
-    // P^T = exp(scale * S^T + bias^T - lse), selected to 0 where the mask
-    // hides the key; dS^T = P^T * (dP^T - delta): to smem.
-#pragma unroll
-    for (int j = 0; j < kSTiles; ++j) {
-      const int col = (wn * kSTiles + j) * 8 + 2 * t;
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = row0 + g + 8 * hr;
-        float pv[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + r, query = q0 + col + e;
-          float sv = s[j][2 * hr + e] * scale;
-          bool visible = true;
-          if (HAS_BIAS && key < Lk && query < Lq) {
-            sv += load_bias(m, bias_base, query, key);
-            visible = sv > kNegInf;
-          }
-          if (CAUSAL) visible = visible && key <= query;
-          if (HAS_SEG)
-            visible = visible && (hr ? kid1 : kid0) == qid_s[col + e];
-          pv[e] = visible ? __expf(sv - lse_s[col + e]) : 0.f;
-        }
-        const float p0 = pv[0], p1 = pv[1];
-        const float ds0 = p0 * (dp[j][2 * hr] - dl_s[col]);
-        const float ds1 = p1 * (dp[j][2 * hr + 1] - dl_s[col + 1]);
-        *reinterpret_cast<uint32_t*>(pt_s + r * C::kTr + col) =
-            pack_bf16(p0, p1);
-        *reinterpret_cast<uint32_t*>(dst_s + r * C::kTr + col) =
-            pack_bf16(ds0, ds1);
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q: 16 keys x DP/WN head dims per warp.
-#pragma unroll
-    for (int kk = 0; kk < BQ; kk += 16) {
-      uint32_t ap[4], ads[4];
-      load_a(ap, pt_s, C::kTr, row0, kk, g, t);
-      load_a(ads, dst_s, C::kTr, row0, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < kDTiles; ++j) {
-        const int n0 = (wn * kDTiles + j) * 8;
-        uint32_t bg[2], bq[2];
-        load_b(bg, gt_s, C::kTr, n0, kk, g, t);
-        load_b(bq, qt_s, C::kTr, n0, kk, g, t);
-        mma16816(acc_v[j], ap, bg);
-        mma16816(acc_k[j], ads, bq);
-      }
-    }
-  }
-
-  const int r0 = k0 + row0 + g, r1 = r0 + 8;
-  __nv_bfloat16* kout = dk + b * dksb + h * dksh;
-  __nv_bfloat16* vout = dv + b * dvsb + h * dvsh;
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j) {
-    const int col = (wn * kDTiles + j) * 8 + 2 * t;
-    if (col < d) {
-      if (r0 < Lk) {
-        *reinterpret_cast<__nv_bfloat162*>(kout + r0 * dksl + col) =
-            __floats2bfloat162_rn(acc_k[j][0] * scale, acc_k[j][1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(vout + r0 * dvsl + col) =
-            __floats2bfloat162_rn(acc_v[j][0], acc_v[j][1]);
-      }
-      if (r1 < Lk) {
-        *reinterpret_cast<__nv_bfloat162*>(kout + r1 * dksl + col) =
-            __floats2bfloat162_rn(acc_k[j][2] * scale, acc_k[j][3] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(vout + r1 * dvsl + col) =
-            __floats2bfloat162_rn(acc_v[j][2], acc_v[j][3]);
-      }
-    }
-  }
-}
-
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(
@@ -532,29 +314,6 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* g, const void* lse, const void* delta,
-                       void* dk, void* dv, int B, int H, int Lq, int Lk, int d,
-                       const long long* st, float scale, const MaskArgs& m,
-                       cudaStream_t stream) {
-  constexpr int BK = 64, BQ = 64;
-  using C = DkvCfg<DP, BK, BQ>;
-  auto kernel = flash_bwd_dkv_kernel<DP, BK, BQ, CAUSAL, HAS_BIAS, HAS_SEG>;
-  cudaError_t err = set_smem(kernel, C::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (Lk + BK - 1) / BK);
-  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, Lq,
-      Lk, d, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
-      scale, m);
-  return cudaGetLastError();
-}
-
 // Calls LAUNCH<DP, causal, has_bias, has_seg>(ARGS) for the form `code` =
 // 4*causal + 2*has_bias + has_seg.
 #define FDSD_FORMS(LAUNCH, DP, code, ...)                          \
@@ -576,16 +335,6 @@ cudaError_t dispatch_dq(int code, const void* q, const void* k, const void* v,
                         int d, const long long* st, float scale,
                         const MaskArgs& m, cudaStream_t s) {
   FDSD_FORMS(launch_dq, DP, code, q, k, v, g, lse, delta, dq, dbias, B, H, Lq,
-             Lk, d, st, scale, m, s)
-}
-
-template <int DP>
-cudaError_t dispatch_dkv(int code, const void* q, const void* k,
-                         const void* v, const void* g, const void* lse,
-                         const void* delta, void* dk, void* dv, int B, int H,
-                         int Lq, int Lk, int d, const long long* st,
-                         float scale, const MaskArgs& m, cudaStream_t s) {
-  FDSD_FORMS(launch_dkv, DP, code, q, k, v, g, lse, delta, dk, dv, B, H, Lq,
              Lk, d, st, scale, m, s)
 }
 
@@ -619,33 +368,5 @@ extern "C" int fdsd_flash_bwd_dq(const void* q, const void* k, const void* v,
     return static_cast<int>(dispatch_dq<128>(code, q, k, v, g, lse, delta, dq,
                                              dbias, B, H, Lq, Lk, d, strides,
                                              scale, m, s));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// strides: (batch, head, seq) element strides of q, k, v, dO, dk, dv, then
-// (batch, head, row, col) of the bias (22 values); the rest as above.
-extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                  const void* g, const void* lse,
-                                  const void* delta, void* dk, void* dv,
-                                  const void* bias, const void* q_ids,
-                                  const void* kv_ids, const void* q_bounds,
-                                  const void* kv_bounds, const void* lo,
-                                  const void* hi, int B, int H, int Lq, int Lk,
-                                  int d, const long long* strides, float scale,
-                                  int causal, int bias_bf16, void* stream) {
-  const MaskArgs m = fdsd::make_mask_args(bias, strides + 18, bias_bf16,
-                                          q_ids, kv_ids, q_bounds, kv_bounds,
-                                          lo, hi);
-  const int code = 4 * (causal != 0) + 2 * (bias != nullptr) +
-                   (q_ids != nullptr);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return static_cast<int>(dispatch_dkv<64>(code, q, k, v, g, lse, delta, dk,
-                                             dv, B, H, Lq, Lk, d, strides,
-                                             scale, m, s));
-  if (d == 128)
-    return static_cast<int>(dispatch_dkv<128>(code, q, k, v, g, lse, delta,
-                                              dk, dv, B, H, Lq, Lk, d,
-                                              strides, scale, m, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a) on TMA and wgmma: bf16 in,
 // fp32 softmax, out bf16 + lse fp32. K1 at head dims 40, 48, 64, 72, 80 and
-// 128, in every mask form; d = 512 stays on the mma.sync kernel of
-// flash_attention.cu, which this file's C entry hands it to.
+// 128, in every mask form; d = 512 is the kernel of flash_attention.cu, with
+// its own C entry.
 //
 // Replaces two Pallas TPU kernels of the JAX package:
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
@@ -63,14 +63,6 @@
 #include "mask.cuh"
 #include "sm90.cuh"
 
-namespace fdsd {
-// The d = 512 forward (mma.sync), in flash_attention.cu.
-cudaError_t flash_fwd_d512(const void* q, const void* k, const void* v,
-                           void* out, void* lse, int B, int H, int Lq, int Lk,
-                           const long long* st, float scale,
-                           cudaStream_t stream);
-}  // namespace fdsd
-
 namespace {
 
 namespace s9 = fdsd::sm90;
@@ -116,60 +108,6 @@ struct Params {
   MaskArgs m;
 };
 
-// The bias tile in shared memory, in the bias's own dtype T: row r, column
-// c at r * kBK + (c ^ 8 * (r % 8)). The swizzle keeps each 16-byte vector
-// whole, and a quad's pair reads of eight rows fall in distinct banks.
-__device__ __forceinline__ int bias_at(int r, int c) {
-  return r * kBK + (c ^ ((r & 7) << 3));
-}
-
-__device__ __forceinline__ float2 load_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// The producer warpgroup's 128 threads copy the bias tile (rows q0.., keys
-// k0..; zeros past Lq and Lk) into shared memory, each ending with one
-// arrival on `full`. Where the key axis is contiguous and rows start on 16
-// bytes: 16-byte cp.async copies (zero-filled past the ends), which hold no
-// registers, so a thread keeps all of its V / kBK of the tile in flight;
-// else one element at a time.
-template <typename T>
-__device__ __forceinline__ void stage_bias(T* tile, const MaskArgs& m,
-                                           long long base, int q0, int k0,
-                                           int Lq, int Lk, int tid,
-                                           uint32_t full) {
-  constexpr int V = 16 / sizeof(T), kVecs = kBK / V, kRows = 128 / kVecs;
-  const T* bias = static_cast<const T*>(m.bias);
-  const bool vec =
-      m.bs[3] == 1 && m.bs[2] % V == 0 &&
-      reinterpret_cast<uintptr_t>(bias + base + q0 * m.bs[2] + k0) % 16 == 0;
-  if (vec) {
-    // the producer holds 40 registers: a short unroll and running pointers
-    const int rr = tid / kVecs, c0 = (tid % kVecs) * V;
-    const int bytes = max(0, min(V, Lk - k0 - c0)) * sizeof(T);
-    const T* src = bias + base + (q0 + rr) * m.bs[2] + k0 + c0;
-    const long long step = kRows * m.bs[2];
-#pragma unroll 2
-    for (int r = rr; r < kBQ; r += kRows, src += step)
-      s9::cp_async_16(s9::smem_u32(tile + bias_at(r, c0)),
-                      q0 + r < Lq && bytes > 0 ? src : bias,
-                      q0 + r < Lq ? bytes : 0);
-    s9::cp_async_mbar_arrive(full);  // when this thread's copies have landed
-    return;
-  }
-  const int col = k0 + tid;  // thread tid: column tid of every row
-#pragma unroll 2
-  for (int r = 0; r < kBQ; ++r)
-    tile[bias_at(r, tid)] =
-        q0 + r < Lq && col < Lk ? bias[base + (q0 + r) * m.bs[2] +
-                                       col * m.bs[3]]
-                                : T(0.f);
-  s9::mbar_arrive(full);
-}
-
 // logit = scale * s + bias in fp32, for this thread's rows rl0 and rl1.
 template <typename T>
 __device__ __forceinline__ void add_bias(float (&s)[kBK / 2], const T* tile,
@@ -177,8 +115,9 @@ __device__ __forceinline__ void add_bias(float (&s)[kBK / 2], const T* tile,
                                          float scale) {
 #pragma unroll
   for (int j = 0; j < kBK / 8; ++j) {
-    const float2 b0 = load_pair(tile + bias_at(rl0, 8 * j + 2 * t));
-    const float2 b1 = load_pair(tile + bias_at(rl1, 8 * j + 2 * t));
+    const int c = 8 * j + 2 * t;
+    const float2 b0 = s9::load_pair(tile + s9::bias_at<kBK>(rl0, c));
+    const float2 b1 = s9::load_pair(tile + s9::bias_at<kBK>(rl1, c));
     s[4 * j] = fmaf(s[4 * j], scale, b0.x);
     s[4 * j + 1] = fmaf(s[4 * j + 1], scale, b0.y);
     s[4 * j + 2] = fmaf(s[4 * j + 2], scale, b1.x);
@@ -273,11 +212,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       if (HAS_BIAS) {
         s9::mbar_wait(bias_empty, bias_phase ^ 1);
         if (p.m.bias_bf16)
-          stage_bias(reinterpret_cast<__nv_bfloat16*>(bias_s), p.m,
-                     bias_base, q0, k0, p.Lq, p.Lk, tid, bias_full);
+          s9::stage_bias<kBQ, kBK>(
+              reinterpret_cast<__nv_bfloat16*>(bias_s), p.m, bias_base, q0,
+              k0, p.Lq, p.Lk, tid, bias_full);
         else
-          stage_bias(bias_s, p.m, bias_base, q0, k0, p.Lq, p.Lk, tid,
-                     bias_full);
+          s9::stage_bias<kBQ, kBK>(bias_s, p.m, bias_base, q0, k0, p.Lq,
+                                   p.Lk, tid, bias_full);
         bias_phase ^= 1;
       }
       if (++stage == C::kStages) {
@@ -349,7 +289,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
         const uint32_t chunk = kk * 16 / C::W, off = (kk * 16 % C::W) * 2;
-        s9::wgmma_ss_n128(
+        s9::wgmma_ss<128>(
             s,
             s9::smem_desc(q_rows + chunk * C::kQChunk + off, 16, C::kAtom,
                           C::kLayout),
@@ -487,63 +427,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------- host side
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A (D, L, H, B) tensor map of a bf16 operand over its (batch, head, seq)
-// element strides (head dim contiguous), box W columns x `rows` rows.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int d, int L, int H,
-                     int B, const long long* st, int W, int rows,
-                     CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const long long elem[3] = {st[2], st[1], st[0]};  // seq, head, batch
-  cuuint64_t strides[3];
-  cuuint64_t extent = dims[0] * 2;  // bytes spanned by the dims below
-  for (int i = 0; i < 3; ++i) {
-    // a dim of size 1 is never stepped: give it a dense stride
-    strides[i] = dims[i + 1] == 1 ? extent
-                                  : static_cast<cuuint64_t>(elem[i]) * 2;
-    extent = strides[i] * dims[i + 1];
-  }
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(W),
-                             static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int DP, bool CAUSAL = false, bool HAS_BIAS = false,
           bool HAS_SEG = false>
 cudaError_t launch(const void* q, const void* k, const void* v, int B,
@@ -553,19 +436,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, int B,
   const CUtensorMapSwizzle sw =
       C::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, q, p.d, p.Lq, p.H, B, st, C::W, kBQ, sw);
+  cudaError_t err = s9::make_map(&tq, q, p.d, p.Lq, p.H, B, st, C::W, kBQ, sw);
   if (err == cudaSuccess)
-    err = make_map(&tk, k, p.d, p.Lk, p.H, B, st + 3, C::W, kBK, sw);
+    err = s9::make_map(&tk, k, p.d, p.Lk, p.H, B, st + 3, C::W, kBK, sw);
   if (err == cudaSuccess)
-    err = make_map(&tv, v, p.d, p.Lk, p.H, B, st + 6, C::W, kBK, sw);
+    err = s9::make_map(&tv, v, p.d, p.Lk, p.H, B, st + 6, C::W, kBK, sw);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_fwd_sm90_kernel<DP, CAUSAL, HAS_BIAS, HAS_SEG>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<p.n_qt * B * p.H, kThreads, C::kSmemBytes, stream>>>(tq, tk, tv,
-                                                                 p);
-  return cudaGetLastError();
+  return s9::launch_kernel(flash_fwd_sm90_kernel<DP, CAUSAL, HAS_BIAS, HAS_SEG>,
+                           p.n_qt * B * p.H, kThreads, C::kSmemBytes, stream,
+                           tq, tk, tv, p);
 }
 
 // The masked forms at one head dim; code = 4*causal + 2*has_bias + has_seg.
@@ -597,8 +476,7 @@ cudaError_t launch_masked(int code, const void* q, const void* k,
 // (B, H, Lq) contiguous fp32. bias (fp32, or bf16 when bias_bf16) and the six
 // segment arrays of mask.cuh are null when the form is not asked for. Head
 // dims 40, 48, 64, 72, 80 and 128 run here, the masked forms at 64 and 128;
-// d = 512 (no mask) goes to flash_attention.cu; others return
-// cudaErrorInvalidValue.
+// others (d = 512: fdsd_flash_fwd_d512) return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, const void* bias,
                               const void* q_ids, const void* kv_ids,
@@ -610,11 +488,6 @@ extern "C" int fdsd_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int code = 4 * (causal != 0) + 2 * (bias != nullptr) +
                    (q_ids != nullptr);
-  if (d == 512) {
-    if (code != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(fdsd::flash_fwd_d512(q, k, v, out, lse, B, H, Lq,
-                                                 Lk, strides, scale, s));
-  }
   Params p;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse = static_cast<float*>(lse);

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks in raw PTX, for kernels built on TMA and
-// wgmma: mbarriers, the 4-D TMA tile load, shared-memory matrix descriptors,
-// wgmma m64nNk16 (bf16 in, fp32 accumulators) in SS and RS form with its
-// fence / commit / wait, and setmaxnreg. Raw PTX rather than CuTe keeps the
-// build to one plain-C translation unit per kernel file.
+// wgmma: mbarriers, named barriers, the 4-D TMA tile load and its host-side
+// tensor map, shared-memory matrix descriptors, wgmma m64nNk16 (bf16 in,
+// fp32 accumulators) in SS and RS form with its fence / commit / wait, the
+// proxy fence that hands shared memory written by threads to wgmma,
+// setmaxnreg, and the producer's staging of a bias tile. Raw PTX rather than
+// CuTe keeps the build to one plain-C translation unit per kernel file.
 //
 // Shared-memory operand layouts (the wgmma "canonical" layouts, written by
 // TMA with the matching swizzle): a tile of R rows x DP bf16 columns is kept
@@ -15,6 +17,9 @@
 //  MN-major operand (the reduction axis down the rows, V of O = P V, read
 //    as it lies, B transposed): the k-step kk starts at row 16*kk;
 //    SBO = one atom (8 rows), LBO = one chunk (the next W output columns).
+// A tile that threads write themselves for wgmma to read (K-major, 128-byte
+// swizzle) puts the 16-byte unit u of row r at unit u ^ (r % 8) of the row,
+// as TMA would, and is handed over with fence_proxy_async.
 
 #pragma once
 
@@ -22,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mask.cuh"
 
 namespace fdsd {
 namespace sm90 {
@@ -67,6 +74,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a multiple
+// of 32: syncs the consumer warpgroups without the producer.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Makes this thread's shared-memory stores visible to the async proxy
+// (wgmma operands read through a descriptor); before the barrier that hands
+// the tile over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // --------------------------------------------------------------------- TMA
@@ -138,10 +158,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 #define FDSD_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define FDSD_F8(i) FDSD_F4(i), FDSD_F4(i + 4)
+#define FDSD_F16 FDSD_F8(0), FDSD_F8(8)
 #define FDSD_F24 FDSD_F8(0), FDSD_F8(8), FDSD_F8(16)
 #define FDSD_F32 FDSD_F24, FDSD_F8(24)
 #define FDSD_F40 FDSD_F32, FDSD_F8(32)
 #define FDSD_F64 FDSD_F40, FDSD_F8(40), FDSD_F8(48), FDSD_F8(56)
+#define FDSD_F128                                                          \
+  FDSD_F64, FDSD_F8(64), FDSD_F8(72), FDSD_F8(80), FDSD_F8(88), FDSD_F8(96), \
+      FDSD_F8(104), FDSD_F8(112), FDSD_F8(120)
+#define FDSD_R16 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}"
 #define FDSD_R24                                                            \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
   "%20,%21,%22,%23}"
@@ -157,17 +182,53 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
   "%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55," \
   "%56,%57,%58,%59,%60,%61,%62,%63}"
+#define FDSD_R128 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
+  "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
+  "%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55," \
+  "%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,%72,%73," \
+  "%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91," \
+  "%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107," \
+  "%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121," \
+  "%122,%123,%124,%125,%126,%127}"
 
-// D(64 x 128) (+)= A(64 x 16) B(16 x 128)^T-as-stored: A and B both K-major
-// in shared memory. scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
-                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FDSD_R64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : FDSD_F64
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+// D(64 x N) (+)= A(64 x 16) B(16 x N): A K-major in shared memory; B
+// K-major (TRANS_B = 0: N rows with the reduction along the row, as K of
+// S = Q K^T) or MN-major (TRANS_B = 1: rows of the reduction, as V of
+// O = P V, read as it lies). scale_d = 0 overwrites D.
+template <int N, int TRANS_B = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "wgmma_ss: N");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " FDSD_R16
+        ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+        : FDSD_F16
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FDSD_R32
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : FDSD_F32
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FDSD_R64
+        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : FDSD_F64
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " FDSD_R128
+        ", %128, %129, p, 1, 1, 0, %131;\n}\n"
+        : FDSD_F128
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  }
 }
 
 // D(64 x N) (+)= A(64 x 16) B(16 x N): A from registers (the m16n8k16 A
@@ -215,14 +276,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 
 #undef FDSD_F4
 #undef FDSD_F8
+#undef FDSD_F16
 #undef FDSD_F24
 #undef FDSD_F32
 #undef FDSD_F40
 #undef FDSD_F64
+#undef FDSD_F128
+#undef FDSD_R16
 #undef FDSD_R24
 #undef FDSD_R32
 #undef FDSD_R40
 #undef FDSD_R64
+#undef FDSD_R128
 
 // ------------------------------------------------------------- setmaxnreg
 template <int R>
@@ -238,6 +303,133 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ----------------------------------------------------------- bias staging
+// A (ROWS queries x COLS keys) bias tile in shared memory, in the bias's own
+// dtype T: row r, column c at r * COLS + (c ^ 8 * (r % 8)). The swizzle keeps
+// each 16-byte vector whole and spreads the reads of a quad over the banks.
+template <int COLS>
+__device__ __forceinline__ int bias_at(int r, int c) {
+  return r * COLS + (c ^ ((r & 7) << 3));
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// A producer warpgroup's 128 threads copy the bias tile (rows q0.., keys
+// k0..; zeros past Lq and Lk) into shared memory, each ending with one
+// arrival on `full`. Where the key axis is contiguous and rows start on 16
+// bytes: 16-byte cp.async copies (zero-filled past the ends), which hold no
+// registers, so a thread keeps all of its share of the tile in flight; else
+// one element at a time (thread tid: column tid of every row).
+template <int ROWS, int COLS, typename T>
+__device__ __forceinline__ void stage_bias(T* tile, const MaskArgs& m,
+                                           long long base, int q0, int k0,
+                                           int Lq, int Lk, int tid,
+                                           uint32_t full) {
+  static_assert(COLS == 128, "one column per producer thread");
+  constexpr int V = 16 / sizeof(T), kVecs = COLS / V, kRows = 128 / kVecs;
+  const T* bias = static_cast<const T*>(m.bias);
+  const bool vec =
+      m.bs[3] == 1 && m.bs[2] % V == 0 &&
+      reinterpret_cast<uintptr_t>(bias + base + q0 * m.bs[2] + k0) % 16 == 0;
+  if (vec) {
+    // the producer holds 40 registers: a short unroll and running pointers
+    const int rr = tid / kVecs, c0 = (tid % kVecs) * V;
+    const int bytes = max(0, min(V, Lk - k0 - c0)) * sizeof(T);
+    const T* src = bias + base + (q0 + rr) * m.bs[2] + k0 + c0;
+    const long long step = kRows * m.bs[2];
+#pragma unroll 2
+    for (int r = rr; r < ROWS; r += kRows, src += step)
+      cp_async_16(smem_u32(tile + bias_at<COLS>(r, c0)),
+                  q0 + r < Lq && bytes > 0 ? src : bias,
+                  q0 + r < Lq ? bytes : 0);
+    cp_async_mbar_arrive(full);  // when this thread's copies have landed
+    return;
+  }
+  const int col = k0 + tid;
+#pragma unroll 2
+  for (int r = 0; r < ROWS; ++r)
+    tile[bias_at<COLS>(r, tid)] =
+        q0 + r < Lq && col < Lk ? bias[base + (q0 + r) * m.bs[2] +
+                                       col * m.bs[3]]
+                                : T(0.f);
+  mbar_arrive(full);
+}
+
+// ------------------------------------------------- tensor maps (host side)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A (D, L, H, B) tensor map of a bf16 operand over its (batch, head, seq)
+// element strides (head dim contiguous), box W columns x `rows` rows; rows
+// past L and columns past D read as zeros.
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int d, int L,
+                            int H, int B, const long long* st, int W,
+                            int rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const long long elem[3] = {st[2], st[1], st[0]};  // seq, head, batch
+  cuuint64_t strides[3];
+  cuuint64_t extent = dims[0] * 2;  // bytes spanned by the dims below
+  for (int i = 0; i < 3; ++i) {
+    // a dim of size 1 is never stepped: give it a dense stride
+    strides[i] = dims[i + 1] == 1 ? extent
+                                  : static_cast<cuuint64_t>(elem[i]) * 2;
+    extent = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(W),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Sets the kernel's dynamic shared memory and launches it on `stream`.
+template <typename Kernel, typename... Args>
+cudaError_t launch_kernel(Kernel kernel, int blocks, int threads, int smem,
+                          cudaStream_t stream, const Args&... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace sm90

@@ -37,6 +37,9 @@ _SIGNATURES = {
     # q, k, v, out, lse, masks[7], B, H, Lq, Lk, d, strides[12 + 4], scale,
     # causal, bias_bf16, stream
     "fdsd_flash_fwd": [_P] * 5 + [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I, _P],
+    # q, k, v, out, lse, work, B, H, Lq, Lk, strides[12], scale, splits,
+    # stream: K1 at head dim 512
+    "fdsd_flash_fwd_d512": [_P] * 6 + [_I] * 4 + [_P, _F, _I, _P],
     # q, k, v, dO, lse, delta, dq, dbias, masks[7], B, H, Lq, Lk, d,
     # strides[15 + 4], scale, causal, bias_bf16, stream
     "fdsd_flash_bwd_dq": [_P] * 8 + [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I,

@@ -5,16 +5,19 @@ on them (port of ``ops/flash_attention.py``).
 Forward: on CUDA tensors :func:`flash_attention_forward` launches K1, which
 stands in for both Pallas forward bodies of the JAX package
 (``_fwd_kernel_wide`` and ``_fwd_kernel``): in bf16 the TMA / wgmma kernel of
-``csrc/flash_attention_sm90.cu`` at every head dim but 512, and the mma.sync
-kernel of ``csrc/flash_attention.cu`` at 512 (:func:`k1_route`). On CPU
-tensors it runs :func:`flash_attention_plain`. Same contract as the JAX
-forward: ``out`` in the input dtype with shape (B, H, Lq, D), ``lse`` fp32
-with shape (B, H, Lq).
+``csrc/flash_attention_sm90.cu`` at every head dim but 512, and at 512 the
+TMA / wgmma kernel of ``csrc/flash_attention.cu``, whose keys the host
+splits over several blocks when the query tiles alone would not fill the
+card (:func:`k1_route`, :func:`k1_d512_splits`). On CPU tensors it runs
+:func:`flash_attention_plain`. Same contract as the JAX forward: ``out`` in
+the input dtype with shape (B, H, Lq, D), ``lse`` fp32 with shape
+(B, H, Lq).
 
-Backward: :func:`flash_attention_backward` launches the two kernels of
-``csrc/flash_attention_bwd.cu`` (dq, and dk with dv; the Pallas
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) on CUDA tensors and runs
-:func:`flash_attention_bwd_plain` on CPU tensors. Both recompute the
+Backward: :func:`flash_attention_backward` launches K3 (dq, the Pallas
+``_bwd_dq_kernel``, ``csrc/flash_attention_bwd.cu``) and K4 (dk with dv, the
+Pallas ``_bwd_dkv_kernel``: in bf16 the TMA / wgmma kernel of
+``csrc/flash_attention_bwd_sm90.cu``, :func:`k4_route`) on CUDA tensors and
+runs :func:`flash_attention_bwd_plain` on CPU tensors. Both recompute the
 probabilities under the forward's saved lse; delta = Σ dO·out is a plain
 fp32 reduction, as the JAX package computes it in XLA.
 :func:`flash_attention` is differentiable through :class:`FlashAttention`.
@@ -64,6 +67,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -71,7 +75,7 @@ import torch
 from . import _build
 
 # head dims the forward kernel is instantiated for: padded to 48, 64, 80, 128
-# (the sm90 kernel) or 512 (the mma.sync one); the backward kernels, and the
+# (the sm90 kernel) or 512 (the d512 one); the backward kernels, and the
 # masked forms of all three, take 64 (SigLIP, the TinyVLM decoder, T5) and
 # 128 (tiny-SD's UNet)
 _KERNEL_HEAD_DIMS = (40, 48, 64, 72, 80, 128, 512)
@@ -85,9 +89,12 @@ _FP32_BWD_HEAD_DIMS = (64, 128)
 _FP32_CAUSAL_HEAD_DIMS = (64,)
 _FP32_POS_HEAD_DIMS = (64,)
 NEG_INF = -1e30   # lse of a row with no visible key
-# (query tile, key tile) of K1 (the sm90 kernel), K3 and K4: the sizes the
-# segment-id tile bounds and ranges handed to each kernel are built at
-_FWD_TILES, _DQ_TILES, _DKV_TILES = (128, 128), (64, 32), (64, 64)
+# (query tile, key tile) of K1 (the sm90 kernel), K3 and K4 (the sm90
+# kernel): the sizes the segment-id tile bounds and ranges handed to each
+# kernel are built at
+_FWD_TILES, _DQ_TILES, _DKV_TILES = (128, 128), (64, 32), (64, 128)
+# K1 at head dim 512: 64-query blocks, 64-key tiles, at most 4 key splits
+_D512_TILE, _D512_MAX_SPLITS = 64, 4
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -436,10 +443,10 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
              segments: bool = False) -> str:
     """Which K1 kernel a CUDA launch of this dtype, head dim and form runs:
     "sm90" (``csrc/flash_attention_sm90.cu``, TMA and wgmma: bf16 at every
-    head dim but 512, every mask form at 64 and 128), "d512" (the mma.sync
-    kernel of ``csrc/flash_attention.cu``, bf16 without a mask) or "fp32"
-    (``csrc/fp32/flash_f32_fwd.cu``). Raises ``NotImplementedError`` naming
-    what the kernels take for any other."""
+    head dim but 512, every mask form at 64 and 128), "d512" (the TMA /
+    wgmma kernel of ``csrc/flash_attention.cu``, bf16 at 512 without a mask)
+    or "fp32" (``csrc/fp32/flash_f32_fwd.cu``). Raises
+    ``NotImplementedError`` naming what the kernels take for any other."""
     fn = "flash_attention_cuda"
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the flash kernels take bf16 or fp32, not {dtype}")
@@ -457,6 +464,45 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
         raise NotImplementedError(
             f"head dim {d}: the masked forms of {fn} take {_MASK_HEAD_DIMS}")
     return "d512" if d == 512 else "sm90"
+
+
+def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
+             segments: bool = False) -> str:
+    """Which K4 kernel a CUDA launch of this dtype, head dim and form runs:
+    "sm90" (``csrc/flash_attention_bwd_sm90.cu``, TMA and wgmma: bf16 at head
+    dims 64 and 128 in every form) or "fp32" (``csrc/fp32/flash_f32_bwd.cu``:
+    64 and 128 without a mask, causal at 64). Raises
+    ``NotImplementedError`` naming what the kernels take for any other."""
+    fn = "flash_attention_bwd_dkv_cuda"
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the flash kernels take bf16 or fp32, not {dtype}")
+    if dtype == torch.float32:
+        if d not in _FP32_BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"head dim {d} in fp32: the fp32 form of {fn} takes "
+                f"{_FP32_BWD_HEAD_DIMS}")
+        _check_fp32_form(fn, d, causal, bias, segments)
+        return "fp32"
+    if d not in _BWD_HEAD_DIMS:
+        raise NotImplementedError(f"head dim {d}: {fn} takes "
+                                  f"{_BWD_HEAD_DIMS}")
+    return "sm90"
+
+
+def k1_d512_splits(b: int, h: int, lq: int, lk: int, n_sm: int) -> int:
+    """How many blocks share the keys of one 64-query tile in the d = 512
+    kernel: 1 when the B·H·⌈Lq/64⌉ query tiles fill the ``n_sm`` SMs, else as
+    many as fit beside them (at most 4, at most one per 64-key tile), so
+    that no split is left without a key tile."""
+    tiles = b * h * _cdiv(lq, _D512_TILE)
+    n_kt = _cdiv(lk, _D512_TILE)
+    want = max(1, min(_D512_MAX_SPLITS, n_sm // tiles, n_kt))
+    return _cdiv(n_kt, _cdiv(n_kt, want))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _tma_operand(x):
@@ -490,8 +536,12 @@ def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
         _build.check(err, "fdsd_flash_fwd_f32")
         _count_launch(flash_attention_cuda, q, causal=causal, route=route)
         return out, lse
-    if route == "sm90":
-        q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
+    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
+    if route == "d512":
+        splits = k1_d512_splits(b, h, lq, lk, _sm_count(q.device))
+        out, lse = _flash_fwd_d512(q, k, v, scale, splits)
+        _count_launch(flash_attention_cuda, q, route=route)
+        return out, lse
     bias, ptrs, flags, _held = _mask_args(
         q, lk, bias, segment_ids, causal, "flash_attention_cuda", _FWD_TILES,
         "q")
@@ -506,6 +556,27 @@ def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
         _stream(q))
     _build.check(err, "fdsd_flash_fwd")
     _count_launch(flash_attention_cuda, q, bias, segment_ids, causal, route)
+    return out, lse
+
+
+def _flash_fwd_d512(q, k, v, scale: float, splits: int):
+    """(out, lse) from the d = 512 kernel with its keys split over
+    ``splits`` blocks per query tile (1 to 4; with more than one, an fp32
+    workspace of partial outputs that a second kernel merges by their lse).
+    q, k, v: bf16 CUDA (B, H, L, 512), checked by the caller."""
+    b, h, lq, _ = q.shape
+    lk = k.shape[2]
+    out = _blhd(q, lq)
+    lse = _lse_like(q)
+    work = (torch.empty(splits * b * h * lq * 513, device=q.device,
+                        dtype=torch.float32) if splits > 1 else None)
+    strides = _strides(q, k, v, out)
+    err = _build.load().fdsd_flash_fwd_d512(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), None if work is None else work.data_ptr(), b, h, lq,
+        lk, ctypes.cast(strides, ctypes.c_void_p), float(scale), int(splits),
+        _stream(q))
+    _build.check(err, "fdsd_flash_fwd_d512")
     return out, lse
 
 
@@ -525,6 +596,9 @@ def flash_attention_forward(q, k, v, scale: Optional[float] = None, **masks):
 
 def _check_bwd(q, k, v, g, lse, delta, head_dims=_BWD_HEAD_DIMS,
                fp32_dims=_FP32_BWD_HEAD_DIMS):
+    """(b, h, lq, lk, d) after the checks of :func:`_check_qkv` and those of
+    dO, lse and delta; with ``head_dims`` None the caller checks the head
+    dim (K4: :func:`k4_route`)."""
     dims = _check_qkv(q, k, v, "the flash backward kernels", head_dims,
                       fp32_dims)
     _check_operand("dO", g, q)
@@ -583,11 +657,14 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
 def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
                                  scale: Optional[float] = None, *, bias=None,
                                  segment_ids=None, causal: bool = False):
-    """K4: (dk, dv) from the inputs of :func:`flash_attention_bwd_dq_cuda`."""
-    b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta)
+    """K4: (dk, dv) from the inputs of :func:`flash_attention_bwd_dq_cuda`.
+    Which kernel runs: :func:`k4_route`; launches are counted by route in
+    ``.routes``."""
+    b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta, head_dims=None)
+    route = k4_route(q.dtype, d, bool(causal), bias is not None,
+                     segment_ids is not None)
     scale = d ** -0.5 if scale is None else scale
-    if _fp32_masks(q, "flash_attention_bwd_dkv_cuda", bias, segment_ids,
-                   causal):
+    if route == "fp32":
         dk, dv = _blhd(k, lk), _blhd(v, lk)
         strides = _strides(q, k, v, g, dk, dv)
         err = _build.load("kernels_fp32").fdsd_flash_bwd_dkv_f32(
@@ -596,8 +673,10 @@ def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
             b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p),
             float(scale), int(bool(causal)), _stream(q))
         _build.check(err, "fdsd_flash_bwd_dkv_f32")
-        _count_launch(flash_attention_bwd_dkv_cuda, q, causal=causal)
+        _count_launch(flash_attention_bwd_dkv_cuda, q, causal=causal,
+                      route=route)
         return dk, dv
+    q, k, v, g = (_tma_operand(x) for x in (q, k, v, g))
     bias, ptrs, flags, _held = _mask_args(
         q, lk, bias, segment_ids, causal, "flash_attention_bwd_dkv_cuda",
         _DKV_TILES, "k")
@@ -609,7 +688,8 @@ def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
         *ptrs, b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p),
         float(scale), *flags, _stream(q))
     _build.check(err, "fdsd_flash_bwd_dkv")
-    _count_launch(flash_attention_bwd_dkv_cuda, q, bias, segment_ids, causal)
+    _count_launch(flash_attention_bwd_dkv_cuda, q, bias, segment_ids, causal,
+                  route)
     return dk, dv
 
 
@@ -619,6 +699,7 @@ flash_attention_bwd_dq_cuda.forms = collections.Counter()
 flash_attention_bwd_dkv_cuda.forms = collections.Counter()
 flash_attention_bwd_dq_cuda.dtypes = collections.Counter()
 flash_attention_bwd_dkv_cuda.dtypes = collections.Counter()
+flash_attention_bwd_dkv_cuda.routes = collections.Counter()
 
 
 def _kernel_operand(g, dtype):

@@ -1,0 +1,152 @@
+"""K4's dispatch and tiles, and K1's key split at head dim 512, on the CPU.
+
+Which kernel a CUDA launch of K4 (dk, dv) runs is decided in Python before
+anything reaches the card (``k4_route``): the TMA / wgmma kernel of
+``csrc/flash_attention_bwd_sm90.cu`` for bf16 at head dims 64 and 128 in
+every form, the fp32 library for fp32 without a mask or causal at 64; every
+other (dtype, head dim, form) raises before a launch. The segment-id ranges
+the wrapper builds must be at that kernel's tiles. At head dim 512 the host
+splits the keys of K1 over up to four blocks per 64-query tile when the
+query tiles alone do not fill the card (``k1_d512_splits``). The kernels
+themselves are tested on the card (``tests/test_torch_cuda_kernels.py``).
+"""
+
+import re
+
+import pytest
+import torch
+
+from from_ddpm_to_stable_diffusion_tpu_torch.ops import _build
+from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as tfa
+
+BF16, F32 = torch.bfloat16, torch.float32
+FORMS = {  # name -> (causal, bias, segments)
+    "none": (False, False, False), "causal": (True, False, False),
+    "bias": (False, True, False), "segments": (False, False, True),
+    "causal+bias": (True, True, False), "causal+segments": (True, False, True),
+    "bias+segments": (False, True, True), "all": (True, True, True),
+}
+H100_SMS = 132
+
+
+def _want_k4(dtype, d, form):
+    """The route the port's contract gives, or the exception it raises."""
+    causal, bias, seg = FORMS[form]
+    if d not in (64, 128):
+        return NotImplementedError
+    if dtype == F32:
+        if bias or seg or (causal and d != 64):
+            return NotImplementedError
+        return "fp32"
+    return "sm90"
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("d", [40, 48, 64, 72, 80, 128, 512])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+def test_k4_route_by_dtype_head_dim_and_form(dtype, d, form):
+    want = _want_k4(dtype, d, form)
+    causal, bias, seg = FORMS[form]
+    if want is NotImplementedError:
+        with pytest.raises(NotImplementedError) as err:
+            tfa.k4_route(dtype, d, causal, bias, seg)
+        # the message names what the kernels take
+        assert "take" in str(err.value)
+    else:
+        assert tfa.k4_route(dtype, d, causal, bias, seg) == want
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+def test_k4_route_refuses_other_head_dims_and_dtypes(d):
+    for dtype in (BF16, F32):
+        with pytest.raises(NotImplementedError, match=str(d)):
+            tfa.k4_route(dtype, d)
+    with pytest.raises(TypeError):
+        tfa.k4_route(torch.float16, 64)
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_k1_route_at_head_dim_512(form):
+    """bf16 at d = 512 takes the d512 kernel without a mask and raises with
+    one; fp32 takes the fp32 library without a mask."""
+    causal, bias, seg = FORMS[form]
+    if form == "none":
+        assert tfa.k1_route(BF16, 512) == "d512"
+        assert tfa.k1_route(F32, 512) == "fp32"
+        return
+    for dtype in (BF16, F32):
+        with pytest.raises(NotImplementedError, match="take"):
+            tfa.k1_route(dtype, 512, causal, bias, seg)
+
+
+def _source(name):
+    return (_build.CSRC / name).read_text()
+
+
+def test_segment_tiles_are_the_sm90_k4_tiles():
+    """The wrapper builds K4's segment-id tile bounds and ranges at the
+    (query tile, key tile) of the kernel it launches."""
+    m = re.search(r"constexpr int kBQ = (\d+), kBK = (\d+)",
+                  _source("flash_attention_bwd_sm90.cu"))
+    assert m and tuple(map(int, m.groups())) == tfa._DKV_TILES == (64, 128)
+
+
+def test_d512_tiles_are_the_kernels_tiles():
+    text = _source("flash_attention.cu")
+    m = re.search(r"constexpr int kBQ = (\d+), kBK = (\d+)", text)
+    assert m and tuple(map(int, m.groups())) == (tfa._D512_TILE,) * 2
+    m = re.search(r"constexpr int kMaxSplits = (\d+)", text)
+    assert m and int(m.group(1)) == tfa._D512_MAX_SPLITS
+
+
+@pytest.mark.parametrize("entry,source", [
+    ("fdsd_flash_bwd_dkv", "flash_attention_bwd_sm90.cu"),
+    ("fdsd_flash_bwd_dq", "flash_attention_bwd.cu"),
+    ("fdsd_flash_fwd_d512", "flash_attention.cu"),
+    ("fdsd_flash_fwd", "flash_attention_sm90.cu")])
+def test_each_entry_is_defined_in_its_kernels_source(entry, source):
+    defined = {src.name for src in _build.CSRC.glob("*.cu")
+               if f'extern "C" int {entry}(' in src.read_text()}
+    assert defined == {source}
+
+
+@pytest.mark.parametrize("b,h,lq,lk,want", [
+    (1, 1, 4096, 4096, 2),      # SD1's VAE at 512^2: 64 query tiles
+    (1, 1, 16384, 16384, 1),    # SD3's VAE at 1024^2: 256 fill the card
+    (2, 1, 4096, 4096, 1),      # 128 query tiles on 132 SMs
+    (4, 1, 4096, 4096, 1),      # SD1 at batch 4
+    (3, 8, 128, 4096, 2),       # B*H > 1: 48 query tiles
+    (1, 2, 100, 300, 3),        # 5 key tiles over 3 splits: 2 + 2 + 1
+    (1, 1, 1, 4097, 4),
+    (1, 1, 64, 65, 2),
+    (1, 1, 1, 1, 1),
+    (1, 1, 1, 63, 1),
+])
+def test_d512_key_splits(b, h, lq, lk, want):
+    got = tfa.k1_d512_splits(b, h, lq, lk, H100_SMS)
+    assert got == want
+    # every split has a key tile: the last one starts before the end
+    n_kt = -(-lk // 64)
+    per = -(-n_kt // got)
+    assert (got - 1) * per < n_kt and got <= tfa._D512_MAX_SPLITS
+
+
+def test_d512_key_splits_follow_the_sm_count():
+    assert tfa.k1_d512_splits(1, 1, 4096, 4096, 114) == 1
+    assert tfa.k1_d512_splits(1, 1, 4096, 4096, 256) == 4
+    assert tfa.k1_d512_splits(1, 1, 2048, 4096, 132) == 4
+
+
+def test_cpu_tensors_never_reach_k4():
+    """On CPU tensors the backward runs the plain version and counts no
+    launch; the K4 wrapper itself refuses CPU tensors."""
+    q = torch.zeros(1, 1, 64, 64, dtype=BF16)
+    lse = torch.zeros(1, 1, 64)
+    before = (tfa.flash_attention_bwd_dkv_cuda.launches,
+              dict(tfa.flash_attention_bwd_dkv_cuda.routes))
+    dq, dk, dv = tfa.flash_attention_backward(q, q, q, q, lse, q)
+    assert dk.shape == q.shape and dv.dtype == BF16
+    assert (tfa.flash_attention_bwd_dkv_cuda.launches,
+            dict(tfa.flash_attention_bwd_dkv_cuda.routes)) == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_attention_bwd_dkv_cuda(q, q, q, q, lse, lse)

@@ -31,7 +31,11 @@ rows that see no key give out = 0, lse <= -1e29 and finite gradients.
 K1 on TMA and wgmma (``csrc/flash_attention_sm90.cu``) at the same
 tolerances, at lengths around its 128-row tiles, on fused-projection slices,
 with broadcast biases, segment ids at its tiles, and into out / lse buffers
-filled with NaN; its launches counted by route.
+filled with NaN; its launches counted by route. K4 on TMA and wgmma
+(``csrc/flash_attention_bwd_sm90.cu``) the same way at its (64, 128) tiles,
+in every form at head dims 64 and 128, with the floor above where one key
+makes dS rounding noise; K1 at head dim 512 (``csrc/flash_attention.cu``)
+across its key splits, each split count forced, and into NaN buffers.
 The fp32 forms of K1, K3 - K7 against the plain fp32 versions (TF32 off):
 out and lse to 1e-4 absolute, each gradient to 1e-4 of its largest
 magnitude; the plain version fed operands rounded once to bf16 must fall
@@ -680,6 +684,205 @@ def test_k1_launches_by_route(gen):
         tfa.flash_attention_cuda(q, q, q)
         assert routes[route] == n.get(route, 0) + 1
         assert sum(routes.values()) == sum(n.values()) + 1
+
+
+# ------------------------------------------------- K4 on TMA and wgmma
+def _k4_check(q, k, v, g, floor=1e-6, **masks):
+    """K4 alone against the plain backward on K1's outputs; the launch must
+    take the sm90 kernel. Returns (dk, dv)."""
+    out, lse = tfa.flash_attention_cuda(q, k, v, **masks)
+    delta = (g.float() * out.float()).sum(-1)
+    routes = tfa.flash_attention_bwd_dkv_cuda.routes
+    n = routes["sm90"]
+    dk, dv = tfa.flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
+                                              **masks)
+    assert routes["sm90"] == n + 1
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g, **masks)[1:3]
+    for a, w in zip((dk, dv), want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert bool(torch.isfinite(a).all())
+        a, w = a.float(), w.float()
+        assert (a - w).abs().max().item() <= (2e-2 * w.abs().max().item()
+                                              + floor)
+    return dk, dv
+
+
+K4_EDGE_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 257)
+
+
+@pytest.mark.parametrize("lk", K4_EDGE_LENGTHS)
+@pytest.mark.parametrize("lq", K4_EDGE_LENGTHS)
+def test_sm90_k4_lengths_around_its_tiles(gen, lq, lk):
+    """Lq around the 64-query tiles and Lk around the 128-key tiles, at head
+    dims 64 and 128, without a mask and causal (Lq < Lk: keys that no query
+    sees get dk = dv = 0). Where every query sees one key (Lk = 1, or one
+    query under the causal mask) P = 1 and dS = dP - delta is rounding noise
+    of two summation orders (as for one token per segment), hence the
+    floor."""
+    for d in (64, 128):
+        q, g = (_randn(gen, 2, 3, lq, d) for _ in range(2))
+        k, v = (_randn(gen, 2, 3, lk, d) for _ in range(2))
+        _k4_check(q, k, v, g, 1e-3 if lk == 1 else 1e-6)
+        _k4_check(q, k, v, g, 1e-3 if 1 in (lq, lk) else 1e-6, causal=True)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k4_reads_fused_projection_slices(gen, d):
+    """q|k|v column slices of one (B, L, 3*H*D) projection and dO a
+    (B, H, L, D) view of (B, L, H*D) memory."""
+    b, l, h = 2, 333, 5
+    q, k, v = (t.reshape(b, l, h, d).transpose(1, 2)
+               for t in _randn(gen, b, l, 3 * h * d).chunk(3, dim=-1))
+    g = _randn(gen, b, l, h * d).reshape(b, l, h, d).transpose(1, 2)
+    _k4_check(q, k, v, g)
+    _k4_check(q, k, v, g, causal=True)
+
+
+@pytest.mark.parametrize("lq,lk", [(512, 512), (200, 333)])
+@pytest.mark.parametrize("bias_bh", [(1, 4), (1, 1), (2, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k4_bias_broadcast_strides(gen, d, dtype, bias_bh, lq, lk):
+    """The bias staged by the producer and read transposed: stride 0 over
+    the batch (T5), over both leading axes or over the heads; rows of 333
+    keys are not 16-byte aligned (element copies)."""
+    q, g = (_randn(gen, 2, 4, lq, d) for _ in range(2))
+    k, v = (_randn(gen, 2, 4, lk, d) for _ in range(2))
+    bias = 4.0 * _randn(gen, *bias_bh, lq, lk, dtype=dtype)
+    _k4_check(q, k, v, g, bias=bias, scale=1.0)
+    _k4_check(q, k, v, g, bias=bias, causal=True)
+
+
+@pytest.mark.parametrize("kind", ["tile-aligned", "straddling", "no key"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k4_segments_at_its_tiles(gen, kind, d):
+    """Segment ids at K4's (64, 128) tiles: sequences that fill whole tiles
+    (no per-logit mask), sequences across tile edges, and rows whose id no
+    key has; alone, causal, with a bias and with both."""
+    assert tfa._DKV_TILES == (64, 128)
+    b, l = 2, 700
+    idx = torch.arange(l, device="cuda")
+    ids = {"tile-aligned": idx // 256, "straddling": (idx * 7) // l,
+           "no key": idx // 128}[kind].int()[None].expand(b, -1).contiguous()
+    kv_ids = ids if kind != "no key" else torch.where(
+        ids == 2, 9, ids).int().contiguous()
+    q, k, v, g = (_randn(gen, b, 3, l, d) for _ in range(4))
+    bias = _randn(gen, 1, 3, l, l)
+    for causal in (False, True):
+        for with_bias in (False, True):
+            _k4_check(q, k, v, g, segment_ids=(ids, kv_ids), causal=causal,
+                      bias=bias if with_bias else None)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k4_causal_keys_no_query_sees(gen, d):
+    """Causal with Lq < Lk: the keys past the last query get dk = dv = 0,
+    including whole key tiles that visit no query tile."""
+    q, g = (_randn(gen, 2, 3, 100, d) for _ in range(2))
+    k, v = (_randn(gen, 2, 3, 600, d) for _ in range(2))
+    dk, dv = _k4_check(q, k, v, g, causal=True)
+    assert not bool(dk[:, :, 100:].any()) and not bool(dv[:, :, 100:].any())
+    assert bool(dk[:, :, :100].any())
+
+
+def test_sm90_k4_writes_every_row(gen, monkeypatch):
+    """dk and dv are handed to the kernel filled with NaN: every key row, in
+    every form, must be written (keys that no query sees as 0)."""
+    blhd = tfa._blhd
+    monkeypatch.setattr(tfa, "_blhd", lambda like, n: blhd(like, n).fill_(
+        float("nan")))
+    idx = torch.arange(300, device="cuda")
+    ids = (idx // 100).int()[None]
+    cases = [((1, 2, 300, 300, 64), {}), ((2, 3, 129, 257, 128), {}),
+             ((1, 2, 100, 300, 64), dict(causal=True)),
+             ((1, 2, 300, 300, 128), dict(segment_ids=(ids, ids))),
+             ((1, 2, 300, 300, 64), dict(bias=_randn(gen, 1, 2, 300, 300)))]
+    for (b, h, lq, lk, d), masks in cases:
+        q, g = (_randn(gen, b, h, lq, d) for _ in range(2))
+        k, v = (_randn(gen, b, h, lk, d) for _ in range(2))
+        _k4_check(q, k, v, g, **masks)
+
+
+def test_sm90_k4_through_autograd(gen):
+    """flash_attention's backward on the card launches K3 and the sm90 K4,
+    once each, without a mask and causal."""
+    routes = tfa.flash_attention_bwd_dkv_cuda.routes
+    for causal in (False, True):
+        q, k, v = (_randn(gen, 2, 4, 600, 64).requires_grad_()
+                   for _ in range(3))
+        n = (tfa.flash_attention_bwd_dq_cuda.launches, routes["sm90"])
+        out = tfa.flash_attention(q, k, v, causal=causal)
+        g = _randn(gen, 2, 4, 600, 64)
+        out.backward(g)
+        assert (tfa.flash_attention_bwd_dq_cuda.launches,
+                routes["sm90"]) == (n[0] + 1, n[1] + 1)
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        ro, rl = tfa.flash_attention_plain(qd, kd, vd, causal=causal)
+        want = tfa.flash_attention_bwd_plain(qd, kd, vd, ro, rl, g,
+                                             causal=causal)
+        _bwd_close((q.grad, k.grad, v.grad), want)
+
+
+def test_k4_launches_by_route(gen):
+    """bf16 takes the sm90 kernel, fp32 the fp32 library; each launch is
+    counted under its route."""
+    routes = tfa.flash_attention_bwd_dkv_cuda.routes
+    for dtype, route in ((torch.bfloat16, "sm90"), (torch.float32, "fp32")):
+        q = _randn(gen, 1, 1, 130, 64, dtype=dtype)
+        out, lse = tfa.flash_attention_cuda(q, q, q)
+        delta = (q.float() * out.float()).sum(-1)
+        n = dict(routes)
+        tfa.flash_attention_bwd_dkv_cuda(q, q, q, q, lse, delta)
+        assert routes[route] == n.get(route, 0) + 1
+        assert sum(routes.values()) == sum(n.values()) + 1
+
+
+# ---------------------------------------- K1 at head dim 512 (TMA, wgmma)
+@pytest.mark.parametrize("lk", [1, 63, 65, 777, 4096, 4097])
+@pytest.mark.parametrize("lq", [1, 4096])
+def test_k1_d512_lengths_across_its_splits(gen, lq, lk):
+    """Lk around the 64-key tiles and across the key-split boundaries (up to
+    four splits at Lq = 1, two at 4096 queries), through the route."""
+    q = _randn(gen, 1, 1, lq, 512)
+    k, v = (_randn(gen, 1, 1, lk, 512) for _ in range(2))
+    n = tfa.flash_attention_cuda.routes["d512"]
+    _k1_check(q, k, v)
+    assert tfa.flash_attention_cuda.routes["d512"] == n + 1
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_k1_d512_each_split_count_matches_plain(gen, splits):
+    q = _randn(gen, 2, 1, 300, 512)
+    k, v = (_randn(gen, 2, 1, 1000, 512) for _ in range(2))
+    out, lse = tfa._flash_fwd_d512(q, k, v, 512 ** -0.5, splits)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+def test_k1_d512_heads_and_fused_projection_slices(gen):
+    """B*H > 1 with q|k|v column slices of one (B, L, 3*H*512) projection."""
+    b, l, h = 2, 333, 3
+    q, k, v = (t.reshape(b, l, h, 512).transpose(1, 2)
+               for t in _randn(gen, b, l, 3 * h * 512).chunk(3, dim=-1))
+    _k1_check(q, k, v)
+    _k1_check(q, k[:, :, :100], v[:, :, :100])
+
+
+def test_k1_d512_writes_every_row(gen, monkeypatch):
+    """out and lse are handed to the kernel filled with NaN, with one split
+    and with several."""
+    blhd = tfa._blhd
+    monkeypatch.setattr(tfa, "_blhd", lambda like, n: blhd(like, n).fill_(
+        float("nan")))
+    monkeypatch.setattr(tfa, "_lse_like", lambda q: torch.full(
+        q.shape[:3], float("nan"), device=q.device))
+    for b, lq, lk in ((1, 130, 777), (4, 4096, 200)):
+        q = _randn(gen, b, 1, lq, 512)
+        k, v = (_randn(gen, b, 1, lk, 512) for _ in range(2))
+        out, lse = _k1_check(q, k, v)
+        assert bool(torch.isfinite(out).all()) and bool(
+            torch.isfinite(lse).all())
 
 
 # ------------------------------------------------------------- fp32 forms
