@@ -12,11 +12,11 @@ two summary lines:
    objects, the bf16 flash kernels with GroupNorm and the fp32 flash kernels
    (``csrc/fp32/``), and prints each one's time and ptxas's register, spill
    and shared-memory lines; then counts the wgmma (HGMMA) and TMA (UTMALDG,
-   UBLKCP) instructions of each K1 and K4 kernel in the library's SASS
-   (``cuobjdump -sass``) and fails unless all 18 instantiations of the sm90
-   K1 (``csrc/flash_attention_sm90.cu``), the d = 512 K1
-   (``csrc/flash_attention.cu``) and all 16 of the sm90 K4
-   (``csrc/flash_attention_bwd_sm90.cu``) have both.
+   UBLKCP) instructions of each K1, K4, K5 and K7 kernel in the library's
+   SASS (``cuobjdump -sass``) and fails unless all 18 instantiations of the
+   sm90 K1 and all 4 of the sm90 K5 (``csrc/flash_attention_sm90.cu``), the
+   d = 512 K1 (``csrc/flash_attention.cu``) and all 16 of the sm90 K4 and 2
+   of the sm90 K7 (``csrc/flash_attention_bwd_sm90.cu``) have both.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the SD1, tiny-SD and SD3 paths give it, in bf16 (and
    GroupNorm in fp32), with max errors, both times, the least time the card
@@ -25,13 +25,15 @@ two summary lines:
    the same function (a yardstick only; nothing in the port calls it): K1
    flash forward (TMA / wgmma; at d = 512 also with its keys split over 1
    and 2 blocks per query tile), K2 GroupNorm, K3 / K4 flash backward (dq;
-   dk and dv, K4 on TMA / wgmma), K5
-   position-masked flash forward (the four SD3 shapes, online and bounded;
+   dk and dv, K4 on TMA / wgmma), K5 (TMA / wgmma)
+   position-masked flash forward (the four SD3 shapes, online and bounded,
+   each also by its own device time from torch.profiler;
    two-segment causal / valid_len masks, a ragged key tail, head dim 128,
    fully masked rows; the joint attention over 154 + 4096 tokens against
    plain attention over the concatenated sequence), K6 / K7
-   position-masked flash backward (dq; dk and dv) under the merged lse of
-   the joint attention (the four shapes; two-segment causal / valid_len
+   position-masked flash backward (dq; dk and dv, K7 on TMA / wgmma) under
+   the merged lse of the joint attention (the four shapes, with device
+   times; two-segment causal / valid_len
    masks, a ragged x length, head dim 128, rows masked in one partial only
    and rows masked everywhere; the joint backward as a whole against
    autograd through plain attention over the concatenated sequence), and
@@ -134,7 +136,9 @@ Every kernel's launch count is set to 0 just before each of the SD1, SD1
 generator, SD3, training, sampling, MMDiT training, MMDiT sampling, T5,
 TinyVLM training, TinyVLM decoding and fp32 paths and read just after (before
 the plain-attention run it is compared with), K1's also by the kernel it ran
-(sm90, d512, fp32), K4's by the kernel it ran (sm90, fp32). The last two
+(sm90, d512, fp32), K4's, K5's and K7's by the kernel they ran (sm90,
+fp32): on every path the launches by kernel add up to the launches, and on
+the bf16 SD3 and MMDiT paths every K5 and K7 launch took sm90. The last two
 lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
 card's name and power limit come on the line before them. Imports nothing
@@ -254,15 +258,22 @@ def phase_build():
 
 # The sm90 K1 instantiations: 4 padded head dims without a mask, 7 mask
 # forms at head dims 64 and 128; the d = 512 K1; the sm90 K4: 8 forms at
-# head dims 64 and 128.
-K1_SM90_KERNELS, K1_D512_KERNELS, K4_SM90_KERNELS = 4 + 2 * 7, 1, 2 * 8
+# head dims 64 and 128; the sm90 K5: online and bounded at head dims 64 and
+# 128; the sm90 K7: head dims 64 and 128.
+SM90_KERNELS = {  # kind -> (kernel name, instantiations)
+    "K1 sm90": ("flash_fwd_sm90_kernel", 4 + 2 * 7),
+    "K1 d512": ("flash_fwd_d512", 1),
+    "K4 sm90": ("flash_bwd_dkv_sm90_kernel", 2 * 8),
+    "K5 sm90": ("flash_fwd_pos_sm90_kernel", 2 * 2),
+    "K7 sm90": ("flash_bwd_pos_dkv_sm90_kernel", 2),
+}
 
 
 def sass_check(library):
-    """Counts, in each K1 and K4 kernel of the built library, the wgmma
-    (HGMMA) and TMA (UTMALDG, UBLKCP) instructions of its SASS (cuobjdump
-    -sass), and checks that every sm90 instantiation of K1 and K4 and the
-    d = 512 K1 have both."""
+    """Counts, in each K1, K4, K5 and K7 kernel of the built library, the
+    wgmma (HGMMA) and TMA (UTMALDG, UBLKCP) instructions of its SASS
+    (cuobjdump -sass), and checks that every sm90 instantiation of K1, K4,
+    K5 and K7 and the d = 512 K1 have both."""
     import shutil
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -274,34 +285,38 @@ def sass_check(library):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            fn = name if (("flash_fwd" in name and "pos" not in name)
-                          or "flash_bwd_dkv" in name) else None
+            fn = name if any(key in name for key in (
+                "flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv")) else None
             if fn:
                 counts[fn] = [0, 0]
         elif fn:
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += "UTMALDG" in line or "UBLKCP" in line
-    kinds = {"K1 sm90": "flash_fwd_sm90", "K1 d512": "flash_fwd_d512",
-             "K4 sm90": "flash_bwd_dkv_sm90"}
-    want = {"K1 sm90": K1_SM90_KERNELS, "K1 d512": K1_D512_KERNELS,
-            "K4 sm90": K4_SM90_KERNELS}
     found = {kind: {f: c for f, c in counts.items() if key in f}
-             for kind, key in kinds.items()}
+             for kind, (key, _) in SM90_KERNELS.items()}
+    names = {"K1 sm90": "causal/bias/segments", "K4 sm90":
+             "causal/bias/segments", "K5 sm90": "bounded"}
     for kind, fns in found.items():
         for f, (hgmma, tma) in sorted(fns.items()):
-            # template arguments: padded head dim, then causal, bias, segments
-            inst = re.search(r"kernelILi(\d+)E(?:Lb(\d)ELb(\d)ELb(\d)E)?", f)
-            what = (f"DP={inst.group(1)} causal/bias/segments="
-                    f"{'/'.join(inst.groups('-')[1:])}" if inst else "DP=512")
+            # template arguments: padded head dim, then the form's flags
+            inst = re.search(r"kernelILi(\d+)E((?:Lb\dE)*)", f)
+            flags = "/".join(re.findall(r"Lb(\d)E", inst.group(2))) if inst \
+                else ""
+            what = (f"DP={inst.group(1)}" if inst else "DP=512") + (
+                f" {names[kind]}={flags}" if flags else "")
             print(f"  sass {kind} {what}: HGMMA {hgmma}, UTMALDG/UBLKCP {tma}",
                   flush=True)
-        check(len(fns) == want[kind] and all(
+        check(len(fns) == SM90_KERNELS[kind][1] and all(
             h > 0 and t > 0 for h, t in fns.values()),
             f"the {kind} kernels lack wgmma or TMA in their SASS: {fns}")
-    check(len(counts) == sum(want.values()),
-          f"K1 / K4 kernels off the sm90 routes: "
+    check(len(counts) == sum(n for _, n in SM90_KERNELS.values()),
+          f"K1 / K4 / K5 / K7 kernels off the sm90 routes: "
           f"{sorted(set(counts) - {f for fns in found.values() for f in fns})}")
 
+
+# The four (Lq, Lk) of the SD3 / MMDiT joint attention: 154 context and 4096
+# x tokens (latent 128), each query stream against each key stream.
+SD3_JOINT_SHAPES = ((154, 154), (154, 4096), (4096, 154), (4096, 4096))
 
 # K1's timed cases, which compare_revisions.py times too. Without a mask,
 # (B, H, Lq, Lk, D): the first is reported (SD1 UNet at 64^2), the last is
@@ -381,15 +396,19 @@ def reset_counts():
 class Counts(dict):
     """Launches by kernel; ``k1_routes``: K1's launches by the kernel they
     ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32");
-    ``k4_routes``: K4's (``flash_attention_bwd_dkv_cuda.routes``: "sm90",
-    "fp32")."""
+    ``k4_routes``, ``k5_routes``, ``k7_routes``: K4's, K5's and K7's
+    (``.routes`` of their wrappers: "sm90", "fp32")."""
+
+
+ROUTED = ("K1", "K4", "K5", "K7")   # the kernels counted by route
 
 
 def read_counts():
     fns = kernel_counters()
     counts = Counts((k, fn.launches) for k, fn in fns.items())
-    counts.k1_routes = dict(getattr(fns["K1"], "routes", {}))
-    counts.k4_routes = dict(getattr(fns["K4"], "routes", {}))
+    for k in ROUTED:
+        setattr(counts, k.lower() + "_routes",
+                dict(getattr(fns[k], "routes", {})))
     return counts
 
 
@@ -459,6 +478,17 @@ def attn_bound(b, h, lq, lk, d, n_products=2, n_q_like=2, n_k_like=2,
 def _close(a, b, rtol, atol):
     a, b = a.float(), b.float()
     return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def kernel_device_ms(call, family, n=10):
+    """The device ms of one ``call()``: profiler kernel rows of ``family``
+    over ``n`` calls; None where no window recorded one."""
+    fams = device_families(lambda: [call() for _ in range(n)], family)
+    return fams[family] / n if family in fams else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def phase_kernels(card):
@@ -601,13 +631,15 @@ def phase_kernels(card):
 
     # K5 at the four shapes of the SD3 joint attention (CFG batch 2, 24
     # heads of 64): q, k, v are slices of the fused (B, L, 3, H, D)
-    # projections, as the MMDiT passes them. The x-by-x call is reported.
+    # projections, as the MMDiT passes them. The x-by-x call is reported;
+    # every shape is recorded with its device time (profiler).
     b, h, d = 2, 24, 64
     z = torch.zeros(2, dtype=torch.int32, device="cuda")
     fused = {n: rnd(b, n, 3 * h * d).to(bf16).reshape(b, n, 3, h, d)
              for n in (154, 4096)}
     pick = lambda n, i: fused[n][:, :, i].transpose(1, 2)
-    for lq, lk in ((154, 154), (154, 4096), (4096, 154), (4096, 4096)):
+    results["K5 shapes"] = []
+    for lq, lk in SD3_JOINT_SHAPES:
         q, k, v = pick(lq, 0), pick(lk, 1), pick(lk, 2)
         ref, ref_lse = fa.flash_attention_pos_plain(q, k, v, z, z)
         plain_ms = cuda_ms(
@@ -624,14 +656,19 @@ def phase_kernels(card):
             times = dict(ms=cuda_ms(run), plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=bound_ms,
                          bound_by=bound_by)
+            device_ms = kernel_device_ms(run, "K5 flash fwd pos")
             print(f"K5 flash fwd pos (B,H,Lq,Lk,D)=({b},{h},{lq},{lk},{d}) "
                   f"{stability} bf16: max|out err|={err:.3e} (atol 2e-2) "
-                  f"max|lse err|={lse_err:.3e} (atol 1e-3); {tail(**times)}",
+                  f"max|lse err|={lse_err:.3e} (atol 1e-3); {tail(**times)}, "
+                  f"kernel device time {fmt_ms(device_ms)} (profiler)",
                   flush=True)
             check(err <= 2e-2 and lse_err <= 1e-3, f"K5 {stability} disagrees "
                   f"at {(b, h, lq, lk, d)}: {err} / {lse_err}")
             record("K5", err, (lq, lk, stability) == (4096, 4096, "online"),
                    **times)
+            results["K5 shapes"].append(dict(
+                shape=[b, h, lq, lk, d], stability=stability,
+                max_abs_err=err, device_ms=device_ms, **times))
         del ref, ref_lse
 
     # K5's masks at a smaller size: (B, H, Lq, Lk, D), query and key
@@ -824,10 +861,8 @@ def phase_kernels_masks(card, rnd, tail):
                    **bnd(2, 2, 2, 1, 1))
         # the kernel's own device time (profiler kernel rows): the wall time
         # of a segment-id call also holds the wrapper's tile ranges
-        fams = device_families(lambda: [fa.flash_attention_cuda(
-            q, k, v, scale, **masks) for _ in range(10)], "K1 flash fwd")
-        device_ms = (fams["K1 flash fwd"] / 10 if "K1 flash fwd" in fams
-                     else None)
+        device_ms = kernel_device_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, scale, **masks), "K1 flash fwd")
         shared = dict(
             plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
                 q, k, v, out, lse, g, scale, **masks, need_dbias=need), 3, 1),
@@ -840,14 +875,11 @@ def phase_kernels_masks(card, rnd, tail):
         t4 = dict(ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
                       q, k, v, g, lse, delta, scale, **masks), 10, 2),
                   **shared, **bnd(4, 2, 4, 2, 1))
-        fams = device_families(lambda: [fa.flash_attention_bwd_dkv_cuda(
-            q, k, v, g, lse, delta, scale, **masks) for _ in range(10)],
+        t4["device_ms"] = kernel_device_ms(
+            lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
+                                                    scale, **masks),
             "K4 flash bwd dk/dv")
-        t4["device_ms"] = (fams["K4 flash bwd dk/dv"] / 10
-                           if "K4 flash bwd dk/dv" in fams else None)
-        dev = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
-        dev4 = ("not measured" if t4["device_ms"] is None
-                else f"{t4['device_ms']:.4f} ms")
+        dev, dev4 = fmt_ms(device_ms), fmt_ms(t4["device_ms"])
         print(f"{head}; {100.0 * pairs / (b * lq * lk):.1f} % of the pairs "
               f"visible; K1: {tail(**fwd)}, kernel device time {dev} "
               f"(profiler); the plain backward computes dq, "
@@ -972,10 +1004,8 @@ def k1_launch_path(card, where, n=2000):
                 fn()
             torch.cuda.synchronize()
             us.append((time.perf_counter() - t) * 1e6 / n)
-        fams = device_families(lambda: [entry() for _ in range(100)],
-                               "K1 flash fwd")
-        us.append(1e3 * fams["K1 flash fwd"] / 100 if "K1 flash fwd" in fams
-                  else float("nan"))
+        kernel_ms = kernel_device_ms(entry, "K1 flash fwd", 100)
+        us.append(float("nan") if kernel_ms is None else 1e3 * kernel_ms)
         print(f"K1 launch path ({where}), {what}, (B,H,L,D)=({b},{h},{n_tok},"
               f"{d}): wrapper {us[0]:.2f} us/call, C entry alone "
               f"{us[1]:.2f} us/call ({n} calls back to back, host clock), "
@@ -1029,7 +1059,7 @@ def phase_kernels_pos_bwd(card, ctx, xs, rnd, off, tail):
     # lse and delta are those of the merged forward over both key streams.
     b, h, d = 2, 24, 64
     streams = dict(c=ctx, x=xs)
-    stats = {}
+    stats, shapes = {}, dict(K6=[], K7=[])
     for s_, (q, _, _) in streams.items():
         n = q.shape[2]
         g = rnd(b, n, h * d).to(bf16).reshape(b, n, h, d).transpose(1, 2)
@@ -1037,7 +1067,9 @@ def phase_kernels_pos_bwd(card, ctx, xs, rnd, off, tail):
             *fa.flash_attention_pos(q, ctx[1], ctx[2], z, z),
             *fa.flash_attention_pos(q, xs[1], xs[2], z, z))
         stats[s_] = (g, lse.contiguous(), (g.float() * out.float()).sum(-1))
-    for sq, sk in (("c", "c"), ("c", "x"), ("x", "c"), ("x", "x")):
+    name_of = {154: "c", 4096: "x"}
+    for lq_, lk_ in SD3_JOINT_SHAPES:
+        sq, sk = name_of[lq_], name_of[lk_]
         q, (_, k, v) = streams[sq][0], streams[sk]
         g, lse, delta = stats[sq]
         lq, lk = q.shape[2], k.shape[2]
@@ -1060,11 +1092,19 @@ def phase_kernels_pos_bwd(card, ctx, xs, rnd, off, tail):
                       attn_bound(b, h, lq, lk, d, 4, 2, 4, 2)), **shared,
                   ms=cuda_ms(lambda: fa.flash_bwd_pos_dkv_cuda(
                       q, k, v, g, lse, delta, z, z), 10, 2))
+        dev6 = kernel_device_ms(lambda: fa.flash_bwd_pos_dq_cuda(
+            q, k, v, g, lse, delta, z, z), "K6 flash bwd pos dq")
+        dev7 = kernel_device_ms(lambda: fa.flash_bwd_pos_dkv_cuda(
+            q, k, v, g, lse, delta, z, z), "K7 flash bwd pos dk/dv")
         print(f"K6/K7 flash bwd pos (B,H,Lq,Lk,D)=({b},{h},{lq},{lk},{d}) "
               f"bf16, global lse: {errs}; plain and library compute dq, dk "
-              f"and dv together; K6: {tail(**t6)}; K7: {tail(**t7)}",
-              flush=True)
+              f"and dv together; K6: {tail(**t6)}, kernel device time "
+              f"{fmt_ms(dev6)}; K7: {tail(**t7)}, kernel device time "
+              f"{fmt_ms(dev7)} (profiler)", flush=True)
         del ol, ql, kl, vl
+        for name, t, dev in (("K6", t6, dev6), ("K7", t7, dev7)):
+            shapes[name].append(dict(shape=[b, h, lq, lk, d], device_ms=dev,
+                                     **t))
         if (sq, sk) == ("x", "x"):
             reported = dict(K6=t6, K7=t7)
 
@@ -1156,7 +1196,8 @@ def phase_kernels_pos_bwd(card, ctx, xs, rnd, off, tail):
           f"attention over the concatenated sequence; 4 x K6 + 4 x K7 + "
           f"deltas and sums {ms:.4f} ms, library backward (one call, "
           f"concatenated) {library_ms:.4f} ms [{card}]", flush=True)
-    return {k: dict(err=worst[k], **reported[k]) for k in ("K6", "K7")}
+    return {k: dict(err=worst[k], shapes=shapes[k], **reported[k])
+            for k in ("K6", "K7")}
 
 
 def phase_kernels_bwd(card, q, k, v, out, lse, gen, tail):
@@ -1931,7 +1972,12 @@ def phase_mmdit_training(card):
     for name, per_step in MMDIT_PER_STEP.items():
         check(launches[name] == per_step * n_steps,
               f"{name} launches {launches[name]} != {per_step} x {n_steps}")
-    return trainer, state, launches
+    step = dict(step_ms=step_ms, host_ms=host_ms, busy_ms=busy, idle=idle,
+                peak_gib=peak)
+    for fam in ("K5 flash fwd pos", "K6 flash bwd pos dq",
+                "K7 flash bwd pos dk/dv"):
+        step[fam.split()[0] + " device ms"] = fams.get(fam)
+    return trainer, state, launches, step
 
 
 def phase_mmdit_grad_check(card):
@@ -3044,7 +3090,7 @@ def main():
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()   # the serving bundles are gone: room to train
-    trainer, state, train_launches = phase_mmdit_training(card)
+    trainer, state, train_launches, _ = phase_mmdit_training(card)
     runs.append(train_launches)
     phase_mmdit_grad_check(card)
     runs.append(phase_mmdit_sampling(card, trainer, state))
@@ -3089,18 +3135,30 @@ def main():
             library_ms=r["library_ms"])
 
     def by_route(route, kernel="k1"):
-        """K1's (or K4's) launches on one of its kernels, from the paths'
-        runs."""
+        """K1's (or K4's, K5's, K7's) launches on one of its kernels, from
+        the paths' runs."""
         per_path = {p: getattr(run, kernel + "_routes").get(route, 0)
                     for p, run in zip(paths, runs)}
         return dict(launches=sum(per_path.values()),
                     launches_by_path=per_path)
 
-    for k in ("K1", "K4"):
+    for k in ROUTED:
         routes = [getattr(run, k.lower() + "_routes") for run in runs]
         check(all(sum(r.values()) == run[k] for r, run in zip(routes, runs)),
               f"{k}'s launches by route do not add up to its launches: "
               f"{[(r, run[k]) for r, run in zip(routes, runs)]}")
+    # the bf16 paths of the joint attention: every K5 / K7 launch on sm90
+    for p, run in zip(paths, runs):
+        if p in ("sd3", "mmdit_training", "mmdit_sampling"):
+            for k in ("K5", "K7"):
+                r = getattr(run, k.lower() + "_routes")
+                check(r == ({"sm90": run[k]} if run[k] else {}),
+                      f"{p}: {k}'s bf16 launches did not all take the sm90 "
+                      f"kernel: {r}")
+    print("K5 / K7 launches by kernel: " + "; ".join(
+        f"{p} K5 {run.k5_routes} K7 {run.k7_routes}"
+        for p, run in zip(paths, runs) if run["K5"] or run["K7"]),
+        flush=True)
     together = "dq, dk and dv together"
     summary = {"kernels": [
         entry("flash_attention_fwd", "flash_attention_sm90.cu",
@@ -3157,18 +3215,44 @@ def main():
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
               forms=forms_of("K4")),
-        entry("flash_attention_fwd_pos", "flash_attention_pos.cu",
+        entry("flash_attention_fwd_pos", "flash_attention_sm90.cu",
               "flash_attention.py:1237", "K5",
+              design=("bf16 at head dims 64 and 128, online and bounded: "
+                      "K1's design under position masks, on K1's per-tile "
+                      "steps (3 warpgroups per block; a producer issuing "
+                      "TMA over 4-D tensor maps of the operands' own "
+                      "strides, Q double-buffered and K/V tiles of 128 keys "
+                      "in a 2-stage mbarrier ring; two consumers of 64 query "
+                      "rows running wgmma m64n128k16 for S = QK^T, the "
+                      "softmax in registers and wgmma RS for O += PV); a "
+                      "persistent grid of one block per SM walking 128-query "
+                      "tiles, so the next tile's loads overlap this one's "
+                      "last products and epilogue; every role skips the "
+                      "same (query tile, key tile) pairs from their position "
+                      "bounds and masks per logit where a pair is partly "
+                      "visible; the bounded form fixes the max at 0"),
+              sm90=by_route("sm90", "k5"), shapes=kernels["K5 shapes"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64) online",
               library="F.scaled_dot_product_attention"),
         entry("flash_attention_bwd_pos_dq", "flash_attention_pos_bwd.cu",
               "flash_attention.py:1446", "K6", plain_computes=together,
-              library_computes=together,
+              library_computes=together, shapes=kernels["K6"]["shapes"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
               library="backward of F.scaled_dot_product_attention"),
-        entry("flash_attention_bwd_pos_dkv", "flash_attention_pos_bwd.cu",
+        entry("flash_attention_bwd_pos_dkv", "flash_attention_bwd_sm90.cu",
               "flash_attention.py:1504", "K7", plain_computes=together,
               library_computes=together,
+              design=("bf16 at head dims 64 and 128: the position-mask form "
+                      "of K4's kernel (one block of 3 warpgroups per 128 "
+                      "keys, a producer issuing TMA for K and V once and Q "
+                      "and dO tiles of 64 queries in a 2-stage ring, the "
+                      "caller's global lse and delta stored beside them; "
+                      "two consumers of 64 keys computing S^T and dP^T with "
+                      "the keys as wgmma's M, P^T and dS^T in registers as "
+                      "the RS A operand of dV += P^T dO and dK += dS^T Q); "
+                      "every role skips the same pairs from their position "
+                      "bounds, masked P selected to 0"),
+              sm90=by_route("sm90", "k7"), shapes=kernels["K7"]["shapes"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
               library="backward of F.scaled_dot_product_attention"),
     ]}

@@ -18,19 +18,26 @@ Parts, all of them unless ``--only`` names some:
   - kernels: K1 at ``chip_smoke.K1_SHAPES`` and ``K1_FORMS``, K3 and K4 at
     the head-dim-128 shapes of ``K1_SHAPES`` and the TinyVLM's two forms of
     ``K1_FORMS``, K2 at the SD1 UNet's and the largest SD3 VAE decoder's
-    GroupNorm, K5, K6 and K7 at the SD3 joint attention's x-by-x shape: wall
-    ms per call (``cuda_ms``) and the kernel's own device ms per call
+    GroupNorm, K5 (online and bounded), K6 and K7 at the four shapes of the
+    SD3 joint attention (``chip_smoke.SD3_JOINT_SHAPES``; q, k, v slices of
+    the fused projections, K6 / K7 under the lse merged over both streams):
+    wall ms per call (``cuda_ms``) and the kernel's own device ms per call
     (profiler kernel rows of its family over 10 calls);
   - training: ``chip_smoke.phase_training`` (the tiny-SD step) and
     ``phase_sampling`` (T = 250);
   - vlm: ``chip_smoke.phase_vlm_training`` (the TinyVLM step);
+  - mmdit: ``chip_smoke.phase_mmdit_training`` (the MMDiT step at SD3's
+    width, depth and 4096 + 154 tokens): ms/step (CUDA events), host ms,
+    device-busy ms and idle share of one profiled step, and K5, K6 and K7's
+    device ms in it;
   - sd1: an SD1 request (random weights, 512², 50 k-LMS steps, CFG 7.5) at
     batch 1 (the second of two) and 4, wall s, and the device-busy ms of one
     profiled batch-1 request;
   - t5: the T5-XXL encoder of the SD3-medium bundle on (2, 512) tokens, ms
     per call, device-busy ms of one profiled call and K1's part of it;
   - sd3: an SD3-medium request (1024², 50 steps, CFG 5), wall s of the
-    second of two and device-busy ms of a third.
+    second of two, and of a third under the profiler its device-busy ms,
+    K5's device ms and the idle share (1 - busy / the second's wall).
 Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -44,7 +51,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PARTS = ("launch", "kernels", "training", "vlm", "sd1", "t5", "sd3")
+PARTS = ("launch", "kernels", "training", "vlm", "mmdit", "sd1", "t5",
+         "sd3")
 K1 = "K1 flash fwd"
 
 
@@ -80,10 +88,9 @@ def _kernels(cs, out):
             masks["segment_ids"] = (cs.k1_segment_ids(m["ids"], b, lq),) * 2
         call = lambda: fa.flash_attention_cuda(q, k, v, m.get("scale"),
                                                **masks)
-        fams = cs.device_families(lambda: [call() for _ in range(10)], K1)
         key = f"K1 {name} {(b, h, lq, lk, d)}"
         out[key + " wall ms"] = cs.cuda_ms(call)
-        out[key + " device ms"] = fams[K1] / 10 if K1 in fams else None
+        out[key + " device ms"] = cs.kernel_device_ms(call, K1)
         del q, k, v, masks
     torch.cuda.empty_cache()
     _other_kernels(cs, out, rnd)
@@ -92,9 +99,8 @@ def _kernels(cs, out):
 def _timed(cs, out, key, family, call):
     """Wall ms (``cuda_ms``) and device ms (profiler rows of ``family``) per
     call."""
-    fams = cs.device_families(lambda: [call() for _ in range(10)], family)
     out[key + " wall ms"] = cs.cuda_ms(call, 10, 2)
-    out[key + " device ms"] = fams[family] / 10 if family in fams else None
+    out[key + " device ms"] = cs.kernel_device_ms(call, family)
 
 
 def _other_kernels(cs, out, rnd):
@@ -126,18 +132,35 @@ def _other_kernels(cs, out, rnd):
         w, bb = 1.0 + 0.1 * rnd(shape[-1]), 0.1 * rnd(shape[-1])
         _timed(cs, out, f"K2 {shape} silu", "K2 group norm",
                lambda: gn.group_norm_cuda(x, 32, w, bb, 1e-5, "silu"))
-    b, h, n, d = 2, 24, 4096, 64
-    q, k, v, g = (rnd(b, h, n, d).to(bf16) for _ in range(4))
+    # the joint attention of SD3 / the MMDiT: q, k, v slices of the fused
+    # (B, L, 3, H, D) projections of the 154 context and 4096 x tokens
+    b, h, d = 2, 24, 64
     z = torch.zeros(2, dtype=torch.int32, device="cuda")
-    o, lse = fa.flash_attention_pos_cuda(q, k, v, z, z)
-    delta = (g.float() * o.float()).sum(-1)
-    key = f"{(b, h, n, n, d)}"
-    _timed(cs, out, "K5 " + key, "K5 flash fwd pos",
-           lambda: fa.flash_attention_pos_cuda(q, k, v, z, z))
-    _timed(cs, out, "K6 " + key, "K6 flash bwd pos dq",
-           lambda: fa.flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, z, z))
-    _timed(cs, out, "K7 " + key, "K7 flash bwd pos dk/dv",
-           lambda: fa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, z, z))
+    fused = {n: rnd(b, n, 3 * h * d).to(bf16).reshape(b, n, 3, h, d)
+             for n in (154, 4096)}
+    pick = lambda n, i: fused[n][:, :, i].transpose(1, 2)
+    stats = {}
+    for n in (154, 4096):    # the merged lse and delta of each query stream
+        q = pick(n, 0)
+        g = rnd(b, n, h * d).to(bf16).reshape(b, n, h, d).transpose(1, 2)
+        parts = [fa.flash_attention_pos_cuda(q, pick(m, 1), pick(m, 2), z, z)
+                 for m in (154, 4096)]
+        o, lse = fa.merge_attention_partials(*parts[0], *parts[1])
+        stats[n] = (g, lse.contiguous(), (g.float() * o.float()).sum(-1))
+    for lq, lk in cs.SD3_JOINT_SHAPES:
+        q, k, v = pick(lq, 0), pick(lk, 1), pick(lk, 2)
+        g, lse, delta = stats[lq]
+        key = f"{(b, h, lq, lk, d)}"
+        for st in ("online", "bounded"):
+            _timed(cs, out, f"K5 {key} {st}", "K5 flash fwd pos",
+                   lambda: fa.flash_attention_pos_cuda(q, k, v, z, z,
+                                                       stability=st))
+        _timed(cs, out, "K6 " + key, "K6 flash bwd pos dq",
+               lambda: fa.flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, z, z))
+        _timed(cs, out, "K7 " + key, "K7 flash bwd pos dk/dv",
+               lambda: fa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, z,
+                                                 z))
+    del fused, stats
     torch.cuda.empty_cache()
 
 
@@ -205,8 +228,11 @@ def _sd3_bundle(cs, out, parts):
 
     sd3(1)
     out["SD3 s/request"] = sd3(2)
-    out["SD3 device busy ms"] = sum(cs.device_families(
-        lambda: sd3(3)).values())
+    fams = cs.device_families(lambda: sd3(3))
+    busy = sum(fams.values())
+    out["SD3 device busy ms"] = busy
+    out["SD3 K5 device ms"] = fams.get("K5 flash fwd pos")
+    out["SD3 idle share"] = 1.0 - busy / (1e3 * out["SD3 s/request"])
 
 
 def measure(parts):
@@ -245,6 +271,13 @@ def measure(parts):
         trainer, state, _, step = cs.phase_vlm_training(card)
         for key, x in step.items():
             out[f"TinyVLM step {key}"] = x
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "mmdit" in parts:
+        trainer, state, _, step = cs.phase_mmdit_training(card)
+        for key, x in step.items():
+            out[f"MMDiT step {key}"] = x
         del trainer, state
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,25 +1,36 @@
-// Flash-attention backward dk / dv (K4) for Hopper (sm_90a) on TMA and
-// wgmma: bf16 in and out, fp32 softmax reconstruction and accumulators.
+// Flash-attention backward dk / dv for Hopper (sm_90a) on TMA and wgmma:
+// bf16 in and out, fp32 softmax reconstruction and accumulators. K4, and K7,
+// its position-masked form.
 //
-// Replaces the Pallas TPU kernel
+// Replaces two Pallas TPU kernels of the JAX package:
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dkv_kernel
-// in all of its forms: ragged Lq and Lk, CAUSAL (key <= query from index 0
-// on both sides), HAS_BIAS (an additive bias read through its strides, added
-// in fp32 after the scale) and HAS_SEG (segment ids: same-id pairs only), as
-// template parameters beside the head dim (64: SigLIP tower, TinyVLM decoder,
-// T5; 128: tiny-SD). It recomputes the probabilities under the forward's
-// saved lse, P = exp(scale * Q K^T + bias - lse), selected to 0 where a mask
-// hides the key (never multiplied: a row that saw no key has lse = -1e30),
-// with delta = rowsum(dO * out) computed beforehand (fp32, by the caller):
-//   dV = P^T dO,  dS = P * (dO V^T - delta),  dK = scale * dS^T Q.
+//     (K4) in all of its forms: ragged Lq and Lk, CAUSAL (key <= query from
+//     index 0 on both sides), HAS_BIAS (an additive bias read through its
+//     strides, added in fp32 after the scale) and HAS_SEG (segment ids:
+//     same-id pairs only), as template parameters beside the head dim (64:
+//     SigLIP tower, TinyVLM decoder, T5; 128: tiny-SD);
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dkv_kernel_pos
+//     (K7): the same gradients of a LOCAL block of queries against a LOCAL
+//     block of keys under a GLOBAL softmax over more keys than this block
+//     holds, with the position masks of K5 (flash_attention_sm90.cu): the
+//     MMDiT's training step runs it four times per joint block at (2, 24,
+//     {154, 4096}, {154, 4096}, 64) under the lse merged over both streams.
+// It recomputes the probabilities under the caller's lse (K4: the forward's;
+// K7: the global one), P = exp(scale * Q K^T + bias - lse), selected to 0
+// where a mask hides the key (never multiplied: a row that saw no key has
+// lse = -1e30, and under K7 a row that only another block's keys see has a
+// finite lse and is masked in every tile here), with delta = rowsum(dO *
+// out) computed beforehand (fp32, by the caller):
+//   dV = P^T dO,  dS = P * (dO V^T - delta),  dK = scale * dS^T Q;
+// under K7 the contributions of several key blocks add up in the caller.
 // The TPU's sequential query-block grid axis is a loop inside the block.
 //
 // What bounds it on the H100: four L^2 * d products per (b, h), thousands of
-// flop per byte of q, k, v and dO at the tiny-SD shapes: operations, so the
-// tensor cores' issue rate. The mma.sync kernel it replaces reached ~9 % of
-// that bound: every thread loaded each query tile synchronously, with a
-// transposed copy of Q and dO beside it, P^T and dS^T went through shared
-// memory, and no load overlapped a product.
+// flop per byte of q, k, v and dO at the tiny-SD and MMDiT shapes:
+// operations, so the tensor cores' issue rate and, at d = 64, the
+// exponentials. The mma.sync kernels it replaces reached ~9 % (K4) and ~13 %
+// (K7) of that bound: tiles were loaded synchronously, P^T and dS^T went
+// through shared memory (K4), and no load overlapped a product.
 //
 // Design. One block of three warpgroups per (b*h, 128 keys):
 //  - a producer warpgroup gives up its registers (setmaxnreg 40). One thread
@@ -46,10 +57,20 @@
 //    the tile range [lo, hi] of mask.cuh at (64 queries, 128 keys), skip a
 //    tile whose ids are disjoint, and mask per logit only where the two
 //    tiles are not one same segment. A key that no query sees gets 0.
+//  - K7 (POS) is one more form, with its own kernel name
+//    (flash_bwd_pos_dkv_sm90_kernel) so that profiles and the SASS check
+//    tell it from K4. Its masks are runtime flags read per tile: every role
+//    judges each (query tile, key tile) pair by the same pos_pair of the two
+//    tiles' position bounds (pos_tile.cuh), so producer and consumers walk
+//    the same tiles and the ring's phases stay in step: skipped, wholly
+//    visible, or masked per logit (key index < Lk, key position < valid_len,
+//    key position <= query position when causal). A key tile wholly past
+//    valid_len walks nothing.
 // dk (times scale) and dv are written in bf16 through their strides.
 
 #include "mask.cuh"
 #include "mma.cuh"
+#include "pos_tile.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -57,6 +78,10 @@ namespace {
 namespace s9 = fdsd::sm90;
 using fdsd::MaskArgs;
 using fdsd::pack_bf16;
+using fdsd::PosArgs;
+using fdsd::pos_bounds;
+using fdsd::pos_of;
+using fdsd::pos_pair;
 using fdsd::seg_overlap;
 
 constexpr float kNegInf = -1e30f;
@@ -101,6 +126,7 @@ struct Params {
   long long dks[3], dvs[3];  // dk's and dv's (batch, head, seq) strides
   float scale;
   MaskArgs m;
+  PosArgs pos;  // K7 only
 };
 
 // One element of the staged bias tile, (query row r, key column c).
@@ -111,15 +137,16 @@ __device__ __forceinline__ float bias_elem(const void* tile, int bf16, int r,
               : static_cast<const float*>(tile)[i];
 }
 
-template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap tg,
-                          const Params p) {
+// The kernel body of K4 (POS = false) and K7 (POS = true, no other mask).
+template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG, bool POS>
+__device__ __forceinline__ void flash_bwd_dkv_body(const CUtensorMap& tq,
+                                                   const CUtensorMap& tk,
+                                                   const CUtensorMap& tv,
+                                                   const CUtensorMap& tg,
+                                                   const Params& p) {
   using C = Cfg<DP, HAS_BIAS>;
-  constexpr bool kSelect = CAUSAL || HAS_BIAS || HAS_SEG;
+  constexpr bool kSelect = CAUSAL || HAS_BIAS || HAS_SEG || POS;
+  static_assert(!POS || !(CAUSAL || HAS_BIAS || HAS_SEG), "K7's masks");
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = s9::smem_u32(smem_raw);
@@ -159,10 +186,26 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   // The query tiles this block visits, the same walk in every role: all of
   // them; from the first that reaches the key tile when causal; the range
-  // whose segment ids overlap this key tile's, less the disjoint tiles.
+  // whose segment ids overlap this key tile's, less the disjoint tiles;
+  // under position masks, those pos_pair does not skip (none when the whole
+  // key tile lies past valid_len).
   const int n_qt = (p.Lq + kBQ - 1) / kBQ;
   int it_begin = 0, it_end = n_qt;
   if (CAUSAL) it_begin = k0 / kBQ;
+  int q_off0 = 0, q_off1 = 0, k_lo = 0, k_hi = 0;
+  if (POS) {
+    q_off0 = p.pos.q_off[0];
+    q_off1 = p.pos.q_off[1];
+    pos_bounds(k0, kBK, p.pos.k_off[0], p.pos.k_off[1], p.pos.seg_k, p.Lk,
+               k_lo, k_hi);
+    if (p.pos.has_valid && k_lo >= p.pos.valid_len) it_end = 0;
+  }
+  // pos_pair of query tile it with this key tile: 0 skip, 1 visible, 2 masked
+  auto pos_state = [&](int it) {
+    int q_lo, q_hi;
+    pos_bounds(it * kBQ, kBQ, q_off0, q_off1, p.pos.seg_q, p.Lq, q_lo, q_hi);
+    return pos_pair(p.pos, q_lo, q_hi, k_lo, k_hi);
+  };
   const int* k_bound = nullptr;
   const int* q_bounds = nullptr;
   if (HAS_SEG) {
@@ -194,6 +237,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     uint32_t phase = 0, bias_phase = 0;
     for (int it = it_begin; it < it_end; ++it) {
       if (HAS_SEG && !seg_overlap(k_bound, q_bounds + 2 * it)) continue;
+      if (POS && pos_state(it) == 0) continue;
       const int q0 = it * kBQ;
       const uint32_t full = full0 + 8 * stage;
       s9::mbar_wait(empty0 + 8 * stage, phase ^ 1);
@@ -249,6 +293,16 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       if (key0 < p.Lk) kid0 = ids[key0];
       if (key1 < p.Lk) kid1 = ids[key1];
     }
+    // K7: the positions of this thread's two keys and whether any query
+    // could see them (index < Lk, position < valid_len)
+    int kpos0 = 0, kpos1 = 0;
+    bool kvis0 = true, kvis1 = true;
+    if (POS) {
+      kpos0 = pos_of(key0, p.pos.k_off[0], p.pos.k_off[1], p.pos.seg_k);
+      kpos1 = pos_of(key1, p.pos.k_off[0], p.pos.k_off[1], p.pos.seg_k);
+      kvis0 = key0 < p.Lk && (!p.pos.has_valid || kpos0 < p.pos.valid_len);
+      kvis1 = key1 < p.Lk && (!p.pos.has_valid || kpos1 < p.pos.valid_len);
+    }
     // exp(x) = exp2(x log2 e); without a bias the scale is folded in too
     const float c = HAS_BIAS ? kLog2e : p.scale * kLog2e;
     float dk[DP / 2], dv[DP / 2];
@@ -262,9 +316,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     uint32_t phase = 0, bias_phase = 0;
     for (int it = it_begin; it < it_end; ++it) {
       if (HAS_SEG && !seg_overlap(k_bound, q_bounds + 2 * it)) continue;
+      const int state = POS ? pos_state(it) : 1;
+      if (state == 0) continue;
       const int q0 = it * kBQ;
       // Which per-logit masks this tile needs.
-      bool need_mask = false;
+      bool need_mask = state == 2;
       if (CAUSAL) need_mask = k0 + 64 * cw + 63 > q0;
       if (HAS_SEG) {
         const int* qb = q_bounds + 2 * it;
@@ -315,6 +371,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         int2 qid2 = make_int2(-1, -1);
         if (HAS_SEG && need_mask)
           qid2 = *reinterpret_cast<const int2*>(rs + 2 * kBQ + col);
+        int qpos[2] = {0, 0};  // K7: positions of the two queries
+        if (POS && need_mask && p.pos.causal) {
+          qpos[0] = pos_of(q0 + col, q_off0, q_off1, p.pos.seg_q);
+          qpos[1] = pos_of(q0 + col + 1, q_off0, q_off1, p.pos.seg_q);
+        }
         float pr[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -331,6 +392,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           if (HAS_SEG && need_mask)
             visible = visible && (e < 2 ? kid0 : kid1) ==
                                      ((e & 1) ? qid2.y : qid2.x);
+          if (POS && need_mask) {
+            visible = visible && (e < 2 ? kvis0 : kvis1);
+            if (p.pos.causal)
+              visible = visible && (e < 2 ? kpos0 : kpos1) <= qpos[e & 1];
+          }
           float pv = s9::exp2_approx(fmaf(x, c, -((e & 1) ? lse2.y : lse2.x)));
           if (kSelect && !visible) pv = 0.f;  // selected, not multiplied
           pr[e] = pv;
@@ -401,11 +467,36 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// K4.
 template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* g, int B, const long long* st,
-                   const Params& p, cudaStream_t stream) {
-  using C = Cfg<DP, HAS_BIAS>;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tg,
+                          const __grid_constant__ Params p) {
+  flash_bwd_dkv_body<DP, CAUSAL, HAS_BIAS, HAS_SEG, false>(tq, tk, tv, tg, p);
+}
+
+// K7: the position masks under a global lse.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_pos_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tg,
+                              const __grid_constant__ Params p) {
+  flash_bwd_dkv_body<DP, false, false, false, true>(tq, tk, tv, tg, p);
+}
+
+// The q, k, v and dO tensor maps, then `kernel` on one block per (b*h, 128
+// keys).
+template <int DP, typename Kernel>
+cudaError_t launch_on(Kernel kernel, int smem, const void* q, const void* k,
+                      const void* v, const void* g, int B,
+                      const long long* st, const Params& p,
+                      cudaStream_t stream) {
+  using C = Cfg<DP, false>;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap tq, tk, tv, tg;
   cudaError_t err =
@@ -417,9 +508,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = s9::make_map(&tg, g, p.d, p.Lq, p.H, B, st + 9, C::W, kBQ, sw);
   if (err != cudaSuccess) return err;
-  return s9::launch_kernel(
+  return s9::launch_kernel(kernel, B * p.H * p.n_kt, kThreads, smem, stream,
+                           tq, tk, tv, tg, p);
+}
+
+template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* g, int B, const long long* st,
+                   const Params& p, cudaStream_t stream) {
+  return launch_on<DP>(
       flash_bwd_dkv_sm90_kernel<DP, CAUSAL, HAS_BIAS, HAS_SEG>,
-      B * p.H * p.n_kt, kThreads, C::kSmemBytes, stream, tq, tk, tv, tg, p);
+      Cfg<DP, HAS_BIAS>::kSmemBytes, q, k, v, g, B, st, p, stream);
 }
 
 // The eight forms at one head dim; code = 4*causal + 2*has_bias + has_seg.
@@ -479,6 +578,7 @@ extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.m = fdsd::make_mask_args(bias, strides + 18, bias_bf16, q_ids, kv_ids,
                              q_bounds, kv_bounds, lo, hi);
+  p.pos = PosArgs{};
   const int code = 4 * (causal != 0) + 2 * (bias != nullptr) +
                    (q_ids != nullptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -487,5 +587,46 @@ extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
     err = launch_form<64>(code, q, k, v, g, B, strides, p, s);
   else if (d == 128)
     err = launch_form<128>(code, q, k, v, g, B, strides, p, s);
+  return static_cast<int>(err);
+}
+
+// K7. strides: (batch, head, seq) element strides of q, k, v, dO, dk, dv (18
+// values); the head-dim stride is 1. lse and delta are (B, H, Lq) contiguous
+// fp32, the global ones; q_off and k_off are int32[2] in device memory. Head
+// dims 64 and 128; others return cudaErrorInvalidValue.
+extern "C" int fdsd_flash_bwd_pos_dkv(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* lse, const void* delta, void* dk, void* dv, const void* q_off,
+    const void* k_off, int B, int H, int Lq, int Lk, int d,
+    const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
+    int has_valid, int causal, void* stream) {
+  Params p = {};
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.H = H;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.d = d;
+  p.n_kt = (Lk + kBK - 1) / kBK;
+  for (int i = 0; i < 3; ++i) {
+    p.dks[i] = strides[12 + i];
+    p.dvs[i] = strides[15 + i];
+  }
+  p.scale = scale;
+  p.pos = PosArgs{static_cast<const int*>(q_off),
+                  static_cast<const int*>(k_off), seg_q, seg_k, valid_len,
+                  has_valid, causal};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (d == 64)
+    err = launch_on<64>(flash_bwd_pos_dkv_sm90_kernel<64>,
+                        Cfg<64, false>::kSmemBytes, q, k, v, g, B, strides,
+                        p, s);
+  else if (d == 128)
+    err = launch_on<128>(flash_bwd_pos_dkv_sm90_kernel<128>,
+                         Cfg<128, false>::kSmemBytes, q, k, v, g, B, strides,
+                         p, s);
   return static_cast<int>(err);
 }

@@ -1,61 +1,51 @@
-// Position-masked flash-attention backward for Hopper (sm_90a): bf16 in and
-// out, fp32 softmax reconstruction and accumulators. Two kernels:
-//   K6 flash_bwd_pos_dq_kernel replaces
-//     from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel_pos
-//   K7 flash_bwd_pos_dkv_kernel replaces
-//     from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dkv_kernel_pos
-// (both reached through flash_bwd_pos): the gradients of one LOCAL block of
-// queries against one LOCAL block of keys under a softmax that is GLOBAL,
-// taken over more keys than this block holds. The caller gives the global
-// log-sum-exp and delta = rowsum(dO * out) of the merged output, so
+// Position-masked flash-attention backward dq (K6) for Hopper (sm_90a):
+// bf16 in and out, fp32 softmax reconstruction and accumulators. This file
+// holds K6 only; its partner K7 (dk, dv) is the position-mask form of the
+// TMA / wgmma kernel in flash_attention_bwd_sm90.cu.
+//
+// Replaces the Pallas TPU kernel
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel_pos
+// (reached through flash_bwd_pos): dq of one LOCAL block of queries against
+// one LOCAL block of keys under a softmax that is GLOBAL, taken over more
+// keys than this block holds. The caller gives the global log-sum-exp and
+// delta = rowsum(dO * out) of the merged output, so
 //   P  = exp(scale * Q K^T - lse)  where the key is visible, else 0
-//   dS = P * (dO V^T - delta)
-//   K6: dQ = scale * dS K        K7: dV = P^T dO,  dK = scale * dS^T Q
-// and the contributions of several key blocks simply add up. P and dS are
-// rounded to bf16 before the products that take them. Visibility is the
-// forward's (flash_attention_pos.cu): positions from two offset segments per
+//   dS = P * (dO V^T - delta),  dQ = scale * dS K
+// and the contributions of several key blocks simply add up. dS is rounded
+// to bf16 before the product that takes it. Visibility is the forward's
+// (K5, flash_attention_sm90.cu): positions from two offset segments per
 // side, read from int32[2] arrays in device memory; a key is masked when its
 // index is >= Lk, its position is >= valid_len (if given), or its position is
 // > the query's (if causal). Masked entries are SELECTED to 0, never
 // multiplied by 0: a row that no key of any block sees carries lse = -1e30,
 // where exp(s - lse) overflows, and a row that only another block's keys see
-// is masked in every tile here. Query rows past Lq take lse = +1e30, so their
-// P is 0 without a mask. A (query tile, key tile) pair with nothing visible
-// is skipped from the scalar position bounds of the two tiles, and a pair
-// with nothing masked skips the per-logit mask.
-// On the MMDiT training path (split-KV joint attention) each runs four times
+// is masked in every tile here. A (query tile, key tile) pair with nothing
+// visible is skipped from the scalar position bounds of the two tiles, and a
+// pair with nothing masked skips the per-logit mask.
+// On the MMDiT training path (split-KV joint attention) it runs four times
 // per block at B*H = 48, d = 64, (Lq, Lk) in {(154,154), (154,4096),
 // (4096,154), (4096,4096)}, offsets 0, no causal, no valid_len.
 //
-// What bounds them on the H100: at 4096 x 4096 K6 does 3 and K7 4 products of
+// What bounds it on the H100: at 4096 x 4096 it does 3 products of
 // 2*Lq*Lk*d flop on a few (L, d) tensors, about 3,000 flop per byte:
 // operations, so the rate of tensor-core instructions and the exponentials;
-// the 154-token calls are launch bound. The design is the forward's: one
-// block of 4 warps, mma.sync m16n8k16, tiles staged in shared memory as they
-// lie and read with ldmatrix, so no transposed copies are kept.
-// - K6: one block per (b*h, 64 queries), each warp 16 query rows, walking key
-//   tiles. Q and dO fragments stay in registers; S and dP come from ldmatrix
-//   on the K and V tiles; the dS accumulators are, pair by pair, the A
-//   fragments of dS K, whose B operand is the same K tile read with
-//   ldmatrix.trans.
-// - K7: one block per (b*h, 64 keys), each warp 16 key rows, walking query
-//   tiles. It computes S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T land in
-//   the accumulators with keys as rows: again the A fragments of P^T dO and
-//   dS^T Q, whose B operands are the dO and Q tiles read with
-//   ldmatrix.trans. dK and dV stay in registers for the whole walk; the
-//   tile's lse and delta lie in shared memory, indexed by column.
-// The tile walked is 64 wide at d = 64 and 32 at d = 128, which keeps the
-// accumulators (dQ: d/2 registers; dK and dV: d each) and S / dP inside 255
-// registers. At d = 64 both kernels are held to 168 registers
-// (__launch_bounds__ with 3 blocks per SM): left alone ptxas gives K7 ~240,
-// which leaves two blocks of 4 warps per SM to hide the load-sync-compute
-// walk; three take K7 at 4096 x 4096 from 4.66 to 3.24 ms on an H100 at the
-// price of 24 bytes of spills. Head dims 64 and 128; others return
+// the 154-token calls are launch bound. The design: one block of 4 warps per
+// (b*h, 64 queries), each warp 16 query rows, walking key tiles, mma.sync
+// m16n8k16, tiles staged in shared memory as they lie and read with
+// ldmatrix, so no transposed copies are kept. Q and dO fragments stay in
+// registers; S and dP come from ldmatrix on the K and V tiles; the dS
+// accumulators are, pair by pair, the A fragments of dS K, whose B operand
+// is the same K tile read with ldmatrix.trans.
+// The key tile walked is 64 wide at d = 64 and 32 at d = 128, which keeps the
+// dQ accumulators (d/2 registers) and S / dP inside 255 registers. At d = 64
+// the kernel is held to 168 registers (__launch_bounds__ with 3 blocks per
+// SM), so that three blocks of 4 warps share an SM and hide the
+// load-sync-compute walk. Head dims 64 and 128; others return
 // cudaErrorInvalidValue.
-// Not carried over from the TPU kernels: 1024-wide blocks, padded input
+// Not carried over from the TPU kernel: 1024-wide blocks, padded input
 // copies, the power-of-two prescale of q.
-// Later work: wgmma + TMA, cp.async double buffering, one fused kernel for
-// dq, dk and dv, one launch for the four calls of the joint attention.
+// Later work: TMA + wgmma as K7 has, one fused kernel for dq, dk and dv, one
+// launch for the four calls of the joint attention.
 
 #include "mma.cuh"
 #include "pos_tile.cuh"
@@ -73,7 +63,7 @@ using fdsd::pos_of;
 constexpr float kPadLse = 1e30f;  // padded query rows: P = exp2(s - 1e30) = 0
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;
-constexpr int kTile = 64;  // rows per block: queries (K6) or keys (K7)
+constexpr int kTile = 64;  // query rows per block
 
 struct PosBwdParams {
   const __nv_bfloat16* q;
@@ -82,14 +72,12 @@ struct PosBwdParams {
   const __nv_bfloat16* g;  // dO
   const float* lse;
   const float* delta;
-  __nv_bfloat16* dq;  // K6
-  __nv_bfloat16* dk;  // K7
-  __nv_bfloat16* dv;  // K7
+  __nv_bfloat16* dq;
   const int* q_off;
   const int* k_off;
   int H, Lq, Lk;
-  // (batch, head, seq) element strides; o1 is dq's (K6) or dk's (K7), o2 dv's
-  long long qs[3], ks[3], vs[3], gs[3], o1[3], o2[3];
+  // (batch, head, seq) element strides of q, k, v, dO and dq
+  long long qs[3], ks[3], vs[3], gs[3], o1[3];
   float scale;
   int seg_q, seg_k, valid_len, has_valid, causal;
 };
@@ -284,153 +272,6 @@ flash_bwd_pos_dq_kernel(const PosBwdParams p) {
                 p.Lq, t);
 }
 
-// ----------------------------------------------------------- K7: dk, dv
-template <int D, int BQ, int MINB>
-__global__ void __launch_bounds__(kThreads, MINB)
-flash_bwd_pos_dkv_kernel(const PosBwdParams p) {
-  constexpr int kStride = D + 8;    // bf16 per shared row
-  constexpr int kSTiles = BQ / 8;   // query n-tiles of S^T and dP^T per warp
-  constexpr int kDTiles = D / 8;    // head-dim n-tiles of dK and dV per warp
-  constexpr int kDSteps = D / 16;   // k-steps of K Q^T and V dO^T
-  constexpr int kQSteps = BQ / 16;  // k-steps of P^T dO and dS^T Q
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* v_s = k_s + kTile * kStride;
-  __nv_bfloat16* q_s = v_s + kTile * kStride;
-  __nv_bfloat16* g_s = q_s + BQ * kStride;
-  float* lse_s = reinterpret_cast<float*>(g_s + BQ * kStride);
-  float* dl_s = lse_s + BQ;
-
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int k0 = blockIdx.y * kTile;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = warp * 16;
-  const int q_off0 = p.q_off[0], q_off1 = p.q_off[1];
-  const int k_off0 = p.k_off[0], k_off1 = p.k_off[1];
-
-  load_tile<D, kTile>(k_s, p.k + b * p.ks[0] + h * p.ks[1], p.ks[2], k0, p.Lk,
-                      tid);
-  load_tile<D, kTile>(v_s, p.v + b * p.vs[0] + h * p.vs[1], p.vs[2], k0, p.Lk,
-                      tid);
-
-  // This thread's two key rows and the position bounds of the key tile.
-  const int r0 = k0 + row0 + g, r1 = r0 + 8;
-  const int kpos0 = pos_of(r0, k_off0, k_off1, p.seg_k);
-  const int kpos1 = pos_of(r1, k_off0, k_off1, p.seg_k);
-  bool vis0 = r0 < p.Lk, vis1 = r1 < p.Lk;  // what does not depend on the query
-  if (p.has_valid) {
-    vis0 = vis0 && kpos0 < p.valid_len;
-    vis1 = vis1 && kpos1 < p.valid_len;
-  }
-  int min_cp, max_cp;
-  pos_bounds(k0, kTile, k_off0, k_off1, p.seg_k, p.Lk, min_cp, max_cp);
-  const bool tile_masked = k0 + kTile > p.Lk ||
-                           (p.has_valid && max_cp >= p.valid_len);
-
-  const float c = p.scale * kLog2e;
-  float acc_k[kDTiles][4], acc_v[kDTiles][4];
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
-
-  const __nv_bfloat16* qb = p.q + b * p.qs[0] + h * p.qs[1];
-  const __nv_bfloat16* gb = p.g + b * p.gs[0] + h * p.gs[1];
-  const float* lse_b = p.lse + static_cast<long long>(blockIdx.x) * p.Lq;
-  const float* dl_b = p.delta + static_cast<long long>(blockIdx.x) * p.Lq;
-  // no key of this tile is valid: nothing to walk, dK = dV = 0
-  const int n_qt = (p.has_valid && min_cp >= p.valid_len)
-                       ? 0 : (p.Lq + BQ - 1) / BQ;
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
-    // Whole-tile decisions, the same for every thread of the block.
-    int min_rp = 0, max_rp = 0;
-    if (p.causal) {
-      pos_bounds(q0, BQ, q_off0, q_off1, p.seg_q, p.Lq, min_rp, max_rp);
-      if (min_cp > max_rp) continue;
-    }
-    const bool need_mask = tile_masked || (p.causal && max_cp > min_rp);
-
-    __syncthreads();  // the previous tile's readers are done (first: k_s, v_s)
-    load_tile<D, BQ>(q_s, qb, p.qs[2], q0, p.Lq, tid);
-    load_tile<D, BQ>(g_s, gb, p.gs[2], q0, p.Lq, tid);
-    for (int i = tid; i < BQ; i += kThreads) {
-      const bool in = q0 + i < p.Lq;
-      lse_s[i] = in ? lse_b[q0 + i] * kLog2e : kPadLse;
-      dl_s[i] = in ? dl_b[q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries per warp.
-    float s[kSTiles][4], dp[kSTiles][4];
-#pragma unroll
-    for (int j = 0; j < kSTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDSteps; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a(ak, k_s, kStride, row0, kk * 16, lane);
-      load_a(av, v_s, kStride, row0, kk * 16, lane);
-#pragma unroll
-      for (int jp = 0; jp < kSTiles / 2; ++jp) {
-        uint32_t bq[4], bg[4];
-        load_b(bq, q_s, kStride, jp * 16, kk * 16, lane);
-        load_b(bg, g_s, kStride, jp * 16, kk * 16, lane);
-        mma16816(s[2 * jp], ak, bq);
-        mma16816(s[2 * jp + 1], ak, bq + 2);
-        mma16816(dp[2 * jp], av, bg);
-        mma16816(dp[2 * jp + 1], av, bg + 2);
-      }
-    }
-
-    // P^T = exp2(c * S^T - lse) where visible, else 0 (kept in s);
-    // dS^T = P^T * (dP^T - delta) (kept in dp).
-#pragma unroll
-    for (int j = 0; j < kSTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + 2 * t + (e & 1);  // query within the tile
-        bool visible = true;
-        if (need_mask) {
-          visible = e < 2 ? vis0 : vis1;
-          if (p.causal)
-            visible = visible && (e < 2 ? kpos0 : kpos1) <=
-                                     pos_of(q0 + qi, q_off0, q_off1, p.seg_q);
-        }
-        const float pr = visible ? exp2f(s[j][e] * c - lse_s[qi]) : 0.f;
-        s[j][e] = pr;
-        dp[j][e] = visible ? pr * (dp[j][e] - dl_s[qi]) : 0.f;
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q: 16 keys x D head dims per warp.
-#pragma unroll
-    for (int ks = 0; ks < kQSteps; ++ks) {
-      uint32_t ap[4], ads[4];
-      acc_to_a(ap, s, ks);
-      acc_to_a(ads, dp, ks);
-#pragma unroll
-      for (int jp = 0; jp < kDTiles / 2; ++jp) {
-        uint32_t bg[4], bq[4];
-        load_b_trans(bg, g_s, kStride, ks * 16, jp * 16, lane);
-        load_b_trans(bq, q_s, kStride, ks * 16, jp * 16, lane);
-        mma16816(acc_v[2 * jp], ap, bg);
-        mma16816(acc_v[2 * jp + 1], ap, bg + 2);
-        mma16816(acc_k[2 * jp], ads, bq);
-        mma16816(acc_k[2 * jp + 1], ads, bq + 2);
-      }
-    }
-  }
-
-  store_rows<D>(p.dk + b * p.o1[0] + h * p.o1[1], p.o1[2], acc_k, p.scale, r0,
-                p.Lk, t);
-  store_rows<D>(p.dv + b * p.o2[0] + h * p.o2[1], p.o2[2], acc_v, 1.f, r0,
-                p.Lk, t);
-}
-
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int smem_bytes, const PosBwdParams& p, int B,
                    int rows, cudaStream_t stream) {
@@ -442,13 +283,13 @@ cudaError_t launch(Kernel kernel, int smem_bytes, const PosBwdParams& p, int B,
   return cudaGetLastError();
 }
 
-// The params every entry shares; n_out output tensors follow q, k, v, dO in
-// the stride array.
+// The params of a launch; dq's strides follow q, k, v, dO in the stride
+// array.
 PosBwdParams make_params(const void* q, const void* k, const void* v,
                          const void* g, const void* lse, const void* delta,
                          const void* q_off, const void* k_off, int H, int Lq,
-                         int Lk, const long long* st, int n_out, float scale,
-                         int seg_q, int seg_k, int valid_len, int has_valid,
+                         int Lk, const long long* st, float scale, int seg_q,
+                         int seg_k, int valid_len, int has_valid,
                          int causal) {
   PosBwdParams p = {};
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -468,7 +309,6 @@ PosBwdParams make_params(const void* q, const void* k, const void* v,
     p.vs[i] = st[6 + i];
     p.gs[i] = st[9 + i];
     p.o1[i] = st[12 + i];
-    p.o2[i] = n_out > 1 ? st[15 + i] : 0;
   }
   p.scale = scale;
   p.seg_q = seg_q;
@@ -481,9 +321,6 @@ PosBwdParams make_params(const void* q, const void* k, const void* v,
 
 constexpr int smem_dq(int D, int BK) {
   return (2 * kTile + 2 * BK) * (D + 8) * 2;
-}
-constexpr int smem_dkv(int D, int BQ) {
-  return (2 * kTile + 2 * BQ) * (D + 8) * 2 + 2 * BQ * 4;
 }
 
 }  // namespace
@@ -498,7 +335,7 @@ extern "C" int fdsd_flash_bwd_pos_dq(
     const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
     int has_valid, int causal, void* stream) {
   PosBwdParams p = make_params(q, k, v, g, lse, delta, q_off, k_off, H, Lq, Lk,
-                               strides, 1, scale, seg_q, seg_k, valid_len,
+                               strides, scale, seg_q, seg_k, valid_len,
                                has_valid, causal);
   p.dq = static_cast<__nv_bfloat16*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -508,28 +345,5 @@ extern "C" int fdsd_flash_bwd_pos_dq(
   if (d == 128)
     return static_cast<int>(launch(flash_bwd_pos_dq_kernel<128, 32, 1>,
                                    smem_dq(128, 32), p, B, Lq, s));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// strides: (batch, head, seq) element strides of q, k, v, dO, dk, dv (18
-// values); the rest as above.
-extern "C" int fdsd_flash_bwd_pos_dkv(
-    const void* q, const void* k, const void* v, const void* g,
-    const void* lse, const void* delta, void* dk, void* dv, const void* q_off,
-    const void* k_off, int B, int H, int Lq, int Lk, int d,
-    const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
-    int has_valid, int causal, void* stream) {
-  PosBwdParams p = make_params(q, k, v, g, lse, delta, q_off, k_off, H, Lq, Lk,
-                               strides, 2, scale, seg_q, seg_k, valid_len,
-                               has_valid, causal);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return static_cast<int>(launch(
-        flash_bwd_pos_dkv_kernel<64, 64, 3>, smem_dkv(64, 64), p, B, Lk, s));
-  if (d == 128)
-    return static_cast<int>(launch(flash_bwd_pos_dkv_kernel<128, 32, 1>,
-                                   smem_dkv(128, 32), p, B, Lk, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,9 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a) on TMA and wgmma: bf16 in,
 // fp32 softmax, out bf16 + lse fp32. K1 at head dims 40, 48, 64, 72, 80 and
 // 128, in every mask form; d = 512 is the kernel of flash_attention.cu, with
-// its own C entry.
+// its own C entry. K5, the position-masked forward, at head dims 64 and 128,
+// is K1's design under position masks, on the same per-tile steps.
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces three Pallas TPU kernels of the JAX package:
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
 //     (single pass over the whole K/V of one (b, h): SD1 UNet at 64^2,
 //     (2B, 8, 4096, 40); tiny-SD at 64^2, (B, 1, 4096, 128))
@@ -12,16 +13,24 @@
 //     SD1 at 32^2, (2B, 8, 1024, 80); tiny-SD at 32^2; the SigLIP tower and
 //     TinyVLM decoder, (16, 12, 576 | 584, 64), causal in the decoder; T5-XXL,
 //     (2, 64, 512, 64) with a (1, 64, 512, 512) bias)
-// It computes what both compute, not their block structure: the TPU's
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_pos
+//     (K5: a LOCAL block of queries against a LOCAL block of keys whose
+//     GLOBAL positions are pos(idx) = off[0] + idx below seg, off[1] +
+//     (idx - seg) from it on, per side, off int32[2] in device memory; a key
+//     is masked when its index is >= Lk, its position >= valid_len (when
+//     given), or its position > the query's (causal); online softmax or the
+//     fixed-max "bounded" one. The SD3 / MMDiT joint attention runs it four
+//     times per block at (2, 24, {154, 4096}, {154, 4096}, 64), offsets 0)
+// It computes what they compute, not their block structure: the TPU's
 // sequential key-block grid axis is a loop inside the block.
 //
 // What bounds it on the H100: at 4096 keys attention does ~2,000 flop per
 // byte of q, k, v and out, so operations: the tensor cores' issue rate and,
 // at small head dims, the exponentials (one per logit on the 16-per-clock
-// MUFU pipe). The mma.sync form it replaces reached ~5 % of the bound: S
-// went through shared memory, V was transposed there by scalar stores,
-// operands were loaded with 32-bit loads, global loads were synchronous, and
-// mma.sync is not the full tensor-core rate on Hopper.
+// MUFU pipe; at d = 64 as many clocks as the two products). The mma.sync
+// forms it replaces reached ~5 % (K1) and ~17 % (K5) of the bound: global
+// loads were synchronous, no load overlapped a product, and mma.sync is not
+// the full tensor-core rate on Hopper.
 //
 // Design. One block of three warpgroups per (b*h, 128 queries):
 //  - a producer warpgroup gives up its registers (setmaxnreg 40); one thread
@@ -54,19 +63,43 @@
 // ids are disjoint, and mask per logit only where the two tiles are not one
 // same segment. In the masked forms a masked logit is selected to
 // probability 0, so a row that sees no key gives out = 0, lse = -1e30.
+// K5 (flash_fwd_pos_sm90_kernel) runs the same steps (qk_tile, softmax_tile,
+// pv_tile, store_rows below) with the same producer and consumer roles, and
+// differs in three ways:
+//  - its masks are runtime flags, read per tile: causal by position over two
+//    segments does not make a contiguous range of key tiles, so every role
+//    judges each (query tile, key tile) pair by the same pos_pair of the two
+//    tiles' position bounds (pos_tile.cuh): skipped, wholly visible, or
+//    masked per logit (with the key tail); without causal and valid_len the
+//    offsets are not even read. A query tile that visits no key tile loads
+//    nothing and waits on no barrier;
+//  - BOUNDED fixes the max at 0: no row maxima, no rescale of O, P =
+//    exp2(scale log2 e s), lse = ln l;
+//  - the grid is persistent (one block per SM walks query tiles with a
+//    stride) and Q is double-buffered: the next tile's Q, K and V load while
+//    this tile's last products and epilogue run. At SD3's 4096 queries
+//    against 154 keys a block's life is two key tiles long, and one block
+//    per SM (384 threads take the whole register file) left its load
+//    latency and epilogue bare.
 // Out is written from the accumulators through its strides, rows past Lq
-// are not written; lse is (B, H, Lq) fp32, the contract K3 and K4 read.
+// are not written; lse is (B, H, Lq) fp32, the contract K3, K4 and the lse
+// merge of the joint attention read.
 // Later work: overlap one tile's softmax with the next tile's Q K^T (tried:
 // ptxas serialised the wgmmas, C7515, and every form got 5-20 % slower),
-// FA3's ping-pong of the two consumer warpgroups, a persistent grid.
+// FA3's ping-pong of the two consumer warpgroups, a persistent grid for K1.
 
 #include "mask.cuh"
+#include "pos_tile.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 namespace s9 = fdsd::sm90;
 using fdsd::MaskArgs;
+using fdsd::PosArgs;
+using fdsd::pos_bounds;
+using fdsd::pos_of;
+using fdsd::pos_pair;
 using fdsd::seg_overlap;
 
 constexpr float kNegInf = -1e30f;
@@ -125,6 +158,152 @@ __device__ __forceinline__ void add_bias(float (&s)[kBK / 2], const T* tile,
   }
 }
 
+// ------------------------------------------- the steps K1 and K5 share
+// S = Q K^T for one consumer warpgroup: 64 rows (q_rows) x 128 keys (ks),
+// raw logits.
+template <int DP>
+__device__ __forceinline__ void qk_tile(float (&s)[kBK / 2], uint32_t q_rows,
+                                        uint32_t ks) {
+  using C = Cfg<DP, false>;
+  s9::fence_regs(s);
+  s9::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t chunk = kk * 16 / C::W, off = (kk * 16 % C::W) * 2;
+    s9::wgmma_ss<128>(
+        s,
+        s9::smem_desc(q_rows + chunk * C::kQChunk + off, 16, C::kAtom,
+                      C::kLayout),
+        s9::smem_desc(ks + chunk * C::kKVChunk + off, 16, C::kAtom,
+                      C::kLayout),
+        kk > 0);
+  }
+  s9::wgmma_commit();
+  s9::wgmma_wait<0>();
+  s9::fence_regs(s);
+}
+
+// The softmax of one tile in registers, on this thread's two rows: online
+// (running max m, rescale of l and O) or BOUNDED (max fixed at 0: no row
+// maxima, no rescale). c = scale * log2 e (or log2 e on scaled logits);
+// with SELECT a logit at -1e30 is a masked one, selected to probability 0,
+// and a row with nothing visible yet subtracts 0. Leaves P in bf16, the A
+// fragments of P V.
+template <int DP, bool SELECT, bool BOUNDED>
+__device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2],
+                                             float (&o)[DP / 2],
+                                             uint32_t (&pa)[kBK / 16][4],
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, float c) {
+  float al0 = 1.f, al1 = 1.f, sub0 = 0.f, sub1 = 0.f;
+  if (!BOUNDED) {
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // a row with nothing visible yet subtracts 0: its P stays 0
+    const float mu0 = SELECT && mn0 == kNegInf ? 0.f : mn0;
+    const float mu1 = SELECT && mn1 == kNegInf ? 0.f : mn1;
+    al0 = s9::exp2_approx((m0 - mu0) * c);
+    al1 = s9::exp2_approx((m1 - mu1) * c);
+    m0 = mn0;
+    m1 = mn1;
+    sub0 = mu0 * c;
+    sub1 = mu1 * c;
+  }
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    float pr[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = s[4 * j + e];
+      pr[e] = s9::exp2_approx(fmaf(x, c, -(e < 2 ? sub0 : sub1)));
+      if (SELECT && x <= kNegInf) pr[e] = 0.f;  // selected, not exp'd
+    }
+    sum0 += pr[0] + pr[1];
+    sum1 += pr[2] + pr[3];
+    __nv_bfloat162 lo = __floats2bfloat162_rn(pr[0], pr[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(pr[2], pr[3]);
+    pa[j / 2][(j & 1) * 2] = *reinterpret_cast<uint32_t*>(&lo);
+    pa[j / 2][(j & 1) * 2 + 1] = *reinterpret_cast<uint32_t*>(&hi);
+  }
+  l0 = l0 * al0 + sum0;
+  l1 = l1 * al1 + sum1;
+  if (!BOUNDED) {
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j] *= al0;
+      o[4 * j + 1] *= al0;
+      o[4 * j + 2] *= al1;
+      o[4 * j + 3] *= al1;
+    }
+  }
+}
+
+// O += P V: V MN-major in shared memory (vs), the k-step kk is keys
+// 16kk .. 16kk + 15.
+template <int DP>
+__device__ __forceinline__ void pv_tile(float (&o)[DP / 2],
+                                        const uint32_t (&pa)[kBK / 16][4],
+                                        uint32_t vs) {
+  using C = Cfg<DP, false>;
+  s9::fence_regs(o);
+  s9::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    s9::wgmma_rs<DP>(o, pa[kk],
+                     s9::smem_desc(vs + kk * 16 * C::W * 2, C::kKVChunk,
+                                   C::kAtom, C::kLayout),
+                     1);
+  s9::wgmma_commit();
+  s9::wgmma_wait<0>();
+  s9::fence_regs(o);
+}
+
+// Epilogue of this thread's rows r0, r1: O / l in bf16 at ob (row stride
+// os2), lse = m * to_ln + log l into lb; rows past Lq and columns past d are
+// not written; a row with l = 0 gives out = 0 and lse = -1e30.
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&o)[DP / 2], float l0,
+                                           float l1, float m0, float m1,
+                                           float to_ln, __nv_bfloat16* ob,
+                                           long long os2, float* lb, int r0,
+                                           int r1, int Lq, int d, int t) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
+  const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col < d) {
+      if (r0 < Lq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * os2 + col) =
+            __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (r1 < Lq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r1 * os2 + col) =
+            __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+  }
+  if (t == 0) {
+    if (r0 < Lq) lb[r0] = l0 == 0.f ? kNegInf : m0 * to_ln + logf(l0);
+    if (r1 < Lq) lb[r1] = l1 == 0.f ? kNegInf : m1 * to_ln + logf(l1);
+  }
+}
+
+// ----------------------------------------------------------------- K1
 template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -282,24 +461,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
       s9::mbar_wait(full0 + 8 * stage, phase);
-
-      // S = Q K^T: 64 rows x 128 keys, raw logits.
-      s9::fence_regs(s);
-      s9::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint32_t chunk = kk * 16 / C::W, off = (kk * 16 % C::W) * 2;
-        s9::wgmma_ss<128>(
-            s,
-            s9::smem_desc(q_rows + chunk * C::kQChunk + off, 16, C::kAtom,
-                          C::kLayout),
-            s9::smem_desc(ks + chunk * C::kKVChunk + off, 16, C::kAtom,
-                          C::kLayout),
-            kk > 0);
-      }
-      s9::wgmma_commit();
-      s9::wgmma_wait<0>();
-      s9::fence_regs(s);
+      qk_tile<DP>(s, q_rows, ks);
 
       if (HAS_BIAS) {  // logit = scale * s + bias, in fp32
         s9::mbar_wait(bias_full, bias_phase);
@@ -328,67 +490,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
 
-      // Online softmax in registers.
-      float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      // a row with nothing visible yet subtracts 0: its P stays 0
-      const float mu0 = kSelect && mn0 == kNegInf ? 0.f : mn0;
-      const float mu1 = kSelect && mn1 == kNegInf ? 0.f : mn1;
-      const float al0 = s9::exp2_approx((m0 - mu0) * c);
-      const float al1 = s9::exp2_approx((m1 - mu1) * c);
-      m0 = mn0;
-      m1 = mn1;
-      const float sub0 = mu0 * c, sub1 = mu1 * c;
-      float sum0 = 0.f, sum1 = 0.f;
       uint32_t pa[kBK / 16][4];  // P in bf16: the A fragments of P V
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        float pr[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[4 * j + e];
-          pr[e] = s9::exp2_approx(fmaf(x, c, -(e < 2 ? sub0 : sub1)));
-          if (kSelect && x <= kNegInf) pr[e] = 0.f;  // selected, not exp'd
-        }
-        sum0 += pr[0] + pr[1];
-        sum1 += pr[2] + pr[3];
-        __nv_bfloat162 lo = __floats2bfloat162_rn(pr[0], pr[1]);
-        __nv_bfloat162 hi = __floats2bfloat162_rn(pr[2], pr[3]);
-        pa[j / 2][(j & 1) * 2] = *reinterpret_cast<uint32_t*>(&lo);
-        pa[j / 2][(j & 1) * 2 + 1] = *reinterpret_cast<uint32_t*>(&hi);
-      }
-      l0 = l0 * al0 + sum0;
-      l1 = l1 * al1 + sum1;
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        o[4 * j] *= al0;
-        o[4 * j + 1] *= al0;
-        o[4 * j + 2] *= al1;
-        o[4 * j + 3] *= al1;
-      }
-
-      // O += P V: V MN-major, the k-step kk is keys 16kk .. 16kk + 15.
-      s9::fence_regs(o);
-      s9::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
-        s9::wgmma_rs<DP>(o, pa[kk],
-                         s9::smem_desc(vs + kk * 16 * C::W * 2, C::kKVChunk,
-                                       C::kAtom, C::kLayout),
-                         1);
-      s9::wgmma_commit();
-      s9::wgmma_wait<0>();
-      s9::fence_regs(o);
+      softmax_tile<DP, kSelect, false>(s, o, pa, m0, m1, l0, l1, c);
+      pv_tile<DP>(o, pa, vs);
       s9::mbar_arrive(empty0 + 8 * stage);  // K and V of this stage are read
       if (++stage == C::kStages) {
         stage = 0;
@@ -397,54 +501,273 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     // Epilogue: O / l in bf16 through out's strides; lse = m + log l.
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    store_rows<DP>(o, l0, l1, m0, m1, c * kLn2,
+                   p.out + b * p.os[0] + h * p.os[1], p.os[2],
+                   p.lse + static_cast<long long>(bh) * p.Lq, r0, r1, p.Lq,
+                   p.d, t);
+  }
+}
+
+// ----------------------------------------------------------------- K5
+// Shared memory of K5: two Q buffers (the next query tile's Q loads while
+// this one's last products and epilogue run), the K/V ring, and full / empty
+// barriers for each Q buffer and each ring stage.
+template <int DP>
+struct PosCfg {
+  using C = Cfg<DP, false>;
+  static constexpr int kKOff = 2 * C::kQBytes;
+  static constexpr int kVOff = kKOff + C::kStages * C::kKVBytes;
+  static constexpr int kBarOff = kVOff + C::kStages * C::kKVBytes;
+  static constexpr int kBars = 2 * 2 + 2 * C::kStages;
+  static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
+  static_assert(kSmemBytes <= 232448, "shared memory");
+};
+
+struct PosParams {
+  __nv_bfloat16* out;
+  float* lse;
+  int H, Lq, Lk, n_qt, n_tiles;  // n_tiles = B * H * n_qt query tiles
+  long long os[3];               // out's (batch, head, seq) element strides
+  float scale;
+  PosArgs pos;
+};
+
+// A persistent grid: block i takes query tiles i, i + gridDim.x, ... (tile =
+// bh * n_qt + qt), so that consecutive blocks share K and V in L2 and one
+// tile's epilogue overlaps the next tile's loads.
+template <int DP, bool BOUNDED>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_pos_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ PosParams p) {
+  using C = Cfg<DP, false>;
+  using P = PosCfg<DP>;
+
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (s9::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = base + P::kKOff, v_s = base + P::kVOff;
+  const uint32_t q_full0 = base + P::kBarOff, q_empty0 = q_full0 + 16;
+  const uint32_t full0 = q_empty0 + 16, empty0 = full0 + 8 * C::kStages;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      s9::mbar_init(q_full0 + 8 * i, 1);
+      s9::mbar_init(q_empty0 + 8 * i, kConsumers);
     }
-    const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
-    const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
-    __nv_bfloat16* ob = p.out + b * p.os[0] + h * p.os[1];
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (col < p.d) {
-        if (r0 < p.Lq)
-          *reinterpret_cast<__nv_bfloat162*>(ob + r0 * p.os[2] + col) =
-              __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-        if (r1 < p.Lq)
-          *reinterpret_cast<__nv_bfloat162*>(ob + r1 * p.os[2] + col) =
-              __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    for (int s = 0; s < C::kStages; ++s) {
+      s9::mbar_init(full0 + 8 * s, 1);
+      s9::mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    s9::mbar_init_fence();
+  } else if (tid == 32) {  // fetch the descriptors while barriers are set up
+    s9::prefetch_tensormap(&tq);
+    s9::prefetch_tensormap(&tk);
+    s9::prefetch_tensormap(&tv);
+  }
+  __syncthreads();
+
+  // Positions matter only to a mask: without causal and valid_len every
+  // pair is visible (the key tail aside) and the offsets are not read.
+  const bool masked = p.pos.causal || p.pos.has_valid;
+  int q_off0 = 0, q_off1 = 0, k_off0 = 0, k_off1 = 0;
+  if (masked) {
+    q_off0 = p.pos.q_off[0];
+    q_off1 = p.pos.q_off[1];
+    k_off0 = p.pos.k_off[0];
+    k_off1 = p.pos.k_off[1];
+  }
+  const int n_kt = (p.Lk + kBK - 1) / kBK;
+  // pos_pair of the query tile at q0 with key tile kt: 0 skip, 1 visible,
+  // 2 masked per logit; the same call in every role, so that producer and
+  // consumers walk the same (tile, key tile) pairs and the barriers' phases
+  // stay in step.
+  auto pair = [&](int q0, int kt) {
+    if (!masked) return 1;
+    int q_lo, q_hi, k_lo, k_hi;
+    pos_bounds(q0, kBQ, q_off0, q_off1, p.pos.seg_q, p.Lq, q_lo, q_hi);
+    pos_bounds(kt * kBK, kBK, k_off0, k_off1, p.pos.seg_k, p.Lk, k_lo, k_hi);
+    return pos_pair(p.pos, q_lo, q_hi, k_lo, k_hi);
+  };
+  // does the query tile at q0 visit any key tile?
+  auto visits = [&](int q0) {
+    for (int kt = 0; kt < n_kt; ++kt)
+      if (pair(q0, kt) != 0) return true;
+    return false;
+  };
+
+  if (tid < 128) {
+    // ------------------------------------------------------------ producer
+    s9::reg_dealloc<kProducerRegs>();
+    if (tid != 0) return;
+    int stage = 0, qb = 0;
+    uint32_t phase = 0, q_phase = 0;
+    for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+      const int bh = tile / p.n_qt, q0 = (tile % p.n_qt) * kBQ;
+      const int b = bh / p.H, h = bh % p.H;
+      if (!visits(q0)) continue;  // loads nothing
+      const uint32_t q_full = q_full0 + 8 * qb;
+      s9::mbar_wait(q_empty0 + 8 * qb, q_phase ^ 1);
+      s9::mbar_expect_tx(q_full, C::kQBytes);
+      for (int c = 0; c < C::kChunks; ++c)
+        s9::tma_load_4d(base + qb * C::kQBytes + c * C::kQChunk, &tq, q_full,
+                        c * C::W, q0, h, b);
+      if (++qb == 2) {
+        qb = 0;
+        q_phase ^= 1;
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        if (pair(q0, kt) == 0) continue;
+        const int k0 = kt * kBK;
+        const uint32_t full = full0 + 8 * stage;
+        s9::mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        s9::mbar_expect_tx(full, 2 * C::kKVBytes);
+        for (int c = 0; c < C::kChunks; ++c) {
+          const int off = stage * C::kKVBytes + c * C::kKVChunk;
+          s9::tma_load_4d(k_s + off, &tk, full, c * C::W, k0, h, b);
+          s9::tma_load_4d(v_s + off, &tv, full, c * C::W, k0, h, b);
+        }
+        if (++stage == C::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-    if (t == 0) {
-      float* lb = p.lse + static_cast<long long>(bh) * p.Lq;
-      const float to_ln = c * kLn2;  // logit units -> natural log
-      if (r0 < p.Lq) lb[r0] = l0 == 0.f ? kNegInf : m0 * to_ln + logf(l0);
-      if (r1 < p.Lq) lb[r1] = l1 == 0.f ? kNegInf : m1 * to_ln + logf(l1);
+  } else {
+    // ----------------------------------------------------------- consumers
+    s9::reg_alloc<kConsumerRegs>();
+    const int cw = (tid - 128) / 128;  // query rows 64*cw .. 64*cw + 63
+    const int warp = (tid / 32) % 4, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int rl0 = 64 * cw + 16 * warp + g, rl1 = rl0 + 8;  // tile rows
+    const float c = p.scale * kLog2e;  // exp(x * scale) = exp2(x * c)
+    int stage = 0, qb = 0;
+    uint32_t phase = 0, q_phase = 0;
+    for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+      const int bh = tile / p.n_qt, q0 = (tile % p.n_qt) * kBQ;
+      const int b = bh / p.H, h = bh % p.H;
+      const int r0 = q0 + rl0, r1 = q0 + rl1;
+      int qpos0 = 0, qpos1 = 0;  // positions of this thread's two rows
+      if (masked) {
+        qpos0 = pos_of(r0, q_off0, q_off1, p.pos.seg_q);
+        qpos1 = pos_of(r1, q_off0, q_off1, p.pos.seg_q);
+      }
+      // running row max (logit units; bounded: fixed at 0) and this
+      // thread's share of the row sums
+      float m0 = BOUNDED ? 0.f : kNegInf, m1 = BOUNDED ? 0.f : kNegInf;
+      float l0 = 0.f, l1 = 0.f;
+      float o[DP / 2];
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+      if (visits(q0)) {
+        s9::mbar_wait(q_full0 + 8 * qb, q_phase);
+        const uint32_t q_rows = base + qb * C::kQBytes + cw * 64 * C::W * 2;
+        float s[kBK / 2];
+        for (int kt = 0; kt < n_kt; ++kt) {
+          const int state = pair(q0, kt);
+          if (state == 0) continue;
+          const int k0 = kt * kBK;
+          const bool need_mask = k0 + kBK > p.Lk || state == 2;
+          s9::mbar_wait(full0 + 8 * stage, phase);
+          qk_tile<DP>(s, q_rows, k_s + stage * C::kKVBytes);
+
+          // Per-logit masks (the key tail, valid_len, causal by position),
+          // only on the tiles that need them.
+          if (need_mask) {
+#pragma unroll
+            for (int j = 0; j < kBK / 8; ++j) {
+              int cpos[2];  // the positions of this thread's two keys
+              bool kvis[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = k0 + 8 * j + 2 * t + e;
+                cpos[e] = pos_of(col, k_off0, k_off1, p.pos.seg_k);
+                kvis[e] = col < p.Lk &&
+                          (!p.pos.has_valid || cpos[e] < p.pos.valid_len);
+              }
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                bool visible = kvis[e & 1];
+                if (p.pos.causal)
+                  visible = visible && cpos[e & 1] <= (e < 2 ? qpos0 : qpos1);
+                if (!visible) s[4 * j + e] = kNegInf;
+              }
+            }
+          }
+
+          uint32_t pa[kBK / 16][4];  // P in bf16: the A fragments of P V
+          softmax_tile<DP, true, BOUNDED>(s, o, pa, m0, m1, l0, l1, c);
+          pv_tile<DP>(o, pa, v_s + stage * C::kKVBytes);
+          s9::mbar_arrive(empty0 + 8 * stage);  // K and V of this stage
+          if (++stage == C::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        s9::mbar_arrive(q_empty0 + 8 * qb);  // this Q buffer is read
+        if (++qb == 2) {
+          qb = 0;
+          q_phase ^= 1;
+        }
+      }
+      // A tile that visits no key tile writes out = 0 and lse = -1e30.
+      store_rows<DP>(o, l0, l1, m0, m1, p.scale,
+                     p.out + b * p.os[0] + h * p.os[1], p.os[2],
+                     p.lse + static_cast<long long>(bh) * p.Lq, r0, r1, p.Lq,
+                     DP, t);
     }
   }
 }
 
 // ---------------------------------------------------------------- host side
+// The q, k, v tensor maps of one launch.
+template <int DP>
+cudaError_t make_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
+                      const void* q, const void* k, const void* v, int d,
+                      int Lq, int Lk, int H, int B, const long long* st) {
+  using C = Cfg<DP, false>;
+  const CUtensorMapSwizzle sw =
+      C::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  cudaError_t err = s9::make_map(tq, q, d, Lq, H, B, st, C::W, kBQ, sw);
+  if (err == cudaSuccess)
+    err = s9::make_map(tk, k, d, Lk, H, B, st + 3, C::W, kBK, sw);
+  if (err == cudaSuccess)
+    err = s9::make_map(tv, v, d, Lk, H, B, st + 6, C::W, kBK, sw);
+  return err;
+}
+
 template <int DP, bool CAUSAL = false, bool HAS_BIAS = false,
           bool HAS_SEG = false>
 cudaError_t launch(const void* q, const void* k, const void* v, int B,
                    const long long* st, const Params& p,
                    cudaStream_t stream) {
   using C = Cfg<DP, HAS_BIAS>;
-  const CUtensorMapSwizzle sw =
-      C::W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = s9::make_map(&tq, q, p.d, p.Lq, p.H, B, st, C::W, kBQ, sw);
-  if (err == cudaSuccess)
-    err = s9::make_map(&tk, k, p.d, p.Lk, p.H, B, st + 3, C::W, kBK, sw);
-  if (err == cudaSuccess)
-    err = s9::make_map(&tv, v, p.d, p.Lk, p.H, B, st + 6, C::W, kBK, sw);
+  const cudaError_t err =
+      make_maps<DP>(&tq, &tk, &tv, q, k, v, p.d, p.Lq, p.Lk, p.H, B, st);
   if (err != cudaSuccess) return err;
   return s9::launch_kernel(flash_fwd_sm90_kernel<DP, CAUSAL, HAS_BIAS, HAS_SEG>,
                            p.n_qt * B * p.H, kThreads, C::kSmemBytes, stream,
                            tq, tk, tv, p);
+}
+
+// K5 on min(query tiles, SMs) persistent blocks.
+template <int DP, bool BOUNDED>
+cudaError_t launch_pos(const void* q, const void* k, const void* v, int B,
+                       const long long* st, const PosParams& p,
+                       cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int dev = 0, n_sm = 0;
+  cudaError_t err =
+      make_maps<DP>(&tq, &tk, &tv, q, k, v, DP, p.Lq, p.Lk, p.H, B, st);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  return s9::launch_kernel(flash_fwd_pos_sm90_kernel<DP, BOUNDED>,
+                           p.n_tiles < n_sm ? p.n_tiles : n_sm, kThreads,
+                           PosCfg<DP>::kSmemBytes, stream, tq, tk, tv, p);
 }
 
 // The masked forms at one head dim; code = 4*causal + 2*has_bias + has_seg.
@@ -526,5 +849,40 @@ extern "C" int fdsd_flash_fwd(const void* q, const void* k, const void* v,
     default:
       err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+// K5. strides: 12 element strides, (batch, head, seq) for q, k, v, out; the
+// head-dim stride is 1. lse is (B, H, Lq) contiguous fp32. q_off and k_off
+// are int32[2] in device memory. Head dims 64 and 128; others return
+// cudaErrorInvalidValue.
+extern "C" int fdsd_flash_fwd_pos(const void* q, const void* k, const void* v,
+                                  void* out, void* lse, const void* q_off,
+                                  const void* k_off, int B, int H, int Lq,
+                                  int Lk, int d, const long long* strides,
+                                  float scale, int seg_q, int seg_k,
+                                  int valid_len, int has_valid, int causal,
+                                  int bounded, void* stream) {
+  PosParams p;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.H = H;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.n_qt = (Lq + kBQ - 1) / kBQ;
+  p.n_tiles = B * H * p.n_qt;
+  for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
+  p.scale = scale;
+  p.pos = PosArgs{static_cast<const int*>(q_off),
+                  static_cast<const int*>(k_off), seg_q, seg_k, valid_len,
+                  has_valid, causal};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (d == 64)
+    err = bounded ? launch_pos<64, true>(q, k, v, B, strides, p, s)
+                  : launch_pos<64, false>(q, k, v, B, strides, p, s);
+  else if (d == 128)
+    err = bounded ? launch_pos<128, true>(q, k, v, B, strides, p, s)
+                  : launch_pos<128, false>(q, k, v, B, strides, p, s);
   return static_cast<int>(err);
 }

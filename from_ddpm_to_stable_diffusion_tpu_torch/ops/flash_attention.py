@@ -29,14 +29,17 @@ memory returned as (B, H, L, D) views, so merging heads afterwards is free.
 
 Position-masked forward: :func:`flash_attention_pos` masks by global
 position (two offset segments per side, ``valid_len``, causal, the ragged
-key tail) and returns (out, lse); on CUDA tensors it launches the kernel of
-``csrc/flash_attention_pos.cu`` (the Pallas ``_fwd_kernel_pos``), on CPU
-tensors :func:`flash_attention_pos_plain`. Position-masked backward:
+key tail) and returns (out, lse); on CUDA tensors it launches K5 (the Pallas
+``_fwd_kernel_pos``: in bf16 the position-mask form of the TMA / wgmma kernel
+of ``csrc/flash_attention_sm90.cu``, :func:`k5_route`), on CPU tensors
+:func:`flash_attention_pos_plain`. Position-masked backward:
 :func:`flash_bwd_pos` gives (dq, dk, dv) of one query block against one key
 block under a caller-supplied *global* lse and delta, with the same masks;
-on CUDA tensors the two kernels of ``csrc/flash_attention_pos_bwd.cu`` (the
-Pallas ``_bwd_dq_kernel_pos`` and ``_bwd_dkv_kernel_pos``), on CPU tensors
-:func:`flash_bwd_pos_plain`. :func:`joint_flash_attention` is the MMDiT's
+on CUDA tensors K6 (dq, the Pallas ``_bwd_dq_kernel_pos``,
+``csrc/flash_attention_pos_bwd.cu``) and K7 (dk with dv, the Pallas
+``_bwd_dkv_kernel_pos``: in bf16 the position-mask form of the TMA / wgmma
+kernel of ``csrc/flash_attention_bwd_sm90.cu``, :func:`k7_route`), on CPU
+tensors :func:`flash_bwd_pos_plain`. :func:`joint_flash_attention` is the MMDiT's
 attention over [context | x] without concatenation: four position-masked
 calls merged exactly through their log-sum-exps by
 :func:`merge_attention_partials`, and in the backward four
@@ -60,7 +63,8 @@ first asks for it. They cover the head dims the port's fp32 defaults reach
 (``_FP32_*`` below), without a mask or causal; with a bias or segment ids,
 or at another head dim, an fp32 CUDA tensor raises ``NotImplementedError``.
 Each wrapper counts its launches by dtype in ``.dtypes`` beside
-``.launches``.
+``.launches``; K1, K4, K5 and K7, which run more than one kernel, also by
+kernel in ``.routes``.
 """
 
 from __future__ import annotations
@@ -489,6 +493,48 @@ def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
     return "sm90"
 
 
+def _pos_route(fn, dtype, d: int) -> str:
+    """The route of a position-masked kernel (K5, K7), whatever its masks:
+    "sm90" for bf16 at head dims 64 and 128, "fp32" for fp32 at 64; raises
+    for anything else."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the flash kernels take bf16 or fp32, not {dtype}")
+    if dtype == torch.float32:
+        if d not in _FP32_POS_HEAD_DIMS:
+            raise NotImplementedError(
+                f"head dim {d} in fp32: the fp32 form of {fn} takes "
+                f"{_FP32_POS_HEAD_DIMS}" + (
+                    f"; pass bf16 tensors (it takes {_POS_HEAD_DIMS})"
+                    if d in _POS_HEAD_DIMS else ""))
+        return "fp32"
+    if d not in _POS_HEAD_DIMS:
+        raise NotImplementedError(f"head dim {d}: {fn} takes "
+                                  f"{_POS_HEAD_DIMS}")
+    return "sm90"
+
+
+def k5_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
+             segments: bool = False, bounded: bool = False) -> str:
+    """Which K5 kernel a CUDA launch of this dtype, head dim and form runs
+    (the form: causal, a ``valid_len``, two segments on a side, the bounded
+    softmax): "sm90" (the position-mask form of
+    ``csrc/flash_attention_sm90.cu``, TMA and wgmma: bf16 at head dims 64 and
+    128 in every form) or "fp32" (``csrc/fp32/flash_f32_fwd.cu``: 64 in
+    every form). Raises ``NotImplementedError`` naming what the kernels take
+    for any other."""
+    return _pos_route("flash_attention_pos_cuda", dtype, d)
+
+
+def k7_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
+             segments: bool = False) -> str:
+    """Which K7 kernel a CUDA launch of this dtype, head dim and form runs:
+    "sm90" (the position-mask form of ``csrc/flash_attention_bwd_sm90.cu``,
+    TMA and wgmma: bf16 at head dims 64 and 128 in every form) or "fp32"
+    (``csrc/fp32/flash_f32_bwd.cu``: 64 in every form). Raises
+    ``NotImplementedError`` naming what the kernels take for any other."""
+    return _pos_route("flash_bwd_pos_dkv_cuda", dtype, d)
+
+
 def k1_d512_splits(b: int, h: int, lq: int, lk: int, n_sm: int) -> int:
     """How many blocks share the keys of one 64-query tile in the d = 512
     kernel: 1 when the B·H·⌈Lq/64⌉ query tiles fill the ``n_sm`` SMs, else as
@@ -880,11 +926,15 @@ def flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, *,
                              stability: str = "online"):
     """K5: (out, lse) for bf16 (B, H, L, D) CUDA tensors, D 64 or 128, or
     fp32 ones, D 64. The offsets are int32 (2,) tensors on q's device; the
-    kernel reads them, so nothing waits for the host."""
-    b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_pos_cuda",
-                                 _POS_HEAD_DIMS, _FP32_POS_HEAD_DIMS)
+    kernel reads them, so nothing waits for the host. Which kernel runs:
+    :func:`k5_route`; launches are counted by route in ``.routes``."""
+    b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_pos_cuda")
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, stability)
+    route = k5_route(q.dtype, d, bool(causal), valid_len is not None,
+                     seg_q < lq or seg_k < lk, stability == "bounded")
     _check_pos(q, scale, q_offsets, kv_offsets)
+    if route == "sm90":
+        q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
     out = _blhd(q, lq)
     lse = _lse_like(q)
     strides = _strides(q, k, v, out)
@@ -895,12 +945,13 @@ def flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, *,
         0 if valid_len is None else int(valid_len), int(valid_len is not None),
         int(bool(causal)), int(stability == "bounded"), _stream(q))
     _build.check(err, "fdsd_flash_fwd_pos")
-    _count_launch(flash_attention_pos_cuda, q)
+    _count_launch(flash_attention_pos_cuda, q, route=route)
     return out, lse
 
 
 flash_attention_pos_cuda.launches = 0
 flash_attention_pos_cuda.dtypes = collections.Counter()
+flash_attention_pos_cuda.routes = collections.Counter()
 
 
 def flash_attention_pos(q, k, v, q_offsets, kv_offsets, **kw):
@@ -948,9 +999,11 @@ def flash_bwd_pos_plain(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
 
 
 def _pos_bwd_args(q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q,
-                  seg_k):
-    dims = _check_bwd(q, k, v, g, lse, delta, _POS_HEAD_DIMS,
-                      _FP32_POS_HEAD_DIMS)
+                  seg_k, head_dims=_POS_HEAD_DIMS):
+    """(dims, scale, seg_q, seg_k) after the checks of K6 and K7; with
+    ``head_dims`` None the caller checks the head dim (K7:
+    :func:`k7_route`)."""
+    dims = _check_bwd(q, k, v, g, lse, delta, head_dims, _FP32_POS_HEAD_DIMS)
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, "online")
     _check_pos(q, scale, q_offsets, kv_offsets)
     return dims, scale, seg_q, seg_k
@@ -986,9 +1039,16 @@ def flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
                            seg_q: Optional[int] = None,
                            seg_k: Optional[int] = None,
                            valid_len: Optional[int] = None):
-    """K7: (dk, dv) from the inputs of :func:`flash_bwd_pos_dq_cuda`."""
+    """K7: (dk, dv) from the inputs of :func:`flash_bwd_pos_dq_cuda`.
+    Which kernel runs: :func:`k7_route`; launches are counted by route in
+    ``.routes``."""
     (b, h, lq, lk, d), scale, seg_q, seg_k = _pos_bwd_args(
-        q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k)
+        q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k,
+        head_dims=None)
+    route = k7_route(q.dtype, d, bool(causal), valid_len is not None,
+                     seg_q < lq or seg_k < lk)
+    if route == "sm90":
+        q, k, v, g = (_tma_operand(x) for x in (q, k, v, g))
     dk, dv = _blhd(k, lk), _blhd(v, lk)
     strides = _strides(q, k, v, g, dk, dv)
     err = _pos_entry(q, "fdsd_flash_bwd_pos_dkv")(
@@ -999,7 +1059,7 @@ def flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
         0 if valid_len is None else int(valid_len), int(valid_len is not None),
         int(bool(causal)), _stream(q))
     _build.check(err, "fdsd_flash_bwd_pos_dkv")
-    _count_launch(flash_bwd_pos_dkv_cuda, q)
+    _count_launch(flash_bwd_pos_dkv_cuda, q, route=route)
     return dk, dv
 
 
@@ -1007,6 +1067,7 @@ flash_bwd_pos_dq_cuda.launches = 0
 flash_bwd_pos_dkv_cuda.launches = 0
 flash_bwd_pos_dq_cuda.dtypes = collections.Counter()
 flash_bwd_pos_dkv_cuda.dtypes = collections.Counter()
+flash_bwd_pos_dkv_cuda.routes = collections.Counter()
 
 
 def flash_bwd_pos(q, k, v, g, lse, delta, q_offsets, kv_offsets, **kw):

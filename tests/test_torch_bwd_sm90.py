@@ -103,7 +103,10 @@ def test_d512_tiles_are_the_kernels_tiles():
     ("fdsd_flash_bwd_dkv", "flash_attention_bwd_sm90.cu"),
     ("fdsd_flash_bwd_dq", "flash_attention_bwd.cu"),
     ("fdsd_flash_fwd_d512", "flash_attention.cu"),
-    ("fdsd_flash_fwd", "flash_attention_sm90.cu")])
+    ("fdsd_flash_fwd", "flash_attention_sm90.cu"),
+    ("fdsd_flash_fwd_pos", "flash_attention_sm90.cu"),
+    ("fdsd_flash_bwd_pos_dkv", "flash_attention_bwd_sm90.cu"),
+    ("fdsd_flash_bwd_pos_dq", "flash_attention_pos_bwd.cu")])
 def test_each_entry_is_defined_in_its_kernels_source(entry, source):
     defined = {src.name for src in _build.CSRC.glob("*.cu")
                if f'extern "C" int {entry}(' in src.read_text()}

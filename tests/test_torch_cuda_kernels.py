@@ -36,11 +36,20 @@ filled with NaN; its launches counted by route. K4 on TMA and wgmma
 in every form at head dims 64 and 128, with the floor above where one key
 makes dS rounding noise; K1 at head dim 512 (``csrc/flash_attention.cu``)
 across its key splits, each split count forced, and into NaN buffers.
+K5 and K7 on TMA and wgmma (the position-mask forms of the same two
+kernels) at the same tolerances: SD3's four joint-attention shapes on
+fused-projection slices (K7 under the lse merged over both streams), the
+masked cases of chip_smoke.py at head dims 64 and 128, segment boundaries
+inside a tile, a query tile that sees no key tile, lengths around the
+tiles, NaN-filled outputs, the joint attention at 154 + 4096 tokens; their
+launches counted by route.
 The fp32 forms of K1, K3 - K7 against the plain fp32 versions (TF32 off):
 out and lse to 1e-4 absolute, each gradient to 1e-4 of its largest
 magnitude; the plain version fed operands rounded once to bf16 must fall
 outside that, so a kernel that rounded an operand would be caught.
 """
+
+import itertools
 
 import pytest
 import torch
@@ -835,6 +844,295 @@ def test_k4_launches_by_route(gen):
         tfa.flash_attention_bwd_dkv_cuda(q, q, q, q, lse, delta)
         assert routes[route] == n.get(route, 0) + 1
         assert sum(routes.values()) == sum(n.values()) + 1
+
+
+# ----------------------- K5 and K7, the position-mask forms on TMA and wgmma
+def _fused(gen, b, n, h, d):
+    """q, k, v as (B, H, L, D) slices of one fused (B, L, 3, H, D)
+    projection, as the MMDiT passes them."""
+    qkv = _randn(gen, b, n, 3, h, d)
+    return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+def _k5_check(q, k, v, qo, ko, **kw):
+    """K5 against its plain version (``_pos_check``); the launch must take
+    the sm90 kernel."""
+    routes = tfa.flash_attention_pos_cuda.routes
+    n = routes["sm90"]
+    seen = _pos_check(q, k, v, qo, ko, **kw)
+    assert routes["sm90"] == n + 1
+    return seen
+
+
+def _k7_check(q, k, v, g, lse, delta, qo, ko, floor=1e-6, **kw):
+    """K7 alone against the plain backward under the same global lse and
+    delta; the launch must take the sm90 kernel. Returns (dk, dv)."""
+    routes = tfa.flash_bwd_pos_dkv_cuda.routes
+    n = routes["sm90"]
+    got = tfa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, qo, ko, **kw)
+    assert routes["sm90"] == n + 1
+    want = tfa.flash_bwd_pos_plain(q, k, v, g, lse, delta, qo, ko, **kw)[1:]
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert bool(torch.isfinite(a).all())
+        a, w = a.float(), w.float()
+        assert (a - w).abs().max().item() <= (2e-2 * w.abs().max().item()
+                                              + floor)
+    return got
+
+
+SD3_SHAPES = [(154, 154), (154, 4096), (4096, 154), (4096, 4096)]
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+@pytest.mark.parametrize("lq,lk", SD3_SHAPES)
+def test_sm90_k5_sd3_shapes_on_fused_slices(gen, stability, lq, lk):
+    """The four calls of SD3's joint attention (154 context and 4096 x
+    tokens, heads of 64), q, k, v slices of the fused projections."""
+    b, h, d = 2, 4, 64
+    q = _fused(gen, b, lq, h, d)[0]
+    _, k, v = _fused(gen, b, lk, h, d)
+    z = _offsets(0, 0)
+    assert bool(_k5_check(q, k, v, z, z, stability=stability).all())
+
+
+@pytest.mark.parametrize("lq,lk", SD3_SHAPES)
+def test_sm90_k7_sd3_shapes_under_the_merged_lse(gen, lq, lk):
+    """The four calls of the joint backward: lse and delta merged over the
+    154 context and the 4096 x keys; dO a view of (B, L, H*D) memory."""
+    b, h, d = 2, 4, 64
+    q = _fused(gen, b, lq, h, d)[0]
+    streams = {n: _fused(gen, b, n, h, d)[1:] for n in (154, 4096)}
+    g = _randn(gen, b, lq, h * d).reshape(b, lq, h, d).transpose(1, 2)
+    z = _offsets(0, 0)
+    lse, delta = _global_stats(q, list(streams.values()), g, z, [z, z])
+    _k7_check(q, *streams[lk], g, lse, delta, z, z)
+
+
+# (B, H, Lq, Lk), query offsets, key offsets (K7: of two key blocks, the
+# lse merged over both), seg_q, seg_k, causal, valid_len: the masked cases of
+# chip_smoke.py's kernel phase
+K5_MASK_CASES = {
+    "two segments, causal": ((1, 4, 1000, 1000), (1000, 3000), (0, 2000),
+                             512, 500, True, None),
+    "two segments, valid_len": ((1, 4, 1000, 1000), (1000, 3000), (0, 2000),
+                                512, 500, False, 2300),
+    "two segments, causal and valid_len": (
+        (1, 4, 1000, 1000), (1000, 3000), (0, 2000), 512, 500, True, 2300),
+    "ragged key tail": ((2, 3, 300, 777), (0, 0), (0, 0), None, None, False,
+                        None),
+    "causal, Lq != Lk": ((1, 2, 1000, 777), (500, 2000), (0, 1500), 600, 400,
+                         True, None),
+    "fully masked rows": ((1, 4, 1000, 1000), (100, 5000), (3000, 4000), 512,
+                          500, True, None),
+}
+K7_MASK_CASES = {
+    "two segments, causal": ((1, 4, 1000, 1000), (1000, 3000),
+                             [(0, 2000), (500, 2500)], 512, 500, True, None),
+    "two segments, valid_len": ((1, 4, 1000, 1000), (1000, 3000),
+                                [(0, 2000), (500, 2500)], 512, 500, False,
+                                2300),
+    "two segments, causal and valid_len": (
+        (1, 4, 1000, 1000), (1000, 3000), [(0, 2000), (500, 2500)], 512, 500,
+        True, 2300),
+    "ragged x length 529 against 154": (
+        (2, 3, 529, 154), (0, 0), [(0, 0), (154, 154)], None, None, False,
+        None),
+    "causal, Lq != Lk": ((1, 2, 1000, 777), (500, 2000),
+                         [(0, 1500), (300, 1700)], 600, 400, True, None),
+    "rows masked in one partial only": (
+        (1, 4, 1000, 1000), (100, 5000), [(3000, 4000), (0, 50)], 512, 500,
+        True, None),
+    "rows masked everywhere": ((1, 4, 1000, 1000), (100, 5000),
+                               [(3000, 4000), (3500, 4500)], 512, 500, True,
+                               None),
+}
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(K5_MASK_CASES))
+def test_sm90_k5_mask_cases(gen, case, d, stability):
+    (b, h, lq, lk), qo, ko, seg_q, seg_k, causal, valid = K5_MASK_CASES[case]
+    q, k, v = (_randn(gen, b, h, n, d) for n in (lq, lk, lk))
+    seen = _k5_check(q, k, v, _offsets(*qo), _offsets(*ko), causal=causal,
+                     valid_len=valid, seg_q=seg_q, seg_k=seg_k,
+                     stability=stability)
+    if case == "fully masked rows":
+        assert int((~seen).sum()) == 4 * 512
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(K7_MASK_CASES))
+def test_sm90_k7_mask_cases(gen, case, d):
+    """Under a lse global over two key blocks at other positions: rows that
+    only the other block's keys see (a finite lse, masked in every tile
+    here) and rows no key sees (lse = -1e30) give finite gradients."""
+    (b, h, lq, lk), qo, kos, seg_q, seg_k, causal, valid = K7_MASK_CASES[case]
+    q, g = (_randn(gen, b, h, lq, d) for _ in range(2))
+    kvs = [tuple(_randn(gen, b, h, lk, d) for _ in range(2)) for _ in kos]
+    kw = dict(causal=causal, valid_len=valid, seg_q=seg_q, seg_k=seg_k)
+    qo, kos = _offsets(*qo), [_offsets(*ko) for ko in kos]
+    lse, delta = _global_stats(q, kvs, g, qo, kos, **kw)
+    blank = lse <= -1e29
+    if case == "rows masked everywhere":
+        assert int(blank.sum()) == 4 * 512
+    if case == "rows masked in one partial only":
+        first = tfa.flash_attention_pos_plain(q, *kvs[0], qo, kos[0], **kw)[1]
+        assert not bool(blank.any())
+        assert int((first <= -1e29).sum()) == 4 * 512
+    for (k, v), ko in zip(kvs, kos):
+        _k7_check(q, k, v, g, lse, delta, qo, ko, **kw)
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k5_segment_boundary_inside_a_tile(gen, d, stability):
+    """Both sides' segment boundaries fall inside a 128-row tile, so one
+    tile holds positions of both segments (its position bounds span them)."""
+    lq, lk = 300, 420
+    q, k, v = (_randn(gen, 2, 3, n, d) for n in (lq, lk, lk))
+    for causal, valid in ((False, None), (True, None), (True, 900)):
+        _k5_check(q, k, v, _offsets(400, 1000), _offsets(0, 700),
+                  causal=causal, valid_len=valid, seg_q=70, seg_k=190,
+                  stability=stability)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k7_segment_boundary_inside_a_tile(gen, d):
+    lq, lk = 300, 420
+    q, g = (_randn(gen, 2, 3, lq, d) for _ in range(2))
+    k, v = (_randn(gen, 2, 3, lk, d) for _ in range(2))
+    qo, ko = _offsets(400, 1000), _offsets(0, 700)
+    for causal, valid in ((False, None), (True, None), (True, 900)):
+        kw = dict(causal=causal, valid_len=valid, seg_q=70, seg_k=190)
+        lse, delta = _global_stats(q, [(k, v)], g, qo, [ko], **kw)
+        _k7_check(q, k, v, g, lse, delta, qo, ko, **kw)
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+def test_sm90_k5_query_tile_that_sees_no_key_tile(gen, monkeypatch,
+                                                  stability):
+    """Causal by position: the first 128-row query tile (positions 0-127)
+    lies before every key (positions from 1000 on), so it visits no key
+    tile, loads nothing and waits on no barrier; its rows are written as
+    out = 0, lse = -1e30 into buffers handed over filled with NaN."""
+    blhd = tfa._blhd
+    monkeypatch.setattr(tfa, "_blhd", lambda like, n: blhd(like, n).fill_(
+        float("nan")))
+    monkeypatch.setattr(tfa, "_lse_like", lambda q: torch.full(
+        q.shape[:3], float("nan"), device=q.device))
+    for d in (64, 128):
+        q = _randn(gen, 2, 3, 300, d)
+        k, v = (_randn(gen, 2, 3, 500, d) for _ in range(2))
+        seen = _k5_check(q, k, v, _offsets(0, 5000), _offsets(1000, 1000),
+                         causal=True, seg_q=128, stability=stability)
+        assert not bool(seen[:, :, :128].any())
+        assert bool(seen[:, :, 128:].all())
+
+
+@pytest.mark.parametrize("lk", EDGE_LENGTHS)
+@pytest.mark.parametrize("lq", EDGE_LENGTHS)
+def test_sm90_k5_lengths_around_its_tiles(gen, lq, lk):
+    """Lq and Lk around the 128-row tiles at head dims 64 and 128, online
+    and bounded, and causal over two segments."""
+    for d in (64, 128):
+        q, k, v = (_randn(gen, 2, 3, n, d) for n in (lq, lk, lk))
+        z = _offsets(0, 0)
+        for stability in ("online", "bounded"):
+            _k5_check(q, k, v, z, z, stability=stability)
+        _k5_check(q, k, v, _offsets(0, 100), _offsets(0, 50), causal=True,
+                  seg_q=lq // 2, seg_k=lk // 2)
+
+
+@pytest.mark.parametrize("lk", K4_EDGE_LENGTHS)
+@pytest.mark.parametrize("lq", K4_EDGE_LENGTHS)
+def test_sm90_k7_lengths_around_its_tiles(gen, lq, lk):
+    """Lq around the 64-query tiles and Lk around the 128-key tiles at head
+    dims 64 and 128, unmasked and causal over two segments; where every
+    query sees one key, dS is rounding noise (the floor, as for K4)."""
+    for d in (64, 128):
+        q, g = (_randn(gen, 2, 3, lq, d) for _ in range(2))
+        k, v = (_randn(gen, 2, 3, lk, d) for _ in range(2))
+        for qo, ko, kw in ((_offsets(0, 0), _offsets(0, 0), {}),
+                           (_offsets(0, 100), _offsets(0, 50),
+                            dict(causal=True, seg_q=lq // 2,
+                                 seg_k=lk // 2))):
+            lse, delta = _global_stats(q, [(k, v)], g, qo, [ko], **kw)
+            _k7_check(q, k, v, g, lse, delta, qo, ko,
+                      1e-3 if 1 in (lq, lk) else 1e-6, **kw)
+
+
+def test_sm90_k7_writes_every_row(gen, monkeypatch):
+    """dk and dv are handed to the kernel filled with NaN: every key row
+    must be written, keys that no query sees (past valid_len: whole key
+    tiles that walk nothing; after every query, causal) as 0."""
+    blhd = tfa._blhd
+    monkeypatch.setattr(tfa, "_blhd", lambda like, n: blhd(like, n).fill_(
+        float("nan")))
+    for d, (qo, ko, kw) in itertools.product((64, 128), (
+            ((0, 0), (0, 0), {}),
+            ((0, 0), (0, 0), dict(valid_len=200)),
+            ((0, 0), (0, 0), dict(causal=True)),
+            ((100, 900), (0, 600), dict(causal=True, valid_len=700,
+                                        seg_q=50, seg_k=300)))):
+        q, g = (_randn(gen, 1, 2, 300, d) for _ in range(2))
+        k, v = (_randn(gen, 1, 2, 600, d) for _ in range(2))
+        qo, ko = _offsets(*qo), _offsets(*ko)
+        lse, delta = _global_stats(q, [(k, v)], g, qo, [ko], **kw)
+        dk, dv = _k7_check(q, k, v, g, lse, delta, qo, ko, **kw)
+        if kw.get("valid_len") == 200:
+            assert not bool(dk[:, :, 200:].any() or dv[:, :, 200:].any())
+        if kw == dict(causal=True):
+            assert not bool(dk[:, :, 300:].any() or dv[:, :, 300:].any())
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+def test_sm90_k5_k7_joint_attention_at_sd3_shape(gen, stability):
+    """One MMDiT block's joint attention at SD3's 154 + 4096 tokens through
+    ``joint_attention_blhd`` and autograd: four sm90 K5 launches forward,
+    four K6 and four sm90 K7 backward, against plain attention over the
+    concatenated sequence (2e-2 forward; 3e-2 of each gradient's largest
+    magnitude backward)."""
+    b, h, d, lc, lx = 2, 2, 64, 154, 4096
+    fused = [_randn(gen, b, n, 3, h, d).requires_grad_() for n in (lc, lx)]
+    ctx, x = ([f[:, :, i] for i in range(3)] for f in fused)
+    r5 = tfa.flash_attention_pos_cuda.routes
+    r7 = tfa.flash_bwd_pos_dkv_cuda.routes
+    n = (r5["sm90"], r7["sm90"])
+    oc, ox = tattn.joint_attention_blhd(ctx, x, stability=stability)
+    gc, gx = _randn(gen, b, lc, h, d), _randn(gen, b, lx, h, d)
+    got = torch.autograd.grad((oc, ox), fused, (gc, gx))
+    assert (r5["sm90"], r7["sm90"]) == (n[0] + 4, n[1] + 4)
+    q, k, v = (torch.cat([c, a], dim=1).transpose(1, 2)
+               for c, a in zip(ctx, x))
+    ref = tattn.plain_attention(q, k, v).transpose(1, 2)
+    out = torch.cat([oc, ox], dim=1)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    want = torch.autograd.grad(ref, fused, torch.cat([gc, gx], dim=1))
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        for i in range(3):
+            ai, wi = a[:, :, i].float(), w[:, :, i].float()
+            assert ((ai - wi).abs().max().item()
+                    <= 3e-2 * wi.abs().max().item())
+
+
+def test_k5_k7_launches_by_route(gen):
+    """bf16 takes the sm90 kernels, fp32 the fp32 library; each launch is
+    counted under its route."""
+    r5 = tfa.flash_attention_pos_cuda.routes
+    r7 = tfa.flash_bwd_pos_dkv_cuda.routes
+    z = _offsets(0, 0)
+    for dtype, route in ((torch.bfloat16, "sm90"), (torch.float32, "fp32")):
+        q = _randn(gen, 1, 1, 130, 64, dtype=dtype)
+        n5, n7 = dict(r5), dict(r7)
+        out, lse = tfa.flash_attention_pos_cuda(q, q, q, z, z)
+        delta = (q.float() * out.float()).sum(-1)
+        tfa.flash_bwd_pos_dkv_cuda(q, q, q, q, lse, delta, z, z)
+        for routes, before in ((r5, n5), (r7, n7)):
+            assert routes[route] == before.get(route, 0) + 1
+            assert sum(routes.values()) == sum(before.values()) + 1
 
 
 # ---------------------------------------- K1 at head dim 512 (TMA, wgmma)
