@@ -12,11 +12,15 @@ two summary lines:
    objects, the bf16 flash kernels with GroupNorm and the fp32 flash kernels
    (``csrc/fp32/``), and prints each one's time and ptxas's register, spill
    and shared-memory lines; then counts the wgmma (HGMMA) and TMA (UTMALDG,
-   UBLKCP) instructions of each K1, K4, K5 and K7 kernel in the library's
-   SASS (``cuobjdump -sass``) and fails unless all 18 instantiations of the
-   sm90 K1 and all 4 of the sm90 K5 (``csrc/flash_attention_sm90.cu``), the
-   d = 512 K1 (``csrc/flash_attention.cu``) and all 16 of the sm90 K4 and 2
-   of the sm90 K7 (``csrc/flash_attention_bwd_sm90.cu``) have both.
+   UBLKCP) instructions of each K1, K3, K4, K5 and K7 kernel in the bf16
+   library's SASS and of each fp32 forward kernel in the fp32 library's
+   (``cuobjdump -sass``) and fails unless all 18 instantiations of the sm90
+   K1 and all 4 of the sm90 K5 (``csrc/flash_attention_sm90.cu``), the
+   d = 512 K1 (``csrc/flash_attention.cu``), all 16 of the sm90 K3
+   (``csrc/flash_attention_dq_sm90.cu``), all 16 of the sm90 K4 and 2 of the
+   sm90 K7 (``csrc/flash_attention_bwd_sm90.cu``), and all 8 of the TF32
+   fp32 forward (K1 at six head dims, K1 causal / K5 online, K5 bounded)
+   and its d = 512 kernel (``csrc/fp32/flash_f32_fwd.cu``) have both.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the SD1, tiny-SD and SD3 paths give it, in bf16 (and
    GroupNorm in fp32), with max errors, both times, the least time the card
@@ -25,7 +29,7 @@ two summary lines:
    the same function (a yardstick only; nothing in the port calls it): K1
    flash forward (TMA / wgmma; at d = 512 also with its keys split over 1
    and 2 blocks per query tile), K2 GroupNorm, K3 / K4 flash backward (dq;
-   dk and dv, K4 on TMA / wgmma), K5 (TMA / wgmma)
+   dk and dv, both on TMA / wgmma), K5 (TMA / wgmma)
    position-masked flash forward (the four SD3 shapes, online and bounded,
    each also by its own device time from torch.profiler;
    two-segment causal / valid_len masks, a ragged key tail, head dim 128,
@@ -52,9 +56,15 @@ two summary lines:
    off) at the shapes the fp32 defaults give them: out and lse within 1e-4,
    each gradient within 1e-4 of its largest magnitude, the plain version fed
    operands rounded once to bf16 outside that and at least ten times
-   farther off than the kernel; with the time of one
+   farther off than the kernel; the forward (K1, K5: three-term TF32 split
+   on the tensor cores) also against the plain version fed operands
+   truncated once to TF32 (what a one-pass kernel computes), held to the
+   same two conditions, and against plain attention in fp64 (its error
+   stated, at most 1e-5); with the time of one
    ``scaled_dot_product_attention`` call on the same fp32 inputs and the
-   bound at the CUDA cores' fp32 rate (67 TFLOP/s), the route these take.
+   bound: the forward's at 3 TF32 passes over 495 TFLOP/s (the 67 TFLOP/s
+   FMA bound beside it), the backward's at the CUDA cores' fp32 rate
+   (67 TFLOP/s), the route it takes.
 4. SD1: full-width SD1 (CLIP, 860M UNet, VAE decoder) with random weights
    from a seed, ``SD1Generator`` at 512x512, 50 k-LMS steps, CFG 7.5: two
    batch-1 requests, then one batch-4 request. Checks the images, the final
@@ -89,7 +99,7 @@ two summary lines:
    ``SyntheticImageDataset``: warm-up steps, timed steps (CUDA events),
    profiled steps (device time by kernel family, device idle share).
    Checks finite losses and gradients, moved parameters, and the launches
-   of K1, K3, K4 and K2 per step.
+   of K1, K3, K4 and K2 per step (K3 and K4 on their sm90 kernels).
 7. gradient check: loss and gradient of one batch of 4 on the card (bf16,
    kernels) against the same weights and inputs on the CPU (fp32, plain
    versions), dropout off, as relative L2 errors of the whole flattened
@@ -136,9 +146,10 @@ Every kernel's launch count is set to 0 just before each of the SD1, SD1
 generator, SD3, training, sampling, MMDiT training, MMDiT sampling, T5,
 TinyVLM training, TinyVLM decoding and fp32 paths and read just after (before
 the plain-attention run it is compared with), K1's also by the kernel it ran
-(sm90, d512, fp32), K4's, K5's and K7's by the kernel they ran (sm90,
-fp32): on every path the launches by kernel add up to the launches, and on
-the bf16 SD3 and MMDiT paths every K5 and K7 launch took sm90. The last two
+(sm90, d512, fp32), K3's, K4's, K5's and K7's by the kernel they ran (sm90,
+fp32): on every path the launches by kernel add up to the launches, on the
+bf16 SD3 and MMDiT paths every K5 and K7 launch took sm90, and on the bf16
+tiny-SD and TinyVLM training paths every K3 and K4 launch took sm90. The last two
 lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
 card's name and power limit come on the line before them. Imports nothing
@@ -198,6 +209,8 @@ NO_MASK, CAUSAL, BIASED = ((False, False, False), (True, False, False),
                            (False, True, False))
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16, data sheet
 PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # dense TF32 on the tensor cores
+TF32_PASSES = 3            # the fp32 forward's split: hi hi + hi lo + lo hi
 PEAK_BYTES = 3.35e12       # HBM3
 TPU_KERNELS = "from_ddpm_to_stable_diffusion_tpu/ops/"
 # Relative L2 error of the flattened gradient, card (bf16 compute, kernels)
@@ -253,27 +266,41 @@ def phase_build():
             if ("Used" in line or "spill" in line or "Compiling" in line
                     or "(C75" in line):
                 print("  ptxas:", line.strip().removeprefix("ptxas info    :"))
-    sass_check(_build.library_path("kernels"))
+    sass_check(_build.library_path("kernels"), SM90_KERNELS, BF16_FAMILY)
+    sass_check(_build.library_path("kernels_fp32"), FP32_FWD_KERNELS,
+               FP32_FWD_FAMILY)
 
 
 # The sm90 K1 instantiations: 4 padded head dims without a mask, 7 mask
-# forms at head dims 64 and 128; the d = 512 K1; the sm90 K4: 8 forms at
-# head dims 64 and 128; the sm90 K5: online and bounded at head dims 64 and
-# 128; the sm90 K7: head dims 64 and 128.
+# forms at head dims 64 and 128; the d = 512 K1; the sm90 K3 and K4: 8 forms
+# at head dims 64 and 128 each; the sm90 K5: online and bounded at head dims
+# 64 and 128; the sm90 K7: head dims 64 and 128.
 SM90_KERNELS = {  # kind -> (kernel name, instantiations)
     "K1 sm90": ("flash_fwd_sm90_kernel", 4 + 2 * 7),
     "K1 d512": ("flash_fwd_d512", 1),
+    "K3 sm90": ("flash_bwd_dq_sm90_kernel", 2 * 8),
     "K4 sm90": ("flash_bwd_dkv_sm90_kernel", 2 * 8),
     "K5 sm90": ("flash_fwd_pos_sm90_kernel", 2 * 2),
     "K7 sm90": ("flash_bwd_pos_dkv_sm90_kernel", 2),
 }
+# The names of the kernels above, and of any mma.sync form left of them (the
+# mma.sync K6, flash_bwd_pos_dq_kernel, is not among them).
+BF16_FAMILY = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv",
+               "flash_bwd_dq")
+# The fp32 forward (TF32 split): six head dims without a mask, the masked
+# form online (K1 causal, K5) and bounded (K5); the d = 512 kernel.
+FP32_FWD_KERNELS = {
+    "K1/K5 fp32": ("flash_fwd_f32_kernel", 6 + 2),
+    "K1 fp32 d512": ("flash_fwd_f32_d512_kernel", 1),
+}
+FP32_FWD_FAMILY = ("flash_fwd",)
 
 
-def sass_check(library):
-    """Counts, in each K1, K4, K5 and K7 kernel of the built library, the
-    wgmma (HGMMA) and TMA (UTMALDG, UBLKCP) instructions of its SASS
-    (cuobjdump -sass), and checks that every sm90 instantiation of K1, K4,
-    K5 and K7 and the d = 512 K1 have both."""
+def sass_check(library, table, family):
+    """Counts, in each kernel of the built library whose name holds one of
+    ``family``, the wgmma (HGMMA) and TMA (UTMALDG, UBLKCP) instructions of
+    its SASS (cuobjdump -sass), and checks that every instantiation ``table``
+    names has both and that no kernel of ``family`` is outside it."""
     import shutil
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -285,17 +312,17 @@ def sass_check(library):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            fn = name if any(key in name for key in (
-                "flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv")) else None
+            fn = name if any(key in name for key in family) else None
             if fn:
                 counts[fn] = [0, 0]
         elif fn:
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += "UTMALDG" in line or "UBLKCP" in line
     found = {kind: {f: c for f, c in counts.items() if key in f}
-             for kind, (key, _) in SM90_KERNELS.items()}
-    names = {"K1 sm90": "causal/bias/segments", "K4 sm90":
-             "causal/bias/segments", "K5 sm90": "bounded"}
+             for kind, (key, _) in table.items()}
+    names = {"K1 sm90": "causal/bias/segments", "K3 sm90":
+             "causal/bias/segments", "K4 sm90": "causal/bias/segments",
+             "K5 sm90": "bounded", "K1/K5 fp32": "masked/bounded"}
     for kind, fns in found.items():
         for f, (hgmma, tma) in sorted(fns.items()):
             # template arguments: padded head dim, then the form's flags
@@ -306,11 +333,11 @@ def sass_check(library):
                 f" {names[kind]}={flags}" if flags else "")
             print(f"  sass {kind} {what}: HGMMA {hgmma}, UTMALDG/UBLKCP {tma}",
                   flush=True)
-        check(len(fns) == SM90_KERNELS[kind][1] and all(
+        check(len(fns) == table[kind][1] and all(
             h > 0 and t > 0 for h, t in fns.values()),
             f"the {kind} kernels lack wgmma or TMA in their SASS: {fns}")
-    check(len(counts) == sum(n for _, n in SM90_KERNELS.values()),
-          f"K1 / K4 / K5 / K7 kernels off the sm90 routes: "
+    check(len(counts) == sum(n for _, n in table.values()),
+          f"{'/'.join(family)} kernels off the TMA / wgmma routes: "
           f"{sorted(set(counts) - {f for fns in found.values() for f in fns})}")
 
 
@@ -396,11 +423,11 @@ def reset_counts():
 class Counts(dict):
     """Launches by kernel; ``k1_routes``: K1's launches by the kernel they
     ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32");
-    ``k4_routes``, ``k5_routes``, ``k7_routes``: K4's, K5's and K7's
-    (``.routes`` of their wrappers: "sm90", "fp32")."""
+    ``k3_routes``, ``k4_routes``, ``k5_routes``, ``k7_routes``: K3's, K4's,
+    K5's and K7's (``.routes`` of their wrappers: "sm90", "fp32")."""
 
 
-ROUTED = ("K1", "K4", "K5", "K7")   # the kernels counted by route
+ROUTED = ("K1", "K3", "K4", "K5", "K7")   # the kernels counted by route
 
 
 def read_counts():
@@ -485,6 +512,16 @@ def kernel_device_ms(call, family, n=10):
     over ``n`` calls; None where no window recorded one."""
     fams = device_families(lambda: [call() for _ in range(n)], family)
     return fams[family] / n if family in fams else None
+
+
+def fp32_fwd_device_ms(call, n=3):
+    """The device ms of one fp32 forward ``call()``: its flash kernels
+    (``device_ms``) and its split pre-pass (``split_device_ms``), from one
+    profile of ``n`` calls; None where no window recorded one."""
+    fams = device_families(lambda: [call() for _ in range(n)], F32_FWD)
+    return {key: fams[fam] / n if fam in fams else None
+            for key, fam in (("device_ms", F32_FWD),
+                             ("split_device_ms", F32_SPLIT))}
 
 
 def fmt_ms(ms):
@@ -1531,11 +1568,19 @@ def phase_t5(card, t5):
     return launches
 
 
+# The fp32 forward (K1 and K5 in fp32) in the device profiles: its kernels,
+# and the split pre-pass that writes their TF32 terms.
+F32_FWD, F32_SPLIT = "K1/K5 fp32 flash fwd", "K1/K5 fp32 split pre-pass"
+
+
 def _family(name: str) -> str:
     """Kernel family of a CUDA kernel name, for the device profiles."""
     n = name.lower()
     for key, fam in (("flash_fwd_pos", "K5 flash fwd pos"),
                      ("merge_d512", "K1 flash fwd"),
+                     ("flash_fwd_f32", F32_FWD),
+                     ("merge_f32_d512", F32_FWD),
+                     ("split_f32", F32_SPLIT),
                      ("flash_bwd_pos_dq", "K6 flash bwd pos dq"),
                      ("flash_bwd_pos_dkv", "K7 flash bwd pos dk/dv"),
                      ("flash_fwd", "K1 flash fwd"),
@@ -2386,11 +2431,27 @@ def phase_vlm_decoding(card, trainer, state):
 # --------------------------------------------------------------------------
 # The fp32 forms of the flash kernels
 # --------------------------------------------------------------------------
-FP32_ROUTE = "fp32 FMA on the CUDA cores"
+FP32_ROUTE = "fp32 FMA on the CUDA cores"    # the fp32 backward
+FP32_FWD_ROUTE = "TF32 wgmma, three-term split"
+FP32_FWD_DESIGN = (
+    "a pre-pass splits q, k and v (transposed, keys permuted within groups "
+    "of 8) into TF32 hi / lo terms; then K1's design in TF32: a producer "
+    "issuing TMA (Q hi / lo once, K and V^T hi / lo tiles on rings of their "
+    "own), two consumers of 64 query rows running S = QK^T and O += PV as "
+    "three wgmma m64nNk8 TF32 passes each (lo hi + hi lo + hi hi), the "
+    "softmax in fp32 registers and P split in registers as the RS A "
+    "operand; at d = 512 Q, K and V^T stream through three 64 KB slots, two "
+    "consumers split S by keys and own 256 output columns each, P hi / lo "
+    "through shared memory, key splits merged by lse below 132 query tiles")
 # out and lse absolute, each gradient relative to its largest magnitude; the
 # plain version fed operands rounded once to bf16 must fall outside it, and
 # the kernel must stay ten times closer to the plain version than that fault.
+# The forward (TF32 split) is held so against a second fault too: operands
+# truncated once to TF32, what a single-pass kernel would compute. Its error
+# against fp64 plain attention is reported and held to FP32_FP64_TOL: the
+# split keeps ~2^-22 of each product, fp32 itself ~2^-24 per rounding.
 FP32_TOL = 1e-4
+FP32_FP64_TOL = 1e-5
 # A whole fp32 request or train step through the fp32 kernels against the
 # same through plain attention: relative L2 of the final latents, relative
 # error of each loss, relative L2 of the last step's gradient. The two
@@ -2401,22 +2462,36 @@ E2E_FP32_TOL = 1e-4
 
 
 def fp32_bound(b, h, lq, lk, d, n_products, n_q_like, n_k_like, n_stats,
-               share=1.0):
-    """Attention-shaped work on fp32 tensors at the CUDA cores' fp32 rate
-    (the route the fp32 kernels take): ``n_products`` products over the
-    ``share`` of the Lq x Lk pairs the mask admits, (Lq, d) and (Lk, d)
-    fp32 tensors and fp32 row statistics moved once."""
+               share=1.0, peak=PEAK_FP32_FLOPS, passes=1):
+    """Attention-shaped work on fp32 tensors at ``peak``: ``n_products``
+    products over the ``share`` of the Lq x Lk pairs the mask admits, each
+    done in ``passes`` passes, (Lq, d) and (Lk, d) fp32 tensors and fp32 row
+    statistics moved once. The backward's route is fp32 FMAs on the CUDA
+    cores (67 TFLOP/s, one pass); the forward's the tensor cores, three
+    TF32 passes at 495 TFLOP/s (:func:`tf32_bound`)."""
     flops = 2.0 * n_products * share * b * h * lq * lk * d
     nbytes = b * h * (4.0 * d * (n_q_like * lq + n_k_like * lk)
                       + 4.0 * n_stats * lq)
     return dict(zip(("bound_ms", "bound_by"),
-                    bound(flops, nbytes, PEAK_FP32_FLOPS)))
+                    bound(passes * flops, nbytes, peak)))
+
+
+def tf32_bound(b, h, lq, lk, d, share=1.0):
+    """The fp32 forward's bound: its two products in TF32_PASSES passes at
+    the dense TF32 rate, with the bytes floor, and beside it (``fma_bound_ms``)
+    the same work in fp32 FMAs at 67 TFLOP/s, for comparison."""
+    shape = (b, h, lq, lk, d, 2, 2, 2, 1, share)
+    return dict(**fp32_bound(*shape, peak=PEAK_TF32_FLOPS,
+                             passes=TF32_PASSES),
+                bound_basis=f"{TF32_PASSES} TF32 passes at 495 TFLOP/s",
+                fma_bound_ms=fp32_bound(*shape)["bound_ms"])
 
 
 def phase_kernels_fp32(card, tail):
     """Each fp32 form against its plain fp32 version (TF32 off) at the shape
-    its path gives it, with the planted single-rounding fault, the times and
-    the bound. Returns kernel name -> list of records."""
+    its path gives it, with the planted single-rounding faults (bf16; for
+    the forward also one TF32 pass), the forward's error against fp64, the
+    times and the bound. Returns kernel name -> list of records."""
     import torch
     import torch.nn.functional as F
 
@@ -2427,6 +2502,10 @@ def phase_kernels_fp32(card, tail):
     gen = torch.Generator(device="cuda").manual_seed(4321)
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
     rounded = lambda *xs: [x.bfloat16().float() for x in xs]
+    # one TF32 pass: each operand cut to its top 19 bits, the rest exact
+    tf32 = lambda *xs: [(x.contiguous().view(torch.int32) & ~0x1FFF).view(
+        torch.float32) for x in xs]
+    f64 = lambda *xs: [x.double() for x in xs]
     sdpa = F.scaled_dot_product_attention
     records = {k: [] for k in ("K1", "K3", "K4", "K5", "K6", "K7")}
 
@@ -2438,6 +2517,52 @@ def phase_kernels_fp32(card, tail):
         check(ok, f"{name} fp32 {what}: err {err:.3e}, planted fault "
                   f"{fault:.3e}, tol {tol:.3e}")
         return f"{err:.3e} (fault {fault:.3e}, tol {tol:.3e})"
+
+    def forward_errors(label, out, lse, plain, faulted):
+        """The kernel's out / lse errors against plain fp32 and fp64
+        attention (``plain``, ``faulted(f)``: the plain forward on the
+        operands mapped by f), and the two planted faults' out errors. lse
+        is compared on the rows that see a key; the others must hold out = 0
+        and lse = -1e30."""
+        ref, ref_lse = plain()
+        seen = ref_lse > -1e29
+        if not bool(seen.all()):
+            check(bool((lse[~seen] <= -1e29).all())
+                  and not bool(out[~seen].any()),
+                  f"{label}: a row that sees no key has out != 0 or lse "
+                  f"above -1e29")
+        errs = dict(err=(out - ref).abs().max().item(),
+                    lse_err=(lse - ref_lse)[seen].abs().max().item())
+        for name, f in (("fault_err", rounded), ("tf32_fault_err", tf32)):
+            bad, _ = faulted(f)
+            errs[name] = (bad - ref).abs().max().item()
+            del bad
+        del ref, ref_lse
+        r64, l64 = faulted(f64)
+        errs["fp64_err"] = max((out.double() - r64).abs().max().item(),
+                               (lse.double() - l64)[seen].abs().max().item())
+        del r64, l64
+        return errs
+
+    def judge_forward(name, what, errs):
+        """Both planted faults caught, the error against fp64 stated and
+        within FP32_FP64_TOL."""
+        worst = max(errs["err"], errs["lse_err"])
+        line = (f"bf16 rounding {judge(name, what, worst, errs['fault_err'])}"
+                f"; one TF32 pass "
+                f"{judge(name, what + ' (TF32)', worst, errs['tf32_fault_err'])}"
+                f"; against fp64 {errs['fp64_err']:.3e} (tol {FP32_FP64_TOL})")
+        check(errs["fp64_err"] <= FP32_FP64_TOL,
+              f"{name} fp32 {what}: {errs['fp64_err']:.3e} from fp64")
+        return line
+
+    def fwd_tail(t):
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return (f"{tail(**{k: t[k] for k in keys})}"
+                f"; device {fmt_ms(t['device_ms'])} + split pre-pass "
+                f"{fmt_ms(t['split_device_ms'])}; bound basis "
+                f"{t['bound_basis']} (fp32 FMAs at 67 TFLOP/s: "
+                f"{t['fma_bound_ms']:.4f} ms)")
 
     def fused(b, lq, lk, h, d):
         """q, k, v as column slices of fused projections, and dO."""
@@ -2493,25 +2618,27 @@ def phase_kernels_fp32(card, tail):
         run = lambda: fa.flash_attention_cuda(q, k, v, causal=causal)
         plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal)
         out, lse = run()
-        ref, ref_lse = plain()
-        bad, _ = fa.flash_attention_plain(*rounded(q, k, v), causal=causal)
         torch.cuda.synchronize()
         check(out.dtype == lse.dtype == torch.float32, "K1 fp32 dtypes")
-        err = (out - ref).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        fault = (bad - ref).abs().max().item()
-        del ref, ref_lse, bad
-        verdict = judge("K1", f"{what} {shape}", max(err, lse_err), fault)
-        times = dict(ms=cuda_ms(run, 5, 1), plain_ms=cuda_ms(plain, 2, 1),
+        errs = forward_errors(
+            f"K1 fp32 {what} {shape}", out, lse, plain,
+            lambda f: fa.flash_attention_plain(
+                *f(q, k, v), causal=causal))
+        verdict = judge_forward("K1", f"{what} {shape}", errs)
+        times = dict(ms=cuda_ms(run, 5, 1),
+                     **fp32_fwd_device_ms(run),
+                     plain_ms=cuda_ms(plain, 2, 1),
                      library_ms=cuda_ms(
                          lambda: sdpa(q, k, v, is_causal=causal), 3, 1),
-                     **fp32_bound(*shape, 2, 2, 2, 1, share))
-        print(f"K1 fp32 {what} (B,H,Lq,Lk,D)={shape}: max|out err|={err:.3e} "
-              f"max|lse err|={lse_err:.3e}; worst {verdict}; {tail(**times)}",
-              flush=True)
+                     **tf32_bound(*shape, share))
+        print(f"K1 fp32 {what} (B,H,Lq,Lk,D)={shape}: max|out err|="
+              f"{errs['err']:.3e} max|lse err|={errs['lse_err']:.3e}; "
+              f"{verdict}; {fwd_tail(times)}", flush=True)
         records["K1"].append(dict(form=what, shape=list(shape),
-                                  route=FP32_ROUTE, max_abs_err=err,
-                                  lse_err=lse_err, fault_err=fault, **times))
+                                  route=FP32_FWD_ROUTE,
+                                  max_abs_err=errs["err"],
+                                  **{k: v for k, v in errs.items()
+                                     if k != "err"}, **times))
         if not with_bwd:
             continue
         masks = dict(causal=causal)
@@ -2542,32 +2669,30 @@ def phase_kernels_fp32(card, tail):
     for lq, lk in ((154, 154), (154, 4096), (4096, 154), (4096, 4096)):
         shape = (b, h, lq, lk, d)
         q, k, v, g = fused(b, lq, lk, h, d)
-        ref, ref_lse = fa.flash_attention_pos_plain(q, k, v, z, z)
-        bad, _ = fa.flash_attention_pos_plain(*rounded(q, k, v), z, z)
-        fault = (bad - ref).abs().max().item()
-        plain_ms = cuda_ms(
-            lambda: fa.flash_attention_pos_plain(q, k, v, z, z), 2, 1)
+        plain = lambda: fa.flash_attention_pos_plain(q, k, v, z, z)
+        plain_ms = cuda_ms(plain, 2, 1)
         library_ms = cuda_ms(lambda: sdpa(q, k, v), 3, 1)
         for stability in ("online", "bounded"):
             run = lambda: fa.flash_attention_pos_cuda(q, k, v, z, z,
                                                       stability=stability)
             out, lse = run()
             torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            lse_err = (lse - ref_lse).abs().max().item()
-            verdict = judge("K5", f"{stability} {shape}", max(err, lse_err),
-                            fault)
-            times = dict(ms=cuda_ms(run, 5, 1), plain_ms=plain_ms,
-                         library_ms=library_ms,
-                         **fp32_bound(*shape, 2, 2, 2, 1))
+            errs = forward_errors(
+                f"K5 fp32 {stability} {shape}", out, lse, plain,
+                lambda f: fa.flash_attention_pos_plain(*f(q, k, v), z, z))
+            verdict = judge_forward("K5", f"{stability} {shape}", errs)
+            times = dict(ms=cuda_ms(run, 5, 1),
+                         **fp32_fwd_device_ms(run),
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         **tf32_bound(*shape))
             print(f"K5 fp32 {stability} (B,H,Lq,Lk,D)={shape}: max|out err|="
-                  f"{err:.3e} max|lse err|={lse_err:.3e}; worst {verdict}; "
-                  f"{tail(**times)}", flush=True)
-            records["K5"].append(dict(form=stability, shape=list(shape),
-                                      route=FP32_ROUTE, max_abs_err=err,
-                                      lse_err=lse_err, fault_err=fault,
-                                      **times))
-        del bad
+                  f"{errs['err']:.3e} max|lse err|={errs['lse_err']:.3e}; "
+                  f"{verdict}; {fwd_tail(times)}", flush=True)
+            records["K5"].append(dict(
+                form=stability, shape=list(shape), route=FP32_FWD_ROUTE,
+                max_abs_err=errs["err"],
+                **{k: v for k, v in errs.items() if k != "err"}, **times))
+        ref, ref_lse = plain()
         delta = (g * ref).sum(-1)
         got = fa.flash_bwd_pos(q, k, v, g, ref_lse, delta, z, z)
         want = fa.flash_bwd_pos_plain(q, k, v, g, ref_lse, delta, z, z)
@@ -2794,6 +2919,14 @@ def phase_sd1_slice(card, models):
 # --------------------------------------------------------------------------
 # The port's fp32 defaults, end to end, each against plain attention
 # --------------------------------------------------------------------------
+def fp32_fwd_share(run):
+    """Device-busy ms of one profiled ``run()`` and the fp32 forward's part
+    of it (its flash kernels and the split pre-pass)."""
+    fams = device_families(run, F32_FWD)
+    fwd = fams.get(F32_FWD, 0.0) + fams.get(F32_SPLIT, 0.0)
+    return sum(fams.values()), fwd, fams.get(F32_SPLIT, 0.0)
+
+
 def fp32_launch_check(what, want):
     """The fp32 launches since the last reset are ``want`` and no flash
     kernel ran in bf16; returns (all launches, fp32 launches)."""
@@ -2842,9 +2975,12 @@ def phase_sd1_fp32(card):
     hook.remove()
     err = rel_l2(latents[0], latents[1])
     diff = int(np.abs(images.astype(np.int16) - want).max())
+    busy, fwd, split = fp32_fwd_share(lambda: sd(prompt, seed=21))
     print(f"fp32 SD1 (SD1Models default dtype), 512^2, 10 k-LMS steps, CFG "
           f"7.5: {secs:.3f} s/image through the fp32 kernels, {plain_secs:.3f} "
-          f"s through plain attention, peak {peak:.2f} GiB; fp32 launches "
+          f"s through plain attention, peak {peak:.2f} GiB; one profiled "
+          f"request: device busy {busy:.2f} ms, K1 fp32 {fwd:.2f} ms of it "
+          f"(split pre-pass {split:.2f} ms); fp32 launches "
           f"{fp32}; final latents rel L2 {err:.3e} (tol {E2E_FP32_TOL}), "
           f"images differ by at most {diff} levels (tol 1) [{card}]",
           flush=True)
@@ -2898,11 +3034,15 @@ def phase_sd3_fp32(card):
     hook.remove()
     err = rel_l2(latents[0], latents[1])
     diff = int(np.abs(images.astype(np.int16) - want).max())
+    busy, fwd, split = fp32_fwd_share(request)
     print(f"fp32 SD3 (SD3Models default dtype), depth {SD3_DEPTH}, {held:.2f} "
           f"GiB of fp32 weights (set-up {t - t0:.1f} s), 1024^2, {steps} "
           f"flow-Euler steps, CFG 5: {secs:.3f} s/image through the fp32 "
           f"kernels (cold), {plain_secs:.3f} s through plain attention, peak "
-          f"{peak:.2f} GiB; fp32 launches {fp32}; final latents rel L2 "
+          f"{peak:.2f} GiB; one profiled request: device busy {busy:.2f} ms, "
+          f"K5 + K1 fp32 {fwd:.2f} ms of it ({100 * fwd / busy:.1f} %; split "
+          f"pre-pass {split:.2f} ms); fp32 launches {fp32}; final latents rel "
+          f"L2 "
           f"{err:.3e} (tol {E2E_FP32_TOL}), images differ by at most {diff} "
           f"levels (tol 1) [{card}]", flush=True)
     check(images.shape == (1, 1024, 1024, 3) and float(images.std()) > 0,
@@ -3119,9 +3259,11 @@ def main():
     def entry(name, src, replaces, k, **kw):
         r = kernels[k]
         if k in kernels_fp32:   # the fp32 form: its source, records, launches
+            fwd = k in ("K1", "K5")
             kw.update(
-                fp32_source=pkg + ("fp32/flash_f32_fwd.cu" if k in ("K1", "K5")
+                fp32_source=pkg + ("fp32/flash_f32_fwd.cu" if fwd
                                    else "fp32/flash_f32_bwd.cu"),
+                fp32_design=FP32_FWD_DESIGN if fwd else FP32_ROUTE,
                 fp32=kernels_fp32[k],
                 fp32_launches_by_path={p: n[k]
                                        for p, n in fp32_by_path.items()})
@@ -3155,6 +3297,18 @@ def main():
                 check(r == ({"sm90": run[k]} if run[k] else {}),
                       f"{p}: {k}'s bf16 launches did not all take the sm90 "
                       f"kernel: {r}")
+    # the bf16 training paths: every K3 / K4 launch on its sm90 kernel
+    for p, run in zip(paths, runs):
+        if p in ("training", "vlm_training"):
+            for k in ("K3", "K4"):
+                r = getattr(run, k.lower() + "_routes")
+                check(r == {"sm90": run[k]} and run[k] > 0,
+                      f"{p}: {k}'s bf16 launches did not all take the sm90 "
+                      f"kernel: {r}")
+    print("K3 / K4 launches by kernel: " + "; ".join(
+        f"{p} K3 {run.k3_routes} K4 {run.k4_routes}"
+        for p, run in zip(paths, runs) if run["K3"] or run["K4"]),
+        flush=True)
     print("K5 / K7 launches by kernel: " + "; ".join(
         f"{p} K5 {run.k5_routes} K7 {run.k7_routes}"
         for p, run in zip(paths, runs) if run["K5"] or run["K7"]),
@@ -3193,9 +3347,20 @@ def main():
         entry("group_norm_silu", "groupnorm.cu", "groupnorm_pallas.py:29",
               "K2", timed_at="(2,64,64,320) + SiLU",
               library="F.group_norm + F.silu"),
-        entry("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+        entry("flash_attention_bwd_dq", "flash_attention_dq_sm90.cu",
               "flash_attention.py:682", "K3", plain_computes=together,
               library_computes=together,
+              design=("bf16 at head dims 64 and 128 in every form: one block "
+                      "of 3 warpgroups per 128 queries, a producer issuing "
+                      "TMA (Q and dO once, K and V tiles of 64 keys in a "
+                      "2-stage mbarrier ring, the bias tile staged by "
+                      "cp.async) and two consumers of 64 queries with their "
+                      "lse and delta in registers computing S = QK^T and "
+                      "dP = dOV^T (wgmma m64n64k16 SS), P and dS in "
+                      "registers, dS the RS A operand of dQ += dS K with K "
+                      "read MN-major from the same tile; dQ in registers "
+                      "until the end"),
+              sm90=by_route("sm90", "k3"),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
               forms=forms_of("K3")),

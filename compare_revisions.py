@@ -10,7 +10,7 @@ times, in the order A, B, B, A, each in a fresh process that imports and
 builds that checkout's package but takes its cases, timers and phases from
 the ``chip_smoke.py`` beside this file, so that both checkouts are measured
 alike. Each run's output is printed with its label; then, for every number,
-both of A's and both of B's values.
+both of A's and both of B's values, the device times first.
 
 Parts, all of them unless ``--only`` names some:
   - launch: K1's host path at small shapes (``chip_smoke.k1_launch_path``:
@@ -37,7 +37,14 @@ Parts, all of them unless ``--only`` names some:
     per call, device-busy ms of one profiled call and K1's part of it;
   - sd3: an SD3-medium request (1024², 50 steps, CFG 5), wall s of the
     second of two, and of a third under the profiler its device-busy ms,
-    K5's device ms and the idle share (1 - busy / the second's wall).
+    K5's device ms and the idle share (1 - busy / the second's wall);
+  - fp32: the fp32 forward (K1 and K5 on fp32 tensors) at the shapes of
+    ``chip_smoke.FP32_CASES`` and ``FP32_POS_SHAPES``, wall ms and device
+    ms per call (its flash kernels and its split pre-pass, together and the
+    pre-pass alone; ``chip_smoke.fp32_fwd_device_ms``), and one fp32 SD1
+    request (``SD1Models`` at fp32, 512², 10 k-LMS steps, CFG 7.5): wall s
+    of the second of two, device-busy ms of a third under the profiler and
+    the fp32 forward's part of it.
 Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -52,8 +59,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PARTS = ("launch", "kernels", "training", "vlm", "mmdit", "sd1", "t5",
-         "sd3")
+         "sd3", "fp32")
 K1 = "K1 flash fwd"
+# K5's fp32 shapes of the SD3 joint attention (K1's: chip_smoke.FP32_CASES)
+FP32_POS_SHAPES = [(2, 24, 4096, 4096, 64), (2, 24, 4096, 154, 64)]
 
 
 def _chip_smoke():
@@ -161,6 +170,69 @@ def _other_kernels(cs, out, rnd):
                lambda: fa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, z,
                                                  z))
     del fused, stats
+    torch.cuda.empty_cache()
+
+
+def _fp32_timed(cs, out, key, call):
+    """Wall ms and the fp32 forward's device ms per call (its flash kernels
+    and split pre-pass together, and the pre-pass alone)."""
+    out[key + " wall ms"] = cs.cuda_ms(call, 5, 1)
+    dev = cs.fp32_fwd_device_ms(call)
+    fwd, split = dev["device_ms"], dev["split_device_ms"]
+    out[key + " device ms"] = None if fwd is None else fwd + (split or 0.0)
+    out[key + " split pre-pass device ms"] = split
+
+
+def _fp32(cs, out):
+    import gc
+
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        SD1Generator, SD1Models)
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    for (b, h, lq, lk, d), causal, _ in cs.FP32_CASES:
+        q, k, v = (t.reshape(b, lq, h, d).transpose(1, 2)
+                   for t in rnd(b, lq, 3 * h * d).chunk(3, -1))
+        _fp32_timed(cs, out, f"K1 fp32 {'causal' if causal else 'none'} "
+                    f"{(b, h, lq, lk, d)}",
+                    lambda: fa.flash_attention_cuda(q, k, v, causal=causal))
+        del q, k, v
+        torch.cuda.empty_cache()
+    z = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for b, h, lq, lk, d in FP32_POS_SHAPES:
+        q = rnd(b, lq, h * d).reshape(b, lq, h, d).transpose(1, 2)
+        k, v = (t.reshape(b, lk, h, d).transpose(1, 2)
+                for t in rnd(b, lk, 2 * h * d).chunk(2, -1))
+        for st in ("online", "bounded"):
+            _fp32_timed(cs, out, f"K5 fp32 {st} {(b, h, lq, lk, d)}",
+                        lambda: fa.flash_attention_pos_cuda(q, k, v, z, z,
+                                                            stability=st))
+        del q, k, v
+    models = SD1Models.initialize(torch.Generator(device="cuda").manual_seed(
+        0), "cuda", "fp32")
+    sd = SD1Generator(models, sampler="k_lms", n_inference_steps=10,
+                      cfg_scale=7.5, height=512, width=512)
+    prompt = ["a lighthouse at dusk"]
+
+    def request(seed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sd(prompt, seed=seed)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    request(1)
+    out["fp32 SD1 10 steps s/request"] = request(2)
+    busy, fwd, split = cs.fp32_fwd_share(lambda: sd(prompt, seed=3))
+    out["fp32 SD1 10 steps device busy ms"] = busy
+    out["fp32 SD1 10 steps K1 fp32 device ms"] = fwd
+    out["fp32 SD1 10 steps split pre-pass device ms"] = split
+    del sd, models
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -285,6 +357,8 @@ def measure(parts):
         _sd1(cs, out)
     if "t5" in parts or "sd3" in parts:
         _sd3_bundle(cs, out, parts)
+    if "fp32" in parts:
+        _fp32(cs, out)
     print(json.dumps(out), flush=True)
 
 
@@ -313,6 +387,7 @@ def main(argv):
                      f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
         runs.append((label, json.loads(lines[-1])))
     keys = [k for k in runs[0][1] if k not in ("card", "package")]
+    keys.sort(key=lambda k: "device" not in k)   # device times first
     print(f"A = {dirs['A']}, B = {dirs['B']}; runs in the order A B B A on "
           f"{runs[0][1]['card']}")
     fmt = lambda xs: " / ".join("-" if x is None else f"{x:.4f}" for x in xs)

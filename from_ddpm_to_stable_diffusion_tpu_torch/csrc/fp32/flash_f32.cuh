@@ -1,14 +1,15 @@
-// Shared by the fp32 forms of the flash kernels (forward, dq, dk/dv): every
+// Shared by the fp32 forms of the flash backward kernels (dq, dk/dv): every
 // product is fp32 fused multiply-adds on the CUDA cores with fp32
 // accumulation, so nothing is rounded to bf16 or TF32 anywhere. This is the
 // form the Pallas kernels take on fp32 inputs (Precision.HIGHEST on every dot:
 // from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py, _dot_precision).
+// The fp32 forward runs on the tensor cores instead (flash_f32_fwd.cu).
 //
 // One block has 256 threads laid out as 16 x 16: ty = tid / 16, tx = tid % 16
 // (a warp holds two ty and all sixteen tx). Two register-tiled products carry
 // every kernel:
 //   dot_tiles   s[i][j] += X[ty + 16 i] . Y[tx + 16 j]      (Q K^T, dO V^T)
-//   accum_tiles acc[i][c] += sum_k A[ty + 16 i][k] B[k][dim(c)]  (P V, dS K,
+//   accum_tiles acc[i][c] += sum_k A[ty + 16 i][k] B[k][dim(c)]  (dS K,
 //                                                        P^T dO, dS^T Q)
 // Rows and columns are interleaved by 16 and shared rows are D + 4 floats
 // long (an odd multiple of 4), so the 16-byte loads of a half warp fall into
@@ -17,9 +18,9 @@
 // Masks: none, or the position masks of pos_tile.cuh (two offset segments
 // per side, valid_len, causal on positions, the ragged key tail). The causal
 // form of the plain flash kernels (col <= row from index 0) is the position
-// mask with offsets 0 and one span, so K1 / K3 / K4 causal and K5 / K6 / K7
-// share the masked instantiations. A masked probability is selected to 0; a
-// row that sees no key gives out = 0, lse = -1e30 and zero gradients.
+// mask with offsets 0 and one span, so K3 / K4 causal and K6 / K7 share the
+// masked instantiations. A masked probability is selected to 0; a row that
+// sees no key (lse = -1e30) gets zero gradients.
 
 #pragma once
 
@@ -36,12 +37,11 @@ struct Params {
   const float* q;
   const float* k;
   const float* v;
-  const float* g;       // dO (backward)
-  const float* lse_in;  // (B, H, Lq) fp32 (backward)
-  const float* delta;   // (B, H, Lq) fp32 (backward)
-  float* o0;            // out (forward), dq, or dk
+  const float* g;       // dO
+  const float* lse_in;  // (B, H, Lq) fp32
+  const float* delta;   // (B, H, Lq) fp32
+  float* o0;            // dq, or dk
   float* o1;            // dv
-  float* lse;           // (B, H, Lq) fp32 (forward)
   const int* q_off;     // int32[2] in device memory, or null: offsets 0
   const int* k_off;
   int H, Lq, Lk, d;
@@ -216,21 +216,6 @@ struct Mask {
     return !p.causal || cp <= rp;
   }
 };
-
-// Max / sum over the 16 lanes that share a row (one ty).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 // Params of a C entry; strides holds n_tensors triples in the order q, k, v,
 // [dO,] outputs.

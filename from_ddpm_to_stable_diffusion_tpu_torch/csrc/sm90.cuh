@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks in raw PTX, for kernels built on TMA and
 // wgmma: mbarriers, named barriers, the 4-D TMA tile load and its host-side
-// tensor map, shared-memory matrix descriptors, wgmma m64nNk16 (bf16 in,
-// fp32 accumulators) in SS and RS form with its fence / commit / wait, the
-// proxy fence that hands shared memory written by threads to wgmma,
-// setmaxnreg, and the producer's staging of a bias tile. Raw PTX rather than
-// CuTe keeps the build to one plain-C translation unit per kernel file.
+// tensor map (bf16 or fp32), shared-memory matrix descriptors, wgmma
+// m64nNk16 (bf16 in, fp32 accumulators) in SS and RS form and m64nNk8 in
+// TF32 (fp32 operands rounded to TF32, both K-major), with its fence /
+// commit / wait, the rounding to TF32, the proxy fence that hands shared
+// memory written by threads to wgmma, setmaxnreg, and the producer's staging
+// of a bias tile. Raw PTX rather than CuTe keeps the build to one plain-C
+// translation unit per kernel file.
 //
 // Shared-memory operand layouts (the wgmma "canonical" layouts, written by
 // TMA with the matching swizzle): a tile of R rows x DP bf16 columns is kept
@@ -20,6 +22,9 @@
 // A tile that threads write themselves for wgmma to read (K-major, 128-byte
 // swizzle) puts the 16-byte unit u of row r at unit u ^ (r % 8) of the row,
 // as TMA would, and is handed over with fence_proxy_async.
+// TF32 operands (4-byte elements) take the same layouts in bytes: a k-step
+// of 8 elements is 32 bytes, W = 32 columns fill a 128-byte swizzle row and
+// W = 8 a 32-byte one; PTX allows TF32 operands K-major only.
 
 #pragma once
 
@@ -159,20 +164,27 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #define FDSD_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define FDSD_F8(i) FDSD_F4(i), FDSD_F4(i + 4)
 #define FDSD_F16 FDSD_F8(0), FDSD_F8(8)
+#define FDSD_F20 FDSD_F16, FDSD_F4(16)
 #define FDSD_F24 FDSD_F8(0), FDSD_F8(8), FDSD_F8(16)
 #define FDSD_F32 FDSD_F24, FDSD_F8(24)
+#define FDSD_F36 FDSD_F32, FDSD_F4(32)
 #define FDSD_F40 FDSD_F32, FDSD_F8(32)
 #define FDSD_F64 FDSD_F40, FDSD_F8(40), FDSD_F8(48), FDSD_F8(56)
 #define FDSD_F128                                                          \
   FDSD_F64, FDSD_F8(64), FDSD_F8(72), FDSD_F8(80), FDSD_F8(88), FDSD_F8(96), \
       FDSD_F8(104), FDSD_F8(112), FDSD_F8(120)
 #define FDSD_R16 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}"
+#define FDSD_R20 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19}"
 #define FDSD_R24                                                            \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
   "%20,%21,%22,%23}"
 #define FDSD_R32 \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
   "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}"
+#define FDSD_R36 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
+  "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35}"
 #define FDSD_R40 \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
   "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
@@ -274,17 +286,94 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   }
 }
 
+// x rounded to TF32 (nearest, ties away): the fp32 bit pattern with the low
+// 13 mantissa bits zero, exactly what the tensor cores read of it.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// D(64 x N) (+)= A(64 x 8) B(8 x N) in TF32: A and B K-major in shared
+// memory (every element already a TF32 value). scale_d = 0 overwrites D.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2],
+                                              uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  static_assert(N == 32 || N == 64, "wgmma_tf32_ss: N");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " FDSD_R16
+        ", %16, %17, p, 1, 1;\n}\n"
+        : FDSD_F16
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FDSD_R32
+        ", %32, %33, p, 1, 1;\n}\n"
+        : FDSD_F32
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+}
+
+// D(64 x N) (+)= A(64 x 8) B(8 x N) in TF32: A from registers (each warp's
+// 16 rows: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) with
+// g = lane / 4, t = lane % 4), B K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  static_assert(N == 40 || N == 48 || N == 64 || N == 72 || N == 80 ||
+                    N == 128,
+                "wgmma_tf32_rs: N");
+// SHAPE, the accumulators' list and constraints, then the operand numbers
+// of the setp (scale_d) and of a[0..3] and desc_b, as one string each.
+#define FDSD_TF32_RS(SHAPE, R, F, P, OPS)                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                \
+               "wgmma.mma_async.sync.aligned." SHAPE ".f32.tf32.tf32 " R      \
+               ", " OPS ", p, 1, 1;\n}\n"                                     \
+               : F                                                           \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),    \
+                 "r"(scale_d))
+  if constexpr (N == 40) {
+    FDSD_TF32_RS("m64n40k8", FDSD_R20, FDSD_F20, "%25",
+                 "{%20,%21,%22,%23}, %24");
+  } else if constexpr (N == 48) {
+    FDSD_TF32_RS("m64n48k8", FDSD_R24, FDSD_F24, "%29",
+                 "{%24,%25,%26,%27}, %28");
+  } else if constexpr (N == 64) {
+    FDSD_TF32_RS("m64n64k8", FDSD_R32, FDSD_F32, "%37",
+                 "{%32,%33,%34,%35}, %36");
+  } else if constexpr (N == 72) {
+    FDSD_TF32_RS("m64n72k8", FDSD_R36, FDSD_F36, "%41",
+                 "{%36,%37,%38,%39}, %40");
+  } else if constexpr (N == 80) {
+    FDSD_TF32_RS("m64n80k8", FDSD_R40, FDSD_F40, "%45",
+                 "{%40,%41,%42,%43}, %44");
+  } else {
+    FDSD_TF32_RS("m64n128k8", FDSD_R64, FDSD_F64, "%69",
+                 "{%64,%65,%66,%67}, %68");
+  }
+#undef FDSD_TF32_RS
+}
+
 #undef FDSD_F4
 #undef FDSD_F8
 #undef FDSD_F16
+#undef FDSD_F20
 #undef FDSD_F24
 #undef FDSD_F32
+#undef FDSD_F36
 #undef FDSD_F40
 #undef FDSD_F64
 #undef FDSD_F128
 #undef FDSD_R16
+#undef FDSD_R20
 #undef FDSD_R24
 #undef FDSD_R32
+#undef FDSD_R36
 #undef FDSD_R40
 #undef FDSD_R64
 #undef FDSD_R128
@@ -326,13 +415,14 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
 // arrival on `full`. Where the key axis is contiguous and rows start on 16
 // bytes: 16-byte cp.async copies (zero-filled past the ends), which hold no
 // registers, so a thread keeps all of its share of the tile in flight; else
-// one element at a time (thread tid: column tid of every row).
+// one element at a time (thread tid: column tid % COLS of every
+// (128 / COLS)-th row from tid / COLS).
 template <int ROWS, int COLS, typename T>
 __device__ __forceinline__ void stage_bias(T* tile, const MaskArgs& m,
                                            long long base, int q0, int k0,
                                            int Lq, int Lk, int tid,
                                            uint32_t full) {
-  static_assert(COLS == 128, "one column per producer thread");
+  static_assert(COLS == 64 || COLS == 128, "128 producer threads");
   constexpr int V = 16 / sizeof(T), kVecs = COLS / V, kRows = 128 / kVecs;
   const T* bias = static_cast<const T*>(m.bias);
   const bool vec =
@@ -352,10 +442,10 @@ __device__ __forceinline__ void stage_bias(T* tile, const MaskArgs& m,
     cp_async_mbar_arrive(full);  // when this thread's copies have landed
     return;
   }
-  const int col = k0 + tid;
+  const int c = tid % COLS, col = k0 + c;
 #pragma unroll 2
-  for (int r = 0; r < ROWS; ++r)
-    tile[bias_at<COLS>(r, tid)] =
+  for (int r = tid / COLS; r < ROWS; r += 128 / COLS)
+    tile[bias_at<COLS>(r, c)] =
         q0 + r < Lq && col < Lk ? bias[base + (q0 + r) * m.bs[2] +
                                        col * m.bs[3]]
                                 : T(0.f);
@@ -390,33 +480,35 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (D, L, H, B) tensor map of a bf16 operand over its (batch, head, seq)
-// element strides (head dim contiguous), box W columns x `rows` rows; rows
-// past L and columns past D read as zeros.
-inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int d, int L,
-                            int H, int B, const long long* st, int W,
-                            int rows, CUtensorMapSwizzle swizzle) {
+// A (D, L, H, B) tensor map of a bf16 (or, with `type` FLOAT32, fp32)
+// operand over its (batch, head, seq) element strides (head dim contiguous),
+// box W columns x `rows` rows; rows past L and columns past D read as zeros.
+inline cudaError_t make_map(
+    CUtensorMap* map, const void* ptr, int d, int L, int H, int B,
+    const long long* st, int W, int rows, CUtensorMapSwizzle swizzle,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
   const long long elem[3] = {st[2], st[1], st[0]};  // seq, head, batch
   cuuint64_t strides[3];
-  cuuint64_t extent = dims[0] * 2;  // bytes spanned by the dims below
+  cuuint64_t extent = dims[0] * size;  // bytes spanned by the dims below
   for (int i = 0; i < 3; ++i) {
     // a dim of size 1 is never stepped: give it a dense stride
     strides[i] = dims[i + 1] == 1 ? extent
-                                  : static_cast<cuuint64_t>(elem[i]) * 2;
+                                  : static_cast<cuuint64_t>(elem[i]) * size;
     extent = strides[i] * dims[i + 1];
   }
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(W),
                              static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
 """Builds the CUDA sources into two shared libraries with ``nvcc`` and loads
 them: ``csrc/*.cu`` (the bf16 flash kernels and GroupNorm) and
-``csrc/fp32/*.cu`` (the fp32 forms of the flash kernels), each at its own
+``csrc/fp32/*.cu`` (the fp32 forms of the flash kernels, whose forward
+includes ``csrc/sm90.cuh`` and ``csrc/pos_tile.cuh``), each at its own
 first use, so that a bf16 caller never waits for the fp32 build.
 
 A library has a plain C interface (no PyTorch headers), so a build takes
@@ -66,18 +67,22 @@ _SIGNATURES = {
                         _I, _I, _I, _P],
 }
 _SIGNATURES_FP32 = {
-    # q, k, v, out, lse, B, H, Lq, Lk, d, strides[12], scale, causal, stream
-    "fdsd_flash_fwd_f32": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, out, lse, work, B, H, Lq, Lk, d, strides[12], scale, causal,
+    # splits, stream
+    "fdsd_flash_fwd_f32": [_P] * 6 + [_I] * 5 + [_P, _F, _I, _I, _P],
+    # the arguments of fdsd_flash_fwd_pos with the workspace after k_off
+    "fdsd_flash_fwd_pos_f32": (_SIGNATURES["fdsd_flash_fwd_pos"][:7] + [_P]
+                               + _SIGNATURES["fdsd_flash_fwd_pos"][7:]),
     # q, k, v, dO, lse, delta, dq, B, H, Lq, Lk, d, strides[15], scale,
     # causal, stream
     "fdsd_flash_bwd_dq_f32": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _P],
     # q, k, v, dO, lse, delta, dk, dv, B, H, Lq, Lk, d, strides[18], scale,
     # causal, stream
     "fdsd_flash_bwd_dkv_f32": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
-    # the position-masked entries take the arguments of their bf16 namesakes
+    # the position-masked backward entries take the arguments of their bf16
+    # namesakes
     **{name + "_f32": _SIGNATURES[name] for name in (
-        "fdsd_flash_fwd_pos", "fdsd_flash_bwd_pos_dq",
-        "fdsd_flash_bwd_pos_dkv")},
+        "fdsd_flash_bwd_pos_dq", "fdsd_flash_bwd_pos_dkv")},
 }
 # library name -> (its sources' directory, its entries)
 _LIBRARIES = {"kernels": (CSRC, _SIGNATURES),

@@ -14,8 +14,9 @@ the input dtype with shape (B, H, Lq, D), ``lse`` fp32 with shape
 (B, H, Lq).
 
 Backward: :func:`flash_attention_backward` launches K3 (dq, the Pallas
-``_bwd_dq_kernel``, ``csrc/flash_attention_bwd.cu``) and K4 (dk with dv, the
-Pallas ``_bwd_dkv_kernel``: in bf16 the TMA / wgmma kernel of
+``_bwd_dq_kernel``: in bf16 the TMA / wgmma kernel of
+``csrc/flash_attention_dq_sm90.cu``, :func:`k3_route`) and K4 (dk with dv,
+the Pallas ``_bwd_dkv_kernel``: in bf16 the TMA / wgmma kernel of
 ``csrc/flash_attention_bwd_sm90.cu``, :func:`k4_route`) on CUDA tensors and
 runs :func:`flash_attention_bwd_plain` on CPU tensors. Both recompute the
 probabilities under the forward's saved lse; delta = Σ dO·out is a plain
@@ -55,16 +56,21 @@ the kernels at head dims 64 and 128. A row that sees no key gives out = 0
 and lse = -1e30, and the backward selects masked probabilities to 0.
 
 Dtypes: every kernel has a bf16 form (tensor cores, ``csrc/*.cu``) and an
-fp32 form (``csrc/fp32/*.cu``: every product in fp32 FMAs with fp32
-accumulation, out, lse and the gradients fp32, nothing rounded to a narrower
-type, as the Pallas kernels ask for ``Precision.HIGHEST`` on fp32 inputs).
-The fp32 forms are a shared library of their own, built when an fp32 launch
-first asks for it. They cover the head dims the port's fp32 defaults reach
-(``_FP32_*`` below), without a mask or causal; with a bias or segment ids,
-or at another head dim, an fp32 CUDA tensor raises ``NotImplementedError``.
-Each wrapper counts its launches by dtype in ``.dtypes`` beside
-``.launches``; K1, K4, K5 and K7, which run more than one kernel, also by
-kernel in ``.routes``.
+fp32 form (``csrc/fp32/*.cu``; out, lse and the gradients fp32, as the
+Pallas kernels ask for ``Precision.HIGHEST`` on fp32 inputs). The fp32
+forward (K1, K5) runs on the tensor cores with a three-term TF32 split
+(every operand x as tf32(x) + tf32(x - tf32(x)), three wgmma passes per
+product, ``_F32_PASSES``), after a pre-pass that writes the terms, v
+transposed, into a workspace the wrapper allocates
+(:func:`f32_forward_work`); the fp32 backward is fp32 FMAs on the CUDA
+cores. Nothing is rounded below fp32's precision but the split's own
+~2^-22. The fp32 forms are a shared library of their own, built when an
+fp32 launch first asks for it. They cover the head dims the port's fp32
+defaults reach (``_FP32_*`` below), without a mask or causal; with a bias
+or segment ids, or at another head dim, an fp32 CUDA tensor raises
+``NotImplementedError``. Each wrapper counts its launches by dtype in
+``.dtypes`` beside ``.launches``; K1, K3, K4, K5 and K7, which run more
+than one kernel, also by kernel in ``.routes``.
 """
 
 from __future__ import annotations
@@ -93,12 +99,15 @@ _FP32_BWD_HEAD_DIMS = (64, 128)
 _FP32_CAUSAL_HEAD_DIMS = (64,)
 _FP32_POS_HEAD_DIMS = (64,)
 NEG_INF = -1e30   # lse of a row with no visible key
-# (query tile, key tile) of K1 (the sm90 kernel), K3 and K4 (the sm90
-# kernel): the sizes the segment-id tile bounds and ranges handed to each
-# kernel are built at
-_FWD_TILES, _DQ_TILES, _DKV_TILES = (128, 128), (64, 32), (64, 128)
-# K1 at head dim 512: 64-query blocks, 64-key tiles, at most 4 key splits
+# (query tile, key tile) of K1, K3 and K4 (the sm90 kernels): the sizes the
+# segment-id tile bounds and ranges handed to each kernel are built at
+_FWD_TILES, _DQ_TILES, _DKV_TILES = (128, 128), (128, 64), (64, 128)
+# K1 at head dim 512 (bf16 and fp32): 64-query blocks, 64-key tiles, at most
+# 4 key splits
 _D512_TILE, _D512_MAX_SPLITS = 64, 4
+# The fp32 forward (csrc/fp32/flash_f32_fwd.cu): TF32 passes per product, and
+# the group of keys v's transposed terms are padded to (and permuted within)
+_F32_PASSES, _F32_KEY_GROUP = 3, 8
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -429,16 +438,6 @@ def _check_fp32_form(fn, d, causal, bias, segments) -> None:
             f"{_FP32_CAUSAL_HEAD_DIMS}; pass bf16 q, k, v at head dim {d}")
 
 
-def _fp32_masks(q, fn, bias, segment_ids, causal) -> bool:
-    """Is this an fp32 launch? Raises for the forms that exist in bf16
-    only."""
-    if q.dtype != torch.float32:
-        return False
-    _check_fp32_form(fn, q.shape[-1], causal, bias is not None,
-                     segment_ids is not None)
-    return True
-
-
 def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
@@ -449,7 +448,8 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
     "sm90" (``csrc/flash_attention_sm90.cu``, TMA and wgmma: bf16 at every
     head dim but 512, every mask form at 64 and 128), "d512" (the TMA /
     wgmma kernel of ``csrc/flash_attention.cu``, bf16 at 512 without a mask)
-    or "fp32" (``csrc/fp32/flash_f32_fwd.cu``). Raises
+    or "fp32" (``csrc/fp32/flash_f32_fwd.cu``: TMA and TF32 wgmma, three
+    passes; at 512 with the keys split as :func:`k1_d512_splits` says). Raises
     ``NotImplementedError`` naming what the kernels take for any other."""
     fn = "flash_attention_cuda"
     if dtype not in (torch.bfloat16, torch.float32):
@@ -470,14 +470,11 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
     return "d512" if d == 512 else "sm90"
 
 
-def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
-             segments: bool = False) -> str:
-    """Which K4 kernel a CUDA launch of this dtype, head dim and form runs:
-    "sm90" (``csrc/flash_attention_bwd_sm90.cu``, TMA and wgmma: bf16 at head
-    dims 64 and 128 in every form) or "fp32" (``csrc/fp32/flash_f32_bwd.cu``:
-    64 and 128 without a mask, causal at 64). Raises
-    ``NotImplementedError`` naming what the kernels take for any other."""
-    fn = "flash_attention_bwd_dkv_cuda"
+def _bwd_route(fn, dtype, d: int, causal: bool, bias: bool,
+               segments: bool) -> str:
+    """The route of K3 or K4: "sm90" for bf16 at head dims 64 and 128 in every
+    form, "fp32" for fp32 at 64 and 128 without a mask or causal at 64;
+    raises for anything else."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the flash kernels take bf16 or fp32, not {dtype}")
     if dtype == torch.float32:
@@ -491,6 +488,28 @@ def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
         raise NotImplementedError(f"head dim {d}: {fn} takes "
                                   f"{_BWD_HEAD_DIMS}")
     return "sm90"
+
+
+def k3_route(dtype, d: int, causal: bool = False, bias: bool = False,
+             segments: bool = False) -> str:
+    """Which K3 kernel a CUDA launch of this dtype, head dim and form runs:
+    "sm90" (``csrc/flash_attention_dq_sm90.cu``, TMA and wgmma: bf16 at head
+    dims 64 and 128 in every form) or "fp32" (``csrc/fp32/flash_f32_bwd.cu``:
+    64 and 128 without a mask, causal at 64). Raises
+    ``NotImplementedError`` naming what the kernels take for any other."""
+    return _bwd_route("flash_attention_bwd_dq_cuda", dtype, d, causal, bias,
+                      segments)
+
+
+def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
+             segments: bool = False) -> str:
+    """Which K4 kernel a CUDA launch of this dtype, head dim and form runs:
+    "sm90" (``csrc/flash_attention_bwd_sm90.cu``, TMA and wgmma: bf16 at head
+    dims 64 and 128 in every form) or "fp32" (``csrc/fp32/flash_f32_bwd.cu``:
+    64 and 128 without a mask, causal at 64). Raises
+    ``NotImplementedError`` naming what the kernels take for any other."""
+    return _bwd_route("flash_attention_bwd_dkv_cuda", dtype, d, causal, bias,
+                      segments)
 
 
 def _pos_route(fn, dtype, d: int) -> str:
@@ -519,8 +538,8 @@ def k5_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
     (the form: causal, a ``valid_len``, two segments on a side, the bounded
     softmax): "sm90" (the position-mask form of
     ``csrc/flash_attention_sm90.cu``, TMA and wgmma: bf16 at head dims 64 and
-    128 in every form) or "fp32" (``csrc/fp32/flash_f32_fwd.cu``: 64 in
-    every form). Raises ``NotImplementedError`` naming what the kernels take
+    128 in every form) or "fp32" (``csrc/fp32/flash_f32_fwd.cu``, TMA and
+    TF32 wgmma, three passes: 64 in every form). Raises ``NotImplementedError`` naming what the kernels take
     for any other."""
     return _pos_route("flash_attention_pos_cuda", dtype, d)
 
@@ -537,13 +556,32 @@ def k7_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
 
 def k1_d512_splits(b: int, h: int, lq: int, lk: int, n_sm: int) -> int:
     """How many blocks share the keys of one 64-query tile in the d = 512
-    kernel: 1 when the B·H·⌈Lq/64⌉ query tiles fill the ``n_sm`` SMs, else as
+    kernels (bf16 and fp32): 1 when the B·H·⌈Lq/64⌉ query tiles fill the ``n_sm`` SMs, else as
     many as fit beside them (at most 4, at most one per 64-key tile), so
     that no split is left without a key tile."""
     tiles = b * h * _cdiv(lq, _D512_TILE)
     n_kt = _cdiv(lk, _D512_TILE)
     want = max(1, min(_D512_MAX_SPLITS, n_sm // tiles, n_kt))
     return _cdiv(n_kt, _cdiv(n_kt, want))
+
+
+def f32_forward_work(b: int, h: int, lq: int, lk: int, d: int,
+                     splits: int = 1) -> int:
+    """Floats of the fp32 forward's workspace: the hi / lo terms of q
+    (2, B, H, Lq, d), k (2, B, H, Lk, d) and v transposed (2, B, H, d, Lk8),
+    Lk8 = Lk rounded up to ``_F32_KEY_GROUP``; at d = 512 with key splits
+    also the partial outputs and lse (splits, B·H·Lq, 513)."""
+    lk8 = _cdiv(lk, _F32_KEY_GROUP) * _F32_KEY_GROUP
+    n = 2 * b * h * d * (lq + lk + lk8)
+    if d == 512 and splits > 1:
+        n += splits * b * h * lq * 513
+    return n
+
+
+def _f32_work(q, lk, splits=1):
+    b, h, lq, d = q.shape
+    return torch.empty(f32_forward_work(b, h, lq, lk, d, splits),
+                       device=q.device, dtype=torch.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -574,11 +612,14 @@ def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
         out = _blhd(q, lq)
         lse = _lse_like(q)
         strides = _strides(q, k, v, out)
+        splits = (k1_d512_splits(b, h, lq, lk, _sm_count(q.device))
+                  if d == 512 else 1)
+        work = _f32_work(q, lk, splits)
         err = _build.load("kernels_fp32").fdsd_flash_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, lq, lk, d,
+            lse.data_ptr(), work.data_ptr(), b, h, lq, lk, d,
             ctypes.cast(strides, ctypes.c_void_p), float(scale),
-            int(bool(causal)), _stream(q))
+            int(bool(causal)), splits, _stream(q))
         _build.check(err, "fdsd_flash_fwd_f32")
         _count_launch(flash_attention_cuda, q, causal=causal, route=route)
         return out, lse
@@ -644,7 +685,7 @@ def _check_bwd(q, k, v, g, lse, delta, head_dims=_BWD_HEAD_DIMS,
                fp32_dims=_FP32_BWD_HEAD_DIMS):
     """(b, h, lq, lk, d) after the checks of :func:`_check_qkv` and those of
     dO, lse and delta; with ``head_dims`` None the caller checks the head
-    dim (K4: :func:`k4_route`)."""
+    dim (K3, K4: :func:`k3_route`, :func:`k4_route`)."""
     dims = _check_qkv(q, k, v, "the flash backward kernels", head_dims,
                       fp32_dims)
     _check_operand("dO", g, q)
@@ -661,17 +702,20 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
                                 scale: Optional[float] = None, *, bias=None,
                                 segment_ids=None, causal: bool = False,
                                 need_dbias: bool = False):
-    """K3: dq from bf16 CUDA q, k, v, dO (= ``g``) and fp32 (B, H, Lq)
-    ``lse`` and ``delta`` = Σ_d dO·out, under the masks of the forward.
+    """K3: dq from bf16 or fp32 CUDA q, k, v, dO (= ``g``) and fp32
+    (B, H, Lq) ``lse`` and ``delta`` = Σ_d dO·out, under the masks of the
+    forward. Which kernel runs: :func:`k3_route`; launches are counted by
+    route in ``.routes``.
     With ``need_dbias`` returns (dq, dS): the kernel also writes dS = the
     bias's gradient before any reduction, fp32 (B, H, Lq, Lk), every tile
     once and zeros where it skips one."""
-    b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta)
+    b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta, head_dims=None)
+    route = k3_route(q.dtype, d, bool(causal), bias is not None,
+                     segment_ids is not None)
     scale = d ** -0.5 if scale is None else scale
     if need_dbias and bias is None:
         raise ValueError("need_dbias without a bias")
-    if _fp32_masks(q, "flash_attention_bwd_dq_cuda", bias, segment_ids,
-                   causal):
+    if route == "fp32":
         dq = _blhd(q, lq)
         strides = _strides(q, k, v, g, dq)
         err = _build.load("kernels_fp32").fdsd_flash_bwd_dq_f32(
@@ -680,8 +724,10 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
             ctypes.cast(strides, ctypes.c_void_p), float(scale),
             int(bool(causal)), _stream(q))
         _build.check(err, "fdsd_flash_bwd_dq_f32")
-        _count_launch(flash_attention_bwd_dq_cuda, q, causal=causal)
+        _count_launch(flash_attention_bwd_dq_cuda, q, causal=causal,
+                      route=route)
         return dq
+    q, k, v, g = (_tma_operand(x) for x in (q, k, v, g))
     bias, ptrs, flags, _held = _mask_args(
         q, lk, bias, segment_ids, causal, "flash_attention_bwd_dq_cuda",
         _DQ_TILES, "q")
@@ -696,7 +742,8 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
         ctypes.cast(strides, ctypes.c_void_p), float(scale), *flags,
         _stream(q))
     _build.check(err, "fdsd_flash_bwd_dq")
-    _count_launch(flash_attention_bwd_dq_cuda, q, bias, segment_ids, causal)
+    _count_launch(flash_attention_bwd_dq_cuda, q, bias, segment_ids, causal,
+                  route)
     return (dq, ds) if need_dbias else dq
 
 
@@ -745,6 +792,7 @@ flash_attention_bwd_dq_cuda.forms = collections.Counter()
 flash_attention_bwd_dkv_cuda.forms = collections.Counter()
 flash_attention_bwd_dq_cuda.dtypes = collections.Counter()
 flash_attention_bwd_dkv_cuda.dtypes = collections.Counter()
+flash_attention_bwd_dq_cuda.routes = collections.Counter()
 flash_attention_bwd_dkv_cuda.routes = collections.Counter()
 
 
@@ -933,15 +981,19 @@ def flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, *,
     route = k5_route(q.dtype, d, bool(causal), valid_len is not None,
                      seg_q < lq or seg_k < lk, stability == "bounded")
     _check_pos(q, scale, q_offsets, kv_offsets)
+    # the fp32 kernel takes a workspace for its split terms after the offsets
+    work = []
     if route == "sm90":
         q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
+    else:
+        work = [_f32_work(q, lk)]
     out = _blhd(q, lq)
     lse = _lse_like(q)
     strides = _strides(q, k, v, out)
     err = _pos_entry(q, "fdsd_flash_fwd_pos")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), q_offsets.data_ptr(), kv_offsets.data_ptr(), b, h,
-        lq, lk, d, ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
+        lse.data_ptr(), q_offsets.data_ptr(), kv_offsets.data_ptr(),
+        *(w.data_ptr() for w in work), b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
         0 if valid_len is None else int(valid_len), int(valid_len is not None),
         int(bool(causal)), int(stability == "bounded"), _stream(q))
     _build.check(err, "fdsd_flash_fwd_pos")

@@ -1,11 +1,14 @@
-"""K4's dispatch and tiles, and K1's key split at head dim 512, on the CPU.
+"""K3's and K4's dispatch and tiles, the fp32 forward's constants, and K1's
+key split at head dim 512, on the CPU.
 
-Which kernel a CUDA launch of K4 (dk, dv) runs is decided in Python before
-anything reaches the card (``k4_route``): the TMA / wgmma kernel of
+Which kernel a CUDA launch of K3 (dq) or K4 (dk, dv) runs is decided in
+Python before anything reaches the card (``k3_route``, ``k4_route``): the
+TMA / wgmma kernels of ``csrc/flash_attention_dq_sm90.cu`` and
 ``csrc/flash_attention_bwd_sm90.cu`` for bf16 at head dims 64 and 128 in
 every form, the fp32 library for fp32 without a mask or causal at 64; every
 other (dtype, head dim, form) raises before a launch. The segment-id ranges
-the wrapper builds must be at that kernel's tiles. At head dim 512 the host
+the wrapper builds must be at each kernel's tiles, and the workspace the
+wrapper allocates for the fp32 forward must match the source's layout. At head dim 512 the host
 splits the keys of K1 over up to four blocks per 64-query tile when the
 query tiles alone do not fill the card (``k1_d512_splits``). The kernels
 themselves are tested on the card (``tests/test_torch_cuda_kernels.py``).
@@ -29,7 +32,7 @@ FORMS = {  # name -> (causal, bias, segments)
 H100_SMS = 132
 
 
-def _want_k4(dtype, d, form):
+def _want_bwd(dtype, d, form):
     """The route the port's contract gives, or the exception it raises."""
     causal, bias, seg = FORMS[form]
     if d not in (64, 128):
@@ -45,7 +48,7 @@ def _want_k4(dtype, d, form):
 @pytest.mark.parametrize("d", [40, 48, 64, 72, 80, 128, 512])
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
 def test_k4_route_by_dtype_head_dim_and_form(dtype, d, form):
-    want = _want_k4(dtype, d, form)
+    want = _want_bwd(dtype, d, form)
     causal, bias, seg = FORMS[form]
     if want is NotImplementedError:
         with pytest.raises(NotImplementedError) as err:
@@ -54,6 +57,29 @@ def test_k4_route_by_dtype_head_dim_and_form(dtype, d, form):
         assert "take" in str(err.value)
     else:
         assert tfa.k4_route(dtype, d, causal, bias, seg) == want
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("d", [40, 48, 64, 72, 80, 128, 512])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+def test_k3_route_by_dtype_head_dim_and_form(dtype, d, form):
+    want = _want_bwd(dtype, d, form)
+    causal, bias, seg = FORMS[form]
+    if want is NotImplementedError:
+        with pytest.raises(NotImplementedError) as err:
+            tfa.k3_route(dtype, d, causal, bias, seg)
+        assert "take" in str(err.value)
+    else:
+        assert tfa.k3_route(dtype, d, causal, bias, seg) == want
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+def test_k3_route_refuses_other_head_dims_and_dtypes(d):
+    for dtype in (BF16, F32):
+        with pytest.raises(NotImplementedError, match=str(d)):
+            tfa.k3_route(dtype, d)
+    with pytest.raises(TypeError):
+        tfa.k3_route(torch.float16, 64)
 
 
 @pytest.mark.parametrize("d", [32, 96, 256])
@@ -83,6 +109,42 @@ def _source(name):
     return (_build.CSRC / name).read_text()
 
 
+def test_segment_tiles_are_the_sm90_k3_tiles():
+    """The wrapper builds K3's segment-id tile bounds and ranges at the
+    (query tile, key tile) of the kernel it launches."""
+    m = re.search(r"constexpr int kBQ = (\d+), kBK = (\d+)",
+                  _source("flash_attention_dq_sm90.cu"))
+    assert m and tuple(map(int, m.groups())) == tfa._DQ_TILES == (128, 64)
+
+
+def test_fp32_forward_constants_are_the_wrappers():
+    """The passes, the key group of v's transposed terms and the d = 512
+    tiles and splits of csrc/fp32/flash_f32_fwd.cu are what the wrapper
+    assumes when it sizes the workspace and the key splits."""
+    text = _source("fp32/flash_f32_fwd.cu")
+    m = re.search(r"constexpr int kPasses = (\d+);", text)
+    assert m and int(m.group(1)) == tfa._F32_PASSES == 3
+    m = re.search(r"constexpr int kKeyGroup = (\d+);", text)
+    assert m and int(m.group(1)) == tfa._F32_KEY_GROUP
+    m = re.search(r"constexpr int DP = 512, kBQ = (\d+), kBK = (\d+),", text)
+    assert m and tuple(map(int, m.groups())) == (tfa._D512_TILE,) * 2
+    m = re.search(r"constexpr int kMaxSplits = (\d+);", text)
+    assert m and int(m.group(1)) == tfa._D512_MAX_SPLITS
+    # the workspace: three hi / lo pairs, then 513 floats a row per split
+    assert "w.part = w.vt + 2 * w.nv;" in text
+    assert "splits * B * H * Lq * 513" in text
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,splits,want", [
+    (1, 1, 8, 8, 64, 1, 2 * 64 * (8 + 8 + 8)),
+    (2, 3, 5, 9, 40, 1, 2 * 6 * 40 * (5 + 9 + 16)),      # Lk8 = 16
+    (1, 1, 64, 65, 512, 1, 2 * 512 * (64 + 65 + 72)),
+    (1, 1, 64, 65, 512, 2, 2 * 512 * (64 + 65 + 72) + 2 * 64 * 513),
+    (1, 1, 64, 65, 128, 2, 2 * 128 * (64 + 65 + 72)),     # splits: d512 only
+])
+def test_fp32_forward_workspace(b, h, lq, lk, d, splits, want):
+    assert tfa.f32_forward_work(b, h, lq, lk, d, splits) == want
+
 def test_segment_tiles_are_the_sm90_k4_tiles():
     """The wrapper builds K4's segment-id tile bounds and ranges at the
     (query tile, key tile) of the kernel it launches."""
@@ -101,16 +163,31 @@ def test_d512_tiles_are_the_kernels_tiles():
 
 @pytest.mark.parametrize("entry,source", [
     ("fdsd_flash_bwd_dkv", "flash_attention_bwd_sm90.cu"),
-    ("fdsd_flash_bwd_dq", "flash_attention_bwd.cu"),
+    ("fdsd_flash_bwd_dq", "flash_attention_dq_sm90.cu"),
     ("fdsd_flash_fwd_d512", "flash_attention.cu"),
     ("fdsd_flash_fwd", "flash_attention_sm90.cu"),
     ("fdsd_flash_fwd_pos", "flash_attention_sm90.cu"),
     ("fdsd_flash_bwd_pos_dkv", "flash_attention_bwd_sm90.cu"),
-    ("fdsd_flash_bwd_pos_dq", "flash_attention_pos_bwd.cu")])
+    ("fdsd_flash_bwd_pos_dq", "flash_attention_pos_bwd.cu"),
+    ("fdsd_flash_fwd_f32", "fp32/flash_f32_fwd.cu"),
+    ("fdsd_flash_fwd_pos_f32", "fp32/flash_f32_fwd.cu"),
+    ("fdsd_flash_bwd_dq_f32", "fp32/flash_f32_bwd.cu"),
+    ("fdsd_flash_bwd_dkv_f32", "fp32/flash_f32_bwd.cu"),
+    ("fdsd_flash_bwd_pos_dq_f32", "fp32/flash_f32_bwd.cu"),
+    ("fdsd_flash_bwd_pos_dkv_f32", "fp32/flash_f32_bwd.cu")])
 def test_each_entry_is_defined_in_its_kernels_source(entry, source):
-    defined = {src.name for src in _build.CSRC.glob("*.cu")
+    defined = {str(src.relative_to(_build.CSRC))
+               for src in _build.CSRC.rglob("*.cu")
                if f'extern "C" int {entry}(' in src.read_text()}
     assert defined == {source}
+
+
+def test_the_mma_sync_k3_is_gone():
+    """K3 runs on TMA and wgmma only: no source defines the old
+    flash_bwd_dq_kernel, and no bf16 source is left that K3 came from."""
+    assert not (_build.CSRC / "flash_attention_bwd.cu").exists()
+    for src in _build.CSRC.rglob("*.cu"):
+        assert "flash_bwd_dq_kernel(" not in src.read_text(), src.name
 
 
 @pytest.mark.parametrize("b,h,lq,lk,want", [
@@ -138,6 +215,22 @@ def test_d512_key_splits_follow_the_sm_count():
     assert tfa.k1_d512_splits(1, 1, 4096, 4096, 114) == 1
     assert tfa.k1_d512_splits(1, 1, 4096, 4096, 256) == 4
     assert tfa.k1_d512_splits(1, 1, 2048, 4096, 132) == 4
+
+
+def test_cpu_tensors_never_reach_k3():
+    """On CPU tensors the backward runs the plain version and counts no K3
+    launch; the K3 wrapper itself refuses CPU tensors."""
+    q = torch.zeros(1, 1, 64, 64, dtype=BF16)
+    lse = torch.zeros(1, 1, 64)
+    before = (tfa.flash_attention_bwd_dq_cuda.launches,
+              dict(tfa.flash_attention_bwd_dq_cuda.routes))
+    dq, dk, dv = tfa.flash_attention_backward(q, q, q, q, lse, q,
+                                              causal=True)
+    assert dq.shape == q.shape and dq.dtype == BF16
+    assert (tfa.flash_attention_bwd_dq_cuda.launches,
+            dict(tfa.flash_attention_bwd_dq_cuda.routes)) == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_attention_bwd_dq_cuda(q, q, q, q, lse, lse)
 
 
 def test_cpu_tensors_never_reach_k4():

@@ -47,6 +47,12 @@ The fp32 forms of K1, K3 - K7 against the plain fp32 versions (TF32 off):
 out and lse to 1e-4 absolute, each gradient to 1e-4 of its largest
 magnitude; the plain version fed operands rounded once to bf16 must fall
 outside that, so a kernel that rounded an operand would be caught.
+K3 on TMA and wgmma (``csrc/flash_attention_dq_sm90.cu``) as K4 is, at its
+(128, 64) tiles, dbias into a NaN-poisoned pool. The fp32 forward on the
+tensor cores (three-term TF32 split, ``csrc/fp32/flash_f32_fwd.cu``) also
+within 1e-5 of fp64 attention, with the plain version fed operands cut
+once to TF32 (one pass) outside 1e-4, at every head dim, length around its
+tiles, key split at d = 512, and K5's mask cases.
 """
 
 import itertools
@@ -1363,3 +1369,304 @@ def test_fp32_forms_not_ported_raise_with_the_dtype_to_pass(gen):
     with pytest.raises(ValueError, match="multiples of 4"):
         tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 66, **f32)[..., :64],)
                                  * 3)
+
+
+# ------------------------------------------------- K3 on TMA and wgmma
+def _k3_check(q, k, v, g, floor=1e-6, **masks):
+    """K3 alone against the plain backward on K1's outputs; the launch must
+    take the sm90 kernel. With a bias also dbias (dS summed over the bias's
+    broadcast axes) to 2e-2 of its largest magnitude. Returns dq (and the
+    kernel's dS with a bias)."""
+    out, lse = tfa.flash_attention_cuda(q, k, v, **masks)
+    delta = (g.float() * out.float()).sum(-1)
+    routes = tfa.flash_attention_bwd_dq_cuda.routes
+    n = routes["sm90"]
+    need = masks.get("bias") is not None
+    got = tfa.flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta, **masks,
+                                          need_dbias=need)
+    assert routes["sm90"] == n + 1
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g, **masks,
+                                         need_dbias=need)
+    dq = got[0] if need else got
+    pairs = [(dq, want[0])]
+    if need:
+        bias = masks["bias"]
+        pairs.append((tfa._reduce_dbias(got[1], bias), want[3]))
+    for a, w in pairs:
+        assert a.shape == w.shape and bool(torch.isfinite(a).all())
+        a, w = a.float(), w.float()
+        assert (a - w).abs().max().item() <= (2e-2 * w.abs().max().item()
+                                              + floor)
+    assert dq.dtype == torch.bfloat16
+    return got
+
+
+K3_EDGE_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 257)
+
+
+@pytest.mark.parametrize("lk", K3_EDGE_LENGTHS)
+@pytest.mark.parametrize("lq", K3_EDGE_LENGTHS)
+def test_sm90_k3_lengths_around_its_tiles(gen, lq, lk):
+    """Lq around the 128-query tiles and Lk around the 64-key tiles, at head
+    dims 64 and 128, without a mask and causal; where every query sees one
+    key dS is rounding noise of two summation orders (the floor, as for
+    K4)."""
+    for d in (64, 128):
+        q, g = (_randn(gen, 2, 3, lq, d) for _ in range(2))
+        k, v = (_randn(gen, 2, 3, lk, d) for _ in range(2))
+        _k3_check(q, k, v, g, 1e-3 if lk == 1 else 1e-6)
+        _k3_check(q, k, v, g, 1e-3 if 1 in (lq, lk) else 1e-6, causal=True)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k3_reads_fused_projection_slices(gen, d):
+    """q|k|v column slices of one (B, L, 3*H*D) projection and dO a
+    (B, H, L, D) view of (B, L, H*D) memory."""
+    b, l, h = 2, 333, 5
+    q, k, v = (t.reshape(b, l, h, d).transpose(1, 2)
+               for t in _randn(gen, b, l, 3 * h * d).chunk(3, dim=-1))
+    g = _randn(gen, b, l, h * d).reshape(b, l, h, d).transpose(1, 2)
+    _k3_check(q, k, v, g)
+    _k3_check(q, k, v, g, causal=True)
+
+
+@pytest.mark.parametrize("lq,lk", [(512, 512), (200, 333)])
+@pytest.mark.parametrize("bias_bh", [(1, 4), (1, 1), (2, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k3_bias_broadcast_strides_and_dbias(gen, d, dtype, bias_bh, lq,
+                                                  lk):
+    """The bias staged by the producer at (128, 64) tiles: stride 0 over the
+    batch (T5), over both leading axes or over the heads; rows of 333 keys
+    are not 16-byte aligned (element copies); dbias reduced over the same
+    axes."""
+    q, g = (_randn(gen, 2, 4, lq, d) for _ in range(2))
+    k, v = (_randn(gen, 2, 4, lk, d) for _ in range(2))
+    bias = 4.0 * _randn(gen, *bias_bh, lq, lk, dtype=dtype)
+    _k3_check(q, k, v, g, bias=bias, scale=1.0)
+    _k3_check(q, k, v, g, bias=bias, causal=True)
+
+
+@pytest.mark.parametrize("fill", [-1e30, float("-inf"), -1e4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k3_bias_hides_whole_rows_past_a_key_tail(gen, d, dtype, fill):
+    """Rows a bias of -1e30 or -inf hides whole (lse = -1e30 from K1) and
+    rows under a large negative finite bias (lse near -1e4), with 333 keys:
+    the keys past Lk in the last tile are zero rows of K whose logit of 0
+    would give P = exp(-lse) = inf, so they must stay selected away. dq is
+    finite and the plain result, 0 on the hidden rows."""
+    lq, lk = 200, 333
+    q, g = (_randn(gen, 1, 2, lq, d) for _ in range(2))
+    k, v = (_randn(gen, 1, 2, lk, d) for _ in range(2))
+    bias = 4.0 * _randn(gen, 1, 2, lq, lk)
+    bias[:, :, 40:90] = fill + (bias[:, :, 40:90] if fill == -1e4 else 0.0)
+    bias = bias.to(dtype)
+    for causal in (False, True):
+        dq = _k3_check(q, k, v, g, bias=bias, causal=causal)[0]
+        if fill != -1e4:
+            assert not bool(dq[:, :, 40:90].any())
+
+
+@pytest.mark.parametrize("kind", ["tile-aligned", "straddling", "no key"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k3_segments_at_its_tiles(gen, kind, d):
+    """Segment ids at K3's (128, 64) tiles: sequences that fill whole tiles
+    (no per-logit mask), sequences across tile edges, and rows whose id no
+    key has (dq = 0 there); alone, causal, with a bias and with both."""
+    assert tfa._DQ_TILES == (128, 64)
+    b, l = 2, 700
+    idx = torch.arange(l, device="cuda")
+    ids = {"tile-aligned": idx // 256, "straddling": (idx * 7) // l,
+           "no key": idx // 128}[kind].int()[None].expand(b, -1).contiguous()
+    kv_ids = ids if kind != "no key" else torch.where(
+        ids == 2, 9, ids).int().contiguous()
+    q, k, v, g = (_randn(gen, b, 3, l, d) for _ in range(4))
+    bias = _randn(gen, 1, 3, l, l)
+    for causal in (False, True):
+        for with_bias in (False, True):
+            got = _k3_check(q, k, v, g, segment_ids=(ids, kv_ids),
+                            causal=causal, bias=bias if with_bias else None)
+            dq = got[0] if with_bias else got
+            if kind == "no key":
+                assert not bool(dq[:, :, 256:384].any())
+
+
+def test_sm90_k3_writes_every_row_and_dbias_tile(gen, monkeypatch):
+    """dq is handed to the kernel filled with NaN and the allocator's pool
+    is poisoned with NaN before dbias is allocated: every row of dq and
+    every (B, H, Lq, Lk) element of dbias must be written, the tiles K3
+    skips (causal, disjoint segments) as 0."""
+    blhd = tfa._blhd
+    monkeypatch.setattr(tfa, "_blhd", lambda like, n: blhd(like, n).fill_(
+        float("nan")))
+    idx = torch.arange(300, device="cuda")
+    ids = (idx // 100).int()[None]
+    cases = [((1, 2, 300, 300, 64), {}), ((2, 3, 129, 257, 128), {}),
+             ((1, 2, 300, 100, 64), dict(causal=True)),
+             ((1, 2, 300, 300, 128), dict(segment_ids=(ids, ids))),
+             ((1, 2, 300, 300, 64), dict(segment_ids=(ids, ids), causal=True,
+                                         bias=_randn(gen, 1, 2, 300, 300)))]
+    for (b, h, lq, lk, d), masks in cases:
+        q, g = (_randn(gen, b, h, lq, d) for _ in range(2))
+        k, v = (_randn(gen, b, h, lk, d) for _ in range(2))
+        if "bias" in masks:
+            poison = torch.full((b, h, lq, lk), float("nan"), device="cuda")
+            del poison
+        got = _k3_check(q, k, v, g, **masks)
+        if "bias" in masks:
+            ds = got[1]
+            assert bool(torch.isfinite(ds).all())
+            assert not bool(ds[:, :, :100, 100:].any())   # skipped tiles
+
+
+def test_k3_launches_by_route(gen):
+    """bf16 takes the sm90 kernel, fp32 the fp32 library; each launch is
+    counted under its route, and autograd's backward launches K3 once."""
+    routes = tfa.flash_attention_bwd_dq_cuda.routes
+    for dtype, route in ((torch.bfloat16, "sm90"), (torch.float32, "fp32")):
+        q = _randn(gen, 1, 1, 130, 64, dtype=dtype)
+        out, lse = tfa.flash_attention_cuda(q, q, q)
+        delta = (q.float() * out.float()).sum(-1)
+        n = dict(routes)
+        tfa.flash_attention_bwd_dq_cuda(q, q, q, q, lse, delta)
+        assert routes[route] == n.get(route, 0) + 1
+        assert sum(routes.values()) == sum(n.values()) + 1
+    q = _randn(gen, 2, 4, 600, 128).requires_grad_()
+    n = routes["sm90"]
+    tfa.flash_attention(q, q, q, causal=True).sum().backward()
+    assert routes["sm90"] == n + 1
+
+
+# ------------------------ the fp32 forward on the tensor cores (TF32 split)
+F64_ATOL = 1e-5   # the split's error against fp64 attention
+
+
+def _tf32(*xs):
+    """Each operand cut to TF32 once: what a single-pass kernel reads."""
+    return [(x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+            for x in xs]
+
+
+def _f32_fwd_check(q, k, v, **masks):
+    """The fp32 forward within 1e-4 of plain fp32 and 1e-5 of plain fp64;
+    the plain version fed once-truncated TF32 operands outside 1e-4."""
+    routes = tfa.flash_attention_cuda.routes
+    n = routes["fp32"]
+    out, lse = tfa.flash_attention_cuda(q, k, v, **masks)
+    assert routes["fp32"] == n + 1
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, **masks)
+    _f32_close(out, ref, "out")
+    _f32_close(lse, ref_lse, "lse")
+    r64, l64 = tfa.flash_attention_plain(q.double(), k.double(), v.double(),
+                                         **masks)
+    assert (out.double() - r64).abs().max().item() <= F64_ATOL
+    assert (lse.double() - l64).abs().max().item() <= F64_ATOL
+    bad, _ = tfa.flash_attention_plain(*_tf32(q, k, v), **masks)
+    assert (bad - ref).abs().max().item() > F32_ATOL     # one TF32 pass
+    return out, lse
+
+
+@pytest.mark.parametrize("lk", EDGE_LENGTHS)
+@pytest.mark.parametrize("lq", EDGE_LENGTHS)
+@pytest.mark.parametrize("d", [40, 48, 64, 72, 80, 128])
+def test_tf32_forward_lengths_around_its_tiles(gen, d, lq, lk):
+    """Lq around the 128-query tiles and Lk around the key tiles (64 keys
+    at d <= 72, 32 above) and the groups of 8 of v's transposed terms, at
+    every head dim of the d <= 128 kernel."""
+    f32 = dict(dtype=torch.float32)
+    q, k, v = (_randn(gen, 2, 2, n, d, **f32) for n in (lq, lk, lk))
+    if lq == 1 or lk == 1:    # one key or one query: too few sums to fail
+        out, _ = tfa.flash_attention_cuda(q, k, v)
+        _f32_close(out, tfa.flash_attention_plain(q, k, v)[0], "out")
+        return
+    _f32_fwd_check(q, k, v)
+
+
+@pytest.mark.parametrize("lq,lk", [(584, 584), (200, 529), (529, 200),
+                                   (129, 129)])
+def test_tf32_forward_causal(gen, lq, lk):
+    """K1 causal in fp32 (the masked instantiation with offsets 0), Lq and
+    Lk apart: whole key tiles skipped and tiles crossing the diagonal."""
+    f32 = dict(dtype=torch.float32)
+    q, k, v = (_randn(gen, 2, 3, n, 64, **f32) for n in (lq, lk, lk))
+    _f32_fwd_check(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("d", [40, 72, 80, 128])
+def test_tf32_forward_reads_fused_projection_slices(gen, d):
+    """q|k|v column slices of one fp32 (B, L, 3*H*D) projection: the split
+    pre-pass reads them through their strides."""
+    b, l, h = 2, 333, 3
+    q, k, v = (t.reshape(b, l, h, d).transpose(1, 2) for t in _randn(
+        gen, b, l, 3 * h * d, dtype=torch.float32).chunk(3, dim=-1))
+    _f32_fwd_check(q, k, v)
+
+
+@pytest.mark.parametrize("lk", [1, 63, 65, 777, 4097])
+@pytest.mark.parametrize("lq", [1, 64, 4096])
+def test_tf32_d512_lengths_across_its_splits(gen, lq, lk):
+    """K1 at d = 512 in fp32: the key splits the host picks for these
+    lengths, the key tail inside a 64-key tile and across the splits."""
+    f32 = dict(dtype=torch.float32)
+    q, k, v = (_randn(gen, 1, 1, n, 512, **f32) for n in (lq, lk, lk))
+    if lq == 1 or lk == 1:
+        out, _ = tfa.flash_attention_cuda(q, k, v)
+        _f32_close(out, tfa.flash_attention_plain(q, k, v)[0], "out")
+        return
+    _f32_fwd_check(q, k, v)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_tf32_d512_each_split_count(gen, monkeypatch, splits):
+    """Each key split count forced at SD1's VAE shape, merged by lse."""
+    monkeypatch.setattr(tfa, "k1_d512_splits", lambda *a: splits)
+    f32 = dict(dtype=torch.float32)
+    q, k, v = (_randn(gen, 1, 1, 1000, 512, **f32) for _ in range(3))
+    _f32_fwd_check(q, k, v)
+
+
+def test_tf32_forward_writes_every_row(gen, monkeypatch):
+    """out and lse handed over filled with NaN: every row written, at each
+    kernel and with a key split."""
+    blhd = tfa._blhd
+    monkeypatch.setattr(tfa, "_blhd", lambda like, n: blhd(like, n).fill_(
+        float("nan")))
+    monkeypatch.setattr(tfa, "_lse_like", lambda q: torch.full(
+        q.shape[:3], float("nan"), device=q.device))
+    f32 = dict(dtype=torch.float32)
+    for (b, h, lq, lk, d), causal in (((2, 2, 300, 257, 40), False),
+                                      ((1, 2, 129, 300, 128), False),
+                                      ((2, 1, 300, 100, 64), True),
+                                      ((1, 1, 1000, 700, 512), False)):
+        q, k, v = (_randn(gen, b, h, n, d, **f32) for n in (lq, lk, lk))
+        _f32_fwd_check(q, k, v, causal=causal)
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+@pytest.mark.parametrize("case", sorted(K5_MASK_CASES))
+def test_tf32_k5_mask_cases(gen, case, stability):
+    """K5 in fp32 on the masked cases of the sm90 K5 at head dim 64: within
+    1e-4 of plain fp32 where a key is seen, out = 0 and lse <= -1e29 where
+    none is, within 1e-5 of fp64."""
+    (b, h, lq, lk), qo, ko, seg_q, seg_k, causal, valid = K5_MASK_CASES[case]
+    f32 = dict(dtype=torch.float32)
+    q, k, v = (_randn(gen, b, h, n, 64, **f32) for n in (lq, lk, lk))
+    kw = dict(causal=causal, valid_len=valid, seg_q=seg_q, seg_k=seg_k,
+              stability=stability)
+    qo, ko = _offsets(*qo), _offsets(*ko)
+    routes = tfa.flash_attention_pos_cuda.routes
+    n = routes["fp32"]
+    out, lse = tfa.flash_attention_pos_cuda(q, k, v, qo, ko, **kw)
+    assert routes["fp32"] == n + 1
+    ref, ref_lse = tfa.flash_attention_pos_plain(q, k, v, qo, ko, **kw)
+    r64, l64 = tfa.flash_attention_pos_plain(q.double(), k.double(),
+                                             v.double(), qo, ko, **kw)
+    seen = ref_lse > -1e29
+    _f32_close(out, ref, "out")
+    assert (out.double() - r64).abs().max().item() <= F64_ATOL
+    assert (lse - ref_lse)[seen].abs().max().item() <= F32_ATOL
+    assert (lse.double() - l64)[seen].abs().max().item() <= F64_ATOL
+    assert not bool(out[~seen].any()) and bool((lse[~seen] <= -1e29).all())
+    if case == "fully masked rows":
+        assert int((~seen).sum()) == 4 * 512

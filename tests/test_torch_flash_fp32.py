@@ -23,6 +23,8 @@ segments and under a global lse
 (64 at 576 / 584 tokens, 128, a 529-token length), and K5 - K7 at them.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -205,18 +207,18 @@ def test_use_flash_true_on_cpu_raises():
 def test_fp32_forms_that_are_not_ported_say_what_to_pass():
     """The bias and segment-id forms, and causal at other head dims, exist in
     bf16 only: an fp32 launch names the entry point and the dtype to pass."""
-    q = torch.zeros(1, 1, 8, 64)
-    ids = torch.zeros(1, 8, dtype=torch.int32)
-    assert tfa._fp32_masks(q, "fn", None, None, False)
-    assert tfa._fp32_masks(q, "fn", None, None, True)
-    assert not tfa._fp32_masks(q.bfloat16(), "fn", q, (ids, ids), True)
-    for kw in (dict(bias=q, segment_ids=None, causal=False),
-               dict(bias=None, segment_ids=(ids, ids), causal=True)):
+    # K3's route makes the checks of its fp32 form (K1's and K4's share
+    # _check_fp32_form with it)
+    assert tfa.k3_route(torch.float32, 64) == "fp32"
+    assert tfa.k3_route(torch.float32, 64, causal=True) == "fp32"
+    assert tfa.k3_route(torch.bfloat16, 64, True, True, True) == "sm90"
+    for kw in (dict(bias=True, segments=False, causal=False),
+               dict(bias=False, segments=True, causal=True)):
         with pytest.raises(NotImplementedError,
-                           match="flash_attention_cuda.*pass bf16"):
-            tfa._fp32_masks(q, "flash_attention_cuda", **kw)
+                           match="flash_attention_bwd_dq_cuda.*pass bf16"):
+            tfa.k3_route(torch.float32, 64, **kw)
     with pytest.raises(NotImplementedError, match="causal=True in fp32"):
-        tfa._fp32_masks(torch.zeros(1, 1, 8, 128), "fn", None, None, True)
+        tfa.k3_route(torch.float32, 128, causal=True)
 
 
 @pytest.mark.parametrize("dtype,vec", [(torch.float32, 4),
@@ -253,10 +255,15 @@ def test_fp32_kernels_are_a_library_of_their_own():
     for name, argtypes in _build._SIGNATURES_FP32.items():
         head = source.split(f'extern "C" int {name}(')[1].split(")")[0]
         assert len(head.split(",")) == len(argtypes), name
-    for name in ("fdsd_flash_fwd_pos", "fdsd_flash_bwd_pos_dq",
+    for name in ("fdsd_flash_bwd_pos_dq",
                  "fdsd_flash_bwd_pos_dkv"):   # one call site serves both
         assert (_build._SIGNATURES[name]
                 == _build._SIGNATURES_FP32[name + "_f32"]), name
+    # the fp32 position-masked forward takes its split terms' workspace
+    # after the offsets
+    pos = _build._SIGNATURES["fdsd_flash_fwd_pos"]
+    assert _build._SIGNATURES_FP32["fdsd_flash_fwd_pos_f32"] == (
+        pos[:7] + [ctypes.c_void_p] + pos[7:])
 
 
 def test_wrappers_count_launches_by_dtype():
