@@ -14,13 +14,16 @@ two summary lines:
    and shared-memory lines; then counts the wgmma (HGMMA) and TMA (UTMALDG,
    UBLKCP) instructions of each K1, K3, K4, K5 and K7 kernel in the bf16
    library's SASS and of each fp32 forward kernel in the fp32 library's
-   (``cuobjdump -sass``) and fails unless all 18 instantiations of the sm90
-   K1 and all 4 of the sm90 K5 (``csrc/flash_attention_sm90.cu``), the
-   d = 512 K1 (``csrc/flash_attention.cu``), all 16 of the sm90 K3
+   (``cuobjdump -sass``) and fails unless all 19 instantiations of the sm90
+   K1 (d = 160 among them) and all 4 of the sm90 K5
+   (``csrc/flash_attention_sm90.cu``), the d = 512 K1
+   (``csrc/flash_attention.cu``), all 16 of the sm90 K3
    (``csrc/flash_attention_dq_sm90.cu``), all 16 of the sm90 K4 and 2 of the
-   sm90 K7 (``csrc/flash_attention_bwd_sm90.cu``), and all 8 of the TF32
-   fp32 forward (K1 at six head dims, K1 causal / K5 online, K5 bounded)
-   and its d = 512 kernel (``csrc/fp32/flash_f32_fwd.cu``) have both.
+   sm90 K7 (``csrc/flash_attention_bwd_sm90.cu``), all 10 of the TF32 fp32
+   forward (K1 at seven head dims, K1 causal / K5 online, K5 bounded, T5's
+   bias) and its d = 512 kernel (``csrc/fp32/flash_f32_fwd.cu``), and the 3
+   + 3 of the TF32 fp32 backward (dq and dk/dv at 64 and 128, masked at 64:
+   ``csrc/fp32/flash_f32_bwd.cu``) have both.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the SD1, tiny-SD and SD3 paths give it, in bf16 (and
    GroupNorm in fp32), with max errors, both times, the least time the card
@@ -28,7 +31,7 @@ two summary lines:
    whichever is larger) and the time of the one PyTorch call that computes
    the same function (a yardstick only; nothing in the port calls it): K1
    flash forward (TMA / wgmma; at d = 512 also with its keys split over 1
-   and 2 blocks per query tile), K2 GroupNorm, K3 / K4 flash backward (dq;
+   and 2 blocks per query tile; at d = 160, SD1 at 768^2), K2 GroupNorm, K3 / K4 flash backward (dq;
    dk and dv, both on TMA / wgmma), K5 (TMA / wgmma)
    position-masked flash forward (the four SD3 shapes, online and bounded,
    each also by its own device time from torch.profiler;
@@ -53,18 +56,18 @@ two summary lines:
    Then K1's host path at small shapes (the wrapper and its C entry alone,
    microseconds per call, beside the kernel's own time); again beside T5.
    Then the fp32 form of K1 and K3 - K7 against the plain fp32 versions (TF32
-   off) at the shapes the fp32 defaults give them: out and lse within 1e-4,
-   each gradient within 1e-4 of its largest magnitude, the plain version fed
-   operands rounded once to bf16 outside that and at least ten times
-   farther off than the kernel; the forward (K1, K5: three-term TF32 split
-   on the tensor cores) also against the plain version fed operands
-   truncated once to TF32 (what a one-pass kernel computes), held to the
-   same two conditions, and against plain attention in fp64 (its error
-   stated, at most 1e-5); with the time of one
-   ``scaled_dot_product_attention`` call on the same fp32 inputs and the
-   bound: the forward's at 3 TF32 passes over 495 TFLOP/s (the 67 TFLOP/s
-   FMA bound beside it), the backward's at the CUDA cores' fp32 rate
-   (67 TFLOP/s), the route it takes.
+   off) at the shapes the fp32 defaults give them (and K1 at d = 160 and
+   with T5's bias): out and lse within 1e-4, each gradient within 1e-4 of
+   its largest magnitude, the plain version fed operands rounded once to
+   bf16 outside that and at least ten times farther off than the kernel;
+   every form (three-term TF32 split on the tensor cores, forward and
+   backward) also against the plain version fed operands truncated once to
+   TF32 (what a one-pass kernel computes), held to the same two
+   conditions, and against plain attention in fp64 (its error stated, at
+   most 1e-5; of each gradient's largest magnitude); with the time of one
+   ``scaled_dot_product_attention`` call on the same fp32 inputs, the
+   kernels' device time (profiler) and split pre-pass, and the bound at 3
+   TF32 passes over 495 TFLOP/s (the 67 TFLOP/s FMA bound beside it).
 4. SD1: full-width SD1 (CLIP, 860M UNet, VAE decoder) with random weights
    from a seed, ``SD1Generator`` at 512x512, 50 k-LMS steps, CFG 7.5: two
    batch-1 requests, then one batch-4 request. Checks the images, the final
@@ -77,9 +80,13 @@ two summary lines:
    (40 steps; the VAE encoder's attention is one K1 launch at head dim 512),
    ``do_cfg=False``, the same ``per_sample_seeds`` entry at batch 1 and
    inside a batch of 4 (equal initial latents, bit for bit), and a weighted
-   prompt through the tokenizer with a synthetic vocabulary. Then SD1 in
-   fp32 (``SD1Models``' default dtype from a JAX tree), 10 steps, through
-   the fp32 kernels against the same request through plain attention.
+   prompt through the tokenizer with a synthetic vocabulary. Then a
+   request at 768x768 (20 k-LMS steps): the UNet's level-2 self-attention
+   runs K1 at head dim 160; s/image, device-busy ms and K1's launches by
+   head dim and kernel. Then SD1 in fp32 (``SD1Models``' default dtype
+   from a JAX tree), 10 steps, through the fp32 kernels against the same
+   request through plain attention, and the fp32 bundle at 768x768 (10
+   steps) the same way as the bf16 one.
 5. SD3: full-width SD3-medium (CLIP-L, CLIP-G, T5-XXL, the depth-24 MMDiT,
    the 16-channel VAE decoder; random weights from a seed, bf16, all
    resident), ``SD3Inferencer.gen_image`` at 1024x1024, 50 flow-Euler
@@ -92,7 +99,9 @@ two summary lines:
    held against the same encoder through plain attention on the card, and
    both are timed (10 calls) with the device-busy time of one call. Then
    (the bf16 bundle freed) SD3-medium in fp32, 28.7 GiB of weights, 4 steps
-   at 1024x1024 through the fp32 kernels against plain attention.
+   at 1024x1024 through the fp32 kernels against plain attention, and its
+   fp32 T5-XXL on (2, 512) tokens through K1's fp32 bias form against plain
+   attention.
 6. training: the tiny-SD ``DDPMTrainer`` at ``TinySDConfig()`` defaults
    (64x64, batch 32, base 128 x [1,2,2,2], 3 classes, dropout 0.1, bf16
    over fp32 parameters, AdamW, clip 1.0, warmup-cosine LR) on
@@ -143,10 +152,10 @@ two summary lines:
    counts are asserted (a run that reached no fp32 kernel fails).
 
 Every kernel's launch count is set to 0 just before each of the SD1, SD1
-generator, SD3, training, sampling, MMDiT training, MMDiT sampling, T5,
-TinyVLM training, TinyVLM decoding and fp32 paths and read just after (before
-the plain-attention run it is compared with), K1's also by the kernel it ran
-(sm90, d512, fp32), K3's, K4's, K5's and K7's by the kernel they ran (sm90,
+generator, SD1 at 768^2, SD3, training, sampling, MMDiT training, MMDiT
+sampling, T5, TinyVLM training, TinyVLM decoding and fp32 paths and read
+just after (before the plain-attention run it is compared with), K1's also
+by the kernel it ran (sm90, d512, fp32) and by head dim, K3's, K4's, K5's and K7's by the kernel they ran (sm90,
 fp32): on every path the launches by kernel add up to the launches, on the
 bf16 SD3 and MMDiT paths every K5 and K7 launch took sm90, and on the bf16
 tiny-SD and TinyVLM training paths every K3 and K4 launch took sm90. The last two
@@ -175,6 +184,12 @@ FAILURES = []
 # + 30 in the VAE decoder.
 K1_PER_REQUEST = 10 * 50 + 1
 K2_PER_REQUEST = 61 * 50 + 30
+# SD1 at 768^2 (96 x 96 latents): the 15 self-attentions of >= 512 tokens
+# per UNet forward are 5 at each level, 9216 tokens at d = 40, 2304 at
+# d = 80 and 576 at d = 160 (the mid block's 144 run plain); + the VAE
+# decoder's mid attention at d = 512.
+SD1_768_STEPS, SD1_768_FP32_STEPS = 20, 10
+SD1_768_PER_STEP = {40: 5, 80: 5, 160: 5}
 # Tiny-SD UNet forward: 6 self-attentions of >= 512 tokens (enc1, dec6,
 # dec7 at 64^2; enc3, dec4, dec5 at 32^2) take K1, and their backward K3
 # and K4; 39 GroupNorms (28 in 14 ResBlocks, 10 TransformerBlock norm_in,
@@ -267,16 +282,17 @@ def phase_build():
                     or "(C75" in line):
                 print("  ptxas:", line.strip().removeprefix("ptxas info    :"))
     sass_check(_build.library_path("kernels"), SM90_KERNELS, BF16_FAMILY)
-    sass_check(_build.library_path("kernels_fp32"), FP32_FWD_KERNELS,
-               FP32_FWD_FAMILY)
+    sass_check(_build.library_path("kernels_fp32"), FP32_KERNELS,
+               FP32_FAMILY)
 
 
-# The sm90 K1 instantiations: 4 padded head dims without a mask, 7 mask
-# forms at head dims 64 and 128; the d = 512 K1; the sm90 K3 and K4: 8 forms
+# The sm90 K1 instantiations: 5 padded head dims (48, 64, 80, 128, 160)
+# without a mask, 7 mask forms at head dims 64 and 128; the d = 512 K1; the
+# sm90 K3 and K4: 8 forms
 # at head dims 64 and 128 each; the sm90 K5: online and bounded at head dims
 # 64 and 128; the sm90 K7: head dims 64 and 128.
 SM90_KERNELS = {  # kind -> (kernel name, instantiations)
-    "K1 sm90": ("flash_fwd_sm90_kernel", 4 + 2 * 7),
+    "K1 sm90": ("flash_fwd_sm90_kernel", 5 + 2 * 7),
     "K1 d512": ("flash_fwd_d512", 1),
     "K3 sm90": ("flash_bwd_dq_sm90_kernel", 2 * 8),
     "K4 sm90": ("flash_bwd_dkv_sm90_kernel", 2 * 8),
@@ -287,13 +303,17 @@ SM90_KERNELS = {  # kind -> (kernel name, instantiations)
 # mma.sync K6, flash_bwd_pos_dq_kernel, is not among them).
 BF16_FAMILY = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv",
                "flash_bwd_dq")
-# The fp32 forward (TF32 split): six head dims without a mask, the masked
-# form online (K1 causal, K5) and bounded (K5); the d = 512 kernel.
-FP32_FWD_KERNELS = {
-    "K1/K5 fp32": ("flash_fwd_f32_kernel", 6 + 2),
+# The fp32 forward (TF32 split): seven head dims without a mask, the masked
+# form online (K1 causal, K5) and bounded (K5), T5's bias form; the d = 512
+# kernel. The fp32 backward (TF32 split): dq and dk/dv at head dims 64 and
+# 128 without a mask and their masked forms at 64 (K3 / K4 causal, K6 / K7).
+FP32_KERNELS = {
+    "K1/K5 fp32": ("flash_fwd_f32_kernel", 7 + 2 + 1),
     "K1 fp32 d512": ("flash_fwd_f32_d512_kernel", 1),
+    "K3/K6 fp32": ("flash_bwd_dq_f32_kernel", 3),
+    "K4/K7 fp32": ("flash_bwd_dkv_f32_kernel", 3),
 }
-FP32_FWD_FAMILY = ("flash_fwd",)
+FP32_FAMILY = ("flash_fwd", "flash_bwd")
 
 
 def sass_check(library, table, family):
@@ -322,7 +342,8 @@ def sass_check(library, table, family):
              for kind, (key, _) in table.items()}
     names = {"K1 sm90": "causal/bias/segments", "K3 sm90":
              "causal/bias/segments", "K4 sm90": "causal/bias/segments",
-             "K5 sm90": "bounded", "K1/K5 fp32": "masked/bounded"}
+             "K5 sm90": "bounded", "K1/K5 fp32": "masked/bounded/bias",
+             "K3/K6 fp32": "masked", "K4/K7 fp32": "masked"}
     for kind, fns in found.items():
         for f, (hgmma, tma) in sorted(fns.items()):
             # template arguments: padded head dim, then the form's flags
@@ -352,6 +373,10 @@ K1_SHAPES = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
              (1, 1, 4096, 4096, 512), (1, 2, 1000, 777, 80),
              (32, 1, 4096, 4096, 128), (32, 2, 1024, 1024, 128),
              (1, 2, 1000, 777, 128), (1, 1, 16384, 16384, 512)]
+# K1 at head dim 160 (SD1's UNet at level 2 from 768^2: 576 tokens, 8 heads
+# of 160, batch 2 with CFG); kept apart from K1_SHAPES, which
+# compare_revisions.py also times on checkouts from before d = 160.
+K1_D160_SHAPE = (2, 8, 576, 576, 160)
 # The mask forms at the TinyVLM step's shapes (the tower's 576 tokens, the
 # decoder's 576 + 8 causal), causal at head dim 128, T5's bias shared over
 # the batch, and packed sequences: (form, (B, H, Lq, Lk, D), masks), where
@@ -415,7 +440,7 @@ def kernel_counters():
 def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
-        for counter in ("forms", "dtypes", "routes"):
+        for counter in ("forms", "dtypes", "routes", "head_dims"):
             if hasattr(fn, counter):
                 getattr(fn, counter).clear()
 
@@ -424,7 +449,8 @@ class Counts(dict):
     """Launches by kernel; ``k1_routes``: K1's launches by the kernel they
     ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32");
     ``k3_routes``, ``k4_routes``, ``k5_routes``, ``k7_routes``: K3's, K4's,
-    K5's and K7's (``.routes`` of their wrappers: "sm90", "fp32")."""
+    K5's and K7's (``.routes`` of their wrappers: "sm90", "fp32");
+    ``k1_head_dims``: K1's launches by head dim."""
 
 
 ROUTED = ("K1", "K3", "K4", "K5", "K7")   # the kernels counted by route
@@ -436,6 +462,7 @@ def read_counts():
     for k in ROUTED:
         setattr(counts, k.lower() + "_routes",
                 dict(getattr(fns[k], "routes", {})))
+    counts.k1_head_dims = dict(getattr(fns["K1"], "head_dims", {}))
     return counts
 
 
@@ -514,13 +541,15 @@ def kernel_device_ms(call, family, n=10):
     return fams[family] / n if family in fams else None
 
 
-def fp32_fwd_device_ms(call, n=3):
-    """The device ms of one fp32 forward ``call()``: its flash kernels
-    (``device_ms``) and its split pre-pass (``split_device_ms``), from one
-    profile of ``n`` calls; None where no window recorded one."""
-    fams = device_families(lambda: [call() for _ in range(n)], F32_FWD)
+def fp32_fwd_device_ms(call, n=3, family=None):
+    """The device ms of one fp32 flash ``call()``: its flash kernels of
+    ``family`` (``device_ms``; the forward's by default) and its split
+    pre-pass (``split_device_ms``), from one profile of ``n`` calls; None
+    where no window recorded one."""
+    family = family or F32_FWD
+    fams = device_families(lambda: [call() for _ in range(n)], family)
     return {key: fams[fam] / n if fam in fams else None
-            for key, fam in (("device_ms", F32_FWD),
+            for key, fam in (("device_ms", family),
                              ("split_device_ms", F32_SPLIT))}
 
 
@@ -604,6 +633,38 @@ def phase_kernels(card):
                                              tail).items():
                 record(name, e.pop("err"), not bwd_reported, **e)
             bwd_reported = True
+
+    # K1 at head dim 160: the SD1 UNet's level-2 self-attention from 768^2
+    # (576 tokens; 2B = 2 with CFG), on the sm90 kernel like the others.
+    b, h, lq, lk, d = K1_D160_SHAPE
+    q, k, v = (t.reshape(b, lq, h, d).transpose(1, 2) for t in
+               rnd(b, lq, 3 * h * d).to(bf16).chunk(3, -1))
+    n0 = fa.flash_attention_cuda.routes["sm90"]
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    check(fa.flash_attention_cuda.routes["sm90"] == n0 + 1,
+          "K1 at d = 160 did not take the sm90 kernel")
+    ref, ref_lse = fa.flash_attention_plain(q, k, v)
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    del ref, ref_lse
+    run = lambda: fa.flash_attention_cuda(q, k, v)
+    times = dict(zip(("bound_ms", "bound_by"), attn_bound(b, h, lq, lk, d)),
+                 ms=cuda_ms(run), device_ms=kernel_device_ms(
+                     run, "K1 flash fwd"),
+                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v),
+                                  5, 1),
+                 library_ms=cuda_ms(lambda: sdpa(q, k, v), 10, 2))
+    line = tail(**{key: times[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    print(f"K1 flash fwd (B,H,Lq,Lk,D)={K1_D160_SHAPE} bf16 (SD1 level 2 at "
+          f"768^2): max|out err|={err:.3e} (atol 2e-2) max|lse err|="
+          f"{lse_err:.3e} (atol 1e-3); {line}; device "
+          f"{fmt_ms(times['device_ms'])}", flush=True)
+    check(err <= 2e-2 and lse_err <= 1e-3,
+          f"K1 disagrees at {K1_D160_SHAPE}: {err} / {lse_err}")
+    results["d160"] = dict(shape=list(K1_D160_SHAPE), max_abs_err=err,
+                           **times)
+    record("K1", err, False)
 
     fp32 = torch.float32
     # The first case is the one reported (SD1 UNet at 64^2); the last two
@@ -1569,8 +1630,9 @@ def phase_t5(card, t5):
 
 
 # The fp32 forward (K1 and K5 in fp32) in the device profiles: its kernels,
-# and the split pre-pass that writes their TF32 terms.
-F32_FWD, F32_SPLIT = "K1/K5 fp32 flash fwd", "K1/K5 fp32 split pre-pass"
+# and the split pre-pass that writes the TF32 terms of the fp32 forward and
+# backward.
+F32_FWD, F32_SPLIT = "K1/K5 fp32 flash fwd", "fp32 split pre-pass"
 
 
 def _family(name: str) -> str:
@@ -2431,18 +2493,44 @@ def phase_vlm_decoding(card, trainer, state):
 # --------------------------------------------------------------------------
 # The fp32 forms of the flash kernels
 # --------------------------------------------------------------------------
-FP32_ROUTE = "fp32 FMA on the CUDA cores"    # the fp32 backward
-FP32_FWD_ROUTE = "TF32 wgmma, three-term split"
+FP32_ROUTE = "TF32 wgmma, three-term split"   # every fp32 flash kernel
 FP32_FWD_DESIGN = (
     "a pre-pass splits q, k and v (transposed, keys permuted within groups "
     "of 8) into TF32 hi / lo terms; then K1's design in TF32: a producer "
     "issuing TMA (Q hi / lo once, K and V^T hi / lo tiles on rings of their "
-    "own), two consumers of 64 query rows running S = QK^T and O += PV as "
-    "three wgmma m64nNk8 TF32 passes each (lo hi + hi lo + hi hi), the "
-    "softmax in fp32 registers and P split in registers as the RS A "
-    "operand; at d = 512 Q, K and V^T stream through three 64 KB slots, two "
-    "consumers split S by keys and own 256 output columns each, P hi / lo "
-    "through shared memory, key splits merged by lse below 132 query tiles")
+    "own), two consumers of 64 query rows (one at d = 160, 64-query blocks) "
+    "running S = QK^T and O += PV as three wgmma m64nNk8 TF32 passes each (lo "
+    "hi + hi lo + hi hi), the softmax in fp32 registers and P split in "
+    "registers as the RS A operand; T5's bias staged by the producer's 128 "
+    "threads (cp.async) and added after the product; at d = 512 Q, K and V^T "
+    "stream through three 64 KB slots, two consumers split S by keys and own "
+    "256 output columns each, P hi / lo through shared memory, key splits "
+    "merged by lse below 132 query tiles")
+FP32_BWD_DESIGN = (
+    "a pre-pass splits q, k, v and dO into TF32 hi / lo rows and k^T (for "
+    "dq) or q^T and dO^T (for dk/dv) into transposed terms, the sequence "
+    "permuted within groups of 8; dq: one block per 64 queries per consumer "
+    "warpgroup (two at d = 64), Q and dO resident, K / V and K^T tiles of 32 "
+    "keys on rings of their own, S and dP as three SS TF32 wgmma passes, P "
+    "and dS in fp32 registers split into the RS A operand of dQ += dS K; "
+    "dk/dv: one block per 64 keys per consumer (keys as M), K and V "
+    "resident, Q / dO rows (two stages) and Q^T / dO^T (one) in tiles of 32 "
+    "or 16 queries, S^T and dP^T SS, dV += P^T dO and dK += dS^T Q RS over "
+    "64-column chunks; every tile's product into a fresh accumulator added "
+    "in registers")
+# K1 in fp32 at the shapes the fp32 defaults give it, (B, H, Lq, Lk, D),
+# causal, with the backward; compare_revisions.py times them too.
+FP32_CASES = [
+    ((2, 8, 4096, 4096, 40), False, False),      # SD1 UNet at 64^2
+    ((2, 8, 1024, 1024, 80), False, False),      # SD1 UNet at 32^2
+    ((1, 1, 4096, 4096, 512), False, False),     # SD1 VAE mid attention
+    ((1, 1, 16384, 16384, 512), False, False),   # SD3 VAE mid attention
+    ((16, 12, 576, 576, 64), False, True),       # SigLIP tower
+    ((16, 12, 584, 584, 64), True, True),        # TinyVLM decoder
+    ((32, 1, 4096, 4096, 128), False, True),     # tiny-SD UNet at 64^2
+]
+# K1's fp32 forms beside them: d = 160 (K1_D160_SHAPE) and T5's bias
+FP32_T5_SHAPE = (2, 64, 512, 512, 64)
 # out and lse absolute, each gradient relative to its largest magnitude; the
 # plain version fed operands rounded once to bf16 must fall outside it, and
 # the kernel must stay ten times closer to the plain version than that fault.
@@ -2476,11 +2564,14 @@ def fp32_bound(b, h, lq, lk, d, n_products, n_q_like, n_k_like, n_stats,
                     bound(passes * flops, nbytes, peak)))
 
 
-def tf32_bound(b, h, lq, lk, d, share=1.0):
-    """The fp32 forward's bound: its two products in TF32_PASSES passes at
-    the dense TF32 rate, with the bytes floor, and beside it (``fma_bound_ms``)
-    the same work in fp32 FMAs at 67 TFLOP/s, for comparison."""
-    shape = (b, h, lq, lk, d, 2, 2, 2, 1, share)
+def tf32_bound(b, h, lq, lk, d, share=1.0, n_products=2, n_q_like=2,
+               n_k_like=2, n_stats=1):
+    """The bound of an fp32 flash kernel on the tensor cores: its products
+    (two for the forward, three for dq, four for dk/dv) in TF32_PASSES passes
+    at the dense TF32 rate, with the bytes floor, and beside it
+    (``fma_bound_ms``) the same work in fp32 FMAs at 67 TFLOP/s, for
+    comparison."""
+    shape = (b, h, lq, lk, d, n_products, n_q_like, n_k_like, n_stats, share)
     return dict(**fp32_bound(*shape, peak=PEAK_TF32_FLOPS,
                              passes=TF32_PASSES),
                 bound_basis=f"{TF32_PASSES} TF32 passes at 495 TFLOP/s",
@@ -2489,9 +2580,10 @@ def tf32_bound(b, h, lq, lk, d, share=1.0):
 
 def phase_kernels_fp32(card, tail):
     """Each fp32 form against its plain fp32 version (TF32 off) at the shape
-    its path gives it, with the planted single-rounding faults (bf16; for
-    the forward also one TF32 pass), the forward's error against fp64, the
-    times and the bound. Returns kernel name -> list of records."""
+    its path gives it, with the two planted single-rounding faults (bf16,
+    one TF32 pass), the error against fp64 (out and lse absolute, each
+    gradient of its largest magnitude), the times, device times and the
+    bound. Returns kernel name -> list of records."""
     import torch
     import torch.nn.functional as F
 
@@ -2544,15 +2636,15 @@ def phase_kernels_fp32(card, tail):
         del r64, l64
         return errs
 
-    def judge_forward(name, what, errs):
+    def judge_forward(name, what, errs, fp64_tol=FP32_FP64_TOL):
         """Both planted faults caught, the error against fp64 stated and
-        within FP32_FP64_TOL."""
+        within ``fp64_tol``."""
         worst = max(errs["err"], errs["lse_err"])
         line = (f"bf16 rounding {judge(name, what, worst, errs['fault_err'])}"
                 f"; one TF32 pass "
                 f"{judge(name, what + ' (TF32)', worst, errs['tf32_fault_err'])}"
-                f"; against fp64 {errs['fp64_err']:.3e} (tol {FP32_FP64_TOL})")
-        check(errs["fp64_err"] <= FP32_FP64_TOL,
+                f"; against fp64 {errs['fp64_err']:.3e} (tol {fp64_tol})")
+        check(errs["fp64_err"] <= fp64_tol,
               f"{name} fp32 {what}: {errs['fp64_err']:.3e} from fp64")
         return line
 
@@ -2574,43 +2666,63 @@ def phase_kernels_fp32(card, tail):
         return q, k, v, g
 
     def backward_case(names, what, shape, share, run_dq, run_dkv, got, want,
-                      bad, plain, library):
+                      bad, tf32_bad, ref64, plain, library):
+        """The gradients against plain fp32 with both planted faults (bf16
+        rounding, one TF32 pass) and against fp64; the times, device times
+        and the TF32 bound of dq and dk/dv."""
         line, errs = [], {}
-        for name, a, w, f in zip(("dq", "dk", "dv"), got, want, bad):
+        for name, a, w, f, f1, w64 in zip(("dq", "dk", "dv"), got, want, bad,
+                                          tf32_bad, ref64):
             top = w.abs().max().item()
             check(a.dtype == torch.float32 and bool(torch.isfinite(a).all()),
                   f"{names} fp32 {what}: {name} not finite fp32")
             errs[name] = (a - w).abs().max().item()
-            line.append(f"{name} " + judge(
-                names, f"{what} {name}", errs[name],
-                (f - w).abs().max().item(), top))
+            rel64 = ((a.double() - w64).abs().max()
+                     / w64.abs().max()).item()
+            errs[name + "_fp64"] = rel64
+            line.append(
+                f"{name} bf16 rounding " + judge(
+                    names, f"{what} {name}", errs[name],
+                    (f - w).abs().max().item(), top)
+                + "; one TF32 pass " + judge(
+                    names, f"{what} {name} (TF32)", errs[name],
+                    (f1 - w).abs().max().item(), top)
+                + f"; against fp64 {rel64:.3e} of its largest (tol "
+                  f"{FP32_FP64_TOL})")
+            check(rel64 <= FP32_FP64_TOL,
+                  f"{names} fp32 {what} {name}: {rel64:.3e} from fp64")
         shared = dict(plain_ms=cuda_ms(plain, 2, 1),
                       library_ms=cuda_ms(library, 3, 1))
         t_dq = dict(ms=cuda_ms(run_dq, 5, 1), **shared,
-                    **fp32_bound(*shape, 3, 3, 2, 2, share))
+                    **fp32_fwd_device_ms(run_dq, family="K3 flash bwd dq"),
+                    **tf32_bound(*shape, share, 3, 3, 2, 2))
         t_dkv = dict(ms=cuda_ms(run_dkv, 5, 1), **shared,
-                     **fp32_bound(*shape, 4, 2, 4, 2, share))
+                     **fp32_fwd_device_ms(run_dkv,
+                                          family="K4 flash bwd dk/dv"),
+                     **tf32_bound(*shape, share, 4, 2, 4, 2))
         k_dq, k_dkv = names.split(" / ")
         print(f"{names} fp32 {what} (B,H,Lq,Lk,D)={shape}: max|err| "
-              f"{', '.join(line)}; the plain and library backward compute "
-              f"dq, dk and dv together; {k_dq}: {tail(**t_dq)}; {k_dkv}: "
-              f"{tail(**t_dkv)}", flush=True)
+              f"{'; '.join(line)}; the plain and library backward compute "
+              f"dq, dk and dv together; {k_dq}: {fwd_tail(t_dq)}; {k_dkv}: "
+              f"{fwd_tail(t_dkv)}", flush=True)
         base = dict(form=what, shape=list(shape), route=FP32_ROUTE)
-        records[k_dq].append(dict(base, max_abs_err=errs["dq"], **t_dq))
+        fp64 = lambda *ns: max(errs[n + "_fp64"] for n in ns)
+        records[k_dq].append(dict(base, max_abs_err=errs["dq"],
+                                  fp64_rel_err=fp64("dq"), **t_dq))
         records[k_dkv].append(dict(base, max_abs_err=max(errs["dk"],
-                                                         errs["dv"]), **t_dkv))
+                                                         errs["dv"]),
+                                   fp64_rel_err=fp64("dk", "dv"), **t_dkv))
+
+    def fp64_backward(q, k, v, g, **masks):
+        """(dq, dk, dv) of plain attention in fp64 under its own fp64
+        forward."""
+        d64 = f64(q, k, v)
+        o64, l64 = fa.flash_attention_plain(*d64, **masks)
+        return fa.flash_attention_bwd_plain(*d64, o64, l64, g.double(),
+                                            **masks)
 
     # K1, K3, K4: (B, H, Lq, Lk, D), causal, with the backward
-    cases = [
-        ((2, 8, 4096, 4096, 40), False, False),      # SD1 UNet at 64^2
-        ((2, 8, 1024, 1024, 80), False, False),      # SD1 UNet at 32^2
-        ((1, 1, 4096, 4096, 512), False, False),     # SD1 VAE mid attention
-        ((1, 1, 16384, 16384, 512), False, False),   # SD3 VAE mid attention
-        ((16, 12, 576, 576, 64), False, True),       # SigLIP tower
-        ((16, 12, 584, 584, 64), True, True),        # TinyVLM decoder
-        ((32, 1, 4096, 4096, 128), False, True),     # tiny-SD UNet at 64^2
-    ]
-    for shape, causal, with_bwd in cases:
+    for shape, causal, with_bwd in FP32_CASES:
         b, h, lq, lk, d = shape
         q, k, v, g = fused(b, lq, lk, h, d)
         what = "causal" if causal else "none"
@@ -2635,7 +2747,7 @@ def phase_kernels_fp32(card, tail):
               f"{errs['err']:.3e} max|lse err|={errs['lse_err']:.3e}; "
               f"{verdict}; {fwd_tail(times)}", flush=True)
         records["K1"].append(dict(form=what, shape=list(shape),
-                                  route=FP32_FWD_ROUTE,
+                                  route=FP32_ROUTE,
                                   max_abs_err=errs["err"],
                                   **{k: v for k, v in errs.items()
                                      if k != "err"}, **times))
@@ -2646,6 +2758,9 @@ def phase_kernels_fp32(card, tail):
         want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, **masks)
         bad = fa.flash_attention_bwd_plain(*rounded(q, k, v), out, lse,
                                            *rounded(g), **masks)
+        tf32_bad = fa.flash_attention_bwd_plain(*tf32(q, k, v), out, lse,
+                                                *tf32(g), **masks)
+        ref64 = fp64_backward(q, k, v, g, **masks)
         delta = (g * out).sum(-1)
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
         ol = sdpa(ql, kl, vl, is_causal=causal)
@@ -2655,12 +2770,58 @@ def phase_kernels_fp32(card, tail):
                                                    **masks),
             lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
                                                     **masks),
-            got, want, bad,
+            got, want, bad, tf32_bad, ref64,
             lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
                                                  **masks),
             lambda: torch.autograd.grad(ol, (ql, kl, vl), g,
                                         retain_graph=True))
-        del got, want, bad, ol
+        del got, want, bad, tf32_bad, ref64, ol
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+
+    # K1's fp32 forms that no earlier checkout had: head dim 160 (SD1's UNet
+    # at level 2 from 768^2) and T5's bias shared over the batch (scale 1.0;
+    # T5-XXL's 512 tokens), each held as the other K1 rows are.
+    for what, shape in (("d160", K1_D160_SHAPE), ("bias", FP32_T5_SHAPE)):
+        b, h, lq, lk, d = shape
+        q, k, v, _ = fused(b, lq, lk, h, d)
+        kw = dict(scale=1.0, bias=3.0 * rnd(1, h, lq, lk)) if what == "bias" \
+            else {}
+        run = lambda: fa.flash_attention_cuda(q, k, v, **kw)
+        plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
+        n0 = fa.flash_attention_cuda.routes["fp32"]
+        out, lse = run()
+        torch.cuda.synchronize()
+        check(fa.flash_attention_cuda.routes["fp32"] == n0 + 1,
+              f"K1 fp32 {what} did not take the fp32 kernel")
+        errs = forward_errors(f"K1 fp32 {what} {shape}", out, lse, plain,
+                              lambda f: fa.flash_attention_plain(*f(q, k, v),
+                                                                 **kw))
+        # T5's logits are unscaled (scale 1.0): with unit q and k at d = 64
+        # they spread ~8 wide, and the split's 2^-22 of each product moves
+        # out ~8 x as far from fp64 as at the scaled forms' logits of ~1;
+        # the bias form is held to FP32_TOL against fp64 as against fp32.
+        verdict = judge_forward("K1", f"{what} {shape}", errs,
+                                FP32_TOL if what == "bias" else FP32_FP64_TOL)
+        library = (lambda: sdpa(q, k, v, attn_mask=kw["bias"], scale=1.0)) \
+            if what == "bias" else (lambda: sdpa(q, k, v))
+        times = dict(ms=cuda_ms(run, 5, 1), **fp32_fwd_device_ms(run),
+                     plain_ms=cuda_ms(plain, 2, 1),
+                     library_ms=cuda_ms(library, 3, 1),
+                     **tf32_bound(*shape))
+        if what == "bias":   # and the (1, H, Lq, Lk) fp32 bias read once
+            times["bound_ms"], times["bound_by"] = bound(
+                TF32_PASSES * 4.0 * b * h * lq * lk * d,
+                b * h * 4.0 * d * (2 * lq + 2 * lk) + 4.0 * b * h * lq
+                + 4.0 * h * lq * lk, PEAK_TF32_FLOPS)
+        print(f"K1 fp32 {what} (B,H,Lq,Lk,D)={shape}: max|out err|="
+              f"{errs['err']:.3e} max|lse err|={errs['lse_err']:.3e}; "
+              f"{verdict}; {fwd_tail(times)}", flush=True)
+        records["K1"].append(dict(form=what, shape=list(shape),
+                                  route=FP32_ROUTE, max_abs_err=errs["err"],
+                                  **{key: x for key, x in errs.items()
+                                     if key != "err"}, **times))
+        del q, k, v, out, lse, kw
     torch.cuda.empty_cache()
 
     # K5, K6, K7 at the four shapes of the SD3 joint attention, offsets 0
@@ -2689,15 +2850,22 @@ def phase_kernels_fp32(card, tail):
                   f"{errs['err']:.3e} max|lse err|={errs['lse_err']:.3e}; "
                   f"{verdict}; {fwd_tail(times)}", flush=True)
             records["K5"].append(dict(
-                form=stability, shape=list(shape), route=FP32_FWD_ROUTE,
+                form=stability, shape=list(shape), route=FP32_ROUTE,
                 max_abs_err=errs["err"],
                 **{k: v for k, v in errs.items() if k != "err"}, **times))
-        ref, ref_lse = plain()
-        delta = (g * ref).sum(-1)
+        # the global lse and delta of an fp64 forward, as the joint
+        # attention's caller holds them (rounded to fp32 for the kernels)
+        o64, l64 = fa.flash_attention_pos_plain(*f64(q, k, v), z, z)
+        d64 = (g.double() * o64).sum(-1)
+        ref_lse, delta = l64.float(), d64.float()
         got = fa.flash_bwd_pos(q, k, v, g, ref_lse, delta, z, z)
         want = fa.flash_bwd_pos_plain(q, k, v, g, ref_lse, delta, z, z)
         bad = fa.flash_bwd_pos_plain(*rounded(q, k, v), *rounded(g), ref_lse,
                                      delta, z, z)
+        tf32_bad = fa.flash_bwd_pos_plain(*tf32(q, k, v, g), ref_lse, delta,
+                                          z, z)
+        ref64 = fa.flash_bwd_pos_plain(*f64(q, k, v, g), l64, d64, z, z)
+        del o64
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
         ol = sdpa(ql, kl, vl)
         backward_case(
@@ -2706,11 +2874,12 @@ def phase_kernels_fp32(card, tail):
                                              z),
             lambda: fa.flash_bwd_pos_dkv_cuda(q, k, v, g, ref_lse, delta, z,
                                               z),
-            got, want, bad,
+            got, want, bad, tf32_bad, ref64,
             lambda: fa.flash_bwd_pos_plain(q, k, v, g, ref_lse, delta, z, z),
             lambda: torch.autograd.grad(ol, (ql, kl, vl), g,
                                         retain_graph=True))
-        del got, want, bad, ol, ref, ref_lse
+        del got, want, bad, tf32_bad, ref64, ol, l64, d64
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
     # The masks of K5 - K7 (two segments, causal, valid_len; rows that see
@@ -2938,9 +3107,69 @@ def fp32_launch_check(what, want):
     return counts, fp32
 
 
+def phase_sd1_768(card, models, steps, dtype):
+    """``SD1Generator`` at 768x768 (K1 at head dim 160 in the UNet's level-2
+    self-attentions), ``steps`` k-LMS steps, CFG 7.5, on the SD1 bundle of
+    ``dtype``: a warm-up and a timed request (s/image), one profiled
+    (device-busy ms); the launch counts by head dim and kernel show that
+    the d = 160 attention ran on its kernel. Returns the timed request's
+    launches and its fp32 launches."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        SD1Generator)
+
+    sd = SD1Generator(models, sampler="k_lms", n_inference_steps=steps,
+                      cfg_scale=7.5, height=768, width=768)
+    latents = []
+    hook = models.decoder.register_forward_pre_hook(
+        lambda m, a: latents.append(a[0].detach().clone()))
+    prompt = ["a lighthouse at dusk, wide angle"]
+    sd(prompt, seed=41)                                   # warm-up
+    reset_counts()
+    latents.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    images = sd(prompt, seed=41)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, fp32 = read_counts(), read_fp32_counts()
+    k1 = kernel_counters()["K1"]
+    dims, routes = dict(k1.head_dims), dict(k1.routes)
+    hook.remove()
+    want_dims = {d: n * steps for d, n in SD1_768_PER_STEP.items()}
+    want_dims[512] = 1
+    route = "fp32" if dtype == "fp32" else "sm90"
+    want_routes = ({"fp32": 15 * steps + 1} if dtype == "fp32"
+                   else {"sm90": 15 * steps, "d512": 1})
+    fams = device_families(lambda: sd(prompt, seed=41), "K1 flash fwd"
+                           if dtype == "bf16" else F32_FWD)
+    busy = sum(fams.values()) if fams else None
+    k1_ms = fams.get("K1 flash fwd" if dtype == "bf16" else F32_FWD, 0.0)
+    print(f"SD1 at 768^2, {dtype}, {steps} k-LMS steps, CFG 7.5: {secs:.3f} "
+          f"s/image (warm), peak {peak:.2f} GiB; one profiled request: "
+          f"device busy {fmt_ms(busy)}, K1 {k1_ms:.2f} ms of it; K1 launches "
+          f"by head dim {dims}, by kernel {routes} (d = 160: "
+          f"{dims.get(160, 0)} on {route}) [{card}]", flush=True)
+    check(images.shape == (1, 768, 768, 3) and float(images.std()) > 0,
+          f"SD1 768^2 {dtype}: bad image")
+    check(len(latents) == 1 and latents[0].shape == (1, 96, 96, 4)
+          and bool(torch.isfinite(latents[0]).all()),
+          f"SD1 768^2 {dtype}: final latents not finite or misshaped")
+    check(dims == want_dims and routes == want_routes,
+          f"SD1 768^2 {dtype}: K1 launches by head dim {dims} by kernel "
+          f"{routes}, expected {want_dims} / {want_routes}")
+    del sd
+    return launches, fp32
+
+
 def phase_sd1_fp32(card):
     """``SD1Models`` at its ``from_jax`` default dtype, fp32: 512x512, 10
-    k-LMS steps, against the same request through plain attention."""
+    k-LMS steps, against the same request through plain attention; then the
+    same bundle at 768x768 (:func:`phase_sd1_768`). Returns both requests'
+    (launches, fp32 launches)."""
     import numpy as np
     import torch
 
@@ -2988,13 +3217,18 @@ def phase_sd1_fp32(card):
           "fp32 SD1: bad image")
     check(err <= E2E_FP32_TOL and diff <= 1,
           f"fp32 SD1 disagrees with plain attention: {err} / {diff}")
-    return counts, fp32
+    del sd
+    # the same bundle at 768^2, where K1 runs at head dim 160 too
+    return [(counts, fp32),
+            phase_sd1_768(card, models, SD1_768_FP32_STEPS, "fp32")]
 
 
 def phase_sd3_fp32(card):
     """``SD3Models`` at its ``from_jax`` default dtype, fp32, at full width
     and depth (7.7 B parameters, 28.7 GiB): 1024x1024, 4 flow-Euler steps,
-    against the same request through plain attention."""
+    against the same request through plain attention; then the bundle's
+    T5-XXL on 512 tokens (:func:`phase_t5_fp32`). Returns both runs'
+    (launches, fp32 launches)."""
     import numpy as np
     import torch
 
@@ -3049,7 +3283,97 @@ def phase_sd3_fp32(card):
           "fp32 SD3: bad image")
     check(err <= E2E_FP32_TOL and diff <= 1,
           f"fp32 SD3 disagrees with plain attention: {err} / {diff}")
-    return counts, fp32
+    return [(counts, fp32), phase_t5_fp32(card, models.t5)]
+
+
+def phase_t5_fp32(card, t5):
+    """The fp32 bundle's T5-XXL encoder on (2, 512) token ids, the longest
+    prompt SD3 admits: its 24 attentions take K1's fp32 bias form (the
+    shared bucket bias, scale 1.0). Each block's attention sub-layer is
+    held against the same sub-layer through plain attention on the same
+    input (relative L2 within E2E_FP32_TOL), and the whole encoder is
+    timed both ways. Free-running, the random-weight encoder amplifies any
+    rounding difference block after block (its softmax is sharp: q.k spreads
+    ~8 wide, unscaled), so its output drift is printed beside that of two
+    plain-attention runs that differ only in the order of their key sums,
+    and not judged. Returns the call's (launches, fp32 launches)."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import attention as attn
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops.groupnorm import rms_norm
+
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, t5.config.vocab_size, (2, 512))).cuda()
+    k1 = kernel_counters()["K1"]
+    plain = attn.plain_attention
+
+    def keys_reversed(q, k, v, bias=None, *a, **kw):
+        """Plain attention over the keys in reverse order: the same
+        function, fp32 sums taken in another order."""
+        return plain(q, k.flip(2), v.flip(2),
+                     None if bias is None else bias.flip(-1), *a, **kw)
+
+    def on_path(use_flash, fn):
+        """``fn()`` with every attention on the kernels or the plain path."""
+        saved = attn.dot_product_attention
+        attn.dot_product_attention = functools.partial(saved,
+                                                       use_flash=use_flash)
+        try:
+            return fn()
+        finally:
+            attn.dot_product_attention = saved
+
+    with torch.no_grad():
+        reset_counts()
+        out = t5(tokens)
+        torch.cuda.synchronize()
+        launches, fp32 = read_counts(), read_fp32_counts()
+        forms, routes = dict(k1.forms), dict(k1.routes)
+        ms = cuda_ms(lambda: t5(tokens), 5, 1)
+        fams = device_families(lambda: t5(tokens), F32_FWD)
+        ref = on_path(False, lambda: t5(tokens))
+        plain_ms = on_path(False, lambda: cuda_ms(lambda: t5(tokens), 5, 1))
+        attn.plain_attention = keys_reversed
+        try:
+            ref_reversed = on_path(False, lambda: t5(tokens))
+        finally:
+            attn.plain_attention = plain
+        # block by block, both paths fed the plain path's activations
+        x, bias, worst = t5.embed_tokens(tokens), None, (0.0, 0)
+        for i in range(t5.config.num_layers):
+            block = getattr(t5, f"block{i}")
+            h = rms_norm(x, block.ln1_scale, eps=1e-6)
+            want, shared_bias = on_path(False, lambda: block.attn(h, bias))
+            got, _ = on_path(True, lambda: block.attn(h, bias))
+            worst = max(worst, (rel_l2(got, want), i))
+            bias = shared_bias
+            x, _ = on_path(False, lambda: block(x, bias))
+    free, control = rel_l2(out, ref), rel_l2(ref_reversed, ref)
+    busy = (f"device busy {sum(fams.values()):.2f} ms, K1 fp32 "
+            f"{fams.get(F32_FWD, 0.0):.2f} ms + split pre-pass "
+            f"{fams.get(F32_SPLIT, 0.0):.2f} ms" if fams
+            else "device busy not measured")
+    print(f"T5-XXL encoder, fp32 (SD3Models default dtype), on (2, 512) "
+          f"tokens: {ms:.2f} ms/call through K1's fp32 bias form ({busy}; "
+          f"profiler, one call), {plain_ms:.2f} ms/call through plain "
+          f"attention; block by block on the same input the worst attention "
+          f"sub-layer differs by rel L2 {worst[0]:.3e} (block {worst[1]}, "
+          f"tol {E2E_FP32_TOL}); free-running, the output differs by rel L2 "
+          f"{free:.3e}, two plain-attention runs differing only in the order "
+          f"of their key sums by {control:.3e} (not judged); launches "
+          f"{launches}, forms {forms}, by kernel {routes} [{card}]",
+          flush=True)
+    check(tuple(out.shape) == (2, 512, t5.config.d_model)
+          and out.dtype == torch.float32 and bool(torch.isfinite(out).all()),
+          "fp32 T5 output misshaped or not finite")
+    check(worst[0] <= E2E_FP32_TOL,
+          f"an fp32 T5 attention through K1 disagrees with the plain path: "
+          f"rel L2 {worst[0]} at block {worst[1]}")
+    check(launches == T5_PER_CALL and forms == {BIASED: 24}
+          and routes == {"fp32": 24},
+          f"fp32 T5 launches {launches} forms {forms} routes {routes}")
+    return launches, fp32
 
 
 def fp32_train_run(build, n_steps):
@@ -3110,6 +3434,7 @@ def fp32_train_pair(card, what, build, n_steps, per_step):
     check(bool(torch.isfinite(losses).all()) and loss_err <= E2E_FP32_TOL
           and grad_err <= E2E_FP32_TOL,
           f"{what} disagrees with plain attention: {loss_err} / {grad_err}")
+    counts.step_ms = ms
     return counts, fp32
 
 
@@ -3121,7 +3446,9 @@ def phase_train_fp32(card):
     runs at latent 128 (4096 + 154 tokens), batch 1, through the kernels
     alone: plain attention would save 24 x 1.7 GB of probabilities beside
     33 GB of parameters, gradients and moments. It is held against plain
-    attention at latent 64 (1024 + 154 tokens), batch 2."""
+    attention at latent 64 (1024 + 154 tokens), batch 2. Returns each
+    run's (launches, fp32 launches), the launches carrying ``step_ms``, the
+    last step's ms through the fp32 kernels."""
     import torch
 
     from from_ddpm_to_stable_diffusion_tpu_torch.io.data import (
@@ -3187,6 +3514,7 @@ def phase_train_fp32(card):
         functools.partial(build_mmdit, 128, 1), n_steps)
     runs.append(fp32_launch_check(
         what, {k: n * n_steps for k, n in per_step.items()}))
+    runs[-1][0].step_ms = ms
     print(f"{what}, {n_params} fp32 parameters, batch 1, latent 128 -> 4096 "
           f"+ 154 tokens, {n_steps} steps through the fp32 kernels: last step "
           f"{ms:.2f} ms, peak {peak:.2f} GiB, losses "
@@ -3207,20 +3535,22 @@ def main():
     kernels_fp32 = phase_kernels_fp32(card, tail)
     import torch
 
-    paths = ("sd1", "sd1_slice", "sd3", "t5", "training", "sampling",
-             "mmdit_training", "mmdit_sampling", "vlm_training",
-             "vlm_decoding", "sd1_fp32", "sd3_fp32", "vlm_fp32",
-             "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64")
+    paths = ("sd1", "sd1_slice", "sd1_768", "sd3", "t5", "training",
+             "sampling", "mmdit_training", "mmdit_sampling", "vlm_training",
+             "vlm_decoding", "sd1_fp32", "sd1_768_fp32", "sd3_fp32",
+             "t5_fp32", "vlm_fp32", "tiny_sd_fp32", "mmdit_fp32",
+             "mmdit_fp32_latent64")
     sd1_launches, sd1_models = phase_sd1(card)
-    runs = [sd1_launches, phase_sd1_slice(card, sd1_models)]
+    runs = [sd1_launches, phase_sd1_slice(card, sd1_models),
+            phase_sd1_768(card, sd1_models, SD1_768_STEPS, "bf16")[0]]
     del sd1_models
-    fp32_runs = [phase_sd1_fp32(card)]
+    fp32_runs = phase_sd1_fp32(card)
     gc.collect()
     torch.cuda.empty_cache()
     runs += phase_sd3(card)
     gc.collect()
     torch.cuda.empty_cache()   # the bf16 SD3 bundle is gone: room for fp32
-    fp32_runs.append(phase_sd3_fp32(card))
+    fp32_runs += phase_sd3_fp32(card)
     gc.collect()
     torch.cuda.empty_cache()
     trainer, state, train_launches, _ = phase_training(card)
@@ -3263,7 +3593,7 @@ def main():
             kw.update(
                 fp32_source=pkg + ("fp32/flash_f32_fwd.cu" if fwd
                                    else "fp32/flash_f32_bwd.cu"),
-                fp32_design=FP32_FWD_DESIGN if fwd else FP32_ROUTE,
+                fp32_design=FP32_FWD_DESIGN if fwd else FP32_BWD_DESIGN,
                 fp32=kernels_fp32[k],
                 fp32_launches_by_path={p: n[k]
                                        for p, n in fp32_by_path.items()})
@@ -3280,6 +3610,13 @@ def main():
         """K1's (or K4's, K5's, K7's) launches on one of its kernels, from
         the paths' runs."""
         per_path = {p: getattr(run, kernel + "_routes").get(route, 0)
+                    for p, run in zip(paths, runs)}
+        return dict(launches=sum(per_path.values()),
+                    launches_by_path=per_path)
+
+    def by_head_dim(d):
+        """K1's launches at head dim ``d``, from the paths' runs."""
+        per_path = {p: run.k1_head_dims.get(d, 0)
                     for p, run in zip(paths, runs)}
         return dict(launches=sum(per_path.values()),
                     launches_by_path=per_path)
@@ -3342,6 +3679,14 @@ def main():
                                 "split over up to 4 blocks, merged by lse"),
                         timed=kernels["d512"], **by_route("d512")),
               sm90=by_route("sm90"),
+              d160=dict(
+                  design=("bf16 and fp32 at head dim 160 (SD1's UNet at "
+                          "level 2 from 768^2): the sm90 kernel with 32-byte "
+                          "swizzle atoms of 16 columns and O += PV as "
+                          "m64n160k16 RS; in fp32 the TF32 kernel with one "
+                          "consumer and 64-query blocks, PV in two halves of "
+                          "80 columns"),
+                  timed=kernels["d160"], **by_head_dim(160)),
               timed_at="(B,H,Lq,Lk,D)=(2,8,4096,4096,40)",
               library="F.scaled_dot_product_attention", forms=forms_of("K1")),
         entry("group_norm_silu", "groupnorm.cu", "groupnorm_pallas.py:29",

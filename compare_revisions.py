@@ -38,13 +38,17 @@ Parts, all of them unless ``--only`` names some:
   - sd3: an SD3-medium request (1024², 50 steps, CFG 5), wall s of the
     second of two, and of a third under the profiler its device-busy ms,
     K5's device ms and the idle share (1 - busy / the second's wall);
-  - fp32: the fp32 forward (K1 and K5 on fp32 tensors) at the shapes of
+  - fp32: the fp32 forward (K1 and K5 on fp32 tensors) and backward (K3 and
+    K4 where ``chip_smoke.FP32_CASES`` has one, K6 and K7) at the shapes of
     ``chip_smoke.FP32_CASES`` and ``FP32_POS_SHAPES``, wall ms and device
     ms per call (its flash kernels and its split pre-pass, together and the
     pre-pass alone; ``chip_smoke.fp32_fwd_device_ms``), and one fp32 SD1
     request (``SD1Models`` at fp32, 512², 10 k-LMS steps, CFG 7.5): wall s
     of the second of two, device-busy ms of a third under the profiler and
-    the fp32 forward's part of it.
+    the fp32 forward's part of it;
+  - fp32train: ``chip_smoke.phase_train_fp32`` (``VLMTrainer()``, tiny-SD and
+    the depth-24 MMDiT at fp32 compute, two steps each): the last step's ms
+    through the fp32 kernels (CUDA events).
 Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -59,7 +63,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PARTS = ("launch", "kernels", "training", "vlm", "mmdit", "sd1", "t5",
-         "sd3", "fp32")
+         "sd3", "fp32", "fp32train")
 K1 = "K1 flash fwd"
 # K5's fp32 shapes of the SD3 joint attention (K1's: chip_smoke.FP32_CASES)
 FP32_POS_SHAPES = [(2, 24, 4096, 4096, 64), (2, 24, 4096, 154, 64)]
@@ -173,11 +177,12 @@ def _other_kernels(cs, out, rnd):
     torch.cuda.empty_cache()
 
 
-def _fp32_timed(cs, out, key, call):
-    """Wall ms and the fp32 forward's device ms per call (its flash kernels
-    and split pre-pass together, and the pre-pass alone)."""
+def _fp32_timed(cs, out, key, call, family=None):
+    """Wall ms and an fp32 flash call's device ms per call (its flash
+    kernels, the forward's or those of ``family``, and its split pre-pass
+    together, and the pre-pass alone)."""
     out[key + " wall ms"] = cs.cuda_ms(call, 5, 1)
-    dev = cs.fp32_fwd_device_ms(call)
+    dev = cs.fp32_fwd_device_ms(call, family=family or cs.F32_FWD)
     fwd, split = dev["device_ms"], dev["split_device_ms"]
     out[key + " device ms"] = None if fwd is None else fwd + (split or 0.0)
     out[key + " split pre-pass device ms"] = split
@@ -194,12 +199,24 @@ def _fp32(cs, out):
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
-    for (b, h, lq, lk, d), causal, _ in cs.FP32_CASES:
+    dq_fam, dkv_fam = "K3 flash bwd dq", "K4 flash bwd dk/dv"
+    for (b, h, lq, lk, d), causal, with_bwd in cs.FP32_CASES:
         q, k, v = (t.reshape(b, lq, h, d).transpose(1, 2)
                    for t in rnd(b, lq, 3 * h * d).chunk(3, -1))
-        _fp32_timed(cs, out, f"K1 fp32 {'causal' if causal else 'none'} "
-                    f"{(b, h, lq, lk, d)}",
+        key = f"{'causal' if causal else 'none'} {(b, h, lq, lk, d)}"
+        _fp32_timed(cs, out, "K1 fp32 " + key,
                     lambda: fa.flash_attention_cuda(q, k, v, causal=causal))
+        if with_bwd:   # K3 and K4 on fp32 tensors (the dq kernel's family)
+            g = rnd(b, h, lq, d)
+            o, lse = fa.flash_attention_cuda(q, k, v, causal=causal)
+            delta = (g * o).sum(-1)
+            _fp32_timed(cs, out, "K3 fp32 " + key,
+                        lambda: fa.flash_attention_bwd_dq_cuda(
+                            q, k, v, g, lse, delta, causal=causal), dq_fam)
+            _fp32_timed(cs, out, "K4 fp32 " + key,
+                        lambda: fa.flash_attention_bwd_dkv_cuda(
+                            q, k, v, g, lse, delta, causal=causal), dkv_fam)
+            del g, o, lse, delta
         del q, k, v
         torch.cuda.empty_cache()
     z = torch.zeros(2, dtype=torch.int32, device="cuda")
@@ -211,7 +228,17 @@ def _fp32(cs, out):
             _fp32_timed(cs, out, f"K5 fp32 {st} {(b, h, lq, lk, d)}",
                         lambda: fa.flash_attention_pos_cuda(q, k, v, z, z,
                                                             stability=st))
-        del q, k, v
+        # K6 and K7 on fp32 tensors under this block's own lse
+        g = rnd(b, h, lq, d)
+        o, lse = fa.flash_attention_pos_cuda(q, k, v, z, z)
+        delta = (g * o).sum(-1)
+        _fp32_timed(cs, out, f"K6 fp32 {(b, h, lq, lk, d)}",
+                    lambda: fa.flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta,
+                                                     z, z), dq_fam)
+        _fp32_timed(cs, out, f"K7 fp32 {(b, h, lq, lk, d)}",
+                    lambda: fa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta,
+                                                      z, z), dkv_fam)
+        del q, k, v, g, o, lse, delta
     models = SD1Models.initialize(torch.Generator(device="cuda").manual_seed(
         0), "cuda", "fp32")
     sd = SD1Generator(models, sampler="k_lms", n_inference_steps=10,
@@ -359,6 +386,11 @@ def measure(parts):
         _sd3_bundle(cs, out, parts)
     if "fp32" in parts:
         _fp32(cs, out)
+    if "fp32train" in parts:
+        for name, (counts, _) in zip(
+                ("TinyVLM", "tiny-SD", "MMDiT latent 128 batch 1",
+                 "MMDiT latent 64 batch 2"), cs.phase_train_fp32(card)):
+            out[f"fp32 {name} step ms"] = counts.step_ms
     print(json.dumps(out), flush=True)
 
 

@@ -1,8 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a) on TMA and wgmma: bf16 in,
-// fp32 softmax, out bf16 + lse fp32. K1 at head dims 40, 48, 64, 72, 80 and
-// 128, in every mask form; d = 512 is the kernel of flash_attention.cu, with
-// its own C entry. K5, the position-masked forward, at head dims 64 and 128,
-// is K1's design under position masks, on the same per-tile steps.
+// fp32 softmax, out bf16 + lse fp32. K1 at head dims 40, 48, 64, 72, 80, 128
+// and 160, the masked forms at 64 and 128; d = 512 is the kernel of
+// flash_attention.cu, with its own C entry. K5, the position-masked forward,
+// at head dims 64 and 128, is K1's design under position masks, on the same
+// per-tile steps.
 //
 // Replaces three Pallas TPU kernels of the JAX package:
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
@@ -53,8 +54,13 @@
 //    Each product is waited for before its registers are read; the two
 //    consumer warpgroups interleave on their own.
 //  - swizzle: 128-byte at DP = 64 and 128, 32-byte atoms of 16 columns at
-//    DP = 48 and 80 (rows of 96 and 160 bytes), so no MMA work is spent on
-//    padding past the next multiple of 16.
+//    DP = 48, 80 and 160 (rows of 96, 160 and 320 bytes), so no MMA work is
+//    spent on padding past the next multiple of 16. At DP = 160 (the SD1
+//    UNet's level-2 attention, 1280 channels over 8 heads, from 768^2) the
+//    Q tile and the two K/V stages take 200 KB of shared memory, and each
+//    consumer holds a 64 x 160 fp32 accumulator (80 registers a thread)
+//    beside S (64) and P (32); O += P V is one m64n160k16 RS wgmma per
+//    16 keys.
 // Masks are template parameters, so the no-mask form carries no mask code:
 // causal visits no key tile above the diagonal and masks per logit only where
 // a tile crosses it; the key tail is masked on the last tile only (TMA's
@@ -129,7 +135,7 @@ struct Cfg {
   static constexpr int kBars = 1 + 2 * kStages + 2;
   static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
   static_assert(kSmemBytes <= 232448, "shared memory");
-  static_assert(DP % 16 == 0 && DP <= 128, "head dim");
+  static_assert(DP % 16 == 0 && (DP <= 128 || DP == 160), "head dim");
 };
 
 struct Params {
@@ -798,8 +804,8 @@ cudaError_t launch_masked(int code, const void* q, const void* k,
 // (batch, head, row, col) for the bias; the head-dim stride is 1. lse is
 // (B, H, Lq) contiguous fp32. bias (fp32, or bf16 when bias_bf16) and the six
 // segment arrays of mask.cuh are null when the form is not asked for. Head
-// dims 40, 48, 64, 72, 80 and 128 run here, the masked forms at 64 and 128;
-// others (d = 512: fdsd_flash_fwd_d512) return cudaErrorInvalidValue.
+// dims 40, 48, 64, 72, 80, 128 and 160 run here, the masked forms at 64 and
+// 128; others (d = 512: fdsd_flash_fwd_d512) return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, const void* bias,
                               const void* q_ids, const void* kv_ids,
@@ -845,6 +851,9 @@ extern "C" int fdsd_flash_fwd(const void* q, const void* k, const void* v,
       break;
     case 128:  // tiny-SD UNet
       err = launch<128>(q, k, v, B, strides, p, s);
+      break;
+    case 160:  // SD1 UNet level 2 (1280 / 8 heads), from 768^2 images
+      err = launch<160>(q, k, v, B, strides, p, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -1,7 +1,7 @@
 // Flash-attention forward on fp32 inputs for Hopper (sm_90a) on the tensor
-// cores: the fp32 form of K1 (no mask at head dims 40, 48, 64, 72, 80, 128
-// and 512; causal at 64) and of K5 (position masks at 64, online and
-// bounded).
+// cores: the fp32 form of K1 (no mask at head dims 40, 48, 64, 72, 80, 128,
+// 160 and 512; causal at 64; T5's additive bias at 64) and of K5 (position
+// masks at 64, online and bounded).
 //
 // Replaces, for fp32 q, k, v, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
@@ -35,7 +35,7 @@
 // replaces used), and at small head dims the exponentials.
 //
 // Design.
-//  - A split pre-pass (split_f32_rows_kernel, split_f32_vt_kernel) writes,
+//  - The split pre-pass of split_f32.cuh (shared with the backward) writes,
 //    into a workspace the caller allocates, q and k as (2, B, H, L, d) hi /
 //    lo terms and v TRANSPOSED as (2, B, H, d, Lk8) hi / lo terms (keys
 //    padded with zeros to Lk8, a multiple of kKeyGroup = 8). TF32 wgmma
@@ -56,6 +56,25 @@
 //    3 x d / 8 SS wgmmas, the softmax in fp32 registers, and O += P V as
 //    3 x kBK / 8 RS wgmmas. The Q tile holds both terms, so at d = 128 (Q
 //    128 KB) the key tiles are 32 long on a single stage each.
+//  - K1 at head dim 160 (the SD1 UNet's level-2 attention from 768^2) is the
+//    same kernel with one consumer warpgroup and 64-query blocks: a
+//    128-query Q tile's two terms would take 160 KB. Chosen over the d = 512
+//    design (Q, K and V^T streamed through slots, two consumers splitting S
+//    by keys) because 160 still leaves Q resident: Q 80 KB, one stage of K
+//    and of V^T with 32 keys each (40 KB each), 160 KB in all. P V runs in
+//    two halves of 80 output columns, each into a fresh accumulator of 40
+//    registers. A 64-query block keeps one warpgroup on the tensor cores,
+//    so the softmax is not hidden behind the other's products; the shape
+//    is rare (768^2 and larger, fp32) and this is the simple form.
+//  - The bias form (T5's relative-position bias, d = 64, scale 1.0): the
+//    producer warpgroup's 128 threads stage each (128 queries x 64 keys)
+//    fp32 bias tile by cp.async from the bias's strides, as the bf16 K1's
+//    producer does (one stage, 32 KB, swizzled; 230,488 B in all); the
+//    consumers add it to the scaled logits in fp32 after the three-term
+//    product and before the row max. The key tail is masked after it, so a
+//    bias narrows the tail mask and never replaces it; a logit at -1e30 or
+//    -inf is selected to probability 0, so a row the bias hides whole gives
+//    out = 0 and lse = -1e30.
 //  - K1 at head dim 512 (flash_fwd_f32_d512_kernel): 512-wide fp32 tiles do
 //    not fit twice over, so nothing stays resident. One block of three
 //    warpgroups per (b*h, 64 queries, key split), as in the bf16 kernel of
@@ -75,6 +94,7 @@
 
 #include "../pos_tile.cuh"
 #include "../sm90.cuh"
+#include "split_f32.cuh"
 
 namespace {
 
@@ -88,8 +108,6 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kPasses = 3;    // TF32 wgmma passes per product
 static_assert(kPasses == 3, "hi hi + hi lo + lo hi");
-constexpr int kKeyGroup = 8;  // V^T keys: padded to, and permuted within
-constexpr int kBQ = 128;      // queries per block, d <= 128
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kConsumers = 256;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
@@ -109,7 +127,7 @@ struct Work {
 
 Work carve(void* work, int B, int H, int Lq, int Lk, int d) {
   Work w;
-  w.lk8 = (Lk + kKeyGroup - 1) / kKeyGroup * kKeyGroup;
+  w.lk8 = round_up8(Lk);
   w.nq = static_cast<long long>(B) * H * Lq * d;
   w.nk = static_cast<long long>(B) * H * Lk * d;
   w.nv = static_cast<long long>(B) * H * d * w.lk8;
@@ -120,92 +138,25 @@ Work carve(void* work, int B, int H, int Lq, int Lk, int d) {
   return w;
 }
 
-__device__ __forceinline__ void split(float x, float& hi, float& lo) {
-  hi = __uint_as_float(s9::to_tf32(x));
-  lo = __uint_as_float(s9::to_tf32(x - hi));
-}
-
-// The key at position p of its group of 8 in v^T: 2p for p < 4, else
-// 2(p - 4) + 1.
-__device__ __forceinline__ int key_at(int p) {
-  return p < 4 ? 2 * p : 2 * (p - 4) + 1;
-}
-
-struct RowsArgs {
-  const float* x[2];     // q, k
-  long long st[2][3];    // their (batch, head, seq) element strides
-  float* out[2];         // hi at out, lo at out + n
-  long long n[2];        // floats of one term
-  int L[2];
-  int H, d;
-};
-
-// q and k (blockIdx.y) into contiguous hi / lo terms, one float4 a thread.
-__global__ void __launch_bounds__(256) split_f32_rows_kernel(const RowsArgs a) {
-  const int y = blockIdx.y;
-  const long long n4 = a.n[y] / 4;
-  const int dv = a.d / 4;
-  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4;
-       i += 256LL * gridDim.x) {
-    const int c = static_cast<int>(i % dv) * 4;
-    const long long rest = i / dv;
-    const int l = static_cast<int>(rest % a.L[y]);
-    const int bh = static_cast<int>(rest / a.L[y]);
-    const int b = bh / a.H, h = bh % a.H;
-    const float4 x = *reinterpret_cast<const float4*>(
-        a.x[y] + b * a.st[y][0] + h * a.st[y][1] + l * a.st[y][2] + c);
-    float4 hi, lo;
-    split(x.x, hi.x, lo.x);
-    split(x.y, hi.y, lo.y);
-    split(x.z, hi.z, lo.z);
-    split(x.w, hi.w, lo.w);
-    reinterpret_cast<float4*>(a.out[y])[i] = hi;
-    reinterpret_cast<float4*>(a.out[y] + a.n[y])[i] = lo;
-  }
-}
-
-// v (B, H, Lk, d) through its strides into v^T hi / lo terms (2, B, H, d,
-// lk8), keys permuted within groups of 8, zeros past Lk. One block of 32 x 8
-// threads per (32 keys, 32 columns, b*h), through a padded shared tile.
-__global__ void __launch_bounds__(256)
-split_f32_vt_kernel(const float* __restrict__ v, long long s0, long long s1,
-                    long long s2, float* __restrict__ vt, long long n, int H,
-                    int Lk, int lk8, int d) {
-  __shared__ float tile[32][33];
-  const int k0 = blockIdx.x * 32, c0 = blockIdx.y * 32, bh = blockIdx.z;
-  const int b = bh / H, h = bh % H;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 8 * i, col = c0 + tx;
-    tile[ty + 8 * i][tx] = key < Lk && col < d
-                               ? v[b * s0 + h * s1 + key * s2 + col]
-                               : 0.f;
-  }
-  __syncthreads();
-  const int key = (tx & ~7) + key_at(tx & 7);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = c0 + ty + 8 * i;
-    if (row < d && k0 + tx < lk8) {
-      float hi, lo;
-      split(tile[key][ty + 8 * i], hi, lo);
-      const long long at = (static_cast<long long>(bh) * d + row) * lk8 + k0 + tx;
-      vt[at] = hi;
-      vt[n + at] = lo;
-    }
-  }
-}
-
-// ------------------------------------------------ K1 / K5 at d <= 128
-template <int DP>
+// ------------------------------------------------ K1 / K5 at d <= 160
+// Two consumer warpgroups of 64 query rows (128 queries a block) up to
+// d = 128; one at d = 160, where a 128-query Q tile's two terms alone would
+// take 160 KB. HAS_BIAS adds a (kBQ x kBK) fp32 bias tile.
+template <int DP, bool HAS_BIAS = false>
 struct Cfg {
+  static constexpr int kCons = DP <= 128 ? 2 : 1;
+  static constexpr int kBQ = 64 * kCons;  // queries per block
+  static constexpr int kThreads = 128 * (1 + kCons);
+  static constexpr int kConsumers = 128 * kCons;
   static constexpr int W = DP % 32 == 0 ? 32 : 8;  // columns per swizzle row
   static constexpr uint32_t kLayout = W == 32 ? 1 : 3;  // 128B / 32B swizzle
   static constexpr uint32_t kAtom = 8 * W * 4;          // 8 rows of a chunk
   static constexpr int kChunks = DP / W;
   static constexpr int kBK = DP >= 80 ? 32 : 64;  // keys per tile
-  static constexpr int kStages = DP == 128 ? 1 : 2;
+  static constexpr int kStages = DP >= 128 ? 1 : 2;
+  // output columns per P V wgmma: at d = 160 two halves of 80, so that the
+  // fresh accumulator of a key tile's P V stays 40 registers
+  static constexpr int kPVN = DP == 160 ? 80 : DP;
   static constexpr int kQChunk = kBQ * W * 4, kKChunk = kBK * W * 4;
   static constexpr int kVChunk = DP * 128;  // 32 keys of every v^T row
   static constexpr int kQTerm = kBQ * DP * 4;  // one term of the Q tile
@@ -213,12 +164,14 @@ struct Cfg {
   static constexpr int kVTerm = DP * kBK * 4;  // one term of a v^T tile
   static constexpr int kKOff = 2 * kQTerm;
   static constexpr int kVOff = kKOff + kStages * 2 * kKTerm;
-  static constexpr int kBarOff = kVOff + kStages * 2 * kVTerm;
-  // Q full; K full and empty, V full and empty per stage
-  static constexpr int kBars = 1 + 4 * kStages;
+  static constexpr int kBiasOff = kVOff + kStages * 2 * kVTerm;
+  static constexpr int kBarOff = kBiasOff + (HAS_BIAS ? kBQ * kBK * 4 : 0);
+  // Q full; K full and empty, V full and empty per stage; bias full, empty
+  static constexpr int kBars = 1 + 4 * kStages + 2;
   static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
   static_assert(kSmemBytes <= 232448, "shared memory");
-  static_assert(DP % 8 == 0 && DP <= 128, "head dim");
+  static_assert(DP % 8 == 0 && (DP <= 128 || DP == 160), "head dim");
+  static_assert(!HAS_BIAS || DP == 64, "the bias form: d = 64");
 };
 
 struct Params {
@@ -227,39 +180,67 @@ struct Params {
   int B, H, Lq, Lk, n_qt;
   long long os[3];  // out's (batch, head, seq) element strides
   float scale;
-  PosArgs pos;  // MASKED only; null offsets read as 0
+  PosArgs pos;       // MASKED only; null offsets read as 0
+  fdsd::MaskArgs m;  // HAS_BIAS only: the fp32 bias and its strides
 };
 
-template <int DP, bool MASKED, bool BOUNDED>
-__global__ void __launch_bounds__(kThreads, 1)
+// logit = scale * s + bias in fp32, for this thread's tile rows rl0, rl1.
+template <int BK>
+__device__ __forceinline__ void add_bias(float (&s)[BK / 2], const float* tile,
+                                         int rl0, int rl1, int t,
+                                         float scale) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 b0 = s9::load_pair(tile + s9::bias_at<BK>(rl0, c));
+    const float2 b1 = s9::load_pair(tile + s9::bias_at<BK>(rl1, c));
+    s[4 * j] = fmaf(s[4 * j], scale, b0.x);
+    s[4 * j + 1] = fmaf(s[4 * j + 1], scale, b0.y);
+    s[4 * j + 2] = fmaf(s[4 * j + 2], scale, b1.x);
+    s[4 * j + 3] = fmaf(s[4 * j + 3], scale, b1.y);
+  }
+}
+
+template <int DP, bool MASKED, bool BOUNDED, bool HAS_BIAS>
+__global__ void __launch_bounds__(Cfg<DP>::kThreads, 1)
 flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ Params p) {
-  using C = Cfg<DP>;
-  constexpr int BK = C::kBK, S = C::kStages;
+  using C = Cfg<DP, HAS_BIAS>;
+  constexpr int BK = C::kBK, S = C::kStages, BQ = C::kBQ;
+  // a logit at -1e30 is a masked one, selected to probability 0
+  constexpr bool kSelect = MASKED || HAS_BIAS;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t base = (s9::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t raw = s9::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* bias_s =
+      reinterpret_cast<float*>(smem_raw + (base - raw) + C::kBiasOff);
   const uint32_t q_s = base, k_s = base + C::kKOff, v_s = base + C::kVOff;
   const uint32_t q_full = base + C::kBarOff;
   const uint32_t kfull0 = q_full + 8, kempty0 = kfull0 + 8 * S;
   const uint32_t vfull0 = kempty0 + 8 * S, vempty0 = vfull0 + 8 * S;
+  const uint32_t bias_full = vempty0 + 8 * S, bias_empty = bias_full + 8;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x / p.n_qt;
   int qt = blockIdx.x % p.n_qt;
   if (MASKED && p.pos.causal) qt = p.n_qt - 1 - qt;  // long rows first
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = qt * kBQ;
+  const int q0 = qt * BQ;
 
   if (tid == 0) {
     s9::mbar_init(q_full, 1);
     for (int s = 0; s < S; ++s) {
       s9::mbar_init(kfull0 + 8 * s, 1);
-      s9::mbar_init(kempty0 + 8 * s, kConsumers);
+      s9::mbar_init(kempty0 + 8 * s, C::kConsumers);
       s9::mbar_init(vfull0 + 8 * s, 1);
-      s9::mbar_init(vempty0 + 8 * s, kConsumers);
+      s9::mbar_init(vempty0 + 8 * s, C::kConsumers);
+    }
+    if (HAS_BIAS) {
+      s9::mbar_init(bias_full, 128);
+      s9::mbar_init(bias_empty, C::kConsumers);
     }
     s9::mbar_init_fence();
   } else if (tid == 32) {  // fetch the descriptors while barriers are set up
@@ -287,40 +268,53 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
   auto pair = [&](int kt) {
     if (!masked) return 1;
     int q_lo, q_hi, k_lo, k_hi;
-    pos_bounds(q0, kBQ, q_off0, q_off1, p.pos.seg_q, p.Lq, q_lo, q_hi);
+    pos_bounds(q0, BQ, q_off0, q_off1, p.pos.seg_q, p.Lq, q_lo, q_hi);
     pos_bounds(kt * BK, BK, k_off0, k_off1, p.pos.seg_k, p.Lk, k_lo, k_hi);
     return pos_pair(p.pos, q_lo, q_hi, k_lo, k_hi);
   };
 
   if (tid < 128) {
     // ------------------------------------------------------------ producer
+    // One thread issues TMA; in the bias form all 128 stage the bias tile
+    // by cp.async, as the bf16 K1's producer does.
     s9::reg_dealloc<kProducerRegs>();
-    if (tid != 0) return;
-    s9::mbar_expect_tx(q_full, 2 * C::kQTerm);
-    for (int term = 0; term < 2; ++term)
-      for (int c = 0; c < C::kChunks; ++c)
-        s9::tma_load_4d(q_s + term * C::kQTerm + c * C::kQChunk, &tq, q_full,
-                        c * C::W, q0, h, b + term * p.B);
+    if (!HAS_BIAS && tid != 0) return;
+    if (tid == 0) {
+      s9::mbar_expect_tx(q_full, 2 * C::kQTerm);
+      for (int term = 0; term < 2; ++term)
+        for (int c = 0; c < C::kChunks; ++c)
+          s9::tma_load_4d(q_s + term * C::kQTerm + c * C::kQChunk, &tq,
+                          q_full, c * C::W, q0, h, b + term * p.B);
+    }
+    const long long bias_base = HAS_BIAS ? b * p.m.bs[0] + h * p.m.bs[1] : 0;
     int stage = 0;
-    uint32_t phase = 0;
+    uint32_t phase = 0, bias_phase = 0;
     for (int kt = 0; kt < n_kt; ++kt) {
       if (pair(kt) == 0) continue;
       const int k0 = kt * BK;
-      const uint32_t kfull = kfull0 + 8 * stage, vfull = vfull0 + 8 * stage;
-      s9::mbar_wait(kempty0 + 8 * stage, phase ^ 1);
-      s9::mbar_expect_tx(kfull, 2 * C::kKTerm);
-      for (int term = 0; term < 2; ++term)
-        for (int c = 0; c < C::kChunks; ++c)
-          s9::tma_load_4d(
-              k_s + (2 * stage + term) * C::kKTerm + c * C::kKChunk, &tk,
-              kfull, c * C::W, k0, h, b + term * p.B);
-      s9::mbar_wait(vempty0 + 8 * stage, phase ^ 1);
-      s9::mbar_expect_tx(vfull, 2 * C::kVTerm);
-      for (int term = 0; term < 2; ++term)
-        for (int kc = 0; kc < BK / 32; ++kc)
-          s9::tma_load_4d(
-              v_s + (2 * stage + term) * C::kVTerm + kc * C::kVChunk, &tv,
-              vfull, k0 + 32 * kc, 0, h, b + term * p.B);
+      if (tid == 0) {
+        const uint32_t kfull = kfull0 + 8 * stage, vfull = vfull0 + 8 * stage;
+        s9::mbar_wait(kempty0 + 8 * stage, phase ^ 1);
+        s9::mbar_expect_tx(kfull, 2 * C::kKTerm);
+        for (int term = 0; term < 2; ++term)
+          for (int c = 0; c < C::kChunks; ++c)
+            s9::tma_load_4d(
+                k_s + (2 * stage + term) * C::kKTerm + c * C::kKChunk, &tk,
+                kfull, c * C::W, k0, h, b + term * p.B);
+        s9::mbar_wait(vempty0 + 8 * stage, phase ^ 1);
+        s9::mbar_expect_tx(vfull, 2 * C::kVTerm);
+        for (int term = 0; term < 2; ++term)
+          for (int kc = 0; kc < BK / 32; ++kc)
+            s9::tma_load_4d(
+                v_s + (2 * stage + term) * C::kVTerm + kc * C::kVChunk, &tv,
+                vfull, k0 + 32 * kc, 0, h, b + term * p.B);
+      }
+      if constexpr (HAS_BIAS) {
+        s9::mbar_wait(bias_empty, bias_phase ^ 1);
+        s9::stage_bias<BQ, BK>(bias_s, p.m, bias_base, q0, k0, p.Lq, p.Lk,
+                               tid, bias_full);
+        bias_phase ^= 1;
+      }
       if (++stage == S) {
         stage = 0;
         phase ^= 1;
@@ -332,8 +326,10 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
     const int cw = (tid - 128) / 128;  // query rows 64*cw .. 64*cw + 63
     const int warp = (tid / 32) % 4, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int r0 = q0 + 64 * cw + 16 * warp + g, r1 = r0 + 8;
-    const float c = p.scale * kLog2e;  // exp(x * scale) = exp2(x * c)
+    const int rl0 = 64 * cw + 16 * warp + g, rl1 = rl0 + 8;  // tile rows
+    const int r0 = q0 + rl0, r1 = q0 + rl1;
+    // exp(x * scale) = exp2(x * c); with a bias the logits are scaled first
+    const float c = HAS_BIAS ? kLog2e : p.scale * kLog2e;
     int qpos0 = 0, qpos1 = 0;
     if (masked) {
       qpos0 = pos_of(r0, q_off0, q_off1, p.pos.seg_q);
@@ -343,7 +339,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
     // share of the row sums
     float m0 = BOUNDED ? 0.f : kNegInf, m1 = m0;
     float l0 = 0.f, l1 = 0.f;
-    float o[DP / 2], pv[DP / 2];  // O, and this key tile's P V
+    float o[DP / 2], pv[C::kPVN / 2];  // O, and one chunk of a tile's P V
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
     float s[BK / 2];
@@ -351,7 +347,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
 
     s9::mbar_wait(q_full, 0);  // also when no tile is visited: TMA is done
     int stage = 0;
-    uint32_t phase = 0;
+    uint32_t phase = 0, bias_phase = 0;
     for (int kt = 0; kt < n_kt; ++kt) {
       const int state = pair(kt);
       if (state == 0) continue;
@@ -384,8 +380,16 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
       s9::fence_regs(s);
       s9::mbar_arrive(kempty0 + 8 * stage);  // K of this stage is read
 
+      if (HAS_BIAS) {  // logit = scale * s + bias, in fp32
+        s9::mbar_wait(bias_full, bias_phase);
+        add_bias<BK>(s, bias_s, rl0, rl1, t, p.scale);
+        s9::mbar_arrive(bias_empty);
+        bias_phase ^= 1;
+      }
+
       // Per-logit masks (the key tail; valid_len and causal by position),
-      // only on the tiles that need them.
+      // only on the tiles that need them. The key tail is masked after the
+      // bias, which narrows it and never replaces it.
       if (k0 + BK > p.Lk || state == 2) {
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
@@ -408,10 +412,11 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
       }
 
       // The softmax in fp32 registers: online (running max, rescale of l
-      // and O) or bounded (max fixed at 0). A logit at -1e30 is masked and
-      // selected to probability 0; a row with nothing visible yet subtracts
-      // 0. P is split into TF32 hi / lo A fragments of P V: accumulator
-      // columns (2t, 2t + 1) of a k-step are the fragment's (t, t + 4).
+      // and O) or bounded (max fixed at 0). A logit at -1e30 (or -inf, from
+      // a bias) is masked and selected to probability 0; a row with nothing
+      // visible yet subtracts 0. P is split into TF32 hi / lo A fragments
+      // of P V: accumulator columns (2t, 2t + 1) of a k-step are the
+      // fragment's (t, t + 4).
       float al0 = 1.f, al1 = 1.f, sub0 = 0.f, sub1 = 0.f;
       if (!BOUNDED) {
         float mx0 = kNegInf, mx1 = kNegInf;
@@ -426,8 +431,8 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
           mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
         }
         const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        const float mu0 = MASKED && mn0 == kNegInf ? 0.f : mn0;
-        const float mu1 = MASKED && mn1 == kNegInf ? 0.f : mn1;
+        const float mu0 = kSelect && mn0 <= kNegInf ? 0.f : mn0;
+        const float mu1 = kSelect && mn1 <= kNegInf ? 0.f : mn1;
         al0 = s9::exp2_approx((m0 - mu0) * c);
         al1 = s9::exp2_approx((m1 - mu1) * c);
         m0 = mn0;
@@ -443,7 +448,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < 4; ++e) {
           const float x = s[4 * j + e];
           float pr = s9::exp2_approx(fmaf(x, c, -(e < 2 ? sub0 : sub1)));
-          if (MASKED && x <= kNegInf) pr = 0.f;  // selected, not exp'd
+          if (kSelect && x <= kNegInf) pr = 0.f;  // selected, not exp'd
           if (e < 2)
             sum0 += pr;
           else
@@ -457,39 +462,46 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
       l1 = l1 * al1 + sum1;
 
       // This tile's P V in three passes, P_lo V_hi + P_hi V_lo + P_hi V_hi,
-      // into a fresh accumulator; v^T K-major, the k-step kk is keys
-      // 8kk .. 8kk + 7. Then O = alpha O + P V in registers.
+      // into a fresh accumulator per chunk of kPVN output columns; v^T
+      // K-major, the k-step kk is keys 8kk .. 8kk + 7. Then O = alpha O +
+      // P V in registers.
       s9::mbar_wait(vfull0 + 8 * stage, phase);
-      s9::fence_regs(pv);
-      s9::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk) {
-        const uint32_t va = vs + (kk / 4) * C::kVChunk + (kk % 4) * 32;
-        const uint64_t vh = s9::smem_desc(va, 16, 1024, 1);
-        const uint64_t vl = s9::smem_desc(va + C::kVTerm, 16, 1024, 1);
-        s9::wgmma_tf32_rs<DP>(pv, pl[kk], vh, kk > 0);
-        s9::wgmma_tf32_rs<DP>(pv, ph[kk], vl, 1);
-        s9::wgmma_tf32_rs<DP>(pv, ph[kk], vh, 1);
+      for (int nc = 0; nc < DP / C::kPVN; ++nc) {
+        s9::fence_regs(pv);
+        s9::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          const uint32_t va = vs + (kk / 4) * C::kVChunk + (kk % 4) * 32 +
+                              nc * C::kPVN * 128;
+          const uint64_t vh = s9::smem_desc(va, 16, 1024, 1);
+          const uint64_t vl = s9::smem_desc(va + C::kVTerm, 16, 1024, 1);
+          s9::wgmma_tf32_rs<C::kPVN>(pv, pl[kk], vh, kk > 0);
+          s9::wgmma_tf32_rs<C::kPVN>(pv, ph[kk], vl, 1);
+          s9::wgmma_tf32_rs<C::kPVN>(pv, ph[kk], vh, 1);
+        }
+        s9::wgmma_commit();
+        s9::wgmma_wait<0>();
+        s9::fence_regs(pv);
+        float* oc = o + nc * (C::kPVN / 2);
+#pragma unroll
+        for (int j = 0; j < C::kPVN / 8; ++j) {
+          oc[4 * j] = fmaf(oc[4 * j], al0, pv[4 * j]);
+          oc[4 * j + 1] = fmaf(oc[4 * j + 1], al0, pv[4 * j + 1]);
+          oc[4 * j + 2] = fmaf(oc[4 * j + 2], al1, pv[4 * j + 2]);
+          oc[4 * j + 3] = fmaf(oc[4 * j + 3], al1, pv[4 * j + 3]);
+        }
       }
-      s9::wgmma_commit();
-      s9::wgmma_wait<0>();
-      s9::fence_regs(pv);
       s9::mbar_arrive(vempty0 + 8 * stage);  // v^T of this stage is read
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        o[4 * j] = fmaf(o[4 * j], al0, pv[4 * j]);
-        o[4 * j + 1] = fmaf(o[4 * j + 1], al0, pv[4 * j + 1]);
-        o[4 * j + 2] = fmaf(o[4 * j + 2], al1, pv[4 * j + 2]);
-        o[4 * j + 3] = fmaf(o[4 * j + 3], al1, pv[4 * j + 3]);
-      }
       if (++stage == S) {
         stage = 0;
         phase ^= 1;
       }
     }
 
-    // Epilogue: O / l in fp32 through out's strides; lse = m scale + log l;
-    // a row with l = 0 gives out = 0 and lse = -1e30.
+    // Epilogue: O / l in fp32 through out's strides; lse = m scale + log l
+    // (m in scaled units with a bias); a row with l = 0 gives out = 0 and
+    // lse = -1e30.
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
@@ -497,6 +509,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
     }
     const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
     const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+    const float to_ln = HAS_BIAS ? 1.f : p.scale;
     float* ob = p.out + b * p.os[0] + h * p.os[1];
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
@@ -510,8 +523,8 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
     }
     float* lb = p.lse + static_cast<long long>(bh) * p.Lq;
     if (t == 0) {
-      if (r0 < p.Lq) lb[r0] = l0 == 0.f ? kNegInf : m0 * p.scale + logf(l0);
-      if (r1 < p.Lq) lb[r1] = l1 == 0.f ? kNegInf : m1 * p.scale + logf(l1);
+      if (r0 < p.Lq) lb[r0] = l0 == 0.f ? kNegInf : m0 * to_ln + logf(l0);
+      if (r1 < p.Lq) lb[r1] = l1 == 0.f ? kNegInf : m1 * to_ln + logf(l1);
     }
   }
 }
@@ -884,7 +897,7 @@ merge_f32_d512_kernel(const float* __restrict__ work, float* __restrict__ out,
 
 // ---------------------------------------------------------------- host side
 // The split pre-pass: q, k (through their strides, 12 element strides of q,
-// k, v first) and v into the workspace's terms.
+// k, v first) and v (transposed) into the workspace's terms.
 cudaError_t split_inputs(const void* q, const void* k, const void* v,
                          const long long* st, int B, int H, int Lq, int Lk,
                          int d, const Work& w, cudaStream_t s) {
@@ -903,17 +916,9 @@ cudaError_t split_inputs(const void* q, const void* k, const void* v,
   a.L[1] = Lk;
   a.H = H;
   a.d = d;
-  const long long most = (w.nq > w.nk ? w.nq : w.nk) / 4;
-  const int blocks = static_cast<int>(most / 256 + 1 < 4096 ? most / 256 + 1
-                                                           : 4096);
-  split_f32_rows_kernel<<<dim3(blocks, 2), 256, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = split_rows(a, 2, s);
   if (err != cudaSuccess) return err;
-  split_f32_vt_kernel<<<dim3((w.lk8 + 31) / 32, (d + 31) / 32, B * H),
-                        dim3(32, 8), 0, s>>>(
-      static_cast<const float*>(v), st[6], st[7], st[8], w.vt, w.nv, H, Lk,
-      w.lk8, d);
-  return cudaGetLastError();
+  return split_transposed(v, st + 6, w.vt, w.nv, B, H, Lk, d, s);
 }
 
 // The tensor maps of the terms: q and k (d, L, H, 2B), box W columns x
@@ -940,16 +945,18 @@ cudaError_t term_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
   return err;
 }
 
-template <int DP, bool MASKED = false, bool BOUNDED = false>
-cudaError_t run(const Work& w, const Params& p, cudaStream_t s) {
-  using C = Cfg<DP>;
+template <int DP, bool MASKED = false, bool BOUNDED = false,
+          bool HAS_BIAS = false>
+cudaError_t run(const Work& w, Params p, cudaStream_t s) {
+  using C = Cfg<DP, HAS_BIAS>;
+  p.n_qt = (p.Lq + C::kBQ - 1) / C::kBQ;
   CUtensorMap tq, tk, tv;
   const cudaError_t err = term_maps(&tq, &tk, &tv, w, p.B, p.H, p.Lq, p.Lk,
-                                    DP, C::W, kBQ, C::kBK, DP);
+                                    DP, C::W, C::kBQ, C::kBK, DP);
   if (err != cudaSuccess) return err;
-  return s9::launch_kernel(flash_fwd_f32_kernel<DP, MASKED, BOUNDED>,
-                           p.B * p.H * p.n_qt, kThreads, C::kSmemBytes, s, tq,
-                           tk, tv, p);
+  return s9::launch_kernel(flash_fwd_f32_kernel<DP, MASKED, BOUNDED, HAS_BIAS>,
+                           p.B * p.H * p.n_qt, C::kThreads, C::kSmemBytes, s,
+                           tq, tk, tv, p);
 }
 
 cudaError_t run_d512(const Work& w, const Params& q, int splits,
@@ -996,7 +1003,6 @@ Params fwd_params(void* out, void* lse, int B, int H, int Lq, int Lk,
   p.H = H;
   p.Lq = Lq;
   p.Lk = Lk;
-  p.n_qt = (Lq + kBQ - 1) / kBQ;
   for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
   p.scale = scale;
   p.pos = PosArgs{nullptr, nullptr, Lq, Lk, 0, 0, 0};
@@ -1005,30 +1011,39 @@ Params fwd_params(void* out, void* lse, int B, int H, int Lq, int Lk,
 
 }  // namespace
 
-// K1 in fp32. strides: 12 element strides, (batch, head, seq) for q, k, v,
-// out, each a multiple of 4; the head-dim stride is 1. lse is (B, H, Lq)
-// contiguous fp32. work: fp32 scratch of 2 B H (Lq + Lk) d + 2 B H d Lk8
-// floats (Lk8: Lk rounded up to 8), plus splits * B * H * Lq * 513 at
-// d = 512 with splits > 1 (1 to 4 key splits per 64-query tile; ignored at
-// other head dims). Head dims 40, 48, 64, 72, 80, 128 and 512 without a mask,
-// 64 with causal; others return cudaErrorInvalidValue.
+// K1 in fp32. strides: 16 element strides, (batch, head, seq) for q, k, v,
+// out, each a multiple of 4 (the head-dim stride is 1), then (batch, head,
+// row, col) for the bias. lse is (B, H, Lq) contiguous fp32. bias: fp32,
+// read through its strides (0 on a broadcast axis), or null. work: fp32
+// scratch of 2 B H (Lq + Lk) d + 2 B H d Lk8 floats (Lk8: Lk rounded up to
+// 8), plus splits * B * H * Lq * 513 at d = 512 with splits > 1 (1 to 4 key
+// splits per 64-query tile; ignored at other head dims). Head dims 40, 48,
+// 64, 72, 80, 128, 160 and 512 without a mask, 64 with causal or with a
+// bias; others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
-                                  void* out, void* lse, void* work, int B,
-                                  int H, int Lq, int Lk, int d,
-                                  const long long* strides, float scale,
-                                  int causal, int splits, void* stream) {
+                                  void* out, void* lse, void* work,
+                                  const void* bias, int B, int H, int Lq,
+                                  int Lk, int d, const long long* strides,
+                                  float scale, int causal, int splits,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p = fwd_params(out, lse, B, H, Lq, Lk, strides, scale);
   const Work w = carve(work, B, H, Lq, Lk, d);
-  if (causal ? d != 64
-             : d != 40 && d != 48 && d != 64 && d != 72 && d != 80 &&
-                   d != 128 && d != 512)
+  if (causal || bias != nullptr
+          ? d != 64 || (causal && bias != nullptr)
+          : d != 40 && d != 48 && d != 64 && d != 72 && d != 80 &&
+                d != 128 && d != 160 && d != 512)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = split_inputs(q, k, v, strides, B, H, Lq, Lk, d, w, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (causal) {
     p.pos.causal = 1;
     return static_cast<int>(run<64, true>(w, p, s));
+  }
+  if (bias != nullptr) {  // T5's relative-position bias
+    p.m = fdsd::make_mask_args(bias, strides + 12, 0, nullptr, nullptr,
+                               nullptr, nullptr, nullptr, nullptr);
+    return static_cast<int>(run<64, false, false, true>(w, p, s));
   }
   switch (d) {
     case 40:  // SD1 UNet at 64^2
@@ -1043,6 +1058,8 @@ extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
       return static_cast<int>(run<80>(w, p, s));
     case 128:  // tiny-SD UNet
       return static_cast<int>(run<128>(w, p, s));
+    case 160:  // SD1 UNet level 2, from 768^2 images
+      return static_cast<int>(run<160>(w, p, s));
     default:  // 512: the VAEs' mid attention
       return static_cast<int>(run_d512(w, p, splits, s));
   }

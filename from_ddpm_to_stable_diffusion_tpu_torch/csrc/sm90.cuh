@@ -170,9 +170,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #define FDSD_F36 FDSD_F32, FDSD_F4(32)
 #define FDSD_F40 FDSD_F32, FDSD_F8(32)
 #define FDSD_F64 FDSD_F40, FDSD_F8(40), FDSD_F8(48), FDSD_F8(56)
+#define FDSD_F80 FDSD_F64, FDSD_F8(64), FDSD_F8(72)
 #define FDSD_F128                                                          \
   FDSD_F64, FDSD_F8(64), FDSD_F8(72), FDSD_F8(80), FDSD_F8(88), FDSD_F8(96), \
       FDSD_F8(104), FDSD_F8(112), FDSD_F8(120)
+#define FDSD_R8 "{%0,%1,%2,%3,%4,%5,%6,%7}"
 #define FDSD_R16 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}"
 #define FDSD_R20 \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19}"
@@ -194,6 +196,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
   "%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55," \
   "%56,%57,%58,%59,%60,%61,%62,%63}"
+#define FDSD_R80 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
+  "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
+  "%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55," \
+  "%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,%72,%73," \
+  "%74,%75,%76,%77,%78,%79}"
 #define FDSD_R128 \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
   "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
@@ -250,7 +258,8 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  static_assert(N == 48 || N == 64 || N == 80 || N == 128, "wgmma_rs: N");
+  static_assert(N == 48 || N == 64 || N == 80 || N == 128 || N == 160,
+                "wgmma_rs: N");
   if constexpr (N == 48) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
@@ -275,12 +284,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
         : FDSD_F40
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
           "r"(scale_d));
-  } else {
+  } else if constexpr (N == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FDSD_R64
         ", {%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
         : FDSD_F64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 " FDSD_R80
+        ", {%80,%81,%82,%83}, %84, p, 1, 1, 1;\n}\n"
+        : FDSD_F80
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
           "r"(scale_d));
   }
@@ -300,8 +317,15 @@ template <int N>
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2],
                                               uint64_t desc_a,
                                               uint64_t desc_b, int scale_d) {
-  static_assert(N == 32 || N == 64, "wgmma_tf32_ss: N");
-  if constexpr (N == 32) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma_tf32_ss: N");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " FDSD_R8
+        ", %8, %9, p, 1, 1;\n}\n"
+        : FDSD_F8(0)
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " FDSD_R16
@@ -368,7 +392,9 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
 #undef FDSD_F36
 #undef FDSD_F40
 #undef FDSD_F64
+#undef FDSD_F80
 #undef FDSD_F128
+#undef FDSD_R8
 #undef FDSD_R16
 #undef FDSD_R20
 #undef FDSD_R24
@@ -376,6 +402,7 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
 #undef FDSD_R36
 #undef FDSD_R40
 #undef FDSD_R64
+#undef FDSD_R80
 #undef FDSD_R128
 
 // ------------------------------------------------------------- setmaxnreg

@@ -67,22 +67,26 @@ _SIGNATURES = {
                         _I, _I, _I, _P],
 }
 _SIGNATURES_FP32 = {
-    # q, k, v, out, lse, work, B, H, Lq, Lk, d, strides[12], scale, causal,
-    # splits, stream
-    "fdsd_flash_fwd_f32": [_P] * 6 + [_I] * 5 + [_P, _F, _I, _I, _P],
+    # q, k, v, out, lse, work, bias, B, H, Lq, Lk, d, strides[12 + 4],
+    # scale, causal, splits, stream
+    "fdsd_flash_fwd_f32": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I, _P],
     # the arguments of fdsd_flash_fwd_pos with the workspace after k_off
     "fdsd_flash_fwd_pos_f32": (_SIGNATURES["fdsd_flash_fwd_pos"][:7] + [_P]
                                + _SIGNATURES["fdsd_flash_fwd_pos"][7:]),
-    # q, k, v, dO, lse, delta, dq, B, H, Lq, Lk, d, strides[15], scale,
-    # causal, stream
-    "fdsd_flash_bwd_dq_f32": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _P],
-    # q, k, v, dO, lse, delta, dk, dv, B, H, Lq, Lk, d, strides[18], scale,
-    # causal, stream
-    "fdsd_flash_bwd_dkv_f32": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, dO, lse, delta, dq, work, B, H, Lq, Lk, d, strides[15],
+    # scale, causal, stream
+    "fdsd_flash_bwd_dq_f32": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, dO, lse, delta, dk, dv, work, B, H, Lq, Lk, d, strides[18],
+    # scale, causal, stream
+    "fdsd_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _P],
     # the position-masked backward entries take the arguments of their bf16
-    # namesakes
-    **{name + "_f32": _SIGNATURES[name] for name in (
-        "fdsd_flash_bwd_pos_dq", "fdsd_flash_bwd_pos_dkv")},
+    # namesakes with the workspace after the offsets
+    "fdsd_flash_bwd_pos_dq_f32": (_SIGNATURES["fdsd_flash_bwd_pos_dq"][:9]
+                                  + [_P]
+                                  + _SIGNATURES["fdsd_flash_bwd_pos_dq"][9:]),
+    "fdsd_flash_bwd_pos_dkv_f32": (
+        _SIGNATURES["fdsd_flash_bwd_pos_dkv"][:10] + [_P]
+        + _SIGNATURES["fdsd_flash_bwd_pos_dkv"][10:]),
 }
 # library name -> (its sources' directory, its entries)
 _LIBRARIES = {"kernels": (CSRC, _SIGNATURES),

@@ -57,20 +57,21 @@ and lse = -1e30, and the backward selects masked probabilities to 0.
 
 Dtypes: every kernel has a bf16 form (tensor cores, ``csrc/*.cu``) and an
 fp32 form (``csrc/fp32/*.cu``; out, lse and the gradients fp32, as the
-Pallas kernels ask for ``Precision.HIGHEST`` on fp32 inputs). The fp32
-forward (K1, K5) runs on the tensor cores with a three-term TF32 split
-(every operand x as tf32(x) + tf32(x - tf32(x)), three wgmma passes per
-product, ``_F32_PASSES``), after a pre-pass that writes the terms, v
-transposed, into a workspace the wrapper allocates
-(:func:`f32_forward_work`); the fp32 backward is fp32 FMAs on the CUDA
-cores. Nothing is rounded below fp32's precision but the split's own
-~2^-22. The fp32 forms are a shared library of their own, built when an
+Pallas kernels ask for ``Precision.HIGHEST`` on fp32 inputs). They run on
+the tensor cores with a three-term TF32 split (every operand x as
+tf32(x) + tf32(x - tf32(x)), three wgmma passes per product,
+``_F32_PASSES``), after a pre-pass that writes the terms, transposed where
+a product reduces over the sequence, into a workspace the wrapper
+allocates (:func:`f32_forward_work`, :func:`f32_backward_work`). Nothing
+is rounded below fp32's precision but the split's own ~2^-22 of each
+product. The fp32 forms are a shared library of their own, built when an
 fp32 launch first asks for it. They cover the head dims the port's fp32
-defaults reach (``_FP32_*`` below), without a mask or causal; with a bias
-or segment ids, or at another head dim, an fp32 CUDA tensor raises
-``NotImplementedError``. Each wrapper counts its launches by dtype in
-``.dtypes`` beside ``.launches``; K1, K3, K4, K5 and K7, which run more
-than one kernel, also by kernel in ``.routes``.
+defaults reach (``_FP32_*`` below), without a mask, causal, or (K1 at 64,
+T5) a bias alone; with segment ids, another bias form or another head dim,
+an fp32 CUDA tensor raises ``NotImplementedError``. Each wrapper counts
+its launches by dtype in ``.dtypes`` beside ``.launches``; K1, K3, K4, K5
+and K7, which run more than one kernel, also by kernel in ``.routes``, and
+K1 by head dim in ``.head_dims``.
 """
 
 from __future__ import annotations
@@ -84,19 +85,22 @@ import torch
 
 from . import _build
 
-# head dims the forward kernel is instantiated for: padded to 48, 64, 80, 128
-# (the sm90 kernel) or 512 (the d512 one); the backward kernels, and the
-# masked forms of all three, take 64 (SigLIP, the TinyVLM decoder, T5) and
-# 128 (tiny-SD's UNet)
-_KERNEL_HEAD_DIMS = (40, 48, 64, 72, 80, 128, 512)
+# head dims the forward kernel is instantiated for: padded to 48, 64, 80,
+# 128, 160 (the sm90 kernel; 160 is the SD1 UNet's level-2 attention from
+# 768^2) or 512 (the d512 one); the backward kernels, and the masked forms of
+# all three, take 64 (SigLIP, the TinyVLM decoder, T5) and 128 (tiny-SD's
+# UNet)
+_KERNEL_HEAD_DIMS = (40, 48, 64, 72, 80, 128, 160, 512)
 _BWD_HEAD_DIMS = (64, 128)
 _MASK_HEAD_DIMS = (64, 128)
 _POS_HEAD_DIMS = (64, 128)
-# the fp32 forms: K1 at every forward head dim and causal at 64 (TinyVLM's
-# decoder), K3 / K4 at 64 and 128 and causal at 64, K5 / K6 / K7 at 64
+# the fp32 forms: K1 at every forward head dim, causal at 64 (TinyVLM's
+# decoder) and with a bias at 64 (T5, forward only), K3 / K4 at 64 and 128
+# and causal at 64, K5 / K6 / K7 at 64
 _FP32_HEAD_DIMS = _KERNEL_HEAD_DIMS
 _FP32_BWD_HEAD_DIMS = (64, 128)
 _FP32_CAUSAL_HEAD_DIMS = (64,)
+_FP32_BIAS_HEAD_DIMS = (64,)
 _FP32_POS_HEAD_DIMS = (64,)
 NEG_INF = -1e30   # lse of a row with no visible key
 # (query tile, key tile) of K1, K3 and K4 (the sm90 kernels): the sizes the
@@ -112,6 +116,12 @@ _F32_PASSES, _F32_KEY_GROUP = 3, 8
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _wide(x):
+    """``x`` in the plain versions' working precision: fp32, or fp64 when
+    it is fp64, so that fp64 inputs give an fp64 reference."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def _visible_pairs(lq, lk, segment_ids, causal, device):
@@ -137,19 +147,20 @@ def flash_attention_plain(q, k, v, scale: Optional[float] = None, *,
     ``bias`` is added in fp32 after the scale; ``segment_ids`` = (q_ids
     (B, Lq), kv_ids (B, Lk)) admits same-id pairs only; ``causal`` admits
     col <= row. A masked probability is selected to 0, so a row that sees no
-    key gives out = 0 and lse = -1e30."""
+    key gives out = 0 and lse = -1e30. fp64 inputs are computed in fp64
+    throughout: the reference the fp32 kernels are held to on the card."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) * scale
     if bias is not None:
-        s = s + bias.float()
+        s = s + _wide(bias)
     visible = _visible_pairs(q.shape[2], k.shape[2], segment_ids, causal,
                              q.device)
     if visible is None and bias is None:
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
         l = p.sum(dim=-1, keepdim=True)
-        out = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+        out = torch.matmul(_wide(p.to(v.dtype)), _wide(v)) / l
         return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
     if visible is not None:
         s = s.masked_fill(~visible, NEG_INF)
@@ -157,7 +168,7 @@ def flash_attention_plain(q, k, v, scale: Optional[float] = None, *,
     p = torch.where(s > NEG_INF, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.matmul(p.to(v.dtype).float(), v.float()) / safe_l
+    out = torch.matmul(_wide(p.to(v.dtype)), _wide(v)) / safe_l
     lse = torch.where(l == 0, torch.full_like(l, NEG_INF),
                       m + torch.log(safe_l))
     return out.to(q.dtype), lse.squeeze(-1)
@@ -181,10 +192,10 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g,
     is broadcast over, in the bias's dtype, as a fourth value."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    qf, kf, vf, gf = _wide(q), _wide(k), _wide(v), _wide(g)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     if bias is not None:
-        s = s + bias.float()
+        s = s + _wide(bias)
     p = torch.exp(s - lse[..., None])
     visible = _visible_pairs(q.shape[2], k.shape[2], segment_ids, causal,
                              q.device)
@@ -193,12 +204,12 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g,
         visible = ~hidden if visible is None else visible & ~hidden
     if visible is not None:
         p = torch.where(visible, p, torch.zeros_like(p))
-    delta = (gf * out.float()).sum(-1, keepdim=True)
-    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), gf)
+    delta = (gf * _wide(out)).sum(-1, keepdim=True)
+    dv = torch.matmul(_wide(p.to(v.dtype)).transpose(-1, -2), gf)
     ds32 = p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta)
     ds = ds32.to(q.dtype)
-    dq = torch.matmul(ds.float(), kf) * scale
-    dk = torch.matmul(ds.float().transpose(-1, -2), qf) * scale
+    dq = torch.matmul(_wide(ds), kf) * scale
+    dk = torch.matmul(_wide(ds).transpose(-1, -2), qf) * scale
     grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
     if need_dbias:
         return (*grads, _reduce_dbias(ds32, bias))
@@ -416,7 +427,8 @@ def _count_launch(fn, q, bias=None, segment_ids=None, causal=False,
                   route=None):
     """One more launch of ``fn``'s kernel: in ``fn.launches``, by q's dtype
     in ``fn.dtypes``, where ``fn`` has masked forms by form (causal, bias,
-    segment ids) in ``fn.forms``, and by ``route`` in ``fn.routes``."""
+    segment ids) in ``fn.forms``, by ``route`` in ``fn.routes``, and (K1) by
+    head dim in ``fn.head_dims``."""
     fn.launches += 1
     if route is not None:
         fn.routes[route] += 1
@@ -424,14 +436,22 @@ def _count_launch(fn, q, bias=None, segment_ids=None, causal=False,
     if hasattr(fn, "forms"):
         fn.forms[(bool(causal), bias is not None,
                   segment_ids is not None)] += 1
+    if hasattr(fn, "head_dims"):
+        fn.head_dims[q.shape[-1]] += 1
 
 
-def _check_fp32_form(fn, d, causal, bias, segments) -> None:
-    """Raises for the forms of ``fn`` that exist in bf16 only."""
+def _check_fp32_form(fn, d, causal, bias, segments,
+                     bias_dims=()) -> None:
+    """Raises for the forms of ``fn`` that exist in bf16 only. ``bias_dims``:
+    the head dims at which its fp32 form takes a bias, alone (K1: T5's)."""
+    if bias and not segments and not causal and d in bias_dims:
+        return
     if bias or segments:
+        also = (f", or a bias alone at head dims {bias_dims}" if bias_dims
+                else "")
         raise NotImplementedError(
             f"{fn}: the bias and segment-id forms take bf16 only; pass bf16 "
-            "q, k, v (fp32 runs without a mask or with causal=True)")
+            f"q, k, v (fp32 runs without a mask or with causal=True{also})")
     if causal and d not in _FP32_CAUSAL_HEAD_DIMS:
         raise NotImplementedError(
             f"{fn}: causal=True in fp32 takes head dims "
@@ -449,8 +469,9 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
     head dim but 512, every mask form at 64 and 128), "d512" (the TMA /
     wgmma kernel of ``csrc/flash_attention.cu``, bf16 at 512 without a mask)
     or "fp32" (``csrc/fp32/flash_f32_fwd.cu``: TMA and TF32 wgmma, three
-    passes; at 512 with the keys split as :func:`k1_d512_splits` says). Raises
-    ``NotImplementedError`` naming what the kernels take for any other."""
+    passes; at 512 with the keys split as :func:`k1_d512_splits` says; causal
+    or a bias alone at 64). Raises ``NotImplementedError`` naming what the
+    kernels take for any other."""
     fn = "flash_attention_cuda"
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the flash kernels take bf16 or fp32, not {dtype}")
@@ -459,7 +480,7 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
             raise NotImplementedError(
                 f"head dim {d} in fp32: the fp32 form of {fn} takes "
                 f"{_FP32_HEAD_DIMS}")
-        _check_fp32_form(fn, d, causal, bias, segments)
+        _check_fp32_form(fn, d, causal, bias, segments, _FP32_BIAS_HEAD_DIMS)
         return "fp32"
     if d not in _KERNEL_HEAD_DIMS:
         raise NotImplementedError(f"head dim {d}: {fn} takes "
@@ -578,10 +599,25 @@ def f32_forward_work(b: int, h: int, lq: int, lk: int, d: int,
     return n
 
 
+def f32_backward_work(b: int, h: int, lq: int, lk: int, d: int) -> int:
+    """Floats of the fp32 backward's workspace, one layout for K3 / K6 and
+    K4 / K7: the hi / lo terms of q, k, v and dO as rows (2, B, H, L, d),
+    then k transposed (2, B, H, d, Lk8) for dq and q and dO transposed
+    (2, B, H, d, Lq8) for dk / dv, L8 = L rounded up to ``_F32_KEY_GROUP``."""
+    l8 = lambda n: _cdiv(n, _F32_KEY_GROUP) * _F32_KEY_GROUP
+    return 2 * b * h * d * (2 * lq + 2 * lk + l8(lk) + 2 * l8(lq))
+
+
 def _f32_work(q, lk, splits=1):
     b, h, lq, d = q.shape
     return torch.empty(f32_forward_work(b, h, lq, lk, d, splits),
                        device=q.device, dtype=torch.float32)
+
+
+def _f32_bwd_work(q, lk):
+    b, h, lq, d = q.shape
+    return torch.empty(f32_backward_work(b, h, lq, lk, d), device=q.device,
+                       dtype=torch.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -601,27 +637,34 @@ def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
                          bias=None, segment_ids=None, causal: bool = False):
     """K1, the CUDA kernel: (out, lse) for bf16 or fp32 (B, H, L, D) CUDA
     tensors, with the masks of :func:`flash_attention_plain` (head dim 64 or
-    128; in fp32 only ``causal``, at head dim 64). Which kernel runs:
-    :func:`k1_route`; launches are counted by route in ``.routes``."""
+    128; in fp32 ``causal`` or a ``bias`` alone, at head dim 64). Which
+    kernel runs: :func:`k1_route`; launches are counted by route in
+    ``.routes`` and by head dim in ``.head_dims``."""
     b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_cuda")
     route = k1_route(q.dtype, d, bool(causal), bias is not None,
                      segment_ids is not None)
     if scale is None:
         scale = d ** -0.5
     if route == "fp32":
+        if bias is not None:   # fp32, expanded to (B, H, Lq, Lk) unmoved
+            bias, _, _, _held = _mask_args(q, lk, bias.float(), None, False,
+                                           "flash_attention_cuda",
+                                           _FWD_TILES, "q")
         out = _blhd(q, lq)
         lse = _lse_like(q)
-        strides = _strides(q, k, v, out)
+        strides = _strides(q, k, v, out, bias=bias)
         splits = (k1_d512_splits(b, h, lq, lk, _sm_count(q.device))
                   if d == 512 else 1)
         work = _f32_work(q, lk, splits)
         err = _build.load("kernels_fp32").fdsd_flash_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), work.data_ptr(), b, h, lq, lk, d,
+            lse.data_ptr(), work.data_ptr(),
+            None if bias is None else bias.data_ptr(), b, h, lq, lk, d,
             ctypes.cast(strides, ctypes.c_void_p), float(scale),
             int(bool(causal)), splits, _stream(q))
         _build.check(err, "fdsd_flash_fwd_f32")
-        _count_launch(flash_attention_cuda, q, causal=causal, route=route)
+        _count_launch(flash_attention_cuda, q, bias, causal=causal,
+                      route=route)
         return out, lse
     q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
     if route == "d512":
@@ -671,6 +714,7 @@ flash_attention_cuda.launches = 0
 flash_attention_cuda.forms = collections.Counter()
 flash_attention_cuda.dtypes = collections.Counter()
 flash_attention_cuda.routes = collections.Counter()
+flash_attention_cuda.head_dims = collections.Counter()
 
 
 def flash_attention_forward(q, k, v, scale: Optional[float] = None, **masks):
@@ -718,11 +762,12 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
     if route == "fp32":
         dq = _blhd(q, lq)
         strides = _strides(q, k, v, g, dq)
+        work = _f32_bwd_work(q, lk)
         err = _build.load("kernels_fp32").fdsd_flash_bwd_dq_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, lq, lk, d,
-            ctypes.cast(strides, ctypes.c_void_p), float(scale),
-            int(bool(causal)), _stream(q))
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), work.data_ptr(),
+            b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p),
+            float(scale), int(bool(causal)), _stream(q))
         _build.check(err, "fdsd_flash_bwd_dq_f32")
         _count_launch(flash_attention_bwd_dq_cuda, q, causal=causal,
                       route=route)
@@ -760,11 +805,13 @@ def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
     if route == "fp32":
         dk, dv = _blhd(k, lk), _blhd(v, lk)
         strides = _strides(q, k, v, g, dk, dv)
+        work = _f32_bwd_work(q, lk)
         err = _build.load("kernels_fp32").fdsd_flash_bwd_dkv_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p),
-            float(scale), int(bool(causal)), _stream(q))
+            work.data_ptr(), b, h, lq, lk, d,
+            ctypes.cast(strides, ctypes.c_void_p), float(scale),
+            int(bool(causal)), _stream(q))
         _build.check(err, "fdsd_flash_bwd_dkv_f32")
         _count_launch(flash_attention_bwd_dkv_cuda, q, causal=causal,
                       route=route)
@@ -934,7 +981,7 @@ def flash_attention_pos_plain(q, k, v, q_offsets, kv_offsets, *,
     ``stability`` is only validated."""
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, stability)
     lq, lk = q.shape[2], k.shape[2]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) * scale
     visible = _visible(lq, lk, q_offsets, kv_offsets, seg_q, seg_k, causal,
                        valid_len)
     s = s.masked_fill(~visible, NEG_INF)
@@ -942,7 +989,7 @@ def flash_attention_pos_plain(q, k, v, q_offsets, kv_offsets, *,
     p = torch.exp(s - m) * visible
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.matmul(p.to(v.dtype).float(), v.float()) / safe_l
+    out = torch.matmul(_wide(p.to(v.dtype)), _wide(v)) / safe_l
     lse = torch.where(l == 0, torch.full_like(l, NEG_INF),
                       m + torch.log(safe_l))
     return out.to(q.dtype), lse.squeeze(-1)
@@ -1036,15 +1083,15 @@ def flash_bwd_pos_plain(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
     finite), dS = P·(dO·Vᵀ − delta), and P and dS cast to the input dtype
     before the products that take them, as the kernels do."""
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, "online")
-    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    qf, kf, vf, gf = _wide(q), _wide(k), _wide(v), _wide(g)
     visible = _visible(q.shape[2], k.shape[2], q_offsets, kv_offsets, seg_q,
                        seg_k, causal, valid_len)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.where(visible, torch.exp(s - lse[..., None]),
                     torch.zeros_like(s))
-    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), gf)
+    dv = torch.matmul(_wide(p.to(v.dtype)).transpose(-1, -2), gf)
     dp = torch.matmul(gf, vf.transpose(-1, -2))
-    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    ds = _wide((p * (dp - delta[..., None])).to(q.dtype))
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -1073,10 +1120,12 @@ def flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
         q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k)
     dq = _blhd(q, lq)
     strides = _strides(q, k, v, g, dq)
+    # the fp32 kernel takes a workspace for its split terms after the offsets
+    work = [_f32_bwd_work(q, lk)] if q.dtype == torch.float32 else []
     err = _pos_entry(q, "fdsd_flash_bwd_pos_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), q_offsets.data_ptr(),
-        kv_offsets.data_ptr(), b, h, lq, lk, d,
+        kv_offsets.data_ptr(), *(w.data_ptr() for w in work), b, h, lq, lk, d,
         ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
         0 if valid_len is None else int(valid_len), int(valid_len is not None),
         int(bool(causal)), _stream(q))
@@ -1099,14 +1148,18 @@ def flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
         head_dims=None)
     route = k7_route(q.dtype, d, bool(causal), valid_len is not None,
                      seg_q < lq or seg_k < lk)
+    work = []   # the fp32 kernel's workspace, after the offsets
     if route == "sm90":
         q, k, v, g = (_tma_operand(x) for x in (q, k, v, g))
+    else:
+        work = [_f32_bwd_work(q, lk)]
     dk, dv = _blhd(k, lk), _blhd(v, lk)
     strides = _strides(q, k, v, g, dk, dv)
     err = _pos_entry(q, "fdsd_flash_bwd_pos_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        q_offsets.data_ptr(), kv_offsets.data_ptr(), b, h, lq, lk, d,
+        q_offsets.data_ptr(), kv_offsets.data_ptr(),
+        *(w.data_ptr() for w in work), b, h, lq, lk, d,
         ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
         0 if valid_len is None else int(valid_len), int(valid_len is not None),
         int(bool(causal)), _stream(q))

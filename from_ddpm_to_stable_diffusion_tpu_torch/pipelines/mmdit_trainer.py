@@ -18,10 +18,10 @@ Sampling: CFG flow-Euler over ``sd3_sigma_schedule``; the unconditional
 branch is zeroed conditioning (the training drop), batched with the
 conditional one as a single 2B forward.
 
-Not ported (ROADMAP.md, "Next PRs": trainer features, the parallel
-package): the device mesh with data, tensor and sequence parallelism, FSDP,
-the Switch-MoE MLP and its auxiliary loss, LoRA, gradient accumulation,
-checkpoint / resume and the preemption guard, device prefetch.
+Not ported (ROADMAP.md, queue items A3, trainer features, and A8, the
+parallel package): the device mesh with data, tensor and sequence
+parallelism, FSDP, the Switch-MoE MLP and its auxiliary loss, LoRA, gradient
+accumulation, checkpoint / resume and the preemption guard, device prefetch.
 """
 
 from __future__ import annotations
@@ -66,9 +66,9 @@ class MMDiTTrainer:
         asked = [name for name, on in unported.items() if on]
         if asked:
             raise NotImplementedError(
-                f"{', '.join(asked)}: not ported yet (ROADMAP.md, Next PRs: "
-                "trainer features, the parallel package); one device, one "
-                "micro-batch per update, no checkpoints")
+                f"{', '.join(asked)}: not ported yet (ROADMAP.md, queue items A3, "
+                "trainer features, and A8, the parallel package); one "
+                "device, one micro-batch per update, no checkpoints")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = torch.device(device)
@@ -158,7 +158,7 @@ class MMDiTTrainer:
         if checkpoint_dir:
             raise NotImplementedError(
                 "checkpoint_dir: checkpoint / resume is not ported yet "
-                "(ROADMAP.md, Next PRs: trainer features)")
+                "(ROADMAP.md, queue item A3: trainer features)")
         if state is None:
             state = self.create_state(len(loader))
         for epoch in range(epochs or self.cfg.epoch):

@@ -12,8 +12,8 @@ linears and the residual streams in bf16 (the JAX model's ``dtype=``).
 ``caption_accuracy`` and ``qa_accuracy`` are the end-to-end metrics:
 exact-match greedy decodes against the dataset's ground truth.
 
-Not ported (ROADMAP.md, "Next PRs": trainer features, the parallel
-package): the device mesh with data-parallel batch sharding, checkpoints
+Not ported (ROADMAP.md, queue items A3, trainer features, and A8, the
+parallel package): the device mesh with data-parallel batch sharding, checkpoints
 and the preemption guard.
 """
 
@@ -54,8 +54,8 @@ class VLMTrainer:
                  seed: int = 0, answer_start: int = 0):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: not ported yet (ROADMAP.md, Next PRs: the parallel "
-                "package); one device")
+                "mesh: not ported yet (ROADMAP.md, queue item A8: the "
+                "parallel package); one device")
         self.model_args = dict(vocab_size=vocab_size, dim=dim, depth=depth,
                                num_heads=num_heads, max_text_len=max_text_len,
                                vision_cfg=vision_cfg)
@@ -123,8 +123,8 @@ class VLMTrainer:
         if checkpoint_dir:
             raise NotImplementedError(
                 "checkpoint_dir: checkpoint / resume and the preemption "
-                "guard are not ported yet (ROADMAP.md, Next PRs: trainer "
-                "features)")
+                "guard are not ported yet (ROADMAP.md, queue item A3: "
+                "trainer features)")
         if state is None:
             state = self.create_state(image_size)
         for epoch in range(epochs):

@@ -118,13 +118,15 @@ def test_segment_tiles_are_the_sm90_k3_tiles():
 
 
 def test_fp32_forward_constants_are_the_wrappers():
-    """The passes, the key group of v's transposed terms and the d = 512
-    tiles and splits of csrc/fp32/flash_f32_fwd.cu are what the wrapper
-    assumes when it sizes the workspace and the key splits."""
+    """The passes, the key group of v's transposed terms (in the split
+    pre-pass the forward shares with the backward) and the d = 512 tiles and
+    splits of csrc/fp32/flash_f32_fwd.cu are what the wrapper assumes when
+    it sizes the workspace and the key splits."""
     text = _source("fp32/flash_f32_fwd.cu")
     m = re.search(r"constexpr int kPasses = (\d+);", text)
     assert m and int(m.group(1)) == tfa._F32_PASSES == 3
-    m = re.search(r"constexpr int kKeyGroup = (\d+);", text)
+    m = re.search(r"constexpr int kKeyGroup = (\d+);",
+                  _source("fp32/split_f32.cuh"))
     assert m and int(m.group(1)) == tfa._F32_KEY_GROUP
     m = re.search(r"constexpr int DP = 512, kBQ = (\d+), kBK = (\d+),", text)
     assert m and tuple(map(int, m.groups())) == (tfa._D512_TILE,) * 2
@@ -144,6 +146,78 @@ def test_fp32_forward_constants_are_the_wrappers():
 ])
 def test_fp32_forward_workspace(b, h, lq, lk, d, splits, want):
     assert tfa.f32_forward_work(b, h, lq, lk, d, splits) == want
+
+SMEM_LIMIT = 232448   # dynamic shared memory a block may take on the H100
+
+
+def _f32_fwd_smem(dp, bias=False):
+    """Shared memory of the fp32 K1 / K5 kernel at head dim dp < 512, as its
+    Cfg lays it out: both terms of the Q tile, K and v^T tiles on their
+    rings, the fp32 bias tile, barriers and the 1 KB alignment."""
+    cons = 2 if dp <= 128 else 1
+    bq, bk = 64 * cons, 32 if dp >= 80 else 64
+    stages = 1 if dp >= 128 else 2
+    tiles = 2 * bq * dp * 4 + stages * 2 * 2 * bk * dp * 4
+    return tiles + (bq * bk * 4 if bias else 0) + 8 * (1 + 4 * stages + 2) \
+        + 1024
+
+
+@pytest.mark.parametrize("dp,bias", [(40, False), (64, False),
+                                     (128, False), (160, False),
+                                     (64, True)])
+def test_fp32_forward_tiles_fit_in_shared_memory(dp, bias):
+    """d = 160 takes 64-query blocks (one consumer) and the bias form adds
+    a 128 x 64 fp32 tile; both fit beside the Q tile and the rings."""
+    text = _source("fp32/flash_f32_fwd.cu")
+    for rule in ("kCons = DP <= 128 ? 2 : 1", "kBK = DP >= 80 ? 32 : 64",
+                 "kStages = DP >= 128 ? 1 : 2",
+                 "kBarOff = kBiasOff + (HAS_BIAS ? kBQ * kBK * 4 : 0)"):
+        assert rule in text, rule
+    assert _f32_fwd_smem(dp, bias) <= SMEM_LIMIT
+    if dp == 160:
+        assert _f32_fwd_smem(dp) - 1024 - 8 * 7 == 163840
+    if bias:
+        assert _f32_fwd_smem(dp, bias) == 230488
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_backward_tiles_fill_shared_memory(d):
+    """The tiles of the TF32 backward at each head dim, from the rules in
+    csrc/fp32/flash_f32_bwd.cu: dq keeps both terms of Q and dO and rings K,
+    V and K^T tiles of 32 keys; dk/dv keeps K and V and rings Q, dO (two
+    stages) and Q^T, dO^T (one) tiles of 32 or 16 queries. Both come to the
+    229,376 B of tiles the header states."""
+    text = _source("fp32/flash_f32_bwd.cu")
+    for rule in ("kCons = DP <= 64 ? 2 : 1", "kBQ = 64 * kCons, kBK = 32",
+                 "kStages = DP <= 64 ? 2 : 1", "kBQ = DP <= 64 ? 32 : 16",
+                 "kStagesA = 2, kStagesB = 1", "229,376 B of tiles"):
+        assert rule in text, rule
+    cons = 2 if d <= 64 else 1
+    stages = 2 if d <= 64 else 1
+    bq, bk = 64 * cons, 32
+    dq = 4 * bq * d * 4 + stages * (4 * bk * d * 4 + 2 * d * bk * 4)
+    bkey, bqt = 64 * cons, 32 if d <= 64 else 16
+    dkv = 4 * bkey * d * 4 + 2 * 4 * bqt * d * 4 + 4 * d * bqt * 4
+    assert dq == dkv == 229376
+    assert dq + 8 * (1 + 4 * stages) + 1024 <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,want", [
+    (1, 1, 8, 8, 64, 2 * 64 * (16 + 16 + 8 + 16)),
+    (2, 3, 5, 9, 64, 2 * 6 * 64 * (10 + 18 + 16 + 16)),   # Lq8 8, Lk8 16
+    (2, 24, 154, 4096, 64,
+     2 * 48 * 64 * (308 + 8192 + 4096 + 320)),            # Lq8 = 160
+])
+def test_fp32_backward_workspace(b, h, lq, lk, d, want):
+    """q, k, v, dO as rows, then k^T and q^T, dO^T padded to 8: the layout
+    both backward entries carve (csrc/fp32/flash_f32_bwd.cu)."""
+    assert tfa.f32_backward_work(b, h, lq, lk, d) == want
+    text = _source("fp32/flash_f32_bwd.cu")
+    for line in ("w.k = w.q + 2 * w.nq;", "w.v = w.k + 2 * w.nk;",
+                 "w.g = w.v + 2 * w.nk;", "w.kt = w.g + 2 * w.nq;",
+                 "w.qt = w.kt + 2 * w.nkt;", "w.gt = w.qt + 2 * w.nqt;"):
+        assert line in text, line
+
 
 def test_segment_tiles_are_the_sm90_k4_tiles():
     """The wrapper builds K4's segment-id tile bounds and ranges at the

@@ -52,7 +52,17 @@ K3 on TMA and wgmma (``csrc/flash_attention_dq_sm90.cu``) as K4 is, at its
 tensor cores (three-term TF32 split, ``csrc/fp32/flash_f32_fwd.cu``) also
 within 1e-5 of fp64 attention, with the plain version fed operands cut
 once to TF32 (one pass) outside 1e-4, at every head dim, length around its
-tiles, key split at d = 512, and K5's mask cases.
+tiles, key split at d = 512, and K5's mask cases. "fp64" references are
+the plain versions fed fp64 tensors, which they compute in fp64 throughout.
+K1 at the SD1 UNet's head dims from 768^2 (160 at level 2, 80 at level 1),
+bf16 and fp32, at the tolerances above; K1's fp32 bias form at T5's shape
+and with rows a bias hides whole (out = 0, lse <= -1e29, nothing NaN). The
+fp32 backward on the tensor cores (``csrc/fp32/flash_f32_bwd.cu``) at every
+form it serves against plain attention in fp64: each gradient within 1e-5
+of its largest magnitude, and the plain version fed once-truncated TF32
+operands (one pass) outside 1e-4; ragged lengths, causal, the position
+masks at SD3's joint shapes and 4096 keys, where one long accumulator
+chain would drift.
 """
 
 import itertools
@@ -356,7 +366,7 @@ def _global_stats(q, kvs, g, qo, kos, **kw):
     for (k, v), ko in zip(kvs[1:], kos[1:]):
         out, lse = tfa.merge_attention_partials(
             out, lse, *tfa.flash_attention_pos_plain(q, k, v, qo, ko, **kw))
-    return lse.contiguous(), (g.float() * out.float()).sum(-1)
+    return lse.contiguous(), (tfa._wide(g) * tfa._wide(out)).sum(-1)
 
 
 def _pos_bwd_check(q, k, v, g, lse, delta, qo, ko, **kw):
@@ -1353,7 +1363,7 @@ def test_fp32_forms_not_ported_raise_with_the_dtype_to_pass(gen):
     q = _randn(gen, 1, 2, 64, 64, **f32)
     ids = torch.zeros(1, 64, dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError, match="pass bf16"):
-        tfa.flash_attention_cuda(q, q, q, bias=q[:, :, :, :64])
+        tfa.flash_attention_cuda(q, q, q, bias=q[:, :, :, :64], causal=True)
     with pytest.raises(NotImplementedError, match="pass bf16"):
         tfa.flash_attention(q, q, q, segment_ids=(ids, ids))
     q128 = _randn(gen, 1, 1, 64, 128, **f32)
@@ -1538,6 +1548,17 @@ def test_k3_launches_by_route(gen):
     assert routes["sm90"] == n + 1
 
 
+def _fused_f32(gen, b, lq, lk, h, d):
+    """fp32 q, k, v as column slices of fused projections, and dO."""
+    split = lambda x, n: [t.reshape(b, n, h, d).transpose(1, 2)
+                          for t in x.chunk(x.shape[-1] // (h * d), -1)]
+    q = split(_randn(gen, b, lq, h * d, dtype=torch.float32), lq)[0]
+    k, v = split(_randn(gen, b, lk, 2 * h * d, dtype=torch.float32), lk)
+    g = _randn(gen, b, lq, h * d, dtype=torch.float32).reshape(
+        b, lq, h, d).transpose(1, 2)
+    return q, k, v, g
+
+
 # ------------------------ the fp32 forward on the tensor cores (TF32 split)
 F64_ATOL = 1e-5   # the split's error against fp64 attention
 
@@ -1548,9 +1569,10 @@ def _tf32(*xs):
             for x in xs]
 
 
-def _f32_fwd_check(q, k, v, **masks):
-    """The fp32 forward within 1e-4 of plain fp32 and 1e-5 of plain fp64;
-    the plain version fed once-truncated TF32 operands outside 1e-4."""
+def _f32_fwd_check(q, k, v, f64_atol=F64_ATOL, **masks):
+    """The fp32 forward within 1e-4 of plain fp32 and ``f64_atol`` (1e-5)
+    of plain fp64; the plain version fed once-truncated TF32 operands
+    outside 1e-4."""
     routes = tfa.flash_attention_cuda.routes
     n = routes["fp32"]
     out, lse = tfa.flash_attention_cuda(q, k, v, **masks)
@@ -1560,8 +1582,10 @@ def _f32_fwd_check(q, k, v, **masks):
     _f32_close(lse, ref_lse, "lse")
     r64, l64 = tfa.flash_attention_plain(q.double(), k.double(), v.double(),
                                          **masks)
-    assert (out.double() - r64).abs().max().item() <= F64_ATOL
-    assert (lse.double() - l64).abs().max().item() <= F64_ATOL
+    seen = l64 > -1e29   # -1e30 in fp32 is not -1e30 in fp64
+    assert (out.double() - r64).abs().max().item() <= f64_atol
+    assert (lse.double() - l64)[seen].abs().max().item() <= f64_atol
+    assert bool((lse[~seen] <= -1e29).all())
     bad, _ = tfa.flash_attention_plain(*_tf32(q, k, v), **masks)
     assert (bad - ref).abs().max().item() > F32_ATOL     # one TF32 pass
     return out, lse
@@ -1670,3 +1694,141 @@ def test_tf32_k5_mask_cases(gen, case, stability):
     assert not bool(out[~seen].any()) and bool((lse[~seen] <= -1e29).all())
     if case == "fully masked rows":
         assert int((~seen).sum()) == 4 * 512
+
+
+# -------------------- K1 at the SD1 UNet's head dims from 768^2 (d = 160)
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,lq,lk,d", [
+    (2, 8, 576, 576, 160), (2, 8, 2304, 2304, 80), (1, 2, 1000, 777, 160)])
+def test_k1_sd1_at_768(gen, dtype, b, h, lq, lk, d):
+    """The UNet's level-2 (d = 160, 576 tokens at 768^2) and level-1
+    (d = 80, 2304 tokens) self-attentions, and a ragged Lk at 160: bf16 on
+    the sm90 kernel, fp32 on the TF32 split."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v = (_randn(gen, b, h, n, d, dtype=dt) for n in (lq, lk, lk))
+    route = "sm90" if dtype == "bf16" else "fp32"
+    n = tfa.flash_attention_cuda.routes[route]
+    if dtype == "bf16":
+        _k1_check(q, k, v)
+    else:
+        _f32_fwd_check(q, k, v)
+    assert tfa.flash_attention_cuda.routes[route] == n + 1
+
+
+@pytest.mark.parametrize("case", ["T5-XXL", "hidden rows, ragged keys"])
+def test_tf32_forward_t5_bias(gen, case):
+    """K1's fp32 bias form: T5's (1, H, L, L) bias shared over the batch at
+    scale 1.0, and at Lk = 333 a bias that hides whole rows (-1e30, -inf)
+    and part of one: out = 0 and lse <= -1e29 there, nothing NaN. T5's
+    logits are unscaled: with unit q and k at d = 64 they spread ~8 wide,
+    and the split's 2^-22 of each product moves out ~8 x as far from fp64
+    as the scaled forms' logits of ~1 do (~2e-5): the bias form is held to
+    1e-4 against fp64, as against plain fp32."""
+    f32 = dict(dtype=torch.float32)
+    b, h, lq, lk = (2, 64, 512, 512) if case == "T5-XXL" else (2, 4, 300, 333)
+    q, k, v = (_randn(gen, b, h, n, 64, **f32) for n in (lq, lk, lk))
+    bias = 3.0 * _randn(gen, 1, h, lq, lk, **f32)
+    if case != "T5-XXL":
+        bias[0, :, 5] = -1e30
+        bias[0, 1, 17] = float("-inf")
+        bias[0, 2, 40, :300] = -1e30
+    out, lse = _f32_fwd_check(q, k, v, F32_ATOL, scale=1.0, bias=bias)
+    hidden = lse <= -1e29
+    assert int(hidden.sum()) == (0 if case == "T5-XXL" else 2 * (h + 1))
+    assert not bool(out[hidden].any()) and bool(torch.isfinite(out).all())
+
+
+# --------------- the fp32 backward on the tensor cores (TF32 split)
+def _tf32_bwd_close(got, plain, ref64, bad, floor=0.0):
+    """Each gradient within 1e-4 of plain fp32 and 1e-5 of fp64 (of its
+    largest magnitude, with ``floor`` for a gradient that is zero
+    everywhere), the one-pass plain version outside 1e-4."""
+    for what, a, w, w64, f in zip(("dq", "dk", "dv"), got, plain, ref64, bad):
+        _f32_close(a, w, what)
+        top = w64.abs().max().item()
+        assert (a.double() - w64).abs().max().item() <= F64_ATOL * top + floor
+        assert (f.double() - w64).abs().max().item() > F32_ATOL * top, what
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,causal", [
+    (2, 2, 529, 300, 64, False), (1, 2, 300, 529, 128, False),
+    (1, 1, 63, 200, 128, False), (2, 2, 129, 65, 64, False),
+    (2, 2, 529, 529, 64, True), (1, 2, 200, 529, 64, True),
+    (1, 2, 529, 200, 64, True), (1, 2, 4096, 4096, 64, False),
+    (1, 1, 4096, 4096, 128, False)])
+def test_tf32_backward_against_fp64(gen, b, h, lq, lk, d, causal):
+    """K3 / K4 in fp32: ragged Lq and Lk off the tiles (32 keys and 64 or 128
+    queries for dq, 64 or 128 keys and 32 or 16 queries for dk/dv), causal
+    at 64, and 4096 keys and queries, over which one accumulator chain
+    would drift past 1e-5."""
+    f32 = dict(dtype=torch.float32)
+    q, g = (_randn(gen, b, h, lq, d, **f32) for _ in range(2))
+    k, v = (_randn(gen, b, h, lk, d, **f32) for _ in range(2))
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal)
+    n3 = tfa.flash_attention_bwd_dq_cuda.routes["fp32"]
+    n4 = tfa.flash_attention_bwd_dkv_cuda.routes["fp32"]
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal=causal)
+    assert tfa.flash_attention_bwd_dq_cuda.routes["fp32"] == n3 + 1
+    assert tfa.flash_attention_bwd_dkv_cuda.routes["fp32"] == n4 + 1
+    plain = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    d64 = [x.double() for x in (q, k, v)]
+    o64, l64 = tfa.flash_attention_plain(*d64, causal=causal)
+    ref64 = tfa.flash_attention_bwd_plain(*d64, o64, l64, g.double(),
+                                          causal=causal)
+    bad = tfa.flash_attention_bwd_plain(*_tf32(q, k, v), out, lse,
+                                        *_tf32(g), causal=causal)
+    _tf32_bwd_close(got, plain, ref64, bad)
+
+
+@pytest.mark.parametrize("lq,lk", [(4096, 154), (154, 4096), (154, 154),
+                                   (529, 154)])
+def test_tf32_pos_backward_sd3_shapes_against_fp64(gen, lq, lk):
+    """K6 / K7 in fp32 (the position-mask instantiations) at SD3's joint
+    shapes and a ragged x length, under the lse and delta of an fp64
+    forward, on fused-projection slices."""
+    q, k, v, g = _fused_f32(gen, 2, lq, lk, 24, 64)
+    z = torch.zeros(2, dtype=torch.int32, device="cuda")
+    d64 = [x.double() for x in (q, k, v)]
+    o64, l64 = tfa.flash_attention_pos_plain(*d64, z, z)
+    delta64 = (g.double() * o64).sum(-1)
+    lse, delta = l64.float(), delta64.float()
+    routes = tfa.flash_bwd_pos_dkv_cuda.routes
+    n = routes["fp32"]
+    got = tfa.flash_bwd_pos(q, k, v, g, lse, delta, z, z)
+    assert routes["fp32"] == n + 1
+    plain = tfa.flash_bwd_pos_plain(q, k, v, g, lse, delta, z, z)
+    ref64 = tfa.flash_bwd_pos_plain(*d64, g.double(), l64, delta64, z, z)
+    bad = tfa.flash_bwd_pos_plain(*_tf32(q, k, v, g), lse, delta, z, z)
+    _tf32_bwd_close(got, plain, ref64, bad)
+
+
+@pytest.mark.parametrize("case", sorted(K7_MASK_CASES))
+def test_tf32_pos_backward_mask_cases_against_fp64(gen, case):
+    """K6 / K7 in fp32 on the masked cases of the sm90 K7 under a lse global
+    over two key blocks (fp64): rows that only the other block sees, and
+    rows no key sees, give finite gradients, dq = 0 on the latter."""
+    (b, h, lq, lk), qo, kos, seg_q, seg_k, causal, valid = K7_MASK_CASES[case]
+    f64 = dict(dtype=torch.float64)
+    q, g = (_randn(gen, b, h, lq, 64, **f64) for _ in range(2))
+    kvs = [tuple(_randn(gen, b, h, lk, 64, **f64) for _ in range(2))
+           for _ in kos]
+    kw = dict(causal=causal, valid_len=valid, seg_q=seg_q, seg_k=seg_k)
+    qo, kos = _offsets(*qo), [_offsets(*ko) for ko in kos]
+    l64, delta64 = _global_stats(q, kvs, g, qo, kos, **kw)
+    blank = l64 <= -1e29
+    q32, g32 = q.float(), g.float()
+    lse, delta = l64.float(), delta64.float()
+    for (k, v), ko in zip(kvs, kos):
+        k32, v32 = k.float(), v.float()
+        got = tfa.flash_bwd_pos(q32, k32, v32, g32, lse, delta, qo, ko, **kw)
+        plain = tfa.flash_bwd_pos_plain(q32, k32, v32, g32, lse, delta, qo,
+                                        ko, **kw)
+        ref64 = tfa.flash_bwd_pos_plain(q, k, v, g, l64, delta64, qo, ko,
+                                        **kw)
+        bad = tfa.flash_bwd_pos_plain(*_tf32(q32, k32, v32, g32), lse, delta,
+                                      qo, ko, **kw)
+        if all(bool(w.any()) for w in ref64):
+            _tf32_bwd_close(got, plain, ref64, bad)
+        else:   # nothing visible in this block: every gradient 0
+            assert not any(bool(a.any()) for a in got)
+        assert not bool(got[0][blank].any())

@@ -87,6 +87,71 @@ def test_k1_plain_fp32_matches_pallas(name):
                                atol=OUT_ATOL)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_k1_plain_matches_pallas_at_head_dim_160(dtype):
+    """K1 at head dim 160 (the SD1 UNet's level-2 self-attention from 768^2)
+    against ``_fwd_kernel`` on the same dtype, at a ragged length. bf16: out
+    to 4e-3 (two roundings of values of order 0.1 to bf16's 2^-9, one in
+    each package), lse to 1e-3 (fp32 logits of bf16 operands summed in
+    another order); fp32: both to OUT_ATOL."""
+    q, k, v, _ = _qkvg(1, 2, 200, 230, 160, 150)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    want_out, want_lse = jfa._flash_fwd(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)), None, None, False,
+        160 ** -0.5, 128, 128, interpret=True)
+    got_out, got_lse = tfa.flash_attention_forward(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)))
+    atol, lse_atol = (4e-3, 1e-3) if dtype == "bf16" else (OUT_ATOL,
+                                                           OUT_ATOL)
+    np.testing.assert_allclose(
+        got_out.float().numpy(), np.asarray(want_out).astype(np.float32),
+        rtol=0, atol=atol)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=0,
+                               atol=lse_atol)
+
+
+def test_k1_plain_fp32_with_t5_bias_matches_pallas():
+    """K1's fp32 bias form as T5 reaches it: scale 1.0, a (1, H, Lq, Lk)
+    bias shared over the batch, against ``_fwd_kernel`` with that bias on
+    the rows that see a key. Rows the bias hides whole (-1e30, or -inf on
+    every key) give out = 0 and lse <= -1e29 in the port; the Pallas kernel
+    gives lse = -1e30 there too, and the mean of v for out."""
+    q, k, v, _ = _qkvg(2, 3, 300, 333, 64, 160)
+    bias = _rand((1, 3, 300, 333), 165, 3.0)
+    bias[0, :, 5] = -1e30
+    bias[0, 1, 40] = -np.inf
+    bias[0, 2, 77, :200] = -1e30      # hidden on the first keys only
+    want_out, want_lse = (np.asarray(x) for x in jfa._flash_fwd(
+        *map(jnp.asarray, (q, k, v, bias)), None, False, 1.0, 128, 128,
+        interpret=True))
+    got_out, got_lse = (x.numpy() for x in tfa.flash_attention_forward(
+        *map(torch.from_numpy, (q, k, v)), 1.0,
+        bias=torch.from_numpy(bias)))
+    hidden = np.zeros((2, 3, 300), bool)
+    hidden[:, :, 5] = hidden[:, 1, 40] = True
+    assert np.array_equal(got_lse <= -1e29, hidden)
+    assert np.all(want_lse[hidden] <= -1e29)
+    assert not got_out[hidden].any() and np.isfinite(got_out).all()
+    np.testing.assert_allclose(got_out[~hidden], want_out[~hidden], rtol=0,
+                               atol=OUT_ATOL)
+    np.testing.assert_allclose(got_lse[~hidden], want_lse[~hidden], rtol=0,
+                               atol=OUT_ATOL)
+
+
+def test_fp32_bias_form_is_k1s_alone():
+    """K1 takes T5's bias in fp32 at head dim 64, alone; with causal or
+    segment ids, at another head dim, and in K3 / K4 it stays bf16 only."""
+    assert tfa.k1_route(torch.float32, 64, bias=True) == "fp32"
+    for kw in (dict(d=128, bias=True), dict(d=64, bias=True, causal=True),
+               dict(d=64, bias=True, segments=True)):
+        with pytest.raises(NotImplementedError, match="bias alone"):
+            tfa.k1_route(torch.float32, **kw)
+    for route in (tfa.k3_route, tfa.k4_route):
+        with pytest.raises(NotImplementedError, match="pass bf16"):
+            route(torch.float32, 64, bias=True)
+
+
 @pytest.mark.parametrize("name", ["siglip_576_d64", "decoder_584_d64_causal",
                                   "tiny_sd_d128", "ragged_529_d64",
                                   "causal_lq_lt_lk"])
@@ -255,15 +320,15 @@ def test_fp32_kernels_are_a_library_of_their_own():
     for name, argtypes in _build._SIGNATURES_FP32.items():
         head = source.split(f'extern "C" int {name}(')[1].split(")")[0]
         assert len(head.split(",")) == len(argtypes), name
-    for name in ("fdsd_flash_bwd_pos_dq",
-                 "fdsd_flash_bwd_pos_dkv"):   # one call site serves both
-        assert (_build._SIGNATURES[name]
-                == _build._SIGNATURES_FP32[name + "_f32"]), name
-    # the fp32 position-masked forward takes its split terms' workspace
-    # after the offsets
-    pos = _build._SIGNATURES["fdsd_flash_fwd_pos"]
-    assert _build._SIGNATURES_FP32["fdsd_flash_fwd_pos_f32"] == (
-        pos[:7] + [ctypes.c_void_p] + pos[7:])
+    # the fp32 position-masked kernels take the arguments of their bf16
+    # namesakes (one call site serves both) with their split terms'
+    # workspace after the offsets
+    for name, offsets_end in (("fdsd_flash_fwd_pos", 7),
+                              ("fdsd_flash_bwd_pos_dq", 9),
+                              ("fdsd_flash_bwd_pos_dkv", 10)):
+        pos = _build._SIGNATURES[name]
+        assert _build._SIGNATURES_FP32[name + "_f32"] == (
+            pos[:offsets_end] + [ctypes.c_void_p] + pos[offsets_end:]), name
 
 
 def test_wrappers_count_launches_by_dtype():

@@ -3,21 +3,26 @@
 Which kernel a CUDA launch of K1 runs is decided in Python before anything
 reaches the card (``k1_route``): the TMA / wgmma kernel of
 ``csrc/flash_attention_sm90.cu`` for bf16 at every head dim but 512 and for
-every mask form, the mma.sync kernel of ``csrc/flash_attention.cu`` for bf16
-at head dim 512, the fp32 library for fp32; every other (dtype, head dim,
-form) raises before a launch. The ctypes signatures are held against the
+every mask form, the TMA / wgmma kernel of ``csrc/flash_attention.cu`` for
+bf16 at head dim 512, the fp32 library for fp32 (causal and T5's bias alone
+at head dim 64); every other (dtype, head dim, form) raises before a launch. The ctypes signatures are held against the
 argument counts of the ``extern "C"`` declarations in the sources, which
 nothing compiles here. The kernels themselves are tested on the card
 (``tests/test_torch_cuda_kernels.py``).
 """
 
 import re
+import types
 from pathlib import Path
 
 import pytest
 import torch
 
+from from_ddpm_to_stable_diffusion_tpu_torch.models.layers import (
+    TransformerBlock)
+from from_ddpm_to_stable_diffusion_tpu_torch.models.sd1 import SD1UNet
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import _build
+from from_ddpm_to_stable_diffusion_tpu_torch.ops import attention as tattn
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as tfa
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -33,7 +38,8 @@ def _want(dtype, d, form):
     """The route the port's contract gives, or the exception it raises."""
     causal, bias, seg = FORMS[form]
     if dtype == F32:
-        if bias or seg or (causal and d != 64):
+        # T5's bias alone at 64 is the one fp32 bias form
+        if seg or (causal and (d != 64 or bias)) or (bias and d != 64):
             return NotImplementedError
         return "fp32"
     if form != "none" and d not in (64, 128):
@@ -42,7 +48,7 @@ def _want(dtype, d, form):
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))
-@pytest.mark.parametrize("d", [40, 48, 64, 72, 80, 128, 512])
+@pytest.mark.parametrize("d", [40, 48, 64, 72, 80, 128, 160, 512])
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
 def test_k1_route_by_dtype_head_dim_and_form(dtype, d, form):
     want = _want(dtype, d, form)
@@ -63,6 +69,55 @@ def test_k1_route_refuses_other_head_dims_and_dtypes(d):
             tfa.k1_route(dtype, d)
     with pytest.raises(TypeError):
         tfa.k1_route(torch.float16, 64)
+
+
+def _unet_attentions(height, width):
+    """(block, heads, head dim, Lq, Lk) of every attention of ``SD1UNet()``
+    for a (height, width) image, from its module tree alone: the UNet is
+    built on the meta device and never run. Each ``_down`` halves the latent
+    (rounding up, as a stride-2 convolution with padding 1 does), each
+    ``_up`` doubles it; a TransformerBlock's self-attention sees the level's
+    tokens, its cross-attention CLIP's 77."""
+    with torch.device("meta"):
+        unet = SD1UNet()
+    h, w = height // 8, width // 8
+    sizes, found = [(h, w)], []
+    for name, mod in unet.named_children():
+        if name.endswith("_down"):
+            h, w = -(-h // 2), -(-w // 2)
+            sizes.append((h, w))
+        elif name.endswith("_up"):
+            sizes.pop()
+            h, w = sizes[-1]
+        elif isinstance(mod, TransformerBlock):
+            heads = mod.attn1.num_heads
+            d = mod.attn1.qkv.weight.shape[1] // heads
+            found += [(name + ".attn1", heads, d, h * w, h * w),
+                      (name + ".attn2", heads, d, h * w, 77)]
+    return found
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("size", [(512, 512), (768, 768), (512, 1024)])
+def test_every_flash_eligible_sd1_attention_has_a_k1_route(size, dtype):
+    """Every attention of the SD1 UNet that the dispatch rule would send to
+    the flash kernel on the card has a K1 route in both dtypes; from 768^2
+    (and at 512 x 1024) that includes the level-2 self-attention at head
+    dim 160."""
+    attns = _unet_attentions(*size)
+    assert len(attns) == 2 * 16
+    eligible = []
+    for block, heads, d, lq, lk in attns:
+        on_card = types.SimpleNamespace(is_cuda=True,
+                                        shape=(1, heads, lq, d))
+        keys = types.SimpleNamespace(is_cuda=True, shape=(1, heads, lk, d))
+        if tattn._flash_eligible(on_card, keys):
+            want = "fp32" if dtype == F32 else "sm90"
+            assert tfa.k1_route(dtype, d) == want, block
+            eligible.append(d)
+    # the two levels of 40 and 80 always; 160 from 768^2 and at 512 x 1024
+    assert {40, 80} <= set(eligible)
+    assert (160 in eligible) == (size != (512, 512))
 
 
 def _extern_c_arg_counts():
