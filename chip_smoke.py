@@ -12,12 +12,12 @@ two summary lines:
    objects, the bf16 flash kernels with GroupNorm and the fp32 flash kernels
    (``csrc/fp32/``), and prints each one's time and ptxas's register, spill
    and shared-memory lines; then counts the wgmma (HGMMA) and TMA (UTMALDG,
-   UBLKCP) instructions of each K1, K3, K4, K5 and K7 kernel in the bf16
+   UBLKCP) instructions of each K1, K3, K4, K5, K6 and K7 kernel in the bf16
    library's SASS and of each fp32 forward kernel in the fp32 library's
    (``cuobjdump -sass``) and fails unless all 19 instantiations of the sm90
    K1 (d = 160 among them) and all 4 of the sm90 K5
    (``csrc/flash_attention_sm90.cu``), the d = 512 K1
-   (``csrc/flash_attention.cu``), all 16 of the sm90 K3
+   (``csrc/flash_attention.cu``), all 16 of the sm90 K3 and 2 of the sm90 K6
    (``csrc/flash_attention_dq_sm90.cu``), all 16 of the sm90 K4 and 2 of the
    sm90 K7 (``csrc/flash_attention_bwd_sm90.cu``), all 10 of the TF32 fp32
    forward (K1 at seven head dims, K1 causal / K5 online, K5 bounded, T5's
@@ -31,14 +31,17 @@ two summary lines:
    whichever is larger) and the time of the one PyTorch call that computes
    the same function (a yardstick only; nothing in the port calls it): K1
    flash forward (TMA / wgmma; at d = 512 also with its keys split over 1
-   and 2 blocks per query tile; at d = 160, SD1 at 768^2), K2 GroupNorm, K3 / K4 flash backward (dq;
+   and 2 blocks per query tile; at d = 160, SD1 at 768^2), K2 GroupNorm
+   (one cooperative launch a call, by its own device time beside its wall
+   time, its kernels per call counted in a profile, bf16 and fp32, rows kept
+   in shared memory or streamed), K3 / K4 flash backward (dq;
    dk and dv, both on TMA / wgmma), K5 (TMA / wgmma)
    position-masked flash forward (the four SD3 shapes, online and bounded,
    each also by its own device time from torch.profiler;
    two-segment causal / valid_len masks, a ragged key tail, head dim 128,
    fully masked rows; the joint attention over 154 + 4096 tokens against
    plain attention over the concatenated sequence), K6 / K7
-   position-masked flash backward (dq; dk and dv, K7 on TMA / wgmma) under
+   position-masked flash backward (dq; dk and dv, both on TMA / wgmma) under
    the merged lse of the joint attention (the four shapes, with device
    times; two-segment causal / valid_len
    masks, a ragged x length, head dim 128, rows masked in one partial only
@@ -54,7 +57,8 @@ two summary lines:
    causal mask off by one, a dbias tile left unwritten) that the comparison
    must catch; a packing of 64 sequences of 64 tokens beside the seeded one.
    Then K1's host path at small shapes (the wrapper and its C entry alone,
-   microseconds per call, beside the kernel's own time); again beside T5.
+   microseconds per call, beside the kernel's own time); again beside T5;
+   and K2's at the SD1 UNet's (2, 64, 64, 320) + SiLU the same way.
    Then the fp32 form of K1 and K3 - K7 against the plain fp32 versions (TF32
    off) at the shapes the fp32 defaults give them (and K1 at d = 160 and
    with T5's bias): out and lse within 1e-4, each gradient within 1e-4 of
@@ -155,9 +159,10 @@ Every kernel's launch count is set to 0 just before each of the SD1, SD1
 generator, SD1 at 768^2, SD3, training, sampling, MMDiT training, MMDiT
 sampling, T5, TinyVLM training, TinyVLM decoding and fp32 paths and read
 just after (before the plain-attention run it is compared with), K1's also
-by the kernel it ran (sm90, d512, fp32) and by head dim, K3's, K4's, K5's and K7's by the kernel they ran (sm90,
-fp32): on every path the launches by kernel add up to the launches, on the
-bf16 SD3 and MMDiT paths every K5 and K7 launch took sm90, and on the bf16
+by the kernel it ran (sm90, d512, fp32) and by head dim, K3's - K7's (but
+K2) by the kernel they ran (sm90, fp32): on every path the launches by
+kernel add up to the launches, on the bf16 SD3 and MMDiT paths every K5, K6
+and K7 launch took sm90, and on the bf16
 tiny-SD and TinyVLM training paths every K3 and K4 launch took sm90. The last two
 lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
@@ -290,19 +295,20 @@ def phase_build():
 # without a mask, 7 mask forms at head dims 64 and 128; the d = 512 K1; the
 # sm90 K3 and K4: 8 forms
 # at head dims 64 and 128 each; the sm90 K5: online and bounded at head dims
-# 64 and 128; the sm90 K7: head dims 64 and 128.
+# 64 and 128; the sm90 K6 and K7: head dims 64 and 128.
 SM90_KERNELS = {  # kind -> (kernel name, instantiations)
     "K1 sm90": ("flash_fwd_sm90_kernel", 5 + 2 * 7),
     "K1 d512": ("flash_fwd_d512", 1),
     "K3 sm90": ("flash_bwd_dq_sm90_kernel", 2 * 8),
     "K4 sm90": ("flash_bwd_dkv_sm90_kernel", 2 * 8),
     "K5 sm90": ("flash_fwd_pos_sm90_kernel", 2 * 2),
+    "K6 sm90": ("flash_bwd_pos_dq_sm90_kernel", 2),
     "K7 sm90": ("flash_bwd_pos_dkv_sm90_kernel", 2),
 }
-# The names of the kernels above, and of any mma.sync form left of them (the
-# mma.sync K6, flash_bwd_pos_dq_kernel, is not among them).
+# The names of the kernels above, and of any other bf16 flash kernel: one
+# outside the table fails the check.
 BF16_FAMILY = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv",
-               "flash_bwd_dq")
+               "flash_bwd_dq", "flash_bwd_pos_dq")
 # The fp32 forward (TF32 split): seven head dims without a mask, the masked
 # form online (K1 causal, K5) and bounded (K5), T5's bias form; the d = 512
 # kernel. The fp32 backward (TF32 split): dq and dk/dv at head dims 64 and
@@ -373,6 +379,20 @@ K1_SHAPES = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
              (1, 1, 4096, 4096, 512), (1, 2, 1000, 777, 80),
              (32, 1, 4096, 4096, 128), (32, 2, 1024, 1024, 128),
              (1, 2, 1000, 777, 128), (1, 1, 16384, 16384, 512)]
+# K2's timed cases, (shape, act, dtype), which compare_revisions.py times
+# too: the first is reported (SD1 UNet at 64^2, CFG batch 2); then its other
+# levels and batch 8, the SD1 VAE decoder's 512^2 level in both dtypes,
+# tiny-SD's batch 32, the largest and the widest GroupNorm of the SD3 VAE
+# decoder. The smaller keep their rows in shared memory, the larger stream.
+GN_CASES = [((2, 64, 64, 320), "silu", "bf16"),
+            ((2, 32, 32, 640), "silu", "bf16"),
+            ((2, 8, 8, 1280), "silu", "bf16"),
+            ((8, 64, 64, 320), "silu", "bf16"),
+            ((1, 512, 512, 128), None, "bf16"),
+            ((1, 512, 512, 128), None, "fp32"),
+            ((32, 64, 64, 128), "silu", "bf16"),
+            ((1, 1024, 1024, 128), "silu", "bf16"),
+            ((1, 128, 128, 512), "silu", "bf16")]
 # K1 at head dim 160 (SD1's UNet at level 2 from 768^2: 576 tokens, 8 heads
 # of 160, batch 2 with CFG); kept apart from K1_SHAPES, which
 # compare_revisions.py also times on checkouts from before d = 160.
@@ -448,12 +468,12 @@ def reset_counts():
 class Counts(dict):
     """Launches by kernel; ``k1_routes``: K1's launches by the kernel they
     ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32");
-    ``k3_routes``, ``k4_routes``, ``k5_routes``, ``k7_routes``: K3's, K4's,
-    K5's and K7's (``.routes`` of their wrappers: "sm90", "fp32");
+    ``k3_routes`` - ``k7_routes`` (but K2's): K3's - K7's (``.routes`` of
+    their wrappers: "sm90", "fp32");
     ``k1_head_dims``: K1's launches by head dim."""
 
 
-ROUTED = ("K1", "K3", "K4", "K5", "K7")   # the kernels counted by route
+ROUTED = ("K1", "K3", "K4", "K5", "K6", "K7")  # counted by route
 
 
 def read_counts():
@@ -667,19 +687,9 @@ def phase_kernels(card):
     record("K1", err, False)
 
     fp32 = torch.float32
-    # The first case is the one reported (SD1 UNet at 64^2); the last two
-    # are the largest and the widest GroupNorm of the SD3 VAE decoder.
-    gn_cases = [((2, 64, 64, 320), "silu", bf16),
-                ((2, 32, 32, 640), "silu", bf16),
-                ((2, 8, 8, 1280), "silu", bf16),
-                ((8, 64, 64, 320), "silu", bf16),
-                ((1, 512, 512, 128), None, bf16),
-                ((1, 512, 512, 128), None, fp32),
-                ((32, 64, 64, 128), "silu", bf16),
-                ((1, 1024, 1024, 128), "silu", bf16),
-                ((1, 128, 128, 512), "silu", bf16)]
-    for i, (shape, act, dtype) in enumerate(gn_cases):
-        c = shape[-1]
+    results["K2 shapes"] = []
+    for i, (shape, act, dt) in enumerate(GN_CASES):
+        dtype, c = bf16 if dt == "bf16" else fp32, shape[-1]
         x = (rnd(*shape) * 2.0 + 0.5).to(dtype)
         scale = 1.0 + 0.1 * rnd(c)
         bias = 0.1 * rnd(c)
@@ -700,21 +710,48 @@ def phase_kernels(card):
             library = lambda: F.group_norm(x_nchw, 32, w, bb, 1e-5)
         # x read and y written once; ~10 fp32 operations per element
         # (statistics, normalise, affine, SiLU) outside the tensor cores
+        run = lambda: gn.group_norm_cuda(x, 32, scale, bias, 1e-5, act)
         times = dict(zip(("bound_ms", "bound_by"),
                          bound(10.0 * x.numel(),
                                2.0 * x.numel() * x.element_size() + 8.0 * c,
                                PEAK_FP32_FLOPS)),
-                     ms=cuda_ms(lambda: gn.group_norm_cuda(x, 32, scale, bias,
-                                                           1e-5, act)),
+                     ms=cuda_ms(run),
                      plain_ms=cuda_ms(lambda: plain(x, 32, scale, bias, 1e-5,
                                                     act), 5, 1),
                      library_ms=cuda_ms(library, 10, 2))
+        # one profile of 10 calls: the kernel's device time and how many
+        # kernels a call launches
+        fams, rows = {}, []
+        for _ in range(3):
+            _, _, fams, _, rows = profile_device(lambda: [run()
+                                                          for _ in range(10)])
+            if "K2 group norm" in fams:
+                break
+        device_ms = fams.get("K2 group norm", 0.0) / 10 or None
+        per_call = sum(n for _, n, key in rows
+                       if _family(key) == "K2 group norm") / 10
+        again = run()
+        plan = gn.group_norm_plan(shape[0], x.numel() // (shape[0] * c), c,
+                                  32, x.element_size(),
+                                  fa._sm_count(x.device))
+        regime = "resident" if plan.resident else "streaming"
         name = "fp32 two-pass" if dtype == fp32 else "bf16 one-pass"
-        print(f"K2 group norm {shape} act={act} {dtype} vs plain {name}: "
-              f"max|err|={err:.3e} (rtol {rtol}, atol {atol}); "
-              f"{tail(**times)}", flush=True)
+        print(f"K2 group norm {shape} act={act} {dtype} ({regime}) vs plain "
+              f"{name}: max|err|={err:.3e} (rtol {rtol}, atol {atol}); "
+              f"{tail(**times)}; device {fmt_ms(device_ms)}, {per_call:g} "
+              f"kernel(s) a call (profiler); a second call bitwise equal: "
+              f"{torch.equal(y, again)}", flush=True)
         check(ok, f"K2 disagrees at {shape} {dtype}")
-        record("K2", err if dtype == bf16 else 0.0, i == 0, **times)
+        check(per_call == 1, f"K2 at {shape} {dtype} ran {per_call} kernels "
+              f"a call, not one")
+        check(torch.equal(y, again), f"K2 at {shape} {dtype}: two calls "
+              f"on one input differ")
+        record("K2", err if dtype == bf16 else 0.0, i == 0,
+               device_ms=device_ms, **times)
+        results["K2 shapes"].append(dict(
+            shape=list(shape), act=act, dtype=dt,
+            regime=regime, max_abs_err=err, device_ms=device_ms,
+            kernels_per_call=per_call, **times))
 
     # The GroupNorm backward (a plain port of the JAX _fused_bwd, no
     # kernel) at the tiny-SD 64^2 shape, as the trainer runs it.
@@ -1110,6 +1147,53 @@ def k1_launch_path(card, where, n=2000):
               f"kernel {us[2]:.2f} us (profiler) [{card}]", flush=True)
         out_us[what] = tuple(us)
     return out_us
+
+
+def k2_launch_path(card, where, n=2000):
+    """The host's part of a K2 call at the SD1 UNet's (2, 64, 64, 320) +
+    SiLU, whose kernel takes a few microseconds: the wrapper
+    (``group_norm_cuda``) and its C entry alone (``fdsd_group_norm`` on
+    arguments made once), each ``n`` calls back to back on the host clock,
+    and the kernel's own device time (profiler). Returns (wrapper us, C
+    entry us, kernel us)."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import groupnorm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(2, 64, 64, 320, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    scale = 1.0 + 0.1 * torch.randn(320, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(320, generator=gen, device="cuda")
+    call = lambda: gn.group_norm_cuda(x, 32, scale, bias, 1e-5, "silu")
+    call()
+    dev = x.get_device()
+    _, n_part, _, plan_args, lib = gn._launch_plan(x, dev, 2, 64 * 64, 320,
+                                                   32)
+    y = torch.empty_like(x)
+    part = torch.empty(n_part, device="cuda")
+    args = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            part.data_ptr(), plan_args, 1e-5, 1,
+            torch.cuda.current_stream().cuda_stream)
+    entry = lambda: gn._build.check(lib.fdsd_group_norm(*args),
+                                    "fdsd_group_norm")
+    us = []
+    for fn in (call, entry):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        us.append((time.perf_counter() - t) * 1e6 / n)
+    kernel_ms = kernel_device_ms(entry, "K2 group norm", 100)
+    us.append(float("nan") if kernel_ms is None else 1e3 * kernel_ms)
+    print(f"K2 launch path ({where}), (2,64,64,320) + SiLU bf16: wrapper "
+          f"{us[0]:.2f} us/call, C entry alone {us[1]:.2f} us/call ({n} "
+          f"calls back to back, host clock), kernel {us[2]:.2f} us "
+          f"(profiler) [{card}]", flush=True)
+    return tuple(us)
 
 
 def phase_kernels_pos_bwd(card, ctx, xs, rnd, off, tail):
@@ -3532,6 +3616,9 @@ def main():
     phase_build()
     kernels, tail = phase_kernels(card)
     k1_launch_path(card, "after the kernel phase")
+    kernels["K2 launch path us"] = dict(zip(
+        ("wrapper", "c_entry", "kernel"),
+        k2_launch_path(card, "after the kernel phase")))
     kernels_fp32 = phase_kernels_fp32(card, tail)
     import torch
 
@@ -3626,10 +3713,11 @@ def main():
         check(all(sum(r.values()) == run[k] for r, run in zip(routes, runs)),
               f"{k}'s launches by route do not add up to its launches: "
               f"{[(r, run[k]) for r, run in zip(routes, runs)]}")
-    # the bf16 paths of the joint attention: every K5 / K7 launch on sm90
+    # the bf16 paths of the joint attention: every K5 / K6 / K7 launch on
+    # sm90
     for p, run in zip(paths, runs):
         if p in ("sd3", "mmdit_training", "mmdit_sampling"):
-            for k in ("K5", "K7"):
+            for k in ("K5", "K6", "K7"):
                 r = getattr(run, k.lower() + "_routes")
                 check(r == ({"sm90": run[k]} if run[k] else {}),
                       f"{p}: {k}'s bf16 launches did not all take the sm90 "
@@ -3646,8 +3734,8 @@ def main():
         f"{p} K3 {run.k3_routes} K4 {run.k4_routes}"
         for p, run in zip(paths, runs) if run["K3"] or run["K4"]),
         flush=True)
-    print("K5 / K7 launches by kernel: " + "; ".join(
-        f"{p} K5 {run.k5_routes} K7 {run.k7_routes}"
+    print("K5 / K6 / K7 launches by kernel: " + "; ".join(
+        f"{p} K5 {run.k5_routes} K6 {run.k6_routes} K7 {run.k7_routes}"
         for p, run in zip(paths, runs) if run["K5"] or run["K7"]),
         flush=True)
     together = "dq, dk and dv together"
@@ -3691,6 +3779,21 @@ def main():
               library="F.scaled_dot_product_attention", forms=forms_of("K1")),
         entry("group_norm_silu", "groupnorm.cu", "groupnorm_pallas.py:29",
               "K2", timed_at="(2,64,64,320) + SiLU",
+              design=("bf16 and fp32, one cooperative launch a call: a "
+                      "persistent grid of at most one block per SM, each "
+                      "owning a chunk of one batch's rows, loaded by 1-D "
+                      "bulk copies into mbarrier slots of shared memory "
+                      "while every thread folds them into per-channel "
+                      "Welford statistics; block merge (Chan), per-(batch, "
+                      "group, chunk) partials, one grid barrier, every "
+                      "block merging the partials in one fixed order, then "
+                      "x * mul + add (+ SiLU) from the rows still in shared "
+                      "memory with 16-byte stores; where the rows do not "
+                      "fit, a ring of slots that reloads them after the "
+                      "barrier in reverse order"),
+              device_ms=kernels["K2"].get("device_ms"),
+              shapes=kernels["K2 shapes"],
+              launch_path_us=kernels["K2 launch path us"],
               library="F.group_norm + F.silu"),
         entry("flash_attention_bwd_dq", "flash_attention_dq_sm90.cu",
               "flash_attention.py:682", "K3", plain_computes=together,
@@ -3744,9 +3847,20 @@ def main():
               sm90=by_route("sm90", "k5"), shapes=kernels["K5 shapes"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64) online",
               library="F.scaled_dot_product_attention"),
-        entry("flash_attention_bwd_pos_dq", "flash_attention_pos_bwd.cu",
+        entry("flash_attention_bwd_pos_dq", "flash_attention_dq_sm90.cu",
               "flash_attention.py:1446", "K6", plain_computes=together,
-              library_computes=together, shapes=kernels["K6"]["shapes"],
+              library_computes=together,
+              design=("bf16 at head dims 64 and 128: the position-mask form "
+                      "of K3's kernel (one block of 3 warpgroups per 128 "
+                      "queries, a producer issuing TMA for Q and dO once "
+                      "and K and V tiles of 64 keys in a 2-stage ring; two "
+                      "consumers of 64 queries with the caller's global "
+                      "lse and delta in registers computing S and dP with "
+                      "wgmma m64n64k16 SS, dS in registers as the RS A "
+                      "operand of dQ += dS K with K MN-major); every role "
+                      "skips the same pairs from their position bounds, "
+                      "masked P selected to 0"),
+              sm90=by_route("sm90", "k6"), shapes=kernels["K6"]["shapes"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
               library="backward of F.scaled_dot_product_attention"),
         entry("flash_attention_bwd_pos_dkv", "flash_attention_bwd_sm90.cu",

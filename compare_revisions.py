@@ -17,10 +17,11 @@ Parts, all of them unless ``--only`` names some:
     the wrapper and its C entry alone, us per call, and the kernel's us);
   - kernels: K1 at ``chip_smoke.K1_SHAPES`` and ``K1_FORMS``, K3 and K4 at
     the head-dim-128 shapes of ``K1_SHAPES`` and the TinyVLM's two forms of
-    ``K1_FORMS``, K2 at the SD1 UNet's and the largest SD3 VAE decoder's
-    GroupNorm, K5 (online and bounded), K6 and K7 at the four shapes of the
-    SD3 joint attention (``chip_smoke.SD3_JOINT_SHAPES``; q, k, v slices of
-    the fused projections, K6 / K7 under the lse merged over both streams):
+    ``K1_FORMS``, K2 at ``chip_smoke.GN_CASES`` (and the wrapper's host
+    time per call at the first), K5 (online and bounded), K6 and K7 at the
+    four shapes of the SD3 joint attention (``chip_smoke.SD3_JOINT_SHAPES``;
+    q, k, v slices of the fused projections, K6 / K7 under the lse merged
+    over both streams):
     wall ms per call (``cuda_ms``) and the kernel's own device ms per call
     (profiler kernel rows of its family over 10 calls);
   - training: ``chip_smoke.phase_training`` (the tiny-SD step) and
@@ -140,11 +141,24 @@ def _other_kernels(cs, out, rnd):
                lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
                                                        causal=causal))
         del q, g, k, v, o
-    for shape in ((2, 64, 64, 320), (1, 1024, 1024, 128)):
-        x = rnd(*shape).to(bf16)
+    for shape, act, dt in cs.GN_CASES:
+        x = rnd(*shape).to(bf16 if dt == "bf16" else torch.float32)
         w, bb = 1.0 + 0.1 * rnd(shape[-1]), 0.1 * rnd(shape[-1])
-        _timed(cs, out, f"K2 {shape} silu", "K2 group norm",
-               lambda: gn.group_norm_cuda(x, 32, w, bb, 1e-5, "silu"))
+        _timed(cs, out, f"K2 {shape} {act} {dt}", "K2 group norm",
+               lambda: gn.group_norm_cuda(x, 32, w, bb, 1e-5, act))
+        del x
+    # K2's host path: the wrapper, 2000 calls back to back on the host clock
+    x = rnd(2, 64, 64, 320).to(bf16)
+    w, bb = 1.0 + 0.1 * rnd(320), 0.1 * rnd(320)
+    for _ in range(50):
+        gn.group_norm_cuda(x, 32, w, bb, 1e-5, "silu")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(2000):
+        gn.group_norm_cuda(x, 32, w, bb, 1e-5, "silu")
+    torch.cuda.synchronize()
+    out["K2 launch path (2,64,64,320) silu: wrapper us"] = (
+        time.perf_counter() - t) * 1e6 / 2000
     # the joint attention of SD3 / the MMDiT: q, k, v slices of the fused
     # (B, L, 3, H, D) projections of the 154 context and 4096 x tokens
     b, h, d = 2, 24, 64

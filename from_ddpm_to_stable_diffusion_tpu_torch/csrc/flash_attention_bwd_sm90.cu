@@ -69,7 +69,6 @@
 // dk (times scale) and dv are written in bf16 through their strides.
 
 #include "mask.cuh"
-#include "mma.cuh"
 #include "pos_tile.cuh"
 #include "sm90.cuh"
 
@@ -77,7 +76,6 @@ namespace {
 
 namespace s9 = fdsd::sm90;
 using fdsd::MaskArgs;
-using fdsd::pack_bf16;
 using fdsd::PosArgs;
 using fdsd::pos_bounds;
 using fdsd::pos_of;
@@ -402,10 +400,10 @@ __device__ __forceinline__ void flash_bwd_dkv_body(const CUtensorMap& tq,
           pr[e] = pv;
           ds[e] = pv * (dp[4 * j + e] - ((e & 1) ? dl2.y : dl2.x));
         }
-        pa[j / 2][(j & 1) * 2] = pack_bf16(pr[0], pr[1]);
-        pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(pr[2], pr[3]);
-        da[j / 2][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
-        da[j / 2][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        pa[j / 2][(j & 1) * 2] = s9::pack_bf16(pr[0], pr[1]);
+        pa[j / 2][(j & 1) * 2 + 1] = s9::pack_bf16(pr[2], pr[3]);
+        da[j / 2][(j & 1) * 2] = s9::pack_bf16(ds[0], ds[1]);
+        da[j / 2][(j & 1) * 2 + 1] = s9::pack_bf16(ds[2], ds[3]);
       }
       if (HAS_BIAS) {
         s9::mbar_arrive(bias_empty);

@@ -1,31 +1,42 @@
-// Flash-attention backward dq (K3) for Hopper (sm_90a) on TMA and wgmma:
-// bf16 in and out, fp32 softmax reconstruction and accumulators.
+// Flash-attention backward dq for Hopper (sm_90a) on TMA and wgmma: bf16 in
+// and out, fp32 softmax reconstruction and accumulators. K3, and K6, its
+// position-masked form.
 //
-// Replaces the Pallas TPU kernel
+// Replaces two Pallas TPU kernels of the JAX package:
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
-// in every form of its: ragged Lq and Lk, and as template parameters beside
-// the head dim (64: SigLIP tower, TinyVLM decoder, T5; 128: tiny-SD) CAUSAL
-// (key <= query from index 0 on both sides), HAS_BIAS (an additive bias read
-// through its strides, added in fp32 after the scale) and HAS_SEG (segment
-// ids: same-id pairs only). It recomputes the probabilities under the
-// forward's saved lse, P = exp(scale * Q K^T + bias - lse), selected to 0
+//     (K3) in every form of its: ragged Lq and Lk, and as template
+//     parameters beside the head dim (64: SigLIP tower, TinyVLM decoder, T5;
+//     128: tiny-SD) CAUSAL (key <= query from index 0 on both sides),
+//     HAS_BIAS (an additive bias read through its strides, added in fp32
+//     after the scale) and HAS_SEG (segment ids: same-id pairs only);
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel_pos
+//     (K6): dq of a LOCAL block of queries against a LOCAL block of keys
+//     under a GLOBAL softmax over more keys than this block holds, with the
+//     position masks of K5 (flash_attention_sm90.cu): the MMDiT's training
+//     step runs it four times per joint block at (2, 24, {154, 4096},
+//     {154, 4096}, 64) under the lse merged over both streams.
+// It recomputes the probabilities under the caller's lse (K3: the forward's;
+// K6: the global one), P = exp(scale * Q K^T + bias - lse), selected to 0
 // where a mask hides the key (never multiplied: a row that saw no key has
-// lse = -1e30), with delta = rowsum(dO * out) computed beforehand (fp32, by
-// the caller): dS = P * (dO V^T - delta), dQ = scale * dS K. With a bias
-// that needs a gradient it also writes dbias = dS, fp32 (B, H, Lq, Lk):
-// every tile exactly once, zeros where a tile is skipped, so the caller
-// reduces it over the bias's broadcast axes without a memset. The TPU's
-// sequential key-block grid axis is a loop inside the block. dk and dv are
-// K4, the kernel of flash_attention_bwd_sm90.cu, whose shape this one
-// mirrors with the roles of queries and keys swapped.
+// lse = -1e30, and under K6 a row that only another block's keys see has a
+// finite lse and is masked in every tile here), with delta = rowsum(dO *
+// out) computed beforehand (fp32, by the caller): dS = P * (dO V^T - delta),
+// dQ = scale * dS K; under K6 the contributions of several key blocks add
+// up in the caller, and this kernel's dq is written, not accumulated. With
+// a bias that needs a gradient it also writes dbias = dS, fp32 (B, H, Lq,
+// Lk): every tile exactly once, zeros where a tile is skipped, so the
+// caller reduces it over the bias's broadcast axes without a memset. The
+// TPU's sequential key-block grid axis is a loop inside the block. dk and
+// dv are K4 / K7, the kernel of flash_attention_bwd_sm90.cu, whose shape
+// this one mirrors with the roles of queries and keys swapped.
 //
 // What bounds it on the H100: three L^2 * d products per (b, h), thousands
-// of flop per byte of q, k, v and dO at the tiny-SD and TinyVLM shapes:
-// operations, so the tensor cores' issue rate and, at d = 64, the
-// exponentials. The mma.sync kernel it replaces reached ~15 % of that bound:
-// tiles were loaded synchronously, K went through shared memory a second
-// time as a transposed copy for the dS K product, and no load overlapped a
-// product.
+// of flop per byte of q, k, v and dO at the tiny-SD, TinyVLM and MMDiT
+// shapes: operations, so the tensor cores' issue rate and, at d = 64, the
+// exponentials. The mma.sync kernels it replaces reached ~15 % (K3) and
+// ~19 % (K6) of that bound: tiles were loaded synchronously, no load
+// overlapped a product, and (K3) K went through shared memory a second time
+// as a transposed copy for the dS K product.
 //
 // Design. One block of three warpgroups per (b*h, 128 queries):
 //  - a producer warpgroup gives up its registers (setmaxnreg 40). One thread
@@ -49,17 +60,29 @@
 //    segment ids walk the tile range [lo, hi] of mask.cuh at (128 queries,
 //    64 keys), skip a tile whose ids are disjoint, and mask per logit only
 //    where the two tiles are not one same segment.
-// dq (times scale) is written in bf16 through its strides.
+//  - K6 (POS) is one more form, with its own kernel name
+//    (flash_bwd_pos_dq_sm90_kernel) so that profiles and the SASS check tell
+//    it from K3. Its masks are runtime flags read per tile: every role judges
+//    each (query tile, key tile) pair by the same pos_pair of the two tiles'
+//    position bounds (pos_tile.cuh), as K7 does, so producer and consumers
+//    walk the same tiles: skipped, wholly visible, or masked per logit (key
+//    index < Lk, key position < valid_len, key position <= query position
+//    when causal).
+// dq (times scale) is written in bf16 through its strides, every row of it:
+// rows whose tiles were all skipped as 0.
 
 #include "mask.cuh"
-#include "mma.cuh"
+#include "pos_tile.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 namespace s9 = fdsd::sm90;
 using fdsd::MaskArgs;
-using fdsd::pack_bf16;
+using fdsd::PosArgs;
+using fdsd::pos_bounds;
+using fdsd::pos_of;
+using fdsd::pos_pair;
 using fdsd::seg_overlap;
 
 constexpr float kNegInf = -1e30f;
@@ -101,6 +124,7 @@ struct Params {
   long long dqs[3];  // dq's (batch, head, seq) element strides
   float scale;
   MaskArgs m;
+  PosArgs pos;  // K6 only
 };
 
 // One pair of the staged bias tile, (query row r, key columns c, c + 1).
@@ -111,15 +135,16 @@ __device__ __forceinline__ float2 bias_pair(const void* tile, int bf16, int r,
               : s9::load_pair(static_cast<const float*>(tile) + i);
 }
 
-template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                         const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv,
-                         const __grid_constant__ CUtensorMap tg,
-                         const __grid_constant__ Params p) {
+// The kernel body of K3 (POS = false) and K6 (POS = true, no other mask).
+template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG, bool POS>
+__device__ __forceinline__ void flash_bwd_dq_body(const CUtensorMap& tq,
+                                                  const CUtensorMap& tk,
+                                                  const CUtensorMap& tv,
+                                                  const CUtensorMap& tg,
+                                                  const Params& p) {
   using C = Cfg<DP, HAS_BIAS>;
-  constexpr bool kSelect = CAUSAL || HAS_BIAS || HAS_SEG;
+  constexpr bool kSelect = CAUSAL || HAS_BIAS || HAS_SEG || POS;
+  static_assert(!POS || !(CAUSAL || HAS_BIAS || HAS_SEG), "K6's masks");
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = s9::smem_u32(smem_raw);
@@ -159,7 +184,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   // The key tiles this block visits, the same walk in every role: all of
   // them; up to the diagonal when causal; the range whose segment ids
-  // overlap this query tile's, less the disjoint tiles inside it.
+  // overlap this query tile's, less the disjoint tiles inside it; under
+  // position masks, those pos_pair does not skip.
   const int n_kt = (p.Lk + kBK - 1) / kBK;
   int kt_begin = 0, kt_end = n_kt;
   if (CAUSAL) kt_end = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
@@ -172,9 +198,23 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     q_bound = p.m.q_bounds + 2 * tile;
     k_bounds = p.m.kv_bounds + 2 * b * n_kt;
   }
+  int q_lo = 0, q_hi = 0, k_off0 = 0, k_off1 = 0;
+  if (POS) {
+    k_off0 = p.pos.k_off[0];
+    k_off1 = p.pos.k_off[1];
+    pos_bounds(q0, kBQ, p.pos.q_off[0], p.pos.q_off[1], p.pos.seg_q, p.Lq,
+               q_lo, q_hi);
+  }
+  // pos_pair of this query tile with key tile kt: 0 skip, 1 visible, 2 masked
+  auto pos_state = [&](int kt) {
+    int k_lo, k_hi;
+    pos_bounds(kt * kBK, kBK, k_off0, k_off1, p.pos.seg_k, p.Lk, k_lo, k_hi);
+    return pos_pair(p.pos, q_lo, q_hi, k_lo, k_hi);
+  };
   auto visits = [&](int kt) {
     return kt >= kt_begin && kt < kt_end &&
-           (!HAS_SEG || seg_overlap(q_bound, k_bounds + 2 * kt));
+           (!HAS_SEG || seg_overlap(q_bound, k_bounds + 2 * kt)) &&
+           (!POS || pos_state(kt) != 0);
   };
 
   if (tid < 128) {
@@ -235,6 +275,11 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const float lse1 = (r1 < p.Lq ? lse_b[r1] : kPadLse) * kLog2e;
     const float dl0 = r0 < p.Lq ? dl_b[r0] : 0.f;
     const float dl1 = r1 < p.Lq ? dl_b[r1] : 0.f;
+    int qpos0 = 0, qpos1 = 0;  // K6: the positions of the two rows
+    if (POS) {
+      qpos0 = pos_of(r0, p.pos.q_off[0], p.pos.q_off[1], p.pos.seg_q);
+      qpos1 = pos_of(r1, p.pos.q_off[0], p.pos.q_off[1], p.pos.seg_q);
+    }
     const int* kv_ids = nullptr;
     int qid0 = -1, qid1 = -1;
     if (HAS_SEG) {
@@ -287,6 +332,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const bool tail = k0 + kBK > p.Lk;
       bool need_mask = false;
       if (CAUSAL) need_mask = k0 + kBK - 1 > q0 + 64 * cw;
+      if (POS) need_mask = pos_state(kt) == 2;
       int kv_id[HAS_SEG ? kBK / 8 : 1][2];
       bool seg_mask = false;  // the two tiles are not all one segment
       if (HAS_SEG) {
@@ -360,12 +406,19 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           if (CAUSAL && need_mask) visible = visible && key <= (e < 2 ? r0 : r1);
           if (HAS_SEG && seg_mask)
             visible = visible && kv_id[j][e & 1] == (e < 2 ? qid0 : qid1);
+          if (POS && need_mask) {
+            const int kp = pos_of(key, k_off0, k_off1, p.pos.seg_k);
+            if (p.pos.has_valid) visible = visible && kp < p.pos.valid_len;
+            if (p.pos.causal)
+              visible = visible && kp <= (e < 2 ? qpos0 : qpos1);
+          }
           float pv = s9::exp2_approx(fmaf(x, c, -(e < 2 ? lse0 : lse1)));
           if ((kSelect || tail) && !visible) pv = 0.f;  // selected
           s[4 * j + e] = pv * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
         }
-        da[j / 2][(j & 1) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
-        da[j / 2][(j & 1) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+        da[j / 2][(j & 1) * 2] = s9::pack_bf16(s[4 * j], s[4 * j + 1]);
+        da[j / 2][(j & 1) * 2 + 1] =
+            s9::pack_bf16(s[4 * j + 2], s[4 * j + 3]);
       }
       if (HAS_BIAS) {
         s9::mbar_arrive(bias_empty);
@@ -412,11 +465,36 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// K3.
 template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* g, int B, const long long* st,
-                   const Params& p, cudaStream_t stream) {
-  using C = Cfg<DP, HAS_BIAS>;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tg,
+                         const __grid_constant__ Params p) {
+  flash_bwd_dq_body<DP, CAUSAL, HAS_BIAS, HAS_SEG, false>(tq, tk, tv, tg, p);
+}
+
+// K6: the position masks under a global lse.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_pos_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tg,
+                             const __grid_constant__ Params p) {
+  flash_bwd_dq_body<DP, false, false, false, true>(tq, tk, tv, tg, p);
+}
+
+// The q, k, v and dO tensor maps, then `kernel` on one block per (b*h, 128
+// queries).
+template <int DP, typename Kernel>
+cudaError_t launch_on(Kernel kernel, int smem, const void* q, const void* k,
+                      const void* v, const void* g, int B,
+                      const long long* st, const Params& p,
+                      cudaStream_t stream) {
+  using C = Cfg<DP, false>;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap tq, tk, tv, tg;
   cudaError_t err =
@@ -428,9 +506,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = s9::make_map(&tg, g, p.d, p.Lq, p.H, B, st + 9, C::W, kBQ, sw);
   if (err != cudaSuccess) return err;
-  return s9::launch_kernel(
+  return s9::launch_kernel(kernel, B * p.H * p.n_qt, kThreads, smem, stream,
+                           tq, tk, tv, tg, p);
+}
+
+template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* g, int B, const long long* st,
+                   const Params& p, cudaStream_t stream) {
+  return launch_on<DP>(
       flash_bwd_dq_sm90_kernel<DP, CAUSAL, HAS_BIAS, HAS_SEG>,
-      B * p.H * p.n_qt, kThreads, C::kSmemBytes, stream, tq, tk, tv, tg, p);
+      Cfg<DP, HAS_BIAS>::kSmemBytes, q, k, v, g, B, st, p, stream);
 }
 
 // The eight forms at one head dim; code = 4*causal + 2*has_bias + has_seg.
@@ -473,7 +559,7 @@ extern "C" int fdsd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* hi, int B, int H, int Lq, int Lk,
                                  int d, const long long* strides, float scale,
                                  int causal, int bias_bf16, void* stream) {
-  Params p;
+  Params p = {};
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dbias = bias != nullptr ? static_cast<float*>(dbias) : nullptr;
   p.lse = static_cast<const float*>(lse);
@@ -495,5 +581,42 @@ extern "C" int fdsd_flash_bwd_dq(const void* q, const void* k, const void* v,
     err = launch_form<64>(code, q, k, v, g, B, strides, p, s);
   else if (d == 128)
     err = launch_form<128>(code, q, k, v, g, B, strides, p, s);
+  return static_cast<int>(err);
+}
+
+// K6. strides: (batch, head, seq) element strides of q, k, v, dO, dq (15
+// values); the head-dim stride is 1. lse and delta are (B, H, Lq) contiguous
+// fp32, the global ones; q_off and k_off are int32[2] in device memory. Head
+// dims 64 and 128; others return cudaErrorInvalidValue.
+extern "C" int fdsd_flash_bwd_pos_dq(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* lse, const void* delta, void* dq, const void* q_off,
+    const void* k_off, int B, int H, int Lq, int Lk, int d,
+    const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
+    int has_valid, int causal, void* stream) {
+  Params p = {};
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.H = H;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.d = d;
+  p.n_qt = (Lq + kBQ - 1) / kBQ;
+  for (int i = 0; i < 3; ++i) p.dqs[i] = strides[12 + i];
+  p.scale = scale;
+  p.pos = PosArgs{static_cast<const int*>(q_off),
+                  static_cast<const int*>(k_off), seg_q, seg_k, valid_len,
+                  has_valid, causal};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (d == 64)
+    err = launch_on<64>(flash_bwd_pos_dq_sm90_kernel<64>,
+                        Cfg<64, false>::kSmemBytes, q, k, v, g, B, strides,
+                        p, s);
+  else if (d == 128)
+    err = launch_on<128>(flash_bwd_pos_dq_sm90_kernel<128>,
+                         Cfg<128, false>::kSmemBytes, q, k, v, g, B, strides,
+                         p, s);
   return static_cast<int>(err);
 }

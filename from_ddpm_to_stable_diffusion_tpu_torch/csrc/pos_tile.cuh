@@ -2,8 +2,7 @@
 // global-position arithmetic of a local block made of two offset segments,
 //   pos(idx) = off0 + idx          if idx <  seg
 //            = off1 + (idx - seg)  otherwise,
-// what a (query tile, key tile) pair needs under the masks, and the staging
-// of a strided (len x D) bf16 matrix into shared memory.
+// and what a (query tile, key tile) pair needs under the masks.
 
 #pragma once
 
@@ -48,23 +47,6 @@ __device__ __forceinline__ int pos_pair(const PosArgs& a, int q_lo, int q_hi,
     return 0;
   return (a.has_valid && k_hi >= a.valid_len) || (a.causal && k_hi > q_lo)
              ? 2 : 1;
-}
-
-// Rows [r0, r0 + ROWS) of a strided (len x D) bf16 matrix into a row-major
-// shared tile of row stride D + 8, rows past len as zeros; NT threads.
-template <int D, int ROWS, int NT = 128>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int r0,
-                                          int len, int tid) {
-  constexpr int kVecs = D / 8, kStride = D + 8;
-  for (int i = tid; i < ROWS * kVecs; i += NT) {
-    const int r = i / kVecs, c = i % kVecs;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < len)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * kStride + c * 8) = val;
-  }
 }
 
 }  // namespace fdsd

@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks in raw PTX, for kernels built on TMA and
 // wgmma: mbarriers, named barriers, the 4-D TMA tile load and its host-side
-// tensor map (bf16 or fp32), shared-memory matrix descriptors, wgmma
-// m64nNk16 (bf16 in, fp32 accumulators) in SS and RS form and m64nNk8 in
-// TF32 (fp32 operands rounded to TF32, both K-major), with its fence /
-// commit / wait, the rounding to TF32, the proxy fence that hands shared
-// memory written by threads to wgmma, setmaxnreg, and the producer's staging
-// of a bias tile. Raw PTX rather than CuTe keeps the build to one plain-C
-// translation unit per kernel file.
+// tensor map (bf16 or fp32), the 1-D bulk copy, shared-memory matrix
+// descriptors, wgmma m64nNk16 (bf16 in, fp32 accumulators) in SS and RS form
+// and m64nNk8 in TF32 (fp32 operands rounded to TF32, both K-major), with its
+// fence / commit / wait, the rounding to TF32, the proxy fence that hands
+// shared memory written by threads to wgmma, setmaxnreg, and the producer's
+// staging of a bias tile. Raw PTX rather than CuTe keeps the build to one
+// plain-C translation unit per kernel file.
 //
 // Shared-memory operand layouts (the wgmma "canonical" layouts, written by
 // TMA with the matching swizzle): a tile of R rows x DP bf16 columns is kept
@@ -105,6 +105,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of global memory at `src` into shared memory at
+// `dst`, both 16-byte aligned, as one bulk copy; completion is counted in
+// bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -413,6 +425,13 @@ __device__ __forceinline__ void reg_dealloc() {
 template <int R>
 __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Two fp32 values rounded to bf16 and packed into one 32-bit register (lo in
+// the low half): a pair of an A fragment of the RS form.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {

@@ -61,10 +61,10 @@ _SIGNATURES = {
     # strides[18], scale, seg_q, seg_k, valid_len, has_valid, causal, stream
     "fdsd_flash_bwd_pos_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _P, _F, _I, _I, _I, _I, _I, _P],
-    # x, scale, bias, y, part, stats, B, HW, C, G, eps, silu, is_bf16,
-    # threads, rows_per_chunk, n_chunks, stream
-    "fdsd_group_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                        _I, _I, _I, _P],
+    # x, scale, bias, y, part, plan (int32[13]), eps, silu, stream
+    "fdsd_group_norm": [_P] * 6 + [_F, _I, _P],
+    # is_bf16, threads, smem: K2's blocks per SM
+    "fdsd_group_norm_blocks_per_sm": [_I, _I, _I],
 }
 _SIGNATURES_FP32 = {
     # q, k, v, out, lse, work, bias, B, H, Lq, Lk, d, strides[12 + 4],

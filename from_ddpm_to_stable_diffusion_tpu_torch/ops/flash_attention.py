@@ -36,10 +36,12 @@ of ``csrc/flash_attention_sm90.cu``, :func:`k5_route`), on CPU tensors
 :func:`flash_attention_pos_plain`. Position-masked backward:
 :func:`flash_bwd_pos` gives (dq, dk, dv) of one query block against one key
 block under a caller-supplied *global* lse and delta, with the same masks;
-on CUDA tensors K6 (dq, the Pallas ``_bwd_dq_kernel_pos``,
-``csrc/flash_attention_pos_bwd.cu``) and K7 (dk with dv, the Pallas
-``_bwd_dkv_kernel_pos``: in bf16 the position-mask form of the TMA / wgmma
-kernel of ``csrc/flash_attention_bwd_sm90.cu``, :func:`k7_route`), on CPU
+on CUDA tensors K6 (dq, the Pallas ``_bwd_dq_kernel_pos``: in bf16 the
+position-mask form of the TMA / wgmma kernel of
+``csrc/flash_attention_dq_sm90.cu``, :func:`k6_route`) and K7 (dk with dv,
+the Pallas ``_bwd_dkv_kernel_pos``: in bf16 the position-mask form of the
+TMA / wgmma kernel of ``csrc/flash_attention_bwd_sm90.cu``,
+:func:`k7_route`), on CPU
 tensors :func:`flash_bwd_pos_plain`. :func:`joint_flash_attention` is the MMDiT's
 attention over [context | x] without concatenation: four position-masked
 calls merged exactly through their log-sum-exps by
@@ -69,9 +71,9 @@ fp32 launch first asks for it. They cover the head dims the port's fp32
 defaults reach (``_FP32_*`` below), without a mask, causal, or (K1 at 64,
 T5) a bias alone; with segment ids, another bias form or another head dim,
 an fp32 CUDA tensor raises ``NotImplementedError``. Each wrapper counts
-its launches by dtype in ``.dtypes`` beside ``.launches``; K1, K3, K4, K5
-and K7, which run more than one kernel, also by kernel in ``.routes``, and
-K1 by head dim in ``.head_dims``.
+its launches by dtype in ``.dtypes`` beside ``.launches``; each, as it runs
+more than one kernel, also by kernel in ``.routes``, and K1 by head dim in
+``.head_dims``.
 """
 
 from __future__ import annotations
@@ -534,7 +536,8 @@ def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
 
 
 def _pos_route(fn, dtype, d: int) -> str:
-    """The route of a position-masked kernel (K5, K7), whatever its masks:
+    """The route of a position-masked kernel (K5, K6, K7), whatever its
+    masks:
     "sm90" for bf16 at head dims 64 and 128, "fp32" for fp32 at 64; raises
     for anything else."""
     if dtype not in (torch.bfloat16, torch.float32):
@@ -563,6 +566,16 @@ def k5_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
     TF32 wgmma, three passes: 64 in every form). Raises ``NotImplementedError`` naming what the kernels take
     for any other."""
     return _pos_route("flash_attention_pos_cuda", dtype, d)
+
+
+def k6_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
+             segments: bool = False) -> str:
+    """Which K6 kernel a CUDA launch of this dtype, head dim and form runs:
+    "sm90" (the position-mask form of ``csrc/flash_attention_dq_sm90.cu``,
+    TMA and wgmma: bf16 at head dims 64 and 128 in every form) or "fp32"
+    (``csrc/fp32/flash_f32_bwd.cu``: 64 in every form). Raises
+    ``NotImplementedError`` naming what the kernels take for any other."""
+    return _pos_route("flash_bwd_pos_dq_cuda", dtype, d)
 
 
 def k7_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
@@ -729,7 +742,8 @@ def _check_bwd(q, k, v, g, lse, delta, head_dims=_BWD_HEAD_DIMS,
                fp32_dims=_FP32_BWD_HEAD_DIMS):
     """(b, h, lq, lk, d) after the checks of :func:`_check_qkv` and those of
     dO, lse and delta; with ``head_dims`` None the caller checks the head
-    dim (K3, K4: :func:`k3_route`, :func:`k4_route`)."""
+    dim (K3, K4, K6, K7: :func:`k3_route`, :func:`k4_route`,
+    :func:`k6_route`, :func:`k7_route`)."""
     dims = _check_qkv(q, k, v, "the flash backward kernels", head_dims,
                       fp32_dims)
     _check_operand("dO", g, q)
@@ -1098,11 +1112,10 @@ def flash_bwd_pos_plain(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
 
 
 def _pos_bwd_args(q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q,
-                  seg_k, head_dims=_POS_HEAD_DIMS):
-    """(dims, scale, seg_q, seg_k) after the checks of K6 and K7; with
-    ``head_dims`` None the caller checks the head dim (K7:
-    :func:`k7_route`)."""
-    dims = _check_bwd(q, k, v, g, lse, delta, head_dims, _FP32_POS_HEAD_DIMS)
+                  seg_k):
+    """(dims, scale, seg_q, seg_k) after the checks of K6 and K7; the caller
+    checks the head dim (:func:`k6_route`, :func:`k7_route`)."""
+    dims = _check_bwd(q, k, v, g, lse, delta, None)
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, "online")
     _check_pos(q, scale, q_offsets, kv_offsets)
     return dims, scale, seg_q, seg_k
@@ -1115,13 +1128,19 @@ def flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
                           valid_len: Optional[int] = None):
     """K6: dq of :func:`flash_bwd_pos` for bf16 (B, H, L, D) CUDA tensors,
     D 64 or 128, or fp32 ones, D 64; ``lse`` and ``delta`` contiguous fp32
-    (B, H, Lq), the offsets int32 (2,) tensors on q's device."""
+    (B, H, Lq), the offsets int32 (2,) tensors on q's device. Which kernel
+    runs: :func:`k6_route`; launches are counted by route in ``.routes``."""
     (b, h, lq, lk, d), scale, seg_q, seg_k = _pos_bwd_args(
         q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k)
+    route = k6_route(q.dtype, d, bool(causal), valid_len is not None,
+                     seg_q < lq or seg_k < lk)
+    work = []   # the fp32 kernel's workspace, after the offsets
+    if route == "sm90":
+        q, k, v, g = (_tma_operand(x) for x in (q, k, v, g))
+    else:
+        work = [_f32_bwd_work(q, lk)]
     dq = _blhd(q, lq)
     strides = _strides(q, k, v, g, dq)
-    # the fp32 kernel takes a workspace for its split terms after the offsets
-    work = [_f32_bwd_work(q, lk)] if q.dtype == torch.float32 else []
     err = _pos_entry(q, "fdsd_flash_bwd_pos_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), q_offsets.data_ptr(),
@@ -1130,7 +1149,7 @@ def flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
         0 if valid_len is None else int(valid_len), int(valid_len is not None),
         int(bool(causal)), _stream(q))
     _build.check(err, "fdsd_flash_bwd_pos_dq")
-    _count_launch(flash_bwd_pos_dq_cuda, q)
+    _count_launch(flash_bwd_pos_dq_cuda, q, route=route)
     return dq
 
 
@@ -1144,8 +1163,7 @@ def flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
     Which kernel runs: :func:`k7_route`; launches are counted by route in
     ``.routes``."""
     (b, h, lq, lk, d), scale, seg_q, seg_k = _pos_bwd_args(
-        q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k,
-        head_dims=None)
+        q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k)
     route = k7_route(q.dtype, d, bool(causal), valid_len is not None,
                      seg_q < lq or seg_k < lk)
     work = []   # the fp32 kernel's workspace, after the offsets
@@ -1172,6 +1190,7 @@ flash_bwd_pos_dq_cuda.launches = 0
 flash_bwd_pos_dkv_cuda.launches = 0
 flash_bwd_pos_dq_cuda.dtypes = collections.Counter()
 flash_bwd_pos_dkv_cuda.dtypes = collections.Counter()
+flash_bwd_pos_dq_cuda.routes = collections.Counter()
 flash_bwd_pos_dkv_cuda.routes = collections.Counter()
 
 

@@ -16,8 +16,9 @@ kernel, so plain PyTorch is its counterpart here on every device.
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -65,32 +66,134 @@ def group_norm_plain_one_pass(x, num_groups, scale, bias, eps=1e-5,
     return _apply_act(out, act).to(x.dtype).reshape(x.shape)
 
 
-def launch_config(batch: int, hw: int, channels: int, itemsize: int,
-                  n_sm: int = 132):
-    """(threads, rows_per_chunk, n_chunks) for the kernel's (chunks, B) grid.
+GN_SMEM = 232448       # bytes of shared memory one block may use (H100)
+GN_THREADS = 512       # the block size the plan aims at
+GN_PIECES = 8          # pieces a unit is loaded in where it stays resident
+GN_SLOT_BYTES = 32768  # a slot of the ring where the rows stream
+GN_STAGES = 6          # the ring's slots
+GN_MAX_SLOTS = 32      # the kernel tracks each slot's phase in one bit
 
-    Each thread owns one 16-byte vector of channels, so the block size is a
-    multiple of both the vectors per row and the warp size; chunks of rows
-    are sized so that the grid has about four blocks per SM.
+
+class GroupNormPlan(NamedTuple):
+    """One launch of the K2 kernel (``csrc/groupnorm.cu``): ``grid`` blocks
+    of ``threads``, each owning ``units_per_block`` units of at most
+    ``rows_per_chunk`` rows (a batch's rows in ``chunks`` chunks), loaded in
+    pieces of ``rows_per_piece`` rows into ``stages`` slots of shared
+    memory, ``smem`` bytes in all; ``resident``: every piece keeps its own
+    slot, so x is read once."""
+    threads: int
+    chunks: int
+    rows_per_chunk: int
+    grid: int
+    units_per_block: int
+    rows_per_piece: int
+    stages: int
+    resident: bool
+    smem: int
+
+
+def _up16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def group_norm_plan(batch: int, hw: int, channels: int, groups: int,
+                    itemsize: int, n_sm: int = 132) -> GroupNormPlan:
+    """The launch plan of the K2 kernel on ``n_sm`` SMs, one block per SM.
+
+    Each thread owns one 16-byte vector of channels and every
+    ``threads / (C / vec)``-th row, so the block size is a multiple of the
+    vectors per row and of the warp, near ``GN_THREADS``; a piece is a
+    multiple of those row residues. Each batch's rows are cut into as many
+    chunks as there are blocks per batch; where a block's rows fit its
+    shared memory (in at most ``GN_MAX_SLOTS`` pieces, ``GN_PIECES`` a
+    unit) they stay there between the statistics and the normalisation,
+    else they stream through ``GN_STAGES`` slots of about ``GN_SLOT_BYTES``
+    and are read twice. ``smem`` follows the kernel's layout: the slots'
+    mbarriers, the groups' (mean, rstd), the affine, each channel's (mean,
+    M2), two sums per channel of each thread, the slots.
     """
     vec = 16 // itemsize
     if channels % vec:
         raise ValueError(f"C={channels} is not a multiple of {vec}")
     vpr = channels // vec
     base = vpr * 32 // math.gcd(vpr, 32)
-    # the statistics pass keeps (n, mean[vec], M2[vec]) per thread in 48 KB
-    max_threads = min(1024, 48 * 1024 // ((2 * vec + 1) * 4))
-    if base > max_threads:
-        raise ValueError(f"C={channels}: needs {base} threads per block")
-    threads = base * max(1, 256 // base)
+    threads = base * max(1, GN_THREADS // base)
+    if threads > 1024:
+        raise ValueError(f"C={channels}: needs {threads} threads per block")
     rows_par = threads // vpr
-    n_chunks = max(1, min(-(-4 * n_sm // batch), -(-hw // rows_par)))
-    rows_per_chunk = -(-hw // n_chunks)
-    return threads, rows_per_chunk, -(-hw // rows_per_chunk)
+    row_bytes = channels * itemsize
+    chunks = max(1, n_sm // batch)
+    rpc = -(-hw // chunks)
+    chunks = -(-hw // rpc)
+    grid = min(n_sm, batch * chunks)
+    upb = -(-(batch * chunks) // grid)
+
+    def smem(stages, rpp):
+        return (_up16(8 * stages) + _up16(8 * groups)
+                + 2 * _up16(8 * channels) + 2 * _up16(4 * threads * vec)
+                + stages * rpp * row_bytes)
+
+    rpp = rows_par * -(-(-(-rpc // GN_PIECES)) // rows_par)
+    stages = upb * -(-rpc // rpp)
+    if stages <= GN_MAX_SLOTS and smem(stages, rpp) <= GN_SMEM:
+        return GroupNormPlan(threads, chunks, rpc, grid, upb, rpp, stages,
+                             True, smem(stages, rpp))
+    rpp = rows_par * max(1, GN_SLOT_BYTES // row_bytes // rows_par)
+    stages = GN_STAGES
+    while stages and smem(stages, rpp) > GN_SMEM:
+        stages -= 1
+    if not stages:
+        raise ValueError(f"C={channels}: a piece does not fit shared memory")
+    return GroupNormPlan(threads, chunks, rpc, grid, upb, rpp, stages, False,
+                         smem(stages, rpp))
+
+
+_plans = {}
+_scratch = {}
+
+
+def _launch_plan(x, dev, b, hw, c, groups):
+    """The plan of this shape and dtype on card ``dev``, made once: the plan,
+    the scratch floats it needs, its int32 array for the C entry (and its
+    address) and the library. Raises where the card cannot hold the grid at
+    once (the launch is cooperative)."""
+    key = (b, hw, c, groups, x.dtype, dev)
+    got = _plans.get(key)
+    if got is None:
+        bf16 = int(x.dtype == torch.bfloat16)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = group_norm_plan(b, hw, c, groups, x.element_size(), n_sm)
+        lib = _build.load()
+        per_sm = lib.fdsd_group_norm_blocks_per_sm(bf16, plan.threads,
+                                                   plan.smem)
+        if per_sm * n_sm < plan.grid:
+            raise RuntimeError(
+                f"group_norm_cuda: {plan.grid} blocks of {plan.threads} "
+                f"threads and {plan.smem} B do not fit {n_sm} SMs at once "
+                f"({per_sm} per SM)")
+        args = (ctypes.c_int * 13)(
+            b, hw, c, groups, bf16, plan.threads, plan.chunks,
+            plan.rows_per_chunk, plan.grid, plan.rows_per_piece, plan.stages,
+            int(plan.resident), plan.smem)
+        got = _plans[key] = (plan, 2 * b * groups * plan.chunks, args,
+                             ctypes.cast(args, ctypes.c_void_p).value, lib)
+    return got
+
+
+def _partials(dev, stream, n):
+    """The partials' scratch of one stream, at least ``n`` floats: the
+    kernels of one stream run one after another, so each call on it reuses
+    the same buffer, which every call writes before it reads."""
+    buf = _scratch.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = _scratch[(dev, stream)] = torch.empty(
+            n, device=torch.device("cuda", dev), dtype=torch.float32)
+    return buf
 
 
 def group_norm_cuda(x, num_groups, scale, bias, eps=1e-5, act=None):
-    """The CUDA kernel on a contiguous channels-last (B, ..., C) tensor."""
+    """The CUDA kernel on a contiguous channels-last (B, ..., C) tensor: one
+    cooperative launch per call (see :func:`group_norm_plan`)."""
     if not x.is_cuda:
         raise ValueError("group_norm_cuda needs a CUDA tensor")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -103,25 +206,20 @@ def group_norm_cuda(x, num_groups, scale, bias, eps=1e-5, act=None):
     hw = x.numel() // (b * c)
     if c % num_groups:
         raise ValueError(f"C={c} is not a multiple of {num_groups} groups")
+    dev = x.get_device()
     for p in (scale, bias):
-        if (p.device != x.device or p.dtype != torch.float32
+        if (p.get_device() != dev or p.dtype != torch.float32
                 or p.shape != (c,) or not p.is_contiguous()):
             raise ValueError("scale and bias must be contiguous fp32 (C,) "
                              "tensors on x's device")
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    threads, rows, n_chunks = launch_config(b, hw, c, x.element_size(), n_sm)
-    lib = _build.load()
+    _, n_part, _, args, lib = _launch_plan(x, dev, b, hw, c, num_groups)
+    # the raw handle of the current stream, without a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(dev)
     y = torch.empty_like(x)
-    part = torch.empty(b * n_chunks * num_groups * 3, device=x.device,
-                       dtype=torch.float32)
-    stats = torch.empty(b * num_groups * 2, device=x.device,
-                        dtype=torch.float32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fdsd_group_norm(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        part.data_ptr(), stats.data_ptr(), b, hw, c, num_groups, eps,
-        int(act == "silu"), int(x.dtype == torch.bfloat16), threads, rows,
-        n_chunks, stream)
+        _partials(dev, stream, n_part).data_ptr(), args, eps,
+        int(act == "silu"), stream)
     _build.check(err, "fdsd_group_norm")
     group_norm_cuda.launches += 1
     return y

@@ -242,7 +242,7 @@ def test_d512_tiles_are_the_kernels_tiles():
     ("fdsd_flash_fwd", "flash_attention_sm90.cu"),
     ("fdsd_flash_fwd_pos", "flash_attention_sm90.cu"),
     ("fdsd_flash_bwd_pos_dkv", "flash_attention_bwd_sm90.cu"),
-    ("fdsd_flash_bwd_pos_dq", "flash_attention_pos_bwd.cu"),
+    ("fdsd_flash_bwd_pos_dq", "flash_attention_dq_sm90.cu"),
     ("fdsd_flash_fwd_f32", "fp32/flash_f32_fwd.cu"),
     ("fdsd_flash_fwd_pos_f32", "fp32/flash_f32_fwd.cu"),
     ("fdsd_flash_bwd_dq_f32", "fp32/flash_f32_bwd.cu"),
@@ -262,6 +262,27 @@ def test_the_mma_sync_k3_is_gone():
     assert not (_build.CSRC / "flash_attention_bwd.cu").exists()
     for src in _build.CSRC.rglob("*.cu"):
         assert "flash_bwd_dq_kernel(" not in src.read_text(), src.name
+
+
+def test_the_mma_sync_k6_is_gone():
+    """K6 runs on TMA and wgmma only (the position-mask form of K3's
+    kernel): its mma.sync source and kernel are gone, no kernel source
+    issues mma.sync or ldmatrix, and csrc/mma.cuh went with them (its bf16
+    pair packing is sm90.cuh's pack_bf16)."""
+    assert not (_build.CSRC / "flash_attention_pos_bwd.cu").exists()
+    assert not (_build.CSRC / "mma.cuh").exists()
+    sources = [*_build.CSRC.rglob("*.cu"), *_build.CSRC.rglob("*.cuh")]
+    for src in sources:
+        text = src.read_text()
+        assert "flash_bwd_pos_dq_kernel(" not in text, src.name
+        # the PTX instructions; comments may still name what was replaced
+        assert "mma.sync.aligned" not in text, src.name
+        assert "ldmatrix.sync" not in text, src.name
+        assert '#include "mma.cuh"' not in text, src.name
+    dq = (_build.CSRC / "flash_attention_dq_sm90.cu").read_text()
+    assert "flash_bwd_pos_dq_sm90_kernel(" in dq
+    assert "__device__ __forceinline__ uint32_t pack_bf16(" in (
+        _build.CSRC / "sm90.cuh").read_text()
 
 
 @pytest.mark.parametrize("b,h,lq,lk,want", [

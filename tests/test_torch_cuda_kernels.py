@@ -48,7 +48,14 @@ out and lse to 1e-4 absolute, each gradient to 1e-4 of its largest
 magnitude; the plain version fed operands rounded once to bf16 must fall
 outside that, so a kernel that rounded an operand would be caught.
 K3 on TMA and wgmma (``csrc/flash_attention_dq_sm90.cu``) as K4 is, at its
-(128, 64) tiles, dbias into a NaN-poisoned pool. The fp32 forward on the
+(128, 64) tiles, dbias into a NaN-poisoned pool; K6, its position-mask form,
+as K7 is (SD3's four shapes under the merged lse, the masked cases at head
+dims 64 and 128, a segment boundary inside a tile, lengths around its
+tiles, a NaN-filled dq whose skipped rows must be written as 0). K2 (one
+cooperative launch a call) at chip_smoke.py's GroupNorm shapes in bf16 and
+fp32, where it keeps x in shared memory and where it streams it, two calls
+bitwise equal, into NaN-filled outputs and scratch, and 20 calls of mixed
+shapes queued back to back. The fp32 forward on the
 tensor cores (three-term TF32 split, ``csrc/fp32/flash_f32_fwd.cu``) also
 within 1e-5 of fp64 attention, with the plain version fed operands cut
 once to TF32 (one pass) outside 1e-4, at every head dim, length around its
@@ -245,6 +252,96 @@ def test_group_norm_autograd_on_the_card(gen, shape, act):
     for a, w in zip((x.grad, scale.grad, bias.grad), want):
         assert a.dtype == w.dtype
         torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
+# chip_smoke.py's K2 cases (its gn_cases, each in both dtypes): the SD1
+# UNet at 512^2 with CFG batch 2 (and batch 8), the SD1 VAE decoder's
+# 512^2 level, tiny-SD's batch 32, the SD3 VAE decoder at 1024^2; the
+# smaller ones keep their rows in shared memory, the larger stream them.
+GN_SMOKE_CASES = [((2, 64, 64, 320), "silu"), ((2, 32, 32, 640), "silu"),
+                  ((2, 8, 8, 1280), "silu"), ((8, 64, 64, 320), "silu"),
+                  ((1, 512, 512, 128), None), ((32, 64, 64, 128), "silu"),
+                  ((1, 1024, 1024, 128), "silu"), ((1, 128, 128, 512), "silu")]
+
+
+def _gn_inputs(gen, shape, dtype):
+    c = shape[-1]
+    x = (_randn(gen, *shape, dtype=torch.float32) * 2.0 + 0.5).to(dtype)
+    scale = 1.0 + 0.1 * _randn(gen, c, dtype=torch.float32)
+    bias = 0.1 * _randn(gen, c, dtype=torch.float32)
+    return x, scale, bias
+
+
+def _gn_close(got, x, scale, bias, act):
+    """K2 against the plain version of x's dtype: fp32 to 1e-4 absolute
+    against two-pass statistics, bf16 to two ulps against one-pass."""
+    if x.dtype == torch.float32:
+        ref = tgn.group_norm_plain(x, 32, scale, bias, 1e-5, act)
+        torch.testing.assert_close(got, ref, rtol=0.0, atol=1e-4)
+    else:
+        ref = tgn.group_norm_plain_one_pass(x, 32, scale, bias, 1e-5, act)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=1.6e-2,
+                                   atol=1.6e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape,act", GN_SMOKE_CASES)
+def test_group_norm_kernel_at_the_smoke_shapes(gen, shape, act, dtype):
+    """One launch per call, against the plain version; a second call on
+    the same input gives the same bits (the statistics are merged in one
+    fixed order in every block)."""
+    x, scale, bias = _gn_inputs(gen, shape, dtype)
+    n = tgn.group_norm_cuda.launches
+    got = tgn.group_norm_cuda(x, 32, scale, bias, 1e-5, act)
+    again = tgn.group_norm_cuda(x, 32, scale, bias, 1e-5, act)
+    assert tgn.group_norm_cuda.launches == n + 2
+    assert torch.equal(got, again)
+    _gn_close(got, x, scale, bias, act)
+
+
+def test_group_norm_kernel_writes_every_element(gen, monkeypatch):
+    """y and the partials' scratch are handed to the kernel filled with NaN,
+    in both regimes and dtypes: every element of y must be written, and no
+    partial read before it is written."""
+    empty_like, empty = torch.empty_like, torch.empty
+    for shape, dtype in itertools.product(
+            ((2, 9, 9, 1280), (2, 64, 64, 320), (1, 256, 256, 256)),
+            (torch.bfloat16, torch.float32)):
+        x, scale, bias = _gn_inputs(gen, shape, dtype)
+        for buf in tgn._scratch.values():   # the streams' partials
+            buf.fill_(float("nan"))
+        with monkeypatch.context() as m:
+            m.setattr(torch, "empty_like", lambda t: empty_like(t).fill_(
+                float("nan")))
+            m.setattr(torch, "empty", lambda *a, **k: empty(*a, **k).fill_(
+                float("nan")))
+            got = tgn.group_norm_cuda(x, 32, scale, bias, 1e-5, "silu")
+        assert bool(torch.isfinite(got).all())
+        _gn_close(got, x, scale, bias, "silu")
+
+
+def test_group_norm_kernel_back_to_back(gen):
+    """20 calls of mixed shapes, regimes and dtypes queued without a
+    synchronisation between them: each grid barrier must hold its own call
+    (a barrier that passed early or hung would show here)."""
+    cases = [((2, 64, 64, 320), torch.bfloat16, "silu"),
+             ((1, 256, 256, 256), torch.bfloat16, None),
+             ((2, 16, 16, 1920), torch.float32, "silu"),
+             ((32, 32, 32, 128), torch.float32, None),
+             ((3, 33, 31, 128), torch.bfloat16, "silu")]
+    inputs = [(_gn_inputs(gen, shape, dtype), act)
+              for shape, dtype, act in cases]
+    got = [tgn.group_norm_cuda(*inputs[i % 5][0][:1], 32,
+                               *inputs[i % 5][0][1:], 1e-5, inputs[i % 5][1])
+           for i in range(20)]
+    torch.cuda.synchronize()
+    for i, y in enumerate(got):
+        (x, scale, bias), act = inputs[i % 5]
+        if i >= 5:
+            assert torch.equal(y, got[i - 5])
+        else:
+            _gn_close(y, x, scale, bias, act)
 
 
 # ------------------------------------------------ K5, position-masked forward
@@ -1103,23 +1200,146 @@ def test_sm90_k7_writes_every_row(gen, monkeypatch):
             assert not bool(dk[:, :, 300:].any() or dv[:, :, 300:].any())
 
 
+# --------------------- K6, the position-mask form of K3's TMA / wgmma kernel
+def _k6_check(q, k, v, g, lse, delta, qo, ko, floor=1e-6, **kw):
+    """K6 alone against the plain backward under the same global lse and
+    delta (2e-2 of dq's largest magnitude, as the mma.sync K6 was held);
+    the launch must take the sm90 kernel. Returns dq."""
+    routes = tfa.flash_bwd_pos_dq_cuda.routes
+    n = routes["sm90"]
+    got = tfa.flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, qo, ko, **kw)
+    assert routes["sm90"] == n + 1
+    want = tfa.flash_bwd_pos_plain(q, k, v, g, lse, delta, qo, ko, **kw)[0]
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    a, w = got.float(), want.float()
+    assert (a - w).abs().max().item() <= 2e-2 * w.abs().max().item() + floor
+    return got
+
+
+@pytest.mark.parametrize("lq,lk", SD3_SHAPES)
+def test_sm90_k6_sd3_shapes_under_the_merged_lse(gen, lq, lk):
+    """The four dq calls of the joint backward: lse and delta merged over
+    the 154 context and the 4096 x keys; q a slice of the fused projection,
+    dO a view of (B, L, H*D) memory."""
+    b, h, d = 2, 4, 64
+    q = _fused(gen, b, lq, h, d)[0]
+    streams = {n: _fused(gen, b, n, h, d)[1:] for n in (154, 4096)}
+    g = _randn(gen, b, lq, h * d).reshape(b, lq, h, d).transpose(1, 2)
+    z = _offsets(0, 0)
+    lse, delta = _global_stats(q, list(streams.values()), g, z, [z, z])
+    _k6_check(q, *streams[lk], g, lse, delta, z, z)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(K7_MASK_CASES))
+def test_sm90_k6_mask_cases(gen, case, d):
+    """K7's masked cases (chip_smoke.py's): under a lse global over two key
+    blocks, rows that only the other block's keys see and rows that no key
+    sees give finite dq, 0 where no key is visible anywhere."""
+    (b, h, lq, lk), qo, kos, seg_q, seg_k, causal, valid = K7_MASK_CASES[case]
+    q, g = (_randn(gen, b, h, lq, d) for _ in range(2))
+    kvs = [tuple(_randn(gen, b, h, lk, d) for _ in range(2)) for _ in kos]
+    kw = dict(causal=causal, valid_len=valid, seg_q=seg_q, seg_k=seg_k)
+    qo, kos = _offsets(*qo), [_offsets(*ko) for ko in kos]
+    lse, delta = _global_stats(q, kvs, g, qo, kos, **kw)
+    for (k, v), ko in zip(kvs, kos):
+        dq = _k6_check(q, k, v, g, lse, delta, qo, ko, **kw)
+        assert not bool(dq[lse <= -1e29].any())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_k6_segment_boundary_inside_a_tile(gen, d):
+    """Both sides' segment boundaries fall inside a tile (128 queries, 64
+    keys), so one tile's position bounds span both segments."""
+    lq, lk = 300, 420
+    q, g = (_randn(gen, 2, 3, lq, d) for _ in range(2))
+    k, v = (_randn(gen, 2, 3, lk, d) for _ in range(2))
+    qo, ko = _offsets(400, 1000), _offsets(0, 700)
+    for causal, valid in ((False, None), (True, None), (True, 900)):
+        kw = dict(causal=causal, valid_len=valid, seg_q=70, seg_k=190)
+        lse, delta = _global_stats(q, [(k, v)], g, qo, [ko], **kw)
+        _k6_check(q, k, v, g, lse, delta, qo, ko, **kw)
+
+
+@pytest.mark.parametrize("lk", K4_EDGE_LENGTHS)
+@pytest.mark.parametrize("lq", K4_EDGE_LENGTHS)
+def test_sm90_k6_lengths_around_its_tiles(gen, lq, lk):
+    """Lq around the 128-query tiles and Lk around the 64-key tiles at head
+    dims 64 and 128, unmasked and causal over two segments; where every
+    query sees one key, dS is rounding noise (the floor, as for K3)."""
+    for d in (64, 128):
+        q, g = (_randn(gen, 2, 3, lq, d) for _ in range(2))
+        k, v = (_randn(gen, 2, 3, lk, d) for _ in range(2))
+        for qo, ko, kw in ((_offsets(0, 0), _offsets(0, 0), {}),
+                           (_offsets(0, 100), _offsets(0, 50),
+                            dict(causal=True, seg_q=lq // 2,
+                                 seg_k=lk // 2))):
+            lse, delta = _global_stats(q, [(k, v)], g, qo, [ko], **kw)
+            _k6_check(q, k, v, g, lse, delta, qo, ko,
+                      1e-3 if 1 in (lq, lk) else 1e-6, **kw)
+
+
+def test_sm90_k6_writes_every_row(gen, monkeypatch):
+    """dq is handed to the kernel filled with NaN: every query row must be
+    written, those whose key tiles are all skipped (a query tile before
+    every key, causal by position) and those that see no key of this block
+    (past valid_len) as 0. A second key block that every row sees keeps
+    their lse finite."""
+    blhd = tfa._blhd
+    monkeypatch.setattr(tfa, "_blhd", lambda like, n: blhd(like, n).fill_(
+        float("nan")))
+    for d, (lq, lk, qo, ko, kw) in itertools.product((64, 128), (
+            (300, 600, (0, 0), (0, 0), {}),
+            (300, 600, (0, 0), (0, 0), dict(valid_len=200)),
+            (300, 500, (0, 5000), (1000, 1000), dict(causal=True, seg_q=128)),
+            (300, 600, (100, 900), (0, 600), dict(causal=True, valid_len=700,
+                                                  seg_q=50, seg_k=300)))):
+        q, g = (_randn(gen, 1, 2, lq, d) for _ in range(2))
+        k, v = (_randn(gen, 1, 2, lk, d) for _ in range(2))
+        other = tuple(_randn(gen, 1, 2, 64, d) for _ in range(2))
+        qo, ko = _offsets(*qo), _offsets(*ko)
+        lse, delta = _global_stats(q, [(k, v), other], g, qo,
+                                   [ko, _offsets(0, 0)], **kw)
+        dq = _k6_check(q, k, v, g, lse, delta, qo, ko, **kw)
+        if kw.get("seg_q") == 128:   # positions 0-127: before every key
+            assert not bool(dq[:, :, :128].any())
+
+
+def test_k6_launches_by_route(gen):
+    """bf16 takes the sm90 kernel, fp32 the fp32 library; each launch is
+    counted under its route."""
+    routes = tfa.flash_bwd_pos_dq_cuda.routes
+    z = _offsets(0, 0)
+    for dtype, route in ((torch.bfloat16, "sm90"), (torch.float32, "fp32")):
+        q = _randn(gen, 1, 1, 130, 64, dtype=dtype)
+        out, lse = tfa.flash_attention_pos_cuda(q, q, q, z, z)
+        delta = (q.float() * out.float()).sum(-1)
+        n = dict(routes)
+        tfa.flash_bwd_pos_dq_cuda(q, q, q, q, lse, delta, z, z)
+        assert routes[route] == n.get(route, 0) + 1
+        assert sum(routes.values()) == sum(n.values()) + 1
+
+
 @pytest.mark.parametrize("stability", ["online", "bounded"])
 def test_sm90_k5_k7_joint_attention_at_sd3_shape(gen, stability):
     """One MMDiT block's joint attention at SD3's 154 + 4096 tokens through
     ``joint_attention_blhd`` and autograd: four sm90 K5 launches forward,
-    four K6 and four sm90 K7 backward, against plain attention over the
+    four sm90 K6 and four sm90 K7 backward, against plain attention over the
     concatenated sequence (2e-2 forward; 3e-2 of each gradient's largest
     magnitude backward)."""
     b, h, d, lc, lx = 2, 2, 64, 154, 4096
     fused = [_randn(gen, b, n, 3, h, d).requires_grad_() for n in (lc, lx)]
     ctx, x = ([f[:, :, i] for i in range(3)] for f in fused)
     r5 = tfa.flash_attention_pos_cuda.routes
+    r6 = tfa.flash_bwd_pos_dq_cuda.routes
     r7 = tfa.flash_bwd_pos_dkv_cuda.routes
-    n = (r5["sm90"], r7["sm90"])
+    n = (r5["sm90"], r6["sm90"], r7["sm90"])
     oc, ox = tattn.joint_attention_blhd(ctx, x, stability=stability)
     gc, gx = _randn(gen, b, lc, h, d), _randn(gen, b, lx, h, d)
     got = torch.autograd.grad((oc, ox), fused, (gc, gx))
-    assert (r5["sm90"], r7["sm90"]) == (n[0] + 4, n[1] + 4)
+    assert (r5["sm90"], r6["sm90"], r7["sm90"]) == (n[0] + 4, n[1] + 4,
+                                                    n[2] + 4)
     q, k, v = (torch.cat([c, a], dim=1).transpose(1, 2)
                for c, a in zip(ctx, x))
     ref = tattn.plain_attention(q, k, v).transpose(1, 2)

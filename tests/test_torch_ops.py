@@ -30,6 +30,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.ops import groupnorm as tgn
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import image as timage
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import schedules as tsched
 from from_ddpm_to_stable_diffusion_tpu_torch.samplers import k_samplers as tks
+from test_torch_gn_plan import check_group_norm_plan
 
 GOLD = np.load(os.path.join(os.path.dirname(__file__), "goldens",
                             "goldens.npz"))
@@ -188,14 +189,11 @@ def test_layer_norm_matches_jax():
                                    (4, 65536, 256), (1, 4096, 512)])
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_group_norm_launch_config_covers_rows(shape, itemsize):
-    """Every row of every chunk is visited once by the kernel's grid."""
+    """Every row is visited once by the kernel's walk over its launch plan
+    (``group_norm_plan``), and the plan fits one block per SM."""
     b, hw, c = shape
-    threads, rows, n_chunks = tgn.launch_config(b, hw, c, itemsize)
-    vpr = c // (16 // itemsize)
-    assert threads % 32 == 0 and threads % vpr == 0 and threads <= 1024
-    assert threads * (2 * (16 // itemsize) + 1) * 4 <= 48 * 1024
-    assert rows * n_chunks >= hw > rows * (n_chunks - 1)
-    assert b * n_chunks >= min(2 * 132, b * -(-hw // (threads // vpr)))
+    plan = tgn.group_norm_plan(b, hw, c, 32, itemsize)
+    check_group_norm_plan(plan, b, hw, c, 32, itemsize)
 
 
 # ------------------------------------------------------------- attention

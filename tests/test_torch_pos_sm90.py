@@ -1,10 +1,12 @@
-"""K5's and K7's dispatch, on the CPU.
+"""K5's, K6's and K7's dispatch, on the CPU.
 
-Which kernel a CUDA launch of K5 (the position-masked forward) or K7 (its
-dk, dv under a global lse) runs is decided in Python before anything
-reaches the card (``k5_route``, ``k7_route``): the position-mask forms of
-the TMA / wgmma kernels of ``csrc/flash_attention_sm90.cu`` (K5) and
-``csrc/flash_attention_bwd_sm90.cu`` (K7) for bf16 at head dims 64 and 128,
+Which kernel a CUDA launch of K5 (the position-masked forward), K6 (its dq
+under a global lse) or K7 (its dk, dv) runs is decided in Python before
+anything reaches the card (``k5_route``, ``k6_route``, ``k7_route``): the
+position-mask forms of the TMA / wgmma kernels of
+``csrc/flash_attention_sm90.cu`` (K5), ``csrc/flash_attention_dq_sm90.cu``
+(K6) and ``csrc/flash_attention_bwd_sm90.cu`` (K7) for bf16 at head dims 64
+and 128,
 whatever the masks (causal by position, ``valid_len``, two segments on a
 side, the bounded softmax), and the fp32 library for fp32 at head dim 64;
 every other (dtype, head dim) raises before a launch. On CPU tensors the
@@ -31,7 +33,7 @@ HEAD_DIMS = [40, 64, 80, 128, 512]
 
 
 def _want(dtype, d):
-    """The route the port's contract gives K5 and K7 (any form), or the
+    """The route the port's contract gives K5, K6 and K7 (any form), or the
     exception it raises."""
     if dtype == F32:
         return "fp32" if d == 64 else NotImplementedError
@@ -60,13 +62,21 @@ def test_k5_route_by_dtype_head_dim_and_form(dtype, d, form):
 @pytest.mark.parametrize("form", sorted(f for f in FORMS if f != "bounded"))
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+def test_k6_route_by_dtype_head_dim_and_form(dtype, d, form):
+    # the backward is the same function for both softmaxes: no bounded form
+    _check_route(tfa.k6_route, _want(dtype, d), dtype, d, *FORMS[form][:3])
+
+
+@pytest.mark.parametrize("form", sorted(f for f in FORMS if f != "bounded"))
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
 def test_k7_route_by_dtype_head_dim_and_form(dtype, d, form):
     # the backward is the same function for both softmaxes: no bounded form
     _check_route(tfa.k7_route, _want(dtype, d), dtype, d, *FORMS[form][:3])
 
 
-@pytest.mark.parametrize("route", [tfa.k5_route, tfa.k7_route],
-                         ids=["k5", "k7"])
+@pytest.mark.parametrize("route", [tfa.k5_route, tfa.k6_route,
+                                   tfa.k7_route], ids=["k5", "k6", "k7"])
 def test_pos_routes_refuse_other_dtypes(route):
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(TypeError):
@@ -74,7 +84,7 @@ def test_pos_routes_refuse_other_dtypes(route):
 
 
 def _counters(*fns):
-    """Launches, by dtype and (K5, K7) by route."""
+    """Launches, by dtype and by route."""
     return [(fn.launches, dict(fn.dtypes), dict(getattr(fn, "routes", {})))
             for fn in fns]
 
@@ -117,3 +127,25 @@ def test_cpu_tensors_never_reach_k7():
                      tfa.flash_bwd_pos_dkv_cuda) == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.flash_bwd_pos_dkv_cuda(q, k, k, q, lse, delta, off, off)
+
+
+def test_cpu_tensors_never_reach_k6():
+    """``flash_bwd_pos`` on CPU tensors runs the plain version, in every
+    form, and no counter of K6 moves; the K6 wrapper itself refuses CPU
+    tensors, before its route is asked."""
+    q = torch.zeros(1, 2, 96, 64, dtype=BF16)
+    k = torch.zeros(1, 2, 130, 64, dtype=BF16)
+    lse, delta = torch.zeros(1, 2, 96), torch.zeros(1, 2, 96)
+    off = torch.tensor([0, 500], dtype=torch.int32)
+    before = _counters(tfa.flash_bwd_pos_dq_cuda)
+    for causal, valid, two, _ in FORMS.values():
+        dq = tfa.flash_bwd_pos(
+            q, k, k, q, lse, delta, off, off, causal=causal,
+            valid_len=300 if valid else None, seg_q=48 if two else None,
+            seg_k=64 if two else None)[0]
+        assert dq.shape == q.shape and dq.dtype == BF16
+    assert _counters(tfa.flash_bwd_pos_dq_cuda) == before
+    for dtype in (BF16, F32):
+        q_, k_ = q.to(dtype), k.to(dtype)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tfa.flash_bwd_pos_dq_cuda(q_, k_, k_, q_, lse, delta, off, off)
