@@ -106,6 +106,21 @@ two summary lines:
    at 1024x1024 through the fp32 kernels against plain attention, and its
    fp32 T5-XXL on (2, 512) tokens through K1's fp32 bias form against plain
    attention.
+   Checkpoints (after the SD1 phase's generator paths, and after T5): the
+   resident SD1 bundle written in the reference layout (``ckpt/{clip,
+   diffusion,encoder,decoder}.pt``, fp32, the attention projections under
+   their ``*_proj_weight`` names) and read back by
+   ``SD1Models.from_checkpoint_dir``; the SD3-medium bundle written as the
+   published safetensors files (``sd3`` with ``model.diffusion_model.*`` and
+   ``first_stage_model.decoder.*``, HF-layout CLIP-L, CLIP-G and T5-XXL;
+   bf16 weights, fp32 norms), freed once the files are read back by
+   ``SD3Models.from_checkpoints`` and compared. Each loaded bundle lives on
+   the card, equals its source bit for bit (the sniffed MMDiT config
+   equal), and answers the source's request (SD1 batch 1 seed 1; SD3 the
+   warm request's seed) within one level of the source's image, through
+   K1, K2 and K5 by the launch counters. Prints the bytes, the seconds to
+   write and to load and the peak host RSS of the load; the files are
+   deleted whatever happens.
 6. training: the tiny-SD ``DDPMTrainer`` at ``TinySDConfig()`` defaults
    (64x64, batch 32, base 128 x [1,2,2,2], 3 classes, dropout 0.1, bf16
    over fp32 parameters, AdamW, clip 1.0, warmup-cosine LR) on
@@ -156,8 +171,9 @@ two summary lines:
    counts are asserted (a run that reached no fp32 kernel fails).
 
 Every kernel's launch count is set to 0 just before each of the SD1, SD1
-generator, SD1 at 768^2, SD3, training, sampling, MMDiT training, MMDiT
-sampling, T5, TinyVLM training, TinyVLM decoding and fp32 paths and read
+generator, SD1 at 768^2, SD1 checkpoint, SD3, SD3 checkpoint, training,
+sampling, MMDiT training, MMDiT sampling, T5, TinyVLM training, TinyVLM
+decoding and fp32 paths and read
 just after (before the plain-attention run it is compared with), K1's also
 by the kernel it ran (sm90, d512, fp32) and by head dim, K3's - K7's (but
 K2) by the kernel they ran (sm90, fp32): on every path the launches by
@@ -1470,6 +1486,7 @@ def phase_sd1(card):
 
     reset_counts()
     wall = {}   # batch -> s of its last unprofiled request
+    first_image = None   # the checkpoint phase answers this request again
     for prompt_batch, seed in requests:
         b = len(prompt_batch)
         n0 = read_counts()
@@ -1500,6 +1517,8 @@ def phase_sd1(card):
         check(k1 == K1_PER_REQUEST, f"K1 launches {k1} != {K1_PER_REQUEST}")
         check(k2 == K2_PER_REQUEST, f"K2 launches {k2} != {K2_PER_REQUEST}")
         wall[b] = secs
+        if first_image is None:
+            first_image = images
     launches = read_counts()
     routes = dict(kernel_counters()["K1"].routes)
     print(f"SD1 K1 launches by kernel over the {len(requests)} requests: "
@@ -1534,7 +1553,7 @@ def phase_sd1(card):
         check(read_counts()["K1"] - n0 == K1_PER_REQUEST
               and images.shape == (b, 512, 512, 3),
               "the profiled SD1 request did not run its K1 launches")
-    return launches, models
+    return launches, models, first_image
 
 
 def phase_sd3(card):
@@ -1615,7 +1634,7 @@ def phase_sd3(card):
         check(got == SD3_PER_REQUEST,
               f"SD3 launches {got} != {SD3_PER_REQUEST}")
         if what == "warm":
-            warm_ms = wall_ms
+            warm_ms, warm_image, warm_seed = wall_ms, images, seed
     busy = sum(fams.values())
     print(f"SD3 profile of one request (torch.profiler, kernel rows only): "
           f"device busy {busy:.1f} ms over {n_kernels} kernels; wall under "
@@ -1626,7 +1645,9 @@ def phase_sd3(card):
     launches = read_counts()
     for hook in hooks:
         hook.remove()
-    return launches, phase_t5(card, models.t5)
+    # the bundle and the warm request's image go on to the checkpoint phase
+    return ([launches, phase_t5(card, models.t5)],
+            dict(models=models, image=warm_image, seed=warm_seed))
 
 
 def phase_t5(card, t5):
@@ -1717,6 +1738,312 @@ def phase_t5(card, t5):
 # and the split pre-pass that writes the TF32 terms of the fp32 forward and
 # backward.
 F32_FWD, F32_SPLIT = "K1/K5 fp32 flash fwd", "fp32 split pre-pass"
+
+
+# --------------------------------------------------------------------------
+# Checkpoint phase: the resident SD1 and SD3-medium bundles written in the
+# reference's published layouts, read back through the port's entry points,
+# and a request answered from what was read.
+# --------------------------------------------------------------------------
+def checkpoint_tensors(module, rules):
+    """The tensors of a checkpoint that ``rules`` read into ``module``, in
+    the file's layout ({checkpoint key: view of a parameter}): the inverse
+    of ``io/weights.py::apply_rules``. Raises if a parameter has no rule."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.io import weights as W
+
+    own = module.state_dict()
+    out, covered = {}, set()
+    for key, flax_path, conv in rules:
+        name = W.port_key(flax_path)
+        if name not in own:
+            continue        # a skip conv the module lacks, a smaller VAE
+        covered.add(name)
+        # apply_rules gives a kernel the file's layout; a leaf that is not a
+        # kernel keeps the Flax one, so t_dense's transpose is undone here
+        kernel = flax_path.rsplit("/", 1)[-1] == "kernel"
+        out[key] = own[name].t() if conv is W.t_dense and not kernel \
+            else own[name]
+    if covered != set(own):
+        raise ValueError(f"{type(module).__name__}: no rule for "
+                         f"{sorted(set(own) - covered)[:4]}")
+    return out
+
+
+def _unfuse(state, fused, parts, conv1x1=False):
+    """Split a fused q|k|v projection back into the three the file holds
+    (1x1 convs where ``conv1x1``)."""
+    for leaf in ("weight", "bias"):
+        t = state.pop(f"{fused}.{leaf}", None)
+        if t is not None:
+            for part, chunk in zip(parts, t.chunk(3)):
+                state[f"{part}.{leaf}"] = (chunk[:, :, None, None]
+                                           if conv1x1 and leaf == "weight"
+                                           else chunk)
+
+
+def write_sd1_checkpoint(models, root, dtype):
+    """``models`` (an ``SD1Models``) as the reference's layout
+    ``root/ckpt/{clip,diffusion,encoder,decoder}.pt``, every tensor in
+    ``dtype``, the attention projections under the ``*_proj_weight`` /
+    ``*_proj_bias`` names that ``make_compatible`` renames. Returns the
+    bytes written."""
+    import os
+
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io import weights as W
+
+    os.makedirs(os.path.join(root, "ckpt"))
+    nbytes = 0
+    for name, module, rules in (
+            ("clip", models.clip, W.sd1_clip_rules()),
+            ("diffusion", models.unet, W.sd1_unet_rules()),
+            ("encoder", models.encoder, W.sd1_vae_encoder_rules()),
+            ("decoder", models.decoder, W.sd1_vae_decoder_rules())):
+        state = {k.replace("_proj.weight", "_proj_weight")
+                  .replace("_proj.bias", "_proj_bias"):
+                 v.to(device="cpu", dtype=dtype).contiguous()
+                 for k, v in checkpoint_tensors(module, rules).items()}
+        path = os.path.join(root, "ckpt", f"{name}.pt")
+        torch.save(state, path)
+        nbytes += os.path.getsize(path)
+    return nbytes
+
+
+def write_sd3_checkpoints(models, root):
+    """``models`` (an ``SD3Models``) as the published files: ``sd3.
+    safetensors`` (``model.diffusion_model.*``, ``first_stage_model.
+    decoder.*`` with the VAE attention's 1x1 convs), ``clip_l`` and
+    ``clip_g`` (HF ``CLIPTextModel``, q / k / v apart) and, with a T5,
+    ``t5xxl`` (HF T5 encoder); each tensor in its own dtype. Returns the
+    paths, by name, and the bytes written."""
+    import os
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io import weights as W
+    from from_ddpm_to_stable_diffusion_tpu_torch.io import weights_sd3 as W3
+
+    cfg = models.mmdit.config
+    mmdit = checkpoint_tensors(models.mmdit, W3.sd3_mmdit_rules(
+        cfg.depth, qk_norm=cfg.qk_norm is not None))
+    dec = checkpoint_tensors(models.vae_decoder, W3.sd3_vae_decoder_rules())
+    attn = "mid.attn_1"
+    _unfuse(dec, f"{attn}.in_proj", [f"{attn}.{x}" for x in "qkv"], True)
+    for leaf in ("weight", "bias"):
+        t = dec.pop(f"{attn}.proj_out_dense.{leaf}")
+        dec[f"{attn}.proj_out.{leaf}"] = (t[:, :, None, None]
+                                          if leaf == "weight" else t)
+    files = {"sd3": {**{f"model.diffusion_model.{k}": v
+                        for k, v in mmdit.items()},
+                     **{f"first_stage_model.decoder.{k}": v
+                        for k, v in dec.items()}}}
+    for name in ("clip_l", "clip_g"):
+        module = getattr(models, name)
+        n = module.config.num_layers
+        state = checkpoint_tensors(module, W3.hf_clip_text_rules(n))
+        for i in range(n):
+            p = f"text_model.encoder.layers.{i}.self_attn"
+            _unfuse(state, f"{p}.in_proj", [f"{p}.{x}_proj" for x in "qkv"])
+        files[name] = state
+    if models.t5 is not None:
+        files["t5xxl"] = checkpoint_tensors(
+            models.t5, W3.sd3_t5_rules(models.t5.config.num_layers))
+    paths, nbytes = {}, 0
+    for name, state in files.items():
+        paths[name] = os.path.join(root, f"{name}.safetensors")
+        W.save_safetensors_dict(state, paths[name])
+        nbytes += os.path.getsize(paths[name])
+    return paths, nbytes
+
+
+class PeakRSS:
+    """The largest resident set of this process (``/proc/self/statm``),
+    sampled every 10 ms on a thread while the ``with`` block runs."""
+
+    def __enter__(self):
+        import os
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.peak = self.start = self.rss()
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self.sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def sample(self):
+        while not self.done.wait(0.01):
+            self.peak = max(self.peak, self.rss())
+
+    def __exit__(self, *exc):
+        self.done.set()
+        self.thread.join(timeout=5)
+        self.peak = max(self.peak, self.rss())
+        return False
+
+
+def same_parameters(what, pairs):
+    """Every state entry of each (loaded, source) module pair equal in
+    dtype, shape and bits; returns the number of tensors compared."""
+    import torch
+
+    n = 0
+    for name, got, want in pairs:
+        g, w = got.state_dict(), want.state_dict()
+        check(set(g) == set(w), f"{what} {name}: parameter names differ: "
+              f"{sorted(set(g) ^ set(w))[:4]}")
+        bad = [k for k in set(g) & set(w)
+               if g[k].dtype != w[k].dtype or not torch.equal(g[k], w[k])]
+        check(not bad, f"{what} {name}: {len(bad)} parameters differ from "
+              f"the source bundle's, e.g. {sorted(bad)[:4]}")
+        n += len(g)
+    return n
+
+
+def image_levels(what, got, want, card):
+    """The loaded bundle's image against the source bundle's: at most one
+    level on any pixel."""
+    import numpy as np
+
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    print(f"{what}: image against the source bundle's: max diff "
+          f"{int(diff.max())} levels, {int((diff > 0).sum())} of "
+          f"{diff.size} values differ [{card}]", flush=True)
+    check(got.shape == want.shape and int(diff.max()) <= 1,
+          f"{what}: image differs from the source bundle's by "
+          f"{int(diff.max())} levels")
+
+
+def phase_checkpoint_sd1(card, models, image):
+    """The SD1 bundle written in the reference layout (fp32 .pt files),
+    read back by ``SD1Models.from_checkpoint_dir`` (bf16), held to the
+    source bit for bit, and the source's first request (batch 1, seed 1,
+    512^2, 50 k-LMS steps, CFG 7.5) answered from it."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        SD1Generator, SD1Models)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_sd1_")
+    try:
+        t = time.perf_counter()
+        nbytes = write_sd1_checkpoint(models, root, torch.float32)
+        write_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with PeakRSS() as rss:
+            loaded = SD1Models.from_checkpoint_dir(root, "bf16")
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        print(f"checkpoint SD1: wrote {nbytes} bytes (4 fp32 .pt files) in "
+              f"{write_s:.2f} s, from_checkpoint_dir (bf16, on the card) "
+              f"{load_s:.2f} s, peak host RSS {rss.peak / 2 ** 30:.2f} GiB "
+              f"(before {rss.start / 2 ** 30:.2f}) [{card}]", flush=True)
+        n = same_parameters("checkpoint SD1", [
+            (g, getattr(loaded, g), getattr(models, g))
+            for g in ("clip", "unet", "encoder", "decoder")])
+        check(all(p.is_cuda for m in (loaded.clip, loaded.unet,
+                                      loaded.encoder, loaded.decoder)
+                  for p in m.parameters()),
+              "checkpoint SD1: the loaded bundle is not on the card")
+        sd = SD1Generator(loaded, sampler="k_lms", n_inference_steps=50,
+                          cfg_scale=7.5, height=512, width=512)
+        reset_counts()
+        t = time.perf_counter()
+        got = sd(["a photograph of an astronaut riding a horse"], seed=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = read_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"checkpoint SD1: {n} tensors bit-identical to the source bundle; "
+          f"request bs=1 seed=1 from the loaded bundle {secs:.3f} s, "
+          f"launches K1 {launches['K1']} {launches.k1_routes}, K2 "
+          f"{launches['K2']} [{card}]", flush=True)
+    check(launches["K1"] == K1_PER_REQUEST
+          and launches.k1_routes == {"sm90": K1_PER_REQUEST - 1, "d512": 1},
+          f"checkpoint SD1: K1 launches {launches['K1']} "
+          f"{launches.k1_routes}")
+    check(launches["K2"] == K2_PER_REQUEST,
+          f"checkpoint SD1: K2 launches {launches['K2']}")
+    image_levels("checkpoint SD1", got, image, card)
+    return launches
+
+
+def phase_checkpoint_sd3(card, source):
+    """The SD3-medium bundle of the SD3 phase written as the published
+    safetensors files (bf16 weights, fp32 norms), the source bundle freed,
+    the files read back by ``SD3Models.from_checkpoints`` (its MMDiT config
+    sniffed and held to the source's, every parameter to the source's bits
+    before the source goes), and the warm request (1024^2, 50 flow-Euler
+    steps, CFG 5, shift 3, zero tokens, its seed) answered from them."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer, SD3Models)
+
+    models = source.pop("models")
+    root = tempfile.mkdtemp(prefix="chip_smoke_sd3_")
+    try:
+        t = time.perf_counter()
+        paths, nbytes = write_sd3_checkpoints(models, root)
+        write_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with PeakRSS() as rss:
+            loaded = SD3Models.from_checkpoints(
+                paths["sd3"], paths["clip_l"], paths["clip_g"],
+                paths["t5xxl"], "bf16")
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        print(f"checkpoint SD3: wrote {nbytes} bytes ({len(paths)} "
+              f"safetensors files) in {write_s:.2f} s, from_checkpoints "
+              f"(bf16, on the card) {load_s:.2f} s, peak host RSS "
+              f"{rss.peak / 2 ** 30:.2f} GiB (before "
+              f"{rss.start / 2 ** 30:.2f}) [{card}]", flush=True)
+        check(loaded.mmdit.config == models.mmdit.config,
+              f"checkpoint SD3: sniffed {loaded.mmdit.config} != source "
+              f"{models.mmdit.config}")
+        groups = ("mmdit", "vae_decoder", "clip_l", "clip_g", "t5")
+        n = same_parameters("checkpoint SD3", [
+            (g, getattr(loaded, g), getattr(models, g)) for g in groups])
+        check(all(p.is_cuda for g in groups
+                  for p in getattr(loaded, g).parameters()),
+              "checkpoint SD3: the loaded bundle is not on the card")
+        del models
+        gc.collect()
+        torch.cuda.empty_cache()
+        inf = SD3Inferencer(loaded, shift=3.0)
+        reset_counts()
+        t = time.perf_counter()
+        got = inf.gen_image(np.zeros((1, 77), np.int32), width=1024,
+                            height=1024, steps=SD3_STEPS, cfg_scale=5.0,
+                            seed=source["seed"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = read_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    got_counts = {k: launches[k] for k in SD3_PER_REQUEST}
+    print(f"checkpoint SD3: {n} tensors bit-identical to the source bundle; "
+          f"request seed={source['seed']} from the loaded bundle "
+          f"{secs:.3f} s, launches {got_counts}, K5 {launches.k5_routes} "
+          f"[{card}]", flush=True)
+    check(got_counts == SD3_PER_REQUEST,
+          f"checkpoint SD3: launches {got_counts} != {SD3_PER_REQUEST}")
+    image_levels("checkpoint SD3", got, source["image"], card)
+    return launches
 
 
 def _family(name: str) -> str:
@@ -3622,19 +3949,23 @@ def main():
     kernels_fp32 = phase_kernels_fp32(card, tail)
     import torch
 
-    paths = ("sd1", "sd1_slice", "sd1_768", "sd3", "t5", "training",
-             "sampling", "mmdit_training", "mmdit_sampling", "vlm_training",
-             "vlm_decoding", "sd1_fp32", "sd1_768_fp32", "sd3_fp32",
-             "t5_fp32", "vlm_fp32", "tiny_sd_fp32", "mmdit_fp32",
-             "mmdit_fp32_latent64")
-    sd1_launches, sd1_models = phase_sd1(card)
+    paths = ("sd1", "sd1_slice", "sd1_768", "sd1_checkpoint", "sd3", "t5",
+             "sd3_checkpoint", "training", "sampling", "mmdit_training",
+             "mmdit_sampling", "vlm_training", "vlm_decoding", "sd1_fp32",
+             "sd1_768_fp32", "sd3_fp32", "t5_fp32", "vlm_fp32",
+             "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64")
+    sd1_launches, sd1_models, sd1_image = phase_sd1(card)
     runs = [sd1_launches, phase_sd1_slice(card, sd1_models),
-            phase_sd1_768(card, sd1_models, SD1_768_STEPS, "bf16")[0]]
+            phase_sd1_768(card, sd1_models, SD1_768_STEPS, "bf16")[0],
+            phase_checkpoint_sd1(card, sd1_models, sd1_image)]
     del sd1_models
     fp32_runs = phase_sd1_fp32(card)
     gc.collect()
     torch.cuda.empty_cache()
-    runs += phase_sd3(card)
+    sd3_runs, sd3_source = phase_sd3(card)
+    runs += sd3_runs
+    runs.append(phase_checkpoint_sd3(card, sd3_source))
+    del sd3_source
     gc.collect()
     torch.cuda.empty_cache()   # the bf16 SD3 bundle is gone: room for fp32
     fp32_runs += phase_sd3_fp32(card)
@@ -3716,7 +4047,8 @@ def main():
     # the bf16 paths of the joint attention: every K5 / K6 / K7 launch on
     # sm90
     for p, run in zip(paths, runs):
-        if p in ("sd3", "mmdit_training", "mmdit_sampling"):
+        if p in ("sd3", "sd3_checkpoint", "mmdit_training",
+                 "mmdit_sampling"):
             for k in ("K5", "K6", "K7"):
                 r = getattr(run, k.lower() + "_routes")
                 check(r == ({"sm90": run[k]} if run[k] else {}),

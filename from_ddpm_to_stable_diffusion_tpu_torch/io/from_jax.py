@@ -59,22 +59,30 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
-    """Fill every parameter of ``module`` from ``tree``, consuming every
-    leaf of it; raises on a missing or unused leaf or a shape mismatch."""
-    sd = state_dict_from_jax(tree)
+def load_state_checked(module: nn.Module, sd: Mapping[str, torch.Tensor],
+                       source: str = "checkpoint tensor") -> nn.Module:
+    """Fill every parameter of ``module`` from ``sd`` (name -> tensor, on
+    any device, in any float dtype: each is copied and converted into the
+    parameter), consuming every entry of it; raises on a missing or unused
+    entry or a shape mismatch. ``source`` names an entry in the messages."""
     own = module.state_dict()
     missing, unused = sorted(own.keys() - sd.keys()), sorted(sd.keys() - own)
     if missing or unused:
         raise ValueError(f"{type(module).__name__}: port parameters without "
-                         f"a JAX leaf {missing}; JAX leaves without a port "
-                         f"parameter {unused}")
+                         f"a {source} {missing}; entries ({source}) without "
+                         f"a port parameter {unused}")
     for key, value in sd.items():
         if value.shape != own[key].shape:
-            raise ValueError(f"{key}: JAX {tuple(value.shape)} vs port "
+            raise ValueError(f"{key}: {source} {tuple(value.shape)} vs port "
                              f"{tuple(own[key].shape)}")
     module.load_state_dict(sd)
     return module
+
+
+def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
+    """Fill every parameter of ``module`` from ``tree``, consuming every
+    leaf of it; raises on a missing or unused leaf or a shape mismatch."""
+    return load_state_checked(module, state_dict_from_jax(tree), "JAX leaf")
 
 
 def jax_params_from_module(

@@ -17,24 +17,29 @@ come from ``torch.Generator``s seeded from ``seed`` (or, per sample, from
 ``per_sample_seeds``); ``noise=``, ``enc_noise=`` and ``step_noise=`` replace
 them with explicit arrays, so that a test feeds both packages one draw.
 
+:meth:`SD1Models.from_checkpoint_dir` loads the reference's checkpoint
+layout (``io/weights.py``) onto the card without the JAX package.
+
 Not ported (ROADMAP.md): ``loop="trajectory"`` (a CUDA graph of one step,
-queue A2), ``SD1Models.quantize_int8`` (A4), ``from_checkpoint_dir`` (A5),
-tensor-parallel ``mesh`` (A8).
+queue A2), ``SD1Models.quantize_int8`` (A4), tensor-parallel ``mesh`` (A8).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..io.from_jax import load_jax_params
+from ..io.from_jax import load_jax_params, load_state_checked
 from ..io.prompt_weights import (apply_token_weights,
                                  batch_encode_with_weights)
+from ..io.weights import (import_sd1_clip, import_sd1_unet,
+                          import_sd1_vae_decoder, import_sd1_vae_encoder)
 from ..models.sd1 import CLIPText, SD1UNet, VAEDecoder, VAEEncoder
 from ..models.siglip import SiglipVisionModel
 from ..ops.embeddings import sd1_time_embedding
@@ -94,6 +99,15 @@ def _prepare(module: nn.Module, device, dtype: str) -> nn.Module:
                      memory_format=torch.channels_last).eval()
 
 
+def _from_state(make: Callable[[], nn.Module], state: Mapping, device
+                ) -> nn.Module:
+    """``make()`` built without storage, given fp32 storage on ``device``
+    and filled from ``state`` (every parameter, nothing left over)."""
+    with torch.device("meta"):
+        module = make()
+    return load_state_checked(module.to_empty(device=device), state)
+
+
 @dataclasses.dataclass
 class SD1Models:
     """Device-resident model bundle. ``encoder`` is None when the bundle was
@@ -116,6 +130,23 @@ class SD1Models:
             mods.append(_prepare(flax_default_init_(m, generator), device,
                                  dtype))
         return cls(*mods)
+
+    @classmethod
+    def from_checkpoint_dir(cls, ckpt_dir: str, dtype: str = "bf16",
+                            device="cuda") -> "SD1Models":
+        """Load the reference's checkpoint layout: ``<dir>/ckpt/{clip,
+        diffusion,encoder,decoder}.pt`` (01_.../model_loader.py:35-77) into
+        the default ``CLIPText()``, ``SD1UNet()``, ``VAEEncoder()`` and
+        ``VAEDecoder()``. Each group is read, moved to ``device`` and cast
+        before the next is read."""
+        groups = (("clip", CLIPText, import_sd1_clip),
+                  ("diffusion", SD1UNet, import_sd1_unet),
+                  ("encoder", VAEEncoder, import_sd1_vae_encoder),
+                  ("decoder", VAEDecoder, import_sd1_vae_decoder))
+        return cls(*(
+            _prepare(_from_state(make, read(os.path.join(
+                ckpt_dir, "ckpt", f"{name}.pt")), device), device, dtype)
+            for name, make, read in groups))
 
     @classmethod
     def from_jax(cls, params: Mapping, device="cuda", dtype: str = "fp32",

@@ -7,23 +7,30 @@ steps runs classifier-free guidance as one batch-2B MMDiT forward
 comes out. bf16 weights and activations, fp32 latents. All five model
 groups stay resident on the device.
 
-Not ported yet (ROADMAP.md): loading checkpoints (``from_checkpoints``,
-``sniff_mmdit_config``), the tokenizers and the text entry points, int8
+:meth:`SD3Models.from_checkpoints` loads the reference's safetensors files
+(``io/weights_sd3.py``) onto the card without the JAX package, the MMDiT's
+config sniffed from the checkpoint's shapes (:func:`sniff_mmdit_config`).
+
+Not ported yet (ROADMAP.md): the tokenizers and the text entry points, int8
 serving (``quantize_int8``), tensor-parallel ``mesh``, the tiled VAE decode,
-img2img (``init_image``), ``per_sample_seeds``, prompt weighting
-(``clip_weights``) and ``offload_text_encoders``.
+img2img (``init_image``; the VAE encoder's weights are read but have no
+module to fill), ``per_sample_seeds``, prompt weighting (``clip_weights``)
+and ``offload_text_encoders``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 from ..io.from_jax import load_jax_params
-from ..models.mmdit import MMDiT, MMDiTConfig
+from ..io.weights_sd3 import import_clip_text, import_sd3_checkpoint, import_t5
+from ..models.mmdit import (BOUNDED_LOGIT_BUDGET, MMDiT, MMDiTConfig,
+                            qk_norm_logit_bound)
 from ..models.sd3_vae import SD3LatentFormat, SD3VAEDecoder
 from ..models.text_encoders import (CLIP_G_CONFIG, CLIP_L_CONFIG,
                                     CLIPTextConfig, CLIPTextModel, T5Config,
@@ -32,7 +39,49 @@ from ..ops.image import to_uint8
 from ..ops.schedules import sd3_sigma_schedule
 from ..samplers.flow import (flow_euler_sample, flow_heun_sample,
                              noise_scaling)
-from .sd1 import _prepare, flax_default_init_
+from .sd1 import _from_state, _prepare, flax_default_init_
+
+
+def sniff_mmdit_config(state: Mapping[str, torch.Tensor],
+                       prefix: str = "model.diffusion_model.") -> MMDiTConfig:
+    """Infer MMDiTConfig from a safetensors state dict's tensor shapes."""
+    patch_kernel = state[f"{prefix}x_embedder.proj.weight"]
+    patch_size = patch_kernel.shape[2]
+    in_channels = patch_kernel.shape[1]
+    hidden = patch_kernel.shape[0]
+    depth = hidden // 64
+    pos = state.get(f"{prefix}pos_embed")
+    pos_embed_max_size = (int(math.sqrt(pos.shape[1]))
+                          if pos is not None else 192)
+    y_key = f"{prefix}y_embedder.mlp.0.weight"
+    adm = state[y_key].shape[1] if y_key in state else None
+    ctx_key = f"{prefix}context_embedder.weight"
+    context_dim = state[ctx_key].shape[1] if ctx_key in state else None
+    qk_norm = ("rms" if f"{prefix}joint_blocks.0.x_block.attn.ln_q.weight"
+               in state else None)
+    return MMDiTConfig(patch_size=patch_size, in_channels=in_channels,
+                       depth=depth, adm_in_channels=adm,
+                       context_dim=context_dim,
+                       pos_embed_max_size=pos_embed_max_size,
+                       qk_norm=qk_norm)
+
+
+def _certify_bounded(mmdit: MMDiT) -> MMDiT:
+    """With qk-norm, the bounded softmax is certified from the loaded
+    gains; a checkpoint whose logit bound reaches the budget gets the online
+    softmax instead (the same parameters, rebuilt under that config)."""
+    cfg = mmdit.config
+    if not cfg.qk_norm:
+        return mmdit
+    bound = qk_norm_logit_bound(mmdit, 64, cfg.qk_norm)
+    if bound < BOUNDED_LOGIT_BUDGET:
+        return mmdit
+    print(f"[sd3] qk-norm logit bound {bound:.1f} >= "
+          f"{BOUNDED_LOGIT_BUDGET:.0f}: online softmax")
+    with torch.device("meta"):
+        online = MMDiT(dataclasses.replace(cfg, stability="online"))
+    online.load_state_dict(mmdit.state_dict(), assign=True)
+    return online
 
 
 @dataclasses.dataclass
@@ -91,6 +140,45 @@ class SD3Models:
             MMDiTConfig(depth=depth, pos_embed_max_size=pos_embed_max_size),
             clip_l_cfg, clip_g_cfg,
             (t5_config or T5Config()) if with_t5 else None)
+
+    @classmethod
+    def from_checkpoints(cls, sd3_path: str,
+                         clip_l_path: Optional[str] = None,
+                         clip_g_path: Optional[str] = None,
+                         t5_path: Optional[str] = None, dtype: str = "bf16",
+                         device="cuda") -> "SD3Models":
+        """Load the reference's model groups from safetensors files
+        (sd3_infer.py load(); the MMDiT's config sniffed from the sd3 file).
+        Each group goes from the mapped file to ``device`` and is cast
+        before the next is read. Both CLIP files are required (the bundle
+        has no empty slot for one); without ``t5_path`` the bundle has no
+        T5."""
+        for name, path in (("clip_l_path", clip_l_path),
+                           ("clip_g_path", clip_g_path)):
+            if not path:
+                raise ValueError(f"SD3Models.from_checkpoints needs {name}")
+        mmdit, encoder, decoder, cfg = import_sd3_checkpoint(sd3_path)
+        states = {"mmdit": mmdit, "vae_decoder": decoder}
+        # the sd3 file stays mapped while any view of it lives: only
+        # ``states`` may hold them, so that it is unmapped once both groups
+        # are on the device
+        del mmdit, encoder, decoder
+        t5_config = T5Config() if t5_path else None
+        readers = {
+            "clip_l": lambda: import_clip_text(clip_l_path,
+                                               CLIP_L_CONFIG.num_layers),
+            "clip_g": lambda: import_clip_text(clip_g_path,
+                                               CLIP_G_CONFIG.num_layers),
+            "t5": lambda: import_t5(t5_path, t5_config.num_layers),
+        }
+
+        def fill(name, make):
+            state = states.pop(name) if name in states else readers[name]()
+            module = _from_state(make, state, device)
+            return _certify_bounded(module) if name == "mmdit" else module
+
+        return cls._build(fill, device, dtype, cfg, CLIP_L_CONFIG,
+                          CLIP_G_CONFIG, t5_config)
 
     @classmethod
     def from_jax(cls, params: Mapping, device="cuda", dtype: str = "fp32",

@@ -294,11 +294,13 @@ def test_port_never_imports_jax():
                "samplers.flow", "utils.config", "pipelines.vlm_trainer",
                "models.siglip", "models.tiny_vlm", "io.shapes_dataset",
                "ops.attention", "ops.flash_attention", "io.tokenizer",
-               "io.prompt_weights", "samplers.k_samplers", "models.sd1"]
+               "io.prompt_weights", "samplers.k_samplers", "models.sd1",
+               "io.weights", "io.weights_sd3", "io.weights_clip"]
     code = ("import sys\n"
             + "".join(f"import {port}.{m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'flax', 'regex', 'yaml'))\n"
+            "             ('jax', 'jaxlib', 'flax', 'regex', 'yaml',\n"
+            "              'safetensors'))\n"
             "assert not bad, bad\n"
             "assert 'from_ddpm_to_stable_diffusion_tpu' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

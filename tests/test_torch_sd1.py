@@ -119,6 +119,8 @@ def test_entry_points_default_to_the_card():
         ddpm_trainer, mmdit_trainer, sd3, vlm_trainer)
 
     for fn in (tpipe.SD1Models.from_jax, sd3.SD3Models.from_jax,
+               tpipe.SD1Models.from_checkpoint_dir,
+               sd3.SD3Models.from_checkpoints,
                sd3.SD3Models.initialize, ddpm_trainer.DDPMTrainer.__init__,
                mmdit_trainer.MMDiTTrainer.__init__,
                vlm_trainer.VLMTrainer.__init__):
