@@ -90,7 +90,12 @@ two summary lines:
    head dim and kernel. Then SD1 in fp32 (``SD1Models``' default dtype
    from a JAX tree), 10 steps, through the fp32 kernels against the same
    request through plain attention, and the fp32 bundle at 768x768 (10
-   steps) the same way as the bf16 one.
+   steps) the same way as the bf16 one. Then (after the checkpoint phase)
+   ``SD1Models.quantize_int8()`` on the bf16 bundle (resident GiB before and
+   after, the peak while it runs), the int8 product's int32 accumulators
+   against the exact product at the UNet's operand shapes (equality), and
+   one 512^2 / 50-step request in int8: K1, K2 and ``torch._int_mm`` calls
+   counted, s/image, its image against the bf16 one (printed).
 5. SD3: full-width SD3-medium (CLIP-L, CLIP-G, T5-XXL, the depth-24 MMDiT,
    the 16-channel VAE decoder; random weights from a seed, bf16, all
    resident), ``SD3Inferencer.gen_image`` at 1024x1024, 50 flow-Euler
@@ -102,6 +107,27 @@ two summary lines:
    SD3 admits: its 24 attentions take K1 in the bias form; the output is
    held against the same encoder through plain attention on the card, and
    both are timed (10 calls) with the device-busy time of one call. Then
+   the rest of SD3 serving on the same bundle: img2img (the warm image back
+   in as ``init_image`` at strength 0.6, the last 30 steps; the VAE encoder
+   takes K1 at d = 512 and K2); batch 2 with ``per_sample_seeds=[warm seed,
+   None]`` decoded tiled (``models/sd3_vae_tiled.py``: the head's K1 at
+   batch 2 and 5 GroupNorms) and again whole from the same final latents,
+   each decode timed with its peak memory (the tiled image against the
+   whole one within 11 levels, mean 1.2; sample 0's starting noise equal to
+   the warm request's, bit for bit; its image within the same levels of the
+   warm image); the text entry points with a synthetic CLIP vocabulary and
+   a synthetic SentencePiece model written by ``build_spm_model``
+   (``gen_image_text`` and ``gen_image`` on the tokenizer's ids: 0 values
+   differ; a ``(word:1.3)`` prompt with ``prompt_weighting``). After the
+   checkpoint phase, on the bundle it loaded: ``SD3Models.quantize_int8()``
+   (resident GiB before and after, the peak while it runs), the int8
+   accumulators against the exact product at the MMDiT's and T5's operand
+   shapes, 16 rows and fewer padded (equality), the warm request in int8
+   (s/image, ms/step, K5 launches, ``torch._int_mm`` calls, the final
+   latents' relative L2 against the bf16 request's, a sanity bound of 0.5),
+   and last ``gen_image(offload_text_encoders=True)``: its image equal to
+   the int8 request's (0 values differ), ``hbm_bytes_live()`` falling by the
+   text encoders' bytes, and ``get_cond`` raising afterwards. Then
    (the bf16 bundle freed) SD3-medium in fp32, 28.7 GiB of weights, 4 steps
    at 1024x1024 through the fp32 kernels against plain attention, and its
    fp32 T5-XXL on (2, 512) tokens through K1's fp32 bias form against plain
@@ -111,14 +137,17 @@ two summary lines:
    diffusion,encoder,decoder}.pt``, fp32, the attention projections under
    their ``*_proj_weight`` names) and read back by
    ``SD1Models.from_checkpoint_dir``; the SD3-medium bundle written as the
-   published safetensors files (``sd3`` with ``model.diffusion_model.*`` and
-   ``first_stage_model.decoder.*``, HF-layout CLIP-L, CLIP-G and T5-XXL;
+   published safetensors files (``sd3`` with ``model.diffusion_model.*``,
+   ``first_stage_model.encoder.*`` and ``first_stage_model.decoder.*``,
+   HF-layout CLIP-L, CLIP-G and T5-XXL;
    bf16 weights, fp32 norms), freed once the files are read back by
    ``SD3Models.from_checkpoints`` and compared. Each loaded bundle lives on
    the card, equals its source bit for bit (the sniffed MMDiT config
    equal), and answers the source's request (SD1 batch 1 seed 1; SD3 the
    warm request's seed) within one level of the source's image, through
-   K1, K2 and K5 by the launch counters. Prints the bytes, the seconds to
+   K1, K2 and K5 by the launch counters; the SD3 VAE encoder read back
+   encodes the warm image to the source encoder's latent, bit for bit.
+   Prints the bytes, the seconds to
    write and to load and the peak host RSS of the load; the files are
    deleted whatever happens.
 6. training: the tiny-SD ``DDPMTrainer`` at ``TinySDConfig()`` defaults
@@ -171,7 +200,8 @@ two summary lines:
    counts are asserted (a run that reached no fp32 kernel fails).
 
 Every kernel's launch count is set to 0 just before each of the SD1, SD1
-generator, SD1 at 768^2, SD1 checkpoint, SD3, SD3 checkpoint, training,
+generator, SD1 at 768^2, SD1 checkpoint, SD1 int8, SD3, SD3 img2img, SD3
+batch 2 tiled, SD3 text, SD3 checkpoint, SD3 int8, SD3 offload, training,
 sampling, MMDiT training, MMDiT sampling, T5, TinyVLM training, TinyVLM
 decoding and fp32 paths and read
 just after (before the plain-attention run it is compared with), K1's also
@@ -389,12 +419,14 @@ def sass_check(library, table, family):
 SD3_JOINT_SHAPES = ((154, 154), (154, 4096), (4096, 154), (4096, 4096))
 
 # K1's timed cases, which compare_revisions.py times too. Without a mask,
-# (B, H, Lq, Lk, D): the first is reported (SD1 UNet at 64^2), the last is
-# the SD3 VAE's mid attention over 128 x 128 tokens.
+# (B, H, Lq, Lk, D): the first is reported (SD1 UNet at 64^2), the last two
+# are the SD3 VAE's mid attention over 128 x 128 tokens (decoder and
+# encoder at batch 1, the tiled decode's head at batch 2).
 K1_SHAPES = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80),
              (1, 1, 4096, 4096, 512), (1, 2, 1000, 777, 80),
              (32, 1, 4096, 4096, 128), (32, 2, 1024, 1024, 128),
-             (1, 2, 1000, 777, 128), (1, 1, 16384, 16384, 512)]
+             (1, 2, 1000, 777, 128), (1, 1, 16384, 16384, 512),
+             (2, 1, 16384, 16384, 512)]
 # K2's timed cases, (shape, act, dtype), which compare_revisions.py times
 # too: the first is reported (SD1 UNet at 64^2, CFG batch 2); then its other
 # levels and batch 8, the SD1 VAE decoder's 512^2 level in both dtypes,
@@ -1580,18 +1612,8 @@ def phase_sd3(card):
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     inf = SD3Inferencer(models, shift=3.0)
 
-    step_events, final_latents = [], []
-
-    def on_mmdit(module, args):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        step_events.append(ev)
-
-    def on_decoder(module, args):
-        final_latents.append(args[0].detach().clone())
-
-    hooks = [models.mmdit.register_forward_pre_hook(on_mmdit),
-             models.vae_decoder.register_forward_pre_hook(on_decoder)]
+    step_events, final_latents, first_inputs = [], [], []
+    hooks = request_hooks(models, step_events, final_latents, first_inputs)
     tokens = np.zeros((1, 77), np.int32)
     request = lambda seed: inf.gen_image(
         tokens, width=1024, height=1024, steps=SD3_STEPS, cfg_scale=5.0,
@@ -1603,6 +1625,7 @@ def phase_sd3(card):
         n0 = read_counts()
         step_events.clear()
         final_latents.clear()
+        first_inputs.clear()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1615,11 +1638,10 @@ def phase_sd3(card):
             wall_ms = (time.perf_counter() - t) * 1e3
         n1 = read_counts()
         got = {k: n1[k] - n0[k] for k in n1}
-        step_ms = (step_events[0].elapsed_time(step_events[-1])
-                   / (len(step_events) - 1))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"SD3 request ({what}) seed={seed}: {wall_ms / 1e3:.3f} "
-              f"s/image, {step_ms:.2f} ms/denoise step (MMDiT batch 2, 154 + "
+              f"s/image, {step_ms(step_events):.2f} ms/denoise step (MMDiT "
+              f"batch 2, 154 + "
               f"4096 tokens), peak {peak:.2f} GiB, launches {got} [{card}]",
               flush=True)
         check(images.shape == (1, 1024, 1024, 3) and str(images.dtype) ==
@@ -1635,6 +1657,7 @@ def phase_sd3(card):
               f"SD3 launches {got} != {SD3_PER_REQUEST}")
         if what == "warm":
             warm_ms, warm_image, warm_seed = wall_ms, images, seed
+            warm_latents, warm_noise = final_latents[0], first_inputs[0]
     busy = sum(fams.values())
     print(f"SD3 profile of one request (torch.profiler, kernel rows only): "
           f"device busy {busy:.1f} ms over {n_kernels} kernels; wall under "
@@ -1645,9 +1668,38 @@ def phase_sd3(card):
     launches = read_counts()
     for hook in hooks:
         hook.remove()
-    # the bundle and the warm request's image go on to the checkpoint phase
+    # the bundle and the warm request go on to the serving and checkpoint
+    # phases: its image, seed, final latents and starting noise
     return ([launches, phase_t5(card, models.t5)],
-            dict(models=models, image=warm_image, seed=warm_seed))
+            dict(models=models, image=warm_image, seed=warm_seed,
+                 latents=warm_latents, noise=warm_noise, ms=warm_ms,
+                 resident=held))
+
+
+def request_hooks(models, step_events, final_latents, first_inputs=None):
+    """Forward pre-hooks on an SD3 bundle: a CUDA event at each MMDiT call
+    (ms per denoise step), the final latents at each whole-image decode,
+    and the MMDiT's first input of a request (at sigma 1 the starting noise
+    itself) once ``first_inputs`` is empty. Returns the handles."""
+    import torch
+
+    def on_mmdit(module, args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if first_inputs is not None and not step_events:
+            first_inputs.append(args[0].detach().clone())
+        step_events.append(ev)
+
+    def on_decoder(module, args):
+        final_latents.append(args[0].detach().clone())
+
+    return [models.mmdit.register_forward_pre_hook(on_mmdit),
+            models.vae_decoder.register_forward_pre_hook(on_decoder)]
+
+
+def step_ms(step_events):
+    return (step_events[0].elapsed_time(step_events[-1])
+            / max(1, len(step_events) - 1))
 
 
 def phase_t5(card, t5):
@@ -1734,6 +1786,497 @@ def phase_t5(card, t5):
     return launches
 
 
+# --------------------------------------------------------------------------
+# The rest of SD3 serving on the SD3-medium bundle: img2img, batch 2 with
+# per-sample seeds decoded tiled and whole, the text entry points, int8 and
+# the text-encoder offload; and SD1 in int8.
+# --------------------------------------------------------------------------
+# img2img at strength 0.6 runs the last 30 of the 50 steps; the VAE encoder
+# runs one mid attention over 128 x 128 tokens (K1 at d = 512) and 22
+# GroupNorms; the tiled decode's head runs the decoder's mid attention (K1,
+# at batch 2) and 5 GroupNorms, its ladder none (XLA code in JAX, plain
+# PyTorch here).
+SD3_STRENGTH = 0.6
+SD3_IMG2IMG_STEPS = SD3_STEPS - int(SD3_STEPS * (1.0 - SD3_STRENGTH))
+SD3_ENCODER_GN, SD3_TILED_HEAD_GN = 22, 5
+# int8 products a request: 4 in each of the 24 x blocks and 23 context
+# blocks and the last context block's qkv, per MMDiT call; 7 in each of
+# T5's 24 blocks, two T5 calls (prompt and negative prompt). SD1: 8 in each
+# of the UNet's 16 TransformerBlocks a call.
+SD3_INT8_MM_PER_REQUEST = ((4 * (2 * SD3_DEPTH - 1) + 1) * SD3_STEPS
+                           + 2 * 7 * 24)
+SD1_INT8_MM_PER_REQUEST = 16 * 8 * 50
+# Image levels, batch-2 sample against its batch-1 request: cuBLAS and
+# cuDNN pick their algorithms by batch, which moves bf16 roundings; PERF.md
+# section 7 records up to 11 levels (mean 1.2) for SD1 between batch 1 and
+# 4. The tiled decode against the whole one differs by the same kind of
+# rounding (fp32 statistics summed in another order, convs over strips).
+# SD3-medium at 1024^2 / 50 steps is a longer chain over a larger batch
+# change (MMDiT batch 2 -> 4): a first run measured sample 0 against its
+# batch-1 request at 11 levels, mean 1.27 (PERF.md section 6, PR 14); the
+# bound keeps SD1's record for the tiled decode and room above that
+# measurement for the batch.
+BATCH_LEVELS_MAX, BATCH_LEVELS_MEAN = 16, 2.0
+TILED_LEVELS_MAX, TILED_LEVELS_MEAN = 11, 1.2
+# int8 against bf16 final latents of one seed (relative L2): a sanity bound
+# on a random-weight flow, not a quality claim.
+INT8_LATENT_REL_BOUND = 0.5
+
+
+def sd3_counts(k1, k2, k5_steps):
+    return dict(K1=k1, K2=k2, K3=0, K4=0, K5=4 * SD3_DEPTH * k5_steps, K6=0,
+                K7=0)
+
+
+def levels(a, b):
+    """(max, mean) absolute difference of two uint8 images, in levels."""
+    import numpy as np
+
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), float(d.mean())
+
+
+def phase_sd3_img2img(card, source):
+    """img2img on the SD3-medium bundle: the warm request's image back in as
+    ``init_image`` (scaled to [-1, 1] as the JAX CLI does) at strength 0.6,
+    1024^2, the last 30 of 50 flow-Euler steps, CFG 5, shift 3: the VAE
+    encoder (K1 at d = 512, K2) in front of the request."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer)
+
+    models = source["models"]
+    inf = SD3Inferencer(models, shift=3.0)
+    step_events, final_latents = [], []
+    hooks = request_hooks(models, step_events, final_latents)
+    init = source["image"].astype(np.float32) / 255.0 * 2.0 - 1.0
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    images = inf.gen_image(np.zeros((1, 77), np.int32), steps=SD3_STEPS,
+                           cfg_scale=5.0, seed=source["seed"],
+                           init_image=init, denoise_strength=SD3_STRENGTH)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = read_counts()
+    for h in hooks:
+        h.remove()
+    got = {k: launches[k] for k in SD3_PER_REQUEST}
+    want = sd3_counts(2, SD3_ENCODER_GN + 30, SD3_IMG2IMG_STEPS)
+    moved = levels(images, source["image"])
+    print(f"SD3 img2img (1024^2, strength {SD3_STRENGTH}, {len(step_events)}"
+          f" of {SD3_STEPS} steps, seed {source['seed']}): {secs:.3f} "
+          f"s/image, {step_ms(step_events):.2f} ms/denoise step, launches "
+          f"{got}, K1 {launches.k1_routes} {launches.k1_head_dims}, K5 "
+          f"{launches.k5_routes}; against the init image max "
+          f"{moved[0]} mean {moved[1]:.2f} levels [{card}]", flush=True)
+    check(images.shape == (1, 1024, 1024, 3) and float(images.std()) > 0,
+          "SD3 img2img image misshaped or constant")
+    check(len(final_latents) == 1
+          and bool(torch.isfinite(final_latents[0]).all()),
+          "SD3 img2img final latents not finite")
+    check(len(step_events) == SD3_IMG2IMG_STEPS,
+          f"SD3 img2img: {len(step_events)} MMDiT calls")
+    check(got == want, f"SD3 img2img launches {got} != {want}")
+    check(launches.k1_routes == {"d512": 2},
+          f"SD3 img2img K1 routes {launches.k1_routes}")
+    return launches
+
+
+def phase_sd3_tiled(card, source):
+    """Batch 2 with ``per_sample_seeds=[warm seed, None]`` through
+    ``SD3Inferencer(decode_mode="tiled")``, its final latents decoded tiled
+    again and whole (each timed, with its peak memory above the resident
+    bundle): the tiled image against the whole one; sample 0's starting
+    noise against the warm request's, bit for bit; sample 0's whole image
+    against the warm request's image."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer)
+
+    models = source["models"]
+    inf = SD3Inferencer(models, shift=3.0, decode_mode="tiled")
+    step_events, final_latents, first_inputs = [], [], []
+    hooks = request_hooks(models, step_events, final_latents, first_inputs)
+    captured = []
+    decode = inf.vae_decode
+
+    def keep_latents(latent, mode=None):
+        captured.append(latent.clone())
+        return decode(latent, mode)
+
+    inf.vae_decode = keep_latents
+    seeds = [source["seed"], None]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    tiled = inf.gen_image(np.zeros((2, 77), np.int32), steps=SD3_STEPS,
+                          cfg_scale=5.0, seed=source["seed"],
+                          per_sample_seeds=seeds)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    request_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_request = read_counts()
+    latent = captured[0]
+
+    def timed(mode):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        img = decode(latent, mode)
+        torch.cuda.synchronize()
+        return (img, time.perf_counter() - t,
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+    again, tiled_s, tiled_peak = timed("tiled")
+    whole, whole_s, whole_peak = timed("whole")
+    launches = read_counts()
+    for h in hooks:
+        h.remove()
+    req = {k: n_request[k] for k in SD3_PER_REQUEST}
+    got = {k: launches[k] for k in SD3_PER_REQUEST}
+    want_req = sd3_counts(1, SD3_TILED_HEAD_GN, SD3_STEPS)
+    want = sd3_counts(1 + 1 + 2, 2 * SD3_TILED_HEAD_GN + 60, SD3_STEPS)
+    tw = levels(tiled, whole)
+    bw = levels(whole[:1], source["image"])
+    same_noise = bool(torch.equal(first_inputs[0][:1], source["noise"][:1]))
+    print(f"SD3 batch 2 (per_sample_seeds {seeds}, decode tiled): "
+          f"{secs:.3f} s for 2 images, {secs / 2:.3f} s/image, "
+          f"{step_ms(step_events):.2f} ms/denoise step (MMDiT batch 4), peak "
+          f"{request_peak:.2f} GiB; decode of the two final latents: tiled "
+          f"{tiled_s:.3f} s (peak {tiled_peak:.2f} GiB above the resident "
+          f"state), whole {whole_s:.3f} s (peak {whole_peak:.2f} GiB); tiled "
+          f"against whole: max {tw[0]} mean {tw[1]:.4f} levels (bound "
+          f"{TILED_LEVELS_MAX} / {TILED_LEVELS_MEAN}); sample 0 against the "
+          f"batch-1 warm request: starting noise bit-identical {same_noise},"
+          f" image max {bw[0]} mean {bw[1]:.4f} levels (bound "
+          f"{BATCH_LEVELS_MAX} / {BATCH_LEVELS_MEAN}); launches request "
+          f"{req}, with both decodes {got}, K1 {launches.k1_routes} "
+          f"[{card}]", flush=True)
+    check(tiled.shape == (2, 1024, 1024, 3) and float(tiled.std()) > 0,
+          "SD3 tiled images misshaped or constant")
+    check(bool(torch.isfinite(latent).all()) and latent.shape
+          == (2, 128, 128, 16), "SD3 batch-2 final latents")
+    check(len(step_events) == SD3_STEPS,
+          f"SD3 batch 2: {len(step_events)} MMDiT calls")
+    check(np.array_equal(again, tiled), "the tiled decode is not repeatable")
+    check(tw[0] <= TILED_LEVELS_MAX and tw[1] <= TILED_LEVELS_MEAN,
+          f"tiled decode against whole: {tw}")
+    check(same_noise, "sample 0's starting noise differs from its batch-1 "
+          "request's")
+    check(bw[0] <= BATCH_LEVELS_MAX and bw[1] <= BATCH_LEVELS_MEAN,
+          f"sample 0 against its batch-1 request: {bw}")
+    check(req == want_req and got == want,
+          f"SD3 batch-2 launches {req} / {got} != {want_req} / {want}")
+    check(launches.k1_routes == {"d512": want["K1"]},
+          f"SD3 batch-2 K1 routes {launches.k1_routes}")
+    return launches
+
+
+def phase_sd3_text(card, source):
+    """The text entry points with a synthetic CLIP vocabulary and a
+    synthetic SentencePiece model written by the port's
+    ``build_spm_model``: ``gen_image_text`` against ``gen_image`` on the
+    tokenizer's ids (0 values may differ), then a ``(word:1.3)`` prompt with
+    ``prompt_weighting=True``; 1024^2, 50 steps, the warm seed."""
+    import os
+    import tempfile
+
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io import spm_tokenizer as S
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.tokenizer import (
+        CLIPTokenizer, build_simple_vocab)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer)
+
+    pieces = ([("<pad>", 0.0, S.CONTROL), ("</s>", 0.0, S.CONTROL),
+               ("<unk>", 0.0, S.UNKNOWN), ("▁", -3.0, S.NORMAL)]
+              + [("▁" + w, -1.0 - 0.1 * i, S.NORMAL)
+                 for i, w in enumerate(SLICE_WORDS)]
+              + [(c, -5.0, S.NORMAL) for c in "abcdefghijklmnopqrstuvwxyz"])
+    fd, path = tempfile.mkstemp(suffix=".model")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(S.build_spm_model(pieces))
+        t5_tok = S.T5XXLTokenizer.from_file(path)
+    finally:
+        os.remove(path)
+    trio = S.SD3Tokenizer(CLIPTokenizer(*build_simple_vocab(SLICE_WORDS)),
+                          t5_tok)
+    inf = SD3Inferencer(source["models"], shift=3.0, tokenizer=trio)
+    prompt = "a watercolor fox riding a horse in the snow"
+    weighted = "a (watercolor:1.3) fox riding a [horse] in the snow"
+    kw = dict(steps=SD3_STEPS, cfg_scale=5.0, seed=source["seed"])
+    ids, neg = inf.tokenize(prompt), inf.tokenize("")
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    text = inf.gen_image_text(prompt, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    by_ids = inf.gen_image(ids[0], t5_tokens=ids[2], neg_clip_tokens=neg[0],
+                           neg_t5_tokens=neg[2], clip_g_tokens=ids[1],
+                           neg_clip_g_tokens=neg[1], **kw)
+    heavy = inf.gen_image_text(weighted, prompt_weighting=True, **kw)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    got = {k: launches[k] for k in SD3_PER_REQUEST}
+    want = {k: 3 * n for k, n in SD3_PER_REQUEST.items()}
+    same = levels(text, by_ids)
+    moved = levels(heavy, text)
+    print(f"SD3 text entry (synthetic CLIP vocabulary, synthetic "
+          f"SentencePiece model of {len(pieces)} pieces): gen_image_text "
+          f"{secs:.3f} s/image; against gen_image on the tokenizer's ids "
+          f"{int((text != by_ids).sum())} values differ; the weighted "
+          f"prompt against the plain one max {moved[0]} mean {moved[1]:.2f} "
+          f"levels; t5 ids {ids[2][0, :12].tolist()}, launches of the 3 "
+          f"requests {got} [{card}]", flush=True)
+    check(text.shape == (1, 1024, 1024, 3) and float(text.std()) > 0,
+          "SD3 text image misshaped or constant")
+    check(same == (0, 0.0), f"gen_image_text against gen_image: {same}")
+    check(float(heavy.std()) > 0 and moved[0] > 0,
+          "the weighted prompt did not move the image")
+    check(got == want, f"SD3 text launches {got} != {want}")
+    return launches
+
+
+def int8_exact(what, layers):
+    """The int32 accumulators of ``int8_matmul`` on the card against the
+    exact product (fp64 of the same int8 operands) for each (rows, layer):
+    random int8 activations against the layer's own quantized weight."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import quantize as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = []
+    for m, layer in layers:
+        xq = torch.randint(-127, 128, (m, layer.in_features), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        acc = Q.int8_matmul(xq, layer.q.t())
+        exact = xq.double() @ layer.q.t().double()
+        ok = acc.dtype == torch.int32 and torch.equal(acc.double(), exact)
+        shapes.append((m, layer.in_features, layer.out_features))
+        check(ok, f"{what} int8 accumulators differ from the exact product "
+              f"at {shapes[-1]}")
+    print(f"{what} int8 accumulators (torch._int_mm) equal to the exact "
+          f"product at (M, K, N) {shapes}", flush=True)
+
+
+def quantized_layers(module):
+    """One QuantLinear of ``module`` for each (K, N) it holds."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops.quantize import (
+        QuantLinear)
+
+    found = {}
+    for m in module.modules():
+        if isinstance(m, QuantLinear):
+            found.setdefault((m.in_features, m.out_features), m)
+    return found
+
+
+def quantize_timed(what, quantize, card):
+    """Run ``quantize()`` and print the resident GiB before and after and
+    the peak during it."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    quantize()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    after = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{what}: quantize_int8() {secs:.2f} s; resident "
+          f"{before / 2 ** 30:.2f} -> {after / 2 ** 30:.2f} GiB, peak during "
+          f"the quantization {peak / 2 ** 30:.2f} GiB [{card}]", flush=True)
+    check(after < before, f"{what}: quantize_int8 freed nothing")
+    return before, after
+
+
+def phase_sd3_int8(card, source):
+    """``SD3Models.quantize_int8()`` on the bundle (the MMDiT's block
+    projections and T5's, one linear at a time on the card), the int8
+    product's accumulators against the exact product at the MMDiT's and
+    T5's operand shapes, then the warm request in int8: s/image, ms/step,
+    launches, ``torch._int_mm`` calls, and the final latents against the bf16
+    request's."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.sd3_vae import (
+        SD3LatentFormat)
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import quantize as Q
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer)
+
+    models = source["models"]
+    quantize_timed("SD3", models.quantize_int8, card)
+    x_rows, ctx_rows, t5_rows = 2 * 4096, 2 * 154, 77
+    layers = [(x_rows, m) for m in quantized_layers(models.mmdit).values()]
+    layers += [(ctx_rows, m) for m in quantized_layers(models.mmdit).values()]
+    for m in quantized_layers(models.t5).values():
+        layers += [(t5_rows, m), (5, m)]
+    int8_exact("SD3", layers)
+    inf = SD3Inferencer(models, shift=3.0)
+    step_events, final_latents = [], []
+    hooks = request_hooks(models, step_events, final_latents)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    Q.int8_matmul.launches = 0
+    t = time.perf_counter()
+    images = inf.gen_image(np.zeros((1, 77), np.int32), steps=SD3_STEPS,
+                           cfg_scale=5.0, seed=source["seed"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = read_counts()
+    int_mm = Q.int8_matmul.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for h in hooks:
+        h.remove()
+    got = {k: launches[k] for k in SD3_PER_REQUEST}
+    rel = rel_l2(SD3LatentFormat.process_in(final_latents[0]),
+                 SD3LatentFormat.process_in(source["latents"]))
+    print(f"SD3 int8 request seed={source['seed']}: {secs:.3f} s/image "
+          f"(bf16 warm {source['ms'] / 1e3:.3f}), "
+          f"{step_ms(step_events):.2f} ms/denoise step, peak {peak:.2f} GiB, "
+          f"torch._int_mm calls {int_mm}, launches {got}, K5 "
+          f"{launches.k5_routes}; final latents against the bf16 request's: "
+          f"rel L2 {rel:.4f} (sanity bound {INT8_LATENT_REL_BOUND}) "
+          f"[{card}]", flush=True)
+    check(images.shape == (1, 1024, 1024, 3) and float(images.std()) > 0,
+          "SD3 int8 image misshaped or constant")
+    check(len(final_latents) == 1
+          and bool(torch.isfinite(final_latents[0]).all()),
+          "SD3 int8 final latents not finite")
+    check(got == SD3_PER_REQUEST, f"SD3 int8 launches {got}")
+    check(int_mm == SD3_INT8_MM_PER_REQUEST,
+          f"SD3 int8: {int_mm} torch._int_mm calls, not "
+          f"{SD3_INT8_MM_PER_REQUEST}")
+    check(rel <= INT8_LATENT_REL_BOUND, f"SD3 int8 latents rel L2 {rel}")
+    source["int8_image"] = images
+    # where the int8 request's device time goes (after the counted run)
+    _, wall_ms, fams, n_kernels, rows = profile_device(
+        lambda: inf.gen_image(np.zeros((1, 77), np.int32), steps=SD3_STEPS,
+                              cfg_scale=5.0, seed=source["seed"]))
+    busy = sum(fams.values()) or float("nan")
+    print(f"SD3 int8 profile of one request (torch.profiler, kernel rows "
+          f"only): device busy {busy:.1f} ms over {n_kernels} kernels; wall "
+          f"under the profiler {wall_ms:.1f} ms, unprofiled {1e3 * secs:.1f} "
+          f"ms; device idle share {1.0 - busy / (1e3 * secs):.3f} [{card}]",
+          flush=True)
+    print_profile(fams, rows, 1, "request")
+    return launches
+
+
+def phase_sd3_offload(card, source):
+    """``gen_image(offload_text_encoders=True)`` on the int8 bundle, last:
+    its image against the int8 request of the same seed (0 values may
+    differ), ``hbm_bytes_live()`` against the text encoders' bytes, and the
+    next ``get_cond`` must raise."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer)
+
+    models = source["models"]
+    inf = SD3Inferencer(models, shift=3.0)
+    text_bytes = sum(t.numel() * t.element_size()
+                     for g in ("clip_l", "clip_g", "t5")
+                     for t in itertools.chain(
+                         getattr(models, g).parameters(),
+                         getattr(models, g).buffers()))
+    torch.cuda.synchronize()
+    live_before = models.hbm_bytes_live()
+    reset_counts()
+    t = time.perf_counter()
+    images = inf.gen_image(np.zeros((1, 77), np.int32), steps=SD3_STEPS,
+                           cfg_scale=5.0, seed=source["seed"],
+                           offload_text_encoders=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = read_counts()
+    live_after = models.hbm_bytes_live()
+    diff = int((images != source["int8_image"]).sum())
+    try:
+        inf.get_cond(np.zeros((1, 77), np.int32))
+        raised = ""
+    except ValueError as err:
+        raised = str(err)
+    got = {k: launches[k] for k in SD3_PER_REQUEST}
+    drop = live_before - live_after
+    print(f"SD3 offload_text_encoders=True (int8 bundle): {secs:.3f} "
+          f"s/image; hbm_bytes_live {live_before / 2 ** 30:.2f} -> "
+          f"{live_after / 2 ** 30:.2f} GiB, fell by {drop / 2 ** 30:.3f} GiB "
+          f"against the text encoders' {text_bytes / 2 ** 30:.3f} GiB; "
+          f"against the request without offload {diff} values differ; "
+          f"get_cond afterwards raised: {raised!r}; launches {got} "
+          f"[{card}]", flush=True)
+    check(diff == 0, f"SD3 offload image: {diff} values differ")
+    check(drop >= text_bytes - 2 ** 26,
+          f"hbm_bytes_live fell by {drop}, not the text encoders' "
+          f"{text_bytes}")
+    check("freed" in raised, "get_cond after the offload did not raise")
+    check(got == SD3_PER_REQUEST, f"SD3 offload launches {got}")
+    return launches
+
+
+def phase_sd1_int8(card, models, image):
+    """``SD1Models.quantize_int8()`` on the SD1 bundle (the UNet's attention
+    and GEGLU projections), the accumulators against the exact product at
+    the UNet's operand shapes, then one request at 512^2, 50 k-LMS steps,
+    CFG 7.5, batch 1, seed 1."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import quantize as Q
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        SD1Generator)
+
+    quantize_timed("SD1", models.quantize_int8, card)
+    layers = [(154 if k == 768 else 2 * 4096, m)
+              for (k, _), m in quantized_layers(models.unet).items()]
+    int8_exact("SD1", layers)
+    sd = SD1Generator(models, sampler="k_lms", n_inference_steps=50,
+                      cfg_scale=7.5, height=512, width=512)
+    torch.cuda.synchronize()
+    reset_counts()
+    Q.int8_matmul.launches = 0
+    t = time.perf_counter()
+    images = sd(["a photograph of an astronaut riding a horse"], seed=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = read_counts()
+    int_mm = Q.int8_matmul.launches
+    moved = levels(images, image)
+    print(f"SD1 int8 request bs=1 seed=1: {secs:.3f} s/image, "
+          f"torch._int_mm calls {int_mm}, K1 {launches['K1']} "
+          f"{launches.k1_routes}, K2 {launches['K2']}; against the bf16 "
+          f"request: max {moved[0]} mean {moved[1]:.2f} levels (not judged) "
+          f"[{card}]", flush=True)
+    check(images.shape == (1, 512, 512, 3) and float(images.std()) > 0,
+          "SD1 int8 image misshaped or constant")
+    check(launches["K1"] == K1_PER_REQUEST
+          and launches["K2"] == K2_PER_REQUEST,
+          f"SD1 int8 launches K1 {launches['K1']} K2 {launches['K2']}")
+    check(int_mm == SD1_INT8_MM_PER_REQUEST,
+          f"SD1 int8: {int_mm} torch._int_mm calls, not "
+          f"{SD1_INT8_MM_PER_REQUEST}")
+    return launches
+
+
 # The fp32 forward (K1 and K5 in fp32) in the device profiles: its kernels,
 # and the split pre-pass that writes the TF32 terms of the fp32 forward and
 # backward.
@@ -1813,7 +2356,8 @@ def write_sd1_checkpoint(models, root, dtype):
 def write_sd3_checkpoints(models, root):
     """``models`` (an ``SD3Models``) as the published files: ``sd3.
     safetensors`` (``model.diffusion_model.*``, ``first_stage_model.
-    decoder.*`` with the VAE attention's 1x1 convs), ``clip_l`` and
+    encoder.*`` and ``first_stage_model.decoder.*`` with the VAE
+    attention's 1x1 convs), ``clip_l`` and
     ``clip_g`` (HF ``CLIPTextModel``, q / k / v apart) and, with a T5,
     ``t5xxl`` (HF T5 encoder); each tensor in its own dtype. Returns the
     paths, by name, and the bytes written."""
@@ -1825,17 +2369,23 @@ def write_sd3_checkpoints(models, root):
     cfg = models.mmdit.config
     mmdit = checkpoint_tensors(models.mmdit, W3.sd3_mmdit_rules(
         cfg.depth, qk_norm=cfg.qk_norm is not None))
-    dec = checkpoint_tensors(models.vae_decoder, W3.sd3_vae_decoder_rules())
-    attn = "mid.attn_1"
-    _unfuse(dec, f"{attn}.in_proj", [f"{attn}.{x}" for x in "qkv"], True)
-    for leaf in ("weight", "bias"):
-        t = dec.pop(f"{attn}.proj_out_dense.{leaf}")
-        dec[f"{attn}.proj_out.{leaf}"] = (t[:, :, None, None]
-                                          if leaf == "weight" else t)
-    files = {"sd3": {**{f"model.diffusion_model.{k}": v
-                        for k, v in mmdit.items()},
-                     **{f"first_stage_model.decoder.{k}": v
-                        for k, v in dec.items()}}}
+    files = {"sd3": {f"model.diffusion_model.{k}": v
+                     for k, v in mmdit.items()}}
+    for side, module, rules in (
+            ("encoder", models.vae_encoder, W3.sd3_vae_encoder_rules()),
+            ("decoder", models.vae_decoder, W3.sd3_vae_decoder_rules())):
+        if module is None:
+            continue
+        vae = checkpoint_tensors(module, rules)
+        attn = "mid.attn_1"
+        _unfuse(vae, f"{attn}.in_proj", [f"{attn}.{x}" for x in "qkv"],
+                True)
+        for leaf in ("weight", "bias"):
+            t = vae.pop(f"{attn}.proj_out_dense.{leaf}")
+            vae[f"{attn}.proj_out.{leaf}"] = (t[:, :, None, None]
+                                              if leaf == "weight" else t)
+        files["sd3"].update({f"first_stage_model.{side}.{k}": v
+                             for k, v in vae.items()})
     for name in ("clip_l", "clip_g"):
         module = getattr(models, name)
         n = module.config.num_layers
@@ -1981,8 +2531,11 @@ def phase_checkpoint_sd3(card, source):
     safetensors files (bf16 weights, fp32 norms), the source bundle freed,
     the files read back by ``SD3Models.from_checkpoints`` (its MMDiT config
     sniffed and held to the source's, every parameter to the source's bits
-    before the source goes), and the warm request (1024^2, 50 flow-Euler
-    steps, CFG 5, shift 3, zero tokens, its seed) answered from them."""
+    before the source goes), the warm request (1024^2, 50 flow-Euler
+    steps, CFG 5, shift 3, zero tokens, its seed) answered from them, and
+    the warm image encoded by the loaded VAE encoder, bit for bit the
+    source encoder's latent. The loaded bundle goes on in
+    ``source["models"]``."""
     import gc
     import shutil
     import tempfile
@@ -2015,12 +2568,20 @@ def phase_checkpoint_sd3(card, source):
         check(loaded.mmdit.config == models.mmdit.config,
               f"checkpoint SD3: sniffed {loaded.mmdit.config} != source "
               f"{models.mmdit.config}")
-        groups = ("mmdit", "vae_decoder", "clip_l", "clip_g", "t5")
+        groups = ("mmdit", "vae_encoder", "vae_decoder", "clip_l", "clip_g",
+                  "t5")
         n = same_parameters("checkpoint SD3", [
             (g, getattr(loaded, g), getattr(models, g)) for g in groups])
         check(all(p.is_cuda for g in groups
                   for p in getattr(loaded, g).parameters()),
               "checkpoint SD3: the loaded bundle is not on the card")
+        # the warm image encoded by the source's VAE encoder, one draw of
+        # noise, to hold the loaded encoder to
+        init = source["image"].astype(np.float32) / 255.0 * 2.0 - 1.0
+        enc_noise = torch.randn((1, 128, 128, 16), device="cuda",
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(5))
+        want_latent = SD3Inferencer(models).vae_encode(init, enc_noise)
         del models
         gc.collect()
         torch.cuda.empty_cache()
@@ -2032,17 +2593,27 @@ def phase_checkpoint_sd3(card, source):
                             seed=source["seed"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
+        latent = inf.vae_encode(init, enc_noise)
+        torch.cuda.synchronize()
         launches = read_counts()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     got_counts = {k: launches[k] for k in SD3_PER_REQUEST}
+    want = dict(SD3_PER_REQUEST, K1=SD3_PER_REQUEST["K1"] + 1,
+                K2=SD3_PER_REQUEST["K2"] + SD3_ENCODER_GN)
+    same_latent = bool(torch.equal(latent, want_latent))
     print(f"checkpoint SD3: {n} tensors bit-identical to the source bundle; "
           f"request seed={source['seed']} from the loaded bundle "
-          f"{secs:.3f} s, launches {got_counts}, K5 {launches.k5_routes} "
-          f"[{card}]", flush=True)
-    check(got_counts == SD3_PER_REQUEST,
-          f"checkpoint SD3: launches {got_counts} != {SD3_PER_REQUEST}")
+          f"{secs:.3f} s; the warm image encoded by the loaded VAE encoder "
+          f"equal to the source encoder's, bit for bit: {same_latent}; "
+          f"launches {got_counts}, K5 {launches.k5_routes} [{card}]",
+          flush=True)
+    check(got_counts == want,
+          f"checkpoint SD3: launches {got_counts} != {want}")
+    check(same_latent and bool(torch.isfinite(latent).all()),
+          "checkpoint SD3: the loaded encoder's latent differs")
     image_levels("checkpoint SD3", got, source["image"], card)
+    source["models"] = loaded
     return launches
 
 
@@ -3949,22 +4520,30 @@ def main():
     kernels_fp32 = phase_kernels_fp32(card, tail)
     import torch
 
-    paths = ("sd1", "sd1_slice", "sd1_768", "sd1_checkpoint", "sd3", "t5",
-             "sd3_checkpoint", "training", "sampling", "mmdit_training",
+    paths = ("sd1", "sd1_slice", "sd1_768", "sd1_checkpoint", "sd1_int8",
+             "sd3", "t5", "sd3_img2img", "sd3_tiled", "sd3_text",
+             "sd3_checkpoint", "sd3_int8", "sd3_offload", "training",
+             "sampling", "mmdit_training",
              "mmdit_sampling", "vlm_training", "vlm_decoding", "sd1_fp32",
              "sd1_768_fp32", "sd3_fp32", "t5_fp32", "vlm_fp32",
              "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64")
     sd1_launches, sd1_models, sd1_image = phase_sd1(card)
     runs = [sd1_launches, phase_sd1_slice(card, sd1_models),
             phase_sd1_768(card, sd1_models, SD1_768_STEPS, "bf16")[0],
-            phase_checkpoint_sd1(card, sd1_models, sd1_image)]
+            phase_checkpoint_sd1(card, sd1_models, sd1_image),
+            phase_sd1_int8(card, sd1_models, sd1_image)]
     del sd1_models
     fp32_runs = phase_sd1_fp32(card)
     gc.collect()
     torch.cuda.empty_cache()
     sd3_runs, sd3_source = phase_sd3(card)
     runs += sd3_runs
-    runs.append(phase_checkpoint_sd3(card, sd3_source))
+    runs += [phase_sd3_img2img(card, sd3_source),
+             phase_sd3_tiled(card, sd3_source),
+             phase_sd3_text(card, sd3_source),
+             phase_checkpoint_sd3(card, sd3_source),
+             phase_sd3_int8(card, sd3_source),
+             phase_sd3_offload(card, sd3_source)]
     del sd3_source
     gc.collect()
     torch.cuda.empty_cache()   # the bf16 SD3 bundle is gone: room for fp32
@@ -3994,6 +4573,8 @@ def main():
     torch.cuda.empty_cache()
     fp32_runs += phase_train_fp32(card)
     runs += [counts for counts, _ in fp32_runs]
+    check(len(runs) == len(paths), f"{len(runs)} path runs for "
+          f"{len(paths)} path names")
     fp32_by_path = dict(zip(paths[-len(fp32_runs):],
                             (fp32 for _, fp32 in fp32_runs)))
     pkg = "from_ddpm_to_stable_diffusion_tpu_torch/csrc/"
@@ -4047,8 +4628,9 @@ def main():
     # the bf16 paths of the joint attention: every K5 / K6 / K7 launch on
     # sm90
     for p, run in zip(paths, runs):
-        if p in ("sd3", "sd3_checkpoint", "mmdit_training",
-                 "mmdit_sampling"):
+        if p in ("sd3", "sd3_img2img", "sd3_tiled", "sd3_text",
+                 "sd3_checkpoint", "sd3_int8", "sd3_offload",
+                 "mmdit_training", "mmdit_sampling"):
             for k in ("K5", "K6", "K7"):
                 r = getattr(run, k.lower() + "_routes")
                 check(r == ({"sm90": run[k]} if run[k] else {}),

@@ -7,7 +7,9 @@ conversion only renames and transposes leaves (the reverse of
 - 4-D ``kernel`` (kH, kW, I, O) -> conv ``weight`` (O, I, kH, kW)
 - 2-D ``kernel`` (I, O) -> linear ``weight`` (O, I)
 - ``scale`` -> norm ``weight``; ``embedding`` -> embedding ``weight``
-- every other leaf (``bias``, ``position_value``) keeps its name.
+- every other leaf (``bias``, ``position_value``) keeps its name; so do a
+  ``QuantDense``'s ``q`` (K, N) int8, turned to (N, K) as a linear weight,
+  and its ``scale`` (``ops/quantize.py::QuantLinear``'s buffers).
 
 :func:`jax_params_from_module` goes the other way (a trained port model, or
 its EMA, as the tree the JAX trainer keeps in ``TrainState.params`` /
@@ -44,9 +46,15 @@ def _to_numpy(leaf) -> np.ndarray:
 def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """A Flax parameter tree (nested dict of arrays) as a ``state_dict``."""
     out = {}
-    for path, leaf in _leaves(tree):
+    leaves = list(_leaves(tree))
+    quantized = {path[:-1] for path, _ in leaves if path[-1] == "q"}
+    for path, leaf in leaves:
         a = _to_numpy(leaf)
         name = path[-1]
+        if path[:-1] in quantized and name in ("q", "scale"):
+            out[".".join(path)] = torch.from_numpy(np.array(
+                a.T if name == "q" else a, order="C"))
+            continue
         if name == "kernel":
             if a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)

@@ -219,8 +219,9 @@ def sd3_vae_decoder_rules(ch_mult=(1, 2, 4, 4), num_res_blocks=2) -> Rules:
 def import_sd3_checkpoint(path: str):
     """Read the main sd3 .safetensors: returns (MMDiT, VAE encoder, VAE
     decoder ``state_dict``s, the sniffed ``MMDiTConfig``). The tensors are
-    views of the mapped file; nothing is read until they are used. The VAE
-    encoder's state has no port module to fill yet (queue A4)."""
+    views of the mapped file; nothing is read until they are used. The
+    encoder's state is empty for a file without ``first_stage_model.
+    encoder.*``."""
     from ..pipelines.sd3 import sniff_mmdit_config
 
     full = load_safetensors_dict(path)

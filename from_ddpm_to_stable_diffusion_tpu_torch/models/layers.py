@@ -13,6 +13,10 @@ the input, weight and bias are cast to it at each call and the parameters
 stay as stored, as Flax's ``dtype=`` does (the trainer's fp32 parameters
 with bf16 compute, the JAX ``POLICIES["bf16"]``). ``torch.autocast`` is not
 used: it would also recast the fp32 logits of the plain attention.
+
+``int8_mm=True`` builds the attention and GEGLU projections as
+:class:`..ops.quantize.QuantLinear` (W8A8 serving), as the JAX modules'
+``int8_mm`` does.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..ops.attention import multi_head_attention
 from ..ops.embeddings import timestep_embedding
 from ..ops.groupnorm import group_norm, layer_norm
 from ..ops.image import upsample_nearest_2x
+from ..ops.quantize import dense_cls
 
 
 def _cast(dtype, *xs):
@@ -111,12 +116,14 @@ class SelfAttention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
                  out_bias: bool = True, causal: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 int8_mm: bool = False):
         super().__init__()
         self.num_heads, self.causal = num_heads, causal
-        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias,
-                          compute_dtype=compute_dtype)
-        self.out = Linear(dim, dim, bias=out_bias, compute_dtype=compute_dtype)
+        dense = dense_cls(int8_mm)
+        self.qkv = dense(dim, 3 * dim, bias=qkv_bias,
+                         compute_dtype=compute_dtype)
+        self.out = dense(dim, dim, bias=out_bias, compute_dtype=compute_dtype)
 
     def forward(self, x):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
@@ -130,11 +137,13 @@ class CrossAttention(nn.Module):
 
     def __init__(self, dim: int, context_dim: int, num_heads: int,
                  qkv_bias: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 int8_mm: bool = False):
         super().__init__()
         self.num_heads = num_heads
-        lin = lambda i, bias: Linear(i, dim, bias=bias,
-                                     compute_dtype=compute_dtype)
+        dense = dense_cls(int8_mm)
+        lin = lambda i, bias: dense(i, dim, bias=bias,
+                                    compute_dtype=compute_dtype)
         self.q = lin(dim, qkv_bias)
         self.k = lin(context_dim, qkv_bias)
         self.v = lin(context_dim, qkv_bias)
@@ -161,19 +170,23 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, channels: int, context_dim: int,
                  num_heads: Optional[int] = None,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 int8_mm: bool = False):
         super().__init__()
         c, dt = channels, compute_dtype
         heads = num_heads or max(1, c // 128)
+        dense = dense_cls(int8_mm)
         self.norm_in = GroupNorm(c, 32, eps=1e-6)
         self.proj_in = Conv2d(c, c, 1, compute_dtype=dt)
         self.norm1 = LayerNorm(c)
-        self.attn1 = SelfAttention(c, heads, compute_dtype=dt)
+        self.attn1 = SelfAttention(c, heads, compute_dtype=dt,
+                                   int8_mm=int8_mm)
         self.norm2 = LayerNorm(c)
-        self.attn2 = CrossAttention(c, context_dim, heads, compute_dtype=dt)
+        self.attn2 = CrossAttention(c, context_dim, heads, compute_dtype=dt,
+                                    int8_mm=int8_mm)
         self.norm3 = LayerNorm(c)
-        self.geglu_in = Linear(c, 8 * c, compute_dtype=dt)
-        self.geglu_out = Linear(4 * c, c, compute_dtype=dt)
+        self.geglu_in = dense(c, 8 * c, compute_dtype=dt)
+        self.geglu_out = dense(4 * c, c, compute_dtype=dt)
         self.proj_out = Conv2d(c, c, 1, compute_dtype=dt)
 
     def forward(self, x, context):

@@ -18,8 +18,13 @@ parameters) inputs, weights and biases are cast to it at each call and the
 parameters stay as stored; LayerNorm and the q / k norms keep fp32
 statistics and gains either way. ``torch.autocast`` is not used.
 
+``int8_mm=True`` builds each block's ``qkv``, ``proj``, ``mlp_fc1`` and
+``mlp_fc2`` as :class:`..ops.quantize.QuantLinear` (W8A8 serving); adaLN, the
+embedders and the final layer stay in their dtype, and the joint attention
+stays bf16 flash.
+
 Not ported yet (ROADMAP.md): sequence-parallel attention (``ring``,
-``ulysses``), the Switch-MoE MLP, int8 projections, pipeline parallelism.
+``ulysses``) and the Switch-MoE MLP (queue A8), pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from torch import nn
 from ..ops.attention import attention_blhd, joint_attention_blhd
 from ..ops.embeddings import crop_pos_embed, timestep_embedding
 from ..ops.groupnorm import layer_norm, rms_norm
+from ..ops.quantize import dense_cls
 from .layers import Conv2d, Linear
 
 
@@ -86,19 +92,21 @@ class DismantledBlock(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  pre_only: bool = False, qk_norm: Optional[str] = None,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 int8_mm: bool = False):
         super().__init__()
         hs, dt = hidden_size, compute_dtype
+        dense = dense_cls(int8_mm)
         self.num_heads, self.head_dim = num_heads, hs // num_heads
         self.pre_only = pre_only
-        self.qkv = Linear(hs, 3 * hs, bias=qkv_bias, compute_dtype=dt)
+        self.qkv = dense(hs, 3 * hs, bias=qkv_bias, compute_dtype=dt)
         self.ln_q = QKNorm(qk_norm, self.head_dim)
         self.ln_k = QKNorm(qk_norm, self.head_dim)
         self.adaLN = Linear(hs, (2 if pre_only else 6) * hs, compute_dtype=dt)
         if not pre_only:
-            self.proj = Linear(hs, hs, compute_dtype=dt)
-            self.mlp_fc1 = Linear(hs, int(hs * mlp_ratio), compute_dtype=dt)
-            self.mlp_fc2 = Linear(int(hs * mlp_ratio), hs, compute_dtype=dt)
+            self.proj = dense(hs, hs, compute_dtype=dt)
+            self.mlp_fc1 = dense(hs, int(hs * mlp_ratio), compute_dtype=dt)
+            self.mlp_fc2 = dense(int(hs * mlp_ratio), hs, compute_dtype=dt)
 
     def _mods(self, c):
         m = self.adaLN(F.silu(c))
@@ -143,17 +151,18 @@ class JointBlock(nn.Module):
                  context_pre_only: bool = False,
                  qk_norm: Optional[str] = None,
                  stability: Optional[str] = None,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 int8_mm: bool = False):
         super().__init__()
         self.context_pre_only = context_pre_only
         self.stability = stability or ("bounded" if qk_norm else "online")
         self.context_block = DismantledBlock(
             hidden_size, num_heads, mlp_ratio, qkv_bias,
             pre_only=context_pre_only, qk_norm=qk_norm,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, int8_mm=int8_mm)
         self.x_block = DismantledBlock(
             hidden_size, num_heads, mlp_ratio, qkv_bias, pre_only=False,
-            qk_norm=qk_norm, compute_dtype=compute_dtype)
+            qk_norm=qk_norm, compute_dtype=compute_dtype, int8_mm=int8_mm)
 
     def forward(self, context, x, c):
         ctx_qkv, ctx_state = self.context_block.pre_attention(context, c)
@@ -209,9 +218,9 @@ class MMDiTConfig:
     pos_embed_max_size: int = 192
     qk_norm: Optional[str] = None
     qkv_bias: bool = True
-    attention_impl: str = "flash"      # 'ring' | 'ulysses': not ported yet
-    int8_mm: bool = False              # not ported yet
-    moe_experts: Optional[int] = None  # not ported yet
+    attention_impl: str = "flash"      # 'ring' | 'ulysses': queue A8
+    int8_mm: bool = False              # W8A8 block projections
+    moe_experts: Optional[int] = None  # queue A8
     stability: Optional[str] = None    # None: 'bounded' iff qk_norm
 
     @property
@@ -229,11 +238,12 @@ class MMDiT(nn.Module):
         super().__init__()
         cfg, dt = config, compute_dtype
         self.compute_dtype = compute_dtype
-        for name, off in (("attention_impl", "flash"), ("int8_mm", False),
+        for name, off in (("attention_impl", "flash"),
                           ("moe_experts", None)):
             if getattr(cfg, name) != off:
                 raise NotImplementedError(
-                    f"{name}={getattr(cfg, name)!r} is not ported yet")
+                    f"{name}={getattr(cfg, name)!r} is not ported yet "
+                    f"(ROADMAP.md queue A8)")
         self.config = cfg
         hs, p = cfg.hidden_size, cfg.patch_size
         self.x_embedder = Conv2d(cfg.in_channels, hs, p, stride=p,
@@ -250,7 +260,8 @@ class MMDiT(nn.Module):
             self.add_module(f"joint_block{i}", JointBlock(
                 hs, cfg.depth, cfg.mlp_ratio, cfg.qkv_bias,
                 context_pre_only=(i == cfg.depth - 1), qk_norm=cfg.qk_norm,
-                stability=cfg.stability, compute_dtype=dt))
+                stability=cfg.stability, compute_dtype=dt,
+                int8_mm=cfg.int8_mm))
         self.final_adaLN = Linear(hs, 2 * hs, compute_dtype=dt)
         self.final_linear = Linear(hs, p * p * cfg.in_channels,
                                    compute_dtype=dt)

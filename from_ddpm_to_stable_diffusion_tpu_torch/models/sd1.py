@@ -90,11 +90,13 @@ class SD1ResBlock(nn.Module):
 
 class SD1UNet(nn.Module):
     """ε-prediction UNet. x: (B, H/8, W/8, 4) NHWC; context: (B, 77, d_ctx);
-    time_feat: (B, 320) :func:`sd1_time_embedding` features."""
+    time_feat: (B, 320) :func:`sd1_time_embedding` features. ``int8_mm``:
+    the TransformerBlocks' attention and GEGLU projections in W8A8 int8."""
 
     def __init__(self, model_channels: int = 320, context_dim: int = 768,
-                 num_heads: int = 8):
+                 num_heads: int = 8, int8_mm: bool = False):
         super().__init__()
+        self.int8_mm = int8_mm
         ch = model_channels
         tdim = 4 * ch
         self.time_fc1 = nn.Linear(320, tdim)
@@ -104,7 +106,8 @@ class SD1UNet(nn.Module):
             self.add_module(name, SD1ResBlock(cin, cout, tdim))
 
         def att(name, c):
-            self.add_module(name, TransformerBlock(c, context_dim, num_heads))
+            self.add_module(name, TransformerBlock(c, context_dim, num_heads,
+                                                   int8_mm=int8_mm))
 
         def down(name, c):
             self.add_module(name, Conv2d(c, c, 3, stride=2, padding=1))

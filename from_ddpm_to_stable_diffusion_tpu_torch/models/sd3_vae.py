@@ -1,10 +1,13 @@
-"""SD3 16-channel VAE decoder and latent format (port of
+"""SD3 16-channel VAE encoder, decoder and latent format (port of
 ``models/sd3_vae.py``).
 
-ch = 128, multipliers (1, 2, 4, 4), three res blocks per level, mid
-ResNet / attention / ResNet, z = 16; NHWC, fp32 norm statistics, built on
-the SD1 port's ``VAEResBlock`` and ``VAEAttentionBlock``. The encoder
-(``SD3VAEEncoder``, ``SDVAE``) waits for img2img (ROADMAP.md).
+ch = 128, multipliers (1, 2, 4, 4), two res blocks per level in the
+encoder and three in the decoder, mid ResNet / attention / ResNet, z = 16;
+NHWC, fp32 norm statistics, built on the SD1 port's ``VAEResBlock``,
+``VAEAttentionBlock`` and its stride-2 downsample with the asymmetric
+(0, 1, 0, 1) pad. The reparameterised encode (mean + std * noise, the
+log-variance clamped to [-30, 20]) is ``SD3Inferencer.vae_encode``; the JAX
+package's ``SDVAE`` pair has no counterpart.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from torch import nn
 
 from ..ops.image import upsample_nearest_2x
 from .layers import Conv2d, GroupNorm
-from .sd1 import VAEAttentionBlock, VAEResBlock
+from .sd1 import VAEAttentionBlock, VAEResBlock, _Downsample
 
 
 class SD3LatentFormat:
@@ -50,6 +53,42 @@ class SD3LatentFormat:
         x0 = torch.as_tensor(x0, dtype=torch.float32)
         img = x0 @ torch.as_tensor(cls.PREVIEW_FACTORS, device=x0.device)
         return ((img + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+
+
+class SD3VAEEncoder(nn.Module):
+    """Image (B, H, W, 3) in [-1, 1] -> (B, H/8, W/8, 2 z) mean | log_var,
+    fp32."""
+
+    def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
+                 num_res_blocks: int = 2, z_channels: int = 16):
+        super().__init__()
+        self.ch_mult, self.num_res_blocks = tuple(ch_mult), num_res_blocks
+        self.conv_in = Conv2d(3, ch, 3, padding=1)
+        cin = ch
+        for i_level, mult in enumerate(ch_mult):
+            cout = ch * mult
+            for i_block in range(num_res_blocks):
+                self.add_module(f"down{i_level}_block{i_block}",
+                                VAEResBlock(cin, cout))
+                cin = cout
+            if i_level != len(ch_mult) - 1:
+                self.add_module(f"down{i_level}_downsample",
+                                _Downsample(cout))
+        self.mid_block1 = VAEResBlock(cin, cin)
+        self.mid_attn = VAEAttentionBlock(cin)
+        self.mid_block2 = VAEResBlock(cin, cin)
+        self.norm_out = GroupNorm(cin, 32, act="silu")
+        self.conv_out = Conv2d(cin, 2 * z_channels, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x.to(self.conv_in.weight.dtype))
+        for i_level in range(len(self.ch_mult)):
+            for i_block in range(self.num_res_blocks):
+                h = getattr(self, f"down{i_level}_block{i_block}")(h)
+            if i_level != len(self.ch_mult) - 1:
+                h = getattr(self, f"down{i_level}_downsample")(h)
+        h = self.mid_block2(self.mid_attn(self.mid_block1(h)))
+        return self.conv_out(self.norm_out(h)).float()
 
 
 class SD3VAEDecoder(nn.Module):

@@ -6,8 +6,9 @@ modules compute in the dtype their weights are stored in; norms use fp32
 statistics. Three GELUs, as in the JAX package: CLIP-L quick-GELU, CLIP-G
 the exact erf form, T5 the tanh approximation. T5 attention uses unscaled
 logits (``scale=1.0``) and a relative-position bucket bias that block 0
-computes and all blocks share. The int8 (W8A8) projections are not ported
-yet (ROADMAP.md).
+computes and all blocks share. ``T5Config(int8_mm=True)`` builds T5's
+q / k / v / o and wi_0 / wi_1 / wo as :class:`..ops.quantize.QuantLinear`
+(W8A8 serving); the CLIP towers are not quantized.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from torch import nn
 
 from ..ops.attention import multi_head_attention
 from ..ops.groupnorm import rms_norm
+from ..ops.quantize import dense_cls
 from .layers import LayerNorm, Linear, SelfAttention
 
 
@@ -115,7 +117,7 @@ class T5Config:
     num_heads: int = 64
     rel_buckets: int = 32
     rel_max_distance: int = 128
-    int8_mm: bool = False   # W8A8 projections: not ported yet
+    int8_mm: bool = False   # W8A8 projections
 
 
 def t5_relative_position_bucket(relative_position, num_buckets: int = 32,
@@ -142,10 +144,11 @@ class T5Attention(nn.Module):
         super().__init__()
         self.config = config
         d = config.d_model
-        self.q = Linear(d, d, bias=False)
-        self.k = Linear(d, d, bias=False)
-        self.v = Linear(d, d, bias=False)
-        self.o = Linear(d, d, bias=False)
+        dense = dense_cls(config.int8_mm)
+        self.q = dense(d, d, bias=False)
+        self.k = dense(d, d, bias=False)
+        self.v = dense(d, d, bias=False)
+        self.o = dense(d, d, bias=False)
         if has_relative_bias:
             self.relative_attention_bias = nn.Parameter(
                 torch.zeros(config.rel_buckets, config.num_heads))
@@ -169,12 +172,13 @@ class T5Block(nn.Module):
     def __init__(self, config: T5Config, has_relative_bias: bool = False):
         super().__init__()
         d, ff = config.d_model, config.d_ff
+        dense = dense_cls(config.int8_mm)
         self.ln1_scale = nn.Parameter(torch.ones(d))
         self.attn = T5Attention(config, has_relative_bias)
         self.ln2_scale = nn.Parameter(torch.ones(d))
-        self.wi_0 = Linear(d, ff, bias=False)
-        self.wi_1 = Linear(d, ff, bias=False)
-        self.wo = Linear(ff, d, bias=False)
+        self.wi_0 = dense(d, ff, bias=False)
+        self.wi_1 = dense(d, ff, bias=False)
+        self.wo = dense(ff, d, bias=False)
 
     def forward(self, x, past_bias=None):
         h, past_bias = self.attn(rms_norm(x, self.ln1_scale, eps=1e-6),
@@ -190,9 +194,6 @@ class T5Encoder(nn.Module):
 
     def __init__(self, config: T5Config = T5Config()):
         super().__init__()
-        if config.int8_mm:
-            raise NotImplementedError(
-                "int8_mm: the W8A8 projections are not ported yet")
         self.config = config
         self.embed_tokens = nn.Embedding(config.vocab_size, config.d_model)
         for i in range(config.num_layers):

@@ -20,8 +20,11 @@ them with explicit arrays, so that a test feeds both packages one draw.
 :meth:`SD1Models.from_checkpoint_dir` loads the reference's checkpoint
 layout (``io/weights.py``) onto the card without the JAX package.
 
+:meth:`SD1Models.quantize_int8` switches the UNet's attention and GEGLU
+projections to W8A8 int8 (``ops/quantize.py``).
+
 Not ported (ROADMAP.md): ``loop="trajectory"`` (a CUDA graph of one step,
-queue A2), ``SD1Models.quantize_int8`` (A4), tensor-parallel ``mesh`` (A8).
+queue A2), tensor-parallel ``mesh`` (A8).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..models.sd1 import CLIPText, SD1UNet, VAEDecoder, VAEEncoder
 from ..models.siglip import SiglipVisionModel
 from ..ops.embeddings import sd1_time_embedding
 from ..ops.image import rescale, to_uint8
+from ..ops.quantize import quantize_module
 from ..samplers.k_samplers import (SAMPLERS, KSamplerConfig, k_sampler_scan,
                                    sigma_tables)
 from ..utils.dtypes import POLICIES, cast_params_for_inference
@@ -173,6 +177,22 @@ class SD1Models:
         return cls(mods["clip"], mods["unet"], mods.get("encoder"),
                    mods["decoder"])
 
+    def quantize_int8(self) -> "SD1Models":
+        """Switch the UNet's attention and GEGLU projections to the W8A8
+        int8 serving path (ops/quantize.py), in place on the UNet's device,
+        one linear at a time (the JAX method rebuilds ``SD1UNet(int8_mm=
+        True)`` over ``quantize_tree``'s parameters: the same layers)."""
+        quantize_module(self.unet)
+        self.unet.int8_mm = True
+        return self
+
+
+def sample_seeds(seed: int, per_sample_seeds) -> list:
+    """Each sample's seed: its own, or for ``None`` the JAX package's
+    ``seed * 100003 + 17 * i + 1``, masked to 32 bits."""
+    return [(s if s is not None else seed * 100003 + 17 * i + 1)
+            & 0xFFFFFFFF for i, s in enumerate(per_sample_seeds)]
+
 
 def _check_prompts(prompts, uncond_prompts):
     if not isinstance(prompts, (list, tuple)) or not prompts:
@@ -285,11 +305,10 @@ class SD1Generator:
             return torch.randn((b, *shape), generator=gen, device=self.device)
         if len(per_sample_seeds) != b:
             raise ValueError("per_sample_seeds must match len(prompts)")
-        filled = [(s if s is not None else base * 100003 + 17 * i + 1)
-                  & 0xFFFFFFFF for i, s in enumerate(per_sample_seeds)]
         return torch.stack([
             torch.randn(shape, generator=self._generator(s),
-                        device=self.device) for s in filled])
+                        device=self.device)
+            for s in sample_seeds(base, per_sample_seeds)])
 
     def _encode_images(self, input_images, enc_noise):
         """The scaled latents of uint8 (H, W, 3) images at the pipeline

@@ -10,7 +10,6 @@ import torch
 from torch import nn
 
 
-
 @dataclasses.dataclass(frozen=True)
 class DTypePolicy:
     param_dtype: torch.dtype     # dtype parameters are stored in
@@ -32,7 +31,14 @@ def cast_params_for_inference(module: nn.Module,
                               dtype: torch.dtype = torch.bfloat16) -> nn.Module:
     """Store conv and linear weights and biases (and embeddings) in the
     compute dtype, in place; parameters of norm layers (a path component
-    matching norm/ln) stay fp32, since they feed fp32 statistics."""
+    matching norm/ln) stay fp32, since they feed fp32 statistics. An int8
+    projection (``QuantLinear``) keeps its int8 weight and fp32 scale and
+    computes in ``dtype``, as its bias is then stored."""
+    from ..ops.quantize import QuantLinear
+
+    for m in module.modules():
+        if isinstance(m, QuantLinear):
+            m.compute_dtype = dtype
     for name, p in module.named_parameters():
         if not p.is_floating_point():
             continue

@@ -70,6 +70,11 @@ of its largest magnitude, and the plain version fed once-truncated TF32
 operands (one pass) outside 1e-4; ragged lengths, causal, the position
 masks at SD3's joint shapes and 4096 keys, where one long accumulator
 chain would drift.
+The int8 product of the W8A8 serving path (``ops/quantize.py``, a
+``torch._int_mm`` library call): its int32 accumulators equal the exact
+product (fp64 of the same int8 operands) at the MMDiT's, T5's and the SD1
+UNet's operand shapes, with 16 rows or fewer padded; K or N off a multiple
+of 8 raises, and nothing falls back to a float product.
 """
 
 import itertools
@@ -2052,3 +2057,49 @@ def test_tf32_pos_backward_mask_cases_against_fp64(gen, case):
         else:   # nothing visible in this block: every gradient 0
             assert not any(bool(a.any()) for a in got)
         assert not bool(got[0][blank].any())
+
+
+# ---------------------------------------------------------------- int8
+@pytest.mark.parametrize("m,k,n", [
+    (2 * 4250, 1536, 4608), (2 * 4250, 6144, 1536), (2 * 77, 4096, 10240),
+    (2 * 77, 10240, 4096), (2 * 4096, 320, 2560), (2 * 77, 768, 320),
+    (17, 64, 32), (16, 64, 32), (1, 4096, 4096), (5, 768, 320)])
+def test_int8_matmul_is_exact_on_the_card(gen, m, k, n):
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import quantize as tq
+
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    calls = tq.int8_matmul.launches
+    acc = tq.int8_matmul(xq, q.t())       # QuantLinear's (N, K) layout
+    assert tq.int8_matmul.launches == calls + 1
+    assert acc.dtype == torch.int32 and tuple(acc.shape) == (m, n)
+    exact = (xq.double() @ q.t().double()).to(torch.int32)
+    assert torch.equal(acc, exact)
+    # a row-major (K, N) q is re-laid out, with the same result
+    assert torch.equal(tq.int8_matmul(xq, q.t().contiguous()), exact)
+
+
+def test_int8_dot_and_quant_linear_on_the_card(gen):
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import quantize as tq
+
+    x = _randn(gen, 2, 9, 64)
+    lin = torch.nn.Linear(64, 32).cuda().to(torch.bfloat16)
+    ql = tq.QuantLinear.from_linear(lin)
+    assert ql.q.is_cuda and ql.compute_dtype == torch.bfloat16
+    got = ql(x)
+    cpu = tq.QuantLinear.from_linear(lin.cpu())
+    want = cpu(x.cpu())
+    assert got.dtype == torch.bfloat16
+    # the same int32 accumulators on both sides: outputs equal but for the
+    # fp32 products' rounding, one bf16 ulp
+    assert torch.allclose(got.float().cpu(), want.float(), rtol=2 ** -7,
+                          atol=1e-6)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tq.int8_matmul(torch.ones(32, 12, dtype=torch.int8, device="cuda"),
+                       torch.ones(12, 16, dtype=torch.int8, device="cuda"))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tq.int8_dot(_randn(gen, 20, 64),
+                    torch.ones(64, 12, dtype=torch.int8, device="cuda"),
+                    torch.ones(12, device="cuda"))

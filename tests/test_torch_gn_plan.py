@@ -19,7 +19,9 @@ import torch
 from from_ddpm_to_stable_diffusion_tpu_torch.models.sd1 import (
     SD1UNet, VAEDecoder, VAEEncoder)
 from from_ddpm_to_stable_diffusion_tpu_torch.models.sd3_vae import (
-    SD3VAEDecoder)
+    SD3VAEDecoder, SD3VAEEncoder)
+from from_ddpm_to_stable_diffusion_tpu_torch.models.sd3_vae_tiled import (
+    tiled_decode)
 from from_ddpm_to_stable_diffusion_tpu_torch.models.tiny_unet import TinyUNet
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import groupnorm as tgn
 from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import TinySDConfig
@@ -91,8 +93,9 @@ def _group_norms(build, *shapes):
 def _models(dtype):
     """name -> the input shapes of the GroupNorms of one forward at the
     operating points: the SD1 UNet at 512^2 with CFG batch 2 (64^2 latents), the SD1
-    VAE at 512^2, the SD3 VAE decoder at 1024^2, the tiny-SD UNet at
-    ``TinySDConfig()``."""
+    VAE at 512^2, the SD3 VAE decoder at 1024^2, the SD3 VAE encoder on a
+    1024^2 image, the tiled decode's head at batch 2 (1024^2; its ladder
+    runs no GroupNorm kernel), the tiny-SD UNet at ``TinySDConfig()``."""
     cfg = TinySDConfig()
     meta = lambda *s, dt=dtype: (s, dt)
     return {
@@ -106,6 +109,11 @@ def _models(dtype):
                                         meta(1, 64, 64, 4)),
         "SD3 VAE decoder": _group_norms(lambda: SD3VAEDecoder().to(dtype),
                                         meta(1, 128, 128, 16)),
+        "SD3 VAE encoder": _group_norms(lambda: SD3VAEEncoder().to(dtype),
+                                        meta(1, 1024, 1024, 3)),
+        "SD3 tiled head": _group_norms(
+            lambda: lambda z: tiled_decode(SD3VAEDecoder().to(dtype), z),
+            meta(2, 128, 128, 16)),
         "tiny-SD UNet": _group_norms(
             lambda: TinyUNet(out_channels=cfg.img_channel,
                              base_channels=cfg.channel,
@@ -120,7 +128,8 @@ def _models(dtype):
 
 # GroupNorms per forward: chip_smoke.py counts K2's launches with these
 WANT_COUNTS = {"SD1 UNet": 61, "SD1 VAE decoder": 30, "SD1 VAE encoder": 22,
-               "SD3 VAE decoder": 30, "tiny-SD UNet": 39}
+               "SD3 VAE decoder": 30, "SD3 VAE encoder": 22,
+               "SD3 tiled head": 5, "tiny-SD UNet": 39}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

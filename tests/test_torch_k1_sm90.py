@@ -181,3 +181,50 @@ def test_cpu_tensors_never_reach_a_route():
             dict(tfa.flash_attention_cuda.routes)) == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.flash_attention_cuda(q, q, q)
+
+
+def _vae_attentions(run):
+    """(B, H, Lq, Lk, D) of every attention that ``run()`` reaches, on the
+    meta device, where nothing is computed."""
+    seen = []
+    saved = tattn.dot_product_attention
+
+    def record(q, k, v, *args, **kw):
+        seen.append((*q.shape[:3], k.shape[2], q.shape[3]))
+        return saved(q, k, v, *args, **kw)
+
+    tattn.dot_product_attention = record
+    try:
+        with torch.device("meta"), torch.no_grad():
+            run()
+    finally:
+        tattn.dot_product_attention = saved
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+def test_sd3_vae_encoder_and_tiled_head_attentions_have_a_k1_route(dtype):
+    """The SD3 VAE encoder on a 1024^2 init image and the tiled decode's
+    head at batch 2 (1024^2): each runs one mid attention over 128 x 128
+    tokens at head dim 512, which the dispatch sends to K1 (d512 in bf16)."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.sd3_vae import (
+        SD3VAEDecoder, SD3VAEEncoder)
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.sd3_vae_tiled import (
+        tiled_decode)
+
+    def encode():
+        SD3VAEEncoder().to(dtype)(torch.empty(1, 1024, 1024, 3))
+
+    def tiled():
+        tiled_decode(SD3VAEDecoder().to(dtype),
+                     torch.empty(2, 128, 128, 16))
+
+    for run, batch in ((encode, 1), (tiled, 2)):
+        attns = _vae_attentions(run)
+        assert attns == [(batch, 1, 16384, 16384, 512)]
+        for b, h, lq, lk, d in attns:
+            on_card = types.SimpleNamespace(is_cuda=True, shape=(b, h, lq, d))
+            keys = types.SimpleNamespace(is_cuda=True, shape=(b, h, lk, d))
+            assert tattn._flash_eligible(on_card, keys)
+            assert tfa.k1_route(dtype, d) == ("d512" if dtype == BF16
+                                              else "fp32")

@@ -141,6 +141,43 @@ def test_entry_points_default_to_the_card():
         assert "device" not in names
         hooks = {"noise", "enc_noise", "step_noise"}
         assert [n for n in names if n not in hooks] == want, fn.__qualname__
+    # SD3 serving, int8, the tiled decode and the VAE encode run where the
+    # bundle (or the module) lies, and take the JAX arguments plus the test
+    # hooks; the JAX ``vae_encode(images, rng)`` takes its noise or a
+    # generator instead of a key, ``tiled_decode`` the decoder module
+    # instead of its tree and configuration
+    from from_ddpm_to_stable_diffusion_tpu.models import (
+        sd3_vae_tiled as jtiled)
+    from from_ddpm_to_stable_diffusion_tpu.pipelines import sd3 as jsd3
+    from from_ddpm_to_stable_diffusion_tpu_torch.models import (
+        sd3_vae_tiled as ttiled)
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import quantize
+
+    for fn, jax_fn in (
+            (sd3.SD3Inferencer.gen_image, jsd3.SD3Inferencer.gen_image),
+            (sd3.SD3Inferencer.denoise, jsd3.SD3Inferencer.denoise),
+            (sd3.SD3Inferencer.get_cond, jsd3.SD3Inferencer.get_cond),
+            (sd3.SD3Inferencer.vae_decode, jsd3.SD3Inferencer.vae_decode),
+            (sd3.SD3Inferencer.gen_image_text,
+             jsd3.SD3Inferencer.gen_image_text),
+            (sd3.SD3Inferencer.gen_images_text,
+             jsd3.SD3Inferencer.gen_images_text),
+            (sd3.SD3Inferencer.__init__, jsd3.SD3Inferencer.__init__),
+            (sd3.SD3Models.quantize_int8, jsd3.SD3Models.quantize_int8),
+            (tpipe.SD1Models.quantize_int8, jpipe.SD1Models.quantize_int8),
+            (sd3.SD3Models.free, jsd3.SD3Models.free)):
+        names = list(inspect.signature(fn).parameters)
+        assert "device" not in names
+        hooks = {"noise", "enc_noise"}
+        assert ([n for n in names if n not in hooks]
+                == list(inspect.signature(jax_fn).parameters)), fn.__qualname__
+    for fn in (sd3.SD3Inferencer.vae_encode, ttiled.tiled_decode,
+               quantize.quantize_module, quantize.int8_dot):
+        assert "device" not in inspect.signature(fn).parameters
+    assert (list(inspect.signature(ttiled.tiled_decode).parameters)[-2:]
+            == list(inspect.signature(jtiled.tiled_decode).parameters)[-2:]
+            == ["strip", "image_batch"])
+    assert "int8" in inspect.signature(sd3.SD3Models.initialize).parameters
 
 
 def test_sd1_generator_contract(jax_bundle):

@@ -100,8 +100,11 @@ def test_clip_text_model_without_tap_and_configs():
             == dataclasses.asdict(jte.T5Config()))
     with pytest.raises(ValueError):
         tte.CLIPTextLayer(dataclasses.replace(cfg, hidden_act="relu"))
-    with pytest.raises(NotImplementedError):
-        tte.T5Encoder(tte.T5Config(int8_mm=True))
+    int8 = tte.T5Encoder(tte.T5Config(vocab_size=8, d_model=32, d_ff=64,
+                                      num_layers=1, num_heads=2,
+                                      int8_mm=True))
+    assert type(int8.block0.wo).__name__ == "QuantLinear"
+    assert type(int8.block0.attn.q).__name__ == "QuantLinear"
 
 
 def test_t5_encoder_matches_jax():
@@ -183,10 +186,9 @@ def test_mmdit_dismantled_block_alone_and_modulate():
 
 @pytest.mark.parametrize("field,value", [("attention_impl", "ring"),
                                          ("attention_impl", "ulysses"),
-                                         ("int8_mm", True),
                                          ("moe_experts", 4)])
 def test_mmdit_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A8"):
         tmm.MMDiT(tmm.MMDiTConfig(depth=1, pos_embed_max_size=4,
                                   **{field: value}))
 

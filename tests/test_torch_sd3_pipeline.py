@@ -143,8 +143,9 @@ def test_sd3_inferencer_contract(bundles):
         tinf.gen_image(CLIP_TOKENS, denoise_strength=0.0, **kw)
     with pytest.raises(ValueError):
         tinf.gen_image(CLIP_TOKENS, sampler="dpm", **kw)
-    with pytest.raises(TypeError):       # left out of this slice
-        tinf.gen_image(CLIP_TOKENS, init_image=np.zeros((1, H, W, 3)), **kw)
+    img2img = tinf.gen_image(CLIP_TOKENS, init_image=np.zeros((1, H, W, 3)),
+                             denoise_strength=0.5, **kw)   # ported since
+    assert img2img.shape == (1, H, W, 3)
 
 
 def test_sd3_models_initialize_small():

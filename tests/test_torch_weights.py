@@ -573,6 +573,8 @@ def small_sd3(monkeypatch):
                             functools.partial(te.T5Config, **T5))
         monkeypatch.setattr(mod, "SD3VAEDecoder",
                             functools.partial(vae.SD3VAEDecoder, **SD3_VAE))
+        monkeypatch.setattr(mod, "SD3VAEEncoder",
+                            functools.partial(vae.SD3VAEEncoder, **SD3_VAE))
 
 
 def _assert_same_bundle(got, want, groups):
@@ -585,7 +587,8 @@ def _assert_same_bundle(got, want, groups):
 
 
 SD1_GROUPS = ("clip", "unet", "encoder", "decoder")
-SD3_GROUPS = ("mmdit", "vae_decoder", "clip_l", "clip_g", "t5")
+SD3_GROUPS = ("mmdit", "vae_encoder", "vae_decoder", "clip_l", "clip_g",
+              "t5")
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "fp32"])
@@ -765,8 +768,10 @@ def test_chip_smoke_sd3_writer_round_trips(tmp_path, sd3_files, small_sd3,
         assert "text_model.encoder.layers.0.self_attn.q_proj.weight" in \
             fh.keys()
     with safe_open(paths["sd3"], framework="pt") as fh:
-        assert fh.get_tensor(
-            "first_stage_model.decoder.mid.attn_1.q.weight").dim() == 4
+        for side in ("encoder", "decoder"):
+            assert fh.get_tensor(
+                f"first_stage_model.{side}.mid.attn_1.q.weight").dim() == 4
+    assert src.vae_encoder is not None
     got = tpipe3.SD3Models.from_checkpoints(
         paths["sd3"], paths["clip_l"], paths["clip_g"], paths["t5xxl"],
         "bf16", device="cpu")
