@@ -80,11 +80,26 @@ two summary lines:
    request at batch 1 and one at batch 4: device-busy ms, idle share and
    K1's share of the device time. Then the rest of
    the generator on the same bundle: a request with each of the four
-   samplers at 50 steps, img2img at strength 0.8 from a seeded uint8 image
-   (40 steps; the VAE encoder's attention is one K1 launch at head dim 512),
-   ``do_cfg=False``, the same ``per_sample_seeds`` entry at batch 1 and
-   inside a batch of 4 (equal initial latents, bit for bit), and a weighted
-   prompt through the tokenizer with a synthetic vocabulary. Then a
+   samplers and one with ``do_cfg=False`` at 20 steps, img2img at strength
+   0.8 from a seeded uint8 image (40 steps; the VAE encoder's attention is
+   one K1 launch at head dim 512), the same ``per_sample_seeds`` entry at
+   batch 1 and inside a batch of 4 (equal initial latents, bit for bit),
+   and a weighted prompt through the tokenizer with a synthetic vocabulary.
+   Then serving on the same bundle: the ``generate_fn`` of
+   ``cli/serve.py`` behind ``DynamicBatcher(buckets=(1, 2, 4, 8),
+   max_wait_ms=25)`` and ``make_server(port=0)`` on 127.0.0.1, each bucket
+   warmed and then timed once (imgs/s per bucket against bucket 1), and
+   client threads sending one request alone (JSON), a burst of 8, a burst of
+   3 (bucket 4, one padded slot) and one PNG request: the burst of 8 in at
+   most 2 batches, every served image against a direct ``SD1Generator``
+   call of its batch (bit for bit, at most 1 level), a seed alone against
+   the same seed in the burst of 8 (at most 11 levels, mean 2), the PNG
+   decoded with zlib against the JSON body, K1 501 and K2 3080 launches per
+   served batch, on the batcher's worker thread; p50 / p95 latency and one
+   bucket-8 batch profiled (device busy, idle share). Then ``cli/sd1.py
+   generate`` at 512^2 and 50 steps with random weights (its PNG decoded)
+   and ``python -m from_ddpm_to_stable_diffusion_tpu_torch serve --help``.
+   Then a
    request at 768x768 (20 k-LMS steps): the UNet's level-2 self-attention
    runs K1 at head dim 160; s/image, device-busy ms and K1's launches by
    head dim and kernel. Then SD1 in fp32 (``SD1Models``' default dtype
@@ -118,7 +133,8 @@ two summary lines:
    warm image); the text entry points with a synthetic CLIP vocabulary and
    a synthetic SentencePiece model written by ``build_spm_model``
    (``gen_image_text`` and ``gen_image`` on the tokenizer's ids: 0 values
-   differ; a ``(word:1.3)`` prompt with ``prompt_weighting``). After the
+   differ; a ``(word:1.3)`` prompt with ``prompt_weighting``; 10 steps
+   each). After the
    checkpoint phase, on the bundle it loaded: ``SD3Models.quantize_int8()``
    (resident GiB before and after, the peak while it runs), the int8
    accumulators against the exact product at the MMDiT's and T5's operand
@@ -223,7 +239,8 @@ short epoch, the file read back bit for bit. Checkpoints go to TMPDIR and
 are deleted.
 
 Every kernel's launch count is set to 0 just before each of the SD1, SD1
-generator, SD1 at 768^2, SD1 checkpoint, SD1 int8, SD3, SD3 img2img, SD3
+generator, serving, SD1 CLI, SD1 at 768^2, SD1 checkpoint, SD1 int8, SD3,
+SD3 img2img, SD3
 batch 2 tiled, SD3 text, SD3 checkpoint, SD3 int8, SD3 offload, training,
 sampling, accumulation, resume, latent training, latent sampling, MMDiT
 training, MMDiT sampling, MMDiT LoRA, T5, TinyVLM training, TinyVLM
@@ -2008,12 +2025,18 @@ def phase_sd3_tiled(card, source):
     return launches
 
 
+# the text entry's three requests compare ids and weights, not the
+# operating point: 10 steps (cut from 50 to make room for the serving phase)
+SD3_TEXT_STEPS = 10
+
+
 def phase_sd3_text(card, source):
     """The text entry points with a synthetic CLIP vocabulary and a
     synthetic SentencePiece model written by the port's
     ``build_spm_model``: ``gen_image_text`` against ``gen_image`` on the
     tokenizer's ids (0 values may differ), then a ``(word:1.3)`` prompt with
-    ``prompt_weighting=True``; 1024^2, 50 steps, the warm seed."""
+    ``prompt_weighting=True``; 1024^2, ``SD3_TEXT_STEPS`` steps, the warm
+    seed."""
     import os
     import tempfile
 
@@ -2042,7 +2065,7 @@ def phase_sd3_text(card, source):
     inf = SD3Inferencer(source["models"], shift=3.0, tokenizer=trio)
     prompt = "a watercolor fox riding a horse in the snow"
     weighted = "a (watercolor:1.3) fox riding a [horse] in the snow"
-    kw = dict(steps=SD3_STEPS, cfg_scale=5.0, seed=source["seed"])
+    kw = dict(steps=SD3_TEXT_STEPS, cfg_scale=5.0, seed=source["seed"])
     ids, neg = inf.tokenize(prompt), inf.tokenize("")
     torch.cuda.synchronize()
     reset_counts()
@@ -2057,7 +2080,7 @@ def phase_sd3_text(card, source):
     torch.cuda.synchronize()
     launches = read_counts()
     got = {k: launches[k] for k in SD3_PER_REQUEST}
-    want = {k: 3 * n for k, n in SD3_PER_REQUEST.items()}
+    want = {k: 3 * n for k, n in sd3_counts(1, 30, SD3_TEXT_STEPS).items()}
     same = levels(text, by_ids)
     moved = levels(heavy, text)
     print(f"SD3 text entry (synthetic CLIP vocabulary, synthetic "
@@ -2677,16 +2700,20 @@ def _family(name: str) -> str:
     return "other"
 
 
-def profile_device(run):
+def profile_device(run, cpu=True):
     """Runs ``run()`` under torch.profiler. Returns its result, the wall
     time in ms, device time in ms by kernel family, the number of kernels,
-    and the rows (ms, count, name) of the kernels."""
+    and the rows (ms, count, name) of the kernels. ``cpu=False`` traces the
+    device alone: the host's operator events of a request are what makes
+    ``key_averages`` take tens of seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
@@ -3962,11 +3989,18 @@ SLICE_WORDS = ["a", "photograph", "of", "an", "astronaut", "riding", "horse",
                "watercolor", "fox", "in", "the", "snow", "blurry", "red"]
 
 
+# each sampler's and the do_cfg=False request of the generator phase (cut
+# from 50 to make room for the serving phase; the 50-step k-LMS request is
+# the SD1 phase's)
+SD1_SAMPLER_STEPS = 20
+
+
 def phase_sd1_slice(card, models):
     """The rest of ``SD1Generator`` on the bundle of the SD1 phase, 512x512:
-    a request with each sampler at 50 steps, img2img at strength 0.8,
-    ``do_cfg=False``, ``per_sample_seeds`` at batch 1 and inside a batch of
-    4, and a weighted prompt through the tokenizer."""
+    a request with each sampler and with ``do_cfg=False`` at
+    ``SD1_SAMPLER_STEPS``, img2img at strength 0.8, ``per_sample_seeds`` at
+    batch 1 and inside a batch of 4, and a weighted prompt through the
+    tokenizer."""
     import numpy as np
     import torch
 
@@ -4022,11 +4056,12 @@ def phase_sd1_slice(card, models):
 
     reset_counts()
     size = dict(height=512, width=512)
+    n = SD1_SAMPLER_STEPS
     for sampler in SAMPLERS:
-        sd = SD1Generator(models, sampler=sampler, n_inference_steps=50,
+        sd = SD1Generator(models, sampler=sampler, n_inference_steps=n,
                           cfg_scale=7.5, **size)
-        request(f"txt2img {sampler}, 50 steps, CFG 7.5", sd, prompt, 50, 2,
-                K1_PER_REQUEST, seed=11)
+        request(f"txt2img {sampler}, {n} steps, CFG 7.5", sd, prompt, n, 2,
+                10 * n + 1, seed=11)
 
     # img2img: strength 0.8 of 50 steps = the last 40; one more K1 launch,
     # the encoder's one-head attention over 64 x 64 tokens at head dim 512
@@ -4038,10 +4073,10 @@ def phase_sd1_slice(card, models):
     check(len(encoder_k1) == 2 and sum(encoder_k1) == 1,
           f"the VAE encoder's attention launched K1 {sum(encoder_k1)} times")
 
-    sd = SD1Generator(models, sampler="k_lms", n_inference_steps=50,
+    sd = SD1Generator(models, sampler="k_lms", n_inference_steps=n,
                       do_cfg=False, **size)
-    request("txt2img k_lms, do_cfg=False", sd, prompt, 50, 1, K1_PER_REQUEST,
-            seed=13)
+    request(f"txt2img k_lms, do_cfg=False, {n} steps", sd, prompt, n, 1,
+            10 * n + 1, seed=13)
 
     # per_sample_seeds: seed 1234 alone and as the third of a batch of four
     sd = SD1Generator(models, sampler="k_euler", n_inference_steps=20, **size)
@@ -4093,6 +4128,352 @@ def phase_sd1_slice(card, models):
     launches = read_counts()
     for hook in hooks:
         hook.remove()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Serving: SD1 behind the port's dynamic batcher and HTTP server, and the CLI
+
+SERVING_BUCKETS = (1, 2, 4, 8)
+# one SD1 request (any batch) at 512^2, 50 k-LMS steps, CFG as one forward:
+# K1 at head dims 40 (5 self-attentions at 64^2) and 80 (5 at 32^2) in each
+# UNet forward, and the VAE decoder's mid attention at 512
+SD1_K1_HEAD_DIMS = {40: 5 * 50, 80: 5 * 50, 512: 1}
+# batch-to-batch bound of a seed's bf16 image (PERF.md section 7: batch 1
+# against batch 4, cuDNN and cuBLAS choose their kernels by batch)
+BATCH_LEVELS_MAX, BATCH_LEVELS_MEAN = 11, 2.0
+
+
+def png_pixels(data: bytes):
+    """The pixels of an 8-bit RGB PNG whose rows all use filter type 0, as
+    the port's encoder writes them, decoded with zlib alone."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != (
+                zlib.crc32(kind + body) & 0xFFFFFFFF):
+            raise ValueError(f"bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = ihdr[:4]
+    if (depth, color) != (8, 2):
+        raise ValueError(f"not 8-bit RGB: depth {depth}, color type {color}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError("a row uses a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def http_generate(url, payload, timeout=600.0):
+    """POST /v1/generate: (status, content type, body, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + "/v1/generate", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            out = resp.status, resp.headers["Content-Type"], resp.read()
+    except urllib.error.HTTPError as e:
+        out = e.code, e.headers["Content-Type"], e.read()
+    return (*out, time.perf_counter() - t)
+
+
+def json_image(body):
+    import base64
+
+    import numpy as np
+
+    obj = json.loads(body)
+    return np.frombuffer(base64.b64decode(obj["image_b64"]),
+                         np.uint8).reshape(obj["shape"])
+
+
+def phase_serving(card, models):
+    """SD1 at the reference operating point behind the port's serving layer:
+    the generate_fn of ``cli/serve.py::_build_sd1`` over the resident bf16
+    bundle, ``DynamicBatcher(buckets=(1, 2, 4, 8), max_wait_ms=25)`` and
+    ``make_server(port=0)`` on 127.0.0.1; ``warmup()`` timed per bucket,
+    then each bucket again (imgs/s); client threads send one request alone
+    (seed s0, JSON), a burst of 8 (s0..s7, JSON), a burst of 3 (bucket 4,
+    one padded slot) and one request in the default PNG format. Checks the
+    batches and padded slots (``/metrics``), every served image against a
+    direct ``SD1Generator`` call with the same prompts, seeds and bucket,
+    s0 alone against s0 in the batch of 8, the PNG (decoded with zlib)
+    against the JSON body, and K1's and K2's launches per batch. One
+    bucket-8 batch is profiled: device busy against wall time."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.cli.serve import (
+        sd1_generate_fn)
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import attention as attn
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        SD1Generator)
+    from from_ddpm_to_stable_diffusion_tpu_torch.serving import (
+        DynamicBatcher, make_server, serve_forever_in_thread)
+
+    gen = SD1Generator(models, sampler="k_lms", n_inference_steps=50,
+                       cfg_scale=7.5, height=512, width=512, mesh=None)
+    served_fn = sd1_generate_fn(gen)
+    calls, worker_threads = [], set()
+
+    def generate_fn(prompts, negs, seeds):
+        calls.append((list(prompts), list(negs), list(seeds)))
+        worker_threads.add(threading.get_ident())
+        return served_fn(prompts, negs, seeds)
+
+    flash_path = (attn.dot_product_attention, attn._flash_eligible)
+    batcher = DynamicBatcher(generate_fn, buckets=SERVING_BUCKETS,
+                             max_wait_ms=25.0)
+    server = make_server(batcher, host="127.0.0.1", port=0)
+    http = serve_forever_in_thread(server)
+    url = "http://127.0.0.1:%d" % server.server_address[1]
+
+    def metrics():
+        import urllib.request
+
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            return json.loads(r.read())
+
+    try:
+        reset_counts()
+        warm_s, timed_s = {}, {}
+        for label, into in (("warm-up", warm_s), ("timed", timed_s)):
+            for b in SERVING_BUCKETS:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                batcher.warmup([b])
+                torch.cuda.synchronize()
+                into[b] = time.perf_counter() - t
+            print(f"serving {label} per bucket (one generate_fn call each): "
+                  + ", ".join(f"bucket {b} {into[b]:.3f} s"
+                              for b in SERVING_BUCKETS) + f" [{card}]",
+                  flush=True)
+        rate = {b: b / timed_s[b] for b in SERVING_BUCKETS}
+        print("serving imgs/s per bucket: " + ", ".join(
+            f"bucket {b} {rate[b]:.3f} imgs/s ({rate[b] / rate[1]:.2f} x "
+            f"bucket 1)" for b in SERVING_BUCKETS) + f" [{card}]", flush=True)
+        warm_batches = 2 * len(SERVING_BUCKETS)
+        check(metrics()["batches"] == 0, "warm-up counted as traffic")
+
+        s = [1000 + i for i in range(8)]
+        stages, client_s = {}, []
+
+        def burst(name, payloads):
+            n0, c0 = metrics(), len(calls)
+            out = [None] * len(payloads)
+            together = threading.Barrier(len(payloads))
+
+            def send(i):
+                together.wait(60)
+                out[i] = http_generate(url, payloads[i])
+
+            threads = [threading.Thread(target=send, args=(i,))
+                       for i in range(len(payloads))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+            n1 = metrics()
+            check(all(o is not None and o[0] == 200 for o in out),
+                  f"serving {name}: statuses "
+                  f"{[o and o[0] for o in out]}")
+            client_s.extend(o[3] for o in out if o)
+            stages[name] = dict(
+                payloads=payloads, out=out, calls=calls[c0:],
+                batches=n1["batches"] - n0["batches"],
+                padded=n1["padded_slots"] - n0["padded_slots"])
+            print(f"serving {name}: {len(payloads)} requests in "
+                  f"{stages[name]['batches']} batches of "
+                  f"{[len(c[0]) for c in calls[c0:]]}, padded slots "
+                  f"{stages[name]['padded']}, client latency "
+                  f"{max(o[3] for o in out if o):.3f} s at most [{card}]",
+                  flush=True)
+
+        req = lambda i, fmt="json": dict(prompt=f"a lighthouse, take {i}",
+                                         seed=s[i], format=fmt)
+        burst("one request alone", [req(0)])
+        burst("a burst of 8", [req(i) for i in range(8)])
+        burst("a burst of 3", [req(i) for i in range(3)])
+        burst("one PNG request", [dict(prompt="a lighthouse, take 0",
+                                       seed=s[0])])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        m = metrics()
+        k1_dims = dict(launches.k1_head_dims)
+        traffic = sum(st["batches"] for st in stages.values())
+        n_batches = warm_batches + traffic
+        print(f"serving launches over {n_batches} batches ({warm_batches} "
+              f"warm-up and timed, {traffic} of traffic): K1 {launches['K1']}"
+              f" by kernel {launches.k1_routes} by head dim {k1_dims}, K2 "
+              f"{launches['K2']}; per batch K1 {launches['K1'] / n_batches}, "
+              f"K2 {launches['K2'] / n_batches}; generate_fn ran on "
+              f"{len(worker_threads)} thread(s), not the main one: "
+              f"{threading.get_ident() not in worker_threads} [{card}]",
+              flush=True)
+        lat = sorted(client_s)
+        print(f"serving latency over {len(lat)} requests: batcher p50 "
+              f"{m.get('latency_ms_p50', float('nan')) / 1e3:.3f} s, p95 "
+              f"{m.get('latency_ms_p95', float('nan')) / 1e3:.3f} s; client "
+              f"p50 {lat[len(lat) // 2]:.3f} s, p95 "
+              f"{lat[min(len(lat) - 1, int(len(lat) * 0.95))]:.3f} s; "
+              f"metrics {json.dumps(m)} [{card}]", flush=True)
+        check(stages["a burst of 8"]["batches"] <= 2,
+              f"the burst of 8 rode in {stages['a burst of 8']['batches']} "
+              "batches")
+        check(stages["a burst of 3"]["padded"] == 1
+              and [len(c[0]) for c in stages["a burst of 3"]["calls"]] == [4],
+              f"the burst of 3: {stages['a burst of 3']['padded']} padded "
+              "slots")
+        check(launches["K1"] == K1_PER_REQUEST * n_batches
+              and launches["K2"] == K2_PER_REQUEST * n_batches,
+              f"serving launches K1 {launches['K1']}, K2 {launches['K2']} "
+              f"over {n_batches} batches")
+        check(launches.k1_routes == {"sm90": 500 * n_batches,
+                                     "d512": n_batches}
+              and k1_dims == {d: n * n_batches
+                              for d, n in SD1_K1_HEAD_DIMS.items()},
+              f"serving K1 routes {launches.k1_routes}, head dims {k1_dims}")
+        check((attn.dot_product_attention, attn._flash_eligible)
+              == flash_path, "serving ran under plain_attention_only()")
+        check(threading.get_ident() not in worker_threads
+              and len(worker_threads) == 1,
+              "generate_fn did not run on the batcher's one worker")
+
+        # every served image against a direct call of its batch; one batch
+        # of 8 (the burst's, else s0..s7) replayed under the profiler
+        key = lambda c: (tuple(c[0]), tuple(c[1]), tuple(c[2]))
+        eight = [c for st in stages.values() for c in st["calls"]
+                 if len(c[0]) == 8]
+        c8 = eight[0] if eight else (
+            [req(i)["prompt"] for i in range(8)], [""] * 8, s)
+        t = time.perf_counter()
+        for cpu in (False, True):   # the device alone, else with the host
+            images8, wall_ms, fams, n_kernels, _ = profile_device(
+                lambda: gen(c8[0], uncond_prompts=c8[1],
+                            per_sample_seeds=c8[2]), cpu=cpu)
+            if fams:
+                break
+        busy = sum(fams.values()) or float("nan")
+        check(busy > 0, "the profile of the bucket-8 batch recorded no kernel")
+        print(f"serving profile of one bucket-8 batch (torch.profiler, "
+              f"{'host and ' if cpu else ''}device, kernel rows only; "
+              f"{time.perf_counter() - t:.1f} s with its processing): device "
+              f"busy {busy:.1f} ms over {n_kernels} "
+              f"kernels, wall under the profiler {wall_ms:.1f} ms, "
+              f"unprofiled {1e3 * timed_s[8]:.1f} ms; device idle share "
+              f"{1 - busy / (1e3 * timed_s[8]):.3f} [{card}]", flush=True)
+        direct, worst = {key(c8): images8}, 0
+        for name, st in stages.items():
+            for c in st["calls"]:
+                if key(c) not in direct:
+                    direct[key(c)] = gen(c[0], uncond_prompts=c[1],
+                                         per_sample_seeds=c[2])
+            for p, o in zip(st["payloads"], st["out"]):
+                c = next(c for c in st["calls"] if (p["prompt"], p["seed"])
+                         in zip(c[0], c[2]))
+                row = list(zip(c[0], c[2])).index((p["prompt"], p["seed"]))
+                got = (png_pixels(o[2]) if o[1] == "image/png"
+                       else json_image(o[2]))
+                d = levels(got, direct[key(c)][row])
+                worst = max(worst, d[0])
+                check(got.shape == (512, 512, 3) and d[0] <= 1,
+                      f"serving {name} seed {p['seed']}: {d} levels from the "
+                      "direct call")
+        held = "bit for bit" if worst == 0 else f"within {worst} level"
+        print(f"serving: every served image against a direct SD1Generator "
+              f"call of its batch (the same prompts, seeds and bucket): "
+              f"{held} [{card}]", flush=True)
+        alone = json_image(stages["one request alone"]["out"][0][2])
+        in8 = json_image(stages["a burst of 8"]["out"][0][2])
+        png = png_pixels(stages["one PNG request"]["out"][0][2])
+        d8 = levels(alone, in8)
+        print(f"serving: seed {s[0]} alone against seed {s[0]} in the burst "
+              f"of 8: max {d8[0]} mean {d8[1]:.3f} levels (bound "
+              f"{BATCH_LEVELS_MAX}, mean {BATCH_LEVELS_MEAN}); the PNG "
+              f"request, decoded with zlib, against the JSON body of the "
+              f"same seed and bucket: {int((png != alone).sum())} values "
+              f"differ [{card}]", flush=True)
+        check(d8[0] <= BATCH_LEVELS_MAX and d8[1] <= BATCH_LEVELS_MEAN,
+              f"seed alone against the batch of 8: {d8}")
+        check(np.array_equal(png, alone), "the PNG differs from the JSON "
+              "body")
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.shutdown()
+        http.join(60)
+    check(not http.is_alive() and not batcher._worker.is_alive(),
+          "the server or the batcher's worker did not stop")
+    return launches
+
+
+def phase_sd1_cli(card):
+    """``cli/sd1.py generate`` at 512^2, 50 k-LMS steps, CFG 7.5, random
+    weights on the card (a second bundle beside the serving one), its PNG
+    decoded with zlib; then ``python -m from_ddpm_to_stable_diffusion_tpu_torch
+    serve --help`` in a subprocess."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.cli import sd1 as sd1_cli
+
+    tmp = tempfile.mkdtemp()
+    try:
+        out = os.path.join(tmp, "sd1_{i}.png")
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        rc = sd1_cli.main(["generate", "--prompt", "a lighthouse at dusk",
+                           "--seed", "7", "--device", "cuda", "--out", out])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = read_counts()
+        with open(out.format(i=0), "rb") as f:
+            data = f.read()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    img = png_pixels(data)
+    print(f"sd1 CLI generate (random weights, 512^2, 50 k-LMS steps): rc "
+          f"{rc}, {secs:.3f} s with the bundle's init, PNG {len(data)} bytes "
+          f"{img.shape}, launches K1 {launches['K1']} K2 {launches['K2']} "
+          f"[{card}]", flush=True)
+    check(rc == 0 and img.shape == (512, 512, 3) and float(img.std()) > 0,
+          f"sd1 CLI: rc {rc}, image {img.shape}")
+    check(launches["K1"] == K1_PER_REQUEST
+          and launches["K2"] == K2_PER_REQUEST,
+          f"sd1 CLI launches K1 {launches['K1']} K2 {launches['K2']}")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "from_ddpm_to_stable_diffusion_tpu_torch",
+         "serve", "--help"], capture_output=True, text=True, timeout=300)
+    print(f"python -m from_ddpm_to_stable_diffusion_tpu_torch serve --help: "
+          f"rc {proc.returncode} in {time.perf_counter() - t:.2f} s",
+          flush=True)
+    check(proc.returncode == 0 and "--device" in proc.stdout,
+          f"serve --help: rc {proc.returncode} {proc.stderr[-500:]}")
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -5114,7 +5495,8 @@ def main():
     mark("kernels")
     import torch
 
-    paths = ("sd1", "sd1_slice", "sd1_768", "sd1_checkpoint", "sd1_int8",
+    paths = ("sd1", "sd1_slice", "serving", "sd1_cli", "sd1_768",
+             "sd1_checkpoint", "sd1_int8",
              "sd3", "t5", "sd3_img2img", "sd3_tiled", "sd3_text",
              "sd3_checkpoint", "sd3_int8", "sd3_offload", "training",
              "sampling", "train_accum", "train_resume", "latent_training",
@@ -5124,15 +5506,18 @@ def main():
              "sd1_768_fp32", "sd3_fp32", "t5_fp32", "vlm_fp32",
              "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64")
     sd1_launches, sd1_models, sd1_image = phase_sd1(card)
-    runs = [sd1_launches, phase_sd1_slice(card, sd1_models),
-            phase_sd1_768(card, sd1_models, SD1_768_STEPS, "bf16")[0],
-            phase_checkpoint_sd1(card, sd1_models, sd1_image),
-            phase_sd1_int8(card, sd1_models, sd1_image)]
+    runs = [sd1_launches, phase_sd1_slice(card, sd1_models)]
+    mark("sd1")
+    runs += [phase_serving(card, sd1_models), phase_sd1_cli(card)]
+    mark("serving")
+    runs += [phase_sd1_768(card, sd1_models, SD1_768_STEPS, "bf16")[0],
+             phase_checkpoint_sd1(card, sd1_models, sd1_image),
+             phase_sd1_int8(card, sd1_models, sd1_image)]
     del sd1_models
     fp32_runs = phase_sd1_fp32(card)
     gc.collect()
     torch.cuda.empty_cache()
-    mark("sd1")
+    mark("sd1_768_checkpoint_int8_fp32")
     sd3_runs, sd3_source = phase_sd3(card)
     runs += sd3_runs
     runs += [phase_sd3_img2img(card, sd3_source),

@@ -1,21 +1,73 @@
-"""Synthetic image data and a batch loader (port of ``io/data.py``).
+"""Image data and a batch loader (port of ``io/data.py``).
 
 :class:`SyntheticImageDataset` draws each item from its own numpy seed, as
-the JAX class does, so both give the same images. :class:`DataLoader` has
-the same order (``default_rng(seed + epoch)`` shuffle, remainder dropped)
-and yields numpy (images NHWC float32, labels int32) batches; the decode
-thread pool and prefetch queue of the JAX loader are left out, since the
-synthetic items need no decoding. :func:`prefetch_to_device` stages the next
-batches on the card while the current step runs.
+the JAX class does, so both give the same images. :class:`ImageFolderDataset`
+reads ``root/<class>/*.png`` (Pillow, imported inside ``load``: nothing else
+of the port needs it) and normalizes with the ImageNet statistics, or to
+[−1, 1]. :class:`DataLoader` has the same order (``default_rng(seed +
+epoch)`` shuffle, remainder dropped) and yields numpy (images NHWC float32,
+labels int32) batches; the decode thread pool and prefetch queue of the JAX
+loader are left out. :func:`prefetch_to_device` stages the next batches on
+the card while the current step runs.
 """
 
 from __future__ import annotations
 
 import collections
+import os
 from typing import Iterator
 
 import numpy as np
 import torch
+
+IMAGENET_MEANS = np.asarray([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STDS = np.asarray([0.229, 0.224, 0.225], np.float32)
+
+_IMG_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
+
+
+def denormalize(x):
+    """Invert the ImageNet normalization of NHWC arrays."""
+    return x * IMAGENET_STDS + IMAGENET_MEANS
+
+
+class ImageFolderDataset:
+    """`root/<class_name>/*.jpg` → (image HWC float32 normalized, label int)."""
+
+    def __init__(self, root: str, img_size: int,
+                 normalize: bool = True, to_unit_range: bool = False):
+        self.root = root
+        self.img_size = img_size
+        self.normalize = normalize
+        self.to_unit_range = to_unit_range  # [-1, 1] instead of ImageNet norm
+        self.class_names = sorted(
+            d for d in os.listdir(root)
+            if os.path.isdir(os.path.join(root, d)))
+        self.samples: list[tuple[str, int]] = []
+        for label, cls in enumerate(self.class_names):
+            cdir = os.path.join(root, cls)
+            for fn in sorted(os.listdir(cdir)):
+                if os.path.splitext(fn)[1].lower() in _IMG_EXTS:
+                    self.samples.append((os.path.join(cdir, fn), label))
+        if not self.samples:
+            raise ValueError(f"no images found under {root}")
+
+    def __len__(self):
+        return len(self.samples)
+
+    def load(self, idx: int):
+        from PIL import Image
+
+        path, label = self.samples[idx]
+        with Image.open(path) as im:
+            im = im.convert("RGB").resize((self.img_size, self.img_size),
+                                          Image.BILINEAR)
+            arr = np.asarray(im, np.float32) / 255.0
+        if self.to_unit_range:
+            arr = arr * 2.0 - 1.0
+        elif self.normalize:
+            arr = (arr - IMAGENET_MEANS) / IMAGENET_STDS
+        return arr, label
 
 
 class SyntheticImageDataset:

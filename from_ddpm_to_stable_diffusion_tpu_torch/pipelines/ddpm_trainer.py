@@ -275,15 +275,17 @@ def restore_tree(state: TrainState, generator: Optional[torch.Generator],
 def train_epochs(trainer, loader: Iterable, state: TrainState, epochs: int,
                  checkpoint_dir: Optional[str], *, batch_size: Optional[int]
                  = None, resume: bool = True, epoch_awoken: Optional[int] =
-                 None, prefetch: bool = True) -> TrainState:
+                 None, prefetch: bool = True, log_rate: bool = True
+                 ) -> TrainState:
     """The JAX trainers' ``fit`` loop. With ``checkpoint_dir``: a resume
     (when ``resume``) from ``epoch_awoken`` or the latest step, which
     restarts at the saved epoch's index; a save after each epoch whose mean
     loss is the lowest so far; under SIGTERM a forced save of the epoch at
     the next step boundary, then a return. Logs ``resume``, ``preempted``
-    and ``epoch`` (``loss``, ``sec``, ``imgs_per_sec`` with a
-    ``batch_size``) through ``trainer.logger``, keeping the unrounded
-    records in ``trainer.history``."""
+    and ``epoch`` (``loss``, ``sec``, and ``imgs_per_sec`` with a
+    ``batch_size`` and ``log_rate``) through ``trainer.logger``, keeping the
+    unrounded records, ``imgs_per_sec`` with a ``batch_size``, in
+    ``trainer.history``."""
     generator = getattr(trainer, "generator", None)
     ckpt, start = None, 0
     if checkpoint_dir:
@@ -322,7 +324,7 @@ def train_epochs(trainer, loader: Iterable, state: TrainState, epochs: int,
             trainer.logger.log(
                 "epoch", epoch=epoch, loss=epoch_loss, sec=round(dt, 2),
                 **({"imgs_per_sec": round(rec["imgs_per_sec"], 1)}
-                   if batch_size else {}))
+                   if batch_size and log_rate else {}))
             if ckpt and epoch_loss < best:
                 best = epoch_loss
                 ckpt.save(epoch, checkpoint_tree(state, generator))

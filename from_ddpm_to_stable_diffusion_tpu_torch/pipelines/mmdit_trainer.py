@@ -156,12 +156,15 @@ class MMDiTTrainer:
             checkpoint_dir: Optional[str] = None) -> TrainState:
         """Trains for ``epochs`` (``config.epoch``) passes over ``loader``
         of (latents, context, y) batches (``ddpm_trainer.train_epochs``:
-        checkpoints, the preemption guard, the resume, the epoch log)."""
+        checkpoints, the preemption guard, the resume, the epoch log). The
+        logged ``epoch`` event carries ``epoch``, ``loss`` and ``sec``, as
+        the JAX trainer logs it; ``history`` also keeps ``imgs_per_sec``."""
         if state is None:
             state = self.create_state(len(loader))
         return train_epochs(self, loader, state, epochs or self.cfg.epoch,
                             checkpoint_dir, batch_size=self.cfg.batch_size,
-                            epoch_awoken=self.cfg.epoch_awoken)
+                            epoch_awoken=self.cfg.epoch_awoken,
+                            log_rate=False)
 
     # ---------------- sample ----------------
     @torch.no_grad()

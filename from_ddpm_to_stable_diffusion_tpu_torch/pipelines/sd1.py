@@ -24,7 +24,7 @@ layout (``io/weights.py``) onto the card without the JAX package.
 projections to W8A8 int8 (``ops/quantize.py``).
 
 Not ported (ROADMAP.md): ``loop="trajectory"`` (a CUDA graph of one step,
-queue A2), tensor-parallel ``mesh`` (A8).
+queue A2), tensor-parallel ``mesh`` (A8), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -218,7 +218,12 @@ class SD1Generator:
                  sampler: str = "k_lms", n_inference_steps: int = 50,
                  do_cfg: bool = True, cfg_scale: float = 7.5,
                  height: int = 512, width: int = 512,
-                 prompt_weighting: bool = False, loop: str = "steps"):
+                 prompt_weighting: bool = False, mesh=None,
+                 loop: str = "steps"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (tensor-parallel serving) is not ported yet: "
+                "ROADMAP.md queue A8")
         if loop == "trajectory":
             raise NotImplementedError(
                 'loop="trajectory" is not ported: its counterpart, a CUDA '
@@ -397,7 +402,7 @@ def generate(prompts: Sequence[str], models: SD1Models, tokenizer=None,
              cfg_scale: float = 7.5, height: int = 512, width: int = 512,
              sampler: str = "k_lms", n_inference_steps: int = 50,
              seed: Optional[int] = None, return_latents: bool = False,
-             prompt_weighting: bool = False,
+             loop: str = "scan", prompt_weighting: bool = False,
              noise: Optional[np.ndarray] = None,
              enc_noise: Optional[np.ndarray] = None,
              step_noise: Optional[Callable] = None):
@@ -405,9 +410,11 @@ def generate(prompts: Sequence[str], models: SD1Models, tokenizer=None,
     call: uint8 images (B, H, W, 3), or the final latents with
     ``return_latents``. It runs on the device the models are on. The same
     parts as :class:`SD1Generator`, which holds nothing compiled here, so
-    the two differ only in where the operating point is named; the JAX
-    function's ``loop`` (two ways to drive a jitted step) has no
-    counterpart."""
+    the two differ only in where the operating point is named. ``loop``
+    takes the JAX values, ``"scan"`` and ``"jit_step"`` (two ways to drive
+    a jitted step there); both run the one host loop here."""
+    if loop not in ("scan", "jit_step"):
+        raise ValueError(f"unknown loop driver {loop!r}")
     _check_prompts(prompts, uncond_prompts)
     _check_strength(strength)
     gen = SD1Generator(models, tokenizer, sampler, n_inference_steps, do_cfg,

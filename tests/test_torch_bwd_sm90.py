@@ -21,6 +21,7 @@ import torch
 
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import _build
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 BF16, F32 = torch.bfloat16, torch.float32
 FORMS = {  # name -> (causal, bias, segments)

@@ -24,6 +24,7 @@ from from_ddpm_to_stable_diffusion_tpu.ops import flash_attention as jfa
 from from_ddpm_to_stable_diffusion_tpu.ops import groupnorm as jgn
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as tfa
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import groupnorm as tgn
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 ATOL = RTOL = 1e-4
 

@@ -35,6 +35,7 @@ from from_ddpm_to_stable_diffusion_tpu.ops import flash_attention as jfa
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import _build
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import attention as tattn
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 OUT_ATOL = 1e-5      # out and lse, absolute
 GRAD_REL = 1e-4      # gradients, of the largest magnitude

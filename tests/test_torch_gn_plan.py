@@ -25,6 +25,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.models.sd3_vae_tiled import (
 from from_ddpm_to_stable_diffusion_tpu_torch.models.tiny_unet import TinyUNet
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import groupnorm as tgn
 from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import TinySDConfig
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 H100_SMS = 132
 

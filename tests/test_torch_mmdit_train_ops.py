@@ -27,6 +27,7 @@ import torch
 from from_ddpm_to_stable_diffusion_tpu.ops import flash_attention as jfa
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import attention as tattn
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def _rand(shape, seed, scale=1.0):

@@ -46,6 +46,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.mmdit_trainer import (
 from from_ddpm_to_stable_diffusion_tpu_torch.utils import config as tconfig
 from from_ddpm_to_stable_diffusion_tpu_torch.utils import dtypes as tdtypes
 from test_torch_models import jax_random_params
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 MODEL = dict(patch_size=2, in_channels=4, depth=2, adm_in_channels=8,
              context_dim=16, pos_embed_max_size=8)
@@ -351,6 +352,36 @@ def test_fit_trains_a_fixed_batch_and_logs():
     losses = [rec["loss"] for rec in trainer.history]
     assert np.isfinite(losses).all() and losses[-1] < 0.7 * losses[0]
     assert all(rec["imgs_per_sec"] > 0 for rec in trainer.history)
+
+
+class _Recorder:
+    """A logger that keeps each event's name and its keys."""
+
+    def __init__(self):
+        self.events = []
+
+    def log(self, event, **metrics):
+        self.events.append((event, list(metrics)))
+
+
+def test_fit_logs_the_jax_epoch_keys(run_fp32):
+    """The ``epoch`` event carries what the JAX trainer logs (``epoch``,
+    ``loss``, ``sec``); ``imgs_per_sec`` stays in the port's history."""
+    batch = _batch()
+    jt = run_fp32["jax_trainer"]
+    jt.logger = _Recorder()
+    # train_step donates its state: fit a copy
+    jt.fit([batch], state=jax.tree_util.tree_map(jnp.copy,
+                                                 run_fp32["jax_state"]),
+           epochs=1)
+    trainer = MMDiTTrainer(tmm.MMDiTConfig(**MODEL),
+                           tconfig.FlowTrainConfig(**TRAIN, dtype="fp32"),
+                           device="cpu", logger=_Recorder())
+    trainer.fit([batch], epochs=1)
+    assert trainer.logger.events == jt.logger.events == [
+        ("epoch", ["epoch", "loss", "sec"])]
+    assert set(trainer.history[0]) == {"epoch", "loss", "sec",
+                                       "imgs_per_sec"}
 
 
 def test_trainer_refuses_unported_options():

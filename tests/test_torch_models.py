@@ -25,6 +25,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
     flax_default_init_)
 from from_ddpm_to_stable_diffusion_tpu_torch.utils.dtypes import (
     cast_params_for_inference)
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 ATOL = RTOL = 1e-4
 

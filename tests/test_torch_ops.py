@@ -31,6 +31,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.ops import image as timage
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import schedules as tsched
 from from_ddpm_to_stable_diffusion_tpu_torch.samplers import k_samplers as tks
 from test_torch_gn_plan import check_group_norm_plan
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 GOLD = np.load(os.path.join(os.path.dirname(__file__), "goldens",
                             "goldens.npz"))
@@ -296,12 +297,17 @@ def test_port_never_imports_jax():
                "ops.attention", "ops.flash_attention", "io.tokenizer",
                "io.prompt_weights", "samplers.k_samplers", "models.sd1",
                "io.weights", "io.weights_sd3", "io.weights_clip",
-               "ops.quantize", "models.sd3_vae_tiled", "io.spm_tokenizer"]
+               "ops.quantize", "models.sd3_vae_tiled", "io.spm_tokenizer",
+               "ops.image", "serving", "serving.batcher", "serving.server",
+               "cli", "cli.serve", "cli.sd1", "cli.sd3", "cli.tiny_sd",
+               "cli.multimodal", "__main__"]
+    # Pillow is not promised on the card's machine: only the calls that read
+    # an image import it
     code = ("import sys\n"
             + "".join(f"import {port}.{m}\n" for m in modules) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'flax', 'regex', 'yaml',\n"
-            "              'safetensors'))\n"
+            "              'safetensors', 'PIL'))\n"
             "assert not bad, bad\n"
             "assert 'from_ddpm_to_stable_diffusion_tpu' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

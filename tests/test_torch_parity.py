@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from from_ddpm_to_stable_diffusion_tpu.io import weights as W
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.slow  # compile-heavy: full models/pipelines
 

@@ -52,6 +52,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.ops import quantize as tq
 from from_ddpm_to_stable_diffusion_tpu_torch.utils.dtypes import (
     cast_params_for_inference)
 from tests.test_torch_models import jax_random_params
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 F32, BF16 = torch.float32, torch.bfloat16
 

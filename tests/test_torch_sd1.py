@@ -21,6 +21,7 @@ from from_ddpm_to_stable_diffusion_tpu.models import sd1 as jsd1
 from from_ddpm_to_stable_diffusion_tpu.pipelines import sd1 as jpipe
 from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import sd1 as tpipe
 from tests.test_torch_models import jax_random_params
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 H = W = 64
 STEPS = 3
@@ -130,9 +131,9 @@ def test_entry_points_default_to_the_card():
     # it on the card by default): they take no device of their own, and
     # their arguments are the JAX ones, plus the test hooks
     for fn, jax_fn, dropped in (
-            (tpipe.generate, jpipe.generate, {"loop"}),
+            (tpipe.generate, jpipe.generate, set()),
             (tpipe.SD1Generator.__init__, jpipe.SD1Generator.__init__,
-             {"mesh"}),
+             set()),
             (tpipe.SD1Generator.__call__, jpipe.SD1Generator.__call__,
              set())):
         names = list(inspect.signature(fn).parameters)
@@ -178,6 +179,42 @@ def test_entry_points_default_to_the_card():
             == list(inspect.signature(jtiled.tiled_decode).parameters)[-2:]
             == ["strip", "image_batch"])
     assert "int8" in inspect.signature(sd3.SD3Models.initialize).parameters
+    # every ported CLI's --device defaults to the card
+    from test_torch_cli import PORTED_SUBCOMMANDS, parsed_args
+
+    for stage, sub in PORTED_SUBCOMMANDS:
+        assert parsed_args(stage, sub).device == "cuda", (stage, sub)
+
+
+def test_sd1_generator_takes_the_jax_signatures(jax_bundle):
+    """``SD1Generator.__init__`` and ``generate`` take the JAX arguments in
+    the JAX order with the JAX defaults (the test hooks aside); ``mesh``
+    (tensor-parallel serving) raises naming ROADMAP.md queue A8, and both
+    JAX ``loop`` drivers of ``generate`` run the one host loop."""
+    import inspect
+
+    hooks = {"noise", "enc_noise", "step_noise"}
+    for fn, jax_fn in ((tpipe.SD1Generator.__init__,
+                        jpipe.SD1Generator.__init__),
+                       (tpipe.generate, jpipe.generate)):
+        got = [(n, p.default) for n, p in
+               inspect.signature(fn).parameters.items() if n not in hooks]
+        want = [(n, p.default) for n, p in
+                inspect.signature(jax_fn).parameters.items()]
+        assert got == want, fn.__qualname__
+    models = tpipe.SD1Models.from_jax(jax_bundle.params, device="cpu",
+                                      clip_heads=4, unet_heads=4)
+    with pytest.raises(NotImplementedError, match="queue A8"):
+        tpipe.SD1Generator(models, height=H, width=W, mesh=object())
+    tpipe.SD1Generator(models, height=H, width=W, mesh=None)
+    noise = _jax_noise(1, (1, H // 8, W // 8, 4))
+    kw = dict(height=H, width=W, n_inference_steps=1, noise=noise,
+              return_latents=True)
+    scan = tpipe.generate(["a"], models, loop="scan", **kw)
+    step = tpipe.generate(["a"], models, loop="jit_step", **kw)
+    torch.testing.assert_close(scan, step, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="loop"):
+        tpipe.generate(["a"], models, loop="trajectory", **kw)
 
 
 def test_sd1_generator_contract(jax_bundle):

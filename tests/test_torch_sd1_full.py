@@ -31,6 +31,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.io import tokenizer as ttok
 from from_ddpm_to_stable_diffusion_tpu_torch.models import sd1 as tsd1
 from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import sd1 as tpipe
 from tests.test_torch_models import jax_random_params
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 H = W = 64
 STEPS = 4

@@ -27,6 +27,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.io.from_jax import load_jax_params
 from from_ddpm_to_stable_diffusion_tpu_torch.models import sd1 as tsd1
 from from_ddpm_to_stable_diffusion_tpu_torch.samplers import k_samplers as tks
 from tests.test_torch_models import jax_random_params
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 def _rand(shape, seed, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape)

@@ -31,6 +31,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
 from from_ddpm_to_stable_diffusion_tpu_torch.utils.dtypes import (
     cast_params_for_inference)
 from tests.test_torch_models import jax_random_params
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 ATOL = RTOL = 1e-4
 

@@ -31,6 +31,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as tfa
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import groupnorm as tgn
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import schedules as tsched
 from from_ddpm_to_stable_diffusion_tpu_torch.samplers import flow as tflow
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 ATOL, RTOL = 2e-5, 1e-4
 

@@ -21,6 +21,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.models import mmdit as tmm
 from from_ddpm_to_stable_diffusion_tpu_torch.models import (
     text_encoders as tte)
 from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import sd3 as tpipe
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 H = W = 64
 STEPS = 4

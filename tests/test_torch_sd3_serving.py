@@ -51,6 +51,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.models import (
 from from_ddpm_to_stable_diffusion_tpu_torch.ops import quantize as tq
 from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import sd3 as tpipe
 from tests.test_torch_spm_tokenizer import PIECES, WORDS
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 H = W = 64
 STEPS = 4

@@ -13,6 +13,7 @@ from from_ddpm_to_stable_diffusion_tpu.io import spm_tokenizer as jspm
 from from_ddpm_to_stable_diffusion_tpu.io import tokenizer as jtok
 from from_ddpm_to_stable_diffusion_tpu_torch.io import spm_tokenizer as tspm
 from from_ddpm_to_stable_diffusion_tpu_torch.io import tokenizer as ttok
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 PIECES = [
     ("<pad>", 0.0, jspm.CONTROL), ("</s>", 0.0, jspm.CONTROL),

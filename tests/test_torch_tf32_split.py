@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from from_ddpm_to_stable_diffusion_tpu.ops import flash_attention as jfa
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 SPLIT_ATOL = 1e-5
 ONE_PASS_FLOOR = 1e-4

@@ -47,6 +47,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
 from from_ddpm_to_stable_diffusion_tpu_torch.samplers import ddpm as tddpm
 from from_ddpm_to_stable_diffusion_tpu_torch.utils import config as tconfig
 from test_torch_models import jax_random_params
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 ATOL = RTOL = 1e-4
 

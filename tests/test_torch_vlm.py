@@ -42,6 +42,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.ops import schedules as tsched
 from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.vlm_trainer import (
     VLMTrainer)
 from test_torch_models import jax_random_params
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 VISION = dict(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
               num_attention_heads=2, image_size=32, patch_size=8)

@@ -56,6 +56,7 @@ from from_ddpm_to_stable_diffusion_tpu_torch.models import (
     text_encoders as tte)
 from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import sd1 as tpipe1
 from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import sd3 as tpipe3
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 DTYPES = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16}
