@@ -238,20 +238,38 @@ beside full training's, the LoRA state through a checkpoint bit for bit;
 short epoch, the file read back bit for bit. Checkpoints go to TMPDIR and
 are deleted.
 
+The trainable model zoo (group ``zoo``, after the TinyVLM phases), each
+through its CLI's ``main(argv)`` at the CLI defaults' width with the epoch,
+clip and batch counts cut: K1 (256 and 48 x 1 x 1024^2 x 64), K3 / K4 (256
+x ...) and K2 ((256, 32, 32, 64) + SiLU) at the video UNet's level-0
+shapes against their plain versions; ``video train`` (channel 64, 32^2, 8
+frames, batch 32, bf16; 2 epochs of 6 steps, CFG sampling of 3 clips over
+``--T 50``, cut from 400): ms/step, frames/s, device idle share, peak
+memory, K1 / K3 / K4 / K2 launches per step against the model's count;
+``vae train --synthetic`` with ``--model vqvae`` and ``--model vanilla``
+(512^2, batch 7, one epoch of 8 steps, its checkpoint in TMPDIR): ms/step,
+peak memory, the VQ codes used; ``vit train --synthetic`` (128^2, patch 32,
+dim 512, depth 6, batch 256, one epoch of 8 steps) and its ``evaluate``:
+ms/step, accuracy. Each model's train step on the card (bf16, kernels)
+against the same step on the CPU (fp32, plain versions) from the same
+weights and draws, the loss and gradients within the gradient check's
+tolerance.
+
 Every kernel's launch count is set to 0 just before each of the SD1, SD1
 generator, serving, SD1 CLI, SD1 at 768^2, SD1 checkpoint, SD1 int8, SD3,
 SD3 img2img, SD3
 batch 2 tiled, SD3 text, SD3 checkpoint, SD3 int8, SD3 offload, training,
 sampling, accumulation, resume, latent training, latent sampling, MMDiT
 training, MMDiT sampling, MMDiT LoRA, T5, TinyVLM training, TinyVLM
-decoding, TinyVLM checkpoint and fp32 paths and read
+decoding, TinyVLM checkpoint, video training, video sampling, VQ-VAE,
+VanillaVAE, ViT and fp32 paths and read
 just after (before the plain-attention run it is compared with), K1's also
 by the kernel it ran (sm90, d512, fp32) and by head dim, K3's - K7's (but
 K2) by the kernel they ran (sm90, fp32): on every path the launches by
 kernel add up to the launches, on the bf16 SD3 and MMDiT paths every K5, K6
 and K7 launch took sm90, and on the bf16
-tiny-SD (plain, accumulated, resumed, latent) and TinyVLM training paths
-every K3 and K4 launch took sm90. The last two
+tiny-SD (plain, accumulated, resumed, latent), TinyVLM and video training
+paths every K3 and K4 launch took sm90. The last two
 lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
 card's name and power limit come on the line before them. Imports nothing
@@ -5475,6 +5493,526 @@ def phase_vlm_checkpoint(card):
     return launches
 
 
+# --------------------------------------------------------------------------
+# The trainable model zoo (stages 08, 03, 04) through its CLIs
+# --------------------------------------------------------------------------
+# The video UNet at the video CLI's defaults (channel 64, 32^2, 8 frames,
+# batch 32 clips: 256 folded frames): the level-0 self-attentions of
+# enc1_att and dec2_att (1024 tokens, one head of 64) take K1 in the forward
+# and K3 + K4 in the backward; the 16^2 and 8^2 levels, the one-token
+# cross-attentions and the 8-frame temporal attentions are plain (under 512
+# tokens). 22 GroupNorms a forward (2 in each of 8 ResBlocks, 5
+# TransformerBlock norm_in, the 16-group tail) take K2; their backward is
+# plain. A CFG sampling step is one forward of 2 x 3 clips.
+VIDEO_TRAIN_PER_STEP = dict(K1=2, K2=22, K3=2, K4=2, K5=0, K6=0, K7=0)
+VIDEO_SAMPLE_PER_STEP = dict(K1=2, K2=22, K3=0, K4=0, K5=0, K6=0, K7=0)
+# cut from the CLI's 40 epochs over 256 clips (8 steps) and T = 400
+VIDEO_EPOCHS, VIDEO_STEPS_PER_EPOCH, VIDEO_T = 2, 6, 50
+# The VAEs (convs, BatchNorm, leaky ReLU) and the ViT (17 tokens) reach no
+# kernel of the port: every count stays 0.
+NO_LAUNCHES = dict(K1=0, K2=0, K3=0, K4=0, K5=0, K6=0, K7=0)
+VIDEO_KERNEL_SHAPES = [(256, 1, 1024, 1024, 64), (48, 1, 1024, 1024, 64)]
+VIDEO_GN_SHAPE = (256, 32, 32, 64)
+
+
+@contextlib.contextmanager
+def watched(cls, names, before=None):
+    """While the block runs, each method of ``cls`` in ``names`` records
+    every call: the instance, the result, and CUDA events recorded around
+    it; ``before(name)`` runs first. Yields name -> list of records."""
+    import torch
+
+    calls = {n: [] for n in names}
+    saved = {n: cls.__dict__[n] for n in names}
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def run(self, *args, **kw):
+            if before is not None:
+                before(name)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = fn(self, *args, **kw)
+            end.record()
+            calls[name].append(dict(self=self, result=result, start=start,
+                                    end=end))
+            return result
+        return run
+
+    for n in names:
+        setattr(cls, n, wrap(n, saved[n]))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+
+def window_ms(steps, warm):
+    """ms per call over the calls after ``warm`` (CUDA events from the
+    first one's start to the last one's end: the host's time between
+    calls included)."""
+    return steps[warm]["start"].elapsed_time(steps[-1]["end"]) / (
+        len(steps) - warm)
+
+
+def busy_per_call(run, n):
+    """Device-busy ms per call of ``run`` (``n`` calls in one profile)."""
+    fams = profile_device(run, cpu=False)[2]
+    return sum(fams.values()) / n, fams
+
+
+def batch_ms(dataset, batch_size, n=2):
+    """Host ms to build one batch of ``dataset`` (``DataLoader``'s
+    ``load`` and stack, as the CLIs' loaders do before each step)."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.data import DataLoader
+
+    t0 = time.perf_counter()
+    batches = [b for _, b in zip(range(n), DataLoader(dataset, batch_size))]
+    return 1e3 * (time.perf_counter() - t0) / len(batches), batches
+
+
+def against_cpu(card, what, pair, step, leaves=None):
+    """One train step on the card (bf16 compute, kernels) against the same
+    step on the CPU (fp32, plain versions) from the same weights and draws,
+    as ``phase_grad_check`` holds tiny-SD's: the loss and the gradients the
+    step leaves in each parameter's ``.grad``, as relative L2 errors of the
+    loss, the whole flattened gradient and each leaf matching ``leaves``,
+    each within GRAD_REL_TOL. ``pair``: {"cuda": (trainer, state), "cpu":
+    (trainer, state)}; ``step(trainer, state)`` returns the loss."""
+    import torch
+
+    got = {}
+    for dev, (trainer, state) in pair.items():
+        t0 = time.perf_counter()
+        loss = float(step(trainer, state))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        got[dev] = (loss, {n: p.grad.float().flatten().cpu()
+                           for n, p in state.model.named_parameters()},
+                    time.perf_counter() - t0)
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = got["cuda"], got["cpu"]
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    whole = rel(torch.cat(list(g_card.values())),
+                torch.cat(list(g_cpu.values())))
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    picked = [n for n in g_cpu if leaves is not None and leaves.search(n)]
+    worst = {n: rel(g_card[n], g_cpu[n]) for n in picked}
+    leaf_line = (f"; {len(picked)} flash-block leaves, worst "
+                 f"{max(worst, key=worst.get)} {max(worst.values()):.3e}"
+                 if picked else "")
+    print(f"{what} step against the CPU: loss card {l_card:.6f} cpu "
+          f"{l_cpu:.6f} (rel {loss_rel:.3e}); flattened gradient "
+          f"({sum(g.numel() for g in g_cpu.values())} values) rel L2 "
+          f"{whole:.3e}{leaf_line}; tol {GRAD_REL_TOL}; card {s_card:.2f} s, "
+          f"cpu fp32 {s_cpu:.2f} s [{card}]", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in g_card.values()),
+          f"{what}: non-finite card gradient")
+    check(loss_rel <= GRAD_REL_TOL and whole <= GRAD_REL_TOL
+          and all(e <= GRAD_REL_TOL for e in worst.values()),
+          f"{what}: card step off the CPU's: loss {loss_rel}, whole {whole}, "
+          f"leaves {worst}")
+    check(leaves is None or len(picked) > 0, f"{what}: no leaf of {leaves}")
+    return dict(loss_rel=loss_rel, grad_rel=whole,
+                leaf_rel=max(worst.values()) if worst else None)
+
+
+def copy_weights(src, dst):
+    """``dst``'s parameters and buffers from ``src``'s, across devices."""
+    import torch
+
+    with torch.no_grad():
+        for (n, a), (_, b) in zip(src.state_dict().items(),
+                                  dst.state_dict().items()):
+            b.copy_(a.detach().to(b.device, b.dtype))
+
+
+def phase_kernels_video(card, tail):
+    """K1 at the video UNet's level-0 shapes (train batch 32 and CFG
+    sampling of 3 clips: 256 and 48 folded frames, one head of 64), K3 /
+    K4 at the training one, K2 at its largest slab, each against the plain
+    version, with the bound and the library call's time."""
+    import torch
+    import torch.nn.functional as F
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import groupnorm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(1717)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    bf16, out = torch.bfloat16, {"K1": [], "K3": [], "K4": []}
+    for b, h, lq, lk, d in VIDEO_KERNEL_SHAPES:
+        # q, k, v slices of the fused (B, L, 3 C) projection, as attn1 does
+        q, k, v = (t.reshape(b, lq, h, d).transpose(1, 2) for t in
+                   rnd(b, lq, 3 * h * d).to(bf16).chunk(3, -1))
+        o, lse = fa.flash_attention_cuda(q, k, v)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (o.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        del ref, ref_lse
+        run = lambda: fa.flash_attention_cuda(q, k, v)
+        times = dict(zip(("bound_ms", "bound_by"),
+                         attn_bound(b, h, lq, lk, d)),
+                     ms=cuda_ms(run),
+                     plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                         q, k, v), 5, 1),
+                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                         q, k, v), 10, 2))
+        device_ms = kernel_device_ms(run, "K1 flash fwd")
+        print(f"K1 flash fwd video UNet level 0 (B,H,Lq,Lk,D)=({b},{h},{lq},"
+              f"{lk},{d}) bf16: max|out err|={err:.3e} (atol 2e-2) max|lse "
+              f"err|={lse_err:.3e} (atol 1e-3); {tail(**times)}; device "
+              f"{fmt_ms(device_ms)}", flush=True)
+        check(err <= 2e-2 and lse_err <= 1e-3,
+              f"K1 disagrees at {(b, h, lq, lk, d)}: {err} / {lse_err}")
+        out["K1"].append(dict(shape=[b, h, lq, lk, d], max_abs_err=err,
+                              device_ms=device_ms, **times))
+        if b == VIDEO_KERNEL_SHAPES[0][0]:
+            bwd = phase_kernels_bwd(card, q, k, v, o, lse, gen, tail)
+            for name, fam in (("K3", "K3 flash bwd dq"),
+                              ("K4", "K4 flash bwd dk/dv")):
+                rec = bwd[name]
+                out[name].append(dict(shape=[b, h, lq, lk, d],
+                                      max_abs_err=rec.pop("err"), **rec))
+        del q, k, v, o, lse
+    shape, c = VIDEO_GN_SHAPE, VIDEO_GN_SHAPE[-1]
+    x = (rnd(*shape) * 2.0 + 0.5).to(bf16)
+    scale, bias = 1.0 + 0.1 * rnd(c), 0.1 * rnd(c)
+    y = gn.group_norm_cuda(x, 32, scale, bias, 1e-5, "silu")
+    ref = gn.group_norm_plain_one_pass(x, 32, scale, bias, 1e-5, "silu")
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    check(_close(y, ref, 1.6e-2, 1.6e-2), f"K2 disagrees at {shape}")
+    run = lambda: gn.group_norm_cuda(x, 32, scale, bias, 1e-5, "silu")
+    x_nchw = x.permute(0, 3, 1, 2)
+    times = dict(zip(("bound_ms", "bound_by"),
+                     bound(10.0 * x.numel(),
+                           2.0 * x.numel() * x.element_size() + 8.0 * c,
+                           PEAK_FP32_FLOPS)),
+                 ms=cuda_ms(run),
+                 plain_ms=cuda_ms(lambda: gn.group_norm_plain_one_pass(
+                     x, 32, scale, bias, 1e-5, "silu"), 5, 1),
+                 library_ms=cuda_ms(lambda: F.silu(F.group_norm(
+                     x_nchw, 32, scale.to(bf16), bias.to(bf16), 1e-5)),
+                     10, 2))
+    device_ms = kernel_device_ms(run, "K2 group norm")
+    print(f"K2 group norm video UNet level 0 {shape} act=silu bf16: "
+          f"max|err|={err:.3e} (rtol 1.6e-2, atol 1.6e-2); {tail(**times)}; "
+          f"device {fmt_ms(device_ms)}", flush=True)
+    out["K2"] = [dict(shape=list(shape), act="silu", max_abs_err=err,
+                      device_ms=device_ms, **times)]
+    return out
+
+
+def phase_video(card):
+    """``cli/video.py train`` at the CLI's width (channel 64, 32^2, 8
+    frames, batch 32, bf16) for VIDEO_EPOCHS epochs of
+    VIDEO_STEPS_PER_EPOCH steps, then its CFG sampling of 3 clips over
+    ``--T`` = VIDEO_T steps (cut from 400) and the (class rows x frame
+    columns) PNG. Launches counted from 0 for the training and again for
+    the sampling; ms/step over the second epoch, frames/s, device idle share
+    (2 more steps profiled), peak memory; then one train step on the card
+    against the CPU. Returns the training's and the sampling's counts."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.cli import video as video_cli
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.data import (
+        SyntheticVideoDataset)
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.tiny_video_unet import (
+        TinyVideoUNet)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
+        DDPMTrainer)
+
+    bs, frames, size = 32, 8, 32
+    train_counts = []
+
+    def before(name):
+        if name == "sample":      # the training path ends, sampling starts
+            train_counts.append(read_counts())
+            reset_counts()
+
+    tmp = tempfile.mkdtemp()
+    try:
+        out = os.path.join(tmp, "video_grid.png")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with watched(DDPMTrainer, ("train_step", "sample", "fit"),
+                     before) as calls:
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = video_cli.main([
+                "train", "--epochs", str(VIDEO_EPOCHS), "--clips",
+                str(bs * VIDEO_STEPS_PER_EPOCH), "--T", str(VIDEO_T),
+                "--device", "cuda", "--out", out])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            sample_counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(out, "rb") as f:
+            data = f.read()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    train = train_counts[0]
+    steps = calls["train_step"]
+    n = len(steps)
+    step_ms = window_ms(steps, VIDEO_STEPS_PER_EPOCH)
+    sample = calls["sample"][0]
+    sample_ms = sample["start"].elapsed_time(sample["end"])
+    trainer, state = calls["fit"][0]["self"], calls["fit"][0]["result"]
+    data_ms, batches = batch_ms(SyntheticVideoDataset(2 * bs, size,
+                                                      frames=frames), bs)
+
+    def two_steps():
+        for clips, labels in batches:
+            trainer.train_step(state, clips, labels)
+
+    busy, fams = busy_per_call(two_steps, 2)
+    idle = 1.0 - busy / step_ms
+    img = png_pixels(data)
+    losses = [h["loss"] for h in trainer.history]
+    per_step = {k: train[k] / n for k in ("K1", "K3", "K4", "K2")}
+    print(f"video CLI train (TinyVideoUNet "
+          f"{trainer.num_params(state)} params, channel 64, {size}^2, "
+          f"{frames} frames, batch {bs}, bf16): rc {rc}, {secs:.2f} s in all; "
+          f"{n} steps, {step_ms:.2f} ms/step over the last "
+          f"{n - VIDEO_STEPS_PER_EPOCH} (CUDA events, the host's time between "
+          f"steps included), {1e3 * bs * frames / step_ms:.1f} frames/s "
+          f"({1e3 * bs / step_ms:.2f} clips/s); device busy {busy:.2f} "
+          f"ms/step, idle share {idle:.3f}; a batch of clips made on the "
+          f"host in {data_ms:.2f} ms; peak {peak:.2f} GiB; epoch "
+          f"losses {[round(x, 5) for x in losses]}; launches per step "
+          f"{per_step} (predicted K1 2, K3 2, K4 2, K2 22) [{card}]",
+          flush=True)
+    print_profile(fams, [], 2, "step")
+    print(f"video CLI CFG sampling of 3 clips, T={VIDEO_T} (UNet batch 6, "
+          f"48 folded frames): {sample_ms:.1f} ms, {sample_ms / VIDEO_T:.2f} "
+          f"ms/step, launches {sample_counts}; PNG {len(data)} bytes "
+          f"{img.shape} [{card}]", flush=True)
+    check(rc == 0 and img.shape == (3 * size, frames * size, 3)
+          and float(img.std()) > 0, f"video CLI: rc {rc}, grid {img.shape}")
+    check(n == VIDEO_EPOCHS * VIDEO_STEPS_PER_EPOCH, f"video: {n} steps")
+    check(all(np.isfinite(losses)), f"video: losses {losses}")
+    for k, per in VIDEO_TRAIN_PER_STEP.items():
+        check(train[k] == per * n, f"video training {k} launches "
+              f"{train[k]} != {per} x {n}")
+    for k, per in VIDEO_SAMPLE_PER_STEP.items():
+        check(sample_counts[k] == per * VIDEO_T, f"video sampling {k} "
+              f"launches {sample_counts[k]} != {per} x {VIDEO_T}")
+
+    # one step on the card against the CPU: 2 clips at the CLI's width
+    cfg = trainer.cfg
+    pair = {}
+    for dev, dt in (("cuda", cfg.dtype), ("cpu", "fp32")):
+        model = TinyVideoUNet(base_channels=cfg.channel, num_classes=3,
+                              dtype=torch.bfloat16 if dt == "bf16"
+                              else torch.float32)
+        t = DDPMTrainer(dataclasses.replace(cfg, dtype=dt), device=dev,
+                        model=model, sample_shape=trainer.sample_shape)
+        pair[dev] = (t, t.create_state(1))
+    copy_weights(state.model, pair["cuda"][1].model)
+    copy_weights(state.model, pair["cpu"][1].model)
+    rng = np.random.default_rng(17)
+    clips, labels = batches[0][0][:2], batches[0][1][:2]
+    draws = dict(drop=np.asarray([False, True]),
+                 t=rng.integers(0, cfg.T, 2),
+                 noise=rng.standard_normal(clips.shape).astype(np.float32))
+    grad = against_cpu(card, "video", pair, lambda tr, st: tr.train_step(
+        st, clips, labels, **draws)[1],
+        re.compile(r"^(enc1|dec2)_att\.attn1\."))
+    del trainer, state, pair
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train, sample_counts, dict(
+        step_ms=step_ms, busy_ms=busy, idle=idle, peak_gib=peak,
+        data_ms=data_ms, sample_ms=sample_ms, **grad)
+
+
+def phase_vae(card):
+    """``cli/vae.py train --synthetic`` at its defaults (512^2, batch 7,
+    bf16) for one epoch (8 steps, cut from 40 epochs) with ``--model
+    vqvae`` and ``--model vanilla``, its checkpoint written to TMPDIR:
+    ms/step over the last 6, peak memory, the VQ code usage on a batch; then
+    one step on the card against the CPU (batch 2 at 512^2). Returns each
+    model's counts."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.cli import vae as vae_cli
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.data import (
+        SyntheticImageDataset)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.vae_trainer import (
+        VAETrainer)
+
+    runs, stats = [], {}
+    for model in ("vqvae", "vanilla"):
+        tmp = tempfile.mkdtemp()
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with watched(VAETrainer, ("train_step", "fit")) as calls:
+                reset_counts()
+                t0 = time.perf_counter()
+                rc = vae_cli.main(["train", "--model", model, "--synthetic",
+                                   "--epochs", "1", "--model-dir", tmp,
+                                   "--device", "cuda"])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            ckpt_bytes = dir_bytes(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        trainer, state = calls["fit"][0]["self"], calls["fit"][0]["result"]
+        steps = calls["train_step"]
+        step_ms = window_ms(steps, 2)
+        cfg = trainer.cfg
+        data_ms, batches = batch_ms(SyntheticImageDataset(
+            2 * cfg.batch_size, cfg.img_size), cfg.batch_size)
+        busy, _ = busy_per_call(lambda: [trainer.train_step(state, b[0])
+                                         for b in batches], 2)
+        idle = 1.0 - busy / step_ms
+        x = batches[0][0]
+        usage = ""
+        if model == "vqvae":
+            with torch.no_grad():
+                _, _, idx = state.model.eval()(torch.as_tensor(x,
+                                                               device="cuda"))
+            used = int(torch.unique(idx).numel())
+            usage = (f", VQ codes used on a batch {used} of "
+                     f"{cfg.num_embeddings}")
+            stats[f"{model}_codes_used"] = used
+        losses = [h["loss"] for h in trainer.history]
+        print(f"vae CLI train --model {model} ({trainer.num_params(state)} "
+              f"params, {cfg.img_size}^2, batch {cfg.batch_size}, "
+              f"{cfg.dtype}): rc {rc}, {secs:.2f} s with the init and a "
+              f"{ckpt_bytes / 2 ** 30:.2f} GiB checkpoint; {len(steps)} steps, "
+              f"{step_ms:.2f} ms/step over the last {len(steps) - 2}, "
+              f"{1e3 * cfg.batch_size / step_ms:.1f} img/s; device busy "
+              f"{busy:.2f} ms/step, idle share {idle:.3f}; a batch made on "
+              f"the host in {data_ms:.2f} ms; peak {peak:.2f} "
+              f"GiB{usage}; epoch loss {losses}; launches {counts} [{card}]",
+              flush=True)
+        check(rc == 0 and len(steps) == 8 and all(np.isfinite(losses)),
+              f"vae {model}: rc {rc}, {len(steps)} steps, losses {losses}")
+        check(dict(counts) == NO_LAUNCHES, f"vae {model} launches {counts}")
+        runs.append(counts)
+        pair = {}
+        for dev, dt in (("cuda", cfg.dtype), ("cpu", "fp32")):
+            t = VAETrainer(dataclasses.replace(cfg, dtype=dt), device=dev)
+            pair[dev] = (t, t.create_state())
+        copy_weights(state.model, pair["cuda"][1].model)
+        copy_weights(state.model, pair["cpu"][1].model)
+        eps = np.random.default_rng(3).standard_normal(
+            (2, cfg.latent_dim)).astype(np.float32)
+        kw = dict(eps=eps) if model == "vanilla" else {}
+        grad = against_cpu(card, f"vae {model}", pair,
+                           lambda tr, st: tr.train_step(st, x[:2], **kw)[1][
+                               "loss"])
+        stats[model] = dict(step_ms=step_ms, busy_ms=busy, idle=idle,
+                            data_ms=data_ms, peak_gib=peak, **grad)
+        del trainer, state, pair, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, stats
+
+
+def phase_vit(card):
+    """``cli/vit.py train --synthetic`` at its defaults (128^2, patch 32,
+    dim 512, depth 6, batch 256, bf16, dropout 0.1) for one epoch (8 steps,
+    cut from 10 epochs) and its ``evaluate`` on 2 validation batches:
+    ms/step over the last 6, the accuracy; then one step (dropout 0, batch
+    16) on the card against the CPU. Returns the counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.cli import vit as vit_cli
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.data import (
+        SyntheticImageDataset)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.vit_trainer import (
+        ViTTrainer)
+
+    tmp = tempfile.mkdtemp()
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with watched(ViTTrainer, ("train_step", "evaluate", "fit")) as calls:
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = vit_cli.main(["train", "--synthetic", "--epochs", "1",
+                               "--model-dir", tmp, "--device", "cuda"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    trainer, state = calls["fit"][0]["self"], calls["fit"][0]["result"]
+    steps = calls["train_step"]
+    step_ms = window_ms(steps, 2)
+    ev = calls["evaluate"][0]
+    eval_ms = ev["start"].elapsed_time(ev["end"])
+    cfg, hist = trainer.cfg, trainer.history[-1]
+    data_ms, batches = batch_ms(SyntheticImageDataset(
+        2 * cfg.batch_size, cfg.img_size, num_classes=cfg.num_class),
+        cfg.batch_size)
+    busy, _ = busy_per_call(lambda: [trainer.train_step(state, *b)
+                                     for b in batches], 2)
+    idle = 1.0 - busy / step_ms
+    print(f"vit CLI train ({trainer.num_params(state)} params, "
+          f"{cfg.img_size}^2, patch {cfg.patch_size}, dim {cfg.dim}, depth "
+          f"{cfg.depth}, batch {cfg.batch_size}, {cfg.dtype}): rc {rc}, "
+          f"{secs:.2f} s in all; {len(steps)} steps, {step_ms:.2f} ms/step "
+          f"over the last {len(steps) - 2}, "
+          f"{1e3 * cfg.batch_size / step_ms:.1f} img/s; device busy "
+          f"{busy:.2f} ms/step, idle share {idle:.3f}; a batch made on the "
+          f"host in {data_ms:.2f} ms; peak {peak:.2f} GiB; "
+          f"loss {hist['loss']:.5f}; evaluate {eval_ms:.1f} ms, accuracy "
+          f"{ev['result']:.4f} (logged {hist.get('val_acc')}); launches "
+          f"{counts} [{card}]", flush=True)
+    check(rc == 0 and len(steps) == 8 and np.isfinite(hist["loss"])
+          and 0.0 <= ev["result"] <= 1.0,
+          f"vit: rc {rc}, {len(steps)} steps, {hist}")
+    check(dict(counts) == NO_LAUNCHES, f"vit launches {counts}")
+    pair = {}
+    for dev, dt in (("cuda", cfg.dtype), ("cpu", "fp32")):
+        t = ViTTrainer(dataclasses.replace(cfg, dtype=dt, dropout=0.0,
+                                           emb_dropout=0.0), device=dev)
+        pair[dev] = (t, t.create_state())
+    copy_weights(state.model, pair["cuda"][1].model)
+    copy_weights(state.model, pair["cpu"][1].model)
+    ds = SyntheticImageDataset(16, cfg.img_size, num_classes=cfg.num_class)
+    x = np.stack([ds.load(i)[0] for i in range(16)])
+    y = np.asarray([ds.load(i)[1] for i in range(16)])
+    grad = against_cpu(card, "vit", pair,
+                       lambda tr, st: tr.train_step(st, x, y)[1])
+    del trainer, state, pair, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(step_ms=step_ms, busy_ms=busy, idle=idle,
+                        data_ms=data_ms, peak_gib=peak, accuracy=ev["result"],
+                        **grad)
+
+
 def main():
     marks = [("start", time.perf_counter())]
 
@@ -5502,7 +6040,8 @@ def main():
              "sampling", "train_accum", "train_resume", "latent_training",
              "latent_sampling", "mmdit_training", "mmdit_sampling",
              "mmdit_lora", "vlm_training", "vlm_decoding", "vlm_checkpoint",
-             "sd1_fp32",
+             "video_training", "video_sampling", "vae_vqvae", "vae_vanilla",
+             "vit_training", "sd1_fp32",
              "sd1_768_fp32", "sd3_fp32", "t5_fp32", "vlm_fp32",
              "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64")
     sd1_launches, sd1_models, sd1_image = phase_sd1(card)
@@ -5568,6 +6107,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mark("vlm")
+    kernels_video = phase_kernels_video(card, tail)
+    video_train, video_sample, _ = phase_video(card)
+    runs += [video_train, video_sample]
+    runs += phase_vae(card)[0]
+    runs.append(phase_vit(card)[0])
+    mark("zoo")
     fp32_runs += phase_train_fp32(card)
     mark("fp32_training")
     print("seconds by group of phases: " + json.dumps(
@@ -5640,7 +6185,8 @@ def main():
     # the bf16 training paths: every K3 / K4 launch on its sm90 kernel
     for p, run in zip(paths, runs):
         if p in ("training", "train_accum", "train_resume",
-                 "latent_training", "vlm_training", "vlm_checkpoint"):
+                 "latent_training", "vlm_training", "vlm_checkpoint",
+                 "video_training"):
             for k in ("K3", "K4"):
                 r = getattr(run, k.lower() + "_routes")
                 check(r == {"sm90": run[k]} and run[k] > 0,
@@ -5692,7 +6238,8 @@ def main():
                           "80 columns"),
                   timed=kernels["d160"], **by_head_dim(160)),
               timed_at="(B,H,Lq,Lk,D)=(2,8,4096,4096,40)",
-              library="F.scaled_dot_product_attention", forms=forms_of("K1")),
+              library="F.scaled_dot_product_attention", forms=forms_of("K1"),
+              video=kernels_video["K1"]),
         entry("group_norm_silu", "groupnorm.cu", "groupnorm_pallas.py:29",
               "K2", timed_at="(2,64,64,320) + SiLU",
               design=("bf16 and fp32, one cooperative launch a call: a "
@@ -5710,7 +6257,7 @@ def main():
               device_ms=kernels["K2"].get("device_ms"),
               shapes=kernels["K2 shapes"],
               launch_path_us=kernels["K2 launch path us"],
-              library="F.group_norm + F.silu"),
+              library="F.group_norm + F.silu", video=kernels_video["K2"]),
         entry("flash_attention_bwd_dq", "flash_attention_dq_sm90.cu",
               "flash_attention.py:682", "K3", plain_computes=together,
               library_computes=together,
@@ -5727,7 +6274,7 @@ def main():
               sm90=by_route("sm90", "k3"),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
-              forms=forms_of("K3")),
+              forms=forms_of("K3"), video=kernels_video["K3"]),
         entry("flash_attention_bwd_dkv", "flash_attention_bwd_sm90.cu",
               "flash_attention.py:764", "K4", plain_computes=together,
               library_computes=together,
@@ -5743,7 +6290,7 @@ def main():
               sm90=by_route("sm90", "k4"),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
-              forms=forms_of("K4")),
+              forms=forms_of("K4"), video=kernels_video["K4"]),
         entry("flash_attention_fwd_pos", "flash_attention_sm90.cu",
               "flash_attention.py:1237", "K5",
               design=("bf16 at head dims 64 and 128, online and bounded: "

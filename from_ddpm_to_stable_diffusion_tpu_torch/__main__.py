@@ -3,6 +3,7 @@
 
     python -m from_ddpm_to_stable_diffusion_tpu_torch sd1 generate --prompt "…"
     python -m from_ddpm_to_stable_diffusion_tpu_torch serve
+    python -m from_ddpm_to_stable_diffusion_tpu_torch video train
 """
 
 from __future__ import annotations
@@ -12,10 +13,7 @@ import sys
 STAGES = ("sd1", "sd3", "vae", "vit", "tiny_sd", "video", "multimodal",
           "demos", "checks", "serve")
 # stages whose CLI is not ported yet, and the ROADMAP.md queue item of each
-NOT_PORTED = {"vae": "A7b; its models are A6",
-              "vit": "A7b; its models are A6",
-              "video": "A7b; its models are A6", "checks": "A7b",
-              "demos": "A7b"}
+NOT_PORTED = {"checks": "A7b", "demos": "A7b"}
 
 
 def main(argv=None):

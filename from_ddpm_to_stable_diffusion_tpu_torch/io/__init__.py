@@ -1,7 +1,8 @@
 """Host I/O: tokenizers, weight import, data pipelines."""
 
 from .data import (IMAGENET_MEANS, IMAGENET_STDS, DataLoader,
-                   ImageFolderDataset, SyntheticImageDataset, denormalize)
+                   ImageFolderDataset, SyntheticImageDataset,
+                   SyntheticVideoDataset, denormalize)
 from .shapes_dataset import CaptionedShapesDataset, ShapesDataset
 from .spm_tokenizer import (SD3Tokenizer, SentencePieceUnigram,
                             T5XXLTokenizer)

@@ -1,7 +1,8 @@
 """Image data and a batch loader (port of ``io/data.py``).
 
-:class:`SyntheticImageDataset` draws each item from its own numpy seed, as
-the JAX class does, so both give the same images. :class:`ImageFolderDataset`
+:class:`SyntheticImageDataset` and :class:`SyntheticVideoDataset` draw each
+item from its own numpy seed, as the JAX classes do, so both give the same
+images and clips. :class:`ImageFolderDataset`
 reads ``root/<class>/*.png`` (Pillow, imported inside ``load``: nothing else
 of the port needs it) and normalizes with the ImageNet statistics, or to
 [−1, 1]. :class:`DataLoader` has the same order (``default_rng(seed +
@@ -90,6 +91,40 @@ class SyntheticImageDataset:
         img = rng.uniform(-1, 1, (self.img_size, self.img_size,
                                   self.channels)).astype(np.float32)
         return img, int(idx % self.num_classes)
+
+
+class SyntheticVideoDataset:
+    """Deterministic moving-square clips: each item is a (T, S, S, 3) clip in
+    [−1, 1] whose square moves right, down or diagonally by its class label
+    (0, 1, 2), so only the frames' order tells the classes apart."""
+
+    def __init__(self, n: int, img_size: int, frames: int = 8,
+                 num_classes: int = 3, seed: int = 0):
+        self.n = n
+        self.img_size = img_size
+        self.frames = frames
+        self.num_classes = num_classes
+        self.seed = seed
+        self.class_names = ["right", "down", "diag"][:num_classes]
+
+    def __len__(self):
+        return self.n
+
+    def load(self, idx: int):
+        rng = np.random.default_rng(self.seed * 1_000_003 + idx)
+        label = int(idx % self.num_classes)
+        s = self.img_size
+        sq = max(2, s // 4)
+        hi = max(1, s - sq - self.frames)  # the whole motion stays in frame
+        x0 = int(rng.integers(0, hi))
+        y0 = int(rng.integers(0, hi))
+        dx, dy = [(1, 0), (0, 1), (1, 1)][label]
+        color = rng.uniform(0.5, 1.0, (3,)).astype(np.float32)
+        clip = np.full((self.frames, s, s, 3), -1.0, np.float32)
+        for f in range(self.frames):
+            xx, yy = x0 + f * dx, y0 + f * dy
+            clip[f, yy:yy + sq, xx:xx + sq] = color
+        return clip, label
 
 
 class DataLoader:

@@ -7,9 +7,15 @@ conversion only renames and transposes leaves (the reverse of
 - 4-D ``kernel`` (kH, kW, I, O) -> conv ``weight`` (O, I, kH, kW)
 - 2-D ``kernel`` (I, O) -> linear ``weight`` (O, I)
 - ``scale`` -> norm ``weight``; ``embedding`` -> embedding ``weight``
-- every other leaf (``bias``, ``position_value``) keeps its name; so do a
+- every other leaf (``bias``, ``position_value``, ``cls_token``,
+  ``pos_embed``, a VQ ``codebook``) keeps its name; so do a
   ``QuantDense``'s ``q`` (K, N) int8, turned to (N, K) as a linear weight,
   and its ``scale`` (``ops/quantize.py::QuantLinear``'s buffers).
+- a Flax ``ConvTranspose`` kernel (kH, kW, I, O) turns as a conv kernel
+  does: ``models/vae.py::ConvTranspose2d`` stores it so and flips it at the
+  call;
+- the ``batch_stats`` collection of a Flax ``BatchNorm`` (``mean``,
+  ``var``) fills the port's ``BatchNorm`` buffers of the same names.
 
 :func:`jax_params_from_module` goes the other way (a trained port model, or
 its EMA, as the tree the JAX trainer keeps in ``TrainState.params`` /
@@ -87,10 +93,16 @@ def load_state_checked(module: nn.Module, sd: Mapping[str, torch.Tensor],
     return module
 
 
-def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
-    """Fill every parameter of ``module`` from ``tree``, consuming every
-    leaf of it; raises on a missing or unused leaf or a shape mismatch."""
-    return load_state_checked(module, state_dict_from_jax(tree), "JAX leaf")
+def load_jax_params(module: nn.Module, tree: Mapping,
+                    batch_stats: Optional[Mapping] = None) -> nn.Module:
+    """Fill every parameter of ``module`` from ``tree`` (and its BatchNorm
+    running statistics from ``batch_stats``, the Flax collection),
+    consuming every leaf; raises on a missing or unused leaf or a shape
+    mismatch."""
+    sd = state_dict_from_jax(tree)
+    if batch_stats is not None:
+        sd.update(state_dict_from_jax(batch_stats))
+    return load_state_checked(module, sd, "JAX leaf")
 
 
 def jax_params_from_module(

@@ -6,7 +6,7 @@ checkpoint layout (``vision_model.*`` keys); :func:`import_siglip_vision`
 maps it onto ``models.siglip.SiglipVisionModel`` through the rule machinery
 of :mod:`.weights`, the tower's config sniffed from tensor shapes.
 
-Not ported: ``import_openai_clip`` and its rules (queue A6 of ROADMAP.md),
+Not ported: ``import_openai_clip`` and its rules (queue A6b of ROADMAP.md),
 which wait for a port of ``models/clip.py`` to load into.
 """
 

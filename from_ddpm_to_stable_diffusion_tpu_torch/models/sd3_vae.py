@@ -5,14 +5,14 @@ ch = 128, multipliers (1, 2, 4, 4), two res blocks per level in the
 encoder and three in the decoder, mid ResNet / attention / ResNet, z = 16;
 NHWC, fp32 norm statistics, built on the SD1 port's ``VAEResBlock``,
 ``VAEAttentionBlock`` and its stride-2 downsample with the asymmetric
-(0, 1, 0, 1) pad. The reparameterised encode (mean + std * noise, the
-log-variance clamped to [-30, 20]) is ``SD3Inferencer.vae_encode``; the JAX
-package's ``SDVAE`` pair has no counterpart.
+(0, 1, 0, 1) pad. :class:`SDVAE` pairs them with the reparameterised
+encode (mean + std * noise, the log-variance clamped to [-30, 20]), as
+``SD3Inferencer.vae_encode`` does on the serving path.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -126,3 +126,32 @@ class SD3VAEDecoder(nn.Module):
                 h = getattr(self, f"up{i_level}_upsample")(
                     upsample_nearest_2x(h))
         return self.conv_out(self.norm_out(h)).float()
+
+
+class SDVAE(nn.Module):
+    """Paired encoder / decoder with the reparameterised encode. The modules
+    compute in their weights' dtype (cast the pair for bf16); the JAX
+    ``rng`` is ``noise`` (a standard-normal array of the latent's shape) or
+    a draw from ``generator``."""
+
+    def __init__(self):
+        super().__init__()
+        self.encoder = SD3VAEEncoder()
+        self.decoder = SD3VAEDecoder()
+
+    def encode(self, image, noise=None,
+               generator: Optional[torch.Generator] = None):
+        mean, log_var = self.encoder(image).chunk(2, dim=-1)
+        std = torch.exp(0.5 * log_var.clamp(-30.0, 20.0))
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator,
+                                device=mean.device)
+        return mean + std * torch.as_tensor(noise, dtype=mean.dtype,
+                                            device=mean.device)
+
+    def decode(self, latent):
+        return self.decoder(latent)
+
+    def forward(self, image, noise=None,
+                generator: Optional[torch.Generator] = None):
+        return self.decode(self.encode(image, noise, generator))

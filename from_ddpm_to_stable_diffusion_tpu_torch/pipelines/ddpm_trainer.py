@@ -113,7 +113,9 @@ class TrainState:
 
     def state_dict(self) -> dict:
         """Everything a resume needs, as a tree of tensors and numbers: the
-        state's own tensors, not copies (``torch.save`` copies them)."""
+        state's own tensors, not copies (``torch.save`` copies them); the
+        model's buffers (a VAE's BatchNorm running statistics, the JAX
+        state's ``batch_stats``) too."""
         detached = lambda tree: {n: t.detach() for n, t in
                                  _flat(tree).items()}
         return dict(
@@ -122,13 +124,15 @@ class TrainState:
             optimizer=self.optimizer.state_dict(),
             ema=None if self.ema_params is None else detached(
                 self.ema_params),
-            acc_grads=self.acc_grads)
+            acc_grads=self.acc_grads,
+            buffers=dict(self.model.named_buffers()))
 
     @torch.no_grad()
     def load_state_dict(self, saved: Mapping) -> None:
         """Fills this state, in place, from :meth:`state_dict`'s tree."""
-        for key, own in (("params", self.params), ("ema", self.ema_params)):
-            own, got = _flat(own or {}), saved[key] or {}
+        for key, own in (("params", self.params), ("ema", self.ema_params),
+                         ("buffers", dict(self.model.named_buffers()))):
+            own, got = _flat(own or {}), saved.get(key) or {}
             if set(own) != set(got):
                 raise ValueError(f"checkpoint {key}: {sorted(set(own) ^ set(got))}"
                                  " differ from the state's")
@@ -217,14 +221,16 @@ def new_train_state(model: nn.Module, cfg, steps_per_epoch: int = 1, *,
                       accum, acc_grads=acc)
 
 
-def apply_update(state: TrainState, loss: torch.Tensor, grad_clip: float,
+def apply_update(state: TrainState, loss: torch.Tensor,
+                 grad_clip: Optional[float],
                  ema_decay: Optional[float]) -> bool:
     """One micro-step of ``state`` in place from a scalar ``loss``:
     backward, then, with ``state.accum`` > 1, the gradient folded into the
     window's running mean (optax's Welford form acc + (g − acc)/(n + 1), in
     fp32). On the window's last micro-step (every step without
-    accumulation): the mean clipped to ``grad_clip`` by its global norm,
-    AdamW at the rate of the update count before this one, the EMA. The
+    accumulation): the mean clipped to ``grad_clip`` by its global norm
+    (not clipped when ``grad_clip`` is None), AdamW at the rate of the
+    update count before this one, the EMA. The
     other micro-steps leave parameters, moments and EMA untouched. Returns
     whether the parameters were updated."""
     params = list(state.trainable().values())
@@ -244,7 +250,8 @@ def apply_update(state: TrainState, loss: torch.Tensor, grad_clip: float,
             torch._foreach_copy_(grads, state.acc_grads)
             torch._foreach_zero_(state.acc_grads)
         state.mini_step = 0
-    clip_by_global_norm_(grads, grad_clip)
+    if grad_clip is not None:
+        clip_by_global_norm_(grads, grad_clip)
     for group in state.optimizer.param_groups:
         group["lr"] = state.schedule(state.updates)
     state.optimizer.step()
@@ -446,21 +453,29 @@ class DDPMTrainer:
 
     # ---------------- sample ----------------
     @torch.no_grad()
-    def sample(self, state: TrainState, labels,
-               use_ema: bool = False) -> torch.Tensor:
+    def sample(self, state: TrainState, labels, use_ema: bool = False, *,
+               noise=None, step_noise=None) -> torch.Tensor:
         """CFG ancestral sampling over ``config.T`` steps, noise seeded with
         ``config.seed + 2``; ``labels`` are 1-based class ids
         (0 = unconditional). Returns (N,) + ``sample_shape`` in [−1, 1], or
-        the decoded images, clipped to [−1, 1], in latent space."""
+        the decoded images, clipped to [−1, 1], in latent space. ``noise``
+        (x_T) and ``step_noise`` (one array per loop step) replace the
+        draws, as the tests feed the JAX sampler's."""
         cfg, dev = self.cfg, self.device
         generator = torch.Generator(device=dev).manual_seed(cfg.seed + 2)
         labels = torch.as_tensor(np.asarray(labels), device=dev).long()
         state.model.eval()
         model_fn = state.model_fn(state.ema_params if use_ema else None)
-        x_T = torch.randn((labels.shape[0],) + self.sample_shape,
-                          generator=generator, device=dev)
+        if noise is None:
+            x_T = torch.randn((labels.shape[0],) + self.sample_shape,
+                              generator=generator, device=dev)
+        else:
+            x_T = torch.as_tensor(noise, dtype=torch.float32, device=dev)
+        noise_fn = None if step_noise is None else (
+            lambda step: torch.as_tensor(step_noise[step],
+                                         dtype=torch.float32, device=dev))
         out = ddpm_sample(model_fn, self.tables, x_T, labels, cfg.T,
-                          w=cfg.w, generator=generator)
+                          w=cfg.w, generator=generator, noise_fn=noise_fn)
         if self.latent_decode_fn is not None:
             out = self.latent_decode_fn(out).clamp(-1.0, 1.0)
         return out

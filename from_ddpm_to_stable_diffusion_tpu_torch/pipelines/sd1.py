@@ -45,6 +45,8 @@ from ..io.weights import (import_sd1_clip, import_sd1_unet,
                           import_sd1_vae_decoder, import_sd1_vae_encoder)
 from ..models.sd1 import CLIPText, SD1UNet, VAEDecoder, VAEEncoder
 from ..models.siglip import SiglipVisionModel
+from ..models.vae import BatchNorm
+from ..models.vit import ViT
 from ..ops.embeddings import sd1_time_embedding
 from ..ops.image import rescale, to_uint8
 from ..ops.quantize import quantize_module
@@ -62,8 +64,10 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator):
     ``relative_attention_bias`` (standard normal) and CLIP's
     ``text_projection`` (identity). Keeps random-weight activations in the
     range the JAX package's random-init runs see. The SigLIP tower's
-    ``position_embedding`` and the TinyVLM's ``text_pos`` are normal(0.02)
-    tables there, unlike CLIP's zero position table."""
+    ``position_embedding``, the TinyVLM's ``text_pos`` and the ViT's
+    ``cls_token`` and ``pos_embed`` are normal(0.02) tables there, unlike
+    CLIP's zero position table; a VQ ``codebook`` is uniform(−1/K, 1/K);
+    BatchNorm running statistics start at mean 0, variance 1."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
@@ -86,11 +90,20 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator):
             p.normal_(0.0, 1.0, generator=generator)
         elif leaf == "text_projection":
             p.copy_(torch.eye(p.shape[0], device=p.device))
-        elif leaf == "text_pos" or (leaf == "position_embedding"
-                                    and isinstance(parent, SiglipVisionModel)):
+        elif (leaf == "text_pos"
+              or (leaf == "position_embedding"
+                  and isinstance(parent, SiglipVisionModel))
+              or (leaf in ("cls_token", "pos_embed")
+                  and isinstance(parent, ViT))):
             p.normal_(0.0, 0.02, generator=generator)
+        elif leaf == "codebook":
+            bound = 1.0 / p.shape[0]
+            p.uniform_(-bound, bound, generator=generator)
         else:                     # norm biases, position tables
             p.zero_()
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.reset_running_stats()
     return module
 
 

@@ -1,5 +1,5 @@
-"""Training configs (port of ``utils/config.py``'s ``TinySDConfig`` and
-``FlowTrainConfig``).
+"""Training configs (port of ``utils/config.py``'s ``TinySDConfig``,
+``FlowTrainConfig``, ``VAETrainConfig`` and ``ViTTrainConfig``).
 
 The same fields, names and defaults as the JAX dataclasses, so the same YAML
 files load. ``mesh_shape``, ``grad_accum`` and ``moe_aux_weight`` are kept
@@ -95,6 +95,64 @@ class FlowTrainConfig:
 
     @classmethod
     def from_yaml(cls, path: str) -> "FlowTrainConfig":
+        """Needs PyYAML, which the port does not otherwise use."""
+        import yaml
+
+        with open(path) as f:
+            return cls(**yaml.safe_load(f))
+
+
+@dataclasses.dataclass
+class VAETrainConfig:
+    """Stage-03 VAE / VQ-VAE training config."""
+
+    epoch: int = 40
+    batch_size: int = 7
+    img_size: int = 512
+    lr: float = 1e-4
+    weight_decay: float = 1e-4
+    embedding_dim: int = 4
+    num_embeddings: int = 128
+    model: str = "vqvae"  # vqvae | vanilla
+    latent_dim: int = 512  # vanilla VAE latent
+    kld_weight: float = 0.00025
+    model_dir: str = "./checkpoints/vae"
+    seed: int = 0
+    dtype: str = "bf16"
+    data_dir: Optional[str] = None
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "VAETrainConfig":
+        """Needs PyYAML, which the port does not otherwise use."""
+        import yaml
+
+        with open(path) as f:
+            return cls(**yaml.safe_load(f))
+
+
+@dataclasses.dataclass
+class ViTTrainConfig:
+    """Stage-04 ViT classification config."""
+
+    epoch: int = 10
+    batch_size: int = 256
+    img_size: int = 128
+    patch_size: int = 32
+    dim: int = 512
+    depth: int = 6
+    heads: int = 8
+    mlp_dim: int = 1024
+    num_class: int = 3
+    dropout: float = 0.1
+    emb_dropout: float = 0.1
+    lr: float = 1e-4
+    model_dir: str = "./checkpoints/vit"
+    seed: int = 0
+    dtype: str = "bf16"
+    data_dir: Optional[str] = None
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "ViTTrainConfig":
         """Needs PyYAML, which the port does not otherwise use."""
         import yaml
 

@@ -342,3 +342,16 @@ def test_cpu_tensors_never_reach_k4():
             dict(tfa.flash_attention_bwd_dkv_cuda.routes)) == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.flash_attention_bwd_dkv_cuda(q, q, q, q, lse, lse)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+def test_video_unet_level0_attention_has_k3_and_k4_routes(dtype):
+    """The backward of the video UNet's two flash-eligible attentions at
+    the video CLI's training point, (256, 1, 1024, 1024, 64), has a K3 and
+    a K4 route in both dtypes; nothing else of it is flash eligible."""
+    from test_torch_k1_sm90 import flash_eligible, video_unet_attentions
+
+    eligible = flash_eligible(video_unet_attentions(32, dtype))
+    assert eligible == [(256, 1, 1024, 1024, 64)] * 2
+    want = "sm90" if dtype == BF16 else "fp32"
+    assert tfa.k3_route(dtype, 64) == tfa.k4_route(dtype, 64) == want

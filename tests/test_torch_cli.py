@@ -13,7 +13,9 @@ equal to the inferencer's pixels; ``sd3 train --lora-rank 2 --grad-accum 2``
 at its defaults; ``tiny_sd train --synthetic`` then ``sample`` on a tiny
 YAML (the grid has the JAX grid's shape); ``multimodal train``, ``eval`` and
 ``chat``. Every mesh flag exits naming ROADMAP.md queue A8, and the
-``__main__`` dispatch sends the unported stages away with a non-zero exit.
+``__main__`` dispatch sends the unported stages away with a non-zero exit;
+``python -m`` of the ``vae``, ``vit`` and ``video`` stages prints their
+help (their runs at tiny sizes are in ``tests/test_torch_{vae,vit,video}.py``).
 """
 
 import argparse
@@ -47,7 +49,8 @@ PORTED_SUBCOMMANDS = [("sd1", "generate"), ("sd3", "generate"),
                       ("sd3", "train"), ("tiny_sd", "train"),
                       ("tiny_sd", "sample"), ("multimodal", "train"),
                       ("multimodal", "eval"), ("multimodal", "chat"),
-                      ("serve", None)]
+                      ("serve", None), ("vae", "train"), ("vit", "train"),
+                      ("video", "train")]
 REQUIRED = {("sd1", "generate"): ["--prompt", "x"],
             ("sd3", "generate"): ["--prompt", "x"],
             ("tiny_sd", "train"): ["--config", "c.yml"],
@@ -313,7 +316,7 @@ def test_main_dispatch(capsys):
     assert tmain.STAGES == jmain.STAGES
     assert tmain.main([]) == 2 and tmain.main(["nope"]) == 2
     assert tmain.main(["-h"]) == 0
-    for stage in ("vae", "vit", "video", "checks", "demos"):
+    for stage in ("checks", "demos"):
         assert tmain.main([stage, "train"]) == 2
         err = capsys.readouterr().err
         assert "not ported yet" in err and "A7b" in err
@@ -326,3 +329,12 @@ def test_main_dispatch(capsys):
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "--device" in proc.stdout and "--max-wait-ms" in proc.stdout
+
+
+@pytest.mark.parametrize("stage", ["vae", "vit", "video"])
+def test_python_m_zoo_stage_help(stage):
+    proc = subprocess.run(
+        [sys.executable, "-m", PORT, stage, "train", "--help"], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout

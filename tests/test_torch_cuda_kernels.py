@@ -2103,3 +2103,34 @@ def test_int8_dot_and_quant_linear_on_the_card(gen):
         tq.int8_dot(_randn(gen, 20, 64),
                     torch.ones(64, 12, dtype=torch.int8, device="cuda"),
                     torch.ones(12, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_flash_kernels_at_the_video_unet_shape(gen, dtype):
+    """K1, K3 and K4 at the video UNet's level-0 attention on the video
+    CLI's train batch, (256, 1, 1024, 1024, 64), against the plain versions:
+    bf16 out 2e-2, lse 1e-3, each gradient 2e-2 of its largest; fp32 at
+    the fp32 tolerances above."""
+    b, h, n, d = 256, 1, 1024, 64
+    q, k, v, g = (_randn(gen, b, h, n, d, dtype=dtype) for _ in range(4))
+    n1 = tfa.flash_attention_cuda.launches
+    out, lse = tfa.flash_attention_cuda(q, k, v)
+    n3 = tfa.flash_attention_bwd_dq_cuda.launches
+    n4 = tfa.flash_attention_bwd_dkv_cuda.launches
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+    assert (tfa.flash_attention_cuda.launches,
+            tfa.flash_attention_bwd_dq_cuda.launches,
+            tfa.flash_attention_bwd_dkv_cuda.launches) == (n1 + 1, n3 + 1,
+                                                           n4 + 1)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g)
+    if dtype == torch.bfloat16:
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+        _bwd_close(got, want)
+    else:
+        _f32_close(out, ref, "out")
+        _f32_close(lse, ref_lse, "lse")
+        for what, a, w in zip(("dq", "dk", "dv"), got, want):
+            _f32_close(a, w, what)

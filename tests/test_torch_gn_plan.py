@@ -71,14 +71,17 @@ def check_group_norm_plan(plan, b, hw, c, groups, itemsize, n_sm=H100_SMS):
     assert (seen == 1).all()
 
 
-def _group_norms(build, *shapes):
+def _group_norms(build, *shapes, groups=False):
     """The input shape of each GroupNorm one forward of ``build()`` runs, on
-    the meta device, on inputs of ``shapes``: (shape, dtype) pairs."""
+    the meta device, on inputs of ``shapes``: (shape, dtype) pairs. Every
+    group count is 32, unless ``groups``: then (shape, group count)
+    pairs."""
     seen = []
 
     def record(x, num_groups, scale, bias, eps=1e-5, act=None):
-        assert num_groups == 32
-        seen.append(tuple(x.shape))
+        assert groups or num_groups == 32
+        seen.append((tuple(x.shape), num_groups) if groups
+                    else tuple(x.shape))
         return torch.empty_like(x)
 
     saved = tgn.group_norm_forward
@@ -179,3 +182,31 @@ def test_group_norm_plan_refuses_rows_wider_than_a_block():
     # 1000 vectors a row: a block of lcm(1000, 32) = 4000 threads
     with pytest.raises(ValueError, match="threads"):
         tgn.group_norm_plan(1, 64, 8000, 32, 2)
+
+
+@pytest.mark.parametrize("batch", [32, 6], ids=["train", "cfg-sample"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_group_norm_plan_covers_the_video_unet(batch, dtype):
+    """``TinyVideoUNet`` at the video CLI's defaults (channel 64, 32², 8
+    frames; a train batch of 32 clips and CFG sampling of 3 at batch 6),
+    frames folded into the batch: 22 GroupNorms a forward (2 in each of 8
+    ResBlocks, 5 TransformerBlock ``norm_in``, the 16-group tail), the
+    largest slab (256, 32, 32, 64) + SiLU at batch 32; each shape's plan
+    walked as the kernel walks it."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.tiny_video_unet \
+        import TinyVideoUNet
+
+    seen = _group_norms(
+        lambda: TinyVideoUNet(base_channels=64, num_classes=3, dtype=dtype),
+        ((batch, 8, 32, 32, 3), dtype), ((batch,), torch.long),
+        ((batch,), torch.long), groups=True)
+    assert len(seen) == 22
+    assert {g for _, g in seen} == {16, 32}
+    assert ((8 * batch, 32, 32, 64), 16) in seen
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for shape, groups in sorted(set(seen)):
+        b, c = shape[0], shape[-1]
+        hw = int(np.prod(shape[1:-1]))
+        plan = tgn.group_norm_plan(b, hw, c, groups, itemsize, H100_SMS)
+        check_group_norm_plan(plan, b, hw, c, groups, itemsize)

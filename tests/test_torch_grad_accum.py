@@ -213,9 +213,9 @@ def test_accumulator_is_the_window_mean(ddpm_run):
 
 
 def test_trainers_take_every_jax_option():
-    """The port's trainers and their ``fit`` take the JAX trainers'
-    arguments, in order, plus ``device`` (and, for the TinyVLM, the model's
-    own arguments in place of the Flax module)."""
+    """The port's trainers (the VAE and ViT ones too) and their ``fit``
+    take the JAX trainers' arguments, in order, plus ``device`` (and, for
+    the TinyVLM, the model's own arguments in place of the Flax module)."""
     import inspect
 
     from from_ddpm_to_stable_diffusion_tpu.pipelines import (
@@ -226,8 +226,15 @@ def test_trainers_take_every_jax_option():
     def names(fn, drop=()):
         return [n for n in inspect.signature(fn).parameters if n not in drop]
 
+    from from_ddpm_to_stable_diffusion_tpu.pipelines import (
+        vae_trainer as jvae_trainer, vit_trainer as jvit_trainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import (
+        vae_trainer as tvae_trainer, vit_trainer as tvit_trainer)
+
     for port, jax_cls in ((DDPMTrainer, jddpm_trainer.DDPMTrainer),
-                          (MMDiTTrainer, jmmdit_trainer.MMDiTTrainer)):
+                          (MMDiTTrainer, jmmdit_trainer.MMDiTTrainer),
+                          (tvae_trainer.VAETrainer, jvae_trainer.VAETrainer),
+                          (tvit_trainer.ViTTrainer, jvit_trainer.ViTTrainer)):
         assert names(port.__init__, {"device"}) == names(jax_cls.__init__)
         assert names(port.fit) == names(jax_cls.fit)
     port = tvlm_trainer.VLMTrainer

@@ -229,3 +229,47 @@ def test_sd3_vae_encoder_and_tiled_head_attentions_have_a_k1_route(dtype):
             assert tattn._flash_eligible(on_card, keys)
             assert tfa.k1_route(dtype, d) == ("d512" if dtype == BF16
                                               else "fp32")
+
+
+def video_unet_attentions(batch, dtype):
+    """(B, H, Lq, Lk, D) of every attention of one ``TinyVideoUNet``
+    forward at the video CLI's defaults (channel 64, 32², 8 frames) on
+    ``batch`` clips, on the meta device."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.tiny_video_unet import (
+        TinyVideoUNet)
+
+    def run():
+        TinyVideoUNet(base_channels=64, num_classes=3, dtype=dtype)(
+            torch.empty(batch, 8, 32, 32, 3),
+            torch.empty(batch, dtype=torch.long),
+            torch.empty(batch, dtype=torch.long))
+
+    return _vae_attentions(run)
+
+
+def flash_eligible(attns):
+    """The attentions that the dispatch would send to the flash kernels on
+    the card."""
+    out = []
+    for b, h, lq, lk, d in attns:
+        on_card = types.SimpleNamespace(is_cuda=True, shape=(b, h, lq, d))
+        keys = types.SimpleNamespace(is_cuda=True, shape=(b, h, lk, d))
+        if tattn._flash_eligible(on_card, keys):
+            out.append((b, h, lq, lk, d))
+    return out
+
+
+@pytest.mark.parametrize("batch", [32, 6], ids=["train", "cfg-sample"])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+def test_video_unet_level0_attention_has_a_k1_route(batch, dtype):
+    """The video UNet at the CLI's defaults: the level-0 self-attentions of
+    ``enc1_att`` and ``dec2_att`` (1024 tokens of the 32² frames, one head
+    of 64, the frames folded into the batch: (B·8, 1, 1024, 1024, 64) for
+    a train batch of 32 and CFG sampling of 3 clips at batch 6) take K1 in
+    both dtypes; the other 13 attentions (the 16² and 8² levels, the
+    one-token cross-attentions, the 8-frame temporal attentions) stay
+    plain."""
+    attns = video_unet_attentions(batch, dtype)
+    assert len(attns) == 15   # 5 spatial blocks (self + cross), 5 temporal
+    assert flash_eligible(attns) == [(8 * batch, 1, 1024, 1024, 64)] * 2
+    assert tfa.k1_route(dtype, 64) == ("sm90" if dtype == BF16 else "fp32")

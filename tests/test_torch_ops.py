@@ -300,7 +300,9 @@ def test_port_never_imports_jax():
                "ops.quantize", "models.sd3_vae_tiled", "io.spm_tokenizer",
                "ops.image", "serving", "serving.batcher", "serving.server",
                "cli", "cli.serve", "cli.sd1", "cli.sd3", "cli.tiny_sd",
-               "cli.multimodal", "__main__"]
+               "cli.multimodal", "__main__", "models.tiny_video_unet",
+               "models.vae", "models.vit", "pipelines.vae_trainer",
+               "pipelines.vit_trainer", "cli.video", "cli.vae", "cli.vit"]
     # Pillow is not promised on the card's machine: only the calls that read
     # an image import it
     code = ("import sys\n"

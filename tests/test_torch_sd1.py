@@ -117,14 +117,18 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import (
-        ddpm_trainer, mmdit_trainer, sd3, vlm_trainer)
+        ddpm_trainer, mmdit_trainer, sd3, vae_trainer, vit_trainer,
+        vlm_trainer)
 
+    # DDPMTrainer is also the video trainer (model=TinyVideoUNet)
     for fn in (tpipe.SD1Models.from_jax, sd3.SD3Models.from_jax,
                tpipe.SD1Models.from_checkpoint_dir,
                sd3.SD3Models.from_checkpoints,
                sd3.SD3Models.initialize, ddpm_trainer.DDPMTrainer.__init__,
                mmdit_trainer.MMDiTTrainer.__init__,
-               vlm_trainer.VLMTrainer.__init__):
+               vlm_trainer.VLMTrainer.__init__,
+               vae_trainer.VAETrainer.__init__,
+               vit_trainer.ViTTrainer.__init__):
         default = inspect.signature(fn).parameters["device"].default
         assert str(default) == "cuda", (fn.__qualname__, default)
     # generate() and SD1Generator run where the bundle lies (from_jax puts
