@@ -19,8 +19,8 @@ two summary lines:
    (``csrc/flash_attention_sm90.cu``), the d = 512 K1
    (``csrc/flash_attention.cu``), all 16 of the sm90 K3 and 2 of the sm90 K6
    (``csrc/flash_attention_dq_sm90.cu``), all 16 of the sm90 K4 and 2 of the
-   sm90 K7 (``csrc/flash_attention_bwd_sm90.cu``), all 10 of the TF32 fp32
-   forward (K1 at seven head dims, K1 causal / K5 online, K5 bounded, T5's
+   sm90 K7 (``csrc/flash_attention_bwd_sm90.cu``), all 11 of the TF32 fp32
+   forward (K1 at eight head dims, K1 causal / K5 online, K5 bounded, T5's
    bias) and its d = 512 kernel (``csrc/fp32/flash_f32_fwd.cu``), and the 3
    + 3 of the TF32 fp32 backward (dq and dk/dv at 64 and 128, masked at 64:
    ``csrc/fp32/flash_f32_bwd.cu``) have both.
@@ -180,7 +180,7 @@ two summary lines:
    the same check on two planted faults of the flash backward (dk and dv
    swapped; dq without its scale), which it must catch.
 8. sampling: ``DDPMTrainer.sample`` of 4 labels, CFG as one batch-8
-   forward, over T = 250 steps (the trained weights under a config with a
+   forward, over T = 100 steps (the trained weights under a config with a
    shorter chain, to keep the run short); checks the images and the launches.
 9. MMDiT training: ``MMDiTTrainer`` at SD3-medium's width and depth
    (``MMDiTConfig()``: depth 24, hidden 1536, 24 heads of 64) and SD3's
@@ -255,6 +255,34 @@ against the same step on the CPU (fp32, plain versions) from the same
 weights and draws, the loss and gradients within the gradient check's
 tolerance.
 
+Stage 05 and evaluation (group ``clip_eval``, last): first K1, K3 and K4
+at the CLIP training's attention shape, (32, 16, 577, 577, 64), whose last
+tile of 64 keys holds one key, against the plain version in bf16 (sm90;
+times, device time, library, bound) and in fp32 (the TF32 kernels; their
+times and precision faults among the fp32 kernel phase's cases), each
+beside two planted faults of that tail (the last key dropped, its logits
+doubled) that must fall outside the tolerance; then ``CLIP()`` at its
+defaults (ViT-L/14 at 224^2, 427,616,513 parameters; random weights from
+seed 0) in fp32 and bf16: ``encode_image``, ``encode_text`` and the logits
+on a batch of 32, ``clip_score`` and ``clip_fid`` on two sets of 64 images,
+the card against the CPU on 2 pairs (no kernel: 257 tokens);
+``CLIPTrainer`` at ViT-L/14@336px (577 tokens), bf16 over fp32 parameters,
+batch 32 on one fixed batch: 2 steps through ``fit``, 5 timed, 2 profiled
+(ms/step, img/s, idle share, peak; K1 / K3 / K4 24 launches each a step on
+sm90; the loss falling, ``logit_scale`` <= ln 100) and a card-against-CPU
+gradient check at 2 + 2 layers; one fp32 step at 336^2 (the fp32 K1 / K3 /
+K4 at d = 64); the FID InceptionV3 from a synthetic pytorch-fid checkpoint
+through ``import_inception_fid``: ``inception_features`` of 64 images from
+512^2 (the antialiased downsample) and 64 from 64^2, ``inception_fid``,
+``kid_from_features``, ms per image, the card against the CPU; then
+``checks all --device cuda`` in process (fp32 K1 at head dims 8 (checks
+sd1), 64 and 128 counted) and through ``python -m``, ``checks weights``,
+``checks clip --ckpt`` on ``CLIP()`` in the OpenAI layout (where Pillow is
+installed), and ``demos replicate`` / ``multimodal`` / ``video``, each
+stopping with its actionable error. K1 in fp32 at head dim 8 is held
+against its plain version in the fp32 kernel phase, its bound counting the
+exponentials at the SFU's rate.
+
 Every kernel's launch count is set to 0 just before each of the SD1, SD1
 generator, serving, SD1 CLI, SD1 at 768^2, SD1 checkpoint, SD1 int8, SD3,
 SD3 img2img, SD3
@@ -262,7 +290,8 @@ batch 2 tiled, SD3 text, SD3 checkpoint, SD3 int8, SD3 offload, training,
 sampling, accumulation, resume, latent training, latent sampling, MMDiT
 training, MMDiT sampling, MMDiT LoRA, T5, TinyVLM training, TinyVLM
 decoding, TinyVLM checkpoint, video training, video sampling, VQ-VAE,
-VanillaVAE, ViT and fp32 paths and read
+VanillaVAE, ViT, CLIP forward, CLIP training, FID, checks and fp32 paths
+and read
 just after (before the plain-attention run it is compared with), K1's also
 by the kernel it ran (sm90, d512, fp32) and by head dim, K3's - K7's (but
 K2) by the kernel they ran (sm90, fp32): on every path the launches by
@@ -306,7 +335,7 @@ SD1_768_PER_STEP = {40: 5, 80: 5, 160: 5}
 # and K4; 39 GroupNorms (28 in 14 ResBlocks, 10 TransformerBlock norm_in,
 # the tail). The GroupNorm backward is plain PyTorch, so no K2 there.
 TRAIN_PER_STEP = dict(K1=6, K3=6, K4=6, K2=39, K5=0, K6=0, K7=0)
-SAMPLE_T = 250
+SAMPLE_T = 100   # the chain cut from the reference's T = 1000
 # SD3 request: 4 position-masked flash calls (context and x queries against
 # context and x keys) in each of 24 joint blocks x 50 steps; the VAE
 # decoder's one mid attention over 128 x 128 tokens takes K1; 30 GroupNorms
@@ -338,6 +367,10 @@ PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
 PEAK_TF32_FLOPS = 495e12   # dense TF32 on the tensor cores
 TF32_PASSES = 3            # the fp32 forward's split: hi hi + hi lo + lo hi
 PEAK_BYTES = 3.35e12       # HBM3
+# exponentials (MUFU.EX2) a second: 16 results per SM per clock (the CUDA C++
+# Programming Guide's throughput table, compute capability 9.0) on 132 SMs
+# at the 1.98 GHz boost clock
+PEAK_SFU_EXP2 = 16 * 132 * 1.98e9
 TPU_KERNELS = "from_ddpm_to_stable_diffusion_tpu/ops/"
 # Relative L2 error of the flattened gradient, card (bf16 compute, kernels)
 # against CPU (fp32, plain versions). bf16 keeps 8 significant bits, so
@@ -415,12 +448,13 @@ SM90_KERNELS = {  # kind -> (kernel name, instantiations)
 # outside the table fails the check.
 BF16_FAMILY = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv",
                "flash_bwd_dq", "flash_bwd_pos_dq")
-# The fp32 forward (TF32 split): seven head dims without a mask, the masked
+# The fp32 forward (TF32 split): eight head dims without a mask (8 for the
+# checks sd1 UNet, 40 - 160), the masked
 # form online (K1 causal, K5) and bounded (K5), T5's bias form; the d = 512
 # kernel. The fp32 backward (TF32 split): dq and dk/dv at head dims 64 and
 # 128 without a mask and their masked forms at 64 (K3 / K4 causal, K6 / K7).
 FP32_KERNELS = {
-    "K1/K5 fp32": ("flash_fwd_f32_kernel", 7 + 2 + 1),
+    "K1/K5 fp32": ("flash_fwd_f32_kernel", 8 + 2 + 1),
     "K1 fp32 d512": ("flash_fwd_f32_d512_kernel", 1),
     "K3/K6 fp32": ("flash_bwd_dq_f32_kernel", 3),
     "K4/K7 fp32": ("flash_bwd_dkv_f32_kernel", 3),
@@ -509,6 +543,10 @@ GN_CASES = [((2, 64, 64, 320), "silu", "bf16"),
 # of 160, batch 2 with CFG); kept apart from K1_SHAPES, which
 # compare_revisions.py also times on checkouts from before d = 160.
 K1_D160_SHAPE = (2, 8, 576, 576, 160)
+# K1 in fp32 at head dim 8: the level-0 self-attention of the ``checks sd1``
+# UNet (SD1UNet(model_channels=64), 8 heads) on its 32^2 latent; apart from
+# the fp32 cases compare_revisions.py times on older checkouts
+K1_D8_SHAPE = (1, 8, 1024, 1024, 8)
 # The mask forms at the TinyVLM step's shapes (the tower's 576 tokens, the
 # decoder's 576 + 8 causal), causal at head dim 128, T5's bias shared over
 # the batch, and packed sequences: (form, (B, H, Lq, Lk, D), masks), where
@@ -1631,8 +1669,11 @@ def phase_sd1(card):
         b = len(prompt_batch)
         for _ in range(3):  # a profile that recorded no kernel is run again
             n0 = read_counts()["K1"]
+            # the device alone: the host's operator events of a request
+            # cost tens of seconds in key_averages and nothing here reads
+            # them
             images, wall_ms, fams, n_kernels, rows = profile_device(
-                lambda: sd(prompt_batch, seed=seed))
+                lambda: sd(prompt_batch, seed=seed), cpu=False)
             if fams:
                 break
         check(bool(fams), f"torch.profiler recorded no kernel of the SD1 "
@@ -1695,7 +1736,7 @@ def phase_sd3(card):
         t = time.perf_counter()
         if what == "profiled":
             images, wall_ms, fams, n_kernels, rows = profile_device(
-                lambda: request(seed))
+                lambda: request(seed), cpu=False)
         else:
             images = request(seed)
             torch.cuda.synchronize()
@@ -2238,7 +2279,7 @@ def phase_sd3_int8(card, source):
     # where the int8 request's device time goes (after the counted run)
     _, wall_ms, fams, n_kernels, rows = profile_device(
         lambda: inf.gen_image(np.zeros((1, 77), np.int32), steps=SD3_STEPS,
-                              cfg_scale=5.0, seed=source["seed"]))
+                              cfg_scale=5.0, seed=source["seed"]), cpu=False)
     busy = sum(fams.values()) or float("nan")
     print(f"SD3 int8 profile of one request (torch.profiler, kernel rows "
           f"only): device busy {busy:.1f} ms over {n_kernels} kernels; wall "
@@ -3624,14 +3665,22 @@ def tf32_bound(b, h, lq, lk, d, share=1.0, n_products=2, n_q_like=2,
                n_k_like=2, n_stats=1):
     """The bound of an fp32 flash kernel on the tensor cores: its products
     (two for the forward, three for dq, four for dk/dv) in TF32_PASSES passes
-    at the dense TF32 rate, with the bytes floor, and beside it
-    (``fma_bound_ms``) the same work in fp32 FMAs at 67 TFLOP/s, for
-    comparison."""
+    at the dense TF32 rate, or the exponential of every visible logit at the
+    SFU's rate where that is longer (at small head dims: d = 8), with the
+    bytes floor; beside it (``fma_bound_ms``) the same products in fp32 FMAs
+    at 67 TFLOP/s, for comparison, and ``exp_bound_ms``."""
     shape = (b, h, lq, lk, d, n_products, n_q_like, n_k_like, n_stats, share)
-    return dict(**fp32_bound(*shape, peak=PEAK_TF32_FLOPS,
-                             passes=TF32_PASSES),
-                bound_basis=f"{TF32_PASSES} TF32 passes at 495 TFLOP/s",
-                fma_bound_ms=fp32_bound(*shape)["bound_ms"])
+    out = dict(**fp32_bound(*shape, peak=PEAK_TF32_FLOPS,
+                            passes=TF32_PASSES),
+               bound_basis=f"{TF32_PASSES} TF32 passes at 495 TFLOP/s",
+               fma_bound_ms=fp32_bound(*shape)["bound_ms"],
+               exp_bound_ms=1e3 * share * b * h * lq * lk / PEAK_SFU_EXP2)
+    if out["exp_bound_ms"] > out["bound_ms"]:
+        out.update(bound_ms=out["exp_bound_ms"], bound_by="operations",
+                   bound_basis=f"{share * b * h * lq * lk / 1e6:.1f} M "
+                   f"exponentials at the SFU's {PEAK_SFU_EXP2 / 1e12:.2f} "
+                   f"T/s")
+    return out
 
 
 def phase_kernels_fp32(card, tail):
@@ -3778,7 +3827,8 @@ def phase_kernels_fp32(card, tail):
                                             **masks)
 
     # K1, K3, K4: (B, H, Lq, Lk, D), causal, with the backward
-    for shape, causal, with_bwd in FP32_CASES:
+    for shape, causal, with_bwd in (*FP32_CASES,
+                                    (CLIP_KERNEL_SHAPE, False, True)):
         b, h, lq, lk, d = shape
         q, k, v, g = fused(b, lq, lk, h, d)
         what = "causal" if causal else "none"
@@ -3836,9 +3886,11 @@ def phase_kernels_fp32(card, tail):
     torch.cuda.empty_cache()
 
     # K1's fp32 forms that no earlier checkout had: head dim 160 (SD1's UNet
-    # at level 2 from 768^2) and T5's bias shared over the batch (scale 1.0;
-    # T5-XXL's 512 tokens), each held as the other K1 rows are.
-    for what, shape in (("d160", K1_D160_SHAPE), ("bias", FP32_T5_SHAPE)):
+    # at level 2 from 768^2), T5's bias shared over the batch (scale 1.0;
+    # T5-XXL's 512 tokens) and head dim 8 (the checks sd1 UNet), each held
+    # as the other K1 rows are.
+    for what, shape in (("d160", K1_D160_SHAPE), ("bias", FP32_T5_SHAPE),
+                        ("d8", K1_D8_SHAPE)):
         b, h, lq, lk, d = shape
         q, k, v, _ = fused(b, lq, lk, h, d)
         kw = dict(scale=1.0, bias=3.0 * rnd(1, h, lq, lk)) if what == "bias" \
@@ -6013,6 +6065,697 @@ def phase_vit(card):
                         **grad)
 
 
+# --------------------------------------------------------------------------
+# Stage 05 and evaluation (group ``clip_eval``): CLIP at CLIP()'s defaults,
+# its trainer at 336^2, FID / KID with the FID InceptionV3, and the checks
+# and demos CLIs.
+# --------------------------------------------------------------------------
+# CLIP training at 336^2 (577 tokens, 16 heads of 64): each of the vision
+# tower's 24 self-attentions takes K1 in the forward and K3 + K4 in the
+# backward; the 77-token causal text tower and every other op stay plain.
+CLIP_TRAIN_PER_STEP = dict(K1=24, K2=0, K3=24, K4=24, K5=0, K6=0, K7=0)
+CLIP_BATCH, CLIP_TRAIN_STEPS = 32, (2, 5)   # batch; warm (fit), timed steps
+CLIP_EVAL_IMAGES = 64                       # per set, clip_fid / clip_score
+FID_IMAGES = 64                             # per set, inception_features
+# checks all on the card: the sd1 UNet's five level-0 self-attentions (8
+# heads of 8 over 1024 tokens) and the tiny UNet's (base 64) six of at
+# least 512 tokens take K1, all in fp32: three at 64^2 (one head of 64 over
+# 4096 tokens) and at 32^2 two of 64 and one of 128 over 1024; every other
+# attention of the checks is under 512 tokens.
+CHECKS_K1_HEAD_DIMS = {8: 5, 64: 5, 128: 1}
+# The card in fp32 (TF32 off) against the CPU in fp32 on the same weights
+# and inputs: relative L2 of features and logits. Both sum in another order
+# through 24 (12) layers, ~1e-6 a layer; a wrong layer is off by O(1).
+CLIP_FP32_TOL = 1e-4
+# The card in bf16 compute against the CPU in fp32 (as GRAD_REL_TOL).
+CLIP_BF16_TOL = GRAD_REL_TOL
+FLASH_CLIP_LEAVES = re.compile(r"^visual\.block\d+\.attn\.qkv\.")
+
+
+# The vision tower's attention at 336^2, (B, H, Lq, Lk, D): 577 = 9 x 64 + 1
+# tokens, so the last tile of 64 keys (K3; K4's second consumer of a
+# 128-key block; the fp32 kernels' tiles of 16 to 64) holds a single key or
+# query, and K1's bf16 tile of 128 keys 65: a tail no other shape has. Held
+# in bf16 here and in fp32 among phase_kernels_fp32's cases too.
+CLIP_KERNEL_SHAPE = (CLIP_BATCH, 16, 577, 577, 64)
+
+
+def tail_faults(q, k, v):
+    """Two planted faults of the one-key tail, as (name, q, k, v, pad):
+    the last key dropped (what a kernel that skipped the tail tile computes;
+    its dk and dv rows padded with zeros) and the last key's logits doubled
+    (a tail tile scaled twice)."""
+    doubled = k.clone()
+    doubled[:, :, -1] *= 2.0
+    return (("tail key dropped", q, k[:, :, :-1], v[:, :, :-1], 1),
+            ("tail logit doubled", q, doubled, v, 0))
+
+
+def phase_kernels_clip(card, tail):
+    """K1, K3 and K4 at CLIP_KERNEL_SHAPE against the plain version, in bf16
+    (the sm90 kernels; times, device time, the library call and the bound)
+    and in fp32 (the TF32 kernels; errors here, their times and precision
+    faults in phase_kernels_fp32), each with the two planted tail faults,
+    which must fall outside the tolerance the kernel is held to. Returns
+    kernel name -> list of bf16 records."""
+    import torch
+    import torch.nn.functional as F
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(336)
+    b, h, lq, lk, d = shape = CLIP_KERNEL_SHAPE
+    out_rec = {"K1": [], "K3": [], "K4": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        # q, k, v slices of the fused (B, L, 3 C) projection, as attn does
+        q, k, v = (t.reshape(b, lq, h, d).transpose(1, 2) for t in
+                   torch.randn((b, lq, 3 * h * d), generator=gen,
+                               device="cuda").to(dtype).chunk(3, -1))
+        g = torch.randn((b, lq, h * d), generator=gen, device="cuda").to(
+            dtype).reshape(b, lq, h, d).transpose(1, 2)
+        # out, lse absolute; each gradient of its largest magnitude
+        tol = (2e-2, 1e-3, 2e-2) if name == "bf16" else (FP32_TOL,) * 3
+        n0 = fa.flash_attention_cuda.routes.get(
+            "sm90" if name == "bf16" else "fp32", 0)
+        o, lse = fa.flash_attention_cuda(q, k, v)
+        check(fa.flash_attention_cuda.routes.get(
+            "sm90" if name == "bf16" else "fp32", 0) == n0 + 1,
+            f"K1 {name} at {shape} did not take its kernel")
+        ref, ref_lse = fa.flash_attention_plain(q, k, v)
+        grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, g)
+        want = fa.flash_attention_bwd_plain(q, k, v, ref, ref_lse, g)
+        torch.cuda.synchronize()
+
+        def errors(o_, l_, grads_):
+            """out, lse and the worst gradient's error against the plain
+            version (the gradient's relative to its largest)."""
+            return ((o_.float() - ref.float()).abs().max().item(),
+                    (l_ - ref_lse).abs().max().item(),
+                    max((a.float() - w.float()).abs().max().item()
+                        / w.float().abs().max().item()
+                        for a, w in zip(grads_, want)))
+
+        err = errors(o, lse, grads)
+        faults = {}
+        for fault, fq, fk, fv, pad in tail_faults(q, k, v):
+            fo, fl = fa.flash_attention_plain(fq, fk, fv)
+            fg = list(fa.flash_attention_bwd_plain(fq, fk, fv, fo, fl, g))
+            for i in (1, 2):
+                fg[i] = torch.cat([fg[i], fg[i].new_zeros(b, h, pad, d)], 2)
+            faults[fault] = errors(fo, fl, fg)
+            del fo, fl, fg
+        check(all(e <= t for e, t in zip(err, tol)),
+              f"K1 / K3 / K4 {name} disagree at {shape}: out, lse, grad "
+              f"{err}, tol {tol}")
+        for fault, fe in faults.items():
+            check(any(e > t for e, t in zip(fe, tol)),
+                  f"{name} {shape}: the planted fault {fault} ({fe}) is not "
+                  f"outside the tolerance {tol}")
+        print(f"K1 / K3 / K4 {name} CLIP ViT-L/14@336 (B,H,Lq,Lk,D)={shape} "
+              f"(last key tile of one key): max|out err|={err[0]:.3e} "
+              f"max|lse err|={err[1]:.3e} max|grad err|/max|grad|="
+              f"{err[2]:.3e} (tol {tol}); planted faults (out, lse, grad): "
+              + "; ".join(f"{f} {fe[0]:.3e}, {fe[1]:.3e}, {fe[2]:.3e}"
+                          for f, fe in faults.items()), flush=True)
+        del ref, ref_lse, grads, want
+        if name == "bf16":
+            run = lambda: fa.flash_attention_cuda(q, k, v)
+            times = dict(zip(("bound_ms", "bound_by"),
+                             attn_bound(b, h, lq, lk, d)),
+                         ms=cuda_ms(run),
+                         plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                             q, k, v), 5, 1),
+                         library_ms=cuda_ms(
+                             lambda: F.scaled_dot_product_attention(q, k, v),
+                             10, 2))
+            device_ms = kernel_device_ms(run, "K1 flash fwd")
+            print(f"K1 flash fwd CLIP ViT-L/14@336 (B,H,Lq,Lk,D)={shape} "
+                  f"bf16: {tail(**times)}; device {fmt_ms(device_ms)}",
+                  flush=True)
+            out_rec["K1"].append(dict(shape=list(shape), max_abs_err=err[0],
+                                      lse_err=err[1], device_ms=device_ms,
+                                      tail_faults=faults, **times))
+            bwd = phase_kernels_bwd(card, q, k, v, o, lse, gen, tail)
+            for kname in ("K3", "K4"):
+                rec = bwd[kname]
+                out_rec[kname].append(dict(shape=list(shape),
+                                           max_abs_err=rec.pop("err"),
+                                           tail_faults=faults, **rec))
+        del q, k, v, g, o, lse
+        torch.cuda.empty_cache()
+    return out_rec
+
+
+def clip_model(device, dtype, **cfg):
+    """``CLIP(**cfg)`` computing in ``dtype`` over fp32 parameters on
+    ``device``, with the JAX module's initializers seeded with 0."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.clip import CLIP
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
+        init_params)
+
+    with torch.device("meta"):
+        model = CLIP(**cfg, dtype=dtype)
+    model = model.to_empty(device=device)
+    init_params(model, 0)
+    return model.eval()
+
+
+def clip_pairs(n, res, seed, device="cuda"):
+    """``n`` synthetic (image, caption) pairs made on ``device``: images
+    uniform in [-1, 1], captions [BOS, words, EOS, 0 ...] of 77 ids with the
+    EOS (49407, the largest id) at a random position."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    images = torch.rand((n, res, res, 3), generator=gen, device=device)
+    tokens = torch.randint(1, 49406, (n, 77), generator=gen, device=device)
+    ends = torch.randint(4, 77, (n,), generator=gen, device=device)
+    pos = torch.arange(77, device=device)
+    tokens = torch.where(pos[None] > ends[:, None], 0, tokens)
+    tokens[torch.arange(n, device=device), ends] = 49407
+    tokens[:, 0] = 49406
+    return images * 2.0 - 1.0, tokens
+
+
+def _rel(a, b):
+    a, b = a.double().cpu().flatten(), b.double().cpu().flatten()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_clip_forward(card):
+    """CLIP at CLIP()'s defaults (ViT-L/14 at 224^2, 257 tokens: attention
+    plain), random weights from seed 0, in fp32 and bf16: encode_image,
+    encode_text and the logits on a batch of 32 (ms per batch, CUDA
+    events), clip_score and clip_fid on two sets of 64 images, resident and
+    peak memory; the launches over all of it (none: no attention reaches
+    512 tokens); the card against the CPU on 2 images with the same
+    weights. Returns the counts."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils import metrics
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    models = {"fp32": clip_model("cuda", torch.float32)}
+    models["bf16"] = clip_model("cuda", torch.bfloat16)
+    copy_weights(models["fp32"], models["bf16"])
+    resident = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    n_params = sum(p.numel() for p in models["fp32"].parameters())
+    images, tokens = clip_pairs(CLIP_BATCH, 224, 51)
+    set_a, cap_a = clip_pairs(CLIP_EVAL_IMAGES, 224, 52)
+    set_b = clip_pairs(CLIP_EVAL_IMAGES, 224, 53)[0] * 0.5
+    out = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for name, model in models.items():
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ms = dict(
+                encode_image=cuda_ms(lambda: model.encode_image(images), 5, 2),
+                encode_text=cuda_ms(lambda: model.encode_text(tokens), 5, 2),
+                logits=cuda_ms(lambda: model(images, tokens), 5, 2))
+            logits = model(images, tokens)[0]
+        t0 = time.perf_counter()
+        score = metrics.clip_score(set_a, cap_a, model)
+        fid = metrics.clip_fid(set_a, set_b, model)
+        torch.cuda.synchronize()
+        metric_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"CLIP() {name} ({n_params} params, 224^2, batch "
+              f"{CLIP_BATCH}): encode_image {ms['encode_image']:.2f} ms, "
+              f"encode_text {ms['encode_text']:.2f} ms, logits "
+              f"{ms['logits']:.2f} ms per batch; clip_score "
+              f"{score:.4f} and clip_fid {fid:.4f} on {CLIP_EVAL_IMAGES} "
+              f"images in {metric_s:.2f} s; resident {resident:.2f} GiB "
+              f"(both models), peak {peak:.2f} GiB [{card}]", flush=True)
+        check(bool(torch.isfinite(logits).all()) and logits.shape ==
+              (CLIP_BATCH, CLIP_BATCH) and np.isfinite(score)
+              and np.isfinite(fid) and fid >= -1e-3,
+              f"CLIP {name}: logits, score {score} or fid {fid}")
+        out[name] = dict(ms=ms, clip_score=score, clip_fid=fid,
+                         metric_s=metric_s, peak_gib=peak)
+    counts = read_counts()
+    check(dict(counts) == NO_LAUNCHES, f"CLIP at 224^2 launches {counts}")
+    # the card against the CPU on 2 images and captions, the same weights
+    cpu = clip_model("cpu", torch.float32)
+    copy_weights(models["fp32"], cpu)
+    with torch.inference_mode():
+        want_img = cpu.encode_image(images[:2].cpu())
+        want = cpu(images[:2].cpu(), tokens[:2].cpu())[0]
+        for name, model in models.items():
+            got_img = model.encode_image(images[:2])
+            got = model(images[:2], tokens[:2])[0]
+            errs = (_rel(got_img, want_img), _rel(got, want))
+            tol = CLIP_FP32_TOL if name == "fp32" else CLIP_BF16_TOL
+            print(f"CLIP() {name} on the card against fp32 on the CPU, 2 "
+                  f"pairs: image features rel L2 {errs[0]:.3e}, logits "
+                  f"{errs[1]:.3e} (tol {tol}) [{card}]", flush=True)
+            check(max(errs) <= tol, f"CLIP {name} off the CPU's: {errs}")
+            out[name]["cpu_rel"] = errs
+    del models, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(resident_gib=resident, n_params=n_params, **out)
+
+
+def phase_clip_training(card):
+    """``CLIPTrainer`` at ViT-L/14@336px (``CLIP(image_resolution=336)``, 577
+    tokens), bf16 compute over fp32 parameters, on a fixed batch of 32
+    synthetic pairs: ``fit`` for CLIP_TRAIN_STEPS[0] steps, then the timed
+    ``train_step``s (CUDA events); ms/step, img/s, device idle share (2 more
+    steps profiled), peak memory, K1 / K3 / K4 launches per step; the loss
+    finite and falling, logit_scale <= ln 100; then a card-against-CPU
+    gradient check at full width and 2 + 2 layers. Returns the counts."""
+    import math
+
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.clip import CLIP
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.clip_trainer import (
+        MAX_LOGIT_SCALE, CLIPTrainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.logging import (
+        MetricsLogger)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.device("meta"):
+        template = CLIP(image_resolution=336, dtype=torch.bfloat16)
+    trainer = CLIPTrainer(template, device="cuda",
+                          logger=MetricsLogger(stream=sys.stdout))
+    state = trainer.create_state((336, 336, 3), 77)
+    images, tokens = clip_pairs(CLIP_BATCH, 336, 61)
+    warm, timed = CLIP_TRAIN_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = trainer.fit([(images, tokens)] * warm, state, epochs=1,
+                        image_shape=(336, 336, 3))
+    losses, events = [], []
+    for _ in range(timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = trainer.train_step(state, images, tokens)
+        end.record()
+        losses.append(loss)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = events[0][0].elapsed_time(events[-1][1]) / timed
+    busy, fams = busy_per_call(lambda: [trainer.train_step(state, images,
+                                                           tokens)
+                                        for _ in range(2)], 2)
+    idle = 1.0 - busy / step_ms
+    losses = [trainer.history[0]["loss"]] + [float(x) for x in losses]
+    scale = state.model.logit_scale.item()
+    steps = warm + timed
+    want = {k: n * steps for k, n in CLIP_TRAIN_PER_STEP.items()}
+    print(f"CLIP training ({trainer.num_params(state)} params, 336^2, 577 "
+          f"tokens, batch {CLIP_BATCH}, bf16 over fp32): {step_ms:.2f} "
+          f"ms/step over {timed} after {warm} through fit, "
+          f"{1e3 * CLIP_BATCH / step_ms:.1f} img/s; device busy "
+          f"{busy:.2f} ms/step, idle share {idle:.3f}; peak {peak:.2f} GiB; "
+          f"loss {losses[0]:.5f} (fit's epoch mean) -> "
+          f"{', '.join(f'{x:.5f}' for x in losses[1:])}; logit_scale "
+          f"{scale:.6f} (max {MAX_LOGIT_SCALE:.6f}); launches {dict(counts)}"
+          f" over {steps} steps, K1 {counts.k1_routes} "
+          f"{counts.k1_head_dims}, K3 {counts.k3_routes}, K4 "
+          f"{counts.k4_routes} [{card}]", flush=True)
+    print_profile(fams, [], 2, "step")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[1],
+          f"CLIP training loss not finite or not falling: {losses}")
+    check(scale <= MAX_LOGIT_SCALE + 1e-6, f"logit_scale {scale}")
+    check(dict(counts) == want, f"CLIP training launches {dict(counts)} != "
+          f"{want}")
+    check(counts.k1_routes == {"sm90": want["K1"]}
+          and counts.k3_routes == {"sm90": want["K3"]}
+          and counts.k4_routes == {"sm90": want["K4"]},
+          f"CLIP training routes {counts.k1_routes} {counts.k3_routes} "
+          f"{counts.k4_routes}")
+    rec = dict(step_ms=step_ms, imgs_per_s=1e3 * CLIP_BATCH / step_ms,
+               busy_ms=busy, idle=idle, peak_gib=peak, losses=losses)
+    del trainer, state, template
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the card (bf16, kernels) against the CPU (fp32, plain) at full width
+    # and 2 vision + 2 text layers
+    pair = {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        with torch.device("meta"):
+            small = CLIP(image_resolution=336, vision_layers=2,
+                         transformer_layers=2, dtype=dtype)
+        t = CLIPTrainer(small, device=dev)
+        pair[dev] = (t, t.create_state((336, 336, 3), 77))
+    copy_weights(pair["cuda"][1].model, pair["cpu"][1].model)
+    x, y = images[:4].cpu(), tokens[:4].cpu()
+    rec.update(against_cpu(card, "CLIP 2 + 2 layers at 336^2", pair,
+                           lambda tr, st: tr.train_step(st, x, y)[1],
+                           FLASH_CLIP_LEAVES))
+    del pair
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def phase_clip_fp32(card):
+    """One ``CLIPTrainer`` step at 336^2 in fp32 (CLIP's default dtype) on
+    the batch of 32: the fp32 forms of K1, K3 and K4 at d = 64, counted.
+    Returns (counts, fp32 counts)."""
+    import math
+
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.clip import CLIP
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.clip_trainer import (
+        CLIPTrainer)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.device("meta"):
+        template = CLIP(image_resolution=336)
+    trainer = CLIPTrainer(template, device="cuda")
+    state = trainer.create_state((336, 336, 3), 77)
+    images, tokens = clip_pairs(CLIP_BATCH, 336, 61)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, loss = trainer.train_step(state, images, tokens)
+    end.record()
+    end.synchronize()
+    counts, fp32 = read_counts(), read_fp32_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"CLIP training fp32 (336^2, batch {CLIP_BATCH}): one step "
+          f"{start.elapsed_time(end):.1f} ms (cold), loss {float(loss):.5f}, "
+          f"peak {peak:.2f} GiB; launches {dict(counts)}, fp32 {fp32}, K1 "
+          f"{counts.k1_routes} {counts.k1_head_dims} [{card}]", flush=True)
+    want = dict(CLIP_TRAIN_PER_STEP)
+    check(math.isfinite(float(loss)) and dict(counts) == want
+          and counts.k1_routes == {"fp32": 24} and fp32["K1"] == 24
+          and fp32["K3"] == 24 and fp32["K4"] == 24,
+          f"CLIP fp32 step: loss {float(loss)}, launches {dict(counts)}, "
+          f"fp32 {fp32}")
+    del trainer, state, template
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, fp32
+
+
+def pytorch_fid_checkpoint(path, seed=71):
+    """A synthetic checkpoint in pytorch-fid's layout (torchvision
+    InceptionV3 names, BatchNorm statistics, the fc and AuxLogits heads)
+    that keeps random-weight activations in range: He-normal convs, BN
+    scales near 1."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.weights_inception import (
+        basic_conv_paths)
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.inception import (
+        InceptionV3FID)
+
+    with torch.device("meta"):
+        model = InceptionV3FID()
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    state = {}
+    for p in basic_conv_paths():
+        w = model.get_submodule(p).conv.weight
+        c, fan_in = w.shape[0], w[0].numel()
+        state[f"{p}.conv.weight"] = f32(rng.standard_normal(w.shape)
+                                        * np.sqrt(2.0 / fan_in))
+        state[f"{p}.bn.weight"] = f32(1.0 + 0.1 * rng.standard_normal(c))
+        state[f"{p}.bn.bias"] = f32(0.1 * rng.standard_normal(c))
+        state[f"{p}.bn.running_mean"] = f32(0.1 * rng.standard_normal(c))
+        state[f"{p}.bn.running_var"] = f32(1.0 + rng.random(c))
+        state[f"{p}.bn.num_batches_tracked"] = torch.tensor(1)
+    state["fc.weight"] = f32(rng.standard_normal((1008, 2048)) * 0.01)
+    state["fc.bias"] = f32(np.zeros(1008))
+    torch.save(state, path)
+
+
+def phase_fid(card):
+    """``inception_features`` (the FID InceptionV3 from a synthetic
+    pytorch-fid checkpoint through ``import_inception_fid``) on 64 images at
+    512^2 (the antialiased downsample to 299^2) and 64 at 64^2 (the
+    upsample), batches of 32; ``inception_fid`` and ``kid_from_features``;
+    ms per image at 299^2, peak memory, the card against the CPU on 2
+    images. Returns the counts."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.weights_inception import (
+        import_inception_fid)
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.inception import (
+        resize_for_fid)
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils import metrics
+
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "pt_inception.pth")
+        pytorch_fid_checkpoint(path)
+        t0 = time.perf_counter()
+        params = import_inception_fid(path)
+        import_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    big = torch.rand((FID_IMAGES, 512, 512, 3), generator=gen, device="cuda")
+    small = torch.rand((FID_IMAGES, 64, 64, 3), generator=gen,
+                       device="cuda") ** 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    feats, secs = {}, {}
+    for name, images in (("512^2", big), ("64^2", small)):
+        metrics.inception_features(images[:32], params)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats[name] = metrics.inception_features(images, params)
+        secs[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid = metrics.inception_fid(big, small, params)
+    fid_s = time.perf_counter() - t0
+    kid = metrics.kid_from_features(feats["512^2"], feats["64^2"])
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model = metrics.inception_model(params)
+    with torch.inference_mode():
+        resized = resize_for_fid(small[:32])
+        model_ms = cuda_ms(lambda: model(resized), 5, 2) / 32
+    del model
+    cpu = metrics.inception_features(big[:2].cpu(), params, device="cpu")
+    err = _rel(torch.from_numpy(feats["512^2"][:2]), torch.from_numpy(cpu))
+    print(f"FID InceptionV3 (a synthetic pytorch-fid checkpoint imported in "
+          f"{import_s:.2f} s): inception_features of {FID_IMAGES} images "
+          f"from 512^2 in {secs['512^2']:.3f} s and from 64^2 in "
+          f"{secs['64^2']:.3f} s ({1e3 * secs['512^2'] / FID_IMAGES:.3f} / "
+          f"{1e3 * secs['64^2'] / FID_IMAGES:.3f} ms per image, resize "
+          f"included); the model alone {model_ms:.3f} ms per image at 299^2 "
+          f"(batch 32); inception_fid {fid:.4f} in {fid_s:.3f} s, KID "
+          f"{kid:.6f}; peak {peak:.2f} GiB; the card against the CPU on 2 "
+          f"images: features rel L2 {err:.3e} (tol {CLIP_FP32_TOL}); "
+          f"launches {dict(counts)} [{card}]", flush=True)
+    check(all(f.shape == (FID_IMAGES, 2048) and np.isfinite(f).all()
+              for f in feats.values()) and np.isfinite(fid) and fid > 0
+          and np.isfinite(kid), f"FID: features, fid {fid} or kid {kid}")
+    check(err <= CLIP_FP32_TOL, f"Inception card off the CPU's: {err}")
+    check(dict(counts) == NO_LAUNCHES, f"FID launches {counts}")
+    del big, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(secs=secs, model_ms_per_image=model_ms, fid=fid,
+                        kid=kid, peak_gib=peak, cpu_rel=err)
+
+
+def openai_checkpoint(path, model):
+    """``model`` (a port CLIP) written in the OpenAI layout: the inverse of
+    ``openai_clip_rules`` (a port weight is already in torch's layout),
+    ``in_proj_weight`` names, the TorchScript metadata tensors."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.weights import port_key
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.weights_clip import (
+        openai_clip_rules)
+
+    cfg = model.config
+    sd = model.state_dict()
+    state = {t.replace("in_proj.", "in_proj_"): sd[port_key(f)].cpu()
+             for t, f, _ in openai_clip_rules(cfg["vision_layers"],
+                                              cfg["transformer_layers"])}
+    state.update(input_resolution=torch.tensor(cfg["image_resolution"]),
+                 context_length=torch.tensor(cfg["context_length"]),
+                 vocab_size=torch.tensor(cfg["vocab_size"]))
+    torch.save(state, path)
+
+
+def phase_checks_cli(card):
+    """``checks all --device cuda`` in this process with the launches counted
+    (fp32 K1 at d = 8 in checks sd1) and through ``python -m`` in a
+    subprocess (exit 0, the same lines); ``checks weights`` on a .pt and a
+    .safetensors the phase writes; ``checks clip --ckpt`` on CLIP() written
+    in the OpenAI layout with a synthetic vocabulary and PNG, where Pillow
+    is importable; ``demos replicate`` without a token and ``demos
+    multimodal`` / ``video`` without transformers / diffusers (their
+    imports blocked, so nothing reaches for the network): each exits with
+    its actionable error. Returns (counts, fp32 counts) of checks all."""
+    import importlib.util
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.cli import checks
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.weights import (
+        save_safetensors_dict)
+
+    pkg = "from_ddpm_to_stable_diffusion_tpu_torch"
+    gc.collect()
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = checks.main(["all", "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, fp32 = read_counts(), read_fp32_counts()
+    lines = buf.getvalue().splitlines()
+    print(f"checks all --device cuda (in process): rc {rc}, {secs:.2f} s, "
+          f"{len(lines)} lines; launches {dict(counts)}, fp32 {fp32}, K1 by "
+          f"head dim {counts.k1_head_dims}, routes {counts.k1_routes} "
+          f"[{card}]", flush=True)
+    for line in lines:
+        print("  " + line)
+    check(rc == 0 and lines[-1] == "all checks passed",
+          f"checks all: rc {rc}, last line {lines[-1:]}")
+    check(counts.k1_head_dims == CHECKS_K1_HEAD_DIMS
+          and counts.k1_routes == {"fp32": sum(CHECKS_K1_HEAD_DIMS.values())}
+          and fp32["K1"] == counts["K1"] and counts["K2"] > 0,
+          f"checks all: K1 by head dim {counts.k1_head_dims}, routes "
+          f"{counts.k1_routes}, K2 {counts['K2']}")
+    env = dict(os.environ)
+    env.pop("REPLICATE_API_TOKEN", None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", pkg, "checks", "all",
+                           "--device", "cuda"], capture_output=True,
+                          text=True, timeout=600, env=env)
+    sub_s = time.perf_counter() - t0
+    print(f"python -m {pkg} checks all --device cuda: rc "
+          f"{proc.returncode} in {sub_s:.2f} s, the same lines: "
+          f"{proc.stdout.splitlines() == lines} [{card}]", flush=True)
+    check(proc.returncode == 0 and proc.stdout.splitlines() == lines,
+          f"python -m checks all: rc {proc.returncode}, "
+          f"{proc.stderr[-2000:]}")
+    tmp = tempfile.mkdtemp()
+    try:
+        small = {"visual.proj": torch.randn(1024, 768),
+                 "logit_scale": torch.tensor(4.6),
+                 "token_embedding.weight": torch.randn(8, 768,
+                                                       dtype=torch.float16)}
+        for name in ("w.pt", "w.safetensors"):
+            path = os.path.join(tmp, name)
+            if name.endswith(".pt"):
+                torch.save(small, path)
+            else:
+                save_safetensors_dict(small, path)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = checks.main(["weights", path])
+            got = buf.getvalue().splitlines()
+            print(f"checks weights {name}: rc {rc}: " + "; ".join(got),
+                  flush=True)
+            check(rc == 0 and got[-1] == "3 tensors" and
+                  "token_embedding.weight: (8, 768) float16" in got,
+                  f"checks weights {name}: {got}")
+        if importlib.util.find_spec("PIL") is None:
+            print("checks clip --ckpt: not run, Pillow is not installed "
+                  "here (the check reads its image with Pillow)",
+                  flush=True)
+        else:
+            import numpy as np
+            from PIL import Image
+
+            from from_ddpm_to_stable_diffusion_tpu_torch.io.tokenizer import (
+                build_simple_vocab)
+
+            model = clip_model("cuda", torch.float32)
+            ckpt = os.path.join(tmp, "clip.pt")
+            openai_checkpoint(ckpt, model)
+            del model
+            vocab, merges = build_simple_vocab(["a", "cat", "dog", "wild",
+                                                "animal"])
+            with open(os.path.join(tmp, "vocab.json"), "w") as f:
+                json.dump(vocab, f)
+            with open(os.path.join(tmp, "merges.txt"), "w") as f:
+                f.write("\n".join(["#version: 0.2"] + [
+                    f"{a} {b}" for (a, b), _ in sorted(
+                        merges.items(), key=lambda kv: kv[1])]) + "\n")
+            img = os.path.join(tmp, "cat.png")
+            Image.fromarray((np.random.default_rng(0).random((300, 400, 3))
+                             * 255).astype(np.uint8)).save(img)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = checks.main(["clip", "--ckpt", ckpt, "--image", img,
+                                  "--vocab-dir", tmp, "--device", "cuda"])
+            clip_s = time.perf_counter() - t0
+            got = buf.getvalue().splitlines()
+            probs = [float(line.rsplit(":", 1)[1]) for line in got]
+            print(f"checks clip --ckpt (CLIP() in the OpenAI layout, "
+                  f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB): rc {rc} in "
+                  f"{clip_s:.2f} s: " + "; ".join(got) + f" [{card}]",
+                  flush=True)
+            check(rc == 0 and len(probs) == 3
+                  and abs(sum(probs) - 1.0) <= 2e-3,
+                  f"checks clip --ckpt: {got}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # demos: the imports blocked in the child, so that a machine with
+    # transformers installed still never reaches for a download
+    block = ("import sys; sys.modules['transformers'] = None; "
+             "sys.modules['diffusers'] = None; "
+             f"from {pkg}.__main__ import main; sys.exit(main(sys.argv[1:]))")
+    for argv, msg in ((["demos", "replicate", "--version", "v",
+                        "--input-json", "{}"], "REPLICATE_API_TOKEN"),
+                      (["demos", "multimodal", "--image", "x.png",
+                        "--question", "q"], "transformers is required"),
+                      (["demos", "video", "--prompt", "a cat"],
+                       "diffusers is required")):
+        proc = subprocess.run([sys.executable, "-c", block, *argv],
+                              capture_output=True, text=True, timeout=300,
+                              env=env)
+        last = (proc.stderr.strip().splitlines() or [""])[-1]
+        print(f"{' '.join(argv[:2])}: rc {proc.returncode}: {last}",
+              flush=True)
+        check(proc.returncode != 0 and "RuntimeError" in last
+              and msg in last, f"{' '.join(argv)}: rc {proc.returncode}, "
+              f"{proc.stderr[-1000:]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, fp32
+
+
 def main():
     marks = [("start", time.perf_counter())]
 
@@ -6041,9 +6784,10 @@ def main():
              "latent_sampling", "mmdit_training", "mmdit_sampling",
              "mmdit_lora", "vlm_training", "vlm_decoding", "vlm_checkpoint",
              "video_training", "video_sampling", "vae_vqvae", "vae_vanilla",
-             "vit_training", "sd1_fp32",
-             "sd1_768_fp32", "sd3_fp32", "t5_fp32", "vlm_fp32",
-             "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64")
+             "vit_training", "clip_forward", "clip_training", "fid",
+             "sd1_fp32", "sd1_768_fp32", "sd3_fp32", "t5_fp32", "vlm_fp32",
+             "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64",
+             "clip_fp32", "checks")
     sd1_launches, sd1_models, sd1_image = phase_sd1(card)
     runs = [sd1_launches, phase_sd1_slice(card, sd1_models)]
     mark("sd1")
@@ -6115,6 +6859,12 @@ def main():
     mark("zoo")
     fp32_runs += phase_train_fp32(card)
     mark("fp32_training")
+    kernels_clip = phase_kernels_clip(card, tail)
+    runs += [phase_clip_forward(card)[0], phase_clip_training(card)[0],
+             phase_fid(card)[0]]
+    fp32_runs.append(phase_clip_fp32(card))
+    fp32_runs.append(phase_checks_cli(card))
+    mark("clip_eval")
     print("seconds by group of phases: " + json.dumps(
         {g: round(t - marks[i][1], 1) for i, (g, t) in enumerate(marks[1:])}),
         flush=True)
@@ -6237,9 +6987,19 @@ def main():
                           "consumer and 64-query blocks, PV in two halves of "
                           "80 columns"),
                   timed=kernels["d160"], **by_head_dim(160)),
+              d8=dict(
+                  design=("fp32 at head dim 8 (the checks sd1 UNet, "
+                          "SD1UNet(model_channels=64) with 8 heads, at its "
+                          "32^2 level): the TF32 kernel with a 32-byte "
+                          "swizzle chunk of 8 columns, S = QK^T in one k-step "
+                          "of 3 SS wgmmas m64n64k8 a 64-key tile, PV as 3 x 8 "
+                          "RS wgmmas m64n8k8; bound by the exponentials"),
+                  timed=[r for r in kernels_fp32["K1"]
+                         if r.get("form") == "d8"], **by_head_dim(8)),
               timed_at="(B,H,Lq,Lk,D)=(2,8,4096,4096,40)",
               library="F.scaled_dot_product_attention", forms=forms_of("K1"),
-              video=kernels_video["K1"]),
+              video=kernels_video["K1"],
+              clip=kernels_clip["K1"]),
         entry("group_norm_silu", "groupnorm.cu", "groupnorm_pallas.py:29",
               "K2", timed_at="(2,64,64,320) + SiLU",
               design=("bf16 and fp32, one cooperative launch a call: a "
@@ -6274,7 +7034,8 @@ def main():
               sm90=by_route("sm90", "k3"),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
-              forms=forms_of("K3"), video=kernels_video["K3"]),
+              forms=forms_of("K3"), video=kernels_video["K3"],
+              clip=kernels_clip["K3"]),
         entry("flash_attention_bwd_dkv", "flash_attention_bwd_sm90.cu",
               "flash_attention.py:764", "K4", plain_computes=together,
               library_computes=together,
@@ -6290,7 +7051,8 @@ def main():
               sm90=by_route("sm90", "k4"),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
-              forms=forms_of("K4"), video=kernels_video["K4"]),
+              forms=forms_of("K4"), video=kernels_video["K4"],
+              clip=kernels_clip["K4"]),
         entry("flash_attention_fwd_pos", "flash_attention_sm90.cu",
               "flash_attention.py:1237", "K5",
               design=("bf16 at head dims 64 and 128, online and bounded: "

@@ -1,7 +1,7 @@
 // Flash-attention forward on fp32 inputs for Hopper (sm_90a) on the tensor
-// cores: the fp32 form of K1 (no mask at head dims 40, 48, 64, 72, 80, 128,
-// 160 and 512; causal at 64; T5's additive bias at 64) and of K5 (position
-// masks at 64, online and bounded).
+// cores: the fp32 form of K1 (no mask at head dims 8, 40, 48, 64, 72, 80,
+// 128, 160 and 512; causal at 64; T5's additive bias at 64) and of K5
+// (position masks at 64, online and bounded).
 //
 // Replaces, for fp32 q, k, v, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
@@ -56,6 +56,13 @@
 //    3 x d / 8 SS wgmmas, the softmax in fp32 registers, and O += P V as
 //    3 x kBK / 8 RS wgmmas. The Q tile holds both terms, so at d = 128 (Q
 //    128 KB) the key tiles are 32 long on a single stage each.
+//  - K1 at head dim 8 (the `checks sd1` UNet, SD1UNet(model_channels=64)
+//    with 8 heads: 8 x 1024^2 x 8 at its 32^2 level) is the same kernel:
+//    one 32-byte swizzle chunk a row for Q and K, so S = Q K^T is one k-step
+//    (3 SS wgmmas m64n64k8 a key tile), and P V is m64n8k8 RS, one 8-row core
+//    group of v^T. At d = 8 each logit costs 3 x 2 x 2 x 8 = 96 flop on the
+//    tensor cores against one exponential, so the SFU's ex2, not the TF32
+//    products, bound it (PERF.md); the simple form is kept.
 //  - K1 at head dim 160 (the SD1 UNet's level-2 attention from 768^2) is the
 //    same kernel with one consumer warpgroup and 64-query blocks: a
 //    128-query Q tile's two terms would take 160 KB. Chosen over the d = 512
@@ -1017,8 +1024,8 @@ Params fwd_params(void* out, void* lse, int B, int H, int Lq, int Lk,
 // read through its strides (0 on a broadcast axis), or null. work: fp32
 // scratch of 2 B H (Lq + Lk) d + 2 B H d Lk8 floats (Lk8: Lk rounded up to
 // 8), plus splits * B * H * Lq * 513 at d = 512 with splits > 1 (1 to 4 key
-// splits per 64-query tile; ignored at other head dims). Head dims 40, 48,
-// 64, 72, 80, 128, 160 and 512 without a mask, 64 with causal or with a
+// splits per 64-query tile; ignored at other head dims). Head dims 8, 40,
+// 48, 64, 72, 80, 128, 160 and 512 without a mask, 64 with causal or with a
 // bias; others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   void* out, void* lse, void* work,
@@ -1031,8 +1038,8 @@ extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
   const Work w = carve(work, B, H, Lq, Lk, d);
   if (causal || bias != nullptr
           ? d != 64 || (causal && bias != nullptr)
-          : d != 40 && d != 48 && d != 64 && d != 72 && d != 80 &&
-                d != 128 && d != 160 && d != 512)
+          : d != 8 && d != 40 && d != 48 && d != 64 && d != 72 &&
+                d != 80 && d != 128 && d != 160 && d != 512)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = split_inputs(q, k, v, strides, B, H, Lq, Lk, d, w, s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1046,6 +1053,8 @@ extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
     return static_cast<int>(run<64, false, false, true>(w, p, s));
   }
   switch (d) {
+    case 8:  // the `checks sd1` UNet (model_channels 64, 8 heads)
+      return static_cast<int>(run<8>(w, p, s));
     case 40:  // SD1 UNet at 64^2
       return static_cast<int>(run<40>(w, p, s));
     case 48:

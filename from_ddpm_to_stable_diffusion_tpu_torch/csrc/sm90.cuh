@@ -361,8 +361,8 @@ template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t desc_b, int scale_d) {
-  static_assert(N == 40 || N == 48 || N == 64 || N == 72 || N == 80 ||
-                    N == 128,
+  static_assert(N == 8 || N == 40 || N == 48 || N == 64 || N == 72 ||
+                    N == 80 || N == 128,
                 "wgmma_tf32_rs: N");
 // SHAPE, the accumulators' list and constraints, then the operand numbers
 // of the setp (scale_d) and of a[0..3] and desc_b, as one string each.
@@ -373,7 +373,10 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                : F                                                           \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),    \
                  "r"(scale_d))
-  if constexpr (N == 40) {
+  if constexpr (N == 8) {
+    FDSD_TF32_RS("m64n8k8", "{%0,%1,%2,%3}", FDSD_F4(0), "%9",
+                 "{%4,%5,%6,%7}, %8");
+  } else if constexpr (N == 40) {
     FDSD_TF32_RS("m64n40k8", FDSD_R20, FDSD_F20, "%25",
                  "{%20,%21,%22,%23}, %24");
   } else if constexpr (N == 48) {

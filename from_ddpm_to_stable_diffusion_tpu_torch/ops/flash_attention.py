@@ -96,10 +96,11 @@ _KERNEL_HEAD_DIMS = (40, 48, 64, 72, 80, 128, 160, 512)
 _BWD_HEAD_DIMS = (64, 128)
 _MASK_HEAD_DIMS = (64, 128)
 _POS_HEAD_DIMS = (64, 128)
-# the fp32 forms: K1 at every forward head dim, causal at 64 (TinyVLM's
-# decoder) and with a bias at 64 (T5, forward only), K3 / K4 at 64 and 128
-# and causal at 64, K5 / K6 / K7 at 64
-_FP32_HEAD_DIMS = _KERNEL_HEAD_DIMS
+# the fp32 forms: K1 at every forward head dim and at 8 (the ``checks sd1``
+# UNet, SD1UNet(model_channels=64) with 8 heads, runs its 32^2 level in fp32),
+# causal at 64 (TinyVLM's decoder) and with a bias at 64 (T5, forward only),
+# K3 / K4 at 64 and 128 and causal at 64, K5 / K6 / K7 at 64
+_FP32_HEAD_DIMS = (8,) + _KERNEL_HEAD_DIMS
 _FP32_BWD_HEAD_DIMS = (64, 128)
 _FP32_CAUSAL_HEAD_DIMS = (64,)
 _FP32_BIAS_HEAD_DIMS = (64,)
@@ -471,8 +472,8 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
     head dim but 512, every mask form at 64 and 128), "d512" (the TMA /
     wgmma kernel of ``csrc/flash_attention.cu``, bf16 at 512 without a mask)
     or "fp32" (``csrc/fp32/flash_f32_fwd.cu``: TMA and TF32 wgmma, three
-    passes; at 512 with the keys split as :func:`k1_d512_splits` says; causal
-    or a bias alone at 64). Raises ``NotImplementedError`` naming what the
+    passes; at every bf16 head dim and at 8; at 512 with the keys split as
+    :func:`k1_d512_splits` says; causal or a bias alone at 64). Raises ``NotImplementedError`` naming what the
     kernels take for any other."""
     fn = "flash_attention_cuda"
     if dtype not in (torch.bfloat16, torch.float32):

@@ -1,6 +1,7 @@
-"""NHWC image tensor utilities (port of ``ops/image.py``), and a PNG encoder
+"""NHWC image tensor utilities (port of ``ops/image.py``), a PNG encoder
 written with the standard library, so that writing an image needs no
-Pillow."""
+Pillow, and the OpenAI-CLIP preprocessing of a PIL image (Pillow imported
+inside the call only)."""
 
 from __future__ import annotations
 
@@ -79,3 +80,32 @@ def write_png(path: str, image) -> None:
     """Writes :func:`encode_png` of ``image`` to ``path``."""
     with open(path, "wb") as f:
         f.write(encode_png(image))
+
+
+# OpenAI-CLIP inference preprocessing constants (the pip `clip` package's
+# `preprocess` transform the reference's stage-05 check relies on,
+# 05_clip/01_check.py:10).
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def clip_preprocess(pil_image, resolution: int = 224):
+    """PIL image -> (1, R, R, 3) float32 numpy, CLIP-normalized.
+
+    Bicubic resize of the short side to ``resolution``, center crop, then
+    per-channel normalization: pip clip's Compose(Resize, CenterCrop,
+    ToTensor, Normalize) inference transform. Pillow is imported here only:
+    the card's machine does not promise it."""
+    from PIL import Image
+
+    img = pil_image.convert("RGB")
+    w, h = img.size
+    scale = resolution / min(w, h)
+    img = img.resize((round(w * scale), round(h * scale)),
+                     Image.Resampling.BICUBIC)
+    w, h = img.size
+    left, top = (w - resolution) // 2, (h - resolution) // 2
+    img = img.crop((left, top, left + resolution, top + resolution))
+    x = np.asarray(img, dtype=np.float32) / 255.0
+    x = (x - np.asarray(CLIP_IMAGE_MEAN)) / np.asarray(CLIP_IMAGE_STD)
+    return x[None].astype(np.float32)

@@ -67,7 +67,9 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator):
     ``position_embedding``, the TinyVLM's ``text_pos`` and the ViT's
     ``cls_token`` and ``pos_embed`` are normal(0.02) tables there, unlike
     CLIP's zero position table; a VQ ``codebook`` is uniform(−1/K, 1/K);
-    BatchNorm running statistics start at mean 0, variance 1."""
+    BatchNorm running statistics start at mean 0, variance 1. A module with
+    an ``init_leaves_(generator)`` hook (the stage-05 CLIP and its vision
+    tower) draws its own bare parameters with it."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
@@ -82,7 +84,8 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator):
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         parent = module.get_submodule(name.rpartition(".")[0])
-        if isinstance(parent, (nn.Linear, nn.Conv2d, nn.Embedding)):
+        if (isinstance(parent, (nn.Linear, nn.Conv2d, nn.Embedding))
+                or hasattr(parent, "init_leaves_")):
             continue
         if leaf == "weight" or leaf.endswith("_scale"):   # norm scales
             p.fill_(1.0)
@@ -104,6 +107,8 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator):
     for m in module.modules():
         if isinstance(m, BatchNorm):
             m.reset_running_stats()
+        elif hasattr(m, "init_leaves_"):
+            m.init_leaves_(generator)
     return module
 
 

@@ -13,9 +13,10 @@ equal to the inferencer's pixels; ``sd3 train --lora-rank 2 --grad-accum 2``
 at its defaults; ``tiny_sd train --synthetic`` then ``sample`` on a tiny
 YAML (the grid has the JAX grid's shape); ``multimodal train``, ``eval`` and
 ``chat``. Every mesh flag exits naming ROADMAP.md queue A8, and the
-``__main__`` dispatch sends the unported stages away with a non-zero exit;
+``__main__`` dispatch reaches every stage, ``checks`` and ``demos`` too;
 ``python -m`` of the ``vae``, ``vit`` and ``video`` stages prints their
-help (their runs at tiny sizes are in ``tests/test_torch_{vae,vit,video}.py``).
+help (their runs at tiny sizes are in ``tests/test_torch_{vae,vit,video}.py``,
+those of ``checks`` and ``demos`` in ``tests/test_torch_checks.py``).
 """
 
 import argparse
@@ -50,12 +51,13 @@ PORTED_SUBCOMMANDS = [("sd1", "generate"), ("sd3", "generate"),
                       ("tiny_sd", "sample"), ("multimodal", "train"),
                       ("multimodal", "eval"), ("multimodal", "chat"),
                       ("serve", None), ("vae", "train"), ("vit", "train"),
-                      ("video", "train")]
+                      ("video", "train"), ("checks", None)]
 REQUIRED = {("sd1", "generate"): ["--prompt", "x"],
             ("sd3", "generate"): ["--prompt", "x"],
             ("tiny_sd", "train"): ["--config", "c.yml"],
             ("tiny_sd", "sample"): ["--config", "c.yml", "--ckpt", "d"],
-            ("multimodal", "chat"): ["--image", "i.png"]}
+            ("multimodal", "chat"): ["--image", "i.png"],
+            ("checks", None): ["all"]}
 
 
 def _argv(stage, sub):
@@ -316,10 +318,15 @@ def test_main_dispatch(capsys):
     assert tmain.STAGES == jmain.STAGES
     assert tmain.main([]) == 2 and tmain.main(["nope"]) == 2
     assert tmain.main(["-h"]) == 0
+    # checks and demos dispatch like every other stage
     for stage in ("checks", "demos"):
-        assert tmain.main([stage, "train"]) == 2
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and "A7b" in err
+        with pytest.raises(SystemExit) as e:
+            tmain.main([stage, "--help"])
+        assert e.value.code == 0
+        assert "not ported" not in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        tmain.main(["demos", "train"])   # no such subcommand: argparse
+    assert e.value.code == 2
     for stage, sub in PORTED_SUBCOMMANDS:
         with pytest.raises(SystemExit) as e:
             tmain.main([stage] + ([sub] if sub else []) + ["--help"])

@@ -1818,7 +1818,7 @@ def _f32_fwd_check(q, k, v, f64_atol=F64_ATOL, **masks):
 
 @pytest.mark.parametrize("lk", EDGE_LENGTHS)
 @pytest.mark.parametrize("lq", EDGE_LENGTHS)
-@pytest.mark.parametrize("d", [40, 48, 64, 72, 80, 128])
+@pytest.mark.parametrize("d", [8, 40, 48, 64, 72, 80, 128])
 def test_tf32_forward_lengths_around_its_tiles(gen, d, lq, lk):
     """Lq around the 128-query tiles and Lk around the key tiles (64 keys
     at d <= 72, 32 above) and the groups of 8 of v's transposed terms, at
@@ -1842,7 +1842,7 @@ def test_tf32_forward_causal(gen, lq, lk):
     _f32_fwd_check(q, k, v, causal=True)
 
 
-@pytest.mark.parametrize("d", [40, 72, 80, 128])
+@pytest.mark.parametrize("d", [8, 40, 72, 80, 128])
 def test_tf32_forward_reads_fused_projection_slices(gen, d):
     """q|k|v column slices of one fp32 (B, L, 3*H*D) projection: the split
     pre-pass reads them through their strides."""
@@ -1850,6 +1850,18 @@ def test_tf32_forward_reads_fused_projection_slices(gen, d):
     q, k, v = (t.reshape(b, l, h, d).transpose(1, 2) for t in _randn(
         gen, b, l, 3 * h * d, dtype=torch.float32).chunk(3, dim=-1))
     _f32_fwd_check(q, k, v)
+
+
+@pytest.mark.parametrize("lk", [1024, 1000])
+def test_tf32_forward_at_the_checks_sd1_shape(gen, lk):
+    """K1 in fp32 at head dim 8 at the shape of the ``checks sd1`` UNet's
+    level-0 self-attention, (1, 8, 1024, 1024, 8), on column slices of
+    fused projections; Lk = 1000 ends inside a 64-key tile. One launch,
+    counted at head dim 8."""
+    q, k, v, _ = _fused_f32(gen, 1, 1024, lk, 8, 8)
+    n = tfa.flash_attention_cuda.head_dims[8]
+    _f32_fwd_check(q, k, v)
+    assert tfa.flash_attention_cuda.head_dims[8] == n + 1
 
 
 @pytest.mark.parametrize("lk", [1, 63, 65, 777, 4097])
@@ -1884,7 +1896,8 @@ def test_tf32_forward_writes_every_row(gen, monkeypatch):
     monkeypatch.setattr(tfa, "_lse_like", lambda q: torch.full(
         q.shape[:3], float("nan"), device=q.device))
     f32 = dict(dtype=torch.float32)
-    for (b, h, lq, lk, d), causal in (((2, 2, 300, 257, 40), False),
+    for (b, h, lq, lk, d), causal in (((2, 2, 300, 257, 8), False),
+                                      ((2, 2, 300, 257, 40), False),
                                       ((1, 2, 129, 300, 128), False),
                                       ((2, 1, 300, 100, 64), True),
                                       ((1, 1, 1000, 700, 512), False)):

@@ -43,13 +43,14 @@ def _want(dtype, d, form):
         if seg or (causal and (d != 64 or bias)) or (bias and d != 64):
             return NotImplementedError
         return "fp32"
-    if form != "none" and d not in (64, 128):
+    # head dim 8 has an fp32 form only (the checks sd1 UNet runs in fp32)
+    if d == 8 or (form != "none" and d not in (64, 128)):
         return NotImplementedError
     return "d512" if d == 512 else "sm90"
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))
-@pytest.mark.parametrize("d", [40, 48, 64, 72, 80, 128, 160, 512])
+@pytest.mark.parametrize("d", [8, 40, 48, 64, 72, 80, 128, 160, 512])
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
 def test_k1_route_by_dtype_head_dim_and_form(dtype, d, form):
     want = _want(dtype, d, form)
@@ -70,6 +71,24 @@ def test_k1_route_refuses_other_head_dims_and_dtypes(d):
             tfa.k1_route(dtype, d)
     with pytest.raises(TypeError):
         tfa.k1_route(torch.float16, 64)
+
+
+def test_checks_sd1_unet_takes_k1_fp32_at_head_dim_8():
+    """``checks sd1`` runs SD1UNet(model_channels=64) in fp32 on a 32^2
+    latent: its level-0 self-attentions (8 heads of 8, 1024 tokens) are the
+    flash-eligible ones, and K1 takes them in fp32; in bf16 the head dim is
+    refused (no ported caller reaches it)."""
+    with torch.device("meta"):
+        unet = SD1UNet(model_channels=64)
+    blocks = [m for m in unet.modules() if isinstance(m, TransformerBlock)]
+    dims = {m.attn1.qkv.weight.shape[1] // m.attn1.num_heads for m in blocks}
+    level0 = [m for m in blocks if m.attn1.qkv.weight.shape[1] == 64]
+    assert dims == {8, 16, 32} and len(level0) == 5
+    assert tfa.k1_route(F32, 8) == "fp32"
+    with pytest.raises(NotImplementedError, match="fp32"):
+        tfa.k1_route(F32, 8, causal=True)
+    with pytest.raises(NotImplementedError):
+        tfa.k1_route(BF16, 8)
 
 
 def _unet_attentions(height, width):

@@ -116,9 +116,11 @@ def test_entry_points_default_to_the_card():
     the CPU, as these tests do."""
     import inspect
 
+    from from_ddpm_to_stable_diffusion_tpu_torch.cli import checks
     from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import (
-        ddpm_trainer, mmdit_trainer, sd3, vae_trainer, vit_trainer,
-        vlm_trainer)
+        clip_trainer, ddpm_trainer, mmdit_trainer, sd3, vae_trainer,
+        vit_trainer, vlm_trainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils import metrics
 
     # DDPMTrainer is also the video trainer (model=TinyVideoUNet)
     for fn in (tpipe.SD1Models.from_jax, sd3.SD3Models.from_jax,
@@ -128,7 +130,15 @@ def test_entry_points_default_to_the_card():
                mmdit_trainer.MMDiTTrainer.__init__,
                vlm_trainer.VLMTrainer.__init__,
                vae_trainer.VAETrainer.__init__,
-               vit_trainer.ViTTrainer.__init__):
+               vit_trainer.ViTTrainer.__init__,
+               clip_trainer.CLIPTrainer.__init__,
+               metrics.feature_statistics, metrics.frechet_distance,
+               metrics.fid_from_features,
+               metrics.clip_image_features, metrics.clip_fid,
+               metrics.clip_score, metrics.inception_model,
+               metrics.inception_features, metrics.inception_fid,
+               checks.check_clip_pretrained, checks.check_siglip_pretrained,
+               *checks.CHECKS.values()):
         default = inspect.signature(fn).parameters["device"].default
         assert str(default) == "cuda", (fn.__qualname__, default)
     # generate() and SD1Generator run where the bundle lies (from_jax puts
