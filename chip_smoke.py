@@ -290,15 +290,27 @@ batch 2 tiled, SD3 text, SD3 checkpoint, SD3 int8, SD3 offload, training,
 sampling, accumulation, resume, latent training, latent sampling, MMDiT
 training, MMDiT sampling, MMDiT LoRA, T5, TinyVLM training, TinyVLM
 decoding, TinyVLM checkpoint, video training, video sampling, VQ-VAE,
-VanillaVAE, ViT, CLIP forward, CLIP training, FID, checks and fp32 paths
+VanillaVAE, ViT, CLIP forward, CLIP training, FID, checks, SD3 through the
+ring and the Ulysses MMDiT, the pipelined blocks, 1F1B, ring MMDiT training,
+MoE forward, MoE training and fp32 paths
 and read
 just after (before the plain-attention run it is compared with), K1's also
 by the kernel it ran (sm90, d512, fp32) and by head dim, K3's - K7's (but
 K2) by the kernel they ran (sm90, fp32): on every path the launches by
-kernel add up to the launches, on the bf16 SD3 and MMDiT paths every K5, K6
-and K7 launch took sm90, and on the bf16
+kernel add up to the launches, on the bf16 SD3 and MMDiT paths (the
+parallel ones too) every K5, K6 and K7 launch took sm90, and on the bf16
 tiny-SD (plain, accumulated, resumed, latent), TinyVLM and video training
-paths every K3 and K4 launch took sm90. The last two
+paths every K3 and K4 launch took sm90. The ``parallel`` group (its seconds
+summed over four stretches) runs on meshes of the one card repeated
+([cuda] * n): the ring at the MMDiT's (2, 24, 4252, 64) with kv_valid_len
+4250 against the one-device joint attention and plain, forward and
+backward, and causal zig-zag at (1, 8, 16384, 64) against K1 / K3 / K4
+causal, n^2 K5, K6 and K7 launches a call, the hop kernels at (2, 24, 1063,
+1063, 64) with bound and library; an SD3 request through the ring and the
+Ulysses MMDiT against the flash one; the pipelined joint blocks and a 1F1B
+step; ring MMDiT training at SD3's operating point against the flash
+gradient; the 4-expert MMDiT forward over an expert axis against no mesh
+and a 2-expert training step with its balance loss. The last two
 lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
 card's name and power limit come on the line before them. Imports nothing
@@ -4205,10 +4217,13 @@ def phase_sd1_slice(card, models):
 # Serving: SD1 behind the port's dynamic batcher and HTTP server, and the CLI
 
 SERVING_BUCKETS = (1, 2, 4, 8)
-# one SD1 request (any batch) at 512^2, 50 k-LMS steps, CFG as one forward:
-# K1 at head dims 40 (5 self-attentions at 64^2) and 80 (5 at 32^2) in each
-# UNet forward, and the VAE decoder's mid attention at 512
-SD1_K1_HEAD_DIMS = {40: 5 * 50, 80: 5 * 50, 512: 1}
+# one served SD1 batch (any bucket) at 512^2, CFG as one forward, k-LMS steps
+# cut from the reference's 50 to 20 (to pay for the parallel group's time;
+# the width stays): K1 at head dims 40 (5 self-attentions at 64^2) and 80 (5
+# at 32^2) in each UNet forward, and the VAE decoder's mid attention at 512
+SERVING_STEPS = 20
+SERVING_K1, SERVING_K2 = 10 * SERVING_STEPS + 1, 61 * SERVING_STEPS + 30
+SD1_K1_HEAD_DIMS = {40: 5 * SERVING_STEPS, 80: 5 * SERVING_STEPS, 512: 1}
 # batch-to-batch bound of a seed's bf16 image (PERF.md section 7: batch 1
 # against batch 4, cuDNN and cuBLAS choose their kernels by batch)
 BATCH_LEVELS_MAX, BATCH_LEVELS_MEAN = 11, 2.0
@@ -4274,7 +4289,8 @@ def json_image(body):
 
 
 def phase_serving(card, models):
-    """SD1 at the reference operating point behind the port's serving layer:
+    """SD1 at the reference width (512^2, CFG 7.5, k-LMS cut to
+    ``SERVING_STEPS`` steps) behind the port's serving layer:
     the generate_fn of ``cli/serve.py::_build_sd1`` over the resident bf16
     bundle, ``DynamicBatcher(buckets=(1, 2, 4, 8), max_wait_ms=25)`` and
     ``make_server(port=0)`` on 127.0.0.1; ``warmup()`` timed per bucket,
@@ -4299,8 +4315,9 @@ def phase_serving(card, models):
     from from_ddpm_to_stable_diffusion_tpu_torch.serving import (
         DynamicBatcher, make_server, serve_forever_in_thread)
 
-    gen = SD1Generator(models, sampler="k_lms", n_inference_steps=50,
-                       cfg_scale=7.5, height=512, width=512, mesh=None)
+    gen = SD1Generator(models, sampler="k_lms",
+                       n_inference_steps=SERVING_STEPS, cfg_scale=7.5,
+                       height=512, width=512, mesh=None)
     served_fn = sd1_generate_fn(gen)
     calls, worker_threads = [], set()
 
@@ -4412,11 +4429,11 @@ def phase_serving(card, models):
               and [len(c[0]) for c in stages["a burst of 3"]["calls"]] == [4],
               f"the burst of 3: {stages['a burst of 3']['padded']} padded "
               "slots")
-        check(launches["K1"] == K1_PER_REQUEST * n_batches
-              and launches["K2"] == K2_PER_REQUEST * n_batches,
+        check(launches["K1"] == SERVING_K1 * n_batches
+              and launches["K2"] == SERVING_K2 * n_batches,
               f"serving launches K1 {launches['K1']}, K2 {launches['K2']} "
               f"over {n_batches} batches")
-        check(launches.k1_routes == {"sm90": 500 * n_batches,
+        check(launches.k1_routes == {"sm90": (SERVING_K1 - 1) * n_batches,
                                      "d512": n_batches}
               and k1_dims == {d: n * n_batches
                               for d, n in SD1_K1_HEAD_DIMS.items()},
@@ -6756,6 +6773,642 @@ def phase_checks_cli(card):
     return counts, fp32
 
 
+# --------------------------------------------------------------------------
+# parallel: the sequence-, pipeline- and expert-parallel MMDiT
+# --------------------------------------------------------------------------
+# One card: every mesh is the card repeated ([cuda] * n), the one-process
+# form of parallel/mesh.py, so the n shards of a ring take turns on it.
+RING_N = 4
+# SD3's joint sequence at 1024^2 (154 context + 4096 latent tokens = 4250),
+# padded to a multiple of 4: 4 shards of 1063 tokens
+RING_SHAPE, RING_VALID, RING_LC = (2, 24, 4252, 64), 4250, 154
+RING_CAUSAL_SHAPE = (1, 8, 16384, 64)   # JAX test_ring_flash_long_sequence_16k
+# a ring call: n hops of K5 for each of n query shards; its backward as many
+# K6 and K7; an MMDiT forward runs one ring in each of its 24 joint blocks
+RING_CALL = dict(K1=0, K2=0, K3=0, K4=0, K5=RING_N ** 2, K6=0, K7=0)
+RING_K5_PER_FORWARD = SD3_DEPTH * RING_N ** 2
+RING_SD3_STEPS, ULYSSES_SD3_STEPS, RING_TRAIN_STEPS = 4, 2, 2
+# pipeline: joint blocks 0..19 over 4 stages (n_blocks must divide them: 23
+# do not), 4 microbatches of 1, then blocks 20..22 whole
+PP_STAGES, PP_MICRO, PP_BLOCKS = 4, 4, 20
+MOE_EXPERTS, MOE_TRAIN_EXPERTS = 4, 2
+# ring / Ulysses against the split-KV flash MMDiT: the same function up to
+# bf16 reassociation; a wrong hop offset, merge or mask is off by O(1)
+PARALLEL_REL_TOL = GRAD_REL_TOL
+
+
+def card_mesh(n=RING_N, axis="seq"):
+    """A one-process mesh of the card repeated ``n`` times."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
+
+    return build_mesh({axis: n}, [torch.device("cuda")] * n)
+
+
+def launches_since(n0):
+    n1 = read_counts()
+    return {k: n1[k] - n0[k] for k in n1}
+
+
+def _grad_errors(what, got, want, tol=2e-2):
+    """max|err| / max|want| of each (name, got, want); checked against
+    ``tol`` of the largest magnitude (the K6 / K7 tolerance)."""
+    line = []
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err = (a.float() - w.float()).abs().max().item()
+        ref = w.float().abs().max().item()
+        check(bool(a.isfinite().all()) and err <= tol * ref + 1e-6,
+              f"{what} {name}: {err} > {tol} * {ref}")
+        line.append(f"{name} {err:.3e}/{ref:.3e}")
+    return ", ".join(line) + f" (tol {tol} of the largest)"
+
+
+def phase_kernels_ring(card):
+    """The ring on a 4-shard mesh of the card: K5 under hop offsets and K6 /
+    K7 under the merged global lse, at the MMDiT's joint sequence (2, 24,
+    4252, 64) with kv_valid_len 4250, forward and backward, against the
+    one-device joint attention (4 x K5 split-KV; 4 x K6 + 4 x K7) and the
+    plain version; then causal zig-zag at (1, 8, 16384, 64) against K1 / K3 /
+    K4 causal over the whole sequence. n^2 launches of each per call. One
+    ring call timed by device time (profiler) and wall time; the hop
+    kernels at (2, 24, 1063, 1063, 64) with their bound, the plain version
+    and one scaled_dot_product_attention on the same shard."""
+    import torch
+    import torch.nn.functional as F
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel.ring_attention import (
+        ring_attention)
+
+    bf16 = torch.bfloat16
+    mesh = card_mesh()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(bf16)
+    b, h, l, d = RING_SHAPE
+    V, lc = RING_VALID, RING_LC
+    q, k, v, g = (rnd(b, h, l, d) for _ in range(4))
+    g[:, :, V:] = 0          # the padded rows are sliced off: no gradient
+    ring = lambda *x: ring_attention(*x, mesh, kv_valid_len=V)
+    z = torch.zeros(2, dtype=torch.int32, device="cuda")
+    streams = lambda t: (t[:, :, :lc], t[:, :, lc:V])
+
+    # forward: 16 K5 launches, against the joint attention and plain
+    n0 = read_counts()
+    out = ring(q, k, v)
+    torch.cuda.synchronize()
+    fwd = launches_since(n0)
+    check(fwd == RING_CALL, f"a ring forward launched {fwd}, not {RING_CALL}")
+    (qc, qx), (kc, kx), (vc, vx) = streams(q), streams(k), streams(v)
+    joint = torch.cat(fa.joint_flash_attention(qc, kc, vc, qx, kx, vx), 2)
+    plain, plain_lse = fa.flash_attention_pos_plain(q, k, v, z, z,
+                                                    valid_len=V)
+    e_joint = (out[:, :, :V].float() - joint.float()).abs().max().item()
+    e_plain = (out[:, :, :V].float() - plain[:, :, :V].float()).abs().max(
+    ).item()
+    check(e_joint <= 2e-2 and e_plain <= 2e-2,
+          f"ring forward off: joint {e_joint}, plain {e_plain} (atol 2e-2)")
+
+    # backward: 16 K6 and 16 K7 under the merged lse
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    n0 = read_counts()
+    o = ring(*leaves)
+    grads = torch.autograd.grad(o, leaves, g, retain_graph=True)
+    torch.cuda.synchronize()
+    both = launches_since(n0)
+    want = dict(RING_CALL, K6=RING_N ** 2, K7=RING_N ** 2)
+    check(both == want, f"ring forward + backward launched {both}, not "
+                        f"{want}")
+    check(all(float(t[:, :, V:].abs().max()) == 0.0 for t in grads[1:]),
+          "the padded keys got a gradient")
+    jl = [t.detach().requires_grad_() for t in (qc, kc, vc, qx, kx, vx)]
+    oc, ox = fa.joint_flash_attention(*jl)
+    jg = torch.autograd.grad((oc, ox), jl, streams(g))
+    joint_g = [torch.cat([jg[i], jg[i + 3]], 2) for i in range(3)]
+    delta = (g.float() * plain.float()).sum(-1)
+    plain_g = fa.flash_bwd_pos_plain(q, k, v, g, plain_lse, delta, z, z,
+                                     valid_len=V)
+    mine = [t[:, :, :V] for t in grads]
+    errs_joint = _grad_errors("ring backward vs joint", mine, joint_g)
+    errs_plain = _grad_errors("ring backward vs plain", mine,
+                              [t[:, :, :V] for t in plain_g])
+    del jl, oc, ox, jg, plain_g, plain
+    gc.collect()
+
+    # one ring call: device time (profiler) and wall time (host clock over
+    # calls that end in a synchronise)
+    def wall_ms(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    back = lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
+    call = dict(fwd_wall_ms=wall_ms(lambda: ring(q, k, v)),
+                bwd_wall_ms=wall_ms(back))
+    fams_f = device_families(lambda: ring(q, k, v), "K5 flash fwd pos")
+    fams_b = device_families(back, "K7 flash bwd pos dk/dv")
+    call.update(
+        fwd_device_ms=sum(fams_f.values()) or None,
+        fwd_k5_device_ms=fams_f.get("K5 flash fwd pos"),
+        bwd_device_ms=sum(fams_b.values()) or None,
+        bwd_k6_device_ms=fams_b.get("K6 flash bwd pos dq"),
+        bwd_k7_device_ms=fams_b.get("K7 flash bwd pos dk/dv"),
+        joint_fwd_ms=cuda_ms(lambda: fa.joint_flash_attention(
+            qc, kc, vc, qx, kx, vx), 5, 1),
+        library_fwd_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, :V], k[:, :, :V], v[:, :, :V]), 5, 1),
+        launches_fwd=RING_N ** 2, launches_bwd=dict(K6=RING_N ** 2,
+                                                   K7=RING_N ** 2))
+    print(f"ring attention (B,H,L,D)={RING_SHAPE} bf16 over {RING_N} shards "
+          f"of the card, kv_valid_len {V}: forward max|err| against the "
+          f"joint attention {e_joint:.3e}, against plain {e_plain:.3e} (atol "
+          f"2e-2); backward against the joint attention {errs_joint}, "
+          f"against plain {errs_plain}; launches forward {fwd}, forward + "
+          f"backward {both}; one ring call: forward wall "
+          f"{call['fwd_wall_ms']:.3f} ms, device busy "
+          f"{fmt_ms(call['fwd_device_ms'])} (K5 "
+          f"{fmt_ms(call['fwd_k5_device_ms'])}); backward wall "
+          f"{call['bwd_wall_ms']:.3f} ms, device busy "
+          f"{fmt_ms(call['bwd_device_ms'])} (K6 "
+          f"{fmt_ms(call['bwd_k6_device_ms'])}, K7 "
+          f"{fmt_ms(call['bwd_k7_device_ms'])}); one-device joint attention "
+          f"forward {call['joint_fwd_ms']:.3f} ms, library forward (one "
+          f"scaled_dot_product_attention over {V}) "
+          f"{call['library_fwd_ms']:.3f} ms [{card}]", flush=True)
+    print("ring forward profile (one call):", flush=True)
+    print_profile(fams_f, [], 1, "call")
+    del o, leaves, grads
+
+    # the hop kernels: shard 0's queries against shard 3's keys, whose last
+    # two are the padding (the ragged hop), at their global offsets
+    n_l = l // RING_N
+    qs, gs = q[:, :, :n_l], g[:, :, :n_l]
+    ks, vs = k[:, :, 3 * n_l:], v[:, :, 3 * n_l:]
+    qo = torch.tensor([0, 0], dtype=torch.int32, device="cuda")
+    ko = torch.tensor([3 * n_l, 0], dtype=torch.int32, device="cuda")
+    kw = dict(seg_q=n_l, seg_k=n_l, valid_len=V)
+    o_s, lse_s = fa.flash_attention_pos_cuda(qs, ks, vs, qo, ko, **kw)
+    o_p, lse_p = fa.flash_attention_pos_plain(qs, ks, vs, qo, ko, **kw)
+    e_o = (o_s.float() - o_p.float()).abs().max().item()
+    e_l = (lse_s - lse_p).abs().max().item()
+    check(e_o <= 2e-2 and e_l <= 1e-3, f"K5 at the ring hop: out {e_o}, lse "
+                                       f"{e_l}")
+    delta_s = (gs.float() * o_s.float()).sum(-1)
+    gs_k = gs.contiguous()
+    hop_g = (fa.flash_bwd_pos_dq_cuda(qs, ks, vs, gs_k, lse_s, delta_s, qo,
+                                      ko, **kw),
+             *fa.flash_bwd_pos_dkv_cuda(qs, ks, vs, gs_k, lse_s, delta_s, qo,
+                                        ko, **kw))
+    errs_hop = _grad_errors("K6 / K7 at the ring hop", hop_g,
+                            fa.flash_bwd_pos_plain(qs, ks, vs, gs, lse_s,
+                                                   delta_s, qo, ko, **kw))
+    visible = V - 3 * n_l
+    ql, kl, vl = (t.detach().requires_grad_() for t in (qs, ks, vs))
+    ol = F.scaled_dot_product_attention(ql, kl, vl)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), gs,
+                                                  retain_graph=True), 10, 2)
+    plain_bwd = cuda_ms(lambda: fa.flash_bwd_pos_plain(
+        qs, ks, vs, gs, lse_s, delta_s, qo, ko, **kw), 3, 1)
+    shape = f"({b},{h},{n_l},{n_l},{d}) q offsets (0,0), kv offsets " \
+            f"({3 * n_l},0), valid_len {V}"
+    hop = {}
+    for name, fn, fam, products, counts in (
+            ("K5", lambda: fa.flash_attention_pos_cuda(qs, ks, vs, qo, ko,
+                                                        **kw),
+             "K5 flash fwd pos", 2, (2, 2, 1)),
+            ("K6", lambda: fa.flash_bwd_pos_dq_cuda(
+                qs, ks, vs, gs_k, lse_s, delta_s, qo, ko, **kw),
+             "K6 flash bwd pos dq", 3, (3, 2, 2)),
+            ("K7", lambda: fa.flash_bwd_pos_dkv_cuda(
+                qs, ks, vs, gs_k, lse_s, delta_s, qo, ko, **kw),
+             "K7 flash bwd pos dk/dv", 4, (2, 4, 2))):
+        bound_ms, bound_by = attn_bound(b, h, n_l, visible, d, products,
+                                        *counts)
+        hop[name] = dict(
+            shape=shape, ms=cuda_ms(fn, 20, 3),
+            device_ms=kernel_device_ms(fn, fam), bound_ms=bound_ms,
+            bound_by=bound_by, launches_per_ring_call=RING_N ** 2,
+            plain_ms=(cuda_ms(lambda: fa.flash_attention_pos_plain(
+                qs, ks, vs, qo, ko, **kw), 3, 1) if name == "K5"
+                      else plain_bwd),
+            library_ms=(cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs), 20, 3) if name == "K5" else lib_bwd),
+            library=("F.scaled_dot_product_attention on the shard"
+                     if name == "K5" else "its backward (dq, dk, dv)"))
+        r = hop[name]
+        print(f"{name} at the ring hop {shape} bf16: kernel {r['ms']:.4f} ms, "
+              f"device {fmt_ms(r['device_ms'])}, plain {r['plain_ms']:.4f} "
+              f"ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]",
+              flush=True)
+    print(f"ring hop errors: K5 out {e_o:.3e} lse {e_l:.3e}; K6 / K7 "
+          f"{errs_hop}", flush=True)
+    del ol, ql, kl, vl, out, q, k, v, g
+
+    # causal zig-zag at 16k against K1 / K3 / K4 causal over the whole
+    b2, h2, l2, d2 = RING_CAUSAL_SHAPE
+    q2, k2, v2, g2 = (rnd(b2, h2, l2, d2) for _ in range(4))
+    leaves = [t.detach().requires_grad_() for t in (q2, k2, v2)]
+    n0 = read_counts()
+    o2 = ring_attention(*leaves, mesh, causal=True)
+    got = torch.autograd.grad(o2, leaves, g2)
+    torch.cuda.synchronize()
+    causal = launches_since(n0)
+    check(causal == want, f"causal ring forward + backward launched "
+                          f"{causal}, not {want}")
+    check(fa.flash_attention_pos_cuda.routes.get("sm90", 0) > 0,
+          "the ring's K5 did not take sm90")
+    ref_leaves = [t.detach().requires_grad_() for t in (q2, k2, v2)]
+    o_ref = fa.flash_attention(*ref_leaves, causal=True)
+    ref_g = torch.autograd.grad(o_ref, ref_leaves, g2)
+    e_c = (o2.float() - o_ref.float()).abs().max().item()
+    check(e_c <= 2e-2, f"causal ring forward off K1 causal: {e_c}")
+    errs_c = _grad_errors("causal ring backward vs K3 / K4", got, ref_g)
+    ring_ms = wall_ms(lambda: ring_attention(q2, k2, v2, mesh, causal=True))
+    k1_ms = cuda_ms(lambda: fa.flash_attention_cuda(q2, k2, v2, causal=True),
+                    5, 1)
+    print(f"causal zig-zag ring (B,H,L,D)={RING_CAUSAL_SHAPE} bf16 over "
+          f"{RING_N} shards: forward max|err| against K1 causal {e_c:.3e} "
+          f"(atol 2e-2); backward against K3 / K4 causal {errs_c}; launches "
+          f"{causal} (two segments a side); forward wall {ring_ms:.3f} ms, "
+          f"K1 causal over the whole {k1_ms:.3f} ms [{card}]", flush=True)
+    call.update(causal_fwd_wall_ms=ring_ms, causal_k1_ms=k1_ms)
+    del o2, got, o_ref, ref_g, leaves, ref_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(hop, call=call, errors=dict(
+        joint=e_joint, plain=e_plain, causal=e_c))
+
+
+def phase_parallel_sd3(card, source):
+    """On the SD3-medium bundle: an SD3 request at 1024^2, CFG 5, shift 3
+    through the ring MMDiT (4 shards of the card) and one through the
+    Ulysses MMDiT, each against the same request on the flash MMDiT (steps
+    cut, width and depth whole); then the pipelined joint blocks (20 of
+    them over 4 stages and 4 microbatches, the rest whole) against the
+    sequential blocks, and one 1F1B step over 4 one-block stages against
+    autograd. Returns the launches of each path."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.mmdit import (
+        make_joint_block_stage_fn, pipelined_joint_blocks,
+        stack_joint_block_params)
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel.pipeline import (
+        pipeline_value_and_grad)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer)
+
+    models = source["models"]
+    mmdit = models.mmdit
+    inf = SD3Inferencer(models, shift=3.0)
+    tokens = np.zeros((1, 77), np.int32)
+    request = lambda steps: inf.gen_image(
+        tokens, width=1024, height=1024, steps=steps, cfg_scale=5.0,
+        seed=source["seed"])
+    step_events, final_latents = [], []
+    hooks = request_hooks(models, step_events, final_latents)
+    mesh = card_mesh()
+    runs = []
+    try:
+        for impl, steps in (("ring", RING_SD3_STEPS),
+                            ("ulysses", ULYSSES_SD3_STEPS)):
+            mmdit.set_attention("flash")
+            final_latents.clear()
+            flash_image = request(steps)
+            flash_latents = final_latents[-1]
+            mmdit.set_attention(impl, mesh)
+            final_latents.clear()
+            step_events.clear()
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            image = request(steps)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            got = read_counts()
+            want = sd3_counts(1, 30, 0)
+            want["K5"] = RING_K5_PER_FORWARD * steps if impl == "ring" else 0
+            check(dict(got) == want, f"SD3 {impl} request launched "
+                                     f"{dict(got)}, not {want}")
+            rel = rel_l2(final_latents[-1], flash_latents)
+            lv = levels(image, flash_image)
+            check(image.shape == (1, 1024, 1024, 3)
+                  and rel <= PARALLEL_REL_TOL,
+                  f"SD3 {impl} request off the flash one: final latents rel "
+                  f"L2 {rel}")
+            print(f"SD3 request through the {impl} MMDiT ({RING_N} shards of "
+                  f"the card; 1024^2, {steps} flow-Euler steps, CFG 5, "
+                  f"shift 3, seed {source['seed']}): {secs:.3f} s/image, "
+                  f"{step_ms(step_events):.2f} ms/denoise step; against the "
+                  f"flash MMDiT's request of as many steps: final latents "
+                  f"rel L2 {rel:.3e} (tol {PARALLEL_REL_TOL}), image max "
+                  f"{lv[0]} mean {lv[1]:.4f} levels; launches {dict(got)}, "
+                  f"K5 {got.k5_routes} [{card}]", flush=True)
+            runs.append(got)
+    finally:
+        for hook in hooks:
+            hook.remove()
+        mmdit.set_attention("flash")
+
+    # pipeline parallelism on the bundle's depth-24 MMDiT (bf16)
+    cfg = mmdit.config
+    hs, bf16 = cfg.hidden_size, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(bf16)
+    context, x, c = rnd(PP_MICRO, RING_LC, hs), rnd(PP_MICRO, 4096, hs), \
+        rnd(PP_MICRO, hs)
+    params = dict(mmdit.named_parameters())
+    stages = card_mesh(PP_STAGES, "stage")
+    blocks = [getattr(mmdit, f"joint_block{i}") for i in range(cfg.depth - 1)]
+    with torch.no_grad():
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ctx_pp, x_pp = pipelined_joint_blocks(
+            cfg, params, context, x, c, stages, PP_MICRO, n_blocks=PP_BLOCKS)
+        for blk in blocks[PP_BLOCKS:]:
+            ctx_pp, x_pp = blk(ctx_pp, x_pp, c)
+        torch.cuda.synchronize()
+        pp_s = time.perf_counter() - t
+        pp = read_counts()
+        t = time.perf_counter()
+        ctx_s, x_s = context, x
+        for blk in blocks:
+            ctx_s, x_s = blk(ctx_s, x_s, c)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t
+    want = sd3_counts(0, 0, 0)
+    want["K5"] = 4 * (PP_BLOCKS * PP_MICRO + cfg.depth - 1 - PP_BLOCKS)
+    rel = max(rel_l2(x_pp, x_s), rel_l2(ctx_pp, ctx_s))
+    check(dict(pp) == want, f"pipelined blocks launched {dict(pp)}, not "
+                            f"{want}")
+    check(rel <= PARALLEL_REL_TOL, f"pipelined blocks off the sequential "
+                                   f"ones: rel L2 {rel}")
+    print(f"pipelined joint blocks (SD3-medium's, bf16): blocks 0-"
+          f"{PP_BLOCKS - 1} over {PP_STAGES} stages of the card x "
+          f"{PP_MICRO} microbatches of 1, blocks {PP_BLOCKS}-{cfg.depth - 2} "
+          f"whole, batch {PP_MICRO} at {RING_LC} + 4096 tokens: {pp_s:.3f} s "
+          f"(GPipe ticks one after another on one card), the sequential "
+          f"stack {seq_s:.3f} s; rel L2 against it {rel:.3e} (tol "
+          f"{PARALLEL_REL_TOL}); launches {dict(pp)} [{card}]", flush=True)
+    runs.append(pp)
+    del ctx_pp, x_pp, ctx_s, x_s
+
+    # 1F1B over 4 one-block stages against autograd of the whole stack
+    sp = {k_: v_.detach() for k_, v_ in stack_joint_block_params(
+        params, PP_STAGES, PP_STAGES).items()}
+    stage_fn = make_joint_block_stage_fn(cfg, RING_LC, 1)
+    zz = torch.cat([context, x, c[:, None]], dim=1)
+    tgt = rnd(*zz.shape)
+    loss_fn = lambda y_, t_: torch.mean((y_.float() - t_.float()) ** 2)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss, grads = pipeline_value_and_grad(stage_fn, sp, zz, tgt, loss_fn,
+                                          stages, PP_MICRO)
+    torch.cuda.synchronize()
+    f1b_s = time.perf_counter() - t
+    f1b = read_counts()
+    ref = {k_: v_.clone().requires_grad_() for k_, v_ in sp.items()}
+    out = zz
+    for s_ in range(PP_STAGES):
+        out = stage_fn({k_: v_[s_] for k_, v_ in ref.items()}, out)
+    ref_loss = loss_fn(out, tgt)
+    ref_g = torch.autograd.grad(ref_loss, list(ref.values()))
+    num = sum(((grads[n].float() - r.float()) ** 2).sum().item()
+              for n, r in zip(ref, ref_g))
+    den = sum((r.float() ** 2).sum().item() for r in ref_g)
+    g_rel = (num / den) ** 0.5
+    l_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    want = sd3_counts(0, 0, 0)
+    n_fb = PP_STAGES * PP_MICRO * 4     # 4 joint-attention partials a block
+    want.update(K5=2 * n_fb, K6=n_fb, K7=n_fb)   # the backward recomputes
+    check(dict(f1b) == want, f"1F1B launched {dict(f1b)}, not {want}")
+    check(g_rel <= PARALLEL_REL_TOL and l_rel <= PARALLEL_REL_TOL,
+          f"1F1B off autograd: loss rel {l_rel}, gradients rel L2 {g_rel}")
+    print(f"1F1B pipeline_value_and_grad (SD3-medium's blocks 0-3 as "
+          f"{PP_STAGES} stages, {PP_MICRO} microbatches of 1, bf16): "
+          f"{f1b_s:.3f} s; loss {loss.item():.6f} against autograd of the "
+          f"whole stack {ref_loss.item():.6f} (rel {l_rel:.3e}), gradients "
+          f"rel L2 {g_rel:.3e} (tol {PARALLEL_REL_TOL}); launches "
+          f"{dict(f1b)} [{card}]", flush=True)
+    runs.append(f1b)
+    del sp, ref, ref_g, grads, out, zz, tgt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_mmdit_ring(card, trainer, state, flash_step):
+    """The MMDiT trainer at SD3's operating point (depth 24, latent 128:
+    4096 + 154 tokens, batch 2, bf16 over fp32) with the ring joint
+    attention over 4 shards of the card: the loss and gradient of one batch
+    against the flash model's (rel L2), then ring train steps with their
+    K5 / K6 / K7 launches. The model goes back to flash attention after."""
+    import torch
+
+    model = state.model
+    cfg = trainer.cfg
+    latents, context, y = (torch.from_numpy(a).cuda() for a in mmdit_batch(
+        cfg.batch_size, cfg.img_size, cfg.context_len, trainer.model_cfg,
+        seed=5))
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    draws = dict(
+        t_lin=torch.sigmoid(torch.randn(2, generator=gen, device="cuda")),
+        noise=torch.randn(latents.shape, generator=gen, device="cuda"),
+        drop=torch.zeros(2, dtype=torch.bool, device="cuda"))
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = trainer.loss(state, latents, context, y, **draws)
+        loss.backward()
+        return loss.item(), [p.grad.to(torch.bfloat16)
+                             for p in model.parameters()]
+
+    model.train()
+    l_flash, g_flash = loss_and_grads()
+    model.set_attention("ring", card_mesh())
+    try:
+        n0 = read_counts()
+        l_ring, g_ring = loss_and_grads()
+        one = launches_since(n0)
+        num = sum(((a.float() - b.float()) ** 2).sum().item()
+                  for a, b in zip(g_ring, g_flash))
+        den = sum((b.float() ** 2).sum().item() for b in g_flash)
+        g_rel = (num / den) ** 0.5
+        l_rel = abs(l_ring - l_flash) / abs(l_flash)
+        del g_ring, g_flash
+        model.zero_grad(set_to_none=True)
+        per_step = dict(K1=0, K2=0, K3=0, K4=0, K5=RING_K5_PER_FORWARD,
+                        K6=RING_K5_PER_FORWARD, K7=RING_K5_PER_FORWARD)
+        check(dict(one) == per_step, f"a ring MMDiT loss + backward "
+                                     f"launched {dict(one)}, not {per_step}")
+        check(g_rel <= PARALLEL_REL_TOL and l_rel <= PARALLEL_REL_TOL,
+              f"ring MMDiT gradient off the flash one: loss rel {l_rel}, "
+              f"gradient rel L2 {g_rel}")
+        reset_counts()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = []
+        for _ in range(RING_TRAIN_STEPS):
+            state, loss = trainer.train_step(state, latents, context, y)
+            losses.append(loss.item())
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / RING_TRAIN_STEPS
+        launches = read_counts()
+        want = {k_: n * RING_TRAIN_STEPS for k_, n in per_step.items()}
+        check(dict(launches) == want, f"ring MMDiT steps launched "
+                                      f"{dict(launches)}, not {want}")
+        check(all(l_ == l_ for l_ in losses), f"ring losses {losses}")
+        print(f"MMDiT ring training (depth 24, latent 128: 4096 + 154 "
+              f"tokens, batch 2, bf16 over fp32; {RING_N} shards of the "
+              f"card): one batch's loss {l_ring:.6f} against the flash "
+              f"model's {l_flash:.6f} (rel {l_rel:.3e}), the whole gradient "
+              f"rel L2 {g_rel:.3e} (tol {PARALLEL_REL_TOL}); "
+              f"{RING_TRAIN_STEPS} ring steps {ms:.2f} ms/step (CUDA events; "
+              f"the flash step {flash_step['step_ms']:.2f}), losses "
+              f"{[round(v_, 4) for v_ in losses]}; launches "
+              f"{dict(launches)}, K6 {launches.k6_routes} K7 "
+              f"{launches.k7_routes} [{card}]", flush=True)
+    finally:
+        model.set_attention("flash")
+    return state, launches
+
+
+def phase_moe(card):
+    """Switch-MoE MMDiTs: depth 24 (SD3-medium's width) with 4 experts in
+    every x-stream block, bf16, forward at latent 128 with the experts over
+    an ``expert`` axis of 4 shards of the card against no mesh; then one
+    training step of a depth-24 MMDiT with 2 experts over an expert axis
+    of 2 at latent 64, the balance loss in it, its memory reckoned first."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.mmdit import (
+        DismantledBlock, MMDiT, MMDiTConfig, collect_losses)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.mmdit_trainer import (
+        MMDiTTrainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        flax_default_init_)
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        FlowTrainConfig)
+
+    runs = []
+    cfg = MMDiTConfig(moe_experts=MOE_EXPERTS)
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = MMDiT(cfg, mesh=card_mesh(MOE_EXPERTS, "expert"))
+    model = flax_default_init_(model.to_empty(device="cuda"),
+                               torch.Generator("cuda").manual_seed(41))
+    model = model.to(torch.bfloat16).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    x, context, y = (torch.from_numpy(a).cuda() for a in mmdit_batch(
+        2, 128, RING_LC, cfg, seed=9))
+    t = torch.tensor([300.0, 700.0], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), collect_losses(model) as sown:
+        reset_counts()
+        t1 = time.perf_counter()
+        out_ep = model(x, t, y, context)
+        torch.cuda.synchronize()
+        ep_s = time.perf_counter() - t1
+        fwd = read_counts()
+        aux = {k_: v_.item() for k_, v_ in sown.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moe_blocks = [m for m in model.modules()
+                  if isinstance(m, DismantledBlock) and m.moe_experts]
+    for m in moe_blocks:
+        m.moe_mesh = None
+    with torch.no_grad():
+        out_one = model(x, t, y, context)
+    rel = rel_l2(out_ep, out_one)
+    want = sd3_counts(0, 0, 0)
+    want["K5"] = 4 * SD3_DEPTH
+    check(dict(fwd) == want, f"MoE forward launched {dict(fwd)}, not {want}")
+    check(len(aux) == SD3_DEPTH and all(a > 0 for a in aux.values())
+          and bool(torch.isfinite(out_ep).all()) and rel <= 1e-2,
+          f"MoE forward: {len(aux)} balance losses, rel L2 against no mesh "
+          f"{rel}")
+    print(f"MoE MMDiT forward (depth 24, hidden 1536, {MOE_EXPERTS} experts "
+          f"in each x-stream block over an expert axis of {MOE_EXPERTS} "
+          f"shards of the card; {n_params} bf16 params, set-up "
+          f"{t1 - t0:.2f} s; batch 2 at 4096 + {RING_LC} tokens): "
+          f"{ep_s:.3f} s, peak {peak:.2f} GiB; rel L2 against the same model "
+          f"without the expert mesh {rel:.3e} (tol 1e-2); balance losses "
+          f"{min(aux.values()):.4f}-{max(aux.values()):.4f} over {len(aux)} "
+          f"blocks; launches {dict(fwd)} [{card}]", flush=True)
+    runs.append(fwd)
+    del model, out_ep, out_one, moe_blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mc = MMDiTConfig(moe_experts=MOE_TRAIN_EXPERTS)
+    fcfg = FlowTrainConfig(img_size=64, context_len=RING_LC, batch_size=2,
+                           dtype="bf16")
+    with torch.device("meta"):
+        n_train = sum(p.numel() for p in MMDiT(mc).parameters())
+    print(f"MoE training: {n_train} fp32 parameters ({MOE_TRAIN_EXPERTS} "
+          f"experts): parameters, gradients and two AdamW moments reckoned "
+          f"at {16 * n_train / 2 ** 30:.1f} GiB before activations; at "
+          f"{MOE_EXPERTS} experts with an EMA the same reckoning gives "
+          f"{20 * n_params / 2 ** 30:.1f} GiB", flush=True)
+    trainer = MMDiTTrainer(mc, fcfg, device="cuda",
+                           mesh=card_mesh(MOE_TRAIN_EXPERTS, "expert"))
+    state = trainer.create_state(steps_per_epoch=2)
+    latents, ctx2, y2 = (torch.from_numpy(a).cuda() for a in mmdit_batch(
+        2, 64, RING_LC, mc, seed=10))
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    draws = dict(
+        t_lin=torch.sigmoid(torch.randn(2, generator=gen, device="cuda")),
+        noise=torch.randn(latents.shape, generator=gen, device="cuda"),
+        drop=torch.zeros(2, dtype=torch.bool, device="cuda"))
+    with torch.no_grad():
+        with_aux = trainer.loss(state, latents, ctx2, y2, **draws).item()
+        weight, trainer.cfg.moe_aux_weight = trainer.cfg.moe_aux_weight, 0.0
+        without = trainer.loss(state, latents, ctx2, y2, **draws).item()
+        trainer.cfg.moe_aux_weight = weight
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t1 = time.perf_counter()
+    losses = []
+    for _ in range(2):
+        state, loss = trainer.train_step(state, latents, ctx2, y2)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t1) / 2
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = sd3_counts(0, 0, 0)
+    want.update(K5=2 * 4 * SD3_DEPTH, K6=2 * 4 * SD3_DEPTH,
+                K7=2 * 4 * SD3_DEPTH)
+    check(dict(launches) == want, f"MoE steps launched {dict(launches)}, not "
+                                  f"{want}")
+    check(all(l_ == l_ for l_ in losses) and with_aux > without,
+          f"MoE losses {losses}, with the balance term {with_aux} vs "
+          f"without {without}")
+    print(f"MoE training (depth 24, {MOE_TRAIN_EXPERTS} experts over an "
+          f"expert axis of {MOE_TRAIN_EXPERTS}, latent 64: 1024 + {RING_LC} "
+          f"tokens, batch 2, bf16 over fp32): 2 steps {secs:.3f} s/step "
+          f"(cold), peak {peak:.2f} GiB, losses "
+          f"{[round(v_, 4) for v_ in losses]}; one batch's loss with the "
+          f"balance term {with_aux:.6f}, without {without:.6f} (weight "
+          f"{weight}); launches {dict(launches)} [{card}]", flush=True)
+    runs.append(launches)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main():
     marks = [("start", time.perf_counter())]
 
@@ -6774,15 +7427,19 @@ def main():
         k2_launch_path(card, "after the kernel phase")))
     kernels_fp32 = phase_kernels_fp32(card, tail)
     mark("kernels")
+    kernels_ring = phase_kernels_ring(card)
+    mark("parallel")
     import torch
 
     paths = ("sd1", "sd1_slice", "serving", "sd1_cli", "sd1_768",
              "sd1_checkpoint", "sd1_int8",
-             "sd3", "t5", "sd3_img2img", "sd3_tiled", "sd3_text",
+             "sd3", "t5", "sd3_ring", "sd3_ulysses", "mmdit_pp",
+             "mmdit_pp_1f1b", "sd3_img2img", "sd3_tiled", "sd3_text",
              "sd3_checkpoint", "sd3_int8", "sd3_offload", "training",
              "sampling", "train_accum", "train_resume", "latent_training",
-             "latent_sampling", "mmdit_training", "mmdit_sampling",
-             "mmdit_lora", "vlm_training", "vlm_decoding", "vlm_checkpoint",
+             "latent_sampling", "mmdit_training", "mmdit_ring_training",
+             "mmdit_sampling", "mmdit_lora", "mmdit_moe_forward",
+             "mmdit_moe_training", "vlm_training", "vlm_decoding", "vlm_checkpoint",
              "video_training", "video_sampling", "vae_vqvae", "vae_vanilla",
              "vit_training", "clip_forward", "clip_training", "fid",
              "sd1_fp32", "sd1_768_fp32", "sd3_fp32", "t5_fp32", "vlm_fp32",
@@ -6803,6 +7460,9 @@ def main():
     mark("sd1_768_checkpoint_int8_fp32")
     sd3_runs, sd3_source = phase_sd3(card)
     runs += sd3_runs
+    mark("sd3")
+    runs += phase_parallel_sd3(card, sd3_source)
+    mark("parallel")
     runs += [phase_sd3_img2img(card, sd3_source),
              phase_sd3_tiled(card, sd3_source),
              phase_sd3_text(card, sd3_source),
@@ -6831,6 +7491,10 @@ def main():
     mark("tiny_sd")
     trainer, state, train_launches, mmdit_step = phase_mmdit_training(card)
     runs.append(train_launches)
+    mark("mmdit")
+    state, ring_launches = phase_mmdit_ring(card, trainer, state, mmdit_step)
+    runs.append(ring_launches)
+    mark("parallel")
     phase_mmdit_grad_check(card)
     runs.append(phase_mmdit_sampling(card, trainer, state))
     del trainer, state
@@ -6840,6 +7504,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mark("mmdit")
+    runs += phase_moe(card)
+    mark("parallel")
     trainer, state, train_launches, _ = phase_vlm_training(card)
     runs.append(train_launches)
     phase_vlm_grad_check(card)
@@ -6865,9 +7531,11 @@ def main():
     fp32_runs.append(phase_clip_fp32(card))
     fp32_runs.append(phase_checks_cli(card))
     mark("clip_eval")
+    seconds = {}     # a group may come back (parallel: four stretches)
+    for (_, t0), (group, t1) in zip(marks, marks[1:]):
+        seconds[group] = seconds.get(group, 0.0) + t1 - t0
     print("seconds by group of phases: " + json.dumps(
-        {g: round(t - marks[i][1], 1) for i, (g, t) in enumerate(marks[1:])}),
-        flush=True)
+        {g: round(t, 1) for g, t in seconds.items()}), flush=True)
     runs += [counts for counts, _ in fp32_runs]
     check(len(runs) == len(paths), f"{len(runs)} path runs for "
           f"{len(paths)} path names")
@@ -6926,7 +7594,10 @@ def main():
     for p, run in zip(paths, runs):
         if p in ("sd3", "sd3_img2img", "sd3_tiled", "sd3_text",
                  "sd3_checkpoint", "sd3_int8", "sd3_offload",
-                 "mmdit_training", "mmdit_sampling", "mmdit_lora"):
+                 "mmdit_training", "mmdit_sampling", "mmdit_lora",
+                 "sd3_ring", "sd3_ulysses", "mmdit_pp", "mmdit_pp_1f1b",
+                 "mmdit_ring_training", "mmdit_moe_forward",
+                 "mmdit_moe_training"):
             for k in ("K5", "K6", "K7"):
                 r = getattr(run, k.lower() + "_routes")
                 check(r == ({"sm90": run[k]} if run[k] else {}),
@@ -7070,6 +7741,7 @@ def main():
                       "bounds and masks per logit where a pair is partly "
                       "visible; the bounded form fixes the max at 0"),
               sm90=by_route("sm90", "k5"), shapes=kernels["K5 shapes"],
+              ring=kernels_ring["K5"], ring_call=kernels_ring["call"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64) online",
               library="F.scaled_dot_product_attention"),
         entry("flash_attention_bwd_pos_dq", "flash_attention_dq_sm90.cu",
@@ -7086,6 +7758,7 @@ def main():
                       "skips the same pairs from their position bounds, "
                       "masked P selected to 0"),
               sm90=by_route("sm90", "k6"), shapes=kernels["K6"]["shapes"],
+              ring=kernels_ring["K6"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
               library="backward of F.scaled_dot_product_attention"),
         entry("flash_attention_bwd_pos_dkv", "flash_attention_bwd_sm90.cu",
@@ -7102,6 +7775,7 @@ def main():
                       "every role skips the same pairs from their position "
                       "bounds, masked P selected to 0"),
               sm90=by_route("sm90", "k7"), shapes=kernels["K7"]["shapes"],
+              ring=kernels_ring["K7"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
               library="backward of F.scaled_dot_product_attention"),
     ]}

@@ -8,9 +8,11 @@ without, a scaled-down random-weight bundle runs a smoke test. Tokenizers:
 --vocab/--merges for the CLIP pair, --spm for the T5 SentencePiece model;
 without files the prompt becomes placeholder ids drawn from
 ``hash(prompt)``, which Python salts per process (``PYTHONHASHSEED``).
-``train`` runs ``MMDiTTrainer`` on synthetic latents, with LoRA and
-gradient accumulation. The mesh flags (--tp, --sp, --sp-impl, --fsdp,
---moe-experts) are not ported yet (ROADMAP.md queue A8) and exit. Images
+``train`` runs ``MMDiTTrainer`` on synthetic latents over a data mesh of
+the --device, with LoRA, gradient accumulation and --moe-experts. ``generate --sp N --sp-impl ring|ulysses``
+runs the MMDiT's joint attention sequence-parallel over a ``seq`` mesh of
+the first N visible devices (N must not exceed them, as in the JAX CLI).
+--tp and --fsdp are not ported yet (ROADMAP.md queue A8) and exit. Images
 are written by the port's stdlib PNG encoder; only --init-image reads one,
 through Pillow.
 """
@@ -20,6 +22,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from ..parallel.mesh import build_mesh, visible_devices
 from .serve import A8
 
 
@@ -57,10 +60,11 @@ def main(argv=None):
     g.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel serving: not ported yet (queue A8)")
     g.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel joint attention: not ported yet "
-                        "(queue A8)")
-    g.add_argument("--sp-impl", choices=("ring", "ulysses"), default=None,
-                   help="ring or ulysses: not ported yet (queue A8)")
+                   help="sequence-parallel MMDiT joint attention over the "
+                        "first N visible devices (ring K/V rotation or "
+                        "Ulysses all-to-all); exclusive with --tp")
+    g.add_argument("--sp-impl", choices=("ring", "ulysses"),
+                   default="ring")
     g.add_argument("--init-image", default=None,
                    help="img2img: init image path (resized to "
                         "width×height, VAE-encoded, partially denoised)")
@@ -91,7 +95,8 @@ def main(argv=None):
     t.add_argument("--lora-rank", type=int, default=None,
                    help="freeze the base, train rank-r adapters only")
     t.add_argument("--moe-experts", type=int, default=None,
-                   help="sparse MMDiT: not ported yet (queue A8)")
+                   help="sparse MMDiT: Switch-MoE block MLPs with E "
+                        "experts")
     t.add_argument("--grad-accum", type=int, default=1,
                    help="micro-batches averaged per optimizer update")
     t.add_argument("--seed", type=int, default=0)
@@ -99,13 +104,11 @@ def main(argv=None):
                    help="torch device of the trainer")
 
     args = ap.parse_args(argv)
+    if args.tp > 1 and getattr(args, "sp", 1) > 1:
+        ap.error("--tp and --sp are mutually exclusive")
     asked = [flag for flag, on in (
         ("--tp", args.tp > 1),
-        ("--sp", getattr(args, "sp", 1) > 1),
-        ("--sp-impl", getattr(args, "sp_impl", None) is not None),
-        ("--fsdp", getattr(args, "fsdp", False)),
-        ("--moe-experts", getattr(args, "moe_experts", None) is not None))
-        if on]
+        ("--fsdp", getattr(args, "fsdp", False))) if on]
     if asked:
         ap.error(f"{', '.join(asked)}: {A8}")
 
@@ -119,6 +122,10 @@ def main(argv=None):
     from ..pipelines.sd3 import SD3Inferencer, SD3Models
 
     device = torch.device(args.device)
+    seq_mesh = None
+    if args.sp > 1:
+        seq_mesh = build_mesh({"seq": args.sp},
+                              visible_devices(device.type)[:args.sp])
     if args.ckpt:
         print(f"[sd3] loading checkpoints: {args.ckpt}", file=sys.stderr)
         models = SD3Models.from_checkpoints(
@@ -134,6 +141,8 @@ def main(argv=None):
         print("[sd3] quantizing MMDiT/T5 projections to int8 (W8A8)",
               file=sys.stderr)
         models.quantize_int8()
+    if seq_mesh is not None:
+        models.mmdit.set_attention(args.sp_impl, seq_mesh)
 
     tokenizer = None
     if args.vocab and args.merges:
@@ -201,23 +210,28 @@ def _train(args):
     from ..pipelines.mmdit_trainer import MMDiTTrainer
     from ..utils.config import FlowTrainConfig
 
+    # the trainer's data mesh, here over the one device: a data axis over
+    # several cards in one process is not ported yet (ROADMAP.md queue A8)
+    mesh = build_mesh(None, [args.device])
     mcfg = MMDiTConfig(patch_size=2, in_channels=16, depth=args.depth,
                        adm_in_channels=args.adm,
                        context_dim=args.context_dim,
-                       pos_embed_max_size=max(args.img_size // 2, 8))
+                       pos_embed_max_size=max(args.img_size // 2, 8),
+                       moe_experts=args.moe_experts)
     cfg = FlowTrainConfig(epoch=2, batch_size=args.batch_size,
                           img_size=args.img_size,
                           context_len=args.context_len, warmup_epochs=1,
                           dtype=args.dtype, seed=args.seed,
                           grad_accum=args.grad_accum)
-    trainer = MMDiTTrainer(mcfg, cfg, device=args.device,
+    trainer = MMDiTTrainer(mcfg, cfg, device=args.device, mesh=mesh,
                            lora_rank=args.lora_rank)
     state = trainer.create_state(
         steps_per_epoch=max(args.steps // cfg.epoch, 1))
     kind = f"LoRA r={args.lora_rank} adapters" if args.lora_rank else "params"
     print(f"[sd3 train] MMDiT depth={args.depth} "
           f"({trainer.num_params(state):,} trainable {kind}) on "
-          f"{trainer.device}", file=sys.stderr)
+          f"{trainer.device}; mesh={dict(trainer.mesh.shape)}",
+          file=sys.stderr)
 
     r = np.random.default_rng(args.seed)
     latents = r.normal(size=(args.batch_size, args.img_size, args.img_size,

@@ -11,6 +11,9 @@ conversion only renames and transposes leaves (the reverse of
   ``pos_embed``, a VQ ``codebook``) keeps its name; so do a
   ``QuantDense``'s ``q`` (K, N) int8, turned to (N, K) as a linear weight,
   and its ``scale`` (``ops/quantize.py::QuantLinear``'s buffers).
+- a Switch-MoE's ``router/kernel`` (C, E) is a linear's ``router.weight``
+  (E, C); its bare expert weights ``wi``, ``wg`` (E, C, H) and ``wo``
+  (E, H, C) keep their names and layout (``parallel/expert.py``);
 - a Flax ``ConvTranspose`` kernel (kH, kW, I, O) turns as a conv kernel
   does: ``models/vae.py::ConvTranspose2d`` stores it so and flips it at the
   call;

@@ -23,15 +23,24 @@ statistics and gains either way. ``torch.autocast`` is not used.
 embedders and the final layer stay in their dtype, and the joint attention
 stays bf16 flash.
 
-Not ported yet (ROADMAP.md): sequence-parallel attention (``ring``,
-``ulysses``) and the Switch-MoE MLP (queue A8), pipeline parallelism.
+Parallel forms (:mod:`..parallel`): ``MMDiTConfig.attention_impl`` "ring"
+or "ulysses" with ``MMDiT(mesh=)`` runs each joint attention over one
+concatenated [context | x] sequence, padded to a multiple of the ``seq``
+axis and sharded over it (:func:`..parallel.ring_attention.ring_attention`,
+:func:`..parallel.ring_attention.ulysses_attention`); ``moe_experts``
+replaces every x-stream MLP by a :class:`..parallel.expert.SwitchFFN`
+whose experts shard over the mesh's ``expert`` axis, and
+:func:`collect_losses` gathers its balance losses; the four pipeline
+functions at the end run the block stack over a ``stage`` axis
+(:mod:`..parallel.pipeline`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +50,9 @@ from ..ops.attention import attention_blhd, joint_attention_blhd
 from ..ops.embeddings import crop_pos_embed, timestep_embedding
 from ..ops.groupnorm import layer_norm, rms_norm
 from ..ops.quantize import dense_cls
+from ..parallel.expert import SwitchFFN
+from ..parallel.pipeline import pipeline_apply
+from ..parallel.ring_attention import ring_attention, ulysses_attention
 from .layers import Conv2d, Linear
 
 
@@ -87,26 +99,39 @@ class QKNorm(nn.Module):
 
 
 class DismantledBlock(nn.Module):
-    """adaLN DiT block split into pre_attention / post_attention halves."""
+    """adaLN DiT block split into pre_attention / post_attention halves.
+    ``moe_experts``: a Switch-MoE MLP (experts sharded over the ``expert``
+    axis of ``moe_mesh`` when given) in place of the dense one; its balance
+    loss goes into the dict :func:`collect_losses` opens, and nowhere
+    without one (Flax's ``sow`` into an immutable collection)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  pre_only: bool = False, qk_norm: Optional[str] = None,
                  compute_dtype: Optional[torch.dtype] = None,
-                 int8_mm: bool = False):
+                 int8_mm: bool = False, moe_experts: Optional[int] = None,
+                 moe_mesh=None):
         super().__init__()
         hs, dt = hidden_size, compute_dtype
         dense = dense_cls(int8_mm)
         self.num_heads, self.head_dim = num_heads, hs // num_heads
         self.pre_only = pre_only
+        self.moe_experts, self.moe_mesh = moe_experts, moe_mesh
+        self.sown: Optional[Dict[str, torch.Tensor]] = None
         self.qkv = dense(hs, 3 * hs, bias=qkv_bias, compute_dtype=dt)
         self.ln_q = QKNorm(qk_norm, self.head_dim)
         self.ln_k = QKNorm(qk_norm, self.head_dim)
         self.adaLN = Linear(hs, (2 if pre_only else 6) * hs, compute_dtype=dt)
         if not pre_only:
             self.proj = dense(hs, hs, compute_dtype=dt)
-            self.mlp_fc1 = dense(hs, int(hs * mlp_ratio), compute_dtype=dt)
-            self.mlp_fc2 = dense(int(hs * mlp_ratio), hs, compute_dtype=dt)
+            if moe_experts:
+                self.moe = SwitchFFN(hs, moe_experts,
+                                     hidden_mult=int(mlp_ratio))
+            else:
+                self.mlp_fc1 = dense(hs, int(hs * mlp_ratio),
+                                     compute_dtype=dt)
+                self.mlp_fc2 = dense(int(hs * mlp_ratio), hs,
+                                     compute_dtype=dt)
 
     def _mods(self, c):
         m = self.adaLN(F.silu(c))
@@ -132,7 +157,12 @@ class DismantledBlock(nn.Module):
         x, (g_msa, sh_mlp, s_mlp, g_mlp) = residual_state
         x = x + g_msa[:, None, :] * self.proj(attn_out)
         h = modulate(layer_norm(x, None, None, eps=1e-6), sh_mlp, s_mlp)
-        h = self.mlp_fc2(F.gelu(self.mlp_fc1(h), approximate="tanh"))
+        if self.moe_experts:
+            h, aux = self.moe(h, mesh=self.moe_mesh)
+            if self.sown is not None:
+                self.sown[self.sow_name] = aux
+        else:
+            h = self.mlp_fc2(F.gelu(self.mlp_fc1(h), approximate="tanh"))
         return x + g_mlp[:, None, :] * h
 
     def forward(self, x, c):
@@ -144,7 +174,16 @@ class DismantledBlock(nn.Module):
 class JointBlock(nn.Module):
     """One MMDiT layer: a context block and an x block sharing one joint
     attention. ``stability``: None picks "bounded" (fixed-max softmax) when
-    ``qk_norm`` bounds the logits and "online" otherwise."""
+    ``qk_norm`` bounds the logits and "online" otherwise.
+
+    ``mesh`` / ``seq_axis`` / ``seq_impl`` ("ring" | "ulysses") switch the
+    joint attention to the sequence-parallel one: [context | x] as one
+    sequence, padded to a multiple of the axis size, (B, H, L, D), the padded
+    keys masked by ``kv_valid_len`` and the padded rows sliced off. The split
+    K/V streams of the one-device path and this concatenation agree up to
+    floating-point reassociation. The MoE MLP (``moe_experts``) is on the x
+    stream only: its 4096 tokens fill expert capacity, the context's 154 do
+    not."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
@@ -152,23 +191,51 @@ class JointBlock(nn.Module):
                  qk_norm: Optional[str] = None,
                  stability: Optional[str] = None,
                  compute_dtype: Optional[torch.dtype] = None,
-                 int8_mm: bool = False):
+                 int8_mm: bool = False, mesh=None, seq_axis: str = "seq",
+                 seq_impl: str = "ring", moe_experts: Optional[int] = None,
+                 moe_mesh=None):
         super().__init__()
         self.context_pre_only = context_pre_only
         self.stability = stability or ("bounded" if qk_norm else "online")
+        self.mesh, self.seq_axis, self.seq_impl = mesh, seq_axis, seq_impl
         self.context_block = DismantledBlock(
             hidden_size, num_heads, mlp_ratio, qkv_bias,
             pre_only=context_pre_only, qk_norm=qk_norm,
             compute_dtype=compute_dtype, int8_mm=int8_mm)
         self.x_block = DismantledBlock(
             hidden_size, num_heads, mlp_ratio, qkv_bias, pre_only=False,
-            qk_norm=qk_norm, compute_dtype=compute_dtype, int8_mm=int8_mm)
+            qk_norm=qk_norm, compute_dtype=compute_dtype, int8_mm=int8_mm,
+            moe_experts=moe_experts, moe_mesh=moe_mesh)
+
+    def _sequence_parallel(self, ctx_qkv, x_qkv):
+        """(ctx_attn, x_attn) of the joint sequence over the ``seq`` axis,
+        each (B, L, H·D)."""
+        comm = self.mesh.comm(self.seq_axis)
+        b, lc = ctx_qkv[0].shape[:2]
+        l_actual = lc + x_qkv[0].shape[1]
+        pad = (-l_actual) % comm.n
+
+        def joint(a, z):
+            parts = [a, z] + ([a.new_zeros(b, pad, *a.shape[2:])] if pad
+                              else [])
+            return comm.scatter(torch.cat(parts, 1).transpose(1, 2), 2)
+
+        q, k, v = (joint(a, z) for a, z in zip(ctx_qkv, x_qkv))
+        sp = ulysses_attention if self.seq_impl == "ulysses" else \
+            ring_attention
+        out = comm.gather(sp(q, k, v, self.mesh, self.seq_axis,
+                             kv_valid_len=l_actual), 2)[:, :, :l_actual]
+        out = out.transpose(1, 2).reshape(b, l_actual, -1)
+        return out[:, :lc], out[:, lc:]
 
     def forward(self, context, x, c):
         ctx_qkv, ctx_state = self.context_block.pre_attention(context, c)
         x_qkv, x_state = self.x_block.pre_attention(x, c)
-        ctx_attn, x_attn = joint_attention_blhd(ctx_qkv, x_qkv,
-                                                stability=self.stability)
+        if self.mesh is None:
+            ctx_attn, x_attn = joint_attention_blhd(ctx_qkv, x_qkv,
+                                                    stability=self.stability)
+        else:
+            ctx_attn, x_attn = self._sequence_parallel(ctx_qkv, x_qkv)
         b, lc = context.shape[:2]
         new_context = (None if self.context_pre_only else
                        self.context_block.post_attention(
@@ -218,9 +285,13 @@ class MMDiTConfig:
     pos_embed_max_size: int = 192
     qk_norm: Optional[str] = None
     qkv_bias: bool = True
-    attention_impl: str = "flash"      # 'ring' | 'ulysses': queue A8
+    # 'flash' (one device) | 'ring' | 'ulysses' (sequence-parallel over the
+    # ``seq`` axis of MMDiT(mesh=))
+    attention_impl: str = "flash"
     int8_mm: bool = False              # W8A8 block projections
-    moe_experts: Optional[int] = None  # queue A8
+    # Switch-MoE MLP in every x-stream block, experts over the mesh's
+    # 'expert' axis when it has one; balance losses via collect_losses
+    moe_experts: Optional[int] = None
     stability: Optional[str] = None    # None: 'bounded' iff qk_norm
 
     @property
@@ -231,20 +302,24 @@ class MMDiTConfig:
 class MMDiT(nn.Module):
     """x (B, H, W, C) NHWC latent, t (B,) timesteps, y (B, adm) pooled
     conditioning, context (B, Lc, context_dim) -> (B, H, W, C) fp32.
-    ``compute_dtype``: see the module docstring."""
+    ``compute_dtype``: see the module docstring. ``mesh`` (:mod:`..parallel`)
+    carries the ``seq`` axis (``seq_axis``) of a ring / Ulysses config and
+    the ``expert`` axis of an MoE one; the flash config ignores its ``seq``
+    axis, as the JAX model does."""
 
     def __init__(self, config: MMDiTConfig = MMDiTConfig(),
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, mesh=None,
+                 seq_axis: str = "seq"):
         super().__init__()
         cfg, dt = config, compute_dtype
         self.compute_dtype = compute_dtype
-        for name, off in (("attention_impl", "flash"),
-                          ("moe_experts", None)):
-            if getattr(cfg, name) != off:
-                raise NotImplementedError(
-                    f"{name}={getattr(cfg, name)!r} is not ported yet "
-                    f"(ROADMAP.md queue A8)")
-        self.config = cfg
+        if cfg.attention_impl not in ("flash", "ring", "ulysses"):
+            raise ValueError(f"attention_impl must be flash|ring|ulysses: "
+                             f"{cfg.attention_impl!r}")
+        self.config, self.mesh, self.seq_axis = cfg, mesh, seq_axis
+        sp_mesh = mesh if cfg.attention_impl in ("ring", "ulysses") else None
+        ep_mesh = (mesh if mesh is not None and cfg.moe_experts
+                   and "expert" in mesh.shape else None)
         hs, p = cfg.hidden_size, cfg.patch_size
         self.x_embedder = Conv2d(cfg.in_channels, hs, p, stride=p,
                                  compute_dtype=dt)
@@ -261,10 +336,31 @@ class MMDiT(nn.Module):
                 hs, cfg.depth, cfg.mlp_ratio, cfg.qkv_bias,
                 context_pre_only=(i == cfg.depth - 1), qk_norm=cfg.qk_norm,
                 stability=cfg.stability, compute_dtype=dt,
-                int8_mm=cfg.int8_mm))
+                int8_mm=cfg.int8_mm, mesh=sp_mesh, seq_axis=seq_axis,
+                seq_impl=cfg.attention_impl, moe_experts=cfg.moe_experts,
+                moe_mesh=ep_mesh))
         self.final_adaLN = Linear(hs, 2 * hs, compute_dtype=dt)
         self.final_linear = Linear(hs, p * p * cfg.in_channels,
                                    compute_dtype=dt)
+
+    def set_attention(self, impl: str, mesh=None, seq_axis: str = "seq"):
+        """Switch the joint attention in place, the parameters kept: "flash"
+        (one device) or "ring" / "ulysses" over the ``seq_axis`` of
+        ``mesh``, as the JAX CLI rebuilds its MMDiT with
+        ``attention_impl=`` and ``mesh=`` over the same parameters."""
+        if impl not in ("flash", "ring", "ulysses"):
+            raise ValueError(f"attention_impl must be flash|ring|ulysses: "
+                             f"{impl!r}")
+        if impl != "flash" and (mesh is None or seq_axis not in mesh.shape):
+            raise ValueError(f"{impl} attention needs a mesh with a "
+                             f"{seq_axis!r} axis")
+        self.config = dataclasses.replace(self.config, attention_impl=impl)
+        self.mesh, self.seq_axis = mesh, seq_axis
+        for i in range(self.config.depth):
+            blk = getattr(self, f"joint_block{i}")
+            blk.mesh = None if impl == "flash" else mesh
+            blk.seq_axis, blk.seq_impl = seq_axis, impl
+        return self
 
     def forward(self, x, t, y=None, context=None):
         cfg = self.config
@@ -293,3 +389,127 @@ class MMDiT(nn.Module):
         xe = xe.reshape(b, hp, wp, p, p, cfg.in_channels)
         xe = xe.permute(0, 1, 3, 2, 4, 5)
         return xe.reshape(b, hp * p, wp * p, cfg.in_channels).float()
+
+
+@contextlib.contextmanager
+def collect_losses(model: nn.Module):
+    """Inside the block, every MoE block of ``model`` puts its balance loss
+    of the last forward into the yielded dict, under its module name
+    (``joint_block{i}.x_block``): Flax's ``sow`` into a mutable ``losses``
+    collection. Outside, the losses go nowhere."""
+    sown: Dict[str, torch.Tensor] = {}
+    blocks = [(name, m) for name, m in model.named_modules()
+              if isinstance(m, DismantledBlock) and m.moe_experts]
+    for name, m in blocks:
+        m.sown, m.sow_name = sown, name
+    try:
+        yield sown
+    finally:
+        for _, m in blocks:
+            m.sown = None
+
+
+# --------------------------------------------------------------------------
+# Pipeline parallelism over the joint-block stack
+# --------------------------------------------------------------------------
+# The homogeneous prefix of the stack (blocks 0..depth-2; the last block is
+# pre_only) splits over a ``stage`` mesh axis and runs under
+# parallel.pipeline's GPipe / 1F1B schedules. (context, x, c) travel as one
+# (B, Lc + Lx + 1, hidden) tensor, so a microbatch is one hand-off.
+
+def _sub(params, prefix):
+    """The entries of a flat parameter dict under ``prefix.``, renamed
+    relative to it."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + ".")}
+
+
+def stack_joint_block_params(params, n_blocks: int, n_stages: int):
+    """The parameters of ``joint_block0`` .. ``joint_block{n_blocks-1}`` of
+    a flat MMDiT parameter dict (``dict(model.named_parameters())``) as
+    {name within a block: (n_stages, k, ...)}, k = n_blocks / n_stages."""
+    if n_blocks % n_stages:
+        raise ValueError(f"{n_blocks} blocks do not divide over {n_stages} "
+                         "stages")
+    k = n_blocks // n_stages
+    blocks = [_sub(params, f"joint_block{i}") for i in range(n_blocks)]
+    return {name: torch.stack([b[name] for b in blocks]).reshape(
+        n_stages, k, *blocks[0][name].shape) for name in blocks[0]}
+
+
+def make_joint_block_stage_fn(cfg: MMDiTConfig, lc: int, k: int,
+                              compute_dtype: Optional[torch.dtype] = None):
+    """stage_fn(params_k, z) applying k consecutive JointBlocks to z =
+    [context | x | c-token] (B, Lc + Lx + 1, hidden); the leaves of
+    ``params_k`` have leading dim k (this stage's blocks)."""
+    with torch.device("meta"):
+        blk = JointBlock(cfg.hidden_size, cfg.depth, cfg.mlp_ratio,
+                         cfg.qkv_bias, context_pre_only=False,
+                         qk_norm=cfg.qk_norm, compute_dtype=compute_dtype)
+
+    def stage_fn(params_k, z):
+        context, x, c = z[:, :lc], z[:, lc:-1], z[:, -1]
+        for j in range(k):
+            pj = {name: p[j] for name, p in params_k.items()}
+            context, x = torch.func.functional_call(blk, pj, (context, x, c))
+        return torch.cat([context, x, c[:, None]], dim=1)
+
+    return stage_fn
+
+
+def pipelined_joint_blocks(cfg: MMDiTConfig, params, context, x, c, mesh,
+                           n_microbatches: int, axis: str = "stage",
+                           n_blocks: Optional[int] = None,
+                           compute_dtype: Optional[torch.dtype] = None):
+    """The homogeneous joint blocks 0..n_blocks-1 (default depth - 1, every
+    block but the pre_only last) pipelined over ``axis`` of ``mesh``.
+    context (B, Lc, hidden) embedded, x (B, Lx, hidden) patchified tokens,
+    c (B, hidden) conditioning; returns (context, x). ``params``: the
+    MMDiT's flat parameter dict, whole on every shard."""
+    n_blocks = cfg.depth - 1 if n_blocks is None else n_blocks
+    comm = mesh.comm(axis)
+    stacked = {name: comm.scatter(p, 0) for name, p in
+               stack_joint_block_params(params, n_blocks, comm.n).items()}
+    lc = context.shape[1]
+    z = torch.cat([context, x, c[:, None]], dim=1)
+    stage_fn = make_joint_block_stage_fn(cfg, lc, n_blocks // comm.n,
+                                         compute_dtype)
+    z = pipeline_apply(stage_fn, stacked, z, mesh, n_microbatches, axis=axis)
+    return z[:, :lc], z[:, lc:-1]
+
+
+def mmdit_forward_pp(cfg: MMDiTConfig, params, x, t, y, context, mesh,
+                     n_microbatches: int, axis: str = "stage",
+                     compute_dtype: Optional[torch.dtype] = None):
+    """The whole MMDiT forward with blocks 0..depth-2 pipelined over
+    ``axis`` (GPipe); the embeddings, the pre_only last block and the head
+    run whole. ``params``: the flat parameter dict of an ``MMDiT(cfg,
+    compute_dtype)`` (``dict(model.named_parameters())``); equals that
+    model's forward. Differentiable in ``params``."""
+    with torch.device("meta"):
+        model = MMDiT(dataclasses.replace(cfg, attention_impl="flash",
+                                          moe_experts=None),
+                      compute_dtype=compute_dtype)
+    call = lambda name, *args: torch.func.functional_call(
+        getattr(model, name), _sub(params, name), args)
+    dt = compute_dtype or params["x_embedder.weight"].dtype
+    hs, p = cfg.hidden_size, cfg.patch_size
+    b, h, w, _ = x.shape
+    hp, wp = h // p, w // p
+    xe = call("x_embedder", x.to(dt)).reshape(b, hp * wp, hs)
+    xe = xe + crop_pos_embed(params["pos_embed"], cfg.pos_embed_max_size, hp,
+                             wp).to(dt)
+    c = call("t_embedder", timestep_embedding(t, 256).to(dt))
+    if y is not None and cfg.adm_in_channels is not None:
+        c = c + call("y_embedder", y.to(dt))
+    if context is not None and cfg.context_dim is not None:
+        context = call("context_embedder", context.to(dt))
+    context, xe = pipelined_joint_blocks(cfg, params, context, xe, c, mesh,
+                                         n_microbatches, axis=axis,
+                                         compute_dtype=compute_dtype)
+    _, xe = call(f"joint_block{cfg.depth - 1}", context, xe, c)
+    shift, scale = call("final_adaLN", F.silu(c)).chunk(2, dim=-1)
+    xe = call("final_linear",
+              modulate(layer_norm(xe, None, None, eps=1e-6), shift, scale))
+    xe = xe.reshape(b, hp, wp, p, p, cfg.in_channels).permute(0, 1, 3, 2, 4, 5)
+    return xe.reshape(b, hp * p, wp * p, cfg.in_channels).float()

@@ -223,7 +223,8 @@ def new_train_state(model: nn.Module, cfg, steps_per_epoch: int = 1, *,
 
 def apply_update(state: TrainState, loss: torch.Tensor,
                  grad_clip: Optional[float],
-                 ema_decay: Optional[float]) -> bool:
+                 ema_decay: Optional[float],
+                 reduce_grads: Optional[Callable] = None) -> bool:
     """One micro-step of ``state`` in place from a scalar ``loss``:
     backward, then, with ``state.accum`` > 1, the gradient folded into the
     window's running mean (optax's Welford form acc + (g − acc)/(n + 1), in
@@ -231,11 +232,15 @@ def apply_update(state: TrainState, loss: torch.Tensor,
     accumulation): the mean clipped to ``grad_clip`` by its global norm
     (not clipped when ``grad_clip`` is None), AdamW at the rate of the
     update count before this one, the EMA. The
-    other micro-steps leave parameters, moments and EMA untouched. Returns
-    whether the parameters were updated."""
+    other micro-steps leave parameters, moments and EMA untouched.
+    ``reduce_grads(params)`` runs right after the backward (a data-parallel
+    average over a process group). Returns whether the parameters were
+    updated."""
     params = list(state.trainable().values())
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if reduce_grads is not None:
+        reduce_grads(params)
     state.step += 1
     grads = [p.grad for p in params]
     if state.accum > 1:

@@ -1,5 +1,5 @@
-"""Rectified-flow training and sampling of the SD3 MMDiT on one device (port
-of ``pipelines/mmdit_trainer.py``).
+"""Rectified-flow training and sampling of the SD3 MMDiT (port of
+``pipelines/mmdit_trainer.py``).
 
 One train step: t logit-normal (sigmoid of a standard normal), the
 resolution shift σ = shift·t / (1 + (shift − 1)·t), the blend
@@ -25,20 +25,30 @@ inside the loss), ``fit(checkpoint_dir=)`` with the preemption guard and
 the resume from the latest step or ``cfg.epoch_awoken``, batches staged on
 the card, the metrics logger.
 
-Not ported (ROADMAP.md, queue item A8, the parallel package): the device
-mesh with data, tensor and sequence parallelism, FSDP, the Switch-MoE MLP
-and its auxiliary loss.
+The mesh (:mod:`..parallel`; ``mesh=`` or ``cfg.mesh_shape`` over the
+visible devices of the trainer's kind) takes ``data``, ``seq`` and
+``expert`` axes. The batch is placed by ``shard_batch``: one tensor on a
+one-process mesh, each rank's slice on a process-group mesh, whose
+gradients are then averaged over the data group. ``attention_impl`` "ring"
+or "ulysses" shards each joint attention over ``seq``; ``moe_experts`` adds
+``cfg.moe_aux_weight`` times the summed Switch balance losses to the loss
+and shards the experts over ``expert``. Not ported yet (ROADMAP.md, queue
+item A8): tensor parallelism (a ``model`` axis) and FSDP.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..models.mmdit import MMDiT, MMDiTConfig
+from ..models.mmdit import MMDiT, MMDiTConfig, collect_losses
 from ..ops.schedules import sd3_sigma_schedule
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, build_mesh, mesh_device,
+                             shard_batch, visible_devices)
 from ..samplers.flow import flow_euler_sample, noise_scaling
 from ..utils.config import FlowTrainConfig
 from ..utils.dtypes import POLICIES
@@ -60,17 +70,32 @@ class MMDiTTrainer:
                  lora_scale: float = 1.0):
         """``lora_rank``: train rank-r adapters only, over ``base_params``
         (a JAX parameter tree of the MMDiT, e.g. an imported checkpoint's)
-        or a fresh init."""
-        unported = {"mesh": mesh is not None, "fsdp": fsdp,
-                    "cfg.mesh_shape": bool(cfg.mesh_shape)}
-        asked = [name for name, on in unported.items() if on]
-        if asked:
+        or a fresh init. ``mesh``: a :class:`..parallel.Mesh` (form (a)
+        over devices of ``device``'s kind, or form (b), whose rank's device
+        the trainer takes); without one, ``cfg.mesh_shape`` builds one over
+        every visible device of that kind, and with neither the trainer
+        runs on ``device`` alone."""
+        if fsdp:
             raise NotImplementedError(
-                f"{', '.join(asked)}: not ported yet (ROADMAP.md, queue item "
-                "A8, the parallel package); one device")
+                "fsdp=True: not ported yet (ROADMAP.md, queue item A8: "
+                "FSDP)")
+        self.device = torch.device(device)
+        if mesh is None and cfg.mesh_shape:
+            mesh = build_mesh(cfg.mesh_shape,
+                              visible_devices(self.device.type))
+        if mesh is not None:
+            if mesh.shape.get(MODEL_AXIS, 1) > 1:
+                raise NotImplementedError(
+                    f"a {MODEL_AXIS!r} mesh axis: tensor parallelism is not "
+                    "ported yet (ROADMAP.md, queue item A8)")
+            self.device = torch.device(mesh_device(mesh))
+        self.mesh = mesh
+        sp = model_cfg.attention_impl in ("ring", "ulysses")
+        self.model_mesh = mesh if (sp or model_cfg.moe_experts) else None
+        self.data = (mesh.comm(DATA_AXIS) if mesh is not None
+                     and DATA_AXIS in mesh.shape else None)
         self.model_cfg = model_cfg
         self.cfg = cfg
-        self.device = torch.device(device)
         self.logger = logger or MetricsLogger()
         self.lora_rank = lora_rank
         self.lora_scale = lora_scale
@@ -81,14 +106,15 @@ class MMDiTTrainer:
         self.history: List[dict] = []
 
     def make_model(self) -> MMDiT:
-        """The configured model with uninitialised storage on the device
-        (``MMDiT`` refuses the attention, int8 and MoE options that are not
-        ported)."""
+        """The configured model with uninitialised storage on the device,
+        on the trainer's mesh where the config runs sequence-parallel
+        attention or MoE."""
         policy = self.policy
         compute = (None if policy.compute_dtype == policy.param_dtype
                    else policy.compute_dtype)
         with torch.device("meta"):
-            model = MMDiT(self.model_cfg, compute_dtype=compute)
+            model = MMDiT(self.model_cfg, compute_dtype=compute,
+                          mesh=self.model_mesh)
         return model.to_empty(device=self.device).to(policy.param_dtype)
 
     # ---------------- state ----------------
@@ -117,39 +143,76 @@ class MMDiTTrainer:
         return (None if a is None else
                 torch.as_tensor(a, dtype=torch.float32, device=self.device))
 
+    def _shard(self, a):
+        """A global batch array on the mesh (each rank's slice on a
+        process-group mesh), fp32."""
+        if a is None or self.mesh is None:
+            return self._to_device(a)
+        return shard_batch(self.mesh, self._to_device(a))
+
+    @property
+    def _split_over_ranks(self) -> bool:
+        return self.data is not None and self.data.distributed \
+            and self.data.n > 1
+
+    def _average_grads(self, params) -> None:
+        """Process-group mesh: each rank's gradients averaged over the data
+        group (a rank's loss is its batch shard's)."""
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            dist.all_reduce(p.grad, group=self.data.group)
+            p.grad.div_(self.data.n)
+
     def loss(self, state: TrainState, latents, context, y, *, t_lin=None,
              noise=None, drop=None) -> torch.Tensor:
         """The velocity loss of a batch under ``state``'s parameters,
         differentiable. ``t_lin`` (B,) in (0, 1), ``noise`` (the latents'
         shape) and ``drop`` (B,) bool are drawn from the trainer's generator
-        (seeded with ``config.seed + 1``) unless given."""
+        (seeded with ``config.seed + 1``) unless given. On a mesh the batch
+        and the given draws are the whole batch's (``shard_batch`` places
+        them); on a process-group mesh the loss is the rank's shard's. With
+        ``moe_experts``: + ``cfg.moe_aux_weight`` · Σ balance losses."""
         cfg, dev, gen = self.cfg, self.device, self.generator
-        x0, context, y = (self._to_device(a) for a in (latents, context, y))
+        x0, context, y = (self._shard(a) for a in (latents, context, y))
         b = x0.shape[0]
-        if t_lin is None:
-            t_lin = torch.sigmoid(torch.randn(b, generator=gen, device=dev))
-        if noise is None:
-            noise = torch.randn(x0.shape, generator=gen, device=dev)
-        if drop is None:
-            drop = torch.rand(b, generator=gen, device=dev) < cfg.train_rand
-        t_lin, noise = self._to_device(t_lin), self._to_device(noise)
-        keep = ~torch.as_tensor(drop, device=dev).bool()
+        t_lin = (torch.sigmoid(torch.randn(b, generator=gen, device=dev))
+                 if t_lin is None else self._shard(t_lin))
+        noise = (torch.randn(x0.shape, generator=gen, device=dev)
+                 if noise is None else self._shard(noise))
+        drop = (torch.rand(b, generator=gen, device=dev) < cfg.train_rand
+                if drop is None else self._shard(drop).bool())
+        keep = ~drop
         sigma = self._sigma_of_t(t_lin)
         x_sigma = noise_scaling(sigma[:, None, None, None], noise, x0)
         if context is not None:
             context = context * keep[:, None, None]
         if y is not None:
             y = y * keep[:, None]
-        out = state.model_fn()(x_sigma, sigma * cfg.num_timesteps, y, context)
-        return torch.mean(torch.square(out - (noise - x0)))
+        moe = bool(self.model_cfg.moe_experts)
+        with (collect_losses(state.model) if moe
+              else contextlib.nullcontext()) as sown:
+            out = state.model_fn()(x_sigma, sigma * cfg.num_timesteps, y,
+                                   context)
+        loss = torch.mean(torch.square(out - (noise - x0)))
+        if moe:
+            loss = loss + cfg.moe_aux_weight * sum(sown.values())
+        return loss
 
     def train_step(self, state: TrainState, latents, context, y, **draws):
         """One micro-step on a batch; returns (state, loss). ``draws``: the
         ``t_lin``, ``noise`` and ``drop`` of :meth:`loss`."""
         state.model.train()
         loss = self.loss(state, latents, context, y, **draws)
-        apply_update(state, loss, self.cfg.grad_clip, self.cfg.ema_decay)
-        return state, loss.detach()
+        split = self._split_over_ranks
+        apply_update(state, loss, self.cfg.grad_clip, self.cfg.ema_decay,
+                     reduce_grads=self._average_grads if split else None)
+        loss = loss.detach()
+        if split:
+            loss = loss.clone()
+            dist.all_reduce(loss, group=self.data.group)
+            loss /= self.data.n
+        return state, loss
 
     def fit(self, loader: Iterable, state: Optional[TrainState] = None,
             epochs: Optional[int] = None,
@@ -159,6 +222,10 @@ class MMDiTTrainer:
         checkpoints, the preemption guard, the resume, the epoch log). The
         logged ``epoch`` event carries ``epoch``, ``loss`` and ``sec``, as
         the JAX trainer logs it; ``history`` also keeps ``imgs_per_sec``."""
+        if checkpoint_dir and self.mesh is not None and self.mesh.distributed:
+            raise NotImplementedError(
+                "checkpoint_dir on a process-group mesh: every rank would "
+                "write it (ROADMAP.md, queue item A8)")
         if state is None:
             state = self.create_state(len(loader))
         return train_epochs(self, loader, state, epochs or self.cfg.epoch,
@@ -172,8 +239,11 @@ class MMDiTTrainer:
                steps: Optional[int] = None, use_ema: bool = False,
                noise=None) -> torch.Tensor:
         """CFG flow-Euler sampling from a trained state: (B, H, W, C)
-        latents. ``noise`` is the initial standard-normal latent; otherwise
-        it is drawn from a generator seeded with ``config.seed + 2``."""
+        latents, through the trainer's model (sequence-parallel or MoE
+        where configured). ``noise`` is the initial standard-normal latent;
+        otherwise it is drawn from a generator seeded with ``config.seed +
+        2``. On a process-group mesh with a data axis the batch is sharded
+        over it and the latents gathered back."""
         cfg, mc, dev = self.cfg, self.model_cfg, self.device
         context, y = self._to_device(context), self._to_device(y)
         steps = steps or cfg.sample_steps
@@ -185,6 +255,11 @@ class MMDiTTrainer:
         x = self._to_device(noise)
         if tuple(x.shape) != shape:
             raise ValueError(f"noise must be {shape}")
+        split = self._split_over_ranks
+        if split:
+            x, context, y = (None if a is None else self.data.scatter(a, 0)
+                             for a in (x, context, y))
+            b = x.shape[0]
         ctx2 = (None if context is None else
                 torch.cat([context, torch.zeros_like(context)]))
         y2 = None if y is None else torch.cat([y, torch.zeros_like(y)])
@@ -199,5 +274,6 @@ class MMDiTTrainer:
             cond, uncond = out.chunk(2)
             return xt - (uncond + cfg.w * (cond - uncond)) * sigma
 
-        return flow_euler_sample(denoise, x, steps=steps, sigmas=(
+        x = flow_euler_sample(denoise, x, steps=steps, sigmas=(
             sd3_sigma_schedule(steps, cfg.shift, cfg.num_timesteps)))
+        return self.data.gather(x, 0) if split else x

@@ -20,7 +20,10 @@ T5's to W8A8 int8 (``ops/quantize.py``).
 (``io/weights_sd3.py``) onto the card without the JAX package, the MMDiT's
 config sniffed from the checkpoint's shapes (:func:`sniff_mmdit_config`).
 
-Not ported yet (ROADMAP.md queue A8): tensor-parallel ``mesh``.
+The MMDiT of the bundle may run sequence-parallel joint attention
+(:meth:`..models.mmdit.MMDiT.set_attention`: "ring" or "ulysses" over the
+``seq`` axis of a :mod:`..parallel` mesh); the inferencer calls it as it
+is. Not ported yet (ROADMAP.md queue A8): tensor-parallel ``mesh``.
 """
 
 from __future__ import annotations
@@ -87,7 +90,8 @@ def _certify_bounded(mmdit: MMDiT) -> MMDiT:
     print(f"[sd3] qk-norm logit bound {bound:.1f} >= "
           f"{BOUNDED_LOGIT_BUDGET:.0f}: online softmax")
     with torch.device("meta"):
-        online = MMDiT(dataclasses.replace(cfg, stability="online"))
+        online = MMDiT(dataclasses.replace(cfg, stability="online"),
+                       mesh=mmdit.mesh, seq_axis=mmdit.seq_axis)
     online.load_state_dict(mmdit.state_dict(), assign=True)
     return online
 

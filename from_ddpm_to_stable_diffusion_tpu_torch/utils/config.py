@@ -2,9 +2,10 @@
 ``FlowTrainConfig``, ``VAETrainConfig`` and ``ViTTrainConfig``).
 
 The same fields, names and defaults as the JAX dataclasses, so the same YAML
-files load. ``mesh_shape``, ``grad_accum`` and ``moe_aux_weight`` are kept
-for that reason; the port's trainers run on one device and refuse values
-they do not implement.
+files load. ``FlowTrainConfig.mesh_shape`` (the mesh of
+``MMDiTTrainer`` when none is passed), ``grad_accum`` and
+``moe_aux_weight`` (the Switch balance term of the MoE loss) are read; the
+other trainers refuse a ``mesh_shape`` (ROADMAP.md queue A8).
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ with a synthetic tokenizer trio, img2img and the trajectory grid, each PNG
 equal to the inferencer's pixels; ``sd3 train --lora-rank 2 --grad-accum 2``
 at its defaults; ``tiny_sd train --synthetic`` then ``sample`` on a tiny
 YAML (the grid has the JAX grid's shape); ``multimodal train``, ``eval`` and
-``chat``. Every mesh flag exits naming ROADMAP.md queue A8, and the
+``chat``. The tensor-parallel and FSDP flags exit naming ROADMAP.md queue
+A8 (``sd3 --sp`` / ``--moe-experts`` run: ``tests/test_torch_sp_mmdit.py``),
+and the
 ``__main__`` dispatch reaches every stage, ``checks`` and ``demos`` too;
 ``python -m`` of the ``vae``, ``vit`` and ``video`` stages prints their
 help (their runs at tiny sizes are in ``tests/test_torch_{vae,vit,video}.py``,
@@ -107,17 +109,13 @@ MESH_FLAGS = [
     ("sd1", ["generate", "--prompt", "x", "--tp", "2"]),
     ("serve", ["--tp", "2"]),
     ("sd3", ["generate", "--prompt", "x", "--tp", "2"]),
-    ("sd3", ["generate", "--prompt", "x", "--sp", "2"]),
-    ("sd3", ["generate", "--prompt", "x", "--sp-impl", "ulysses"]),
     ("sd3", ["train", "--tp", "2"]),
     ("sd3", ["train", "--fsdp"]),
-    ("sd3", ["train", "--moe-experts", "4"]),
 ]
 
 
 @pytest.mark.parametrize("stage, argv", MESH_FLAGS, ids=[
-    "sd1-tp", "serve-tp", "sd3-tp", "sd3-sp", "sd3-sp-impl", "train-tp",
-    "train-fsdp", "train-moe-experts"])
+    "sd1-tp", "serve-tp", "sd3-tp", "train-tp", "train-fsdp"])
 def test_mesh_flags_exit_naming_a8(stage, argv, capsys):
     mod = importlib.import_module(f"{PORT}.cli.{stage}")
     with pytest.raises(SystemExit) as e:

@@ -385,19 +385,25 @@ def test_fit_logs_the_jax_epoch_keys(run_fp32):
 
 
 def test_trainer_refuses_unported_options():
-    """The mesh options and MoE (ROADMAP.md queue item A8) raise, naming
-    it; LoRA, ``grad_accum``, ``epoch_awoken`` and ``checkpoint_dir`` are
-    ported and accepted."""
+    """FSDP and a tensor-parallel ``model`` mesh axis (ROADMAP.md queue item
+    A8) raise, naming it; the data / seq / expert meshes, ring and Ulysses
+    attention, MoE, LoRA, ``grad_accum``, ``epoch_awoken`` and
+    ``checkpoint_dir`` are ported and accepted (the meshes:
+    ``tests/test_torch_parallel_trainer.py``)."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel import (
+        build_mesh as tmesh)
+
     mc, cfg = tmm.MMDiTConfig(**MODEL), tconfig.FlowTrainConfig(**TRAIN)
-    for kw in (dict(mesh=object()), dict(fsdp=True)):
+    for kw in (dict(mesh=tmesh({"model": 2}, ["cpu"] * 2)),
+               dict(fsdp=True)):
         with pytest.raises(NotImplementedError, match=QUEUE_ITEM):
             MMDiTTrainer(mc, cfg, device="cpu", **kw)
     for field in (dict(mesh_shape={"data": 8}),):
-        with pytest.raises(NotImplementedError, match=QUEUE_ITEM):
+        with pytest.raises(ValueError, match="!= 1 devices"):
             MMDiTTrainer(mc, dataclasses.replace(cfg, **field), device="cpu")
+    mesh = tmesh({"seq": 2}, ["cpu"] * 2)
     for field in (dict(attention_impl="ring"), dict(moe_experts=4)):
-        with pytest.raises(NotImplementedError):
-            MMDiTTrainer(dataclasses.replace(mc, **field), cfg,
-                         device="cpu").make_model()
+        MMDiTTrainer(dataclasses.replace(mc, **field), cfg, device="cpu",
+                     mesh=mesh).make_model()
     MMDiTTrainer(mc, dataclasses.replace(cfg, grad_accum=2, epoch_awoken=3),
                  device="cpu", lora_rank=4, base_params={})

@@ -305,7 +305,9 @@ def test_port_never_imports_jax():
                "pipelines.vit_trainer", "cli.video", "cli.vae", "cli.vit",
                "models.clip", "models.inception", "io.weights_inception",
                "utils.metrics", "pipelines.clip_trainer", "cli.checks",
-               "cli.demos"]
+               "cli.demos", "parallel", "parallel.mesh",
+               "parallel.ring_attention", "parallel.expert",
+               "parallel.pipeline"]
     # Pillow and matplotlib are not promised on the card's machine: only the
     # calls that read an image or draw a plot import them
     code = ("import sys\n"

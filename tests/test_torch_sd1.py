@@ -141,6 +141,15 @@ def test_entry_points_default_to_the_card():
                *checks.CHECKS.values()):
         default = inspect.signature(fn).parameters["device"].default
         assert str(default) == "cuda", (fn.__qualname__, default)
+    # the parallel package: a mesh with no devices named is over every
+    # visible card, as jax.devices() is
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel import mesh
+    for fn in (mesh.visible_devices, mesh.local_mesh):
+        assert inspect.signature(fn).parameters["kind"].default == "cuda"
+    assert inspect.signature(mesh.build_mesh).parameters[
+        "devices"].default is None
+    assert mesh.visible_devices() == [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     # generate() and SD1Generator run where the bundle lies (from_jax puts
     # it on the card by default): they take no device of their own, and
     # their arguments are the JAX ones, plus the test hooks

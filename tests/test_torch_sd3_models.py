@@ -185,15 +185,6 @@ def test_mmdit_dismantled_block_alone_and_modulate():
         atol=1e-6)
 
 
-@pytest.mark.parametrize("field,value", [("attention_impl", "ring"),
-                                         ("attention_impl", "ulysses"),
-                                         ("moe_experts", 4)])
-def test_mmdit_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="A8"):
-        tmm.MMDiT(tmm.MMDiTConfig(depth=1, pos_embed_max_size=4,
-                                  **{field: value}))
-
-
 def test_mmdit_config_defaults_match_jax():
     assert (dataclasses.asdict(tmm.MMDiTConfig())
             == dataclasses.asdict(jmm.MMDiTConfig()))

@@ -1,0 +1,144 @@
+"""The ranks of the port's process-group tests (mesh form (b)): each runs a
+case on its shard over gloo and saves what it computed, for
+``tests/test_torch_parallel_dist.py`` to hold against the one-process mesh
+(form (a)). Imports no ``jax``: the children start with the port alone."""
+
+import os
+
+import torch
+
+from from_ddpm_to_stable_diffusion_tpu_torch.parallel import (
+    build_mesh, init_multihost)
+
+SEQ = 2   # ranks of the first case
+
+
+def inputs(seed, *shape):
+    return torch.randn(*shape, generator=torch.Generator().manual_seed(seed))
+
+
+def ring_inputs():
+    """q, k, v (1, 4, 32, 16) and a cotangent, whole."""
+    return [inputs(s, 1, 4, 32, 16) for s in range(4)]
+
+
+RING_CASES = {"ring_flash_ragged": dict(impl="flash", kv_valid_len=27),
+              "ring_flash_causal": dict(impl="flash", causal=True),
+              "ring_xla_causal": dict(impl="xla", causal=True)}
+
+
+def switch_inputs():
+    x = inputs(7, 2, 8, 16)
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel.expert import (
+        SwitchFFN)
+    ffn = SwitchFFN(16, 4, hidden_mult=2, capacity_factor=1.0)
+    with torch.no_grad():
+        for i, p in enumerate(ffn.parameters()):
+            p.copy_(inputs(20 + i, *p.shape) * 0.3)
+    return ffn, x
+
+
+def pipeline_inputs():
+    w, b = inputs(30, SEQ, 8, 8) * 0.3, inputs(31, SEQ, 8) * 0.1
+    return (w, b), inputs(32, 8, 8), inputs(33, 8, 8)
+
+
+def stage_fn(params, x):
+    w, b = params
+    return torch.tanh(x @ w + b)
+
+
+def _primitives(rank):
+    """Ring (flash and xla, forward and backward), Ulysses, SwitchFFN over
+    an expert axis and both pipeline schedules on a 2-rank mesh."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel.pipeline import (
+        pipeline_apply, pipeline_value_and_grad)
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel.ring_attention \
+        import ring_attention, ulysses_attention
+
+    out = {}
+    mesh = build_mesh({"seq": SEQ})
+    assert mesh.distributed and mesh.comm("seq").index == [rank]
+    q, k, v, cot = ring_inputs()
+    local = lambda t: t.chunk(SEQ, 2)[rank].clone()
+    for name, kw in list(RING_CASES.items()) + [("ulysses", None)]:
+        xs = [local(t).requires_grad_() for t in (q, k, v)]
+        if kw is None:
+            o = ulysses_attention(*xs, mesh, kv_valid_len=27)
+        else:
+            o = ring_attention(*xs, mesh, **kw)
+        (o * local(cot)).sum().backward()
+        out[name] = [o.detach()] + [x.grad for x in xs]
+    ffn, x = switch_inputs()
+    y, aux = ffn(x, mesh=build_mesh({"expert": SEQ}))
+    ((y ** 2).sum() + 0.01 * aux).backward()
+    out["switch"] = [y.detach(), aux.detach()] + [
+        p.grad for p in ffn.parameters()]
+    params, x, tgt = pipeline_inputs()
+    stage = build_mesh({"stage": SEQ})
+    mine = tuple(p[rank:rank + 1] for p in params)
+    out["pipeline_apply"] = [pipeline_apply(stage_fn, mine, x, stage, 4)]
+    loss, grads = pipeline_value_and_grad(
+        stage_fn, mine, x, tgt, lambda y, t: torch.mean((y - t) ** 2), stage,
+        4)
+    out["pipeline_grad"] = [loss, *grads]
+    return out
+
+
+TRAINER_SHAPES = {"ring": {"data": 2, "seq": 2},
+                  "moe": {"data": 2, "expert": 2}}
+
+
+def trainer_setup(kind, mesh, device="cpu"):
+    """A tiny MMDiTTrainer (ring over seq, or 4 experts) on ``mesh``, its
+    state from seed 0, a batch of 4 and the draws of one step."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.mmdit import (
+        MMDiTConfig)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.mmdit_trainer \
+        import MMDiTTrainer
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        FlowTrainConfig)
+
+    extra = (dict(attention_impl="ring") if kind == "ring"
+             else dict(moe_experts=4))
+    mc = MMDiTConfig(patch_size=2, in_channels=4, depth=2, adm_in_channels=8,
+                     context_dim=16, pos_embed_max_size=8, **extra)
+    cfg = FlowTrainConfig(epoch=1, batch_size=4, img_size=8, context_len=4,
+                          lr=1e-4, max_lr=1e-3, warmup_epochs=1,
+                          train_rand=0.3, dtype="fp32", seed=0)
+    trainer = MMDiTTrainer(mc, cfg, device=device, mesh=mesh)
+    state = trainer.create_state(steps_per_epoch=2)
+    batch = [inputs(40, 4, 8, 8, 4), inputs(41, 4, 4, 16), inputs(42, 4, 8)]
+    draws = dict(t_lin=torch.sigmoid(inputs(43, 4)),
+                 noise=inputs(44, 4, 8, 8, 4),
+                 drop=torch.tensor([False, True, False, False]))
+    return trainer, state, batch, draws
+
+
+def _trainers(rank):
+    out = {}
+    for kind, shape in TRAINER_SHAPES.items():
+        trainer, state, batch, draws = trainer_setup(kind, build_mesh(shape))
+        state, loss = trainer.train_step(state, *batch, **draws)
+        out[kind] = dict(loss=loss, params={
+            n: p.detach().clone() for n, p in state.params.items()})
+    return out
+
+
+CASES = {"primitives": (SEQ, _primitives), "trainers": (4, _trainers)}
+
+
+def run(rank: int, case: str, store_path: str, out_dir: str) -> None:
+    """One rank of ``case``: joins the group through a FileStore, runs the
+    case, saves its results as ``{case}_{rank}.pt`` in ``out_dir``."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    world, fn = CASES[case]
+    store = dist.FileStore(store_path, world)
+    init_multihost(num_processes=world, process_id=rank, backend="gloo",
+                   store=store)
+    try:
+        torch.save(fn(rank), os.path.join(out_dir, f"{case}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
