@@ -1674,10 +1674,11 @@ def phase_sd1(card):
           f"{routes}")
     for h in hooks:
         h.remove()
-    # One profiled request at batch 1 and at batch 4 (after the counted
-    # ones): device busy time, idle share against the unprofiled request of
-    # the same batch, and K1's share of the device time.
-    for prompt_batch, seed in ((prompts[:1], 1), (prompts, 3)):
+    # One profiled request at batch 1 (after the counted ones): device busy
+    # time, idle share against the unprofiled request of the same batch,
+    # and K1's share of the device time (a batch-4 profile is cut to pay
+    # for the tp_fsdp group)
+    for prompt_batch, seed in ((prompts[:1], 1),):
         b = len(prompt_batch)
         for _ in range(3):  # a profile that recorded no kernel is run again
             n0 = read_counts()["K1"]
@@ -1923,6 +1924,7 @@ SD3_ENCODER_GN, SD3_TILED_HEAD_GN = 22, 5
 SD3_INT8_MM_PER_REQUEST = ((4 * (2 * SD3_DEPTH - 1) + 1) * SD3_STEPS
                            + 2 * 7 * 24)
 SD1_INT8_MM_PER_REQUEST = 16 * 8 * 50
+SD3_INT8_PROFILE_STEPS = 10
 # Image levels, batch-2 sample against its batch-1 request: cuBLAS and
 # cuDNN pick their algorithms by batch, which moves bf16 roundings; PERF.md
 # section 7 records up to 11 levels (mean 1.2) for SD1 between batch 1 and
@@ -2288,16 +2290,24 @@ def phase_sd3_int8(card, source):
           f"{SD3_INT8_MM_PER_REQUEST}")
     check(rel <= INT8_LATENT_REL_BOUND, f"SD3 int8 latents rel L2 {rel}")
     source["int8_image"] = images
-    # where the int8 request's device time goes (after the counted run)
-    _, wall_ms, fams, n_kernels, rows = profile_device(
-        lambda: inf.gen_image(np.zeros((1, 77), np.int32), steps=SD3_STEPS,
-                              cfg_scale=5.0, seed=source["seed"]), cpu=False)
+    # where an int8 request's device time goes (after the counted run), on
+    # a request of SD3_INT8_PROFILE_STEPS steps, unprofiled then profiled
+    # (cut from 50 steps to pay for the tp_fsdp group)
+    short = lambda: inf.gen_image(np.zeros((1, 77), np.int32),
+                                  steps=SD3_INT8_PROFILE_STEPS, cfg_scale=5.0,
+                                  seed=source["seed"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    short()
+    torch.cuda.synchronize()
+    short_ms = (time.perf_counter() - t) * 1e3
+    _, wall_ms, fams, n_kernels, rows = profile_device(short, cpu=False)
     busy = sum(fams.values()) or float("nan")
-    print(f"SD3 int8 profile of one request (torch.profiler, kernel rows "
-          f"only): device busy {busy:.1f} ms over {n_kernels} kernels; wall "
-          f"under the profiler {wall_ms:.1f} ms, unprofiled {1e3 * secs:.1f} "
-          f"ms; device idle share {1.0 - busy / (1e3 * secs):.3f} [{card}]",
-          flush=True)
+    print(f"SD3 int8 profile of one request of {SD3_INT8_PROFILE_STEPS} "
+          f"steps (torch.profiler, kernel rows only): device busy "
+          f"{busy:.1f} ms over {n_kernels} kernels; wall under the profiler "
+          f"{wall_ms:.1f} ms, unprofiled {short_ms:.1f} ms; device idle "
+          f"share {1.0 - busy / short_ms:.3f} [{card}]", flush=True)
     print_profile(fams, rows, 1, "request")
     return launches
 
@@ -2871,7 +2881,7 @@ def phase_training(card):
         TinySDConfig)
 
     cfg = TinySDConfig()
-    warm, timed, profiled = 3, 20, 2
+    warm, timed, profiled = 3, 10, 2    # timed: cut from 20
     n_steps = warm + timed + profiled
     t0 = time.perf_counter()
     loader = DataLoader(SyntheticImageDataset(
@@ -7409,6 +7419,473 @@ def phase_moe(card):
     return runs
 
 
+# --------------------------------------------------------------------------
+# the tp_fsdp group: tensor parallelism and FSDP on meshes of the
+# one card repeated (mesh form (a): a shard is a view of the whole tensor,
+# the shards run one after the other; a time here measures the serial
+# shards and the collectives' copies, not a speed-up)
+# --------------------------------------------------------------------------
+TP_N = 2
+TP_SD1_STEPS, TP_SD3_STEPS = 4, 2
+TP_TRAIN_STEPS = (1, 2)                  # warm, timed
+DDPM_FSDP_STEPS = (2, 3)                 # warm, timed
+# each head shard runs its own attention: n launches where one ran
+SD1_TP_K1 = TP_N * 10 * TP_SD1_STEPS + 1     # + the VAE's d = 512, whole
+SD1_TP_K2 = 61 * TP_SD1_STEPS + 30           # GroupNorm is not split
+# bf16 tolerance of a TP request against the meshless one. A row layer's
+# partial products are each rounded to bf16 before their sum and the bias is
+# added after it, where the one GEMM rounds once: a few more roundings per
+# layer, which CFG (the guided difference x 7.5 or 5) and the sampler
+# amplify as it amplifies any bf16 rounding. So the bound is set from the
+# meshless request's own bf16 jitter, measured in the same call: sample 0
+# of a batch-2 request (same per-sample seed) against the batch-1 request,
+# where cuBLAS and cuDNN pick other algorithms. Three times that jitter, or
+# PARALLEL_REL_TOL if larger; a wrong shard (a head crossed, a bias added
+# twice, a missing sum) is off by O(1).
+
+
+def tp_tolerance(jitter):
+    return max(PARALLEL_REL_TOL, 3.0 * jitter)
+
+
+# the shapes each head shard of a {"model": 2} mesh gives K1 (SD1's UNet at
+# 64^2, 8 heads of 40 split in two) and K5 (SD3's joint attention, 24 heads
+# of 64 split in two)
+K1_TP_SHAPE = (2, 8 // TP_N, 4096, 4096, 40)
+K5_TP_SHAPE = (2, 24 // TP_N, 4096, 4096, 64)
+
+
+def phase_kernels_tp(card):
+    """K1 and K5 at a TP head shard's shape against their plain versions,
+    with the library call, the bound and the device time."""
+    import torch
+    import torch.nn.functional as F
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    out = {}
+    for name, (b, h, lq, lk, d) in (("K1", K1_TP_SHAPE),
+                                     ("K5", K5_TP_SHAPE)):
+        # q, k, v: a shard's column outputs (B, L, H/n * D), one per group
+        q, k, v = (torch.randn(b, n, h * d, generator=gen, device="cuda").to(
+            torch.bfloat16).reshape(b, n, h, d).transpose(1, 2)
+                   for n in (lq, lk, lk))
+        if name == "K1":
+            run = lambda: fa.flash_attention_cuda(q, k, v)
+            plain = lambda: fa.flash_attention_plain(q, k, v)
+            family = "K1 flash fwd"
+        else:
+            z = torch.zeros(b, dtype=torch.int32, device="cuda")
+            run = lambda: fa.flash_attention_pos_cuda(q, k, v, z, z)
+            plain = lambda: fa.flash_attention_pos_plain(q, k, v, z, z)
+            family = "K5 flash fwd pos"
+        (o, lse), (ref, ref_lse) = run(), plain()
+        err = (o.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        del ref, ref_lse
+        bound_ms, bound_by = attn_bound(b, h, lq, lk, d)
+        times = dict(ms=cuda_ms(run), plain_ms=cuda_ms(plain, 5, 1),
+                     library_ms=cuda_ms(
+                         lambda: F.scaled_dot_product_attention(q, k, v),
+                         10, 2),
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     device_ms=kernel_device_ms(run, family))
+        print(f"{name} at a TP head shard (B,H,Lq,Lk,D)={(b, h, lq, lk, d)} "
+              f"bf16: max|out err|={err:.3e} (atol 2e-2) max|lse err|="
+              f"{lse_err:.3e} (atol 1e-3); kernel {times['ms']:.4f} ms, "
+              f"device {fmt_ms(times['device_ms'])}, plain "
+              f"{times['plain_ms']:.4f} ms, library "
+              f"{times['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}, {100 * bound_ms / times['ms']:.1f} % of it "
+              f"reached) [{card}]", flush=True)
+        check(err <= 2e-2 and lse_err <= 1e-3,
+              f"{name} disagrees at the TP shard shape: {err} / {lse_err}")
+        out[name] = dict(shape=[b, h, lq, lk, d], max_abs_err=err, **times)
+    return out
+
+
+def drop_tp(*models):
+    """Back to the meshless forward: in mesh form (a) ``apply_tp`` keeps
+    every tensor whole, so clearing the modules' ``tp`` undoes it."""
+    for model in models:
+        if model is None:
+            continue
+        for m in model.modules():
+            if getattr(m, "tp", None) is not None:
+                m.tp = None
+
+
+def phase_tp_sd1(card, models):
+    """SD1 at 512^2 through ``SD1Generator(mesh={"model": 2})`` (k-LMS, CFG
+    7.5, ``TP_SD1_STEPS`` steps; the mesh is the card repeated) against the
+    same request without a mesh: final latents and image, K1 launches 2 x
+    10 a step + the VAE's whole d = 512, every one on its sm90 kernel, K2's
+    count unchanged; then ``sd1 generate --tp 2 --device cuda`` on this
+    one-card host raises the JAX mesh-shape error."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.cli import sd1 as sd1_cli
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        SD1Generator)
+
+    final = []
+    hook = models.decoder.register_forward_pre_hook(
+        lambda m, a: final.append(a[0].detach().clone()))
+    kw = dict(sampler="k_lms", n_inference_steps=TP_SD1_STEPS,
+              cfg_scale=7.5, height=512, width=512)
+    prompt = ["a photograph of an astronaut riding a horse"]
+    try:
+        plain_gen = SD1Generator(models, **kw)
+        plain = plain_gen(prompt, per_sample_seeds=[11])
+        want = final.pop()
+        plain_gen(prompt * 2, per_sample_seeds=[11, 12])
+        jitter = rel_l2(final.pop()[:1], want)
+        gen = SD1Generator(models, mesh=card_mesh(TP_N, "model"), **kw)
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        image = gen(prompt, per_sample_seeds=[11])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = read_counts()
+        rel = rel_l2(final.pop(), want)
+        lv = levels(image, plain)
+        k1_routes = dict(got.k1_routes)
+        tol = tp_tolerance(jitter)
+        print(f"SD1 over a {{'model': {TP_N}}} mesh of the card (512^2, "
+              f"{TP_SD1_STEPS} k-LMS steps, CFG 7.5): {secs:.3f} s/image "
+              f"(the shards one after the other); against the meshless "
+              f"request: final latents rel L2 {rel:.3e} (tol {tol:.3e}; the "
+              f"meshless request's own batch-2 jitter {jitter:.3e}), image "
+              f"max {lv[0]} mean {lv[1]:.4f} levels; K1 {got['K1']} by "
+              f"kernel {k1_routes} by head dim {got.k1_head_dims}, K2 "
+              f"{got['K2']} [{card}]", flush=True)
+        check(image.shape == (1, 512, 512, 3) and rel <= tol,
+              f"SD1 TP request off the meshless one: rel L2 {rel} > {tol}")
+        check(got["K1"] == SD1_TP_K1 and k1_routes == {
+            "sm90": SD1_TP_K1 - 1, "d512": 1},
+              f"SD1 TP K1 launches {got['K1']} {k1_routes}, not "
+              f"{SD1_TP_K1} (sm90 but the VAE's d = 512)")
+        check(got["K2"] == SD1_TP_K2, f"SD1 TP K2 launches {got['K2']}, "
+                                      f"not {SD1_TP_K2}")
+        check(models.unet.enc1_att.attn1.tp is not None
+              and models.decoder.mid_attn.attn.tp is None,
+              "SD1Generator(mesh=) did not switch the UNet, or split the "
+              "VAE's one head")
+    finally:
+        hook.remove()
+        drop_tp(models.clip, models.unet, models.encoder, models.decoder)
+    try:
+        sd1_cli.main(["generate", "--prompt", "x", "--tp", str(TP_N),
+                      "--device", "cuda"])
+        raised = ""
+    except ValueError as err:
+        raised = str(err)
+    print(f"sd1 generate --tp {TP_N} --device cuda on a host with "
+          f"{torch.cuda.device_count()} card(s): ValueError {raised!r}",
+          flush=True)
+    check(raised == f"mesh shape {{'model': {TP_N}}} != "
+                    f"{torch.cuda.device_count()} devices"
+          or torch.cuda.device_count() >= TP_N,
+          f"sd1 --tp {TP_N} on one card did not raise the mesh error")
+    return got
+
+
+def phase_tp_sd3(card, source):
+    """SD3-medium at 1024^2 through ``SD3Inferencer(mesh={"model": 2})``
+    (MMDiT, CLIP-L / G, T5 switched; the VAE's one head whole), 2
+    flow-Euler steps, CFG 5: final latents against the meshless request of
+    as many steps, K5 launches 2 x its count, every one on sm90."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer)
+
+    models = source["models"]
+    step_events, final_latents = [], []
+    hooks = request_hooks(models, step_events, final_latents)
+    tokens = np.zeros((1, 77), np.int32)
+    seed = source["seed"]
+    kw = dict(width=1024, height=1024, steps=TP_SD3_STEPS, cfg_scale=5.0,
+              per_sample_seeds=[seed])
+    try:
+        # the whole decode, image by image, at batch 2 too: the decoder's
+        # hook sees sample 0 first
+        plain_inf = SD3Inferencer(models, shift=3.0, decode_mode="whole")
+        n0 = read_counts()
+        plain_image = plain_inf.gen_image(tokens, **kw)
+        plain = launches_since(n0)
+        want_latents = final_latents.pop()
+        plain_inf.gen_image(np.zeros((2, 77), np.int32), **dict(
+            kw, per_sample_seeds=[seed, seed + 1]))
+        jitter = rel_l2(final_latents[0], want_latents)
+        final_latents.clear()
+        inf = SD3Inferencer(models, shift=3.0,
+                            mesh=card_mesh(TP_N, "model"))
+        step_events.clear()
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        image = inf.gen_image(tokens, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = read_counts()
+        rel = rel_l2(final_latents.pop(), want_latents)
+        lv = levels(image, plain_image)
+        want = dict(plain, K5=TP_N * plain["K5"])
+        tol = tp_tolerance(jitter)
+        print(f"SD3 over a {{'model': {TP_N}}} mesh of the card (1024^2, "
+              f"{TP_SD3_STEPS} flow-Euler steps, CFG 5): {secs:.3f} s/image, "
+              f"{step_ms(step_events):.2f} ms/denoise step (the shards one "
+              f"after the other); against the meshless request: final "
+              f"latents rel L2 {rel:.3e} (tol {tol:.3e}; the meshless "
+              f"request's own batch-2 jitter {jitter:.3e}), image max "
+              f"{lv[0]} mean {lv[1]:.4f} levels; launches {dict(got)} "
+              f"(meshless {plain}), K5 {got.k5_routes} [{card}]",
+              flush=True)
+        check(rel <= tol, f"SD3 TP latents rel L2 {rel} > {tol}")
+        check(dict(got) == want and got.k5_routes == {"sm90": got["K5"]},
+              f"SD3 TP launches {dict(got)} {got.k5_routes}, not {want}")
+        check(models.mmdit.joint_block0.x_block.tp is not None
+              and models.t5.block0.attn.tp is not None,
+              "SD3Inferencer(mesh=) did not switch the MMDiT and T5")
+    finally:
+        for h in hooks:
+            h.remove()
+        drop_tp(*(getattr(models, f.name)
+                  for f in dataclasses.fields(models)))
+    return got
+
+
+def phase_tp_int8(card, source):
+    """W8A8 under TP on the card: for quantized copies of the MMDiT's and
+    T5's block projections, a row-parallel layer's int32 accumulators
+    summed over 2 shards (the per-token abs-max reduced with max first)
+    equal the unsharded accumulators bit for bit, and a column-parallel
+    layer's shard outputs put together equal its unsharded output."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import quantize as Q
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel import sharding
+
+    models = source["models"]
+    blk, t5 = models.mmdit.joint_block0.x_block, models.t5.block0
+    layers = [("mmdit qkv", blk.qkv, 3, 2 * 4096),
+              ("mmdit proj", blk.proj, 0, 2 * 4096),
+              ("mmdit mlp_fc1", blk.mlp_fc1, 1, 2 * 4096),
+              ("mmdit mlp_fc2", blk.mlp_fc2, 0, 2 * 4096),
+              ("t5 q", t5.attn.q, 1, 2 * 77), ("t5 o", t5.attn.o, 0, 2 * 77),
+              ("t5 wi_0", t5.wi_0, 1, 2 * 77), ("t5 wo", t5.wo, 0, 2 * 77)]
+    comm = card_mesh(TP_N, "model").comm("model")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    done = []
+    for name, lin, groups, rows in layers:
+        q = Q.QuantLinear.from_linear(lin)
+        x = torch.randn(rows, q.in_features, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        if groups == 0:      # row-parallel: the accumulators
+            xq, xs = Q.quantize_rows(x.to(q.compute_dtype))
+            whole = Q.int8_matmul(xq, q.q.t())
+            acc, scale = sharding.row_int8_accumulators(
+                q, comm.local_shards(x, 1), comm)
+            ok = (acc.dtype == torch.int32 and torch.equal(acc, whole)
+                  and torch.equal(scale, xs)
+                  and torch.equal(sharding.row_replicated(q, x, comm),
+                                  q(x)))
+        else:                # column-parallel: the output, shard by shard
+            outs = sharding.column(q, x, comm, groups)
+            if groups > 1:
+                outs = [torch.cat([o[g] for o in outs], -1)
+                        for g in range(groups)]
+            ok = torch.equal(torch.cat(outs, -1), q(x))
+        check(ok, f"W8A8 under TP: {name} differs from the unsharded layer")
+        done.append((name, rows, q.in_features, q.out_features,
+                     "row" if groups == 0 else "column"))
+        del q
+    print(f"W8A8 under TP over {TP_N} shards of the card: int32 "
+          f"accumulators (row layers) and outputs (column layers) equal to "
+          f"the unsharded ones at (layer, M, K, N, kind) {done}", flush=True)
+
+
+def phase_tp_training(card, trainer, state, flash_step):
+    """The MMDiT trainer at SD3's operating point (depth 24, latent 128,
+    batch 2, bf16 over fp32) laid out on {"data": 2, "model": 2} with FSDP
+    (the card repeated): one batch's loss and whole gradient against the
+    meshless model's from the same state and draws, then 1 + 2 hybrid
+    steps, with K5 / K6 / K7 launches 2 x the meshless ones, all sm90, and
+    the peak beside the meshless one (on one card the shards are views of
+    one tensor: neither TP nor FSDP saves memory here). The state goes back
+    to its meshless layout after."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
+        StateLayout, lay_out)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.mmdit_trainer import (
+        MMDiTTrainer)
+
+    model = state.model
+    mesh = build_mesh({"data": 2, "model": TP_N},
+                      [torch.device("cuda")] * (2 * TP_N))
+    hybrid = MMDiTTrainer(trainer.model_cfg, trainer.cfg, device="cuda",
+                          mesh=mesh, fsdp=True)
+    cfg = trainer.cfg
+    latents, context, y = (torch.from_numpy(a).cuda() for a in mmdit_batch(
+        cfg.batch_size, cfg.img_size, cfg.context_len, trainer.model_cfg,
+        seed=7))
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    draws = dict(
+        t_lin=torch.sigmoid(torch.randn(2, generator=gen, device="cuda")),
+        noise=torch.randn(latents.shape, generator=gen, device="cuda"),
+        drop=torch.zeros(2, dtype=torch.bool, device="cuda"))
+
+    def loss_and_grads(tr):
+        model.zero_grad(set_to_none=True)
+        loss = tr.loss(state, latents, context, y, **draws)
+        loss.backward()
+        return loss.item(), [p.grad.to(torch.bfloat16)
+                             for p in model.parameters()]
+
+    model.train()
+    n0 = read_counts()
+    l_plain, g_plain = loss_and_grads(trainer)
+    plain_one = launches_since(n0)
+    state.layout = lay_out(model, mesh, True)
+    try:
+        sharded = sum(d is not None for d in state.layout.fsdp_dims.values())
+        n0 = read_counts()
+        l_tp, g_tp = loss_and_grads(hybrid)
+        one = launches_since(n0)
+        num = sum(((a.float() - b.float()) ** 2).sum().item()
+                  for a, b in zip(g_tp, g_plain))
+        den = sum((b.float() ** 2).sum().item() for b in g_plain)
+        g_rel = (num / den) ** 0.5
+        l_rel = abs(l_tp - l_plain) / abs(l_plain)
+        del g_tp, g_plain
+        model.zero_grad(set_to_none=True)
+        per_step = dict(MMDIT_PER_STEP, **{k: TP_N * plain_one[k]
+                                           for k in ("K5", "K6", "K7")})
+        check(dict(one) == per_step and plain_one["K6"] > 0,
+              f"a TP MMDiT loss + backward launched {dict(one)}, not "
+              f"{per_step} (meshless {plain_one})")
+        check(g_rel <= PARALLEL_REL_TOL and l_rel <= PARALLEL_REL_TOL,
+              f"hybrid MMDiT gradient off the meshless one: loss rel "
+              f"{l_rel}, gradient rel L2 {g_rel}")
+        warm, timed = TP_TRAIN_STEPS
+        for _ in range(warm):
+            state, _ = hybrid.train_step(state, latents, context, y)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = []
+        for _ in range(timed):
+            state, loss = hybrid.train_step(state, latents, context, y)
+            losses.append(loss.item())
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / timed
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = read_counts()
+        want = {k: n * timed for k, n in per_step.items()}
+        check(dict(launches) == want, f"hybrid MMDiT steps launched "
+                                      f"{dict(launches)}, not {want}")
+        for k in ("K5", "K6", "K7"):
+            r = getattr(launches, k.lower() + "_routes")
+            check(r == {"sm90": launches[k]}, f"hybrid MMDiT {k} routes {r}")
+        check(all(v == v for v in losses), f"hybrid losses {losses}")
+        print(f"MMDiT training on {{'data': 2, 'model': {TP_N}}} with FSDP "
+              f"(the card repeated; depth 24, latent 128: 4096 + 154 tokens, "
+              f"batch 2, bf16 over fp32; {sharded} parameters stored by "
+              f"data shards): one batch's loss {l_tp:.6f} against the "
+              f"meshless {l_plain:.6f} (rel {l_rel:.3e}), the whole gradient "
+              f"rel L2 {g_rel:.3e} (tol {PARALLEL_REL_TOL}); {timed} hybrid "
+              f"steps after {warm}: {ms:.2f} ms/step (CUDA events; the "
+              f"meshless step {flash_step['step_ms']:.2f}; the shards one "
+              f"after the other), losses {[round(v, 4) for v in losses]}; "
+              f"peak {peak:.2f} GiB against the meshless step's "
+              f"{flash_step['peak_gib']:.2f} (one card: the shards are views "
+              f"of one tensor, no memory saved); launches {dict(launches)} "
+              f"[{card}]", flush=True)
+    finally:
+        drop_tp(model)
+        state.layout = StateLayout()
+    return state, launches
+
+
+def phase_ddpm_fsdp(card):
+    """``DDPMTrainer(TinySDConfig(), mesh={"data": 2}, fsdp=True)`` on the
+    card repeated against the plain trainer: 2 + 3 steps each from the same
+    seed, batches, draws and dropout masks: losses (within 1e-5: the
+    embedding's backward sums by atomics), K3 / K4 on sm90, ms/step."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
+        DDPMTrainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        TinySDConfig)
+
+    cfg = TinySDConfig()
+    warm, timed = DDPM_FSDP_STEPS
+    batches = tiny_sd_batches(cfg, warm + timed, seed=17)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    shape = (cfg.batch_size, cfg.img_size, cfg.img_size, cfg.img_channel)
+    draws = [dict(drop=torch.rand(cfg.batch_size, generator=gen,
+                                  device="cuda") < cfg.train_rand,
+                  t=torch.randint(0, cfg.T, (cfg.batch_size,), generator=gen,
+                                  device="cuda"),
+                  noise=torch.randn(shape, generator=gen, device="cuda"))
+             for _ in batches]
+    out = {}
+    for what, kw in (("plain", {}), ("fsdp", dict(
+            mesh=card_mesh(2, "data"), fsdp=True))):
+        trainer = DDPMTrainer(cfg, device="cuda", **kw)
+        state = trainer.create_state(len(batches))
+        torch.manual_seed(29)   # the dropout masks: the global generator's
+        losses = []
+        for (x, labels), d in list(zip(batches, draws))[:warm]:
+            state, loss = trainer.train_step(state, x, labels, **d)
+            losses.append(loss.item())
+        reset_counts()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for (x, labels), d in list(zip(batches, draws))[warm:]:
+            state, loss = trainer.train_step(state, x, labels, **d)
+            losses.append(loss.item())
+        end.record()
+        torch.cuda.synchronize()
+        out[what] = dict(losses=losses, launches=read_counts(),
+                         ms=start.elapsed_time(end) / timed,
+                         sharded=sum(d is not None for d in
+                                     state.layout.fsdp_dims.values()),
+                         n=len(state.layout.fsdp_dims))
+        del trainer, state
+    f, p = out["fsdp"], out["plain"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(f["losses"], p["losses"]))
+    want = {k: n * timed for k, n in TRAIN_PER_STEP.items()}
+    print(f"tiny-SD training, TinySDConfig() (64^2, batch 32, bf16 over "
+          f"fp32), with FSDP on {{'data': 2}} (the card repeated; "
+          f"{f['sharded']} of {f['n']} parameters stored by data shards, "
+          f"views of one tensor here) against the plain trainer, "
+          f"{warm} + {timed} steps from the same state and draws: losses "
+          f"{[round(v, 5) for v in f['losses']]} against "
+          f"{[round(v, 5) for v in p['losses']]} (largest rel {rel:.3e}); "
+          f"{f['ms']:.2f} ms/step against {p['ms']:.2f}; launches "
+          f"{dict(f['launches'])}, K3 {f['launches'].k3_routes} K4 "
+          f"{f['launches'].k4_routes} [{card}]", flush=True)
+    check(rel <= 1e-5, f"FSDP tiny-SD losses off the plain trainer's: {rel}")
+    check(f["sharded"] > 0, "FSDP stored no parameter by shards")
+    check(dict(f["launches"]) == want, f"FSDP tiny-SD launches "
+                                       f"{dict(f['launches'])}, not {want}")
+    return f["launches"]
+
+
 def main():
     marks = [("start", time.perf_counter())]
 
@@ -7431,13 +7908,14 @@ def main():
     mark("parallel")
     import torch
 
-    paths = ("sd1", "sd1_slice", "serving", "sd1_cli", "sd1_768",
+    paths = ("sd1", "sd1_slice", "sd1_tp", "serving", "sd1_cli", "sd1_768",
              "sd1_checkpoint", "sd1_int8",
              "sd3", "t5", "sd3_ring", "sd3_ulysses", "mmdit_pp",
-             "mmdit_pp_1f1b", "sd3_img2img", "sd3_tiled", "sd3_text",
-             "sd3_checkpoint", "sd3_int8", "sd3_offload", "training",
-             "sampling", "train_accum", "train_resume", "latent_training",
-             "latent_sampling", "mmdit_training", "mmdit_ring_training",
+             "mmdit_pp_1f1b", "sd3_tp", "sd3_img2img", "sd3_tiled",
+             "sd3_text", "sd3_checkpoint", "sd3_int8", "sd3_offload",
+             "training", "sampling", "train_accum", "train_resume",
+             "latent_training", "latent_sampling", "ddpm_fsdp",
+             "mmdit_training", "mmdit_ring_training", "mmdit_tp_fsdp",
              "mmdit_sampling", "mmdit_lora", "mmdit_moe_forward",
              "mmdit_moe_training", "vlm_training", "vlm_decoding", "vlm_checkpoint",
              "video_training", "video_sampling", "vae_vqvae", "vae_vanilla",
@@ -7448,6 +7926,9 @@ def main():
     sd1_launches, sd1_models, sd1_image = phase_sd1(card)
     runs = [sd1_launches, phase_sd1_slice(card, sd1_models)]
     mark("sd1")
+    kernels_tp = phase_kernels_tp(card)
+    runs.append(phase_tp_sd1(card, sd1_models))
+    mark("tp_fsdp")
     runs += [phase_serving(card, sd1_models), phase_sd1_cli(card)]
     mark("serving")
     runs += [phase_sd1_768(card, sd1_models, SD1_768_STEPS, "bf16")[0],
@@ -7463,6 +7944,9 @@ def main():
     mark("sd3")
     runs += phase_parallel_sd3(card, sd3_source)
     mark("parallel")
+    runs.append(phase_tp_sd3(card, sd3_source))
+    phase_tp_int8(card, sd3_source)
+    mark("tp_fsdp")
     runs += [phase_sd3_img2img(card, sd3_source),
              phase_sd3_tiled(card, sd3_source),
              phase_sd3_text(card, sd3_source),
@@ -7489,12 +7973,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()   # the serving bundles are gone: room to train
     mark("tiny_sd")
+    runs.append(phase_ddpm_fsdp(card))
+    mark("tp_fsdp")
     trainer, state, train_launches, mmdit_step = phase_mmdit_training(card)
     runs.append(train_launches)
     mark("mmdit")
     state, ring_launches = phase_mmdit_ring(card, trainer, state, mmdit_step)
     runs.append(ring_launches)
     mark("parallel")
+    state, tp_launches = phase_tp_training(card, trainer, state, mmdit_step)
+    runs.append(tp_launches)
+    mark("tp_fsdp")
     phase_mmdit_grad_check(card)
     runs.append(phase_mmdit_sampling(card, trainer, state))
     del trainer, state
@@ -7593,8 +8082,9 @@ def main():
     # sm90
     for p, run in zip(paths, runs):
         if p in ("sd3", "sd3_img2img", "sd3_tiled", "sd3_text",
-                 "sd3_checkpoint", "sd3_int8", "sd3_offload",
-                 "mmdit_training", "mmdit_sampling", "mmdit_lora",
+                 "sd3_checkpoint", "sd3_int8", "sd3_offload", "sd3_tp",
+                 "mmdit_training", "mmdit_tp_fsdp", "mmdit_sampling",
+                 "mmdit_lora",
                  "sd3_ring", "sd3_ulysses", "mmdit_pp", "mmdit_pp_1f1b",
                  "mmdit_ring_training", "mmdit_moe_forward",
                  "mmdit_moe_training"):
@@ -7606,8 +8096,8 @@ def main():
     # the bf16 training paths: every K3 / K4 launch on its sm90 kernel
     for p, run in zip(paths, runs):
         if p in ("training", "train_accum", "train_resume",
-                 "latent_training", "vlm_training", "vlm_checkpoint",
-                 "video_training"):
+                 "latent_training", "ddpm_fsdp", "vlm_training",
+                 "vlm_checkpoint", "video_training"):
             for k in ("K3", "K4"):
                 r = getattr(run, k.lower() + "_routes")
                 check(r == {"sm90": run[k]} and run[k] > 0,
@@ -7668,6 +8158,7 @@ def main():
                   timed=[r for r in kernels_fp32["K1"]
                          if r.get("form") == "d8"], **by_head_dim(8)),
               timed_at="(B,H,Lq,Lk,D)=(2,8,4096,4096,40)",
+              tp_shard=kernels_tp["K1"],
               library="F.scaled_dot_product_attention", forms=forms_of("K1"),
               video=kernels_video["K1"],
               clip=kernels_clip["K1"]),
@@ -7742,6 +8233,7 @@ def main():
                       "visible; the bounded form fixes the max at 0"),
               sm90=by_route("sm90", "k5"), shapes=kernels["K5 shapes"],
               ring=kernels_ring["K5"], ring_call=kernels_ring["call"],
+              tp_shard=kernels_tp["K5"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64) online",
               library="F.scaled_dot_product_attention"),
         entry("flash_attention_bwd_pos_dq", "flash_attention_dq_sm90.cu",

@@ -1,15 +1,16 @@
 """Stage-01 CLI: SD1 text→image / image→image generation on the card (port
 of ``cli/sd1.py``), with the ``generate`` defaults (512×512, 50 steps, CFG
 7.5, k_lms). Images are written by the port's stdlib PNG encoder; only
-``--input-image`` reads an image, through Pillow. ``--tp`` above 1 is not
-ported yet (ROADMAP.md queue A8) and exits.
+``--input-image`` reads an image, through Pillow. ``--tp N`` serves
+tensor-parallel over a ``model`` mesh of the first N visible devices of
+--device's kind (``parallel.build_mesh``, as the JAX CLI builds it over
+``jax.devices()[:N]``: on a host with fewer it raises the mesh-shape
+``ValueError``).
 """
 
 from __future__ import annotations
 
 import argparse
-
-from .serve import A8
 
 
 def main(argv=None):
@@ -36,13 +37,12 @@ def main(argv=None):
                         " + vocab.json/merges.txt (reference layout)")
     g.add_argument("--dtype", default="bf16")
     g.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel serving: not ported yet (queue A8)")
+                   help="tensor-parallel serving over N devices (shards "
+                        "attention/GEGLU kernels on the model mesh axis)")
     g.add_argument("--out", default="sd1_{i}.png")
     g.add_argument("--device", default="cuda",
                    help="torch device of the model bundle")
     args = ap.parse_args(argv)
-    if args.tp > 1:
-        ap.error(f"--tp {args.tp}: tensor-parallel serving is {A8}")
 
     import os
 
@@ -53,6 +53,12 @@ def main(argv=None):
     from ..pipelines.sd1 import SD1Models, generate
 
     device = torch.device(args.device)
+    mesh = None
+    if args.tp > 1:
+        from ..parallel import apply_tp, build_mesh, visible_devices
+
+        mesh = build_mesh({"model": args.tp},
+                          visible_devices(device.type)[:args.tp])
     tokenizer = None
     if args.ckpt_dir:
         from ..io.tokenizer import CLIPTokenizer
@@ -67,6 +73,12 @@ def main(argv=None):
         print("[sd1] no --ckpt-dir: random weights (smoke-test mode)")
         models = SD1Models.initialize(
             torch.Generator(device).manual_seed(0), device, args.dtype)
+
+    if mesh is not None:
+        for model in (models.clip, models.unet, models.encoder,
+                      models.decoder):
+            if model is not None:
+                apply_tp(model, mesh)
 
     input_images = None
     if args.input_image:

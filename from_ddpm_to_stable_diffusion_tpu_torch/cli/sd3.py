@@ -12,8 +12,12 @@ without files the prompt becomes placeholder ids drawn from
 the --device, with LoRA, gradient accumulation and --moe-experts. ``generate --sp N --sp-impl ring|ulysses``
 runs the MMDiT's joint attention sequence-parallel over a ``seq`` mesh of
 the first N visible devices (N must not exceed them, as in the JAX CLI).
---tp and --fsdp are not ported yet (ROADMAP.md queue A8) and exit. Images
-are written by the port's stdlib PNG encoder; only --init-image reads one,
+``generate --tp N`` serves tensor-parallel over a ``model`` mesh of the
+first N visible devices; ``train --tp N`` trains over the JAX CLI's hybrid
+{"data": n // N, "model": N} mesh of the n visible devices, and ``--fsdp``
+stores the train state sharded over ``data``. On a host with too few
+devices the mesh raises the JAX mesh-shape ``ValueError``. Images are
+written by the port's stdlib PNG encoder; only --init-image reads one,
 through Pillow.
 """
 
@@ -23,7 +27,6 @@ import argparse
 import sys
 
 from ..parallel.mesh import build_mesh, visible_devices
-from .serve import A8
 
 
 def main(argv=None):
@@ -58,7 +61,8 @@ def main(argv=None):
     g.add_argument("--offload-text-encoders", action="store_true",
                    help="free CLIP/T5 device memory after conditioning")
     g.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel serving: not ported yet (queue A8)")
+                   help="tensor-parallel serving over N devices (shards "
+                        "MMDiT/CLIP/T5 kernels on the model mesh axis)")
     g.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel MMDiT joint attention over the "
                         "first N visible devices (ring K/V rotation or "
@@ -89,9 +93,9 @@ def main(argv=None):
     t.add_argument("--steps", type=int, default=20)
     t.add_argument("--dtype", choices=("fp32", "bf16"), default="bf16")
     t.add_argument("--fsdp", action="store_true",
-                   help="ZeRO-sharded state: not ported yet (queue A8)")
+                   help="store the train state ZeRO-sharded over data")
     t.add_argument("--tp", type=int, default=1,
-                   help="data x model mesh: not ported yet (queue A8)")
+                   help="hybrid data×model mesh (heads must divide)")
     t.add_argument("--lora-rank", type=int, default=None,
                    help="freeze the base, train rank-r adapters only")
     t.add_argument("--moe-experts", type=int, default=None,
@@ -106,11 +110,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.tp > 1 and getattr(args, "sp", 1) > 1:
         ap.error("--tp and --sp are mutually exclusive")
-    asked = [flag for flag, on in (
-        ("--tp", args.tp > 1),
-        ("--fsdp", getattr(args, "fsdp", False))) if on]
-    if asked:
-        ap.error(f"{', '.join(asked)}: {A8}")
 
     if args.cmd == "train":
         return _train(args)
@@ -122,7 +121,10 @@ def main(argv=None):
     from ..pipelines.sd3 import SD3Inferencer, SD3Models
 
     device = torch.device(args.device)
-    seq_mesh = None
+    mesh = seq_mesh = None
+    if args.tp > 1:
+        mesh = build_mesh({"model": args.tp},
+                          visible_devices(device.type)[:args.tp])
     if args.sp > 1:
         seq_mesh = build_mesh({"seq": args.sp},
                               visible_devices(device.type)[:args.sp])
@@ -162,7 +164,8 @@ def main(argv=None):
                  ("<unk>", 0.0, UNKNOWN)]))
         tokenizer = SD3Tokenizer(clip_tok, t5_tok)
 
-    inf = SD3Inferencer(models, shift=args.shift, tokenizer=tokenizer)
+    inf = SD3Inferencer(models, shift=args.shift, tokenizer=tokenizer,
+                        mesh=mesh)
     kwargs = dict(width=args.width, height=args.height, steps=args.steps,
                   cfg_scale=args.cfg_scale, seed=args.seed,
                   offload_text_encoders=args.offload_text_encoders,
@@ -205,14 +208,21 @@ def main(argv=None):
 
 def _train(args):
     import numpy as np
+    import torch
 
     from ..models.mmdit import MMDiTConfig
     from ..pipelines.mmdit_trainer import MMDiTTrainer
     from ..utils.config import FlowTrainConfig
 
-    # the trainer's data mesh, here over the one device: a data axis over
-    # several cards in one process is not ported yet (ROADMAP.md queue A8)
+    # the trainer's data mesh, here over the one device (a data axis over
+    # several cards runs as a process group, one rank a card); with --tp
+    # the JAX CLI's hybrid mesh over the visible devices
     mesh = build_mesh(None, [args.device])
+    if args.tp > 1:
+        devices = visible_devices(torch.device(args.device).type)
+        data = max(len(devices) // args.tp, 1)
+        mesh = build_mesh({"data": data, "model": args.tp},
+                          devices[:data * args.tp])
     mcfg = MMDiTConfig(patch_size=2, in_channels=16, depth=args.depth,
                        adm_in_channels=args.adm,
                        context_dim=args.context_dim,
@@ -224,13 +234,14 @@ def _train(args):
                           dtype=args.dtype, seed=args.seed,
                           grad_accum=args.grad_accum)
     trainer = MMDiTTrainer(mcfg, cfg, device=args.device, mesh=mesh,
-                           lora_rank=args.lora_rank)
+                           fsdp=args.fsdp, lora_rank=args.lora_rank)
     state = trainer.create_state(
         steps_per_epoch=max(args.steps // cfg.epoch, 1))
     kind = f"LoRA r={args.lora_rank} adapters" if args.lora_rank else "params"
     print(f"[sd3 train] MMDiT depth={args.depth} "
           f"({trainer.num_params(state):,} trainable {kind}) on "
-          f"{trainer.device}; mesh={dict(trainer.mesh.shape)}",
+          f"{trainer.device}; mesh={dict(trainer.mesh.shape)} "
+          f"fsdp={args.fsdp}",
           file=sys.stderr)
 
     r = np.random.default_rng(args.seed)

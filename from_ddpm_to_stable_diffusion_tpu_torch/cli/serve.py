@@ -6,8 +6,10 @@ endpoint, on the card (port of ``cli/serve.py``).
 
 One generator, resident on ``--device``, behind the bucketed
 ``DynamicBatcher`` (``serving/batcher.py``), so concurrent requests
-coalesce into batches of 1, 2, 4 or 8. ``--tp`` above 1 (tensor-parallel
-serving) is not ported yet (ROADMAP.md queue A8) and exits.
+coalesce into batches of 1, 2, 4 or 8. ``--tp N`` serves the bundle
+tensor-parallel over a ``model`` mesh of the first N visible devices of
+--device's kind, as the JAX CLI builds it (on a host with fewer it raises
+the mesh-shape ``ValueError``); the batcher's worker thread runs it.
 """
 
 from __future__ import annotations
@@ -15,9 +17,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
-
-A8 = "not ported yet (ROADMAP.md queue A8: the parallel package)"
-
 
 def on_device(device):
     """A context that makes ``device`` the current CUDA device of the
@@ -43,7 +42,7 @@ def sd1_generate_fn(gen):
     return generate_fn
 
 
-def _build_sd1(args):
+def _build_sd1(args, mesh=None):
     """An ``SD1Generator`` at the flags' operating point behind the
     (prompts, negs, seeds) adapter."""
     import torch
@@ -69,11 +68,11 @@ def _build_sd1(args):
     gen = SD1Generator(models, tokenizer=tokenizer, sampler=args.sampler,
                        n_inference_steps=args.steps,
                        cfg_scale=args.cfg_scale, height=args.height,
-                       width=args.width, mesh=None)
+                       width=args.width, mesh=mesh)
     return sd1_generate_fn(gen)
 
 
-def _build_sd3(args):
+def _build_sd3(args, mesh=None):
     """An ``SD3Inferencer`` behind the same adapter: one text encode and
     one batched CFG denoise per bucket call (``gen_images_text``)."""
     import numpy as np
@@ -114,7 +113,7 @@ def _build_sd3(args):
         tokenizer = SD3Tokenizer(clip_tok, t5_tok)
 
     inf = SD3Inferencer(models, shift=args.shift, tokenizer=tokenizer,
-                        mesh=None)
+                        mesh=mesh)
     kw = dict(width=args.width, height=args.height, steps=args.steps,
               cfg_scale=args.cfg_scale, sampler=args.flow_sampler)
 
@@ -165,7 +164,7 @@ def main(argv=None):
     ap.add_argument("--height", type=int, default=512)
     ap.add_argument("--width", type=int, default=512)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel serving: not ported yet (queue A8)")
+                    help="tensor-parallel serving over N devices")
     ap.add_argument("--int8", action="store_true",
                     help="sd3: W8A8 int8 MMDiT/T5 projections")
     ap.add_argument("--buckets", default="1,2,4,8",
@@ -179,16 +178,23 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model bundle")
     args = ap.parse_args(argv)
-    if args.tp > 1:
-        ap.error(f"--tp {args.tp}: tensor-parallel serving is {A8}")
 
     from ..serving import (DynamicBatcher, make_server,
                            serve_forever_in_thread)
 
+    mesh = None
+    if args.tp > 1:
+        import torch
+
+        from ..parallel import build_mesh, visible_devices
+
+        mesh = build_mesh({"model": args.tp}, visible_devices(
+            torch.device(args.device).type)[:args.tp])
+
     if args.model == "sd3":
-        generate_fn = _build_sd3(args)
+        generate_fn = _build_sd3(args, mesh)
     else:
-        generate_fn = _build_sd1(args)
+        generate_fn = _build_sd1(args, mesh)
 
     buckets = sorted({int(b) for b in args.buckets.split(",")})
     batcher = DynamicBatcher(generate_fn, buckets=buckets,

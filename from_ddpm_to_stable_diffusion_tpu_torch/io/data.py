@@ -163,12 +163,21 @@ def _on_card(batch, device):
     return tuple(put(a) for a in batch)
 
 
-def prefetch_to_device(iterator, device=None, size: int = 2):
+def prefetch_to_device(iterator, device=None, size: int = 2, *, mesh=None):
     """Yields the batches of ``iterator`` staged ``size`` ahead on
     ``device``: on the card each batch goes to pinned memory and is copied
     on a side stream, the consuming stream waits on the copy's event, and
     each tensor is recorded on that stream so its memory outlives the copy's
-    stream. On the CPU (or with no device) the batches pass through."""
+    stream. On the CPU (or with no device) the batches pass through.
+    ``mesh`` (the JAX ``prefetch_to_device(iterator, mesh)``): each batch
+    placed by ``parallel.shard_batch``, batch dim over the mesh's ``data``
+    axis (a process-group rank keeps its slice), on the mesh's device."""
+    if mesh is not None:
+        from ..parallel.mesh import mesh_device, shard_batch
+
+        device = mesh_device(mesh)
+        iterator = (tuple(shard_batch(mesh, tuple(batch)))
+                    for batch in iterator)
     if device is None or torch.device(device).type != "cuda":
         yield from iterator
         return

@@ -17,6 +17,11 @@ used: it would also recast the fp32 logits of the plain attention.
 ``int8_mm=True`` builds the attention and GEGLU projections as
 :class:`..ops.quantize.QuantLinear` (W8A8 serving), as the JAX modules'
 ``int8_mm`` does.
+
+Tensor parallelism (:func:`..parallel.sharding.apply_tp`): a module with a
+``TP_LAYERS`` table (layer name -> (kind, groups)) computes Megatron's block
+over the shards of its ``tp`` axis once that is set: the attentions on each
+shard's heads, the GEGLU on each shard's halves of z and gate.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from ..ops.embeddings import timestep_embedding
 from ..ops.groupnorm import group_norm, layer_norm
 from ..ops.image import upsample_nearest_2x
 from ..ops.quantize import dense_cls
+from ..parallel.sharding import column, row
 
 
 def _cast(dtype, *xs):
@@ -112,7 +118,11 @@ class LayerNorm(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Fused-QKV multi-head self attention over (B, L, C); q|k|v columns."""
+    """Fused-QKV multi-head self attention over (B, L, C); q|k|v columns.
+    Under TP each shard takes its heads of q, of k and of v."""
+
+    TP_LAYERS = {"qkv": ("column", 3), "out": ("row", 1)}
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
                  out_bias: bool = True, causal: bool = False,
@@ -126,6 +136,11 @@ class SelfAttention(nn.Module):
         self.out = dense(dim, dim, bias=out_bias, compute_dtype=compute_dtype)
 
     def forward(self, x):
+        if self.tp is not None:
+            heads = self.num_heads // self.tp.n
+            return row(self.out, [
+                multi_head_attention(q, k, v, heads, causal=self.causal)
+                for q, k, v in column(self.qkv, x, self.tp, 3)], self.tp)
         q, k, v = self.qkv(x).chunk(3, dim=-1)
         return self.out(multi_head_attention(q, k, v, self.num_heads,
                                              causal=self.causal))
@@ -134,6 +149,10 @@ class SelfAttention(nn.Module):
 class CrossAttention(nn.Module):
     """Query from x (B, Lq, C); key and value from context (B, Lk, d_ctx),
     or from a 2-D (B, d_ctx) context as one token (tiny-SD's label)."""
+
+    TP_LAYERS = {"q": ("column", 1), "k": ("column", 1), "v": ("column", 1),
+                 "out": ("row", 1)}
+    tp = None
 
     def __init__(self, dim: int, context_dim: int, num_heads: int,
                  qkv_bias: bool = False,
@@ -152,6 +171,12 @@ class CrossAttention(nn.Module):
     def forward(self, x, context):
         if context.dim() == 2:
             context = context[:, None, :]
+        if self.tp is not None:
+            tp, heads = self.tp, self.num_heads // self.tp.n
+            return row(self.out, [
+                multi_head_attention(q, k, v, heads) for q, k, v in zip(
+                    column(self.q, x, tp), column(self.k, context, tp),
+                    column(self.v, context, tp))], tp)
         return self.out(multi_head_attention(
             self.q(x), self.k(context), self.v(context), self.num_heads))
 
@@ -167,6 +192,9 @@ class TransformerBlock(nn.Module):
     ``num_heads=None`` derives the heads from a head dim of 128, as the JAX
     block does: ``max(1, channels // 128)``.
     """
+
+    TP_LAYERS = {"geglu_in": ("column", 2), "geglu_out": ("row", 1)}
+    tp = None
 
     def __init__(self, channels: int, context_dim: int,
                  num_heads: Optional[int] = None,
@@ -194,8 +222,13 @@ class TransformerBlock(nn.Module):
         y = self.proj_in(self.norm_in(x)).reshape(b, h * w, c)
         y = self.attn1(self.norm1(y)) + y
         y = self.attn2(self.norm2(y), context) + y
-        z, gate = self.geglu_in(self.norm3(y)).chunk(2, dim=-1)
-        y = y + self.geglu_out(z * F.gelu(gate, approximate="tanh"))
+        if self.tp is not None:
+            y = y + row(self.geglu_out, [
+                z * F.gelu(gate, approximate="tanh") for z, gate in
+                column(self.geglu_in, self.norm3(y), self.tp, 2)], self.tp)
+        else:
+            z, gate = self.geglu_in(self.norm3(y)).chunk(2, dim=-1)
+            y = y + self.geglu_out(z * F.gelu(gate, approximate="tanh"))
         return self.proj_out(y.reshape(b, h, w, c)) + x
 
 

@@ -32,7 +32,11 @@ replaces every x-stream MLP by a :class:`..parallel.expert.SwitchFFN`
 whose experts shard over the mesh's ``expert`` axis, and
 :func:`collect_losses` gathers its balance losses; the four pipeline
 functions at the end run the block stack over a ``stage`` axis
-(:mod:`..parallel.pipeline`).
+(:mod:`..parallel.pipeline`). Tensor parallelism over a ``model`` axis
+(:func:`..parallel.sharding.apply_tp`): each shard runs the joint attention
+on its heads of both streams (so every flash call has H/n heads), ``proj``
+and the MLPs are Megatron pairs, and the ``adaLN`` / ``final_adaLN``
+modulations are gathered whole.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ..ops.quantize import dense_cls
 from ..parallel.expert import SwitchFFN
 from ..parallel.pipeline import pipeline_apply
 from ..parallel.ring_attention import ring_attention, ulysses_attention
+from ..parallel.sharding import column, gathered, row
 from .layers import Conv2d, Linear
 
 
@@ -64,6 +69,9 @@ def modulate(x, shift, scale):
 class MLPEmbedder(nn.Module):
     """Linear → SiLU → Linear (the timestep and pooled-vector embedders)."""
 
+    TP_LAYERS = {"fc1": ("column", 1), "fc2": ("row", 1)}
+    tp = None
+
     def __init__(self, in_features: int, hidden_size: int,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -73,6 +81,9 @@ class MLPEmbedder(nn.Module):
                           compute_dtype=compute_dtype)
 
     def forward(self, x):
+        if self.tp is not None:
+            return row(self.fc2, [F.silu(h) for h in column(
+                self.fc1, x, self.tp)], self.tp)
         return self.fc2(F.silu(self.fc1(x)))
 
 
@@ -103,7 +114,15 @@ class DismantledBlock(nn.Module):
     ``moe_experts``: a Switch-MoE MLP (experts sharded over the ``expert``
     axis of ``moe_mesh`` when given) in place of the dense one; its balance
     loss goes into the dict :func:`collect_losses` opens, and nowhere
-    without one (Flax's ``sow`` into an immutable collection)."""
+    without one (Flax's ``sow`` into an immutable collection). Under TP
+    (``tp`` set) :meth:`pre_attention` gives one (q, k, v) per held shard
+    and :meth:`post_attention` takes one output per held shard; a Switch-MoE
+    MLP runs whole."""
+
+    TP_LAYERS = {"qkv": ("column", 3), "adaLN": ("gathered", 1),
+                 "proj": ("row", 1), "mlp_fc1": ("column", 1),
+                 "mlp_fc2": ("row", 1)}
+    tp = None
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
@@ -134,7 +153,8 @@ class DismantledBlock(nn.Module):
                                      compute_dtype=dt)
 
     def _mods(self, c):
-        m = self.adaLN(F.silu(c))
+        m = (self.adaLN(F.silu(c)) if self.tp is None else
+             gathered(self.adaLN, F.silu(c), self.tp))
         if self.pre_only:
             shift, scale = m.chunk(2, dim=-1)
             return (shift, scale), None
@@ -148,6 +168,12 @@ class DismantledBlock(nn.Module):
         (shift, scale), post_mods = self._mods(c)
         h = modulate(layer_norm(x, None, None, eps=1e-6), shift, scale)
         b, l, _ = h.shape
+        if self.tp is not None:
+            heads = (b, l, self.num_heads // self.tp.n, self.head_dim)
+            return [(self.ln_q(q.reshape(heads)), self.ln_k(k.reshape(heads)),
+                     v.reshape(heads))
+                    for q, k, v in column(self.qkv, h, self.tp, 3)], \
+                (x, post_mods)
         qkv = self.qkv(h).reshape(b, l, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         return (self.ln_q(q), self.ln_k(k), v), (x, post_mods)
@@ -155,12 +181,17 @@ class DismantledBlock(nn.Module):
     def post_attention(self, attn_out, residual_state):
         """attn_out (B, L, hidden): gated residual, then the adaLN MLP."""
         x, (g_msa, sh_mlp, s_mlp, g_mlp) = residual_state
-        x = x + g_msa[:, None, :] * self.proj(attn_out)
+        tp = self.tp
+        x = x + g_msa[:, None, :] * (self.proj(attn_out) if tp is None
+                                     else row(self.proj, attn_out, tp))
         h = modulate(layer_norm(x, None, None, eps=1e-6), sh_mlp, s_mlp)
         if self.moe_experts:
             h, aux = self.moe(h, mesh=self.moe_mesh)
             if self.sown is not None:
                 self.sown[self.sow_name] = aux
+        elif tp is not None:
+            h = row(self.mlp_fc2, [F.gelu(a, approximate="tanh")
+                                   for a in column(self.mlp_fc1, h, tp)], tp)
         else:
             h = self.mlp_fc2(F.gelu(self.mlp_fc1(h), approximate="tanh"))
         return x + g_mlp[:, None, :] * h
@@ -231,12 +262,22 @@ class JointBlock(nn.Module):
     def forward(self, context, x, c):
         ctx_qkv, ctx_state = self.context_block.pre_attention(context, c)
         x_qkv, x_state = self.x_block.pre_attention(x, c)
+        b, lc = context.shape[:2]
+        if self.x_block.tp is not None:
+            # tensor parallel: one joint attention per held head shard
+            outs = [joint_attention_blhd(cq, xq, stability=self.stability)
+                    for cq, xq in zip(ctx_qkv, x_qkv)]
+            new_context = (None if self.context_pre_only else
+                           self.context_block.post_attention(
+                               [o[0].reshape(b, lc, -1) for o in outs],
+                               ctx_state))
+            return new_context, self.x_block.post_attention(
+                [o[1].reshape(b, x.shape[1], -1) for o in outs], x_state)
         if self.mesh is None:
             ctx_attn, x_attn = joint_attention_blhd(ctx_qkv, x_qkv,
                                                     stability=self.stability)
         else:
             ctx_attn, x_attn = self._sequence_parallel(ctx_qkv, x_qkv)
-        b, lc = context.shape[:2]
         new_context = (None if self.context_pre_only else
                        self.context_block.post_attention(
                            ctx_attn.reshape(b, lc, -1), ctx_state))
@@ -305,7 +346,11 @@ class MMDiT(nn.Module):
     ``compute_dtype``: see the module docstring. ``mesh`` (:mod:`..parallel`)
     carries the ``seq`` axis (``seq_axis``) of a ring / Ulysses config and
     the ``expert`` axis of an MoE one; the flash config ignores its ``seq``
-    axis, as the JAX model does."""
+    axis, as the JAX model does. Under TP (:func:`..parallel.sharding.
+    apply_tp`) ``final_adaLN`` is gathered whole."""
+
+    TP_LAYERS = {"final_adaLN": ("gathered", 1)}
+    tp = None
 
     def __init__(self, config: MMDiTConfig = MMDiTConfig(),
                  compute_dtype: Optional[torch.dtype] = None, mesh=None,
@@ -381,7 +426,9 @@ class MMDiT(nn.Module):
         for i in range(cfg.depth):
             context, xe = getattr(self, f"joint_block{i}")(context, xe, c)
 
-        shift, scale = self.final_adaLN(F.silu(c)).chunk(2, dim=-1)
+        mods = (self.final_adaLN(F.silu(c)) if self.tp is None else
+                gathered(self.final_adaLN, F.silu(c), self.tp))
+        shift, scale = mods.chunk(2, dim=-1)
         xe = modulate(layer_norm(xe, None, None, eps=1e-6), shift, scale)
         xe = self.final_linear(xe)
 

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.image import upsample_nearest_2x
+from ..parallel.sharding import column, row, row_replicated
 from .layers import (Conv2d, GroupNorm, LayerNorm, SelfAttention,
                      TransformerBlock, Upsample)
 
@@ -27,6 +28,9 @@ def _dtype(module: nn.Module) -> torch.dtype:
 # CLIP text encoder
 # --------------------------------------------------------------------------
 class CLIPTextLayer(nn.Module):
+    TP_LAYERS = {"fc1": ("column", 1), "fc2": ("row", 1)}
+    tp = None
+
     def __init__(self, dim: int = 768, num_heads: int = 12):
         super().__init__()
         self.ln1 = LayerNorm(dim)
@@ -37,9 +41,11 @@ class CLIPTextLayer(nn.Module):
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
-        h = self.fc1(self.ln2(x))
-        h = h * torch.sigmoid(1.702 * h)  # QuickGELU
-        return x + self.fc2(h)
+        quick_gelu = lambda h: h * torch.sigmoid(1.702 * h)
+        if self.tp is not None:
+            return x + row(self.fc2, [quick_gelu(h) for h in column(
+                self.fc1, self.ln2(x), self.tp)], self.tp)
+        return x + self.fc2(quick_gelu(self.fc1(self.ln2(x))))
 
 
 class CLIPText(nn.Module):
@@ -69,7 +75,11 @@ class CLIPText(nn.Module):
 # Diffusion UNet
 # --------------------------------------------------------------------------
 class SD1ResBlock(nn.Module):
-    """GN+SiLU+conv, additive time, GN+SiLU+conv, 1×1 skip."""
+    """GN+SiLU+conv, additive time, GN+SiLU+conv, 1×1 skip. Under TP the
+    time projection is row-parallel on the replicated embedding."""
+
+    TP_LAYERS = {"time_proj": ("row", 1)}
+    tp = None
 
     def __init__(self, in_channels: int, out_channels: int, time_dim: int):
         super().__init__()
@@ -83,7 +93,9 @@ class SD1ResBlock(nn.Module):
 
     def forward(self, x, time_emb):
         h = self.conv1(self.norm1(x))
-        h = h + self.time_proj(F.silu(time_emb))[:, None, None, :]
+        t = (self.time_proj(F.silu(time_emb)) if self.tp is None else
+             row_replicated(self.time_proj, F.silu(time_emb), self.tp))
+        h = h + t[:, None, None, :]
         h = self.conv2(self.norm2(h))
         return h + (x if self.skip is None else self.skip(x))
 
@@ -91,7 +103,12 @@ class SD1ResBlock(nn.Module):
 class SD1UNet(nn.Module):
     """ε-prediction UNet. x: (B, H/8, W/8, 4) NHWC; context: (B, 77, d_ctx);
     time_feat: (B, 320) :func:`sd1_time_embedding` features. ``int8_mm``:
-    the TransformerBlocks' attention and GEGLU projections in W8A8 int8."""
+    the TransformerBlocks' attention and GEGLU projections in W8A8 int8.
+    Under TP the time MLP is Megatron's pair (time_fc1 column, time_fc2
+    row)."""
+
+    TP_LAYERS = {"time_fc1": ("column", 1), "time_fc2": ("row", 1)}
+    tp = None
 
     def __init__(self, model_channels: int = 320, context_dim: int = 768,
                  num_heads: int = 8, int8_mm: bool = False):
@@ -150,7 +167,11 @@ class SD1UNet(nn.Module):
 
     def forward(self, x, context, time_feat):
         dt = _dtype(self)
-        t = self.time_fc2(F.silu(self.time_fc1(time_feat.to(dt))))
+        if self.tp is not None:
+            t = row(self.time_fc2, [F.silu(h) for h in column(
+                self.time_fc1, time_feat.to(dt), self.tp)], self.tp)
+        else:
+            t = self.time_fc2(F.silu(self.time_fc1(time_feat.to(dt))))
         h = self.enc0_conv(x.to(dt))
         skips = [h]
         for i in range(1, 12):

@@ -9,6 +9,11 @@ logits (``scale=1.0``) and a relative-position bucket bias that block 0
 computes and all blocks share. ``T5Config(int8_mm=True)`` builds T5's
 q / k / v / o and wi_0 / wi_1 / wo as :class:`..ops.quantize.QuantLinear`
 (W8A8 serving); the CLIP towers are not quantized.
+
+Tensor parallelism (:func:`..parallel.sharding.apply_tp`): the CLIP
+attentions and T5's q / k / v on each shard's heads (T5's relative-position
+bias sliced to them), the MLPs as Megatron pairs (``fc1`` / ``wi_0`` /
+``wi_1`` column, ``fc2`` / ``wo`` row), ``o`` and ``out`` row.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from torch import nn
 from ..ops.attention import multi_head_attention
 from ..ops.groupnorm import rms_norm
 from ..ops.quantize import dense_cls
+from ..parallel.sharding import column, head_slices, row
 from .layers import LayerNorm, Linear, SelfAttention
 
 
@@ -46,6 +52,9 @@ CLIP_G_CONFIG = CLIPTextConfig(hidden_size=1280, num_layers=32, num_heads=20,
 
 
 class CLIPTextLayer(nn.Module):
+    TP_LAYERS = {"fc1": ("column", 1), "fc2": ("row", 1)}
+    tp = None
+
     def __init__(self, config: CLIPTextConfig):
         super().__init__()
         if config.hidden_act not in ("quick_gelu", "gelu"):
@@ -61,12 +70,15 @@ class CLIPTextLayer(nn.Module):
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
-        h = self.fc1(self.ln2(x))
+        if self.tp is not None:
+            return x + row(self.fc2, [self._act(h) for h in column(
+                self.fc1, self.ln2(x), self.tp)], self.tp)
+        return x + self.fc2(self._act(self.fc1(self.ln2(x))))
+
+    def _act(self, h):
         if self.hidden_act == "quick_gelu":
-            h = h * torch.sigmoid(1.702 * h)
-        else:
-            h = F.gelu(h)
-        return x + self.fc2(h)
+            return h * torch.sigmoid(1.702 * h)
+        return F.gelu(h)
 
 
 class CLIPTextModel(nn.Module):
@@ -140,9 +152,14 @@ def t5_relative_position_bucket(relative_position, num_buckets: int = 32,
 
 
 class T5Attention(nn.Module):
+    TP_LAYERS = {"q": ("column", 1), "k": ("column", 1), "v": ("column", 1),
+                 "o": ("row", 1)}
+    tp = None
+
     def __init__(self, config: T5Config, has_relative_bias: bool = False):
         super().__init__()
         self.config = config
+        self.num_heads = config.num_heads
         d = config.d_model
         dense = dense_cls(config.int8_mm)
         self.q = dense(d, d, bias=False)
@@ -163,12 +180,24 @@ class T5Attention(nn.Module):
             # (1, H, L, L), contiguous: every block's attention reads it
             past_bias = self.relative_attention_bias[bucket.long()].permute(
                 2, 0, 1)[None].contiguous()
+        if self.tp is not None:
+            tp = self.tp
+            outs = [multi_head_attention(q, k, v, cfg.num_heads // tp.n,
+                                         bias=bias, scale=1.0)
+                    for q, k, v, bias in zip(
+                        column(self.q, x, tp), column(self.k, x, tp),
+                        column(self.v, x, tp), head_slices(past_bias, 1, tp))]
+            return row(self.o, outs, tp), past_bias
         out = multi_head_attention(self.q(x), self.k(x), self.v(x),
                                    cfg.num_heads, bias=past_bias, scale=1.0)
         return self.o(out), past_bias
 
 
 class T5Block(nn.Module):
+    TP_LAYERS = {"wi_0": ("column", 1), "wi_1": ("column", 1),
+                 "wo": ("row", 1)}
+    tp = None
+
     def __init__(self, config: T5Config, has_relative_bias: bool = False):
         super().__init__()
         d, ff = config.d_model, config.d_ff
@@ -185,7 +214,14 @@ class T5Block(nn.Module):
                                  past_bias)
         x = x + h
         h = rms_norm(x, self.ln2_scale, eps=1e-6)
-        h = self.wo(F.gelu(self.wi_0(h), approximate="tanh") * self.wi_1(h))
+        if self.tp is not None:
+            h = row(self.wo, [
+                F.gelu(a, approximate="tanh") * b for a, b in zip(
+                    column(self.wi_0, h, self.tp),
+                    column(self.wi_1, h, self.tp))], self.tp)
+        else:
+            h = self.wo(F.gelu(self.wi_0(h), approximate="tanh")
+                        * self.wi_1(h))
         return x + h, past_bias
 
 

@@ -164,6 +164,21 @@ class _AllReduce(torch.autograd.Function):
         return g, None
 
 
+class _CopyTo(torch.autograd.Function):
+    """A replicated tensor entering a column-parallel layer (Megatron's
+    ``f``): identity forward; the backward sums the shards' gradients, each
+    of which saw only its own columns."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.comm), None
+
+
 class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, comm):
@@ -309,7 +324,25 @@ class AxisComm:
             return _Relayout.apply(x, dim, perm, inv, self)
         return x.index_select(dim, perm.to(x.device))
 
+    def copy_to(self, x):
+        """A replicated tensor as the input of this axis's shards
+        (column-parallel layers): form (b) all-reduces its gradient, form
+        (a) leaves it as it is."""
+        return _CopyTo.apply(x, self) if self.distributed else x
+
     # collectives
+    def pmax(self, xs: list) -> list:
+        """The elementwise maximum over the axis, on every shard (no
+        gradient: W8A8's per-token abs-max)."""
+        if self.distributed:
+            x = xs[0].clone()
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
+            return [x]
+        top = xs[0]
+        for x in xs[1:]:
+            top = torch.maximum(top, x.to(top.device))
+        return [top.to(d) for d in self.devices]
+
     def ppermute(self, xs: list, perm) -> list:
         """``jax.lax.ppermute``: ``perm`` holds (source, destination) pairs
         of axis positions; a shard that no pair sends to gets zeros."""
@@ -408,8 +441,9 @@ class Mesh:
                 raise NotImplementedError(
                     f"axis {axis!r} of {self.shape} lies on different devices "
                     "at different positions of the other axes: one process "
-                    "drives such a mesh only with one device repeated "
-                    "(ROADMAP.md queue A8)")
+                    "drives such a mesh only with one device repeated; on "
+                    "several cards run a process group, one rank per card "
+                    "(build_mesh(shape, group=...))")
             self._comms[axis] = AxisComm(axis, self.shape[axis],
                                          range(self.shape[axis]),
                                          list(lines[0]))
@@ -499,8 +533,10 @@ def shard_batch(mesh: Mesh, tree, axis: str = DATA_AXIS):
     if comm is not None and not comm.distributed \
             and len(set(comm.devices)) > 1:
         raise NotImplementedError(
-            f"a {axis!r} axis over distinct devices in one process "
-            "(ROADMAP.md queue A8)")
+            f"a {axis!r} axis over distinct devices in one process: one "
+            "process holds a batch shard per device only with one device "
+            "repeated; on several cards run a process group, one rank per "
+            "card (init_multihost, then build_mesh(shape, group=...))")
     dev = mesh_device(mesh)
 
     def put(x):

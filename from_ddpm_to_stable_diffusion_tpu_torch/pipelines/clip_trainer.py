@@ -18,8 +18,8 @@ module): :meth:`CLIPTrainer.create_state` builds it on the device from
 JAX loop: the epoch with the lowest mean loss saved, and under SIGTERM the
 epoch it stopped in, then a return; it restores nothing.
 
-Not ported (ROADMAP.md, queue item A8, the parallel package): the device
-mesh with data-parallel batch sharding.
+Not ported (ROADMAP.md, queue item A8, second half, part 2: the other
+trainers' data meshes): the device mesh with data-parallel batch sharding.
 """
 
 from __future__ import annotations
@@ -44,8 +44,9 @@ class CLIPTrainer:
                  device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: not ported yet (ROADMAP.md, queue item A8: the "
-                "parallel package); one device")
+                "mesh: not ported yet (ROADMAP.md, queue item A8, second "
+                "half, part 2: the other trainers' data meshes); one "
+                "device")
         self.model = model
         self.lr = lr
         self.weight_decay = weight_decay

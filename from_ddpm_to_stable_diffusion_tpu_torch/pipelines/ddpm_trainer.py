@@ -25,7 +25,18 @@ The trainer features of the JAX package, on one device:
 - batches staged on the card by ``io/data.py::prefetch_to_device``; the
   ``utils/logging.py::MetricsLogger`` events.
 
-Not ported (ROADMAP.md, queue item A8): the device mesh and FSDP.
+The mesh (:mod:`..parallel`; ``mesh=`` or ``config.mesh_shape`` over the
+visible devices of the trainer's kind) takes a ``data`` axis: the batch is
+placed by ``shard_batch``, one tensor on a one-process mesh (form (a)), each
+rank's slice on a process-group mesh (form (b)), whose gradients are then
+averaged over the ranks; the draws are made for the whole batch and sliced,
+so both forms draw what one device would. ``fsdp=True`` stores every
+parameter of at least ``MIN_SHARD_SIZE`` elements, and with it its AdamW
+moments, EMA and accumulator, sharded over ``data`` (:class:`StateLayout`,
+``parallel/fsdp.py``): views of the whole tensors in form (a), the rank's
+slices in form (b), gathered at the top of the loss. Checkpoints hold the
+whole state, so one written under FSDP restores without a mesh and the
+other way round.
 """
 
 from __future__ import annotations
@@ -44,6 +55,11 @@ from ..io.data import prefetch_to_device
 from ..io.from_jax import load_jax_params
 from ..models.tiny_unet import TinyUNet
 from ..ops.schedules import cosine_warmup_lr, ddpm_tables
+from ..parallel.fsdp import (fsdp_dims, gather, global_grad_norm, mean_grads,
+                             shard_params)
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, build_mesh, mesh_device,
+                             shard_batch, visible_devices)
+from ..parallel.sharding import apply_tp, tp_layout
 from ..samplers.ddpm import ddpm_loss, ddpm_sample
 from ..utils.checkpoint import CheckpointManager, PreemptionGuard
 from ..utils.config import TinySDConfig
@@ -63,6 +79,79 @@ def _flat(tree: Mapping) -> Dict[str, torch.Tensor]:
         else:
             out[name] = v
     return out
+
+
+@dataclasses.dataclass
+class StateLayout:
+    """How a trainer's model lies on its mesh: ``data`` and ``model`` the
+    axes' collectives (None where the mesh has no such axis),
+    ``fsdp_dims`` the torch dim of each parameter stored sharded over
+    ``data`` (None: replicated), ``tp_sharded`` the parameters sharded over
+    ``model``. Only a process-group mesh (form (b)) changes what a step
+    does: its ranks hold slices and their gradients are combined here."""
+
+    data: Optional[object] = None
+    model: Optional[object] = None
+    fsdp_dims: Dict[str, Optional[int]] = dataclasses.field(
+        default_factory=dict)
+    tp_sharded: frozenset = frozenset()
+
+    @classmethod
+    def for_model(cls, model: nn.Module, mesh, fsdp: bool,
+                  tp: bool = True) -> "StateLayout":
+        """The layout of ``model`` (whole, not yet laid out) on ``mesh``;
+        :meth:`lay_out` then switches it. ``tp``: whether a ``model`` axis
+        shards the model (the JAX DDPM trainer replicates over it)."""
+        if mesh is None:
+            return cls()
+        data = mesh.comm(DATA_AXIS) if DATA_AXIS in mesh.shape else None
+        tp = (mesh.comm(MODEL_AXIS) if tp and mesh.shape.get(MODEL_AXIS, 1)
+              > 1 else None)
+        dims = {}
+        if fsdp and data is not None and data.n > 1:
+            dims = fsdp_dims(model, data.n, tp.n if tp else 1)
+        sharded = frozenset(name for name, spec in tp_layout(
+            model, tp.n).items() if spec) if tp else frozenset()
+        return cls(data, tp, dims, sharded)
+
+    @property
+    def distributed(self) -> bool:
+        return any(c is not None and c.distributed and c.n > 1
+                   for c in (self.data, self.model))
+
+    def lay_out(self, model: nn.Module, mesh) -> None:
+        """TP (``apply_tp``), then the FSDP slices, in place."""
+        if self.model is not None:
+            apply_tp(model, mesh)
+        if self.data is not None:
+            shard_params(model, self.fsdp_dims, self.data)
+
+    def gather(self, params: Mapping[str, torch.Tensor]) -> dict:
+        """The parameters the forward runs on: FSDP's slices gathered over
+        ``data`` (form (b); form (a) stores them whole)."""
+        if self.data is None:
+            return dict(params)
+        return gather(params, self.fsdp_dims, self.data)
+
+    def reduce_grads(self, named: Mapping[str, torch.Tensor]) -> None:
+        """Form (b), after the backward: the gradient of the mean of the
+        data ranks' losses."""
+        if self.data is not None and self.data.distributed \
+                and self.data.n > 1:
+            mean_grads(named, self.fsdp_dims, self.data)
+
+    def grad_norm(self, named_grads: Mapping[str, torch.Tensor]):
+        """The norm of the whole gradient from this rank's leaves."""
+        over = {}
+        for name in named_grads:
+            axes = ()
+            if self.data is not None and self.fsdp_dims.get(name) is not None:
+                axes += (DATA_AXIS,)
+            if name in self.tp_sharded:
+                axes += (MODEL_AXIS,)
+            over[name] = axes
+        comms = {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+        return global_grad_norm(named_grads, over, comms)
 
 
 @dataclasses.dataclass
@@ -87,6 +176,7 @@ class TrainState:
     updates: int = 0
     mini_step: int = 0
     acc_grads: Optional[List[torch.Tensor]] = None
+    layout: StateLayout = dataclasses.field(default_factory=StateLayout)
 
     @property
     def params(self) -> dict:
@@ -103,12 +193,18 @@ class TrainState:
         """The model as a callable under ``params`` (default the state's
         own; e.g. ``ema_params``). Under LoRA the adapters are merged into
         the frozen base here, inside autograd when gradients are on."""
+        gather = self.layout.gather if self.layout.distributed else None
         if self.lora is not None:
-            merged = merge_lora(dict(self.model.named_parameters()),
+            base = dict(self.model.named_parameters())
+            merged = merge_lora(gather(base) if gather else base,
                                 params or self.lora, self.lora_scale)
             return lambda *a: functional_call(self.model, merged, a)
-        if params is None:
+        if params is None and gather is None:
             return self.model
+        params = dict(self.model.named_parameters()) if params is None \
+            else params
+        if gather is not None:
+            params = gather(params)
         return lambda *a: functional_call(self.model, params, a)
 
     def state_dict(self) -> dict:
@@ -149,12 +245,15 @@ class TrainState:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float):
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None):
     """Scales ``grads`` in place by max_norm / ‖grads‖ when the global norm
     is at least ``max_norm`` (``optax.clip_by_global_norm``: no epsilon,
     unlike ``clip_grad_norm_``); returns the norm. Foreach ops, so a few
-    launches instead of two per parameter."""
-    norm = torch.nn.utils.get_total_norm(grads, 2.0)
+    launches instead of two per parameter. ``norm``: the global norm when
+    ``grads`` are a rank's slices of it (``StateLayout.grad_norm``)."""
+    if norm is None:
+        norm = torch.nn.utils.get_total_norm(grads, 2.0)
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     torch._foreach_mul_(grads, factor)
@@ -188,14 +287,17 @@ def new_train_state(model: nn.Module, cfg, steps_per_epoch: int = 1, *,
                     schedule: Optional[Callable[[int], float]] = None,
                     weight_decay: float = 1e-4,
                     lora: Optional[dict] = None,
-                    lora_scale: float = 1.0) -> TrainState:
+                    lora_scale: float = 1.0,
+                    layout: Optional[StateLayout] = None) -> TrainState:
     """The state the trainers start from: AdamW with optax's defaults and
     ``weight_decay`` at ``schedule``, by default the warmup-cosine rate of
     ``cfg`` (lr, max_lr, warmup_epochs, epoch) over ``steps_per_epoch //
     cfg.grad_accum`` updates an epoch; no update made; a copy of what
     trains as the EMA when ``cfg`` has an ``ema_decay``; a zero fp32
     accumulator per trained tensor when ``cfg.grad_accum`` > 1. With
-    ``lora`` only the adapters train and the model's parameters freeze."""
+    ``lora`` only the adapters train and the model's parameters freeze.
+    ``layout``: how the model (already laid out) lies on the trainer's
+    mesh; the moments, EMA and accumulators take its parameters' shapes."""
     accum = max(1, getattr(cfg, "grad_accum", 1))
     if schedule is None:
         schedule = cosine_warmup_lr(cfg.lr, cfg.max_lr, cfg.warmup_epochs,
@@ -218,13 +320,28 @@ def new_train_state(model: nn.Module, cfg, steps_per_epoch: int = 1, *,
     acc = ([torch.zeros_like(p, dtype=torch.float32) for p in params]
            if accum > 1 else None)
     return TrainState(model, optimizer, schedule, 0, ema, lora, lora_scale,
-                      accum, acc_grads=acc)
+                      accum, acc_grads=acc, layout=layout or StateLayout())
+
+
+def lay_out(model: nn.Module, mesh, fsdp: bool,
+            lora: Optional[dict] = None, tp: bool = True) -> StateLayout:
+    """Lay ``model`` (filled, whole) out on ``mesh`` in place (TP over its
+    ``model`` axis when ``tp``, FSDP over ``data`` when ``fsdp``) and return
+    its :class:`StateLayout`."""
+    layout = StateLayout.for_model(model, mesh, fsdp, tp)
+    if lora is not None and layout.distributed and (
+            layout.model is not None or any(layout.fsdp_dims.values())):
+        raise NotImplementedError(
+            "LoRA on a process-group mesh with a model axis or FSDP: the "
+            "adapters would need the base's slices (ROADMAP.md, queue item "
+            "A8, second half, part 2)")
+    layout.lay_out(model, mesh)
+    return layout
 
 
 def apply_update(state: TrainState, loss: torch.Tensor,
                  grad_clip: Optional[float],
-                 ema_decay: Optional[float],
-                 reduce_grads: Optional[Callable] = None) -> bool:
+                 ema_decay: Optional[float]) -> bool:
     """One micro-step of ``state`` in place from a scalar ``loss``:
     backward, then, with ``state.accum`` > 1, the gradient folded into the
     window's running mean (optax's Welford form acc + (g − acc)/(n + 1), in
@@ -233,14 +350,16 @@ def apply_update(state: TrainState, loss: torch.Tensor,
     (not clipped when ``grad_clip`` is None), AdamW at the rate of the
     update count before this one, the EMA. The
     other micro-steps leave parameters, moments and EMA untouched.
-    ``reduce_grads(params)`` runs right after the backward (a data-parallel
-    average over a process group). Returns whether the parameters were
-    updated."""
-    params = list(state.trainable().values())
+    On a process-group mesh ``state.layout`` combines the ranks' gradients
+    right after the backward and gives the clip the whole gradient's norm.
+    Returns whether the parameters were updated."""
+    named = state.trainable()
+    params = list(named.values())
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    if reduce_grads is not None:
-        reduce_grads(params)
+    split = state.layout.distributed
+    if split:
+        state.layout.reduce_grads(named)
     state.step += 1
     grads = [p.grad for p in params]
     if state.accum > 1:
@@ -256,7 +375,8 @@ def apply_update(state: TrainState, loss: torch.Tensor,
             torch._foreach_zero_(state.acc_grads)
         state.mini_step = 0
     if grad_clip is not None:
-        clip_by_global_norm_(grads, grad_clip)
+        clip_by_global_norm_(grads, grad_clip, state.layout.grad_norm(
+            dict(zip(named, grads))) if split else None)
     for group in state.optimizer.param_groups:
         group["lr"] = state.schedule(state.updates)
     state.optimizer.step()
@@ -356,7 +476,11 @@ class DDPMTrainer:
     ``model(x, t, labels)``, holding storage (``create_state`` redraws or
     loads its values), with ``sample_shape`` the shape of one sample.
     ``lora_rank``: train rank-r adapters only, over ``base_params`` (a JAX
-    parameter tree) or a fresh init."""
+    parameter tree) or a fresh init. ``mesh``: a :class:`..parallel.Mesh`
+    with a ``data`` axis (form (a) over devices of ``device``'s kind, or
+    form (b), whose rank's device the trainer takes); without one
+    ``config.mesh_shape`` builds one over the visible devices of that kind.
+    ``fsdp``: the state stored sharded over ``data`` (module docstring)."""
 
     def __init__(self, config: TinySDConfig, device="cuda", mesh=None,
                  logger: Optional[MetricsLogger] = None,
@@ -364,15 +488,16 @@ class DDPMTrainer:
                  model: Optional[nn.Module] = None, sample_shape=None,
                  fsdp: bool = False, lora_rank: Optional[int] = None,
                  base_params=None, lora_scale: float = 1.0):
-        unported = {"mesh": mesh is not None, "fsdp": fsdp,
-                    "mesh_shape": bool(config.mesh_shape)}
-        asked = [name for name, on in unported.items() if on]
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)}: not ported yet (ROADMAP.md, queue item "
-                "A8, the parallel package); one device")
         self.cfg = config
         self.device = torch.device(device)
+        if mesh is None and config.mesh_shape:
+            mesh = build_mesh(config.mesh_shape,
+                              visible_devices(self.device.type))
+        if mesh is not None:
+            self.device = torch.device(mesh_device(mesh))
+        self.mesh, self.fsdp = mesh, fsdp
+        self.data = (mesh.comm(DATA_AXIS) if mesh is not None
+                     and DATA_AXIS in mesh.shape else None)
         self.dtype = POLICIES[config.dtype].compute_dtype
         self.logger = logger or MetricsLogger()
         self.latent_encode_fn = latent_encode_fn
@@ -412,8 +537,10 @@ class DDPMTrainer:
                            lora_rank=self.lora_rank,
                            base_params=self.base_params)
         model = model.to(memory_format=torch.channels_last).train()
+        # a model axis replicates the model, as in the JAX trainer
+        layout = lay_out(model, self.mesh, self.fsdp, lora, tp=False)
         return new_train_state(model, self.cfg, steps_per_epoch, lora=lora,
-                               lora_scale=self.lora_scale)
+                               lora_scale=self.lora_scale, layout=layout)
 
     def num_params(self, state: TrainState) -> int:
         """The parameters that train (the adapters under LoRA)."""
@@ -438,11 +565,32 @@ class DDPMTrainer:
                               device=dev) < cfg.train_rand
         labels = torch.where(torch.as_tensor(drop, device=dev),
                              torch.zeros_like(labels), labels)
+        ranks = (self.data.n if self.data is not None
+                 and self.data.distributed else 1)
+        if ranks > 1:
+            # the whole batch's draws, in ddpm_loss's order; each rank
+            # keeps its slice of them, as of the batch
+            if t is None:
+                t = torch.randint(0, cfg.T, (x0.shape[0],), generator=gen,
+                                  device=dev)
+            if noise is None:
+                noise = torch.randn(x0.shape, generator=gen, device=dev)
+        if self.mesh is not None:
+            x0, labels, t, noise = shard_batch(self.mesh,
+                                               (x0, labels, t, noise))
         state.model.train()
+        # sum / batch_size² over the whole batch: each rank's share, times
+        # the ranks, so that their mean (the averaged gradient) is it
         loss = ddpm_loss(state.model_fn(), self.tables, x0, labels, cfg.T,
-                         gen, t=t, noise=noise).sum() / (cfg.batch_size ** 2)
+                         gen, t=t, noise=noise).sum() * ranks / (
+                             cfg.batch_size ** 2)
         apply_update(state, loss, cfg.grad_clip, cfg.ema_decay)
-        return state, loss.detach()
+        loss = loss.detach()
+        if ranks > 1:
+            loss = loss.clone()
+            torch.distributed.all_reduce(loss, group=self.data.group)
+            loss /= ranks
+        return state, loss
 
     def fit(self, loader: Iterable, state: Optional[TrainState] = None,
             epochs: Optional[int] = None, sample_every: int = 1,
@@ -450,6 +598,11 @@ class DDPMTrainer:
         """Trains for ``epochs`` (``config.epoch``) passes over ``loader``
         (:func:`train_epochs`; ``sample_every`` is unused, as in the JAX
         trainer)."""
+        if checkpoint_dir and self.mesh is not None and self.mesh.distributed:
+            raise NotImplementedError(
+                "checkpoint_dir on a process-group mesh: every rank would "
+                "write its slices (ROADMAP.md, queue item A8, second half, "
+                "part 2)")
         if state is None:
             state = self.create_state(len(loader))
         return train_epochs(self, loader, state, epochs or self.cfg.epoch,

@@ -32,8 +32,14 @@ one-process mesh, each rank's slice on a process-group mesh, whose
 gradients are then averaged over the data group. ``attention_impl`` "ring"
 or "ulysses" shards each joint attention over ``seq``; ``moe_experts`` adds
 ``cfg.moe_aux_weight`` times the summed Switch balance losses to the loss
-and shards the experts over ``expert``. Not ported yet (ROADMAP.md, queue
-item A8): tensor parallelism (a ``model`` axis) and FSDP.
+and shards the experts over ``expert``. A ``model`` axis runs the MMDiT
+tensor-parallel (``parallel/sharding.py``: the joint attention on each
+shard's heads, so its flash kernels forward and backward see H/n heads;
+parameters, moments and EMA held by shard), ``fsdp=True`` stores the state
+sharded over ``data`` (``parallel/fsdp.py``), and both together the JAX
+hybrid layout: sharded over data x model, gathered over data only
+(``ddpm_trainer.StateLayout``). A ``model`` axis does not compose with
+ring or Ulysses attention here.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ from ..samplers.flow import flow_euler_sample, noise_scaling
 from ..utils.config import FlowTrainConfig
 from ..utils.dtypes import POLICIES
 from ..utils.logging import MetricsLogger
-from .ddpm_trainer import (TrainState, apply_update, init_params,
+from .ddpm_trainer import (TrainState, apply_update, init_params, lay_out,
                            new_train_state, train_epochs)
 
 
@@ -75,22 +81,20 @@ class MMDiTTrainer:
         the trainer takes); without one, ``cfg.mesh_shape`` builds one over
         every visible device of that kind, and with neither the trainer
         runs on ``device`` alone."""
-        if fsdp:
-            raise NotImplementedError(
-                "fsdp=True: not ported yet (ROADMAP.md, queue item A8: "
-                "FSDP)")
         self.device = torch.device(device)
         if mesh is None and cfg.mesh_shape:
             mesh = build_mesh(cfg.mesh_shape,
                               visible_devices(self.device.type))
+        sp = model_cfg.attention_impl in ("ring", "ulysses")
         if mesh is not None:
-            if mesh.shape.get(MODEL_AXIS, 1) > 1:
-                raise NotImplementedError(
-                    f"a {MODEL_AXIS!r} mesh axis: tensor parallelism is not "
-                    "ported yet (ROADMAP.md, queue item A8)")
+            if sp and mesh.shape.get(MODEL_AXIS, 1) > 1:
+                raise ValueError(f"a {MODEL_AXIS!r} mesh axis with "
+                                 f"{model_cfg.attention_impl} attention: "
+                                 "tensor and sequence parallelism do not "
+                                 "compose here")
             self.device = torch.device(mesh_device(mesh))
         self.mesh = mesh
-        sp = model_cfg.attention_impl in ("ring", "ulysses")
+        self.fsdp = fsdp
         self.model_mesh = mesh if (sp or model_cfg.moe_experts) else None
         self.data = (mesh.comm(DATA_AXIS) if mesh is not None
                      and DATA_AXIS in mesh.shape else None)
@@ -127,8 +131,10 @@ class MMDiTTrainer:
         lora = init_params(model, self.cfg.seed, params,
                            lora_rank=self.lora_rank,
                            base_params=self.base_params)
+        layout = lay_out(model, self.mesh, self.fsdp, lora)
         return new_train_state(model.train(), self.cfg, steps_per_epoch,
-                               lora=lora, lora_scale=self.lora_scale)
+                               lora=lora, lora_scale=self.lora_scale,
+                               layout=layout)
 
     def num_params(self, state: TrainState) -> int:
         """The parameters that train (the adapters under LoRA)."""
@@ -154,15 +160,6 @@ class MMDiTTrainer:
     def _split_over_ranks(self) -> bool:
         return self.data is not None and self.data.distributed \
             and self.data.n > 1
-
-    def _average_grads(self, params) -> None:
-        """Process-group mesh: each rank's gradients averaged over the data
-        group (a rank's loss is its batch shard's)."""
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            dist.all_reduce(p.grad, group=self.data.group)
-            p.grad.div_(self.data.n)
 
     def loss(self, state: TrainState, latents, context, y, *, t_lin=None,
              noise=None, drop=None) -> torch.Tensor:
@@ -204,11 +201,9 @@ class MMDiTTrainer:
         ``t_lin``, ``noise`` and ``drop`` of :meth:`loss`."""
         state.model.train()
         loss = self.loss(state, latents, context, y, **draws)
-        split = self._split_over_ranks
-        apply_update(state, loss, self.cfg.grad_clip, self.cfg.ema_decay,
-                     reduce_grads=self._average_grads if split else None)
+        apply_update(state, loss, self.cfg.grad_clip, self.cfg.ema_decay)
         loss = loss.detach()
-        if split:
+        if self._split_over_ranks:
             loss = loss.clone()
             dist.all_reduce(loss, group=self.data.group)
             loss /= self.data.n
@@ -225,7 +220,7 @@ class MMDiTTrainer:
         if checkpoint_dir and self.mesh is not None and self.mesh.distributed:
             raise NotImplementedError(
                 "checkpoint_dir on a process-group mesh: every rank would "
-                "write it (ROADMAP.md, queue item A8)")
+                "write it (ROADMAP.md, queue item A8, second half, part 2)")
         if state is None:
             state = self.create_state(len(loader))
         return train_epochs(self, loader, state, epochs or self.cfg.epoch,

@@ -23,8 +23,11 @@ layout (``io/weights.py``) onto the card without the JAX package.
 :meth:`SD1Models.quantize_int8` switches the UNet's attention and GEGLU
 projections to W8A8 int8 (``ops/quantize.py``).
 
-Not ported (ROADMAP.md): ``loop="trajectory"`` (a CUDA graph of one step,
-queue A2), tensor-parallel ``mesh`` (A8), which raise ``NotImplementedError``.
+``SD1Generator(mesh=)`` serves tensor-parallel over the mesh's ``model``
+axis (:func:`..parallel.sharding.apply_tp` on every model of the bundle, in
+place: the attentions on each shard's heads, the VAE's one-head attention
+whole). Not ported (ROADMAP.md): ``loop="trajectory"`` (a CUDA graph of one
+step, queue A2), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from ..models.vit import ViT
 from ..ops.embeddings import sd1_time_embedding
 from ..ops.image import rescale, to_uint8
 from ..ops.quantize import quantize_module
+from ..parallel.sharding import apply_tp
 from ..samplers.k_samplers import (SAMPLERS, KSamplerConfig, k_sampler_scan,
                                    sigma_tables)
 from ..utils.dtypes import POLICIES, cast_params_for_inference
@@ -238,10 +242,6 @@ class SD1Generator:
                  height: int = 512, width: int = 512,
                  prompt_weighting: bool = False, mesh=None,
                  loop: str = "steps"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (tensor-parallel serving) is not ported yet: "
-                "ROADMAP.md queue A8")
         if loop == "trajectory":
             raise NotImplementedError(
                 'loop="trajectory" is not ported: its counterpart, a CUDA '
@@ -252,6 +252,15 @@ class SD1Generator:
             raise ValueError(f"unknown sampler value {sampler!r}")
         if height % 8 or width % 8:
             raise ValueError("height and width must be multiples of 8")
+        if mesh is not None:
+            # tensor-parallel serving: every model of the bundle computes
+            # its attention, GEGLU and MLP blocks over the mesh's ``model``
+            # axis (parallel/sharding.py), each shard on its heads
+            for model in (models.clip, models.unet, models.encoder,
+                          models.decoder):
+                if model is not None:
+                    apply_tp(model, mesh)
+        self.mesh = mesh
         self.models = models
         self.tokenizer = tokenizer
         self.prompt_weighting = prompt_weighting

@@ -23,7 +23,11 @@ config sniffed from the checkpoint's shapes (:func:`sniff_mmdit_config`).
 The MMDiT of the bundle may run sequence-parallel joint attention
 (:meth:`..models.mmdit.MMDiT.set_attention`: "ring" or "ulysses" over the
 ``seq`` axis of a :mod:`..parallel` mesh); the inferencer calls it as it
-is. Not ported yet (ROADMAP.md queue A8): tensor-parallel ``mesh``.
+is. ``SD3Inferencer(mesh=)`` serves tensor-parallel over the mesh's
+``model`` axis (:func:`..parallel.sharding.apply_tp` on the MMDiT, CLIP-L,
+CLIP-G, T5 and the VAE, in place; the VAE's one-head attention runs whole).
+Quantize to int8 before: a form-(b) rank keeps only its slice of each
+sharded weight, and a row layer's scales are over the whole input.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from ..models.text_encoders import (CLIP_G_CONFIG, CLIP_L_CONFIG,
 from ..ops.image import to_uint8
 from ..ops.quantize import quantize_module
 from ..ops.schedules import sd3_sigma_schedule
+from ..parallel.sharding import apply_tp
 from ..samplers.flow import (flow_euler_sample, flow_heun_sample,
                              noise_scaling)
 from .sd1 import _from_state, _prepare, flax_default_init_, sample_seeds
@@ -294,12 +299,16 @@ class SD3Inferencer:
         streams row strips over the whole batch
         (``models/sd3_vae_tiled.py``), ``"auto"`` takes the tiled decode
         for a batch above 1 at latents of 128 rows and more (1024²)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (tensor-parallel serving) is not ported yet: "
-                "ROADMAP.md queue A8")
         if decode_mode not in ("auto", "whole", "tiled"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
+        if mesh is not None:
+            if models.mmdit.config.attention_impl != "flash":
+                raise ValueError("a tensor-parallel mesh and sequence-"
+                                 "parallel attention are mutually exclusive")
+            for model in models._groups().values():
+                if model is not None:
+                    apply_tp(model, mesh)
+        self.mesh = mesh
         self.models = models
         self.shift = shift
         self.tokenizer = tokenizer

@@ -12,8 +12,8 @@ running statistics with it) and, under SIGTERM, the epoch it stopped in;
 as in the JAX trainer it restores nothing. ``preview_dir`` receives a PNG
 of the preview images over their reconstructions after each epoch.
 
-Not ported (ROADMAP.md, queue item A8, the parallel package): the device
-mesh with data-parallel batch sharding.
+Not ported (ROADMAP.md, queue item A8, second half, part 2: the other
+trainers' data meshes): the device mesh with data-parallel batch sharding.
 """
 
 from __future__ import annotations
@@ -55,8 +55,9 @@ class VAETrainer:
                  logger: Optional[MetricsLogger] = None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: not ported yet (ROADMAP.md, queue item A8: the "
-                "parallel package); one device")
+                "mesh: not ported yet (ROADMAP.md, queue item A8, second "
+                "half, part 2: the other trainers' data meshes); one "
+                "device")
         if config.model not in ("vanilla", "vqvae"):
             raise ValueError(f"unknown VAE model {config.model!r}")
         self.cfg = config

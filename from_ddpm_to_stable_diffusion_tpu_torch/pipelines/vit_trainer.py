@@ -12,8 +12,8 @@ mode. ``fit`` saves the epoch whose validation accuracy is the best so far
 and, under SIGTERM, the epoch it stopped in; as in the JAX trainer it
 restores nothing.
 
-Not ported (ROADMAP.md, queue item A8, the parallel package): the device
-mesh with data-parallel batch sharding.
+Not ported (ROADMAP.md, queue item A8, second half, part 2: the other
+trainers' data meshes): the device mesh with data-parallel batch sharding.
 """
 
 from __future__ import annotations
@@ -41,8 +41,9 @@ class ViTTrainer:
                  logger: Optional[MetricsLogger] = None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: not ported yet (ROADMAP.md, queue item A8: the "
-                "parallel package); one device")
+                "mesh: not ported yet (ROADMAP.md, queue item A8, second "
+                "half, part 2: the other trainers' data meshes); one "
+                "device")
         self.cfg = config
         self.device = torch.device(device)
         self.dtype = POLICIES[config.dtype].compute_dtype

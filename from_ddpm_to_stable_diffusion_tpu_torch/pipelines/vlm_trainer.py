@@ -16,8 +16,8 @@ exact-match greedy decodes against the dataset's ground truth.
 and, under SIGTERM, the epoch it stopped in; as in the JAX trainer it
 restores nothing.
 
-Not ported (ROADMAP.md, queue item A8, the parallel package): the device
-mesh with data-parallel batch sharding.
+Not ported (ROADMAP.md, queue item A8, second half, part 2: the other
+trainers' data meshes): the device mesh with data-parallel batch sharding.
 """
 
 from __future__ import annotations
@@ -54,8 +54,9 @@ class VLMTrainer:
                  answer_start: int = 0):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: not ported yet (ROADMAP.md, queue item A8: the "
-                "parallel package); one device")
+                "mesh: not ported yet (ROADMAP.md, queue item A8, second "
+                "half, part 2: the other trainers' data meshes); one "
+                "device")
         self.model_args = dict(vocab_size=vocab_size, dim=dim, depth=depth,
                                num_heads=num_heads, max_text_len=max_text_len,
                                vision_cfg=vision_cfg)

@@ -2,10 +2,10 @@
 ``FlowTrainConfig``, ``VAETrainConfig`` and ``ViTTrainConfig``).
 
 The same fields, names and defaults as the JAX dataclasses, so the same YAML
-files load. ``FlowTrainConfig.mesh_shape`` (the mesh of
-``MMDiTTrainer`` when none is passed), ``grad_accum`` and
-``moe_aux_weight`` (the Switch balance term of the MoE loss) are read; the
-other trainers refuse a ``mesh_shape`` (ROADMAP.md queue A8).
+files load. ``TinySDConfig.mesh_shape`` and ``FlowTrainConfig.mesh_shape``
+(the mesh of ``DDPMTrainer`` / ``MMDiTTrainer`` when none is passed),
+``grad_accum`` and ``moe_aux_weight`` (the Switch balance term of the MoE
+loss) are read.
 """
 
 from __future__ import annotations

@@ -12,9 +12,12 @@ with a synthetic tokenizer trio, img2img and the trajectory grid, each PNG
 equal to the inferencer's pixels; ``sd3 train --lora-rank 2 --grad-accum 2``
 at its defaults; ``tiny_sd train --synthetic`` then ``sample`` on a tiny
 YAML (the grid has the JAX grid's shape); ``multimodal train``, ``eval`` and
-``chat``. The tensor-parallel and FSDP flags exit naming ROADMAP.md queue
-A8 (``sd3 --sp`` / ``--moe-experts`` run: ``tests/test_torch_sp_mmdit.py``),
-and the
+``chat``. The tensor-parallel flags build the JAX CLI's mesh over the
+visible devices of --device's kind, so on the one host device ``--tp 2``
+raises the JAX mesh-shape ``ValueError``; ``sd1 generate --tp 2`` with the
+host device seen twice writes ``generate``'s pixels within one level; ``sd3
+train --fsdp`` runs (``sd3 --sp`` / ``--moe-experts``:
+``tests/test_torch_sp_mmdit.py``), and the
 ``__main__`` dispatch reaches every stage, ``checks`` and ``demos`` too;
 ``python -m`` of the ``vae``, ``vit`` and ``video`` stages prints their
 help (their runs at tiny sizes are in ``tests/test_torch_{vae,vit,video}.py``,
@@ -117,11 +120,52 @@ MESH_FLAGS = [
 @pytest.mark.parametrize("stage, argv", MESH_FLAGS, ids=[
     "sd1-tp", "serve-tp", "sd3-tp", "train-tp", "train-fsdp"])
 def test_mesh_flags_exit_naming_a8(stage, argv, capsys):
+    """The mesh flags run: --tp builds the JAX CLI's mesh over the visible
+    devices, which on the one host device raises the JAX ``build_mesh``
+    error, word for word; --fsdp trains."""
+    import jax
+
+    from from_ddpm_to_stable_diffusion_tpu.parallel import build_mesh
+
     mod = importlib.import_module(f"{PORT}.cli.{stage}")
-    with pytest.raises(SystemExit) as e:
+    if "--fsdp" in argv:
+        assert mod.main(argv + ["--steps", "2", "--device", "cpu"]) == 0
+        assert "fsdp=True" in capsys.readouterr().err
+        return
+    shape = ({"data": 1, "model": 2} if "train" in argv
+             else {"model": 2})
+    with pytest.raises(ValueError) as want:
+        build_mesh(shape, jax.devices()[:1])
+    with pytest.raises(ValueError) as got:
         mod.main(argv + ["--device", "cpu"])
-    assert e.value.code == 2
-    assert "ROADMAP.md queue A8" in capsys.readouterr().err
+    assert str(got.value) == str(want.value)
+
+
+def test_sd1_generate_over_a_tp_mesh(tmp_path, monkeypatch):
+    """``sd1 generate --tp 2`` with the host device seen twice: the bundle
+    switched to TP, the PNGs within one level of ``generate``'s pixels on
+    the meshless bundle."""
+    import copy
+
+    from from_ddpm_to_stable_diffusion_tpu_torch import parallel
+    from from_ddpm_to_stable_diffusion_tpu_torch.cli import sd1
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines import sd1 as tpipe
+
+    models = tiny_sd1_models()
+    tp_models = copy.deepcopy(models)
+    monkeypatch.setattr(tpipe.SD1Models, "initialize", classmethod(
+        lambda cls, generator, device, dtype="bf16": tp_models))
+    monkeypatch.setattr(parallel, "visible_devices",
+                        lambda kind="cuda": [torch.device(kind)] * 2)
+    out = str(tmp_path / "sd1_{i}.png")
+    assert sd1.main(["generate", "--prompt", "a cat", "--height", "64",
+                     "--width", "64", "--steps", "2", "--seed", "3",
+                     "--tp", "2", "--device", "cpu", "--out", out]) == 0
+    assert tp_models.unet.enc1_att.attn1.tp.n == 2
+    want = tpipe.generate(["a cat"], models, height=64, width=64,
+                          n_inference_steps=2, seed=3)
+    got = _png(out.format(i=0))
+    assert np.abs(got.astype(int) - want[0].astype(int)).max() <= 1
 
 
 def _png(path):

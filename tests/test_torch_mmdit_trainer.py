@@ -385,10 +385,11 @@ def test_fit_logs_the_jax_epoch_keys(run_fp32):
 
 
 def test_trainer_refuses_unported_options():
-    """FSDP and a tensor-parallel ``model`` mesh axis (ROADMAP.md queue item
-    A8) raise, naming it; the data / seq / expert meshes, ring and Ulysses
-    attention, MoE, LoRA, ``grad_accum``, ``epoch_awoken`` and
-    ``checkpoint_dir`` are ported and accepted (the meshes:
+    """FSDP and a tensor-parallel ``model`` mesh axis are ported and
+    accepted (their steps: ``tests/test_torch_fsdp.py``); a ``model`` axis
+    with ring or Ulysses attention raises; the data / seq / expert meshes,
+    ring and Ulysses attention, MoE, LoRA, ``grad_accum``, ``epoch_awoken``
+    and ``checkpoint_dir`` are accepted (the meshes:
     ``tests/test_torch_parallel_trainer.py``)."""
     from from_ddpm_to_stable_diffusion_tpu_torch.parallel import (
         build_mesh as tmesh)
@@ -396,8 +397,13 @@ def test_trainer_refuses_unported_options():
     mc, cfg = tmm.MMDiTConfig(**MODEL), tconfig.FlowTrainConfig(**TRAIN)
     for kw in (dict(mesh=tmesh({"model": 2}, ["cpu"] * 2)),
                dict(fsdp=True)):
-        with pytest.raises(NotImplementedError, match=QUEUE_ITEM):
-            MMDiTTrainer(mc, cfg, device="cpu", **kw)
+        state = MMDiTTrainer(mc, cfg, device="cpu", **kw).create_state(2)
+        assert (state.model.joint_block0.x_block.tp is not None) == (
+            "mesh" in kw)
+    with pytest.raises(ValueError, match="do not compose"):
+        MMDiTTrainer(dataclasses.replace(mc, attention_impl="ring"), cfg,
+                     device="cpu", mesh=tmesh({"seq": 2, "model": 2},
+                                              ["cpu"] * 4))
     for field in (dict(mesh_shape={"data": 8}),):
         with pytest.raises(ValueError, match="!= 1 devices"):
             MMDiTTrainer(mc, dataclasses.replace(cfg, **field), device="cpu")

@@ -16,6 +16,18 @@ under ``tmp_path`` (no port), each spawn joined with its own timeout.
   the updated parameters equal form (a)'s step on the whole batch within
   the AdamW tolerance of ``torch_trainer_parity.assert_adamw_close`` and
   the loss within rtol 1e-5.
+- 2 ranks, tensor parallelism (Megatron's conjugate pair: identity forward
+  and all-reduce backward into a column layer, all-reduce forward and
+  identity backward out of a row layer): the TP forward and backward of a
+  depth-2 MMDiT and of an SD1UNet; the output within 1e-5 of form (a) on
+  every rank, each rank's parameter gradients within 1e-5 x max(largest
+  |gradient|, 0.1) of its slice of form (a)'s (the floor for the biases
+  before a GroupNorm, whose gradients are rounding noise; replicated leaves
+  whole: without the pair their gradients would be partial).
+- 4 ranks, FSDP: one ``DDPMTrainer(fsdp=True)`` step on {"data": 4} and one
+  hybrid FSDP x TP ``MMDiTTrainer`` step on {"data": 2, "model": 2}, each
+  rank's stored slices against its slices of form (a)'s step (AdamW
+  tolerance), the loss within rtol 1e-5.
 """
 
 import multiprocessing as mp
@@ -31,6 +43,8 @@ from from_ddpm_to_stable_diffusion_tpu_torch.parallel.ring_attention import (
     ring_attention, ulysses_attention)
 from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 from torch_trainer_parity import assert_adamw_close, lr_bound
+from from_ddpm_to_stable_diffusion_tpu_torch.parallel.sharding import (
+    tp_roles, tp_slice)
 
 JOIN_TIMEOUT_S = 120
 
@@ -124,6 +138,54 @@ def test_process_group_trainer_steps_match_one_process(tmp_path):
         state, loss = trainer.train_step(state, *batch, **draws)
         want = {n: p.detach().numpy() for n, p in state.params.items()}
         for r in ranks:
+            np.testing.assert_allclose(r[kind]["loss"].item(), loss.item(),
+                                       rtol=1e-5, err_msg=kind)
+            assert_adamw_close({n: p.numpy() for n, p in
+                                r[kind]["params"].items()}, want,
+                               lr_bound(state.schedule, 1), kind)
+
+
+def test_process_group_tp_forward_backward_match_one_process(tmp_path):
+    ranks = _spawn("tp", tmp_path)
+    mesh = _cpu_mesh({"model": worker.TP})
+    for name, (model, args, cot) in worker.tp_models().items():
+        roles = tp_roles(model, worker.TP)
+        want = worker.tp_step(model, args, cot, mesh)
+        for j, r in enumerate(ranks):
+            got = r[name]
+            np.testing.assert_allclose(got["out"].numpy(),
+                                       want["out"].numpy(), atol=1e-5,
+                                       err_msg=name)
+            for n, g in want["grads"].items():
+                if n in roles:
+                    g = tp_slice(g, roles[n], j, worker.TP)
+                np.testing.assert_allclose(
+                    got["grads"][n].numpy(), g.numpy(),
+                    atol=1e-5 * max(float(g.abs().max()), 0.1),
+                    err_msg=f"{name} {n} rank {j}")
+
+
+def test_process_group_fsdp_steps_match_one_process(tmp_path):
+    ranks = _spawn("fsdp", tmp_path)
+    for kind, shape in worker.FSDP_SHAPES.items():
+        trainer, state, batch, draws = worker.fsdp_setup(kind,
+                                                         _cpu_mesh(shape))
+        roles = tp_roles(state.model, shape["model"]) if "model" in shape \
+            else {}
+        dims = state.layout.fsdp_dims
+        assert any(d is not None for d in dims.values()), kind
+        state, loss = trainer.train_step(state, *batch, **draws)
+        for rank, r in enumerate(ranks):
+            d, m = (list(np.unravel_index(rank, tuple(shape.values())))
+                    + [0])[:2]
+            want = {}
+            for n, p in state.params.items():
+                p = p.detach()
+                if n in roles:
+                    p = tp_slice(p, roles[n], m, shape["model"])
+                if dims.get(n) is not None:
+                    p = p.chunk(shape["data"], dims[n])[d]
+                want[n] = p.numpy()
             np.testing.assert_allclose(r[kind]["loss"].item(), loss.item(),
                                        rtol=1e-5, err_msg=kind)
             assert_adamw_close({n: p.numpy() for n, p in

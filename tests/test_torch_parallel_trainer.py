@@ -117,9 +117,9 @@ def test_moe_train_step_with_aux_matches_jax(devices8):
 def test_trainer_mesh_options():
     mc = tmm.MMDiTConfig(**MODEL, depth=2)
     cfg = tconfig.FlowTrainConfig(**TRAIN, batch_size=8)
-    with pytest.raises(NotImplementedError, match="queue item A8"):
-        MMDiTTrainer(mc, cfg, device="cpu", mesh=build_mesh(
-            {"data": 2, "model": 2}, ["cpu"] * 4))
+    hybrid = MMDiTTrainer(mc, cfg, device="cpu", mesh=build_mesh(
+        {"data": 2, "model": 2}, ["cpu"] * 4))
+    assert hybrid.create_state(2).model.joint_block1.x_block.tp.n == 2
     # cfg.mesh_shape over the visible devices of the trainer's kind: the
     # JAX error where they are too few
     with pytest.raises(ValueError, match="!= 1 devices"):

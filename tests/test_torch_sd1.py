@@ -212,8 +212,10 @@ def test_entry_points_default_to_the_card():
 def test_sd1_generator_takes_the_jax_signatures(jax_bundle):
     """``SD1Generator.__init__`` and ``generate`` take the JAX arguments in
     the JAX order with the JAX defaults (the test hooks aside); ``mesh``
-    (tensor-parallel serving) raises naming ROADMAP.md queue A8, and both
-    JAX ``loop`` drivers of ``generate`` run the one host loop."""
+    (tensor-parallel serving) switches the bundle to TP and the generator
+    gives the meshless pixels (within one level: the row sums associate
+    differently), and both JAX ``loop`` drivers of ``generate`` run the one
+    host loop."""
     import inspect
 
     hooks = {"noise", "enc_noise", "step_noise"}
@@ -227,9 +229,21 @@ def test_sd1_generator_takes_the_jax_signatures(jax_bundle):
         assert got == want, fn.__qualname__
     models = tpipe.SD1Models.from_jax(jax_bundle.params, device="cpu",
                                       clip_heads=4, unet_heads=4)
-    with pytest.raises(NotImplementedError, match="queue A8"):
-        tpipe.SD1Generator(models, height=H, width=W, mesh=object())
-    tpipe.SD1Generator(models, height=H, width=W, mesh=None)
+    import copy
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
+
+    tp_models = copy.deepcopy(models)
+    tp = tpipe.SD1Generator(tp_models, height=H, width=W,
+                            n_inference_steps=1,
+                            mesh=build_mesh({"model": 2}, ["cpu"] * 2))
+    assert tp.mesh.shape == {"model": 2}
+    assert tp_models.unet.enc1_att.attn2.tp.n == 2
+    plain = tpipe.SD1Generator(models, height=H, width=W,
+                               n_inference_steps=1, mesh=None)
+    noise = _jax_noise(1, (1, H // 8, W // 8, 4))
+    a, b = tp(["a"], noise=noise), plain(["a"], noise=noise)
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
     noise = _jax_noise(1, (1, H // 8, W // 8, 4))
     kw = dict(height=H, width=W, n_inference_steps=1, noise=noise,
               return_latents=True)

@@ -440,8 +440,14 @@ def test_free_and_offload_text_encoders(bundles):
 
 def test_inferencer_contract(bundles):
     _, _, tinf = bundles
-    with pytest.raises(NotImplementedError, match="A8"):
-        tpipe.SD3Inferencer(tinf.models, mesh=object())
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
+
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ring = dataclasses.replace(tinf.models)
+        ring.mmdit = tmm.MMDiT(dataclasses.replace(
+            tinf.models.mmdit.config, attention_impl="ring"))
+        tpipe.SD3Inferencer(ring, mesh=build_mesh({"model": 2},
+                                                  ["cpu"] * 2))
     with pytest.raises(ValueError, match="decode_mode"):
         tpipe.SD3Inferencer(tinf.models, decode_mode="strips")
     models = tpipe.SD3Models.initialize(

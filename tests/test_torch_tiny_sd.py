@@ -416,13 +416,22 @@ def test_clip_by_global_norm_matches_optax():
 
 
 def test_trainer_refuses_unported_options():
-    """The mesh options (ROADMAP.md queue item A8) raise, naming it;
-    ``grad_accum`` is ported and accepted."""
-    for kw in (dict(mesh_shape={"data": 8}),):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue "
-                           r"item A8"):
-            DDPMTrainer(tconfig.TinySDConfig(**kw), device="cpu")
-    for kw in (dict(mesh=object()), dict(fsdp=True)):
-        with pytest.raises(NotImplementedError, match=r"queue item A8"):
-            DDPMTrainer(tconfig.TinySDConfig(), device="cpu", **kw)
+    """The mesh options are ported: ``config.mesh_shape`` builds its mesh
+    over the visible devices of the trainer's kind and raises the JAX
+    mesh-shape error where they are too few; ``mesh=`` and ``fsdp=True``
+    are accepted (their steps: ``tests/test_torch_fsdp.py``), and so is
+    ``grad_accum``."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
+
+    with pytest.raises(ValueError, match=r"mesh shape \{'data': 8\} != 1 "
+                       "devices"):
+        DDPMTrainer(tconfig.TinySDConfig(mesh_shape={"data": 8}),
+                    device="cpu")
+    t = DDPMTrainer(tconfig.TinySDConfig(mesh_shape={"data": 1}),
+                    device="cpu")
+    assert t.mesh.shape == {"data": 1}
+    mesh = build_mesh({"data": 2}, ["cpu"] * 2)
+    for kw in (dict(mesh=mesh), dict(mesh=mesh, fsdp=True), dict(fsdp=True)):
+        t = DDPMTrainer(tconfig.TinySDConfig(), device="cpu", **kw)
+        assert t.fsdp == kw.get("fsdp", False) and t.mesh is kw.get("mesh")
     DDPMTrainer(tconfig.TinySDConfig(grad_accum=2), device="cpu")

@@ -89,9 +89,10 @@ TRAINER_SHAPES = {"ring": {"data": 2, "seq": 2},
                   "moe": {"data": 2, "expert": 2}}
 
 
-def trainer_setup(kind, mesh, device="cpu"):
-    """A tiny MMDiTTrainer (ring over seq, or 4 experts) on ``mesh``, its
-    state from seed 0, a batch of 4 and the draws of one step."""
+def trainer_setup(kind, mesh, device="cpu", fsdp=False):
+    """A tiny MMDiTTrainer (ring over seq, 4 experts, or for ``kind`` None
+    the flash MMDiT) on ``mesh``, its state from seed 0, a batch of 4 and
+    the draws of one step."""
     from from_ddpm_to_stable_diffusion_tpu_torch.models.mmdit import (
         MMDiTConfig)
     from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.mmdit_trainer \
@@ -99,14 +100,14 @@ def trainer_setup(kind, mesh, device="cpu"):
     from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
         FlowTrainConfig)
 
-    extra = (dict(attention_impl="ring") if kind == "ring"
-             else dict(moe_experts=4))
+    extra = {"ring": dict(attention_impl="ring"),
+             "moe": dict(moe_experts=4)}.get(kind, {})
     mc = MMDiTConfig(patch_size=2, in_channels=4, depth=2, adm_in_channels=8,
                      context_dim=16, pos_embed_max_size=8, **extra)
     cfg = FlowTrainConfig(epoch=1, batch_size=4, img_size=8, context_len=4,
                           lr=1e-4, max_lr=1e-3, warmup_epochs=1,
                           train_rand=0.3, dtype="fp32", seed=0)
-    trainer = MMDiTTrainer(mc, cfg, device=device, mesh=mesh)
+    trainer = MMDiTTrainer(mc, cfg, device=device, mesh=mesh, fsdp=fsdp)
     state = trainer.create_state(steps_per_epoch=2)
     batch = [inputs(40, 4, 8, 8, 4), inputs(41, 4, 4, 16), inputs(42, 4, 8)]
     draws = dict(t_lin=torch.sigmoid(inputs(43, 4)),
@@ -125,7 +126,99 @@ def _trainers(rank):
     return out
 
 
-CASES = {"primitives": (SEQ, _primitives), "trainers": (4, _trainers)}
+TP = 2   # ranks of the tensor-parallel case
+
+
+def tp_models():
+    """A depth-2 MMDiT (2 heads) and an SD1UNet (64 channels: two a
+    GroupNorm group, so that no gradient is only rounding noise; 4 heads),
+    fp32, filled
+    from seeds, each with an input set and an output cotangent."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.mmdit import (
+        MMDiT, MMDiTConfig)
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.sd1 import SD1UNet
+
+    mmdit = MMDiT(MMDiTConfig(patch_size=2, in_channels=4, depth=2,
+                              adm_in_channels=8, context_dim=16,
+                              pos_embed_max_size=8))
+    unet = SD1UNet(model_channels=64, context_dim=16, num_heads=4)
+    out = {}
+    for name, m, args, out_shape in (
+            ("mmdit", mmdit, [inputs(50, 2, 8, 8, 4),
+                              torch.tensor([100.0, 700.0]),
+                              inputs(51, 2, 8), inputs(52, 2, 5, 16)],
+             (2, 8, 8, 4)),
+            ("unet", unet, [inputs(53, 2, 8, 8, 4), inputs(54, 2, 7, 16),
+                            inputs(55, 2, 320)], (2, 8, 8, 4))):
+        with torch.no_grad():
+            for i, p in enumerate(m.parameters()):
+                p.copy_(inputs(100 + i, *p.shape) * 0.2)
+        out[name] = (m, args, inputs(60, *out_shape))
+    return out
+
+
+def tp_step(model, args, cot, mesh):
+    """The TP forward over ``mesh``'s model axis and the backward of
+    (out * cot).sum(): the output and each parameter's gradient (the
+    rank's slice in form (b))."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel.sharding import (
+        apply_tp)
+
+    apply_tp(model, mesh)
+    out = model(*args)
+    (out * cot).sum().backward()
+    return dict(out=out.detach(), grads={
+        n: p.grad.clone() for n, p in model.named_parameters()})
+
+
+def _tp(rank):
+    mesh = build_mesh({"model": TP})
+    return {name: tp_step(m, args, cot, mesh)
+            for name, (m, args, cot) in tp_models().items()}
+
+
+FSDP_SHAPES = {"ddpm": {"data": 4}, "hybrid": {"data": 2, "model": 2}}
+
+
+def fsdp_setup(kind, mesh, device="cpu"):
+    """An FSDP DDPMTrainer (TinyUNet at 16^2, batch 8) or a hybrid FSDP x
+    TP MMDiTTrainer (depth 2, batch 4) on ``mesh``, its state from seed 0,
+    a batch and the draws of one step."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer \
+        import DDPMTrainer
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        TinySDConfig)
+
+    if kind == "hybrid":
+        trainer, state, batch, draws = trainer_setup(None, mesh, device,
+                                                     fsdp=True)
+        return trainer, state, batch, draws
+    cfg = TinySDConfig(epoch=2, batch_size=8, img_size=16, img_channel=3,
+                       num_class=3, T=10, channel=32,
+                       channel_multy=[1, 2, 2, 2], dropout=0.0, lr=1e-4,
+                       max_lr=1e-3, warmup_epochs=1, train_rand=0.1,
+                       dtype="fp32", seed=0)
+    trainer = DDPMTrainer(cfg, device=device, mesh=mesh, fsdp=True)
+    state = trainer.create_state(steps_per_epoch=4)
+    batch = [inputs(70, 8, 16, 16, 3).clamp(-1, 1),
+             torch.arange(8) % 3]
+    draws = dict(drop=torch.tensor([False, True] + [False] * 6),
+                 t=torch.arange(8) % 10, noise=inputs(71, 8, 16, 16, 3))
+    return trainer, state, batch, draws
+
+
+def _fsdp(rank):
+    out = {}
+    for kind, shape in FSDP_SHAPES.items():
+        trainer, state, batch, draws = fsdp_setup(kind, build_mesh(shape))
+        state, loss = trainer.train_step(state, *batch, **draws)
+        out[kind] = dict(loss=loss, params={
+            n: p.detach().clone() for n, p in state.params.items()})
+    return out
+
+
+CASES = {"primitives": (SEQ, _primitives), "trainers": (4, _trainers),
+         "tp": (TP, _tp), "fsdp": (4, _fsdp)}
 
 
 def run(rank: int, case: str, store_path: str, out_dir: str) -> None:
