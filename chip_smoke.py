@@ -73,8 +73,8 @@ two summary lines:
    kernels' device time (profiler) and split pre-pass, and the bound at 3
    TF32 passes over 495 TFLOP/s (the 67 TFLOP/s FMA bound beside it).
 4. SD1: full-width SD1 (CLIP, 860M UNet, VAE decoder) with random weights
-   from a seed, ``SD1Generator`` at 512x512, 50 k-LMS steps, CFG 7.5: two
-   batch-1 requests, then one batch-4 request. Checks the images, the final
+   from a seed, ``SD1Generator`` at 512x512, 50 k-LMS steps, CFG 7.5: one
+   batch-1 request, then one batch-4 request. Checks the images, the final
    latents, the kernel launch counts of every request, and that K1 took the
    sm90 kernel (the VAE's d = 512 attention aside). Then one profiled
    request at batch 1 and one at batch 4: device-busy ms, idle share and
@@ -283,14 +283,33 @@ stopping with its actionable error. K1 in fp32 at head dim 8 is held
 against its plain version in the fp32 kernel phase, its bound counting the
 exponentials at the SFU's rate.
 
+The trajectory group (after the tp_fsdp stretch of SD1, on the resident
+bf16 bundle): ``SD1Generator(loop="trajectory")``, the whole denoise loop
+as one captured CUDA graph per (batch, start_step), against
+``loop="steps"`` on the same draws at 512^2 / 50 k-LMS steps / CFG 7.5:
+the captures at batch 1 and 4 with the K1 / K2 launches inside each graph,
+a second seed through the batch-1 graph, img2img at strength 0.6,
+``k_euler_ancestral`` and TP over {"model": 2} of the card repeated, each
+replay's final latents bit-equal to the eager loop's or its image within 1
+level; both loops' s/image, ms per denoise step and device idle share at
+batch 1 and 4; an eager request bit-equal to the first after every graph
+is freed. The dp group (after clip_eval): one step of the VAE, ViT, CLIP
+and VLM trainers over {"data": 2} of the card repeated against the
+meshless step. The native group (last): ``io/native.py``'s g++ build into
+``_build/``, its tokenizer's ids against ``io/tokenizer.py`` and its
+safetensors reader, which ``load_safetensors_dict`` must take, bit for bit
+against the Python reader on a 268 MB file. The seconds of every group of
+phases are printed before the summary.
+
 Every kernel's launch count is set to 0 just before each of the SD1, SD1
-generator, serving, SD1 CLI, SD1 at 768^2, SD1 checkpoint, SD1 int8, SD3,
+generator, SD1 trajectory, serving, SD1 CLI, SD1 at 768^2, SD1 checkpoint, SD1 int8, SD3,
 SD3 img2img, SD3
 batch 2 tiled, SD3 text, SD3 checkpoint, SD3 int8, SD3 offload, training,
 sampling, accumulation, resume, latent training, latent sampling, MMDiT
 training, MMDiT sampling, MMDiT LoRA, T5, TinyVLM training, TinyVLM
 decoding, TinyVLM checkpoint, video training, video sampling, VQ-VAE,
-VanillaVAE, ViT, CLIP forward, CLIP training, FID, checks, SD3 through the
+VanillaVAE, ViT, CLIP forward, CLIP training, FID, data-mesh trainer steps,
+checks, SD3 through the
 ring and the Ulysses MMDiT, the pipelined blocks, 1F1B, ring MMDiT training,
 MoE forward, MoE training and fp32 paths
 and read
@@ -1628,7 +1647,9 @@ def phase_sd1(card):
     prompts = ["a photograph of an astronaut riding a horse",
                "a watercolor fox in the snow", "a lighthouse at dusk",
                "a bowl of ramen, studio lighting"]
-    requests = [(prompts[:1], 1), (prompts[1:2], 2), (prompts, 3)]
+    # a second batch-1 request was cut to pay for the trajectory group,
+    # which times both loops at batch 1 and 4
+    requests = [(prompts[:1], 1), (prompts, 3)]
 
     reset_counts()
     wall = {}   # batch -> s of its last unprofiled request
@@ -7886,6 +7907,405 @@ def phase_ddpm_fsdp(card):
     return f["launches"]
 
 
+# The SD1 trajectory loop (pipelines/sd1.py::Trajectory): a request's first
+# use of a (batch, start_step) key runs one eager step (its warm-up) and
+# captures the rest of the loop into a CUDA graph; the VAE decoder runs
+# outside the graph. So a cold 512^2 / 50-step request launches K1 10 + 500
+# + 1 and K2 61 + 3050 + 30 times, of which 500 and 3050 inside the graph,
+# and a warm one only the decoder's 1 and 30 (the replay calls no wrapper).
+TRAJ_STEPS = 50
+TRAJ_STRENGTH = 0.6
+TRAJ_GRAPH = dict(K1=10 * TRAJ_STEPS, K2=61 * TRAJ_STEPS)
+TRAJ_COLD = dict(K1=10 + 10 * TRAJ_STEPS + 1, K2=61 + 61 * TRAJ_STEPS + 30,
+                 K3=0, K4=0, K5=0, K6=0, K7=0)
+
+
+def phase_trajectory(card, models, image):
+    """``SD1Generator(loop="trajectory")`` on the resident bf16 bundle at
+    512^2, 50 k-LMS steps, CFG 7.5, against ``loop="steps"`` on the same
+    draws: captures at batch 1 and 4 (K1 / K2 launches inside each graph
+    counted), a second seed through the batch-1 graph, img2img at strength
+    0.6 (a second key), ``k_euler_ancestral`` (step noise staged from the
+    generator in the step loop's order) and TP over {"model": 2} of the card
+    repeated (``TP_SD1_STEPS`` steps); each replay's final latents bit-equal
+    to the eager loop's or its image within 1 level. Then, per loop at batch
+    1 and 4: s/image (host clock), ms per denoise step (CUDA events around
+    the loop alone, from the same latents and context) and the device idle
+    share of a profiled request; then, with every graph freed, an eager
+    request again, bit for bit the first one (K2's scratch of the eager
+    stream untouched by the captures). Returns the counts of the cold
+    batch-1 trajectory request."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import groupnorm as gn
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops.image import to_uint8
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        SD1Generator, Trajectory)
+
+    kw = dict(n_inference_steps=TRAJ_STEPS, cfg_scale=7.5, height=512,
+              width=512)
+    prompts = ["a photograph of an astronaut riding a horse",
+               "a watercolor fox in the snow", "a lighthouse at dusk",
+               "a bowl of ramen, studio lighting"]
+    in_graph = []     # ((batch, start_step), launches inside), by capture
+    capture = Trajectory._capture
+
+    def counted_capture(self, stream):
+        n0 = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        capture(self, stream)
+        torch.cuda.synchronize()
+        key = (self.latents.shape[0], self.start)
+        inside = launches_since(n0)
+        in_graph.append((key, inside))
+        print(f"trajectory {key}: captured {len(self.steps)} steps in "
+              f"{time.perf_counter() - t:.3f} s, launches inside the graph "
+              f"K1 {inside['K1']} K2 {inside['K2']}", flush=True)
+
+    def latents(gen, batch, **call):
+        return gen._run(batch, None, call.get("seed"),
+                        call.get("input_images"), call.get("strength", 0.8),
+                        None, None, None, None, True)
+
+    @torch.inference_mode()
+    def decode(z):
+        return to_uint8(models.decoder(z)).cpu().numpy()
+
+    def against(what, traj, eager):
+        z, z_ref = latents(traj[0], traj[1], **traj[2]), latents(
+            eager[0], eager[1], **eager[2])
+        same = torch.equal(z, z_ref)
+        lv = levels(decode(z), decode(z_ref))
+        print(f"trajectory {what}: final latents bit-equal to the step "
+              f"loop's: {same} (rel L2 {rel_l2(z, z_ref):.3e}), image max "
+              f"{lv[0]} mean {lv[1]:.4f} levels [{card}]", flush=True)
+        check(bool(torch.isfinite(z).all()) and (same or lv[0] <= 1),
+              f"trajectory {what}: the replay is off the step loop: "
+              f"{lv[0]} levels")
+        return z_ref
+
+    Trajectory._capture = counted_capture
+    scratch0 = dict(gn._scratch)
+    try:
+        steps = SD1Generator(models, sampler="k_lms", **kw)
+        traj = SD1Generator(models, sampler="k_lms", loop="trajectory", **kw)
+        reset_counts()
+        traj(prompts[:1], seed=1)         # a cold request, decoded
+        launches = read_counts()
+        k1_routes = dict(launches.k1_routes)
+        print(f"trajectory cold request bs=1: K1 {launches['K1']} by kernel "
+              f"{k1_routes}, K2 {launches['K2']} [{card}]", flush=True)
+        check(all(launches[k] == n for k, n in TRAJ_COLD.items())
+              and k1_routes == {"sm90": TRAJ_COLD["K1"] - 1, "d512": 1},
+              f"trajectory cold request launches {dict(launches)} "
+              f"{k1_routes}, not {TRAJ_COLD} (the VAE's d = 512 aside, all "
+              f"sm90)")
+        first = against("bs=1 seed 1 (the capture's request)",
+                        (traj, prompts[:1], dict(seed=1)),
+                        (steps, prompts[:1], dict(seed=1)))
+        against("bs=4 seed 3", (traj, prompts, dict(seed=3)),
+                (steps, prompts, dict(seed=3)))
+        against("bs=1 seed 2 (the bs=1 graph again)",
+                (traj, prompts[:1], dict(seed=2)),
+                (steps, prompts[:1], dict(seed=2)))
+        img = dict(seed=4, input_images=[image[0]], strength=TRAJ_STRENGTH)
+        against(f"img2img strength {TRAJ_STRENGTH}", (traj, prompts[:1], img),
+                (steps, prompts[:1], img))
+        anc = [SD1Generator(models, sampler="k_euler_ancestral",
+                            loop=loop, **kw) for loop in ("trajectory",
+                                                           "steps")]
+        against("k_euler_ancestral bs=1 seed 5",
+                (anc[0], prompts[:1], dict(seed=5)),
+                (anc[1], prompts[:1], dict(seed=5)))
+        del anc
+        tp_kw = dict(kw, n_inference_steps=TP_SD1_STEPS)
+        tp = [SD1Generator(models, sampler="k_lms", loop=loop,
+                           mesh=card_mesh(TP_N, "model"), **tp_kw)
+              for loop in ("trajectory", "steps")]
+        try:
+            against(f"TP {{'model': {TP_N}}} ({TP_SD1_STEPS} steps)",
+                    (tp[0], prompts[:1], dict(seed=6)),
+                    (tp[1], prompts[:1], dict(seed=6)))
+        finally:
+            drop_tp(models.clip, models.unet, models.encoder, models.decoder)
+        del tp
+        # the captures in order: k-LMS bs=1, bs=4, img2img, the ancestral
+        # bs=1, TP bs=1 (each head shard's attention apart, GroupNorm whole)
+        start = TRAJ_STEPS - int(TRAJ_STEPS * TRAJ_STRENGTH)
+        want = [((1, 0), TRAJ_GRAPH), ((4, 0), TRAJ_GRAPH),
+                ((1, start), dict(K1=10 * (TRAJ_STEPS - start),
+                                  K2=61 * (TRAJ_STEPS - start))),
+                ((1, 0), TRAJ_GRAPH),
+                ((1, 0), dict(K1=TP_N * 10 * TP_SD1_STEPS,
+                              K2=61 * TP_SD1_STEPS))]
+        got = [(key, dict(K1=n["K1"], K2=n["K2"])) for key, n in in_graph]
+        check(got == want, f"the graphs' keys and launches inside {got}, "
+                           f"not {want}")
+        # both loops by batch: s/image, ms per denoise step, idle share
+        for b in (1, 4):
+            batch = prompts[:b]
+            with torch.inference_mode():
+                context = steps._encode_text(batch, None)
+                noise = steps.initial_noise(b, 9) * steps.tables[
+                    "initial_scale"]
+            for name, gen in (("steps", steps), ("trajectory", traj)):
+                # both warm: the step loop from the requests above, the
+                # graph of this batch captured
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                gen(batch, seed=9)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+                start_ev = torch.cuda.Event(enable_timing=True)
+                end_ev = torch.cuda.Event(enable_timing=True)
+                with torch.inference_mode():
+                    start_ev.record()
+                    gen._sample(noise, context)
+                    end_ev.record()
+                end_ev.synchronize()
+                step_ms = start_ev.elapsed_time(end_ev) / TRAJ_STEPS
+                _, wall_ms, fams, n_kernels, _ = profile_device(
+                    lambda: gen(batch, seed=9), cpu=False)
+                busy = sum(fams.values())
+                idle = (f"{1.0 - busy / (1e3 * secs):.3f}" if fams
+                        else "not measured (no kernel row)")
+                print(f"SD1 loop={name} bs={b}: {secs:.3f} s a request, "
+                      f"{secs / b:.3f} s/image, {step_ms:.2f} ms/denoise "
+                      f"step (the loop alone, CUDA events); profiled: device "
+                      f"busy {busy:.1f} ms over {n_kernels} kernels, wall "
+                      f"{wall_ms:.1f} ms; device idle share {idle} (1 - "
+                      f"busy / unprofiled request) [{card}]", flush=True)
+        del traj
+        gc.collect()
+        torch.cuda.empty_cache()
+        again = latents(steps, prompts[:1], seed=1)
+        print(f"after the graphs were freed: an eager request bit-equal to "
+              f"the first: {torch.equal(again, first)}; K2 scratch buffers "
+              f"{len(scratch0)} -> {len(gn._scratch)} (the captures' "
+              f"streams' warm-up steps add theirs) [{card}]", flush=True)
+        check(torch.equal(again, first) or levels(
+            decode(again), decode(first))[0] <= 1,
+              "an eager request after the graphs were freed differs")
+        check(all(gn._scratch.get(key) is buf
+                  for key, buf in scratch0.items()),
+              "a capture replaced a K2 scratch buffer of an eager stream")
+    finally:
+        Trajectory._capture = capture
+    return launches
+
+
+def phase_dp(card):
+    """One step of each of the VAE, ViT, CLIP and VLM trainers over
+    {"data": 2} of the card repeated (mesh form (a), the identity) against
+    the meshless step from the same state on the same batch and draws: the
+    VanillaVAE at 512^2 (batch 8, bf16), the ViT at ``ViTTrainConfig()``
+    (128^2, batch 256, dropout 0.1 from one seed), CLIP ViT-L/14@336
+    (batch 32, bf16; K1 / K3 / K4 24 each) and the TinyVLM at SigLIP-base
+    width and depth (384^2, batch 16, bf16; K1 / K3 / K4 24 each). The loss
+    within rtol 1e-5 and at most 1 in 10^3 parameters more than 1e-5 apart
+    (a non-deterministic backward can flip the sign of a gradient that is
+    rounding noise, which AdamW's first update turns into +-lr). Returns the
+    counts of the mesh steps."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.shapes_dataset import (
+        CaptionedShapesDataset)
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.clip import CLIP
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.clip_trainer import (
+        CLIPTrainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.vae_trainer import (
+        VAETrainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.vit_trainer import (
+        ViTTrainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        VAETrainConfig, ViTTrainConfig)
+
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    with torch.device("meta"):
+        clip_template = CLIP(image_resolution=336, dtype=torch.bfloat16)
+    vlm_data = CaptionedShapesDataset(16, img_size=384, seed=3)
+    vlm_images, vlm_tokens = (torch.from_numpy(a).cuda()
+                              for a in vlm_batch(vlm_data, 0, 16))
+    cases = {
+        "vae": (lambda mesh: VAETrainer(VAETrainConfig(
+            model="vanilla", img_size=512, batch_size=8, dtype="bf16"),
+            mesh=mesh), lambda t: t.create_state(),
+                (torch.rand((8, 512, 512, 3), generator=gen, device="cuda")
+                 * 2 - 1,)),
+        "vit": (lambda mesh: ViTTrainer(ViTTrainConfig(dtype="bf16"),
+                                        mesh=mesh),
+                lambda t: t.create_state(),
+                (torch.rand((256, 128, 128, 3), generator=gen,
+                            device="cuda") * 2 - 1,
+                 torch.randint(0, 3, (256,), generator=gen, device="cuda"))),
+        "clip": (lambda mesh: CLIPTrainer(clip_template, mesh=mesh),
+                 lambda t: t.create_state((336, 336, 3), 77),
+                 clip_pairs(CLIP_BATCH, 336, 92)),
+        "vlm": (lambda mesh: vlm_trainer("cuda", "bf16", VLM_LAYERS,
+                                         warmup_steps=0, total_steps=10,
+                                         mesh=mesh),
+                lambda t: t.create_state(384), (vlm_images, vlm_tokens)),
+    }
+
+    def step(make, create, batch, mesh):
+        torch.manual_seed(0)          # the ViT's dropout
+        trainer = make(mesh)
+        state = create(trainer)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = trainer.train_step(state, *batch)[:2]
+        loss = loss["loss"] if isinstance(loss, dict) else loss
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        params = {n: p.detach().clone()
+                  for n, p in state.params.items()}
+        return float(loss), params, secs
+
+    plain = {name: step(*case, None) for name, case in cases.items()}
+    mesh = card_mesh(2, "data")
+    reset_counts()
+    meshed = {name: step(*case, mesh) for name, case in cases.items()}
+    launches = read_counts()
+    for name in cases:
+        (loss, params, secs), (want_loss, want, want_secs) = (
+            meshed[name], plain[name])
+        off = total = 0
+        max_diff = 0.0
+        for n, w in want.items():
+            d = (params[n].float() - w.float()).abs()
+            off += int((d > 1e-5 + 1e-5 * w.float().abs()).sum())
+            total += d.numel()
+            max_diff = max(max_diff, float(d.max()))
+        print(f"dp {name} over {{'data': 2}} of the card against no mesh: "
+              f"loss {loss:.6f} vs {want_loss:.6f}, parameters max|diff| "
+              f"{max_diff:.3e}, {off} of {total} more than 1e-5 apart; step "
+              f"{1e3 * secs:.1f} ms vs {1e3 * want_secs:.1f} ms (first step "
+              f"of each) [{card}]", flush=True)
+        check(abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+              and off <= 1e-3 * total,
+              f"dp {name}: the mesh step is off the meshless one")
+    print(f"dp mesh steps' launches: K1 {launches['K1']} {launches.k1_routes}"
+          f", K3 {launches['K3']} {launches.k3_routes}, K4 {launches['K4']} "
+          f"{launches.k4_routes} [{card}]", flush=True)
+    check(launches["K1"] == launches["K3"] == launches["K4"] == 48
+          and launches.k3_routes == {"sm90": 48}
+          and launches.k4_routes == {"sm90": 48},
+          f"dp: CLIP's and the VLM's K1 / K3 / K4 launches {dict(launches)}")
+    return launches
+
+
+def phase_native(card):
+    """``io/native.py`` on the card's host: the C++ tokenizer and
+    safetensors reader built with g++ into the package's ``_build/`` (not
+    ``native/``), the tokenizer's ids against ``io/tokenizer.py`` on a
+    synthetic vocabulary, and ``load_safetensors_dict`` of a 268 MB file
+    from the port's writer (every dtype, 8 bf16 (4096, 4096) tensors) read
+    through the native reader, which it must take (its opens counted), bit
+    for bit against the Python reader, both timed on a warm file; a write
+    to a view stays private."""
+    import json as json_mod
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.io import native
+    from from_ddpm_to_stable_diffusion_tpu_torch.io import weights as tw
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.tokenizer import (
+        CLIPTokenizer, build_simple_vocab)
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops._build import BUILD_DIR
+
+    t = time.perf_counter()
+    libs = [native.build_native(n) for n in ("bpe_tokenizer",
+                                              "safetensors_reader")]
+    print(f"native: built {[os.path.basename(p) for p in libs]} with g++ "
+          f"in {time.perf_counter() - t:.2f} s", flush=True)
+    check(all(p.startswith(str(BUILD_DIR)) for p in libs),
+          f"native libraries outside _build/: {libs}")
+    tmp = tempfile.mkdtemp()
+    try:
+        vocab, merges = build_simple_vocab(SLICE_WORDS)
+        vpath, mpath = os.path.join(tmp, "vocab.json"), os.path.join(
+            tmp, "merges.txt")
+        with open(vpath, "w") as f:
+            json_mod.dump(vocab, f, ensure_ascii=False)
+        with open(mpath, "w") as f:
+            f.write("\n".join(["#version: 0.2"] + [
+                f"{a} {b}" for (a, b), _ in sorted(merges.items(),
+                                                   key=lambda kv: kv[1])])
+                    + "\n")
+        cc = native.NativeBPETokenizer(vpath, mpath)
+        py = CLIPTokenizer.from_files(vpath, mpath)
+        texts = [" ".join(SLICE_WORDS[i:] + SLICE_WORDS[:i])
+                 for i in range(len(SLICE_WORDS))] + ["", "  A   Horse!! "]
+        same = all(cc.encode(x) == py.encode(x) for x in texts)
+        timing = {}
+        for name, tok in (("native", cc), ("python", py)):
+            t = time.perf_counter()
+            for _ in range(20):
+                tok.encode_batch(texts)
+            timing[name] = 1e6 * (time.perf_counter() - t) / (
+                20 * len(texts))
+        print(f"native tokenizer: ids equal to io/tokenizer.py on "
+              f"{len(texts)} prompts: {same}; {timing['native']:.1f} us vs "
+              f"{timing['python']:.1f} us a prompt (host) [{card}]",
+              flush=True)
+        check(same, "the native tokenizer's ids differ from the Python one's")
+        gen = torch.Generator().manual_seed(93)
+        tensors = {f"w{i}": torch.randn(4096, 4096, generator=gen).to(
+            torch.bfloat16) for i in range(8)}
+        tensors.update(f32=torch.randn(3, 5, generator=gen),
+                       f16=torch.randn(7, generator=gen).half(),
+                       i64=torch.arange(6).reshape(2, 3),
+                       u8=torch.arange(9, dtype=torch.uint8),
+                       flag=torch.tensor([True, False]),
+                       scalar=torch.tensor(2.5))
+        path = os.path.join(tmp, "native.safetensors")
+        tw.save_safetensors_dict(tensors, path)
+        opened = []
+        reader = native.NativeSafetensors
+
+        class Counting(reader):
+            def __init__(self, p):
+                opened.append(p)
+                super().__init__(p)
+
+        native.NativeSafetensors = Counting
+        try:
+            tw.load_safetensors_dict(path)              # warm the file
+            t = time.perf_counter()
+            got = tw.load_safetensors_dict(path)
+            native_s = time.perf_counter() - t
+        finally:
+            native.NativeSafetensors = reader
+        t = time.perf_counter()
+        want = tw.load_safetensors_python(path)
+        python_s = time.perf_counter() - t
+        bits = lambda x: x.reshape(-1).view(torch.uint8)
+        equal = sorted(got) == sorted(want) == sorted(tensors) and all(
+            got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+            and torch.equal(bits(got[k]), bits(want[k]))
+            and torch.equal(bits(want[k]), bits(tensors[k])) for k in want)
+        got["w0"].add_(1.0)           # a private copy of its pages
+        kept = torch.equal(bits(tw.load_safetensors_dict(path)["w0"]),
+                           bits(tensors["w0"]))
+        size = os.path.getsize(path)
+        print(f"native safetensors reader: {size} bytes read through it "
+              f"({len(opened)} opens) in {native_s:.3f} s, the Python "
+              f"reader {python_s:.3f} s (both views of a copy-on-write map, "
+              f"read when used); bit-equal: {equal}; a write to a view left "
+              f"the file as it was: {kept} (warm file) [{card}]", flush=True)
+        check(kept, "a write to a native view reached the file")
+        check(len(opened) == 2, "load_safetensors_dict did not take the "
+                                f"native reader: {len(opened)} opens")
+        check(equal, "the native reader's tensors differ from the Python "
+                     "reader's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     marks = [("start", time.perf_counter())]
 
@@ -7908,7 +8328,7 @@ def main():
     mark("parallel")
     import torch
 
-    paths = ("sd1", "sd1_slice", "sd1_tp", "serving", "sd1_cli", "sd1_768",
+    paths = ("sd1", "sd1_slice", "sd1_tp", "sd1_trajectory", "serving", "sd1_cli", "sd1_768",
              "sd1_checkpoint", "sd1_int8",
              "sd3", "t5", "sd3_ring", "sd3_ulysses", "mmdit_pp",
              "mmdit_pp_1f1b", "sd3_tp", "sd3_img2img", "sd3_tiled",
@@ -7920,6 +8340,7 @@ def main():
              "mmdit_moe_training", "vlm_training", "vlm_decoding", "vlm_checkpoint",
              "video_training", "video_sampling", "vae_vqvae", "vae_vanilla",
              "vit_training", "clip_forward", "clip_training", "fid",
+             "dp_trainers",
              "sd1_fp32", "sd1_768_fp32", "sd3_fp32", "t5_fp32", "vlm_fp32",
              "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64",
              "clip_fp32", "checks")
@@ -7929,6 +8350,10 @@ def main():
     kernels_tp = phase_kernels_tp(card)
     runs.append(phase_tp_sd1(card, sd1_models))
     mark("tp_fsdp")
+    runs.append(phase_trajectory(card, sd1_models, sd1_image))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("trajectory")
     runs += [phase_serving(card, sd1_models), phase_sd1_cli(card)]
     mark("serving")
     runs += [phase_sd1_768(card, sd1_models, SD1_768_STEPS, "bf16")[0],
@@ -8020,6 +8445,12 @@ def main():
     fp32_runs.append(phase_clip_fp32(card))
     fp32_runs.append(phase_checks_cli(card))
     mark("clip_eval")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.append(phase_dp(card))
+    mark("dp")
+    phase_native(card)
+    mark("native")
     seconds = {}     # a group may come back (parallel: four stretches)
     for (_, t0), (group, t1) in zip(marks, marks[1:]):
         seconds[group] = seconds.get(group, 0.0) + t1 - t0

@@ -18,9 +18,14 @@ load_state_checked`` converts each once into a module's fp32 parameter
 (exact from fp16 and bf16), and the bundles' inference cast then rounds
 once to bf16, from the file's own value.
 
-Not ported: ``t_conv_transpose`` (no rule uses it); the JAX package's g++
-mmap reader (``io/native.py``) and its fallback to the ``safetensors``
-package: here one reader parses the format itself.
+A .safetensors file is read, as in the JAX package, by the g++-built C++
+reader of ``io/native.py`` first, and by this module's own Python reader
+(one ``torch.frombuffer`` view per tensor of a copy-on-write ``mmap``) where
+``FDSD_ST_READER=python`` is set or the native reader cannot take the file
+(no compiler, a dtype it does not know): the JAX package falls back to the
+``safetensors`` package there, which the port does not need.
+
+Not ported: ``t_conv_transpose`` (no rule uses it).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import math
 import mmap
 import os
 import struct
+import subprocess
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -64,7 +70,27 @@ _ST_DTYPES = {st: getattr(torch, name) for name, st in _ST_DTYPE_NAMES.items()}
 def load_safetensors_dict(path: str,
                           prefix: str = "") -> Dict[str, torch.Tensor]:
     """Read a .safetensors file into {key: tensor}, optionally filtered and
-    stripped by ``prefix``.
+    stripped by ``prefix``: views of a copy-on-write map of the file, which
+    stays mapped while any of them lives, from ``io/native.py::
+    NativeSafetensors``, or from :func:`load_safetensors_python` where
+    ``FDSD_ST_READER=python`` is set or the native reader cannot take the
+    file."""
+    if os.environ.get("FDSD_ST_READER") != "python":
+        from .native import NativeSafetensors
+
+        try:
+            with NativeSafetensors(path) as f:
+                return {k[len(prefix):]: f.get_tensor(k, copy=False)
+                        for k in f.keys()
+                        if not prefix or k.startswith(prefix)}
+        except (OSError, ValueError, subprocess.CalledProcessError):
+            pass     # no compiler, or a file the native reader refuses
+    return load_safetensors_python(path, prefix)
+
+
+def load_safetensors_python(path: str,
+                            prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The Python reader of :func:`load_safetensors_dict`.
 
     The format: an 8-byte little-endian header length, a JSON header of
     {key: {dtype, shape, data_offsets}} (``__metadata__`` skipped), then the

@@ -170,12 +170,17 @@ class CLIP(nn.Module):
         pooled = x[torch.arange(x.shape[0], device=x.device), eos]
         return pooled @ self.text_projection.to(pooled.dtype)
 
-    def forward(self, image, text):
-        """Returns (logits_per_image, logits_per_text), fp32."""
+    def forward(self, image, text, gather=None):
+        """Returns (logits_per_image, logits_per_text), fp32. ``gather``:
+        applied to the normalised features of each tower before the logits
+        (a trainer's data mesh: the global batch's features, so that the
+        logits are global batch x global batch)."""
         img = self.encode_image(image).float()
         txt = self.encode_text(text).float()
         img = img / torch.linalg.vector_norm(img, dim=1, keepdim=True)
         txt = txt / torch.linalg.vector_norm(txt, dim=1, keepdim=True)
+        if gather is not None:
+            img, txt = gather(img), gather(txt)
         logits_per_image = (self.logit_scale.exp() * img) @ txt.T
         return logits_per_image, logits_per_image.T
 

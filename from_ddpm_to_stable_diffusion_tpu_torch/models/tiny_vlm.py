@@ -96,10 +96,16 @@ def as_tensor_on(x, device, dtype=None):
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
-def vlm_loss(logits, tokens, pad_id: int = 0, answer_start: int = 0):
+def vlm_loss(logits, tokens, pad_id: int = 0, answer_start: int = 0,
+             data_axis=None):
     """Next-token cross entropy over the targets that are not padding.
     ``answer_start``: the token index where supervised text begins (the
-    question / answer boundary of VQA); targets before it are masked."""
+    question / answer boundary of VQA); targets before it are masked.
+    ``data_axis``: a process-group ``data`` axis (mesh form (b)) over which
+    the batch is sharded: the rank's share of the global batch's loss, its
+    summed NLL over the global count of targets, times the ranks, so that
+    the mean over the ranks (the averaged gradient) is the global loss
+    however unevenly the ranks' targets are padded."""
     targets = tokens[:, 1:].long()
     logits = logits[:, :-1]
     mask = (targets != pad_id).float()
@@ -108,7 +114,12 @@ def vlm_loss(logits, tokens, pad_id: int = 0, answer_start: int = 0):
         mask = mask * (pos >= answer_start - 1).float()[None]
     ll = F.log_softmax(logits.float(), dim=-1)
     nll = -ll.gather(-1, targets[..., None])[..., 0]
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    count = mask.sum()
+    if data_axis is not None and data_axis.distributed:
+        count = count.clone()
+        torch.distributed.all_reduce(count, group=data_axis.group)
+        return (nll * mask).sum() * data_axis.n / count.clamp(min=1.0)
+    return (nll * mask).sum() / count.clamp(min=1.0)
 
 
 @torch.no_grad()

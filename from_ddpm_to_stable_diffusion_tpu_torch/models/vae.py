@@ -46,7 +46,10 @@ class BatchNorm(nn.Module):
     clamped at 0) normalise, and the running ones move as ``momentum · ra
     + (1 − momentum) · batch`` (torch's ``BatchNorm2d`` would use momentum
     0.1 and the unbiased variance); in eval mode the running ones
-    normalise."""
+    normalise. With ``data_axis`` a process-group ``data`` axis (mesh form
+    (b), set by the trainer) the statistics are the global batch's: each
+    rank's sums gathered (``AxisComm.gather_batch``, so that the gradient
+    reaches every rank's rows), as JAX's mean over a sharded batch is."""
 
     def __init__(self, num_features: int, momentum: float = 0.99,
                  eps: float = 1e-5):
@@ -56,6 +59,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
+        self.data_axis = None
 
     def reset_running_stats(self) -> None:
         with torch.no_grad():
@@ -66,8 +70,17 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            data = self.data_axis
+            if data is not None and data.distributed:
+                sums = torch.stack([xf.sum(axes), (xf * xf).sum(axes)])
+                moments = data.gather_batch(sums[None], 0).sum(0) / (
+                    xf[..., 0].numel() * data.n)
+                mean = moments[0]
+                var = torch.clamp(moments[1] - mean * mean, min=0.0)
+            else:
+                mean = xf.mean(axes)
+                var = torch.clamp((xf * xf).mean(axes) - mean * mean,
+                                  min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)

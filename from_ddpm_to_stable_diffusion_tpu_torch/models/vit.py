@@ -25,12 +25,29 @@ from torch import nn
 from .layers import Conv2d, LayerNorm, Linear, SelfAttention
 
 
+def dropout(h, p: float, training: bool, data_axis=None):
+    """``F.dropout``; on a process-group ``data`` axis (``data_axis``, mesh
+    form (b)) the rank's slice of a mask drawn for the whole batch from
+    torch's global generator, which the ranks keep in one state, so that
+    the ranks together draw what one process draws on the whole batch (on
+    the CPU bit for bit: ``F.dropout`` draws ``bernoulli_(1 - p)`` on the
+    input's shape and multiplies by it over 1 - p)."""
+    if data_axis is None or not data_axis.distributed or not training \
+            or p == 0.0:
+        return F.dropout(h, p, training)
+    n = data_axis.n
+    keep = torch.empty((h.shape[0] * n,) + tuple(h.shape[1:]), dtype=h.dtype,
+                       device=h.device).bernoulli_(1.0 - p)
+    return h * keep.chunk(n, 0)[data_axis.index[0]].div_(1.0 - p)
+
+
 class ViTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_dim: int,
                  dropout: float = 0.0,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout = dropout
+        self.data_axis = None      # set by a trainer's data mesh
         self.ln1 = LayerNorm(dim)
         self.attn = SelfAttention(dim, num_heads, qkv_bias=True,
                                   compute_dtype=compute_dtype)
@@ -39,7 +56,8 @@ class ViTBlock(nn.Module):
         self.fc2 = Linear(mlp_dim, dim, compute_dtype=compute_dtype)
 
     def forward(self, x):
-        drop = lambda h: F.dropout(h, self.dropout, self.training)
+        drop = lambda h: dropout(h, self.dropout, self.training,
+                                 self.data_axis)
         x = x + drop(self.attn(self.ln1(x)))
         h = drop(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
         return x + drop(self.fc2(h))
@@ -63,6 +81,7 @@ class ViT(nn.Module):
         n = (image_size // patch_size) ** 2
         self.dtype, self.dim, self.depth = dtype, dim, depth
         self.emb_dropout = emb_dropout
+        self.data_axis = None      # set by a trainer's data mesh
         self.patch_embed = Conv2d(3, dim, patch_size, stride=patch_size,
                                   compute_dtype=dt)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
@@ -80,7 +99,7 @@ class ViT(nn.Module):
         h = self.patch_embed(x.to(self.dtype)).reshape(b, -1, self.dim)
         cls = self.cls_token.to(h.dtype).expand(b, 1, self.dim)
         h = torch.cat([cls, h], dim=1) + self.pos_embed.to(h.dtype)
-        h = F.dropout(h, self.emb_dropout, self.training)
+        h = dropout(h, self.emb_dropout, self.training, self.data_axis)
         for i in range(self.depth):
             h = getattr(self, f"block{i}")(h)
         h = self.ln_final(h[:, 0]).float()

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -10,10 +12,17 @@ import torch
 _SD1_FREQS = np.power(10000.0, -np.arange(0, 160, dtype=np.float64) / 160.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _sd1_freqs(device: torch.device) -> torch.Tensor:
+    """The frequencies on ``device``, copied there once: a call inside a
+    CUDA graph's capture makes no host-to-device copy."""
+    return torch.as_tensor(_SD1_FREQS, dtype=torch.float32, device=device)
+
+
 def sd1_time_embedding(timestep):
     """SD1 UNet time feature: (B,) or scalar -> (B, 320) fp32 [cos | sin]."""
     t = torch.as_tensor(timestep, dtype=torch.float32).reshape(-1)
-    freqs = torch.as_tensor(_SD1_FREQS, dtype=torch.float32, device=t.device)
+    freqs = _sd1_freqs(t.device)
     x = t[:, None] * freqs[None]
     return torch.cat([torch.cos(x), torch.sin(x)], dim=-1)
 

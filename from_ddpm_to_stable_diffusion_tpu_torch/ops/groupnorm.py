@@ -183,7 +183,13 @@ def _launch_plan(x, dev, b, hw, c, groups):
 def _partials(dev, stream, n):
     """The partials' scratch of one stream, at least ``n`` floats: the
     kernels of one stream run one after another, so each call on it reuses
-    the same buffer, which every call writes before it reads."""
+    the same buffer, which every call writes before it reads. Under a CUDA
+    graph's capture each call takes a buffer of the graph's own pool
+    instead: the graph keeps the address it captured, which a later eager
+    call that grows the stream's buffer would free."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.empty(n, device=torch.device("cuda", dev),
+                           dtype=torch.float32)
     buf = _scratch.get((dev, stream))
     if buf is None or buf.numel() < n:
         buf = _scratch[(dev, stream)] = torch.empty(
@@ -216,10 +222,10 @@ def group_norm_cuda(x, num_groups, scale, bias, eps=1e-5, act=None):
     # the raw handle of the current stream, without a Stream object
     stream = torch._C._cuda_getCurrentRawStream(dev)
     y = torch.empty_like(x)
+    part = _partials(dev, stream, n_part)
     err = lib.fdsd_group_norm(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        _partials(dev, stream, n_part).data_ptr(), args, eps,
-        int(act == "silu"), stream)
+        part.data_ptr(), args, eps, int(act == "silu"), stream)
     _build.check(err, "fdsd_group_norm")
     group_norm_cuda.launches += 1
     return y

@@ -1,4 +1,4 @@
-"""CLIP contrastive training of stage 05 on one device (port of
+"""CLIP contrastive training of stage 05 (port of
 ``pipelines/clip_trainer.py``).
 
 The reference builds CLIP / SigLIP towers but never trains them
@@ -18,8 +18,14 @@ module): :meth:`CLIPTrainer.create_state` builds it on the device from
 JAX loop: the epoch with the lowest mean loss saved, and under SIGTERM the
 epoch it stopped in, then a return; it restores nothing.
 
-Not ported (ROADMAP.md, queue item A8, second half, part 2: the other
-trainers' data meshes): the device mesh with data-parallel batch sharding.
+``mesh=`` (a data mesh) replicates the state and shards the batch, as the
+JAX trainer does, where the logits are global batch x global batch. On a
+process-group mesh (form (b)) each rank encodes its shard and gathers the
+normalised features of both towers (``AxisComm.gather_batch``, whose
+backward sums the ranks' gradients) before the logits, so that every rank
+computes the global loss; the gradients are averaged over the ranks, and
+the clamp follows the averaged update on every rank alike. On a
+one-process mesh (form (a)) the step is the meshless one.
 """
 
 from __future__ import annotations
@@ -30,9 +36,11 @@ from typing import Iterable, List, Mapping, Optional
 import torch
 
 from ..models.clip import CLIP, clip_contrastive_loss
+from ..parallel.mesh import mesh_device, shard_batch
 from ..utils.logging import MetricsLogger
-from .ddpm_trainer import (TrainState, apply_update, init_params,
-                           new_train_state, train_epochs)
+from .ddpm_trainer import (TrainState, apply_update, data_axis, init_params,
+                           new_train_state, replicated_layout, split_ranks,
+                           train_epochs)
 
 MAX_LOGIT_SCALE = math.log(100.0)
 
@@ -42,16 +50,14 @@ class CLIPTrainer:
                  weight_decay: float = 0.1, mesh=None,
                  logger: Optional[MetricsLogger] = None, seed: int = 0,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: not ported yet (ROADMAP.md, queue item A8, second "
-                "half, part 2: the other trainers' data meshes); one "
-                "device")
         self.model = model
         self.lr = lr
         self.weight_decay = weight_decay
         self.seed = seed
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.data = data_axis(mesh)
+        self.device = torch.device(mesh_device(mesh) if mesh is not None
+                                   else device)
         self.logger = logger or MetricsLogger()
         self.history: List[dict] = []
 
@@ -78,18 +84,24 @@ class CLIPTrainer:
         init_params(model, self.seed, params)
         lr = self.lr
         return new_train_state(model.train(), None, schedule=lambda count: lr,
-                               weight_decay=self.weight_decay)
+                               weight_decay=self.weight_decay,
+                               layout=replicated_layout(model, self.mesh))
 
     def num_params(self, state: TrainState) -> int:
         return sum(p.numel() for p in state.model.parameters())
 
     def train_step(self, state: TrainState, images, tokens):
         """One update on a batch of (B, H, W, 3) images and (B, L) token
-        ids; returns (state, loss)."""
+        ids (the whole batch on a mesh); returns (state, loss)."""
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
-        logits_per_image, _ = state.model.train()(images, tokens)
+        gather = None
+        if self.mesh is not None:
+            images, tokens = shard_batch(self.mesh, (images, tokens))
+            if split_ranks(self.data) > 1:
+                gather = self.data.gather_batch
+        logits_per_image, _ = state.model.train()(images, tokens, gather)
         loss = clip_contrastive_loss(logits_per_image)
         apply_update(state, loss, None, None)
         with torch.no_grad():

@@ -36,13 +36,17 @@ moments, EMA and accumulator, sharded over ``data`` (:class:`StateLayout`,
 ``parallel/fsdp.py``): views of the whole tensors in form (a), the rank's
 slices in form (b), gathered at the top of the loss. Checkpoints hold the
 whole state, so one written under FSDP restores without a mesh and the
-other way round.
+other way round. On a process-group mesh the ranks gather their slices
+into the whole state, the group's first rank writes it and the others wait
+at a barrier (:func:`save_checkpoint`); a restore re-slices it to the
+layout it is loaded into, whatever the layout that wrote it.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import time
 from typing import Callable, Dict, Iterable, List, Mapping, Optional
 
@@ -57,9 +61,10 @@ from ..models.tiny_unet import TinyUNet
 from ..ops.schedules import cosine_warmup_lr, ddpm_tables
 from ..parallel.fsdp import (fsdp_dims, gather, global_grad_norm, mean_grads,
                              shard_params)
-from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, build_mesh, mesh_device,
-                             shard_batch, visible_devices)
-from ..parallel.sharding import apply_tp, tp_layout
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, _all_gather, build_mesh,
+                             mesh_device, replicate, shard_batch,
+                             visible_devices)
+from ..parallel.sharding import apply_tp, tp_roles, tp_slice
 from ..samplers.ddpm import ddpm_loss, ddpm_sample
 from ..utils.checkpoint import CheckpointManager, PreemptionGuard
 from ..utils.config import TinySDConfig
@@ -86,15 +91,23 @@ class StateLayout:
     """How a trainer's model lies on its mesh: ``data`` and ``model`` the
     axes' collectives (None where the mesh has no such axis),
     ``fsdp_dims`` the torch dim of each parameter stored sharded over
-    ``data`` (None: replicated), ``tp_sharded`` the parameters sharded over
-    ``model``. Only a process-group mesh (form (b)) changes what a step
-    does: its ranks hold slices and their gradients are combined here."""
+    ``data`` (None: replicated), ``tp_roles`` the ``parallel/sharding.py::
+    tp_roles`` of the entries sharded over ``model``, ``group`` the process
+    group of a form-(b) mesh. Only a process-group mesh (form (b)) changes
+    what a step does: its ranks hold slices and their gradients are
+    combined here."""
 
     data: Optional[object] = None
     model: Optional[object] = None
     fsdp_dims: Dict[str, Optional[int]] = dataclasses.field(
         default_factory=dict)
-    tp_sharded: frozenset = frozenset()
+    tp_roles: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    group: Optional[object] = None
+
+    @property
+    def tp_sharded(self) -> frozenset:
+        """The entries sharded over ``model``."""
+        return frozenset(self.tp_roles)
 
     @classmethod
     def for_model(cls, model: nn.Module, mesh, fsdp: bool,
@@ -110,14 +123,12 @@ class StateLayout:
         dims = {}
         if fsdp and data is not None and data.n > 1:
             dims = fsdp_dims(model, data.n, tp.n if tp else 1)
-        sharded = frozenset(name for name, spec in tp_layout(
-            model, tp.n).items() if spec) if tp else frozenset()
-        return cls(data, tp, dims, sharded)
+        return cls(data, tp, dims, tp_roles(model, tp.n) if tp else {},
+                   mesh.group)
 
     @property
     def distributed(self) -> bool:
-        return any(c is not None and c.distributed and c.n > 1
-                   for c in (self.data, self.model))
+        return split_ranks(self.data) > 1 or split_ranks(self.model) > 1
 
     def lay_out(self, model: nn.Module, mesh) -> None:
         """TP (``apply_tp``), then the FSDP slices, in place."""
@@ -125,6 +136,49 @@ class StateLayout:
             apply_tp(model, mesh)
         if self.data is not None:
             shard_params(model, self.fsdp_dims, self.data)
+
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of the entry ``name`` (a parameter, buffer,
+        moment or EMA leaf) from this rank's slice: all-gathered over
+        ``data`` on its FSDP dim, then over ``model`` by its TP role."""
+        dim = self.fsdp_dims.get(name)
+        if dim is not None and split_ranks(self.data) > 1:
+            t = _all_gather(t, dim, self.data)
+        role = self.tp_roles.get(name)
+        if role is not None and split_ranks(self.model) > 1:
+            _, groups, dim = role
+            parts = _all_gather(t, dim, self.model).chunk(self.model.n, dim)
+            t = torch.cat([torch.cat([p.unflatten(dim, (groups, -1))
+                                      .select(dim, g) for p in parts], dim)
+                           for g in range(groups)], dim)
+        return t
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`whole`: this rank's slice of the whole tensor
+        ``t`` of ``name``."""
+        role = self.tp_roles.get(name)
+        if role is not None and split_ranks(self.model) > 1:
+            t = tp_slice(t, role, self.model.index[0], self.model.n)
+        dim = self.fsdp_dims.get(name)
+        if dim is not None and split_ranks(self.data) > 1:
+            t = t.chunk(self.data.n, dim)[self.data.index[0]]
+        return t
+
+    def shard_delta(self, name: str, delta: torch.Tensor) -> torch.Tensor:
+        """A whole LoRA update of the weight ``name`` as the slice that this
+        rank's TP module computes with; the backward sums the slices'
+        gradients over ``model`` (each rank saw only its own)."""
+        if name not in self.tp_roles or split_ranks(self.model) < 2:
+            return delta
+        return tp_slice(self.model.copy_to(delta), self.tp_roles[name],
+                        self.model.index[0], self.model.n)
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes the checkpoints: the group's first
+        rank on a process-group mesh, else the one process."""
+        return self.group is None or torch.distributed.get_rank(
+            self.group) == 0
 
     def gather(self, params: Mapping[str, torch.Tensor]) -> dict:
         """The parameters the forward runs on: FSDP's slices gathered over
@@ -136,8 +190,7 @@ class StateLayout:
     def reduce_grads(self, named: Mapping[str, torch.Tensor]) -> None:
         """Form (b), after the backward: the gradient of the mean of the
         data ranks' losses."""
-        if self.data is not None and self.data.distributed \
-                and self.data.n > 1:
+        if split_ranks(self.data) > 1:
             mean_grads(named, self.fsdp_dims, self.data)
 
     def grad_norm(self, named_grads: Mapping[str, torch.Tensor]):
@@ -197,7 +250,8 @@ class TrainState:
         if self.lora is not None:
             base = dict(self.model.named_parameters())
             merged = merge_lora(gather(base) if gather else base,
-                                params or self.lora, self.lora_scale)
+                                params or self.lora, self.lora_scale,
+                                shard=self.layout.shard_delta)
             return lambda *a: functional_call(self.model, merged, a)
         if params is None and gather is None:
             return self.model
@@ -207,25 +261,47 @@ class TrainState:
             params = gather(params)
         return lambda *a: functional_call(self.model, params, a)
 
+    def _relaid(self, tree: Optional[Mapping], fn) -> Optional[dict]:
+        return None if tree is None else {n: fn(n, t) for n, t in
+                                          _flat(tree).items()}
+
+    def _optimizer_relaid(self, opt: Mapping, fn) -> dict:
+        """The optimizer's state dict with each moment passed through
+        ``fn(name, tensor)`` (its parameter's name; the step count as it
+        is)."""
+        names = list(self.trainable())
+        return dict(opt, state={i: {k: (fn(names[i], v) if torch.is_tensor(v)
+                                        and v.dim() else v)
+                                    for k, v in st.items()}
+                                for i, st in opt["state"].items()})
+
+    @torch.no_grad()
     def state_dict(self) -> dict:
         """Everything a resume needs, as a tree of tensors and numbers: the
         state's own tensors, not copies (``torch.save`` copies them); the
         model's buffers (a VAE's BatchNorm running statistics, the JAX
-        state's ``batch_stats``) too."""
-        detached = lambda tree: {n: t.detach() for n, t in
-                                 _flat(tree).items()}
+        state's ``batch_stats``) too. On a process-group mesh every rank
+        gathers the whole tensors from the slices (collectives)."""
+        if self.layout.distributed:
+            whole = lambda n, t: self.layout.whole(n, t.detach())
+        else:
+            whole = lambda n, t: t.detach()
+        names = list(self.trainable())
         return dict(
             step=self.step, updates=self.updates, mini_step=self.mini_step,
-            params=detached(self.params),
-            optimizer=self.optimizer.state_dict(),
-            ema=None if self.ema_params is None else detached(
-                self.ema_params),
-            acc_grads=self.acc_grads,
-            buffers=dict(self.model.named_buffers()))
+            params=self._relaid(self.params, whole),
+            optimizer=self._optimizer_relaid(self.optimizer.state_dict(),
+                                             whole),
+            ema=self._relaid(self.ema_params, whole),
+            acc_grads=None if self.acc_grads is None else [
+                whole(n, t) for n, t in zip(names, self.acc_grads)],
+            buffers=self._relaid(dict(self.model.named_buffers()), whole))
 
     @torch.no_grad()
     def load_state_dict(self, saved: Mapping) -> None:
-        """Fills this state, in place, from :meth:`state_dict`'s tree."""
+        """Fills this state, in place, from :meth:`state_dict`'s tree (the
+        whole tensors), each re-sliced to this state's layout."""
+        local = self.layout.local
         for key, own in (("params", self.params), ("ema", self.ema_params),
                          ("buffers", dict(self.model.named_buffers()))):
             own, got = _flat(own or {}), saved.get(key) or {}
@@ -233,12 +309,14 @@ class TrainState:
                 raise ValueError(f"checkpoint {key}: {sorted(set(own) ^ set(got))}"
                                  " differ from the state's")
             for name, t in own.items():
-                t.copy_(got[name])
+                t.copy_(local(name, got[name]))
         if (self.acc_grads is None) != (saved["acc_grads"] is None):
             raise ValueError("checkpoint and state differ in accumulation")
-        for t, got in zip(self.acc_grads or [], saved["acc_grads"] or []):
-            t.copy_(got)
-        self.optimizer.load_state_dict(saved["optimizer"])
+        for name, t, got in zip(self.trainable(), self.acc_grads or [],
+                                saved["acc_grads"] or []):
+            t.copy_(local(name, got))
+        self.optimizer.load_state_dict(self._optimizer_relaid(
+            saved["optimizer"], local))
         self.step = int(saved["step"])
         self.updates = int(saved["updates"])
         self.mini_step = int(saved["mini_step"])
@@ -324,19 +402,58 @@ def new_train_state(model: nn.Module, cfg, steps_per_epoch: int = 1, *,
 
 
 def lay_out(model: nn.Module, mesh, fsdp: bool,
-            lora: Optional[dict] = None, tp: bool = True) -> StateLayout:
+            tp: bool = True) -> StateLayout:
     """Lay ``model`` (filled, whole) out on ``mesh`` in place (TP over its
     ``model`` axis when ``tp``, FSDP over ``data`` when ``fsdp``) and return
-    its :class:`StateLayout`."""
+    its :class:`StateLayout`. A LoRA base, whose adapters were drawn from
+    it whole, is laid out as a trained model is: gathered over ``data`` at
+    the merge, each adapter's update sliced to its TP shard
+    (:meth:`StateLayout.shard_delta`)."""
     layout = StateLayout.for_model(model, mesh, fsdp, tp)
-    if lora is not None and layout.distributed and (
-            layout.model is not None or any(layout.fsdp_dims.values())):
-        raise NotImplementedError(
-            "LoRA on a process-group mesh with a model axis or FSDP: the "
-            "adapters would need the base's slices (ROADMAP.md, queue item "
-            "A8, second half, part 2)")
     layout.lay_out(model, mesh)
     return layout
+
+
+def data_axis(mesh):
+    """The ``data`` axis's collectives of ``mesh`` (None without one)."""
+    return (mesh.comm(DATA_AXIS) if mesh is not None
+            and DATA_AXIS in mesh.shape else None)
+
+
+def split_ranks(data) -> int:
+    """How many ranks share a batch: the size of a process-group ``data``
+    axis, else 1 (one process holds the whole batch)."""
+    return data.n if data is not None and data.distributed else 1
+
+
+def rank_mean(x: torch.Tensor, data) -> torch.Tensor:
+    """A value each rank computed on its shard, as the mean over the ranks
+    of ``data`` (form (b)); as it is elsewhere."""
+    x = x.detach()
+    if split_ranks(data) > 1:
+        x = x.clone()
+        torch.distributed.all_reduce(x, group=data.group)
+        x /= data.n
+    return x
+
+
+@torch.no_grad()
+def replicated_layout(model: nn.Module, mesh) -> StateLayout:
+    """The data-parallel layout of the VAE, ViT, CLIP and VLM trainers (the
+    JAX trainers' ``replicate``): the state whole on every rank, broadcast
+    from the group's first rank in form (b), the batch sharded. The modules
+    that reduce over the batch (``BatchNorm``, the ViT's dropout) get the
+    ``data`` axis, so that a rank computes its part of the global batch's
+    statistics and draws its slice of the global batch's masks."""
+    if mesh is None:
+        return StateLayout()
+    if mesh.distributed:
+        for t in itertools.chain(model.parameters(), model.buffers()):
+            t.copy_(replicate(mesh, t))
+    for m in model.modules():
+        if hasattr(m, "data_axis"):
+            m.data_axis = data_axis(mesh)
+    return lay_out(model, mesh, fsdp=False, tp=False)
 
 
 def apply_update(state: TrainState, loss: torch.Tensor,
@@ -397,6 +514,20 @@ def checkpoint_tree(state: TrainState,
     return tree
 
 
+def save_checkpoint(ckpt: CheckpointManager, step: int, state: TrainState,
+                    generator: Optional[torch.Generator],
+                    force: bool = False) -> None:
+    """``ckpt.save`` of the whole state. On a process-group mesh every rank
+    gathers (:func:`checkpoint_tree`), the group's first rank writes and
+    the others wait for it at a barrier, so that a rank that reads the
+    directory next finds the step."""
+    tree = checkpoint_tree(state, generator)
+    if state.layout.writer:
+        ckpt.save(step, tree, force=force)
+    if state.layout.group is not None:
+        torch.distributed.barrier(group=state.layout.group)
+
+
 def restore_tree(state: TrainState, generator: Optional[torch.Generator],
                  saved: Mapping) -> None:
     state.load_state_dict(saved)
@@ -443,8 +574,8 @@ def train_epochs(trainer, loader: Iterable, state: TrainState, epochs: int,
                     break
             if guard.should_stop:
                 if ckpt:
-                    ckpt.save(epoch, checkpoint_tree(state, generator),
-                              force=True)
+                    save_checkpoint(ckpt, epoch, state, generator,
+                                    force=True)
                 trainer.logger.log("preempted", epoch=epoch)
                 break
             epoch_loss = float(total) / max(count, 1)
@@ -459,7 +590,7 @@ def train_epochs(trainer, loader: Iterable, state: TrainState, epochs: int,
                    if batch_size and log_rate else {}))
             if ckpt and epoch_loss < best:
                 best = epoch_loss
-                ckpt.save(epoch, checkpoint_tree(state, generator))
+                save_checkpoint(ckpt, epoch, state, generator)
     return state
 
 
@@ -496,8 +627,7 @@ class DDPMTrainer:
         if mesh is not None:
             self.device = torch.device(mesh_device(mesh))
         self.mesh, self.fsdp = mesh, fsdp
-        self.data = (mesh.comm(DATA_AXIS) if mesh is not None
-                     and DATA_AXIS in mesh.shape else None)
+        self.data = data_axis(mesh)
         self.dtype = POLICIES[config.dtype].compute_dtype
         self.logger = logger or MetricsLogger()
         self.latent_encode_fn = latent_encode_fn
@@ -538,7 +668,7 @@ class DDPMTrainer:
                            base_params=self.base_params)
         model = model.to(memory_format=torch.channels_last).train()
         # a model axis replicates the model, as in the JAX trainer
-        layout = lay_out(model, self.mesh, self.fsdp, lora, tp=False)
+        layout = lay_out(model, self.mesh, self.fsdp, tp=False)
         return new_train_state(model, self.cfg, steps_per_epoch, lora=lora,
                                lora_scale=self.lora_scale, layout=layout)
 
@@ -565,8 +695,7 @@ class DDPMTrainer:
                               device=dev) < cfg.train_rand
         labels = torch.where(torch.as_tensor(drop, device=dev),
                              torch.zeros_like(labels), labels)
-        ranks = (self.data.n if self.data is not None
-                 and self.data.distributed else 1)
+        ranks = split_ranks(self.data)
         if ranks > 1:
             # the whole batch's draws, in ddpm_loss's order; each rank
             # keeps its slice of them, as of the batch
@@ -585,12 +714,7 @@ class DDPMTrainer:
                          gen, t=t, noise=noise).sum() * ranks / (
                              cfg.batch_size ** 2)
         apply_update(state, loss, cfg.grad_clip, cfg.ema_decay)
-        loss = loss.detach()
-        if ranks > 1:
-            loss = loss.clone()
-            torch.distributed.all_reduce(loss, group=self.data.group)
-            loss /= ranks
-        return state, loss
+        return state, rank_mean(loss, self.data)
 
     def fit(self, loader: Iterable, state: Optional[TrainState] = None,
             epochs: Optional[int] = None, sample_every: int = 1,
@@ -598,11 +722,6 @@ class DDPMTrainer:
         """Trains for ``epochs`` (``config.epoch``) passes over ``loader``
         (:func:`train_epochs`; ``sample_every`` is unused, as in the JAX
         trainer)."""
-        if checkpoint_dir and self.mesh is not None and self.mesh.distributed:
-            raise NotImplementedError(
-                "checkpoint_dir on a process-group mesh: every rank would "
-                "write its slices (ROADMAP.md, queue item A8, second half, "
-                "part 2)")
         if state is None:
             state = self.create_state(len(loader))
         return train_epochs(self, loader, state, epochs or self.cfg.epoch,

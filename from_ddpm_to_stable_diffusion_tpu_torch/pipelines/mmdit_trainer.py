@@ -22,8 +22,9 @@ The trainer features of ``pipelines/ddpm_trainer.py`` apply here too:
 ``cfg.grad_accum`` (``optax.MultiSteps`` semantics), LoRA (``lora_rank``,
 ``base_params``, ``lora_scale``: the frozen base merged with rank-r adapters
 inside the loss), ``fit(checkpoint_dir=)`` with the preemption guard and
-the resume from the latest step or ``cfg.epoch_awoken``, batches staged on
-the card, the metrics logger.
+the resume from the latest step or ``cfg.epoch_awoken`` (on a
+process-group mesh the whole state gathered and written by the first rank,
+restored into any layout), batches staged on the card, the metrics logger.
 
 The mesh (:mod:`..parallel`; ``mesh=`` or ``cfg.mesh_shape`` over the
 visible devices of the trainer's kind) takes ``data``, ``seq`` and
@@ -49,18 +50,18 @@ from typing import Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..models.mmdit import MMDiT, MMDiTConfig, collect_losses
 from ..ops.schedules import sd3_sigma_schedule
-from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, build_mesh, mesh_device,
+from ..parallel.mesh import (MODEL_AXIS, build_mesh, mesh_device,
                              shard_batch, visible_devices)
 from ..samplers.flow import flow_euler_sample, noise_scaling
 from ..utils.config import FlowTrainConfig
 from ..utils.dtypes import POLICIES
 from ..utils.logging import MetricsLogger
-from .ddpm_trainer import (TrainState, apply_update, init_params, lay_out,
-                           new_train_state, train_epochs)
+from .ddpm_trainer import (TrainState, apply_update, data_axis, init_params,
+                           lay_out, new_train_state, rank_mean, split_ranks,
+                           train_epochs)
 
 
 class MMDiTTrainer:
@@ -96,8 +97,7 @@ class MMDiTTrainer:
         self.mesh = mesh
         self.fsdp = fsdp
         self.model_mesh = mesh if (sp or model_cfg.moe_experts) else None
-        self.data = (mesh.comm(DATA_AXIS) if mesh is not None
-                     and DATA_AXIS in mesh.shape else None)
+        self.data = data_axis(mesh)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.logger = logger or MetricsLogger()
@@ -131,7 +131,7 @@ class MMDiTTrainer:
         lora = init_params(model, self.cfg.seed, params,
                            lora_rank=self.lora_rank,
                            base_params=self.base_params)
-        layout = lay_out(model, self.mesh, self.fsdp, lora)
+        layout = lay_out(model, self.mesh, self.fsdp)
         return new_train_state(model.train(), self.cfg, steps_per_epoch,
                                lora=lora, lora_scale=self.lora_scale,
                                layout=layout)
@@ -155,11 +155,6 @@ class MMDiTTrainer:
         if a is None or self.mesh is None:
             return self._to_device(a)
         return shard_batch(self.mesh, self._to_device(a))
-
-    @property
-    def _split_over_ranks(self) -> bool:
-        return self.data is not None and self.data.distributed \
-            and self.data.n > 1
 
     def loss(self, state: TrainState, latents, context, y, *, t_lin=None,
              noise=None, drop=None) -> torch.Tensor:
@@ -202,12 +197,7 @@ class MMDiTTrainer:
         state.model.train()
         loss = self.loss(state, latents, context, y, **draws)
         apply_update(state, loss, self.cfg.grad_clip, self.cfg.ema_decay)
-        loss = loss.detach()
-        if self._split_over_ranks:
-            loss = loss.clone()
-            dist.all_reduce(loss, group=self.data.group)
-            loss /= self.data.n
-        return state, loss
+        return state, rank_mean(loss, self.data)
 
     def fit(self, loader: Iterable, state: Optional[TrainState] = None,
             epochs: Optional[int] = None,
@@ -217,10 +207,6 @@ class MMDiTTrainer:
         checkpoints, the preemption guard, the resume, the epoch log). The
         logged ``epoch`` event carries ``epoch``, ``loss`` and ``sec``, as
         the JAX trainer logs it; ``history`` also keeps ``imgs_per_sec``."""
-        if checkpoint_dir and self.mesh is not None and self.mesh.distributed:
-            raise NotImplementedError(
-                "checkpoint_dir on a process-group mesh: every rank would "
-                "write it (ROADMAP.md, queue item A8, second half, part 2)")
         if state is None:
             state = self.create_state(len(loader))
         return train_epochs(self, loader, state, epochs or self.cfg.epoch,
@@ -250,7 +236,7 @@ class MMDiTTrainer:
         x = self._to_device(noise)
         if tuple(x.shape) != shape:
             raise ValueError(f"noise must be {shape}")
-        split = self._split_over_ranks
+        split = split_ranks(self.data) > 1
         if split:
             x, context, y = (None if a is None else self.data.scatter(a, 0)
                              for a in (x, context, y))

@@ -26,8 +26,12 @@ projections to W8A8 int8 (``ops/quantize.py``).
 ``SD1Generator(mesh=)`` serves tensor-parallel over the mesh's ``model``
 axis (:func:`..parallel.sharding.apply_tp` on every model of the bundle, in
 place: the attentions on each shard's heads, the VAE's one-head attention
-whole). Not ported (ROADMAP.md): ``loop="trajectory"`` (a CUDA graph of one
-step, queue A2), which raises ``NotImplementedError``.
+whole).
+
+``SD1Generator(loop="trajectory")`` runs the whole denoise loop, from the
+request's ``start_step`` to the end, as one captured CUDA graph: the
+counterpart of the JAX generator's one jitted ``lax.scan``, keyed as it is
+on (batch, start_step). See :class:`Trajectory`.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ from ..ops.image import rescale, to_uint8
 from ..ops.quantize import quantize_module
 from ..parallel.sharding import apply_tp
 from ..samplers.k_samplers import (SAMPLERS, KSamplerConfig, k_sampler_scan,
-                                   sigma_tables)
+                                   make_sampler_body, sigma_tables)
 from ..utils.dtypes import POLICIES, cast_params_for_inference
 
 
@@ -232,9 +236,86 @@ def _check_strength(strength):
         raise ValueError("strength must be between 0 and 1")
 
 
+class Trajectory:
+    """The denoise loop of one (batch, start_step) key over static buffers:
+    the initial latents, the text context and, for the ancestral sampler,
+    every step's noise, staged by :meth:`run` before the loop runs; the
+    final latents come out of ``out``.
+
+    On a CUDA device the first :meth:`run` warms one step up on a side
+    stream (the kernels' builds and plans, cuBLAS and cuDNN), then captures
+    every step into one ``torch.cuda.CUDAGraph`` on that stream; each run
+    copies into the buffers and replays it. The sampler's tables reach the
+    device before the capture, and the kernels' launch arguments (the flash
+    kernels' TMA descriptors among them) are baked in with the addresses of
+    the buffers and of the graph's own memory pool, which stay put while
+    the object lives. A failed capture or replay raises. On the CPU the same
+    loop runs on the same buffers without a graph."""
+
+    def __init__(self, gen: "SD1Generator", batch: int, cfg, tables,
+                 context: torch.Tensor):
+        dev = gen.device
+        self.start = tables["start_step"]
+        self.steps = range(self.start, cfg.n_inference_steps)
+        shape = (batch, gen.height // 8, gen.width // 8, 4)
+        self.latents = torch.zeros(shape, device=dev)
+        self.context = torch.zeros_like(context)
+        self.noise = (torch.zeros((len(self.steps),) + shape, device=dev)
+                      if cfg.method == "k_euler_ancestral" else None)
+        self.body, self.make_carry, self.extract = make_sampler_body(
+            lambda x, t: gen._denoise(x, t, self.context), cfg, tables, dev,
+            step_noise=lambda t: self.noise[t - self.start])
+        self.graph = None
+        self.out = None
+
+    def _loop(self):
+        carry = self.make_carry(self.latents)
+        for t in self.steps:
+            carry = self.body(carry, t)
+        return self.extract(carry)
+
+    def _warm_up(self, stream):
+        """One step, eagerly, on the capture stream: builds the kernels and
+        their launch plans, and makes the library handles, before a
+        capture that must not."""
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            self.body(self.make_carry(self.latents.clone()), self.start)
+        torch.cuda.current_stream(stream.device).wait_stream(stream)
+
+    def _capture(self, stream):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            self.out = self._loop()
+        self.graph = graph
+
+    def run(self, latents, context, step_noise) -> torch.Tensor:
+        """The final latents (a copy) from ``latents`` under ``context``;
+        ``step_noise(t)`` gives step t's noise (ancestral sampler)."""
+        self.latents.copy_(latents)
+        self.context.copy_(context)
+        if self.noise is not None:
+            for i, t in enumerate(self.steps):
+                z = step_noise(t)
+                self.noise[i].copy_(z if torch.is_tensor(z)
+                                    else torch.tensor(np.asarray(z)))
+        if self.latents.is_cuda:
+            if self.graph is None:
+                stream = torch.cuda.Stream(self.latents.device)
+                self._warm_up(stream)
+                self._capture(stream)
+            self.graph.replay()
+        else:
+            self.out = self._loop()
+        return self.out.clone()
+
+
 class SD1Generator:
     """Text→image and image→image at a fixed operating point; call it once
-    per request."""
+    per request. ``loop``: "steps" drives the sampler from a host loop of
+    eager steps, "trajectory" replays one captured CUDA graph of the whole
+    loop per (batch, start_step) (:class:`Trajectory`); both give the same
+    latents for the same draws."""
 
     def __init__(self, models: SD1Models, tokenizer=None,
                  sampler: str = "k_lms", n_inference_steps: int = 50,
@@ -242,12 +323,9 @@ class SD1Generator:
                  height: int = 512, width: int = 512,
                  prompt_weighting: bool = False, mesh=None,
                  loop: str = "steps"):
-        if loop == "trajectory":
-            raise NotImplementedError(
-                'loop="trajectory" is not ported: its counterpart, a CUDA '
-                "graph of one step, is queue A2 of ROADMAP.md")
-        if loop != "steps":
+        if loop not in ("steps", "trajectory"):
             raise ValueError(f"unknown loop value {loop!r}")
+        self.loop = loop
         if sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler value {sampler!r}")
         if height % 8 or width % 8:
@@ -271,6 +349,10 @@ class SD1Generator:
         self.cfg = KSamplerConfig(method=sampler,
                                   n_inference_steps=n_inference_steps)
         self.tables = sigma_tables(self.cfg)
+        # loop="trajectory": one Trajectory per (batch, start_step), as the
+        # JAX generator keeps one compiled scan per key (cfg and the tables
+        # are fixed at construction; a strength fixes start_step's table)
+        self.trajectories = {}
 
     def _denoise(self, x, timestep, context):
         """The model output for one step: with CFG one batch-2B UNet forward
@@ -308,11 +390,25 @@ class SD1Generator:
 
     def _sample(self, latents, context, cfg=None, tables=None,
                 generator=None, step_noise=None):
-        """Run the denoise loop from initial latents; final latents out."""
+        """Run the denoise loop from initial latents, through the loop the
+        generator was built with; final latents out."""
+        cfg = self.cfg if cfg is None else cfg
+        tables = self.tables if tables is None else tables
+        if self.loop == "trajectory":
+            key = (latents.shape[0], tables["start_step"])
+            traj = self.trajectories.get(key)
+            if traj is None:
+                traj = self.trajectories[key] = Trajectory(
+                    self, latents.shape[0], cfg, tables, context)
+            if step_noise is None and generator is not None:
+                # the eager loop's draws, in its order
+                step_noise = lambda t: torch.randn(
+                    latents.shape, generator=generator, dtype=latents.dtype,
+                    device=latents.device)
+            return traj.run(latents, context, step_noise)
         return k_sampler_scan(
-            lambda x, t: self._denoise(x, t, context), latents,
-            self.cfg if cfg is None else cfg, generator,
-            self.tables if tables is None else tables, step_noise)
+            lambda x, t: self._denoise(x, t, context), latents, cfg,
+            generator, tables, step_noise)
 
     def _given(self, name, array, shape):
         if tuple(np.shape(array)) != shape:

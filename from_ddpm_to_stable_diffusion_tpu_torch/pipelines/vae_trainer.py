@@ -1,5 +1,4 @@
-"""VAE / VQ-VAE training of stage 03 on one device (port of
-``pipelines/vae_trainer.py``).
+"""VAE / VQ-VAE training of stage 03 (port of ``pipelines/vae_trainer.py``).
 
 One train step: the model's loss on a batch in training mode (VanillaVAE:
 MSE + kld_weight · KLD with the reparameterisation noise drawn from the
@@ -12,8 +11,15 @@ running statistics with it) and, under SIGTERM, the epoch it stopped in;
 as in the JAX trainer it restores nothing. ``preview_dir`` receives a PNG
 of the preview images over their reconstructions after each epoch.
 
-Not ported (ROADMAP.md, queue item A8, second half, part 2: the other
-trainers' data meshes): the device mesh with data-parallel batch sharding.
+``mesh=`` (a :class:`..parallel.Mesh` with a ``data`` axis) replicates the
+state and shards the batch, as the JAX trainer does, and every reduction is
+over the global batch: the BatchNorm statistics and their running update
+(``models/vae.py::BatchNorm``), the losses (the mean of the ranks' equal
+shards), the reparameterisation noise (drawn for the whole batch and
+sliced). On a one-process mesh (form (a)) that is the meshless step; on a
+process-group mesh (form (b)) each rank computes its shard, the gradients
+are averaged over the ranks and the first rank writes the checkpoints
+(:func:`.ddpm_trainer.save_checkpoint`).
 """
 
 from __future__ import annotations
@@ -27,17 +33,27 @@ import torch
 from ..io.from_jax import load_jax_params
 from ..models.vae import VanillaVAE, VQVAE
 from ..ops.image import image_grid, to_uint8, write_png
+from ..parallel.mesh import mesh_device, shard_batch
 from ..utils.checkpoint import CheckpointManager, PreemptionGuard
 from ..utils.config import VAETrainConfig
 from ..utils.dtypes import POLICIES
 from ..utils.logging import MetricsLogger
-from .ddpm_trainer import (TrainState, apply_update, checkpoint_tree,
-                           new_train_state)
+from .ddpm_trainer import (TrainState, apply_update, data_axis,
+                           new_train_state, rank_mean, replicated_layout,
+                           save_checkpoint, split_ranks)
 from .sd1 import flax_default_init_
 
 
 def _on(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _on_mesh(trainer, tree):
+    """A whole batch (a tree of arrays) on the trainer's device, sharded
+    over its mesh's ``data`` axis where it has one."""
+    if trainer.mesh is None:
+        return tree
+    return shard_batch(trainer.mesh, tree)
 
 
 def _log_epoch(trainer, epoch: int, loss: float, t0: float, **extra):
@@ -49,19 +65,18 @@ def _log_epoch(trainer, epoch: int, loss: float, t0: float, **extra):
 
 class VAETrainer:
     """Trains ``config.model`` ("vanilla" or "vqvae") on image batches (B,
-    H, W, 3) in [−1, 1]."""
+    H, W, 3) in [−1, 1]. ``mesh``: a data mesh (module docstring), whose
+    device (form (a)) or rank's device (form (b)) the trainer takes."""
 
     def __init__(self, config: VAETrainConfig, device="cuda", mesh=None,
                  logger: Optional[MetricsLogger] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: not ported yet (ROADMAP.md, queue item A8, second "
-                "half, part 2: the other trainers' data meshes); one "
-                "device")
         if config.model not in ("vanilla", "vqvae"):
             raise ValueError(f"unknown VAE model {config.model!r}")
         self.cfg = config
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.data = data_axis(mesh)
+        self.device = torch.device(mesh_device(mesh) if mesh is not None
+                                   else device)
         self.dtype = POLICIES[config.dtype].compute_dtype
         self.logger = logger or MetricsLogger()
         # the reparameterisation noise (the JAX fit's key(seed + 2))
@@ -98,7 +113,8 @@ class VAETrainer:
         model = model.to(memory_format=torch.channels_last).train()
         lr = self.cfg.lr
         return new_train_state(model, None, schedule=lambda count: lr,
-                               weight_decay=self.cfg.weight_decay)
+                               weight_decay=self.cfg.weight_decay,
+                               layout=replicated_layout(model, self.mesh))
 
     def num_params(self, state: TrainState) -> int:
         return sum(p.numel() for p in state.model.parameters())
@@ -106,18 +122,28 @@ class VAETrainer:
     def train_step(self, state: TrainState, images, *, eps=None):
         """One update on a batch; returns (state, metrics) with the loss and
         its terms. ``eps``: the VanillaVAE's reparameterisation noise (B,
-        latent_dim), drawn from the trainer's generator unless given."""
+        latent_dim), drawn from the trainer's generator unless given. On a
+        mesh ``images`` and ``eps`` are the whole batch's."""
         x = _on(images, self.device)
         model = state.model.train()
         if self.cfg.model == "vanilla":
+            if eps is None and split_ranks(self.data) > 1:
+                # the whole batch's draw, sliced with the batch
+                eps = torch.randn((x.shape[0], self.cfg.latent_dim),
+                                  generator=self.generator,
+                                  device=self.device)
+            if eps is not None:
+                eps = _on(eps, self.device)
+            x, eps = _on_mesh(self, (x, eps))
             recon, mu, log_var = model(x, eps, self.generator)
             metrics = VanillaVAE.loss(recon, x, mu, log_var,
                                       self.cfg.kld_weight)
         else:
+            x = _on_mesh(self, x)
             recon, vq_loss, _ = model(x)
             metrics = VQVAE.loss(recon, x, vq_loss)
         apply_update(state, metrics["loss"], None, None)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, {k: rank_mean(v, self.data) for k, v in metrics.items()}
 
     @torch.no_grad()
     def reconstruct(self, state: TrainState, images, eps=None):
@@ -155,16 +181,15 @@ class VAETrainer:
                         break
                 if guard.should_stop:
                     if ckpt:
-                        ckpt.save(epoch, checkpoint_tree(state,
-                                                         self.generator),
-                                  force=True)
+                        save_checkpoint(ckpt, epoch, state, self.generator,
+                                        force=True)
                     self.logger.log("preempted", epoch=epoch)
                     break
                 loss = float(total) / max(count, 1)
                 _log_epoch(self, epoch, loss, t0)
                 if ckpt and loss < best:
                     best = loss
-                    ckpt.save(epoch, checkpoint_tree(state, self.generator))
+                    save_checkpoint(ckpt, epoch, state, self.generator)
                 if preview_batch is not None and preview_dir:
                     self._save_preview(state, preview_batch, preview_dir,
                                        epoch)

@@ -1,4 +1,4 @@
-"""ViT classification training of stage 04 on one device (port of
+"""ViT classification training of stage 04 (port of
 ``pipelines/vit_trainer.py``).
 
 One train step: cross entropy of the logits against integer labels (mean
@@ -12,8 +12,14 @@ mode. ``fit`` saves the epoch whose validation accuracy is the best so far
 and, under SIGTERM, the epoch it stopped in; as in the JAX trainer it
 restores nothing.
 
-Not ported (ROADMAP.md, queue item A8, second half, part 2: the other
-trainers' data meshes): the device mesh with data-parallel batch sharding.
+``mesh=`` (a data mesh) replicates the state and shards the batch, as the
+JAX trainer does: the loss and accuracy are the global batch's means (of
+the ranks' equal shards) and, on a process-group mesh (form (b)), each
+rank's dropout masks are its slice of the masks drawn for the whole batch
+(``models/vit.py::dropout``; the ranks' global generators must be seeded
+alike), the gradients averaged over the ranks and the checkpoints written
+by the first rank. On a one-process mesh (form (a)) the step is the
+meshless one.
 """
 
 from __future__ import annotations
@@ -26,26 +32,26 @@ import torch.nn.functional as F
 
 from ..io.from_jax import load_jax_params
 from ..models.vit import ViT
+from ..parallel.mesh import mesh_device
 from ..utils.checkpoint import CheckpointManager, PreemptionGuard
 from ..utils.config import ViTTrainConfig
 from ..utils.dtypes import POLICIES
 from ..utils.logging import MetricsLogger
-from .ddpm_trainer import (TrainState, apply_update, checkpoint_tree,
-                           new_train_state)
+from .ddpm_trainer import (TrainState, apply_update, data_axis,
+                           new_train_state, rank_mean, replicated_layout,
+                           save_checkpoint)
 from .sd1 import flax_default_init_
-from .vae_trainer import _log_epoch, _on
+from .vae_trainer import _log_epoch, _on, _on_mesh
 
 
 class ViTTrainer:
     def __init__(self, config: ViTTrainConfig, device="cuda", mesh=None,
                  logger: Optional[MetricsLogger] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: not ported yet (ROADMAP.md, queue item A8, second "
-                "half, part 2: the other trainers' data meshes); one "
-                "device")
         self.cfg = config
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.data = data_axis(mesh)
+        self.device = torch.device(mesh_device(mesh) if mesh is not None
+                                   else device)
         self.dtype = POLICIES[config.dtype].compute_dtype
         self.logger = logger or MetricsLogger()
         self.history: List[dict] = []
@@ -73,20 +79,23 @@ class ViTTrainer:
             load_jax_params(model, params)
         model = model.to(memory_format=torch.channels_last).train()
         lr = self.cfg.lr
-        return new_train_state(model, None, schedule=lambda count: lr)
+        return new_train_state(model, None, schedule=lambda count: lr,
+                               layout=replicated_layout(model, self.mesh))
 
     def num_params(self, state: TrainState) -> int:
         return sum(p.numel() for p in state.model.parameters())
 
     def train_step(self, state: TrainState, images, labels):
-        """One update on a batch; returns (state, loss, accuracy)."""
+        """One update on a batch (the whole batch on a mesh); returns
+        (state, loss, accuracy)."""
         x = _on(images, self.device)
         labels = torch.as_tensor(labels, device=self.device).long()
+        x, labels = _on_mesh(self, (x, labels))
         logits = state.model.train()(x)
         loss = F.cross_entropy(logits, labels)
         acc = (logits.argmax(-1) == labels).float().mean()
         apply_update(state, loss, None, None)
-        return state, loss.detach(), acc.detach()
+        return state, rank_mean(loss, self.data), rank_mean(acc, self.data)
 
     @torch.no_grad()
     def evaluate(self, state: TrainState, loader: Iterable) -> float:
@@ -124,8 +133,7 @@ class ViTTrainer:
                         break
                 if guard.should_stop:
                     if ckpt:
-                        ckpt.save(epoch, checkpoint_tree(state, None),
-                                  force=True)
+                        save_checkpoint(ckpt, epoch, state, None, force=True)
                     self.logger.log("preempted", epoch=epoch)
                     break
                 extra = {}
@@ -136,5 +144,5 @@ class ViTTrainer:
                            **extra)
                 if ckpt and extra.get("val_acc", 0.0) > best_acc:
                     best_acc = extra.get("val_acc", 0.0)
-                    ckpt.save(epoch, checkpoint_tree(state, None))
+                    save_checkpoint(ckpt, epoch, state, None)
         return state

@@ -1,5 +1,4 @@
-"""TinyVLM training and evaluation on one device (port of
-``pipelines/vlm_trainer.py``).
+"""TinyVLM training and evaluation (port of ``pipelines/vlm_trainer.py``).
 
 One train step: next-token cross entropy of the captions given the image
 (:func:`..models.tiny_vlm.vlm_loss`), backward, the global gradient norm
@@ -16,8 +15,14 @@ exact-match greedy decodes against the dataset's ground truth.
 and, under SIGTERM, the epoch it stopped in; as in the JAX trainer it
 restores nothing.
 
-Not ported (ROADMAP.md, queue item A8, second half, part 2: the other
-trainers' data meshes): the device mesh with data-parallel batch sharding.
+``mesh=`` (a data mesh) replicates the state and shards the batch, as the
+JAX trainer does, where the loss is the global batch's NLL sum over its
+count of unpadded targets. On a process-group mesh (form (b)) each rank
+divides its NLL sum by that global count (``vlm_loss(data_axis=)``), so the
+loss is right however the ranks' captions are padded; the gradients are
+averaged over the ranks, the clip sees their whole norm, and the first rank
+writes the checkpoints. On a one-process mesh (form (a)) the step is the
+meshless one.
 """
 
 from __future__ import annotations
@@ -32,10 +37,12 @@ from ..models.siglip import SiglipVisionConfig
 from ..models.tiny_vlm import (TINY_VISION, TinyVLM, as_tensor_on,
                                greedy_decode, vlm_loss)
 from ..ops.schedules import warmup_cosine_decay_lr
+from ..parallel.mesh import mesh_device, shard_batch
 from ..utils.dtypes import POLICIES
 from ..utils.logging import MetricsLogger
-from .ddpm_trainer import (TrainState, apply_update, init_params,
-                           new_train_state, train_epochs)
+from .ddpm_trainer import (TrainState, apply_update, data_axis, init_params,
+                           new_train_state, rank_mean, replicated_layout,
+                           train_epochs)
 
 
 class VLMTrainer:
@@ -52,17 +59,15 @@ class VLMTrainer:
                  total_steps: int = 2000, device="cuda", mesh=None,
                  logger: Optional[MetricsLogger] = None, seed: int = 0,
                  answer_start: int = 0):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: not ported yet (ROADMAP.md, queue item A8, second "
-                "half, part 2: the other trainers' data meshes); one "
-                "device")
         self.model_args = dict(vocab_size=vocab_size, dim=dim, depth=depth,
                                num_heads=num_heads, max_text_len=max_text_len,
                                vision_cfg=vision_cfg)
         self.max_text_len = max_text_len
         self.answer_start = answer_start   # VQA: mask the question's targets
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.data = data_axis(mesh)
+        self.device = torch.device(mesh_device(mesh) if mesh is not None
+                                   else device)
         self.policy = POLICIES[dtype]
         self.schedule = warmup_cosine_decay_lr(
             0.0, lr, warmup_steps, max(total_steps, warmup_steps + 1),
@@ -90,28 +95,31 @@ class VLMTrainer:
         model = self.make_model(image_size)
         init_params(model, self.seed, params)
         return new_train_state(model.train(), None, schedule=self.schedule,
-                               weight_decay=self.weight_decay)
+                               weight_decay=self.weight_decay,
+                               layout=replicated_layout(model, self.mesh))
 
     def num_params(self, state: TrainState) -> int:
         return sum(p.numel() for p in state.model.parameters())
 
     def _batch(self, images, tokens):
-        return (as_tensor_on(images, self.device, torch.float32),
-                as_tensor_on(tokens, self.device, torch.long))
+        batch = (as_tensor_on(images, self.device, torch.float32),
+                 as_tensor_on(tokens, self.device, torch.long))
+        return batch if self.mesh is None else shard_batch(self.mesh, batch)
 
     def loss(self, state: TrainState, images, tokens) -> torch.Tensor:
-        """The caption loss of a batch under ``state``'s parameters,
-        differentiable."""
+        """The caption loss of a batch (the whole batch on a mesh) under
+        ``state``'s parameters, differentiable; on a process-group mesh the
+        rank's share (``vlm_loss(data_axis=)``)."""
         images, tokens = self._batch(images, tokens)
         return vlm_loss(state.model_fn()(images, tokens), tokens,
-                        answer_start=self.answer_start)
+                        answer_start=self.answer_start, data_axis=self.data)
 
     def train_step(self, state: TrainState, images, tokens):
         """One update on a batch; returns (state, loss)."""
         state.model.train()
         loss = self.loss(state, images, tokens)
         apply_update(state, loss, 1.0, None)
-        return state, loss.detach()
+        return state, rank_mean(loss, self.data)
 
     def fit(self, loader: Iterable, state: Optional[TrainState] = None,
             epochs: int = 1, image_size: int = 64,

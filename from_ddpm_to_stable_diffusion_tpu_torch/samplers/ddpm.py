@@ -54,10 +54,12 @@ def ddpm_loss(model_fn: Callable, tables: DDPMTables, x0, labels, T: int,
 
 def ddpm_sample(model_fn: Callable, tables: DDPMTables, x_T, labels, T: int,
                 w: float = 0.0, generator: Optional[torch.Generator] = None,
-                noise_fn: Optional[Callable] = None):
+                noise_fn: Optional[Callable] = None,
+                batched_cfg: bool = True):
     """The T-step ancestral reverse process from ``x_T``, clipped to [−1, 1].
 
-    ε̂ = (1+w)·ε(x, t, labels) − w·ε(x, t, 0), as one forward at batch 2B;
+    ε̂ = (1+w)·ε(x, t, labels) − w·ε(x, t, 0), as one forward at batch 2B
+    (``batched_cfg``) or as two forwards at batch B, cond then uncond;
     x_{t−1} = c1·x − c2·ε̂ + √var·z, with no noise at t = 0. ``noise_fn(step)``
     gives z for loop step ``step`` (t = T−1−step); otherwise z is drawn from
     ``generator``.
@@ -69,8 +71,14 @@ def ddpm_sample(model_fn: Callable, tables: DDPMTables, x_T, labels, T: int,
     x = x_T
     for step in range(T):
         t = T - 1 - step
-        t_vec = torch.full((2 * b,), t, dtype=torch.int32, device=x.device)
-        cond, uncond = model_fn(torch.cat([x, x]), t_vec, ll).chunk(2)
+        if batched_cfg:
+            t_vec = torch.full((2 * b,), t, dtype=torch.int32,
+                               device=x.device)
+            cond, uncond = model_fn(torch.cat([x, x]), t_vec, ll).chunk(2)
+        else:
+            t_vec = torch.full((b,), t, dtype=torch.int32, device=x.device)
+            cond = model_fn(x, t_vec, labels)
+            uncond = model_fn(x, t_vec, torch.zeros_like(labels))
         eps = (1.0 + w) * cond - w * uncond
         x = c1[t] * x - c2[t] * eps
         if t > 0:

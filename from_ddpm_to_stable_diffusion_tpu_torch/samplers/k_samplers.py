@@ -11,7 +11,13 @@ the fp32 timestep and returns the CFG-combined model output.
 The ancestral sampler's per-step noise comes from a ``torch.Generator`` or
 from a ``step_noise`` hook, a callable ``t -> array`` of the latent's shape
 (the JAX package draws ``normal(fold_in(rng, t))``; a test feeds those
-draws through the hook).
+draws through the hook). A hook that returns a tensor on the latents'
+device is used as it is, with no host copy: the form a captured CUDA graph
+needs (``pipelines/sd1.py``'s trajectory loop stages every step's noise in
+a buffer before the replay).
+
+The tables reach the device when :func:`make_sampler_body` is called, never
+inside ``body``, so a body whose step index is a Python int can be captured.
 """
 
 from __future__ import annotations
@@ -138,8 +144,10 @@ def make_sampler_body(denoise_fn: Callable, cfg: KSamplerConfig,
         s_down = s_to ** 2 / s_from_safe
         x = x + out * (s_down - s_from)
         if step_noise is not None:
-            noise = torch.tensor(np.asarray(step_noise(t)), dtype=x.dtype,
-                                 device=x.device)
+            noise = step_noise(t)
+            if not torch.is_tensor(noise):
+                noise = torch.tensor(np.asarray(noise), dtype=x.dtype,
+                                     device=x.device)
         else:
             noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
                                 device=x.device)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Mapping, Optional, Pattern
+from typing import Callable, Dict, Mapping, Optional, Pattern
 
 import numpy as np
 import torch
@@ -92,17 +92,22 @@ def init_lora(module: nn.Module, rank: int = 8,
 
 def merge_lora(named_params: Mapping[str, torch.Tensor],
                lora: Mapping[str, Mapping[str, torch.Tensor]],
-               scale: float = 1.0) -> Dict[str, torch.Tensor]:
+               scale: float = 1.0,
+               shard: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """name -> W + (scale/r)·ΔW for every adapted weight, ΔW = tensordot(A,
     B) in the Flax layout turned into the torch layout; every other
-    parameter of ``named_params`` passes through untouched."""
+    parameter of ``named_params`` passes through untouched. ``shard(name,
+    ΔW)``: the part of ΔW that a tensor-parallel rank's slice W takes."""
     merged = dict(named_params)
     for path, e in lora.items():
         name = weight_name(path)
         w = merged[name]
         r = e["b"].shape[0]
-        delta = torch.tensordot(e["a"], e["b"], dims=([-1], [0]))
-        merged[name] = w + (scale / r) * _to_torch_layout(delta).to(w.dtype)
+        delta = _to_torch_layout(torch.tensordot(e["a"], e["b"],
+                                                 dims=([-1], [0])))
+        if shard is not None:
+            delta = shard(name, delta)
+        merged[name] = w + (scale / r) * delta.to(w.dtype)
     return merged
 
 

@@ -28,6 +28,7 @@ from from_ddpm_to_stable_diffusion_tpu.models import clip as jclip
 from from_ddpm_to_stable_diffusion_tpu.ops import image as jimage
 from from_ddpm_to_stable_diffusion_tpu.pipelines import (
     clip_trainer as jtrainer)
+from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
 from from_ddpm_to_stable_diffusion_tpu_torch.io import weights as tw
 from from_ddpm_to_stable_diffusion_tpu_torch.io import weights_clip as twc
 from from_ddpm_to_stable_diffusion_tpu_torch.io.from_jax import (
@@ -283,8 +284,10 @@ def test_clip_trainer_fit_checkpoint_and_signature(clip_run, tmp_path):
     assert np.isfinite(trainer.history[0]["loss"])
     saved, step = CheckpointManager(str(tmp_path)).restore()
     assert step == 0 and set(saved["params"]) == set(state.trainable())
-    with pytest.raises(NotImplementedError, match="A8"):
-        CLIPTrainer(tclip.CLIP(**SMALL), mesh=object())
+    # a data mesh (tests/test_torch_data_mesh.py holds its steps)
+    meshed = CLIPTrainer(tclip.CLIP(**SMALL), device="cpu", mesh=build_mesh(
+        {"data": 2}, [torch.device("cpu")] * 2))
+    assert meshed.device == torch.device("cpu") and meshed.data.n == 2
     with pytest.raises(ValueError, match="context_length"):
         trainer.create_state((28, 28, 3), 77)
     # the position table is sized by image_shape, as the JAX tower's is by

@@ -307,7 +307,7 @@ def test_port_never_imports_jax():
                "utils.metrics", "pipelines.clip_trainer", "cli.checks",
                "cli.demos", "parallel", "parallel.mesh",
                "parallel.ring_attention", "parallel.expert",
-               "parallel.pipeline"]
+               "parallel.pipeline", "io.native"]
     # Pillow and matplotlib are not promised on the card's machine: only the
     # calls that read an image or draw a plot import them
     code = ("import sys\n"

@@ -28,6 +28,18 @@ under ``tmp_path`` (no port), each spawn joined with its own timeout.
   hybrid FSDP x TP ``MMDiTTrainer`` step on {"data": 2, "model": 2}, each
   rank's stored slices against its slices of form (a)'s step (AdamW
   tolerance), the loss within rtol 1e-5.
+- 2 ranks, data meshes: one ``fit`` step with ``checkpoint_dir`` of the
+  VAE, ViT, CLIP and VLM trainers on {"data": 2}, on batches that make a
+  per-rank shortcut fail (BatchNorm halves with different means, dropout,
+  CLIP's global logits, the VLM's global token count); loss within rtol
+  1e-5, parameters within the AdamW tolerance of form (a)'s, the BatchNorm
+  running statistics within 1e-5; the first rank's checkpoint holds the
+  ranks' state bit for bit.
+- 2 ranks, process-group checkpoints and LoRA: an FSDP DDPM ``fit`` whose
+  checkpoint holds the ranks' slices joined, resumed through ``fit`` by a
+  replicated data-parallel trainer against the meshless resume; a TP
+  MMDiT ``fit`` whose checkpoint each rank's slices are cut from, restored
+  meshless; one LoRA step under TP and one under FSDP against form (a).
 """
 
 import multiprocessing as mp
@@ -42,9 +54,13 @@ from from_ddpm_to_stable_diffusion_tpu_torch.parallel.pipeline import (
 from from_ddpm_to_stable_diffusion_tpu_torch.parallel.ring_attention import (
     ring_attention, ulysses_attention)
 from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
-from torch_trainer_parity import assert_adamw_close, lr_bound
+from torch_trainer_parity import assert_adamw_close, lr_bound, port_flat
 from from_ddpm_to_stable_diffusion_tpu_torch.parallel.sharding import (
     tp_roles, tp_slice)
+from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
+    restore_tree)
+from from_ddpm_to_stable_diffusion_tpu_torch.utils.checkpoint import (
+    CheckpointManager)
 
 JOIN_TIMEOUT_S = 120
 
@@ -191,3 +207,140 @@ def test_process_group_fsdp_steps_match_one_process(tmp_path):
             assert_adamw_close({n: p.numpy() for n, p in
                                 r[kind]["params"].items()}, want,
                                lr_bound(state.schedule, 1), kind)
+
+
+def _numpy(tree):
+    return {n: t.numpy() for n, t in tree.items()}
+
+
+def _live(params):
+    """The parameters without the key third of each fused qkv bias: it adds
+    one constant to a query's every logit, so its gradient is analytically
+    zero and rounding noise, which AdamW's first update turns into ±lr
+    (held to that bound alone)."""
+    out = {}
+    for n, a in params.items():
+        a = a.numpy()
+        if n.endswith("qkv.bias"):
+            c = a.shape[0] // 3
+            a = np.concatenate([a[:c], a[2 * c:]])
+        out[n] = a
+    return out
+
+
+def _first_moments(saved):
+    return torch.cat([st["exp_avg"].flatten()
+                      for st in saved["optimizer"]["state"].values()])
+
+
+def test_process_group_data_meshes_match_one_process(tmp_path):
+    """Each rank's loss, BatchNorm running statistics and parameters, and
+    the whole gradient (the first AdamW moment in the checkpoints) against
+    form (a)'s. The ViT and the VAE at their random init amplify rounding:
+    the same batch of 4 split into halves in one process moves their
+    gradients by 2.3e-3 and 1.2e-2 (rel L2), and AdamW's first update turns
+    any sign a rounding flips into ±lr; so their parameters are held to the
+    2 lr bound and their gradients to 3e-2, where a per-rank shortcut
+    (per-rank statistics, masks or logits) moves them by far more. CLIP
+    and the VLM agree to 1e-6 and are held to the AdamW tolerance (the key
+    biases, see ``_live``, to the bound)."""
+    ranks = _spawn("dp", tmp_path)
+    setups = worker.dp_setups(_cpu_mesh({"data": worker.DP}))
+    for name, (trainer, loader, kw) in setups.items():
+        want = worker.dp_fit(name, trainer, loader, kw,
+                             str(tmp_path / f"a_{name}"))
+        saved, step = CheckpointManager(str(tmp_path / f"dp_{name}")
+                                        ).restore()
+        own, _ = CheckpointManager(str(tmp_path / f"a_{name}")).restore()
+        assert step == 0, name
+        g, g_want = _first_moments(saved), _first_moments(own)
+        rel = float((g - g_want).norm() / g_want.norm())
+        assert rel <= (3e-2 if name in ("vit", "vae") else 1e-6), (name, rel)
+        for r in ranks:
+            got = r[name]
+            np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5,
+                                       err_msg=name)
+            for n, w in want["params"].items():
+                assert (got["params"][n] - w).abs().max() <= 2e-3 + 1e-6
+            if name not in ("vit", "vae"):
+                assert_adamw_close(_live(got["params"]),
+                                   _live(want["params"]), 2e-3 + 1e-6, name)
+            for n, b in want["buffers"].items():
+                np.testing.assert_allclose(got["buffers"][n].numpy(),
+                                           b.numpy(), rtol=1e-5, atol=1e-6,
+                                           err_msg=f"{name} {n}")
+            for n, t in saved["params"].items():
+                assert torch.equal(t, got["params"][n]), (name, n)
+        if name == "vae":
+            assert want["buffers"], name     # the running statistics
+
+
+def test_process_group_checkpoints_and_lora_match_one_process(tmp_path):
+    ranks = _spawn("pg", tmp_path)
+    # the FSDP DDPM fit: its checkpoint is the ranks' slices joined, and
+    # the form (a) fit within the AdamW tolerance
+    trainer, state, loader = worker.pg_ddpm(_cpu_mesh({"data": worker.DP}))
+    dims = state.layout.fsdp_dims
+    assert any(d is not None for d in dims.values())
+    state = trainer.fit(loader, state, epochs=1,
+                        checkpoint_dir=str(tmp_path / "a_ddpm"))
+    saved, step = CheckpointManager(str(tmp_path / "pg_ddpm")).restore()
+    assert step == 0
+    for n, t in saved["params"].items():
+        parts = [r["ddpm_fsdp"][n] for r in ranks]
+        whole = parts[0] if dims[n] is None else torch.cat(parts, dims[n])
+        assert torch.equal(t, whole), n
+    bound = lr_bound(state.schedule, 2)
+    assert_adamw_close(_numpy(saved["params"]), port_flat(state.params),
+                       bound, "ddpm fsdp")
+    # resumed through fit by a replicated data-parallel trainer (form (b))
+    # and by a meshless one, from the same file
+    trainer, state, loader = worker.pg_ddpm(None, fsdp=False)
+    state = trainer.fit(loader[:1], state, epochs=1,
+                        checkpoint_dir=str(tmp_path / "pg_ddpm"))
+    assert CheckpointManager(str(tmp_path / "pg_ddpm")).all_steps() == [0]
+    assert state.updates == 3
+    for r in ranks:
+        np.testing.assert_allclose(r["ddpm_resumed_loss"],
+                                   trainer.history[-1]["loss"], rtol=1e-5)
+        assert_adamw_close(_numpy(r["ddpm_resumed"]),
+                           port_flat(state.params),
+                           lr_bound(state.schedule, 3), "ddpm resumed")
+    # the TP MMDiT fit: each rank's slices cut from its checkpoint, which
+    # restores meshless bit for bit and matches form (a)'s fit
+    mesh = _cpu_mesh({"model": worker.DP})
+    trainer, state = worker.pg_mmdit(mesh)
+    roles = tp_roles(state.model, worker.DP)
+    assert roles
+    state = trainer.fit([worker.mmdit_batch()], state, epochs=1,
+                        checkpoint_dir=str(tmp_path / "a_mmdit"))
+    saved, step = CheckpointManager(str(tmp_path / "pg_mmdit")).restore()
+    assert step == 0
+    for j, r in enumerate(ranks):
+        for n, t in saved["params"].items():
+            part = tp_slice(t, roles[n], j, worker.DP) if n in roles else t
+            assert torch.equal(part, r["mmdit_tp"][n]), (j, n)
+    assert_adamw_close(_numpy(saved["params"]), port_flat(state.params),
+                       lr_bound(state.schedule, 1), "mmdit tp")
+    trainer, state = worker.pg_mmdit(None)
+    restore_tree(state, trainer.generator, saved)
+    for n, p in state.params.items():
+        assert torch.equal(p.detach(), saved["params"][n]), n
+    assert state.updates == 1 and len(state.optimizer.state) == len(
+        saved["params"])
+    # LoRA under TP and under FSDP, one step each against form (a)
+    ddpm_trainer, ddpm_state, ddpm_loader = worker.pg_ddpm(
+        _cpu_mesh({"data": worker.DP}), lora_rank=4)
+    for key, (trainer, state), batch, draws in (
+            ("lora_tp", worker.pg_mmdit(mesh, lora_rank=4),
+             worker.mmdit_batch(), worker.MMDIT_DRAWS),
+            ("lora_fsdp", (ddpm_trainer, ddpm_state), ddpm_loader[0],
+             worker.DDPM_DRAWS)):
+        assert state.lora is not None
+        state, loss = trainer.train_step(state, *batch, **draws)
+        for r in ranks:
+            np.testing.assert_allclose(r[key]["loss"].item(), loss.item(),
+                                       rtol=1e-5, err_msg=key)
+            assert_adamw_close(_numpy(r[key]["params"]),
+                               port_flat(state.params),
+                               lr_bound(state.schedule, 1), key)

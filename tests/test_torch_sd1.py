@@ -271,5 +271,9 @@ def test_sd1_generator_contract(jax_bundle):
     tpipe.SD1Generator(models, sampler="k_euler")      # ported since
     with pytest.raises(ValueError, match="unknown sampler value 'k_heun'"):
         tpipe.SD1Generator(models, sampler="k_heun")
-    with pytest.raises(NotImplementedError, match="queue A2"):
-        tpipe.SD1Generator(models, loop="trajectory")
+    traj = tpipe.SD1Generator(models, n_inference_steps=1, height=H,
+                              width=W, loop="trajectory")
+    np.testing.assert_array_equal(traj(["a"], seed=3), a)
+    assert list(traj.trajectories) == [(1, 0)]
+    with pytest.raises(ValueError, match="unknown loop value 'scan'"):
+        tpipe.SD1Generator(models, loop="scan")

@@ -213,8 +213,12 @@ def test_validation_messages_are_the_jax_ones(bundle):
                dict(input_images=_images(1, 1), strength=2.0)):
         assert (_message(lambda: tgen(["a"], **kw))
                 == _message(lambda: jgen(["a"], **kw))), kw
-    with pytest.raises(NotImplementedError, match="queue A2"):
-        tpipe.SD1Generator(bundle.torch, loop="trajectory")
+    traj = tpipe.SD1Generator(bundle.torch, loop="trajectory", **size)
+    assert traj.loop == "trajectory" and not traj.trajectories
+    for kw in (dict(per_sample_seeds=[1], input_images=_images(1, 1)),
+               dict(input_images=_images(1, 1), strength=2.0)):
+        assert (_message(lambda: traj(["a"], **kw))
+                == _message(lambda: jgen(["a"], **kw))), kw
 
 
 def test_img2img_without_an_encoder_says_so(bundle):

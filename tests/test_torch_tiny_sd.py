@@ -386,6 +386,39 @@ def test_ddpm_sample_matches_jax(slice_run):
                                rtol=RTOL)
 
 
+def test_ddpm_sample_two_forward_cfg_matches_jax(slice_run):
+    """``batched_cfg=False``: cond then uncond as two batch-B forwards, in
+    both packages, from the same x_T with JAX's per-step noise; and within
+    1e-5 of the port's batch-2B form, as the JAX test holds its two."""
+    cfg = jconfig.TinySDConfig(**CFG)
+    model, params = slice_run["model"], slice_run["params"]
+    tables = jsched.ddpm_tables(cfg.beta_1, cfg.beta_T, cfg.T)
+    x_T = _rand((2, 16, 16, 3), 12)
+    labels = np.asarray([2, 0], np.int32)
+    rng = jax.random.key(6)
+    want = jax.jit(lambda p, x: jddpm.ddpm_sample(
+        lambda a, t, y: model.apply({"params": p}, a, t, y), tables, x,
+        jnp.asarray(labels), rng, cfg.T, w=cfg.w, batched_cfg=False))(
+            params, jnp.asarray(x_T))
+    noise = [torch.from_numpy(np.array(jax.random.normal(
+        jax.random.fold_in(rng, s), x_T.shape))) for s in range(cfg.T)]
+    tmod = load_jax_params(TinyUNet(base_channels=64, num_classes=3),
+                           params).eval()
+    calls = []
+    model_fn = lambda a, t, y: calls.append(a.shape[0]) or tmod(a, t, y)
+    run = lambda batched: tddpm.ddpm_sample(
+        model_fn, tsched.ddpm_tables(cfg.beta_1, cfg.beta_T, cfg.T),
+        torch.from_numpy(x_T), torch.from_numpy(labels).long(), cfg.T,
+        w=cfg.w, noise_fn=noise.__getitem__, batched_cfg=batched)
+    with torch.no_grad():
+        got = run(False)
+        assert calls == [2] * (2 * cfg.T)
+        batched = run(True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), batched.numpy(), atol=1e-5)
+
+
 def test_trainer_sample_and_fit_run(slice_run):
     trainer, state = slice_run["trainer"], slice_run["state"]
     for use_ema in (False, True):

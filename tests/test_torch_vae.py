@@ -34,6 +34,7 @@ from from_ddpm_to_stable_diffusion_tpu.models import vae as jvae
 from from_ddpm_to_stable_diffusion_tpu.pipelines import (
     vae_trainer as jvae_trainer)
 from from_ddpm_to_stable_diffusion_tpu.utils import config as jconfig
+from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
 from from_ddpm_to_stable_diffusion_tpu_torch.io.from_jax import (
     jax_params_from_module, load_jax_params, state_dict_from_jax)
 from from_ddpm_to_stable_diffusion_tpu_torch.models import layers as tl
@@ -539,8 +540,11 @@ def test_vae_trainer_reconstruct_fit_and_checkpoint(vae_run, tmp_path):
 
 
 def test_vae_trainer_refuses_a_mesh_and_an_unknown_model():
-    with pytest.raises(NotImplementedError, match="A8"):
-        VAETrainer(tconfig.VAETrainConfig(), device="cpu", mesh=object())
+    # a data mesh is taken (tests/test_torch_data_mesh.py holds its steps)
+    meshed = VAETrainer(tconfig.VAETrainConfig(), device="cuda",
+                        mesh=build_mesh({"data": 2},
+                                        [torch.device("cpu")] * 2))
+    assert meshed.device == torch.device("cpu") and meshed.data.n == 2
     with pytest.raises(ValueError, match="unknown VAE model"):
         VAETrainer(tconfig.VAETrainConfig(model="beta"), device="cpu")
 

@@ -26,6 +26,7 @@ from from_ddpm_to_stable_diffusion_tpu.models import vit as jvit
 from from_ddpm_to_stable_diffusion_tpu.pipelines import (
     vit_trainer as jvit_trainer)
 from from_ddpm_to_stable_diffusion_tpu.utils import config as jconfig
+from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
 from from_ddpm_to_stable_diffusion_tpu_torch.io import data as tdata
 from from_ddpm_to_stable_diffusion_tpu_torch.io.from_jax import (
     load_jax_params)
@@ -203,7 +204,7 @@ def test_vit_trainer_fit_and_checkpoint(vit_run, tmp_path):
 
 def test_vit_trainer_random_init_and_mesh():
     """Flax's initializers: normal(0.02) class token and positions, seeded;
-    a mesh raises naming ROADMAP.md queue A8."""
+    a data mesh is taken (tests/test_torch_data_mesh.py holds its steps)."""
     cfg = tconfig.ViTTrainConfig(**TRAIN)
     a = ViTTrainer(cfg, device="cpu").create_state()
     b = ViTTrainer(cfg, device="cpu").create_state()
@@ -212,8 +213,12 @@ def test_vit_trainer_random_init_and_mesh():
         assert torch.equal(p, q), n
     for t in (a.model.cls_token, a.model.pos_embed):
         assert 0.01 < float(t.detach().std()) < 0.03
-    with pytest.raises(NotImplementedError, match="A8"):
-        ViTTrainer(cfg, device="cpu", mesh=object())
+    meshed = ViTTrainer(cfg, device="cuda", mesh=build_mesh(
+        {"data": 2}, [torch.device("cpu")] * 2))
+    assert meshed.device == torch.device("cpu") and meshed.data.n == 2
+    state = meshed.create_state()
+    assert all(b.data_axis is meshed.data for b in state.model.modules()
+               if hasattr(b, "data_axis"))
 
 
 def test_vit_stage04_attention_is_plain():

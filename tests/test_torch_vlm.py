@@ -33,6 +33,7 @@ from from_ddpm_to_stable_diffusion_tpu.models import siglip as jsig
 from from_ddpm_to_stable_diffusion_tpu.models import tiny_vlm as jvlm
 from from_ddpm_to_stable_diffusion_tpu.parallel import build_mesh
 from from_ddpm_to_stable_diffusion_tpu.pipelines import vlm_trainer as jtrainer
+from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh as tbuild_mesh
 from from_ddpm_to_stable_diffusion_tpu_torch.io import shapes_dataset as tds
 from from_ddpm_to_stable_diffusion_tpu_torch.io.from_jax import (
     jax_params_from_module, load_jax_params, state_dict_from_jax)
@@ -50,9 +51,6 @@ MODEL = dict(dim=64, depth=2, num_heads=2, max_text_len=8)
 VOCAB = len(tds.VLM_VOCAB)
 OPT = dict(lr=1e-3, weight_decay=0.01, warmup_steps=2, total_steps=6)
 STEPS = 3     # update 0 at lr 0, update 1 in the warmup, update 2 at the peak
-# the ROADMAP.md queue item an unported option names (A3 trainer features,
-# A8 the parallel package)
-QUEUE_ITEM = r"ROADMAP\.md, queue items? A[38]"
 DTYPES = {"fp32": (None, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 
@@ -384,10 +382,12 @@ def test_fit_learns_the_captions_of_a_fixed_batch():
 
 
 def test_trainer_refuses_unported_options():
-    """The mesh (ROADMAP.md queue item A8) raises, naming it;
+    """Nothing is refused any more: a data mesh is taken
+    (tests/test_torch_data_mesh.py holds its steps) and
     ``fit(checkpoint_dir=)`` is ported (tests/test_torch_checkpoint.py)."""
-    with pytest.raises(NotImplementedError, match=QUEUE_ITEM):
-        VLMTrainer(VOCAB, device="cpu", mesh=object())
+    meshed = VLMTrainer(VOCAB, device="cuda", mesh=tbuild_mesh(
+        {"data": 2}, [torch.device("cpu")] * 2))
+    assert meshed.device == torch.device("cpu") and meshed.data.n == 2
 
 
 def test_chip_smoke_and_the_port_import_nothing_of_jax():

@@ -5,6 +5,7 @@ case on its shard over gloo and saves what it computed, for
 
 import os
 
+import numpy as np
 import torch
 
 from from_ddpm_to_stable_diffusion_tpu_torch.parallel import (
@@ -217,8 +218,178 @@ def _fsdp(rank):
     return out
 
 
+DP = 2   # ranks of the data-mesh and process-group checkpoint cases
+
+
+def dp_setups(mesh, device="cpu"):
+    """The VAE, ViT, CLIP and VLM trainers on ``mesh`` (states from their
+    seeds) with a loader of one whole batch each and ``fit``'s keywords. The
+    batches make a per-rank shortcut fail: the VAE's halves have different
+    BatchNorm means, CLIP's halves different features, the VLM's halves
+    different numbers of unpadded targets, and the ViT draws dropout."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.shapes_dataset import (
+        CaptionedShapesDataset, VLM_VOCAB)
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.clip import CLIP
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.siglip import (
+        SiglipVisionConfig)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.clip_trainer \
+        import CLIPTrainer
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.vae_trainer \
+        import VAETrainer
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.vit_trainer \
+        import ViTTrainer
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.vlm_trainer \
+        import VLMTrainer
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        VAETrainConfig, ViTTrainConfig)
+
+    vae_x = inputs(80, 4, 32, 32, 3) * 0.5
+    vae_x[2:] += 1.0
+    vit = ViTTrainConfig(epoch=1, batch_size=4, img_size=32, patch_size=8,
+                         dim=64, depth=2, heads=4, mlp_dim=128, num_class=3,
+                         dropout=0.1, emb_dropout=0.1, lr=1e-3, seed=0)
+    clip = CLIP(embed_dim=16, image_resolution=28, vision_layers=2,
+                vision_width=32, vision_patch_size=14, context_length=10,
+                vocab_size=50, transformer_width=16, transformer_heads=2,
+                transformer_layers=2)
+    tokens = torch.randint(1, 49, (4, 10),
+                           generator=torch.Generator().manual_seed(81))
+    tokens[:, 6] = 49                       # the EOS, the highest id
+    ds = CaptionedShapesDataset(64, img_size=32, seed=0)
+    images, caps = zip(*(ds.load(i) for i in range(4)))
+    caps = torch.as_tensor(np.stack(caps)).long()
+    caps[2:, 4:] = 0                        # rank 1 holds fewer targets
+    vision = SiglipVisionConfig(hidden_size=64, intermediate_size=128,
+                                num_hidden_layers=2, num_attention_heads=2,
+                                image_size=32, patch_size=8)
+    return {
+        "vae": (VAETrainer(VAETrainConfig(model="vanilla", batch_size=4,
+                                          img_size=32, latent_dim=16,
+                                          lr=1e-3), device=device, mesh=mesh),
+                [vae_x], {}),
+        "vit": (ViTTrainer(vit, device=device, mesh=mesh),
+                [(inputs(82, 4, 32, 32, 3), torch.tensor([0, 1, 2, 0]))],
+                {}),
+        "clip": (CLIPTrainer(clip, lr=1e-3, mesh=mesh, device=device),
+                 [(inputs(83, 4, 28, 28, 3), tokens)],
+                 dict(image_shape=(28, 28, 3), text_len=10)),
+        "vlm": (VLMTrainer(len(VLM_VOCAB), dim=64, depth=2, num_heads=2,
+                           max_text_len=8, vision_cfg=vision, lr=1e-3,
+                           warmup_steps=0, total_steps=6, device=device,
+                           mesh=mesh),
+                [(torch.as_tensor(np.stack(images)), caps)],
+                dict(image_size=32)),
+    }
+
+
+def dp_fit(name, trainer, loader, kw, ckpt_dir):
+    """One ``fit`` epoch of one step with ``checkpoint_dir``: the state's
+    parameters, buffers and the epoch's loss."""
+    torch.manual_seed(0)          # the ViT's dropout draws
+    state = trainer.fit(loader, epochs=1, checkpoint_dir=ckpt_dir, **kw)
+    return dict(loss=trainer.history[-1]["loss"],
+                params={n: p.detach().clone()
+                        for n, p in state.params.items()},
+                buffers={n: b.clone()
+                         for n, b in state.model.named_buffers()})
+
+
+def _dp(rank, out_dir):
+    return {name: dp_fit(name, *setup, os.path.join(out_dir, f"dp_{name}"))
+            for name, setup in dp_setups(build_mesh({"data": DP})).items()}
+
+
+def pg_ddpm(mesh, fsdp=True, lora_rank=None, device="cpu"):
+    """An FSDP DDPMTrainer (TinyUNet at 16^2, batch 8) on ``mesh``, its state
+    from seed 0, and a loader of two batches with their draws."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer \
+        import DDPMTrainer
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        TinySDConfig)
+
+    cfg = TinySDConfig(epoch=1, batch_size=8, img_size=16, img_channel=3,
+                       num_class=3, T=10, channel=32,
+                       channel_multy=[1, 2, 2, 2], dropout=0.0, lr=1e-4,
+                       max_lr=1e-3, warmup_epochs=1, train_rand=0.1,
+                       dtype="fp32", seed=0)
+    trainer = DDPMTrainer(cfg, device=device, mesh=mesh, fsdp=fsdp,
+                          lora_rank=lora_rank)
+    loader = [(inputs(90 + i, 8, 16, 16, 3).clamp(-1, 1), torch.arange(8) % 3)
+              for i in range(2)]
+    return trainer, trainer.create_state(steps_per_epoch=2), loader
+
+
+def pg_mmdit(mesh, lora_rank=None, device="cpu"):
+    """The tiny MMDiTTrainer of :func:`trainer_setup` on ``mesh``, with
+    ``lora_rank`` adapters."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.mmdit import (
+        MMDiTConfig)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.mmdit_trainer \
+        import MMDiTTrainer
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        FlowTrainConfig)
+
+    mc = MMDiTConfig(patch_size=2, in_channels=4, depth=2, adm_in_channels=8,
+                     context_dim=16, pos_embed_max_size=8)
+    cfg = FlowTrainConfig(epoch=1, batch_size=4, img_size=8, context_len=4,
+                          lr=1e-4, max_lr=1e-3, warmup_epochs=1,
+                          train_rand=0.3, dtype="fp32", seed=0)
+    trainer = MMDiTTrainer(mc, cfg, device=device, mesh=mesh,
+                           lora_rank=lora_rank)
+    return trainer, trainer.create_state(steps_per_epoch=1)
+
+
+def mmdit_batch():
+    return [inputs(40, 4, 8, 8, 4), inputs(41, 4, 4, 16), inputs(42, 4, 8)]
+
+
+def _trained(trainer, state):
+    """What trains (the adapters under LoRA), flat and detached."""
+    return {n: p.detach().clone() for n, p in state.trainable().items()}
+
+
+def _pg(rank, out_dir):
+    """Process-group checkpoints and LoRA: an FSDP DDPM ``fit`` that saves,
+    then a DDPM trainer with another layout (replicated) resuming it
+    through ``fit`` for one step; a TP MMDiT ``fit`` that saves; one LoRA step under TP
+    (MMDiT on {"model": 2}) and one under FSDP (DDPM on {"data": 2})."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer \
+        import DDPMTrainer
+
+    out = {}
+    data, model = build_mesh({"data": DP}), build_mesh({"model": DP})
+    ddpm_dir = os.path.join(out_dir, "pg_ddpm")
+    trainer, state, loader = pg_ddpm(data)
+    state = trainer.fit(loader, state, epochs=1, checkpoint_dir=ddpm_dir)
+    out["ddpm_fsdp"] = _trained(trainer, state)
+    trainer = DDPMTrainer(trainer.cfg, device="cpu", mesh=data, fsdp=False)
+    state = trainer.fit(loader[:1], trainer.create_state(2), epochs=1,
+                        checkpoint_dir=ddpm_dir)
+    out["ddpm_resumed"] = _trained(trainer, state)
+    out["ddpm_resumed_loss"] = trainer.history[-1]["loss"]
+    trainer, state = pg_mmdit(model)
+    state = trainer.fit([mmdit_batch()], state, epochs=1,
+                        checkpoint_dir=os.path.join(out_dir, "pg_mmdit"))
+    out["mmdit_tp"] = _trained(trainer, state)
+    trainer, state = pg_mmdit(model, lora_rank=4)
+    state, loss = trainer.train_step(state, *mmdit_batch(), **MMDIT_DRAWS)
+    out["lora_tp"] = dict(loss=loss, params=_trained(trainer, state))
+    trainer, state, loader = pg_ddpm(data, lora_rank=4)
+    state, loss = trainer.train_step(state, *loader[0], **DDPM_DRAWS)
+    out["lora_fsdp"] = dict(loss=loss, params=_trained(trainer, state))
+    return out
+
+
+MMDIT_DRAWS = dict(t_lin=torch.sigmoid(inputs(43, 4)),
+                   noise=inputs(44, 4, 8, 8, 4),
+                   drop=torch.tensor([False, True, False, False]))
+DDPM_DRAWS = dict(drop=torch.tensor([False, True] + [False] * 6),
+                  t=torch.arange(8) % 10, noise=inputs(71, 8, 16, 16, 3))
+
+
 CASES = {"primitives": (SEQ, _primitives), "trainers": (4, _trainers),
-         "tp": (TP, _tp), "fsdp": (4, _fsdp)}
+         "tp": (TP, _tp), "fsdp": (4, _fsdp), "dp": (DP, _dp),
+         "pg": (DP, _pg)}
 
 
 def run(rank: int, case: str, store_path: str, out_dir: str) -> None:
@@ -232,6 +403,7 @@ def run(rank: int, case: str, store_path: str, out_dir: str) -> None:
     init_multihost(num_processes=world, process_id=rank, backend="gloo",
                    store=store)
     try:
-        torch.save(fn(rank), os.path.join(out_dir, f"{case}_{rank}.pt"))
+        got = fn(rank, out_dir) if case in ("dp", "pg") else fn(rank)
+        torch.save(got, os.path.join(out_dir, f"{case}_{rank}.pt"))
     finally:
         dist.destroy_process_group()
