@@ -343,6 +343,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -442,13 +443,25 @@ def phase_device():
 
 
 def phase_build():
+    """Both libraries built at once (bf16 + GroupNorm; fp32 flash), each
+    source its own nvcc, then both SASS listings read at once and
+    checked."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from from_ddpm_to_stable_diffusion_tpu_torch.ops import _build
 
-    for name in ("kernels", "kernels_fp32"):   # bf16 + GroupNorm; fp32 flash
+    names = ("kernels", "kernels_fp32")
+
+    def build(name):
         t0 = time.perf_counter()
         _build.load(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        walls = list(pool.map(build, names))
+    for name, wall in zip(names, walls):
         nvcc, log = _build.builds[name]
-        print(f"build {name}: {time.perf_counter() - t0:.2f} s (nvcc "
+        print(f"build {name}: {wall:.2f} s, the two together (nvcc "
               f"{'cached' if nvcc is None else f'{nvcc:.2f} s'}) -> "
               f"{_build.library_path(name).name}", flush=True)
         for line in log.splitlines():
@@ -456,21 +469,23 @@ def phase_build():
             if ("Used" in line or "spill" in line or "Compiling" in line
                     or "(C75" in line):
                 print("  ptxas:", line.strip().removeprefix("ptxas info    :"))
-    sass_check(_build.library_path("kernels"), SM90_KERNELS, BF16_FAMILY)
-    sass_check(_build.library_path("kernels_fp32"), FP32_KERNELS,
-               FP32_FAMILY)
+    with ThreadPoolExecutor(len(names)) as pool:
+        listings = list(pool.map(sass_of, map(_build.library_path, names)))
+    sass_check(listings[0], SM90_KERNELS, BF16_FAMILY)
+    sass_check(listings[1], FP32_KERNELS, FP32_FAMILY)
 
 
-# The sm90 K1 instantiations: 5 padded head dims (48, 64, 80, 128, 160)
-# without a mask, 7 mask forms at head dims 64 and 128; the d = 512 K1; the
-# sm90 K3 and K4: 8 forms
-# at head dims 64 and 128 each; the sm90 K5: online and bounded at head dims
-# 64 and 128; the sm90 K6 and K7: head dims 64 and 128.
+# The sm90 K1 and K3 instantiations: 16 padded head dims (16, 32, ..., 256)
+# without a mask, 7 mask forms at head dims 64 and 128 and one form with
+# every mask path (ANY) at the 14 others; the sm90 K4 the same at its 12
+# widths (16 - 128, then 160, 192, 224, 256); the d = 512 K1; the sm90 K5:
+# online and bounded at head dims 64 and 128; the sm90 K6 and K7: head dims
+# 64 and 128.
 SM90_KERNELS = {  # kind -> (kernel name, instantiations)
-    "K1 sm90": ("flash_fwd_sm90_kernel", 5 + 2 * 7),
+    "K1 sm90": ("flash_fwd_sm90_kernel", 16 + 2 * 7 + 14),
     "K1 d512": ("flash_fwd_d512", 1),
-    "K3 sm90": ("flash_bwd_dq_sm90_kernel", 2 * 8),
-    "K4 sm90": ("flash_bwd_dkv_sm90_kernel", 2 * 8),
+    "K3 sm90": ("flash_bwd_dq_sm90_kernel", 16 + 2 * 7 + 14),
+    "K4 sm90": ("flash_bwd_dkv_sm90_kernel", 12 + 2 * 7 + 10),
     "K5 sm90": ("flash_fwd_pos_sm90_kernel", 2 * 2),
     "K6 sm90": ("flash_bwd_pos_dq_sm90_kernel", 2),
     "K7 sm90": ("flash_bwd_pos_dkv_sm90_kernel", 2),
@@ -479,31 +494,44 @@ SM90_KERNELS = {  # kind -> (kernel name, instantiations)
 # outside the table fails the check.
 BF16_FAMILY = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv",
                "flash_bwd_dq", "flash_bwd_pos_dq")
-# The fp32 forward (TF32 split): eight head dims without a mask (8 for the
-# checks sd1 UNet, 40 - 160), the masked
-# form online (K1 causal, K5) and bounded (K5), T5's bias form; the d = 512
-# kernel. The fp32 backward (TF32 split): dq and dk/dv at head dims 64 and
-# 128 without a mask and their masked forms at 64 (K3 / K4 causal, K6 / K7).
+# The fp32 forward (TF32 split): 13 widths without a mask (8 for the checks
+# sd1 UNet, 40, 48, 64, 72, 80, 128, 160 at DP = d, and 16, 32, 96, 112, 144
+# for the head dims padded to 16) and masked online at each (K1 causal; K5
+# at 64), bounded (K5), T5's bias form; the d = 512 kernel. The fp32
+# backward (TF32 split): dq and dk/dv at the 8 widths 16 - 128 without a
+# mask and masked (K3 / K4 causal, K6 / K7 at 64). The CUDA-core fp32 K1, K3
+# and K4 above those: the forward at widths 192, 224, 256, dq and dk/dv at
+# 160 - 256, causal a runtime flag.
 FP32_KERNELS = {
-    "K1/K5 fp32": ("flash_fwd_f32_kernel", 8 + 2 + 1),
+    "K1/K5 fp32": ("flash_fwd_f32_kernel", 13 + 13 + 1 + 1),
     "K1 fp32 d512": ("flash_fwd_f32_d512_kernel", 1),
-    "K3/K6 fp32": ("flash_bwd_dq_f32_kernel", 3),
-    "K4/K7 fp32": ("flash_bwd_dkv_f32_kernel", 3),
+    "K3/K6 fp32": ("flash_bwd_dq_f32_kernel", 16),
+    "K4/K7 fp32": ("flash_bwd_dkv_f32_kernel", 16),
+    "K1 fp32 fma": ("flash_fwd_f32_fma_kernel", 3),
+    "K3 fp32 fma": ("flash_bwd_dq_f32_fma_kernel", 4),
+    "K4 fp32 fma": ("flash_bwd_dkv_f32_fma_kernel", 4),
 }
+# kinds that run on the CUDA cores by design: no wgmma, no TMA in their SASS
+CUDA_CORE_KINDS = {"K1 fp32 fma", "K3 fp32 fma", "K4 fp32 fma"}
 FP32_FAMILY = ("flash_fwd", "flash_bwd")
 
 
-def sass_check(library, table, family):
-    """Counts, in each kernel of the built library whose name holds one of
-    ``family``, the wgmma (HGMMA) and TMA (UTMALDG, UBLKCP) instructions of
-    its SASS (cuobjdump -sass), and checks that every instantiation ``table``
-    names has both and that no kernel of ``family`` is outside it."""
+def sass_of(library):
+    """The SASS listing of a built library (cuobjdump -sass)."""
     import shutil
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(library)],
+    return subprocess.run([cuobjdump, "-sass", str(library)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
+
+
+def sass_check(sass, table, family):
+    """Counts, in each kernel of a library's SASS listing (:func:`sass_of`)
+    whose name holds one of ``family``, the wgmma (HGMMA) and TMA (UTMALDG,
+    UBLKCP) instructions, and checks that every instantiation ``table``
+    names has both (none of either in the CUDA_CORE_KINDS) and that no
+    kernel of ``family`` is outside it."""
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -531,9 +559,13 @@ def sass_check(library, table, family):
                 f" {names[kind]}={flags}" if flags else "")
             print(f"  sass {kind} {what}: HGMMA {hgmma}, UTMALDG/UBLKCP {tma}",
                   flush=True)
+        tensor_cores = kind not in CUDA_CORE_KINDS
         check(len(fns) == table[kind][1] and all(
-            h > 0 and t > 0 for h, t in fns.values()),
-            f"the {kind} kernels lack wgmma or TMA in their SASS: {fns}")
+            (h > 0 and t > 0) if tensor_cores else h == t == 0
+            for h, t in fns.values()),
+            f"the {kind} kernels: {len(fns)} of {table[kind][1]}, wgmma and "
+            f"TMA in their SASS {'lacking' if tensor_cores else 'found'}: "
+            f"{fns}")
     check(len(counts) == sum(n for _, n in table.values()),
           f"{'/'.join(family)} kernels off the TMA / wgmma routes: "
           f"{sorted(set(counts) - {f for fns in found.values() for f in fns})}")
@@ -648,10 +680,11 @@ def reset_counts():
 
 class Counts(dict):
     """Launches by kernel; ``k1_routes``: K1's launches by the kernel they
-    ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32");
-    ``k3_routes`` - ``k7_routes`` (but K2's): K3's - K7's (``.routes`` of
-    their wrappers: "sm90", "fp32");
-    ``k1_head_dims``: K1's launches by head dim."""
+    ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32",
+    "fp32_fma"); ``k3_routes`` - ``k7_routes`` (but K2's): K3's - K7's
+    (``.routes`` of their wrappers: "sm90", "fp32", "fp32_fma");
+    ``k1_head_dims``, ``k3_head_dims``, ``k4_head_dims``: K1's, K3's and
+    K4's launches by head dim."""
 
 
 ROUTED = ("K1", "K3", "K4", "K5", "K6", "K7")  # counted by route
@@ -663,7 +696,9 @@ def read_counts():
     for k in ROUTED:
         setattr(counts, k.lower() + "_routes",
                 dict(getattr(fns[k], "routes", {})))
-    counts.k1_head_dims = dict(getattr(fns["K1"], "head_dims", {}))
+    for k in ("K1", "K3", "K4"):
+        setattr(counts, k.lower() + "_head_dims",
+                dict(getattr(fns[k], "head_dims", {})))
     return counts
 
 
@@ -7928,10 +7963,10 @@ def phase_trajectory(card, models, image):
     0.6 (a second key), ``k_euler_ancestral`` (step noise staged from the
     generator in the step loop's order) and TP over {"model": 2} of the card
     repeated (``TP_SD1_STEPS`` steps); each replay's final latents bit-equal
-    to the eager loop's or its image within 1 level. Then, per loop at batch
-    1 and 4: s/image (host clock), ms per denoise step (CUDA events around
-    the loop alone, from the same latents and context) and the device idle
-    share of a profiled request; then, with every graph freed, an eager
+    to the eager loop's or its image within 1 level. Then, per loop: ms per
+    denoise step at batch 1 and 4 (CUDA events around the loop alone, from
+    the same latents and context) and s/image at batch 1 (host clock);
+    then, with every graph freed, an eager
     request again, bit for bit the first one (K2's scratch of the eager
     stream untouched by the captures). Returns the counts of the cold
     batch-1 trajectory request."""
@@ -8042,7 +8077,10 @@ def phase_trajectory(card, models, image):
         got = [(key, dict(K1=n["K1"], K2=n["K2"])) for key, n in in_graph]
         check(got == want, f"the graphs' keys and launches inside {got}, "
                            f"not {want}")
-        # both loops by batch: s/image, ms per denoise step, idle share
+        # both loops by batch: ms per denoise step (CUDA events around the
+        # loop alone) at batch 1 and 4, s/image (host clock) at batch 1; the
+        # profiled requests and the batch-4 requests are not repeated here
+        # (the script's time limit: their numbers stand in PERF.md)
         for b in (1, 4):
             batch = prompts[:b]
             with torch.inference_mode():
@@ -8052,11 +8090,13 @@ def phase_trajectory(card, models, image):
             for name, gen in (("steps", steps), ("trajectory", traj)):
                 # both warm: the step loop from the requests above, the
                 # graph of this batch captured
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                gen(batch, seed=9)
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t
+                request = "not measured"
+                if b == 1:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    gen(batch, seed=9)
+                    torch.cuda.synchronize()
+                    request = f"{time.perf_counter() - t:.3f} s"
                 start_ev = torch.cuda.Event(enable_timing=True)
                 end_ev = torch.cuda.Event(enable_timing=True)
                 with torch.inference_mode():
@@ -8065,17 +8105,9 @@ def phase_trajectory(card, models, image):
                     end_ev.record()
                 end_ev.synchronize()
                 step_ms = start_ev.elapsed_time(end_ev) / TRAJ_STEPS
-                _, wall_ms, fams, n_kernels, _ = profile_device(
-                    lambda: gen(batch, seed=9), cpu=False)
-                busy = sum(fams.values())
-                idle = (f"{1.0 - busy / (1e3 * secs):.3f}" if fams
-                        else "not measured (no kernel row)")
-                print(f"SD1 loop={name} bs={b}: {secs:.3f} s a request, "
-                      f"{secs / b:.3f} s/image, {step_ms:.2f} ms/denoise "
-                      f"step (the loop alone, CUDA events); profiled: device "
-                      f"busy {busy:.1f} ms over {n_kernels} kernels, wall "
-                      f"{wall_ms:.1f} ms; device idle share {idle} (1 - "
-                      f"busy / unprofiled request) [{card}]", flush=True)
+                print(f"SD1 loop={name} bs={b}: {request} a request, "
+                      f"{step_ms:.2f} ms/denoise step (the loop alone, CUDA "
+                      f"events) [{card}]", flush=True)
         del traj
         gc.collect()
         torch.cuda.empty_cache()
@@ -8306,6 +8338,442 @@ def phase_native(card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# K1, K3 and K4 at every head dim up to 256, and tiny-SD at YAML widths whose
+# heads are not 64 or 128 wide.
+# Correctness: bf16 at these head dims (36 is not a multiple of 8: the
+# wrapper pads it) over (B, H, Lq, Lk) = HEAD_DIM_CASE, more than one tile on
+# each side and a ragged one, without a mask and causal, and in every mask
+# form at HEAD_DIM_ALL_FORMS; fp32 without a mask and causal at
+# HEAD_DIM_FP32.
+HEAD_DIM_BF16 = (8, 16, 32, 36, 96, 144, 160, 192, 224, 256)
+HEAD_DIM_ALL_FORMS = (96, 256)
+HEAD_DIM_FP32 = (24, 36, 96, 112, 144, 160, 192, 256)
+HEAD_DIM_CASE = (2, 2, 600, 520)
+MASK_FORMS = [(c, b, s) for c in (False, True) for b in (False, True)
+              for s in (False, True)]      # (causal, bias, segment ids)
+# The timed shapes (B, H, Lq, Lk, D): tiny-SD at batch 32 at `channel: 96`
+# (one head of 96 at 64^2, one of 192 at 32^2) and `channel: 320` (two heads
+# of 160 at 64^2), and head dim 256 at 1024 tokens.
+HEAD_DIM_TIMED = [(32, 1, 4096, 4096, 96), (32, 1, 1024, 1024, 192),
+                  (32, 2, 4096, 4096, 160), (16, 2, 1024, 1024, 256)]
+# tiny-SD widths: TinySDConfig() changed only by `channel`; K1, K3 and K4
+# launches a train step by head dim (the six transformer blocks at 64^2 and
+# 32^2: enc1, dec6, dec7 at 64^2 and dec4, dec5 at 32^2 at the base width,
+# enc3 at 32^2 at twice it; heads = max(1, channels // 128)).
+TINY_SD_WIDTHS = {96: {96: 5, 192: 1}, 320: {160: 5, 128: 1}}
+WIDTH_TRAIN_STEPS = (1, 3)   # warm-up, timed
+WIDTH_SAMPLE_T = 20
+
+
+def head_dim_inputs(rnd, dtype, d, form, shape=HEAD_DIM_CASE):
+    """q, k, v, dO at (B, H, Lq | Lk, d) and the masks of ``form``: a bias
+    (1, H, Lq, Lk) fp32, segment ids of runs of 200 queries and 173 keys."""
+    import torch
+
+    b, h, lq, lk = shape
+    q, g = (rnd(b, h, lq, d).to(dtype) for _ in range(2))
+    k, v = (rnd(b, h, lk, d).to(dtype) for _ in range(2))
+    causal, bias, seg = form
+    masks = dict(causal=causal)
+    if bias:
+        masks["bias"] = rnd(1, h, lq, lk)
+    if seg:
+        masks["segment_ids"] = tuple(
+            (torch.arange(n, device="cuda") // run).int().repeat(b, 1)
+            for n, run in ((lq, 200), (lk, 173)))
+    return q, k, v, g, masks
+
+
+def head_dim_check(fa, q, k, v, g, masks, what):
+    """K1, K3 and K4 against their plain versions on one input: out and lse
+    (bf16 2e-2 / 1e-3, fp32 1e-4), each gradient (dbias too) within 2e-2
+    (fp32: 1e-4) of its largest magnitude; the launches counted at the
+    caller's head dim. Returns the largest errors by kernel."""
+    import torch
+
+    d = q.shape[-1]
+    fns = (fa.flash_attention_cuda, fa.flash_attention_bwd_dq_cuda,
+           fa.flash_attention_bwd_dkv_cuda)
+    before = [fn.head_dims[d] for fn in fns]
+    out, lse = fa.flash_attention_cuda(q, k, v, **masks)
+    need_dbias = "bias" in masks
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **masks,
+                                        need_dbias=need_dbias)
+    torch.cuda.synchronize()
+    counted = all(fn.head_dims[d] == n + 1 for fn, n in zip(fns, before))
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, **masks)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, **masks,
+                                        need_dbias=need_dbias)
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+    seen = ref_lse > -1e29
+    err_out = (out.float() - ref.float()).abs().max().item()
+    err_lse = (lse - ref_lse)[seen].abs().max().item()
+    ok = err_out <= tol and err_lse <= max(tol, 1e-3) and counted
+    errs = dict(K1=err_out, K3=0.0, K4=0.0)
+    parts = [f"out {err_out:.2e} lse {err_lse:.2e}"]
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), grads, want):
+        err = (a.float() - w.float()).abs().max().item()
+        ref_max = w.float().abs().max().item()
+        ok = ok and err <= tol * ref_max + 1e-6
+        kernel = "K3" if name in ("dq", "dbias") else "K4"
+        errs[kernel] = max(errs[kernel], err)
+        parts.append(f"{name} {err:.2e} (of {ref_max:.2e})")
+    print(f"head dims: {what}: {', '.join(parts)}; counted at d={d}: "
+          f"{counted}", flush=True)
+    check(ok, f"K1/K3/K4 disagree with the plain versions at {what}: "
+          f"{', '.join(parts)}, counted {counted}")
+    return errs
+
+
+def phase_kernels_head_dims(card, tail):
+    """K1, K3 and K4 at the head dims of HEAD_DIM_BF16 and HEAD_DIM_FP32
+    against their plain versions (:func:`head_dim_check`), then timed at
+    HEAD_DIM_TIMED in bf16 and fp32 beside the plain versions, one
+    ``scaled_dot_product_attention`` (its backward: its whole one) and the
+    bound. Returns (largest error by kernel, the timed records by
+    kernel)."""
+    import torch
+    import torch.nn.functional as F
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2200)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    errs = dict(K1=0.0, K3=0.0, K4=0.0)
+    n_cases = 0
+    for dtype, dims in ((bf16, HEAD_DIM_BF16), (fp32, HEAD_DIM_FP32)):
+        for d in dims:
+            forms = (MASK_FORMS if dtype == bf16 and d in HEAD_DIM_ALL_FORMS
+                     else MASK_FORMS[:1] + MASK_FORMS[4:5])
+            for form in forms:
+                q, k, v, g, masks = head_dim_inputs(rnd, dtype, d, form)
+                dt = "bf16" if dtype == bf16 else "fp32"
+                route = "/".join(r(dtype, d, *form) for r in (
+                    fa.k1_route, fa.k3_route, fa.k4_route))
+                what = (f"{dt} d={d} {HEAD_DIM_CASE} causal={form[0]} "
+                        f"bias={form[1]} segments={form[2]} ({route})")
+                for key, e in head_dim_check(fa, q, k, v, g, masks,
+                                             what).items():
+                    errs[key] = max(errs[key], e)
+                n_cases += 1
+    print(f"head dims: {n_cases} cases held against the plain versions; "
+          f"largest errors {errs}", flush=True)
+
+    sdpa = F.scaled_dot_product_attention
+    records = dict(K1=[], K3=[], K4=[])
+    for dtype in (bf16, fp32):
+        dt = "bf16" if dtype == bf16 else "fp32"
+        heavy = dtype == fp32
+        for b, h, lq, lk, d in HEAD_DIM_TIMED:
+            q, k, v, g, _ = head_dim_inputs(rnd, dtype, d, MASK_FORMS[0],
+                                            (b, h, lq, lk))
+            out, lse = fa.flash_attention_cuda(q, k, v)
+            delta = (g.float() * out.float()).sum(-1)
+            routes = [r(dtype, d) for r in (fa.k1_route, fa.k3_route,
+                                             fa.k4_route)]
+            n, w = (3, 1) if heavy else (10, 2)
+            plain_fwd = cuda_ms(lambda: fa.flash_attention_plain(q, k, v),
+                                2, 1)
+            plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, out, lse, g), 2, 1)
+            lib_fwd = cuda_ms(lambda: sdpa(q, k, v), n, w)
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            ol = sdpa(ql, kl, vl)
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+                ol, (ql, kl, vl), g, retain_graph=True), n, w)
+            del ol, ql, kl, vl
+            runs = dict(
+                K1=lambda: fa.flash_attention_cuda(q, k, v),
+                K3=lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, g, lse,
+                                                          delta),
+                K4=lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, g, lse,
+                                                           delta))
+            # (products, Lq-like tensors, Lk-like tensors, row statistics)
+            work = dict(K1=(2, 2, 2, 1), K3=(3, 3, 2, 2), K4=(4, 2, 4, 2))
+            line = []
+            for (kernel, run), route in zip(runs.items(), routes):
+                shape = (b, h, lq, lk, d, *work[kernel])
+                if dtype == bf16:
+                    bnd = dict(zip(("bound_ms", "bound_by"),
+                                   attn_bound(*shape)))
+                elif route == "fp32":     # the TF32 kernels
+                    bnd = tf32_bound(b, h, lq, lk, d, 1.0, *work[kernel])
+                else:                     # fp32 FMAs on the CUDA cores
+                    bnd = dict(fp32_bound(*shape),
+                               bound_basis="fp32 FMAs at 67 TFLOP/s")
+                fwd = kernel == "K1"
+                times = dict(ms=cuda_ms(run, n, w),
+                             plain_ms=plain_fwd if fwd else plain_bwd,
+                             library_ms=lib_fwd if fwd else lib_bwd,
+                             bound_ms=bnd["bound_ms"],
+                             bound_by=bnd["bound_by"])
+                records[kernel].append(dict(
+                    dtype=dt, shape=[b, h, lq, lk, d], route=route,
+                    bound_basis=bnd.get("bound_basis",
+                                        "bf16 at 989 TFLOP/s"), **times))
+                line.append(f"{kernel} ({route}): {tail(**times)}")
+            print(f"head dims: timed {dt} (B,H,Lq,Lk,D)=({b},{h},{lq},{lk},"
+                  f"{d}) (plain and library backward: dq, dk and dv "
+                  f"together); " + "; ".join(line), flush=True)
+            del q, k, v, g, out, lse, delta
+            torch.cuda.empty_cache()
+    return errs, records
+
+
+def write_width_yaml(root, channel):
+    """A tiny-SD YAML of TinySDConfig() changed only by ``channel`` (and
+    its checkpoints under ``root``), as ``cli/tiny_sd.py --config`` reads
+    it (``TinySDConfig.from_yaml``, PyYAML)."""
+    import yaml
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        TinySDConfig)
+
+    raw = TinySDConfig(channel=channel,
+                       model_dir=os.path.join(root, f"ckpt{channel}")).to_dict()
+    path = os.path.join(root, f"tiny_sd_{channel}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def width_launch_check(what, counts, per_step, steps):
+    """K1, K3 and K4 launched ``steps`` x the per-step count at each head
+    dim of ``per_step`` and on the sm90 kernels (bf16)."""
+    want = {d: n * steps for d, n in per_step.items()}
+    check(counts.k1_head_dims == want,
+          f"{what}: K1 by head dim {counts.k1_head_dims}, not {want}")
+    for k in ("K3", "K4"):
+        got = getattr(counts, k.lower() + "_head_dims")
+        check(got == (want if counts[k] else {}),
+              f"{what}: {k} by head dim {got}, not {want}")
+    for k in ("K1", "K3", "K4"):
+        routes = getattr(counts, k.lower() + "_routes")
+        check(routes == ({"sm90": counts[k]} if counts[k] else {}),
+              f"{what}: {k} did not take the sm90 kernels: {routes}")
+
+
+def phase_tiny_sd_widths(card):
+    """``DDPMTrainer`` at TinySDConfig() changed only by ``channel``, loaded
+    from a YAML written here, for each of TINY_SD_WIDTHS (64^2, batch 32,
+    bf16): train steps timed with their peak memory and the launches by
+    head dim, one more under the profiler (device time by family); one
+    step's loss and gradients against the same step through
+    plain attention; a CFG sampling run of WIDTH_SAMPLE_T steps; at the
+    first width two fp32 steps against plain attention and one epoch of
+    ``cli/tiny_sd.py train --config ... --synthetic``. Returns the paths'
+    launch counts and the fp32 run's (launches, fp32 launches)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.cli import tiny_sd as cli
+    from from_ddpm_to_stable_diffusion_tpu_torch.io.data import (
+        DataLoader, SyntheticImageDataset)
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops.schedules import (
+        ddpm_tables)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
+        DDPMTrainer)
+    from from_ddpm_to_stable_diffusion_tpu_torch.samplers.ddpm import ddpm_loss
+    from from_ddpm_to_stable_diffusion_tpu_torch.utils.config import (
+        TinySDConfig)
+
+    root = tempfile.mkdtemp(prefix="tiny_sd_widths_")
+    runs, fp32_run = {}, None
+    try:
+        for channel, per_step in TINY_SD_WIDTHS.items():
+            path = write_width_yaml(root, channel)
+            cfg = TinySDConfig.from_yaml(path)
+            check(dataclasses.replace(cfg, model_dir="") == TinySDConfig(
+                channel=channel, model_dir=""),
+                f"the channel {channel} YAML read back as {cfg}")
+            warm, timed = WIDTH_TRAIN_STEPS
+            batch = cfg.batch_size
+            while True:
+                try:
+                    loader = DataLoader(SyntheticImageDataset(
+                        batch * (warm + timed), cfg.img_size, cfg.img_channel,
+                        cfg.num_class, seed=cfg.seed), batch, seed=cfg.seed)
+                    batches = list(loader)
+                    trainer = DDPMTrainer(dataclasses.replace(
+                        cfg, batch_size=batch), device="cuda")
+                    state = trainer.create_state(len(loader))
+                    reset_counts()
+                    for images, labels in batches[:warm]:
+                        state, loss = trainer.train_step(state, images,
+                                                         labels)
+                    torch.cuda.synchronize()
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    trainer = state = None
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    check(batch > 1, f"channel {channel}: out of memory at "
+                          f"batch 1")
+                    print(f"tiny-SD channel {channel}: batch {batch} does "
+                          f"not fit; halved", flush=True)
+                    batch //= 2
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            losses = []
+            start.record()
+            for images, labels in batches[warm:]:
+                state, loss = trainer.train_step(state, images, labels)
+                losses.append(loss)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms = start.elapsed_time(end) / timed
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            counts = read_counts()
+            losses = torch.stack(losses).float().cpu()
+            # one more step under the profiler: device time by family
+            state, busy = profile_steps(trainer, state, batches[-1:], card)
+            print(f"tiny-SD channel {channel} (YAML {os.path.basename(path)}"
+                  f"): {trainer.num_params(state)} params, batch {batch} at "
+                  f"{cfg.img_size}^2, bf16: {step_ms:.2f} ms/step over "
+                  f"{timed} steps (CUDA events), "
+                  f"{1e3 * batch / step_ms:.1f} img/s, peak {peak:.2f} GiB, "
+                  f"device idle share {1.0 - busy / step_ms:.3f} (1 - busy "
+                  f"/ unprofiled step); losses "
+                  f"{[round(x, 5) for x in losses.tolist()]}; K1 "
+                  f"by head dim {counts.k1_head_dims}, K3 "
+                  f"{counts.k3_head_dims}, K4 {counts.k4_head_dims} over "
+                  f"{warm + timed} steps [{card}]", flush=True)
+            check(bool(torch.isfinite(losses).all()),
+                  f"channel {channel}: non-finite loss {losses}")
+            width_launch_check(f"tiny-SD channel {channel} training",
+                               counts, per_step, warm + timed)
+            counts.step_ms, counts.peak_gib, counts.batch = (step_ms, peak,
+                                                             batch)
+            runs[f"tiny_sd_w{channel}"] = counts
+
+            # One step's loss and gradients, kernels against plain attention,
+            # on the card, same weights, batch and draws (dropout off).
+            model = state.model
+            model.eval()
+            rng = np.random.default_rng(channel)
+            n, s = 8, cfg.img_size
+            x0 = torch.from_numpy(rng.uniform(-1, 1, (n, s, s, 3)).astype(
+                np.float32)).cuda()
+            labels = torch.from_numpy(rng.integers(0, 4, n)).cuda()
+            t = torch.from_numpy(rng.integers(0, cfg.T, n))
+            noise = rng.standard_normal((n, s, s, 3)).astype(np.float32)
+            tables = ddpm_tables(cfg.beta_1, cfg.beta_T, cfg.T)
+
+            def loss_and_grads():
+                model.zero_grad(set_to_none=True)
+                loss = ddpm_loss(model, tables, x0, labels, cfg.T, t=t,
+                                 noise=noise).sum() / (n * n)
+                loss.backward()
+                return loss.item(), torch.cat([
+                    p.grad.float().flatten() for p in model.parameters()
+                    if p.grad is not None])
+
+            reset_counts()
+            l_k, g_k = loss_and_grads()
+            grad_counts = read_counts()
+            with plain_attention_only():
+                l_p, g_p = loss_and_grads()
+            loss_rel = abs(l_k - l_p) / abs(l_p)
+            grad_rel = rel_l2(g_k, g_p)
+            print(f"tiny-SD channel {channel} gradient check (batch {n}, "
+                  f"dropout off, bf16): loss {l_k:.6f} with the kernels, "
+                  f"{l_p:.6f} through plain attention (rel {loss_rel:.3e}); "
+                  f"gradient rel L2 {grad_rel:.3e} (tol {GRAD_REL_TOL}); K1 "
+                  f"/ K3 / K4 {grad_counts['K1']} / {grad_counts['K3']} / "
+                  f"{grad_counts['K4']} [{card}]", flush=True)
+            check(loss_rel <= GRAD_REL_TOL and grad_rel <= GRAD_REL_TOL
+                  and grad_counts["K3"] == sum(per_step.values()),
+                  f"channel {channel}: kernels off plain attention: loss "
+                  f"{loss_rel}, gradient {grad_rel}")
+            del g_k, g_p
+            model.zero_grad(set_to_none=True)
+
+            # CFG sampling, one batch-8 forward a step
+            sampler = DDPMTrainer(dataclasses.replace(
+                cfg, T=WIDTH_SAMPLE_T), device="cuda")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images = sampler.sample(state, [1, 2, 3, 1])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            print(f"tiny-SD channel {channel} sampling: 4 images, "
+                  f"T={WIDTH_SAMPLE_T}, CFG w={cfg.w}: {secs:.3f} s, "
+                  f"{1e3 * secs / WIDTH_SAMPLE_T:.2f} ms/step, K1 by head "
+                  f"dim {counts.k1_head_dims} [{card}]", flush=True)
+            check(tuple(images.shape) == (4, s, s, 3) and bool(
+                torch.isfinite(images).all()) and images.abs().max() <= 1,
+                f"channel {channel}: samples {tuple(images.shape)} not "
+                f"finite in [-1, 1]")
+            width_launch_check(f"tiny-SD channel {channel} sampling",
+                               counts, per_step, WIDTH_SAMPLE_T)
+            runs[f"tiny_sd_w{channel}_sampling"] = counts
+            del trainer, state, model, sampler, images
+            gc.collect()
+            torch.cuda.empty_cache()
+            if channel != min(TINY_SD_WIDTHS):
+                continue
+
+            # two fp32 steps (the fp32 kernels at these head dims; the
+            # second, warm, timed) against the same steps through plain
+            # attention
+            def build_fp32():
+                c32 = dataclasses.replace(cfg, dtype="fp32")
+                data = list(DataLoader(SyntheticImageDataset(
+                    2 * c32.batch_size, c32.img_size, c32.img_channel,
+                    c32.num_class, seed=c32.seed), c32.batch_size,
+                    seed=c32.seed))
+                tr = DDPMTrainer(c32, device="cuda")
+                return (tr, tr.create_state(1),
+                        lambda st, i: tr.train_step(st, *data[i]))
+
+            fp32_run = fp32_train_pair(
+                card, f"fp32 tiny-SD at channel {channel} (YAML), batch "
+                f"{cfg.batch_size} at {cfg.img_size}^2", build_fp32, 2,
+                dict(K1=6, K3=6, K4=6))
+            fp32_counts = fp32_run[0]
+            check(fp32_counts.k1_head_dims == {d: 2 * n for d, n in
+                                               per_step.items()},
+                  f"fp32 channel {channel}: K1 by head dim "
+                  f"{fp32_counts.k1_head_dims}")
+            print(f"fp32 tiny-SD channel {channel}: routes K1 "
+                  f"{fp32_counts.k1_routes} K3 {fp32_counts.k3_routes} K4 "
+                  f"{fp32_counts.k4_routes}", flush=True)
+
+            # one epoch of the CLI from the YAML (8 batches of synthetic
+            # images), in this process so that its launches are counted
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(["train", "--config", path, "--synthetic",
+                           "--epochs", "1"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            print(f"cli/tiny_sd.py train --config {os.path.basename(path)} "
+                  f"--synthetic --epochs 1: exit {rc}, {secs:.2f} s (8 steps "
+                  f"of batch {cfg.batch_size}, checkpoint written), K1 by "
+                  f"head dim {counts.k1_head_dims} [{card}]", flush=True)
+            check(rc == 0 and os.path.isdir(cfg.model_dir),
+                  f"the tiny-SD CLI at channel {channel}: exit {rc}, no "
+                  f"checkpoint under {cfg.model_dir}")
+            width_launch_check(f"cli/tiny_sd.py at channel {channel}",
+                               counts, per_step, 8)
+            runs[f"tiny_sd_w{channel}_cli"] = counts
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs, fp32_run
+
+
 def main():
     marks = [("start", time.perf_counter())]
 
@@ -8324,6 +8792,10 @@ def main():
         k2_launch_path(card, "after the kernel phase")))
     kernels_fp32 = phase_kernels_fp32(card, tail)
     mark("kernels")
+    head_dim_errs, head_dim_timed = phase_kernels_head_dims(card, tail)
+    for k, err in head_dim_errs.items():
+        kernels[k]["err"] = max(kernels[k]["err"], err)
+    mark("head_dims")
     kernels_ring = phase_kernels_ring(card)
     mark("parallel")
     import torch
@@ -8334,14 +8806,17 @@ def main():
              "mmdit_pp_1f1b", "sd3_tp", "sd3_img2img", "sd3_tiled",
              "sd3_text", "sd3_checkpoint", "sd3_int8", "sd3_offload",
              "training", "sampling", "train_accum", "train_resume",
-             "latent_training", "latent_sampling", "ddpm_fsdp",
+             "latent_training", "latent_sampling", "tiny_sd_w96",
+             "tiny_sd_w96_sampling", "tiny_sd_w96_cli", "tiny_sd_w320",
+             "tiny_sd_w320_sampling", "ddpm_fsdp",
              "mmdit_training", "mmdit_ring_training", "mmdit_tp_fsdp",
              "mmdit_sampling", "mmdit_lora", "mmdit_moe_forward",
              "mmdit_moe_training", "vlm_training", "vlm_decoding", "vlm_checkpoint",
              "video_training", "video_sampling", "vae_vqvae", "vae_vanilla",
              "vit_training", "clip_forward", "clip_training", "fid",
              "dp_trainers",
-             "sd1_fp32", "sd1_768_fp32", "sd3_fp32", "t5_fp32", "vlm_fp32",
+             "sd1_fp32", "sd1_768_fp32", "sd3_fp32", "t5_fp32",
+             "tiny_sd_w96_fp32", "vlm_fp32",
              "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64",
              "clip_fp32", "checks")
     sd1_launches, sd1_models, sd1_image = phase_sd1(card)
@@ -8398,6 +8873,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()   # the serving bundles are gone: room to train
     mark("tiny_sd")
+    width_runs, width_fp32 = phase_tiny_sd_widths(card)
+    runs += list(width_runs.values())
+    fp32_runs.append(width_fp32)
+    mark("tiny_sd_widths")
     runs.append(phase_ddpm_fsdp(card))
     mark("tp_fsdp")
     trainer, state, train_launches, mmdit_step = phase_mmdit_training(card)
@@ -8497,6 +8976,20 @@ def main():
         return dict(launches=sum(per_path.values()),
                     launches_by_path=per_path)
 
+    def head_dim_record(k):
+        """K1's, K3's or K4's records at the head dims of
+        HEAD_DIM_TIMED and its launches by head dim over the paths."""
+        per_dim = {}
+        for p, run in zip(paths, runs):
+            for d, n in getattr(run, k.lower() + "_head_dims", {}).items():
+                per_dim.setdefault(d, {})[p] = n
+        return dict(
+            timed=head_dim_timed[k],
+            fp32_fma_source=pkg + "fp32/flash_f32_fma.cu",
+            launches_by_head_dim={d: dict(launches=sum(v.values()),
+                                          launches_by_path=v)
+                                  for d, v in sorted(per_dim.items())})
+
     def by_head_dim(d):
         """K1's launches at head dim ``d``, from the paths' runs."""
         per_path = {p: run.k1_head_dims.get(d, 0)
@@ -8547,15 +9040,19 @@ def main():
         entry("flash_attention_fwd", "flash_attention_sm90.cu",
               "flash_attention.py:242", "K1",
               also_replaces=[TPU_KERNELS + "flash_attention.py:119"],
-              design=("bf16 at head dims 40, 48, 64, 72, 80, 128 and every "
-                      "mask form: one block of 3 warpgroups per 128 queries, "
+              design=("bf16 at every head dim from 1 to 256 (padded widths "
+                      "16 - 256) in every mask form: one block of 3 "
+                      "warpgroups per 128 queries, "
                       "a producer issuing TMA (Q once, K/V tiles of 128 keys "
                       "in a 2-stage mbarrier ring, the bias tile staged in "
                       "its own dtype by cp.async) and two consumers running "
                       "wgmma m64n128k16 for S = QK^T from shared memory, "
                       "the online softmax in registers, and wgmma in RS "
-                      "form for O += PV with V MN-major; 128-byte swizzle at "
-                      "DP 64/128, 32-byte at 48/80"),
+                      "form for O += PV with V MN-major; 128-byte swizzle "
+                      "where DP is a multiple of 64, 32-byte otherwise; "
+                      "64-key tiles above DP 160 (above 128 in a masked "
+                      "form)"),
+              head_dims=head_dim_record("K1"),
               d512=dict(source=pkg + "flash_attention.cu",
                         design=("bf16 at head dim 512: one block of 3 "
                                 "warpgroups per 64 queries (and key split), a "
@@ -8614,16 +9111,18 @@ def main():
         entry("flash_attention_bwd_dq", "flash_attention_dq_sm90.cu",
               "flash_attention.py:682", "K3", plain_computes=together,
               library_computes=together,
-              design=("bf16 at head dims 64 and 128 in every form: one block "
-                      "of 3 warpgroups per 128 queries, a producer issuing "
-                      "TMA (Q and dO once, K and V tiles of 64 keys in a "
-                      "2-stage mbarrier ring, the bias tile staged by "
+              design=("bf16 at every head dim from 1 to 256 in every form: "
+                      "one block of 3 warpgroups per 128 queries, a producer "
+                      "issuing TMA (Q and dO once, K and V tiles of 64 keys "
+                      "(32 above DP 192) in a 2-stage mbarrier ring, the "
+                      "bias tile staged by "
                       "cp.async) and two consumers of 64 queries with their "
                       "lse and delta in registers computing S = QK^T and "
                       "dP = dOV^T (wgmma m64n64k16 SS), P and dS in "
                       "registers, dS the RS A operand of dQ += dS K with K "
                       "read MN-major from the same tile; dQ in registers "
                       "until the end"),
+              head_dims=head_dim_record("K3"),
               sm90=by_route("sm90", "k3"),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
@@ -8632,15 +9131,20 @@ def main():
         entry("flash_attention_bwd_dkv", "flash_attention_bwd_sm90.cu",
               "flash_attention.py:764", "K4", plain_computes=together,
               library_computes=together,
-              design=("bf16 at head dims 64 and 128 in every form: one block "
-                      "of 3 warpgroups per 128 keys, a producer issuing TMA "
+              design=("bf16 at every head dim from 1 to 256 in every form: "
+                      "one block of 3 warpgroups per 128 keys, a producer "
+                      "issuing TMA "
                       "(K and V once, Q and dO tiles of 64 queries in a "
                       "2-stage mbarrier ring, lse and delta stored beside "
                       "them, the bias tile staged by cp.async) and two "
                       "consumers of 64 keys computing S^T = KQ^T and dP^T = "
                       "VdO^T with the keys as wgmma's M (m64n64k16 SS), P^T "
                       "and dS^T in registers as the A operand of dV += "
-                      "P^T dO and dK += dS^T Q (wgmma RS, dO and Q MN-major)"),
+                      "P^T dO and dK += dS^T Q (wgmma RS, dO and Q "
+                      "MN-major); above DP 128 two blocks per key tile, "
+                      "each with half of dK's and dV's columns, and query "
+                      "tiles of 32"),
+              head_dims=head_dim_record("K4"),
               sm90=by_route("sm90", "k4"),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",

@@ -1,0 +1,10 @@
+// K3 (flash_attention_dq_sm90.cuh) at padded head dims 192, 208:
+// their instantiations, apart from the other widths' so that the build
+// compiles them in parallel.
+
+#include "flash_attention_dq_sm90.cuh"
+
+namespace fdsd::k3 {
+FDSD_K3_WIDTH(192)
+FDSD_K3_WIDTH(208)
+}  // namespace fdsd::k3

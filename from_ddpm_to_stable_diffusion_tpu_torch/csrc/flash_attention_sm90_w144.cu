@@ -1,0 +1,11 @@
+// K1 (flash_attention_sm90.cuh) at padded head dims 144, 160, 176:
+// their instantiations, apart from the other widths' so that the build
+// compiles them in parallel.
+
+#include "flash_attention_sm90.cuh"
+
+namespace fdsd::k1 {
+FDSD_K1_WIDTH(144)
+FDSD_K1_WIDTH(160)
+FDSD_K1_WIDTH(176)
+}  // namespace fdsd::k1

@@ -1,0 +1,11 @@
+// K1 (flash_attention_sm90.cuh) at padded head dims 224, 240, 256:
+// their instantiations, apart from the other widths' so that the build
+// compiles them in parallel.
+
+#include "flash_attention_sm90.cuh"
+
+namespace fdsd::k1 {
+FDSD_K1_WIDTH(224)
+FDSD_K1_WIDTH(240)
+FDSD_K1_WIDTH(256)
+}  // namespace fdsd::k1

@@ -1,6 +1,9 @@
 // Flash-attention backward on fp32 inputs for Hopper (sm_90a) on the tensor
-// cores: the fp32 form of K3 (dq) and K4 (dk, dv), plain and causal, and of
-// K6 / K7 (position masks under a caller-supplied global lse and delta).
+// cores: the fp32 form of K3 (dq) and K4 (dk, dv), plain and causal at
+// every head dim up to 128, and of K6 / K7 (position masks under a
+// caller-supplied global lse and delta) at 64. Head dims 129 to 256 take the
+// kernels of flash_f32_fma.cu: above 128 the resident Q and dO (dq) or K and
+// V (dk / dv) terms of a 64-row tile no longer fit beside the rings.
 //
 // Replaces, for fp32 q, k, v, dO, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
@@ -55,12 +58,17 @@
 //    delta of the tile's queries from global memory, form P^T and dS^T in
 //    registers, and run dV += P^T dO and dK += dS^T Q as RS wgmmas over
 //    64-column chunks of d, each chunk into a fresh accumulator.
-// Shared memory, every form: 229,376 B of tiles (the two kernels were sized
-// to it). Masks (K3 / K4 causal, K6 / K7) are the position masks of
+// Widths: 64 and 128 at DP = d; every other head dim up to 128 at d rounded
+// up to 16, the columns past d read as TMA's zeros and not written; dk / dv
+// accumulate in chunks of DP / 2 columns above DP = 64. Shared memory, every
+// form at 64 and 128: 229,376 B of tiles (the two kernels were sized to it),
+// less at the other widths. Masks (K3 / K4 causal, K6 / K7) are the position masks of
 // pos_tile.cuh, judged per (query tile, key tile) pair by pos_pair in every
 // role; the causal form of the plain kernels is the position mask with
 // offsets 0. Query rows past Lq get lse = +1e30 (P = 0); keys past Lk are
 // selected to P = 0.
+
+#include <type_traits>
 
 #include "../pos_tile.cuh"
 #include "../sm90.cuh"
@@ -118,6 +126,7 @@ struct Params {
   float* o0;           // dq, or dk
   float* o1;           // dv
   int B, H, Lq, Lk, n_tiles;  // query tiles (dq) or key blocks (dk/dv)
+  int d;               // the head dim; columns d .. DP - 1 are padding
   long long o0s[3], o1s[3];   // outputs' (batch, head, seq) strides
   float scale;
   PosArgs pos;  // MASKED only; null offsets read as 0
@@ -218,7 +227,7 @@ struct DqCfg {
   static constexpr int kBars = 1 + 4 * kStages;
   static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
   static_assert(kSmemBytes <= 232448, "shared memory");
-  static_assert(DP == 64 || DP == 128, "head dim");
+  static_assert(DP % 16 == 0 && DP <= 128, "head dim");
 };
 
 template <int DP, bool MASKED>
@@ -412,6 +421,7 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int col = 8 * j + 2 * t;
+      if (col >= p.d) continue;
       if (r0 < p.Lq)
         *reinterpret_cast<float2*>(ob + r0 * p.o0s[2] + col) =
             make_float2(dq[4 * j] * p.scale, dq[4 * j + 1] * p.scale);
@@ -432,7 +442,8 @@ struct DkvCfg {
   static constexpr int kConsumers = 128 * kCons;
   static constexpr int kConsumerRegs = kCons == 2 ? 232 : 240;
   static constexpr int kStagesA = 2, kStagesB = 1;
-  static constexpr int kNC = 64;  // output columns per dV / dK accumulator
+  // output columns per dV / dK accumulator
+  static constexpr int kNC = DP <= 64 ? DP : DP / 2;
   using TK = Tile<kBKey, DP>;     // K, V (resident)
   using TQ = Tile<kBQ, DP>;       // Q, dO
   using TQT = Tile<DP, kBQ>;      // Q^T, dO^T
@@ -446,7 +457,7 @@ struct DkvCfg {
   static constexpr int kBars = 1 + 2 * kStagesA + 2 * kStagesB;
   static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
   static_assert(kSmemBytes <= 232448, "shared memory");
-  static_assert(DP == 64 || DP == 128, "head dim");
+  static_assert(DP % 16 == 0 && DP <= 128, "head dim");
 };
 
 template <int DP, bool MASKED>
@@ -657,6 +668,7 @@ flash_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int col = 8 * j + 2 * t;
+      if (col >= p.d) continue;
       if (key0 < p.Lk) {
         *reinterpret_cast<float2*>(kb + key0 * p.o0s[2] + col) =
             make_float2(dk[4 * j] * p.scale, dk[4 * j + 1] * p.scale);
@@ -740,12 +752,13 @@ cudaError_t rows_map(CUtensorMap* map, const float* terms, int B, int H,
                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
+// A transposed map's box is W positions x DP rows; rows past d are zeros.
 cudaError_t transposed_map(CUtensorMap* map, const float* terms, int B, int H,
-                           int L, int d, int W) {
+                           int L, int d, int W, int DP) {
   const int l8 = round_up8(L);
   const long long st[3] = {static_cast<long long>(H) * d * l8,
                            static_cast<long long>(d) * l8, l8};
-  return s9::make_map(map, terms, l8, d, H, 2 * B, st, W, d,
+  return s9::make_map(map, terms, l8, d, H, 2 * B, st, W, DP,
                       W == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
                               : CU_TENSOR_MAP_SWIZZLE_32B,
                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
@@ -756,20 +769,21 @@ cudaError_t run_dq(const void* q, const void* k, const void* v, const void* g,
                    const long long* st, const Work& w, Params p,
                    cudaStream_t s) {
   using C = DqCfg<DP>;
-  cudaError_t err = split_row_terms(q, k, v, g, st, p.H, p.Lq, p.Lk, DP, w, s);
+  const int d = p.d;
+  cudaError_t err = split_row_terms(q, k, v, g, st, p.H, p.Lq, p.Lk, d, w, s);
   if (err == cudaSuccess)
-    err = split_transposed(k, st + 3, w.kt, w.nkt, p.B, p.H, p.Lk, DP, s);
+    err = split_transposed(k, st + 3, w.kt, w.nkt, p.B, p.H, p.Lk, d, s);
   CUtensorMap tq, tg, tk, tv, tkt;
   if (err == cudaSuccess)
-    err = rows_map(&tq, w.q, p.B, p.H, p.Lq, DP, C::TQ::W, C::kBQ);
+    err = rows_map(&tq, w.q, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
   if (err == cudaSuccess)
-    err = rows_map(&tg, w.g, p.B, p.H, p.Lq, DP, C::TQ::W, C::kBQ);
+    err = rows_map(&tg, w.g, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
   if (err == cudaSuccess)
-    err = rows_map(&tk, w.k, p.B, p.H, p.Lk, DP, C::TK::W, C::kBK);
+    err = rows_map(&tk, w.k, p.B, p.H, p.Lk, d, C::TK::W, C::kBK);
   if (err == cudaSuccess)
-    err = rows_map(&tv, w.v, p.B, p.H, p.Lk, DP, C::TK::W, C::kBK);
+    err = rows_map(&tv, w.v, p.B, p.H, p.Lk, d, C::TK::W, C::kBK);
   if (err == cudaSuccess)
-    err = transposed_map(&tkt, w.kt, p.B, p.H, p.Lk, DP, C::TKT::W);
+    err = transposed_map(&tkt, w.kt, p.B, p.H, p.Lk, d, C::TKT::W, DP);
   if (err != cudaSuccess) return err;
   p.n_tiles = (p.Lq + C::kBQ - 1) / C::kBQ;
   return s9::launch_kernel(flash_bwd_dq_f32_kernel<DP, MASKED>,
@@ -782,24 +796,25 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     const void* g, const long long* st, const Work& w,
                     Params p, cudaStream_t s) {
   using C = DkvCfg<DP>;
-  cudaError_t err = split_row_terms(q, k, v, g, st, p.H, p.Lq, p.Lk, DP, w, s);
+  const int d = p.d;
+  cudaError_t err = split_row_terms(q, k, v, g, st, p.H, p.Lq, p.Lk, d, w, s);
   if (err == cudaSuccess)
-    err = split_transposed(q, st, w.qt, w.nqt, p.B, p.H, p.Lq, DP, s);
+    err = split_transposed(q, st, w.qt, w.nqt, p.B, p.H, p.Lq, d, s);
   if (err == cudaSuccess)
-    err = split_transposed(g, st + 9, w.gt, w.nqt, p.B, p.H, p.Lq, DP, s);
+    err = split_transposed(g, st + 9, w.gt, w.nqt, p.B, p.H, p.Lq, d, s);
   CUtensorMap tq, tg, tk, tv, tqt, tgt;
   if (err == cudaSuccess)
-    err = rows_map(&tq, w.q, p.B, p.H, p.Lq, DP, C::TQ::W, C::kBQ);
+    err = rows_map(&tq, w.q, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
   if (err == cudaSuccess)
-    err = rows_map(&tg, w.g, p.B, p.H, p.Lq, DP, C::TQ::W, C::kBQ);
+    err = rows_map(&tg, w.g, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
   if (err == cudaSuccess)
-    err = rows_map(&tk, w.k, p.B, p.H, p.Lk, DP, C::TK::W, C::kBKey);
+    err = rows_map(&tk, w.k, p.B, p.H, p.Lk, d, C::TK::W, C::kBKey);
   if (err == cudaSuccess)
-    err = rows_map(&tv, w.v, p.B, p.H, p.Lk, DP, C::TK::W, C::kBKey);
+    err = rows_map(&tv, w.v, p.B, p.H, p.Lk, d, C::TK::W, C::kBKey);
   if (err == cudaSuccess)
-    err = transposed_map(&tqt, w.qt, p.B, p.H, p.Lq, DP, C::TQT::W);
+    err = transposed_map(&tqt, w.qt, p.B, p.H, p.Lq, d, C::TQT::W, DP);
   if (err == cudaSuccess)
-    err = transposed_map(&tgt, w.gt, p.B, p.H, p.Lq, DP, C::TQT::W);
+    err = transposed_map(&tgt, w.gt, p.B, p.H, p.Lq, d, C::TQT::W, DP);
   if (err != cudaSuccess) return err;
   p.n_tiles = (p.Lk + C::kBKey - 1) / C::kBKey;
   return s9::launch_kernel(flash_bwd_dkv_f32_kernel<DP, MASKED>,
@@ -809,9 +824,10 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
 
 // strides: q, k, v, dO, then the outputs, three each.
 Params bwd_params(const void* lse, const void* delta, void* o0, void* o1,
-                  int B, int H, int Lq, int Lk, const long long* strides,
-                  float scale) {
+                  int B, int H, int Lq, int Lk, int d,
+                  const long long* strides, float scale) {
   Params p = {};
+  p.d = d;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.o0 = static_cast<float*>(o0);
@@ -829,16 +845,44 @@ Params bwd_params(const void* lse, const void* delta, void* o0, void* o1,
   return p;
 }
 
+// run(std::integral_constant<int, DP>{}) at the width of head dim d: d
+// rounded up to 16 (1 to 128, a multiple of 4); cudaErrorInvalidValue
+// above.
+template <typename Run>
+cudaError_t run_width(int d, Run run) {
+  if (d < 4 || d > 128 || d % 4 != 0) return cudaErrorInvalidValue;
+  switch ((d + 15) / 16 * 16) {
+    case 16:
+      return run(std::integral_constant<int, 16>{});
+    case 32:
+      return run(std::integral_constant<int, 32>{});
+    case 48:
+      return run(std::integral_constant<int, 48>{});
+    case 64:
+      return run(std::integral_constant<int, 64>{});
+    case 80:
+      return run(std::integral_constant<int, 80>{});
+    case 96:
+      return run(std::integral_constant<int, 96>{});
+    case 112:
+      return run(std::integral_constant<int, 112>{});
+    default:
+      return run(std::integral_constant<int, 128>{});
+  }
+}
+
 cudaError_t dispatch_dq(const void* q, const void* k, const void* v,
                         const void* g, const long long* st, void* work,
                         const Params& p, int d, bool masked, cudaStream_t s) {
   const Work w = carve(work, p.B, p.H, p.Lq, p.Lk, d);
-  if (masked)
+  if (masked && p.pos.q_off != nullptr)  // K6: 64 only
     return d == 64 ? run_dq<64, true>(q, k, v, g, st, w, p, s)
                    : cudaErrorInvalidValue;
-  if (d == 64) return run_dq<64, false>(q, k, v, g, st, w, p, s);
-  if (d == 128) return run_dq<128, false>(q, k, v, g, st, w, p, s);
-  return cudaErrorInvalidValue;
+  return run_width(d, [&](auto width) {
+    constexpr int DP = decltype(width)::value;
+    return masked ? run_dq<DP, true>(q, k, v, g, st, w, p, s)
+                  : run_dq<DP, false>(q, k, v, g, st, w, p, s);
+  });
 }
 
 cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
@@ -846,12 +890,14 @@ cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
                          const Params& p, int d, bool masked,
                          cudaStream_t s) {
   const Work w = carve(work, p.B, p.H, p.Lq, p.Lk, d);
-  if (masked)
+  if (masked && p.pos.q_off != nullptr)  // K7: 64 only
     return d == 64 ? run_dkv<64, true>(q, k, v, g, st, w, p, s)
                    : cudaErrorInvalidValue;
-  if (d == 64) return run_dkv<64, false>(q, k, v, g, st, w, p, s);
-  if (d == 128) return run_dkv<128, false>(q, k, v, g, st, w, p, s);
-  return cudaErrorInvalidValue;
+  return run_width(d, [&](auto width) {
+    constexpr int DP = decltype(width)::value;
+    return masked ? run_dkv<DP, true>(q, k, v, g, st, w, p, s)
+                  : run_dkv<DP, false>(q, k, v, g, st, w, p, s);
+  });
 }
 
 PosArgs pos_args(const void* q_off, const void* k_off, int seg_q, int seg_k,
@@ -867,8 +913,8 @@ PosArgs pos_args(const void* q_off, const void* k_off, int seg_q, int seg_k,
 // dO, dq, each a multiple of 4; the head-dim stride is 1. lse and delta are
 // (B, H, Lq) contiguous fp32. work: fp32 scratch of 2 B H d (2 Lq + 2 Lk +
 // Lk8 + 2 Lq8) floats (L8: L rounded up to 8), shared in layout with
-// fdsd_flash_bwd_dkv_f32. Head dims 64 and 128 without a mask, 64 with
-// causal.
+// fdsd_flash_bwd_dkv_f32. Every head dim up to 128 that is a multiple of 4,
+// without a mask or causal.
 extern "C" int fdsd_flash_bwd_dq_f32(const void* q, const void* k,
                                      const void* v, const void* g,
                                      const void* lse, const void* delta,
@@ -876,7 +922,8 @@ extern "C" int fdsd_flash_bwd_dq_f32(const void* q, const void* k,
                                      int Lq, int Lk, int d,
                                      const long long* strides, float scale,
                                      int causal, void* stream) {
-  Params p = bwd_params(lse, delta, dq, nullptr, B, H, Lq, Lk, strides, scale);
+  Params p = bwd_params(lse, delta, dq, nullptr, B, H, Lq, Lk, d, strides,
+                       scale);
   p.pos.causal = causal;
   return static_cast<int>(dispatch_dq(q, k, v, g, strides, work, p, d,
                                       causal != 0,
@@ -892,7 +939,8 @@ extern "C" int fdsd_flash_bwd_dkv_f32(const void* q, const void* k,
                                       int H, int Lq, int Lk, int d,
                                       const long long* strides, float scale,
                                       int causal, void* stream) {
-  Params p = bwd_params(lse, delta, dk, dv, B, H, Lq, Lk, strides, scale);
+  Params p = bwd_params(lse, delta, dk, dv, B, H, Lq, Lk, d, strides,
+                       scale);
   p.pos.causal = causal;
   return static_cast<int>(dispatch_dkv(q, k, v, g, strides, work, p, d,
                                        causal != 0,
@@ -907,7 +955,8 @@ extern "C" int fdsd_flash_bwd_pos_dq_f32(
     const void* k_off, void* work, int B, int H, int Lq, int Lk, int d,
     const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
     int has_valid, int causal, void* stream) {
-  Params p = bwd_params(lse, delta, dq, nullptr, B, H, Lq, Lk, strides, scale);
+  Params p = bwd_params(lse, delta, dq, nullptr, B, H, Lq, Lk, d, strides,
+                       scale);
   p.pos = pos_args(q_off, k_off, seg_q, seg_k, valid_len, has_valid, causal);
   return static_cast<int>(dispatch_dq(q, k, v, g, strides, work, p, d, true,
                                       static_cast<cudaStream_t>(stream)));
@@ -921,7 +970,8 @@ extern "C" int fdsd_flash_bwd_pos_dkv_f32(
     const void* k_off, void* work, int B, int H, int Lq, int Lk, int d,
     const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
     int has_valid, int causal, void* stream) {
-  Params p = bwd_params(lse, delta, dk, dv, B, H, Lq, Lk, strides, scale);
+  Params p = bwd_params(lse, delta, dk, dv, B, H, Lq, Lk, d, strides,
+                       scale);
   p.pos = pos_args(q_off, k_off, seg_q, seg_k, valid_len, has_valid, causal);
   return static_cast<int>(dispatch_dkv(q, k, v, g, strides, work, p, d, true,
                                        static_cast<cudaStream_t>(stream)));

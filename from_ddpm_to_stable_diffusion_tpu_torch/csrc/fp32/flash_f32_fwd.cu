@@ -1,7 +1,8 @@
 // Flash-attention forward on fp32 inputs for Hopper (sm_90a) on the tensor
-// cores: the fp32 form of K1 (no mask at head dims 8, 40, 48, 64, 72, 80,
-// 128, 160 and 512; causal at 64; T5's additive bias at 64) and of K5
-// (position masks at 64, online and bounded).
+// cores: the fp32 form of K1 (no mask and causal at every head dim up to
+// 160, no mask at 512; T5's additive bias at 64) and of K5 (position masks
+// at 64, online and bounded). Head dims 161 to 256 take the kernels of
+// flash_f32_fma.cu.
 //
 // Replaces, for fp32 q, k, v, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
@@ -63,6 +64,11 @@
 //    group of v^T. At d = 8 each logit costs 3 x 2 x 2 x 8 = 96 flop on the
 //    tensor cores against one exponential, so the SFU's ex2, not the TF32
 //    products, bound it (PERF.md); the simple form is kept.
+//  - Widths: the head dims 8, 40, 48, 64, 72, 80, 128 and 160 run at DP = d;
+//    every other head dim up to 160 at d rounded up to 16 (16, 32, 96, 112,
+//    144, or a width above), the columns past d read as TMA's zeros and not
+//    written. The stages follow the width: two while Q's terms and two of
+//    each ring fit, else one.
 //  - K1 at head dim 160 (the SD1 UNet's level-2 attention from 768^2) is the
 //    same kernel with one consumer warpgroup and 64-query blocks: a
 //    128-query Q tile's two terms would take 160 KB. Chosen over the d = 512
@@ -160,7 +166,12 @@ struct Cfg {
   static constexpr uint32_t kAtom = 8 * W * 4;          // 8 rows of a chunk
   static constexpr int kChunks = DP / W;
   static constexpr int kBK = DP >= 80 ? 32 : 64;  // keys per tile
-  static constexpr int kStages = DP >= 128 ? 1 : 2;
+  // two stages where Q's terms and two of each ring fit (DP < 120)
+  static constexpr int kStages =
+      2 * kBQ * DP * 4 + 2 * 4 * kBK * DP * 4 + 1024 + 8 * 11 <= 232448 &&
+              DP < 128
+          ? 2
+          : 1;
   // output columns per P V wgmma: at d = 160 two halves of 80, so that the
   // fresh accumulator of a key tile's P V stays 40 registers
   static constexpr int kPVN = DP == 160 ? 80 : DP;
@@ -177,7 +188,7 @@ struct Cfg {
   static constexpr int kBars = 1 + 4 * kStages + 2;
   static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
   static_assert(kSmemBytes <= 232448, "shared memory");
-  static_assert(DP % 8 == 0 && (DP <= 128 || DP == 160), "head dim");
+  static_assert(DP % 8 == 0 && DP <= 160, "head dim");
   static_assert(!HAS_BIAS || DP == 64, "the bias form: d = 64");
 };
 
@@ -185,6 +196,7 @@ struct Params {
   float* out;
   float* lse;
   int B, H, Lq, Lk, n_qt;
+  int d;            // the head dim; columns d .. DP - 1 are padding
   long long os[3];  // out's (batch, head, seq) element strides
   float scale;
   PosArgs pos;       // MASKED only; null offsets read as 0
@@ -521,6 +533,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int col = 8 * j + 2 * t;
+      if (col >= p.d) continue;
       if (r0 < p.Lq)
         *reinterpret_cast<float2*>(ob + r0 * p.os[2] + col) =
             make_float2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
@@ -959,7 +972,7 @@ cudaError_t run(const Work& w, Params p, cudaStream_t s) {
   p.n_qt = (p.Lq + C::kBQ - 1) / C::kBQ;
   CUtensorMap tq, tk, tv;
   const cudaError_t err = term_maps(&tq, &tk, &tv, w, p.B, p.H, p.Lq, p.Lk,
-                                    DP, C::W, C::kBQ, C::kBK, DP);
+                                    p.d, C::W, C::kBQ, C::kBK, DP);
   if (err != cudaSuccess) return err;
   return s9::launch_kernel(flash_fwd_f32_kernel<DP, MASKED, BOUNDED, HAS_BIAS>,
                            p.B * p.H * p.n_qt, C::kThreads, C::kSmemBytes, s,
@@ -1001,7 +1014,7 @@ cudaError_t run_d512(const Work& w, const Params& q, int splits,
   return err;
 }
 
-Params fwd_params(void* out, void* lse, int B, int H, int Lq, int Lk,
+Params fwd_params(void* out, void* lse, int B, int H, int Lq, int Lk, int d,
                   const long long* strides, float scale) {
   Params p = {};
   p.out = static_cast<float*>(out);
@@ -1010,10 +1023,20 @@ Params fwd_params(void* out, void* lse, int B, int H, int Lq, int Lk,
   p.H = H;
   p.Lq = Lq;
   p.Lk = Lk;
+  p.d = d;
   for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
   p.scale = scale;
   p.pos = PosArgs{nullptr, nullptr, Lq, Lk, 0, 0, 0};
   return p;
+}
+
+// K1 at the width DP, without a mask or causal (the position mask with
+// offsets 0).
+template <int DP>
+cudaError_t run_width(const Work& w, Params p, bool causal, cudaStream_t s) {
+  if (!causal) return run<DP>(w, p, s);
+  p.pos.causal = 1;
+  return run<DP, true>(w, p, s);
 }
 
 }  // namespace
@@ -1024,9 +1047,9 @@ Params fwd_params(void* out, void* lse, int B, int H, int Lq, int Lk,
 // read through its strides (0 on a broadcast axis), or null. work: fp32
 // scratch of 2 B H (Lq + Lk) d + 2 B H d Lk8 floats (Lk8: Lk rounded up to
 // 8), plus splits * B * H * Lq * 513 at d = 512 with splits > 1 (1 to 4 key
-// splits per 64-query tile; ignored at other head dims). Head dims 8, 40,
-// 48, 64, 72, 80, 128, 160 and 512 without a mask, 64 with causal or with a
-// bias; others return cudaErrorInvalidValue.
+// splits per 64-query tile; ignored at other head dims). Every head dim up to
+// 160 that is a multiple of 4 without a mask or causal, 512 without a mask,
+// 64 with a bias; others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   void* out, void* lse, void* work,
                                   const void* bias, int B, int H, int Lq,
@@ -1034,43 +1057,61 @@ extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   float scale, int causal, int splits,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Params p = fwd_params(out, lse, B, H, Lq, Lk, strides, scale);
+  Params p = fwd_params(out, lse, B, H, Lq, Lk, d, strides, scale);
   const Work w = carve(work, B, H, Lq, Lk, d);
-  if (causal || bias != nullptr
-          ? d != 64 || (causal && bias != nullptr)
-          : d != 8 && d != 40 && d != 48 && d != 64 && d != 72 &&
-                d != 80 && d != 128 && d != 160 && d != 512)
+  const bool width = (d >= 4 && d <= 160 && d % 4 == 0) || d == 512;
+  if (!width || (bias != nullptr && (d != 64 || causal)) ||
+      (causal && d == 512))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = split_inputs(q, k, v, strides, B, H, Lq, Lk, d, w, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (causal) {
-    p.pos.causal = 1;
-    return static_cast<int>(run<64, true>(w, p, s));
-  }
   if (bias != nullptr) {  // T5's relative-position bias
     p.m = fdsd::make_mask_args(bias, strides + 12, 0, nullptr, nullptr,
                                nullptr, nullptr, nullptr, nullptr);
     return static_cast<int>(run<64, false, false, true>(w, p, s));
   }
-  switch (d) {
+  const bool c = causal != 0;
+  switch (d) {  // the widths at DP = d
     case 8:  // the `checks sd1` UNet (model_channels 64, 8 heads)
-      return static_cast<int>(run<8>(w, p, s));
+      return static_cast<int>(run_width<8>(w, p, c, s));
     case 40:  // SD1 UNet at 64^2
-      return static_cast<int>(run<40>(w, p, s));
+      return static_cast<int>(run_width<40>(w, p, c, s));
     case 48:
-      return static_cast<int>(run<48>(w, p, s));
+      return static_cast<int>(run_width<48>(w, p, c, s));
     case 64:  // SigLIP tower, TinyVLM decoder
-      return static_cast<int>(run<64>(w, p, s));
+      return static_cast<int>(run_width<64>(w, p, c, s));
     case 72:
-      return static_cast<int>(run<72>(w, p, s));
+      return static_cast<int>(run_width<72>(w, p, c, s));
     case 80:  // SD1 UNet at 32^2
-      return static_cast<int>(run<80>(w, p, s));
+      return static_cast<int>(run_width<80>(w, p, c, s));
     case 128:  // tiny-SD UNet
-      return static_cast<int>(run<128>(w, p, s));
+      return static_cast<int>(run_width<128>(w, p, c, s));
     case 160:  // SD1 UNet level 2, from 768^2 images
-      return static_cast<int>(run<160>(w, p, s));
-    default:  // 512: the VAEs' mid attention
+      return static_cast<int>(run_width<160>(w, p, c, s));
+    case 512:  // the VAEs' mid attention
       return static_cast<int>(run_d512(w, p, splits, s));
+  }
+  switch ((d + 15) / 16 * 16) {  // the others, padded to a width
+    case 16:
+      return static_cast<int>(run_width<16>(w, p, c, s));
+    case 32:
+      return static_cast<int>(run_width<32>(w, p, c, s));
+    case 48:
+      return static_cast<int>(run_width<48>(w, p, c, s));
+    case 64:
+      return static_cast<int>(run_width<64>(w, p, c, s));
+    case 80:
+      return static_cast<int>(run_width<80>(w, p, c, s));
+    case 96:  // tiny-SD UNet at channel 96, 64^2
+      return static_cast<int>(run_width<96>(w, p, c, s));
+    case 112:
+      return static_cast<int>(run_width<112>(w, p, c, s));
+    case 128:
+      return static_cast<int>(run_width<128>(w, p, c, s));
+    case 144:
+      return static_cast<int>(run_width<144>(w, p, c, s));
+    default:
+      return static_cast<int>(run_width<160>(w, p, c, s));
   }
 }
 
@@ -1086,7 +1127,7 @@ extern "C" int fdsd_flash_fwd_pos_f32(const void* q, const void* k,
                                       int causal, int bounded, void* stream) {
   if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Params p = fwd_params(out, lse, B, H, Lq, Lk, strides, scale);
+  Params p = fwd_params(out, lse, B, H, Lq, Lk, d, strides, scale);
   p.pos = PosArgs{static_cast<const int*>(q_off),
                   static_cast<const int*>(k_off), seg_q, seg_k, valid_len,
                   has_valid, causal};

@@ -176,44 +176,23 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #define FDSD_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define FDSD_F8(i) FDSD_F4(i), FDSD_F4(i + 4)
 #define FDSD_F16 FDSD_F8(0), FDSD_F8(8)
-#define FDSD_F20 FDSD_F16, FDSD_F4(16)
 #define FDSD_F24 FDSD_F8(0), FDSD_F8(8), FDSD_F8(16)
 #define FDSD_F32 FDSD_F24, FDSD_F8(24)
-#define FDSD_F36 FDSD_F32, FDSD_F4(32)
 #define FDSD_F40 FDSD_F32, FDSD_F8(32)
 #define FDSD_F64 FDSD_F40, FDSD_F8(40), FDSD_F8(48), FDSD_F8(56)
-#define FDSD_F80 FDSD_F64, FDSD_F8(64), FDSD_F8(72)
 #define FDSD_F128                                                          \
   FDSD_F64, FDSD_F8(64), FDSD_F8(72), FDSD_F8(80), FDSD_F8(88), FDSD_F8(96), \
       FDSD_F8(104), FDSD_F8(112), FDSD_F8(120)
 #define FDSD_R8 "{%0,%1,%2,%3,%4,%5,%6,%7}"
 #define FDSD_R16 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}"
-#define FDSD_R20 \
-  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19}"
-#define FDSD_R24                                                            \
-  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
-  "%20,%21,%22,%23}"
 #define FDSD_R32 \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
   "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}"
-#define FDSD_R36 \
-  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
-  "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35}"
-#define FDSD_R40 \
-  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
-  "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
-  "%38,%39}"
 #define FDSD_R64 \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
   "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
   "%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55," \
   "%56,%57,%58,%59,%60,%61,%62,%63}"
-#define FDSD_R80 \
-  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
-  "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
-  "%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55," \
-  "%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,%72,%73," \
-  "%74,%75,%76,%77,%78,%79}"
 #define FDSD_R128 \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
   "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
@@ -263,56 +242,336 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
   }
 }
 
+// The accumulator lists of wgmma_rs: FDSD_RLk names operands %0 .. %k-1,
+// FDSD_FLk binds d[0 .. k-1] to them.
+#define FDSD_RL4 \
+  "{%0,%1,%2,%3}"
+#define FDSD_FL4 FDSD_F4(0)
+#define FDSD_RL8 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7}"
+#define FDSD_FL8 FDSD_FL4, FDSD_F4(4)
+#define FDSD_RL12 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11}"
+#define FDSD_FL12 FDSD_FL8, FDSD_F4(8)
+#define FDSD_RL16 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}"
+#define FDSD_FL16 FDSD_FL12, FDSD_F4(12)
+#define FDSD_RL20 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19}"
+#define FDSD_FL20 FDSD_FL16, FDSD_F4(16)
+#define FDSD_RL24 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23}"
+#define FDSD_FL24 FDSD_FL20, FDSD_F4(20)
+#define FDSD_RL28 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27}"
+#define FDSD_FL28 FDSD_FL24, FDSD_F4(24)
+#define FDSD_RL32 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}"
+#define FDSD_FL32 FDSD_FL28, FDSD_F4(28)
+#define FDSD_RL36 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35}"
+#define FDSD_FL36 FDSD_FL32, FDSD_F4(32)
+#define FDSD_RL40 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39}"
+#define FDSD_FL40 FDSD_FL36, FDSD_F4(36)
+#define FDSD_RL44 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43}"
+#define FDSD_FL44 FDSD_FL40, FDSD_F4(40)
+#define FDSD_RL48 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47}"
+#define FDSD_FL48 FDSD_FL44, FDSD_F4(44)
+#define FDSD_RL52 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51}"
+#define FDSD_FL52 FDSD_FL48, FDSD_F4(48)
+#define FDSD_RL56 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55}"
+#define FDSD_FL56 FDSD_FL52, FDSD_F4(52)
+#define FDSD_RL60 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59}"
+#define FDSD_FL60 FDSD_FL56, FDSD_F4(56)
+#define FDSD_RL64 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}"
+#define FDSD_FL64 FDSD_FL60, FDSD_F4(60)
+#define FDSD_RL68 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67}"
+#define FDSD_FL68 FDSD_FL64, FDSD_F4(64)
+#define FDSD_RL72 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71}"
+#define FDSD_FL72 FDSD_FL68, FDSD_F4(68)
+#define FDSD_RL76 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75}"
+#define FDSD_FL76 FDSD_FL72, FDSD_F4(72)
+#define FDSD_RL80 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79}"
+#define FDSD_FL80 FDSD_FL76, FDSD_F4(76)
+#define FDSD_RL84 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83}"
+#define FDSD_FL84 FDSD_FL80, FDSD_F4(80)
+#define FDSD_RL88 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83,%84,%85,%86,%87}"
+#define FDSD_FL88 FDSD_FL84, FDSD_F4(84)
+#define FDSD_RL92 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83,%84,%85,%86,%87,%88,%89,%90,%91}"
+#define FDSD_FL92 FDSD_FL88, FDSD_F4(88)
+#define FDSD_RL96 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95}"
+#define FDSD_FL96 FDSD_FL92, FDSD_F4(92)
+#define FDSD_RL100 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97," \
+  "%98,%99}"
+#define FDSD_FL100 FDSD_FL96, FDSD_F4(96)
+#define FDSD_RL104 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97," \
+  "%98,%99,%100,%101,%102,%103}"
+#define FDSD_FL104 FDSD_FL100, FDSD_F4(100)
+#define FDSD_RL108 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97," \
+  "%98,%99,%100,%101,%102,%103,%104,%105,%106,%107}"
+#define FDSD_FL108 FDSD_FL104, FDSD_F4(104)
+#define FDSD_RL112 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97," \
+  "%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110," \
+  "%111}"
+#define FDSD_FL112 FDSD_FL108, FDSD_F4(108)
+#define FDSD_RL116 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97," \
+  "%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110," \
+  "%111,%112,%113,%114,%115}"
+#define FDSD_FL116 FDSD_FL112, FDSD_F4(112)
+#define FDSD_RL120 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97," \
+  "%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110," \
+  "%111,%112,%113,%114,%115,%116,%117,%118,%119}"
+#define FDSD_FL120 FDSD_FL116, FDSD_F4(116)
+#define FDSD_RL124 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97," \
+  "%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110," \
+  "%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123}"
+#define FDSD_FL124 FDSD_FL120, FDSD_F4(120)
+#define FDSD_RL128 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17," \
+  "%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33," \
+  "%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49," \
+  "%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65," \
+  "%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81," \
+  "%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97," \
+  "%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110," \
+  "%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123," \
+  "%124,%125,%126,%127}"
+#define FDSD_FL128 FDSD_FL124, FDSD_F4(124)
+
 // D(64 x N) (+)= A(64 x 16) B(16 x N): A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B MN-major in shared memory (read
-// transposed). scale_d = 0 overwrites D.
+// transposed). scale_d = 0 overwrites D. Every N that is a multiple of 8 up
+// to 256: one padded head-dim width each.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  static_assert(N == 48 || N == 64 || N == 80 || N == 128 || N == 160,
-                "wgmma_rs: N");
-  if constexpr (N == 48) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " FDSD_R24
-        ", {%24,%25,%26,%27}, %28, p, 1, 1, 1;\n}\n"
-        : FDSD_F24
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "wgmma_rs: N");
+// SHAPE, the accumulators' list and their constraints, then the operand
+// numbers of the setp (scale_d) and of a[0..3] and desc_b, as one string
+// each.
+#define FDSD_BF16_RS(SHAPE, R, F, P, OPS)                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"              \
+               "wgmma.mma_async.sync.aligned." SHAPE ".f32.bf16.bf16 " R     \
+               ", " OPS ", p, 1, 1, 1;\n}\n"                                 \
+               : F                                                           \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),    \
+                 "r"(scale_d))
+  if constexpr (N == 8) {
+    FDSD_BF16_RS("m64n8k16", FDSD_RL4, FDSD_FL4, "%9",
+                 "{%4,%5,%6,%7}, %8");
+  } else if constexpr (N == 16) {
+    FDSD_BF16_RS("m64n16k16", FDSD_RL8, FDSD_FL8, "%13",
+                 "{%8,%9,%10,%11}, %12");
+  } else if constexpr (N == 24) {
+    FDSD_BF16_RS("m64n24k16", FDSD_RL12, FDSD_FL12, "%17",
+                 "{%12,%13,%14,%15}, %16");
+  } else if constexpr (N == 32) {
+    FDSD_BF16_RS("m64n32k16", FDSD_RL16, FDSD_FL16, "%21",
+                 "{%16,%17,%18,%19}, %20");
+  } else if constexpr (N == 40) {
+    FDSD_BF16_RS("m64n40k16", FDSD_RL20, FDSD_FL20, "%25",
+                 "{%20,%21,%22,%23}, %24");
+  } else if constexpr (N == 48) {
+    FDSD_BF16_RS("m64n48k16", FDSD_RL24, FDSD_FL24, "%29",
+                 "{%24,%25,%26,%27}, %28");
+  } else if constexpr (N == 56) {
+    FDSD_BF16_RS("m64n56k16", FDSD_RL28, FDSD_FL28, "%33",
+                 "{%28,%29,%30,%31}, %32");
   } else if constexpr (N == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FDSD_R32
-        ", {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
-        : FDSD_F32
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
+    FDSD_BF16_RS("m64n64k16", FDSD_RL32, FDSD_FL32, "%37",
+                 "{%32,%33,%34,%35}, %36");
+  } else if constexpr (N == 72) {
+    FDSD_BF16_RS("m64n72k16", FDSD_RL36, FDSD_FL36, "%41",
+                 "{%36,%37,%38,%39}, %40");
   } else if constexpr (N == 80) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " FDSD_R40
-        ", {%40,%41,%42,%43}, %44, p, 1, 1, 1;\n}\n"
-        : FDSD_F40
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
+    FDSD_BF16_RS("m64n80k16", FDSD_RL40, FDSD_FL40, "%45",
+                 "{%40,%41,%42,%43}, %44");
+  } else if constexpr (N == 88) {
+    FDSD_BF16_RS("m64n88k16", FDSD_RL44, FDSD_FL44, "%49",
+                 "{%44,%45,%46,%47}, %48");
+  } else if constexpr (N == 96) {
+    FDSD_BF16_RS("m64n96k16", FDSD_RL48, FDSD_FL48, "%53",
+                 "{%48,%49,%50,%51}, %52");
+  } else if constexpr (N == 104) {
+    FDSD_BF16_RS("m64n104k16", FDSD_RL52, FDSD_FL52, "%57",
+                 "{%52,%53,%54,%55}, %56");
+  } else if constexpr (N == 112) {
+    FDSD_BF16_RS("m64n112k16", FDSD_RL56, FDSD_FL56, "%61",
+                 "{%56,%57,%58,%59}, %60");
+  } else if constexpr (N == 120) {
+    FDSD_BF16_RS("m64n120k16", FDSD_RL60, FDSD_FL60, "%65",
+                 "{%60,%61,%62,%63}, %64");
   } else if constexpr (N == 128) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FDSD_R64
-        ", {%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
-        : FDSD_F64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 " FDSD_R80
-        ", {%80,%81,%82,%83}, %84, p, 1, 1, 1;\n}\n"
-        : FDSD_F80
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-          "r"(scale_d));
+    FDSD_BF16_RS("m64n128k16", FDSD_RL64, FDSD_FL64, "%69",
+                 "{%64,%65,%66,%67}, %68");
+  } else if constexpr (N == 136) {
+    FDSD_BF16_RS("m64n136k16", FDSD_RL68, FDSD_FL68, "%73",
+                 "{%68,%69,%70,%71}, %72");
+  } else if constexpr (N == 144) {
+    FDSD_BF16_RS("m64n144k16", FDSD_RL72, FDSD_FL72, "%77",
+                 "{%72,%73,%74,%75}, %76");
+  } else if constexpr (N == 152) {
+    FDSD_BF16_RS("m64n152k16", FDSD_RL76, FDSD_FL76, "%81",
+                 "{%76,%77,%78,%79}, %80");
+  } else if constexpr (N == 160) {
+    FDSD_BF16_RS("m64n160k16", FDSD_RL80, FDSD_FL80, "%85",
+                 "{%80,%81,%82,%83}, %84");
+  } else if constexpr (N == 168) {
+    FDSD_BF16_RS("m64n168k16", FDSD_RL84, FDSD_FL84, "%89",
+                 "{%84,%85,%86,%87}, %88");
+  } else if constexpr (N == 176) {
+    FDSD_BF16_RS("m64n176k16", FDSD_RL88, FDSD_FL88, "%93",
+                 "{%88,%89,%90,%91}, %92");
+  } else if constexpr (N == 184) {
+    FDSD_BF16_RS("m64n184k16", FDSD_RL92, FDSD_FL92, "%97",
+                 "{%92,%93,%94,%95}, %96");
+  } else if constexpr (N == 192) {
+    FDSD_BF16_RS("m64n192k16", FDSD_RL96, FDSD_FL96, "%101",
+                 "{%96,%97,%98,%99}, %100");
+  } else if constexpr (N == 200) {
+    FDSD_BF16_RS("m64n200k16", FDSD_RL100, FDSD_FL100, "%105",
+                 "{%100,%101,%102,%103}, %104");
+  } else if constexpr (N == 208) {
+    FDSD_BF16_RS("m64n208k16", FDSD_RL104, FDSD_FL104, "%109",
+                 "{%104,%105,%106,%107}, %108");
+  } else if constexpr (N == 216) {
+    FDSD_BF16_RS("m64n216k16", FDSD_RL108, FDSD_FL108, "%113",
+                 "{%108,%109,%110,%111}, %112");
+  } else if constexpr (N == 224) {
+    FDSD_BF16_RS("m64n224k16", FDSD_RL112, FDSD_FL112, "%117",
+                 "{%112,%113,%114,%115}, %116");
+  } else if constexpr (N == 232) {
+    FDSD_BF16_RS("m64n232k16", FDSD_RL116, FDSD_FL116, "%121",
+                 "{%116,%117,%118,%119}, %120");
+  } else if constexpr (N == 240) {
+    FDSD_BF16_RS("m64n240k16", FDSD_RL120, FDSD_FL120, "%125",
+                 "{%120,%121,%122,%123}, %124");
+  } else if constexpr (N == 248) {
+    FDSD_BF16_RS("m64n248k16", FDSD_RL124, FDSD_FL124, "%129",
+                 "{%124,%125,%126,%127}, %128");
+  } else if constexpr (N == 256) {
+    FDSD_BF16_RS("m64n256k16", FDSD_RL128, FDSD_FL128, "%133",
+                 "{%128,%129,%130,%131}, %132");
   }
+#undef FDSD_BF16_RS
 }
 
 // x rounded to TF32 (nearest, ties away): the fp32 bit pattern with the low
@@ -356,14 +615,13 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2],
 
 // D(64 x N) (+)= A(64 x 8) B(8 x N) in TF32: A from registers (each warp's
 // 16 rows: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) with
-// g = lane / 4, t = lane % 4), B K-major in shared memory.
+// g = lane / 4, t = lane % 4), B K-major in shared memory. Every N that is a
+// multiple of 8 up to 256.
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t desc_b, int scale_d) {
-  static_assert(N == 8 || N == 40 || N == 48 || N == 64 || N == 72 ||
-                    N == 80 || N == 128,
-                "wgmma_tf32_rs: N");
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "wgmma_tf32_rs: N");
 // SHAPE, the accumulators' list and constraints, then the operand numbers
 // of the setp (scale_d) and of a[0..3] and desc_b, as one string each.
 #define FDSD_TF32_RS(SHAPE, R, F, P, OPS)                                   \
@@ -374,50 +632,181 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),    \
                  "r"(scale_d))
   if constexpr (N == 8) {
-    FDSD_TF32_RS("m64n8k8", "{%0,%1,%2,%3}", FDSD_F4(0), "%9",
+    FDSD_TF32_RS("m64n8k8", FDSD_RL4, FDSD_FL4, "%9",
                  "{%4,%5,%6,%7}, %8");
+  } else if constexpr (N == 16) {
+    FDSD_TF32_RS("m64n16k8", FDSD_RL8, FDSD_FL8, "%13",
+                 "{%8,%9,%10,%11}, %12");
+  } else if constexpr (N == 24) {
+    FDSD_TF32_RS("m64n24k8", FDSD_RL12, FDSD_FL12, "%17",
+                 "{%12,%13,%14,%15}, %16");
+  } else if constexpr (N == 32) {
+    FDSD_TF32_RS("m64n32k8", FDSD_RL16, FDSD_FL16, "%21",
+                 "{%16,%17,%18,%19}, %20");
   } else if constexpr (N == 40) {
-    FDSD_TF32_RS("m64n40k8", FDSD_R20, FDSD_F20, "%25",
+    FDSD_TF32_RS("m64n40k8", FDSD_RL20, FDSD_FL20, "%25",
                  "{%20,%21,%22,%23}, %24");
   } else if constexpr (N == 48) {
-    FDSD_TF32_RS("m64n48k8", FDSD_R24, FDSD_F24, "%29",
+    FDSD_TF32_RS("m64n48k8", FDSD_RL24, FDSD_FL24, "%29",
                  "{%24,%25,%26,%27}, %28");
+  } else if constexpr (N == 56) {
+    FDSD_TF32_RS("m64n56k8", FDSD_RL28, FDSD_FL28, "%33",
+                 "{%28,%29,%30,%31}, %32");
   } else if constexpr (N == 64) {
-    FDSD_TF32_RS("m64n64k8", FDSD_R32, FDSD_F32, "%37",
+    FDSD_TF32_RS("m64n64k8", FDSD_RL32, FDSD_FL32, "%37",
                  "{%32,%33,%34,%35}, %36");
   } else if constexpr (N == 72) {
-    FDSD_TF32_RS("m64n72k8", FDSD_R36, FDSD_F36, "%41",
+    FDSD_TF32_RS("m64n72k8", FDSD_RL36, FDSD_FL36, "%41",
                  "{%36,%37,%38,%39}, %40");
   } else if constexpr (N == 80) {
-    FDSD_TF32_RS("m64n80k8", FDSD_R40, FDSD_F40, "%45",
+    FDSD_TF32_RS("m64n80k8", FDSD_RL40, FDSD_FL40, "%45",
                  "{%40,%41,%42,%43}, %44");
-  } else {
-    FDSD_TF32_RS("m64n128k8", FDSD_R64, FDSD_F64, "%69",
+  } else if constexpr (N == 88) {
+    FDSD_TF32_RS("m64n88k8", FDSD_RL44, FDSD_FL44, "%49",
+                 "{%44,%45,%46,%47}, %48");
+  } else if constexpr (N == 96) {
+    FDSD_TF32_RS("m64n96k8", FDSD_RL48, FDSD_FL48, "%53",
+                 "{%48,%49,%50,%51}, %52");
+  } else if constexpr (N == 104) {
+    FDSD_TF32_RS("m64n104k8", FDSD_RL52, FDSD_FL52, "%57",
+                 "{%52,%53,%54,%55}, %56");
+  } else if constexpr (N == 112) {
+    FDSD_TF32_RS("m64n112k8", FDSD_RL56, FDSD_FL56, "%61",
+                 "{%56,%57,%58,%59}, %60");
+  } else if constexpr (N == 120) {
+    FDSD_TF32_RS("m64n120k8", FDSD_RL60, FDSD_FL60, "%65",
+                 "{%60,%61,%62,%63}, %64");
+  } else if constexpr (N == 128) {
+    FDSD_TF32_RS("m64n128k8", FDSD_RL64, FDSD_FL64, "%69",
                  "{%64,%65,%66,%67}, %68");
+  } else if constexpr (N == 136) {
+    FDSD_TF32_RS("m64n136k8", FDSD_RL68, FDSD_FL68, "%73",
+                 "{%68,%69,%70,%71}, %72");
+  } else if constexpr (N == 144) {
+    FDSD_TF32_RS("m64n144k8", FDSD_RL72, FDSD_FL72, "%77",
+                 "{%72,%73,%74,%75}, %76");
+  } else if constexpr (N == 152) {
+    FDSD_TF32_RS("m64n152k8", FDSD_RL76, FDSD_FL76, "%81",
+                 "{%76,%77,%78,%79}, %80");
+  } else if constexpr (N == 160) {
+    FDSD_TF32_RS("m64n160k8", FDSD_RL80, FDSD_FL80, "%85",
+                 "{%80,%81,%82,%83}, %84");
+  } else if constexpr (N == 168) {
+    FDSD_TF32_RS("m64n168k8", FDSD_RL84, FDSD_FL84, "%89",
+                 "{%84,%85,%86,%87}, %88");
+  } else if constexpr (N == 176) {
+    FDSD_TF32_RS("m64n176k8", FDSD_RL88, FDSD_FL88, "%93",
+                 "{%88,%89,%90,%91}, %92");
+  } else if constexpr (N == 184) {
+    FDSD_TF32_RS("m64n184k8", FDSD_RL92, FDSD_FL92, "%97",
+                 "{%92,%93,%94,%95}, %96");
+  } else if constexpr (N == 192) {
+    FDSD_TF32_RS("m64n192k8", FDSD_RL96, FDSD_FL96, "%101",
+                 "{%96,%97,%98,%99}, %100");
+  } else if constexpr (N == 200) {
+    FDSD_TF32_RS("m64n200k8", FDSD_RL100, FDSD_FL100, "%105",
+                 "{%100,%101,%102,%103}, %104");
+  } else if constexpr (N == 208) {
+    FDSD_TF32_RS("m64n208k8", FDSD_RL104, FDSD_FL104, "%109",
+                 "{%104,%105,%106,%107}, %108");
+  } else if constexpr (N == 216) {
+    FDSD_TF32_RS("m64n216k8", FDSD_RL108, FDSD_FL108, "%113",
+                 "{%108,%109,%110,%111}, %112");
+  } else if constexpr (N == 224) {
+    FDSD_TF32_RS("m64n224k8", FDSD_RL112, FDSD_FL112, "%117",
+                 "{%112,%113,%114,%115}, %116");
+  } else if constexpr (N == 232) {
+    FDSD_TF32_RS("m64n232k8", FDSD_RL116, FDSD_FL116, "%121",
+                 "{%116,%117,%118,%119}, %120");
+  } else if constexpr (N == 240) {
+    FDSD_TF32_RS("m64n240k8", FDSD_RL120, FDSD_FL120, "%125",
+                 "{%120,%121,%122,%123}, %124");
+  } else if constexpr (N == 248) {
+    FDSD_TF32_RS("m64n248k8", FDSD_RL124, FDSD_FL124, "%129",
+                 "{%124,%125,%126,%127}, %128");
+  } else if constexpr (N == 256) {
+    FDSD_TF32_RS("m64n256k8", FDSD_RL128, FDSD_FL128, "%133",
+                 "{%128,%129,%130,%131}, %132");
   }
 #undef FDSD_TF32_RS
 }
 
+#undef FDSD_RL4
+#undef FDSD_FL4
+#undef FDSD_RL8
+#undef FDSD_FL8
+#undef FDSD_RL12
+#undef FDSD_FL12
+#undef FDSD_RL16
+#undef FDSD_FL16
+#undef FDSD_RL20
+#undef FDSD_FL20
+#undef FDSD_RL24
+#undef FDSD_FL24
+#undef FDSD_RL28
+#undef FDSD_FL28
+#undef FDSD_RL32
+#undef FDSD_FL32
+#undef FDSD_RL36
+#undef FDSD_FL36
+#undef FDSD_RL40
+#undef FDSD_FL40
+#undef FDSD_RL44
+#undef FDSD_FL44
+#undef FDSD_RL48
+#undef FDSD_FL48
+#undef FDSD_RL52
+#undef FDSD_FL52
+#undef FDSD_RL56
+#undef FDSD_FL56
+#undef FDSD_RL60
+#undef FDSD_FL60
+#undef FDSD_RL64
+#undef FDSD_FL64
+#undef FDSD_RL68
+#undef FDSD_FL68
+#undef FDSD_RL72
+#undef FDSD_FL72
+#undef FDSD_RL76
+#undef FDSD_FL76
+#undef FDSD_RL80
+#undef FDSD_FL80
+#undef FDSD_RL84
+#undef FDSD_FL84
+#undef FDSD_RL88
+#undef FDSD_FL88
+#undef FDSD_RL92
+#undef FDSD_FL92
+#undef FDSD_RL96
+#undef FDSD_FL96
+#undef FDSD_RL100
+#undef FDSD_FL100
+#undef FDSD_RL104
+#undef FDSD_FL104
+#undef FDSD_RL108
+#undef FDSD_FL108
+#undef FDSD_RL112
+#undef FDSD_FL112
+#undef FDSD_RL116
+#undef FDSD_FL116
+#undef FDSD_RL120
+#undef FDSD_FL120
+#undef FDSD_RL124
+#undef FDSD_FL124
+#undef FDSD_RL128
+#undef FDSD_FL128
 #undef FDSD_F4
 #undef FDSD_F8
 #undef FDSD_F16
-#undef FDSD_F20
 #undef FDSD_F24
 #undef FDSD_F32
-#undef FDSD_F36
 #undef FDSD_F40
 #undef FDSD_F64
-#undef FDSD_F80
 #undef FDSD_F128
 #undef FDSD_R8
 #undef FDSD_R16
-#undef FDSD_R20
-#undef FDSD_R24
 #undef FDSD_R32
-#undef FDSD_R36
-#undef FDSD_R40
 #undef FDSD_R64
-#undef FDSD_R80
 #undef FDSD_R128
 
 // ------------------------------------------------------------- setmaxnreg
@@ -445,11 +834,12 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 // ----------------------------------------------------------- bias staging
 // A (ROWS queries x COLS keys) bias tile in shared memory, in the bias's own
-// dtype T: row r, column c at r * COLS + (c ^ 8 * (r % 8)). The swizzle keeps
-// each 16-byte vector whole and spreads the reads of a quad over the banks.
+// dtype T: row r, column c at r * COLS + (c ^ 8 * (r % 8)), the XOR kept
+// inside the row (r % 4 at COLS = 32). The swizzle keeps each 16-byte vector
+// whole and spreads the reads of a quad over the banks.
 template <int COLS>
 __device__ __forceinline__ int bias_at(int r, int c) {
-  return r * COLS + (c ^ ((r & 7) << 3));
+  return r * COLS + (c ^ (((r & 7) << 3) & (COLS - 1)));
 }
 
 __device__ __forceinline__ float2 load_pair(const float* p) {
@@ -471,7 +861,8 @@ __device__ __forceinline__ void stage_bias(T* tile, const MaskArgs& m,
                                            long long base, int q0, int k0,
                                            int Lq, int Lk, int tid,
                                            uint32_t full) {
-  static_assert(COLS == 64 || COLS == 128, "128 producer threads");
+  static_assert(COLS == 32 || COLS == 64 || COLS == 128,
+                "128 producer threads");
   constexpr int V = 16 / sizeof(T), kVecs = COLS / V, kRows = 128 / kVecs;
   const T* bias = static_cast<const T*>(m.bias);
   const bool vec =

@@ -2,7 +2,11 @@
 them: ``csrc/*.cu`` (the bf16 flash kernels and GroupNorm) and
 ``csrc/fp32/*.cu`` (the fp32 forms of the flash kernels, whose forward
 includes ``csrc/sm90.cuh`` and ``csrc/pos_tile.cuh``), each at its own
-first use, so that a bf16 caller never waits for the fp32 build.
+first use, so that a bf16 caller never waits for the fp32 build. The bf16
+flash kernels K1, K3 and K4 keep their templates in a header each
+(``flash_attention{,_dq,_bwd}_sm90.cuh``) and instantiate their head-dim
+widths in several small sources (``*_w*.cu``), so that the instantiations
+compile in parallel.
 
 A library has a plain C interface (no PyTorch headers), so a build takes
 seconds: one ``nvcc -c`` per source, all started together, then one link.
@@ -79,6 +83,15 @@ _SIGNATURES_FP32 = {
     # q, k, v, dO, lse, delta, dk, dv, work, B, H, Lq, Lk, d, strides[18],
     # scale, causal, stream
     "fdsd_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _P],
+    # the CUDA-core forms at the head dims the TF32 kernels do not take:
+    # q, k, v, out, lse, B, H, Lq, Lk, d, strides[12], scale, causal, stream
+    "fdsd_flash_fwd_f32_fma": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, dO, lse, delta, dq, B, H, Lq, Lk, d, strides[15], scale,
+    # causal, stream
+    "fdsd_flash_bwd_dq_f32_fma": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, dO, lse, delta, dk, dv, B, H, Lq, Lk, d, strides[18], scale,
+    # causal, stream
+    "fdsd_flash_bwd_dkv_f32_fma": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
     # the position-masked backward entries take the arguments of their bf16
     # namesakes with the workspace after the offsets
     "fdsd_flash_bwd_pos_dq_f32": (_SIGNATURES["fdsd_flash_bwd_pos_dq"][:9]
@@ -92,7 +105,8 @@ _SIGNATURES_FP32 = {
 _LIBRARIES = {"kernels": (CSRC, _SIGNATURES),
               "kernels_fp32": (CSRC / "fp32", _SIGNATURES_FP32)}
 
-_lock = threading.Lock()
+# one lock a library: two threads may build the two libraries at once
+_locks = {name: threading.Lock() for name in _LIBRARIES}
 _libs = {}
 # library name -> (wall time of its nvcc run, None if the cached .so was
 # used; nvcc's output: registers, spills and shared memory from -Xptxas -v)
@@ -158,7 +172,7 @@ def _compile(path: Path, sources) -> str:
 def load(name: str = "kernels"):
     """Library ``name`` loaded, built first if needed: "kernels" (bf16 flash
     kernels, GroupNorm) or "kernels_fp32" (the fp32 flash kernels)."""
-    with _lock:
+    with _locks[name]:
         if name in _libs:
             return _libs[name]
         path = library_path(name)

@@ -5,8 +5,8 @@ on them (port of ``ops/flash_attention.py``).
 Forward: on CUDA tensors :func:`flash_attention_forward` launches K1, which
 stands in for both Pallas forward bodies of the JAX package
 (``_fwd_kernel_wide`` and ``_fwd_kernel``): in bf16 the TMA / wgmma kernel of
-``csrc/flash_attention_sm90.cu`` at every head dim but 512, and at 512 the
-TMA / wgmma kernel of ``csrc/flash_attention.cu``, whose keys the host
+``csrc/flash_attention_sm90.cuh`` at every head dim from 1 to 256, and at 512
+the TMA / wgmma kernel of ``csrc/flash_attention.cu``, whose keys the host
 splits over several blocks when the query tiles alone would not fill the
 card (:func:`k1_route`, :func:`k1_d512_splits`). On CPU tensors it runs
 :func:`flash_attention_plain`. Same contract as the JAX forward: ``out`` in
@@ -15,9 +15,9 @@ the input dtype with shape (B, H, Lq, D), ``lse`` fp32 with shape
 
 Backward: :func:`flash_attention_backward` launches K3 (dq, the Pallas
 ``_bwd_dq_kernel``: in bf16 the TMA / wgmma kernel of
-``csrc/flash_attention_dq_sm90.cu``, :func:`k3_route`) and K4 (dk with dv,
+``csrc/flash_attention_dq_sm90.cuh``, :func:`k3_route`) and K4 (dk with dv,
 the Pallas ``_bwd_dkv_kernel``: in bf16 the TMA / wgmma kernel of
-``csrc/flash_attention_bwd_sm90.cu``, :func:`k4_route`) on CUDA tensors and
+``csrc/flash_attention_bwd_sm90.cuh``, :func:`k4_route`) on CUDA tensors and
 runs :func:`flash_attention_bwd_plain` on CPU tensors. Both recompute the
 probabilities under the forward's saved lse; delta = Σ dO·out is a plain
 fp32 reduction, as the JAX package computes it in XLA.
@@ -54,8 +54,18 @@ Masks of :func:`flash_attention` (the Pallas ``_fwd_kernel``,
 segment-id forms): an additive bias read through its strides (dbias from the
 dq kernel's dS tiles), ``causal`` (col <= row from index 0 on both sides) and
 ``segment_ids`` with tile skipping from per-tile id ranges; they compose, in
-the kernels at head dims 64 and 128. A row that sees no key gives out = 0
-and lse = -1e30, and the backward selects masked probabilities to 0.
+the bf16 kernels at every head dim from 1 to 256. A row that sees no key
+gives out = 0 and lse = -1e30, and the backward selects masked probabilities
+to 0.
+
+Head dims: K1, K3 and K4 take every head dim from 1 to 256 (K1 also 512).
+The kernels pad the head dim to their width with TMA's zero fill (to a
+multiple of 16; K4 above 128 to a multiple of 32). A head dim that is not a
+multiple of 8 cannot meet TMA's 16-byte strides, so the wrappers append zero
+columns to q, k, v (and dO) up to the next multiple of 8, pass the scale of
+the original head dim, and cut out, dq, dk and dv back to it: exact, since
+zero columns add nothing to QKᵀ and their own columns are cut
+(:func:`_pad_head_dim`).
 
 Dtypes: every kernel has a bf16 form (tensor cores, ``csrc/*.cu``) and an
 fp32 form (``csrc/fp32/*.cu``; out, lse and the gradients fp32, as the
@@ -66,14 +76,18 @@ tf32(x) + tf32(x - tf32(x)), three wgmma passes per product,
 a product reduces over the sequence, into a workspace the wrapper
 allocates (:func:`f32_forward_work`, :func:`f32_backward_work`). Nothing
 is rounded below fp32's precision but the split's own ~2^-22 of each
-product. The fp32 forms are a shared library of their own, built when an
-fp32 launch first asks for it. They cover the head dims the port's fp32
-defaults reach (``_FP32_*`` below), without a mask, causal, or (K1 at 64,
-T5) a bias alone; with segment ids, another bias form or another head dim,
-an fp32 CUDA tensor raises ``NotImplementedError``. Each wrapper counts
-its launches by dtype in ``.dtypes`` beside ``.launches``; each, as it runs
-more than one kernel, also by kernel in ``.routes``, and K1 by head dim in
-``.head_dims``.
+product. Above the head dims where those kernels' resident split tiles fit
+in shared memory (``_FP32_TC_*`` below: 160 forward, 128 backward), K1, K3
+and K4 in fp32 run kernels of plain fp32 FMAs on the CUDA cores instead
+(``csrc/fp32/flash_f32_fma.cu``, route "fp32_fma"), exact to fp32. The fp32
+forms are a shared library of their own, built when an fp32 launch first
+asks for it. K1, K3 and K4 take every head dim from 1 to 256 in fp32 too
+(K1 also 512), without a mask or causal, and K1 at 64 (T5) a bias alone;
+with segment ids or another bias form an fp32 CUDA tensor raises
+``NotImplementedError``, as K5 / K6 / K7 do at head dims other than 64.
+Each wrapper counts its launches by dtype in ``.dtypes`` beside
+``.launches``; each, as it runs more than one kernel, also by kernel in
+``.routes``, and K1, K3 and K4 by head dim in ``.head_dims``.
 """
 
 from __future__ import annotations
@@ -87,27 +101,24 @@ import torch
 
 from . import _build
 
-# head dims the forward kernel is instantiated for: padded to 48, 64, 80,
-# 128, 160 (the sm90 kernel; 160 is the SD1 UNet's level-2 attention from
-# 768^2) or 512 (the d512 one); the backward kernels, and the masked forms of
-# all three, take 64 (SigLIP, the TinyVLM decoder, T5) and 128 (tiny-SD's
-# UNet)
-_KERNEL_HEAD_DIMS = (40, 48, 64, 72, 80, 128, 160, 512)
-_BWD_HEAD_DIMS = (64, 128)
-_MASK_HEAD_DIMS = (64, 128)
+# K1, K3 and K4 take every head dim up to _MAX_HEAD_DIM in every form (bf16)
+# and K1 also 512 without a mask (the d512 kernel); K5, K6 and K7 take 64
+# (SD3's MMDiT) and 128
+_MAX_HEAD_DIM, _D512 = 256, 512
 _POS_HEAD_DIMS = (64, 128)
-# the fp32 forms: K1 at every forward head dim and at 8 (the ``checks sd1``
-# UNet, SD1UNet(model_channels=64) with 8 heads, runs its 32^2 level in fp32),
-# causal at 64 (TinyVLM's decoder) and with a bias at 64 (T5, forward only),
-# K3 / K4 at 64 and 128 and causal at 64, K5 / K6 / K7 at 64
-_FP32_HEAD_DIMS = (8,) + _KERNEL_HEAD_DIMS
-_FP32_BWD_HEAD_DIMS = (64, 128)
-_FP32_CAUSAL_HEAD_DIMS = (64,)
+# the fp32 forms on the tensor cores (TF32 split): K1 at every head dim up
+# to 160 (8: the ``checks sd1`` UNet, SD1UNet(model_channels=64) with 8
+# heads, runs its 32^2 level in fp32) and at 512, K3 / K4 up to 128; above
+# those, up to 256, fp32 takes the CUDA-core kernels. Causal at each but 512,
+# a bias alone at 64 (T5, forward only); K5 / K6 / K7 at 64
+_FP32_TC_MAX_FWD, _FP32_TC_MAX_BWD = 160, 128
 _FP32_BIAS_HEAD_DIMS = (64,)
 _FP32_POS_HEAD_DIMS = (64,)
 NEG_INF = -1e30   # lse of a row with no visible key
-# (query tile, key tile) of K1, K3 and K4 (the sm90 kernels): the sizes the
-# segment-id tile bounds and ranges handed to each kernel are built at
+# (query tile, key tile) of K1, K3 and K4 (the sm90 kernels) at head dims up
+# to 128: the sizes the segment-id tile bounds and ranges handed to each
+# kernel are built at; wider widths halve one side (_k1_tiles, _dq_tiles,
+# _dkv_tiles)
 _FWD_TILES, _DQ_TILES, _DKV_TILES = (128, 128), (128, 64), (64, 128)
 # K1 at head dim 512 (bf16 and fp32): 64-query blocks, 64-key tiles, at most
 # 4 key splits
@@ -119,6 +130,48 @@ _F32_PASSES, _F32_KEY_GROUP = 3, 8
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _width(d: int, step: int = 16) -> int:
+    """The padded width DP the sm90 kernels run head dim ``d`` at: ``d``
+    rounded up to ``step``."""
+    return _cdiv(d, step) * step
+
+
+def _k1_tiles(d: int, masked: bool) -> tuple:
+    """K1's (query tile, key tile) at head dim ``d`` (the Cfg of
+    ``csrc/flash_attention_sm90.cuh``): 128 keys up to DP = 160 (up to 128 in
+    a masked form, whose bias tile takes 64 KB), 64 above."""
+    dp = _width(d)
+    wide = dp > (128 if masked else 160)
+    return _FWD_TILES[0], _FWD_TILES[1] // 2 if wide else _FWD_TILES[1]
+
+
+def _dq_tiles(d: int) -> tuple:
+    """K3's (query tile, key tile): 64 keys up to DP = 192, 32 above."""
+    wide = _width(d) > 192
+    return _DQ_TILES[0], _DQ_TILES[1] // 2 if wide else _DQ_TILES[1]
+
+
+def _dkv_width(d: int) -> int:
+    """K4's padded width: ``d`` rounded up to 16, above 128 to 32 (each of a
+    key tile's two blocks takes half the columns)."""
+    return _width(d) if d <= 128 else _width(d, 32)
+
+
+def _dkv_tiles(d: int) -> tuple:
+    """K4's (query tile, key tile): 64 queries up to DP = 128, 32 above."""
+    wide = _dkv_width(d) > 128
+    return _DKV_TILES[0] // 2 if wide else _DKV_TILES[0], _DKV_TILES[1]
+
+
+def _pad_head_dim(*xs):
+    """``xs`` with zero columns appended to the head dim up to the next
+    multiple of 8, or as they are when it is one already."""
+    pad = -xs[0].shape[-1] % 8
+    if not pad:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in xs)
 
 
 def _wide(x):
@@ -344,10 +397,11 @@ def _check_operand(name, x, like):
             f"aligned, got strides {x.stride()}")
 
 
-def _check_qkv(q, k, v, fn, head_dims=None, fp32_dims=()):
-    """(b, h, lq, lk, d) after the checks every kernel wrapper makes.
-    ``head_dims`` are the bf16 form's, ``fp32_dims`` the fp32 form's; with
-    none, the caller checks the head dim (K1: :func:`k1_route`)."""
+def _check_qkv(q, k, v, fn):
+    """(b, h, lq, lk, d) after the checks every kernel wrapper makes; the
+    caller checks the head dim (its route). Strides are checked where the
+    head dim is a multiple of 8: other head dims are padded into new
+    tensors first (:func:`_pad_head_dim`)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, L, D)")
     if not q.is_cuda:
@@ -359,16 +413,11 @@ def _check_qkv(q, k, v, fn, head_dims=None, fp32_dims=()):
     if k.shape != (b, h, lk, d) or v.shape != k.shape or lk == 0:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if head_dims is not None:
-        if q.dtype == torch.float32 and d not in fp32_dims:
-            raise NotImplementedError(
-                f"head dim {d} in fp32: the fp32 form of {fn} takes "
-                f"{fp32_dims}" + (f"; pass bf16 tensors (it takes "
-                                  f"{head_dims})" if d in head_dims else ""))
-        if d not in head_dims:
-            raise NotImplementedError(f"head dim {d}: {fn} takes {head_dims}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, q)
+        if d % 8 == 0:
+            _check_operand(name, x, q)
+        elif x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"{name} must be on {q.device} in {q.dtype}")
     return b, h, lq, lk, d
 
 
@@ -392,18 +441,14 @@ def _strides(*xs, bias=None):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _mask_args(q, lk, bias, segment_ids, causal, fn, tiles, over):
+def _mask_args(q, lk, bias, segment_ids, causal, tiles, over):
     """What a masked launch passes besides q, k, v: the bias expanded to
     (B, H, Lq, Lk) without a copy (stride 0 on its broadcast axes; cast to
     fp32 first if it is neither fp32 nor bf16), its pointer, the six segment
     pointers and the two flags. The segment tensors are returned too: the
     caller holds them until its kernel is enqueued, so that no output it
     allocates meanwhile takes their memory."""
-    b, h, lq, d = q.shape
-    masked = bias is not None or segment_ids is not None or causal
-    if masked and d not in _MASK_HEAD_DIMS:
-        raise NotImplementedError(
-            f"head dim {d}: the masked forms of {fn} take {_MASK_HEAD_DIMS}")
+    b, h, lq, _ = q.shape
     keep = []
     if bias is not None:
         if bias.device != q.device:
@@ -430,8 +475,8 @@ def _count_launch(fn, q, bias=None, segment_ids=None, causal=False,
                   route=None):
     """One more launch of ``fn``'s kernel: in ``fn.launches``, by q's dtype
     in ``fn.dtypes``, where ``fn`` has masked forms by form (causal, bias,
-    segment ids) in ``fn.forms``, by ``route`` in ``fn.routes``, and (K1) by
-    head dim in ``fn.head_dims``."""
+    segment ids) in ``fn.forms``, by ``route`` in ``fn.routes``, and (K1,
+    K3, K4) by q's head dim, the caller's, in ``fn.head_dims``."""
     fn.launches += 1
     if route is not None:
         fn.routes[route] += 1
@@ -455,72 +500,75 @@ def _check_fp32_form(fn, d, causal, bias, segments,
         raise NotImplementedError(
             f"{fn}: the bias and segment-id forms take bf16 only; pass bf16 "
             f"q, k, v (fp32 runs without a mask or with causal=True{also})")
-    if causal and d not in _FP32_CAUSAL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{fn}: causal=True in fp32 takes head dims "
-            f"{_FP32_CAUSAL_HEAD_DIMS}; pass bf16 q, k, v at head dim {d}")
 
 
 def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _check_dtype(dtype):
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the flash kernels take bf16 or fp32, not {dtype}")
+
+
+def _check_head_dim(fn, d: int, d512: bool = False) -> None:
+    """Raises unless 1 <= ``d`` <= 256 (or, with ``d512``, ``d`` = 512)."""
+    if not (1 <= d <= _MAX_HEAD_DIM or (d512 and d == _D512)):
+        raise NotImplementedError(
+            f"head dim {d}: {fn} takes head dims 1 to {_MAX_HEAD_DIM}"
+            + (f" and {_D512}" if d512 else ""))
+
+
 def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
              segments: bool = False) -> str:
     """Which K1 kernel a CUDA launch of this dtype, head dim and form runs:
-    "sm90" (``csrc/flash_attention_sm90.cu``, TMA and wgmma: bf16 at every
-    head dim but 512, every mask form at 64 and 128), "d512" (the TMA /
-    wgmma kernel of ``csrc/flash_attention.cu``, bf16 at 512 without a mask)
-    or "fp32" (``csrc/fp32/flash_f32_fwd.cu``: TMA and TF32 wgmma, three
-    passes; at every bf16 head dim and at 8; at 512 with the keys split as
-    :func:`k1_d512_splits` says; causal or a bias alone at 64). Raises ``NotImplementedError`` naming what the
-    kernels take for any other."""
+    "sm90" (``csrc/flash_attention_sm90.cuh``, TMA and wgmma: bf16 at every
+    head dim from 1 to 256 in every form), "d512" (the TMA / wgmma kernel of
+    ``csrc/flash_attention.cu``, bf16 at 512 without a mask), "fp32"
+    (``csrc/fp32/flash_f32_fwd.cu``: TMA and TF32 wgmma, three passes; at
+    every head dim up to 160 without a mask or causal, at 512 without a mask
+    with the keys split as :func:`k1_d512_splits` says, and with a bias
+    alone at 64) or "fp32_fma" (``csrc/fp32/flash_f32_fma.cu``: fp32 FMAs
+    on the CUDA cores; fp32 at 161 to 256, without a mask or causal).
+    Raises ``NotImplementedError`` naming what the kernels take for any
+    other."""
     fn = "flash_attention_cuda"
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the flash kernels take bf16 or fp32, not {dtype}")
-    if dtype == torch.float32:
-        if d not in _FP32_HEAD_DIMS:
-            raise NotImplementedError(
-                f"head dim {d} in fp32: the fp32 form of {fn} takes "
-                f"{_FP32_HEAD_DIMS}")
-        _check_fp32_form(fn, d, causal, bias, segments, _FP32_BIAS_HEAD_DIMS)
-        return "fp32"
-    if d not in _KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"head dim {d}: {fn} takes "
-                                  f"{_KERNEL_HEAD_DIMS}")
-    if (causal or bias or segments) and d not in _MASK_HEAD_DIMS:
+    _check_dtype(dtype)
+    _check_head_dim(fn, d, d512=True)
+    if d == _D512 and (causal or bias or segments):
         raise NotImplementedError(
-            f"head dim {d}: the masked forms of {fn} take {_MASK_HEAD_DIMS}")
-    return "d512" if d == 512 else "sm90"
+            f"head dim {d}: {fn} takes no mask at 512; the masked forms take "
+            f"head dims 1 to {_MAX_HEAD_DIM}")
+    if dtype == torch.float32:
+        _check_fp32_form(fn, d, causal, bias, segments, _FP32_BIAS_HEAD_DIMS)
+        return ("fp32" if d <= _FP32_TC_MAX_FWD or d == _D512
+                else "fp32_fma")
+    return "d512" if d == _D512 else "sm90"
 
 
 def _bwd_route(fn, dtype, d: int, causal: bool, bias: bool,
                segments: bool) -> str:
-    """The route of K3 or K4: "sm90" for bf16 at head dims 64 and 128 in every
-    form, "fp32" for fp32 at 64 and 128 without a mask or causal at 64;
-    raises for anything else."""
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the flash kernels take bf16 or fp32, not {dtype}")
+    """The route of K3 or K4: "sm90" for bf16 at every head dim from 1 to
+    256 in every form, "fp32" for fp32 up to 128 without a mask or causal,
+    "fp32_fma" for fp32 at 129 to 256 in the same forms; raises for anything
+    else."""
+    _check_dtype(dtype)
+    _check_head_dim(fn, d)
     if dtype == torch.float32:
-        if d not in _FP32_BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"head dim {d} in fp32: the fp32 form of {fn} takes "
-                f"{_FP32_BWD_HEAD_DIMS}")
         _check_fp32_form(fn, d, causal, bias, segments)
-        return "fp32"
-    if d not in _BWD_HEAD_DIMS:
-        raise NotImplementedError(f"head dim {d}: {fn} takes "
-                                  f"{_BWD_HEAD_DIMS}")
+        return "fp32" if d <= _FP32_TC_MAX_BWD else "fp32_fma"
     return "sm90"
 
 
 def k3_route(dtype, d: int, causal: bool = False, bias: bool = False,
              segments: bool = False) -> str:
     """Which K3 kernel a CUDA launch of this dtype, head dim and form runs:
-    "sm90" (``csrc/flash_attention_dq_sm90.cu``, TMA and wgmma: bf16 at head
-    dims 64 and 128 in every form) or "fp32" (``csrc/fp32/flash_f32_bwd.cu``:
-    64 and 128 without a mask, causal at 64). Raises
-    ``NotImplementedError`` naming what the kernels take for any other."""
+    "sm90" (``csrc/flash_attention_dq_sm90.cuh``, TMA and wgmma: bf16 at
+    every head dim from 1 to 256 in every form), "fp32"
+    (``csrc/fp32/flash_f32_bwd.cu``: up to 128 without a mask or causal) or
+    "fp32_fma" (``csrc/fp32/flash_f32_fma.cu``: fp32 at 129 to 256 in the
+    same forms). Raises ``NotImplementedError`` naming what the kernels take
+    for any other."""
     return _bwd_route("flash_attention_bwd_dq_cuda", dtype, d, causal, bias,
                       segments)
 
@@ -528,10 +576,12 @@ def k3_route(dtype, d: int, causal: bool = False, bias: bool = False,
 def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
              segments: bool = False) -> str:
     """Which K4 kernel a CUDA launch of this dtype, head dim and form runs:
-    "sm90" (``csrc/flash_attention_bwd_sm90.cu``, TMA and wgmma: bf16 at head
-    dims 64 and 128 in every form) or "fp32" (``csrc/fp32/flash_f32_bwd.cu``:
-    64 and 128 without a mask, causal at 64). Raises
-    ``NotImplementedError`` naming what the kernels take for any other."""
+    "sm90" (``csrc/flash_attention_bwd_sm90.cuh``, TMA and wgmma: bf16 at
+    every head dim from 1 to 256 in every form), "fp32"
+    (``csrc/fp32/flash_f32_bwd.cu``: up to 128 without a mask or causal) or
+    "fp32_fma" (``csrc/fp32/flash_f32_fma.cu``: fp32 at 129 to 256 in the
+    same forms). Raises ``NotImplementedError`` naming what the kernels take
+    for any other."""
     return _bwd_route("flash_attention_bwd_dkv_cuda", dtype, d, causal, bias,
                       segments)
 
@@ -541,8 +591,7 @@ def _pos_route(fn, dtype, d: int) -> str:
     masks:
     "sm90" for bf16 at head dims 64 and 128, "fp32" for fp32 at 64; raises
     for anything else."""
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the flash kernels take bf16 or fp32, not {dtype}")
+    _check_dtype(dtype)
     if dtype == torch.float32:
         if d not in _FP32_POS_HEAD_DIMS:
             raise NotImplementedError(
@@ -650,56 +699,89 @@ def _tma_operand(x):
 def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
                          bias=None, segment_ids=None, causal: bool = False):
     """K1, the CUDA kernel: (out, lse) for bf16 or fp32 (B, H, L, D) CUDA
-    tensors, with the masks of :func:`flash_attention_plain` (head dim 64 or
-    128; in fp32 ``causal`` or a ``bias`` alone, at head dim 64). Which
-    kernel runs: :func:`k1_route`; launches are counted by route in
-    ``.routes`` and by head dim in ``.head_dims``."""
+    tensors, with the masks of :func:`flash_attention_plain` (bf16 at every
+    head dim from 1 to 256; in fp32 ``causal`` at those, or a ``bias`` alone
+    at head dim 64). A head dim that is not a multiple of 8 is padded with
+    zero columns and ``out`` cut back (:func:`_pad_head_dim`). Which kernel
+    runs: :func:`k1_route`; launches are counted by route in ``.routes`` and
+    by head dim in ``.head_dims``."""
     b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_cuda")
     route = k1_route(q.dtype, d, bool(causal), bias is not None,
                      segment_ids is not None)
-    if scale is None:
-        scale = d ** -0.5
-    if route == "fp32":
-        if bias is not None:   # fp32, expanded to (B, H, Lq, Lk) unmoved
-            bias, _, _, _held = _mask_args(q, lk, bias.float(), None, False,
-                                           "flash_attention_cuda",
-                                           _FWD_TILES, "q")
-        out = _blhd(q, lq)
-        lse = _lse_like(q)
-        strides = _strides(q, k, v, out, bias=bias)
-        splits = (k1_d512_splits(b, h, lq, lk, _sm_count(q.device))
-                  if d == 512 else 1)
-        work = _f32_work(q, lk, splits)
-        err = _build.load("kernels_fp32").fdsd_flash_fwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), work.data_ptr(),
-            None if bias is None else bias.data_ptr(), b, h, lq, lk, d,
-            ctypes.cast(strides, ctypes.c_void_p), float(scale),
-            int(bool(causal)), splits, _stream(q))
-        _build.check(err, "fdsd_flash_fwd_f32")
-        _count_launch(flash_attention_cuda, q, bias, causal=causal,
-                      route=route)
-        return out, lse
-    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
-    if route == "d512":
-        splits = k1_d512_splits(b, h, lq, lk, _sm_count(q.device))
-        out, lse = _flash_fwd_d512(q, k, v, scale, splits)
-        _count_launch(flash_attention_cuda, q, route=route)
-        return out, lse
-    bias, ptrs, flags, _held = _mask_args(
-        q, lk, bias, segment_ids, causal, "flash_attention_cuda", _FWD_TILES,
-        "q")
+    scale = d ** -0.5 if scale is None else scale
+    qp, kp, vp = _pad_head_dim(q, k, v)
+    launch = {"fp32": _k1_fp32, "fp32_fma": _k1_fp32_fma, "d512": _k1_d512,
+              "sm90": _k1_sm90}[route]
+    out, lse = launch(qp, kp, vp, float(scale), bias, segment_ids, causal)
+    _count_launch(flash_attention_cuda, q, bias, segment_ids, causal, route)
+    return (out if out.shape[-1] == d else out[..., :d]), lse
+
+
+def _k1_fp32(q, k, v, scale, bias, segment_ids, causal):
+    """K1 on the TF32 kernel; the arguments checked by the caller."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if bias is not None:   # fp32, expanded to (B, H, Lq, Lk) unmoved
+        bias, _, _, _held = _mask_args(q, lk, bias.float(), None, False,
+                                       _FWD_TILES, "q")
     out = _blhd(q, lq)
     lse = _lse_like(q)
     strides = _strides(q, k, v, out, bias=bias)
-    lib = _build.load()
-    err = lib.fdsd_flash_fwd(
+    splits = (k1_d512_splits(b, h, lq, lk, _sm_count(q.device))
+              if d == _D512 else 1)
+    work = _f32_work(q, lk, splits)
+    err = _build.load("kernels_fp32").fdsd_flash_fwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), work.data_ptr(),
+        None if bias is None else bias.data_ptr(), b, h, lq, lk, d,
+        ctypes.cast(strides, ctypes.c_void_p), scale, int(bool(causal)),
+        splits, _stream(q))
+    _build.check(err, "fdsd_flash_fwd_f32")
+    return out, lse
+
+
+def _k1_fp32_fma(q, k, v, scale, bias, segment_ids, causal):
+    """K1 on the CUDA-core fp32 kernel (no mask or causal)."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    out = _blhd(q, lq)
+    lse = _lse_like(q)
+    strides = _strides(q, k, v, out)
+    err = _build.load("kernels_fp32").fdsd_flash_fwd_f32_fma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, h, lq, lk, d,
+        ctypes.cast(strides, ctypes.c_void_p), scale, int(bool(causal)),
+        _stream(q))
+    _build.check(err, "fdsd_flash_fwd_f32_fma")
+    return out, lse
+
+
+def _k1_d512(q, k, v, scale, bias, segment_ids, causal):
+    """K1 at head dim 512 in bf16 (no mask), its keys split as
+    :func:`k1_d512_splits` says."""
+    b, h, lq, _ = q.shape
+    splits = k1_d512_splits(b, h, lq, k.shape[2], _sm_count(q.device))
+    return _flash_fwd_d512(*(_tma_operand(x) for x in (q, k, v)), scale,
+                           splits)
+
+
+def _k1_sm90(q, k, v, scale, bias, segment_ids, causal):
+    """K1 on the sm90 kernel in bf16, every form."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
+    bias, ptrs, flags, _held = _mask_args(
+        q, lk, bias, segment_ids, causal, _k1_tiles(d, bias is not None
+                                                    or segment_ids is not None
+                                                    or bool(causal)), "q")
+    out = _blhd(q, lq)
+    lse = _lse_like(q)
+    strides = _strides(q, k, v, out, bias=bias)
+    err = _build.load().fdsd_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *ptrs, b, h, lq, lk, d,
-        ctypes.cast(strides, ctypes.c_void_p), float(scale), *flags,
-        _stream(q))
+        ctypes.cast(strides, ctypes.c_void_p), scale, *flags, _stream(q))
     _build.check(err, "fdsd_flash_fwd")
-    _count_launch(flash_attention_cuda, q, bias, segment_ids, causal, route)
     return out, lse
 
 
@@ -739,22 +821,38 @@ def flash_attention_forward(q, k, v, scale: Optional[float] = None, **masks):
     return flash_attention_plain(q, k, v, scale, **masks)
 
 
-def _check_bwd(q, k, v, g, lse, delta, head_dims=_BWD_HEAD_DIMS,
-               fp32_dims=_FP32_BWD_HEAD_DIMS):
+def _check_bwd(q, k, v, g, lse, delta):
     """(b, h, lq, lk, d) after the checks of :func:`_check_qkv` and those of
-    dO, lse and delta; with ``head_dims`` None the caller checks the head
-    dim (K3, K4, K6, K7: :func:`k3_route`, :func:`k4_route`,
-    :func:`k6_route`, :func:`k7_route`)."""
-    dims = _check_qkv(q, k, v, "the flash backward kernels", head_dims,
-                      fp32_dims)
-    _check_operand("dO", g, q)
+    dO, lse and delta; the caller checks the head dim (K3, K4, K6, K7:
+    :func:`k3_route`, :func:`k4_route`, :func:`k6_route`, :func:`k7_route`)."""
+    dims = _check_qkv(q, k, v, "the flash backward kernels")
     if g.shape != q.shape:
         raise ValueError(f"dO {tuple(g.shape)} must be {tuple(q.shape)}")
+    if dims[-1] % 8 == 0:
+        _check_operand("dO", g, q)
+    elif g.device != q.device or g.dtype != q.dtype:
+        raise ValueError(f"dO must be on {q.device} in {q.dtype}")
     for name, x in (("lse", lse), ("delta", delta)):
         if (x.shape != q.shape[:3] or x.dtype != torch.float32
                 or not x.is_contiguous() or x.device != q.device):
             raise ValueError(f"{name} must be contiguous fp32 (B, H, Lq)")
     return dims
+
+
+def _bwd_launch(entry, q, k, v, g, lse, delta, outs, scale, causal,
+                work=None):
+    """One launch of a backward C entry ``entry`` of the fp32 library:
+    q, k, v, dO, lse, delta, the outputs, the workspace (the TF32 kernels),
+    the sizes, strides, scale and causal flag."""
+    b, h, lq, d = q.shape
+    strides = _strides(q, k, v, g, *outs)
+    err = getattr(_build.load("kernels_fp32"), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+        *([] if work is None else [work.data_ptr()]), b, h, lq, k.shape[2],
+        d, ctypes.cast(strides, ctypes.c_void_p), scale, int(bool(causal)),
+        _stream(q))
+    _build.check(err, entry)
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
@@ -763,48 +861,63 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
                                 need_dbias: bool = False):
     """K3: dq from bf16 or fp32 CUDA q, k, v, dO (= ``g``) and fp32
     (B, H, Lq) ``lse`` and ``delta`` = Σ_d dO·out, under the masks of the
-    forward. Which kernel runs: :func:`k3_route`; launches are counted by
-    route in ``.routes``.
+    forward. A head dim that is not a multiple of 8 is padded with zero
+    columns and dq cut back. Which kernel runs: :func:`k3_route`; launches
+    are counted by route in ``.routes`` and by head dim in ``.head_dims``.
     With ``need_dbias`` returns (dq, dS): the kernel also writes dS = the
     bias's gradient before any reduction, fp32 (B, H, Lq, Lk), every tile
     once and zeros where it skips one."""
-    b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta, head_dims=None)
+    b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta)
     route = k3_route(q.dtype, d, bool(causal), bias is not None,
                      segment_ids is not None)
-    scale = d ** -0.5 if scale is None else scale
+    scale = float(d ** -0.5 if scale is None else scale)
     if need_dbias and bias is None:
         raise ValueError("need_dbias without a bias")
-    if route == "fp32":
-        dq = _blhd(q, lq)
-        strides = _strides(q, k, v, g, dq)
-        work = _f32_bwd_work(q, lk)
-        err = _build.load("kernels_fp32").fdsd_flash_bwd_dq_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), work.data_ptr(),
-            b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p),
-            float(scale), int(bool(causal)), _stream(q))
-        _build.check(err, "fdsd_flash_bwd_dq_f32")
-        _count_launch(flash_attention_bwd_dq_cuda, q, causal=causal,
-                      route=route)
-        return dq
-    q, k, v, g = (_tma_operand(x) for x in (q, k, v, g))
-    bias, ptrs, flags, _held = _mask_args(
-        q, lk, bias, segment_ids, causal, "flash_attention_bwd_dq_cuda",
-        _DQ_TILES, "q")
-    dq = _blhd(q, lq)
-    ds = (torch.empty((b, h, lq, lk), device=q.device, dtype=torch.float32)
-          if need_dbias else None)
-    strides = _strides(q, k, v, g, dq, bias=bias)
-    err = _build.load().fdsd_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        None if ds is None else ds.data_ptr(), *ptrs, b, h, lq, lk, d,
-        ctypes.cast(strides, ctypes.c_void_p), float(scale), *flags,
-        _stream(q))
-    _build.check(err, "fdsd_flash_bwd_dq")
+    qp, kp, vp, gp = _pad_head_dim(q, k, v, g)
+    ds = None
+    if route == "sm90":
+        dq, ds = _bwd_sm90(qp, kp, vp, gp, lse, delta, scale, bias,
+                           segment_ids, causal, need_dbias, dq=True)
+    else:
+        dq = _blhd(qp, lq)
+        fma = route == "fp32_fma"
+        _bwd_launch("fdsd_flash_bwd_dq_f32" + ("_fma" if fma else ""), qp,
+                    kp, vp, gp, lse, delta, [dq], scale, causal,
+                    None if fma else _f32_bwd_work(qp, lk))
     _count_launch(flash_attention_bwd_dq_cuda, q, bias, segment_ids, causal,
                   route)
+    if dq.shape[-1] != d:
+        dq = dq[..., :d]
     return (dq, ds) if need_dbias else dq
+
+
+def _bwd_sm90(q, k, v, g, lse, delta, scale, bias, segment_ids, causal,
+              need_dbias=False, dq=True):
+    """K3 (``dq``: (dq, dS or None)) or K4 ((dk, dv)) on the sm90 kernels
+    in bf16, every form; q, k, v, dO checked and padded by the caller."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    q, k, v, g = (_tma_operand(x) for x in (q, k, v, g))
+    tiles = _dq_tiles(d) if dq else _dkv_tiles(d)
+    bias, ptrs, flags, _held = _mask_args(q, lk, bias, segment_ids, causal,
+                                          tiles, "q" if dq else "k")
+    if dq:
+        outs = [_blhd(q, lq)]
+        ds = (torch.empty((b, h, lq, lk), device=q.device,
+                          dtype=torch.float32) if need_dbias else None)
+        extra = [None if ds is None else ds.data_ptr()]
+        entry = "fdsd_flash_bwd_dq"
+    else:
+        outs, extra, entry = [_blhd(k, lk), _blhd(v, lk)], [], \
+            "fdsd_flash_bwd_dkv"
+    strides = _strides(q, k, v, g, *outs, bias=bias)
+    err = getattr(_build.load(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+        *extra, *ptrs, b, h, lq, lk, d,
+        ctypes.cast(strides, ctypes.c_void_p), scale, *flags, _stream(q))
+    _build.check(err, entry)
+    return (outs[0], ds) if dq else tuple(outs)
 
 
 def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
@@ -812,50 +925,34 @@ def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
                                  segment_ids=None, causal: bool = False):
     """K4: (dk, dv) from the inputs of :func:`flash_attention_bwd_dq_cuda`.
     Which kernel runs: :func:`k4_route`; launches are counted by route in
-    ``.routes``."""
-    b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta, head_dims=None)
+    ``.routes`` and by head dim in ``.head_dims``."""
+    b, h, lq, lk, d = _check_bwd(q, k, v, g, lse, delta)
     route = k4_route(q.dtype, d, bool(causal), bias is not None,
                      segment_ids is not None)
-    scale = d ** -0.5 if scale is None else scale
-    if route == "fp32":
-        dk, dv = _blhd(k, lk), _blhd(v, lk)
-        strides = _strides(q, k, v, g, dk, dv)
-        work = _f32_bwd_work(q, lk)
-        err = _build.load("kernels_fp32").fdsd_flash_bwd_dkv_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            work.data_ptr(), b, h, lq, lk, d,
-            ctypes.cast(strides, ctypes.c_void_p), float(scale),
-            int(bool(causal)), _stream(q))
-        _build.check(err, "fdsd_flash_bwd_dkv_f32")
-        _count_launch(flash_attention_bwd_dkv_cuda, q, causal=causal,
-                      route=route)
-        return dk, dv
-    q, k, v, g = (_tma_operand(x) for x in (q, k, v, g))
-    bias, ptrs, flags, _held = _mask_args(
-        q, lk, bias, segment_ids, causal, "flash_attention_bwd_dkv_cuda",
-        _DKV_TILES, "k")
-    dk, dv = _blhd(k, lk), _blhd(v, lk)
-    strides = _strides(q, k, v, g, dk, dv, bias=bias)
-    err = _build.load().fdsd_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *ptrs, b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p),
-        float(scale), *flags, _stream(q))
-    _build.check(err, "fdsd_flash_bwd_dkv")
+    scale = float(d ** -0.5 if scale is None else scale)
+    qp, kp, vp, gp = _pad_head_dim(q, k, v, g)
+    if route == "sm90":
+        dk, dv = _bwd_sm90(qp, kp, vp, gp, lse, delta, scale, bias,
+                           segment_ids, causal, dq=False)
+    else:
+        dk, dv = _blhd(kp, lk), _blhd(vp, lk)
+        fma = route == "fp32_fma"
+        _bwd_launch("fdsd_flash_bwd_dkv_f32" + ("_fma" if fma else ""), qp,
+                    kp, vp, gp, lse, delta, [dk, dv], scale, causal,
+                    None if fma else _f32_bwd_work(qp, lk))
     _count_launch(flash_attention_bwd_dkv_cuda, q, bias, segment_ids, causal,
                   route)
+    if dk.shape[-1] != d:
+        dk, dv = dk[..., :d], dv[..., :d]
     return dk, dv
 
 
-flash_attention_bwd_dq_cuda.launches = 0
-flash_attention_bwd_dkv_cuda.launches = 0
-flash_attention_bwd_dq_cuda.forms = collections.Counter()
-flash_attention_bwd_dkv_cuda.forms = collections.Counter()
-flash_attention_bwd_dq_cuda.dtypes = collections.Counter()
-flash_attention_bwd_dkv_cuda.dtypes = collections.Counter()
-flash_attention_bwd_dq_cuda.routes = collections.Counter()
-flash_attention_bwd_dkv_cuda.routes = collections.Counter()
+for _fn in (flash_attention_bwd_dq_cuda, flash_attention_bwd_dkv_cuda):
+    _fn.launches = 0
+    _fn.forms = collections.Counter()
+    _fn.dtypes = collections.Counter()
+    _fn.routes = collections.Counter()
+    _fn.head_dims = collections.Counter()
 
 
 def _kernel_operand(g, dtype):
@@ -1116,7 +1213,7 @@ def _pos_bwd_args(q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q,
                   seg_k):
     """(dims, scale, seg_q, seg_k) after the checks of K6 and K7; the caller
     checks the head dim (:func:`k6_route`, :func:`k7_route`)."""
-    dims = _check_bwd(q, k, v, g, lse, delta, None)
+    dims = _check_bwd(q, k, v, g, lse, delta)
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, "online")
     _check_pos(q, scale, q_offsets, kv_offsets)
     return dims, scale, seg_q, seg_k

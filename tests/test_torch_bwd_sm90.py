@@ -3,9 +3,10 @@ key split at head dim 512, on the CPU.
 
 Which kernel a CUDA launch of K3 (dq) or K4 (dk, dv) runs is decided in
 Python before anything reaches the card (``k3_route``, ``k4_route``): the
-TMA / wgmma kernels of ``csrc/flash_attention_dq_sm90.cu`` and
-``csrc/flash_attention_bwd_sm90.cu`` for bf16 at head dims 64 and 128 in
-every form, the fp32 library for fp32 without a mask or causal at 64; every
+TMA / wgmma kernels of ``csrc/flash_attention_dq_sm90.cuh`` and
+``csrc/flash_attention_bwd_sm90.cuh`` for bf16 at every head dim from 1 to
+256 in every form, the fp32 library for fp32 without a mask or causal (its
+TF32 kernels up to 128, its CUDA-core kernels above); every
 other (dtype, head dim, form) raises before a launch. The segment-id ranges
 the wrapper builds must be at each kernel's tiles, and the workspace the
 wrapper allocates for the fp32 forward must match the source's layout. At head dim 512 the host
@@ -36,12 +37,12 @@ H100_SMS = 132
 def _want_bwd(dtype, d, form):
     """The route the port's contract gives, or the exception it raises."""
     causal, bias, seg = FORMS[form]
-    if d not in (64, 128):
+    if not 1 <= d <= 256:
         return NotImplementedError
     if dtype == F32:
-        if bias or seg or (causal and d != 64):
+        if bias or seg:
             return NotImplementedError
-        return "fp32"
+        return "fp32" if d <= 128 else "fp32_fma"
     return "sm90"
 
 
@@ -74,7 +75,7 @@ def test_k3_route_by_dtype_head_dim_and_form(dtype, d, form):
         assert tfa.k3_route(dtype, d, causal, bias, seg) == want
 
 
-@pytest.mark.parametrize("d", [32, 96, 256])
+@pytest.mark.parametrize("d", [0, 257, 512])
 def test_k3_route_refuses_other_head_dims_and_dtypes(d):
     for dtype in (BF16, F32):
         with pytest.raises(NotImplementedError, match=str(d)):
@@ -83,7 +84,7 @@ def test_k3_route_refuses_other_head_dims_and_dtypes(d):
         tfa.k3_route(torch.float16, 64)
 
 
-@pytest.mark.parametrize("d", [32, 96, 256])
+@pytest.mark.parametrize("d", [0, 257, 512])
 def test_k4_route_refuses_other_head_dims_and_dtypes(d):
     for dtype in (BF16, F32):
         with pytest.raises(NotImplementedError, match=str(d)):
@@ -114,7 +115,7 @@ def test_segment_tiles_are_the_sm90_k3_tiles():
     """The wrapper builds K3's segment-id tile bounds and ranges at the
     (query tile, key tile) of the kernel it launches."""
     m = re.search(r"constexpr int kBQ = (\d+), kBK = (\d+)",
-                  _source("flash_attention_dq_sm90.cu"))
+                  _source("flash_attention_dq_sm90.cuh"))
     assert m and tuple(map(int, m.groups())) == tfa._DQ_TILES == (128, 64)
 
 
@@ -157,7 +158,8 @@ def _f32_fwd_smem(dp, bias=False):
     rings, the fp32 bias tile, barriers and the 1 KB alignment."""
     cons = 2 if dp <= 128 else 1
     bq, bk = 64 * cons, 32 if dp >= 80 else 64
-    stages = 1 if dp >= 128 else 2
+    two = 2 * bq * dp * 4 + 2 * 4 * bk * dp * 4 + 1024 + 8 * 11 <= SMEM_LIMIT
+    stages = 2 if two and dp < 128 else 1
     tiles = 2 * bq * dp * 4 + stages * 2 * 2 * bk * dp * 4
     return tiles + (bq * bk * 4 if bias else 0) + 8 * (1 + 4 * stages + 2) \
         + 1024
@@ -165,13 +167,16 @@ def _f32_fwd_smem(dp, bias=False):
 
 @pytest.mark.parametrize("dp,bias", [(40, False), (64, False),
                                      (128, False), (160, False),
-                                     (64, True)])
+                                     (64, True), (16, False), (96, False),
+                                     (112, False), (144, False)])
 def test_fp32_forward_tiles_fit_in_shared_memory(dp, bias):
     """d = 160 takes 64-query blocks (one consumer) and the bias form adds
-    a 128 x 64 fp32 tile; both fit beside the Q tile and the rings."""
+    a 128 x 64 fp32 tile; both fit beside the Q tile and the rings, as every
+    width up to 160 does (two stages where they fit, below 128)."""
     text = _source("fp32/flash_f32_fwd.cu")
     for rule in ("kCons = DP <= 128 ? 2 : 1", "kBK = DP >= 80 ? 32 : 64",
-                 "kStages = DP >= 128 ? 1 : 2",
+                 "2 * kBQ * DP * 4 + 2 * 4 * kBK * DP * 4 + 1024 + 8 * 11 <= "
+                 "232448 &&", "DP < 128",
                  "kBarOff = kBiasOff + (HAS_BIAS ? kBQ * kBK * 4 : 0)"):
         assert rule in text, rule
     assert _f32_fwd_smem(dp, bias) <= SMEM_LIMIT
@@ -224,7 +229,7 @@ def test_segment_tiles_are_the_sm90_k4_tiles():
     """The wrapper builds K4's segment-id tile bounds and ranges at the
     (query tile, key tile) of the kernel it launches."""
     m = re.search(r"constexpr int kBQ = (\d+), kBK = (\d+)",
-                  _source("flash_attention_bwd_sm90.cu"))
+                  _source("flash_attention_bwd_sm90.cuh"))
     assert m and tuple(map(int, m.groups())) == tfa._DKV_TILES == (64, 128)
 
 
@@ -249,7 +254,10 @@ def test_d512_tiles_are_the_kernels_tiles():
     ("fdsd_flash_bwd_dq_f32", "fp32/flash_f32_bwd.cu"),
     ("fdsd_flash_bwd_dkv_f32", "fp32/flash_f32_bwd.cu"),
     ("fdsd_flash_bwd_pos_dq_f32", "fp32/flash_f32_bwd.cu"),
-    ("fdsd_flash_bwd_pos_dkv_f32", "fp32/flash_f32_bwd.cu")])
+    ("fdsd_flash_bwd_pos_dkv_f32", "fp32/flash_f32_bwd.cu"),
+    ("fdsd_flash_fwd_f32_fma", "fp32/flash_f32_fma.cu"),
+    ("fdsd_flash_bwd_dq_f32_fma", "fp32/flash_f32_fma.cu"),
+    ("fdsd_flash_bwd_dkv_f32_fma", "fp32/flash_f32_fma.cu")])
 def test_each_entry_is_defined_in_its_kernels_source(entry, source):
     defined = {str(src.relative_to(_build.CSRC))
                for src in _build.CSRC.rglob("*.cu")
@@ -280,7 +288,7 @@ def test_the_mma_sync_k6_is_gone():
         assert "mma.sync.aligned" not in text, src.name
         assert "ldmatrix.sync" not in text, src.name
         assert '#include "mma.cuh"' not in text, src.name
-    dq = (_build.CSRC / "flash_attention_dq_sm90.cu").read_text()
+    dq = (_build.CSRC / "flash_attention_dq_sm90.cuh").read_text()
     assert "flash_bwd_pos_dq_sm90_kernel(" in dq
     assert "__device__ __forceinline__ uint32_t pack_bf16(" in (
         _build.CSRC / "sm90.cuh").read_text()

@@ -136,16 +136,16 @@ def test_flash_kernel_refuses_what_it_does_not_take(gen):
         tfa.flash_attention_cuda(q.half(), q.half(), q.half())
     assert tfa.flash_attention_cuda(q.float(), q.float(),
                                     q.float())[0].dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 96),) * 3)
+    with pytest.raises(NotImplementedError):   # head dims 1 to 256 and 512
+        tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 320),) * 3)
     with pytest.raises(ValueError):
         tfa.flash_attention_cuda(q, q[..., 1:9], q[..., 1:9])
-    with pytest.raises(NotImplementedError):   # masked forms: d 64 and 128
-        tfa.flash_attention(q, q, q, causal=True)
-    q80 = _randn(gen, 1, 1, 64, 80)
-    out, lse = tfa.flash_attention_cuda(q80, q80, q80)
-    with pytest.raises(NotImplementedError):   # no backward at d=80
-        tfa.flash_attention_bwd_cuda(q80, q80, q80, out, lse, q80)
+    q512 = _randn(gen, 1, 1, 64, 512)
+    with pytest.raises(NotImplementedError):   # no mask form at d=512
+        tfa.flash_attention(q512, q512, q512, causal=True)
+    out, lse = tfa.flash_attention_cuda(q512, q512, q512)
+    with pytest.raises(NotImplementedError):   # no backward at d=512
+        tfa.flash_attention_bwd_cuda(q512, q512, q512, out, lse, q512)
 
 
 def _bwd_close(got, want):
@@ -1592,15 +1592,15 @@ def test_fp32_forms_not_ported_raise_with_the_dtype_to_pass(gen):
     with pytest.raises(NotImplementedError, match="pass bf16"):
         tfa.flash_attention(q, q, q, segment_ids=(ids, ids))
     q128 = _randn(gen, 1, 1, 64, 128, **f32)
-    with pytest.raises(NotImplementedError, match="causal=True in fp32"):
-        tfa.flash_attention_cuda(q128, q128, q128, causal=True)
     z = torch.zeros(2, dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError, match="fp32 form.*pass bf16"):
         tfa.flash_attention_pos_cuda(q128, q128, q128, z, z)
-    q80 = _randn(gen, 1, 1, 64, 80, **f32)
-    out, lse = tfa.flash_attention_cuda(q80, q80, q80)
-    with pytest.raises(NotImplementedError, match="head dim 80 in fp32"):
-        tfa.flash_attention_bwd_cuda(q80, q80, q80, out, lse, q80)
+    q512 = _randn(gen, 1, 1, 64, 512, **f32)
+    with pytest.raises(NotImplementedError, match="no mask at 512"):
+        tfa.flash_attention_cuda(q512, q512, q512, causal=True)
+    out, lse = tfa.flash_attention_cuda(q512, q512, q512)
+    with pytest.raises(NotImplementedError, match="head dim 512"):
+        tfa.flash_attention_bwd_cuda(q512, q512, q512, out, lse, q512)
     with pytest.raises(ValueError, match="multiples of 4"):
         tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 66, **f32)[..., :64],)
                                  * 3)
@@ -2147,3 +2147,58 @@ def test_flash_kernels_at_the_video_unet_shape(gen, dtype):
         _f32_close(lse, ref_lse, "lse")
         for what, a, w in zip(("dq", "dk", "dv"), got, want):
             _f32_close(a, w, what)
+
+
+# ------------------------------------------- K1, K3, K4 at every head dim
+WIDTH_FORMS = {"none": {}, "causal": dict(causal=True),
+               "causal+bias+segments": dict(causal=True, bias=True, seg=True)}
+
+
+@pytest.mark.parametrize("form", sorted(WIDTH_FORMS))
+@pytest.mark.parametrize("d", [8, 16, 36, 96, 144, 160, 176, 192, 224, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_every_head_dim_matches_plain(gen, dtype, d, form):
+    """K1, K3 and K4 at head dims the sm90 kernels take at padded widths
+    (36: padded to 40 by the wrapper first), over several tiles with a
+    ragged one, against the plain versions under the same masks: bf16 out
+    2e-2, lse 1e-3, each gradient 2e-2 of its largest magnitude (dbias
+    too); fp32 (no mask and causal) 1e-4, its gradients 1e-4 of their
+    largest magnitude. The wrappers count the launch at the caller's head
+    dim."""
+    kw = dict(WIDTH_FORMS[form])
+    if dtype == torch.float32 and kw.pop("bias", False):
+        pytest.skip("the fp32 forms take no bias or segment ids")
+    b, h, lq, lk = 2, 2, 300, 260
+    q, g = (_randn(gen, b, h, lq, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, b, h, lk, d, dtype=dtype) for _ in range(2))
+    masks = dict(causal=kw.get("causal", False))
+    if "causal+bias" in form and dtype == torch.bfloat16:
+        masks["bias"] = _randn(gen, 1, h, lq, lk, dtype=torch.float32)
+        masks["segment_ids"] = (
+            (torch.arange(lq, device="cuda") // 110).int().repeat(b, 1),
+            (torch.arange(lk, device="cuda") // 90).int().repeat(b, 1))
+    n = (tfa.flash_attention_cuda.head_dims[d],
+         tfa.flash_attention_bwd_dq_cuda.head_dims[d],
+         tfa.flash_attention_bwd_dkv_cuda.head_dims[d])
+    out, lse = tfa.flash_attention_cuda(q, k, v, **masks)
+    need_dbias = "bias" in masks
+    grads = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **masks,
+                                         need_dbias=need_dbias)
+    assert (tfa.flash_attention_cuda.head_dims[d],
+            tfa.flash_attention_bwd_dq_cuda.head_dims[d],
+            tfa.flash_attention_bwd_dkv_cuda.head_dims[d]) == tuple(
+                x + 1 for x in n)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, **masks)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g, **masks,
+                                         need_dbias=need_dbias)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    seen = ref_lse > -1e29
+    assert out.shape == q.shape and out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (lse - ref_lse)[seen].abs().max().item() <= max(tol, 1e-3)
+    for a, w in zip(grads, want):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        assert ((a.float() - w.float()).abs().max().item()
+                <= tol * w.float().abs().max().item() + 1e-6)
+

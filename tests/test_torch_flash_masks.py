@@ -289,5 +289,9 @@ def test_masked_wrappers_refuse_what_the_kernels_do_not_take():
     n = tfa.flash_attention_cuda.launches
     tfa.flash_attention(q, q, q, causal=True)      # CPU: the plain version
     assert tfa.flash_attention_cuda.launches == n
-    assert tfa._MASK_HEAD_DIMS == (64, 128) and 64 in tfa._KERNEL_HEAD_DIMS
-    assert tfa._BWD_HEAD_DIMS == (64, 128)
+    # every mask form at every head dim up to 256, K1 and the backward
+    assert tfa._MAX_HEAD_DIM == 256
+    for route in (tfa.k1_route, tfa.k3_route, tfa.k4_route):
+        assert route(torch.bfloat16, 96, True, True, True) == "sm90"
+        with pytest.raises(NotImplementedError, match="1 to 256"):
+            route(torch.bfloat16, 320, True, True, True)

@@ -2,10 +2,12 @@
 
 Which kernel a CUDA launch of K1 runs is decided in Python before anything
 reaches the card (``k1_route``): the TMA / wgmma kernel of
-``csrc/flash_attention_sm90.cu`` for bf16 at every head dim but 512 and for
-every mask form, the TMA / wgmma kernel of ``csrc/flash_attention.cu`` for
-bf16 at head dim 512, the fp32 library for fp32 (causal and T5's bias alone
-at head dim 64); every other (dtype, head dim, form) raises before a launch. The ctypes signatures are held against the
+``csrc/flash_attention_sm90.cuh`` for bf16 at every head dim from 1 to 256
+in every mask form, the TMA / wgmma kernel of ``csrc/flash_attention.cu``
+for bf16 at head dim 512, the fp32 library for fp32 (its TF32 kernel at the
+head dims it takes, the CUDA-core kernel at the others up to 256; causal at
+each but 512, T5's bias alone at head dim 64); every other (dtype, head dim,
+form) raises before a launch. The ctypes signatures are held against the
 argument counts of the ``extern "C"`` declarations in the sources, which
 nothing compiles here. The kernels themselves are tested on the card
 (``tests/test_torch_cuda_kernels.py``).
@@ -38,14 +40,14 @@ FORMS = {  # name -> (causal, bias, segments)
 def _want(dtype, d, form):
     """The route the port's contract gives, or the exception it raises."""
     causal, bias, seg = FORMS[form]
+    if d == 512 and form != "none":
+        return NotImplementedError
     if dtype == F32:
         # T5's bias alone at 64 is the one fp32 bias form
-        if seg or (causal and (d != 64 or bias)) or (bias and d != 64):
+        if seg or (bias and (d != 64 or causal)):
             return NotImplementedError
-        return "fp32"
-    # head dim 8 has an fp32 form only (the checks sd1 UNet runs in fp32)
-    if d == 8 or (form != "none" and d not in (64, 128)):
-        return NotImplementedError
+        # the TF32 kernel up to 160 and at 512, the CUDA cores above 160
+        return "fp32" if d <= 160 or d == 512 else "fp32_fma"
     return "d512" if d == 512 else "sm90"
 
 
@@ -64,7 +66,7 @@ def test_k1_route_by_dtype_head_dim_and_form(dtype, d, form):
         assert tfa.k1_route(dtype, d, causal, bias, seg) == want
 
 
-@pytest.mark.parametrize("d", [32, 96, 256])
+@pytest.mark.parametrize("d", [0, 257, 320])
 def test_k1_route_refuses_other_head_dims_and_dtypes(d):
     for dtype in (BF16, F32):
         with pytest.raises(NotImplementedError, match=str(d)):
@@ -76,8 +78,9 @@ def test_k1_route_refuses_other_head_dims_and_dtypes(d):
 def test_checks_sd1_unet_takes_k1_fp32_at_head_dim_8():
     """``checks sd1`` runs SD1UNet(model_channels=64) in fp32 on a 32^2
     latent: its level-0 self-attentions (8 heads of 8, 1024 tokens) are the
-    flash-eligible ones, and K1 takes them in fp32; in bf16 the head dim is
-    refused (no ported caller reaches it)."""
+    flash-eligible ones, and K1 takes them in fp32 on its TF32 kernel, causal
+    too; in bf16 the sm90 kernel takes head dim 8 as it takes every head dim
+    up to 256."""
     with torch.device("meta"):
         unet = SD1UNet(model_channels=64)
     blocks = [m for m in unet.modules() if isinstance(m, TransformerBlock)]
@@ -85,10 +88,8 @@ def test_checks_sd1_unet_takes_k1_fp32_at_head_dim_8():
     level0 = [m for m in blocks if m.attn1.qkv.weight.shape[1] == 64]
     assert dims == {8, 16, 32} and len(level0) == 5
     assert tfa.k1_route(F32, 8) == "fp32"
-    with pytest.raises(NotImplementedError, match="fp32"):
-        tfa.k1_route(F32, 8, causal=True)
-    with pytest.raises(NotImplementedError):
-        tfa.k1_route(BF16, 8)
+    assert tfa.k1_route(F32, 8, causal=True) == "fp32"
+    assert tfa.k1_route(BF16, 8) == "sm90"
 
 
 def _unet_attentions(height, width):
@@ -172,7 +173,7 @@ def test_ctypes_signatures_match_the_c_entries(library):
 def test_segment_tiles_are_the_sm90_kernels_tiles():
     """The wrapper builds K1's segment-id tile bounds and ranges at the
     query and key tile of the kernel it launches."""
-    text = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    text = (_build.CSRC / "flash_attention_sm90.cuh").read_text()
     m = re.search(r"constexpr int kBQ = (\d+), kBK = (\d+)", text)
     assert m and tuple(map(int, m.groups())) == tfa._FWD_TILES == (128, 128)
 
