@@ -499,20 +499,21 @@ BF16_FAMILY = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv",
 # for the head dims padded to 16) and masked online at each (K1 causal; K5
 # at 64), bounded (K5), T5's bias form; the d = 512 kernel. The fp32
 # backward (TF32 split): dq and dk/dv at the 8 widths 16 - 128 without a
-# mask and masked (K3 / K4 causal, K6 / K7 at 64). The CUDA-core fp32 K1, K3
-# and K4 above those: the forward at widths 192, 224, 256, dq and dk/dv at
-# 160 - 256, causal a runtime flag.
+# mask and masked (K3 / K4 causal, K6 / K7 at 64), and the two-block (one
+# cluster) dq and dk/dv at the 4 widths 160 - 256 without a mask and causal.
+# The CUDA-core fp32 K1 above 160: widths 192, 224, 256, causal a runtime
+# flag.
 FP32_KERNELS = {
     "K1/K5 fp32": ("flash_fwd_f32_kernel", 13 + 13 + 1 + 1),
     "K1 fp32 d512": ("flash_fwd_f32_d512_kernel", 1),
     "K3/K6 fp32": ("flash_bwd_dq_f32_kernel", 16),
     "K4/K7 fp32": ("flash_bwd_dkv_f32_kernel", 16),
+    "K3 fp32 wide": ("flash_bwd_dq_f32_wide_kernel", 8),
+    "K4 fp32 wide": ("flash_bwd_dkv_f32_wide_kernel", 8),
     "K1 fp32 fma": ("flash_fwd_f32_fma_kernel", 3),
-    "K3 fp32 fma": ("flash_bwd_dq_f32_fma_kernel", 4),
-    "K4 fp32 fma": ("flash_bwd_dkv_f32_fma_kernel", 4),
 }
 # kinds that run on the CUDA cores by design: no wgmma, no TMA in their SASS
-CUDA_CORE_KINDS = {"K1 fp32 fma", "K3 fp32 fma", "K4 fp32 fma"}
+CUDA_CORE_KINDS = {"K1 fp32 fma"}
 FP32_FAMILY = ("flash_fwd", "flash_bwd")
 
 
@@ -548,7 +549,8 @@ def sass_check(sass, table, family):
     names = {"K1 sm90": "causal/bias/segments", "K3 sm90":
              "causal/bias/segments", "K4 sm90": "causal/bias/segments",
              "K5 sm90": "bounded", "K1/K5 fp32": "masked/bounded/bias",
-             "K3/K6 fp32": "masked", "K4/K7 fp32": "masked"}
+             "K3/K6 fp32": "masked", "K4/K7 fp32": "masked",
+             "K3 fp32 wide": "masked", "K4 fp32 wide": "masked"}
     for kind, fns in found.items():
         for f, (hgmma, tma) in sorted(fns.items()):
             # template arguments: padded head dim, then the form's flags
@@ -682,7 +684,7 @@ class Counts(dict):
     """Launches by kernel; ``k1_routes``: K1's launches by the kernel they
     ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32",
     "fp32_fma"); ``k3_routes`` - ``k7_routes`` (but K2's): K3's - K7's
-    (``.routes`` of their wrappers: "sm90", "fp32", "fp32_fma");
+    (``.routes`` of their wrappers: "sm90", "fp32");
     ``k1_head_dims``, ``k3_head_dims``, ``k4_head_dims``: K1's, K3's and
     K4's launches by head dim."""
 
@@ -3692,9 +3694,17 @@ FP32_BWD_DESIGN = (
     "resident, Q / dO rows (two stages) and Q^T / dO^T (one) in tiles of 32 "
     "or 16 queries, S^T and dP^T SS, dV += P^T dO and dK += dS^T Q RS over "
     "64-column chunks; every tile's product into a fresh accumulator added "
-    "in registers")
+    "in registers. Above head dim 128 (flash_f32_bwd.cuh) a cluster of two "
+    "blocks per 64 queries (dq) or 64 keys (dk/dv), each owning half of the "
+    "columns of every operand and output: each keeps its half of the "
+    "resident pair, computes its partial S and dP (S^T and dP^T) over its "
+    "columns, stores it into the other block's shared memory and adds the "
+    "other's (mbarriers at cluster scope), then runs dQ (dV, dK) over its own "
+    "columns; the next tile's partials are computed and sent while this "
+    "tile's are used")
 # K1 in fp32 at the shapes the fp32 defaults give it, (B, H, Lq, Lk, D),
-# causal, with the backward; compare_revisions.py times them too.
+# causal, with the backward; compare_revisions.py times them too, and
+# FP32_WIDE_CASES beside them.
 FP32_CASES = [
     ((2, 8, 4096, 4096, 40), False, False),      # SD1 UNet at 64^2
     ((2, 8, 1024, 1024, 80), False, False),      # SD1 UNet at 32^2
@@ -3703,6 +3713,15 @@ FP32_CASES = [
     ((16, 12, 576, 576, 64), False, True),       # SigLIP tower
     ((16, 12, 584, 584, 64), True, True),        # TinyVLM decoder
     ((32, 1, 4096, 4096, 128), False, True),     # tiny-SD UNet at 64^2
+]
+# K3 and K4 in fp32 above head dim 128, the shapes tiny-SD's fp32 steps give
+# them (HEAD_DIM_TIMED's wide ones): compare_revisions.py --only fp32 times
+# them in the same form as FP32_CASES; phase_kernels_head_dims holds and
+# times them here.
+FP32_WIDE_CASES = [
+    ((32, 1, 1024, 1024, 192), False, True),     # channel: 96, 32^2
+    ((16, 2, 1024, 1024, 256), False, True),     # head dim 256
+    ((32, 2, 4096, 4096, 160), False, True),     # channel: 320, 64^2
 ]
 # K1's fp32 forms beside them: d = 160 (K1_D160_SHAPE) and T5's bias
 FP32_T5_SHAPE = (2, 64, 512, 512, 64)
@@ -3729,9 +3748,11 @@ def fp32_bound(b, h, lq, lk, d, n_products, n_q_like, n_k_like, n_stats,
     """Attention-shaped work on fp32 tensors at ``peak``: ``n_products``
     products over the ``share`` of the Lq x Lk pairs the mask admits, each
     done in ``passes`` passes, (Lq, d) and (Lk, d) fp32 tensors and fp32 row
-    statistics moved once. The backward's route is fp32 FMAs on the CUDA
-    cores (67 TFLOP/s, one pass); the forward's the tensor cores, three
-    TF32 passes at 495 TFLOP/s (:func:`tf32_bound`)."""
+    statistics moved once. At the default ``peak`` and one pass it is the
+    bound of K1's fp32 forward above head dim 160, fp32 FMAs on the CUDA
+    cores (67 TFLOP/s); every other fp32 flash kernel, backward included,
+    runs on the tensor cores, three TF32 passes at 495 TFLOP/s
+    (:func:`tf32_bound`)."""
     flops = 2.0 * n_products * share * b * h * lq * lk * d
     nbytes = b * h * (4.0 * d * (n_q_like * lq + n_k_like * lk)
                       + 4.0 * n_stats * lq)
@@ -8345,10 +8366,16 @@ def phase_native(card):
 # wrapper pads it) over (B, H, Lq, Lk) = HEAD_DIM_CASE, more than one tile on
 # each side and a ragged one, without a mask and causal, and in every mask
 # form at HEAD_DIM_ALL_FORMS; fp32 without a mask and causal at
-# HEAD_DIM_FP32.
+# HEAD_DIM_FP32 (above 128 the two-block TF32 backward at each of its
+# widths: 136, 144, 160 -> 160; 192; 200 -> 224; 232, 256 -> 256).
 HEAD_DIM_BF16 = (8, 16, 32, 36, 96, 144, 160, 192, 224, 256)
 HEAD_DIM_ALL_FORMS = (96, 256)
-HEAD_DIM_FP32 = (24, 36, 96, 112, 144, 160, 192, 256)
+HEAD_DIM_FP32 = (24, 36, 96, 112, 136, 144, 160, 192, 200, 232, 256)
+# fp32 K3 / K4 against fp64 at HEAD_DIM_CASE: the two-block kernels' head
+# dims beside the one-block kernels' widest, in one call; the wide ones'
+# error may be at most FP64_WIDE_RATIO times the d = 128 one's
+HEAD_DIM_FP64 = (128, 160, 256)
+FP64_WIDE_RATIO = 2.0
 HEAD_DIM_CASE = (2, 2, 600, 520)
 MASK_FORMS = [(c, b, s) for c in (False, True) for b in (False, True)
               for s in (False, True)]      # (causal, bias, segment ids)
@@ -8461,8 +8488,72 @@ def phase_kernels_head_dims(card, tail):
     print(f"head dims: {n_cases} cases held against the plain versions; "
           f"largest errors {errs}", flush=True)
 
+    # fp32 K3 / K4 against fp64: dq, dk and dv relative to their largest
+    # magnitude, the wide head dims beside d = 128 on the same seed
+    fp64_err = {}
+    for d in HEAD_DIM_FP64:
+        g64 = torch.Generator(device="cuda").manual_seed(2300)
+        q, k, v, g = (torch.randn((*HEAD_DIM_CASE[:2], n, d), generator=g64,
+                                  device="cuda")
+                      for n in (HEAD_DIM_CASE[2], HEAD_DIM_CASE[3],
+                                HEAD_DIM_CASE[3], HEAD_DIM_CASE[2]))
+        out, lse = fa.flash_attention_cuda(q, k, v)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+        d64 = [x.double() for x in (q, k, v)]
+        o64, l64 = fa.flash_attention_plain(*d64)
+        ref = fa.flash_attention_bwd_plain(*d64, o64, l64, g.double())
+        fp64_err[d] = {name: ((a.double() - w).abs().max()
+                              / w.abs().max()).item()
+                       for name, a, w in zip(("dq", "dk", "dv"), got, ref)}
+        del q, k, v, g, out, lse, got, d64, o64, l64, ref
+    base = max(fp64_err[128].values())
+    print("head dims: fp32 K3 / K4 against fp64 at " + str(HEAD_DIM_CASE)
+          + ", of each gradient's largest: " + "; ".join(
+              f"d={d} (width {-(-d // 32) * 32 if d > 128 else d}, "
+              f"{'two blocks' if d > 128 else 'one block'}): " + ", ".join(
+                  f"{n} {e:.3e}" for n, e in fp64_err[d].items())
+              for d in HEAD_DIM_FP64)
+          + f"; the wide widths' largest over d = 128's: " + ", ".join(
+              f"d={d} {max(fp64_err[d].values()) / base:.2f}"
+              for d in HEAD_DIM_FP64 if d > 128), flush=True)
+    check(all(max(fp64_err[d].values()) <= FP64_WIDE_RATIO * base
+              for d in HEAD_DIM_FP64 if d > 128),
+          f"fp32 K3 / K4 above 128 further from fp64 than {FP64_WIDE_RATIO}"
+          f" x d = 128: {fp64_err}")
+
     sdpa = F.scaled_dot_product_attention
-    records = dict(K1=[], K3=[], K4=[])
+    records = dict(K1=[], K3=[], K4=[], fp64=fp64_err, K1_any=[])
+    # K1's ANY instantiation (every mask path compiled in) timed in the form
+    # with all three masks at HEAD_DIM_CASE, beside the plain version and
+    # one scaled_dot_product_attention call given the same masks as one
+    # additive fp32 mask (built outside the timing); the bound counts the
+    # visible pairs, the bias and the ids
+    b_, h_, lq_, lk_ = HEAD_DIM_CASE
+    for d in HEAD_DIM_ALL_FORMS:
+        q, k, v, _, masks = head_dim_inputs(rnd, bf16, d, MASK_FORMS[-1])
+        q_ids, kv_ids = masks["segment_ids"]
+        seen = ((q_ids[:, None, :, None] == kv_ids[:, None, None, :])
+                & (torch.arange(lk_, device="cuda")[None, :]
+                   <= torch.arange(lq_, device="cuda")[:, None]))
+        add = masks["bias"] + torch.where(seen, 0.0, float("-inf"))
+        share = seen.float().mean().item()
+        nbytes = (b_ * h_ * (2.0 * d * 2 * (lq_ + lk_) + 4.0 * lq_)
+                  + 4.0 * h_ * lq_ * lk_ + 4.0 * b_ * (lq_ + lk_))
+        bnd = bound(4.0 * b_ * h_ * lq_ * lk_ * d * share, nbytes)
+        t = dict(ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                            **masks)),
+                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                     q, k, v, **masks), 5, 1),
+                 library_ms=cuda_ms(lambda: sdpa(q, k, v,
+                                                 attn_mask=add.to(bf16))),
+                 bound_ms=bnd[0], bound_by=bnd[1])
+        records["K1_any"].append(dict(shape=[b_, h_, lq_, lk_, d],
+                                      form="causal+bias+segments",
+                                      visible_share=share, **t))
+        print(f"head dims: K1 ANY bf16 causal + bias + segments "
+              f"{(b_, h_, lq_, lk_, d)} ({100 * share:.1f} % of the pairs "
+              f"visible): {tail(**t)}", flush=True)
+        del q, k, v, masks, seen, add
     for dtype in (bf16, fp32):
         dt = "bf16" if dtype == bf16 else "fp32"
         heavy = dtype == fp32
@@ -8500,7 +8591,7 @@ def phase_kernels_head_dims(card, tail):
                                    attn_bound(*shape)))
                 elif route == "fp32":     # the TF32 kernels
                     bnd = tf32_bound(b, h, lq, lk, d, 1.0, *work[kernel])
-                else:                     # fp32 FMAs on the CUDA cores
+                else:                     # K1's fp32 FMAs on the CUDA cores
                     bnd = dict(fp32_bound(*shape),
                                bound_basis="fp32 FMAs at 67 TFLOP/s")
                 fwd = kernel == "K1"
@@ -8513,10 +8604,16 @@ def phase_kernels_head_dims(card, tail):
                     dtype=dt, shape=[b, h, lq, lk, d], route=route,
                     bound_basis=bnd.get("bound_basis",
                                         "bf16 at 989 TFLOP/s"), **times))
-                line.append(f"{kernel} ({route}): {tail(**times)}")
+                share = times["bound_ms"] / times["ms"]
+                records[kernel][-1]["bound_share"] = share
+                line.append(f"{kernel} ({route}): {tail(**times)}, "
+                            f"{100 * share:.1f} % of the bound")
+            pair = sum(r[-1]["ms"] for r in (records["K3"], records["K4"]))
             print(f"head dims: timed {dt} (B,H,Lq,Lk,D)=({b},{h},{lq},{lk},"
                   f"{d}) (plain and library backward: dq, dk and dv "
-                  f"together); " + "; ".join(line), flush=True)
+                  f"together); " + "; ".join(line) + f"; K3 + K4 "
+                  f"{pair:.4f} ms against the library's whole backward "
+                  f"{lib_bwd:.4f} ms ({lib_bwd / pair:.2f} x)", flush=True)
             del q, k, v, g, out, lse, delta
             torch.cuda.empty_cache()
     return errs, records
@@ -8561,10 +8658,11 @@ def phase_tiny_sd_widths(card):
     bf16): train steps timed with their peak memory and the launches by
     head dim, one more under the profiler (device time by family); one
     step's loss and gradients against the same step through
-    plain attention; a CFG sampling run of WIDTH_SAMPLE_T steps; at the
-    first width two fp32 steps against plain attention and one epoch of
+    plain attention; a CFG sampling run of WIDTH_SAMPLE_T steps; two fp32
+    steps against plain attention; at the first width one epoch of
     ``cli/tiny_sd.py train --config ... --synthetic``. Returns the paths'
-    launch counts and the fp32 run's (launches, fp32 launches)."""
+    launch counts and, by width, the fp32 run's (launches, fp32
+    launches)."""
     import shutil
     import tempfile
 
@@ -8583,7 +8681,7 @@ def phase_tiny_sd_widths(card):
         TinySDConfig)
 
     root = tempfile.mkdtemp(prefix="tiny_sd_widths_")
-    runs, fp32_run = {}, None
+    runs, fp32_runs = {}, {}
     try:
         for channel, per_step in TINY_SD_WIDTHS.items():
             path = write_width_yaml(root, channel)
@@ -8718,12 +8816,10 @@ def phase_tiny_sd_widths(card):
             del trainer, state, model, sampler, images
             gc.collect()
             torch.cuda.empty_cache()
-            if channel != min(TINY_SD_WIDTHS):
-                continue
 
             # two fp32 steps (the fp32 kernels at these head dims; the
             # second, warm, timed) against the same steps through plain
-            # attention
+            # attention, at each width
             def build_fp32():
                 c32 = dataclasses.replace(cfg, dtype="fp32")
                 data = list(DataLoader(SyntheticImageDataset(
@@ -8745,7 +8841,17 @@ def phase_tiny_sd_widths(card):
                   f"{fp32_counts.k1_head_dims}")
             print(f"fp32 tiny-SD channel {channel}: routes K1 "
                   f"{fp32_counts.k1_routes} K3 {fp32_counts.k3_routes} K4 "
-                  f"{fp32_counts.k4_routes}", flush=True)
+                  f"{fp32_counts.k4_routes}; {fp32_counts.step_ms:.2f} ms "
+                  f"the warm step [{card}]", flush=True)
+            # every K3 / K4 launch of the fp32 steps on the TF32 kernels,
+            # the wide head dims (160, 192) on the two-block ones
+            for k in ("K3", "K4"):
+                routes = getattr(fp32_counts, k.lower() + "_routes")
+                check(routes == {"fp32": 12},
+                      f"fp32 channel {channel}: {k} routes {routes}")
+            fp32_runs[channel] = fp32_run
+            if channel != min(TINY_SD_WIDTHS):
+                continue
 
             # one epoch of the CLI from the YAML (8 batches of synthetic
             # images), in this process so that its launches are counted
@@ -8771,7 +8877,7 @@ def phase_tiny_sd_widths(card):
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return runs, fp32_run
+    return runs, fp32_runs
 
 
 def main():
@@ -8816,7 +8922,7 @@ def main():
              "vit_training", "clip_forward", "clip_training", "fid",
              "dp_trainers",
              "sd1_fp32", "sd1_768_fp32", "sd3_fp32", "t5_fp32",
-             "tiny_sd_w96_fp32", "vlm_fp32",
+             "tiny_sd_w96_fp32", "tiny_sd_w320_fp32", "vlm_fp32",
              "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64",
              "clip_fp32", "checks")
     sd1_launches, sd1_models, sd1_image = phase_sd1(card)
@@ -8875,7 +8981,7 @@ def main():
     mark("tiny_sd")
     width_runs, width_fp32 = phase_tiny_sd_widths(card)
     runs += list(width_runs.values())
-    fp32_runs.append(width_fp32)
+    fp32_runs += [width_fp32[w] for w in sorted(width_fp32)]
     mark("tiny_sd_widths")
     runs.append(phase_ddpm_fsdp(card))
     mark("tp_fsdp")
@@ -8983,12 +9089,24 @@ def main():
         for p, run in zip(paths, runs):
             for d, n in getattr(run, k.lower() + "_head_dims", {}).items():
                 per_dim.setdefault(d, {})[p] = n
-        return dict(
+        rec = dict(
             timed=head_dim_timed[k],
-            fp32_fma_source=pkg + "fp32/flash_f32_fma.cu",
             launches_by_head_dim={d: dict(launches=sum(v.values()),
                                           launches_by_path=v)
                                   for d, v in sorted(per_dim.items())})
+        if k == "K1":   # fp32 above 160: the CUDA-core forward
+            rec["fp32_fma_source"] = pkg + "fp32/flash_f32_fma.cu"
+            rec["any_form_timed"] = head_dim_timed["K1_any"]
+        else:           # fp32 above 128: the two-block TF32 kernels
+            rec["fp32_wide"] = dict(
+                source=pkg + "fp32/flash_f32_bwd.cuh",
+                kernel=("flash_bwd_dq_f32_wide_kernel" if k == "K3"
+                        else "flash_bwd_dkv_f32_wide_kernel"),
+                widths=[160, 192, 224, 256],
+                fp64_err_by_head_dim=head_dim_timed["fp64"],
+                instantiated_in=[pkg + f"fp32/flash_f32_bwd_w{w}.cu"
+                                 for w in (160, 192, 224, 256)])
+        return rec
 
     def by_head_dim(d):
         """K1's launches at head dim ``d``, from the paths' runs."""

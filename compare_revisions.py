@@ -41,7 +41,8 @@ Parts, all of them unless ``--only`` names some:
     K5's device ms and the idle share (1 - busy / the second's wall);
   - fp32: the fp32 forward (K1 and K5 on fp32 tensors) and backward (K3 and
     K4 where ``chip_smoke.FP32_CASES`` has one, K6 and K7) at the shapes of
-    ``chip_smoke.FP32_CASES`` and ``FP32_POS_SHAPES``, wall ms and device
+    ``chip_smoke.FP32_CASES``, ``chip_smoke.FP32_WIDE_CASES`` (K3 and K4
+    above head dim 128) and ``FP32_POS_SHAPES``, wall ms and device
     ms per call (its flash kernels and its split pre-pass, together and the
     pre-pass alone; ``chip_smoke.fp32_fwd_device_ms``), and one fp32 SD1
     request (``SD1Models`` at fp32, 512², 10 k-LMS steps, CFG 7.5): wall s
@@ -214,7 +215,8 @@ def _fp32(cs, out):
     gen = torch.Generator(device="cuda").manual_seed(4321)
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
     dq_fam, dkv_fam = "K3 flash bwd dq", "K4 flash bwd dk/dv"
-    for (b, h, lq, lk, d), causal, with_bwd in cs.FP32_CASES:
+    for (b, h, lq, lk, d), causal, with_bwd in (
+            *cs.FP32_CASES, *cs.FP32_WIDE_CASES):
         q, k, v = (t.reshape(b, lq, h, d).transpose(1, 2)
                    for t in rnd(b, lq, 3 * h * d).chunk(3, -1))
         key = f"{'causal' if causal else 'none'} {(b, h, lq, lk, d)}"

@@ -1,9 +1,12 @@
 // Flash-attention backward on fp32 inputs for Hopper (sm_90a) on the tensor
 // cores: the fp32 form of K3 (dq) and K4 (dk, dv), plain and causal at
-// every head dim up to 128, and of K6 / K7 (position masks under a
-// caller-supplied global lse and delta) at 64. Head dims 129 to 256 take the
-// kernels of flash_f32_fma.cu: above 128 the resident Q and dO (dq) or K and
-// V (dk / dv) terms of a 64-row tile no longer fit beside the rings.
+// every head dim up to 256, and of K6 / K7 (position masks under a
+// caller-supplied global lse and delta) at 64. This file holds the kernels up
+// to 128, the split pre-pass, the dispatch and the C entries; head dims 129
+// to 256 take the kernels of flash_f32_bwd.cuh (one cluster of two blocks,
+// each owning half of the columns: above 128 the resident Q and dO (dq) or K
+// and V (dk / dv) terms of a 64-row tile no longer fit in one block beside
+// the rings), instantiated in flash_f32_bwd_w*.cu.
 //
 // Replaces, for fp32 q, k, v, dO, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
@@ -28,9 +31,7 @@
 // What bounds them on the H100: operations. dq does 3 Lq Lk d multiply-adds
 // (S, dP, dS K), dk/dv 4 (S^T, dP^T, P^T dO, dS^T Q), each in three TF32
 // passes at 495 TFLOP/s: 165 TFLOP/s of fp32 work, 2.5 x the 67 TFLOP/s of
-// fp32 FMAs on the CUDA cores that the kernels they replace used (4 x 4
-// register tiles, dS through shared memory), plus one exponential per
-// logit.
+// fp32 FMAs on the CUDA cores, plus one exponential per logit.
 //
 // Design. TF32 wgmma takes both operands K-major, so every product whose
 // reduction runs over the sequence needs a transposed term: dq = dS K needs
@@ -68,142 +69,12 @@
 // offsets 0. Query rows past Lq get lse = +1e30 (P = 0); keys past Lk are
 // selected to P = 0.
 
-#include <type_traits>
-
-#include "../pos_tile.cuh"
-#include "../sm90.cuh"
+#include "flash_f32_bwd.cuh"
 #include "split_f32.cuh"
 
 namespace {
 
-namespace s9 = fdsd::sm90;
-using fdsd::PosArgs;
-using fdsd::pos_bounds;
-using fdsd::pos_of;
-using fdsd::pos_pair;
-
-constexpr float kPadLse = 1e30f;  // query rows past Lq: P = 0
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kPasses = 3;  // TF32 wgmma passes per product
-static_assert(kPasses == 3, "lo hi + hi lo + hi hi");
-constexpr int kProducerRegs = 40;
-
-// A tile of R rows x C fp32 columns of one term as TMA writes it: C / W
-// chunks of R rows x W columns, W = 32 (128-byte swizzle) or 8 (32-byte).
-template <int R, int C>
-struct Tile {
-  static constexpr int W = C % 32 == 0 ? 32 : 8;
-  static constexpr uint32_t kLayout = W == 32 ? 1 : 3;
-  static constexpr uint32_t kAtom = 8 * W * 4;  // 8 rows of a chunk
-  static constexpr int kChunks = C / W;
-  static constexpr int kChunk = R * W * 4;
-  static constexpr int kBytes = R * C * 4;  // one term; hi, then lo
-  static_assert(C % 8 == 0 && R % 8 == 0, "tile");
-
-  // K-major descriptor of k-step kk (columns 8kk ..) from row `row`.
-  static __device__ __forceinline__ uint64_t desc(uint32_t at, int kk,
-                                                  int row) {
-    return s9::smem_desc(at + (kk * 8 / W) * kChunk + row * W * 4 +
-                             (kk * 8 % W) * 4,
-                         16, kAtom, kLayout);
-  }
-  // Both terms by TMA: chunk c from map coordinates (x0 + c W, y0, h,
-  // b + term B).
-  static __device__ __forceinline__ void load(uint32_t at,
-                                              const CUtensorMap* map,
-                                              uint32_t bar, int x0, int y0,
-                                              int h, int b, int B) {
-    for (int term = 0; term < 2; ++term)
-      for (int c = 0; c < kChunks; ++c)
-        s9::tma_load_4d(at + term * kBytes + c * kChunk, map, bar,
-                        x0 + c * W, y0, h, b + term * B);
-  }
-};
-
-struct Params {
-  const float* lse;    // (B, H, Lq)
-  const float* delta;  // (B, H, Lq)
-  float* o0;           // dq, or dk
-  float* o1;           // dv
-  int B, H, Lq, Lk, n_tiles;  // query tiles (dq) or key blocks (dk/dv)
-  int d;               // the head dim; columns d .. DP - 1 are padding
-  long long o0s[3], o1s[3];   // outputs' (batch, head, seq) strides
-  float scale;
-  PosArgs pos;  // MASKED only; null offsets read as 0
-};
-
-// The offsets of a masked launch, read once; zeros without positions.
-struct Offsets {
-  int q0 = 0, q1 = 0, k0 = 0, k1 = 0;
-  __device__ __forceinline__ Offsets(const PosArgs& a, bool masked) {
-    if (masked && a.q_off != nullptr) {
-      q0 = a.q_off[0];
-      q1 = a.q_off[1];
-    }
-    if (masked && a.k_off != nullptr) {
-      k0 = a.k_off[0];
-      k1 = a.k_off[1];
-    }
-  }
-};
-
-// pos_pair of the query tile [q0, q0 + bq) with the key tile [k0, k0 + bk):
-// 0 skip, 1 visible, 2 masked per logit; 1 without positions.
-__device__ __forceinline__ int tile_pair(const Params& p, const Offsets& o,
-                                         bool masked, int q0, int bq, int k0,
-                                         int bk) {
-  if (!masked) return 1;
-  int q_lo, q_hi, k_lo, k_hi;
-  pos_bounds(q0, bq, o.q0, o.q1, p.pos.seg_q, p.Lq, q_lo, q_hi);
-  pos_bounds(k0, bk, o.k0, o.k1, p.pos.seg_k, p.Lk, k_lo, k_hi);
-  return pos_pair(p.pos, q_lo, q_hi, k_lo, k_hi);
-}
-
-// Does the query at position qpos see the key at index key (< Lk)?
-__device__ __forceinline__ bool pos_sees(const Params& p, const Offsets& o,
-                                         int qpos, int key) {
-  const int kpos = pos_of(key, o.k0, o.k1, p.pos.seg_k);
-  if (p.pos.has_valid && kpos >= p.pos.valid_len) return false;
-  return !p.pos.causal || kpos <= qpos;
-}
-
-// x split in registers into the TF32 hi / lo A-fragment registers f.
-__device__ __forceinline__ void split_frag(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = s9::to_tf32(x);
-  lo = s9::to_tf32(x - __uint_as_float(hi));
-}
-
-// acc += A B over one tile, NC output columns at a time, each chunk into a
-// fresh accumulator added to acc in registers: A the split TF32 fragments
-// (hi, lo) of KS k-steps, B the transposed terms at ts (TT, K-major: the
-// k-step kk is positions 8kk .. 8kk + 7, permuted as A's columns; chunk nc
-// is its rows NC nc ..). Three passes: lo hi + hi lo + hi hi.
-template <typename TT, int DP, int NC, int KS>
-__device__ __forceinline__ void accum_rs(float (&acc)[DP / 2],
-                                         const uint32_t (&hi)[KS][4],
-                                         const uint32_t (&lo)[KS][4],
-                                         uint32_t ts) {
-  float part[NC / 2];
-#pragma unroll
-  for (int nc = 0; nc < DP / NC; ++nc) {
-    s9::fence_regs(part);
-    s9::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const uint64_t th = TT::desc(ts, kk, NC * nc);
-      const uint64_t tl = TT::desc(ts + TT::kBytes, kk, NC * nc);
-      s9::wgmma_tf32_rs<NC>(part, lo[kk], th, kk > 0);
-      s9::wgmma_tf32_rs<NC>(part, hi[kk], tl, 1);
-      s9::wgmma_tf32_rs<NC>(part, hi[kk], th, 1);
-    }
-    s9::wgmma_commit();
-    s9::wgmma_wait<0>();
-    s9::fence_regs(part);
-#pragma unroll
-    for (int i = 0; i < NC / 2; ++i) acc[nc * (NC / 2) + i] += part[i];
-  }
-}
+using namespace fdsd::f32bwd;
 
 // ------------------------------------------------------------- K3 / K6: dq
 template <int DP>
@@ -690,17 +561,6 @@ flash_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
 // (2, B, H, L, d) rows, then k^T (2, B, H, d, Lk8), q^T and dO^T
 // (2, B, H, d, Lq8). dq fills the rows and k^T, dk/dv the rows, q^T and
 // dO^T.
-struct Work {
-  float* q;
-  float* k;
-  float* v;
-  float* g;
-  float* kt;
-  float* qt;
-  float* gt;
-  long long nq, nk, nkt, nqt;  // floats of one term
-};
-
 Work carve(void* work, int B, int H, int Lq, int Lk, int d) {
   Work w;
   const long long bhd = static_cast<long long>(B) * H * d;
@@ -740,42 +600,36 @@ cudaError_t split_row_terms(const void* q, const void* k, const void* v,
   return split_rows(a, 4, s);
 }
 
-// A rows map (d, L, H, 2B) with a box of W columns x `rows`, or a
-// transposed one (L8, d, H, 2B) with a box of W positions x d rows.
-cudaError_t rows_map(CUtensorMap* map, const float* terms, int B, int H,
-                     int L, int d, int W, int rows) {
-  const long long st[3] = {static_cast<long long>(H) * L * d,
-                           static_cast<long long>(L) * d, d};
-  return s9::make_map(map, terms, d, L, H, 2 * B, st, W, rows,
-                      W == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
-                              : CU_TENSOR_MAP_SWIZZLE_32B,
-                      CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+// The pre-pass of dq: the rows of q, k, v, dO and k^T into the workspace.
+cudaError_t split_dq(const void* q, const void* k, const void* v,
+                     const void* g, const long long* st, const Work& w,
+                     const Params& p, cudaStream_t s) {
+  cudaError_t err =
+      split_row_terms(q, k, v, g, st, p.H, p.Lq, p.Lk, p.d, w, s);
+  if (err == cudaSuccess)
+    err = split_transposed(k, st + 3, w.kt, w.nkt, p.B, p.H, p.Lk, p.d, s);
+  return err;
 }
 
-// A transposed map's box is W positions x DP rows; rows past d are zeros.
-cudaError_t transposed_map(CUtensorMap* map, const float* terms, int B, int H,
-                           int L, int d, int W, int DP) {
-  const int l8 = round_up8(L);
-  const long long st[3] = {static_cast<long long>(H) * d * l8,
-                           static_cast<long long>(d) * l8, l8};
-  return s9::make_map(map, terms, l8, d, H, 2 * B, st, W, DP,
-                      W == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
-                              : CU_TENSOR_MAP_SWIZZLE_32B,
-                      CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+// The pre-pass of dk/dv: the rows of q, k, v, dO, q^T and dO^T.
+cudaError_t split_dkv(const void* q, const void* k, const void* v,
+                      const void* g, const long long* st, const Work& w,
+                      const Params& p, cudaStream_t s) {
+  cudaError_t err =
+      split_row_terms(q, k, v, g, st, p.H, p.Lq, p.Lk, p.d, w, s);
+  if (err == cudaSuccess)
+    err = split_transposed(q, st, w.qt, w.nqt, p.B, p.H, p.Lq, p.d, s);
+  if (err == cudaSuccess)
+    err = split_transposed(g, st + 9, w.gt, w.nqt, p.B, p.H, p.Lq, p.d, s);
+  return err;
 }
 
 template <int DP, bool MASKED>
-cudaError_t run_dq(const void* q, const void* k, const void* v, const void* g,
-                   const long long* st, const Work& w, Params p,
-                   cudaStream_t s) {
+cudaError_t run_dq(const Work& w, Params p, cudaStream_t s) {
   using C = DqCfg<DP>;
   const int d = p.d;
-  cudaError_t err = split_row_terms(q, k, v, g, st, p.H, p.Lq, p.Lk, d, w, s);
-  if (err == cudaSuccess)
-    err = split_transposed(k, st + 3, w.kt, w.nkt, p.B, p.H, p.Lk, d, s);
   CUtensorMap tq, tg, tk, tv, tkt;
-  if (err == cudaSuccess)
-    err = rows_map(&tq, w.q, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
+  cudaError_t err = rows_map(&tq, w.q, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
   if (err == cudaSuccess)
     err = rows_map(&tg, w.g, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
   if (err == cudaSuccess)
@@ -792,19 +646,11 @@ cudaError_t run_dq(const void* q, const void* k, const void* v, const void* g,
 }
 
 template <int DP, bool MASKED>
-cudaError_t run_dkv(const void* q, const void* k, const void* v,
-                    const void* g, const long long* st, const Work& w,
-                    Params p, cudaStream_t s) {
+cudaError_t run_dkv(const Work& w, Params p, cudaStream_t s) {
   using C = DkvCfg<DP>;
   const int d = p.d;
-  cudaError_t err = split_row_terms(q, k, v, g, st, p.H, p.Lq, p.Lk, d, w, s);
-  if (err == cudaSuccess)
-    err = split_transposed(q, st, w.qt, w.nqt, p.B, p.H, p.Lq, d, s);
-  if (err == cudaSuccess)
-    err = split_transposed(g, st + 9, w.gt, w.nqt, p.B, p.H, p.Lq, d, s);
   CUtensorMap tq, tg, tk, tv, tqt, tgt;
-  if (err == cudaSuccess)
-    err = rows_map(&tq, w.q, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
+  cudaError_t err = rows_map(&tq, w.q, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
   if (err == cudaSuccess)
     err = rows_map(&tg, w.g, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
   if (err == cudaSuccess)
@@ -845,12 +691,25 @@ Params bwd_params(const void* lse, const void* delta, void* o0, void* o1,
   return p;
 }
 
-// run(std::integral_constant<int, DP>{}) at the width of head dim d: d
-// rounded up to 16 (1 to 128, a multiple of 4); cudaErrorInvalidValue
-// above.
+// run(std::integral_constant<int, DP>{}) at the width of head dim d (a
+// multiple of 4): up to 128 d rounded up to 16 (the kernels of this file),
+// above it rounded up to 32 (flash_f32_bwd.cuh's); cudaErrorInvalidValue
+// past 256.
 template <typename Run>
 cudaError_t run_width(int d, Run run) {
-  if (d < 4 || d > 128 || d % 4 != 0) return cudaErrorInvalidValue;
+  if (d < 4 || d > 256 || d % 4 != 0) return cudaErrorInvalidValue;
+  if (d > 128) {
+    switch ((d + 31) / 32 * 32) {
+      case 160:
+        return run(std::integral_constant<int, 160>{});
+      case 192:
+        return run(std::integral_constant<int, 192>{});
+      case 224:
+        return run(std::integral_constant<int, 224>{});
+      default:
+        return run(std::integral_constant<int, 256>{});
+    }
+  }
   switch ((d + 15) / 16 * 16) {
     case 16:
       return run(std::integral_constant<int, 16>{});
@@ -871,17 +730,39 @@ cudaError_t run_width(int d, Run run) {
   }
 }
 
+// K3 (K6 with offsets) at width DP, with or without its mask.
+template <int DP>
+cudaError_t launch_dq(const Work& w, const Params& p, bool masked,
+                      cudaStream_t s) {
+  if constexpr (DP > 128)
+    return masked ? run_dq_wide<DP, true>(w, p, s)
+                  : run_dq_wide<DP, false>(w, p, s);
+  else
+    return masked ? run_dq<DP, true>(w, p, s) : run_dq<DP, false>(w, p, s);
+}
+
+template <int DP>
+cudaError_t launch_dkv(const Work& w, const Params& p, bool masked,
+                       cudaStream_t s) {
+  if constexpr (DP > 128)
+    return masked ? run_dkv_wide<DP, true>(w, p, s)
+                  : run_dkv_wide<DP, false>(w, p, s);
+  else
+    return masked ? run_dkv<DP, true>(w, p, s)
+                  : run_dkv<DP, false>(w, p, s);
+}
+
 cudaError_t dispatch_dq(const void* q, const void* k, const void* v,
                         const void* g, const long long* st, void* work,
                         const Params& p, int d, bool masked, cudaStream_t s) {
+  if (masked && p.pos.q_off != nullptr && d != 64)  // K6: 64 only
+    return cudaErrorInvalidValue;
   const Work w = carve(work, p.B, p.H, p.Lq, p.Lk, d);
-  if (masked && p.pos.q_off != nullptr)  // K6: 64 only
-    return d == 64 ? run_dq<64, true>(q, k, v, g, st, w, p, s)
-                   : cudaErrorInvalidValue;
   return run_width(d, [&](auto width) {
-    constexpr int DP = decltype(width)::value;
-    return masked ? run_dq<DP, true>(q, k, v, g, st, w, p, s)
-                  : run_dq<DP, false>(q, k, v, g, st, w, p, s);
+    cudaError_t err = split_dq(q, k, v, g, st, w, p, s);
+    return err == cudaSuccess
+               ? launch_dq<decltype(width)::value>(w, p, masked, s)
+               : err;
   });
 }
 
@@ -889,14 +770,14 @@ cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
                          const void* g, const long long* st, void* work,
                          const Params& p, int d, bool masked,
                          cudaStream_t s) {
+  if (masked && p.pos.q_off != nullptr && d != 64)  // K7: 64 only
+    return cudaErrorInvalidValue;
   const Work w = carve(work, p.B, p.H, p.Lq, p.Lk, d);
-  if (masked && p.pos.q_off != nullptr)  // K7: 64 only
-    return d == 64 ? run_dkv<64, true>(q, k, v, g, st, w, p, s)
-                   : cudaErrorInvalidValue;
   return run_width(d, [&](auto width) {
-    constexpr int DP = decltype(width)::value;
-    return masked ? run_dkv<DP, true>(q, k, v, g, st, w, p, s)
-                  : run_dkv<DP, false>(q, k, v, g, st, w, p, s);
+    cudaError_t err = split_dkv(q, k, v, g, st, w, p, s);
+    return err == cudaSuccess
+               ? launch_dkv<decltype(width)::value>(w, p, masked, s)
+               : err;
   });
 }
 
@@ -913,7 +794,7 @@ PosArgs pos_args(const void* q_off, const void* k_off, int seg_q, int seg_k,
 // dO, dq, each a multiple of 4; the head-dim stride is 1. lse and delta are
 // (B, H, Lq) contiguous fp32. work: fp32 scratch of 2 B H d (2 Lq + 2 Lk +
 // Lk8 + 2 Lq8) floats (L8: L rounded up to 8), shared in layout with
-// fdsd_flash_bwd_dkv_f32. Every head dim up to 128 that is a multiple of 4,
+// fdsd_flash_bwd_dkv_f32. Every head dim up to 256 that is a multiple of 4,
 // without a mask or causal.
 extern "C" int fdsd_flash_bwd_dq_f32(const void* q, const void* k,
                                      const void* v, const void* g,

@@ -1,5 +1,7 @@
 // Hopper (sm_90a) building blocks in raw PTX, for kernels built on TMA and
-// wgmma: mbarriers, named barriers, the 4-D TMA tile load and its host-side
+// wgmma: mbarriers (also arrived on and waited for across the blocks of a
+// cluster), the cluster's rank, address map, barrier and shared-to-shared
+// bulk copy, named barriers, the 4-D TMA tile load and its host-side
 // tensor map (bf16 or fp32), the 1-D bulk copy, shared-memory matrix
 // descriptors, wgmma m64nNk16 (bf16 in, fp32 accumulators) in SS and RS form
 // and m64nNk8 in TF32 (fp32 operands rounded to TF32, both K-major), with its
@@ -79,6 +81,101 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// --------------------------------------------------------------- clusters
+// This block's rank in its thread block cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `addr` (in this block's shared memory) in
+// block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, float a, float b,
+                                             float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 ld_shared_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// One arrival on a barrier of another block of the cluster (a cluster_map
+// address), releasing this thread's earlier reads and writes to the
+// cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// mbar_wait that acquires at cluster scope: what another block of the
+// cluster did before its arrival is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16) of this block's shared memory at `src` into
+// another block's at `dst` (a cluster_map address) by the bulk-copy unit;
+// completion is counted in bytes on that block's barrier `bar` (a
+// cluster_map address). Source reads are tracked by bulk_commit /
+// bulk_wait_read.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src,
+                                                  uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until the bulk copies this thread committed have read their source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Every thread of every block of the cluster: arrive (release), then wait
+// (acquire) until all have arrived. The warp is reconverged first: the
+// barrier's .aligned form wants every thread of it at the same instruction.
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
 }
 
 // Barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a multiple

@@ -1,10 +1,11 @@
 """Builds the CUDA sources into two shared libraries with ``nvcc`` and loads
 them: ``csrc/*.cu`` (the bf16 flash kernels and GroupNorm) and
-``csrc/fp32/*.cu`` (the fp32 forms of the flash kernels, whose forward
-includes ``csrc/sm90.cuh`` and ``csrc/pos_tile.cuh``), each at its own
-first use, so that a bf16 caller never waits for the fp32 build. The bf16
-flash kernels K1, K3 and K4 keep their templates in a header each
-(``flash_attention{,_dq,_bwd}_sm90.cuh``) and instantiate their head-dim
+``csrc/fp32/*.cu`` (the fp32 forms of the flash kernels, which include
+``csrc/sm90.cuh`` and ``csrc/pos_tile.cuh``), each at its own first use, so
+that a bf16 caller never waits for the fp32 build. The bf16 flash kernels
+K1, K3 and K4 keep their templates in a header each
+(``flash_attention{,_dq,_bwd}_sm90.cuh``), as do the fp32 K3 and K4 above
+head dim 128 (``fp32/flash_f32_bwd.cuh``), and instantiate their head-dim
 widths in several small sources (``*_w*.cu``), so that the instantiations
 compile in parallel.
 
@@ -83,15 +84,9 @@ _SIGNATURES_FP32 = {
     # q, k, v, dO, lse, delta, dk, dv, work, B, H, Lq, Lk, d, strides[18],
     # scale, causal, stream
     "fdsd_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _P],
-    # the CUDA-core forms at the head dims the TF32 kernels do not take:
+    # the CUDA-core forward at the head dims the TF32 forward does not take:
     # q, k, v, out, lse, B, H, Lq, Lk, d, strides[12], scale, causal, stream
     "fdsd_flash_fwd_f32_fma": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _P],
-    # q, k, v, dO, lse, delta, dq, B, H, Lq, Lk, d, strides[15], scale,
-    # causal, stream
-    "fdsd_flash_bwd_dq_f32_fma": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _P],
-    # q, k, v, dO, lse, delta, dk, dv, B, H, Lq, Lk, d, strides[18], scale,
-    # causal, stream
-    "fdsd_flash_bwd_dkv_f32_fma": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
     # the position-masked backward entries take the arguments of their bf16
     # namesakes with the workspace after the offsets
     "fdsd_flash_bwd_pos_dq_f32": (_SIGNATURES["fdsd_flash_bwd_pos_dq"][:9]

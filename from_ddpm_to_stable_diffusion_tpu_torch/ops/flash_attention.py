@@ -60,12 +60,12 @@ to 0.
 
 Head dims: K1, K3 and K4 take every head dim from 1 to 256 (K1 also 512).
 The kernels pad the head dim to their width with TMA's zero fill (to a
-multiple of 16; K4 above 128 to a multiple of 32). A head dim that is not a
-multiple of 8 cannot meet TMA's 16-byte strides, so the wrappers append zero
-columns to q, k, v (and dO) up to the next multiple of 8, pass the scale of
-the original head dim, and cut out, dq, dk and dv back to it: exact, since
-zero columns add nothing to QKᵀ and their own columns are cut
-(:func:`_pad_head_dim`).
+multiple of 16; above 128 K4, and K3 in fp32, to a multiple of 32). A head
+dim that is not a multiple of 8 cannot meet TMA's 16-byte strides, so the
+wrappers append zero columns to q, k, v (and dO) up to the next multiple of
+8, pass the scale of the original head dim, and cut out, dq, dk and dv back
+to it: exact, since zero columns add nothing to QKᵀ and their own columns
+are cut (:func:`_pad_head_dim`).
 
 Dtypes: every kernel has a bf16 form (tensor cores, ``csrc/*.cu``) and an
 fp32 form (``csrc/fp32/*.cu``; out, lse and the gradients fp32, as the
@@ -76,13 +76,15 @@ tf32(x) + tf32(x - tf32(x)), three wgmma passes per product,
 a product reduces over the sequence, into a workspace the wrapper
 allocates (:func:`f32_forward_work`, :func:`f32_backward_work`). Nothing
 is rounded below fp32's precision but the split's own ~2^-22 of each
-product. Above the head dims where those kernels' resident split tiles fit
-in shared memory (``_FP32_TC_*`` below: 160 forward, 128 backward), K1, K3
-and K4 in fp32 run kernels of plain fp32 FMAs on the CUDA cores instead
-(``csrc/fp32/flash_f32_fma.cu``, route "fp32_fma"), exact to fp32. The fp32
-forms are a shared library of their own, built when an fp32 launch first
-asks for it. K1, K3 and K4 take every head dim from 1 to 256 in fp32 too
-(K1 also 512), without a mask or causal, and K1 at 64 (T5) a bias alone;
+product. K3 and K4 above 128 split the columns over a cluster of two
+blocks (``csrc/fp32/flash_f32_bwd.cuh``), whose shared memory together
+holds the resident split tiles that one block's no longer does. Above 160,
+where the forward's resident split tiles no longer fit (``_FP32_TC_MAX_FWD``
+below), K1 in fp32 runs a kernel of plain fp32 FMAs on the CUDA cores
+instead (``csrc/fp32/flash_f32_fma.cu``, route "fp32_fma"), exact to fp32.
+The fp32 forms are a shared library of their own, built when an fp32 launch
+first asks for it. K1, K3 and K4 take every head dim from 1 to 256 in fp32
+too (K1 also 512), without a mask or causal, and K1 at 64 (T5) a bias alone;
 with segment ids or another bias form an fp32 CUDA tensor raises
 ``NotImplementedError``, as K5 / K6 / K7 do at head dims other than 64.
 Each wrapper counts its launches by dtype in ``.dtypes`` beside
@@ -108,10 +110,11 @@ _MAX_HEAD_DIM, _D512 = 256, 512
 _POS_HEAD_DIMS = (64, 128)
 # the fp32 forms on the tensor cores (TF32 split): K1 at every head dim up
 # to 160 (8: the ``checks sd1`` UNet, SD1UNet(model_channels=64) with 8
-# heads, runs its 32^2 level in fp32) and at 512, K3 / K4 up to 128; above
-# those, up to 256, fp32 takes the CUDA-core kernels. Causal at each but 512,
-# a bias alone at 64 (T5, forward only); K5 / K6 / K7 at 64
-_FP32_TC_MAX_FWD, _FP32_TC_MAX_BWD = 160, 128
+# heads, runs its 32^2 level in fp32) and at 512, K3 / K4 at every head dim
+# up to 256; above 160, up to 256, the fp32 K1 takes the CUDA-core kernel.
+# Causal at each but 512, a bias alone at 64 (T5, forward only); K5 / K6 /
+# K7 at 64
+_FP32_TC_MAX_FWD = 160
 _FP32_BIAS_HEAD_DIMS = (64,)
 _FP32_POS_HEAD_DIMS = (64,)
 NEG_INF = -1e30   # lse of a row with no visible key
@@ -549,14 +552,13 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
 def _bwd_route(fn, dtype, d: int, causal: bool, bias: bool,
                segments: bool) -> str:
     """The route of K3 or K4: "sm90" for bf16 at every head dim from 1 to
-    256 in every form, "fp32" for fp32 up to 128 without a mask or causal,
-    "fp32_fma" for fp32 at 129 to 256 in the same forms; raises for anything
-    else."""
+    256 in every form, "fp32" for fp32 at the same head dims without a mask
+    or causal; raises for anything else."""
     _check_dtype(dtype)
     _check_head_dim(fn, d)
     if dtype == torch.float32:
         _check_fp32_form(fn, d, causal, bias, segments)
-        return "fp32" if d <= _FP32_TC_MAX_BWD else "fp32_fma"
+        return "fp32"
     return "sm90"
 
 
@@ -564,11 +566,10 @@ def k3_route(dtype, d: int, causal: bool = False, bias: bool = False,
              segments: bool = False) -> str:
     """Which K3 kernel a CUDA launch of this dtype, head dim and form runs:
     "sm90" (``csrc/flash_attention_dq_sm90.cuh``, TMA and wgmma: bf16 at
-    every head dim from 1 to 256 in every form), "fp32"
-    (``csrc/fp32/flash_f32_bwd.cu``: up to 128 without a mask or causal) or
-    "fp32_fma" (``csrc/fp32/flash_f32_fma.cu``: fp32 at 129 to 256 in the
-    same forms). Raises ``NotImplementedError`` naming what the kernels take
-    for any other."""
+    every head dim from 1 to 256 in every form) or "fp32"
+    (``csrc/fp32/flash_f32_bwd.cu`` up to 128, ``flash_f32_bwd.cuh``'s
+    two-block kernels from 129 to 256; without a mask or causal). Raises
+    ``NotImplementedError`` naming what the kernels take for any other."""
     return _bwd_route("flash_attention_bwd_dq_cuda", dtype, d, causal, bias,
                       segments)
 
@@ -577,11 +578,10 @@ def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
              segments: bool = False) -> str:
     """Which K4 kernel a CUDA launch of this dtype, head dim and form runs:
     "sm90" (``csrc/flash_attention_bwd_sm90.cuh``, TMA and wgmma: bf16 at
-    every head dim from 1 to 256 in every form), "fp32"
-    (``csrc/fp32/flash_f32_bwd.cu``: up to 128 without a mask or causal) or
-    "fp32_fma" (``csrc/fp32/flash_f32_fma.cu``: fp32 at 129 to 256 in the
-    same forms). Raises ``NotImplementedError`` naming what the kernels take
-    for any other."""
+    every head dim from 1 to 256 in every form) or "fp32"
+    (``csrc/fp32/flash_f32_bwd.cu`` up to 128, ``flash_f32_bwd.cuh``'s
+    two-block kernels from 129 to 256; without a mask or causal). Raises
+    ``NotImplementedError`` naming what the kernels take for any other."""
     return _bwd_route("flash_attention_bwd_dkv_cuda", dtype, d, causal, bias,
                       segments)
 
@@ -839,18 +839,19 @@ def _check_bwd(q, k, v, g, lse, delta):
     return dims
 
 
-def _bwd_launch(entry, q, k, v, g, lse, delta, outs, scale, causal,
-                work=None):
+def _bwd_launch(entry, q, k, v, g, lse, delta, outs, scale, causal):
     """One launch of a backward C entry ``entry`` of the fp32 library:
-    q, k, v, dO, lse, delta, the outputs, the workspace (the TF32 kernels),
-    the sizes, strides, scale and causal flag."""
+    q, k, v, dO, lse, delta, the outputs, the workspace, the sizes,
+    strides, scale and causal flag."""
     b, h, lq, d = q.shape
+    lk = k.shape[2]
     strides = _strides(q, k, v, g, *outs)
+    work = _f32_bwd_work(q, lk)
     err = getattr(_build.load("kernels_fp32"), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
-        *([] if work is None else [work.data_ptr()]), b, h, lq, k.shape[2],
-        d, ctypes.cast(strides, ctypes.c_void_p), scale, int(bool(causal)),
+        work.data_ptr(), b, h, lq, lk, d,
+        ctypes.cast(strides, ctypes.c_void_p), scale, int(bool(causal)),
         _stream(q))
     _build.check(err, entry)
 
@@ -880,10 +881,8 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
                            segment_ids, causal, need_dbias, dq=True)
     else:
         dq = _blhd(qp, lq)
-        fma = route == "fp32_fma"
-        _bwd_launch("fdsd_flash_bwd_dq_f32" + ("_fma" if fma else ""), qp,
-                    kp, vp, gp, lse, delta, [dq], scale, causal,
-                    None if fma else _f32_bwd_work(qp, lk))
+        _bwd_launch("fdsd_flash_bwd_dq_f32", qp, kp, vp, gp, lse, delta,
+                    [dq], scale, causal)
     _count_launch(flash_attention_bwd_dq_cuda, q, bias, segment_ids, causal,
                   route)
     if dq.shape[-1] != d:
@@ -936,10 +935,8 @@ def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
                            segment_ids, causal, dq=False)
     else:
         dk, dv = _blhd(kp, lk), _blhd(vp, lk)
-        fma = route == "fp32_fma"
-        _bwd_launch("fdsd_flash_bwd_dkv_f32" + ("_fma" if fma else ""), qp,
-                    kp, vp, gp, lse, delta, [dk, dv], scale, causal,
-                    None if fma else _f32_bwd_work(qp, lk))
+        _bwd_launch("fdsd_flash_bwd_dkv_f32", qp, kp, vp, gp, lse, delta,
+                    [dk, dv], scale, causal)
     _count_launch(flash_attention_bwd_dkv_cuda, q, bias, segment_ids, causal,
                   route)
     if dk.shape[-1] != d:

@@ -6,7 +6,7 @@ Python before anything reaches the card (``k3_route``, ``k4_route``): the
 TMA / wgmma kernels of ``csrc/flash_attention_dq_sm90.cuh`` and
 ``csrc/flash_attention_bwd_sm90.cuh`` for bf16 at every head dim from 1 to
 256 in every form, the fp32 library for fp32 without a mask or causal (its
-TF32 kernels up to 128, its CUDA-core kernels above); every
+TF32 kernels: one block up to 128, a cluster of two blocks above); every
 other (dtype, head dim, form) raises before a launch. The segment-id ranges
 the wrapper builds must be at each kernel's tiles, and the workspace the
 wrapper allocates for the fp32 forward must match the source's layout. At head dim 512 the host
@@ -42,7 +42,7 @@ def _want_bwd(dtype, d, form):
     if dtype == F32:
         if bias or seg:
             return NotImplementedError
-        return "fp32" if d <= 128 else "fp32_fma"
+        return "fp32"
     return "sm90"
 
 
@@ -186,13 +186,72 @@ def test_fp32_forward_tiles_fit_in_shared_memory(dp, bias):
         assert _f32_fwd_smem(dp, bias) == 230488
 
 
-@pytest.mark.parametrize("d", [64, 128])
+def _f32_wide_smem(dp):
+    """Bytes of one block of the fp32 dq and dk/dv pair above 128 (tiles of
+    both terms, the slot for the other block's partials, the push buffer
+    where ring A has one stage, the barriers and the 1 KB alignment), by the
+    rules of csrc/fp32/flash_f32_bwd.cuh: each block owns DH = DP / 2
+    columns; dq keeps its half of Q and dO and rings its half of K, V (tiles
+    of 32 keys up to DP 192, 16 above) and of K^T; dk/dv keeps its half of K
+    and V and rings its half of Q, dO (tiles of 32 queries up to DP 160, 16
+    above) and of Q^T, dO^T; ring A takes two stages where they fit (the
+    partials pushed from the stage just read), else one and a push buffer;
+    ring B two where they fit. Returns {"dq": (bytes, stages A, stages B),
+    "dkv": ...}."""
+    dh = dp // 2
+    out = {}
+    for kind, rows, width in (("dq", 64, 32 if dp <= 192 else 16),
+                              ("dkv", 64, 32 if dp <= 160 else 16)):
+        fixed = 4 * rows * dh * 4
+        a = 4 * width * dh * 4
+        b = (2 if kind == "dq" else 4) * dh * width * 4
+        x = 128 * width * 4
+        sa = 2 if fixed + 2 * a + b + x + 8 * 12 + 1024 <= SMEM_LIMIT else 1
+        push = 0 if sa == 2 else x
+        sb = (2 if fixed + sa * a + 2 * b + x + push + 8 * 14 + 1024
+              <= SMEM_LIMIT else 1)
+        bars = 1 + 2 * sa + 2 * sb + 5
+        out[kind] = (fixed + sa * a + sb * b + x + push + 8 * bars + 1024,
+                     sa, sb)
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 128, 160, 192, 224, 256])
 def test_fp32_backward_tiles_fill_shared_memory(d):
     """The tiles of the TF32 backward at each head dim, from the rules in
     csrc/fp32/flash_f32_bwd.cu: dq keeps both terms of Q and dO and rings K,
     V and K^T tiles of 32 keys; dk/dv keeps K and V and rings Q, dO (two
     stages) and Q^T, dO^T (one) tiles of 32 or 16 queries. Both come to the
-    229,376 B of tiles the header states."""
+    229,376 B of tiles the header states. Above 128 (flash_f32_bwd.cuh) a
+    cluster of two blocks shares the columns, and each block's tiles and
+    slot for the other's partials come to the bytes its header states, within
+    the limit."""
+    if d > 128:
+        text = " ".join(_source("fp32/flash_f32_bwd.cuh").split())
+        for rule in ("kDH = DP / 2", "kBQ = 64, kBK = DP <= 192 ? 32 : 16",
+                     "kBQ = DP <= 160 ? 32 : 16",
+                     "kXBytes = 128 * kBK * 4", "kXBytes = 128 * kBQ * 4",
+                     "kAOff + 2 * kAStage + kBStage + kXBytes + 8 * 12 + "
+                     "1024 <= kSmemLimit",
+                     "kAOff + kStagesA * kAStage + 2 * kBStage + kXBytes + "
+                     "kOutBytes + 8 * 14 + 1024 <= kSmemLimit",
+                     "kFold = kStagesA == 2", "kOutBytes = kFold ? 0 : "
+                     "kXBytes", "kExchangeBars = 5", "kSmemLimit = 232448",
+                     "__cluster_dims__(2, 1, 1)"):
+            assert rule in text, rule
+        # the bytes a block, ring A's and B's stages, as the header states
+        stated = {160: ((221184, 2, 2), (221184, 2, 1)),
+                  192: ((229376, 1, 2), (204800, 2, 2)),
+                  224: ((208896, 2, 2), (208896, 2, 1)),
+                  256: ((221184, 2, 1), (212992, 1, 1))}
+        got = _f32_wide_smem(d)
+        for kind, (tiles, sa, sb) in zip(("dq", "dkv"), stated[d]):
+            nbytes, got_sa, got_sb = got[kind]
+            assert (got_sa, got_sb) == (sa, sb), kind
+            assert nbytes <= SMEM_LIMIT, kind
+            assert tiles < nbytes - 1024 <= tiles + 8 * 14, kind
+            assert f"{tiles:,}" in text, tiles
+        return
     text = _source("fp32/flash_f32_bwd.cu")
     for rule in ("kCons = DP <= 64 ? 2 : 1", "kBQ = 64 * kCons, kBK = 32",
                  "kStages = DP <= 64 ? 2 : 1", "kBQ = DP <= 64 ? 32 : 16",
@@ -256,8 +315,8 @@ def test_d512_tiles_are_the_kernels_tiles():
     ("fdsd_flash_bwd_pos_dq_f32", "fp32/flash_f32_bwd.cu"),
     ("fdsd_flash_bwd_pos_dkv_f32", "fp32/flash_f32_bwd.cu"),
     ("fdsd_flash_fwd_f32_fma", "fp32/flash_f32_fma.cu"),
-    ("fdsd_flash_bwd_dq_f32_fma", "fp32/flash_f32_fma.cu"),
-    ("fdsd_flash_bwd_dkv_f32_fma", "fp32/flash_f32_fma.cu")])
+    ("fdsd_group_norm", "groupnorm.cu"),
+    ("fdsd_group_norm_blocks_per_sm", "groupnorm.cu")])
 def test_each_entry_is_defined_in_its_kernels_source(entry, source):
     defined = {str(src.relative_to(_build.CSRC))
                for src in _build.CSRC.rglob("*.cu")

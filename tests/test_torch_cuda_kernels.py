@@ -69,7 +69,10 @@ form it serves against plain attention in fp64: each gradient within 1e-5
 of its largest magnitude, and the plain version fed once-truncated TF32
 operands (one pass) outside 1e-4; ragged lengths, causal, the position
 masks at SD3's joint shapes and 4096 keys, where one long accumulator
-chain would drift.
+chain would drift. Above head dim 128 (``csrc/fp32/flash_f32_bwd.cuh``, a
+cluster of two blocks splitting the columns) at d 136, 160, 192, 232 and
+256, without a mask and causal, at lengths around its tiles: one short tile
+each way and ragged Lq != Lk both ways.
 The int8 product of the W8A8 serving path (``ops/quantize.py``, a
 ``torch._int_mm`` library call): its int32 accumulators equal the exact
 product (fp64 of the same int8 operands) at the MMDiT's, T5's and the SD1
@@ -2013,6 +2016,46 @@ def test_tf32_backward_against_fp64(gen, b, h, lq, lk, d, causal):
     o64, l64 = tfa.flash_attention_plain(*d64, causal=causal)
     ref64 = tfa.flash_attention_bwd_plain(*d64, o64, l64, g.double(),
                                           causal=causal)
+    bad = tfa.flash_attention_bwd_plain(*_tf32(q, k, v), out, lse,
+                                        *_tf32(g), causal=causal)
+    _tf32_bwd_close(got, plain, ref64, bad)
+
+
+@pytest.mark.parametrize("lq,lk", [(17, 40), (529, 300), (300, 529),
+                                   (64, 257)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [136, 160, 192, 232, 256])
+def test_tf32_backward_wide_head_dims_lengths_around_its_tiles(gen, d, causal,
+                                                               lq, lk):
+    """K3 / K4 in fp32 above head dim 128, the two-block kernels at widths
+    160 (136, 160), 192, 256 (232, 256): a short tile each way (17 queries
+    against 40 keys), Lq and Lk ragged against the 64-query and 32- or
+    16-key tiles of dq and the 64-key and 32- or 16-query tiles of dk/dv,
+    Lq != Lk both ways under causal. Each gradient within 1e-4 of plain fp32
+    and 1e-5 of fp64 of its largest magnitude; the one-pass plain version
+    outside 1e-4 where the sums are long enough to show it (not at 17 x
+    40). One launch each on route "fp32", counted at head dim d."""
+    f32 = dict(dtype=torch.float32)
+    q, g = (_randn(gen, 1, 2, lq, d, **f32) for _ in range(2))
+    k, v = (_randn(gen, 1, 2, lk, d, **f32) for _ in range(2))
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal)
+    fns = (tfa.flash_attention_bwd_dq_cuda, tfa.flash_attention_bwd_dkv_cuda)
+    before = [(fn.routes["fp32"], fn.head_dims[d]) for fn in fns]
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    assert [(fn.routes["fp32"], fn.head_dims[d]) for fn in fns] == [
+        (r + 1, n + 1) for r, n in before]
+    plain = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    d64 = [x.double() for x in (q, k, v)]
+    o64, l64 = tfa.flash_attention_plain(*d64, causal=causal)
+    ref64 = tfa.flash_attention_bwd_plain(*d64, o64, l64, g.double(),
+                                          causal=causal)
+    if lq < 64:
+        for what, a, w, w64 in zip(("dq", "dk", "dv"), got, plain, ref64):
+            _f32_close(a, w, what)
+            top = w64.abs().max().item()
+            assert (a.double() - w64).abs().max().item() <= F64_ATOL * top
+        return
     bad = tfa.flash_attention_bwd_plain(*_tf32(q, k, v), out, lse,
                                         *_tf32(g), causal=causal)
     _tf32_bwd_close(got, plain, ref64, bad)

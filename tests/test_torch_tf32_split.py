@@ -24,7 +24,12 @@ is held against the Pallas backward (``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel`` in interpret mode through the JAX custom VJP, which
 takes them whenever ``interpret=True``) within 1e-5 of each gradient's
 largest magnitude, and the same products in one TF32 pass fall outside
-1e-4, at head dims 64 (TinyVLM, MMDiT) and 128 (tiny-SD).
+1e-4, at head dims 64 (TinyVLM, MMDiT) and 128 (tiny-SD). Above 128
+(``csrc/fp32/flash_f32_bwd.cuh``) a pair of blocks splits the columns: S
+and dP are the sum of the two halves' partial products, each its own chain,
+and dq (dk, dv) sums a fresh product per key (query) tile; the emulation
+takes that order at head dims 160, 192 (tiny-SD at ``channel: 320`` and
+``96``) and 256.
 """
 
 import jax
@@ -125,7 +130,46 @@ def _backward(q, k, v, g, lse, delta, scale, matmul):
             matmul(p.transpose(-1, -2), g))
 
 
-@pytest.mark.parametrize("d,lq,lk", [(64, 256, 300), (128, 200, 260)])
+def _backward_wide(q, k, v, g, lse, delta, scale, matmul):
+    """(dq, dk, dv) in the order of the two-block kernels above head dim
+    128: the columns padded to DP (d rounded up to 32) and split into two
+    halves of DH = DP / 2, S and dP the sum of the halves' partials; dq a
+    sum over key tiles of 32 (16 above DP = 192), dk and dv over query
+    tiles of 32 (16 above DP = 160), each tile's product fresh and each
+    half of the columns (dk and dv: each quarter) its own."""
+    d = q.shape[-1]
+    dp = -(-d // 32) * 32
+    q, k, v, g = (torch.nn.functional.pad(x, (0, dp - d))
+                  for x in (q, k, v, g))
+    halves = (slice(0, dp // 2), slice(dp // 2, dp))
+    part = lambda a, b: [matmul(a[..., c], b[..., c].transpose(-1, -2))
+                         for c in halves]
+    s0, s1 = part(q, k)
+    p = torch.exp((s0 + s1) * scale - lse[..., None])
+    d0, d1 = part(g, v)
+    ds = p * ((d0 + d1) - delta[..., None])
+
+    def tiled(a, b, tile, chunks):
+        """a @ b as a sum over tiles of the reduced axis, each tile's
+        product of each column chunk of b on its own."""
+        out = torch.zeros(*a.shape[:-1], b.shape[-1])
+        width = b.shape[-1] // chunks
+        for t0 in range(0, a.shape[-1], tile):
+            for c0 in range(0, b.shape[-1], width):
+                out[..., c0:c0 + width] += matmul(
+                    a[..., t0:t0 + tile], b[..., t0:t0 + tile, c0:c0 + width])
+        return out
+
+    bk, bq = (32 if dp <= 192 else 16), (32 if dp <= 160 else 16)
+    dq = tiled(ds, k, bk, 2) * scale
+    dk = tiled(ds.transpose(-1, -2), q, bq, 4) * scale
+    dv = tiled(p.transpose(-1, -2), g, bq, 4)
+    return dq[..., :d], dk[..., :d], dv[..., :d]
+
+
+@pytest.mark.parametrize("d,lq,lk", [(64, 256, 300), (128, 200, 260),
+                                     (160, 200, 260), (192, 200, 260),
+                                     (256, 200, 260)])
 def test_three_term_tf32_split_backward_matches_pallas_fp32(d, lq, lk):
     rng = np.random.default_rng(100 + d)
     q, k, v, g = (rng.standard_normal((1, 2, n, d)).astype(np.float32) * s
@@ -140,8 +184,9 @@ def test_three_term_tf32_split_backward_matches_pallas_fp32(d, lq, lk):
     tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
     tlse = torch.from_numpy(np.array(lse))
     delta = (tg * torch.from_numpy(np.array(out))).sum(-1)
-    got = _backward(tq, tk, tv, tg, tlse, delta, scale, _split_matmul)
-    bad = _backward(tq, tk, tv, tg, tlse, delta, scale, _one_pass)
+    backward = _backward if d <= 128 else _backward_wide
+    got = backward(tq, tk, tv, tg, tlse, delta, scale, _split_matmul)
+    bad = backward(tq, tk, tv, tg, tlse, delta, scale, _one_pass)
     for name, a, b_, w in zip(("dq", "dk", "dv"), got, bad, want):
         top = np.abs(w).max()
         assert np.abs(a.numpy() - w).max() <= SPLIT_ATOL * top, name
