@@ -497,23 +497,20 @@ BF16_FAMILY = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv",
 # The fp32 forward (TF32 split): 13 widths without a mask (8 for the checks
 # sd1 UNet, 40, 48, 64, 72, 80, 128, 160 at DP = d, and 16, 32, 96, 112, 144
 # for the head dims padded to 16) and masked online at each (K1 causal; K5
-# at 64), bounded (K5), T5's bias form; the d = 512 kernel. The fp32
-# backward (TF32 split): dq and dk/dv at the 8 widths 16 - 128 without a
-# mask and masked (K3 / K4 causal, K6 / K7 at 64), and the two-block (one
-# cluster) dq and dk/dv at the 4 widths 160 - 256 without a mask and causal.
-# The CUDA-core fp32 K1 above 160: widths 192, 224, 256, causal a runtime
-# flag.
+# at 64), bounded (K5), T5's bias form; the streaming kernel at the widths
+# 192, 224, 256 without a mask and causal, and at 512. The fp32 backward
+# (TF32 split): dq and dk/dv at the 8 widths 16 - 128 without a mask and
+# masked (K3 / K4 causal, K6 / K7 at 64), and the two-block (one cluster) dq
+# and dk/dv at the 4 widths 160 - 256 without a mask and causal.
 FP32_KERNELS = {
     "K1/K5 fp32": ("flash_fwd_f32_kernel", 13 + 13 + 1 + 1),
+    "K1 fp32 wide": ("flash_fwd_f32_wide_kernel", 3 * 2),
     "K1 fp32 d512": ("flash_fwd_f32_d512_kernel", 1),
     "K3/K6 fp32": ("flash_bwd_dq_f32_kernel", 16),
     "K4/K7 fp32": ("flash_bwd_dkv_f32_kernel", 16),
     "K3 fp32 wide": ("flash_bwd_dq_f32_wide_kernel", 8),
     "K4 fp32 wide": ("flash_bwd_dkv_f32_wide_kernel", 8),
-    "K1 fp32 fma": ("flash_fwd_f32_fma_kernel", 3),
 }
-# kinds that run on the CUDA cores by design: no wgmma, no TMA in their SASS
-CUDA_CORE_KINDS = {"K1 fp32 fma"}
 FP32_FAMILY = ("flash_fwd", "flash_bwd")
 
 
@@ -531,8 +528,7 @@ def sass_check(sass, table, family):
     """Counts, in each kernel of a library's SASS listing (:func:`sass_of`)
     whose name holds one of ``family``, the wgmma (HGMMA) and TMA (UTMALDG,
     UBLKCP) instructions, and checks that every instantiation ``table``
-    names has both (none of either in the CUDA_CORE_KINDS) and that no
-    kernel of ``family`` is outside it."""
+    names has both and that no kernel of ``family`` is outside it."""
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -550,7 +546,8 @@ def sass_check(sass, table, family):
              "causal/bias/segments", "K4 sm90": "causal/bias/segments",
              "K5 sm90": "bounded", "K1/K5 fp32": "masked/bounded/bias",
              "K3/K6 fp32": "masked", "K4/K7 fp32": "masked",
-             "K3 fp32 wide": "masked", "K4 fp32 wide": "masked"}
+             "K3 fp32 wide": "masked", "K4 fp32 wide": "masked",
+             "K1 fp32 wide": "causal"}
     for kind, fns in found.items():
         for f, (hgmma, tma) in sorted(fns.items()):
             # template arguments: padded head dim, then the form's flags
@@ -561,13 +558,10 @@ def sass_check(sass, table, family):
                 f" {names[kind]}={flags}" if flags else "")
             print(f"  sass {kind} {what}: HGMMA {hgmma}, UTMALDG/UBLKCP {tma}",
                   flush=True)
-        tensor_cores = kind not in CUDA_CORE_KINDS
         check(len(fns) == table[kind][1] and all(
-            (h > 0 and t > 0) if tensor_cores else h == t == 0
-            for h, t in fns.values()),
+            h > 0 and t > 0 for h, t in fns.values()),
             f"the {kind} kernels: {len(fns)} of {table[kind][1]}, wgmma and "
-            f"TMA in their SASS {'lacking' if tensor_cores else 'found'}: "
-            f"{fns}")
+            f"TMA in their SASS lacking: {fns}")
     check(len(counts) == sum(n for _, n in table.values()),
           f"{'/'.join(family)} kernels off the TMA / wgmma routes: "
           f"{sorted(set(counts) - {f for fns in found.values() for f in fns})}")
@@ -682,8 +676,8 @@ def reset_counts():
 
 class Counts(dict):
     """Launches by kernel; ``k1_routes``: K1's launches by the kernel they
-    ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32",
-    "fp32_fma"); ``k3_routes`` - ``k7_routes`` (but K2's): K3's - K7's
+    ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32");
+    ``k3_routes`` - ``k7_routes`` (but K2's): K3's - K7's
     (``.routes`` of their wrappers: "sm90", "fp32");
     ``k1_head_dims``, ``k3_head_dims``, ``k4_head_dims``: K1's, K3's and
     K4's launches by head dim."""
@@ -939,15 +933,18 @@ def phase_kernels(card):
                      library_ms=cuda_ms(library, 10, 2))
         # one profile of 10 calls: the kernel's device time and how many
         # kernels a call launches
-        fams, rows = {}, []
+        # (a window whose K2 rows are not a whole number a call lost some of
+        # the profiler's records: it is profiled again, up to three)
+        fams, rows, n_k2 = {}, [], 0
         for _ in range(3):
             _, _, fams, _, rows = profile_device(lambda: [run()
                                                           for _ in range(10)])
-            if "K2 group norm" in fams:
+            n_k2 = sum(n for _, n, key in rows
+                       if _family(key) == "K2 group norm")
+            if "K2 group norm" in fams and n_k2 % 10 == 0:
                 break
         device_ms = fams.get("K2 group norm", 0.0) / 10 or None
-        per_call = sum(n for _, n, key in rows
-                       if _family(key) == "K2 group norm") / 10
+        per_call = n_k2 / 10
         again = run()
         plan = gn.group_norm_plan(shape[0], x.numel() // (shape[0] * c), c,
                                   32, x.element_size(),
@@ -3714,14 +3711,15 @@ FP32_CASES = [
     ((16, 12, 584, 584, 64), True, True),        # TinyVLM decoder
     ((32, 1, 4096, 4096, 128), False, True),     # tiny-SD UNet at 64^2
 ]
-# K3 and K4 in fp32 above head dim 128, the shapes tiny-SD's fp32 steps give
-# them (HEAD_DIM_TIMED's wide ones): compare_revisions.py --only fp32 times
-# them in the same form as FP32_CASES; phase_kernels_head_dims holds and
-# times them here.
+# K1 above head dim 160 and K3 and K4 above 128 in fp32, the shapes tiny-SD's
+# fp32 steps give them (HEAD_DIM_TIMED's wide ones), and K1's causal form at
+# 192: compare_revisions.py --only fp32 times them in the same form as
+# FP32_CASES; phase_kernels_head_dims holds and times them here.
 FP32_WIDE_CASES = [
     ((32, 1, 1024, 1024, 192), False, True),     # channel: 96, 32^2
     ((16, 2, 1024, 1024, 256), False, True),     # head dim 256
     ((32, 2, 4096, 4096, 160), False, True),     # channel: 320, 64^2
+    ((32, 1, 1024, 1024, 192), True, False),     # K1 causal, streaming
 ]
 # K1's fp32 forms beside them: d = 160 (K1_D160_SHAPE) and T5's bias
 FP32_T5_SHAPE = (2, 64, 512, 512, 64)
@@ -3749,10 +3747,9 @@ def fp32_bound(b, h, lq, lk, d, n_products, n_q_like, n_k_like, n_stats,
     products over the ``share`` of the Lq x Lk pairs the mask admits, each
     done in ``passes`` passes, (Lq, d) and (Lk, d) fp32 tensors and fp32 row
     statistics moved once. At the default ``peak`` and one pass it is the
-    bound of K1's fp32 forward above head dim 160, fp32 FMAs on the CUDA
-    cores (67 TFLOP/s); every other fp32 flash kernel, backward included,
-    runs on the tensor cores, three TF32 passes at 495 TFLOP/s
-    (:func:`tf32_bound`)."""
+    bound of the same work in fp32 FMAs on the CUDA cores (67 TFLOP/s), the
+    yardstick printed beside :func:`tf32_bound`; every fp32 flash kernel
+    runs on the tensor cores, three TF32 passes at 495 TFLOP/s."""
     flops = 2.0 * n_products * share * b * h * lq * lk * d
     nbytes = b * h * (4.0 * d * (n_q_like * lq + n_k_like * lk)
                       + 4.0 * n_stats * lq)
@@ -8365,15 +8362,18 @@ def phase_native(card):
 # Correctness: bf16 at these head dims (36 is not a multiple of 8: the
 # wrapper pads it) over (B, H, Lq, Lk) = HEAD_DIM_CASE, more than one tile on
 # each side and a ragged one, without a mask and causal, and in every mask
-# form at HEAD_DIM_ALL_FORMS; fp32 without a mask and causal at
-# HEAD_DIM_FP32 (above 128 the two-block TF32 backward at each of its
-# widths: 136, 144, 160 -> 160; 192; 200 -> 224; 232, 256 -> 256).
+# form at HEAD_DIM_ALL_FORMS (K4 above 128: one block a 64-key tile, at 160
+# and 256); fp32 without a mask and causal at HEAD_DIM_FP32 (above 128 the
+# two-block TF32 backward at each of its widths: 136, 144, 160 -> 160; 192;
+# 200 -> 224; 232, 256 -> 256; above 160 the streaming TF32 forward at 192,
+# 224 and 256).
 HEAD_DIM_BF16 = (8, 16, 32, 36, 96, 144, 160, 192, 224, 256)
-HEAD_DIM_ALL_FORMS = (96, 256)
+HEAD_DIM_ALL_FORMS = (96, 160, 256)
 HEAD_DIM_FP32 = (24, 36, 96, 112, 136, 144, 160, 192, 200, 232, 256)
-# fp32 K3 / K4 against fp64 at HEAD_DIM_CASE: the two-block kernels' head
-# dims beside the one-block kernels' widest, in one call; the wide ones'
-# error may be at most FP64_WIDE_RATIO times the d = 128 one's
+# fp32 K1, K3 and K4 against fp64 at HEAD_DIM_CASE: the wide kernels' head
+# dims (K1's streaming kernel at 256, the two-block K3 / K4 at 160 and 256)
+# beside the one-block kernels' widest, in one call; the wide ones' error
+# may be at most FP64_WIDE_RATIO times the d = 128 one's
 HEAD_DIM_FP64 = (128, 160, 256)
 FP64_WIDE_RATIO = 2.0
 HEAD_DIM_CASE = (2, 2, 600, 520)
@@ -8488,9 +8488,10 @@ def phase_kernels_head_dims(card, tail):
     print(f"head dims: {n_cases} cases held against the plain versions; "
           f"largest errors {errs}", flush=True)
 
-    # fp32 K3 / K4 against fp64: dq, dk and dv relative to their largest
-    # magnitude, the wide head dims beside d = 128 on the same seed
-    fp64_err = {}
+    # fp32 K1, K3 / K4 against fp64: out and lse absolute, dq, dk and dv
+    # relative to their largest magnitude, the wide head dims beside d = 128
+    # on the same seed
+    fp64_err, fp64_fwd_err = {}, {}
     for d in HEAD_DIM_FP64:
         g64 = torch.Generator(device="cuda").manual_seed(2300)
         q, k, v, g = (torch.randn((*HEAD_DIM_CASE[:2], n, d), generator=g64,
@@ -8501,6 +8502,8 @@ def phase_kernels_head_dims(card, tail):
         got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
         d64 = [x.double() for x in (q, k, v)]
         o64, l64 = fa.flash_attention_plain(*d64)
+        fp64_fwd_err[d] = dict(out=(out.double() - o64).abs().max().item(),
+                               lse=(lse.double() - l64).abs().max().item())
         ref = fa.flash_attention_bwd_plain(*d64, o64, l64, g.double())
         fp64_err[d] = {name: ((a.double() - w).abs().max()
                               / w.abs().max()).item()
@@ -8520,9 +8523,24 @@ def phase_kernels_head_dims(card, tail):
               for d in HEAD_DIM_FP64 if d > 128),
           f"fp32 K3 / K4 above 128 further from fp64 than {FP64_WIDE_RATIO}"
           f" x d = 128: {fp64_err}")
+    base_fwd = max(fp64_fwd_err[128].values())
+    print("head dims: fp32 K1 against fp64 at " + str(HEAD_DIM_CASE)
+          + ": " + "; ".join(
+              f"d={d} ({fa.k1_route(fp32, d)}, "
+              f"{'streaming' if d > 160 else 'resident Q'}): out "
+              f"{e['out']:.3e}, lse {e['lse']:.3e}"
+              for d, e in fp64_fwd_err.items())
+          + "; the wide widths' largest over d = 128's: " + ", ".join(
+              f"d={d} {max(fp64_fwd_err[d].values()) / base_fwd:.2f}"
+              for d in HEAD_DIM_FP64 if d > 128), flush=True)
+    check(all(max(fp64_fwd_err[d].values()) <= FP64_WIDE_RATIO * base_fwd
+              for d in HEAD_DIM_FP64 if d > 128),
+          f"fp32 K1 above 128 further from fp64 than {FP64_WIDE_RATIO} x "
+          f"d = 128: {fp64_fwd_err}")
 
     sdpa = F.scaled_dot_product_attention
-    records = dict(K1=[], K3=[], K4=[], fp64=fp64_err, K1_any=[])
+    records = dict(K1=[], K3=[], K4=[], fp64=fp64_err, fp64_fwd=fp64_fwd_err,
+                   K1_any=[])
     # K1's ANY instantiation (every mask path compiled in) timed in the form
     # with all three masks at HEAD_DIM_CASE, beside the plain version and
     # one scaled_dot_product_attention call given the same masks as one
@@ -8589,25 +8607,33 @@ def phase_kernels_head_dims(card, tail):
                 if dtype == bf16:
                     bnd = dict(zip(("bound_ms", "bound_by"),
                                    attn_bound(*shape)))
-                elif route == "fp32":     # the TF32 kernels
+                else:                     # the TF32 kernels
                     bnd = tf32_bound(b, h, lq, lk, d, 1.0, *work[kernel])
-                else:                     # K1's fp32 FMAs on the CUDA cores
-                    bnd = dict(fp32_bound(*shape),
-                               bound_basis="fp32 FMAs at 67 TFLOP/s")
                 fwd = kernel == "K1"
                 times = dict(ms=cuda_ms(run, n, w),
                              plain_ms=plain_fwd if fwd else plain_bwd,
                              library_ms=lib_fwd if fwd else lib_bwd,
                              bound_ms=bnd["bound_ms"],
                              bound_by=bnd["bound_by"])
+                # the kernel's own device time (profiler), beside the wall:
+                # bf16 K1 and K4; fp32 K1 with its split pre-pass apart
+                device = {}
+                if dtype == bf16 and kernel in ("K1", "K4"):
+                    device["device_ms"] = kernel_device_ms(
+                        run, "K1 flash fwd" if fwd else "K4 flash bwd dk/dv")
+                elif fwd:
+                    device = fp32_fwd_device_ms(run)
                 records[kernel].append(dict(
                     dtype=dt, shape=[b, h, lq, lk, d], route=route,
                     bound_basis=bnd.get("bound_basis",
-                                        "bf16 at 989 TFLOP/s"), **times))
+                                        "bf16 at 989 TFLOP/s"), **times,
+                    **device))
                 share = times["bound_ms"] / times["ms"]
                 records[kernel][-1]["bound_share"] = share
                 line.append(f"{kernel} ({route}): {tail(**times)}, "
-                            f"{100 * share:.1f} % of the bound")
+                            f"{100 * share:.1f} % of the bound" + "".join(
+                                f", {k.replace('_ms', '')} {fmt_ms(v)}"
+                                for k, v in device.items()))
             pair = sum(r[-1]["ms"] for r in (records["K3"], records["K4"]))
             print(f"head dims: timed {dt} (B,H,Lq,Lk,D)=({b},{h},{lq},{lk},"
                   f"{d}) (plain and library backward: dq, dk and dv "
@@ -8748,6 +8774,7 @@ def phase_tiny_sd_widths(card):
                                counts, per_step, warm + timed)
             counts.step_ms, counts.peak_gib, counts.batch = (step_ms, peak,
                                                              batch)
+            counts.busy_ms = busy
             runs[f"tiny_sd_w{channel}"] = counts
 
             # One step's loss and gradients, kernels against plain attention,
@@ -9094,8 +9121,14 @@ def main():
             launches_by_head_dim={d: dict(launches=sum(v.values()),
                                           launches_by_path=v)
                                   for d, v in sorted(per_dim.items())})
-        if k == "K1":   # fp32 above 160: the CUDA-core forward
-            rec["fp32_fma_source"] = pkg + "fp32/flash_f32_fma.cu"
+        if k == "K1":   # fp32 above 160: the streaming TF32 forward
+            rec["fp32_wide"] = dict(
+                source=pkg + "fp32/flash_f32_fwd_wide.cuh",
+                kernel="flash_fwd_f32_wide_kernel",
+                widths=[192, 224, 256],
+                fp64_err_by_head_dim=head_dim_timed["fp64_fwd"],
+                instantiated_in=[pkg + f"fp32/flash_f32_fwd_w{w}.cu"
+                                 for w in (192, 224, 256)])
             rec["any_form_timed"] = head_dim_timed["K1_any"]
         else:           # fp32 above 128: the two-block TF32 kernels
             rec["fp32_wide"] = dict(

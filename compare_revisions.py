@@ -16,7 +16,8 @@ Parts, all of them unless ``--only`` names some:
   - launch: K1's host path at small shapes (``chip_smoke.k1_launch_path``:
     the wrapper and its C entry alone, us per call, and the kernel's us);
   - kernels: K1 at ``chip_smoke.K1_SHAPES`` and ``K1_FORMS``, K3 and K4 at
-    the head-dim-128 shapes of ``K1_SHAPES`` and the TinyVLM's two forms of
+    the head-dim-128 shapes of ``K1_SHAPES``, the wide shapes of
+    ``chip_smoke.HEAD_DIM_TIMED`` and the TinyVLM's two forms of
     ``K1_FORMS``, K2 at ``chip_smoke.GN_CASES`` (and the wrapper's host
     time per call at the first), K5 (online and bounded), K6 and K7 at the
     four shapes of the SD3 joint attention (``chip_smoke.SD3_JOINT_SHAPES``;
@@ -26,6 +27,9 @@ Parts, all of them unless ``--only`` names some:
     (profiler kernel rows of its family over 10 calls);
   - training: ``chip_smoke.phase_training`` (the tiny-SD step) and
     ``phase_sampling`` (T = 250);
+  - widths: ``chip_smoke.phase_tiny_sd_widths`` (tiny-SD at ``channel: 96``
+    and ``320``): the bf16 step's ms (CUDA events), device-busy ms of one
+    profiled step and idle share, and the warm fp32 step's ms;
   - vlm: ``chip_smoke.phase_vlm_training`` (the TinyVLM step);
   - mmdit: ``chip_smoke.phase_mmdit_training`` (the MMDiT step at SD3's
     width, depth and 4096 + 154 tokens): ms/step (CUDA events), host ms,
@@ -41,8 +45,8 @@ Parts, all of them unless ``--only`` names some:
     K5's device ms and the idle share (1 - busy / the second's wall);
   - fp32: the fp32 forward (K1 and K5 on fp32 tensors) and backward (K3 and
     K4 where ``chip_smoke.FP32_CASES`` has one, K6 and K7) at the shapes of
-    ``chip_smoke.FP32_CASES``, ``chip_smoke.FP32_WIDE_CASES`` (K3 and K4
-    above head dim 128) and ``FP32_POS_SHAPES``, wall ms and device
+    ``chip_smoke.FP32_CASES``, ``chip_smoke.FP32_WIDE_CASES`` (K1 above
+    head dim 160, K3 and K4 above 128) and ``FP32_POS_SHAPES``, wall ms and device
     ms per call (its flash kernels and its split pre-pass, together and the
     pre-pass alone; ``chip_smoke.fp32_fwd_device_ms``), and one fp32 SD1
     request (``SD1Models`` at fp32, 512², 10 k-LMS steps, CFG 7.5): wall s
@@ -64,8 +68,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PARTS = ("launch", "kernels", "training", "vlm", "mmdit", "sd1", "t5",
-         "sd3", "fp32", "fp32train")
+PARTS = ("launch", "kernels", "training", "widths", "vlm", "mmdit", "sd1",
+         "t5", "sd3", "fp32", "fp32train")
 K1 = "K1 flash fwd"
 # K5's fp32 shapes of the SD3 joint attention (K1's: chip_smoke.FP32_CASES)
 FP32_POS_SHAPES = [(2, 24, 4096, 4096, 64), (2, 24, 4096, 154, 64)]
@@ -126,6 +130,8 @@ def _other_kernels(cs, out, rnd):
 
     bf16 = torch.bfloat16
     cases = [("none", s, {}) for s in cs.K1_SHAPES if s[-1] == 128]
+    # K3 and K4 above head dim 128
+    cases += [("none", s, {}) for s in cs.HEAD_DIM_TIMED if s[-1] > 128]
     cases += [f for f in cs.K1_FORMS if f[1] in ((16, 12, 576, 576, 64),
                                                   (16, 12, 584, 584, 64))]
     for name, (b, h, lq, lk, d), m in cases:
@@ -380,6 +386,18 @@ def measure(parts):
         cs.phase_sampling(card, trainer, state)
         out["tiny-SD sampling T=250 s"] = time.perf_counter() - t
         del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "widths" in parts:
+        runs, fp32_runs = cs.phase_tiny_sd_widths(card)
+        for channel, (fp32_counts, _) in fp32_runs.items():
+            c = runs[f"tiny_sd_w{channel}"]
+            key = f"tiny-SD channel {channel}"
+            out[key + " bf16 step ms"] = c.step_ms
+            out[key + " bf16 step device busy ms"] = c.busy_ms
+            out[key + " bf16 idle share"] = 1.0 - c.busy_ms / c.step_ms
+            out[key + " fp32 step ms"] = fp32_counts.step_ms
+        del runs, fp32_runs
         gc.collect()
         torch.cuda.empty_cache()
     if "vlm" in parts:

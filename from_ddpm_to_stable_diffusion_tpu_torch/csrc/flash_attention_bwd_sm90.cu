@@ -10,7 +10,7 @@ using namespace fdsd::k4;
 // (batch, head, row, col) of the bias (22 values); the head-dim stride is 1.
 // lse and delta are (B, H, Lq) contiguous fp32. bias (fp32, or bf16 when
 // bias_bf16) and the six segment arrays of mask.cuh (at (64, 128) tiles up
-// to DP = 128, (32, 128) above) are null when not asked for. Every head dim
+// to DP = 128, (64, 64) above) are null when not asked for. Every head dim
 // from 1 to 256, in every form, at the padded width DP of padded_width (the
 // columns past d read as zeros); others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -31,7 +31,6 @@ extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.Lq = Lq;
   p.Lk = Lk;
   p.d = d;
-  p.n_kt = (Lk + kBK - 1) / kBK;
   p.causal = causal != 0;
   for (int i = 0; i < 3; ++i) {
     p.dks[i] = strides[12 + i];
@@ -76,7 +75,6 @@ extern "C" int fdsd_flash_bwd_pos_dkv(
   p.Lq = Lq;
   p.Lk = Lk;
   p.d = d;
-  p.n_kt = (Lk + kBK - 1) / kBK;
   for (int i = 0; i < 3; ++i) {
     p.dks[i] = strides[12 + i];
     p.dvs[i] = strides[15 + i];

@@ -19,7 +19,8 @@
 // no key has lse = -1e30); dq = scale dS K, dk = scale dS^T Q, dv = P^T dO,
 // all fp32.
 //
-// The numerical plan is the fp32 forward's (flash_f32_fwd.cu): the
+// The numerical plan is the fp32 forwards' (flash_f32_fwd.cu, and
+// flash_f32_fwd_wide.cuh above 160): the
 // three-term TF32 split for all five products (Q K^T, dO V^T, dS K, P^T dO,
 // dS^T Q), each A_lo B_hi + A_hi B_lo + A_hi B_hi as TF32 wgmma m64nNk8 with
 // fp32 accumulators, small terms first; P and dS are split in registers from

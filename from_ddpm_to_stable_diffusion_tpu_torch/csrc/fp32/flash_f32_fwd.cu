@@ -1,8 +1,8 @@
 // Flash-attention forward on fp32 inputs for Hopper (sm_90a) on the tensor
 // cores: the fp32 form of K1 (no mask and causal at every head dim up to
-// 160, no mask at 512; T5's additive bias at 64) and of K5 (position masks
-// at 64, online and bounded). Head dims 161 to 256 take the kernels of
-// flash_f32_fma.cu.
+// 256, no mask at 512; T5's additive bias at 64) and of K5 (position masks
+// at 64, online and bounded). Head dims 161 to 256 and 512 run the streaming
+// kernel of flash_f32_fwd_wide.cuh (widths in flash_f32_fwd_w*.cu).
 //
 // Replaces, for fp32 q, k, v, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
@@ -32,8 +32,8 @@
 //
 // What bounds it on the H100: at 4096 keys ~1,000 flop per byte moved, so
 // operations: three TF32 passes at 495 TFLOP/s (165 TFLOP/s of fp32 work,
-// 2.5 x the 67 TFLOP/s of fp32 FMAs on the CUDA cores that the kernel it
-// replaces used), and at small head dims the exponentials.
+// 2.5 x the 67 TFLOP/s of fp32 FMAs on the CUDA cores), and at small head
+// dims the exponentials.
 //
 // Design.
 //  - The split pre-pass of split_f32.cuh (shared with the backward) writes,
@@ -88,16 +88,12 @@
 //    bias narrows the tail mask and never replaces it; a logit at -1e30 or
 //    -inf is selected to probability 0, so a row the bias hides whole gives
 //    out = 0 and lse = -1e30.
-//  - K1 at head dim 512 (flash_fwd_f32_d512_kernel): 512-wide fp32 tiles do
-//    not fit twice over, so nothing stays resident. One block of three
-//    warpgroups per (b*h, 64 queries, key split), as in the bf16 kernel of
-//    flash_attention.cu: two consumers split S = Q K^T by keys (32 each)
-//    and own 256 output columns each; S is built over eight 64-column
-//    chunks of d, each chunk's Q and K hi / lo terms streamed by TMA into a
-//    ring of three 64 KB slots; the row maxima are exchanged through shared
-//    memory, P hi / lo written to a shared tile, and P V runs as SS wgmmas
-//    over four slots of V^T hi / lo, 64 output columns per consumer each.
-//    Below 132 query tiles the keys are split over up to kMaxSplits blocks
+//  - K1 at head dims 161 to 256 (widths 192, 224, 256) and 512
+//    (flash_f32_fwd_wide.cuh; flash_fwd_f32_wide_kernel and, at 512,
+//    flash_fwd_f32_d512_kernel): 64-query blocks whose Q, K and v^T terms
+//    all stream through three 64 KB slots, nothing resident; two consumers
+//    split S by keys and own half of the output columns each. Below 132
+//    query tiles the keys at d = 512 are split over up to kMaxSplits blocks
 //    (k1_d512_splits in ops/flash_attention.py) and merge_f32_d512_kernel
 //    merges them by their lse.
 // Masks (K1 causal and K5) are the position masks of pos_tile.cuh, runtime
@@ -107,6 +103,7 @@
 
 #include "../pos_tile.cuh"
 #include "../sm90.cuh"
+#include "flash_f32_fwd_wide.cuh"
 #include "split_f32.cuh"
 
 namespace {
@@ -121,8 +118,6 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kPasses = 3;    // TF32 wgmma passes per product
 static_assert(kPasses == 3, "hi hi + hi lo + lo hi");
-constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kConsumers = 256;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
 // ------------------------------------------------------------- workspace
@@ -551,318 +546,17 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------------------- K1 at d = 512
 namespace d512 {
-constexpr int DP = 512, kBQ = 64, kBK = 64, kHalf = kBK / 2;
+constexpr int DP = 512;
 constexpr int kMaxSplits = 4;
-constexpr int kSlots = 3, kSlotBytes = 65536;
-// S slot (d columns 64c .. 64c + 63): Q hi, Q lo, K hi, K lo, each 64 rows x
-// two 128-byte swizzle chunks of 32 columns (16 KB). V slot j: for consumer
-// w at 32 KB * w, v^T hi then lo of rows 256w + 64j .. + 63 over the tile's
-// 64 keys (two chunks of 32 keys, 16 KB a term).
-constexpr int kChunk = 64 * 128;  // 64 rows of one 128-byte swizzle chunk
-constexpr int kPOff = kSlots * kSlotBytes;  // P hi, P lo: 64 x 64, 16 KB each
-constexpr int kStatOff = kPOff + 2 * 2 * kChunk;  // row max, row sum: 2 x 2
-constexpr int kBarOff = kStatOff + 4 * kBQ * 4;
-constexpr int kBars = 2 * kSlots;  // full, empty per slot
-constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
-static_assert(kSmemBytes <= 232448, "shared memory");
+using fdsd::f32fwd::WideParams;
 
-struct Params {
-  float* out;
-  float* lse;
-  float* work;  // splits > 1: O / l (splits, rows, 512), then lse (splits, rows)
-  int B, H, Lq, Lk, n_qt, splits, kt_per_split;
-  long long rows;   // B * H * Lq
-  long long os[3];  // out's (batch, head, seq) element strides
-  float scale;
-};
-
-__global__ void __launch_bounds__(kThreads, 1)
+// The streaming kernel of flash_f32_fwd_wide.cuh at 512, under its own name.
+__global__ void __launch_bounds__(fdsd::f32fwd::kWideThreads, 1)
 flash_fwd_f32_d512_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ Params p) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t raw = s9::smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1 KB
-  unsigned char* smem = smem_raw + (base - raw);
-  // [max of consumer 0 | max of consumer 1 | sum 0 | sum 1], kBQ rows each
-  float* stat = reinterpret_cast<float*>(smem + kStatOff);
-  const uint32_t p_s = base + kPOff;
-  const uint32_t full0 = base + kBarOff, empty0 = full0 + 8 * kSlots;
-
-  const int tid = threadIdx.x;
-  const int split = blockIdx.x % p.splits;
-  const int tile = blockIdx.x / p.splits;
-  const int bh = tile / p.n_qt, qt = tile % p.n_qt;
-  const int b = bh / p.H, h = bh % p.H;
-  const int q0 = qt * kBQ;
-  const int n_kt = (p.Lk + kBK - 1) / kBK;
-  const int kt_begin = split * p.kt_per_split;
-  const int kt_end = min(n_kt, kt_begin + p.kt_per_split);
-
-  if (tid == 0) {
-    for (int s = 0; s < kSlots; ++s) {
-      s9::mbar_init(full0 + 8 * s, 1);
-      s9::mbar_init(empty0 + 8 * s, kConsumers);
-    }
-    s9::mbar_init_fence();
-  } else if (tid == 32) {
-    s9::prefetch_tensormap(&tq);
-    s9::prefetch_tensormap(&tk);
-    s9::prefetch_tensormap(&tv);
-  }
-  __syncthreads();
-
-  if (tid < 128) {
-    // ------------------------------------------------------------ producer
-    s9::reg_dealloc<kProducerRegs>();
-    if (tid != 0) return;
-    int slot = 0;
-    uint32_t phase = 0;
-    auto next = [&]() {
-      if (++slot == kSlots) {
-        slot = 0;
-        phase ^= 1;
-      }
-    };
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-      const int k0 = kt * kBK;
-      for (int c = 0; c < DP / 64; ++c) {  // S slots
-        const uint32_t full = full0 + 8 * slot, sb = base + slot * kSlotBytes;
-        s9::mbar_wait(empty0 + 8 * slot, phase ^ 1);
-        s9::mbar_expect_tx(full, kSlotBytes);
-        for (int term = 0; term < 2; ++term)
-          for (int half = 0; half < 2; ++half) {
-            const uint32_t at = sb + term * 2 * kChunk + half * kChunk;
-            s9::tma_load_4d(at, &tq, full, 64 * c + 32 * half, q0, h,
-                            b + term * p.B);
-            s9::tma_load_4d(at + 4 * kChunk, &tk, full, 64 * c + 32 * half,
-                            k0, h, b + term * p.B);
-          }
-        next();
-      }
-      for (int j = 0; j < 4; ++j) {  // V slots
-        const uint32_t full = full0 + 8 * slot, sb = base + slot * kSlotBytes;
-        s9::mbar_wait(empty0 + 8 * slot, phase ^ 1);
-        s9::mbar_expect_tx(full, kSlotBytes);
-        for (int w = 0; w < 2; ++w)
-          for (int term = 0; term < 2; ++term)
-            for (int kc = 0; kc < 2; ++kc)
-              s9::tma_load_4d(sb + (2 * w + term) * 2 * kChunk + kc * kChunk,
-                              &tv, full, k0 + 32 * kc, 256 * w + 64 * j, h,
-                              b + term * p.B);
-        next();
-      }
-    }
-  } else {
-    // ----------------------------------------------------------- consumers
-    s9::reg_alloc<kConsumerRegs>();
-    const int cw = (tid - 128) / 128;  // keys 32*cw.. of S, columns 256*cw..
-    const int warp = (tid / 32) % 4, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int rl0 = 16 * warp + g, rl1 = rl0 + 8;  // tile rows
-    const float c = p.scale * kLog2e;  // exp(x * scale) = exp2(x * c)
-    float m0 = kNegInf, m1 = kNegInf;  // running row max (logit units)
-    float l0 = 0.f, l1 = 0.f;  // this thread's share of its half's row sums
-    float o[4][32];            // output columns 256cw + 64j ..
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
-    float s[kHalf / 2], part[kHalf / 2];  // S, and one chunk's share of it
-    float* my_max = stat + cw * kBQ;
-    const float* other_max = stat + (1 - cw) * kBQ;
-    int slot = 0;
-    uint32_t phase = 0;
-    auto next = [&]() {
-      if (++slot == kSlots) {
-        slot = 0;
-        phase ^= 1;
-      }
-    };
-
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-      const int k0 = kt * kBK;
-      // S = Q K^T for keys 32cw .. 32cw + 31 over eight chunks of d, each
-      // chunk into a fresh accumulator added to S in registers.
-#pragma unroll
-      for (int i = 0; i < kHalf / 2; ++i) s[i] = 0.f;
-      for (int cc = 0; cc < DP / 64; ++cc) {
-        const uint32_t sb = base + slot * kSlotBytes;
-        s9::mbar_wait(full0 + 8 * slot, phase);
-        s9::fence_regs(part);
-        s9::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint32_t off = (kk / 4) * kChunk + (kk % 4) * 32;
-          const uint32_t ka = sb + 4 * kChunk + off + cw * kHalf * 128;
-          const uint64_t qh = s9::smem_desc(sb + off, 16, 1024, 1);
-          const uint64_t ql = s9::smem_desc(sb + 2 * kChunk + off, 16, 1024, 1);
-          const uint64_t kh = s9::smem_desc(ka, 16, 1024, 1);
-          const uint64_t kl = s9::smem_desc(ka + 2 * kChunk, 16, 1024, 1);
-          s9::wgmma_tf32_ss<kHalf>(part, ql, kh, kk > 0);
-          s9::wgmma_tf32_ss<kHalf>(part, qh, kl, 1);
-          s9::wgmma_tf32_ss<kHalf>(part, qh, kh, 1);
-        }
-        s9::wgmma_commit();
-        s9::wgmma_wait<0>();
-        s9::fence_regs(part);
-        s9::mbar_arrive(empty0 + 8 * slot);
-        next();
-#pragma unroll
-        for (int i = 0; i < kHalf / 2; ++i) s[i] += part[i];
-      }
-
-      if (k0 + kBK > p.Lk) {  // the key tail, on the last tile only
-#pragma unroll
-        for (int j = 0; j < kHalf / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (k0 + kHalf * cw + 8 * j + 2 * t + (e & 1) >= p.Lk)
-              s[4 * j + e] = kNegInf;
-      }
-
-      // The row max over both halves of the tile, through shared memory.
-      float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kHalf / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      if (t == 0) {
-        my_max[rl0] = mx0;
-        my_max[rl1] = mx1;
-      }
-      s9::named_barrier_sync(1, kConsumers);
-      const float mn0 = fmaxf(m0, fmaxf(mx0, other_max[rl0]));
-      const float mn1 = fmaxf(m1, fmaxf(mx1, other_max[rl1]));
-      const float al0 = s9::exp2_approx((m0 - mn0) * c);
-      const float al1 = s9::exp2_approx((m1 - mn1) * c);
-      m0 = mn0;
-      m1 = mn1;
-      const float sub0 = mn0 * c, sub1 = mn1 * c;
-
-      // P = exp(scale (S - m)) split into hi / lo in this group's half of
-      // the P tiles: key 2t of a group of 8 at position t, key 2t + 1 at
-      // t + 4 (v^T's order); row r, positions 4u .. 4u + 3 of a chunk at
-      // unit u ^ (r % 8) of the row.
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kHalf / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float pr =
-              s9::exp2_approx(fmaf(s[4 * j + e], c, -(e < 2 ? sub0 : sub1)));
-          if (e < 2)
-            sum0 += pr;
-          else
-            sum1 += pr;
-          const int r = e < 2 ? rl0 : rl1, u = 2 * j + (e & 1);
-          unsigned char* at = smem + kPOff + cw * kChunk + r * 128 +
-                              ((u ^ (r & 7)) << 4) + 4 * t;
-          const uint32_t hi = s9::to_tf32(pr);
-          *reinterpret_cast<uint32_t*>(at) = hi;
-          *reinterpret_cast<uint32_t*>(at + 2 * kChunk) =
-              s9::to_tf32(pr - __uint_as_float(hi));
-        }
-      }
-      l0 = l0 * al0 + sum0;
-      l1 = l1 * al1 + sum1;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          o[j][4 * i] *= al0;
-          o[j][4 * i + 1] *= al0;
-          o[j][4 * i + 2] *= al1;
-          o[j][4 * i + 3] *= al1;
-        }
-      s9::fence_proxy_async();  // P's stores, visible to wgmma
-      s9::named_barrier_sync(2, kConsumers);
-
-      // O[:, 256cw + 64j ..] += P V over four V slots, three passes each,
-      // into a fresh accumulator added to O in registers.
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t sb = base + slot * kSlotBytes + cw * 4 * kChunk;
-        float t[32];
-        s9::mbar_wait(full0 + 8 * slot, phase);
-        s9::fence_regs(t);
-        s9::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kBK / 8; ++kk) {
-          const uint32_t off = (kk / 4) * kChunk + (kk % 4) * 32;
-          const uint64_t ph = s9::smem_desc(p_s + off, 16, 1024, 1);
-          const uint64_t pl = s9::smem_desc(p_s + 2 * kChunk + off, 16, 1024, 1);
-          const uint64_t vh = s9::smem_desc(sb + off, 16, 1024, 1);
-          const uint64_t vl = s9::smem_desc(sb + 2 * kChunk + off, 16, 1024, 1);
-          s9::wgmma_tf32_ss<64>(t, pl, vh, kk > 0);
-          s9::wgmma_tf32_ss<64>(t, ph, vl, 1);
-          s9::wgmma_tf32_ss<64>(t, ph, vh, 1);
-        }
-        s9::wgmma_commit();
-        s9::wgmma_wait<0>();
-        s9::fence_regs(t);
-        s9::mbar_arrive(empty0 + 8 * slot);
-        next();
-#pragma unroll
-        for (int i = 0; i < 32; ++i) o[j][i] += t[i];
-      }
-    }
-
-    // Epilogue: the row sums of both halves; O / l and lse = m scale + log l.
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    if (t == 0) {
-      stat[(2 + cw) * kBQ + rl0] = l0;
-      stat[(2 + cw) * kBQ + rl1] = l1;
-    }
-    s9::named_barrier_sync(1, kConsumers);
-    l0 += stat[(3 - cw) * kBQ + rl0];
-    l1 += stat[(3 - cw) * kBQ + rl1];
-    const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
-    const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
-    const float lse0 = l0 == 0.f ? kNegInf : m0 * p.scale + logf(l0);
-    const float lse1 = l1 == 0.f ? kNegInf : m1 * p.scale + logf(l1);
-    const int r0 = q0 + rl0, r1 = q0 + rl1;
-    const long long row0 = static_cast<long long>(bh) * p.Lq + r0;
-    float* ob;
-    long long stride;
-    if (p.splits == 1) {
-      ob = p.out + b * p.os[0] + h * p.os[1] + r0 * p.os[2];
-      stride = p.os[2];
-    } else {
-      ob = p.work + (split * p.rows + row0) * DP;
-      stride = DP;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int col = 256 * cw + 64 * j + 8 * i + 2 * t;
-        if (r0 < p.Lq)
-          *reinterpret_cast<float2*>(ob + col) =
-              make_float2(o[j][4 * i] * inv0, o[j][4 * i + 1] * inv0);
-        if (r1 < p.Lq)
-          *reinterpret_cast<float2*>(ob + 8 * stride + col) =
-              make_float2(o[j][4 * i + 2] * inv1, o[j][4 * i + 3] * inv1);
-      }
-    if (cw == 0 && t == 0) {
-      float* lb = p.splits == 1
-                      ? p.lse
-                      : p.work + p.splits * p.rows * DP + split * p.rows;
-      if (r0 < p.Lq) lb[row0] = lse0;
-      if (r1 < p.Lq) lb[row0 + 8] = lse1;
-    }
-  }
+                          const __grid_constant__ WideParams p) {
+  fdsd::f32fwd::wide_body<DP, false>(tq, tk, tv, p);
 }
 
 // The key splits of one row, merged by their lse: out = sum_s w_s O_s with
@@ -979,10 +673,15 @@ cudaError_t run(const Work& w, Params p, cudaStream_t s) {
                            tq, tk, tv, p);
 }
 
-cudaError_t run_d512(const Work& w, const Params& q, int splits,
-                     cudaStream_t s) {
-  if (splits < 1 || splits > d512::kMaxSplits) return cudaErrorInvalidValue;
-  d512::Params p;
+// K1 on the streaming kernel at width DP (192, 224, 256; 512 with its key
+// splits and their merge).
+template <int DP>
+cudaError_t run_stream(const Work& w, const Params& q, int splits,
+                       bool causal, cudaStream_t s) {
+  using C = fdsd::f32fwd::WideCfg<DP>;
+  if (splits < 1 || splits > d512::kMaxSplits || (DP != 512 && splits > 1))
+    return cudaErrorInvalidValue;
+  fdsd::f32fwd::WideParams p;
   p.out = q.out;
   p.lse = q.lse;
   p.work = w.part;
@@ -990,28 +689,35 @@ cudaError_t run_d512(const Work& w, const Params& q, int splits,
   p.H = q.H;
   p.Lq = q.Lq;
   p.Lk = q.Lk;
-  p.n_qt = (q.Lq + d512::kBQ - 1) / d512::kBQ;
+  p.d = q.d;
+  p.n_qt = (q.Lq + C::kBQ - 1) / C::kBQ;
   p.splits = splits;
-  const int n_kt = (q.Lk + d512::kBK - 1) / d512::kBK;
+  const int n_kt = (q.Lk + C::kBK - 1) / C::kBK;
   p.kt_per_split = (n_kt + splits - 1) / splits;
   p.rows = static_cast<long long>(q.B) * q.H * q.Lq;
   for (int i = 0; i < 3; ++i) p.os[i] = q.os[i];
   p.scale = q.scale;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = term_maps(&tq, &tk, &tv, w, q.B, q.H, q.Lq, q.Lk, d512::DP,
-                              32, d512::kBQ, d512::kBK, 64);
-  if (err == cudaSuccess)
+  cudaError_t err = term_maps(&tq, &tk, &tv, w, q.B, q.H, q.Lq, q.Lk, q.d,
+                              32, C::kBQ, C::kBK, C::kVRows);
+  if (err != cudaSuccess) return err;
+  if constexpr (DP != 512) {
+    return fdsd::f32fwd::launch_wide<DP>(causal, tq, tk, tv, p, s);
+  } else {
+    if (causal) return cudaErrorInvalidValue;
     err = s9::launch_kernel(d512::flash_fwd_f32_d512_kernel,
-                            q.B * q.H * p.n_qt * splits, kThreads,
-                            d512::kSmemBytes, s, tq, tk, tv, p);
-  if (err == cudaSuccess && splits > 1) {
-    d512::merge_f32_d512_kernel<<<static_cast<unsigned>(p.rows),
-                                   d512::DP / 8, 0, s>>>(
-        p.work, p.out, p.lse, q.H, q.Lq, splits, p.rows, p.os[0], p.os[1],
-        p.os[2]);
-    err = cudaGetLastError();
+                            q.B * q.H * p.n_qt * splits,
+                            fdsd::f32fwd::kWideThreads, C::kSmemBytes, s, tq,
+                            tk, tv, p);
+    if (err == cudaSuccess && splits > 1) {
+      d512::merge_f32_d512_kernel<<<static_cast<unsigned>(p.rows),
+                                     d512::DP / 8, 0, s>>>(
+          p.work, p.out, p.lse, q.H, q.Lq, splits, p.rows, p.os[0], p.os[1],
+          p.os[2]);
+      err = cudaGetLastError();
+    }
+    return err;
   }
-  return err;
 }
 
 Params fwd_params(void* out, void* lse, int B, int H, int Lq, int Lk, int d,
@@ -1048,7 +754,7 @@ cudaError_t run_width(const Work& w, Params p, bool causal, cudaStream_t s) {
 // scratch of 2 B H (Lq + Lk) d + 2 B H d Lk8 floats (Lk8: Lk rounded up to
 // 8), plus splits * B * H * Lq * 513 at d = 512 with splits > 1 (1 to 4 key
 // splits per 64-query tile; ignored at other head dims). Every head dim up to
-// 160 that is a multiple of 4 without a mask or causal, 512 without a mask,
+// 256 that is a multiple of 4 without a mask or causal, 512 without a mask,
 // 64 with a bias; others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   void* out, void* lse, void* work,
@@ -1059,7 +765,7 @@ extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p = fwd_params(out, lse, B, H, Lq, Lk, d, strides, scale);
   const Work w = carve(work, B, H, Lq, Lk, d);
-  const bool width = (d >= 4 && d <= 160 && d % 4 == 0) || d == 512;
+  const bool width = (d >= 4 && d <= 256 && d % 4 == 0) || d == 512;
   if (!width || (bias != nullptr && (d != 64 || causal)) ||
       (causal && d == 512))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1089,7 +795,17 @@ extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
     case 160:  // SD1 UNet level 2, from 768^2 images
       return static_cast<int>(run_width<160>(w, p, c, s));
     case 512:  // the VAEs' mid attention
-      return static_cast<int>(run_d512(w, p, splits, s));
+      return static_cast<int>(run_stream<512>(w, p, splits, c, s));
+  }
+  if (d > 160) {  // the streaming kernel at d rounded up to 32
+    switch ((d + 31) / 32 * 32) {
+      case 192:  // tiny-SD UNet at channel 96, 32^2
+        return static_cast<int>(run_stream<192>(w, p, 1, c, s));
+      case 224:
+        return static_cast<int>(run_stream<224>(w, p, 1, c, s));
+      default:
+        return static_cast<int>(run_stream<256>(w, p, 1, c, s));
+    }
   }
   switch ((d + 15) / 16 * 16) {  // the others, padded to a width
     case 16:

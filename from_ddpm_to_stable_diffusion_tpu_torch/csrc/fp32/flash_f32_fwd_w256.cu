@@ -1,0 +1,9 @@
+// The fp32 K1 at head dims 161 to 256 (flash_f32_fwd_wide.cuh) at padded
+// width 256, no mask and causal: its instantiations, apart from the other
+// widths' so that the build compiles them in parallel.
+
+#include "flash_f32_fwd_wide.cuh"
+
+namespace fdsd::f32fwd {
+FDSD_F32_FWD_WIDE(256)
+}  // namespace fdsd::f32fwd

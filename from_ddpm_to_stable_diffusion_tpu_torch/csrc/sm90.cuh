@@ -300,45 +300,6 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   "%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121," \
   "%122,%123,%124,%125,%126,%127}"
 
-// D(64 x N) (+)= A(64 x 16) B(16 x N): A K-major in shared memory; B
-// K-major (TRANS_B = 0: N rows with the reduction along the row, as K of
-// S = Q K^T) or MN-major (TRANS_B = 1: rows of the reduction, as V of
-// O = P V, read as it lies). scale_d = 0 overwrites D.
-template <int N, int TRANS_B = 0>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
-                                         uint64_t desc_b, int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "wgmma_ss: N");
-  if constexpr (N == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " FDSD_R16
-        ", %16, %17, p, 1, 1, 0, %19;\n}\n"
-        : FDSD_F16
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
-  } else if constexpr (N == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FDSD_R32
-        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
-        : FDSD_F32
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
-  } else if constexpr (N == 128) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FDSD_R64
-        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
-        : FDSD_F64
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " FDSD_R128
-        ", %128, %129, p, 1, 1, 0, %131;\n}\n"
-        : FDSD_F128
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
-  }
-}
-
 // The accumulator lists of wgmma_rs: FDSD_RLk names operands %0 .. %k-1,
 // FDSD_FLk binds d[0 .. k-1] to them.
 #define FDSD_RL4 \
@@ -552,6 +513,48 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
   "%124,%125,%126,%127}"
 #define FDSD_FL128 FDSD_FL124, FDSD_F4(124)
 
+// D(64 x N) (+)= A(64 x 16) B(16 x N): A K-major in shared memory; B
+// K-major (TRANS_B = 0: N rows with the reduction along the row, as K of
+// S = Q K^T) or MN-major (TRANS_B = 1: rows of the reduction, as V of
+// O = P V, read as it lies). scale_d = 0 overwrites D. N 32, 64, 128, 256,
+// and 80, 96, 112 (half of K4's widths 160, 192, 224).
+template <int N, int TRANS_B = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 80 || N == 96 || N == 112 ||
+                    N == 128 || N == 256,
+                "wgmma_ss: N");
+// SHAPE, the accumulators' list and their constraints, then the operand
+// numbers of the setp (scale_d), of desc_a, desc_b and of TRANS_B.
+#define FDSD_BF16_SS(SHAPE, R, F, P, OPS, T)                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"              \
+               "wgmma.mma_async.sync.aligned." SHAPE ".f32.bf16.bf16 " R     \
+               ", " OPS ", p, 1, 1, 0, " T ";\n}\n"                          \
+               : F                                                           \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B))
+  if constexpr (N == 32) {
+    FDSD_BF16_SS("m64n32k16", FDSD_R16, FDSD_F16, "%18", "%16, %17", "%19");
+  } else if constexpr (N == 64) {
+    FDSD_BF16_SS("m64n64k16", FDSD_R32, FDSD_F32, "%34", "%32, %33", "%35");
+  } else if constexpr (N == 80) {
+    FDSD_BF16_SS("m64n80k16", FDSD_RL40, FDSD_FL40, "%42", "%40, %41",
+                 "%43");
+  } else if constexpr (N == 96) {
+    FDSD_BF16_SS("m64n96k16", FDSD_RL48, FDSD_FL48, "%50", "%48, %49",
+                 "%51");
+  } else if constexpr (N == 112) {
+    FDSD_BF16_SS("m64n112k16", FDSD_RL56, FDSD_FL56, "%58", "%56, %57",
+                 "%59");
+  } else if constexpr (N == 128) {
+    FDSD_BF16_SS("m64n128k16", FDSD_R64, FDSD_F64, "%66", "%64, %65",
+                 "%67");
+  } else {
+    FDSD_BF16_SS("m64n256k16", FDSD_R128, FDSD_F128, "%130", "%128, %129",
+                 "%131");
+  }
+#undef FDSD_BF16_SS
+}
+
 // D(64 x N) (+)= A(64 x 16) B(16 x N): A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B MN-major in shared memory (read
 // transposed). scale_d = 0 overwrites D. Every N that is a multiple of 8 up
@@ -681,11 +684,13 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 
 // D(64 x N) (+)= A(64 x 8) B(8 x N) in TF32: A and B K-major in shared
 // memory (every element already a TF32 value). scale_d = 0 overwrites D.
+// N 16, 32, 48, 56, 64.
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2],
                                               uint64_t desc_a,
                                               uint64_t desc_b, int scale_d) {
-  static_assert(N == 16 || N == 32 || N == 64, "wgmma_tf32_ss: N");
+  static_assert(N == 16 || N == 32 || N == 48 || N == 56 || N == 64,
+                "wgmma_tf32_ss: N");
   if constexpr (N == 16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
@@ -699,6 +704,20 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2],
         "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " FDSD_R16
         ", %16, %17, p, 1, 1;\n}\n"
         : FDSD_F16
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 " FDSD_RL24
+        ", %24, %25, p, 1, 1;\n}\n"
+        : FDSD_FL24
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  } else if constexpr (N == 56) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 " FDSD_RL28
+        ", %28, %29, p, 1, 1;\n}\n"
+        : FDSD_FL28
         : "l"(desc_a), "l"(desc_b), "r"(scale_d));
   } else {
     asm volatile(

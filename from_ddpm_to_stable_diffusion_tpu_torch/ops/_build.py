@@ -4,10 +4,11 @@ them: ``csrc/*.cu`` (the bf16 flash kernels and GroupNorm) and
 ``csrc/sm90.cuh`` and ``csrc/pos_tile.cuh``), each at its own first use, so
 that a bf16 caller never waits for the fp32 build. The bf16 flash kernels
 K1, K3 and K4 keep their templates in a header each
-(``flash_attention{,_dq,_bwd}_sm90.cuh``), as do the fp32 K3 and K4 above
-head dim 128 (``fp32/flash_f32_bwd.cuh``), and instantiate their head-dim
-widths in several small sources (``*_w*.cu``), so that the instantiations
-compile in parallel.
+(``flash_attention{,_dq,_bwd}_sm90.cuh``), as do the fp32 K1 above head
+dim 160 (``fp32/flash_f32_fwd_wide.cuh``) and K3 and K4 above 128
+(``fp32/flash_f32_bwd.cuh``), and instantiate their head-dim widths in
+several small sources (``*_w*.cu``), so that the instantiations compile in
+parallel.
 
 A library has a plain C interface (no PyTorch headers), so a build takes
 seconds: one ``nvcc -c`` per source, all started together, then one link.
@@ -84,9 +85,6 @@ _SIGNATURES_FP32 = {
     # q, k, v, dO, lse, delta, dk, dv, work, B, H, Lq, Lk, d, strides[18],
     # scale, causal, stream
     "fdsd_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _P],
-    # the CUDA-core forward at the head dims the TF32 forward does not take:
-    # q, k, v, out, lse, B, H, Lq, Lk, d, strides[12], scale, causal, stream
-    "fdsd_flash_fwd_f32_fma": [_P] * 5 + [_I] * 5 + [_P, _F, _I, _P],
     # the position-masked backward entries take the arguments of their bf16
     # namesakes with the workspace after the offsets
     "fdsd_flash_bwd_pos_dq_f32": (_SIGNATURES["fdsd_flash_bwd_pos_dq"][:9]

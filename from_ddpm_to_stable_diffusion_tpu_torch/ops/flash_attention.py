@@ -60,7 +60,8 @@ to 0.
 
 Head dims: K1, K3 and K4 take every head dim from 1 to 256 (K1 also 512).
 The kernels pad the head dim to their width with TMA's zero fill (to a
-multiple of 16; above 128 K4, and K3 in fp32, to a multiple of 32). A head
+multiple of 16; above 128 K4, and K3 in fp32, and above 160 K1 in fp32, to a
+multiple of 32). A head
 dim that is not a multiple of 8 cannot meet TMA's 16-byte strides, so the
 wrappers append zero columns to q, k, v (and dO) up to the next multiple of
 8, pass the scale of the original head dim, and cut out, dq, dk and dv back
@@ -78,12 +79,11 @@ allocates (:func:`f32_forward_work`, :func:`f32_backward_work`). Nothing
 is rounded below fp32's precision but the split's own ~2^-22 of each
 product. K3 and K4 above 128 split the columns over a cluster of two
 blocks (``csrc/fp32/flash_f32_bwd.cuh``), whose shared memory together
-holds the resident split tiles that one block's no longer does. Above 160,
-where the forward's resident split tiles no longer fit (``_FP32_TC_MAX_FWD``
-below), K1 in fp32 runs a kernel of plain fp32 FMAs on the CUDA cores
-instead (``csrc/fp32/flash_f32_fma.cu``, route "fp32_fma"), exact to fp32.
-The fp32 forms are a shared library of their own, built when an fp32 launch
-first asks for it. K1, K3 and K4 take every head dim from 1 to 256 in fp32
+holds the resident split tiles that one block's no longer does. K1 above
+160, where the forward's resident Q tile no longer fits, streams every
+split tile through a ring of slots instead
+(``csrc/fp32/flash_f32_fwd_wide.cuh``, as at 512). The fp32 forms are a
+shared library of their own, built when an fp32 launch first asks for it. K1, K3 and K4 take every head dim from 1 to 256 in fp32
 too (K1 also 512), without a mask or causal, and K1 at 64 (T5) a bias alone;
 with segment ids or another bias form an fp32 CUDA tensor raises
 ``NotImplementedError``, as K5 / K6 / K7 do at head dims other than 64.
@@ -108,20 +108,18 @@ from . import _build
 # (SD3's MMDiT) and 128
 _MAX_HEAD_DIM, _D512 = 256, 512
 _POS_HEAD_DIMS = (64, 128)
-# the fp32 forms on the tensor cores (TF32 split): K1 at every head dim up
-# to 160 (8: the ``checks sd1`` UNet, SD1UNet(model_channels=64) with 8
-# heads, runs its 32^2 level in fp32) and at 512, K3 / K4 at every head dim
-# up to 256; above 160, up to 256, the fp32 K1 takes the CUDA-core kernel.
-# Causal at each but 512, a bias alone at 64 (T5, forward only); K5 / K6 /
-# K7 at 64
-_FP32_TC_MAX_FWD = 160
+# the fp32 forms, all on the tensor cores (TF32 split): K1, K3 and K4 at
+# every head dim up to 256 (8: the ``checks sd1`` UNet,
+# SD1UNet(model_channels=64) with 8 heads, runs its 32^2 level in fp32) and
+# K1 at 512; causal at each but 512, a bias alone at 64 (T5, forward only);
+# K5 / K6 / K7 at 64
 _FP32_BIAS_HEAD_DIMS = (64,)
 _FP32_POS_HEAD_DIMS = (64,)
 NEG_INF = -1e30   # lse of a row with no visible key
 # (query tile, key tile) of K1, K3 and K4 (the sm90 kernels) at head dims up
 # to 128: the sizes the segment-id tile bounds and ranges handed to each
-# kernel are built at; wider widths halve one side (_k1_tiles, _dq_tiles,
-# _dkv_tiles)
+# kernel are built at; wider widths halve the key tile (_k1_tiles,
+# _dq_tiles, _dkv_tiles)
 _FWD_TILES, _DQ_TILES, _DKV_TILES = (128, 128), (128, 64), (64, 128)
 # K1 at head dim 512 (bf16 and fp32): 64-query blocks, 64-key tiles, at most
 # 4 key splits
@@ -157,15 +155,15 @@ def _dq_tiles(d: int) -> tuple:
 
 
 def _dkv_width(d: int) -> int:
-    """K4's padded width: ``d`` rounded up to 16, above 128 to 32 (each of a
-    key tile's two blocks takes half the columns)."""
+    """K4's padded width: ``d`` rounded up to 16, above 128 to 32 (each of
+    the block's two consumers takes half the columns)."""
     return _width(d) if d <= 128 else _width(d, 32)
 
 
 def _dkv_tiles(d: int) -> tuple:
-    """K4's (query tile, key tile): 64 queries up to DP = 128, 32 above."""
+    """K4's (query tile, key tile): 128 keys up to DP = 128, 64 above."""
     wide = _dkv_width(d) > 128
-    return _DKV_TILES[0] // 2 if wide else _DKV_TILES[0], _DKV_TILES[1]
+    return _DKV_TILES[0], _DKV_TILES[1] // 2 if wide else _DKV_TILES[1]
 
 
 def _pad_head_dim(*xs):
@@ -527,14 +525,13 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
     """Which K1 kernel a CUDA launch of this dtype, head dim and form runs:
     "sm90" (``csrc/flash_attention_sm90.cuh``, TMA and wgmma: bf16 at every
     head dim from 1 to 256 in every form), "d512" (the TMA / wgmma kernel of
-    ``csrc/flash_attention.cu``, bf16 at 512 without a mask), "fp32"
+    ``csrc/flash_attention.cu``, bf16 at 512 without a mask) or "fp32"
     (``csrc/fp32/flash_f32_fwd.cu``: TMA and TF32 wgmma, three passes; at
-    every head dim up to 160 without a mask or causal, at 512 without a mask
+    every head dim up to 256 without a mask or causal, above 160 on the
+    streaming kernel of ``flash_f32_fwd_wide.cuh``, at 512 without a mask
     with the keys split as :func:`k1_d512_splits` says, and with a bias
-    alone at 64) or "fp32_fma" (``csrc/fp32/flash_f32_fma.cu``: fp32 FMAs
-    on the CUDA cores; fp32 at 161 to 256, without a mask or causal).
-    Raises ``NotImplementedError`` naming what the kernels take for any
-    other."""
+    alone at 64). Raises ``NotImplementedError`` naming what the kernels
+    take for any other."""
     fn = "flash_attention_cuda"
     _check_dtype(dtype)
     _check_head_dim(fn, d, d512=True)
@@ -544,8 +541,7 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
             f"head dims 1 to {_MAX_HEAD_DIM}")
     if dtype == torch.float32:
         _check_fp32_form(fn, d, causal, bias, segments, _FP32_BIAS_HEAD_DIMS)
-        return ("fp32" if d <= _FP32_TC_MAX_FWD or d == _D512
-                else "fp32_fma")
+        return "fp32"
     return "d512" if d == _D512 else "sm90"
 
 
@@ -710,8 +706,7 @@ def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
                      segment_ids is not None)
     scale = d ** -0.5 if scale is None else scale
     qp, kp, vp = _pad_head_dim(q, k, v)
-    launch = {"fp32": _k1_fp32, "fp32_fma": _k1_fp32_fma, "d512": _k1_d512,
-              "sm90": _k1_sm90}[route]
+    launch = {"fp32": _k1_fp32, "d512": _k1_d512, "sm90": _k1_sm90}[route]
     out, lse = launch(qp, kp, vp, float(scale), bias, segment_ids, causal)
     _count_launch(flash_attention_cuda, q, bias, segment_ids, causal, route)
     return (out if out.shape[-1] == d else out[..., :d]), lse
@@ -737,22 +732,6 @@ def _k1_fp32(q, k, v, scale, bias, segment_ids, causal):
         ctypes.cast(strides, ctypes.c_void_p), scale, int(bool(causal)),
         splits, _stream(q))
     _build.check(err, "fdsd_flash_fwd_f32")
-    return out, lse
-
-
-def _k1_fp32_fma(q, k, v, scale, bias, segment_ids, causal):
-    """K1 on the CUDA-core fp32 kernel (no mask or causal)."""
-    b, h, lq, d = q.shape
-    lk = k.shape[2]
-    out = _blhd(q, lq)
-    lse = _lse_like(q)
-    strides = _strides(q, k, v, out)
-    err = _build.load("kernels_fp32").fdsd_flash_fwd_f32_fma(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, lq, lk, d,
-        ctypes.cast(strides, ctypes.c_void_p), scale, int(bool(causal)),
-        _stream(q))
-    _build.check(err, "fdsd_flash_fwd_f32_fma")
     return out, lse
 
 

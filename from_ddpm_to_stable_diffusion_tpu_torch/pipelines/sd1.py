@@ -37,6 +37,7 @@ on (batch, start_step). See :class:`Trajectory`.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import os
 from typing import Callable, Mapping, Optional, Sequence
@@ -284,9 +285,20 @@ class Trajectory:
         torch.cuda.current_stream(stream.device).wait_stream(stream)
 
     def _capture(self, stream):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            self.out = self._loop()
+        # A CUDAGraph that Python's collector frees during the capture (an
+        # earlier generator's, held in a reference cycle) destroys its
+        # executable graph there, which invalidates this capture: collect
+        # first, and keep the collector off until the capture has ended.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                self.out = self._loop()
+        finally:
+            if collecting:
+                gc.enable()
         self.graph = graph
 
     def run(self, latents, context, step_noise) -> torch.Tensor:

@@ -121,17 +121,20 @@ def test_segment_tiles_are_the_sm90_k3_tiles():
 
 def test_fp32_forward_constants_are_the_wrappers():
     """The passes, the key group of v's transposed terms (in the split
-    pre-pass the forward shares with the backward) and the d = 512 tiles and
-    splits of csrc/fp32/flash_f32_fwd.cu are what the wrapper assumes when
-    it sizes the workspace and the key splits."""
+    pre-pass the forward shares with the backward) and the d = 512 tiles (of
+    the streaming kernel, fp32/flash_f32_fwd_wide.cuh) and splits of
+    csrc/fp32/flash_f32_fwd.cu are what the wrapper assumes when it sizes
+    the workspace and the key splits."""
     text = _source("fp32/flash_f32_fwd.cu")
     m = re.search(r"constexpr int kPasses = (\d+);", text)
     assert m and int(m.group(1)) == tfa._F32_PASSES == 3
     m = re.search(r"constexpr int kKeyGroup = (\d+);",
                   _source("fp32/split_f32.cuh"))
     assert m and int(m.group(1)) == tfa._F32_KEY_GROUP
-    m = re.search(r"constexpr int DP = 512, kBQ = (\d+), kBK = (\d+),", text)
+    m = re.search(r"static constexpr int kBQ = (\d+), kBK = (\d+), kHalf",
+                  _source("fp32/flash_f32_fwd_wide.cuh"))
     assert m and tuple(map(int, m.groups())) == (tfa._D512_TILE,) * 2
+    assert "run_stream<512>(w, p, splits, c, s)" in text
     m = re.search(r"constexpr int kMaxSplits = (\d+);", text)
     assert m and int(m.group(1)) == tfa._D512_MAX_SPLITS
     # the workspace: three hi / lo pairs, then 513 floats a row per split
@@ -314,7 +317,6 @@ def test_d512_tiles_are_the_kernels_tiles():
     ("fdsd_flash_bwd_dkv_f32", "fp32/flash_f32_bwd.cu"),
     ("fdsd_flash_bwd_pos_dq_f32", "fp32/flash_f32_bwd.cu"),
     ("fdsd_flash_bwd_pos_dkv_f32", "fp32/flash_f32_bwd.cu"),
-    ("fdsd_flash_fwd_f32_fma", "fp32/flash_f32_fma.cu"),
     ("fdsd_group_norm", "groupnorm.cu"),
     ("fdsd_group_norm_blocks_per_sm", "groupnorm.cu")])
 def test_each_entry_is_defined_in_its_kernels_source(entry, source):

@@ -273,8 +273,8 @@ def test_use_flash_true_on_cpu_raises():
 def test_fp32_forms_that_are_not_ported_say_what_to_pass():
     """The bias and segment-id forms exist in bf16 only: an fp32 launch
     names the entry point and the dtype to pass. Causal takes fp32 at every
-    head dim up to 256: the backward on the TF32 kernels throughout, the
-    forward on the CUDA-core kernel above 160, where the TF32 one does not
+    head dim up to 256, on the TF32 kernels throughout: above 160 the
+    forward on the streaming kernel, where the resident Q tile does not
     fit."""
     # K3's route makes the checks of its fp32 form (K1's and K4's share
     # _check_fp32_form with it)
@@ -289,7 +289,7 @@ def test_fp32_forms_that_are_not_ported_say_what_to_pass():
     assert tfa.k3_route(torch.float32, 128, causal=True) == "fp32"
     assert tfa.k3_route(torch.float32, 96, causal=True) == "fp32"
     assert tfa.k3_route(torch.float32, 192, causal=True) == "fp32"
-    assert tfa.k1_route(torch.float32, 192, causal=True) == "fp32_fma"
+    assert tfa.k1_route(torch.float32, 192, causal=True) == "fp32"
 
 
 @pytest.mark.parametrize("dtype,vec", [(torch.float32, 4),
@@ -321,8 +321,7 @@ def test_fp32_kernels_are_a_library_of_their_own():
     assert entries == {"fdsd_flash_fwd_f32", "fdsd_flash_bwd_dq_f32",
                        "fdsd_flash_bwd_dkv_f32", "fdsd_flash_fwd_pos_f32",
                        "fdsd_flash_bwd_pos_dq_f32",
-                       "fdsd_flash_bwd_pos_dkv_f32",
-                       "fdsd_flash_fwd_f32_fma"}
+                       "fdsd_flash_bwd_pos_dkv_f32"}
     source = "".join(p.read_text() for p in _build._sources("kernels_fp32"))
     for name, argtypes in _build._SIGNATURES_FP32.items():
         head = source.split(f'extern "C" int {name}(')[1].split(")")[0]

@@ -7,13 +7,15 @@
   still raise, naming the entry point.
 - The tiles: the segment-id tiles the wrappers build at each width are the
   kernels' own (the Cfg rules of ``csrc/flash_attention*_sm90.cuh``), and
-  every width's tiles fit in an H100 block's shared memory.
+  every width's tiles fit in an H100 block's shared memory, the fp32 K1's
+  streaming kernel above 160 (``csrc/fp32/flash_f32_fwd_wide.cuh``) too.
 - The padding of a head dim that is not a multiple of 8 (zero columns, the
   original scale, the outputs cut back) is exact: on the plain versions the
   padded call equals the unpadded one, forward and backward.
 - The plain K1, K3 and K4 (the kernels' oracle on the card) against the JAX
   Pallas kernels in interpret mode at head dims 24, 96, 160, 192 and 256,
-  lengths 256 x 200 in blocks of 128 (several tiles, a ragged one), fp32:
+  and causal at 192, lengths 256 x 200 in blocks of 128 (several tiles, a
+  ragged one), fp32:
   atol = rtol = 1e-4, as ``tests/test_torch_flash_bwd.py`` (fp32 sums over
   up to 256 keys taken in another order and block split).
 - tiny-SD at ``channel: 96`` (heads of 96 and 192 at its attention levels):
@@ -63,17 +65,15 @@ SMEM_LIMIT = 232448   # dynamic shared memory a block may take on the H100
 @pytest.mark.parametrize("kernel", sorted(ROUTES))
 def test_routes_take_every_head_dim_up_to_256(kernel, dtype):
     """bf16: the sm90 kernel in every form; fp32: without a mask and causal,
-    on the TF32 kernels up to their widest (160 forward, 256 backward), on
-    the CUDA-core kernel above (the forward)."""
-    tc = 160 if kernel == "K1" else 256   # the TF32 kernels' widest
+    on the TF32 kernels at every head dim (the forward above 160 on its
+    streaming kernel)."""
     for d in range(1, 257):
         if dtype == BF16:
             for form in FORMS:
                 assert ROUTES[kernel](dtype, d, *form) == "sm90", (d, form)
             continue
-        want = "fp32" if d <= tc else "fp32_fma"
         for causal in (False, True):
-            assert ROUTES[kernel](dtype, d, causal) == want, (d, causal)
+            assert ROUTES[kernel](dtype, d, causal) == "fp32", (d, causal)
 
 
 REFUSED = [
@@ -112,20 +112,21 @@ def _source(name):
 def test_segment_tiles_follow_the_kernels_tiles(d):
     """The (query, key) tiles the wrappers build segment ids at: K1 halves
     its key tile above DP 160 (above 128 in a masked form), K3 above DP
-    192, K4 its query tile above DP 128, as the kernels' Cfg say."""
+    192, K4 above DP 128 (one block a 64-key tile), as the kernels' Cfg
+    say."""
     dp = -(-d // 16) * 16
     for masked in (False, True):
         wide = dp > (128 if masked else 160)
         assert tfa._k1_tiles(d, masked) == (128, 64 if wide else 128)
     assert tfa._dq_tiles(d) == (128, 32 if dp > 192 else 64)
-    assert tfa._dkv_tiles(d) == (32 if dp > 128 else 64, 128)
+    assert tfa._dkv_tiles(d) == (64, 64 if dp > 128 else 128)
     assert tfa._dkv_width(d) == (dp if d <= 128 else -(-d // 32) * 32)
     rules = {"flash_attention_sm90.cuh":
              "DP <= 128 || (DP <= 160 && !HAS_BIAS) ? k1::kBK : k1::kBK / 2",
              "flash_attention_dq_sm90.cuh":
              "kBK = DP <= 192 ? k3::kBK : k3::kBK / 2",
              "flash_attention_bwd_sm90.cuh":
-             "kBQ = DP <= 128 ? k4::kBQ : k4::kBQ / 2"}
+             "kBK = DP <= 128 ? k4::kBK : k4::kBK / 2"}
     for name, rule in rules.items():
         assert rule in _source(name), name
 
@@ -143,9 +144,12 @@ def _k3_smem(dp, bias):
 
 
 def _k4_smem(dp, bias):
-    bq = 64 if dp <= 128 else 32
-    return (2 * 128 * dp * 2 + 2 * 2 * bq * dp * 2 + 2 * 3 * bq * 4
-            + (bq * 128 * 4 if bias else 0) + 8 * 7 + 1024)
+    """K and V, two stages of Q and dO, above 128 the P^T and dS^T tiles,
+    the row statistics, the bias tile, barriers and the alignment."""
+    bq, bk = 64, 128 if dp <= 128 else 64
+    return (2 * bk * dp * 2 + 2 * 2 * bq * dp * 2
+            + (2 * bk * bq * 2 if dp > 128 else 0) + 2 * 3 * bq * 4
+            + (bq * bk * 4 if bias else 0) + 8 * 7 + 1024)
 
 
 @pytest.mark.parametrize("kernel,smem", [("K1", _k1_smem), ("K3", _k3_smem),
@@ -168,15 +172,59 @@ def test_every_width_fits_in_shared_memory(kernel, smem):
     assert re.search(r"#define FDSD_K\d_WIDTHS\(X\)[^#]*X\(256\)", text)
 
 
+@pytest.mark.parametrize("dp", [192, 224, 256, 512])
+def test_fp32_streaming_forward_fits_in_shared_memory(dp):
+    """The fp32 K1 above 160 (and at 512), as the Cfg of
+    ``csrc/fp32/flash_f32_fwd_wide.cuh`` lays it out: three 64 KB slots, the
+    P hi / lo tile (64 x 64 fp32 each), both consumers' row maxima and sums,
+    six barriers and the 1 KB alignment fit a block; a V slot holds both
+    consumers' v^T hi / lo rows over 64 keys, as many rows (a multiple of 8)
+    as one TF32 wgmma of sm90.cuh takes as its N."""
+    smem = 3 * 65536 + 2 * 64 * 64 * 4 + 4 * 64 * 4 + 8 * 6 + 1024
+    assert smem <= SMEM_LIMIT
+    v_slots = -(-(dp // 2) // 64)
+    v_rows = dp // 2 // v_slots
+    assert v_rows * v_slots == dp // 2 and v_rows % 8 == 0
+    assert 2 * 2 * 2 * v_rows * 128 <= 65536
+    text = _source("fp32/flash_f32_fwd_wide.cuh")
+    for rule in ("kVSlots = (DP / 2 + 63) / 64", "kVRows = DP / 2 / kVSlots",
+                 "kSlots = 3, kSlotBytes = 65536",
+                 "kStatOff = kPOff + 2 * 2 * kChunk",
+                 'static_assert(kSmemBytes <= 232448, "shared memory");'):
+        assert rule in text, rule
+    takes = re.search(r'static_assert\(([^;]*)"wgmma_tf32_ss: N"\)',
+                      _source("sm90.cuh")).group(1)
+    assert f"N == {v_rows}" in takes, (dp, v_rows)
+
+
+@pytest.mark.parametrize("dp", [160, 192, 224, 256])
+def test_k4_wide_products_have_a_wgmma_shape(dp):
+    """K4 above 128: each consumer's dV += P^T dO and dK += dS^T Q are
+    m64n(DP/2)k16 SS wgmmas (sm90.cuh's wgmma_ss takes that N), and its
+    columns start on a swizzle chunk (128-byte chunks of 64 columns where
+    DP / 2 is a multiple of 64, else 32-byte chunks of 16)."""
+    takes = re.search(r'static_assert\(([^;]*)"wgmma_ss: N"\)',
+                      _source("sm90.cuh")).group(1)
+    assert f"N == {dp // 2}" in takes
+    w = 64 if dp % 64 == 0 and dp // 2 % 64 == 0 else 16
+    assert dp // 2 % w == 0
+    text = _source("flash_attention_bwd_sm90.cuh")
+    assert "W = DP % 64 == 0 && kDC % 64 == 0 ? 64 : 16" in text
+    assert "kDC = kWide ? DP / 2 : DP" in text
+    assert re.search(r"wgmma_ss<DC, 1>\(\s*dv", text)
+
+
 def test_each_width_is_instantiated_once():
     """Every width of K1, K3 and K4 is instantiated in exactly one of the
-    width sources, so each library holds every width once."""
+    width sources, so each library holds every width once; so is each width
+    of the fp32 K1's streaming kernel above 160."""
     for prefix, mac, widths in (
             ("flash_attention_sm90_w", "FDSD_K1_WIDTH", range(16, 257, 16)),
             ("flash_attention_dq_sm90_w", "FDSD_K3_WIDTH",
              range(16, 257, 16)),
             ("flash_attention_bwd_sm90_w", "FDSD_K4_WIDTH",
-             [*range(16, 129, 16), 160, 192, 224, 256])):
+             [*range(16, 129, 16), 160, 192, 224, 256]),
+            ("fp32/flash_f32_fwd_w", "FDSD_F32_FWD_WIDE", [192, 224, 256])):
         found = []
         for src in sorted(_build.CSRC.glob(prefix + "*.cu")):
             found += map(int, re.findall(mac + r"\((\d+)\)",
@@ -215,29 +263,34 @@ def test_padding_an_odd_head_dim_is_exact(d):
 
 
 # ------------------------------------------- plain versions against Pallas
-@pytest.fixture(scope="module", params=[24, 96, 160, 192, 256],
-                ids=lambda d: f"d{d}")
+@pytest.fixture(scope="module", params=[24, 96, 160, 192, 256, (192, True)],
+                ids=lambda p: f"d{p[0]}-causal" if isinstance(p, tuple)
+                else f"d{p}")
 def pallas_case(request):
     """q, k, v, dO at (1, 2, 256, 200, d) and the port's plain forward and
-    backward through ``flash_attention`` on CPU tensors."""
-    d = request.param
+    backward through ``flash_attention`` on CPU tensors; causal in the
+    (d, True) case, the form the fp32 K1 above 160 takes with its
+    backward."""
+    d, causal = (request.param if isinstance(request.param, tuple)
+                 else (request.param, False))
     q, k, v = (_rand((1, 2, n, d), s, 0.7)
                for s, n in ((0, 256), (1, 200), (2, 200)))
     g = _rand((1, 2, 256, d), 3)
     ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
-    out = tfa.flash_attention(*ts)
+    out = tfa.flash_attention(*ts, causal=causal)
     out.backward(torch.from_numpy(g))
-    _, lse = tfa.flash_attention_plain(*(t.detach() for t in ts))
-    return (q, k, v, g), out.detach().numpy(), lse.numpy(), [
+    _, lse = tfa.flash_attention_plain(*(t.detach() for t in ts),
+                                       causal=causal)
+    return (q, k, v, g, causal), out.detach().numpy(), lse.numpy(), [
         t.grad.numpy() for t in ts]
 
 
 def test_plain_forward_matches_pallas_interpret(pallas_case):
     """K1's plain version against ``_flash_fwd`` (``_fwd_kernel`` over two
     query and two key blocks, the second ragged) in interpret mode."""
-    (q, k, v, _), out, lse, _ = pallas_case
+    (q, k, v, _, causal), out, lse, _ = pallas_case
     jout, jlse = jfa._flash_fwd(*map(jnp.asarray, (q, k, v)), None, None,
-                                False, q.shape[-1] ** -0.5, 128, 128,
+                                causal, q.shape[-1] ** -0.5, 128, 128,
                                 interpret=True)
     np.testing.assert_allclose(out, np.asarray(jout), atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(lse, np.asarray(jlse).reshape(lse.shape),
@@ -248,11 +301,11 @@ def test_plain_backward_matches_pallas_interpret(pallas_case):
     """K3's and K4's plain versions against ``jax.vjp`` of
     ``flash_attention(..., interpret=True)``, which runs the Pallas
     ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``."""
-    (q, k, v, g), _, _, grads = pallas_case
+    (q, k, v, g, causal), _, _, grads = pallas_case
 
     def f(q, k, v):
-        return jfa.flash_attention(q, k, v, block_q=128, block_k=128,
-                                   interpret=True)
+        return jfa.flash_attention(q, k, v, causal=causal, block_q=128,
+                                   block_k=128, interpret=True)
 
     _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
     for name, a, w in zip("qkv", grads, vjp(jnp.asarray(g))):

@@ -4,9 +4,9 @@ Which kernel a CUDA launch of K1 runs is decided in Python before anything
 reaches the card (``k1_route``): the TMA / wgmma kernel of
 ``csrc/flash_attention_sm90.cuh`` for bf16 at every head dim from 1 to 256
 in every mask form, the TMA / wgmma kernel of ``csrc/flash_attention.cu``
-for bf16 at head dim 512, the fp32 library for fp32 (its TF32 kernel at the
-head dims it takes, the CUDA-core kernel at the others up to 256; causal at
-each but 512, T5's bias alone at head dim 64); every other (dtype, head dim,
+for bf16 at head dim 512, the fp32 library for fp32 (its TF32 kernels at
+every head dim up to 256 and at 512; causal at each but 512, T5's bias alone
+at head dim 64); every other (dtype, head dim,
 form) raises before a launch. The ctypes signatures are held against the
 argument counts of the ``extern "C"`` declarations in the sources, which
 nothing compiles here. The kernels themselves are tested on the card
@@ -46,8 +46,8 @@ def _want(dtype, d, form):
         # T5's bias alone at 64 is the one fp32 bias form
         if seg or (bias and (d != 64 or causal)):
             return NotImplementedError
-        # the TF32 kernel up to 160 and at 512, the CUDA cores above 160
-        return "fp32" if d <= 160 or d == 512 else "fp32_fma"
+        # the TF32 kernels at every head dim up to 256 and at 512
+        return "fp32"
     return "d512" if d == 512 else "sm90"
 
 

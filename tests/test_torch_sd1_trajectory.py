@@ -71,3 +71,49 @@ def test_trajectory_over_a_model_mesh_equals_its_step_loop(bundle):
     steps = tpipe.SD1Generator(models, mesh=mesh, **KW)
     traj = tpipe.SD1Generator(models, mesh=mesh, loop="trajectory", **KW)
     np.testing.assert_array_equal(traj(["a"], seed=2), steps(["a"], seed=2))
+
+
+def test_capture_collects_first_and_keeps_the_collector_off(monkeypatch):
+    """A CUDAGraph that the collector frees during another capture (an
+    earlier generator's, held in a reference cycle) invalidates that
+    capture: ``Trajectory._capture`` collects the cycles first and keeps the
+    collector off until the capture has ended. Checked with the capture
+    API stubbed (no card here): the cycle is gone before the capture
+    begins, the collector is off inside it and on again after, also when
+    the capture raises."""
+    import gc
+    import weakref
+    from contextlib import contextmanager
+
+    class Cycle:
+        def __init__(self):
+            self.me = self
+
+    seen = {}
+
+    @contextmanager
+    def graph(g, stream=None):
+        seen["enabled"] = gc.isenabled()
+        seen["cycle"] = ref()
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: "graph")
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    traj = tpipe.Trajectory.__new__(tpipe.Trajectory)
+    traj._loop = lambda: "out"
+    assert gc.isenabled()
+    for fails in (False, True):
+        cycle = Cycle()
+        ref = weakref.ref(cycle)
+        del cycle
+        if fails:
+            def boom():
+                raise RuntimeError("capture failed")
+            traj._loop = boom
+            with pytest.raises(RuntimeError, match="capture failed"):
+                traj._capture(None)
+        else:
+            traj._capture(None)
+            assert traj.graph == "graph" and traj.out == "out"
+        assert seen == {"enabled": False, "cycle": None}
+        assert gc.isenabled()
