@@ -14,16 +14,12 @@ two summary lines:
    and shared-memory lines; then counts the wgmma (HGMMA) and TMA (UTMALDG,
    UBLKCP) instructions of each K1, K3, K4, K5, K6 and K7 kernel in the bf16
    library's SASS and of each fp32 forward kernel in the fp32 library's
-   (``cuobjdump -sass``) and fails unless all 19 instantiations of the sm90
-   K1 (d = 160 among them) and all 4 of the sm90 K5
-   (``csrc/flash_attention_sm90.cu``), the d = 512 K1
-   (``csrc/flash_attention.cu``), all 16 of the sm90 K3 and 2 of the sm90 K6
-   (``csrc/flash_attention_dq_sm90.cu``), all 16 of the sm90 K4 and 2 of the
-   sm90 K7 (``csrc/flash_attention_bwd_sm90.cu``), all 11 of the TF32 fp32
-   forward (K1 at eight head dims, K1 causal / K5 online, K5 bounded, T5's
-   bias) and its d = 512 kernel (``csrc/fp32/flash_f32_fwd.cu``), and the 3
-   + 3 of the TF32 fp32 backward (dq and dk/dv at 64 and 128, masked at 64:
-   ``csrc/fp32/flash_f32_bwd.cu``) have both.
+   (``cuobjdump -sass``) and fails unless every instantiation the tables
+   SM90_KERNELS and FP32_KERNELS count has both: the sm90 K1, K3 and K4 at
+   every width in every form, K5, K6 and K7 at every width
+   (``csrc/flash_attention{,_dq,_bwd}_sm90.cuh``), the d = 512 K1
+   (``csrc/flash_attention.cu``), the TF32 fp32 forward and backward in
+   every form (``csrc/fp32/``).
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the SD1, tiny-SD and SD3 paths give it, in bf16 (and
    GroupNorm in fp32), with max errors, both times, the least time the card
@@ -72,6 +68,15 @@ two summary lines:
    ``scaled_dot_product_attention`` call on the same fp32 inputs, the
    kernels' device time (profiler) and split pre-pass, and the bound at 3
    TF32 passes over 495 TFLOP/s (the 67 TFLOP/s FMA bound beside it).
+   Then the head_dims group: K1, K3 and K4 at every head dim up to 256
+   (``phase_kernels_head_dims``), and its forms phase
+   (``phase_kernels_forms``): the fp32 bias (with dbias), segment-id and
+   causal forms of K1, K3 and K4 and K5, K6, K7 online and bounded in both
+   dtypes at head dims 8 - 256 against their plain versions (fp32 against
+   fp64, within FORMS_FP64_RATIO of the no-mask form's error), then timed
+   at full width: a (1, 8, 4096, 4096) fp32 bias at (2, 8, 4096, 4096, 128),
+   packed segment ids at (2, 12, 4096, 4096, 64), and SD3-medium's joint
+   attention cut into heads of 32 - 256.
 4. SD1: full-width SD1 (CLIP, 860M UNet, VAE decoder) with random weights
    from a seed, ``SD1Generator`` at 512x512, 50 k-LMS steps, CFG 7.5: one
    batch-1 request, then one batch-4 request. Checks the images, the final
@@ -286,7 +291,7 @@ exponentials at the SFU's rate.
 The trajectory group (after the tp_fsdp stretch of SD1, on the resident
 bf16 bundle): ``SD1Generator(loop="trajectory")``, the whole denoise loop
 as one captured CUDA graph per (batch, start_step), against
-``loop="steps"`` on the same draws at 512^2 / 50 k-LMS steps / CFG 7.5:
+``loop="steps"`` on the same draws at 512^2 / 20 k-LMS steps / CFG 7.5:
 the captures at batch 1 and 4 with the K1 / K2 launches inside each graph,
 a second seed through the batch-1 graph, img2img at strength 0.6,
 ``k_euler_ancestral`` and TP over {"model": 2} of the card repeated, each
@@ -444,21 +449,36 @@ def phase_device():
 
 def phase_build():
     """Both libraries built at once (bf16 + GroupNorm; fp32 flash), each
-    source its own nvcc, then both SASS listings read at once and
-    checked."""
+    source its own nvcc. Returns a function that checks both libraries'
+    SASS listings (:func:`sass_check`): each listing is read by cuobjdump
+    in the background as soon as its library is built, while the other
+    may still compile and then while the kernel phase runs."""
     from concurrent.futures import ThreadPoolExecutor
 
     from from_ddpm_to_stable_diffusion_tpu_torch.ops import _build
 
     names = ("kernels", "kernels_fp32")
+    pool = ThreadPoolExecutor(len(names))
 
     def build(name):
         t0 = time.perf_counter()
         _build.load(name)
-        return time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        return wall, pool.submit(sass_of, _build.library_path(name))
 
-    with ThreadPoolExecutor(len(names)) as pool:
-        walls = list(pool.map(build, names))
+    with ThreadPoolExecutor(len(names)) as builders:
+        walls, listings = zip(*builders.map(build, names))
+    pool.shutdown(wait=False)
+
+    def check_sass():
+        t0 = time.perf_counter()
+        sass = [f.result() for f in listings]
+        waited = time.perf_counter() - t0
+        sass_check(sass[0], SM90_KERNELS, BF16_FAMILY)
+        sass_check(sass[1], FP32_KERNELS, FP32_FAMILY)
+        print(f"SASS listings: waited {waited:.2f} s for cuobjdump, checked "
+              f"in {time.perf_counter() - t0 - waited:.2f} s", flush=True)
+
     for name, wall in zip(names, walls):
         nvcc, log = _build.builds[name]
         print(f"build {name}: {wall:.2f} s, the two together (nvcc "
@@ -469,26 +489,22 @@ def phase_build():
             if ("Used" in line or "spill" in line or "Compiling" in line
                     or "(C75" in line):
                 print("  ptxas:", line.strip().removeprefix("ptxas info    :"))
-    with ThreadPoolExecutor(len(names)) as pool:
-        listings = list(pool.map(sass_of, map(_build.library_path, names)))
-    sass_check(listings[0], SM90_KERNELS, BF16_FAMILY)
-    sass_check(listings[1], FP32_KERNELS, FP32_FAMILY)
+    return check_sass
 
 
 # The sm90 K1 and K3 instantiations: 16 padded head dims (16, 32, ..., 256)
 # without a mask, 7 mask forms at head dims 64 and 128 and one form with
 # every mask path (ANY) at the 14 others; the sm90 K4 the same at its 12
 # widths (16 - 128, then 160, 192, 224, 256); the d = 512 K1; the sm90 K5:
-# online and bounded at head dims 64 and 128; the sm90 K6 and K7: head dims
-# 64 and 128.
+# online and bounded at K1's 16 widths; K6 at K3's 16, K7 at K4's 12.
 SM90_KERNELS = {  # kind -> (kernel name, instantiations)
     "K1 sm90": ("flash_fwd_sm90_kernel", 16 + 2 * 7 + 14),
     "K1 d512": ("flash_fwd_d512", 1),
     "K3 sm90": ("flash_bwd_dq_sm90_kernel", 16 + 2 * 7 + 14),
     "K4 sm90": ("flash_bwd_dkv_sm90_kernel", 12 + 2 * 7 + 10),
-    "K5 sm90": ("flash_fwd_pos_sm90_kernel", 2 * 2),
-    "K6 sm90": ("flash_bwd_pos_dq_sm90_kernel", 2),
-    "K7 sm90": ("flash_bwd_pos_dkv_sm90_kernel", 2),
+    "K5 sm90": ("flash_fwd_pos_sm90_kernel", 16 * 2),
+    "K6 sm90": ("flash_bwd_pos_dq_sm90_kernel", 16),
+    "K7 sm90": ("flash_bwd_pos_dkv_sm90_kernel", 12),
 }
 # The names of the kernels above, and of any other bf16 flash kernel: one
 # outside the table fails the check.
@@ -496,20 +512,22 @@ BF16_FAMILY = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv",
                "flash_bwd_dq", "flash_bwd_pos_dq")
 # The fp32 forward (TF32 split): 13 widths without a mask (8 for the checks
 # sd1 UNet, 40, 48, 64, 72, 80, 128, 160 at DP = d, and 16, 32, 96, 112, 144
-# for the head dims padded to 16) and masked online at each (K1 causal; K5
-# at 64), bounded (K5), T5's bias form; the streaming kernel at the widths
-# 192, 224, 256 without a mask and causal, and at 512. The fp32 backward
+# for the head dims padded to 16) and masked online at each (K1 causal, K5),
+# K5 bounded and ANY (K1 with a bias or segment ids) at the 5 widths 32 -
+# 160, T5's bias form; the streaming kernel at the widths 192, 224, 256 in
+# its 4 forms (no mask, causal, ANY, bounded), and at 512. The fp32 backward
 # (TF32 split): dq and dk/dv at the 8 widths 16 - 128 without a mask and
-# masked (K3 / K4 causal, K6 / K7 at 64), and the two-block (one cluster) dq
-# and dk/dv at the 4 widths 160 - 256 without a mask and causal.
+# masked (K3 / K4 causal, K6 / K7), ANY at 32, 64, 96, 128, and the
+# two-block (one cluster) dq and dk/dv at the 4 widths 160 - 256 without a
+# mask, masked and ANY.
 FP32_KERNELS = {
-    "K1/K5 fp32": ("flash_fwd_f32_kernel", 13 + 13 + 1 + 1),
-    "K1 fp32 wide": ("flash_fwd_f32_wide_kernel", 3 * 2),
+    "K1/K5 fp32": ("flash_fwd_f32_kernel", 13 + 13 + 5 + 5 + 1),
+    "K1/K5 fp32 wide": ("flash_fwd_f32_wide_kernel", 3 * 4),
     "K1 fp32 d512": ("flash_fwd_f32_d512_kernel", 1),
-    "K3/K6 fp32": ("flash_bwd_dq_f32_kernel", 16),
-    "K4/K7 fp32": ("flash_bwd_dkv_f32_kernel", 16),
-    "K3 fp32 wide": ("flash_bwd_dq_f32_wide_kernel", 8),
-    "K4 fp32 wide": ("flash_bwd_dkv_f32_wide_kernel", 8),
+    "K3/K6 fp32": ("flash_bwd_dq_f32_kernel", 16 + 4),
+    "K4/K7 fp32": ("flash_bwd_dkv_f32_kernel", 16 + 4),
+    "K3/K6 fp32 wide": ("flash_bwd_dq_f32_wide_kernel", 3 * 4),
+    "K4/K7 fp32 wide": ("flash_bwd_dkv_f32_wide_kernel", 3 * 4),
 }
 FP32_FAMILY = ("flash_fwd", "flash_bwd")
 
@@ -529,25 +547,20 @@ def sass_check(sass, table, family):
     whose name holds one of ``family``, the wgmma (HGMMA) and TMA (UTMALDG,
     UBLKCP) instructions, and checks that every instantiation ``table``
     names has both and that no kernel of ``family`` is outside it."""
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            fn = name if any(key in name for key in family) else None
-            if fn:
-                counts[fn] = [0, 0]
-        elif fn:
-            counts[fn][0] += "HGMMA" in line
-            counts[fn][1] += "UTMALDG" in line or "UBLKCP" in line
+    counts = {}
+    for body in sass.split("Function : ")[1:]:
+        name = body.split(None, 1)[0]
+        if any(key in name for key in family):
+            counts[name] = [body.count("HGMMA"),
+                            body.count("UTMALDG") + body.count("UBLKCP")]
     found = {kind: {f: c for f, c in counts.items() if key in f}
              for kind, (key, _) in table.items()}
     names = {"K1 sm90": "causal/bias/segments", "K3 sm90":
              "causal/bias/segments", "K4 sm90": "causal/bias/segments",
-             "K5 sm90": "bounded", "K1/K5 fp32": "masked/bounded/bias",
-             "K3/K6 fp32": "masked", "K4/K7 fp32": "masked",
-             "K3 fp32 wide": "masked", "K4 fp32 wide": "masked",
-             "K1 fp32 wide": "causal"}
+             "K5 sm90": "bounded", "K1/K5 fp32": "masked/bounded/bias/any",
+             "K3/K6 fp32": "masked/any", "K4/K7 fp32": "masked/any",
+             "K3/K6 fp32 wide": "masked/any", "K4/K7 fp32 wide": "masked/any",
+             "K1/K5 fp32 wide": "form"}
     for kind, fns in found.items():
         for f, (hgmma, tma) in sorted(fns.items()):
             # template arguments: padded head dim, then the form's flags
@@ -2873,13 +2886,15 @@ def profile_device(run, cpu=True):
 
 
 def device_families(run, want=None):
-    """Device ms by kernel family of one ``run()`` under torch.profiler.
+    """Device ms by kernel family of one ``run()`` under torch.profiler,
+    the device traced alone (its kernel rows are all this reads; the host's
+    operator events of a request cost tens of seconds in ``key_averages``).
     Now and then the profiler records no kernel row of a window (or none of
     family ``want``): up to three windows are profiled, so ``run`` must be
     safe to repeat. Returns {} when none recorded one."""
     fams = {}
     for _ in range(3):
-        fams = profile_device(run)[2]
+        fams = profile_device(run, cpu=False)[2]
         if fams and (want is None or want in fams):
             break
     return fams
@@ -7966,7 +7981,7 @@ def phase_ddpm_fsdp(card):
 # outside the graph. So a cold 512^2 / 50-step request launches K1 10 + 500
 # + 1 and K2 61 + 3050 + 30 times, of which 500 and 3050 inside the graph,
 # and a warm one only the decoder's 1 and 30 (the replay calls no wrapper).
-TRAJ_STEPS = 50
+TRAJ_STEPS = 20   # cut from 50 to pay for the forms phase
 TRAJ_STRENGTH = 0.6
 TRAJ_GRAPH = dict(K1=10 * TRAJ_STEPS, K2=61 * TRAJ_STEPS)
 TRAJ_COLD = dict(K1=10 + 10 * TRAJ_STEPS + 1, K2=61 + 61 * TRAJ_STEPS + 30,
@@ -7975,7 +7990,7 @@ TRAJ_COLD = dict(K1=10 + 10 * TRAJ_STEPS + 1, K2=61 + 61 * TRAJ_STEPS + 30,
 
 def phase_trajectory(card, models, image):
     """``SD1Generator(loop="trajectory")`` on the resident bf16 bundle at
-    512^2, 50 k-LMS steps, CFG 7.5, against ``loop="steps"`` on the same
+    512^2, 20 k-LMS steps, CFG 7.5, against ``loop="steps"`` on the same
     draws: captures at batch 1 and 4 (K1 / K2 launches inside each graph
     counted), a second seed through the batch-1 graph, img2img at strength
     0.6 (a second key), ``k_euler_ancestral`` (step noise staged from the
@@ -8645,6 +8660,500 @@ def phase_kernels_head_dims(card, tail):
     return errs, records
 
 
+# ---------------------------------------------------------------------------
+# Every flash form up to head dim 256 in both dtypes: the fp32 bias (with
+# dbias), segment-id and causal forms of K1, K3 and K4, and K5, K6 and K7 at
+# every head dim, online and bounded.
+# Correctness at FORMS_CASE, ragged on both sides, at FORMS_DIMS (36 is not a
+# multiple of 8: the wrappers pad it; 8 and 36 run at width 32 in the fp32
+# mask forms, 160 on the one-block fp32 K1 and the two-block K3 / K4, 192
+# and 256 on the streaming fp32 K1): bf16 against the plain versions at the
+# ANY row's tolerance (out 2e-2, lse 1e-3, gradients 2e-2 of their largest);
+# fp32 against the plain versions in fp64, each kernel within FORMS_FP64_RATIO
+# times the error the no-mask form shows at the same head dim in the same
+# call. There every error is taken relative to the largest magnitude of what
+# it measures (out, lse over the rows that see a key, each gradient), as a
+# mask changes those magnitudes (a causal row of one key gives out = v, a
+# bias moves lse past 8, where an fp32 ulp doubles), and the no-mask form's
+# error is the largest over its kernels (K1, K3, K4; K5, K6, K7) and over
+# FORMS_BASE_DRAWS draws of its inputs: at these sizes each is a few fp32
+# ulps, and one kernel's moves by up to 1.9 x from one draw to the next
+# (each draw's errors are printed). A kernel that rounded an operand to one TF32
+# pass would be ~1e-3 off, a wrong mask O(1). The position masks: two
+# segments a side, valid_len, causal; the first 30 queries (positions 20 ..
+# 49) see no key under causal (out 0, lse -1e30).
+FORMS_DIMS = (8, 32, 36, 96, 128, 160, 192, 256)
+FORMS_CASE = (2, 2, 600, 520)
+FORMS_FP64_RATIO = 2.0
+FORMS_BASE_DRAWS = 2
+FORMS_POS = dict(q_off=(20, 1000), k_off=(50, 900), seg_q=300, seg_k=260,
+                 valid_len=1100)
+# The timed shapes: the fp32 bias at (B, H, L, L, D) with a (1, H, L, L)
+# bias; the packed segment row of K1_FORMS in fp32, with and without causal
+# (8 ragged sequences a row); SD3-medium's joint attention (hidden 1536,
+# 154 + 4096 tokens, batch 2) cut into heads of FORMS_POS_DIMS. At each the
+# kernels are held to the plain versions too, dbias into a NaN-poisoned
+# pool: fp32 (TF32 off) within FP32_TOL, out and lse absolute and each
+# gradient of its largest; bf16 at the ANY row's tolerance.
+FORMS_BIAS_SHAPE = (2, 8, 4096, 4096, 128)
+FORMS_SEG_SHAPE = (2, 12, 4096, 4096, 64)
+FORMS_POS_DIMS = (32, 96, 128, 192, 256)
+SD3_HIDDEN = 1536
+
+
+def _poison(*shape):
+    """NaNs in the allocator's pool at ``shape`` (fp32): a dbias tile the
+    kernel leaves unwritten shows."""
+    import torch
+
+    junk = torch.full(shape, float("nan"), device="cuda")
+    del junk
+
+
+def _rel_err(a, w):
+    """max|a - w| over max|w|, in fp64 (0 where w is 0 everywhere)."""
+    top = w.double().abs().max().item()
+    return (a.double() - w.double()).abs().max().item() / (top or 1.0)
+
+
+def full_width_errors(fwd, want_fwd, grads, want_grads):
+    """A kernel's (out, lse) and gradients against the plain versions':
+    out and lse absolute, each gradient relative to its largest magnitude
+    (:func:`_rel_err`), inf where a value is not finite; keyed out, lse,
+    dq, dk, dv (, dbias)."""
+    import math
+
+    (out, lse), (w_out, w_lse) = fwd, want_fwd
+    errs = dict(out=(out.double() - w_out.double()).abs().max().item(),
+                lse=(lse.double() - w_lse.double()).abs().max().item())
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), grads, want_grads):
+        errs[name] = _rel_err(a, w)
+    return {k: x if math.isfinite(x) else float("inf")
+            for k, x in errs.items()}
+
+
+def forms_masks_check(fa, rnd, d):
+    """fp32 K1, K3, K4 in the 7 mask forms of MASK_FORMS at head dim ``d``
+    against the fp64 plain versions; returns {form: errors by kernel} and
+    the no-mask form's errors on each of its draws (the yardstick is the
+    largest)."""
+    import torch
+
+    fp32 = torch.float32
+    errs, draws = {}, []
+    for form in MASK_FORMS[:1] * FORMS_BASE_DRAWS + MASK_FORMS[1:]:
+        q, k, v, g, masks = head_dim_inputs(rnd, fp32, d, form, FORMS_CASE)
+        need = "bias" in masks
+        d64 = [x.double() for x in (q, k, v)]
+        m64 = dict(masks, **({"bias": masks["bias"].double()} if need
+                             else {}))
+        o64, l64 = fa.flash_attention_plain(*d64, **m64)
+        ref = fa.flash_attention_bwd_plain(*d64, o64, l64, g.double(), **m64,
+                                           need_dbias=need)
+        out, lse = fa.flash_attention_cuda(q, k, v, **masks)
+        if need:
+            _poison(*q.shape[:3], k.shape[2])
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **masks,
+                                          need_dbias=need)
+        torch.cuda.synchronize()
+        seen = l64 > -1e29
+        blank = bool((lse[~seen] <= -1e29).all()) and not bool(
+            out[~seen].any())
+        e1 = max(_rel_err(out, o64), _rel_err(lse[seen], l64[seen]))
+        rel = [_rel_err(a, w) for a, w in zip(got, ref)]
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        e = dict(K1=e1 if blank else float("inf"),
+                 K3=max([rel[0]] + rel[3:]) if finite else float("inf"),
+                 K4=max(rel[1:3]) if finite else float("inf"))
+        # the no-mask form: the largest over its draws
+        errs[form] = {k: max(x, errs.get(form, {}).get(k, 0.0))
+                      for k, x in e.items()}
+        if form == MASK_FORMS[0]:
+            draws.append(e)
+        del q, k, v, g, masks, d64, m64, o64, l64, ref, out, lse, got
+    return errs, draws
+
+
+def forms_pos_inputs(rnd, dtype, d, shape=FORMS_CASE):
+    import torch
+
+    b, h, lq, lk = shape
+    q, g = (rnd(b, h, lq, d).to(dtype) for _ in range(2))
+    k, v = (rnd(b, h, lk, d).to(dtype) for _ in range(2))
+    return q, k, v, g
+
+
+def forms_pos_check(fa, rnd, dtype, d, masked):
+    """K5 (online and bounded), K6 and K7 at head dim ``d`` under the masks
+    of FORMS_POS (``masked``) or none, against the plain versions (fp64
+    ones for fp32 inputs). Returns the errors by kernel (K5 online and
+    bounded apart) and whether the rows that see no key came out blank."""
+    import torch
+
+    off = lambda a: torch.tensor(a, dtype=torch.int32, device="cuda")
+    q, k, v, g = forms_pos_inputs(rnd, dtype, d)
+    if masked:
+        kw = dict(causal=True, valid_len=FORMS_POS["valid_len"],
+                  seg_q=FORMS_POS["seg_q"], seg_k=FORMS_POS["seg_k"])
+        qo, ko = off(FORMS_POS["q_off"]), off(FORMS_POS["k_off"])
+    else:
+        kw, qo, ko = {}, off((0, 0)), off((0, 0))
+    wide = dtype == torch.float32
+    ins = [x.double() for x in (q, k, v)] if wide else [q, k, v]
+    ref, ref_lse = fa.flash_attention_pos_plain(*ins, qo, ko, **kw)
+    seen = ref_lse > -1e29
+    errs, blank = {}, True
+    for stability in ("online", "bounded"):
+        out, lse = fa.flash_attention_pos_cuda(q, k, v, qo, ko,
+                                               stability=stability, **kw)
+        torch.cuda.synchronize()
+        blank = blank and bool((lse[~seen] <= -1e29).all()) and not bool(
+            out[~seen].any())
+        # absolute (bf16's tolerances), then relative to the largest
+        # magnitude (fp32's)
+        errs["K5 " + stability] = (
+            (out.double() - ref.double())[seen].abs().max().item(),
+            (lse.double() - ref_lse.double())[seen].abs().max().item(),
+            _rel_err(out[seen], ref[seen]),
+            _rel_err(lse[seen], ref_lse[seen]))
+    lse32 = ref_lse.float().contiguous()
+    delta = (g.double() * ref.double()).sum(-1)
+    gw = g.double() if wide else g
+    want = fa.flash_bwd_pos_plain(*ins, gw, ref_lse if wide else lse32,
+                                  delta if wide else delta.float(), qo, ko,
+                                  **kw)
+    got = (fa.flash_bwd_pos_dq_cuda(q, k, v, g, lse32, delta.float(), qo, ko,
+                                    **kw),
+           *fa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse32, delta.float(), qo,
+                                      ko, **kw))
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    rel = [_rel_err(a, w) if finite else float("inf")
+           for a, w in zip(got, want)]
+    errs["K6"], errs["K7"] = rel[0], max(rel[1:])
+    return errs, blank and int((~seen).sum()) == (
+        2 * 2 * 30 if masked else 0)
+
+
+def phase_kernels_forms(card, tail):
+    """The forms this slice added, against their plain versions at
+    FORMS_DIMS (:func:`forms_masks_check`, :func:`forms_pos_check`), then
+    held to them and timed at the full-width shapes (FORMS_BIAS_SHAPE,
+    FORMS_SEG_SHAPE and SD3's joint attention at FORMS_POS_DIMS), beside
+    the plain versions, one
+    ``scaled_dot_product_attention`` call given the same masks as one mask
+    (TF32 off) and the bound. Returns the records by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2500)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    sdpa = F.scaled_dot_product_attention
+    records = {k: dict(errors=[], timed=[]) for k in
+               ("K1", "K3", "K4", "K5", "K6", "K7")}
+
+    # fp32 K1 / K3 / K4: the 7 mask forms against the no-mask form's error
+    for d in FORMS_DIMS:
+        errs, draws = forms_masks_check(fa, rnd, d)
+        base = max(errs[MASK_FORMS[0]].values())
+        print(f"forms: fp32 d={d} {FORMS_CASE} no mask against fp64, by "
+              f"draw: " + "; ".join(", ".join(f"{k} {x:.3e}" for k, x in
+                                               e.items()) for e in draws)
+              + f" (the yardstick: {base:.3e})", flush=True)
+        for form in MASK_FORMS[1:]:
+            e = errs[form]
+            ok = all(x <= FORMS_FP64_RATIO * base for x in e.values())
+            name = "+".join(n for n, on in zip(("causal", "bias", "segments"),
+                                               form) if on)
+            print(f"forms: fp32 d={d} {FORMS_CASE} {name} "
+                  f"({fa.k1_route(fp32, d, *form)}, K1 tiles "
+                  f"{fa._f32_tiles('k1', -(-d // 8) * 8)}) against fp64, "
+                  f"of each output's largest: " + ", ".join(
+                      f"{k} {x:.3e}" for k, x in e.items())
+                  + f" (the no-mask form's {base:.3e}: "
+                  f"{max(e.values()) / base:.2f} x)", flush=True)
+            check(ok, f"fp32 K1/K3/K4 {name} at d={d} further from fp64 "
+                  f"than {FORMS_FP64_RATIO} x the no-mask form: {e} / {base}")
+            for k in e:
+                records[k]["errors"].append(dict(
+                    dtype="fp32", d=d, form=name, err=e[k],
+                    no_mask_err=base))
+    # K5 / K6 / K7 in bf16 and fp32
+    for dtype in (bf16, fp32):
+        dt = "bf16" if dtype == bf16 else "fp32"
+        for d in FORMS_DIMS:
+            errs, blank = forms_pos_check(fa, rnd, dtype, d, True)
+            if dtype == bf16:
+                base = None
+                ok = blank and all(
+                    errs[k][0] <= 2e-2 and errs[k][1] <= 1e-3
+                    for k in ("K5 online", "K5 bounded")) and (
+                    errs["K6"] <= 2e-2 and errs["K7"] <= 2e-2)
+                tol = "out 2e-2, lse 1e-3, gradients 2e-2 of their largest"
+            else:
+                rel = lambda e: {k: max(v[2:]) if isinstance(v, tuple) else v
+                                 for k, v in e.items()}
+                draws = [rel(forms_pos_check(fa, rnd, dtype, d, False)[0])
+                         for _ in range(FORMS_BASE_DRAWS)]
+                base = max(max(e.values()) for e in draws)
+                print(f"forms: fp32 d={d} {FORMS_CASE} position masks off "
+                      f"against fp64, by draw: " + "; ".join(", ".join(
+                          f"{k} {x:.3e}" for k, x in e.items())
+                          for e in draws), flush=True)
+                ok = blank and all(x <= FORMS_FP64_RATIO * base
+                                   for x in rel(errs).values())
+                tol = (f"{FORMS_FP64_RATIO} x the no-mask form's {base:.3e}, "
+                       f"each relative to its largest: " + ", ".join(
+                           f"{k} {x:.3e}" for k, x in rel(errs).items()))
+            print(f"forms: {dt} d={d} {FORMS_CASE} position masks "
+                  f"({fa.k5_route(dtype, d)}): " + ", ".join(
+                      f"{k} out {v[0]:.3e} lse {v[1]:.3e}"
+                      if isinstance(v, tuple) else f"{k} {v:.3e}"
+                      for k, v in errs.items())
+                  + f"; blank rows blank: {blank} (tol {tol})", flush=True)
+            check(ok, f"K5/K6/K7 {dt} at d={d} disagree: {errs} / {base} / "
+                  f"blank {blank}")
+            for k, v in errs.items():
+                kern = k.split()[0]
+                err = v if not isinstance(v, tuple) else (
+                    max(v[:2]) if dtype == bf16 else max(v[2:]))
+                records[kern]["errors"].append(dict(
+                    dtype=dt, d=d, form=k, err=err,
+                    **({} if base is None else dict(no_mask_err=base))))
+
+    def timed(kernel, what, run, plain, library, bnd, family, **extra):
+        n, w = (5, 1)
+        t = dict(ms=cuda_ms(run, n, w), plain_ms=plain,
+                 library_ms=library, bound_ms=bnd["bound_ms"],
+                 bound_by=bnd["bound_by"])
+        dev = device_families(lambda: [run() for _ in range(3)], family)
+        t["device_ms"] = dev[family] / 3 if family in dev else None
+        records[kernel]["timed"].append(dict(form=what, **extra, **t))
+        return f"{kernel} {tail(**{k: x for k, x in t.items() if k != 'device_ms'})}, device {fmt_ms(t['device_ms'])}"
+
+    # fp32 K1 / K3 / K4 with a bias, and with segment ids (with and without
+    # causal), at full width
+    b, h, lq, lk, d = FORMS_BIAS_SHAPE
+    q, k, v, g = (rnd(b, h, lq, d) for _ in range(4))
+    bias = rnd(1, h, lq, lk)
+    cases = [("bias", FORMS_BIAS_SHAPE, dict(bias=bias), 1.0)]
+    bs, hs, ls, _, ds_ = FORMS_SEG_SHAPE
+    ids = k1_segment_ids("packed", bs, ls)
+    seen = (ids[:, None, :, None] == ids[:, None, None, :])
+    share = seen.float().mean().item()
+    causal_seen = seen & torch.ones(ls, ls, dtype=torch.bool,
+                                    device="cuda").tril()
+    cshare = causal_seen.float().mean().item()
+    del seen, causal_seen
+    for name, shape, masks, vis in cases + [
+            ("segments", FORMS_SEG_SHAPE, dict(segment_ids=(ids, ids)),
+             share),
+            ("segments + causal", FORMS_SEG_SHAPE,
+             dict(segment_ids=(ids, ids), causal=True), cshare)]:
+        b, h, lq, lk, d = shape
+        if shape != FORMS_BIAS_SHAPE:
+            q, k, v, g = (rnd(b, h, lq, d) for _ in range(4))
+        need = "bias" in masks
+        out, lse = fa.flash_attention_cuda(q, k, v, **masks)
+        delta = (g * out).sum(-1)
+        # the kernels held to the plain versions (fp32, TF32 off) at this
+        # full width, dbias into a NaN-poisoned pool; the plain calls' first
+        # run gives the outputs and warms their timing below
+        want_o, want_l = fa.flash_attention_plain(q, k, v, **masks)
+        want_g = fa.flash_attention_bwd_plain(q, k, v, want_o, want_l, g,
+                                              **masks, need_dbias=need)
+        if need:
+            _poison(b, h, lq, lk)
+        got_g = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **masks,
+                                            need_dbias=need)
+        torch.cuda.synchronize()
+        full = full_width_errors((out, lse), (want_o, want_l), got_g, want_g)
+        del want_o, want_l, want_g, got_g
+        errs = dict(K1=max(full["out"], full["lse"]),
+                    K3=max(v_ for k_, v_ in full.items()
+                           if k_ in ("dq", "dbias")),
+                    K4=max(full["dk"], full["dv"]))
+        print(f"forms: fp32 {name} (B,H,Lq,Lk,D)={shape} against the plain "
+              f"versions (fp32, TF32 off; out and lse absolute, each "
+              f"gradient of its largest): " + ", ".join(
+                  f"{k_} {x:.3e}" for k_, x in full.items())
+              + f" (tol {FP32_TOL})", flush=True)
+        check(all(x <= FP32_TOL for x in full.values()),
+              f"fp32 K1/K3/K4 {name} at {shape} disagree with the plain "
+              f"versions: {full}")
+        mask = fa._visible_pairs(lq, lk, masks.get("segment_ids"),
+                                 masks.get("causal", False), "cuda")
+        lib = dict(attn_mask=bias if need else mask)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = sdpa(ql, kl, vl, **lib)
+        lib_f = cuda_ms(lambda: sdpa(q, k, v, **lib), 3, 1)
+        lib_b = cuda_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), g, retain_graph=True), 3, 1)
+        del ol, ql, kl, vl
+        pf = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **masks), 1, 0)
+        pb = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, g, **masks, need_dbias=need), 1, 0)
+        torch.cuda.empty_cache()
+        side = 4.0 * (bias.numel() if need else 2 * b * lq)
+        bnd = lambda n_p, n_q, n_k, n_s: tf32_bound(
+            b, h, lq, lk, d, vis, n_p, n_q, n_k, n_s)
+        parts = []
+        for kern, run, work, fam in (
+                ("K1", lambda: fa.flash_attention_cuda(q, k, v, **masks),
+                 (2, 2, 2, 1), F32_FWD),
+                ("K3", lambda: fa.flash_attention_bwd_dq_cuda(
+                    q, k, v, g, lse, delta, **masks, need_dbias=need),
+                 (3, 3, 2, 2), "K3 flash bwd dq"),
+                ("K4", lambda: fa.flash_attention_bwd_dkv_cuda(
+                    q, k, v, g, lse, delta, **masks),
+                 (4, 2, 4, 2), "K4 flash bwd dk/dv")):
+            bb = bnd(*work)
+            # the bias (and dbias, K3) or the ids moved once beside the
+            # operands and row statistics
+            moved = side * (2 if kern == "K3" and need else 1)
+            bytes_ms = 1e3 * (b * h * 4.0 * (d * (work[1] * lq + work[2] * lk)
+                                             + work[3] * lq)
+                              + moved) / PEAK_BYTES
+            if bytes_ms > bb["bound_ms"]:
+                bb.update(bound_ms=bytes_ms, bound_by="bytes")
+            parts.append(timed(kern, f"fp32 {name}", run,
+                               pf if kern == "K1" else pb,
+                               lib_f if kern == "K1" else lib_b, bb, fam,
+                               shape=list(shape), dtype="fp32",
+                               visible_share=vis, err=errs[kern]))
+        print(f"forms: timed fp32 {name} (B,H,Lq,Lk,D)={shape} "
+              f"({100 * vis:.1f} % of the pairs visible; the plain and "
+              f"library backward compute dq, dk, dv"
+              f"{' and dbias' if need else ''} together): "
+              + "; ".join(parts), flush=True)
+        del out, lse, delta, mask, lib
+    del q, k, v, g, bias, ids
+    torch.cuda.empty_cache()
+
+    # K5 / K6 / K7 at SD3-medium's joint attention cut into heads of d
+    z = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for dtype in (bf16, fp32):
+        dt = "bf16" if dtype == bf16 else "fp32"
+        for d in FORMS_POS_DIMS:
+            b, h = 2, SD3_HIDDEN // d
+            c_ = [rnd(b, h, 154, d).to(dtype) for _ in range(3)]
+            x_ = [rnd(b, h, 4096, d).to(dtype) for _ in range(3)]
+            gs = dict(c=rnd(b, h, 154, d).to(dtype),
+                      x=rnd(b, h, 4096, d).to(dtype))
+            qs = dict(c=c_[0], x=x_[0])
+            pairs = [(sq, kv) for sq in ("c", "x") for kv in (c_, x_)]
+            stats = {}
+            for sq in ("c", "x"):
+                o, l = fa.merge_attention_partials(
+                    *fa.flash_attention_pos(qs[sq], c_[1], c_[2], z, z),
+                    *fa.flash_attention_pos(qs[sq], x_[1], x_[2], z, z))
+                stats[sq] = (l.contiguous(),
+                             (gs[sq].float() * o.float()).sum(-1))
+            fwd = lambda st: lambda: [fa.flash_attention_pos_cuda(
+                qs[sq], kv[1], kv[2], z, z, stability=st)
+                for sq, kv in pairs]
+            dq = lambda: [fa.flash_bwd_pos_dq_cuda(
+                qs[sq], kv[1], kv[2], gs[sq], *stats[sq], z, z)
+                for sq, kv in pairs]
+            dkv = lambda: [fa.flash_bwd_pos_dkv_cuda(
+                qs[sq], kv[1], kv[2], gs[sq], *stats[sq], z, z)
+                for sq, kv in pairs]
+            cat = [torch.cat([c, x], dim=2) for c, x in zip(c_, x_)]
+            gcat = torch.cat([gs["c"], gs["x"]], dim=2)
+            ql, kl, vl = (t.detach().requires_grad_() for t in cat)
+            ol = sdpa(ql, kl, vl)
+            lib_f = cuda_ms(lambda: sdpa(*cat), 3, 1)
+            lib_b = cuda_ms(lambda: torch.autograd.grad(
+                ol, (ql, kl, vl), gcat, retain_graph=True), 3, 1)
+            del ol, ql, kl, vl
+            # the kernels held to the plain versions at this full width, pair
+            # by pair; the plain calls' first run gives the outputs and warms
+            # their timing below
+            want_f = [fa.flash_attention_pos_plain(qs[sq], kv[1], kv[2], z, z)
+                      for sq, kv in pairs]
+            want_b = [fa.flash_bwd_pos_plain(qs[sq], kv[1], kv[2], gs[sq],
+                                             *stats[sq], z, z)
+                      for sq, kv in pairs]
+            got_f = {st: fwd(st)() for st in ("online", "bounded")}
+            got_b = [(a, *b_) for a, b_ in zip(dq(), dkv())]
+            torch.cuda.synchronize()
+            full = {}
+            for i in range(len(pairs)):
+                for st in ("online", "bounded"):
+                    e = full_width_errors(got_f[st][i], want_f[i], (), ())
+                    for part in ("out", "lse"):
+                        key = f"K5 {st} {part}"
+                        full[key] = max(full.get(key, 0.0), e[part])
+                e = full_width_errors(got_f["online"][i], want_f[i],
+                                      got_b[i], want_b[i])
+                full["K6"] = max(full.get("K6", 0.0), e["dq"])
+                full["K7"] = max(full.get("K7", 0.0), e["dk"], e["dv"])
+            del want_f, want_b, got_f, got_b
+            if dtype == bf16:
+                tol = {k_: 1e-3 if k_.endswith("lse") else 2e-2
+                       for k_ in full}
+                said = "out 2e-2, lse 1e-3 absolute, gradients 2e-2 of " \
+                       "their largest"
+            else:
+                tol = {k_: FP32_TOL for k_ in full}
+                said = (f"fp32, TF32 off: out and lse within {FP32_TOL} "
+                        f"absolute, gradients of their largest")
+            print(f"forms: {dt} SD3 joint attention, {h} heads of {d}, the "
+                  f"four stream pairs against the plain versions ({said}): "
+                  + ", ".join(f"{k_} {x:.3e}" for k_, x in full.items()),
+                  flush=True)
+            check(all(full[k_] <= tol[k_] for k_ in full),
+                  f"K5/K6/K7 {dt} at SD3's joint attention, heads of {d}, "
+                  f"disagree with the plain versions: {full}")
+            pf = cuda_ms(lambda: [fa.flash_attention_pos_plain(
+                qs[sq], kv[1], kv[2], z, z) for sq, kv in pairs], 1, 0)
+            pb = cuda_ms(lambda: [fa.flash_bwd_pos_plain(
+                qs[sq], kv[1], kv[2], gs[sq], *stats[sq], z, z)
+                for sq, kv in pairs], 1, 0)
+            torch.cuda.empty_cache()
+            n = 154 + 4096
+
+            def bnd(n_p, n_q, n_k, n_s):
+                if dtype == bf16:
+                    return dict(zip(("bound_ms", "bound_by"),
+                                    attn_bound(b, h, n, n, d, n_p, n_q, n_k,
+                                               n_s)))
+                return tf32_bound(b, h, n, n, d, 1.0, n_p, n_q, n_k, n_s)
+
+            fam5 = "K5 flash fwd pos" if dtype == bf16 else F32_FWD
+            fam6 = ("K6 flash bwd pos dq" if dtype == bf16
+                    else "K3 flash bwd dq")
+            fam7 = ("K7 flash bwd pos dk/dv" if dtype == bf16
+                    else "K4 flash bwd dk/dv")
+            extra = dict(shape=[b, h, n, d], dtype=dt, pairs="four stream "
+                         "pairs, 154 + 4096 tokens")
+            k5_err = lambda st: max(full[f"K5 {st} out"],
+                                    full[f"K5 {st} lse"])
+            parts = [
+                timed("K5", f"{dt} online", fwd("online"), pf, lib_f,
+                      bnd(2, 2, 2, 1), fam5, **extra, stability="online",
+                      err=k5_err("online")),
+                timed("K5", f"{dt} bounded", fwd("bounded"), pf, lib_f,
+                      bnd(2, 2, 2, 1), fam5, **extra, stability="bounded",
+                      err=k5_err("bounded")),
+                timed("K6", dt, dq, pb, lib_b, bnd(3, 3, 2, 2), fam6,
+                      **extra, err=full["K6"]),
+                timed("K7", dt, dkv, pb, lib_b, bnd(4, 2, 4, 2), fam7,
+                      **extra, err=full["K7"])]
+            print(f"forms: timed {dt} SD3 joint attention, {h} heads of "
+                  f"{d} (B, H, Lc + Lx, D)=({b},{h},154+4096,{d}), four "
+                  f"launches each over the stream pairs (the plain and "
+                  f"library backward compute dq, dk, dv together; the "
+                  f"library attends over the 4250 tokens concatenated): "
+                  + "; ".join(parts), flush=True)
+            del c_, x_, gs, qs, stats, cat, gcat
+            torch.cuda.empty_cache()
+    return records
+
+
 def write_width_yaml(root, channel):
     """A tiny-SD YAML of TinySDConfig() changed only by ``channel`` (and
     its checkpoints under ``root``), as ``cli/tiny_sd.py --config`` reads
@@ -8916,9 +9425,10 @@ def main():
         marks.append((group, time.perf_counter()))
 
     card = phase_device()
-    phase_build()
+    check_sass = phase_build()
     mark("build")
     kernels, tail = phase_kernels(card)
+    check_sass()
     k1_launch_path(card, "after the kernel phase")
     kernels["K2 launch path us"] = dict(zip(
         ("wrapper", "c_entry", "kernel"),
@@ -8928,6 +9438,7 @@ def main():
     head_dim_errs, head_dim_timed = phase_kernels_head_dims(card, tail)
     for k, err in head_dim_errs.items():
         kernels[k]["err"] = max(kernels[k]["err"], err)
+    every_form = phase_kernels_forms(card, tail)
     mark("head_dims")
     kernels_ring = phase_kernels_ring(card)
     mark("parallel")
@@ -9239,6 +9750,7 @@ def main():
               timed_at="(B,H,Lq,Lk,D)=(2,8,4096,4096,40)",
               tp_shard=kernels_tp["K1"],
               library="F.scaled_dot_product_attention", forms=forms_of("K1"),
+              every_form=every_form["K1"],
               video=kernels_video["K1"],
               clip=kernels_clip["K1"]),
         entry("group_norm_silu", "groupnorm.cu", "groupnorm_pallas.py:29",
@@ -9277,7 +9789,8 @@ def main():
               sm90=by_route("sm90", "k3"),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
-              forms=forms_of("K3"), video=kernels_video["K3"],
+              forms=forms_of("K3"), every_form=every_form["K3"],
+              video=kernels_video["K3"],
               clip=kernels_clip["K3"]),
         entry("flash_attention_bwd_dkv", "flash_attention_bwd_sm90.cu",
               "flash_attention.py:764", "K4", plain_computes=together,
@@ -9299,11 +9812,13 @@ def main():
               sm90=by_route("sm90", "k4"),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
-              forms=forms_of("K4"), video=kernels_video["K4"],
+              forms=forms_of("K4"), every_form=every_form["K4"],
+              video=kernels_video["K4"],
               clip=kernels_clip["K4"]),
         entry("flash_attention_fwd_pos", "flash_attention_sm90.cu",
               "flash_attention.py:1237", "K5",
-              design=("bf16 at head dims 64 and 128, online and bounded: "
+              design=("bf16 at every head dim from 1 to 256 (K1's padded "
+                      "widths), online and bounded: "
                       "K1's design under position masks, on K1's per-tile "
                       "steps (3 warpgroups per block; a producer issuing "
                       "TMA over 4-D tensor maps of the operands' own "
@@ -9316,8 +9831,11 @@ def main():
                       "last products and epilogue; every role skips the "
                       "same (query tile, key tile) pairs from their position "
                       "bounds and masks per logit where a pair is partly "
-                      "visible; the bounded form fixes the max at 0"),
+                      "visible; the bounded form fixes the max at 0; one Q "
+                      "buffer where two do not fit beside the ring (DP 160, "
+                      "240, 256)"),
               sm90=by_route("sm90", "k5"), shapes=kernels["K5 shapes"],
+              every_form=every_form["K5"],
               ring=kernels_ring["K5"], ring_call=kernels_ring["call"],
               tp_shard=kernels_tp["K5"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64) online",
@@ -9325,7 +9843,8 @@ def main():
         entry("flash_attention_bwd_pos_dq", "flash_attention_dq_sm90.cu",
               "flash_attention.py:1446", "K6", plain_computes=together,
               library_computes=together,
-              design=("bf16 at head dims 64 and 128: the position-mask form "
+              design=("bf16 at every head dim from 1 to 256 (K3's padded "
+                      "widths): the position-mask form "
                       "of K3's kernel (one block of 3 warpgroups per 128 "
                       "queries, a producer issuing TMA for Q and dO once "
                       "and K and V tiles of 64 keys in a 2-stage ring; two "
@@ -9336,13 +9855,16 @@ def main():
                       "skips the same pairs from their position bounds, "
                       "masked P selected to 0"),
               sm90=by_route("sm90", "k6"), shapes=kernels["K6"]["shapes"],
+              every_form=every_form["K6"],
               ring=kernels_ring["K6"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
               library="backward of F.scaled_dot_product_attention"),
         entry("flash_attention_bwd_pos_dkv", "flash_attention_bwd_sm90.cu",
               "flash_attention.py:1504", "K7", plain_computes=together,
               library_computes=together,
-              design=("bf16 at head dims 64 and 128: the position-mask form "
+              design=("bf16 at every head dim from 1 to 256 (K4's padded "
+                      "widths; above 128 on K4's one-block-a-64-key-tile "
+                      "body): the position-mask form "
                       "of K4's kernel (one block of 3 warpgroups per 128 "
                       "keys, a producer issuing TMA for K and V once and Q "
                       "and dO tiles of 64 queries in a 2-stage ring, the "
@@ -9353,6 +9875,7 @@ def main():
                       "every role skips the same pairs from their position "
                       "bounds, masked P selected to 0"),
               sm90=by_route("sm90", "k7"), shapes=kernels["K7"]["shapes"],
+              every_form=every_form["K7"],
               ring=kernels_ring["K7"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
               library="backward of F.scaled_dot_product_attention"),

@@ -54,7 +54,10 @@ Parts, all of them unless ``--only`` names some:
     the fp32 forward's part of it;
   - fp32train: ``chip_smoke.phase_train_fp32`` (``VLMTrainer()``, tiny-SD and
     the depth-24 MMDiT at fp32 compute, two steps each): the last step's ms
-    through the fp32 kernels (CUDA events).
+    through the fp32 kernels (CUDA events);
+  - fp32bias: K1 on fp32 tensors with T5's bias (``chip_smoke.FP32_T5_SHAPE``,
+    a (1, H, L, L) bias shared over the batch, scale 1.0), wall and device
+    ms per call as in fp32.
 Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -69,7 +72,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PARTS = ("launch", "kernels", "training", "widths", "vlm", "mmdit", "sd1",
-         "t5", "sd3", "fp32", "fp32train")
+         "t5", "sd3", "fp32", "fp32train", "fp32bias")
 K1 = "K1 flash fwd"
 # K5's fp32 shapes of the SD3 joint attention (K1's: chip_smoke.FP32_CASES)
 FP32_POS_SHAPES = [(2, 24, 4096, 4096, 64), (2, 24, 4096, 154, 64)]
@@ -285,6 +288,23 @@ def _fp32(cs, out):
     torch.cuda.empty_cache()
 
 
+def _fp32_bias(cs, out):
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    b, h, lq, lk, d = shape = cs.FP32_T5_SHAPE
+    q, k, v = (rnd(b, h, n, d) for n in (lq, lk, lk))
+    bias = 3.0 * rnd(1, h, lq, lk)
+    _fp32_timed(cs, out, f"K1 fp32 bias {shape}",
+                lambda: fa.flash_attention_cuda(q, k, v, scale=1.0,
+                                                bias=bias))
+    del q, k, v, bias
+    torch.cuda.empty_cache()
+
+
 def _sd1(cs, out):
     import gc
 
@@ -420,6 +440,8 @@ def measure(parts):
         _sd3_bundle(cs, out, parts)
     if "fp32" in parts:
         _fp32(cs, out)
+    if "fp32bias" in parts:
+        _fp32_bias(cs, out)
     if "fp32train" in parts:
         for name, (counts, _) in zip(
                 ("TinyVLM", "tiny-SD", "MMDiT latent 128 batch 1",

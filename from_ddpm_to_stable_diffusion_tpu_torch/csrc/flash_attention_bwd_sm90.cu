@@ -1,6 +1,6 @@
-// The C entries of K4 (bf16, every head dim up to 256) and K7, the kernels
-// of flash_attention_bwd_sm90.cuh; K4's widths are instantiated in
-// flash_attention_bwd_sm90_w*.cu, K7's (64 and 128) here.
+// The C entries of K4 and K7 (bf16, every head dim up to 256), the kernels
+// of flash_attention_bwd_sm90.cuh; their widths are instantiated in
+// flash_attention_bwd_sm90_w*.cu.
 
 #include "flash_attention_bwd_sm90.cuh"
 
@@ -58,8 +58,9 @@ extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 // K7. strides: (batch, head, seq) element strides of q, k, v, dO, dk, dv (18
 // values); the head-dim stride is 1. lse and delta are (B, H, Lq) contiguous
-// fp32, the global ones; q_off and k_off are int32[2] in device memory. Head
-// dims 64 and 128; others return cudaErrorInvalidValue.
+// fp32, the global ones; q_off and k_off are int32[2] in device memory.
+// Every head dim from 1 to 256, at the padded width DP of padded_width;
+// others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_bwd_pos_dkv(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dk, void* dv, const void* q_off,
@@ -84,14 +85,15 @@ extern "C" int fdsd_flash_bwd_pos_dkv(
                   static_cast<const int*>(k_off), seg_q, seg_k, valid_len,
                   has_valid, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > 256) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
-  if (d == 64)
-    err = launch_on<64>(flash_bwd_pos_dkv_sm90_kernel<64>,
-                        Cfg<64, false>::kSmemBytes, q, k, v, g, B, strides,
-                        p, s);
-  else if (d == 128)
-    err = launch_on<128>(flash_bwd_pos_dkv_sm90_kernel<128>,
-                         Cfg<128, false>::kSmemBytes, q, k, v, g, B, strides,
-                         p, s);
+  switch (padded_width(d)) {
+#define FDSD_CASE(DP)                                             \
+  case DP:                                                        \
+    err = launch_pos<DP>(q, k, v, g, B, strides, p, s);           \
+    break;
+    FDSD_K4_WIDTHS(FDSD_CASE)
+#undef FDSD_CASE
+  }
   return static_cast<int>(err);
 }

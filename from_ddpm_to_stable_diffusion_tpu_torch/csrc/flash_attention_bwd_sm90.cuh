@@ -1,10 +1,10 @@
 // Flash-attention backward dk / dv for Hopper (sm_90a) on TMA and wgmma:
 // bf16 in and out, fp32 softmax reconstruction and accumulators. K4 at every
 // padded head dim DP up to 256 (a multiple of 16 up to 128, of 32 above), in
-// every form, and K7, its position-masked form, at 64 and 128. The kernels
-// and their launch templates live here; flash_attention_bwd_sm90.cu holds
-// the C entries and K7, and each flash_attention_bwd_sm90_w*.cu instantiates
-// a few widths.
+// every form, and K7, its position-masked form, at the same widths. The
+// kernels and their launch templates live here; flash_attention_bwd_sm90.cu
+// holds the C entries, and each flash_attention_bwd_sm90_w*.cu instantiates
+// a few widths of both.
 //
 // Replaces two Pallas TPU kernels of the JAX package:
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dkv_kernel
@@ -531,18 +531,21 @@ __device__ __forceinline__ void flash_bwd_dkv_body(const CUtensorMap& tq,
   }
 }
 
-// The kernel body of K4 above DP = 128: one block per (b*h, 64 keys), the
-// consumers splitting each 64-query tile for S^T and dP^T and the columns
-// for dK and dV (the design notes at the top of the file).
-template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG, bool ANY>
+// The kernel body of K4 above DP = 128 (POS = false) and K7 there (POS =
+// true, no other mask): one block per (b*h, 64 keys), the consumers
+// splitting each 64-query tile for S^T and dP^T and the columns for dK and
+// dV (the design notes at the top of the file).
+template <int DP, bool CAUSAL, bool HAS_BIAS, bool HAS_SEG, bool POS,
+          bool ANY>
 __device__ __forceinline__ void flash_bwd_dkv_wide_body(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     const CUtensorMap& tg, const Params& p) {
   using C = Cfg<DP, HAS_BIAS>;
   constexpr int BQ = C::kBQ, kBK = C::kBK, DC = C::kDC;
   constexpr int kHQ = BQ / 2;  // queries of one consumer: S^T is m64 n32
-  constexpr bool kSelect = CAUSAL || HAS_BIAS || HAS_SEG;
+  constexpr bool kSelect = CAUSAL || HAS_BIAS || HAS_SEG || POS;
   static_assert(C::kWide && kBK == 64 && BQ == 64, "the wide form");
+  static_assert(!POS || !(CAUSAL || HAS_BIAS || HAS_SEG), "K7's masks");
   const bool causal = CAUSAL && (!ANY || p.causal != 0);
   const bool has_bias = HAS_BIAS && (!ANY || p.m.bias != nullptr);
   const bool has_seg = HAS_SEG && (!ANY || p.m.q_ids != nullptr);
@@ -586,10 +589,26 @@ __device__ __forceinline__ void flash_bwd_dkv_wide_body(
 
   // The query tiles this block visits, the same walk in every role: all of
   // them; from the first that reaches the key tile when causal; the range
-  // whose segment ids overlap this key tile's, less the disjoint tiles.
+  // whose segment ids overlap this key tile's, less the disjoint tiles;
+  // under position masks, those pos_pair does not skip (none when the whole
+  // key tile lies past valid_len).
   const int n_qt = (p.Lq + BQ - 1) / BQ;
   int it_begin = 0, it_end = n_qt;
   if (causal) it_begin = k0 / BQ;
+  int q_off0 = 0, q_off1 = 0, k_lo = 0, k_hi = 0;
+  if (POS) {
+    q_off0 = p.pos.q_off[0];
+    q_off1 = p.pos.q_off[1];
+    pos_bounds(k0, kBK, p.pos.k_off[0], p.pos.k_off[1], p.pos.seg_k, p.Lk,
+               k_lo, k_hi);
+    if (p.pos.has_valid && k_lo >= p.pos.valid_len) it_end = 0;
+  }
+  // pos_pair of query tile it with this key tile: 0 skip, 1 visible, 2 masked
+  auto pos_state = [&](int it) {
+    int q_lo, q_hi;
+    pos_bounds(it * BQ, BQ, q_off0, q_off1, p.pos.seg_q, p.Lq, q_lo, q_hi);
+    return pos_pair(p.pos, q_lo, q_hi, k_lo, k_hi);
+  };
   const int* k_bound = nullptr;
   const int* q_bounds = nullptr;
   if (has_seg) {
@@ -621,6 +640,7 @@ __device__ __forceinline__ void flash_bwd_dkv_wide_body(
     uint32_t phase = 0, bias_phase = 0;
     for (int it = it_begin; it < it_end; ++it) {
       if (has_seg && !seg_overlap(k_bound, q_bounds + 2 * it)) continue;
+      if (POS && pos_state(it) == 0) continue;
       const int q0 = it * BQ;
       const uint32_t full = full0 + 8 * stage;
       s9::mbar_wait(empty0 + 8 * stage, phase ^ 1);
@@ -678,6 +698,16 @@ __device__ __forceinline__ void flash_bwd_dkv_wide_body(
     if (key0 < p.Lk) kid0 = ids[key0];
     if (key1 < p.Lk) kid1 = ids[key1];
   }
+  // K7: the positions of this thread's two keys and whether any query
+  // could see them (index < Lk, position < valid_len)
+  int kpos0 = 0, kpos1 = 0;
+  bool kvis0 = true, kvis1 = true;
+  if (POS) {
+    kpos0 = pos_of(key0, p.pos.k_off[0], p.pos.k_off[1], p.pos.seg_k);
+    kpos1 = pos_of(key1, p.pos.k_off[0], p.pos.k_off[1], p.pos.seg_k);
+    kvis0 = key0 < p.Lk && (!p.pos.has_valid || kpos0 < p.pos.valid_len);
+    kvis1 = key1 < p.Lk && (!p.pos.has_valid || kpos1 < p.pos.valid_len);
+  }
   // exp(x) = exp2(x log2 e); without a bias the scale is folded in too
   const float c = has_bias ? kLog2e : p.scale * kLog2e;
   float dk[DC / 2], dv[DC / 2];  // columns DC cw .. DC cw + DC - 1
@@ -693,10 +723,12 @@ __device__ __forceinline__ void flash_bwd_dkv_wide_body(
   uint32_t phase = 0, bias_phase = 0;
   for (int it = it_begin; it < it_end; ++it) {
     if (has_seg && !seg_overlap(k_bound, q_bounds + 2 * it)) continue;
+    const int state = POS ? pos_state(it) : 1;
+    if (state == 0) continue;
     const int q0 = it * BQ;
     const int qh0 = q0 + kHQ * cw;  // this group's first query
     // Which per-logit masks this tile needs.
-    bool need_mask = false;
+    bool need_mask = state == 2;
     if (causal) need_mask = k0 + kBK - 1 > qh0;
     if (has_seg) {
       const int* qb = q_bounds + 2 * it;
@@ -751,6 +783,11 @@ __device__ __forceinline__ void flash_bwd_dkv_wide_body(
       int2 qid2 = make_int2(-1, -1);
       if (has_seg && need_mask)
         qid2 = *reinterpret_cast<const int2*>(rs + 2 * BQ + col);
+      int qpos[2] = {0, 0};  // K7: positions of the two queries
+      if (POS && need_mask && p.pos.causal) {
+        qpos[0] = pos_of(q0 + col, q_off0, q_off1, p.pos.seg_q);
+        qpos[1] = pos_of(q0 + col + 1, q_off0, q_off1, p.pos.seg_q);
+      }
       float pr[4], ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -767,6 +804,11 @@ __device__ __forceinline__ void flash_bwd_dkv_wide_body(
         if (HAS_SEG && has_seg && need_mask)
           visible = visible && (e < 2 ? kid0 : kid1) ==
                                    ((e & 1) ? qid2.y : qid2.x);
+        if (POS && need_mask) {
+          visible = visible && (e < 2 ? kvis0 : kvis1);
+          if (p.pos.causal)
+            visible = visible && (e < 2 ? kpos0 : kpos1) <= qpos[e & 1];
+        }
         float pv = s9::exp2_approx(fmaf(x, c, -((e & 1) ? lse2.y : lse2.x)));
         if (kSelect && !visible) pv = 0.f;  // selected, not multiplied
         pr[e] = pv;
@@ -865,8 +907,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tg,
                           const __grid_constant__ Params p) {
   if constexpr (Cfg<DP, HAS_BIAS>::kWide)
-    flash_bwd_dkv_wide_body<DP, CAUSAL, HAS_BIAS, HAS_SEG, ANY>(tq, tk, tv,
-                                                                tg, p);
+    flash_bwd_dkv_wide_body<DP, CAUSAL, HAS_BIAS, HAS_SEG, false, ANY>(
+        tq, tk, tv, tg, p);
   else
     flash_bwd_dkv_body<DP, CAUSAL, HAS_BIAS, HAS_SEG, false, ANY>(tq, tk, tv,
                                                                   tg, p);
@@ -880,7 +922,11 @@ flash_bwd_pos_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tv,
                               const __grid_constant__ CUtensorMap tg,
                               const __grid_constant__ Params p) {
-  flash_bwd_dkv_body<DP, false, false, false, true>(tq, tk, tv, tg, p);
+  if constexpr (Cfg<DP, false>::kWide)
+    flash_bwd_dkv_wide_body<DP, false, false, false, true, false>(tq, tk, tv,
+                                                                  tg, p);
+  else
+    flash_bwd_dkv_body<DP, false, false, false, true>(tq, tk, tv, tg, p);
 }
 
 // The q, k, v and dO tensor maps, then `kernel` on one block per (b*h, key
@@ -915,6 +961,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return launch_on<DP>(
       flash_bwd_dkv_sm90_kernel<DP, CAUSAL, HAS_BIAS, HAS_SEG, ANY>,
       Cfg<DP, HAS_BIAS>::kSmemBytes, q, k, v, g, B, st, p, stream);
+}
+
+// K7 at padded head dim DP.
+template <int DP>
+cudaError_t launch_pos(const void* q, const void* k, const void* v,
+                       const void* g, int B, const long long* st,
+                       const Params& p, cudaStream_t stream) {
+  return launch_on<DP>(flash_bwd_pos_dkv_sm90_kernel<DP>,
+                       Cfg<DP, false>::kSmemBytes, q, k, v, g, B, st, p,
+                       stream);
 }
 
 // K4 at padded head dim DP in the form code = 4*causal + 2*has_bias +
@@ -954,17 +1010,22 @@ inline int padded_width(int d) {
   return d <= 128 ? (d + 15) / 16 * 16 : (d + 31) / 32 * 32;
 }
 
-// The explicit instantiation of launch_width<DP> (with `extern` before it:
-// its declaration); each width is instantiated in one of the
-// flash_attention_bwd_sm90_w*.cu files.
-#define FDSD_K4_WIDTH(DP)                                                  \
-  template cudaError_t launch_width<DP>(                                   \
+// The explicit instantiations of one width DP, K4's launch_width<DP> and
+// K7's launch_pos<DP> (P: empty, or `extern` for their declarations); each
+// width is instantiated in one of the flash_attention_bwd_sm90_w*.cu files.
+#define FDSD_K4_WIDTH_(P, DP)                                              \
+  P template cudaError_t launch_width<DP>(                                 \
       int, const void*, const void*, const void*, const void*, int,        \
-      const long long*, const Params&, cudaStream_t);
+      const long long*, const Params&, cudaStream_t);                      \
+  P template cudaError_t launch_pos<DP>(const void*, const void*,          \
+                                        const void*, const void*, int,     \
+                                        const long long*, const Params&,   \
+                                        cudaStream_t);
+#define FDSD_K4_WIDTH(DP) FDSD_K4_WIDTH_(, DP)
 #define FDSD_K4_WIDTHS(X)                                                  \
   X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(160) X(192) X(224) \
   X(256)
-#define FDSD_K4_EXTERN(DP) extern FDSD_K4_WIDTH(DP)
+#define FDSD_K4_EXTERN(DP) FDSD_K4_WIDTH_(extern, DP)
 FDSD_K4_WIDTHS(FDSD_K4_EXTERN)
 #undef FDSD_K4_EXTERN
 

@@ -1,9 +1,9 @@
 // Flash-attention backward dq for Hopper (sm_90a) on TMA and wgmma: bf16 in
 // and out, fp32 softmax reconstruction and accumulators. K3 at every padded
 // head dim DP that is a multiple of 16 up to 256, in every form, and K6, its
-// position-masked form, at 64 and 128. The kernels and their launch
-// templates live here; flash_attention_dq_sm90.cu holds the C entries and
-// K6, and each flash_attention_dq_sm90_w*.cu instantiates a few widths.
+// position-masked form, at the same widths. The kernels and their launch
+// templates live here; flash_attention_dq_sm90.cu holds the C entries, and
+// each flash_attention_dq_sm90_w*.cu instantiates a few widths of both.
 //
 // Replaces two Pallas TPU kernels of the JAX package:
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
@@ -550,6 +550,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       Cfg<DP, HAS_BIAS>::kSmemBytes, q, k, v, g, B, st, p, stream);
 }
 
+// K6 at padded head dim DP.
+template <int DP>
+cudaError_t launch_pos(const void* q, const void* k, const void* v,
+                       const void* g, int B, const long long* st,
+                       const Params& p, cudaStream_t stream) {
+  return launch_on<DP>(flash_bwd_pos_dq_sm90_kernel<DP>,
+                       Cfg<DP, false>::kSmemBytes, q, k, v, g, B, st, p,
+                       stream);
+}
+
 // K3 at padded head dim DP in the form code = 4*causal + 2*has_bias +
 // has_seg: no mask (code 0) on its own instantiation; at DP = 64 and 128
 // each mask form on its own, at other widths the ANY instantiation.
@@ -580,17 +590,22 @@ cudaError_t launch_width(int code, const void* q, const void* k,
   }
 }
 
-// The explicit instantiation of launch_width<DP> (with `extern` before it:
-// its declaration); each width is instantiated in one of the
-// flash_attention_dq_sm90_w*.cu files.
-#define FDSD_K3_WIDTH(DP)                                                  \
-  template cudaError_t launch_width<DP>(                                   \
+// The explicit instantiations of one width DP, K3's launch_width<DP> and
+// K6's launch_pos<DP> (P: empty, or `extern` for their declarations); each
+// width is instantiated in one of the flash_attention_dq_sm90_w*.cu files.
+#define FDSD_K3_WIDTH_(P, DP)                                              \
+  P template cudaError_t launch_width<DP>(                                 \
       int, const void*, const void*, const void*, const void*, int,        \
-      const long long*, const Params&, cudaStream_t);
+      const long long*, const Params&, cudaStream_t);                      \
+  P template cudaError_t launch_pos<DP>(const void*, const void*,          \
+                                        const void*, const void*, int,     \
+                                        const long long*, const Params&,   \
+                                        cudaStream_t);
+#define FDSD_K3_WIDTH(DP) FDSD_K3_WIDTH_(, DP)
 #define FDSD_K3_WIDTHS(X)                                                  \
   X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176) \
   X(192) X(208) X(224) X(240) X(256)
-#define FDSD_K3_EXTERN(DP) extern FDSD_K3_WIDTH(DP)
+#define FDSD_K3_EXTERN(DP) FDSD_K3_WIDTH_(extern, DP)
 FDSD_K3_WIDTHS(FDSD_K3_EXTERN)
 #undef FDSD_K3_EXTERN
 

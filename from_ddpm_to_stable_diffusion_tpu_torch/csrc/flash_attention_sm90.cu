@@ -1,6 +1,6 @@
-// The C entries of K1 (bf16, every head dim up to 256) and K5, the kernels
-// of flash_attention_sm90.cuh; K1's widths are instantiated in
-// flash_attention_sm90_w*.cu, K5's (64 and 128) here.
+// The C entries of K1 and K5 (bf16, every head dim up to 256), the kernels
+// of flash_attention_sm90.cuh; their widths are instantiated in
+// flash_attention_sm90_w*.cu.
 
 #include "flash_attention_sm90.cuh"
 
@@ -52,8 +52,9 @@ extern "C" int fdsd_flash_fwd(const void* q, const void* k, const void* v,
 
 // K5. strides: 12 element strides, (batch, head, seq) for q, k, v, out; the
 // head-dim stride is 1. lse is (B, H, Lq) contiguous fp32. q_off and k_off
-// are int32[2] in device memory. Head dims 64 and 128; others return
-// cudaErrorInvalidValue.
+// are int32[2] in device memory. Every head dim from 1 to 256, at the padded
+// width DP = d rounded up to 16 (the columns past d read as zeros and not
+// written); others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_fwd_pos(const void* q, const void* k, const void* v,
                                   void* out, void* lse, const void* q_off,
                                   const void* k_off, int B, int H, int Lq,
@@ -69,18 +70,23 @@ extern "C" int fdsd_flash_fwd_pos(const void* q, const void* k, const void* v,
   p.Lk = Lk;
   p.n_qt = (Lq + kBQ - 1) / kBQ;
   p.n_tiles = B * H * p.n_qt;
+  p.d = d;
   for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
   p.scale = scale;
   p.pos = fdsd::PosArgs{static_cast<const int*>(q_off),
                         static_cast<const int*>(k_off), seg_q, seg_k,
                         valid_len, has_valid, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > 256) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
-  if (d == 64)
-    err = bounded ? launch_pos<64, true>(q, k, v, B, strides, p, s)
-                  : launch_pos<64, false>(q, k, v, B, strides, p, s);
-  else if (d == 128)
-    err = bounded ? launch_pos<128, true>(q, k, v, B, strides, p, s)
-                  : launch_pos<128, false>(q, k, v, B, strides, p, s);
+  switch ((d + 15) / 16 * 16) {
+#define FDSD_CASE(DP)                                                   \
+  case DP:                                                              \
+    err = bounded ? launch_pos<DP, true>(q, k, v, B, strides, p, s)     \
+                  : launch_pos<DP, false>(q, k, v, B, strides, p, s);   \
+    break;
+    FDSD_K1_WIDTHS(FDSD_CASE)
+#undef FDSD_CASE
+  }
   return static_cast<int>(err);
 }

@@ -3,10 +3,10 @@
 // a multiple of 16 up to 256 (head dims 1 to 256; the wrapper pads a head dim
 // that is not a multiple of 8 with zero columns), in every mask form; d = 512
 // is the kernel of flash_attention.cu, with its own C entry. K5, the
-// position-masked forward, at head dims 64 and 128, is K1's design under
+// position-masked forward, at the same widths, is K1's design under
 // position masks, on the same per-tile steps. The kernels and their launch
-// templates live here; flash_attention_sm90.cu holds the C entries and K5,
-// and each flash_attention_sm90_w*.cu instantiates a few widths, so that the
+// templates live here; flash_attention_sm90.cu holds the C entries, and each
+// flash_attention_sm90_w*.cu instantiates a few widths of both, so that the
 // build's parallel nvcc runs split the instantiations.
 //
 // Replaces three Pallas TPU kernels of the JAX package:
@@ -92,8 +92,10 @@
 //  - BOUNDED fixes the max at 0: no row maxima, no rescale of O, P =
 //    exp2(scale log2 e s), lse = ln l;
 //  - the grid is persistent (one block per SM walks query tiles with a
-//    stride) and Q is double-buffered: the next tile's Q, K and V load while
-//    this tile's last products and epilogue run. At SD3's 4096 queries
+//    stride) and Q is double-buffered where two buffers fit beside the K / V
+//    ring (all widths but 160, whose key tile is 128, and 240, 256): the
+//    next tile's Q, K and V load while this tile's last products and
+//    epilogue run. At SD3's 4096 queries
 //    against 154 keys a block's life is two key tiles long, and one block
 //    per SM (384 threads take the whole register file) left its load
 //    latency and epilogue bare.
@@ -542,15 +544,21 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ----------------------------------------------------------------- K5
 // Shared memory of K5: two Q buffers (the next query tile's Q loads while
-// this one's last products and epilogue run), the K/V ring, and full / empty
-// barriers for each Q buffer and each ring stage.
+// this one's last products and epilogue run) where they fit beside the K/V
+// ring, else one (DP = 160 with its 128-key tiles, 240 and 256: the next
+// tile's Q then waits for this one's last product), the K/V ring, and
+// full / empty barriers for each Q buffer and each ring stage.
 template <int DP>
 struct PosCfg {
   using C = Cfg<DP, false>;
-  static constexpr int kKOff = 2 * C::kQBytes;
+  static constexpr int kRing = 2 * C::kStages * C::kKVBytes;
+  static constexpr int kQBufs =
+      2 * C::kQBytes + kRing + 8 * (4 + 2 * C::kStages) + 1024 <= 232448 ? 2
+                                                                          : 1;
+  static constexpr int kKOff = kQBufs * C::kQBytes;
   static constexpr int kVOff = kKOff + C::kStages * C::kKVBytes;
   static constexpr int kBarOff = kVOff + C::kStages * C::kKVBytes;
-  static constexpr int kBars = 2 * 2 + 2 * C::kStages;
+  static constexpr int kBars = 2 * kQBufs + 2 * C::kStages;
   static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
   static_assert(kSmemBytes <= 232448, "shared memory");
 };
@@ -559,6 +567,7 @@ struct PosParams {
   __nv_bfloat16* out;
   float* lse;
   int H, Lq, Lk, n_qt, n_tiles;  // n_tiles = B * H * n_qt query tiles
+  int d;                         // the head dim; columns d .. DP - 1 pad
   long long os[3];               // out's (batch, head, seq) element strides
   float scale;
   PosArgs pos;
@@ -580,12 +589,14 @@ flash_fwd_pos_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (s9::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t k_s = base + P::kKOff, v_s = base + P::kVOff;
-  const uint32_t q_full0 = base + P::kBarOff, q_empty0 = q_full0 + 16;
-  const uint32_t full0 = q_empty0 + 16, empty0 = full0 + 8 * C::kStages;
+  const uint32_t q_full0 = base + P::kBarOff;
+  const uint32_t q_empty0 = q_full0 + 8 * P::kQBufs;
+  const uint32_t full0 = q_empty0 + 8 * P::kQBufs;
+  const uint32_t empty0 = full0 + 8 * C::kStages;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < P::kQBufs; ++i) {
       s9::mbar_init(q_full0 + 8 * i, 1);
       s9::mbar_init(q_empty0 + 8 * i, kConsumers);
     }
@@ -646,7 +657,7 @@ flash_fwd_pos_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       for (int c = 0; c < C::kChunks; ++c)
         s9::tma_load_4d(base + qb * C::kQBytes + c * C::kQChunk, &tq, q_full,
                         c * C::W, q0, h, b);
-      if (++qb == 2) {
+      if (++qb == P::kQBufs) {
         qb = 0;
         q_phase ^= 1;
       }
@@ -739,7 +750,7 @@ flash_fwd_pos_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           }
         }
         s9::mbar_arrive(q_empty0 + 8 * qb);  // this Q buffer is read
-        if (++qb == 2) {
+        if (++qb == P::kQBufs) {
           qb = 0;
           q_phase ^= 1;
         }
@@ -748,7 +759,7 @@ flash_fwd_pos_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       store_rows<DP>(o, l0, l1, m0, m1, p.scale,
                      p.out + b * p.os[0] + h * p.os[1], p.os[2],
                      p.lse + static_cast<long long>(bh) * p.Lq, r0, r1, p.Lq,
-                     DP, t);
+                     p.d, t);
     }
   }
 }
@@ -791,7 +802,7 @@ cudaError_t launch_pos(const void* q, const void* k, const void* v, int B,
                        cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int dev = 0, n_sm = 0;
-  cudaError_t err = make_maps<Cfg<DP, false>>(&tq, &tk, &tv, q, k, v, DP,
+  cudaError_t err = make_maps<Cfg<DP, false>>(&tq, &tk, &tv, q, k, v, p.d,
                                               p.Lq, p.Lk, p.H, B, st);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -831,17 +842,25 @@ cudaError_t launch_width(int code, const void* q, const void* k,
   }
 }
 
-// The explicit instantiation of launch_width<DP> (with `extern` before it:
-// its declaration); each width is instantiated in one of the
+// The explicit instantiations of one width DP, K1's launch_width<DP> and
+// K5's launch_pos<DP, online | bounded> (P: empty, or `extern` for their
+// declarations); each width is instantiated in one of the
 // flash_attention_sm90_w*.cu files.
-#define FDSD_K1_WIDTH(DP)                                                  \
-  template cudaError_t launch_width<DP>(int, const void*, const void*,     \
-                                        const void*, int, const long long*, \
-                                        const Params&, cudaStream_t);
+#define FDSD_K1_WIDTH_(P, DP)                                              \
+  P template cudaError_t launch_width<DP>(                                 \
+      int, const void*, const void*, const void*, int, const long long*,   \
+      const Params&, cudaStream_t);                                        \
+  P template cudaError_t launch_pos<DP, false>(                            \
+      const void*, const void*, const void*, int, const long long*,        \
+      const PosParams&, cudaStream_t);                                     \
+  P template cudaError_t launch_pos<DP, true>(                             \
+      const void*, const void*, const void*, int, const long long*,        \
+      const PosParams&, cudaStream_t);
+#define FDSD_K1_WIDTH(DP) FDSD_K1_WIDTH_(, DP)
 #define FDSD_K1_WIDTHS(X)                                                  \
   X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176) \
   X(192) X(208) X(224) X(240) X(256)
-#define FDSD_K1_EXTERN(DP) extern FDSD_K1_WIDTH(DP)
+#define FDSD_K1_EXTERN(DP) FDSD_K1_WIDTH_(extern, DP)
 FDSD_K1_WIDTHS(FDSD_K1_EXTERN)
 #undef FDSD_K1_EXTERN
 

@@ -1,12 +1,16 @@
 // Flash-attention backward on fp32 inputs for Hopper (sm_90a) on the tensor
-// cores: the fp32 form of K3 (dq) and K4 (dk, dv), plain and causal at
-// every head dim up to 256, and of K6 / K7 (position masks under a
-// caller-supplied global lse and delta) at 64. This file holds the kernels up
-// to 128, the split pre-pass, the dispatch and the C entries; head dims 129
-// to 256 take the kernels of flash_f32_bwd.cuh (one cluster of two blocks,
-// each owning half of the columns: above 128 the resident Q and dO (dq) or K
-// and V (dk / dv) terms of a 64-row tile no longer fit in one block beside
-// the rings), instantiated in flash_f32_bwd_w*.cu.
+// cores: the fp32 form of K3 (dq, and dbias) and K4 (dk, dv) in every mask
+// form (no mask, causal, an additive bias, segment ids and their
+// combinations) at every head dim up to 256, and of K6 / K7 (position masks
+// under a caller-supplied global lse and delta) at the same head dims. The
+// kernels live in flash_f32_bwd.cuh: up to 128 one block per tile; head dims
+// 129 to 256 one cluster of two blocks, each owning half of the columns
+// (above 128 the resident Q and dO (dq) or K and V (dk / dv) terms of a
+// 64-row tile no longer fit in one block beside the rings). This file holds
+// the split pre-pass, the dispatch and the C entries; every form (no mask,
+// masked, and ANY: a bias with dbias, segment ids, causal, at the head dim
+// rounded up to 32) is instantiated a few widths to a file in
+// flash_f32_bwd_w*.cu.
 //
 // Replaces, for fp32 q, k, v, dO, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
@@ -67,7 +71,11 @@
 // less at the other widths. Masks (K3 / K4 causal, K6 / K7) are the position masks of
 // pos_tile.cuh, judged per (query tile, key tile) pair by pos_pair in every
 // role; the causal form of the plain kernels is the position mask with
-// offsets 0. Query rows past Lq get lse = +1e30 (P = 0); keys past Lk are
+// offsets 0. The ANY form adds the bias (read from global memory into each
+// logit), segment ids (AnyMasks in flash_f32_bwd.cuh: tiles skipped by
+// their id ranges at the kernel's own tile sizes) and, in K3, dbias = dS
+// written once for every tile of the block's rows, zeros where a tile is
+// skipped. Query rows past Lq get lse = +1e30 (P = 0); keys past Lk are
 // selected to P = 0.
 
 #include "flash_f32_bwd.cuh"
@@ -76,486 +84,6 @@
 namespace {
 
 using namespace fdsd::f32bwd;
-
-// ------------------------------------------------------------- K3 / K6: dq
-template <int DP>
-struct DqCfg {
-  static constexpr int kCons = DP <= 64 ? 2 : 1;  // consumer warpgroups
-  static constexpr int kBQ = 64 * kCons, kBK = 32;
-  static constexpr int kThreads = 128 * (1 + kCons);
-  static constexpr int kConsumers = 128 * kCons;
-  static constexpr int kConsumerRegs = kCons == 2 ? 232 : 240;
-  static constexpr int kStages = DP <= 64 ? 2 : 1;
-  using TQ = Tile<kBQ, DP>;   // Q, dO
-  using TK = Tile<kBK, DP>;   // K, V
-  using TKT = Tile<DP, kBK>;  // K^T
-  static constexpr int kGOff = 2 * TQ::kBytes;
-  static constexpr int kAOff = 4 * TQ::kBytes;  // ring A: K, V per stage
-  static constexpr int kAStage = 4 * TK::kBytes;
-  static constexpr int kBOff = kAOff + kStages * kAStage;  // ring B: K^T
-  static constexpr int kBStage = 2 * TKT::kBytes;
-  static constexpr int kBarOff = kBOff + kStages * kBStage;
-  // Q / dO full; A full, empty; B full, empty per stage
-  static constexpr int kBars = 1 + 4 * kStages;
-  static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
-  static_assert(kSmemBytes <= 232448, "shared memory");
-  static_assert(DP % 16 == 0 && DP <= 128, "head dim");
-};
-
-template <int DP, bool MASKED>
-__global__ void __launch_bounds__(DqCfg<DP>::kThreads, 1)
-flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tq,
-                        const __grid_constant__ CUtensorMap tg,
-                        const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv,
-                        const __grid_constant__ CUtensorMap tkt,
-                        const __grid_constant__ Params p) {
-  using C = DqCfg<DP>;
-  using TQ = typename C::TQ;
-  using TK = typename C::TK;
-  using TKT = typename C::TKT;
-  constexpr int BQ = C::kBQ, BK = C::kBK, S = C::kStages;
-
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t base = (s9::smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_s = base, g_s = base + C::kGOff;
-  const uint32_t a_s = base + C::kAOff, b_s = base + C::kBOff;
-  const uint32_t q_full = base + C::kBarOff;
-  const uint32_t afull0 = q_full + 8, aempty0 = afull0 + 8 * S;
-  const uint32_t bfull0 = aempty0 + 8 * S, bempty0 = bfull0 + 8 * S;
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x / p.n_tiles;
-  int qt = blockIdx.x % p.n_tiles;
-  if (MASKED && p.pos.causal) qt = p.n_tiles - 1 - qt;  // long rows first
-  const int b = bh / p.H, h = bh % p.H;
-  const int q0 = qt * BQ;
-
-  if (tid == 0) {
-    s9::mbar_init(q_full, 1);
-    for (int s = 0; s < S; ++s) {
-      s9::mbar_init(afull0 + 8 * s, 1);
-      s9::mbar_init(aempty0 + 8 * s, C::kConsumers);
-      s9::mbar_init(bfull0 + 8 * s, 1);
-      s9::mbar_init(bempty0 + 8 * s, C::kConsumers);
-    }
-    s9::mbar_init_fence();
-  } else if (tid == 32) {  // fetch the descriptors while barriers are set up
-    s9::prefetch_tensormap(&tq);
-    s9::prefetch_tensormap(&tg);
-    s9::prefetch_tensormap(&tk);
-    s9::prefetch_tensormap(&tv);
-    s9::prefetch_tensormap(&tkt);
-  }
-  __syncthreads();
-
-  // Positions matter only to a mask: without causal and valid_len every
-  // pair is visible (the key tail aside) and the offsets are not read.
-  const bool masked = MASKED && (p.pos.causal || p.pos.has_valid);
-  const Offsets off(p.pos, masked);
-  const int n_kt = (p.Lk + BK - 1) / BK;
-  auto pair = [&](int kt) {
-    return tile_pair(p, off, masked, q0, BQ, kt * BK, BK);
-  };
-
-  if (tid < 128) {
-    // ------------------------------------------------------------ producer
-    s9::reg_dealloc<kProducerRegs>();
-    if (tid != 0) return;
-    s9::mbar_expect_tx(q_full, 4 * TQ::kBytes);
-    TQ::load(q_s, &tq, q_full, 0, q0, h, b, p.B);
-    TQ::load(g_s, &tg, q_full, 0, q0, h, b, p.B);
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int kt = 0; kt < n_kt; ++kt) {
-      if (pair(kt) == 0) continue;
-      const int k0 = kt * BK;
-      const uint32_t afull = afull0 + 8 * stage, bfull = bfull0 + 8 * stage;
-      const uint32_t as = a_s + stage * C::kAStage;
-      s9::mbar_wait(aempty0 + 8 * stage, phase ^ 1);
-      s9::mbar_expect_tx(afull, 4 * TK::kBytes);
-      TK::load(as, &tk, afull, 0, k0, h, b, p.B);
-      TK::load(as + 2 * TK::kBytes, &tv, afull, 0, k0, h, b, p.B);
-      s9::mbar_wait(bempty0 + 8 * stage, phase ^ 1);
-      s9::mbar_expect_tx(bfull, 2 * TKT::kBytes);
-      TKT::load(b_s + stage * C::kBStage, &tkt, bfull, k0, 0, h, b, p.B);
-      if (++stage == S) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-  } else {
-    // ----------------------------------------------------------- consumers
-    s9::reg_alloc<C::kConsumerRegs>();
-    const int cw = (tid - 128) / 128;  // query rows 64*cw .. 64*cw + 63
-    const int warp = (tid / 32) % 4, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = q0 + 64 * cw + 16 * warp + g, r1 = r0 + 8;
-    const float c = p.scale * kLog2e;  // exp(x scale) = exp2(x c)
-    // lse (times log2 e) and delta of this thread's two rows
-    const float* lse_b = p.lse + static_cast<long long>(bh) * p.Lq;
-    const float* dl_b = p.delta + static_cast<long long>(bh) * p.Lq;
-    const float lse0 = (r0 < p.Lq ? lse_b[r0] : kPadLse) * kLog2e;
-    const float lse1 = (r1 < p.Lq ? lse_b[r1] : kPadLse) * kLog2e;
-    const float dl0 = r0 < p.Lq ? dl_b[r0] : 0.f;
-    const float dl1 = r1 < p.Lq ? dl_b[r1] : 0.f;
-    int qpos0 = 0, qpos1 = 0;
-    if (masked) {
-      qpos0 = pos_of(r0, off.q0, off.q1, p.pos.seg_q);
-      qpos1 = pos_of(r1, off.q0, off.q1, p.pos.seg_q);
-    }
-    float dq[DP / 2];
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
-    float s[BK / 2], dp[BK / 2];
-    const int row = 64 * cw;  // this group's rows of the Q and dO tiles
-
-    s9::mbar_wait(q_full, 0);  // also when no tile is visited: TMA is done
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int state = pair(kt);
-      if (state == 0) continue;
-      const int k0 = kt * BK;
-      const uint32_t ks = a_s + stage * C::kAStage;
-      const uint32_t vs = ks + 2 * TK::kBytes;
-      s9::mbar_wait(afull0 + 8 * stage, phase);
-
-      // S = Q K^T and dP = dO V^T, three passes each.
-      s9::fence_regs(s);
-      s9::fence_regs(dp);
-      s9::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 8; ++kk) {
-        const uint64_t qh = TQ::desc(q_s, kk, row);
-        const uint64_t ql = TQ::desc(q_s + TQ::kBytes, kk, row);
-        const uint64_t kh = TK::desc(ks, kk, 0);
-        const uint64_t kl = TK::desc(ks + TK::kBytes, kk, 0);
-        s9::wgmma_tf32_ss<BK>(s, ql, kh, kk > 0);
-        s9::wgmma_tf32_ss<BK>(s, qh, kl, 1);
-        s9::wgmma_tf32_ss<BK>(s, qh, kh, 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < DP / 8; ++kk) {
-        const uint64_t gh = TQ::desc(g_s, kk, row);
-        const uint64_t gl = TQ::desc(g_s + TQ::kBytes, kk, row);
-        const uint64_t vh = TK::desc(vs, kk, 0);
-        const uint64_t vl = TK::desc(vs + TK::kBytes, kk, 0);
-        s9::wgmma_tf32_ss<BK>(dp, gl, vh, kk > 0);
-        s9::wgmma_tf32_ss<BK>(dp, gh, vl, 1);
-        s9::wgmma_tf32_ss<BK>(dp, gh, vh, 1);
-      }
-      s9::wgmma_commit();
-      s9::wgmma_wait<0>();
-      s9::fence_regs(s);
-      s9::fence_regs(dp);
-      s9::mbar_arrive(aempty0 + 8 * stage);  // K and V of this stage are read
-
-      // P = exp(scale s - lse), selected to 0 where the key is hidden or
-      // past Lk; dS = P (dP - delta), split into the TF32 A fragments of
-      // dS K: accumulator columns (2t, 2t + 1) of a k-step are the
-      // fragment's (t, t + 4).
-      const bool check = k0 + BK > p.Lk || state == 2;
-      uint32_t dh[BK / 8][4], dlo[BK / 8][4];
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * j + 2 * t + (e & 1);
-          float pr = s9::exp2_approx(
-              fmaf(s[4 * j + e], c, -(e < 2 ? lse0 : lse1)));
-          if (check) {
-            bool visible = key < p.Lk;
-            if (masked && state == 2)
-              visible = visible && pos_sees(p, off, e < 2 ? qpos0 : qpos1,
-                                            key);
-            if (!visible) pr = 0.f;  // selected, not multiplied
-          }
-          const float ds = pr * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
-          const int f = (e & 1) * 2 + (e >> 1);  // fragment register
-          split_frag(ds, dh[j][f], dlo[j][f]);
-        }
-      }
-
-      // dQ += this tile's dS K (K^T K-major, permuted as dS), into a fresh
-      // accumulator.
-      s9::mbar_wait(bfull0 + 8 * stage, phase);
-      accum_rs<TKT, DP, DP>(dq, dh, dlo, b_s + stage * C::kBStage);
-      s9::mbar_arrive(bempty0 + 8 * stage);  // K^T of this stage is read
-      if (++stage == S) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-
-    // Epilogue: dQ * scale through dq's strides; rows past Lq not written.
-    float* ob = p.o0 + b * p.o0s[0] + h * p.o0s[1];
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (col >= p.d) continue;
-      if (r0 < p.Lq)
-        *reinterpret_cast<float2*>(ob + r0 * p.o0s[2] + col) =
-            make_float2(dq[4 * j] * p.scale, dq[4 * j + 1] * p.scale);
-      if (r1 < p.Lq)
-        *reinterpret_cast<float2*>(ob + r1 * p.o0s[2] + col) =
-            make_float2(dq[4 * j + 2] * p.scale, dq[4 * j + 3] * p.scale);
-    }
-  }
-}
-
-// ------------------------------------------------------- K4 / K7: dk, dv
-template <int DP>
-struct DkvCfg {
-  static constexpr int kCons = DP <= 64 ? 2 : 1;  // consumer warpgroups
-  static constexpr int kBKey = 64 * kCons;        // keys per block
-  static constexpr int kBQ = DP <= 64 ? 32 : 16;  // queries per tile
-  static constexpr int kThreads = 128 * (1 + kCons);
-  static constexpr int kConsumers = 128 * kCons;
-  static constexpr int kConsumerRegs = kCons == 2 ? 232 : 240;
-  static constexpr int kStagesA = 2, kStagesB = 1;
-  // output columns per dV / dK accumulator
-  static constexpr int kNC = DP <= 64 ? DP : DP / 2;
-  using TK = Tile<kBKey, DP>;     // K, V (resident)
-  using TQ = Tile<kBQ, DP>;       // Q, dO
-  using TQT = Tile<DP, kBQ>;      // Q^T, dO^T
-  static constexpr int kVOff = 2 * TK::kBytes;
-  static constexpr int kAOff = 4 * TK::kBytes;  // ring A: Q, dO per stage
-  static constexpr int kAStage = 4 * TQ::kBytes;
-  static constexpr int kBOff = kAOff + kStagesA * kAStage;  // Q^T, dO^T
-  static constexpr int kBStage = 4 * TQT::kBytes;
-  static constexpr int kBarOff = kBOff + kStagesB * kBStage;
-  // K / V full; A full, empty per stage; B full, empty per stage
-  static constexpr int kBars = 1 + 2 * kStagesA + 2 * kStagesB;
-  static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
-  static_assert(kSmemBytes <= 232448, "shared memory");
-  static_assert(DP % 16 == 0 && DP <= 128, "head dim");
-};
-
-template <int DP, bool MASKED>
-__global__ void __launch_bounds__(DkvCfg<DP>::kThreads, 1)
-flash_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
-                         const __grid_constant__ CUtensorMap tg,
-                         const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv,
-                         const __grid_constant__ CUtensorMap tqt,
-                         const __grid_constant__ CUtensorMap tgt,
-                         const __grid_constant__ Params p) {
-  using C = DkvCfg<DP>;
-  using TK = typename C::TK;
-  using TQ = typename C::TQ;
-  using TQT = typename C::TQT;
-  constexpr int BQ = C::kBQ, BKEY = C::kBKey, SA = C::kStagesA,
-                SB = C::kStagesB, NC = C::kNC;
-
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t base = (s9::smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t k_s = base, v_s = base + C::kVOff;
-  const uint32_t a_s = base + C::kAOff, b_s = base + C::kBOff;
-  const uint32_t kv_full = base + C::kBarOff;
-  const uint32_t afull0 = kv_full + 8, aempty0 = afull0 + 8 * SA;
-  const uint32_t bfull0 = aempty0 + 8 * SA, bempty0 = bfull0 + 8 * SB;
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x / p.n_tiles;
-  const int b = bh / p.H, h = bh % p.H;
-  const int kb0 = (blockIdx.x % p.n_tiles) * BKEY;
-
-  if (tid == 0) {
-    s9::mbar_init(kv_full, 1);
-    for (int s = 0; s < SA; ++s) {
-      s9::mbar_init(afull0 + 8 * s, 1);
-      s9::mbar_init(aempty0 + 8 * s, C::kConsumers);
-    }
-    for (int s = 0; s < SB; ++s) {
-      s9::mbar_init(bfull0 + 8 * s, 1);
-      s9::mbar_init(bempty0 + 8 * s, C::kConsumers);
-    }
-    s9::mbar_init_fence();
-  } else if (tid == 32) {  // fetch the descriptors while barriers are set up
-    s9::prefetch_tensormap(&tq);
-    s9::prefetch_tensormap(&tg);
-    s9::prefetch_tensormap(&tk);
-    s9::prefetch_tensormap(&tv);
-    s9::prefetch_tensormap(&tqt);
-    s9::prefetch_tensormap(&tgt);
-  }
-  __syncthreads();
-
-  const bool masked = MASKED && (p.pos.causal || p.pos.has_valid);
-  const Offsets off(p.pos, masked);
-  const int n_qt = (p.Lq + BQ - 1) / BQ;
-  auto pair = [&](int qt) {
-    return tile_pair(p, off, masked, qt * BQ, BQ, kb0, BKEY);
-  };
-
-  if (tid < 128) {
-    // ------------------------------------------------------------ producer
-    s9::reg_dealloc<kProducerRegs>();
-    if (tid != 0) return;
-    s9::mbar_expect_tx(kv_full, 4 * TK::kBytes);
-    TK::load(k_s, &tk, kv_full, 0, kb0, h, b, p.B);
-    TK::load(v_s, &tv, kv_full, 0, kb0, h, b, p.B);
-    int sa = 0, sb = 0;
-    uint32_t pa = 0, pb = 0;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      if (pair(qt) == 0) continue;
-      const int q0 = qt * BQ;
-      const uint32_t afull = afull0 + 8 * sa, bfull = bfull0 + 8 * sb;
-      const uint32_t as = a_s + sa * C::kAStage, bs = b_s + sb * C::kBStage;
-      s9::mbar_wait(aempty0 + 8 * sa, pa ^ 1);
-      s9::mbar_expect_tx(afull, 4 * TQ::kBytes);
-      TQ::load(as, &tq, afull, 0, q0, h, b, p.B);
-      TQ::load(as + 2 * TQ::kBytes, &tg, afull, 0, q0, h, b, p.B);
-      s9::mbar_wait(bempty0 + 8 * sb, pb ^ 1);
-      s9::mbar_expect_tx(bfull, 4 * TQT::kBytes);
-      TQT::load(bs, &tqt, bfull, q0, 0, h, b, p.B);
-      TQT::load(bs + 2 * TQT::kBytes, &tgt, bfull, q0, 0, h, b, p.B);
-      if (++sa == SA) {
-        sa = 0;
-        pa ^= 1;
-      }
-      if (++sb == SB) {
-        sb = 0;
-        pb ^= 1;
-      }
-    }
-  } else {
-    // ----------------------------------------------------------- consumers
-    s9::reg_alloc<C::kConsumerRegs>();
-    const int cw = (tid - 128) / 128;  // keys 64*cw .. 64*cw + 63 of the block
-    const int warp = (tid / 32) % 4, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int key0 = kb0 + 64 * cw + 16 * warp + g, key1 = key0 + 8;
-    const float c = p.scale * kLog2e;  // exp(x scale) = exp2(x c)
-    const float* lse_b = p.lse + static_cast<long long>(bh) * p.Lq;
-    const float* dl_b = p.delta + static_cast<long long>(bh) * p.Lq;
-    float dk[DP / 2], dv[DP / 2];
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
-    float st[BQ / 2], dpt[BQ / 2];
-    const int row = 64 * cw;  // this group's rows of the K and V tiles
-
-    s9::mbar_wait(kv_full, 0);  // also when no tile is visited: TMA is done
-    int sa = 0, sb = 0;
-    uint32_t pa = 0, pb = 0;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int state = pair(qt);
-      if (state == 0) continue;
-      const int q0 = qt * BQ;
-      // lse (times log2 e), delta and position of this thread's query
-      // columns 8j + 2t + u, read before the wait
-      float lq[BQ / 4], dlt[BQ / 4];
-      int qpos[BQ / 4];
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int col = q0 + 8 * j + 2 * t + u;
-          const bool in = col < p.Lq;
-          lq[2 * j + u] = (in ? lse_b[col] : kPadLse) * kLog2e;
-          dlt[2 * j + u] = in ? dl_b[col] : 0.f;
-          qpos[2 * j + u] =
-              masked ? pos_of(col, off.q0, off.q1, p.pos.seg_q) : 0;
-        }
-      const uint32_t qs = a_s + sa * C::kAStage;
-      const uint32_t gs = qs + 2 * TQ::kBytes;
-      s9::mbar_wait(afull0 + 8 * sa, pa);
-
-      // S^T = K Q^T and dP^T = V dO^T with the keys as M, three passes each.
-      s9::fence_regs(st);
-      s9::fence_regs(dpt);
-      s9::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 8; ++kk) {
-        const uint64_t kh = TK::desc(k_s, kk, row);
-        const uint64_t kl = TK::desc(k_s + TK::kBytes, kk, row);
-        const uint64_t qh = TQ::desc(qs, kk, 0);
-        const uint64_t ql = TQ::desc(qs + TQ::kBytes, kk, 0);
-        s9::wgmma_tf32_ss<BQ>(st, kl, qh, kk > 0);
-        s9::wgmma_tf32_ss<BQ>(st, kh, ql, 1);
-        s9::wgmma_tf32_ss<BQ>(st, kh, qh, 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < DP / 8; ++kk) {
-        const uint64_t vh = TK::desc(v_s, kk, row);
-        const uint64_t vl = TK::desc(v_s + TK::kBytes, kk, row);
-        const uint64_t gh = TQ::desc(gs, kk, 0);
-        const uint64_t gl = TQ::desc(gs + TQ::kBytes, kk, 0);
-        s9::wgmma_tf32_ss<BQ>(dpt, vl, gh, kk > 0);
-        s9::wgmma_tf32_ss<BQ>(dpt, vh, gl, 1);
-        s9::wgmma_tf32_ss<BQ>(dpt, vh, gh, 1);
-      }
-      s9::wgmma_commit();
-      s9::wgmma_wait<0>();
-      s9::fence_regs(st);
-      s9::fence_regs(dpt);
-      s9::mbar_arrive(aempty0 + 8 * sa);  // Q and dO of this stage are read
-
-      // P^T and dS^T in registers, selected to 0 where hidden or past the
-      // ends, split into the TF32 A fragments of P^T dO and dS^T Q.
-      const bool check = q0 + BQ > p.Lq || state == 2 ||
-                         kb0 + BKEY > p.Lk;
-      uint32_t ph[BQ / 8][4], pl[BQ / 8][4], sh[BQ / 8][4], sl[BQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int u = 2 * j + (e & 1);
-          const int key = e < 2 ? key0 : key1;
-          float pr = s9::exp2_approx(fmaf(st[4 * j + e], c, -lq[u]));
-          if (check) {
-            bool visible = q0 + 8 * j + 2 * t + (e & 1) < p.Lq && key < p.Lk;
-            if (masked && state == 2)
-              visible = visible && pos_sees(p, off, qpos[u], key);
-            if (!visible) pr = 0.f;  // selected, not multiplied
-          }
-          const int f = (e & 1) * 2 + (e >> 1);  // fragment register
-          split_frag(pr, ph[j][f], pl[j][f]);
-          split_frag(pr * (dpt[4 * j + e] - dlt[u]), sh[j][f], sl[j][f]);
-        }
-      }
-
-      // dV += P^T dO and dK += dS^T Q, NC columns of d at a time (dO^T and
-      // Q^T K-major, permuted as P^T).
-      const uint32_t qts = b_s + sb * C::kBStage;
-      s9::mbar_wait(bfull0 + 8 * sb, pb);
-      accum_rs<TQT, DP, NC>(dv, ph, pl, qts + 2 * TQT::kBytes);
-      accum_rs<TQT, DP, NC>(dk, sh, sl, qts);
-      s9::mbar_arrive(bempty0 + 8 * sb);  // Q^T and dO^T are read
-      if (++sa == SA) {
-        sa = 0;
-        pa ^= 1;
-      }
-      if (++sb == SB) {
-        sb = 0;
-        pb ^= 1;
-      }
-    }
-
-    // Epilogue: dK * scale and dV through their strides; keys past Lk are
-    // not written.
-    float* kb = p.o0 + b * p.o0s[0] + h * p.o0s[1];
-    float* vb = p.o1 + b * p.o1s[0] + h * p.o1s[1];
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (col >= p.d) continue;
-      if (key0 < p.Lk) {
-        *reinterpret_cast<float2*>(kb + key0 * p.o0s[2] + col) =
-            make_float2(dk[4 * j] * p.scale, dk[4 * j + 1] * p.scale);
-        *reinterpret_cast<float2*>(vb + key0 * p.o1s[2] + col) =
-            make_float2(dv[4 * j], dv[4 * j + 1]);
-      }
-      if (key1 < p.Lk) {
-        *reinterpret_cast<float2*>(kb + key1 * p.o0s[2] + col) =
-            make_float2(dk[4 * j + 2] * p.scale, dk[4 * j + 3] * p.scale);
-        *reinterpret_cast<float2*>(vb + key1 * p.o1s[2] + col) =
-            make_float2(dv[4 * j + 2], dv[4 * j + 3]);
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------- host side
 // The terms in the workspace, in floats from its start: q, k, v, dO as
@@ -623,50 +151,6 @@ cudaError_t split_dkv(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = split_transposed(g, st + 9, w.gt, w.nqt, p.B, p.H, p.Lq, p.d, s);
   return err;
-}
-
-template <int DP, bool MASKED>
-cudaError_t run_dq(const Work& w, Params p, cudaStream_t s) {
-  using C = DqCfg<DP>;
-  const int d = p.d;
-  CUtensorMap tq, tg, tk, tv, tkt;
-  cudaError_t err = rows_map(&tq, w.q, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
-  if (err == cudaSuccess)
-    err = rows_map(&tg, w.g, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
-  if (err == cudaSuccess)
-    err = rows_map(&tk, w.k, p.B, p.H, p.Lk, d, C::TK::W, C::kBK);
-  if (err == cudaSuccess)
-    err = rows_map(&tv, w.v, p.B, p.H, p.Lk, d, C::TK::W, C::kBK);
-  if (err == cudaSuccess)
-    err = transposed_map(&tkt, w.kt, p.B, p.H, p.Lk, d, C::TKT::W, DP);
-  if (err != cudaSuccess) return err;
-  p.n_tiles = (p.Lq + C::kBQ - 1) / C::kBQ;
-  return s9::launch_kernel(flash_bwd_dq_f32_kernel<DP, MASKED>,
-                           p.B * p.H * p.n_tiles, C::kThreads, C::kSmemBytes,
-                           s, tq, tg, tk, tv, tkt, p);
-}
-
-template <int DP, bool MASKED>
-cudaError_t run_dkv(const Work& w, Params p, cudaStream_t s) {
-  using C = DkvCfg<DP>;
-  const int d = p.d;
-  CUtensorMap tq, tg, tk, tv, tqt, tgt;
-  cudaError_t err = rows_map(&tq, w.q, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
-  if (err == cudaSuccess)
-    err = rows_map(&tg, w.g, p.B, p.H, p.Lq, d, C::TQ::W, C::kBQ);
-  if (err == cudaSuccess)
-    err = rows_map(&tk, w.k, p.B, p.H, p.Lk, d, C::TK::W, C::kBKey);
-  if (err == cudaSuccess)
-    err = rows_map(&tv, w.v, p.B, p.H, p.Lk, d, C::TK::W, C::kBKey);
-  if (err == cudaSuccess)
-    err = transposed_map(&tqt, w.qt, p.B, p.H, p.Lq, d, C::TQT::W, DP);
-  if (err == cudaSuccess)
-    err = transposed_map(&tgt, w.gt, p.B, p.H, p.Lq, d, C::TQT::W, DP);
-  if (err != cudaSuccess) return err;
-  p.n_tiles = (p.Lk + C::kBKey - 1) / C::kBKey;
-  return s9::launch_kernel(flash_bwd_dkv_f32_kernel<DP, MASKED>,
-                           p.B * p.H * p.n_tiles, C::kThreads, C::kSmemBytes,
-                           s, tq, tg, tk, tv, tqt, tgt, p);
 }
 
 // strides: q, k, v, dO, then the outputs, three each.
@@ -739,7 +223,7 @@ cudaError_t launch_dq(const Work& w, const Params& p, bool masked,
     return masked ? run_dq_wide<DP, true>(w, p, s)
                   : run_dq_wide<DP, false>(w, p, s);
   else
-    return masked ? run_dq<DP, true>(w, p, s) : run_dq<DP, false>(w, p, s);
+    return run_narrow<DP>(true, masked, w, p, s);
 }
 
 template <int DP>
@@ -749,36 +233,50 @@ cudaError_t launch_dkv(const Work& w, const Params& p, bool masked,
     return masked ? run_dkv_wide<DP, true>(w, p, s)
                   : run_dkv_wide<DP, false>(w, p, s);
   else
-    return masked ? run_dkv<DP, true>(w, p, s)
-                  : run_dkv<DP, false>(w, p, s);
+    return run_narrow<DP>(false, masked, w, p, s);
 }
 
+// run_any at the head dim d (a multiple of 4 up to 256) rounded up to 32.
+cudaError_t any_width(int d, bool dq, const Work& w, const Params& p,
+                      cudaStream_t s) {
+  switch ((d + 31) / 32 * 32) {
+#define FDSD_CASE(DP) \
+  case DP:            \
+    return run_any<DP>(dq, w, p, s);
+    FDSD_F32_BWD_ANY_WIDTHS(FDSD_CASE)
+#undef FDSD_CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K3 (K6 with offsets) after its pre-pass: without a mask, masked (causal,
+// the position masks), or in the ANY form (a bias, segment ids; causal too).
 cudaError_t dispatch_dq(const void* q, const void* k, const void* v,
                         const void* g, const long long* st, void* work,
-                        const Params& p, int d, bool masked, cudaStream_t s) {
-  if (masked && p.pos.q_off != nullptr && d != 64)  // K6: 64 only
-    return cudaErrorInvalidValue;
+                        const Params& p, int d, bool masked, bool any,
+                        cudaStream_t s) {
+  if (d < 4 || d > 256 || d % 4 != 0) return cudaErrorInvalidValue;
   const Work w = carve(work, p.B, p.H, p.Lq, p.Lk, d);
+  cudaError_t err = split_dq(q, k, v, g, st, w, p, s);
+  if (err != cudaSuccess) return err;
+  if (any) return any_width(d, true, w, p, s);
   return run_width(d, [&](auto width) {
-    cudaError_t err = split_dq(q, k, v, g, st, w, p, s);
-    return err == cudaSuccess
-               ? launch_dq<decltype(width)::value>(w, p, masked, s)
-               : err;
+    return launch_dq<decltype(width)::value>(w, p, masked, s);
   });
 }
 
+// K4 (K7 with offsets), as dispatch_dq.
 cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
                          const void* g, const long long* st, void* work,
-                         const Params& p, int d, bool masked,
+                         const Params& p, int d, bool masked, bool any,
                          cudaStream_t s) {
-  if (masked && p.pos.q_off != nullptr && d != 64)  // K7: 64 only
-    return cudaErrorInvalidValue;
+  if (d < 4 || d > 256 || d % 4 != 0) return cudaErrorInvalidValue;
   const Work w = carve(work, p.B, p.H, p.Lq, p.Lk, d);
+  cudaError_t err = split_dkv(q, k, v, g, st, w, p, s);
+  if (err != cudaSuccess) return err;
+  if (any) return any_width(d, false, w, p, s);
   return run_width(d, [&](auto width) {
-    cudaError_t err = split_dkv(q, k, v, g, st, w, p, s);
-    return err == cudaSuccess
-               ? launch_dkv<decltype(width)::value>(w, p, masked, s)
-               : err;
+    return launch_dkv<decltype(width)::value>(w, p, masked, s);
   });
 }
 
@@ -792,45 +290,62 @@ PosArgs pos_args(const void* q_off, const void* k_off, int seg_q, int seg_k,
 }  // namespace
 
 // K3 in fp32. strides: 15 element strides, (batch, head, seq) for q, k, v,
-// dO, dq, each a multiple of 4; the head-dim stride is 1. lse and delta are
-// (B, H, Lq) contiguous fp32. work: fp32 scratch of 2 B H d (2 Lq + 2 Lk +
-// Lk8 + 2 Lq8) floats (L8: L rounded up to 8), shared in layout with
+// dO, dq, each a multiple of 4 (the head-dim stride is 1), then (batch,
+// head, row, col) for the bias. lse and delta are (B, H, Lq) contiguous
+// fp32. dbias: with a bias, fp32 (B, H, Lq, Lk) contiguous (dS before any
+// reduction; every element written), or null. bias (fp32, read through its
+// strides) and the six segment arrays of mask.cuh (at the tiles of the ANY
+// kernel of the head dim rounded up to 32: (128, 32) at 32 and 64, (64, 32)
+// at 96 and 128, (64, 32) at 160 and 192, (64, 16) at 224 and 256) are null
+// when not asked for. work: fp32 scratch of 2 B H d (2 Lq + 2 Lk + Lk8 +
+// 2 Lq8) floats (L8: L rounded up to 8), shared in layout with
 // fdsd_flash_bwd_dkv_f32. Every head dim up to 256 that is a multiple of 4,
-// without a mask or causal.
-extern "C" int fdsd_flash_bwd_dq_f32(const void* q, const void* k,
-                                     const void* v, const void* g,
-                                     const void* lse, const void* delta,
-                                     void* dq, void* work, int B, int H,
-                                     int Lq, int Lk, int d,
-                                     const long long* strides, float scale,
-                                     int causal, void* stream) {
+// in every form.
+extern "C" int fdsd_flash_bwd_dq_f32(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* lse, const void* delta, void* dq, void* dbias, void* work,
+    const void* bias, const void* q_ids, const void* kv_ids,
+    const void* q_bounds, const void* kv_bounds, const void* lo,
+    const void* hi, int B, int H, int Lq, int Lk, int d,
+    const long long* strides, float scale, int causal, void* stream) {
   Params p = bwd_params(lse, delta, dq, nullptr, B, H, Lq, Lk, d, strides,
                        scale);
   p.pos.causal = causal;
+  const bool any = bias != nullptr || q_ids != nullptr;
+  p.m = fdsd::make_mask_args(bias, strides + 15, 0, q_ids, kv_ids, q_bounds,
+                             kv_bounds, lo, hi);
+  p.ds = bias != nullptr ? static_cast<float*>(dbias) : nullptr;
   return static_cast<int>(dispatch_dq(q, k, v, g, strides, work, p, d,
-                                      causal != 0,
+                                      causal != 0 || any, any,
                                       static_cast<cudaStream_t>(stream)));
 }
 
-// K4 in fp32. strides: 18 element strides, for q, k, v, dO, dk, dv; work
-// as for fdsd_flash_bwd_dq_f32.
-extern "C" int fdsd_flash_bwd_dkv_f32(const void* q, const void* k,
-                                      const void* v, const void* g,
-                                      const void* lse, const void* delta,
-                                      void* dk, void* dv, void* work, int B,
-                                      int H, int Lq, int Lk, int d,
-                                      const long long* strides, float scale,
-                                      int causal, void* stream) {
+// K4 in fp32. strides: 18 element strides, for q, k, v, dO, dk, dv, then
+// the bias's 4; the segment arrays at the tiles of the ANY kernel of the
+// head dim rounded up to 32 ((32 queries, 128 keys) at 32 and 64, (16, 64)
+// at 96 and 128, (32, 64) at 160, (16, 64) from 192); work as for
+// fdsd_flash_bwd_dq_f32.
+extern "C" int fdsd_flash_bwd_dkv_f32(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* lse, const void* delta, void* dk, void* dv, void* work,
+    const void* bias, const void* q_ids, const void* kv_ids,
+    const void* q_bounds, const void* kv_bounds, const void* lo,
+    const void* hi, int B, int H, int Lq, int Lk, int d,
+    const long long* strides, float scale, int causal, void* stream) {
   Params p = bwd_params(lse, delta, dk, dv, B, H, Lq, Lk, d, strides,
                        scale);
   p.pos.causal = causal;
+  const bool any = bias != nullptr || q_ids != nullptr;
+  p.m = fdsd::make_mask_args(bias, strides + 18, 0, q_ids, kv_ids, q_bounds,
+                             kv_bounds, lo, hi);
   return static_cast<int>(dispatch_dkv(q, k, v, g, strides, work, p, d,
-                                       causal != 0,
+                                       causal != 0 || any, any,
                                        static_cast<cudaStream_t>(stream)));
 }
 
 // K6 in fp32: the arguments of fdsd_flash_bwd_pos_dq on fp32 tensors, with
-// the workspace of fdsd_flash_bwd_dq_f32 after the offsets. Head dim 64.
+// the workspace of fdsd_flash_bwd_dq_f32 after the offsets. Every head dim
+// up to 256 that is a multiple of 4.
 extern "C" int fdsd_flash_bwd_pos_dq_f32(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dq, const void* q_off,
@@ -841,11 +356,13 @@ extern "C" int fdsd_flash_bwd_pos_dq_f32(
                        scale);
   p.pos = pos_args(q_off, k_off, seg_q, seg_k, valid_len, has_valid, causal);
   return static_cast<int>(dispatch_dq(q, k, v, g, strides, work, p, d, true,
+                                      false,
                                       static_cast<cudaStream_t>(stream)));
 }
 
 // K7 in fp32: the arguments of fdsd_flash_bwd_pos_dkv on fp32 tensors, with
-// the workspace of fdsd_flash_bwd_dkv_f32 after the offsets. Head dim 64.
+// the workspace of fdsd_flash_bwd_dkv_f32 after the offsets. Every head dim
+// up to 256 that is a multiple of 4.
 extern "C" int fdsd_flash_bwd_pos_dkv_f32(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dk, void* dv, const void* q_off,
@@ -856,5 +373,6 @@ extern "C" int fdsd_flash_bwd_pos_dkv_f32(
                        scale);
   p.pos = pos_args(q_off, k_off, seg_q, seg_k, valid_len, has_valid, causal);
   return static_cast<int>(dispatch_dkv(q, k, v, g, strides, work, p, d, true,
+                                       false,
                                        static_cast<cudaStream_t>(stream)));
 }

@@ -1,8 +1,11 @@
 // Flash-attention forward on fp32 inputs for Hopper (sm_90a) on the tensor
-// cores: the fp32 form of K1 (no mask and causal at every head dim up to
-// 256, no mask at 512; T5's additive bias at 64) and of K5 (position masks
-// at 64, online and bounded). Head dims 161 to 256 and 512 run the streaming
-// kernel of flash_f32_fwd_wide.cuh (widths in flash_f32_fwd_w*.cu).
+// cores: the fp32 form of K1 (every mask form at every head dim up to 256:
+// no mask, causal, an additive bias, segment ids, and their combinations;
+// no mask at 512) and of K5 (the position masks at every head dim up to
+// 256, online and bounded). Up to 160 the resident kernel of
+// flash_f32_fwd.cuh; head dims 161 to 256 and 512 run the streaming kernel of
+// flash_f32_fwd_wide.cuh (widths in flash_f32_fwd_w*.cu). This file holds
+// the split pre-pass, the d = 512 kernel, the dispatch and the C entries.
 //
 // Replaces, for fp32 q, k, v, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
@@ -96,453 +99,28 @@
 //    query tiles the keys at d = 512 are split over up to kMaxSplits blocks
 //    (k1_d512_splits in ops/flash_attention.py) and merge_f32_d512_kernel
 //    merges them by their lse.
+//  - The ANY form (K1 with a bias or segment ids, causal or not), at the
+//    head dim rounded up to 32 (32 - 160 resident, 192 - 256 streaming):
+//    every mask compiled in and chosen per launch. The bias is read from
+//    global memory (L2) through its strides, each consumer thread the
+//    elements of its own accumulator fragment, and added to the scaled
+//    logit in fp32 (a staged tile beside the resident Q terms would not fit
+//    from DP 96 on); segment ids walk the key-tile range [lo, hi] of
+//    mask.cuh at the kernel's own tiles (ops/flash_attention.py's
+//    _f32_tiles), skip a tile whose ids are disjoint, and compare ids per
+//    logit where a pair is not skipped.
 // Masks (K1 causal and K5) are the position masks of pos_tile.cuh, runtime
 // flags judged per (query tile, key tile) pair by pos_pair in every role;
 // K1's causal is the position mask with offsets 0. The key tail is masked
 // on the last tile only.
 
-#include "../pos_tile.cuh"
-#include "../sm90.cuh"
-#include "flash_f32_fwd_wide.cuh"
+#include "flash_f32_fwd.cuh"
 #include "split_f32.cuh"
 
 namespace {
 
-namespace s9 = fdsd::sm90;
+using namespace fdsd::f32fwd;
 using fdsd::PosArgs;
-using fdsd::pos_bounds;
-using fdsd::pos_of;
-using fdsd::pos_pair;
-
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kPasses = 3;    // TF32 wgmma passes per product
-static_assert(kPasses == 3, "hi hi + hi lo + lo hi");
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-
-// ------------------------------------------------------------- workspace
-// The split terms, in floats from the workspace's start: q (2, B, H, Lq, d),
-// k (2, B, H, Lk, d), v^T (2, B, H, d, Lk8), then at d = 512 with key splits
-// the partial outputs (splits, B*H*Lq, 513).
-struct Work {
-  float* q;
-  float* k;
-  float* vt;
-  float* part;
-  long long nq, nk, nv;  // floats of one term
-  int lk8;
-};
-
-Work carve(void* work, int B, int H, int Lq, int Lk, int d) {
-  Work w;
-  w.lk8 = round_up8(Lk);
-  w.nq = static_cast<long long>(B) * H * Lq * d;
-  w.nk = static_cast<long long>(B) * H * Lk * d;
-  w.nv = static_cast<long long>(B) * H * d * w.lk8;
-  w.q = static_cast<float*>(work);
-  w.k = w.q + 2 * w.nq;
-  w.vt = w.k + 2 * w.nk;
-  w.part = w.vt + 2 * w.nv;
-  return w;
-}
-
-// ------------------------------------------------ K1 / K5 at d <= 160
-// Two consumer warpgroups of 64 query rows (128 queries a block) up to
-// d = 128; one at d = 160, where a 128-query Q tile's two terms alone would
-// take 160 KB. HAS_BIAS adds a (kBQ x kBK) fp32 bias tile.
-template <int DP, bool HAS_BIAS = false>
-struct Cfg {
-  static constexpr int kCons = DP <= 128 ? 2 : 1;
-  static constexpr int kBQ = 64 * kCons;  // queries per block
-  static constexpr int kThreads = 128 * (1 + kCons);
-  static constexpr int kConsumers = 128 * kCons;
-  static constexpr int W = DP % 32 == 0 ? 32 : 8;  // columns per swizzle row
-  static constexpr uint32_t kLayout = W == 32 ? 1 : 3;  // 128B / 32B swizzle
-  static constexpr uint32_t kAtom = 8 * W * 4;          // 8 rows of a chunk
-  static constexpr int kChunks = DP / W;
-  static constexpr int kBK = DP >= 80 ? 32 : 64;  // keys per tile
-  // two stages where Q's terms and two of each ring fit (DP < 120)
-  static constexpr int kStages =
-      2 * kBQ * DP * 4 + 2 * 4 * kBK * DP * 4 + 1024 + 8 * 11 <= 232448 &&
-              DP < 128
-          ? 2
-          : 1;
-  // output columns per P V wgmma: at d = 160 two halves of 80, so that the
-  // fresh accumulator of a key tile's P V stays 40 registers
-  static constexpr int kPVN = DP == 160 ? 80 : DP;
-  static constexpr int kQChunk = kBQ * W * 4, kKChunk = kBK * W * 4;
-  static constexpr int kVChunk = DP * 128;  // 32 keys of every v^T row
-  static constexpr int kQTerm = kBQ * DP * 4;  // one term of the Q tile
-  static constexpr int kKTerm = kBK * DP * 4;  // one term of a K tile
-  static constexpr int kVTerm = DP * kBK * 4;  // one term of a v^T tile
-  static constexpr int kKOff = 2 * kQTerm;
-  static constexpr int kVOff = kKOff + kStages * 2 * kKTerm;
-  static constexpr int kBiasOff = kVOff + kStages * 2 * kVTerm;
-  static constexpr int kBarOff = kBiasOff + (HAS_BIAS ? kBQ * kBK * 4 : 0);
-  // Q full; K full and empty, V full and empty per stage; bias full, empty
-  static constexpr int kBars = 1 + 4 * kStages + 2;
-  static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;  // + align
-  static_assert(kSmemBytes <= 232448, "shared memory");
-  static_assert(DP % 8 == 0 && DP <= 160, "head dim");
-  static_assert(!HAS_BIAS || DP == 64, "the bias form: d = 64");
-};
-
-struct Params {
-  float* out;
-  float* lse;
-  int B, H, Lq, Lk, n_qt;
-  int d;            // the head dim; columns d .. DP - 1 are padding
-  long long os[3];  // out's (batch, head, seq) element strides
-  float scale;
-  PosArgs pos;       // MASKED only; null offsets read as 0
-  fdsd::MaskArgs m;  // HAS_BIAS only: the fp32 bias and its strides
-};
-
-// logit = scale * s + bias in fp32, for this thread's tile rows rl0, rl1.
-template <int BK>
-__device__ __forceinline__ void add_bias(float (&s)[BK / 2], const float* tile,
-                                         int rl0, int rl1, int t,
-                                         float scale) {
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    const int c = 8 * j + 2 * t;
-    const float2 b0 = s9::load_pair(tile + s9::bias_at<BK>(rl0, c));
-    const float2 b1 = s9::load_pair(tile + s9::bias_at<BK>(rl1, c));
-    s[4 * j] = fmaf(s[4 * j], scale, b0.x);
-    s[4 * j + 1] = fmaf(s[4 * j + 1], scale, b0.y);
-    s[4 * j + 2] = fmaf(s[4 * j + 2], scale, b1.x);
-    s[4 * j + 3] = fmaf(s[4 * j + 3], scale, b1.y);
-  }
-}
-
-template <int DP, bool MASKED, bool BOUNDED, bool HAS_BIAS>
-__global__ void __launch_bounds__(Cfg<DP>::kThreads, 1)
-flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
-                     const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv,
-                     const __grid_constant__ Params p) {
-  using C = Cfg<DP, HAS_BIAS>;
-  constexpr int BK = C::kBK, S = C::kStages, BQ = C::kBQ;
-  // a logit at -1e30 is a masked one, selected to probability 0
-  constexpr bool kSelect = MASKED || HAS_BIAS;
-
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t raw = s9::smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  float* bias_s =
-      reinterpret_cast<float*>(smem_raw + (base - raw) + C::kBiasOff);
-  const uint32_t q_s = base, k_s = base + C::kKOff, v_s = base + C::kVOff;
-  const uint32_t q_full = base + C::kBarOff;
-  const uint32_t kfull0 = q_full + 8, kempty0 = kfull0 + 8 * S;
-  const uint32_t vfull0 = kempty0 + 8 * S, vempty0 = vfull0 + 8 * S;
-  const uint32_t bias_full = vempty0 + 8 * S, bias_empty = bias_full + 8;
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x / p.n_qt;
-  int qt = blockIdx.x % p.n_qt;
-  if (MASKED && p.pos.causal) qt = p.n_qt - 1 - qt;  // long rows first
-  const int b = bh / p.H, h = bh % p.H;
-  const int q0 = qt * BQ;
-
-  if (tid == 0) {
-    s9::mbar_init(q_full, 1);
-    for (int s = 0; s < S; ++s) {
-      s9::mbar_init(kfull0 + 8 * s, 1);
-      s9::mbar_init(kempty0 + 8 * s, C::kConsumers);
-      s9::mbar_init(vfull0 + 8 * s, 1);
-      s9::mbar_init(vempty0 + 8 * s, C::kConsumers);
-    }
-    if (HAS_BIAS) {
-      s9::mbar_init(bias_full, 128);
-      s9::mbar_init(bias_empty, C::kConsumers);
-    }
-    s9::mbar_init_fence();
-  } else if (tid == 32) {  // fetch the descriptors while barriers are set up
-    s9::prefetch_tensormap(&tq);
-    s9::prefetch_tensormap(&tk);
-    s9::prefetch_tensormap(&tv);
-  }
-  __syncthreads();
-
-  // Positions matter only to a mask: without causal and valid_len every
-  // pair is visible (the key tail aside) and the offsets are not read.
-  const bool masked = MASKED && (p.pos.causal || p.pos.has_valid);
-  int q_off0 = 0, q_off1 = 0, k_off0 = 0, k_off1 = 0;
-  if (masked && p.pos.q_off != nullptr) {
-    q_off0 = p.pos.q_off[0];
-    q_off1 = p.pos.q_off[1];
-  }
-  if (masked && p.pos.k_off != nullptr) {
-    k_off0 = p.pos.k_off[0];
-    k_off1 = p.pos.k_off[1];
-  }
-  const int n_kt = (p.Lk + BK - 1) / BK;
-  // pos_pair of this query tile with key tile kt: 0 skip, 1 visible, 2
-  // masked per logit; the same call in every role keeps the rings in step.
-  auto pair = [&](int kt) {
-    if (!masked) return 1;
-    int q_lo, q_hi, k_lo, k_hi;
-    pos_bounds(q0, BQ, q_off0, q_off1, p.pos.seg_q, p.Lq, q_lo, q_hi);
-    pos_bounds(kt * BK, BK, k_off0, k_off1, p.pos.seg_k, p.Lk, k_lo, k_hi);
-    return pos_pair(p.pos, q_lo, q_hi, k_lo, k_hi);
-  };
-
-  if (tid < 128) {
-    // ------------------------------------------------------------ producer
-    // One thread issues TMA; in the bias form all 128 stage the bias tile
-    // by cp.async, as the bf16 K1's producer does.
-    s9::reg_dealloc<kProducerRegs>();
-    if (!HAS_BIAS && tid != 0) return;
-    if (tid == 0) {
-      s9::mbar_expect_tx(q_full, 2 * C::kQTerm);
-      for (int term = 0; term < 2; ++term)
-        for (int c = 0; c < C::kChunks; ++c)
-          s9::tma_load_4d(q_s + term * C::kQTerm + c * C::kQChunk, &tq,
-                          q_full, c * C::W, q0, h, b + term * p.B);
-    }
-    const long long bias_base = HAS_BIAS ? b * p.m.bs[0] + h * p.m.bs[1] : 0;
-    int stage = 0;
-    uint32_t phase = 0, bias_phase = 0;
-    for (int kt = 0; kt < n_kt; ++kt) {
-      if (pair(kt) == 0) continue;
-      const int k0 = kt * BK;
-      if (tid == 0) {
-        const uint32_t kfull = kfull0 + 8 * stage, vfull = vfull0 + 8 * stage;
-        s9::mbar_wait(kempty0 + 8 * stage, phase ^ 1);
-        s9::mbar_expect_tx(kfull, 2 * C::kKTerm);
-        for (int term = 0; term < 2; ++term)
-          for (int c = 0; c < C::kChunks; ++c)
-            s9::tma_load_4d(
-                k_s + (2 * stage + term) * C::kKTerm + c * C::kKChunk, &tk,
-                kfull, c * C::W, k0, h, b + term * p.B);
-        s9::mbar_wait(vempty0 + 8 * stage, phase ^ 1);
-        s9::mbar_expect_tx(vfull, 2 * C::kVTerm);
-        for (int term = 0; term < 2; ++term)
-          for (int kc = 0; kc < BK / 32; ++kc)
-            s9::tma_load_4d(
-                v_s + (2 * stage + term) * C::kVTerm + kc * C::kVChunk, &tv,
-                vfull, k0 + 32 * kc, 0, h, b + term * p.B);
-      }
-      if constexpr (HAS_BIAS) {
-        s9::mbar_wait(bias_empty, bias_phase ^ 1);
-        s9::stage_bias<BQ, BK>(bias_s, p.m, bias_base, q0, k0, p.Lq, p.Lk,
-                               tid, bias_full);
-        bias_phase ^= 1;
-      }
-      if (++stage == S) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-  } else {
-    // ----------------------------------------------------------- consumers
-    s9::reg_alloc<kConsumerRegs>();
-    const int cw = (tid - 128) / 128;  // query rows 64*cw .. 64*cw + 63
-    const int warp = (tid / 32) % 4, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int rl0 = 64 * cw + 16 * warp + g, rl1 = rl0 + 8;  // tile rows
-    const int r0 = q0 + rl0, r1 = q0 + rl1;
-    // exp(x * scale) = exp2(x * c); with a bias the logits are scaled first
-    const float c = HAS_BIAS ? kLog2e : p.scale * kLog2e;
-    int qpos0 = 0, qpos1 = 0;
-    if (masked) {
-      qpos0 = pos_of(r0, q_off0, q_off1, p.pos.seg_q);
-      qpos1 = pos_of(r1, q_off0, q_off1, p.pos.seg_q);
-    }
-    // running row max (logit units; bounded: fixed at 0) and this thread's
-    // share of the row sums
-    float m0 = BOUNDED ? 0.f : kNegInf, m1 = m0;
-    float l0 = 0.f, l1 = 0.f;
-    float o[DP / 2], pv[C::kPVN / 2];  // O, and one chunk of a tile's P V
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
-    float s[BK / 2];
-    const uint32_t q_rows = q_s + cw * 64 * C::W * 4;  // this group's rows
-
-    s9::mbar_wait(q_full, 0);  // also when no tile is visited: TMA is done
-    int stage = 0;
-    uint32_t phase = 0, bias_phase = 0;
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int state = pair(kt);
-      if (state == 0) continue;
-      const int k0 = kt * BK;
-      const uint32_t ks = k_s + 2 * stage * C::kKTerm;
-      const uint32_t vs = v_s + 2 * stage * C::kVTerm;
-      s9::mbar_wait(kfull0 + 8 * stage, phase);
-
-      // S = Q K^T in three passes: Q_lo K_hi + Q_hi K_lo + Q_hi K_hi.
-      s9::fence_regs(s);
-      s9::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 8; ++kk) {
-        const uint32_t qa = q_rows + (kk * 8 / C::W) * C::kQChunk +
-                            (kk * 8 % C::W) * 4;
-        const uint32_t ka =
-            ks + (kk * 8 / C::W) * C::kKChunk + (kk * 8 % C::W) * 4;
-        const uint64_t qh = s9::smem_desc(qa, 16, C::kAtom, C::kLayout);
-        const uint64_t ql =
-            s9::smem_desc(qa + C::kQTerm, 16, C::kAtom, C::kLayout);
-        const uint64_t kh = s9::smem_desc(ka, 16, C::kAtom, C::kLayout);
-        const uint64_t kl =
-            s9::smem_desc(ka + C::kKTerm, 16, C::kAtom, C::kLayout);
-        s9::wgmma_tf32_ss<BK>(s, ql, kh, kk > 0);
-        s9::wgmma_tf32_ss<BK>(s, qh, kl, 1);
-        s9::wgmma_tf32_ss<BK>(s, qh, kh, 1);
-      }
-      s9::wgmma_commit();
-      s9::wgmma_wait<0>();
-      s9::fence_regs(s);
-      s9::mbar_arrive(kempty0 + 8 * stage);  // K of this stage is read
-
-      if (HAS_BIAS) {  // logit = scale * s + bias, in fp32
-        s9::mbar_wait(bias_full, bias_phase);
-        add_bias<BK>(s, bias_s, rl0, rl1, t, p.scale);
-        s9::mbar_arrive(bias_empty);
-        bias_phase ^= 1;
-      }
-
-      // Per-logit masks (the key tail; valid_len and causal by position),
-      // only on the tiles that need them. The key tail is masked after the
-      // bias, which narrows it and never replaces it.
-      if (k0 + BK > p.Lk || state == 2) {
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = k0 + 8 * j + 2 * t + e;
-            bool v0 = col < p.Lk, v1 = v0;
-            if (masked) {
-              const int cpos = pos_of(col, k_off0, k_off1, p.pos.seg_k);
-              if (p.pos.has_valid && cpos >= p.pos.valid_len) v0 = v1 = false;
-              if (p.pos.causal) {
-                v0 = v0 && cpos <= qpos0;
-                v1 = v1 && cpos <= qpos1;
-              }
-            }
-            if (!v0) s[4 * j + e] = kNegInf;
-            if (!v1) s[4 * j + 2 + e] = kNegInf;
-          }
-        }
-      }
-
-      // The softmax in fp32 registers: online (running max, rescale of l
-      // and O) or bounded (max fixed at 0). A logit at -1e30 (or -inf, from
-      // a bias) is masked and selected to probability 0; a row with nothing
-      // visible yet subtracts 0. P is split into TF32 hi / lo A fragments
-      // of P V: accumulator columns (2t, 2t + 1) of a k-step are the
-      // fragment's (t, t + 4).
-      float al0 = 1.f, al1 = 1.f, sub0 = 0.f, sub1 = 0.f;
-      if (!BOUNDED) {
-        float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-          mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-          mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-        }
-#pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-        }
-        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        const float mu0 = kSelect && mn0 <= kNegInf ? 0.f : mn0;
-        const float mu1 = kSelect && mn1 <= kNegInf ? 0.f : mn1;
-        al0 = s9::exp2_approx((m0 - mu0) * c);
-        al1 = s9::exp2_approx((m1 - mu1) * c);
-        m0 = mn0;
-        m1 = mn1;
-        sub0 = mu0 * c;
-        sub1 = mu1 * c;
-      }
-      uint32_t ph[BK / 8][4], pl[BK / 8][4];
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[4 * j + e];
-          float pr = s9::exp2_approx(fmaf(x, c, -(e < 2 ? sub0 : sub1)));
-          if (kSelect && x <= kNegInf) pr = 0.f;  // selected, not exp'd
-          if (e < 2)
-            sum0 += pr;
-          else
-            sum1 += pr;
-          const int f = (e & 1) * 2 + (e >> 1);  // fragment register
-          ph[j][f] = s9::to_tf32(pr);
-          pl[j][f] = s9::to_tf32(pr - __uint_as_float(ph[j][f]));
-        }
-      }
-      l0 = l0 * al0 + sum0;
-      l1 = l1 * al1 + sum1;
-
-      // This tile's P V in three passes, P_lo V_hi + P_hi V_lo + P_hi V_hi,
-      // into a fresh accumulator per chunk of kPVN output columns; v^T
-      // K-major, the k-step kk is keys 8kk .. 8kk + 7. Then O = alpha O +
-      // P V in registers.
-      s9::mbar_wait(vfull0 + 8 * stage, phase);
-#pragma unroll
-      for (int nc = 0; nc < DP / C::kPVN; ++nc) {
-        s9::fence_regs(pv);
-        s9::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / 8; ++kk) {
-          const uint32_t va = vs + (kk / 4) * C::kVChunk + (kk % 4) * 32 +
-                              nc * C::kPVN * 128;
-          const uint64_t vh = s9::smem_desc(va, 16, 1024, 1);
-          const uint64_t vl = s9::smem_desc(va + C::kVTerm, 16, 1024, 1);
-          s9::wgmma_tf32_rs<C::kPVN>(pv, pl[kk], vh, kk > 0);
-          s9::wgmma_tf32_rs<C::kPVN>(pv, ph[kk], vl, 1);
-          s9::wgmma_tf32_rs<C::kPVN>(pv, ph[kk], vh, 1);
-        }
-        s9::wgmma_commit();
-        s9::wgmma_wait<0>();
-        s9::fence_regs(pv);
-        float* oc = o + nc * (C::kPVN / 2);
-#pragma unroll
-        for (int j = 0; j < C::kPVN / 8; ++j) {
-          oc[4 * j] = fmaf(oc[4 * j], al0, pv[4 * j]);
-          oc[4 * j + 1] = fmaf(oc[4 * j + 1], al0, pv[4 * j + 1]);
-          oc[4 * j + 2] = fmaf(oc[4 * j + 2], al1, pv[4 * j + 2]);
-          oc[4 * j + 3] = fmaf(oc[4 * j + 3], al1, pv[4 * j + 3]);
-        }
-      }
-      s9::mbar_arrive(vempty0 + 8 * stage);  // v^T of this stage is read
-      if (++stage == S) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-
-    // Epilogue: O / l in fp32 through out's strides; lse = m scale + log l
-    // (m in scaled units with a bias); a row with l = 0 gives out = 0 and
-    // lse = -1e30.
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
-    const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
-    const float to_ln = HAS_BIAS ? 1.f : p.scale;
-    float* ob = p.out + b * p.os[0] + h * p.os[1];
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (col >= p.d) continue;
-      if (r0 < p.Lq)
-        *reinterpret_cast<float2*>(ob + r0 * p.os[2] + col) =
-            make_float2(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-      if (r1 < p.Lq)
-        *reinterpret_cast<float2*>(ob + r1 * p.os[2] + col) =
-            make_float2(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-    }
-    float* lb = p.lse + static_cast<long long>(bh) * p.Lq;
-    if (t == 0) {
-      if (r0 < p.Lq) lb[r0] = l0 == 0.f ? kNegInf : m0 * to_ln + logf(l0);
-      if (r1 < p.Lq) lb[r1] = l1 == 0.f ? kNegInf : m1 * to_ln + logf(l1);
-    }
-  }
-}
 
 // ------------------------------------------------------- K1 at d = 512
 namespace d512 {
@@ -556,7 +134,7 @@ flash_fwd_f32_d512_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ WideParams p) {
-  fdsd::f32fwd::wide_body<DP, false>(tq, tk, tv, p);
+  fdsd::f32fwd::wide_body<DP, fdsd::f32fwd::kWidePlain>(tq, tk, tv, p);
 }
 
 // The key splits of one row, merged by their lse: out = sum_s w_s O_s with
@@ -635,49 +213,11 @@ cudaError_t split_inputs(const void* q, const void* k, const void* v,
   return split_transposed(v, st + 6, w.vt, w.nv, B, H, Lk, d, s);
 }
 
-// The tensor maps of the terms: q and k (d, L, H, 2B), box W columns x
-// `rows`; v^T (lk8, d, H, 2B), box 32 keys x `vt_rows` rows.
-cudaError_t term_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
-                      const Work& w, int B, int H, int Lq, int Lk, int d,
-                      int W, int q_rows, int k_rows, int vt_rows) {
-  const CUtensorMapSwizzle sw =
-      W == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  const long long sq[3] = {static_cast<long long>(H) * Lq * d,
-                           static_cast<long long>(Lq) * d, d};
-  const long long sk[3] = {static_cast<long long>(H) * Lk * d,
-                           static_cast<long long>(Lk) * d, d};
-  const long long sv[3] = {static_cast<long long>(H) * d * w.lk8,
-                           static_cast<long long>(d) * w.lk8, w.lk8};
-  cudaError_t err =
-      s9::make_map(tq, w.q, d, Lq, H, 2 * B, sq, W, q_rows, sw, f32);
-  if (err == cudaSuccess)
-    err = s9::make_map(tk, w.k, d, Lk, H, 2 * B, sk, W, k_rows, sw, f32);
-  if (err == cudaSuccess)
-    err = s9::make_map(tv, w.vt, w.lk8, d, H, 2 * B, sv, 32, vt_rows,
-                       CU_TENSOR_MAP_SWIZZLE_128B, f32);
-  return err;
-}
-
-template <int DP, bool MASKED = false, bool BOUNDED = false,
-          bool HAS_BIAS = false>
-cudaError_t run(const Work& w, Params p, cudaStream_t s) {
-  using C = Cfg<DP, HAS_BIAS>;
-  p.n_qt = (p.Lq + C::kBQ - 1) / C::kBQ;
-  CUtensorMap tq, tk, tv;
-  const cudaError_t err = term_maps(&tq, &tk, &tv, w, p.B, p.H, p.Lq, p.Lk,
-                                    p.d, C::W, C::kBQ, C::kBK, DP);
-  if (err != cudaSuccess) return err;
-  return s9::launch_kernel(flash_fwd_f32_kernel<DP, MASKED, BOUNDED, HAS_BIAS>,
-                           p.B * p.H * p.n_qt, C::kThreads, C::kSmemBytes, s,
-                           tq, tk, tv, p);
-}
-
-// K1 on the streaming kernel at width DP (192, 224, 256; 512 with its key
-// splits and their merge).
+// K1 on the streaming kernel at width DP (192, 224, 256 in a WideForm; 512
+// without a mask, with its key splits and their merge).
 template <int DP>
-cudaError_t run_stream(const Work& w, const Params& q, int splits,
-                       bool causal, cudaStream_t s) {
+cudaError_t run_stream(const Work& w, const Params& q, int splits, int form,
+                       cudaStream_t s) {
   using C = fdsd::f32fwd::WideCfg<DP>;
   if (splits < 1 || splits > d512::kMaxSplits || (DP != 512 && splits > 1))
     return cudaErrorInvalidValue;
@@ -697,14 +237,16 @@ cudaError_t run_stream(const Work& w, const Params& q, int splits,
   p.rows = static_cast<long long>(q.B) * q.H * q.Lq;
   for (int i = 0; i < 3; ++i) p.os[i] = q.os[i];
   p.scale = q.scale;
+  p.pos = q.pos;
+  p.m = q.m;
   CUtensorMap tq, tk, tv;
   cudaError_t err = term_maps(&tq, &tk, &tv, w, q.B, q.H, q.Lq, q.Lk, q.d,
                               32, C::kBQ, C::kBK, C::kVRows);
   if (err != cudaSuccess) return err;
   if constexpr (DP != 512) {
-    return fdsd::f32fwd::launch_wide<DP>(causal, tq, tk, tv, p, s);
+    return fdsd::f32fwd::launch_wide<DP>(form, tq, tk, tv, p, s);
   } else {
-    if (causal) return cudaErrorInvalidValue;
+    if (form != fdsd::f32fwd::kWidePlain) return cudaErrorInvalidValue;
     err = s9::launch_kernel(d512::flash_fwd_f32_d512_kernel,
                             q.B * q.H * p.n_qt * splits,
                             fdsd::f32fwd::kWideThreads, C::kSmemBytes, s, tq,
@@ -717,6 +259,78 @@ cudaError_t run_stream(const Work& w, const Params& q, int splits,
       err = cudaGetLastError();
     }
     return err;
+  }
+}
+
+template <int DP>
+using Width = std::integral_constant<int, DP>;
+
+// f(Width<DP>{}) at the width the resident kernel's no-mask, causal and K5
+// online forms run head dim d (<= 160) at: 8, 40, 48, 64, 72, 80, 128 and
+// 160 at DP = d, the others rounded up to 16.
+template <typename F>
+cudaError_t resident_width(int d, F f) {
+  switch (d) {
+    case 8:  // the `checks sd1` UNet (model_channels 64, 8 heads)
+      return f(Width<8>{});
+    case 40:  // SD1 UNet at 64^2
+      return f(Width<40>{});
+    case 72:
+      return f(Width<72>{});
+  }
+  switch ((d + 15) / 16 * 16) {
+    case 16:
+      return f(Width<16>{});
+    case 32:
+      return f(Width<32>{});
+    case 48:
+      return f(Width<48>{});
+    case 64:  // SigLIP tower, TinyVLM decoder
+      return f(Width<64>{});
+    case 80:  // SD1 UNet at 32^2
+      return f(Width<80>{});
+    case 96:  // tiny-SD UNet at channel 96, 64^2
+      return f(Width<96>{});
+    case 112:
+      return f(Width<112>{});
+    case 128:  // tiny-SD UNet
+      return f(Width<128>{});
+    case 144:
+      return f(Width<144>{});
+    default:  // SD1 UNet level 2, from 768^2 images
+      return f(Width<160>{});
+  }
+}
+
+// f(Width<DP>{}) at the width of the forms of run_masks (head dims up to
+// 160 rounded up to 32).
+template <typename F>
+cudaError_t mask_width(int d, F f) {
+  switch ((d + 31) / 32 * 32) {
+    case 32:
+      return f(Width<32>{});
+    case 64:
+      return f(Width<64>{});
+    case 96:
+      return f(Width<96>{});
+    case 128:
+      return f(Width<128>{});
+    default:
+      return f(Width<160>{});
+  }
+}
+
+// run_stream at the width of head dim d (161 to 256 rounded up to 32) in the
+// WideForm `form`.
+cudaError_t stream_width(int d, const Work& w, const Params& p, int form,
+                         cudaStream_t s) {
+  switch ((d + 31) / 32 * 32) {
+    case 192:  // tiny-SD UNet at channel 96, 32^2
+      return run_stream<192>(w, p, 1, form, s);
+    case 224:
+      return run_stream<224>(w, p, 1, form, s);
+    default:
+      return run_stream<256>(w, p, 1, form, s);
   }
 }
 
@@ -736,29 +350,26 @@ Params fwd_params(void* out, void* lse, int B, int H, int Lq, int Lk, int d,
   return p;
 }
 
-// K1 at the width DP, without a mask or causal (the position mask with
-// offsets 0).
-template <int DP>
-cudaError_t run_width(const Work& w, Params p, bool causal, cudaStream_t s) {
-  if (!causal) return run<DP>(w, p, s);
-  p.pos.causal = 1;
-  return run<DP, true>(w, p, s);
-}
-
 }  // namespace
 
 // K1 in fp32. strides: 16 element strides, (batch, head, seq) for q, k, v,
 // out, each a multiple of 4 (the head-dim stride is 1), then (batch, head,
 // row, col) for the bias. lse is (B, H, Lq) contiguous fp32. bias: fp32,
-// read through its strides (0 on a broadcast axis), or null. work: fp32
-// scratch of 2 B H (Lq + Lk) d + 2 B H d Lk8 floats (Lk8: Lk rounded up to
-// 8), plus splits * B * H * Lq * 513 at d = 512 with splits > 1 (1 to 4 key
-// splits per 64-query tile; ignored at other head dims). Every head dim up to
-// 256 that is a multiple of 4 without a mask or causal, 512 without a mask,
-// 64 with a bias; others return cudaErrorInvalidValue.
+// read through its strides (0 on a broadcast axis), or null; q_ids ..
+// hi: the six segment arrays of mask.cuh at the tiles of the kernel the
+// form runs on (the resident kernel's (kBQ, kBK) at the head dim rounded
+// up to 32 up to 160, (64, 64) above), or null. work: fp32 scratch of
+// 2 B H (Lq + Lk) d + 2 B H d Lk8 floats (Lk8: Lk rounded up to 8), plus
+// splits * B * H * Lq * 513 at d = 512 with splits > 1 (1 to 4 key splits
+// per 64-query tile; ignored at other head dims). Every head dim up to 256
+// that is a multiple of 4 in every form (a bias alone at 64 on T5's staged
+// bias tile), 512 without a mask; others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   void* out, void* lse, void* work,
-                                  const void* bias, int B, int H, int Lq,
+                                  const void* bias, const void* q_ids,
+                                  const void* kv_ids, const void* q_bounds,
+                                  const void* kv_bounds, const void* lo,
+                                  const void* hi, int B, int H, int Lq,
                                   int Lk, int d, const long long* strides,
                                   float scale, int causal, int splits,
                                   void* stream) {
@@ -766,73 +377,40 @@ extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
   Params p = fwd_params(out, lse, B, H, Lq, Lk, d, strides, scale);
   const Work w = carve(work, B, H, Lq, Lk, d);
   const bool width = (d >= 4 && d <= 256 && d % 4 == 0) || d == 512;
-  if (!width || (bias != nullptr && (d != 64 || causal)) ||
-      (causal && d == 512))
+  const bool masks = bias != nullptr || q_ids != nullptr;
+  if (!width || (d == 512 && (causal || masks)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = split_inputs(q, k, v, strides, B, H, Lq, Lk, d, w, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bias != nullptr) {  // T5's relative-position bias
-    p.m = fdsd::make_mask_args(bias, strides + 12, 0, nullptr, nullptr,
-                               nullptr, nullptr, nullptr, nullptr);
-    return static_cast<int>(run<64, false, false, true>(w, p, s));
+  if (d == 512)  // the VAEs' mid attention
+    return static_cast<int>(run_stream<512>(w, p, splits, kWidePlain, s));
+  p.pos.causal = causal != 0;  // the position mask with offsets 0
+  if (masks) {
+    p.m = fdsd::make_mask_args(bias, strides + 12, 0, q_ids, kv_ids,
+                               q_bounds, kv_bounds, lo, hi);
+    // T5's relative bias: the staged tile, 1.6 x faster than ANY's reads
+    // from L2 at T5-XXL's (2, 64, 512, 512, 64) (PERF.md)
+    if (q_ids == nullptr && !causal && d == 64)
+      return static_cast<int>(run<64, false, false, true>(w, p, s));
+    if (d > 160)
+      return static_cast<int>(stream_width(d, w, p, kWideAny, s));
+    return static_cast<int>(mask_width(d, [&](auto dp) {
+      return run_masks<decltype(dp)::value>(false, w, p, s);
+    }));
   }
-  const bool c = causal != 0;
-  switch (d) {  // the widths at DP = d
-    case 8:  // the `checks sd1` UNet (model_channels 64, 8 heads)
-      return static_cast<int>(run_width<8>(w, p, c, s));
-    case 40:  // SD1 UNet at 64^2
-      return static_cast<int>(run_width<40>(w, p, c, s));
-    case 48:
-      return static_cast<int>(run_width<48>(w, p, c, s));
-    case 64:  // SigLIP tower, TinyVLM decoder
-      return static_cast<int>(run_width<64>(w, p, c, s));
-    case 72:
-      return static_cast<int>(run_width<72>(w, p, c, s));
-    case 80:  // SD1 UNet at 32^2
-      return static_cast<int>(run_width<80>(w, p, c, s));
-    case 128:  // tiny-SD UNet
-      return static_cast<int>(run_width<128>(w, p, c, s));
-    case 160:  // SD1 UNet level 2, from 768^2 images
-      return static_cast<int>(run_width<160>(w, p, c, s));
-    case 512:  // the VAEs' mid attention
-      return static_cast<int>(run_stream<512>(w, p, splits, c, s));
-  }
-  if (d > 160) {  // the streaming kernel at d rounded up to 32
-    switch ((d + 31) / 32 * 32) {
-      case 192:  // tiny-SD UNet at channel 96, 32^2
-        return static_cast<int>(run_stream<192>(w, p, 1, c, s));
-      case 224:
-        return static_cast<int>(run_stream<224>(w, p, 1, c, s));
-      default:
-        return static_cast<int>(run_stream<256>(w, p, 1, c, s));
-    }
-  }
-  switch ((d + 15) / 16 * 16) {  // the others, padded to a width
-    case 16:
-      return static_cast<int>(run_width<16>(w, p, c, s));
-    case 32:
-      return static_cast<int>(run_width<32>(w, p, c, s));
-    case 48:
-      return static_cast<int>(run_width<48>(w, p, c, s));
-    case 64:
-      return static_cast<int>(run_width<64>(w, p, c, s));
-    case 80:
-      return static_cast<int>(run_width<80>(w, p, c, s));
-    case 96:  // tiny-SD UNet at channel 96, 64^2
-      return static_cast<int>(run_width<96>(w, p, c, s));
-    case 112:
-      return static_cast<int>(run_width<112>(w, p, c, s));
-    case 128:
-      return static_cast<int>(run_width<128>(w, p, c, s));
-    case 144:
-      return static_cast<int>(run_width<144>(w, p, c, s));
-    default:
-      return static_cast<int>(run_width<160>(w, p, c, s));
-  }
+  if (d > 160)  // the streaming kernel at d rounded up to 32
+    return static_cast<int>(
+        stream_width(d, w, p, causal ? kWideCausal : kWidePlain, s));
+  return static_cast<int>(resident_width(d, [&](auto dp) {
+    return run_plain<decltype(dp)::value>(causal != 0, w, p, s);
+  }));
 }
 
 // K5 in fp32: the arguments of fdsd_flash_fwd_pos on fp32 tensors, with the
-// workspace of fdsd_flash_fwd_f32 after the offsets. Head dim 64.
+// workspace of fdsd_flash_fwd_f32 after the offsets. Every head dim up to
+// 256 that is a multiple of 4: online on the resident kernel's masked form
+// up to 160, bounded at the head dim rounded up to 32; above 160 the
+// streaming kernel.
 extern "C" int fdsd_flash_fwd_pos_f32(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       const void* q_off, const void* k_off,
@@ -841,7 +419,8 @@ extern "C" int fdsd_flash_fwd_pos_f32(const void* q, const void* k,
                                       float scale, int seg_q, int seg_k,
                                       int valid_len, int has_valid,
                                       int causal, int bounded, void* stream) {
-  if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 4 || d > 256 || d % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p = fwd_params(out, lse, B, H, Lq, Lk, d, strides, scale);
   p.pos = PosArgs{static_cast<const int*>(q_off),
@@ -849,7 +428,15 @@ extern "C" int fdsd_flash_fwd_pos_f32(const void* q, const void* k,
                   has_valid, causal};
   const Work w = carve(work, B, H, Lq, Lk, d);
   cudaError_t err = split_inputs(q, k, v, strides, B, H, Lq, Lk, d, w, s);
-  if (err == cudaSuccess)
-    err = bounded ? run<64, true, true>(w, p, s) : run<64, true>(w, p, s);
-  return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (d > 160)
+    return static_cast<int>(
+        stream_width(d, w, p, bounded ? kWideBounded : kWideAny, s));
+  if (bounded)
+    return static_cast<int>(mask_width(d, [&](auto dp) {
+      return run_masks<decltype(dp)::value>(true, w, p, s);
+    }));
+  return static_cast<int>(resident_width(d, [&](auto dp) {
+    return run_plain<decltype(dp)::value>(true, w, p, s);
+  }));
 }

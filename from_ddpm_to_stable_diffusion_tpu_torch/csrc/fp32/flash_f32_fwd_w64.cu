@@ -1,0 +1,13 @@
+// The fp32 K1 and K5 on the resident kernel (flash_f32_fwd.cuh): no mask
+// and masked (run_plain) at padded widths 40, 48, 64, and K5 bounded and
+// ANY (run_masks; a bias or segment ids) at 64: their instantiations, apart
+// from the other widths' so that the build compiles them in parallel.
+
+#include "flash_f32_fwd.cuh"
+
+namespace fdsd::f32fwd {
+FDSD_F32_FWD_PLAIN(, 40)
+FDSD_F32_FWD_PLAIN(, 48)
+FDSD_F32_FWD_PLAIN(, 64)
+FDSD_F32_FWD_MASKS(, 64)
+}  // namespace fdsd::f32fwd

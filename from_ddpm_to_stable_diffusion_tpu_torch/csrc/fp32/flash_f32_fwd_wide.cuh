@@ -1,8 +1,10 @@
-// The fp32 flash forward's streaming kernel: K1 on fp32 inputs on the tensor
-// cores at the padded widths DP = 192, 224, 256 (head dims 161 to 256
-// rounded up to 32; the columns past d read as TMA's zeros and not written),
-// without a mask and causal, and at 512 without a mask (the VAEs' mid
-// attention, with key splits). The width kernels are instantiated a few to a
+// The fp32 flash forward's streaming kernel: K1 and K5 on fp32 inputs on the
+// tensor cores at the padded widths DP = 192, 224, 256 (head dims 161 to 256
+// rounded up to 32; the columns past d read as TMA's zeros and not written)
+// in four forms (WideForm: no mask; causal; ANY, the position masks, a bias
+// and segment ids chosen per launch; the position masks under the bounded
+// softmax), and at 512 without a mask (the VAEs' mid attention, with key
+// splits). The width kernels are instantiated a few to a
 // file in flash_f32_fwd_w*.cu, so that the build compiles them in parallel;
 // flash_f32_fwd.cu holds the d = 512 kernel, the split pre-pass, the tensor
 // maps and the C entry.
@@ -42,7 +44,11 @@
 // Causal (key <= query from index 0 on both sides) visits key tiles up to
 // the query tile's own (the query tiles walked from the last, long rows
 // first) and masks per logit on that diagonal tile only; the key tail is
-// masked on the last tile only. No key split below 512: at the shapes the
+// masked on the last tile only. ANY judges each (query tile, key tile) pair
+// by pos_pair and the segment tiles' id ranges in every role, as the
+// resident kernel does, reads the bias from global memory into each
+// consumer's logits, and selects a masked logit to probability 0; the
+// bounded form keeps the max at 0 and exchanges no row maxima. No key split below 512: at the shapes the
 // paths give these widths (>= 512 query tiles) the tiles fill the card.
 // Against the layout kept resident up to 160, this one moves more bytes
 // through L2 and the slots and needs no resident tile: it is the layout
@@ -52,11 +58,20 @@
 
 #include <type_traits>
 
+#include "../mask.cuh"
+#include "../pos_tile.cuh"
 #include "../sm90.cuh"
 
 namespace fdsd::f32fwd {
 
 namespace s9 = fdsd::sm90;
+
+// The forms of the streaming kernel: no mask; causal (key <= query from
+// index 0); every mask chosen per launch (ANY: the position masks of
+// pos_tile.cuh, an additive bias and segment ids, online softmax); the
+// position masks under the bounded softmax (max fixed at 0).
+enum WideForm { kWidePlain = 0, kWideCausal = 1, kWideAny = 2,
+                kWideBounded = 3 };
 
 constexpr float kWideNegInf = -1e30f;
 constexpr float kWideLog2e = 1.4426950408889634f;
@@ -98,6 +113,8 @@ struct WideParams {
   long long rows;   // B * H * Lq
   long long os[3];  // out's (batch, head, seq) element strides
   float scale;
+  PosArgs pos;  // ANY and bounded: null offsets read as 0
+  MaskArgs m;   // ANY: the fp32 bias and the segment arrays at (64, 64)
 };
 
 template <int N>
@@ -130,8 +147,8 @@ __device__ __forceinline__ void s_chunk(float (&part)[16], uint32_t sb,
 
 // The block's work: tq, tk (d, L, H, 2B) boxes of 32 columns x 64 rows, tv
 // (Lk8, d, H, 2B) boxes of 32 keys x kVRows rows, over the workspace's
-// split terms.
-template <int DP, bool CAUSAL>
+// split terms. FORM: a WideForm.
+template <int DP, int FORM>
 __device__ __forceinline__ void wide_body(const CUtensorMap& tq,
                                           const CUtensorMap& tk,
                                           const CUtensorMap& tv,
@@ -139,6 +156,9 @@ __device__ __forceinline__ void wide_body(const CUtensorMap& tq,
   using C = WideCfg<DP>;
   constexpr int kBK = C::kBK, kHalf = C::kHalf, kVR = C::kVRows;
   constexpr float kNegInf = kWideNegInf;
+  constexpr bool CAUSAL = FORM == kWideCausal;
+  constexpr bool ANY = FORM == kWideAny || FORM == kWideBounded;
+  constexpr bool BOUNDED = FORM == kWideBounded;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = s9::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1 KB
@@ -153,14 +173,54 @@ __device__ __forceinline__ void wide_body(const CUtensorMap& tq,
   const int tile = blockIdx.x / p.splits;
   const int bh = tile / p.n_qt;
   int qt = tile % p.n_qt;
-  if (CAUSAL) qt = p.n_qt - 1 - qt;  // long rows first
+  if (CAUSAL || (ANY && p.pos.causal)) qt = p.n_qt - 1 - qt;  // long rows first
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = qt * C::kBQ;
   const int n_kt = (p.Lk + kBK - 1) / kBK;
-  const int kt_begin = split * p.kt_per_split;
+  int kt_begin = split * p.kt_per_split;
   int kt_end = min(n_kt, kt_begin + p.kt_per_split);
   // causal: the key tiles holding a key <= the tile's last query
   if (CAUSAL) kt_end = min(kt_end, (q0 + C::kBQ - 1) / kBK + 1);
+  // ANY: positions matter only to a mask (without causal and valid_len the
+  // offsets are not read); segment ids walk the tile range [lo, hi] of
+  // mask.cuh and skip a tile whose ids are disjoint from this one's
+  const bool masked = ANY && (p.pos.causal || p.pos.has_valid);
+  const bool has_bias = ANY && p.m.bias != nullptr;
+  const bool has_seg = ANY && p.m.q_ids != nullptr;
+  int q_off0 = 0, q_off1 = 0, k_off0 = 0, k_off1 = 0;
+  if (masked && p.pos.q_off != nullptr) {
+    q_off0 = p.pos.q_off[0];
+    q_off1 = p.pos.q_off[1];
+  }
+  if (masked && p.pos.k_off != nullptr) {
+    k_off0 = p.pos.k_off[0];
+    k_off1 = p.pos.k_off[1];
+  }
+  const int* q_bound = nullptr;
+  const int* k_bounds = nullptr;
+  if (has_seg) {
+    const int seg_tile = b * p.n_qt + qt;
+    kt_begin = max(kt_begin, p.m.lo[seg_tile]);
+    kt_end = min(kt_end, p.m.hi[seg_tile] + 1);
+    q_bound = p.m.q_bounds + 2 * seg_tile;
+    k_bounds = p.m.kv_bounds + 2 * b * n_kt;
+  }
+  // what the (query tile, key tile kt) pair needs: 0 skip, 1 visible, 2
+  // masked per logit; the same call in every role keeps the slots in step
+  auto pair = [&](int kt) {
+    if (!ANY) return 1;
+    int state = 1;
+    if (masked) {
+      int q_lo, q_hi, k_lo, k_hi;
+      pos_bounds(q0, C::kBQ, q_off0, q_off1, p.pos.seg_q, p.Lq, q_lo, q_hi);
+      pos_bounds(kt * kBK, kBK, k_off0, k_off1, p.pos.seg_k, p.Lk, k_lo,
+                 k_hi);
+      state = pos_pair(p.pos, q_lo, q_hi, k_lo, k_hi);
+    }
+    if (has_seg && state != 0)
+      state = seg_overlap(q_bound, k_bounds + 2 * kt) ? 2 : 0;
+    return state;
+  };
 
   if (tid == 0) {
     for (int s = 0; s < C::kSlots; ++s) {
@@ -189,6 +249,7 @@ __device__ __forceinline__ void wide_body(const CUtensorMap& tq,
     s9::reg_dealloc<kWideProducerRegs>();
     if (tid != 0) return;
     for (int kt = kt_begin; kt < kt_end; ++kt) {
+      if (pair(kt) == 0) continue;
       const int k0 = kt * kBK;
       for (int c = 0; c < C::kSChunks; ++c) {  // S slots
         const int halves = min(2, (DP - 64 * c) / 32);
@@ -231,8 +292,10 @@ __device__ __forceinline__ void wide_body(const CUtensorMap& tq,
   const int g = lane >> 2, t = lane & 3;
   const int rl0 = 16 * warp + g, rl1 = rl0 + 8;  // tile rows
   const int r0 = q0 + rl0, r1 = q0 + rl1;
-  const float c = p.scale * kWideLog2e;  // exp(x * scale) = exp2(x * c)
-  float m0 = kNegInf, m1 = kNegInf;      // running row max (logit units)
+  // exp(x * scale) = exp2(x * c); with a bias the logits are scaled first
+  const float c = has_bias ? kWideLog2e : p.scale * kWideLog2e;
+  // running row max (logit units; bounded: fixed at 0)
+  float m0 = BOUNDED ? 0.f : kNegInf, m1 = m0;
   float l0 = 0.f, l1 = 0.f;  // this thread's share of its half's row sums
   float o[C::kVSlots][kVR / 2];  // output columns DP/2 cw + kVR j ..
 #pragma unroll
@@ -242,8 +305,24 @@ __device__ __forceinline__ void wide_body(const CUtensorMap& tq,
   float s[kHalf / 2], part[kHalf / 2];  // S, and one chunk's share of it
   float* my_max = stat + cw * C::kBQ;
   const float* other_max = stat + (1 - cw) * C::kBQ;
+  // ANY: the positions and segment ids of this thread's two rows
+  int qpos0 = 0, qpos1 = 0, qid0 = -1, qid1 = -1;
+  if (masked) {
+    qpos0 = pos_of(r0, q_off0, q_off1, p.pos.seg_q);
+    qpos1 = pos_of(r1, q_off0, q_off1, p.pos.seg_q);
+  }
+  const int* kv_ids = nullptr;
+  if (has_seg) {
+    kv_ids = p.m.kv_ids + static_cast<long long>(b) * p.Lk;
+    const int* ids = p.m.q_ids + static_cast<long long>(b) * p.Lq;
+    if (r0 < p.Lq) qid0 = ids[r0];
+    if (r1 < p.Lq) qid1 = ids[r1];
+  }
+  const long long bias_base = has_bias ? b * p.m.bs[0] + h * p.m.bs[1] : 0;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int state = pair(kt);
+    if (state == 0) continue;
     const int k0 = kt * kBK;
     // S = Q K^T for keys 32cw .. 32cw + 31 over the chunks of d, each chunk
     // into a fresh accumulator added to S in registers.
@@ -261,44 +340,87 @@ __device__ __forceinline__ void wide_body(const CUtensorMap& tq,
     for (int cc = 0; cc < DP / 64; ++cc) chunk(Steps<8>());
     if constexpr (DP % 64 != 0) chunk(Steps<4>());  // the last 32 columns
 
-    // The key tail (last tile only) and, causal, the diagonal tile's keys
-    // past each row's query.
-    const bool diag = CAUSAL && k0 + kBK - 1 > q0;
-    if (k0 + kBK > p.Lk || diag) {
+    // ANY: logit = scale * s + bias in fp32 (rows past Lq and keys past Lk
+    // read no bias: their logits are not used or are masked below).
+    if (has_bias) {
 #pragma unroll
       for (int j = 0; j < kHalf / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + kHalf * cw + 8 * j + 2 * t + (e & 1);
-          if (key >= p.Lk || (diag && key > (e < 2 ? r0 : r1)))
-            s[4 * j + e] = kNegInf;
+          const int row = e < 2 ? r0 : r1;
+          const float bias = row < p.Lq && key < p.Lk
+                                 ? load_bias(p.m, bias_base, row, key)
+                                 : 0.f;
+          s[4 * j + e] = fmaf(s[4 * j + e], p.scale, bias);
         }
     }
 
-    // The row max over both halves of the tile, through shared memory.
-    float mx0 = kNegInf, mx1 = kNegInf;
+    // The key tail (last tile only) and, causal, the diagonal tile's keys
+    // past each row's query; ANY: the position masks and segment ids where
+    // the pair needs them. The key tail is masked after the bias, which
+    // narrows it and never replaces it.
+    const bool diag = CAUSAL && k0 + kBK - 1 > q0;
+    if (k0 + kBK > p.Lk || diag || state == 2) {
 #pragma unroll
-    for (int j = 0; j < kHalf / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-    }
+      for (int j = 0; j < kHalf / 8; ++j)
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        for (int u = 0; u < 2; ++u) {
+          const int key = k0 + kHalf * cw + 8 * j + 2 * t + u;
+          bool v0 = key < p.Lk, v1 = v0;
+          if (diag) {
+            v0 = v0 && key <= r0;
+            v1 = v1 && key <= r1;
+          }
+          if (masked && state == 2) {
+            const int kpos = pos_of(key, k_off0, k_off1, p.pos.seg_k);
+            if (p.pos.has_valid && kpos >= p.pos.valid_len) v0 = v1 = false;
+            if (p.pos.causal) {
+              v0 = v0 && kpos <= qpos0;
+              v1 = v1 && kpos <= qpos1;
+            }
+          }
+          if (has_seg && key < p.Lk) {
+            const int kid = kv_ids[key];
+            v0 = v0 && kid == qid0;
+            v1 = v1 && kid == qid1;
+          }
+          if (!v0) s[4 * j + u] = kNegInf;
+          if (!v1) s[4 * j + 2 + u] = kNegInf;
+        }
     }
-    if (t == 0) {
-      my_max[rl0] = mx0;
-      my_max[rl1] = mx1;
+
+    // The row max over both halves of the tile, through shared memory (the
+    // bounded softmax keeps 0); a row with nothing visible yet subtracts 0.
+    float al0 = 1.f, al1 = 1.f, sub0 = 0.f, sub1 = 0.f;
+    if (!BOUNDED) {
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      if (t == 0) {
+        my_max[rl0] = mx0;
+        my_max[rl1] = mx1;
+      }
+      s9::named_barrier_sync(1, kWideConsumers);
+      const float mn0 = fmaxf(m0, fmaxf(mx0, other_max[rl0]));
+      const float mn1 = fmaxf(m1, fmaxf(mx1, other_max[rl1]));
+      const float mu0 = ANY && mn0 <= kNegInf ? 0.f : mn0;
+      const float mu1 = ANY && mn1 <= kNegInf ? 0.f : mn1;
+      al0 = s9::exp2_approx((m0 - mu0) * c);
+      al1 = s9::exp2_approx((m1 - mu1) * c);
+      m0 = mn0;
+      m1 = mn1;
+      sub0 = mu0 * c;
+      sub1 = mu1 * c;
     }
-    s9::named_barrier_sync(1, kWideConsumers);
-    const float mn0 = fmaxf(m0, fmaxf(mx0, other_max[rl0]));
-    const float mn1 = fmaxf(m1, fmaxf(mx1, other_max[rl1]));
-    const float al0 = s9::exp2_approx((m0 - mn0) * c);
-    const float al1 = s9::exp2_approx((m1 - mn1) * c);
-    m0 = mn0;
-    m1 = mn1;
-    const float sub0 = mn0 * c, sub1 = mn1 * c;
 
     // P = exp(scale (S - m)) split into hi / lo in this group's half of the
     // P tiles: key 2t of a group of 8 at position t, key 2t + 1 at t + 4
@@ -311,7 +433,7 @@ __device__ __forceinline__ void wide_body(const CUtensorMap& tq,
       for (int e = 0; e < 4; ++e) {
         const float x = s[4 * j + e];
         float pr = s9::exp2_approx(fmaf(x, c, -(e < 2 ? sub0 : sub1)));
-        if (CAUSAL && x <= kNegInf) pr = 0.f;
+        if ((CAUSAL || ANY) && x <= kNegInf) pr = 0.f;  // selected
         if (e < 2)
           sum0 += pr;
         else
@@ -388,8 +510,9 @@ __device__ __forceinline__ void wide_body(const CUtensorMap& tq,
   l1 += stat[(3 - cw) * C::kBQ + rl1];
   const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
   const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
-  const float lse0 = l0 == 0.f ? kNegInf : m0 * p.scale + logf(l0);
-  const float lse1 = l1 == 0.f ? kNegInf : m1 * p.scale + logf(l1);
+  const float to_ln = has_bias ? 1.f : p.scale;  // m in scaled units: 1
+  const float lse0 = l0 == 0.f ? kNegInf : m0 * to_ln + logf(l0);
+  const float lse1 = l1 == 0.f ? kNegInf : m1 * to_ln + logf(l1);
   const long long row0 = static_cast<long long>(bh) * p.Lq + r0;
   float* ob;
   long long stride;
@@ -421,35 +544,43 @@ __device__ __forceinline__ void wide_body(const CUtensorMap& tq,
   }
 }
 
-// K1 at the widths 192, 224, 256 (CAUSAL: key <= query from index 0).
-template <int DP, bool CAUSAL>
+// K1 (and K5 with the position masks) at the widths 192, 224, 256 in the
+// WideForm FORM.
+template <int DP, int FORM>
 __global__ void __launch_bounds__(kWideThreads, 1)
 flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ WideParams p) {
-  wide_body<DP, CAUSAL>(tq, tk, tv, p);
+  wide_body<DP, FORM>(tq, tk, tv, p);
 }
 
-// One launch of the width DP on B * H * n_qt * splits blocks.
+// One launch of the width DP in the WideForm `form` on B * H * n_qt *
+// splits blocks.
 template <int DP>
-cudaError_t launch_wide(bool causal, const CUtensorMap& tq,
+cudaError_t launch_wide(int form, const CUtensorMap& tq,
                         const CUtensorMap& tk, const CUtensorMap& tv,
                         const WideParams& p, cudaStream_t s) {
   const int grid = p.B * p.H * p.n_qt * p.splits;
-  if (causal)
-    return s9::launch_kernel(flash_fwd_f32_wide_kernel<DP, true>, grid,
-                             kWideThreads, WideCfg<DP>::kSmemBytes, s, tq, tk,
-                             tv, p);
-  return s9::launch_kernel(flash_fwd_f32_wide_kernel<DP, false>, grid,
-                           kWideThreads, WideCfg<DP>::kSmemBytes, s, tq, tk,
-                           tv, p);
+  switch (form) {
+#define FDSD_FORM(F)                                                        \
+  case F:                                                                   \
+    return s9::launch_kernel(flash_fwd_f32_wide_kernel<DP, F>, grid,        \
+                             kWideThreads, WideCfg<DP>::kSmemBytes, s, tq,  \
+                             tk, tv, p);
+    FDSD_FORM(kWidePlain)
+    FDSD_FORM(kWideCausal)
+    FDSD_FORM(kWideAny)
+    FDSD_FORM(kWideBounded)
+#undef FDSD_FORM
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The explicit instantiation of launch_wide<DP> (with `extern` before it: its
 // declaration); each width is instantiated in one flash_f32_fwd_w*.cu.
 #define FDSD_F32_FWD_WIDE(DP)                                               \
-  template cudaError_t launch_wide<DP>(bool, const CUtensorMap&,            \
+  template cudaError_t launch_wide<DP>(int, const CUtensorMap&,             \
                                        const CUtensorMap&, const CUtensorMap&, \
                                        const WideParams&, cudaStream_t);
 #define FDSD_F32_FWD_WIDTHS(X) X(192) X(224) X(256)

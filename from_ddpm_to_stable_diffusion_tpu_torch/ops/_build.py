@@ -73,18 +73,21 @@ _SIGNATURES = {
     "fdsd_group_norm_blocks_per_sm": [_I, _I, _I],
 }
 _SIGNATURES_FP32 = {
-    # q, k, v, out, lse, work, bias, B, H, Lq, Lk, d, strides[12 + 4],
+    # q, k, v, out, lse, work, masks[7], B, H, Lq, Lk, d, strides[12 + 4],
     # scale, causal, splits, stream
-    "fdsd_flash_fwd_f32": [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I, _P],
+    "fdsd_flash_fwd_f32": [_P] * 6 + [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I,
+                                                             _P],
     # the arguments of fdsd_flash_fwd_pos with the workspace after k_off
     "fdsd_flash_fwd_pos_f32": (_SIGNATURES["fdsd_flash_fwd_pos"][:7] + [_P]
                                + _SIGNATURES["fdsd_flash_fwd_pos"][7:]),
-    # q, k, v, dO, lse, delta, dq, work, B, H, Lq, Lk, d, strides[15],
-    # scale, causal, stream
-    "fdsd_flash_bwd_dq_f32": [_P] * 8 + [_I] * 5 + [_P, _F, _I, _P],
-    # q, k, v, dO, lse, delta, dk, dv, work, B, H, Lq, Lk, d, strides[18],
-    # scale, causal, stream
-    "fdsd_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 5 + [_P, _F, _I, _P],
+    # q, k, v, dO, lse, delta, dq, dbias, work, masks[7], B, H, Lq, Lk, d,
+    # strides[15 + 4], scale, causal, stream
+    "fdsd_flash_bwd_dq_f32": [_P] * 9 + [_P] * 7 + [_I] * 5 + [_P, _F, _I,
+                                                                _P],
+    # q, k, v, dO, lse, delta, dk, dv, work, masks[7], B, H, Lq, Lk, d,
+    # strides[18 + 4], scale, causal, stream
+    "fdsd_flash_bwd_dkv_f32": [_P] * 9 + [_P] * 7 + [_I] * 5 + [_P, _F, _I,
+                                                                 _P],
     # the position-masked backward entries take the arguments of their bf16
     # namesakes with the workspace after the offsets
     "fdsd_flash_bwd_pos_dq_f32": (_SIGNATURES["fdsd_flash_bwd_pos_dq"][:9]

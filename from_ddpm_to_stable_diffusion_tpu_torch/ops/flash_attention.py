@@ -32,17 +32,17 @@ Position-masked forward: :func:`flash_attention_pos` masks by global
 position (two offset segments per side, ``valid_len``, causal, the ragged
 key tail) and returns (out, lse); on CUDA tensors it launches K5 (the Pallas
 ``_fwd_kernel_pos``: in bf16 the position-mask form of the TMA / wgmma kernel
-of ``csrc/flash_attention_sm90.cu``, :func:`k5_route`), on CPU tensors
+of ``csrc/flash_attention_sm90.cuh``, :func:`k5_route`), on CPU tensors
 :func:`flash_attention_pos_plain`. Position-masked backward:
 :func:`flash_bwd_pos` gives (dq, dk, dv) of one query block against one key
 block under a caller-supplied *global* lse and delta, with the same masks;
 on CUDA tensors K6 (dq, the Pallas ``_bwd_dq_kernel_pos``: in bf16 the
 position-mask form of the TMA / wgmma kernel of
-``csrc/flash_attention_dq_sm90.cu``, :func:`k6_route`) and K7 (dk with dv,
+``csrc/flash_attention_dq_sm90.cuh``, :func:`k6_route`) and K7 (dk with dv,
 the Pallas ``_bwd_dkv_kernel_pos``: in bf16 the position-mask form of the
-TMA / wgmma kernel of ``csrc/flash_attention_bwd_sm90.cu``,
-:func:`k7_route`), on CPU
-tensors :func:`flash_bwd_pos_plain`. :func:`joint_flash_attention` is the MMDiT's
+TMA / wgmma kernels of ``csrc/flash_attention_bwd_sm90.cuh``,
+:func:`k7_route`), on CPU tensors :func:`flash_bwd_pos_plain`. All three
+take every head dim from 1 to 256 in both dtypes. :func:`joint_flash_attention` is the MMDiT's
 attention over [context | x] without concatenation: four position-masked
 calls merged exactly through their log-sum-exps by
 :func:`merge_attention_partials`, and in the backward four
@@ -53,20 +53,22 @@ Masks of :func:`flash_attention` (the Pallas ``_fwd_kernel``,
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` in their bias, causal and
 segment-id forms): an additive bias read through its strides (dbias from the
 dq kernel's dS tiles), ``causal`` (col <= row from index 0 on both sides) and
-``segment_ids`` with tile skipping from per-tile id ranges; they compose, in
-the bf16 kernels at every head dim from 1 to 256. A row that sees no key
-gives out = 0 and lse = -1e30, and the backward selects masked probabilities
-to 0.
+``segment_ids`` with tile skipping from per-tile id ranges, built at the
+launching kernel's own tiles (:func:`_k1_tiles`, :func:`_dq_tiles`,
+:func:`_dkv_tiles` in bf16, :func:`_f32_tiles` in fp32); they compose, in
+both dtypes at every head dim from 1 to 256. A row that sees no key gives
+out = 0 and lse = -1e30, and the backward selects masked probabilities to
+0.
 
-Head dims: K1, K3 and K4 take every head dim from 1 to 256 (K1 also 512).
+Head dims: every kernel takes every head dim from 1 to 256 (K1 also 512).
 The kernels pad the head dim to their width with TMA's zero fill (to a
 multiple of 16; above 128 K4, and K3 in fp32, and above 160 K1 in fp32, to a
-multiple of 32). A head
-dim that is not a multiple of 8 cannot meet TMA's 16-byte strides, so the
-wrappers append zero columns to q, k, v (and dO) up to the next multiple of
-8, pass the scale of the original head dim, and cut out, dq, dk and dv back
-to it: exact, since zero columns add nothing to QKᵀ and their own columns
-are cut (:func:`_pad_head_dim`).
+multiple of 32; the fp32 mask forms to a multiple of 32). A head dim that is
+not a multiple of 8 cannot meet TMA's 16-byte strides, so the wrappers
+append zero columns to q, k, v (and dO) up to the next multiple of 8, pass
+the scale of the original head dim, and cut out, dq, dk and dv back to it:
+exact, since zero columns add nothing to QKᵀ and their own columns are cut
+(:func:`_pad_head_dim`).
 
 Dtypes: every kernel has a bf16 form (tensor cores, ``csrc/*.cu``) and an
 fp32 form (``csrc/fp32/*.cu``; out, lse and the gradients fp32, as the
@@ -82,14 +84,16 @@ blocks (``csrc/fp32/flash_f32_bwd.cuh``), whose shared memory together
 holds the resident split tiles that one block's no longer does. K1 above
 160, where the forward's resident Q tile no longer fits, streams every
 split tile through a ring of slots instead
-(``csrc/fp32/flash_f32_fwd_wide.cuh``, as at 512). The fp32 forms are a
-shared library of their own, built when an fp32 launch first asks for it. K1, K3 and K4 take every head dim from 1 to 256 in fp32
-too (K1 also 512), without a mask or causal, and K1 at 64 (T5) a bias alone;
-with segment ids or another bias form an fp32 CUDA tensor raises
-``NotImplementedError``, as K5 / K6 / K7 do at head dims other than 64.
+(``csrc/fp32/flash_f32_fwd_wide.cuh``, as at 512). In fp32 a bias, dbias
+and segment ids run on the same kernels in an ``ANY`` form (every mask
+compiled in, chosen per launch; the bias read from global memory, except
+T5's bias alone at 64, which keeps its staged tile), at the head dim
+rounded up to 32; K5 / K6 / K7 run the masked forms. The fp32 forms are a
+shared library of their own, built when an fp32 launch first asks for it.
+A head dim above 256 (and a mask at 512) raises ``NotImplementedError``.
 Each wrapper counts its launches by dtype in ``.dtypes`` beside
 ``.launches``; each, as it runs more than one kernel, also by kernel in
-``.routes``, and K1, K3 and K4 by head dim in ``.head_dims``.
+``.routes``, and by head dim in ``.head_dims``.
 """
 
 from __future__ import annotations
@@ -103,18 +107,11 @@ import torch
 
 from . import _build
 
-# K1, K3 and K4 take every head dim up to _MAX_HEAD_DIM in every form (bf16)
-# and K1 also 512 without a mask (the d512 kernel); K5, K6 and K7 take 64
-# (SD3's MMDiT) and 128
+# Every kernel takes every head dim up to _MAX_HEAD_DIM in every form, in
+# bf16 and in fp32 (the fp32 forms on the tensor cores, a TF32 split; 8: the
+# ``checks sd1`` UNet, SD1UNet(model_channels=64) with 8 heads, runs its
+# 32^2 level in fp32), and K1 also 512 without a mask (the d512 kernels)
 _MAX_HEAD_DIM, _D512 = 256, 512
-_POS_HEAD_DIMS = (64, 128)
-# the fp32 forms, all on the tensor cores (TF32 split): K1, K3 and K4 at
-# every head dim up to 256 (8: the ``checks sd1`` UNet,
-# SD1UNet(model_channels=64) with 8 heads, runs its 32^2 level in fp32) and
-# K1 at 512; causal at each but 512, a bias alone at 64 (T5, forward only);
-# K5 / K6 / K7 at 64
-_FP32_BIAS_HEAD_DIMS = (64,)
-_FP32_POS_HEAD_DIMS = (64,)
 NEG_INF = -1e30   # lse of a row with no visible key
 # (query tile, key tile) of K1, K3 and K4 (the sm90 kernels) at head dims up
 # to 128: the sizes the segment-id tile bounds and ranges handed to each
@@ -164,6 +161,29 @@ def _dkv_tiles(d: int) -> tuple:
     """K4's (query tile, key tile): 128 keys up to DP = 128, 64 above."""
     wide = _dkv_width(d) > 128
     return _DKV_TILES[0], _DKV_TILES[1] // 2 if wide else _DKV_TILES[1]
+
+
+def _f32_tiles(kernel: str, d: int) -> tuple:
+    """(query tile, key tile) of the fp32 kernel that runs ``kernel`` ("k1",
+    "k3" or "k4") at head dim ``d`` (a multiple of 8) with a bias or segment
+    ids, the ANY forms at ``d`` rounded up to 32 (csrc/fp32): the tiles the
+    segment-id bounds and ranges are built at. K1: the resident kernel (128
+    queries up to 128, 64 at 160; 64 keys below 80, 32 from it), the
+    streaming one above 160 (64, 64); K3: 128 queries up to 64, 64 above,
+    32 keys (16 above 192 on the block pairs); K4: 128 keys up to 64, 64
+    above, 32 queries up to 64, 16 to 128, 32 at 160 and 16 above."""
+    dp = _width(d, 32)
+    if kernel == "k1":
+        if dp > 160:
+            return 64, 64
+        return (128 if dp <= 128 else 64), (64 if dp < 80 else 32)
+    if kernel == "k3":
+        if dp > 128:
+            return 64, (32 if dp <= 192 else 16)
+        return (128 if dp <= 64 else 64), 32
+    if dp > 128:
+        return (32 if dp <= 160 else 16), 64
+    return (32, 128) if dp <= 64 else (16, 64)
 
 
 def _pad_head_dim(*xs):
@@ -489,20 +509,6 @@ def _count_launch(fn, q, bias=None, segment_ids=None, causal=False,
         fn.head_dims[q.shape[-1]] += 1
 
 
-def _check_fp32_form(fn, d, causal, bias, segments,
-                     bias_dims=()) -> None:
-    """Raises for the forms of ``fn`` that exist in bf16 only. ``bias_dims``:
-    the head dims at which its fp32 form takes a bias, alone (K1: T5's)."""
-    if bias and not segments and not causal and d in bias_dims:
-        return
-    if bias or segments:
-        also = (f", or a bias alone at head dims {bias_dims}" if bias_dims
-                else "")
-        raise NotImplementedError(
-            f"{fn}: the bias and segment-id forms take bf16 only; pass bf16 "
-            f"q, k, v (fp32 runs without a mask or with causal=True{also})")
-
-
 def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
@@ -527,11 +533,11 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
     head dim from 1 to 256 in every form), "d512" (the TMA / wgmma kernel of
     ``csrc/flash_attention.cu``, bf16 at 512 without a mask) or "fp32"
     (``csrc/fp32/flash_f32_fwd.cu``: TMA and TF32 wgmma, three passes; at
-    every head dim up to 256 without a mask or causal, above 160 on the
-    streaming kernel of ``flash_f32_fwd_wide.cuh``, at 512 without a mask
-    with the keys split as :func:`k1_d512_splits` says, and with a bias
-    alone at 64). Raises ``NotImplementedError`` naming what the kernels
-    take for any other."""
+    every head dim up to 256 in every form, up to 160 with Q resident
+    (``flash_f32_fwd.cuh``), above on the streaming kernel of
+    ``flash_f32_fwd_wide.cuh``, and at 512 without a mask with the keys
+    split as :func:`k1_d512_splits` says). Raises ``NotImplementedError``
+    naming what the kernels take for any other."""
     fn = "flash_attention_cuda"
     _check_dtype(dtype)
     _check_head_dim(fn, d, d512=True)
@@ -540,31 +546,26 @@ def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
             f"head dim {d}: {fn} takes no mask at 512; the masked forms take "
             f"head dims 1 to {_MAX_HEAD_DIM}")
     if dtype == torch.float32:
-        _check_fp32_form(fn, d, causal, bias, segments, _FP32_BIAS_HEAD_DIMS)
         return "fp32"
     return "d512" if d == _D512 else "sm90"
 
 
 def _bwd_route(fn, dtype, d: int, causal: bool, bias: bool,
                segments: bool) -> str:
-    """The route of K3 or K4: "sm90" for bf16 at every head dim from 1 to
-    256 in every form, "fp32" for fp32 at the same head dims without a mask
-    or causal; raises for anything else."""
+    """The route of K3 or K4, whatever its masks: "sm90" for bf16 and "fp32"
+    for fp32, at every head dim from 1 to 256; raises for any other."""
     _check_dtype(dtype)
     _check_head_dim(fn, d)
-    if dtype == torch.float32:
-        _check_fp32_form(fn, d, causal, bias, segments)
-        return "fp32"
-    return "sm90"
+    return "fp32" if dtype == torch.float32 else "sm90"
 
 
 def k3_route(dtype, d: int, causal: bool = False, bias: bool = False,
              segments: bool = False) -> str:
     """Which K3 kernel a CUDA launch of this dtype, head dim and form runs:
     "sm90" (``csrc/flash_attention_dq_sm90.cuh``, TMA and wgmma: bf16 at
-    every head dim from 1 to 256 in every form) or "fp32"
-    (``csrc/fp32/flash_f32_bwd.cu`` up to 128, ``flash_f32_bwd.cuh``'s
-    two-block kernels from 129 to 256; without a mask or causal). Raises
+    every head dim from 1 to 256 in every form) or "fp32" (the TF32 kernels
+    of ``csrc/fp32/flash_f32_bwd.cuh``, one block up to 128, two from 129 to
+    256, in every form; with a bias also dbias). Raises
     ``NotImplementedError`` naming what the kernels take for any other."""
     return _bwd_route("flash_attention_bwd_dq_cuda", dtype, d, causal, bias,
                       segments)
@@ -574,32 +575,21 @@ def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
              segments: bool = False) -> str:
     """Which K4 kernel a CUDA launch of this dtype, head dim and form runs:
     "sm90" (``csrc/flash_attention_bwd_sm90.cuh``, TMA and wgmma: bf16 at
-    every head dim from 1 to 256 in every form) or "fp32"
-    (``csrc/fp32/flash_f32_bwd.cu`` up to 128, ``flash_f32_bwd.cuh``'s
-    two-block kernels from 129 to 256; without a mask or causal). Raises
-    ``NotImplementedError`` naming what the kernels take for any other."""
+    every head dim from 1 to 256 in every form) or "fp32" (the TF32 kernels
+    of ``csrc/fp32/flash_f32_bwd.cuh``, one block up to 128, two from 129 to
+    256, in every form). Raises ``NotImplementedError`` naming what the
+    kernels take for any other."""
     return _bwd_route("flash_attention_bwd_dkv_cuda", dtype, d, causal, bias,
                       segments)
 
 
 def _pos_route(fn, dtype, d: int) -> str:
     """The route of a position-masked kernel (K5, K6, K7), whatever its
-    masks:
-    "sm90" for bf16 at head dims 64 and 128, "fp32" for fp32 at 64; raises
-    for anything else."""
+    masks: "sm90" for bf16 and "fp32" for fp32, at every head dim from 1 to
+    256; raises for any other."""
     _check_dtype(dtype)
-    if dtype == torch.float32:
-        if d not in _FP32_POS_HEAD_DIMS:
-            raise NotImplementedError(
-                f"head dim {d} in fp32: the fp32 form of {fn} takes "
-                f"{_FP32_POS_HEAD_DIMS}" + (
-                    f"; pass bf16 tensors (it takes {_POS_HEAD_DIMS})"
-                    if d in _POS_HEAD_DIMS else ""))
-        return "fp32"
-    if d not in _POS_HEAD_DIMS:
-        raise NotImplementedError(f"head dim {d}: {fn} takes "
-                                  f"{_POS_HEAD_DIMS}")
-    return "sm90"
+    _check_head_dim(fn, d)
+    return "fp32" if dtype == torch.float32 else "sm90"
 
 
 def k5_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
@@ -607,30 +597,35 @@ def k5_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
     """Which K5 kernel a CUDA launch of this dtype, head dim and form runs
     (the form: causal, a ``valid_len``, two segments on a side, the bounded
     softmax): "sm90" (the position-mask form of
-    ``csrc/flash_attention_sm90.cu``, TMA and wgmma: bf16 at head dims 64 and
-    128 in every form) or "fp32" (``csrc/fp32/flash_f32_fwd.cu``, TMA and
-    TF32 wgmma, three passes: 64 in every form). Raises ``NotImplementedError`` naming what the kernels take
-    for any other."""
+    ``csrc/flash_attention_sm90.cuh``, TMA and wgmma, a persistent grid:
+    bf16 at every head dim from 1 to 256 in every form) or "fp32"
+    (``csrc/fp32/flash_f32_fwd.cuh`` up to 160, the streaming kernel of
+    ``flash_f32_fwd_wide.cuh`` above; TMA and TF32 wgmma, three passes, at
+    the same head dims in every form). Raises ``NotImplementedError`` naming
+    what the kernels take for any other."""
     return _pos_route("flash_attention_pos_cuda", dtype, d)
 
 
 def k6_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
              segments: bool = False) -> str:
     """Which K6 kernel a CUDA launch of this dtype, head dim and form runs:
-    "sm90" (the position-mask form of ``csrc/flash_attention_dq_sm90.cu``,
-    TMA and wgmma: bf16 at head dims 64 and 128 in every form) or "fp32"
-    (``csrc/fp32/flash_f32_bwd.cu``: 64 in every form). Raises
-    ``NotImplementedError`` naming what the kernels take for any other."""
+    "sm90" (the position-mask form of ``csrc/flash_attention_dq_sm90.cuh``,
+    TMA and wgmma: bf16 at every head dim from 1 to 256 in every form) or
+    "fp32" (the masked TF32 kernels of ``csrc/fp32/flash_f32_bwd.cuh`` at
+    the same head dims). Raises ``NotImplementedError`` naming what the
+    kernels take for any other."""
     return _pos_route("flash_bwd_pos_dq_cuda", dtype, d)
 
 
 def k7_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
              segments: bool = False) -> str:
     """Which K7 kernel a CUDA launch of this dtype, head dim and form runs:
-    "sm90" (the position-mask form of ``csrc/flash_attention_bwd_sm90.cu``,
-    TMA and wgmma: bf16 at head dims 64 and 128 in every form) or "fp32"
-    (``csrc/fp32/flash_f32_bwd.cu``: 64 in every form). Raises
-    ``NotImplementedError`` naming what the kernels take for any other."""
+    "sm90" (the position-mask form of ``csrc/flash_attention_bwd_sm90.cuh``,
+    TMA and wgmma, above 128 on K4's one-block-a-64-key-tile body: bf16 at
+    every head dim from 1 to 256 in every form) or "fp32" (the masked TF32
+    kernels of ``csrc/fp32/flash_f32_bwd.cuh`` at the same head dims).
+    Raises ``NotImplementedError`` naming what the kernels take for any
+    other."""
     return _pos_route("flash_bwd_pos_dkv_cuda", dtype, d)
 
 
@@ -695,12 +690,12 @@ def _tma_operand(x):
 def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
                          bias=None, segment_ids=None, causal: bool = False):
     """K1, the CUDA kernel: (out, lse) for bf16 or fp32 (B, H, L, D) CUDA
-    tensors, with the masks of :func:`flash_attention_plain` (bf16 at every
-    head dim from 1 to 256; in fp32 ``causal`` at those, or a ``bias`` alone
-    at head dim 64). A head dim that is not a multiple of 8 is padded with
-    zero columns and ``out`` cut back (:func:`_pad_head_dim`). Which kernel
-    runs: :func:`k1_route`; launches are counted by route in ``.routes`` and
-    by head dim in ``.head_dims``."""
+    tensors, with the masks of :func:`flash_attention_plain`, at every head
+    dim from 1 to 256 (and 512 without a mask). A head dim that is not a
+    multiple of 8 is padded with zero columns and ``out`` cut back
+    (:func:`_pad_head_dim`). Which kernel runs: :func:`k1_route`; launches
+    are counted by route in ``.routes`` and by head dim in
+    ``.head_dims``."""
     b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_cuda")
     route = k1_route(q.dtype, d, bool(causal), bias is not None,
                      segment_ids is not None)
@@ -712,13 +707,24 @@ def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
     return (out if out.shape[-1] == d else out[..., :d]), lse
 
 
+def _f32_masks(q, lk, bias, segment_ids, kernel):
+    """The fp32 kernels' mask arguments: the bias in fp32 expanded to
+    (B, H, Lq, Lk) unmoved, the seven mask pointers (bias, then the six
+    segment arrays at the tiles of :func:`_f32_tiles`) and what the caller
+    holds until its launch is enqueued."""
+    if bias is not None:
+        bias = bias.float()
+    tiles = _f32_tiles(kernel, q.shape[-1])
+    bias, ptrs, _, held = _mask_args(q, lk, bias, segment_ids, False, tiles,
+                                     "k" if kernel == "k4" else "q")
+    return bias, ptrs, held
+
+
 def _k1_fp32(q, k, v, scale, bias, segment_ids, causal):
-    """K1 on the TF32 kernel; the arguments checked by the caller."""
+    """K1 on the TF32 kernels; the arguments checked by the caller."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    if bias is not None:   # fp32, expanded to (B, H, Lq, Lk) unmoved
-        bias, _, _, _held = _mask_args(q, lk, bias.float(), None, False,
-                                       _FWD_TILES, "q")
+    bias, ptrs, _held = _f32_masks(q, lk, bias, segment_ids, "k1")
     out = _blhd(q, lq)
     lse = _lse_like(q)
     strides = _strides(q, k, v, out, bias=bias)
@@ -727,8 +733,7 @@ def _k1_fp32(q, k, v, scale, bias, segment_ids, causal):
     work = _f32_work(q, lk, splits)
     err = _build.load("kernels_fp32").fdsd_flash_fwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), work.data_ptr(),
-        None if bias is None else bias.data_ptr(), b, h, lq, lk, d,
+        lse.data_ptr(), work.data_ptr(), *ptrs, b, h, lq, lk, d,
         ctypes.cast(strides, ctypes.c_void_p), scale, int(bool(causal)),
         splits, _stream(q))
     _build.check(err, "fdsd_flash_fwd_f32")
@@ -818,21 +823,36 @@ def _check_bwd(q, k, v, g, lse, delta):
     return dims
 
 
-def _bwd_launch(entry, q, k, v, g, lse, delta, outs, scale, causal):
-    """One launch of a backward C entry ``entry`` of the fp32 library:
-    q, k, v, dO, lse, delta, the outputs, the workspace, the sizes,
-    strides, scale and causal flag."""
+def _bwd_fp32(q, k, v, g, lse, delta, scale, bias, segment_ids, causal,
+              need_dbias=False, dq=True):
+    """K3 (``dq``: (dq, dS or None)) or K4 ((dk, dv)) on the TF32 kernels,
+    every form; q, k, v, dO checked and padded by the caller. One launch of
+    the C entry: q, k, v, dO, lse, delta, the outputs (dq and dS, or dk and
+    dv), the workspace, the seven mask pointers, the sizes, strides, scale
+    and causal flag."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    strides = _strides(q, k, v, g, *outs)
+    bias, ptrs, _held = _f32_masks(q, lk, bias, segment_ids,
+                                   "k3" if dq else "k4")
+    if dq:
+        outs = [_blhd(q, lq)]
+        ds = (torch.empty((b, h, lq, lk), device=q.device,
+                          dtype=torch.float32) if need_dbias else None)
+        extra = [None if ds is None else ds.data_ptr()]
+        entry = "fdsd_flash_bwd_dq_f32"
+    else:
+        outs, extra = [_blhd(k, lk), _blhd(v, lk)], []
+        entry = "fdsd_flash_bwd_dkv_f32"
+    strides = _strides(q, k, v, g, *outs, bias=bias)
     work = _f32_bwd_work(q, lk)
     err = getattr(_build.load("kernels_fp32"), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
-        work.data_ptr(), b, h, lq, lk, d,
+        *extra, work.data_ptr(), *ptrs, b, h, lq, lk, d,
         ctypes.cast(strides, ctypes.c_void_p), scale, int(bool(causal)),
         _stream(q))
     _build.check(err, entry)
+    return (outs[0], ds) if dq else tuple(outs)
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
@@ -854,14 +874,9 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
     if need_dbias and bias is None:
         raise ValueError("need_dbias without a bias")
     qp, kp, vp, gp = _pad_head_dim(q, k, v, g)
-    ds = None
-    if route == "sm90":
-        dq, ds = _bwd_sm90(qp, kp, vp, gp, lse, delta, scale, bias,
-                           segment_ids, causal, need_dbias, dq=True)
-    else:
-        dq = _blhd(qp, lq)
-        _bwd_launch("fdsd_flash_bwd_dq_f32", qp, kp, vp, gp, lse, delta,
-                    [dq], scale, causal)
+    launch = _bwd_sm90 if route == "sm90" else _bwd_fp32
+    dq, ds = launch(qp, kp, vp, gp, lse, delta, scale, bias, segment_ids,
+                    causal, need_dbias, dq=True)
     _count_launch(flash_attention_bwd_dq_cuda, q, bias, segment_ids, causal,
                   route)
     if dq.shape[-1] != d:
@@ -909,13 +924,9 @@ def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
                      segment_ids is not None)
     scale = float(d ** -0.5 if scale is None else scale)
     qp, kp, vp, gp = _pad_head_dim(q, k, v, g)
-    if route == "sm90":
-        dk, dv = _bwd_sm90(qp, kp, vp, gp, lse, delta, scale, bias,
-                           segment_ids, causal, dq=False)
-    else:
-        dk, dv = _blhd(kp, lk), _blhd(vp, lk)
-        _bwd_launch("fdsd_flash_bwd_dkv_f32", qp, kp, vp, gp, lse, delta,
-                    [dk, dv], scale, causal)
+    launch = _bwd_sm90 if route == "sm90" else _bwd_fp32
+    dk, dv = launch(qp, kp, vp, gp, lse, delta, scale, bias, segment_ids,
+                    causal, dq=False)
     _count_launch(flash_attention_bwd_dkv_cuda, q, bias, segment_ids, causal,
                   route)
     if dk.shape[-1] != d:
@@ -1107,38 +1118,43 @@ def flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, *,
                              seg_k: Optional[int] = None,
                              valid_len: Optional[int] = None,
                              stability: str = "online"):
-    """K5: (out, lse) for bf16 (B, H, L, D) CUDA tensors, D 64 or 128, or
-    fp32 ones, D 64. The offsets are int32 (2,) tensors on q's device; the
-    kernel reads them, so nothing waits for the host. Which kernel runs:
-    :func:`k5_route`; launches are counted by route in ``.routes``."""
+    """K5: (out, lse) for bf16 or fp32 (B, H, L, D) CUDA tensors at every
+    head dim from 1 to 256; one that is not a multiple of 8 is padded with
+    zero columns and ``out`` cut back (:func:`_pad_head_dim`). The offsets
+    are int32 (2,) tensors on q's device; the kernel reads them, so nothing
+    waits for the host. Which kernel runs: :func:`k5_route`; launches are
+    counted by route in ``.routes`` and by head dim in ``.head_dims``."""
     b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_pos_cuda")
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, stability)
     route = k5_route(q.dtype, d, bool(causal), valid_len is not None,
                      seg_q < lq or seg_k < lk, stability == "bounded")
     _check_pos(q, scale, q_offsets, kv_offsets)
+    qp, kp, vp = _pad_head_dim(q, k, v)
     # the fp32 kernel takes a workspace for its split terms after the offsets
     work = []
     if route == "sm90":
-        q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
+        qp, kp, vp = _tma_operand(qp), _tma_operand(kp), _tma_operand(vp)
     else:
-        work = [_f32_work(q, lk)]
-    out = _blhd(q, lq)
-    lse = _lse_like(q)
-    strides = _strides(q, k, v, out)
+        work = [_f32_work(qp, lk)]
+    out = _blhd(qp, lq)
+    lse = _lse_like(qp)
+    strides = _strides(qp, kp, vp, out)
     err = _pos_entry(q, "fdsd_flash_fwd_pos")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
         lse.data_ptr(), q_offsets.data_ptr(), kv_offsets.data_ptr(),
-        *(w.data_ptr() for w in work), b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
+        *(w.data_ptr() for w in work), b, h, lq, lk, qp.shape[-1],
+        ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
         0 if valid_len is None else int(valid_len), int(valid_len is not None),
         int(bool(causal)), int(stability == "bounded"), _stream(q))
     _build.check(err, "fdsd_flash_fwd_pos")
     _count_launch(flash_attention_pos_cuda, q, route=route)
-    return out, lse
+    return (out if out.shape[-1] == d else out[..., :d]), lse
 
 
 flash_attention_pos_cuda.launches = 0
 flash_attention_pos_cuda.dtypes = collections.Counter()
 flash_attention_pos_cuda.routes = collections.Counter()
+flash_attention_pos_cuda.head_dims = collections.Counter()
 
 
 def flash_attention_pos(q, k, v, q_offsets, kv_offsets, **kw):
@@ -1200,31 +1216,34 @@ def flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
                           seg_q: Optional[int] = None,
                           seg_k: Optional[int] = None,
                           valid_len: Optional[int] = None):
-    """K6: dq of :func:`flash_bwd_pos` for bf16 (B, H, L, D) CUDA tensors,
-    D 64 or 128, or fp32 ones, D 64; ``lse`` and ``delta`` contiguous fp32
-    (B, H, Lq), the offsets int32 (2,) tensors on q's device. Which kernel
-    runs: :func:`k6_route`; launches are counted by route in ``.routes``."""
+    """K6: dq of :func:`flash_bwd_pos` for bf16 or fp32 (B, H, L, D) CUDA
+    tensors at every head dim from 1 to 256 (padded as K5 pads it, dq cut
+    back); ``lse`` and ``delta`` contiguous fp32 (B, H, Lq), the offsets
+    int32 (2,) tensors on q's device. Which kernel runs: :func:`k6_route`;
+    launches are counted by route in ``.routes`` and by head dim in
+    ``.head_dims``."""
     (b, h, lq, lk, d), scale, seg_q, seg_k = _pos_bwd_args(
         q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k)
     route = k6_route(q.dtype, d, bool(causal), valid_len is not None,
                      seg_q < lq or seg_k < lk)
+    qp, kp, vp, gp = _pad_head_dim(q, k, v, g)
     work = []   # the fp32 kernel's workspace, after the offsets
     if route == "sm90":
-        q, k, v, g = (_tma_operand(x) for x in (q, k, v, g))
+        qp, kp, vp, gp = (_tma_operand(x) for x in (qp, kp, vp, gp))
     else:
-        work = [_f32_bwd_work(q, lk)]
-    dq = _blhd(q, lq)
-    strides = _strides(q, k, v, g, dq)
+        work = [_f32_bwd_work(qp, lk)]
+    dq = _blhd(qp, lq)
+    strides = _strides(qp, kp, vp, gp, dq)
     err = _pos_entry(q, "fdsd_flash_bwd_pos_dq")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), gp.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), q_offsets.data_ptr(),
-        kv_offsets.data_ptr(), *(w.data_ptr() for w in work), b, h, lq, lk, d,
-        ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
-        0 if valid_len is None else int(valid_len), int(valid_len is not None),
-        int(bool(causal)), _stream(q))
+        kv_offsets.data_ptr(), *(w.data_ptr() for w in work), b, h, lq, lk,
+        qp.shape[-1], ctypes.cast(strides, ctypes.c_void_p), scale, seg_q,
+        seg_k, 0 if valid_len is None else int(valid_len),
+        int(valid_len is not None), int(bool(causal)), _stream(q))
     _build.check(err, "fdsd_flash_bwd_pos_dq")
     _count_launch(flash_bwd_pos_dq_cuda, q, route=route)
-    return dq
+    return dq if dq.shape[-1] == d else dq[..., :d]
 
 
 def flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
@@ -1233,30 +1252,34 @@ def flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
                            seg_q: Optional[int] = None,
                            seg_k: Optional[int] = None,
                            valid_len: Optional[int] = None):
-    """K7: (dk, dv) from the inputs of :func:`flash_bwd_pos_dq_cuda`.
-    Which kernel runs: :func:`k7_route`; launches are counted by route in
-    ``.routes``."""
+    """K7: (dk, dv) from the inputs of :func:`flash_bwd_pos_dq_cuda`, cut
+    back to the head dim as dq is. Which kernel runs: :func:`k7_route`;
+    launches are counted by route in ``.routes`` and by head dim in
+    ``.head_dims``."""
     (b, h, lq, lk, d), scale, seg_q, seg_k = _pos_bwd_args(
         q, k, v, g, lse, delta, q_offsets, kv_offsets, scale, seg_q, seg_k)
     route = k7_route(q.dtype, d, bool(causal), valid_len is not None,
                      seg_q < lq or seg_k < lk)
+    qp, kp, vp, gp = _pad_head_dim(q, k, v, g)
     work = []   # the fp32 kernel's workspace, after the offsets
     if route == "sm90":
-        q, k, v, g = (_tma_operand(x) for x in (q, k, v, g))
+        qp, kp, vp, gp = (_tma_operand(x) for x in (qp, kp, vp, gp))
     else:
-        work = [_f32_bwd_work(q, lk)]
-    dk, dv = _blhd(k, lk), _blhd(v, lk)
-    strides = _strides(q, k, v, g, dk, dv)
+        work = [_f32_bwd_work(qp, lk)]
+    dk, dv = _blhd(kp, lk), _blhd(vp, lk)
+    strides = _strides(qp, kp, vp, gp, dk, dv)
     err = _pos_entry(q, "fdsd_flash_bwd_pos_dkv")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), gp.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         q_offsets.data_ptr(), kv_offsets.data_ptr(),
-        *(w.data_ptr() for w in work), b, h, lq, lk, d,
+        *(w.data_ptr() for w in work), b, h, lq, lk, qp.shape[-1],
         ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
         0 if valid_len is None else int(valid_len), int(valid_len is not None),
         int(bool(causal)), _stream(q))
     _build.check(err, "fdsd_flash_bwd_pos_dkv")
     _count_launch(flash_bwd_pos_dkv_cuda, q, route=route)
+    if dk.shape[-1] != d:
+        dk, dv = dk[..., :d], dv[..., :d]
     return dk, dv
 
 
@@ -1266,6 +1289,8 @@ flash_bwd_pos_dq_cuda.dtypes = collections.Counter()
 flash_bwd_pos_dkv_cuda.dtypes = collections.Counter()
 flash_bwd_pos_dq_cuda.routes = collections.Counter()
 flash_bwd_pos_dkv_cuda.routes = collections.Counter()
+flash_bwd_pos_dq_cuda.head_dims = collections.Counter()
+flash_bwd_pos_dkv_cuda.head_dims = collections.Counter()
 
 
 def flash_bwd_pos(q, k, v, g, lse, delta, q_offsets, kv_offsets, **kw):

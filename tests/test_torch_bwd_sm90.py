@@ -39,11 +39,7 @@ def _want_bwd(dtype, d, form):
     causal, bias, seg = FORMS[form]
     if not 1 <= d <= 256:
         return NotImplementedError
-    if dtype == F32:
-        if bias or seg:
-            return NotImplementedError
-        return "fp32"
-    return "sm90"
+    return "fp32" if dtype == F32 else "sm90"
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))
@@ -123,9 +119,9 @@ def test_fp32_forward_constants_are_the_wrappers():
     """The passes, the key group of v's transposed terms (in the split
     pre-pass the forward shares with the backward) and the d = 512 tiles (of
     the streaming kernel, fp32/flash_f32_fwd_wide.cuh) and splits of
-    csrc/fp32/flash_f32_fwd.cu are what the wrapper assumes when it sizes
-    the workspace and the key splits."""
-    text = _source("fp32/flash_f32_fwd.cu")
+    csrc/fp32/flash_f32_fwd.cu (and its header) are what the wrapper
+    assumes when it sizes the workspace and the key splits."""
+    text = _source("fp32/flash_f32_fwd.cu") + _source("fp32/flash_f32_fwd.cuh")
     m = re.search(r"constexpr int kPasses = (\d+);", text)
     assert m and int(m.group(1)) == tfa._F32_PASSES == 3
     m = re.search(r"constexpr int kKeyGroup = (\d+);",
@@ -134,7 +130,7 @@ def test_fp32_forward_constants_are_the_wrappers():
     m = re.search(r"static constexpr int kBQ = (\d+), kBK = (\d+), kHalf",
                   _source("fp32/flash_f32_fwd_wide.cuh"))
     assert m and tuple(map(int, m.groups())) == (tfa._D512_TILE,) * 2
-    assert "run_stream<512>(w, p, splits, c, s)" in text
+    assert "run_stream<512>(w, p, splits, kWidePlain, s)" in text
     m = re.search(r"constexpr int kMaxSplits = (\d+);", text)
     assert m and int(m.group(1)) == tfa._D512_MAX_SPLITS
     # the workspace: three hi / lo pairs, then 513 floats a row per split
@@ -176,7 +172,7 @@ def test_fp32_forward_tiles_fit_in_shared_memory(dp, bias):
     """d = 160 takes 64-query blocks (one consumer) and the bias form adds
     a 128 x 64 fp32 tile; both fit beside the Q tile and the rings, as every
     width up to 160 does (two stages where they fit, below 128)."""
-    text = _source("fp32/flash_f32_fwd.cu")
+    text = _source("fp32/flash_f32_fwd.cuh")
     for rule in ("kCons = DP <= 128 ? 2 : 1", "kBK = DP >= 80 ? 32 : 64",
                  "2 * kBQ * DP * 4 + 2 * 4 * kBK * DP * 4 + 1024 + 8 * 11 <= "
                  "232448 &&", "DP < 128",
@@ -255,7 +251,7 @@ def test_fp32_backward_tiles_fill_shared_memory(d):
             assert tiles < nbytes - 1024 <= tiles + 8 * 14, kind
             assert f"{tiles:,}" in text, tiles
         return
-    text = _source("fp32/flash_f32_bwd.cu")
+    text = _source("fp32/flash_f32_bwd.cu") + _source("fp32/flash_f32_bwd.cuh")
     for rule in ("kCons = DP <= 64 ? 2 : 1", "kBQ = 64 * kCons, kBK = 32",
                  "kStages = DP <= 64 ? 2 : 1", "kBQ = DP <= 64 ? 32 : 16",
                  "kStagesA = 2, kStagesB = 1", "229,376 B of tiles"):

@@ -431,8 +431,13 @@ def test_pos_kernel_refuses_what_it_does_not_take(gen):
         tfa.flash_attention_pos(q.half(), q.half(), q.half(), z, z)
     assert tfa.flash_attention_pos(q.float(), q.float(), q.float(), z,
                                    z)[0].dtype == torch.float32
+    q40 = _randn(gen, 1, 1, 64, 40)    # every head dim up to 256
+    out, lse = tfa.flash_attention_pos(q40, q40, q40, z, z)
+    ref, ref_lse = tfa.flash_attention_pos_plain(q40, q40, q40, z, z)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
     with pytest.raises(NotImplementedError):
-        tfa.flash_attention_pos(*(_randn(gen, 1, 1, 64, 40),) * 3, z, z)
+        tfa.flash_attention_pos(*(_randn(gen, 1, 1, 64, 320),) * 3, z, z)
     with pytest.raises(ValueError):
         tfa.flash_attention_pos(q, q, q, z.cpu(), z)
     with pytest.raises(ValueError):
@@ -557,9 +562,12 @@ def test_pos_backward_kernels_refuse_what_they_do_not_take(gen):
         tfa.flash_bwd_pos_dq_cuda(*(q.half(),) * 4, st, st, z, z)
     assert tfa.flash_bwd_pos_dq_cuda(*(q.float(),) * 4, st, st, z,
                                      z).dtype == torch.float32
+    q40 = _randn(gen, 1, 1, 64, 40)    # every head dim up to 256
+    lse40, delta40 = _global_stats(q40, [(q40, q40)], q40, z, [z])
+    _pos_bwd_check(q40, q40, q40, q40, lse40, delta40, z, z)
     with pytest.raises(NotImplementedError):
-        tfa.flash_bwd_pos_dkv_cuda(*(_randn(gen, 1, 1, 64, 40),) * 4, st, st,
-                                   z, z)
+        tfa.flash_bwd_pos_dkv_cuda(*(_randn(gen, 1, 1, 64, 320),) * 4, st,
+                                   st, z, z)
     with pytest.raises(ValueError):
         tfa.flash_bwd_pos_dq_cuda(q, q, q, q, st.double(), st, z, z)
     with pytest.raises(ValueError):
@@ -1587,17 +1595,25 @@ def test_fp32_joint_attention_matches_concatenated(gen):
 
 
 def test_fp32_forms_not_ported_raise_with_the_dtype_to_pass(gen):
+    """The fp32 bias, segment-id and position forms run on their kernels and
+    match the plain versions; what the kernels lack (a mask or the backward
+    at 512, other strides) still raises."""
     f32 = dict(dtype=torch.float32)
     q = _randn(gen, 1, 2, 64, 64, **f32)
     ids = torch.zeros(1, 64, dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="pass bf16"):
-        tfa.flash_attention_cuda(q, q, q, bias=q[:, :, :, :64], causal=True)
-    with pytest.raises(NotImplementedError, match="pass bf16"):
-        tfa.flash_attention(q, q, q, segment_ids=(ids, ids))
+    bias = q[:, :, :, :64].contiguous()
+    out, lse = tfa.flash_attention_cuda(q, q, q, bias=bias, causal=True)
+    ref, ref_lse = tfa.flash_attention_plain(q, q, q, bias=bias, causal=True)
+    _f32_close(out, ref, "out")
+    _f32_close(lse, ref_lse, "lse")
+    got = tfa.flash_attention(q, q, q, segment_ids=(ids, ids))
+    _f32_close(got, tfa.flash_attention_plain(q, q, q)[0], "out")
     q128 = _randn(gen, 1, 1, 64, 128, **f32)
     z = torch.zeros(2, dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="fp32 form.*pass bf16"):
-        tfa.flash_attention_pos_cuda(q128, q128, q128, z, z)
+    out, lse = tfa.flash_attention_pos_cuda(q128, q128, q128, z, z)
+    ref, ref_lse = tfa.flash_attention_pos_plain(q128, q128, q128, z, z)
+    _f32_close(out, ref, "out")
+    _f32_close(lse, ref_lse, "lse")
     q512 = _randn(gen, 1, 1, 64, 512, **f32)
     with pytest.raises(NotImplementedError, match="no mask at 512"):
         tfa.flash_attention_cuda(q512, q512, q512, causal=True)
@@ -2245,3 +2261,106 @@ def test_every_head_dim_matches_plain(gen, dtype, d, form):
         assert ((a.float() - w.float()).abs().max().item()
                 <= tol * w.float().abs().max().item() + 1e-6)
 
+
+
+# ------------------------- every flash form at every head dim, both dtypes
+# The fp32 bias (with dbias), segment-id and causal forms of K1, K3 and K4,
+# and K5, K6, K7 under two segments a side, valid_len and causal, online and
+# bounded, at head dims that take each width class (8 and 36 padded, 96,
+# 160 on the one-block fp32 K1 and the two-block K3 / K4, 192 and 256 on the
+# streaming fp32 K1). fp32 against the plain versions in fp64: each output
+# within F64_REL of its largest magnitude (the TF32 split keeps ~2^-22 of
+# each product: these cases show 1e-6 - 5e-6; one TF32 pass would be
+# ~1e-3); bf16 at the tolerances above. dbias into a NaN-poisoned pool.
+FORM_DIMS = [8, 36, 96, 160, 192, 256]
+F64_REL = 1e-5
+MASKED_FORMS = [(c, b, s) for c in (False, True) for b in (False, True)
+                for s in (False, True)][1:]    # (causal, bias, segments)
+
+
+def _rel_close(got, want, rel, what):
+    assert got.shape == want.shape and torch.isfinite(got).all(), what
+    err = (got.double() - want.double()).abs().max().item()
+    assert err <= rel * want.double().abs().max().item(), (what, err)
+
+
+@pytest.mark.parametrize("form", MASKED_FORMS,
+                         ids=lambda f: "+".join(n for n, on in zip(
+                             ("causal", "bias", "segments"), f) if on))
+@pytest.mark.parametrize("d", FORM_DIMS)
+def test_fp32_mask_forms_at_every_head_dim(gen, d, form):
+    causal, with_bias, with_seg = form
+    b, h, lq, lk = 2, 2, 300, 260
+    f32 = dict(dtype=torch.float32)
+    q, g = _randn(gen, b, h, lq, d, **f32), _randn(gen, b, h, lq, d, **f32)
+    k, v = _randn(gen, b, h, lk, d, **f32), _randn(gen, b, h, lk, d, **f32)
+    masks = dict(causal=causal)
+    if with_bias:
+        masks["bias"] = _randn(gen, 1, h, lq, lk, **f32)
+    if with_seg:   # ragged runs, boundaries off every tile size
+        masks["segment_ids"] = (
+            (torch.arange(lq, device="cuda") // 77).int().repeat(b, 1),
+            (torch.arange(lk, device="cuda") // 61).int().repeat(b, 1))
+    routes = (tfa.flash_attention_cuda.routes["fp32"],
+              tfa.flash_attention_bwd_dq_cuda.routes["fp32"])
+    out, lse = tfa.flash_attention_cuda(q, k, v, **masks)
+    if with_bias:
+        torch.full((b, h, lq, lk), float("nan"), device="cuda")
+    grads = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **masks,
+                                         need_dbias=with_bias)
+    assert (tfa.flash_attention_cuda.routes["fp32"],
+            tfa.flash_attention_bwd_dq_cuda.routes["fp32"]) == tuple(
+                n + 1 for n in routes)
+    m64 = {k_: (x.double() if k_ == "bias" else x) for k_, x in masks.items()}
+    d64 = [x.double() for x in (q, k, v)]
+    ref, ref_lse = tfa.flash_attention_plain(*d64, **m64)
+    want = tfa.flash_attention_bwd_plain(*d64, ref, ref_lse, g.double(),
+                                         **m64, need_dbias=with_bias)
+    seen = ref_lse > -1e29
+    _rel_close(out, ref, F64_REL, "out")
+    _rel_close(lse[seen], ref_lse[seen], F64_REL, "lse")
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), grads, want):
+        _rel_close(a, w, F64_REL, name)
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", FORM_DIMS)
+def test_pos_forms_at_every_head_dim(gen, d, dtype, stability):
+    b, h, lq, lk = 2, 2, 300, 260
+    q, g = (_randn(gen, b, h, lq, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, b, h, lk, d, dtype=dtype) for _ in range(2))
+    qo, ko = _offsets(20, 1000), _offsets(50, 900)
+    kw = dict(causal=True, valid_len=1000, seg_q=150, seg_k=130)
+    wide = dtype == torch.float32
+    ins = [x.double() for x in (q, k, v)] if wide else [q, k, v]
+    ref, ref_lse = tfa.flash_attention_pos_plain(*ins, qo, ko, **kw)
+    seen = ref_lse > -1e29
+    assert int((~seen).sum()) == b * h * 30     # positions 20 .. 49
+    out, lse = tfa.flash_attention_pos_cuda(q, k, v, qo, ko,
+                                            stability=stability, **kw)
+    assert out.shape == q.shape and not out[~seen].any()
+    assert bool((lse[~seen] <= -1e29).all())
+    lse32 = ref_lse.float().contiguous()
+    delta = (g.double() * ref.double()).sum(-1)
+    got = (tfa.flash_bwd_pos_dq_cuda(q, k, v, g, lse32, delta.float(), qo,
+                                     ko, **kw),
+           *tfa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse32, delta.float(), qo,
+                                       ko, **kw))
+    if wide:
+        want = tfa.flash_bwd_pos_plain(*ins, g.double(), ref_lse, delta, qo,
+                                       ko, **kw)
+        _rel_close(out[seen], ref[seen], F64_REL, "out")
+        _rel_close(lse[seen], ref_lse[seen], F64_REL, "lse")
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            _rel_close(a, w, F64_REL, name)
+        return
+    want = tfa.flash_bwd_pos_plain(q, k, v, g, lse32, delta.float(), qo, ko,
+                                   **kw)
+    assert (out.float() - ref.float())[seen].abs().max().item() <= 2e-2
+    assert (lse - ref_lse)[seen].abs().max().item() <= 1e-3
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and torch.isfinite(a.float()).all(), name
+        assert ((a.float() - w.float()).abs().max().item()
+                <= 2e-2 * w.float().abs().max().item() + 1e-6), name

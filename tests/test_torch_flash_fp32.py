@@ -141,16 +141,15 @@ def test_k1_plain_fp32_with_t5_bias_matches_pallas():
 
 
 def test_fp32_bias_form_is_k1s_alone():
-    """K1 takes T5's bias in fp32 at head dim 64, alone; with causal or
-    segment ids, at another head dim, and in K3 / K4 it stays bf16 only."""
+    """K1 takes T5's bias in fp32 at head dim 64, alone, and every other
+    bias form in fp32 too: with causal or segment ids, at another head dim,
+    and in K3 / K4 (dbias from K3), all on the TF32 kernels."""
     assert tfa.k1_route(torch.float32, 64, bias=True) == "fp32"
     for kw in (dict(d=128, bias=True), dict(d=64, bias=True, causal=True),
                dict(d=64, bias=True, segments=True)):
-        with pytest.raises(NotImplementedError, match="bias alone"):
-            tfa.k1_route(torch.float32, **kw)
+        assert tfa.k1_route(torch.float32, **kw) == "fp32"
     for route in (tfa.k3_route, tfa.k4_route):
-        with pytest.raises(NotImplementedError, match="pass bf16"):
-            route(torch.float32, 64, bias=True)
+        assert route(torch.float32, 64, bias=True) == "fp32"
 
 
 @pytest.mark.parametrize("name", ["siglip_576_d64", "decoder_584_d64_causal",
@@ -271,21 +270,21 @@ def test_use_flash_true_on_cpu_raises():
 
 
 def test_fp32_forms_that_are_not_ported_say_what_to_pass():
-    """The bias and segment-id forms exist in bf16 only: an fp32 launch
-    names the entry point and the dtype to pass. Causal takes fp32 at every
-    head dim up to 256, on the TF32 kernels throughout: above 160 the
-    forward on the streaming kernel, where the resident Q tile does not
-    fit."""
-    # K3's route makes the checks of its fp32 form (K1's and K4's share
-    # _check_fp32_form with it)
+    """The bias and segment-id forms take fp32 as bf16 does; only a head
+    dim past 256 is refused, naming the entry point and what it takes.
+    Causal takes fp32 at every head dim up to 256, on the TF32 kernels
+    throughout: above 160 the forward on the streaming kernel, where the
+    resident Q tile does not fit."""
     assert tfa.k3_route(torch.float32, 64) == "fp32"
     assert tfa.k3_route(torch.float32, 64, causal=True) == "fp32"
     assert tfa.k3_route(torch.bfloat16, 64, True, True, True) == "sm90"
     for kw in (dict(bias=True, segments=False, causal=False),
                dict(bias=False, segments=True, causal=True)):
+        assert tfa.k3_route(torch.float32, 64, **kw) == "fp32"
         with pytest.raises(NotImplementedError,
-                           match="flash_attention_bwd_dq_cuda.*pass bf16"):
-            tfa.k3_route(torch.float32, 64, **kw)
+                           match="flash_attention_bwd_dq_cuda takes head "
+                                 "dims 1 to 256"):
+            tfa.k3_route(torch.float32, 320, **kw)
     assert tfa.k3_route(torch.float32, 128, causal=True) == "fp32"
     assert tfa.k3_route(torch.float32, 96, causal=True) == "fp32"
     assert tfa.k3_route(torch.float32, 192, causal=True) == "fp32"

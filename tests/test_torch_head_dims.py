@@ -1,10 +1,9 @@
 """K1, K3 and K4 at every head dim from 1 to 256, on the CPU.
 
 - The routes: on a CUDA tensor K1 (``k1_route``), K3 (``k3_route``) and K4
-  (``k4_route``) take every head dim from 1 to 256 in bf16 in every mask
-  form and in fp32 without a mask and causal; K3 / K4 at 512, K5 / K6 / K7 at
-  head dims other than 64 and 128 and the fp32 bias and segment-id forms
-  still raise, naming the entry point.
+  (``k4_route``) take every head dim from 1 to 256 in every mask form, in
+  bf16 and in fp32, as K5 / K6 / K7 do; K3 / K4 at 512 and every route above
+  256 still raise, naming the entry point.
 - The tiles: the segment-id tiles the wrappers build at each width are the
   kernels' own (the Cfg rules of ``csrc/flash_attention*_sm90.cuh``), and
   every width's tiles fit in an H100 block's shared memory, the fp32 K1's
@@ -64,20 +63,21 @@ SMEM_LIMIT = 232448   # dynamic shared memory a block may take on the H100
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("kernel", sorted(ROUTES))
 def test_routes_take_every_head_dim_up_to_256(kernel, dtype):
-    """bf16: the sm90 kernel in every form; fp32: without a mask and causal,
-    on the TF32 kernels at every head dim (the forward above 160 on its
-    streaming kernel)."""
+    """bf16: the sm90 kernel in every form; fp32: the TF32 kernels in every
+    form too (a bias, dbias, segment ids, causal) at every head dim (the
+    forward above 160 on its streaming kernel)."""
+    want = "sm90" if dtype == BF16 else "fp32"
     for d in range(1, 257):
-        if dtype == BF16:
-            for form in FORMS:
-                assert ROUTES[kernel](dtype, d, *form) == "sm90", (d, form)
-            continue
-        for causal in (False, True):
-            assert ROUTES[kernel](dtype, d, causal) == "fp32", (d, causal)
+        for form in FORMS:
+            assert ROUTES[kernel](dtype, d, *form) == want, (d, form)
 
 
-REFUSED = [
-    # (route, dtype, head dim, form keywords, the entry point named)
+REFUSED_D = 320   # a head dim above 256 that no route takes in any form
+CASES = [
+    # (route, dtype, head dim, form keywords, the entry point named); those
+    # up to 256 were refused before the fp32 mask forms and the position
+    # kernels took every head dim: they now have their route, and the same
+    # form stays refused above 256 (at REFUSED_D)
     (tfa.k3_route, BF16, 512, {}, "flash_attention_bwd_dq_cuda"),
     (tfa.k4_route, F32, 512, {}, "flash_attention_bwd_dkv_cuda"),
     (tfa.k1_route, BF16, 320, {}, "flash_attention_cuda"),
@@ -95,10 +95,17 @@ REFUSED = [
 ]
 
 
-@pytest.mark.parametrize("route,dtype,d,form,entry", REFUSED,
+@pytest.mark.parametrize("route,dtype,d,form,entry", CASES,
                          ids=lambda x: getattr(x, "__name__", str(x)))
 def test_what_stays_refused_raises_naming_the_entry_point(route, dtype, d,
                                                           form, entry):
+    """Above 256 (and a mask at 512) a route raises naming its entry point.
+    A case at a head dim up to 256 has its route in its dtype, and raises
+    so in the same form at REFUSED_D."""
+    if d <= 256:
+        assert route(dtype, d, **form) == ("fp32" if dtype == F32
+                                           else "sm90")
+        d = REFUSED_D
     with pytest.raises(NotImplementedError, match=entry):
         route(dtype, d, **form)
 

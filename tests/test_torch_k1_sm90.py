@@ -43,10 +43,8 @@ def _want(dtype, d, form):
     if d == 512 and form != "none":
         return NotImplementedError
     if dtype == F32:
-        # T5's bias alone at 64 is the one fp32 bias form
-        if seg or (bias and (d != 64 or causal)):
-            return NotImplementedError
-        # the TF32 kernels at every head dim up to 256 and at 512
+        # the TF32 kernels at every head dim up to 256 in every form, and at
+        # 512 without a mask
         return "fp32"
     return "d512" if d == 512 else "sm90"
 
