@@ -316,7 +316,8 @@ decoding, TinyVLM checkpoint, video training, video sampling, VQ-VAE,
 VanillaVAE, ViT, CLIP forward, CLIP training, FID, data-mesh trainer steps,
 checks, SD3 through the
 ring and the Ulysses MMDiT, the pipelined blocks, 1F1B, ring MMDiT training,
-MoE forward, MoE training and fp32 paths
+the TP and TP x SP SD3 requests and MMDiT steps, MoE forward, MoE training
+and fp32 paths
 and read
 just after (before the plain-attention run it is compared with), K1's also
 by the kernel it ran (sm90, d512, fp32) and by head dim, K3's - K7's (but
@@ -334,7 +335,16 @@ causal, n^2 K5, K6 and K7 launches a call, the hop kernels at (2, 24, 1063,
 Ulysses MMDiT against the flash one; the pipelined joint blocks and a 1F1B
 step; ring MMDiT training at SD3's operating point against the flash
 gradient; the 4-expert MMDiT forward over an expert axis against no mesh
-and a 2-expert training step with its balance loss. The last two
+and a 2-expert training step with its balance loss. The ``tp_fsdp`` group
+(four stretches) adds tensor parallelism over {"model": 2} and, composed
+with the ring over {"seq": 2}, TP x SP: K5 / K6 / K7 at the hop (2, 12,
+2125, 2125, 64) against their plain versions; a 4-step SD3 request
+through ``SD3Inferencer(mesh=)`` over a ring MMDiT on one {"seq": 2,
+"model": 2} mesh, in levels against the meshless request; the MMDiT
+trainer on {"data": 1, "seq": 2, "model": 2} with ring attention, its
+gradient against the meshless one, 192 K5 / K6 / K7 a step, and a
+Ulysses step. ``python3 chip_smoke.py sd3_batch_levels N`` runs only the
+measurement behind SD3's batch-2 level bound, over N seeds. The last two
 lines are a
 JSON summary of the kernels and ``{"ok": true, "device": {...}}``; the
 card's name and power limit come on the line before them. Imports nothing
@@ -1999,11 +2009,11 @@ SD3_INT8_PROFILE_STEPS = 10
 # 4. The tiled decode against the whole one differs by the same kind of
 # rounding (fp32 statistics summed in another order, convs over strips).
 # SD3-medium at 1024^2 / 50 steps is a longer chain over a larger batch
-# change (MMDiT batch 2 -> 4): a first run measured sample 0 against its
-# batch-1 request at 11 levels, mean 1.27 (PERF.md section 6, PR 14); the
-# bound keeps SD1's record for the tiled decode and room above that
-# measurement for the batch.
-BATCH_LEVELS_MAX, BATCH_LEVELS_MEAN = 16, 2.0
+# change (MMDiT batch 2 -> 4): `python3 chip_smoke.py sd3_batch_levels 4`
+# measured sample 0 against its batch-1 request at 11, 11, 12, 11 levels,
+# mean 1.2645 - 1.2700, for seeds 1 - 4 (PERF.md section 6); the bound is
+# the largest of them plus one level, and the largest mean plus 10 %.
+SD3_BATCH_LEVELS_MAX, SD3_BATCH_LEVELS_MEAN = 13, 1.4
 TILED_LEVELS_MAX, TILED_LEVELS_MEAN = 11, 1.2
 # int8 against bf16 final latents of one seed (relative L2): a sanity bound
 # on a random-weight flow, not a quality claim.
@@ -2143,7 +2153,8 @@ def phase_sd3_tiled(card, source):
           f"{TILED_LEVELS_MAX} / {TILED_LEVELS_MEAN}); sample 0 against the "
           f"batch-1 warm request: starting noise bit-identical {same_noise},"
           f" image max {bw[0]} mean {bw[1]:.4f} levels (bound "
-          f"{BATCH_LEVELS_MAX} / {BATCH_LEVELS_MEAN}); launches request "
+          f"{SD3_BATCH_LEVELS_MAX} / {SD3_BATCH_LEVELS_MEAN}); launches "
+          f"request "
           f"{req}, with both decodes {got}, K1 {launches.k1_routes} "
           f"[{card}]", flush=True)
     check(tiled.shape == (2, 1024, 1024, 3) and float(tiled.std()) > 0,
@@ -2157,13 +2168,56 @@ def phase_sd3_tiled(card, source):
           f"tiled decode against whole: {tw}")
     check(same_noise, "sample 0's starting noise differs from its batch-1 "
           "request's")
-    check(bw[0] <= BATCH_LEVELS_MAX and bw[1] <= BATCH_LEVELS_MEAN,
+    check(bw[0] <= SD3_BATCH_LEVELS_MAX
+          and bw[1] <= SD3_BATCH_LEVELS_MEAN,
           f"sample 0 against its batch-1 request: {bw}")
     check(req == want_req and got == want,
           f"SD3 batch-2 launches {req} / {got} != {want_req} / {want}")
     check(launches.k1_routes == {"d512": want["K1"]},
           f"SD3 batch-2 K1 routes {launches.k1_routes}")
     return launches
+
+
+def sd3_batch_levels(n_seeds):
+    """The measurement behind SD3_BATCH_LEVELS_MAX / _MEAN, outside the
+    timed groups (``python3 chip_smoke.py sd3_batch_levels [n_seeds]``):
+    the SD3-medium bundle of ``phase_sd3`` at 1024^2, SD3_STEPS flow-Euler
+    steps, CFG 5, shift 3; for seeds 1 .. n, sample 0 of a batch-2 request
+    (``per_sample_seeds=[seed, None]``, decoded whole) against the batch-1
+    request of its seed: max and mean levels per seed."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer, SD3Models)
+
+    card = phase_device()
+    phase_build()
+    models = SD3Models.initialize(
+        torch.Generator(device="cuda").manual_seed(0), "cuda", "bf16",
+        depth=SD3_DEPTH, pos_embed_max_size=192)
+    inf = SD3Inferencer(models, shift=3.0, decode_mode="whole")
+    kw = dict(width=1024, height=1024, steps=SD3_STEPS, cfg_scale=5.0)
+    worst = (0, 0.0)
+    for seed in range(1, n_seeds + 1):
+        t = time.perf_counter()
+        one = inf.gen_image(np.zeros((1, 77), np.int32), seed=seed, **kw)
+        two = inf.gen_image(np.zeros((2, 77), np.int32), seed=seed,
+                            per_sample_seeds=[seed, None], **kw)
+        lv = levels(two[:1], one)
+        worst = (max(worst[0], lv[0]), max(worst[1], lv[1]))
+        print(f"SD3 batch-2 sample 0 against its batch-1 request (1024^2, "
+              f"{SD3_STEPS} steps, CFG 5, seed {seed}): max {lv[0]} mean "
+              f"{lv[1]:.4f} levels ({time.perf_counter() - t:.1f} s) "
+              f"[{card}]", flush=True)
+        check(one.shape == (1, 1024, 1024, 3) and float(one.std()) > 0,
+              f"SD3 seed {seed}: image misshaped or constant")
+    print(f"SD3 batch levels over seeds 1-{n_seeds}: largest max {worst[0]},"
+          f" largest mean {worst[1]:.4f} (bound in force "
+          f"{SD3_BATCH_LEVELS_MAX} / {SD3_BATCH_LEVELS_MEAN}) [{card}]",
+          flush=True)
+    if FAILURES:
+        sys.exit(1)
 
 
 # the text entry's three requests compare ids and weights, not the
@@ -4323,9 +4377,9 @@ SERVING_BUCKETS = (1, 2, 4, 8)
 SERVING_STEPS = 20
 SERVING_K1, SERVING_K2 = 10 * SERVING_STEPS + 1, 61 * SERVING_STEPS + 30
 SD1_K1_HEAD_DIMS = {40: 5 * SERVING_STEPS, 80: 5 * SERVING_STEPS, 512: 1}
-# batch-to-batch bound of a seed's bf16 image (PERF.md section 7: batch 1
-# against batch 4, cuDNN and cuBLAS choose their kernels by batch)
-BATCH_LEVELS_MAX, BATCH_LEVELS_MEAN = 11, 2.0
+# batch-to-batch bound of a seed's bf16 SD1 image (PERF.md section 7: batch
+# 1 against batch 4, cuDNN and cuBLAS choose their kernels by batch)
+SERVED_BATCH_LEVELS_MAX, SERVED_BATCH_LEVELS_MEAN = 11, 2.0
 
 
 def png_pixels(data: bytes):
@@ -4593,11 +4647,13 @@ def phase_serving(card, models):
         d8 = levels(alone, in8)
         print(f"serving: seed {s[0]} alone against seed {s[0]} in the burst "
               f"of 8: max {d8[0]} mean {d8[1]:.3f} levels (bound "
-              f"{BATCH_LEVELS_MAX}, mean {BATCH_LEVELS_MEAN}); the PNG "
+              f"{SERVED_BATCH_LEVELS_MAX}, mean "
+              f"{SERVED_BATCH_LEVELS_MEAN}); the PNG "
               f"request, decoded with zlib, against the JSON body of the "
               f"same seed and bucket: {int((png != alone).sum())} values "
               f"differ [{card}]", flush=True)
-        check(d8[0] <= BATCH_LEVELS_MAX and d8[1] <= BATCH_LEVELS_MEAN,
+        check(d8[0] <= SERVED_BATCH_LEVELS_MAX
+              and d8[1] <= SERVED_BATCH_LEVELS_MEAN,
               f"seed alone against the batch of 8: {d8}")
         check(np.array_equal(png, alone), "the PNG differs from the JSON "
               "body")
@@ -6886,7 +6942,9 @@ RING_CAUSAL_SHAPE = (1, 8, 16384, 64)   # JAX test_ring_flash_long_sequence_16k
 # K6 and K7; an MMDiT forward runs one ring in each of its 24 joint blocks
 RING_CALL = dict(K1=0, K2=0, K3=0, K4=0, K5=RING_N ** 2, K6=0, K7=0)
 RING_K5_PER_FORWARD = SD3_DEPTH * RING_N ** 2
-RING_SD3_STEPS, ULYSSES_SD3_STEPS, RING_TRAIN_STEPS = 4, 2, 2
+# the ring SD3 request and the ring training steps cut from 4 and 2 to pay
+# for the TP x SP phases
+RING_SD3_STEPS, ULYSSES_SD3_STEPS, RING_TRAIN_STEPS = 2, 2, 1
 # pipeline: joint blocks 0..19 over 4 stages (n_blocks must divide them: 23
 # do not), 4 microbatches of 1, then blocks 20..22 whole
 PP_STAGES, PP_MICRO, PP_BLOCKS = 4, 4, 20
@@ -6921,6 +6979,83 @@ def _grad_errors(what, got, want, tol=2e-2):
               f"{what} {name}: {err} > {tol} * {ref}")
         line.append(f"{name} {err:.3e}/{ref:.3e}")
     return ", ".join(line) + f" (tol {tol} of the largest)"
+
+
+def hop_kernels(card, what, qs, ks, vs, gs, q_off, k_off, valid, extra):
+    """K5, K6 and K7 at one ring hop: a query shard (B, H, Lq, D) against a
+    key shard at their global offsets (``q_off``, ``k_off``: the first
+    segment's start, the second unused) under ``valid_len`` ``valid``.
+    Each against its plain version (K5 out 2e-2, lse 1e-3; K6 / K7 2e-2 of
+    each gradient's largest magnitude, under K5's lse), then timed with its
+    device time, the plain version, the library call (one
+    scaled_dot_product_attention on the shard, its whole backward for K6 /
+    K7) and the bound over the visible keys. Returns ({name: record}, the
+    errors as a line); ``extra`` goes into each record."""
+    import torch
+    import torch.nn.functional as F
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    b, h, n_q, d = qs.shape
+    n_k = ks.shape[2]
+    qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    ko = torch.tensor(k_off, dtype=torch.int32, device="cuda")
+    kw = dict(seg_q=n_q, seg_k=n_k, valid_len=valid)
+    o_s, lse_s = fa.flash_attention_pos_cuda(qs, ks, vs, qo, ko, **kw)
+    o_p, lse_p = fa.flash_attention_pos_plain(qs, ks, vs, qo, ko, **kw)
+    e_o = (o_s.float() - o_p.float()).abs().max().item()
+    e_l = (lse_s - lse_p).abs().max().item()
+    check(e_o <= 2e-2 and e_l <= 1e-3, f"K5 at {what}: out {e_o}, lse {e_l}")
+    delta_s = (gs.float() * o_s.float()).sum(-1)
+    gs_k = gs.contiguous()
+    hop_g = (fa.flash_bwd_pos_dq_cuda(qs, ks, vs, gs_k, lse_s, delta_s, qo,
+                                      ko, **kw),
+             *fa.flash_bwd_pos_dkv_cuda(qs, ks, vs, gs_k, lse_s, delta_s, qo,
+                                        ko, **kw))
+    errs = _grad_errors(f"K6 / K7 at {what}", hop_g,
+                        fa.flash_bwd_pos_plain(qs, ks, vs, gs, lse_s,
+                                               delta_s, qo, ko, **kw))
+    visible = min(n_k, max(0, valid - k_off[0]))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (qs, ks, vs))
+    ol = F.scaled_dot_product_attention(ql, kl, vl)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), gs,
+                                                  retain_graph=True), 10, 2)
+    plain_bwd = cuda_ms(lambda: fa.flash_bwd_pos_plain(
+        qs, ks, vs, gs, lse_s, delta_s, qo, ko, **kw), 3, 1)
+    shape = f"({b},{h},{n_q},{n_k},{d}) q offsets {tuple(q_off)}, kv " \
+            f"offsets {tuple(k_off)}, valid_len {valid}"
+    hop = {}
+    for name, fn, fam, products, counts in (
+            ("K5", lambda: fa.flash_attention_pos_cuda(qs, ks, vs, qo, ko,
+                                                        **kw),
+             "K5 flash fwd pos", 2, (2, 2, 1)),
+            ("K6", lambda: fa.flash_bwd_pos_dq_cuda(
+                qs, ks, vs, gs_k, lse_s, delta_s, qo, ko, **kw),
+             "K6 flash bwd pos dq", 3, (3, 2, 2)),
+            ("K7", lambda: fa.flash_bwd_pos_dkv_cuda(
+                qs, ks, vs, gs_k, lse_s, delta_s, qo, ko, **kw),
+             "K7 flash bwd pos dk/dv", 4, (2, 4, 2))):
+        bound_ms, bound_by = attn_bound(b, h, n_q, visible, d, products,
+                                        *counts)
+        hop[name] = dict(
+            shape=shape, ms=cuda_ms(fn, 20, 3),
+            device_ms=kernel_device_ms(fn, fam), bound_ms=bound_ms,
+            bound_by=bound_by, **extra,
+            plain_ms=(cuda_ms(lambda: fa.flash_attention_pos_plain(
+                qs, ks, vs, qo, ko, **kw), 3, 1) if name == "K5"
+                      else plain_bwd),
+            library_ms=(cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs), 20, 3) if name == "K5" else lib_bwd),
+            library=("F.scaled_dot_product_attention on the shard"
+                     if name == "K5" else "its backward (dq, dk, dv)"))
+        r = hop[name]
+        print(f"{name} at {what} {shape} bf16: kernel {r['ms']:.4f} ms, "
+              f"device {fmt_ms(r['device_ms'])}, plain {r['plain_ms']:.4f} "
+              f"ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]",
+              flush=True)
+    del ol, ql, kl, vl
+    return hop, f"K5 out {e_o:.3e} lse {e_l:.3e}; K6 / K7 {errs}"
 
 
 def phase_kernels_ring(card):
@@ -7045,68 +7180,12 @@ def phase_kernels_ring(card):
     # the hop kernels: shard 0's queries against shard 3's keys, whose last
     # two are the padding (the ragged hop), at their global offsets
     n_l = l // RING_N
-    qs, gs = q[:, :, :n_l], g[:, :, :n_l]
-    ks, vs = k[:, :, 3 * n_l:], v[:, :, 3 * n_l:]
-    qo = torch.tensor([0, 0], dtype=torch.int32, device="cuda")
-    ko = torch.tensor([3 * n_l, 0], dtype=torch.int32, device="cuda")
-    kw = dict(seg_q=n_l, seg_k=n_l, valid_len=V)
-    o_s, lse_s = fa.flash_attention_pos_cuda(qs, ks, vs, qo, ko, **kw)
-    o_p, lse_p = fa.flash_attention_pos_plain(qs, ks, vs, qo, ko, **kw)
-    e_o = (o_s.float() - o_p.float()).abs().max().item()
-    e_l = (lse_s - lse_p).abs().max().item()
-    check(e_o <= 2e-2 and e_l <= 1e-3, f"K5 at the ring hop: out {e_o}, lse "
-                                       f"{e_l}")
-    delta_s = (gs.float() * o_s.float()).sum(-1)
-    gs_k = gs.contiguous()
-    hop_g = (fa.flash_bwd_pos_dq_cuda(qs, ks, vs, gs_k, lse_s, delta_s, qo,
-                                      ko, **kw),
-             *fa.flash_bwd_pos_dkv_cuda(qs, ks, vs, gs_k, lse_s, delta_s, qo,
-                                        ko, **kw))
-    errs_hop = _grad_errors("K6 / K7 at the ring hop", hop_g,
-                            fa.flash_bwd_pos_plain(qs, ks, vs, gs, lse_s,
-                                                   delta_s, qo, ko, **kw))
-    visible = V - 3 * n_l
-    ql, kl, vl = (t.detach().requires_grad_() for t in (qs, ks, vs))
-    ol = F.scaled_dot_product_attention(ql, kl, vl)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), gs,
-                                                  retain_graph=True), 10, 2)
-    plain_bwd = cuda_ms(lambda: fa.flash_bwd_pos_plain(
-        qs, ks, vs, gs, lse_s, delta_s, qo, ko, **kw), 3, 1)
-    shape = f"({b},{h},{n_l},{n_l},{d}) q offsets (0,0), kv offsets " \
-            f"({3 * n_l},0), valid_len {V}"
-    hop = {}
-    for name, fn, fam, products, counts in (
-            ("K5", lambda: fa.flash_attention_pos_cuda(qs, ks, vs, qo, ko,
-                                                        **kw),
-             "K5 flash fwd pos", 2, (2, 2, 1)),
-            ("K6", lambda: fa.flash_bwd_pos_dq_cuda(
-                qs, ks, vs, gs_k, lse_s, delta_s, qo, ko, **kw),
-             "K6 flash bwd pos dq", 3, (3, 2, 2)),
-            ("K7", lambda: fa.flash_bwd_pos_dkv_cuda(
-                qs, ks, vs, gs_k, lse_s, delta_s, qo, ko, **kw),
-             "K7 flash bwd pos dk/dv", 4, (2, 4, 2))):
-        bound_ms, bound_by = attn_bound(b, h, n_l, visible, d, products,
-                                        *counts)
-        hop[name] = dict(
-            shape=shape, ms=cuda_ms(fn, 20, 3),
-            device_ms=kernel_device_ms(fn, fam), bound_ms=bound_ms,
-            bound_by=bound_by, launches_per_ring_call=RING_N ** 2,
-            plain_ms=(cuda_ms(lambda: fa.flash_attention_pos_plain(
-                qs, ks, vs, qo, ko, **kw), 3, 1) if name == "K5"
-                      else plain_bwd),
-            library_ms=(cuda_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs), 20, 3) if name == "K5" else lib_bwd),
-            library=("F.scaled_dot_product_attention on the shard"
-                     if name == "K5" else "its backward (dq, dk, dv)"))
-        r = hop[name]
-        print(f"{name} at the ring hop {shape} bf16: kernel {r['ms']:.4f} ms, "
-              f"device {fmt_ms(r['device_ms'])}, plain {r['plain_ms']:.4f} "
-              f"ms, library {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]",
-              flush=True)
-    print(f"ring hop errors: K5 out {e_o:.3e} lse {e_l:.3e}; K6 / K7 "
-          f"{errs_hop}", flush=True)
-    del ol, ql, kl, vl, out, q, k, v, g
+    hop, errs_hop = hop_kernels(
+        card, "the ring hop", q[:, :, :n_l], k[:, :, 3 * n_l:],
+        v[:, :, 3 * n_l:], g[:, :, :n_l], (0, 0), (3 * n_l, 0), V,
+        dict(launches_per_ring_call=RING_N ** 2))
+    print(f"ring hop errors: {errs_hop}", flush=True)
+    del out, q, k, v, g
 
     # causal zig-zag at 16k against K1 / K3 / K4 causal over the whole
     b2, h2, l2, d2 = RING_CAUSAL_SHAPE
@@ -7515,8 +7594,8 @@ def phase_moe(card):
 # shards and the collectives' copies, not a speed-up)
 # --------------------------------------------------------------------------
 TP_N = 2
-TP_SD1_STEPS, TP_SD3_STEPS = 4, 2
-TP_TRAIN_STEPS = (1, 2)                  # warm, timed
+TP_SD1_STEPS, TP_SD3_STEPS = 4, 4
+TP_TRAIN_STEPS = (1, 1)                  # warm, timed (cut from 2)
 DDPM_FSDP_STEPS = (2, 3)                 # warm, timed
 # each head shard runs its own attention: n launches where one ran
 SD1_TP_K1 = TP_N * 10 * TP_SD1_STEPS + 1     # + the VAE's d = 512, whole
@@ -7683,9 +7762,12 @@ def phase_tp_sd1(card, models):
 
 def phase_tp_sd3(card, source):
     """SD3-medium at 1024^2 through ``SD3Inferencer(mesh={"model": 2})``
-    (MMDiT, CLIP-L / G, T5 switched; the VAE's one head whole), 2
-    flow-Euler steps, CFG 5: final latents against the meshless request of
-    as many steps, K5 launches 2 x its count, every one on sm90."""
+    (MMDiT, CLIP-L / G, T5 switched; the VAE's one head whole),
+    ``TP_SD3_STEPS`` flow-Euler steps, CFG 5: final latents against the
+    meshless request of as many steps, K5 launches 2 x its count, every one
+    on sm90. Returns the launches and the meshless request (image, final
+    latents, its own batch-2 jitter in rel L2 and in levels, launches) for
+    ``phase_tp_sp_sd3``."""
     import numpy as np
     import torch
 
@@ -7707,9 +7789,10 @@ def phase_tp_sd3(card, source):
         plain_image = plain_inf.gen_image(tokens, **kw)
         plain = launches_since(n0)
         want_latents = final_latents.pop()
-        plain_inf.gen_image(np.zeros((2, 77), np.int32), **dict(
+        two = plain_inf.gen_image(np.zeros((2, 77), np.int32), **dict(
             kw, per_sample_seeds=[seed, seed + 1]))
         jitter = rel_l2(final_latents[0], want_latents)
+        level_jitter = levels(two[:1], plain_image)
         final_latents.clear()
         inf = SD3Inferencer(models, shift=3.0,
                             mesh=card_mesh(TP_N, "model"))
@@ -7745,7 +7828,8 @@ def phase_tp_sd3(card, source):
             h.remove()
         drop_tp(*(getattr(models, f.name)
                   for f in dataclasses.fields(models)))
-    return got
+    return got, dict(image=plain_image, latents=want_latents, jitter=jitter,
+                     level_jitter=level_jitter, plain=plain, kw=kw)
 
 
 def phase_tp_int8(card, source):
@@ -7904,6 +7988,283 @@ def phase_tp_training(card, trainer, state, flash_step):
         drop_tp(model)
         state.layout = StateLayout()
     return state, launches
+
+
+# --------------------------------------------------------------------------
+# TP composed with ring / Ulysses attention on one {"data": 1, "seq": 2,
+# "model": 2} mesh of the card repeated: each of the two head shards runs
+# its own ring over seq. SD3's joint sequence of 154 + 4096 = 4250 tokens
+# splits into two seq shards of 2125 with no padding, so a ring hop is K5 /
+# K6 / K7 at (2, 12, 2125, 2125, 64), and a block launches 2 shards x 2^2
+# hops of each: 192 of each a forward (backward) of the depth-24 MMDiT.
+# --------------------------------------------------------------------------
+TP_SP_SEQ = 2
+TP_SP_SHAPE = {"data": 1, "seq": TP_SP_SEQ, "model": TP_N}
+TP_SP_LEN = (RING_LC + 4096) // TP_SP_SEQ
+TP_SP_HOP = (2, 24 // TP_N, TP_SP_LEN, TP_SP_LEN, 64)
+TP_SP_PER_FORWARD = SD3_DEPTH * TP_N * TP_SP_SEQ ** 2
+TP_SP_TRAIN_STEPS = (1, 2)               # warm, timed
+# Ulysses runs plain attention (as the JAX package does): its saved fp32
+# logits and probabilities at 4250 tokens would need ~200 GB for 24 blocks
+# of 2 x 2 shards on one card, so its step runs at latent 64 (1024 + 154
+# tokens), the width whole
+TP_SP_ULYSSES_LATENT = 64
+
+
+def phase_kernels_tp_sp(card):
+    """K5 / K6 / K7 at the TP x SP ring hop (2, 12, 2125, 2125, 64): seq
+    shard 0's queries of one head shard against seq shard 1's keys, at
+    offsets (0, 0) / (2125, 0) under valid_len 4250, against their plain
+    versions, timed with the library call and the bound."""
+    import torch
+
+    b, h, n_l, _, d = TP_SP_HOP
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    rnd = lambda n: torch.randn(b, h, n, d, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+    qs, ks, vs, gs = rnd(n_l), rnd(n_l), rnd(n_l), rnd(n_l)
+    hop, errs = hop_kernels(card, "the TP x SP ring hop", qs, ks, vs, gs,
+                            (0, 0), (n_l, 0), 2 * n_l,
+                            dict(launches_per_step=TP_SP_PER_FORWARD))
+    print(f"TP x SP ring hop errors: {errs}", flush=True)
+    return hop
+
+
+def phase_tp_sp_training(card, trainer, state, flash_step):
+    """The MMDiT trainer at SD3's operating point (depth 24, latent 128,
+    batch 2, bf16 over fp32) with ring attention on TP_SP_SHAPE, the card
+    repeated: each head shard's ring over seq. One batch's loss and whole
+    gradient through the composed model against the meshless one, from
+    the same state and draws, within 3 x a jitter measured here on the same
+    batch: the larger of the meshless gradient's own batch-2 jitter (the
+    two examples' batch-1 gradients averaged against the batch-2 one) and
+    TP alone's deviation ({"model": 2}, flash). The batch jitter alone
+    cannot bound a sharded gradient: the forward is bit-identical across
+    batch sizes (its loss jitter is 0), so it moves only the weight
+    gradients' sums over the batch, while Megatron's row layers round each
+    shard's partial product to bf16 before the sum, in every block (rel L2
+    of the whole gradient, each side in bf16; the loss held to the same
+    bound). Then 1 + 2 composed steps (K5 / K6 / K7 192 each a step, all
+    sm90) with ms/step and peak, and one more under the profiler for the
+    device's busy time, beside the meshless step; then one Ulysses step on
+    the same mesh at latent 64 (plain attention: no flash launch). The
+    model goes back to flash and its meshless layout after."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.ddpm_trainer import (
+        StateLayout, lay_out)
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.mmdit_trainer import (
+        MMDiTTrainer)
+
+    model = state.model
+    cfg = trainer.cfg
+    mesh = build_mesh(TP_SP_SHAPE, [torch.device("cuda")] * (TP_SP_SEQ * TP_N))
+    composed = MMDiTTrainer(dataclasses.replace(
+        trainer.model_cfg, attention_impl="ring"), cfg, device="cuda",
+        mesh=mesh)
+    batch = [torch.from_numpy(a).cuda() for a in mmdit_batch(
+        cfg.batch_size, cfg.img_size, cfg.context_len, trainer.model_cfg,
+        seed=9)]
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    draws = dict(
+        t_lin=torch.sigmoid(torch.randn(2, generator=gen, device="cuda")),
+        noise=torch.randn(batch[0].shape, generator=gen, device="cuda"),
+        drop=torch.zeros(2, dtype=torch.bool, device="cuda"))
+
+    def backward(tr, rows=slice(None), weight=1.0):
+        """The loss of the batch's ``rows``; its gradient, times
+        ``weight``, added to the parameters' ``.grad``."""
+        loss = tr.loss(state, *(a[rows] for a in batch),
+                       **{k: v[rows] for k, v in draws.items()})
+        (loss * weight).backward()
+        return loss.item()
+
+    def grads():
+        return [p.grad.to(torch.bfloat16) for p in model.parameters()]
+
+    def rel(got, want):
+        num = sum(((a.float() - b.float()) ** 2).sum().item()
+                  for a, b in zip(got, want))
+        return (num / sum((b.float() ** 2).sum().item()
+                          for b in want)) ** 0.5
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    n0 = read_counts()
+    l_plain = backward(trainer)
+    plain_one = launches_since(n0)
+    g_plain = grads()
+    model.zero_grad(set_to_none=True)
+    l_split = sum(backward(trainer, slice(i, i + 1), 0.5) / 2
+                  for i in range(2))
+    g_jitter = rel(grads(), g_plain)
+    l_jitter = abs(l_split - l_plain) / abs(l_plain)
+    state.layout = lay_out(model, card_mesh(TP_N, "model"), False)
+    try:
+        model.zero_grad(set_to_none=True)
+        l_tp_alone = backward(trainer)
+        g_tp_alone = rel(grads(), g_plain)
+    finally:
+        drop_tp(model)
+        state.layout = StateLayout()
+    yardstick = max(g_jitter, g_tp_alone)
+    model.set_attention("ring", mesh)
+    state.layout = lay_out(model, mesh, False)
+    try:
+        model.zero_grad(set_to_none=True)
+        n0 = read_counts()
+        l_tp = backward(composed)
+        one = launches_since(n0)
+        g_rel, l_rel = rel(grads(), g_plain), abs(l_tp - l_plain) / abs(
+            l_plain)
+        del g_plain
+        model.zero_grad(set_to_none=True)
+        per_step = dict(MMDIT_PER_STEP, K5=TP_SP_PER_FORWARD,
+                        K6=TP_SP_PER_FORWARD, K7=TP_SP_PER_FORWARD)
+        check(dict(one) == per_step and plain_one["K5"] > 0,
+              f"a TP x SP MMDiT loss + backward launched {dict(one)}, not "
+              f"{per_step} (meshless {plain_one})")
+        check(g_rel <= 3 * yardstick and l_rel <= 3 * yardstick,
+              f"TP x SP MMDiT off the meshless one: gradient rel L2 {g_rel}, "
+              f"loss rel {l_rel} (3 x jitter {3 * yardstick})")
+        warm, timed = TP_SP_TRAIN_STEPS
+        for _ in range(warm):
+            state, _ = composed.train_step(state, *batch)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = []
+        for _ in range(timed):
+            state, loss = composed.train_step(state, *batch)
+            losses.append(loss.item())
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / timed
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = read_counts()
+        want = {k: n * timed for k, n in per_step.items()}
+        check(dict(launches) == want, f"TP x SP MMDiT steps launched "
+                                      f"{dict(launches)}, not {want}")
+        for k in ("K5", "K6", "K7"):
+            r = getattr(launches, k.lower() + "_routes")
+            check(r == {"sm90": launches[k]}, f"TP x SP MMDiT {k} routes "
+                                              f"{r}")
+        check(all(v == v for v in losses), f"TP x SP losses {losses}")
+        (state, _), _, fams, _, _ = profile_device(
+            lambda: composed.train_step(state, *batch), cpu=False)
+        busy = sum(fams.values())
+        print(f"MMDiT training on {TP_SP_SHAPE} with ring attention (the "
+              f"card repeated; depth 24, latent 128: 4096 + 154 tokens, "
+              f"batch 2, bf16 over fp32): one batch's loss {l_tp:.6f} "
+              f"against the meshless {l_plain:.6f} (rel {l_rel:.3e}), the "
+              f"whole gradient rel L2 {g_rel:.3e}, each within 3 x "
+              f"{yardstick:.3e}: the larger of the meshless batch-2 jitter "
+              f"(gradient {g_jitter:.3e}, loss {l_jitter:.3e}) and TP "
+              f"alone's deviation (gradient {g_tp_alone:.3e}, loss "
+              f"{abs(l_tp_alone - l_plain) / abs(l_plain):.3e}); {timed} "
+              f"steps after {warm}: {ms:.2f} "
+              f"ms/step (CUDA events), device busy {busy:.2f} ms (one "
+              f"profiled step; K5 {fmt_ms(fams.get('K5 flash fwd pos'))}, "
+              f"K6 {fmt_ms(fams.get('K6 flash bwd pos dq'))}, K7 "
+              f"{fmt_ms(fams.get('K7 flash bwd pos dk/dv'))}), peak "
+              f"{peak:.2f} GiB; the meshless step {flash_step['step_ms']:.2f}"
+              f" ms, busy {flash_step['busy_ms']:.2f} ms, peak "
+              f"{flash_step['peak_gib']:.2f} GiB (the shards one after the "
+              f"other on one card); losses {[round(v, 4) for v in losses]}; "
+              f"launches {dict(launches)} [{card}]", flush=True)
+        print("TP x SP MMDiT step profile:", flush=True)
+        print_profile(fams, [], 1, "step")
+        # one Ulysses step: 12 heads a shard over seq 2, plain attention
+        model.set_attention("ulysses", mesh)
+        small = [torch.from_numpy(a).cuda() for a in mmdit_batch(
+            cfg.batch_size, TP_SP_ULYSSES_LATENT, cfg.context_len,
+            trainer.model_cfg, seed=11)]
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, u_loss = composed.train_step(state, *small)
+        torch.cuda.synchronize()
+        u_s = time.perf_counter() - t
+        ulysses = read_counts()
+        check(dict(ulysses) == NO_LAUNCHES and bool(u_loss.isfinite()),
+              f"TP x SP Ulysses step: launches {dict(ulysses)}, loss "
+              f"{u_loss}")
+        print(f"MMDiT Ulysses training step on {TP_SP_SHAPE} (latent "
+              f"{TP_SP_ULYSSES_LATENT}: 1024 + 154 tokens, batch 2, the "
+              f"width whole): {u_s:.3f} s, loss {u_loss.item():.4f}, "
+              f"launches {dict(ulysses)} (plain attention) [{card}]",
+              flush=True)
+    finally:
+        drop_tp(model)
+        model.set_attention("flash")
+        state.layout = StateLayout()
+    return state, launches, ulysses
+
+
+def phase_tp_sp_sd3(card, source, ref):
+    """SD3-medium at 1024^2 through ``SD3Inferencer(mesh=)`` over a ring
+    MMDiT on one {"seq": 2, "model": 2} mesh of the card repeated (each head
+    shard's ring over seq), the request of ``phase_tp_sd3`` (TP_SD3_STEPS
+    steps, CFG 5, its seed): the image against the meshless one within 3 x
+    that request's own batch-2 levels (max and mean), the final latents
+    within 3 x their batch-2 jitter; K5 192 a step, all sm90."""
+    import numpy as np
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd3 import (
+        SD3Inferencer)
+
+    models = source["models"]
+    step_events, final_latents = [], []
+    hooks = request_hooks(models, step_events, final_latents)
+    mesh = build_mesh({"seq": TP_SP_SEQ, "model": TP_N},
+                      [torch.device("cuda")] * (TP_SP_SEQ * TP_N))
+    try:
+        models.mmdit.set_attention("ring", mesh)
+        inf = SD3Inferencer(models, shift=3.0, mesh=mesh)
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        image = inf.gen_image(np.zeros((1, 77), np.int32), **ref["kw"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = read_counts()
+        rel = rel_l2(final_latents.pop(), ref["latents"])
+        lv, jl = levels(image, ref["image"]), ref["level_jitter"]
+        want = dict(ref["plain"], K5=TP_SP_PER_FORWARD * TP_SD3_STEPS)
+        print(f"SD3 over one {{'seq': {TP_SP_SEQ}, 'model': {TP_N}}} mesh of "
+              f"the card, ring MMDiT (1024^2, {TP_SD3_STEPS} flow-Euler "
+              f"steps, "
+              f"CFG 5): {secs:.3f} s/image, {step_ms(step_events):.2f} "
+              f"ms/denoise step (the shards one after the other); against "
+              f"the meshless request: image max {lv[0]} mean {lv[1]:.4f} "
+              f"levels (3 x its own batch-2 levels: {3 * jl[0]} / "
+              f"{3 * jl[1]:.4f}), final latents rel L2 {rel:.3e} (3 x their "
+              f"jitter {3 * ref['jitter']:.3e}); launches {dict(got)}, K5 "
+              f"{got.k5_routes} [{card}]", flush=True)
+        check(image.shape == (1, 1024, 1024, 3)
+              and lv[0] <= 3 * jl[0] and lv[1] <= 3 * jl[1]
+              and rel <= 3 * ref["jitter"],
+              f"SD3 TP x SP request off the meshless one: levels {lv} "
+              f"(3 x {jl}), latents rel L2 {rel} (3 x {ref['jitter']})")
+        check(dict(got) == want and got.k5_routes == {"sm90": got["K5"]},
+              f"SD3 TP x SP launches {dict(got)} {got.k5_routes}, not "
+              f"{want}")
+        check(models.mmdit.joint_block0.x_block.tp is not None
+              and models.mmdit.joint_block0.mesh is mesh,
+              "SD3Inferencer(mesh=) did not switch the ring MMDiT")
+    finally:
+        for h in hooks:
+            h.remove()
+        drop_tp(*(getattr(models, f.name)
+                  for f in dataclasses.fields(models)))
+        models.mmdit.set_attention("flash")
+    return got
 
 
 def phase_ddpm_fsdp(card):
@@ -9447,14 +9808,16 @@ def main():
     paths = ("sd1", "sd1_slice", "sd1_tp", "sd1_trajectory", "serving", "sd1_cli", "sd1_768",
              "sd1_checkpoint", "sd1_int8",
              "sd3", "t5", "sd3_ring", "sd3_ulysses", "mmdit_pp",
-             "mmdit_pp_1f1b", "sd3_tp", "sd3_img2img", "sd3_tiled",
+             "mmdit_pp_1f1b", "sd3_tp", "sd3_tp_sp", "sd3_img2img",
+             "sd3_tiled",
              "sd3_text", "sd3_checkpoint", "sd3_int8", "sd3_offload",
              "training", "sampling", "train_accum", "train_resume",
              "latent_training", "latent_sampling", "tiny_sd_w96",
              "tiny_sd_w96_sampling", "tiny_sd_w96_cli", "tiny_sd_w320",
              "tiny_sd_w320_sampling", "ddpm_fsdp",
              "mmdit_training", "mmdit_ring_training", "mmdit_tp_fsdp",
-             "mmdit_sampling", "mmdit_lora", "mmdit_moe_forward",
+             "mmdit_tp_sp", "mmdit_tp_sp_ulysses", "mmdit_sampling",
+             "mmdit_lora", "mmdit_moe_forward",
              "mmdit_moe_training", "vlm_training", "vlm_decoding", "vlm_checkpoint",
              "video_training", "video_sampling", "vae_vqvae", "vae_vanilla",
              "vit_training", "clip_forward", "clip_training", "fid",
@@ -9467,6 +9830,7 @@ def main():
     runs = [sd1_launches, phase_sd1_slice(card, sd1_models)]
     mark("sd1")
     kernels_tp = phase_kernels_tp(card)
+    kernels_tp_sp = phase_kernels_tp_sp(card)
     runs.append(phase_tp_sd1(card, sd1_models))
     mark("tp_fsdp")
     runs.append(phase_trajectory(card, sd1_models, sd1_image))
@@ -9488,7 +9852,8 @@ def main():
     mark("sd3")
     runs += phase_parallel_sd3(card, sd3_source)
     mark("parallel")
-    runs.append(phase_tp_sd3(card, sd3_source))
+    tp_sd3, sd3_ref = phase_tp_sd3(card, sd3_source)
+    runs += [tp_sd3, phase_tp_sp_sd3(card, sd3_source, sd3_ref)]
     phase_tp_int8(card, sd3_source)
     mark("tp_fsdp")
     runs += [phase_sd3_img2img(card, sd3_source),
@@ -9531,6 +9896,9 @@ def main():
     mark("parallel")
     state, tp_launches = phase_tp_training(card, trainer, state, mmdit_step)
     runs.append(tp_launches)
+    state, tp_sp_launches, tp_sp_ulysses = phase_tp_sp_training(
+        card, trainer, state, mmdit_step)
+    runs += [tp_sp_launches, tp_sp_ulysses]
     mark("tp_fsdp")
     phase_mmdit_grad_check(card)
     runs.append(phase_mmdit_sampling(card, trainer, state))
@@ -9669,7 +10037,8 @@ def main():
     for p, run in zip(paths, runs):
         if p in ("sd3", "sd3_img2img", "sd3_tiled", "sd3_text",
                  "sd3_checkpoint", "sd3_int8", "sd3_offload", "sd3_tp",
-                 "mmdit_training", "mmdit_tp_fsdp", "mmdit_sampling",
+                 "sd3_tp_sp", "mmdit_training", "mmdit_tp_fsdp",
+                 "mmdit_tp_sp", "mmdit_tp_sp_ulysses", "mmdit_sampling",
                  "mmdit_lora",
                  "sd3_ring", "sd3_ulysses", "mmdit_pp", "mmdit_pp_1f1b",
                  "mmdit_ring_training", "mmdit_moe_forward",
@@ -9837,7 +10206,7 @@ def main():
               sm90=by_route("sm90", "k5"), shapes=kernels["K5 shapes"],
               every_form=every_form["K5"],
               ring=kernels_ring["K5"], ring_call=kernels_ring["call"],
-              tp_shard=kernels_tp["K5"],
+              tp_shard=kernels_tp["K5"], tp_sp_hop=kernels_tp_sp["K5"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64) online",
               library="F.scaled_dot_product_attention"),
         entry("flash_attention_bwd_pos_dq", "flash_attention_dq_sm90.cu",
@@ -9856,7 +10225,7 @@ def main():
                       "masked P selected to 0"),
               sm90=by_route("sm90", "k6"), shapes=kernels["K6"]["shapes"],
               every_form=every_form["K6"],
-              ring=kernels_ring["K6"],
+              ring=kernels_ring["K6"], tp_sp_hop=kernels_tp_sp["K6"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
               library="backward of F.scaled_dot_product_attention"),
         entry("flash_attention_bwd_pos_dkv", "flash_attention_bwd_sm90.cu",
@@ -9876,7 +10245,7 @@ def main():
                       "bounds, masked P selected to 0"),
               sm90=by_route("sm90", "k7"), shapes=kernels["K7"]["shapes"],
               every_form=every_form["K7"],
-              ring=kernels_ring["K7"],
+              ring=kernels_ring["K7"], tp_sp_hop=kernels_tp_sp["K7"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
               library="backward of F.scaled_dot_product_attention"),
     ]}
@@ -9891,4 +10260,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["sd3_batch_levels"]:
+        sd3_batch_levels(int(sys.argv[2]) if len(sys.argv) > 2 else 4)
+    else:
+        main()

@@ -36,7 +36,10 @@ functions at the end run the block stack over a ``stage`` axis
 (:func:`..parallel.sharding.apply_tp`): each shard runs the joint attention
 on its heads of both streams (so every flash call has H/n heads), ``proj``
 and the MLPs are Megatron pairs, and the ``adaLN`` / ``final_adaLN``
-modulations are gathered whole.
+modulations are gathered whole. The two compose on one mesh with ``seq``
+and ``model`` axes (or a ``seq`` mesh and a ``model`` one): each head
+shard runs its own ring or Ulysses over ``seq``, so a ring hop launches K5
+at (B, H/model, L/seq, D).
 """
 
 from __future__ import annotations
@@ -212,9 +215,10 @@ class JointBlock(nn.Module):
     sequence, padded to a multiple of the axis size, (B, H, L, D), the padded
     keys masked by ``kv_valid_len`` and the padded rows sliced off. The split
     K/V streams of the one-device path and this concatenation agree up to
-    floating-point reassociation. The MoE MLP (``moe_experts``) is on the x
-    stream only: its 4096 tokens fill expert capacity, the context's 154 do
-    not."""
+    floating-point reassociation. Under TP (the blocks' ``tp`` set) each
+    held head shard runs that attention on its heads. The MoE MLP
+    (``moe_experts``) is on the x stream only: its 4096 tokens fill expert
+    capacity, the context's 154 do not."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
@@ -238,9 +242,9 @@ class JointBlock(nn.Module):
             qk_norm=qk_norm, compute_dtype=compute_dtype, int8_mm=int8_mm,
             moe_experts=moe_experts, moe_mesh=moe_mesh)
 
-    def _sequence_parallel(self, ctx_qkv, x_qkv):
+    def _joint_sp(self, ctx_qkv, x_qkv):
         """(ctx_attn, x_attn) of the joint sequence over the ``seq`` axis,
-        each (B, L, H·D)."""
+        each (B, L, h·D), for (q, k, v) of h heads."""
         comm = self.mesh.comm(self.seq_axis)
         b, lc = ctx_qkv[0].shape[:2]
         l_actual = lc + x_qkv[0].shape[1]
@@ -259,30 +263,49 @@ class JointBlock(nn.Module):
         out = out.transpose(1, 2).reshape(b, l_actual, -1)
         return out[:, :lc], out[:, lc:]
 
+    def _sequence_parallel(self, ctx_qkv, x_qkv):
+        """For each held head shard's (q, k, v) of both streams, its
+        (ctx_attn, x_attn) over the ``seq`` axis: the ring on the shard's
+        heads. Ulysses reshards heads over ``seq``; where a shard's heads do
+        not divide by it, the shards are gathered and the joint attention
+        runs on every head, each shard keeping its heads of the output (the
+        JAX shard_map keeps the head axis whole)."""
+        tp = self.x_block.tp
+        heads = ctx_qkv[0][0].shape[2]
+        if tp is None or self.seq_impl != "ulysses" or \
+                heads % self.mesh.shape[self.seq_axis] == 0:
+            return [self._joint_sp(cq, xq) for cq, xq in zip(ctx_qkv,
+                                                              x_qkv)]
+        if tp.distributed:
+            whole = lambda shards: tuple(tp.gather(a, 2) for a in shards[0])
+            split = lambda t: [tp.scatter(t, 2)]
+        else:
+            whole = lambda shards: tuple(torch.cat(a, 2)
+                                         for a in zip(*shards))
+            split = lambda t: t.chunk(tp.n, 2)
+        outs = self._joint_sp(whole(ctx_qkv), whole(x_qkv))
+        return list(zip(*(split(o) for o in outs)))
+
     def forward(self, context, x, c):
         ctx_qkv, ctx_state = self.context_block.pre_attention(context, c)
         x_qkv, x_state = self.x_block.pre_attention(x, c)
         b, lc = context.shape[:2]
-        if self.x_block.tp is not None:
-            # tensor parallel: one joint attention per held head shard
+        tp = self.x_block.tp is not None
+        if not tp:      # one (q, k, v) of every head
+            ctx_qkv, x_qkv = [ctx_qkv], [x_qkv]
+        if self.mesh is None:
             outs = [joint_attention_blhd(cq, xq, stability=self.stability)
                     for cq, xq in zip(ctx_qkv, x_qkv)]
-            new_context = (None if self.context_pre_only else
-                           self.context_block.post_attention(
-                               [o[0].reshape(b, lc, -1) for o in outs],
-                               ctx_state))
-            return new_context, self.x_block.post_attention(
-                [o[1].reshape(b, x.shape[1], -1) for o in outs], x_state)
-        if self.mesh is None:
-            ctx_attn, x_attn = joint_attention_blhd(ctx_qkv, x_qkv,
-                                                    stability=self.stability)
         else:
-            ctx_attn, x_attn = self._sequence_parallel(ctx_qkv, x_qkv)
+            outs = self._sequence_parallel(ctx_qkv, x_qkv)
+        ctx_attn = [o[0].reshape(b, lc, -1) for o in outs]
+        x_attn = [o[1].reshape(b, x.shape[1], -1) for o in outs]
+        if not tp:
+            ctx_attn, x_attn = ctx_attn[0], x_attn[0]
         new_context = (None if self.context_pre_only else
-                       self.context_block.post_attention(
-                           ctx_attn.reshape(b, lc, -1), ctx_state))
-        return new_context, self.x_block.post_attention(
-            x_attn.reshape(b, x.shape[1], -1), x_state)
+                       self.context_block.post_attention(ctx_attn,
+                                                         ctx_state))
+        return new_context, self.x_block.post_attention(x_attn, x_state)
 
 
 def qk_norm_logit_bound(model: nn.Module, head_dim: int,

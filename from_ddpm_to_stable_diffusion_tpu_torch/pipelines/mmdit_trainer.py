@@ -39,8 +39,10 @@ shard's heads, so its flash kernels forward and backward see H/n heads;
 parameters, moments and EMA held by shard), ``fsdp=True`` stores the state
 sharded over ``data`` (``parallel/fsdp.py``), and both together the JAX
 hybrid layout: sharded over data x model, gathered over data only
-(``ddpm_trainer.StateLayout``). A ``model`` axis does not compose with
-ring or Ulysses attention here.
+(``ddpm_trainer.StateLayout``). A ``model`` axis composes with ring or
+Ulysses attention over ``seq`` on the same mesh: each head shard runs its
+own sequence-parallel joint attention, and the state is sharded over data
+x model and replicated over seq.
 """
 
 from __future__ import annotations
@@ -53,8 +55,8 @@ import torch
 
 from ..models.mmdit import MMDiT, MMDiTConfig, collect_losses
 from ..ops.schedules import sd3_sigma_schedule
-from ..parallel.mesh import (MODEL_AXIS, build_mesh, mesh_device,
-                             shard_batch, visible_devices)
+from ..parallel.mesh import (build_mesh, mesh_device, shard_batch,
+                             visible_devices)
 from ..samplers.flow import flow_euler_sample, noise_scaling
 from ..utils.config import FlowTrainConfig
 from ..utils.dtypes import POLICIES
@@ -88,11 +90,6 @@ class MMDiTTrainer:
                               visible_devices(self.device.type))
         sp = model_cfg.attention_impl in ("ring", "ulysses")
         if mesh is not None:
-            if sp and mesh.shape.get(MODEL_AXIS, 1) > 1:
-                raise ValueError(f"a {MODEL_AXIS!r} mesh axis with "
-                                 f"{model_cfg.attention_impl} attention: "
-                                 "tensor and sequence parallelism do not "
-                                 "compose here")
             self.device = torch.device(mesh_device(mesh))
         self.mesh = mesh
         self.fsdp = fsdp

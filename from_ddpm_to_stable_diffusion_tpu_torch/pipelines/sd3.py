@@ -26,8 +26,12 @@ The MMDiT of the bundle may run sequence-parallel joint attention
 is. ``SD3Inferencer(mesh=)`` serves tensor-parallel over the mesh's
 ``model`` axis (:func:`..parallel.sharding.apply_tp` on the MMDiT, CLIP-L,
 CLIP-G, T5 and the VAE, in place; the VAE's one-head attention runs whole).
-Quantize to int8 before: a form-(b) rank keeps only its slice of each
-sharded weight, and a row layer's scales are over the whole input.
+Both compose: over a ring or Ulysses MMDiT, on its own ``seq`` mesh or on
+one mesh with ``seq`` and ``model`` axes, each head shard runs its own
+sequence-parallel joint attention (the command line keeps ``--tp`` and
+``--sp`` apart, as the JAX one does). Quantize to int8 before: a form-(b)
+rank keeps only its slice of each sharded weight, and a row layer's scales
+are over the whole input.
 """
 
 from __future__ import annotations
@@ -302,9 +306,6 @@ class SD3Inferencer:
         if decode_mode not in ("auto", "whole", "tiled"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
         if mesh is not None:
-            if models.mmdit.config.attention_impl != "flash":
-                raise ValueError("a tensor-parallel mesh and sequence-"
-                                 "parallel attention are mutually exclusive")
             for model in models._groups().values():
                 if model is not None:
                     apply_tp(model, mesh)

@@ -1387,6 +1387,45 @@ def test_k5_k7_launches_by_route(gen):
             assert sum(routes.values()) == sum(before.values()) + 1
 
 
+def test_ring_on_a_head_shard_launches_k5_k6_k7(gen):
+    """The ring of one tensor-parallel head shard over the ``seq`` axis of
+    a {"seq": 2, "model": 2} mesh of the card repeated, at a small hop
+    shape (2, 3, 531, 531, 64), one padded key: 4 sm90 launches each of K5
+    forward and K6 / K7 backward, against the plain K5 over the whole
+    sequence (out 2e-2) and the plain K6 / K7 under its lse (2e-2 of each
+    gradient's largest magnitude)."""
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel.ring_attention \
+        import ring_attention
+
+    mesh = build_mesh({"seq": 2, "model": 2}, [torch.device("cuda")] * 4)
+    b, h, l, d = 2, 3, 2 * 531, 64
+    valid = l - 1
+    q, k, v, g = (_randn(gen, b, h, l, d) for _ in range(4))
+    g[:, :, valid:] = 0
+    routes = (tfa.flash_attention_pos_cuda.routes,
+              tfa.flash_bwd_pos_dq_cuda.routes,
+              tfa.flash_bwd_pos_dkv_cuda.routes)
+    before = [r.get("sm90", 0) for r in routes]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ring_attention(*leaves, mesh, "seq", kv_valid_len=valid)
+    got = torch.autograd.grad(out, leaves, g)
+    assert [r.get("sm90", 0) - n for r, n in zip(routes, before)] == [4] * 3
+    z = _offsets(0, 0)
+    ref, ref_lse = tfa.flash_attention_pos_plain(q, k, v, z, z,
+                                                 valid_len=valid)
+    assert ((out[:, :, :valid].float() - ref[:, :, :valid].float()).abs()
+            .max().item() <= 2e-2)
+    delta = (g.float() * ref.float()).sum(-1)
+    want = tfa.flash_bwd_pos_plain(q, k, v, g, ref_lse, delta, z, z,
+                                   valid_len=valid)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a[:, :, :valid].float(), w[:, :, :valid].float()
+        assert bool(torch.isfinite(a).all()), name
+        assert (a - w).abs().max().item() <= 2e-2 * w.abs().max().item(), \
+            name
+
+
 # ---------------------------------------- K1 at head dim 512 (TMA, wgmma)
 @pytest.mark.parametrize("lk", [1, 63, 65, 777, 4096, 4097])
 @pytest.mark.parametrize("lq", [1, 4096])

@@ -387,9 +387,11 @@ def test_fit_logs_the_jax_epoch_keys(run_fp32):
 def test_trainer_refuses_unported_options():
     """FSDP and a tensor-parallel ``model`` mesh axis are ported and
     accepted (their steps: ``tests/test_torch_fsdp.py``); a ``model`` axis
-    with ring or Ulysses attention raises; the data / seq / expert meshes,
-    ring and Ulysses attention, MoE, LoRA, ``grad_accum``, ``epoch_awoken``
-    and ``checkpoint_dir`` are accepted (the meshes:
+    with ring or Ulysses attention is accepted, the blocks tensor-parallel
+    and on the mesh's ``seq`` axis both (its steps:
+    ``tests/test_torch_tp_sp.py``); the data / seq / expert meshes, ring and
+    Ulysses attention, MoE, LoRA, ``grad_accum``, ``epoch_awoken`` and
+    ``checkpoint_dir`` are accepted (the meshes:
     ``tests/test_torch_parallel_trainer.py``)."""
     from from_ddpm_to_stable_diffusion_tpu_torch.parallel import (
         build_mesh as tmesh)
@@ -400,10 +402,14 @@ def test_trainer_refuses_unported_options():
         state = MMDiTTrainer(mc, cfg, device="cpu", **kw).create_state(2)
         assert (state.model.joint_block0.x_block.tp is not None) == (
             "mesh" in kw)
-    with pytest.raises(ValueError, match="do not compose"):
-        MMDiTTrainer(dataclasses.replace(mc, attention_impl="ring"), cfg,
-                     device="cpu", mesh=tmesh({"seq": 2, "model": 2},
-                                              ["cpu"] * 4))
+    for impl in ("ring", "ulysses"):
+        composed = MMDiTTrainer(
+            dataclasses.replace(mc, attention_impl=impl), cfg, device="cpu",
+            mesh=tmesh({"seq": 2, "model": 2}, ["cpu"] * 4)).create_state(2)
+        blk = composed.model.joint_block0
+        assert blk.x_block.tp.n == 2 and blk.context_block.tp.n == 2
+        assert blk.seq_impl == impl and blk.mesh.shape == {"seq": 2,
+                                                           "model": 2}
     for field in (dict(mesh_shape={"data": 8}),):
         with pytest.raises(ValueError, match="!= 1 devices"):
             MMDiTTrainer(mc, dataclasses.replace(cfg, **field), device="cpu")

@@ -35,6 +35,10 @@ under ``tmp_path`` (no port), each spawn joined with its own timeout.
   1e-5, parameters within the AdamW tolerance of form (a)'s, the BatchNorm
   running statistics within 1e-5; the first rank's checkpoint holds the
   ranks' state bit for bit.
+- 4 ranks, TP x SP: one ring MMDiT step on {"seq": 2, "model": 2}, each
+  rank one head shard whose ring runs over its seq group; the groups are
+  the grid's columns and rows, each rank's slices of form (a)'s step within
+  the AdamW tolerance, the loss within rtol 1e-5.
 - 2 ranks, process-group checkpoints and LoRA: an FSDP DDPM ``fit`` whose
   checkpoint holds the ranks' slices joined, resumed through ``fit`` by a
   replicated data-parallel trainer against the meshless resume; a TP
@@ -207,6 +211,29 @@ def test_process_group_fsdp_steps_match_one_process(tmp_path):
             assert_adamw_close({n: p.numpy() for n, p in
                                 r[kind]["params"].items()}, want,
                                lr_bound(state.schedule, 1), kind)
+
+
+def test_process_group_tp_sp_step_matches_one_process(tmp_path):
+    """4 ranks on {"seq": 2, "model": 2}: the seq and model groups are the
+    columns and rows of the 2 x 2 grid of ranks, and one ring MMDiT step
+    under TP (each rank one head, its ring over its seq group) gives each
+    rank its slices of form (a)'s step."""
+    ranks = _spawn("tp_sp", tmp_path)
+    shape = worker.TP_SP_SHAPE
+    trainer, state, batch, draws = worker.trainer_setup("ring",
+                                                        _cpu_mesh(shape))
+    roles = tp_roles(state.model, shape["model"])
+    state, loss = trainer.train_step(state, *batch, **draws)
+    for rank, r in enumerate(ranks):
+        s, m = np.unravel_index(rank, tuple(shape.values()))
+        assert r["ranks"] == {"seq": [m, 2 + m], "model": [2 * s, 2 * s + 1]}
+        want = {n: (tp_slice(p.detach(), roles[n], m, shape["model"])
+                    if n in roles else p.detach()).numpy()
+                for n, p in state.params.items()}
+        np.testing.assert_allclose(r["loss"].item(), loss.item(), rtol=1e-5)
+        assert_adamw_close({n: p.numpy() for n, p in r["params"].items()},
+                           want, lr_bound(state.schedule, 1),
+                           f"tp_sp rank {rank}")
 
 
 def _numpy(tree):

@@ -442,12 +442,20 @@ def test_inferencer_contract(bundles):
     _, _, tinf = bundles
     from from_ddpm_to_stable_diffusion_tpu_torch.parallel import build_mesh
 
-    with pytest.raises(ValueError, match="mutually exclusive"):
-        ring = dataclasses.replace(tinf.models)
-        ring.mmdit = tmm.MMDiT(dataclasses.replace(
-            tinf.models.mmdit.config, attention_impl="ring"))
-        tpipe.SD3Inferencer(ring, mesh=build_mesh({"model": 2},
-                                                  ["cpu"] * 2))
+    # a ring MMDiT and a model axis on one mesh: both switched, each head
+    # shard's ring over seq (the JAX parity: tests/test_torch_tp_sp.py)
+    mesh = build_mesh({"seq": 2, "model": 2}, ["cpu"] * 4)
+    ring = tpipe.SD3Models.initialize(
+        torch.Generator().manual_seed(0), "cpu", "fp32", depth=2,
+        pos_embed_max_size=8, with_t5=False,
+        clip_l_cfg=tte.CLIPTextConfig(**CLIP_L),
+        clip_g_cfg=tte.CLIPTextConfig(**CLIP_G))
+    ring.mmdit.set_attention("ring", mesh)
+    img = tpipe.SD3Inferencer(ring, mesh=mesh).gen_image(
+        np.zeros((1, 77), np.int32), width=32, height=32, steps=1)
+    blk = ring.mmdit.joint_block0
+    assert blk.x_block.tp.n == 2 and blk.mesh is mesh
+    assert img.shape == (1, 32, 32, 3)
     with pytest.raises(ValueError, match="decode_mode"):
         tpipe.SD3Inferencer(tinf.models, decode_mode="strips")
     models = tpipe.SD3Models.initialize(

@@ -348,8 +348,10 @@ def test_sd3_inferencer_over_a_model_mesh_matches_jax():
     """SD3Inferencer(mesh=) of both packages on the reduced bundle of
     ``tests/test_torch_sd3_serving.py`` (depth-2 MMDiT, 2-layer CLIPs at
     768 / 1280, a 1-layer T5 at 4096, 4 heads each), 4 steps at 64^2, CFG
-    5, the JAX noise fed to the port: uint8 within one level. --tp and
-    sequence-parallel attention are mutually exclusive."""
+    5, the JAX noise fed to the port: uint8 within one level; and the
+    same within one level of it over a ring MMDiT on its own {"seq": 2}
+    mesh, each head shard's ring over seq (the command line alone keeps
+    --tp and --sp apart, as the JAX one does)."""
     from tests.test_torch_sd3_serving import (CLIP_TOKENS, KW, LATENT,
                                               _jax_models, _jax_noise,
                                               _port_models)
@@ -372,8 +374,12 @@ def test_sd3_inferencer_over_a_model_mesh_matches_jax():
                                dataclasses.fields(tmodels)})
     ring.mmdit = copy.deepcopy(tmodels.mmdit).set_attention(
         "ring", cpu_mesh({"seq": 2}))
-    with pytest.raises(ValueError, match="mutually exclusive"):
-        tpipe3.SD3Inferencer(ring, mesh=cpu_mesh({"model": 2}))
+    composed = tpipe3.SD3Inferencer(ring, mesh=cpu_mesh({"model": 2}))
+    blk = ring.mmdit.joint_block0
+    assert blk.x_block.tp.n == 2 and blk.mesh.shape == {"seq": 2}
+    got = composed.gen_image(CLIP_TOKENS, noise=_jax_noise(2, (1, *LATENT)),
+                             **KW)
+    assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
 
 
 # ------------------------------------------------------------ W8A8

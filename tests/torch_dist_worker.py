@@ -218,6 +218,21 @@ def _fsdp(rank):
     return out
 
 
+TP_SP_SHAPE = {"seq": 2, "model": 2}   # the ring over seq on a head shard
+
+
+def _tp_sp(rank):
+    """One ring MMDiT step with TP on {"seq": 2, "model": 2}: each rank holds
+    one head of two and runs its ring over its seq group; the axes'
+    process groups come back too."""
+    mesh = build_mesh(TP_SP_SHAPE)
+    trainer, state, batch, draws = trainer_setup("ring", mesh)
+    state, loss = trainer.train_step(state, *batch, **draws)
+    return dict(loss=loss, params={n: p.detach().clone()
+                                   for n, p in state.params.items()},
+                ranks={a: mesh.comm(a).ranks for a in TP_SP_SHAPE})
+
+
 DP = 2   # ranks of the data-mesh and process-group checkpoint cases
 
 
@@ -389,7 +404,7 @@ DDPM_DRAWS = dict(drop=torch.tensor([False, True] + [False] * 6),
 
 CASES = {"primitives": (SEQ, _primitives), "trainers": (4, _trainers),
          "tp": (TP, _tp), "fsdp": (4, _fsdp), "dp": (DP, _dp),
-         "pg": (DP, _pg)}
+         "pg": (DP, _pg), "tp_sp": (4, _tp_sp)}
 
 
 def run(rank: int, case: str, store_path: str, out_dir: str) -> None:
