@@ -375,14 +375,16 @@ K2_PER_REQUEST = 61 * 50 + 30
 # per UNet forward are 5 at each level, 9216 tokens at d = 40, 2304 at
 # d = 80 and 576 at d = 160 (the mid block's 144 run plain); + the VAE
 # decoder's mid attention at d = 512.
-SD1_768_STEPS, SD1_768_FP32_STEPS = 20, 10
+SD1_768_STEPS, SD1_768_FP32_STEPS = 10, 5   # cut from 20, 10 for vae_grad
 SD1_768_PER_STEP = {40: 5, 80: 5, 160: 5}
 # Tiny-SD UNet forward: 6 self-attentions of >= 512 tokens (enc1, dec6,
 # dec7 at 64^2; enc3, dec4, dec5 at 32^2) take K1, and their backward K3
 # and K4; 39 GroupNorms (28 in 14 ResBlocks, 10 TransformerBlock norm_in,
 # the tail). The GroupNorm backward is plain PyTorch, so no K2 there.
 TRAIN_PER_STEP = dict(K1=6, K3=6, K4=6, K2=39, K5=0, K6=0, K7=0)
-SAMPLE_T = 100   # the chain cut from the reference's T = 1000
+# the chain cut from the reference's T = 1000 (to 100, then 50 to pay for
+# the wide heads phase)
+SAMPLE_T = 50
 # SD3 request: 4 position-masked flash calls (context and x queries against
 # context and x keys) in each of 24 joint blocks x 50 steps; the VAE
 # decoder's one mid attention over 128 x 128 tokens takes K1; 30 GroupNorms
@@ -505,11 +507,14 @@ def phase_build():
 # The sm90 K1 and K3 instantiations: 16 padded head dims (16, 32, ..., 256)
 # without a mask, 7 mask forms at head dims 64 and 128 and one form with
 # every mask path (ANY) at the 14 others; the sm90 K4 the same at its 12
-# widths (16 - 128, then 160, 192, 224, 256); the d = 512 K1; the sm90 K5:
-# online and bounded at K1's 16 widths; K6 at K3's 16, K7 at K4's 12.
+# widths (16 - 128, then 160, 192, 224, 256); K1 above 256 (the d512
+# kernel) at the widths 384 and 512 without a mask and ANY, and K3 / K4
+# above 256 (one kernel, its role per block) the same; the sm90 K5: online
+# and bounded at K1's 16 widths; K6 at K3's 16, K7 at K4's 12.
 SM90_KERNELS = {  # kind -> (kernel name, instantiations)
     "K1 sm90": ("flash_fwd_sm90_kernel", 16 + 2 * 7 + 14),
-    "K1 d512": ("flash_fwd_d512", 1),
+    "K1 d512": ("flash_fwd_d512", 2 * 2),
+    "K3/K4 wide": ("flash_bwd_wide_sm90_kernel", 2 * 2),
     "K3 sm90": ("flash_bwd_dq_sm90_kernel", 16 + 2 * 7 + 14),
     "K4 sm90": ("flash_bwd_dkv_sm90_kernel", 12 + 2 * 7 + 10),
     "K5 sm90": ("flash_fwd_pos_sm90_kernel", 16 * 2),
@@ -519,25 +524,28 @@ SM90_KERNELS = {  # kind -> (kernel name, instantiations)
 # The names of the kernels above, and of any other bf16 flash kernel: one
 # outside the table fails the check.
 BF16_FAMILY = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv",
-               "flash_bwd_dq", "flash_bwd_pos_dq")
+               "flash_bwd_dq", "flash_bwd_pos_dq", "flash_bwd_wide")
 # The fp32 forward (TF32 split): 13 widths without a mask (8 for the checks
 # sd1 UNet, 40, 48, 64, 72, 80, 128, 160 at DP = d, and 16, 32, 96, 112, 144
 # for the head dims padded to 16) and masked online at each (K1 causal, K5),
 # K5 bounded and ANY (K1 with a bias or segment ids) at the 5 widths 32 -
 # 160, T5's bias form; the streaming kernel at the widths 192, 224, 256 in
-# its 4 forms (no mask, causal, ANY, bounded), and at 512. The fp32 backward
-# (TF32 split): dq and dk/dv at the 8 widths 16 - 128 without a mask and
-# masked (K3 / K4 causal, K6 / K7), ANY at 32, 64, 96, 128, and the
-# two-block (one cluster) dq and dk/dv at the 4 widths 160 - 256 without a
-# mask, masked and ANY.
+# its 4 forms (no mask, causal, ANY, bounded), at 384 without a mask,
+# causal and ANY, at 512 causal and ANY, and at 512 without a mask under its
+# own name. The fp32 backward (TF32 split): dq and dk/dv at the 8 widths 16
+# - 128 without a mask and masked (K3 / K4 causal, K6 / K7), ANY at 32, 64,
+# 96, 128, the two-block (one cluster) dq and dk/dv at the 4 widths 160 -
+# 256 without a mask, masked and ANY, and the streaming dq / dk / dv kernel
+# (its role per block) at 384 and 512 without a mask and ANY.
 FP32_KERNELS = {
     "K1/K5 fp32": ("flash_fwd_f32_kernel", 13 + 13 + 5 + 5 + 1),
-    "K1/K5 fp32 wide": ("flash_fwd_f32_wide_kernel", 3 * 4),
+    "K1/K5 fp32 wide": ("flash_fwd_f32_wide_kernel", 3 * 4 + 3 + 2),
     "K1 fp32 d512": ("flash_fwd_f32_d512_kernel", 1),
     "K3/K6 fp32": ("flash_bwd_dq_f32_kernel", 16 + 4),
     "K4/K7 fp32": ("flash_bwd_dkv_f32_kernel", 16 + 4),
     "K3/K6 fp32 wide": ("flash_bwd_dq_f32_wide_kernel", 3 * 4),
     "K4/K7 fp32 wide": ("flash_bwd_dkv_f32_wide_kernel", 3 * 4),
+    "K3/K4 fp32 stream": ("flash_bwd_f32_stream_kernel", 2 * 2),
 }
 FP32_FAMILY = ("flash_fwd", "flash_bwd")
 
@@ -570,7 +578,8 @@ def sass_check(sass, table, family):
              "K5 sm90": "bounded", "K1/K5 fp32": "masked/bounded/bias/any",
              "K3/K6 fp32": "masked/any", "K4/K7 fp32": "masked/any",
              "K3/K6 fp32 wide": "masked/any", "K4/K7 fp32 wide": "masked/any",
-             "K1/K5 fp32 wide": "form"}
+             "K1/K5 fp32 wide": "form", "K1 d512": "any",
+             "K3/K4 wide": "any", "K3/K4 fp32 stream": "any"}
     for kind, fns in found.items():
         for f, (hgmma, tma) in sorted(fns.items()):
             # template arguments: padded head dim, then the form's flags
@@ -701,7 +710,7 @@ class Counts(dict):
     """Launches by kernel; ``k1_routes``: K1's launches by the kernel they
     ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32");
     ``k3_routes`` - ``k7_routes`` (but K2's): K3's - K7's
-    (``.routes`` of their wrappers: "sm90", "fp32");
+    (``.routes`` of their wrappers: "sm90", "wide", "fp32");
     ``k1_head_dims``, ``k3_head_dims``, ``k4_head_dims``: K1's, K3's and
     K4's launches by head dim."""
 
@@ -2002,7 +2011,7 @@ SD3_ENCODER_GN, SD3_TILED_HEAD_GN = 22, 5
 SD3_INT8_MM_PER_REQUEST = ((4 * (2 * SD3_DEPTH - 1) + 1) * SD3_STEPS
                            + 2 * 7 * 24)
 SD1_INT8_MM_PER_REQUEST = 16 * 8 * 50
-SD3_INT8_PROFILE_STEPS = 10
+SD3_INT8_PROFILE_STEPS = 5    # cut from 10 to pay for the wide heads phase
 # Image levels, batch-2 sample against its batch-1 request: cuBLAS and
 # cuDNN pick their algorithms by batch, which moves bf16 roundings; PERF.md
 # section 7 records up to 11 levels (mean 1.2) for SD1 between batch 1 and
@@ -2222,7 +2231,7 @@ def sd3_batch_levels(n_seeds):
 
 # the text entry's three requests compare ids and weights, not the
 # operating point: 10 steps (cut from 50 to make room for the serving phase)
-SD3_TEXT_STEPS = 10
+SD3_TEXT_STEPS = 5    # cut from 10 to pay for the wide heads phase
 
 
 def phase_sd3_text(card, source):
@@ -2880,6 +2889,8 @@ def _family(name: str) -> str:
                      ("flash_fwd_f32", F32_FWD),
                      ("merge_f32_d512", F32_FWD),
                      ("split_f32", F32_SPLIT),
+                     ("flash_bwd_wide", "K3/K4 flash bwd wide"),
+                     ("flash_bwd_f32_stream", "K3/K4 fp32 flash bwd stream"),
                      ("flash_bwd_pos_dq", "K6 flash bwd pos dq"),
                      ("flash_bwd_pos_dkv", "K7 flash bwd pos dk/dv"),
                      ("flash_fwd", "K1 flash fwd"),
@@ -5416,7 +5427,7 @@ def group_norms(module):
     return sum(isinstance(m, GroupNorm) for m in module.modules())
 
 
-LATENT_STEPS = (2, 5)   # warm, timed
+LATENT_STEPS = (2, 3)   # warm, timed (cut from 5 for vae_grad)
 
 
 def phase_latent_training(card, base):
@@ -6246,7 +6257,8 @@ def phase_vit(card):
 # tower's 24 self-attentions takes K1 in the forward and K3 + K4 in the
 # backward; the 77-token causal text tower and every other op stay plain.
 CLIP_TRAIN_PER_STEP = dict(K1=24, K2=0, K3=24, K4=24, K5=0, K6=0, K7=0)
-CLIP_BATCH, CLIP_TRAIN_STEPS = 32, (2, 5)   # batch; warm (fit), timed steps
+# batch; warm (fit), timed steps (5 timed before the wide heads phase)
+CLIP_BATCH, CLIP_TRAIN_STEPS = 32, (2, 3)
 CLIP_EVAL_IMAGES = 64                       # per set, clip_fid / clip_score
 FID_IMAGES = 64                             # per set, inception_features
 # checks all on the card: the sd1 UNet's five level-0 self-attentions (8
@@ -8766,7 +8778,7 @@ HEAD_DIM_TIMED = [(32, 1, 4096, 4096, 96), (32, 1, 1024, 1024, 192),
 # enc3 at 32^2 at twice it; heads = max(1, channels // 128)).
 TINY_SD_WIDTHS = {96: {96: 5, 192: 1}, 320: {160: 5, 128: 1}}
 WIDTH_TRAIN_STEPS = (1, 3)   # warm-up, timed
-WIDTH_SAMPLE_T = 20
+WIDTH_SAMPLE_T = 10   # cut from 20 to pay for the wide heads phase
 
 
 def head_dim_inputs(rnd, dtype, d, form, shape=HEAD_DIM_CASE):
@@ -9515,6 +9527,378 @@ def phase_kernels_forms(card, tail):
     return records
 
 
+# ---------------------------------------------------------------------------
+# K1, K3 and K4 above head dim 256 (the SD1 and SD3 VAEs' one-head mid
+# attention at 512; every head dim 257 - 512 in every form): at WIDE_DIMS
+# (264 and 300 run at width 384, 300 padded to 304 by the wrapper; 384 and
+# 512 at their own) in the forms of WIDE_FORMS at WIDE_CASE (ragged on both
+# sides), bf16 against the plain versions at the head-dims phase's
+# tolerances (out 2e-2, lse 1e-3, each gradient 2e-2 of its largest), fp32
+# against the plain versions in fp64, every error relative to the largest
+# magnitude of what it measures and within WIDE_FP64_TOL (a kernel that
+# rounded an operand to one TF32 pass would be ~1e-3 off, a wrong mask O(1));
+# dbias written into a pool poisoned with NaNs. Then timed: K3 and K4 at the
+# SD1 VAE's mid attention (WIDE_VAE_SHAPE) in both dtypes, and one masked
+# (causal) K1, K3 and K4 shape at width 320 (WIDE_MASKED, 256 query tiles),
+# each beside the plain version, one scaled_dot_product_attention (its
+# backward: its whole one; TF32 off; the backend it ran named from its
+# kernels) and the bound.
+WIDE_DIMS = (264, 300, 384, 512)
+WIDE_BWD_DESIGN = (
+    "every head dim 257 - 512 in every mask form, at the padded widths 384 "
+    "and 512: one kernel for dq, dk and dv, a block owning 64 rows (queries "
+    "for dq, keys for dk and dv; K4's dk and dv blocks in one launch, each "
+    "recomputing S^T) with A1 / A2 resident (Q, dO; or K, V) and B1 / B2 "
+    "tiles of 32 rows on one mbarrier pair (bf16, TMA + wgmma): two "
+    "consumers split X = A1 B1^T and Y = A2 B2^T by columns (m64n16k16 SS), "
+    "form P or dS, write it in bf16 to a double-buffered swizzled tile and "
+    "each accumulate its half of the columns (m64n(DP/2)k16 SS); masks per "
+    "launch (ANY), dbias written once a tile; fp32 the same roles on the "
+    "streaming TF32 layout of the fp32 forward (three 64 KB slots, 64-column "
+    "tiles, three passes, the transposed split terms of K, Q or dO)")
+WIDE_CASE = (2, 2, 600, 520)
+WIDE_FORMS = [(False, False, False), (True, False, False),
+              (False, True, False), (False, False, True), (True, True, True)]
+WIDE_FP64_TOL = 1e-5
+WIDE_VAE_SHAPE = (1, 1, 4096, 4096, 512)
+WIDE_MASKED = (1, 2, 4096, 4096, 320)
+
+
+def wide_fp64_check(fa, q, k, v, g, masks, what):
+    """fp32 K1, K3 and K4 against their plain versions in fp64 on one input
+    (:data:`WIDE_FP64_TOL` of each output's largest magnitude; lse over the
+    rows that see a key); the launches counted at the caller's head dim.
+    Returns the largest errors by kernel."""
+    import torch
+
+    d = q.shape[-1]
+    fns = (fa.flash_attention_cuda, fa.flash_attention_bwd_dq_cuda,
+           fa.flash_attention_bwd_dkv_cuda)
+    before = [fn.head_dims[d] for fn in fns]
+    need_dbias = "bias" in masks
+    out, lse = fa.flash_attention_cuda(q, k, v, **masks)
+    if need_dbias:
+        _poison(*q.shape[:3], k.shape[2])
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **masks,
+                                        need_dbias=need_dbias)
+    torch.cuda.synchronize()
+    counted = all(fn.head_dims[d] == n + 1 for fn, n in zip(fns, before))
+    m64 = dict(masks)
+    if need_dbias:
+        m64["bias"] = masks["bias"].double()
+    x64 = [x.double() for x in (q, k, v)]
+    o64, l64 = fa.flash_attention_plain(*x64, **m64)
+    want = fa.flash_attention_bwd_plain(*x64, o64, l64, g.double(), **m64,
+                                        need_dbias=need_dbias)
+    seen = l64 > -1e29
+    errs = dict(out=_rel_err(out, o64), lse=_rel_err(lse[seen], l64[seen]))
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), grads, want):
+        errs[name] = _rel_err(a, w)
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, lse, *grads))
+    ok = finite and counted and max(errs.values()) <= WIDE_FP64_TOL
+    print(f"wide heads: {what}: against fp64, of each largest: " + ", ".join(
+        f"{n} {e:.2e}" for n, e in errs.items()) + f"; counted at d={d}: "
+        f"{counted}", flush=True)
+    check(ok, f"fp32 K1/K3/K4 off fp64 at {what}: {errs}, finite {finite}, "
+          f"counted {counted}")
+    return dict(K1=max(errs["out"], errs["lse"]),
+                K3=max(errs["dq"], errs.get("dbias", 0.0)),
+                K4=max(errs["dk"], errs["dv"]))
+
+
+def sdpa_backend(run):
+    """The scaled_dot_product_attention backend one ``run()`` took, named
+    from the kernels it launched (profiler rows): flash, efficient (the
+    memory-efficient cutlass kernels), cudnn, or math (GEMMs and a
+    softmax); "not measured" where three profiled windows recorded no
+    kernel row (the profiler drops one now and then)."""
+    rows = []
+    for _ in range(3):
+        rows = profile_device(run, cpu=False)[4]
+        if rows:
+            break
+    if not rows:
+        return "not measured"
+    names = " ".join(name.lower() for _, _, name in rows)
+    for key, backend in (("flash", "flash"), ("cudnn", "cudnn"),
+                         ("fmha", "efficient"), ("efficient", "efficient"),
+                         ("mem_eff", "efficient")):
+        if key in names:
+            return backend
+    return "math"
+
+
+def phase_kernels_wide_heads(card, tail):
+    """K1, K3 and K4 above head dim 256: every form of WIDE_FORMS at
+    WIDE_DIMS in both dtypes against the plain versions, then timed at
+    WIDE_VAE_SHAPE (K3, K4) and WIDE_MASKED (causal K1, K3, K4). Returns
+    (largest error by kernel, the timed records by kernel)."""
+    import torch
+    import torch.nn.functional as F
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2700)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    errs = dict(K1=0.0, K3=0.0, K4=0.0)
+    n_cases = 0
+    for dtype in (bf16, fp32):
+        dt = "bf16" if dtype == bf16 else "fp32"
+        for d in WIDE_DIMS:
+            for form in WIDE_FORMS:
+                q, k, v, g, masks = head_dim_inputs(rnd, dtype, d, form,
+                                                    WIDE_CASE)
+                route = "/".join(r(dtype, d, *form) for r in (
+                    fa.k1_route, fa.k3_route, fa.k4_route))
+                what = (f"{dt} d={d} (width {fa._wide_width(d)}) "
+                        f"{WIDE_CASE} causal={form[0]} bias={form[1]} "
+                        f"segments={form[2]} ({route})")
+                if dtype == bf16:
+                    if form[1]:
+                        _poison(*WIDE_CASE)
+                    e = head_dim_check(fa, q, k, v, g, masks, what)
+                else:
+                    e = wide_fp64_check(fa, q, k, v, g, masks, what)
+                for key in errs:
+                    errs[key] = max(errs[key], e[key])
+                n_cases += 1
+                del q, k, v, g, masks
+    print(f"wide heads: {n_cases} cases held (bf16 against the plain "
+          f"versions, fp32 against fp64); largest errors {errs}", flush=True)
+
+    sdpa = F.scaled_dot_product_attention
+    records = dict(K1=[], K3=[], K4=[])
+    # (products, Lq-like tensors, Lk-like tensors, row statistics)
+    work = dict(K1=(2, 2, 2, 1), K3=(3, 3, 2, 2), K4=(4, 2, 4, 2))
+    fams = dict(bf16=dict(K1="K1 flash fwd", K3="K3/K4 flash bwd wide",
+                          K4="K3/K4 flash bwd wide"),
+                fp32=dict(K1=F32_FWD, K3="K3/K4 fp32 flash bwd stream",
+                          K4="K3/K4 fp32 flash bwd stream"))
+    for (b, h, lq, lk, d), causal, kernels in (
+            (WIDE_VAE_SHAPE, False, ("K3", "K4")),
+            (WIDE_MASKED, True, ("K1", "K3", "K4"))):
+        share = (sum(min(i + 1, lk) for i in range(lq)) / (lq * lk)
+                 if causal else 1.0)
+        for dtype in (bf16, fp32):
+            dt = "bf16" if dtype == bf16 else "fp32"
+            q, k, v, g, _ = head_dim_inputs(rnd, dtype, d, MASK_FORMS[0],
+                                            (b, h, lq, lk))
+            out, lse = fa.flash_attention_cuda(q, k, v, causal=causal)
+            delta = (g.float() * out.float()).sum(-1)
+            n, w = (3, 1) if dtype == fp32 else (10, 2)
+            plain_fwd = cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=causal), 2, 1)
+            plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, out, lse, g, causal=causal), 2, 1)
+            lib_fwd = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal), n, w)
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            ol = sdpa(ql, kl, vl, is_causal=causal)
+            lib_grad = lambda: torch.autograd.grad(ol, (ql, kl, vl), g,
+                                                   retain_graph=True)
+            lib_bwd = cuda_ms(lib_grad, n, w)
+            backend = sdpa_backend(lib_grad)
+            del ol, ql, kl, vl
+            runs = dict(
+                K1=lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
+                K3=lambda: fa.flash_attention_bwd_dq_cuda(
+                    q, k, v, g, lse, delta, causal=causal),
+                K4=lambda: fa.flash_attention_bwd_dkv_cuda(
+                    q, k, v, g, lse, delta, causal=causal))
+            line = []
+            for kernel in kernels:
+                run = runs[kernel]
+                shape = (b, h, lq, lk, d, *work[kernel])
+                if dtype == bf16:
+                    p_, ql_, kl_, st_ = work[kernel]
+                    flops = 2.0 * p_ * b * h * lq * lk * d * share
+                    nbytes = b * h * (2.0 * d * (ql_ * lq + kl_ * lk)
+                                      + 4.0 * st_ * lq)
+                    bnd = dict(zip(("bound_ms", "bound_by"),
+                                   bound(flops, nbytes)),
+                               bound_basis="bf16 at 989 TFLOP/s")
+                else:
+                    bnd = tf32_bound(b, h, lq, lk, d, share, *work[kernel])
+                fwd = kernel == "K1"
+                times = dict(ms=cuda_ms(run, n, w),
+                             plain_ms=plain_fwd if fwd else plain_bwd,
+                             library_ms=lib_fwd if fwd else lib_bwd,
+                             bound_ms=bnd["bound_ms"],
+                             bound_by=bnd["bound_by"])
+                device = (fp32_fwd_device_ms(run) if fwd and dtype == fp32
+                          else dict(device_ms=kernel_device_ms(
+                              run, fams[dt][kernel],
+                              3 if dtype == fp32 else 10)))
+                rec = dict(dtype=dt, shape=[b, h, lq, lk, d],
+                           width=fa._wide_width(d), causal=causal,
+                           route=fa.k1_route(dtype, d) if fwd else
+                           fa.k3_route(dtype, d), visible_share=share,
+                           bound_basis=bnd["bound_basis"],
+                           library_backend=None if fwd else backend,
+                           **times, **device)
+                rec["bound_share"] = times["bound_ms"] / times["ms"]
+                records[kernel].append(rec)
+                line.append(f"{kernel} ({rec['route']}): {tail(**times)}, "
+                            f"{100 * rec['bound_share']:.1f} % of the bound"
+                            + "".join(f", {key.replace('_ms', '')} "
+                                      f"{fmt_ms(val)}"
+                                      for key, val in device.items()))
+            pair = sum(r[-1]["ms"] for r in (records["K3"], records["K4"]))
+            print(f"wide heads: timed {dt} (B,H,Lq,Lk,D)=({b},{h},{lq},{lk},"
+                  f"{d}){' causal' if causal else ''} (plain and library "
+                  f"backward: dq, dk and dv together; the library's "
+                  f"backward on its {backend} backend): " + "; ".join(line)
+                  + f"; K3 + K4 {pair:.4f} ms against the library's whole "
+                  f"backward {lib_bwd:.4f} ms ({lib_bwd / pair:.2f} x)",
+                  flush=True)
+            del q, k, v, g, out, lse, delta
+            torch.cuda.empty_cache()
+    return errs, records
+
+
+# The gradient through the SD1 VAE decoder at its operating point (latent
+# 64^2 -> 512^2, batch 1; mid attention one head of 512 over 4096 tokens),
+# random Flax-default weights from a seed, in fp32 (its default) and bf16:
+# loss = <decoder(z), r> for a fixed random r, backward on the card. One K1,
+# K3 and K4 at head dim 512 per pass. dz and the mid attention's parameter
+# gradients are held to the same run with the flash CUDA entries swapped for
+# their plain versions (here only: the main path has no switch), rel L2
+# within VAE_GRAD_TOL of the dtype; a planted fault (dk and dv swapped) must
+# be caught.
+VAE_GRAD_LATENT = 64
+VAE_GRAD_TOL = dict(fp32=1e-4, bf16=GRAD_REL_TOL)
+VAE_GRAD_TIMED = 3
+
+
+def phase_vae_grad(card):
+    """SD1's VAEDecoder forward and backward at latent 64^2 in fp32 and in
+    bf16 through K1, K3 and K4 at d = 512 (one launch each a pass, counted
+    from 0), held to the plain flash versions and to a planted fault;
+    backward ms by CUDA events. Returns the counts of the two passes (bf16,
+    fp32), each a path of the kernels line."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.models.sd1 import (
+        VAEDecoder)
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+    from from_ddpm_to_stable_diffusion_tpu_torch.pipelines.sd1 import (
+        _prepare, flax_default_init_)
+
+    gen = torch.Generator(device="cuda").manual_seed(2701)
+    with torch.device("meta"):
+        module = VAEDecoder()
+    base = flax_default_init_(module.to_empty(device="cuda"), gen)
+    s = VAE_GRAD_LATENT
+    z0 = torch.randn((1, s, s, 4), generator=gen, device="cuda")
+    r = torch.randn((1, 8 * s, 8 * s, 3), generator=gen, device="cuda")
+    mid = [n for n, _ in base.named_parameters() if n.startswith("mid_attn.")]
+    runs = []
+    for dt in ("bf16", "fp32"):
+        import copy
+
+        decoder = _prepare(copy.deepcopy(base), "cuda", dt)
+        for p in decoder.parameters():
+            p.requires_grad_(True)
+
+        def grads():
+            decoder.zero_grad(set_to_none=True)
+            z = z0.clone().requires_grad_()
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            loss = (decoder(z).float() * r).sum()
+            e[1].record()
+            loss.backward()
+            e[2].record()
+            torch.cuda.synchronize()
+            got = dict(z=z.grad.float())
+            got.update((n, p.grad.float()) for n, p in
+                       decoder.named_parameters() if n in mid)
+            return loss.item(), got, e[0].elapsed_time(e[1]), \
+                e[1].elapsed_time(e[2])
+
+        grads()                                   # warm-up
+        reset_counts()
+        loss, got, fwd_ms, bwd_ms = grads()
+        counts = read_counts()
+        runs.append(counts)
+        want_route = "fp32" if dt == "fp32" else None
+        k1r = counts.k1_routes
+        ok_counts = (counts["K1"] == counts["K3"] == counts["K4"] == 1
+                     and counts.k1_head_dims == {512: 1}
+                     and counts.k3_head_dims == {512: 1}
+                     and counts.k4_head_dims == {512: 1}
+                     and k1r == {want_route or "d512": 1}
+                     and counts.k3_routes == {want_route or "wide": 1}
+                     and counts.k4_routes == {want_route or "wide": 1})
+        check(ok_counts, f"VAE grad {dt}: K1 / K3 / K4 launches at d = 512 "
+              f"{dict(counts)} {k1r} {counts.k3_routes} {counts.k4_routes}"
+              f" {counts.k1_head_dims}")
+        times = [grads()[2:] for _ in range(VAE_GRAD_TIMED)]
+        fwd_ms = sorted(t[0] for t in times)[VAE_GRAD_TIMED // 2]
+        bwd_ms = sorted(t[1] for t in times)[VAE_GRAD_TIMED // 2]
+
+        # the oracle: the same run with the flash CUDA entries swapped for
+        # their plain versions
+        saved = fa.flash_attention_cuda, fa.flash_attention_bwd_cuda
+
+        def plain_fwd(q, k, v, scale=None, **masks):
+            return fa.flash_attention_plain(q, k, v, scale, **masks)
+
+        def plain_bwd(q, k, v, out, lse, g, scale=None, **masks):
+            return fa.flash_attention_bwd_plain(q, k, v, out, lse, g, scale,
+                                                **masks)
+
+        fa.flash_attention_cuda = plain_fwd
+        fa.flash_attention_bwd_cuda = plain_bwd
+        try:
+            ref_loss, ref, _, plain_bwd_ms = grads()
+        finally:
+            fa.flash_attention_cuda, fa.flash_attention_bwd_cuda = saved
+        tol = VAE_GRAD_TOL[dt]
+        errs = {n: rel_l2(got[n], ref[n]) for n in ref}
+        finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+        worst = max(errs, key=errs.get)
+        print(f"VAE grad {dt}: SD1 VAEDecoder at latent {s}^2 -> "
+              f"{8 * s}^2, loss {loss:.6e} (plain flash {ref_loss:.6e}); "
+              f"K1 {dict(counts.k1_routes)} K3 {dict(counts.k3_routes)} K4 "
+              f"{dict(counts.k4_routes)} at d {counts.k1_head_dims}, K2 "
+              f"{counts['K2']}; forward {fwd_ms:.2f} ms, backward "
+              f"{bwd_ms:.2f} ms (median of {VAE_GRAD_TIMED}; with the plain "
+              f"flash versions {plain_bwd_ms:.2f} ms); rel L2 against the "
+              f"plain versions: dz {errs['z']:.3e}, the mid attention's "
+              f"{len(mid)} leaves worst {worst} {errs[worst]:.3e} (tol "
+              f"{tol}) [{card}]", flush=True)
+        check(finite and max(errs.values()) <= tol,
+              f"VAE grad {dt}: off the plain versions: {errs}")
+
+        # the control: dk and dv swapped at 512 must be caught
+        bwd = fa.flash_attention_bwd_cuda
+
+        def swap_dk_dv(q, k, v, out, lse, g, scale=None, **masks):
+            dq, dk, dv = bwd(q, k, v, out, lse, g, scale, **masks)
+            return dq, dv, dk
+
+        fa.flash_attention_bwd_cuda = swap_dk_dv
+        try:
+            bad = grads()[1]
+        finally:
+            fa.flash_attention_bwd_cuda = bwd
+        bad_errs = {n: rel_l2(bad[n], ref[n]) for n in ref}
+        caught = max(bad_errs.values()) > tol
+        worst_b = max(bad_errs, key=bad_errs.get)
+        print(f"VAE grad {dt} control (dk/dv swapped at d = 512): worst "
+              f"{worst_b} {bad_errs[worst_b]:.3e}: "
+              f"{'caught' if caught else 'MISSED'}", flush=True)
+        check(caught, f"VAE grad {dt}: missed the planted dk/dv swap")
+        runs[-1].ms = dict(forward=fwd_ms, backward=bwd_ms,
+                           backward_plain_flash=plain_bwd_ms)
+        del decoder, got, ref, bad
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    return runs
+
+
 def write_width_yaml(root, channel):
     """A tiny-SD YAML of TinySDConfig() changed only by ``channel`` (and
     its checkpoints under ``root``), as ``cli/tiny_sd.py --config`` reads
@@ -9800,12 +10184,18 @@ def main():
     for k, err in head_dim_errs.items():
         kernels[k]["err"] = max(kernels[k]["err"], err)
     every_form = phase_kernels_forms(card, tail)
+    wide_errs, wide_timed = phase_kernels_wide_heads(card, tail)
+    for k, err in wide_errs.items():
+        kernels[k]["err"] = max(kernels[k]["err"], err)
     mark("head_dims")
+    vae_runs = phase_vae_grad(card)
+    mark("vae_grad")
     kernels_ring = phase_kernels_ring(card)
     mark("parallel")
     import torch
 
-    paths = ("sd1", "sd1_slice", "sd1_tp", "sd1_trajectory", "serving", "sd1_cli", "sd1_768",
+    paths = ("sd1", "sd1_slice", "vae_grad_bf16", "vae_grad_fp32", "sd1_tp",
+             "sd1_trajectory", "serving", "sd1_cli", "sd1_768",
              "sd1_checkpoint", "sd1_int8",
              "sd3", "t5", "sd3_ring", "sd3_ulysses", "mmdit_pp",
              "mmdit_pp_1f1b", "sd3_tp", "sd3_tp_sp", "sd3_img2img",
@@ -9827,7 +10217,7 @@ def main():
              "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64",
              "clip_fp32", "checks")
     sd1_launches, sd1_models, sd1_image = phase_sd1(card)
-    runs = [sd1_launches, phase_sd1_slice(card, sd1_models)]
+    runs = [sd1_launches, phase_sd1_slice(card, sd1_models), *vae_runs]
     mark("sd1")
     kernels_tp = phase_kernels_tp(card)
     kernels_tp_sp = phase_kernels_tp_sp(card)
@@ -9953,6 +10343,7 @@ def main():
     fp32_by_path = dict(zip(paths[-len(fp32_runs):],
                             (fp32 for _, fp32 in fp32_runs)))
     pkg = "from_ddpm_to_stable_diffusion_tpu_torch/csrc/"
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
 
     def forms_of(k):
         """The masked forms of one kernel: each timed case's record."""
@@ -10099,6 +10490,19 @@ def main():
                                 "split over up to 4 blocks, merged by lse"),
                         timed=kernels["d512"], **by_route("d512")),
               sm90=by_route("sm90"),
+              wide_heads=dict(
+                  source=pkg + "flash_attention.cu",
+                  fp32_source=pkg + "fp32/flash_f32_fwd_wide.cuh",
+                  widths=list(fa._WIDE_WIDTHS),
+                  design=("every head dim 257 - 512 in every mask form: the "
+                          "d512 kernel at the padded widths 384 and 512 "
+                          "(columns past d read as TMA's zeros), causal / "
+                          "bias / segment ids chosen per launch (ANY), the "
+                          "bias read from global memory, key splits merged "
+                          "by lse with weight 0 for a split a row sees no "
+                          "key of; fp32 the streaming TF32 kernel at 384 "
+                          "and 512 in its no-mask, causal and ANY forms"),
+                  timed=wide_timed["K1"]),
               d160=dict(
                   design=("bf16 and fp32 at head dim 160 (SD1's UNet at "
                           "level 2 from 768^2): the sm90 kernel with 32-byte "
@@ -10156,6 +10560,13 @@ def main():
                       "until the end"),
               head_dims=head_dim_record("K3"),
               sm90=by_route("sm90", "k3"),
+              wide=dict(
+                  source=pkg + "flash_attention_wide_bwd_sm90.cuh",
+                  fp32_source=pkg + "fp32/flash_f32_bwd_stream.cuh",
+                  widths=list(fa._WIDE_WIDTHS),
+                  design=WIDE_BWD_DESIGN, timed=wide_timed["K3"],
+                  vae_grad_ms=dict(bf16=vae_runs[0].ms, fp32=vae_runs[1].ms),
+                  **by_route("wide", "k3")),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
               forms=forms_of("K3"), every_form=every_form["K3"],
@@ -10179,6 +10590,13 @@ def main():
                       "tiles of 32"),
               head_dims=head_dim_record("K4"),
               sm90=by_route("sm90", "k4"),
+              wide=dict(
+                  source=pkg + "flash_attention_wide_bwd_sm90.cuh",
+                  fp32_source=pkg + "fp32/flash_f32_bwd_stream.cuh",
+                  widths=list(fa._WIDE_WIDTHS),
+                  design=WIDE_BWD_DESIGN, timed=wide_timed["K4"],
+                  vae_grad_ms=dict(bf16=vae_runs[0].ms, fp32=vae_runs[1].ms),
+                  **by_route("wide", "k4")),
               timed_at="(B,H,Lq,Lk,D)=(32,1,4096,4096,128)",
               library="backward of F.scaled_dot_product_attention",
               forms=forms_of("K4"), every_form=every_form["K4"],

@@ -1,8 +1,10 @@
-// The C entries of K4 and K7 (bf16, every head dim up to 256), the kernels
-// of flash_attention_bwd_sm90.cuh; their widths are instantiated in
-// flash_attention_bwd_sm90_w*.cu.
+// The C entries of K4 (bf16, every head dim up to 512) and K7 (up to 256):
+// the kernels of flash_attention_bwd_sm90.cuh up to 256, their widths
+// instantiated in flash_attention_bwd_sm90_w*.cu; above 256 K4 is the kernel
+// of flash_attention_wide_bwd_sm90.cuh.
 
 #include "flash_attention_bwd_sm90.cuh"
+#include "flash_attention_wide_bwd_sm90.cuh"
 
 using namespace fdsd::k4;
 
@@ -12,7 +14,9 @@ using namespace fdsd::k4;
 // bias_bf16) and the six segment arrays of mask.cuh (at (64, 128) tiles up
 // to DP = 128, (64, 64) above) are null when not asked for. Every head dim
 // from 1 to 256, in every form, at the padded width DP of padded_width (the
-// columns past d read as zeros); others return cudaErrorInvalidValue.
+// columns past d read as zeros); from 264 to 512 (multiples of 8), in every
+// form, the wide kernel (segment arrays at (32, 64) tiles); others return
+// cudaErrorInvalidValue.
 extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* g, const void* lse,
                                   const void* delta, void* dk, void* dv,
@@ -22,6 +26,11 @@ extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* hi, int B, int H, int Lq, int Lk,
                                   int d, const long long* strides, float scale,
                                   int causal, int bias_bf16, void* stream) {
+  if (d > 256)
+    return static_cast<int>(fdsd::kw::launch_wide(
+        1, q, k, v, g, dk, dv, nullptr, lse, delta, bias, bias_bf16, q_ids,
+        kv_ids, q_bounds, kv_bounds, lo, hi, B, H, Lq, Lk, d, strides, scale,
+        causal, static_cast<cudaStream_t>(stream)));
   Params p;
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);

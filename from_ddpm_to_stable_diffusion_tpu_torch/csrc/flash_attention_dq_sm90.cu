@@ -1,8 +1,10 @@
-// The C entries of K3 and K6 (bf16, every head dim up to 256), the kernels
-// of flash_attention_dq_sm90.cuh; their widths are instantiated in
-// flash_attention_dq_sm90_w*.cu.
+// The C entries of K3 (bf16, every head dim up to 512) and K6 (up to 256):
+// the kernels of flash_attention_dq_sm90.cuh up to 256, their widths
+// instantiated in flash_attention_dq_sm90_w*.cu; above 256 K3 is the kernel
+// of flash_attention_wide_bwd_sm90.cuh.
 
 #include "flash_attention_dq_sm90.cuh"
+#include "flash_attention_wide_bwd_sm90.cuh"
 
 using namespace fdsd::k3;
 
@@ -13,8 +15,9 @@ using namespace fdsd::k3;
 // the six segment arrays of mask.cuh are null when not asked for. Every
 // head dim from 1 to 256, in every form, at the padded width DP = d rounded
 // up to 16 (the columns past d read as zeros; the segment arrays at (128,
-// 64) tiles, (128, 32) above DP = 192); others return
-// cudaErrorInvalidValue.
+// 64) tiles, (128, 32) above DP = 192); from 264 to 512 (multiples of 8),
+// in every form, the wide kernel (segment arrays at (64, 32) tiles); others
+// return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse,
                                  const void* delta, void* dq, void* dbias,
@@ -24,6 +27,11 @@ extern "C" int fdsd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* hi, int B, int H, int Lq, int Lk,
                                  int d, const long long* strides, float scale,
                                  int causal, int bias_bf16, void* stream) {
+  if (d > 256)
+    return static_cast<int>(fdsd::kw::launch_wide(
+        0, q, k, v, g, dq, nullptr, dbias, lse, delta, bias, bias_bf16, q_ids,
+        kv_ids, q_bounds, kv_bounds, lo, hi, B, H, Lq, Lk, d, strides, scale,
+        causal, static_cast<cudaStream_t>(stream)));
   Params p = {};
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dbias = bias != nullptr ? static_cast<float*>(dbias) : nullptr;

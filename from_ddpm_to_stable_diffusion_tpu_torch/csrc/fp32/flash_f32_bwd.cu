@@ -1,16 +1,17 @@
 // Flash-attention backward on fp32 inputs for Hopper (sm_90a) on the tensor
 // cores: the fp32 form of K3 (dq, and dbias) and K4 (dk, dv) in every mask
 // form (no mask, causal, an additive bias, segment ids and their
-// combinations) at every head dim up to 256, and of K6 / K7 (position masks
-// under a caller-supplied global lse and delta) at the same head dims. The
-// kernels live in flash_f32_bwd.cuh: up to 128 one block per tile; head dims
-// 129 to 256 one cluster of two blocks, each owning half of the columns
+// combinations) at every head dim up to 512, and of K6 / K7 (position masks
+// under a caller-supplied global lse and delta) at every head dim up to 256.
+// The kernels live in flash_f32_bwd.cuh: up to 128 one block per tile; head
+// dims 129 to 256 one cluster of two blocks, each owning half of the columns
 // (above 128 the resident Q and dO (dq) or K and V (dk / dv) terms of a
-// 64-row tile no longer fit in one block beside the rings). This file holds
-// the split pre-pass, the dispatch and the C entries; every form (no mask,
-// masked, and ANY: a bias with dbias, segment ids, causal, at the head dim
-// rounded up to 32) is instantiated a few widths to a file in
-// flash_f32_bwd_w*.cu.
+// 64-row tile no longer fit in one block beside the rings); above 256 the
+// streaming kernel of flash_f32_bwd_stream.cuh, nothing resident. This file
+// holds the split pre-pass, the dispatch and the C entries; every form (no
+// mask, masked, and ANY: a bias with dbias, segment ids, causal, at the head
+// dim rounded up to 32; above 256 at 384 or 512) is instantiated a few
+// widths to a file in flash_f32_bwd_w*.cu.
 //
 // Replaces, for fp32 q, k, v, dO, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
@@ -79,6 +80,7 @@
 // selected to P = 0.
 
 #include "flash_f32_bwd.cuh"
+#include "flash_f32_bwd_stream.cuh"
 #include "split_f32.cuh"
 
 namespace {
@@ -249,16 +251,35 @@ cudaError_t any_width(int d, bool dq, const Work& w, const Params& p,
   return cudaErrorInvalidValue;
 }
 
+// Head dims the kernels take: multiples of 4 up to 256, of 8 from 264 to
+// 512 (K3 and K4 only: not with position offsets).
+bool takes(int d) {
+  return (d >= 4 && d <= 256 && d % 4 == 0) ||
+         (d > 256 && d <= 512 && d % 8 == 0);
+}
+
+// K3 / K4 above 256 on the streaming kernel (flash_f32_bwd_stream.cuh) at
+// DP 384 or 512, without a mask or ANY (causal, a bias, segment ids).
+cudaError_t stream_width(int d, bool masked, const Work& w, const Params& p,
+                         cudaStream_t s) {
+  if (d <= 384)
+    return masked ? run_stream<384, true>(w, p, s)
+                  : run_stream<384, false>(w, p, s);
+  return masked ? run_stream<512, true>(w, p, s)
+                : run_stream<512, false>(w, p, s);
+}
+
 // K3 (K6 with offsets) after its pre-pass: without a mask, masked (causal,
 // the position masks), or in the ANY form (a bias, segment ids; causal too).
 cudaError_t dispatch_dq(const void* q, const void* k, const void* v,
                         const void* g, const long long* st, void* work,
                         const Params& p, int d, bool masked, bool any,
                         cudaStream_t s) {
-  if (d < 4 || d > 256 || d % 4 != 0) return cudaErrorInvalidValue;
+  if (!takes(d)) return cudaErrorInvalidValue;
   const Work w = carve(work, p.B, p.H, p.Lq, p.Lk, d);
   cudaError_t err = split_dq(q, k, v, g, st, w, p, s);
   if (err != cudaSuccess) return err;
+  if (d > 256) return stream_width(d, masked, w, p, s);
   if (any) return any_width(d, true, w, p, s);
   return run_width(d, [&](auto width) {
     return launch_dq<decltype(width)::value>(w, p, masked, s);
@@ -270,10 +291,11 @@ cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
                          const void* g, const long long* st, void* work,
                          const Params& p, int d, bool masked, bool any,
                          cudaStream_t s) {
-  if (d < 4 || d > 256 || d % 4 != 0) return cudaErrorInvalidValue;
+  if (!takes(d)) return cudaErrorInvalidValue;
   const Work w = carve(work, p.B, p.H, p.Lq, p.Lk, d);
   cudaError_t err = split_dkv(q, k, v, g, st, w, p, s);
   if (err != cudaSuccess) return err;
+  if (d > 256) return stream_width(d, masked, w, p, s);
   if (any) return any_width(d, false, w, p, s);
   return run_width(d, [&](auto width) {
     return launch_dkv<decltype(width)::value>(w, p, masked, s);
@@ -300,7 +322,8 @@ PosArgs pos_args(const void* q_off, const void* k_off, int seg_q, int seg_k,
 // when not asked for. work: fp32 scratch of 2 B H d (2 Lq + 2 Lk + Lk8 +
 // 2 Lq8) floats (L8: L rounded up to 8), shared in layout with
 // fdsd_flash_bwd_dkv_f32. Every head dim up to 256 that is a multiple of 4,
-// in every form.
+// and every multiple of 8 from 264 to 512 (segment arrays at (64, 64)), in
+// every form.
 extern "C" int fdsd_flash_bwd_dq_f32(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dq, void* dbias, void* work,
@@ -323,8 +346,9 @@ extern "C" int fdsd_flash_bwd_dq_f32(
 // K4 in fp32. strides: 18 element strides, for q, k, v, dO, dk, dv, then
 // the bias's 4; the segment arrays at the tiles of the ANY kernel of the
 // head dim rounded up to 32 ((32 queries, 128 keys) at 32 and 64, (16, 64)
-// at 96 and 128, (32, 64) at 160, (16, 64) from 192); work as for
-// fdsd_flash_bwd_dq_f32.
+// at 96 and 128, (32, 64) at 160, (16, 64) from 192 to 256, (64, 64) above);
+// work as for fdsd_flash_bwd_dq_f32. Every head dim of fdsd_flash_bwd_dq_f32:
+// above 256 the dk and the dv blocks are one launch.
 extern "C" int fdsd_flash_bwd_dkv_f32(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dk, void* dv, void* work,
@@ -352,6 +376,7 @@ extern "C" int fdsd_flash_bwd_pos_dq_f32(
     const void* k_off, void* work, int B, int H, int Lq, int Lk, int d,
     const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
     int has_valid, int causal, void* stream) {
+  if (d > 256) return static_cast<int>(cudaErrorInvalidValue);
   Params p = bwd_params(lse, delta, dq, nullptr, B, H, Lq, Lk, d, strides,
                        scale);
   p.pos = pos_args(q_off, k_off, seg_q, seg_k, valid_len, has_valid, causal);
@@ -369,6 +394,7 @@ extern "C" int fdsd_flash_bwd_pos_dkv_f32(
     const void* k_off, void* work, int B, int H, int Lq, int Lk, int d,
     const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
     int has_valid, int causal, void* stream) {
+  if (d > 256) return static_cast<int>(cudaErrorInvalidValue);
   Params p = bwd_params(lse, delta, dk, dv, B, H, Lq, Lk, d, strides,
                        scale);
   p.pos = pos_args(q_off, k_off, seg_q, seg_k, valid_len, has_valid, causal);

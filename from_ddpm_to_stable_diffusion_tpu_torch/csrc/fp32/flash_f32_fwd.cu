@@ -1,11 +1,11 @@
 // Flash-attention forward on fp32 inputs for Hopper (sm_90a) on the tensor
-// cores: the fp32 form of K1 (every mask form at every head dim up to 256:
-// no mask, causal, an additive bias, segment ids, and their combinations;
-// no mask at 512) and of K5 (the position masks at every head dim up to
-// 256, online and bounded). Up to 160 the resident kernel of
-// flash_f32_fwd.cuh; head dims 161 to 256 and 512 run the streaming kernel of
-// flash_f32_fwd_wide.cuh (widths in flash_f32_fwd_w*.cu). This file holds
-// the split pre-pass, the d = 512 kernel, the dispatch and the C entries.
+// cores: the fp32 form of K1 (every mask form at every head dim up to 512:
+// no mask, causal, an additive bias, segment ids, and their combinations)
+// and of K5 (the position masks at every head dim up to 256, online and
+// bounded). Up to 160 the resident kernel of flash_f32_fwd.cuh; head dims
+// 161 to 512 run the streaming kernel of flash_f32_fwd_wide.cuh (widths in
+// flash_f32_fwd_w*.cu). This file holds the split pre-pass, the d = 512
+// kernel, the key-split merge, the dispatch and the C entries.
 //
 // Replaces, for fp32 q, k, v, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
@@ -91,14 +91,15 @@
 //    bias narrows the tail mask and never replaces it; a logit at -1e30 or
 //    -inf is selected to probability 0, so a row the bias hides whole gives
 //    out = 0 and lse = -1e30.
-//  - K1 at head dims 161 to 256 (widths 192, 224, 256) and 512
-//    (flash_f32_fwd_wide.cuh; flash_fwd_f32_wide_kernel and, at 512,
-//    flash_fwd_f32_d512_kernel): 64-query blocks whose Q, K and v^T terms
-//    all stream through three 64 KB slots, nothing resident; two consumers
-//    split S by keys and own half of the output columns each. Below 132
-//    query tiles the keys at d = 512 are split over up to kMaxSplits blocks
-//    (k1_d512_splits in ops/flash_attention.py) and merge_f32_d512_kernel
-//    merges them by their lse.
+//  - K1 at head dims 161 to 512 (widths 192, 224, 256, 384, 512;
+//    flash_f32_fwd_wide.cuh; flash_fwd_f32_wide_kernel and, at 512 without
+//    a mask, flash_fwd_f32_d512_kernel): 64-query blocks whose Q, K and v^T
+//    terms all stream through three 64 KB slots, nothing resident; two
+//    consumers split S by keys and own half of the output columns each.
+//    Above 256, below 132 query tiles, the keys are split over up to
+//    kMaxSplits blocks (k1_d512_splits in ops/flash_attention.py) and
+//    merge_f32_d512_kernel merges them by their lse; a split a row sees no
+//    key of (causal, segment ids) has weight 0.
 //  - The ANY form (K1 with a bias or segment ids, causal or not), at the
 //    head dim rounded up to 32 (32 - 160 resident, 192 - 256 streaming):
 //    every mask compiled in and chosen per launch. The bias is read from
@@ -137,14 +138,18 @@ flash_fwd_f32_d512_kernel(const __grid_constant__ CUtensorMap tq,
   fdsd::f32fwd::wide_body<DP, fdsd::f32fwd::kWidePlain>(tq, tk, tv, p);
 }
 
-// The key splits of one row, merged by their lse: out = sum_s w_s O_s with
-// w_s = exp(lse_s - lse), lse = log sum_s exp(lse_s). One block of 64
-// threads per row, 8 columns a thread.
-__global__ void __launch_bounds__(64)
+// The key splits of one row at width W (384 or 512), merged by their lse:
+// out = sum_s w_s O_s with w_s = exp(lse_s - lse), lse = log sum_s
+// exp(lse_s); a split at -1e30 (no key of it visible) has weight 0. One
+// block of W / 8 threads per row, 8 columns a thread; the columns past d are
+// not written.
+template <int W>
+__global__ void __launch_bounds__(W / 8)
 merge_f32_d512_kernel(const float* __restrict__ work, float* __restrict__ out,
-                      float* __restrict__ lse, int H, int Lq, int splits,
-                      long long rows, long long os0, long long os1,
-                      long long os2) {
+                      float* __restrict__ lse, int H, int Lq, int d,
+                      int splits, long long rows, long long os0,
+                      long long os1, long long os2) {
+  constexpr int DP = W;
   const long long row = blockIdx.x;
   const int bh = static_cast<int>(row / Lq), r = static_cast<int>(row % Lq);
   const int b = bh / H, h = bh % H;
@@ -167,6 +172,7 @@ merge_f32_d512_kernel(const float* __restrict__ work, float* __restrict__ out,
 #pragma unroll
   for (int s = 0; s < kMaxSplits; ++s) {
     if (s >= splits) break;
+    if (w[s] == 0.f) continue;  // its O / l is 0 (and never read as NaN)
     const float4* src =
         reinterpret_cast<const float4*>(work + (s * rows + row) * DP + col);
     const float4 a = src[0], c = src[1];
@@ -180,9 +186,13 @@ merge_f32_d512_kernel(const float* __restrict__ work, float* __restrict__ out,
     acc[6] += ws * c.z;
     acc[7] += ws * c.w;
   }
-  float* ob = out + b * os0 + h * os1 + r * os2 + col;
-  reinterpret_cast<float4*>(ob)[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  reinterpret_cast<float4*>(ob)[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  if (col < d) {
+    float* ob = out + b * os0 + h * os1 + r * os2 + col;
+    reinterpret_cast<float2*>(ob)[0] = make_float2(acc[0], acc[1]);
+    reinterpret_cast<float2*>(ob)[1] = make_float2(acc[2], acc[3]);
+    reinterpret_cast<float2*>(ob)[2] = make_float2(acc[4], acc[5]);
+    reinterpret_cast<float2*>(ob)[3] = make_float2(acc[6], acc[7]);
+  }
   if (threadIdx.x == 0) lse[row] = tot == 0.f ? kNegInf : mx + logf(tot);
 }
 }  // namespace d512
@@ -213,13 +223,14 @@ cudaError_t split_inputs(const void* q, const void* k, const void* v,
   return split_transposed(v, st + 6, w.vt, w.nv, B, H, Lk, d, s);
 }
 
-// K1 on the streaming kernel at width DP (192, 224, 256 in a WideForm; 512
-// without a mask, with its key splits and their merge).
+// K1 on the streaming kernel at width DP (192, 224, 256 in a WideForm; 384
+// and 512 without a mask, causal and ANY, with their key splits and the
+// merge).
 template <int DP>
 cudaError_t run_stream(const Work& w, const Params& q, int splits, int form,
                        cudaStream_t s) {
   using C = fdsd::f32fwd::WideCfg<DP>;
-  if (splits < 1 || splits > d512::kMaxSplits || (DP != 512 && splits > 1))
+  if (splits < 1 || splits > d512::kMaxSplits || (DP <= 256 && splits > 1))
     return cudaErrorInvalidValue;
   fdsd::f32fwd::WideParams p;
   p.out = q.out;
@@ -243,19 +254,21 @@ cudaError_t run_stream(const Work& w, const Params& q, int splits, int form,
   cudaError_t err = term_maps(&tq, &tk, &tv, w, q.B, q.H, q.Lq, q.Lk, q.d,
                               32, C::kBQ, C::kBK, C::kVRows);
   if (err != cudaSuccess) return err;
-  if constexpr (DP != 512) {
+  if constexpr (DP <= 256) {
     return fdsd::f32fwd::launch_wide<DP>(form, tq, tk, tv, p, s);
   } else {
-    if (form != fdsd::f32fwd::kWidePlain) return cudaErrorInvalidValue;
-    err = s9::launch_kernel(d512::flash_fwd_f32_d512_kernel,
-                            q.B * q.H * p.n_qt * splits,
-                            fdsd::f32fwd::kWideThreads, C::kSmemBytes, s, tq,
-                            tk, tv, p);
+    if (DP == 512 && form == fdsd::f32fwd::kWidePlain)
+      err = s9::launch_kernel(d512::flash_fwd_f32_d512_kernel,
+                              q.B * q.H * p.n_qt * splits,
+                              fdsd::f32fwd::kWideThreads, C::kSmemBytes, s,
+                              tq, tk, tv, p);
+    else
+      err = fdsd::f32fwd::launch_wide_k1<DP>(form, tq, tk, tv, p, s);
     if (err == cudaSuccess && splits > 1) {
-      d512::merge_f32_d512_kernel<<<static_cast<unsigned>(p.rows),
-                                     d512::DP / 8, 0, s>>>(
-          p.work, p.out, p.lse, q.H, q.Lq, splits, p.rows, p.os[0], p.os[1],
-          p.os[2]);
+      d512::merge_f32_d512_kernel<DP><<<static_cast<unsigned>(p.rows),
+                                         DP / 8, 0, s>>>(
+          p.work, p.out, p.lse, q.H, q.Lq, q.d, splits, p.rows, p.os[0],
+          p.os[1], p.os[2]);
       err = cudaGetLastError();
     }
     return err;
@@ -360,10 +373,11 @@ Params fwd_params(void* out, void* lse, int B, int H, int Lq, int Lk, int d,
 // form runs on (the resident kernel's (kBQ, kBK) at the head dim rounded
 // up to 32 up to 160, (64, 64) above), or null. work: fp32 scratch of
 // 2 B H (Lq + Lk) d + 2 B H d Lk8 floats (Lk8: Lk rounded up to 8), plus
-// splits * B * H * Lq * 513 at d = 512 with splits > 1 (1 to 4 key splits
+// splits * B * H * Lq * (DP + 1) above 256 with splits > 1 (1 to 4 key splits
 // per 64-query tile; ignored at other head dims). Every head dim up to 256
 // that is a multiple of 4 in every form (a bias alone at 64 on T5's staged
-// bias tile), 512 without a mask; others return cudaErrorInvalidValue.
+// bias tile), and every multiple of 8 from 264 to 512 in every form (at DP
+// 384 or 512); others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   void* out, void* lse, void* work,
                                   const void* bias, const void* q_ids,
@@ -376,18 +390,22 @@ extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p = fwd_params(out, lse, B, H, Lq, Lk, d, strides, scale);
   const Work w = carve(work, B, H, Lq, Lk, d);
-  const bool width = (d >= 4 && d <= 256 && d % 4 == 0) || d == 512;
+  const bool width = (d >= 4 && d <= 256 && d % 4 == 0) ||
+                     (d > 256 && d <= 512 && d % 8 == 0);
   const bool masks = bias != nullptr || q_ids != nullptr;
-  if (!width || (d == 512 && (causal || masks)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!width) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = split_inputs(q, k, v, strides, B, H, Lq, Lk, d, w, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (d == 512)  // the VAEs' mid attention
-    return static_cast<int>(run_stream<512>(w, p, splits, kWidePlain, s));
   p.pos.causal = causal != 0;  // the position mask with offsets 0
-  if (masks) {
+  if (masks)
     p.m = fdsd::make_mask_args(bias, strides + 12, 0, q_ids, kv_ids,
                                q_bounds, kv_bounds, lo, hi);
+  if (d > 256) {  // 512 without a mask: the VAEs' mid attention
+    const int form = masks ? kWideAny : causal ? kWideCausal : kWidePlain;
+    return static_cast<int>(d <= 384 ? run_stream<384>(w, p, splits, form, s)
+                                     : run_stream<512>(w, p, splits, form, s));
+  }
+  if (masks) {
     // T5's relative bias: the staged tile, 1.6 x faster than ANY's reads
     // from L2 at T5-XXL's (2, 64, 512, 512, 64) (PERF.md)
     if (q_ids == nullptr && !causal && d == 64)

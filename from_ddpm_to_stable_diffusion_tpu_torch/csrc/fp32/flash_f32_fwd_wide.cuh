@@ -3,11 +3,12 @@
 // rounded up to 32; the columns past d read as TMA's zeros and not written)
 // in four forms (WideForm: no mask; causal; ANY, the position masks, a bias
 // and segment ids chosen per launch; the position masks under the bounded
-// softmax), and at 512 without a mask (the VAEs' mid attention, with key
-// splits). The width kernels are instantiated a few to a
+// softmax), and K1 at 384 (head dims 257 to 384) and 512 (385 to 512)
+// without a mask, causal and ANY, with key splits (at 512 without a mask:
+// the VAEs' mid attention). The width kernels are instantiated a few to a
 // file in flash_f32_fwd_w*.cu, so that the build compiles them in parallel;
-// flash_f32_fwd.cu holds the d = 512 kernel, the split pre-pass, the tensor
-// maps and the C entry.
+// flash_f32_fwd.cu holds the d = 512 kernel, the key-split merge, the split
+// pre-pass, the tensor maps and the C entry.
 //
 // Replaces, for fp32 q, k, v at those head dims, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
@@ -577,8 +578,33 @@ cudaError_t launch_wide(int form, const CUtensorMap& tq,
   return cudaErrorInvalidValue;
 }
 
+// K1 above head dim 256 at the width DP (384: head dims 257 to 384; 512:
+// 385 to 512) in the WideForm `form`: without a mask at 384 (512's is
+// flash_fwd_f32_d512_kernel of flash_f32_fwd.cu), causal and ANY at both,
+// on B * H * n_qt * splits blocks (the key splits merged by the caller).
+template <int DP>
+cudaError_t launch_wide_k1(int form, const CUtensorMap& tq,
+                           const CUtensorMap& tk, const CUtensorMap& tv,
+                           const WideParams& p, cudaStream_t s) {
+  const int grid = p.B * p.H * p.n_qt * p.splits;
+  constexpr int kSmem = WideCfg<DP>::kSmemBytes;
+  if constexpr (DP != 512) {
+    if (form == kWidePlain)
+      return s9::launch_kernel(flash_fwd_f32_wide_kernel<DP, kWidePlain>,
+                               grid, kWideThreads, kSmem, s, tq, tk, tv, p);
+  }
+  if (form == kWideCausal)
+    return s9::launch_kernel(flash_fwd_f32_wide_kernel<DP, kWideCausal>, grid,
+                             kWideThreads, kSmem, s, tq, tk, tv, p);
+  if (form == kWideAny)
+    return s9::launch_kernel(flash_fwd_f32_wide_kernel<DP, kWideAny>, grid,
+                             kWideThreads, kSmem, s, tq, tk, tv, p);
+  return cudaErrorInvalidValue;
+}
+
 // The explicit instantiation of launch_wide<DP> (with `extern` before it: its
-// declaration); each width is instantiated in one flash_f32_fwd_w*.cu.
+// declaration); each width is instantiated in one flash_f32_fwd_w*.cu, as
+// launch_wide_k1<DP> at 384 and 512.
 #define FDSD_F32_FWD_WIDE(DP)                                               \
   template cudaError_t launch_wide<DP>(int, const CUtensorMap&,             \
                                        const CUtensorMap&, const CUtensorMap&, \
@@ -587,5 +613,11 @@ cudaError_t launch_wide(int form, const CUtensorMap& tq,
 #define FDSD_F32_FWD_EXTERN(DP) extern FDSD_F32_FWD_WIDE(DP)
 FDSD_F32_FWD_WIDTHS(FDSD_F32_FWD_EXTERN)
 #undef FDSD_F32_FWD_EXTERN
+#define FDSD_F32_FWD_K1(DP)                                                 \
+  template cudaError_t launch_wide_k1<DP>(                                  \
+      int, const CUtensorMap&, const CUtensorMap&, const CUtensorMap&,      \
+      const WideParams&, cudaStream_t);
+extern FDSD_F32_FWD_K1(384)
+extern FDSD_F32_FWD_K1(512)
 
 }  // namespace fdsd::f32fwd

@@ -517,12 +517,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // K-major (TRANS_B = 0: N rows with the reduction along the row, as K of
 // S = Q K^T) or MN-major (TRANS_B = 1: rows of the reduction, as V of
 // O = P V, read as it lies). scale_d = 0 overwrites D. N 32, 64, 128, 256,
-// and 80, 96, 112 (half of K4's widths 160, 192, 224).
+// 80, 96, 112 (half of K4's widths 160, 192, 224), 16 (a consumer's half of
+// a 32-row tile above head dim 256) and 192 (half of the width 384).
 template <int N, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 80 || N == 96 || N == 112 ||
-                    N == 128 || N == 256,
+  static_assert(N == 16 || N == 32 || N == 64 || N == 80 || N == 96 ||
+                    N == 112 || N == 128 || N == 192 || N == 256,
                 "wgmma_ss: N");
 // SHAPE, the accumulators' list and their constraints, then the operand
 // numbers of the setp (scale_d), of desc_a, desc_b and of TRANS_B.
@@ -532,7 +533,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                ", " OPS ", p, 1, 1, 0, " T ";\n}\n"                          \
                : F                                                           \
                : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B))
-  if constexpr (N == 32) {
+  if constexpr (N == 16) {
+    FDSD_BF16_SS("m64n16k16", FDSD_RL8, FDSD_FL8, "%10", "%8, %9", "%11");
+  } else if constexpr (N == 32) {
     FDSD_BF16_SS("m64n32k16", FDSD_R16, FDSD_F16, "%18", "%16, %17", "%19");
   } else if constexpr (N == 64) {
     FDSD_BF16_SS("m64n64k16", FDSD_R32, FDSD_F32, "%34", "%32, %33", "%35");
@@ -548,6 +551,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
   } else if constexpr (N == 128) {
     FDSD_BF16_SS("m64n128k16", FDSD_R64, FDSD_F64, "%66", "%64, %65",
                  "%67");
+  } else if constexpr (N == 192) {
+    FDSD_BF16_SS("m64n192k16", FDSD_RL96, FDSD_FL96, "%98", "%96, %97",
+                 "%99");
   } else {
     FDSD_BF16_SS("m64n256k16", FDSD_R128, FDSD_F128, "%130", "%128, %129",
                  "%131");

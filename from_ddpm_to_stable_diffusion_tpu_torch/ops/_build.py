@@ -4,9 +4,11 @@ them: ``csrc/*.cu`` (the bf16 flash kernels and GroupNorm) and
 ``csrc/sm90.cuh`` and ``csrc/pos_tile.cuh``), each at its own first use, so
 that a bf16 caller never waits for the fp32 build. The bf16 flash kernels
 K1, K3 and K4 keep their templates in a header each
-(``flash_attention{,_dq,_bwd}_sm90.cuh``), as do the fp32 K1 above head
+(``flash_attention{,_dq,_bwd}_sm90.cuh``; K3 and K4 above head dim 256
+``flash_attention_wide_bwd_sm90.cuh``), as do the fp32 K1 above head
 dim 160 (``fp32/flash_f32_fwd_wide.cuh``) and K3 and K4 above 128
-(``fp32/flash_f32_bwd.cuh``), and instantiate their head-dim widths in
+(``fp32/flash_f32_bwd.cuh``; above 256 ``fp32/flash_f32_bwd_stream.cuh``),
+and instantiate their head-dim widths in
 several small sources (``*_w*.cu``), so that the instantiations compile in
 parallel.
 
@@ -44,9 +46,10 @@ _SIGNATURES = {
     # q, k, v, out, lse, masks[7], B, H, Lq, Lk, d, strides[12 + 4], scale,
     # causal, bias_bf16, stream
     "fdsd_flash_fwd": [_P] * 5 + [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I, _P],
-    # q, k, v, out, lse, work, B, H, Lq, Lk, strides[12], scale, splits,
-    # stream: K1 at head dim 512
-    "fdsd_flash_fwd_d512": [_P] * 6 + [_I] * 4 + [_P, _F, _I, _P],
+    # q, k, v, out, lse, work, masks[7], B, H, Lq, Lk, d, strides[12 + 4],
+    # scale, causal, bias_bf16, splits, stream: K1 above head dim 256
+    "fdsd_flash_fwd_d512": [_P] * 6 + [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I,
+                                                              _I, _P],
     # q, k, v, dO, lse, delta, dq, dbias, masks[7], B, H, Lq, Lk, d,
     # strides[15 + 4], scale, causal, bias_bf16, stream
     "fdsd_flash_bwd_dq": [_P] * 8 + [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I,

@@ -5,19 +5,21 @@ on them (port of ``ops/flash_attention.py``).
 Forward: on CUDA tensors :func:`flash_attention_forward` launches K1, which
 stands in for both Pallas forward bodies of the JAX package
 (``_fwd_kernel_wide`` and ``_fwd_kernel``): in bf16 the TMA / wgmma kernel of
-``csrc/flash_attention_sm90.cuh`` at every head dim from 1 to 256, and at 512
-the TMA / wgmma kernel of ``csrc/flash_attention.cu``, whose keys the host
-splits over several blocks when the query tiles alone would not fill the
-card (:func:`k1_route`, :func:`k1_d512_splits`). On CPU tensors it runs
-:func:`flash_attention_plain`. Same contract as the JAX forward: ``out`` in
-the input dtype with shape (B, H, Lq, D), ``lse`` fp32 with shape
-(B, H, Lq).
+``csrc/flash_attention_sm90.cuh`` at every head dim from 1 to 256, and from
+257 to 512 the TMA / wgmma kernel of ``csrc/flash_attention.cu``, whose keys
+the host splits over several blocks when the query tiles alone would not
+fill the card (:func:`k1_route`, :func:`k1_d512_splits`). On CPU tensors it
+runs :func:`flash_attention_plain`. Same contract as the JAX forward:
+``out`` in the input dtype with shape (B, H, Lq, D), ``lse`` fp32 with
+shape (B, H, Lq).
 
 Backward: :func:`flash_attention_backward` launches K3 (dq, the Pallas
 ``_bwd_dq_kernel``: in bf16 the TMA / wgmma kernel of
 ``csrc/flash_attention_dq_sm90.cuh``, :func:`k3_route`) and K4 (dk with dv,
 the Pallas ``_bwd_dkv_kernel``: in bf16 the TMA / wgmma kernel of
-``csrc/flash_attention_bwd_sm90.cuh``, :func:`k4_route`) on CUDA tensors and
+``csrc/flash_attention_bwd_sm90.cuh``, :func:`k4_route`); from head dim 257
+to 512 both are the TMA / wgmma kernel of
+``csrc/flash_attention_wide_bwd_sm90.cuh`` (route "wide"), on CUDA tensors and
 runs :func:`flash_attention_bwd_plain` on CPU tensors. Both recompute the
 probabilities under the forward's saved lse; delta = Σ dO·out is a plain
 fp32 reduction, as the JAX package computes it in XLA.
@@ -56,14 +58,16 @@ dq kernel's dS tiles), ``causal`` (col <= row from index 0 on both sides) and
 ``segment_ids`` with tile skipping from per-tile id ranges, built at the
 launching kernel's own tiles (:func:`_k1_tiles`, :func:`_dq_tiles`,
 :func:`_dkv_tiles` in bf16, :func:`_f32_tiles` in fp32); they compose, in
-both dtypes at every head dim from 1 to 256. A row that sees no key gives
-out = 0 and lse = -1e30, and the backward selects masked probabilities to
-0.
+both dtypes at every head dim from 1 to 512 (K5, K6, K7: 1 to 256). A row
+that sees no key gives out = 0 and lse = -1e30, and the backward selects
+masked probabilities to 0.
 
-Head dims: every kernel takes every head dim from 1 to 256 (K1 also 512).
-The kernels pad the head dim to their width with TMA's zero fill (to a
+Head dims: every kernel takes every head dim from 1 to 256, and K1, K3 and
+K4 every head dim from 257 to 512, in every form and both dtypes. The
+kernels pad the head dim to their width with TMA's zero fill (to a
 multiple of 16; above 128 K4, and K3 in fp32, and above 160 K1 in fp32, to a
-multiple of 32; the fp32 mask forms to a multiple of 32). A head dim that is
+multiple of 32; the fp32 mask forms to a multiple of 32; above 256 to 384 or
+512, :func:`_wide_width`, in both dtypes). A head dim that is
 not a multiple of 8 cannot meet TMA's 16-byte strides, so the wrappers
 append zero columns to q, k, v (and dO) up to the next multiple of 8, pass
 the scale of the original head dim, and cut out, dq, dk and dv back to it:
@@ -84,13 +88,17 @@ blocks (``csrc/fp32/flash_f32_bwd.cuh``), whose shared memory together
 holds the resident split tiles that one block's no longer does. K1 above
 160, where the forward's resident Q tile no longer fits, streams every
 split tile through a ring of slots instead
-(``csrc/fp32/flash_f32_fwd_wide.cuh``, as at 512). In fp32 a bias, dbias
+(``csrc/fp32/flash_f32_fwd_wide.cuh``, up to 512), and so do K3 and K4
+above 256 (``csrc/fp32/flash_f32_bwd_stream.cuh``). In fp32 a bias, dbias
 and segment ids run on the same kernels in an ``ANY`` form (every mask
 compiled in, chosen per launch; the bias read from global memory, except
 T5's bias alone at 64, which keeps its staged tile), at the head dim
 rounded up to 32; K5 / K6 / K7 run the masked forms. The fp32 forms are a
 shared library of their own, built when an fp32 launch first asks for it.
-A head dim above 256 (and a mask at 512) raises ``NotImplementedError``.
+Above 256, K3 and K4 in both dtypes are one kernel each that owns 64 rows
+a block (queries for dq, keys for dk and dv; K4's dk and dv blocks in one
+launch, each recomputing the tile's logits). A head dim above 512 (above
+256 for K5, K6, K7) raises ``NotImplementedError``.
 Each wrapper counts its launches by dtype in ``.dtypes`` beside
 ``.launches``; each, as it runs more than one kernel, also by kernel in
 ``.routes``, and by head dim in ``.head_dims``.
@@ -110,17 +118,21 @@ from . import _build
 # Every kernel takes every head dim up to _MAX_HEAD_DIM in every form, in
 # bf16 and in fp32 (the fp32 forms on the tensor cores, a TF32 split; 8: the
 # ``checks sd1`` UNet, SD1UNet(model_channels=64) with 8 heads, runs its
-# 32^2 level in fp32), and K1 also 512 without a mask (the d512 kernels)
-_MAX_HEAD_DIM, _D512 = 256, 512
+# 32^2 level in fp32); K1, K3 and K4 also every head dim up to _MAX_WIDE in
+# every form (the wide kernels, at the padded widths _WIDE_WIDTHS)
+_MAX_HEAD_DIM, _MAX_WIDE = 256, 512
+_WIDE_WIDTHS = (384, 512)
 NEG_INF = -1e30   # lse of a row with no visible key
 # (query tile, key tile) of K1, K3 and K4 (the sm90 kernels) at head dims up
 # to 128: the sizes the segment-id tile bounds and ranges handed to each
 # kernel are built at; wider widths halve the key tile (_k1_tiles,
 # _dq_tiles, _dkv_tiles)
 _FWD_TILES, _DQ_TILES, _DKV_TILES = (128, 128), (128, 64), (64, 128)
-# K1 at head dim 512 (bf16 and fp32): 64-query blocks, 64-key tiles, at most
-# 4 key splits
+# K1 above head dim 256 (bf16 and fp32): 64-query blocks, 64-key tiles, at
+# most 4 key splits; K3 and K4 above 256 in bf16: 64 rows a block, tiles of
+# 32 of the other axis (queries, keys for dq; keys, queries for dk / dv)
 _D512_TILE, _D512_MAX_SPLITS = 64, 4
+_WIDE_BWD_TILES = (64, 32)
 # The fp32 forward (csrc/fp32/flash_f32_fwd.cu): TF32 passes per product, and
 # the group of keys v's transposed terms are padded to (and permuted within)
 _F32_PASSES, _F32_KEY_GROUP = 3, 8
@@ -136,17 +148,29 @@ def _width(d: int, step: int = 16) -> int:
     return _cdiv(d, step) * step
 
 
+def _wide_width(d: int) -> int:
+    """The padded width the kernels above head dim 256 (K1, K3, K4, both
+    dtypes) run ``d`` at: 384 up to 384, else 512."""
+    return next(w for w in _WIDE_WIDTHS if d <= w)
+
+
 def _k1_tiles(d: int, masked: bool) -> tuple:
     """K1's (query tile, key tile) at head dim ``d`` (the Cfg of
     ``csrc/flash_attention_sm90.cuh``): 128 keys up to DP = 160 (up to 128 in
-    a masked form, whose bias tile takes 64 KB), 64 above."""
+    a masked form, whose bias tile takes 64 KB), 64 above; above 256 the
+    wide kernel of ``csrc/flash_attention.cu``: (64, 64)."""
+    if d > _MAX_HEAD_DIM:
+        return _D512_TILE, _D512_TILE
     dp = _width(d)
     wide = dp > (128 if masked else 160)
     return _FWD_TILES[0], _FWD_TILES[1] // 2 if wide else _FWD_TILES[1]
 
 
 def _dq_tiles(d: int) -> tuple:
-    """K3's (query tile, key tile): 64 keys up to DP = 192, 32 above."""
+    """K3's (query tile, key tile): 64 keys up to DP = 192, 32 above; above
+    256 the wide kernel's (64, 32)."""
+    if d > _MAX_HEAD_DIM:
+        return _WIDE_BWD_TILES
     wide = _width(d) > 192
     return _DQ_TILES[0], _DQ_TILES[1] // 2 if wide else _DQ_TILES[1]
 
@@ -158,7 +182,10 @@ def _dkv_width(d: int) -> int:
 
 
 def _dkv_tiles(d: int) -> tuple:
-    """K4's (query tile, key tile): 128 keys up to DP = 128, 64 above."""
+    """K4's (query tile, key tile): 128 keys up to DP = 128, 64 above; above
+    256 the wide kernel's (32, 64)."""
+    if d > _MAX_HEAD_DIM:
+        return _WIDE_BWD_TILES[::-1]
     wide = _dkv_width(d) > 128
     return _DKV_TILES[0], _DKV_TILES[1] // 2 if wide else _DKV_TILES[1]
 
@@ -171,7 +198,10 @@ def _f32_tiles(kernel: str, d: int) -> tuple:
     queries up to 128, 64 at 160; 64 keys below 80, 32 from it), the
     streaming one above 160 (64, 64); K3: 128 queries up to 64, 64 above,
     32 keys (16 above 192 on the block pairs); K4: 128 keys up to 64, 64
-    above, 32 queries up to 64, 16 to 128, 32 at 160 and 16 above."""
+    above, 32 queries up to 64, 16 to 128, 32 at 160 and 16 above. Above
+    256 the streaming kernels: (64, 64) for all three."""
+    if d > _MAX_HEAD_DIM:
+        return 64, 64
     dp = _width(d, 32)
     if kernel == "k1":
         if dp > 160:
@@ -518,67 +548,70 @@ def _check_dtype(dtype):
         raise TypeError(f"the flash kernels take bf16 or fp32, not {dtype}")
 
 
-def _check_head_dim(fn, d: int, d512: bool = False) -> None:
-    """Raises unless 1 <= ``d`` <= 256 (or, with ``d512``, ``d`` = 512)."""
-    if not (1 <= d <= _MAX_HEAD_DIM or (d512 and d == _D512)):
+def _check_head_dim(fn, d: int, wide: bool = False) -> None:
+    """Raises unless 1 <= ``d`` <= 256 (with ``wide``: 512)."""
+    most = _MAX_WIDE if wide else _MAX_HEAD_DIM
+    if not 1 <= d <= most:
         raise NotImplementedError(
-            f"head dim {d}: {fn} takes head dims 1 to {_MAX_HEAD_DIM}"
-            + (f" and {_D512}" if d512 else ""))
+            f"head dim {d}: {fn} takes head dims 1 to {most}")
 
 
 def k1_route(dtype, d: int, causal: bool = False, bias: bool = False,
              segments: bool = False) -> str:
-    """Which K1 kernel a CUDA launch of this dtype, head dim and form runs:
-    "sm90" (``csrc/flash_attention_sm90.cuh``, TMA and wgmma: bf16 at every
-    head dim from 1 to 256 in every form), "d512" (the TMA / wgmma kernel of
-    ``csrc/flash_attention.cu``, bf16 at 512 without a mask) or "fp32"
-    (``csrc/fp32/flash_f32_fwd.cu``: TMA and TF32 wgmma, three passes; at
-    every head dim up to 256 in every form, up to 160 with Q resident
+    """Which K1 kernel a CUDA launch of this dtype, head dim and form runs,
+    at every head dim from 1 to 512 in every form: "sm90"
+    (``csrc/flash_attention_sm90.cuh``, TMA and wgmma: bf16 up to 256),
+    "d512" (the TMA / wgmma kernel of ``csrc/flash_attention.cu``: bf16 from
+    257 to 512, at the padded width 384 or 512, with the keys split as
+    :func:`k1_d512_splits` says) or "fp32" (``csrc/fp32/flash_f32_fwd.cu``:
+    TMA and TF32 wgmma, three passes; up to 160 with Q resident
     (``flash_f32_fwd.cuh``), above on the streaming kernel of
-    ``flash_f32_fwd_wide.cuh``, and at 512 without a mask with the keys
-    split as :func:`k1_d512_splits` says). Raises ``NotImplementedError``
-    naming what the kernels take for any other."""
-    fn = "flash_attention_cuda"
+    ``flash_f32_fwd_wide.cuh``, from 257 with key splits too). Raises
+    ``NotImplementedError`` naming what the kernels take above 512."""
     _check_dtype(dtype)
-    _check_head_dim(fn, d, d512=True)
-    if d == _D512 and (causal or bias or segments):
-        raise NotImplementedError(
-            f"head dim {d}: {fn} takes no mask at 512; the masked forms take "
-            f"head dims 1 to {_MAX_HEAD_DIM}")
+    _check_head_dim("flash_attention_cuda", d, wide=True)
     if dtype == torch.float32:
         return "fp32"
-    return "d512" if d == _D512 else "sm90"
+    return "d512" if d > _MAX_HEAD_DIM else "sm90"
 
 
 def _bwd_route(fn, dtype, d: int, causal: bool, bias: bool,
                segments: bool) -> str:
-    """The route of K3 or K4, whatever its masks: "sm90" for bf16 and "fp32"
-    for fp32, at every head dim from 1 to 256; raises for any other."""
+    """The route of K3 or K4, whatever its masks: for bf16 "sm90" up to 256
+    and "wide" from 257 to 512, "fp32" for fp32 up to 512; raises for any
+    other."""
     _check_dtype(dtype)
-    _check_head_dim(fn, d)
-    return "fp32" if dtype == torch.float32 else "sm90"
+    _check_head_dim(fn, d, wide=True)
+    if dtype == torch.float32:
+        return "fp32"
+    return "wide" if d > _MAX_HEAD_DIM else "sm90"
 
 
 def k3_route(dtype, d: int, causal: bool = False, bias: bool = False,
              segments: bool = False) -> str:
-    """Which K3 kernel a CUDA launch of this dtype, head dim and form runs:
-    "sm90" (``csrc/flash_attention_dq_sm90.cuh``, TMA and wgmma: bf16 at
-    every head dim from 1 to 256 in every form) or "fp32" (the TF32 kernels
-    of ``csrc/fp32/flash_f32_bwd.cuh``, one block up to 128, two from 129 to
-    256, in every form; with a bias also dbias). Raises
-    ``NotImplementedError`` naming what the kernels take for any other."""
+    """Which K3 kernel a CUDA launch of this dtype, head dim and form runs,
+    at every head dim from 1 to 512 in every form (with a bias also dbias):
+    "sm90" (``csrc/flash_attention_dq_sm90.cuh``, TMA and wgmma: bf16 up to
+    256), "wide" (``csrc/flash_attention_wide_bwd_sm90.cuh``, TMA and wgmma:
+    bf16 from 257 to 512 at the padded width 384 or 512) or "fp32" (TF32
+    kernels: ``csrc/fp32/flash_f32_bwd.cuh``, one block up to 128, two from
+    129 to 256; ``csrc/fp32/flash_f32_bwd_stream.cuh`` from 257 to 512).
+    Raises ``NotImplementedError`` naming what the kernels take above
+    512."""
     return _bwd_route("flash_attention_bwd_dq_cuda", dtype, d, causal, bias,
                       segments)
 
 
 def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
              segments: bool = False) -> str:
-    """Which K4 kernel a CUDA launch of this dtype, head dim and form runs:
-    "sm90" (``csrc/flash_attention_bwd_sm90.cuh``, TMA and wgmma: bf16 at
-    every head dim from 1 to 256 in every form) or "fp32" (the TF32 kernels
-    of ``csrc/fp32/flash_f32_bwd.cuh``, one block up to 128, two from 129 to
-    256, in every form). Raises ``NotImplementedError`` naming what the
-    kernels take for any other."""
+    """Which K4 kernel a CUDA launch of this dtype, head dim and form runs,
+    at every head dim from 1 to 512 in every form: "sm90"
+    (``csrc/flash_attention_bwd_sm90.cuh``, TMA and wgmma: bf16 up to 256),
+    "wide" (``csrc/flash_attention_wide_bwd_sm90.cuh``: bf16 from 257 to
+    512, the dk and the dv blocks in one launch) or "fp32" (TF32 kernels:
+    ``csrc/fp32/flash_f32_bwd.cuh`` up to 256,
+    ``csrc/fp32/flash_f32_bwd_stream.cuh`` above). Raises
+    ``NotImplementedError`` naming what the kernels take above 512."""
     return _bwd_route("flash_attention_bwd_dkv_cuda", dtype, d, causal, bias,
                       segments)
 
@@ -630,10 +663,12 @@ def k7_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
 
 
 def k1_d512_splits(b: int, h: int, lq: int, lk: int, n_sm: int) -> int:
-    """How many blocks share the keys of one 64-query tile in the d = 512
-    kernels (bf16 and fp32): 1 when the B·H·⌈Lq/64⌉ query tiles fill the ``n_sm`` SMs, else as
-    many as fit beside them (at most 4, at most one per 64-key tile), so
-    that no split is left without a key tile."""
+    """How many blocks share the keys of one 64-query tile in K1's kernels
+    above head dim 256 (bf16 and fp32; every form, a split that a row sees
+    no key of weighing 0 in the merge): 1 when the B·H·⌈Lq/64⌉ query
+    tiles fill the ``n_sm`` SMs, else as many as fit beside them (at most
+    4, at most one per 64-key tile), so that no split is left without a key
+    tile."""
     tiles = b * h * _cdiv(lq, _D512_TILE)
     n_kt = _cdiv(lk, _D512_TILE)
     want = max(1, min(_D512_MAX_SPLITS, n_sm // tiles, n_kt))
@@ -644,12 +679,13 @@ def f32_forward_work(b: int, h: int, lq: int, lk: int, d: int,
                      splits: int = 1) -> int:
     """Floats of the fp32 forward's workspace: the hi / lo terms of q
     (2, B, H, Lq, d), k (2, B, H, Lk, d) and v transposed (2, B, H, d, Lk8),
-    Lk8 = Lk rounded up to ``_F32_KEY_GROUP``; at d = 512 with key splits
-    also the partial outputs and lse (splits, B·H·Lq, 513)."""
+    Lk8 = Lk rounded up to ``_F32_KEY_GROUP``; above head dim 256 with key
+    splits also the partial outputs and lse (splits, B·H·Lq, DP + 1), DP
+    the padded width (:func:`_wide_width`)."""
     lk8 = _cdiv(lk, _F32_KEY_GROUP) * _F32_KEY_GROUP
     n = 2 * b * h * d * (lq + lk + lk8)
-    if d == 512 and splits > 1:
-        n += splits * b * h * lq * 513
+    if d > _MAX_HEAD_DIM and splits > 1:
+        n += splits * b * h * lq * (_wide_width(d) + 1)
     return n
 
 
@@ -691,7 +727,7 @@ def flash_attention_cuda(q, k, v, scale: Optional[float] = None, *,
                          bias=None, segment_ids=None, causal: bool = False):
     """K1, the CUDA kernel: (out, lse) for bf16 or fp32 (B, H, L, D) CUDA
     tensors, with the masks of :func:`flash_attention_plain`, at every head
-    dim from 1 to 256 (and 512 without a mask). A head dim that is not a
+    dim from 1 to 512. A head dim that is not a
     multiple of 8 is padded with zero columns and ``out`` cut back
     (:func:`_pad_head_dim`). Which kernel runs: :func:`k1_route`; launches
     are counted by route in ``.routes`` and by head dim in
@@ -729,7 +765,7 @@ def _k1_fp32(q, k, v, scale, bias, segment_ids, causal):
     lse = _lse_like(q)
     strides = _strides(q, k, v, out, bias=bias)
     splits = (k1_d512_splits(b, h, lq, lk, _sm_count(q.device))
-              if d == _D512 else 1)
+              if d > _MAX_HEAD_DIM else 1)
     work = _f32_work(q, lk, splits)
     err = _build.load("kernels_fp32").fdsd_flash_fwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -741,12 +777,13 @@ def _k1_fp32(q, k, v, scale, bias, segment_ids, causal):
 
 
 def _k1_d512(q, k, v, scale, bias, segment_ids, causal):
-    """K1 at head dim 512 in bf16 (no mask), its keys split as
+    """K1 above head dim 256 in bf16, every form, its keys split as
     :func:`k1_d512_splits` says."""
     b, h, lq, _ = q.shape
     splits = k1_d512_splits(b, h, lq, k.shape[2], _sm_count(q.device))
     return _flash_fwd_d512(*(_tma_operand(x) for x in (q, k, v)), scale,
-                           splits)
+                           splits, bias=bias, segment_ids=segment_ids,
+                           causal=causal)
 
 
 def _k1_sm90(q, k, v, scale, bias, segment_ids, causal):
@@ -769,23 +806,30 @@ def _k1_sm90(q, k, v, scale, bias, segment_ids, causal):
     return out, lse
 
 
-def _flash_fwd_d512(q, k, v, scale: float, splits: int):
-    """(out, lse) from the d = 512 kernel with its keys split over
-    ``splits`` blocks per query tile (1 to 4; with more than one, an fp32
-    workspace of partial outputs that a second kernel merges by their lse).
-    q, k, v: bf16 CUDA (B, H, L, 512), checked by the caller."""
-    b, h, lq, _ = q.shape
+def _flash_fwd_d512(q, k, v, scale: float, splits: int, *, bias=None,
+                    segment_ids=None, causal: bool = False):
+    """(out, lse) from the kernel above head dim 256 (``csrc/
+    flash_attention.cu``, at the padded width 384 or 512) with its keys
+    split over ``splits`` blocks per query tile (1 to 4; with more than one,
+    an fp32 workspace of partial outputs that a second kernel merges by
+    their lse), in the form the masks ask for. q, k, v: bf16 CUDA
+    (B, H, L, d), d a multiple of 8 from 264 to 512, checked by the
+    caller."""
+    b, h, lq, d = q.shape
     lk = k.shape[2]
+    bias, ptrs, flags, _held = _mask_args(q, lk, bias, segment_ids, causal,
+                                          _k1_tiles(d, True), "q")
     out = _blhd(q, lq)
     lse = _lse_like(q)
-    work = (torch.empty(splits * b * h * lq * 513, device=q.device,
-                        dtype=torch.float32) if splits > 1 else None)
-    strides = _strides(q, k, v, out)
+    work = (torch.empty(splits * b * h * lq * (_wide_width(d) + 1),
+                        device=q.device, dtype=torch.float32)
+            if splits > 1 else None)
+    strides = _strides(q, k, v, out, bias=bias)
     err = _build.load().fdsd_flash_fwd_d512(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), None if work is None else work.data_ptr(), b, h, lq,
-        lk, ctypes.cast(strides, ctypes.c_void_p), float(scale), int(splits),
-        _stream(q))
+        lse.data_ptr(), None if work is None else work.data_ptr(), *ptrs, b,
+        h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p), float(scale),
+        *flags, int(splits), _stream(q))
     _build.check(err, "fdsd_flash_fwd_d512")
     return out, lse
 
@@ -874,7 +918,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
     if need_dbias and bias is None:
         raise ValueError("need_dbias without a bias")
     qp, kp, vp, gp = _pad_head_dim(q, k, v, g)
-    launch = _bwd_sm90 if route == "sm90" else _bwd_fp32
+    launch = _bwd_fp32 if route == "fp32" else _bwd_sm90
     dq, ds = launch(qp, kp, vp, gp, lse, delta, scale, bias, segment_ids,
                     causal, need_dbias, dq=True)
     _count_launch(flash_attention_bwd_dq_cuda, q, bias, segment_ids, causal,
@@ -886,8 +930,9 @@ def flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta,
 
 def _bwd_sm90(q, k, v, g, lse, delta, scale, bias, segment_ids, causal,
               need_dbias=False, dq=True):
-    """K3 (``dq``: (dq, dS or None)) or K4 ((dk, dv)) on the sm90 kernels
-    in bf16, every form; q, k, v, dO checked and padded by the caller."""
+    """K3 (``dq``: (dq, dS or None)) or K4 ((dk, dv)) on the bf16 kernels
+    (the C entries send head dims above 256 to the wide kernel), every
+    form; q, k, v, dO checked and padded by the caller."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     q, k, v, g = (_tma_operand(x) for x in (q, k, v, g))
@@ -924,7 +969,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta,
                      segment_ids is not None)
     scale = float(d ** -0.5 if scale is None else scale)
     qp, kp, vp, gp = _pad_head_dim(q, k, v, g)
-    launch = _bwd_sm90 if route == "sm90" else _bwd_fp32
+    launch = _bwd_fp32 if route == "fp32" else _bwd_sm90
     dk, dv = launch(qp, kp, vp, gp, lse, delta, scale, bias, segment_ids,
                     causal, dq=False)
     _count_launch(flash_attention_bwd_dkv_cuda, q, bias, segment_ids, causal,

@@ -5,14 +5,16 @@ Which kernel a CUDA launch of K3 (dq) or K4 (dk, dv) runs is decided in
 Python before anything reaches the card (``k3_route``, ``k4_route``): the
 TMA / wgmma kernels of ``csrc/flash_attention_dq_sm90.cuh`` and
 ``csrc/flash_attention_bwd_sm90.cuh`` for bf16 at every head dim from 1 to
-256 in every form, the fp32 library for fp32 without a mask or causal (its
-TF32 kernels: one block up to 128, a cluster of two blocks above); every
-other (dtype, head dim, form) raises before a launch. The segment-id ranges
-the wrapper builds must be at each kernel's tiles, and the workspace the
-wrapper allocates for the fp32 forward must match the source's layout. At head dim 512 the host
-splits the keys of K1 over up to four blocks per 64-query tile when the
-query tiles alone do not fill the card (``k1_d512_splits``). The kernels
-themselves are tested on the card (``tests/test_torch_cuda_kernels.py``).
+256 in every form, that of ``csrc/flash_attention_wide_bwd_sm90.cuh`` from
+257 to 512 ("wide"), the fp32 library for fp32 in every form up to 512 (its
+TF32 kernels: one block up to 128, a cluster of two blocks to 256, the
+streaming kernel above); every other (dtype, head dim) raises before a
+launch. The segment-id ranges the wrapper builds must be at each kernel's
+tiles, and the workspace the wrapper allocates for the fp32 forward must
+match the source's layout. Above head dim 256 the host splits the keys of
+K1 over up to four blocks per 64-query tile when the query tiles alone do
+not fill the card (``k1_d512_splits``). The kernels themselves are tested
+on the card (``tests/test_torch_cuda_kernels.py``).
 """
 
 import re
@@ -37,9 +39,11 @@ H100_SMS = 132
 def _want_bwd(dtype, d, form):
     """The route the port's contract gives, or the exception it raises."""
     causal, bias, seg = FORMS[form]
-    if not 1 <= d <= 256:
+    if not 1 <= d <= 512:
         return NotImplementedError
-    return "fp32" if dtype == F32 else "sm90"
+    if dtype == F32:
+        return "fp32"
+    return "wide" if d > 256 else "sm90"
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))
@@ -71,7 +75,7 @@ def test_k3_route_by_dtype_head_dim_and_form(dtype, d, form):
         assert tfa.k3_route(dtype, d, causal, bias, seg) == want
 
 
-@pytest.mark.parametrize("d", [0, 257, 512])
+@pytest.mark.parametrize("d", [0, 513, 1024])
 def test_k3_route_refuses_other_head_dims_and_dtypes(d):
     for dtype in (BF16, F32):
         with pytest.raises(NotImplementedError, match=str(d)):
@@ -80,7 +84,7 @@ def test_k3_route_refuses_other_head_dims_and_dtypes(d):
         tfa.k3_route(torch.float16, 64)
 
 
-@pytest.mark.parametrize("d", [0, 257, 512])
+@pytest.mark.parametrize("d", [0, 513, 1024])
 def test_k4_route_refuses_other_head_dims_and_dtypes(d):
     for dtype in (BF16, F32):
         with pytest.raises(NotImplementedError, match=str(d)):
@@ -91,16 +95,16 @@ def test_k4_route_refuses_other_head_dims_and_dtypes(d):
 
 @pytest.mark.parametrize("form", sorted(FORMS))
 def test_k1_route_at_head_dim_512(form):
-    """bf16 at d = 512 takes the d512 kernel without a mask and raises with
-    one; fp32 takes the fp32 library without a mask."""
+    """bf16 at d = 512 takes the d512 kernel (``csrc/flash_attention.cu``)
+    in every form, as at every head dim from 257; fp32 the fp32 library;
+    above 512 every form raises naming what the kernels take."""
     causal, bias, seg = FORMS[form]
-    if form == "none":
-        assert tfa.k1_route(BF16, 512) == "d512"
-        assert tfa.k1_route(F32, 512) == "fp32"
-        return
+    for d in (257, 300, 384, 385, 512):
+        assert tfa.k1_route(BF16, d, causal, bias, seg) == "d512"
+        assert tfa.k1_route(F32, d, causal, bias, seg) == "fp32"
     for dtype in (BF16, F32):
         with pytest.raises(NotImplementedError, match="take"):
-            tfa.k1_route(dtype, 512, causal, bias, seg)
+            tfa.k1_route(dtype, 520, causal, bias, seg)
 
 
 def _source(name):
@@ -117,10 +121,11 @@ def test_segment_tiles_are_the_sm90_k3_tiles():
 
 def test_fp32_forward_constants_are_the_wrappers():
     """The passes, the key group of v's transposed terms (in the split
-    pre-pass the forward shares with the backward) and the d = 512 tiles (of
-    the streaming kernel, fp32/flash_f32_fwd_wide.cuh) and splits of
-    csrc/fp32/flash_f32_fwd.cu (and its header) are what the wrapper
-    assumes when it sizes the workspace and the key splits."""
+    pre-pass the forward shares with the backward) and the tiles above head
+    dim 256 (of the streaming kernel, fp32/flash_f32_fwd_wide.cuh), its
+    widths and splits of csrc/fp32/flash_f32_fwd.cu (and its header) are
+    what the wrapper assumes when it sizes the workspace and the key
+    splits."""
     text = _source("fp32/flash_f32_fwd.cu") + _source("fp32/flash_f32_fwd.cuh")
     m = re.search(r"constexpr int kPasses = (\d+);", text)
     assert m and int(m.group(1)) == tfa._F32_PASSES == 3
@@ -130,12 +135,14 @@ def test_fp32_forward_constants_are_the_wrappers():
     m = re.search(r"static constexpr int kBQ = (\d+), kBK = (\d+), kHalf",
                   _source("fp32/flash_f32_fwd_wide.cuh"))
     assert m and tuple(map(int, m.groups())) == (tfa._D512_TILE,) * 2
-    assert "run_stream<512>(w, p, splits, kWidePlain, s)" in text
+    assert ": run_stream<512>(w, p, splits, form, s)" in text
+    assert "d <= 384 ? run_stream<384>(w, p, splits, form, s)" in text
+    assert tfa._WIDE_WIDTHS == (384, 512)
     m = re.search(r"constexpr int kMaxSplits = (\d+);", text)
     assert m and int(m.group(1)) == tfa._D512_MAX_SPLITS
-    # the workspace: three hi / lo pairs, then 513 floats a row per split
+    # the workspace: three hi / lo pairs, then DP + 1 floats a row per split
     assert "w.part = w.vt + 2 * w.nv;" in text
-    assert "splits * B * H * Lq * 513" in text
+    assert "splits * B * H * Lq * (DP + 1)" in text
 
 
 @pytest.mark.parametrize("b,h,lq,lk,d,splits,want", [
@@ -143,7 +150,8 @@ def test_fp32_forward_constants_are_the_wrappers():
     (2, 3, 5, 9, 40, 1, 2 * 6 * 40 * (5 + 9 + 16)),      # Lk8 = 16
     (1, 1, 64, 65, 512, 1, 2 * 512 * (64 + 65 + 72)),
     (1, 1, 64, 65, 512, 2, 2 * 512 * (64 + 65 + 72) + 2 * 64 * 513),
-    (1, 1, 64, 65, 128, 2, 2 * 128 * (64 + 65 + 72)),     # splits: d512 only
+    (1, 1, 64, 65, 128, 2, 2 * 128 * (64 + 65 + 72)),     # splits: above 256
+    (1, 1, 64, 65, 304, 3, 2 * 304 * (64 + 65 + 72) + 3 * 64 * 385),
 ])
 def test_fp32_forward_workspace(b, h, lq, lk, d, splits, want):
     assert tfa.f32_forward_work(b, h, lq, lk, d, splits) == want

@@ -73,6 +73,15 @@ chain would drift. Above head dim 128 (``csrc/fp32/flash_f32_bwd.cuh``, a
 cluster of two blocks splitting the columns) at d 136, 160, 192, 232 and
 256, without a mask and causal, at lengths around its tiles: one short tile
 each way and ragged Lq != Lk both ways.
+K1, K3 and K4 above head dim 256 (``csrc/flash_attention.cu``,
+``csrc/flash_attention_wide_bwd_sm90.cuh``, and in fp32
+``csrc/fp32/flash_f32_fwd_wide.cuh`` and ``flash_f32_bwd_stream.cuh``) at
+head dims 264, 300, 384 and 512 in every mask form and both dtypes, at the
+tolerances above (fp32: 1e-4 against plain fp32, 1e-5 against fp64, one
+TF32 pass caught): lengths around their 32- and 64-row tiles, segment ids
+with rows that see no key, each key-split count of K1 forced under causal
+and segment ids, NaN-filled outputs and dbias from a NaN-poisoned pool;
+K4's dk and dv blocks one launch.
 The int8 product of the W8A8 serving path (``ops/quantize.py``, a
 ``torch._int_mm`` library call): its int32 accumulators equal the exact
 product (fp64 of the same int8 operands) at the MMDiT's, T5's and the SD1
@@ -139,16 +148,17 @@ def test_flash_kernel_refuses_what_it_does_not_take(gen):
         tfa.flash_attention_cuda(q.half(), q.half(), q.half())
     assert tfa.flash_attention_cuda(q.float(), q.float(),
                                     q.float())[0].dtype == torch.float32
-    with pytest.raises(NotImplementedError):   # head dims 1 to 256 and 512
-        tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 320),) * 3)
+    q320 = _randn(gen, 1, 1, 64, 320)      # every head dim up to 512
+    _k1_check(q320, q320, q320)
+    with pytest.raises(NotImplementedError):   # head dims 1 to 512
+        tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 520),) * 3)
     with pytest.raises(ValueError):
         tfa.flash_attention_cuda(q, q[..., 1:9], q[..., 1:9])
-    q512 = _randn(gen, 1, 1, 64, 512)
-    with pytest.raises(NotImplementedError):   # no mask form at d=512
-        tfa.flash_attention(q512, q512, q512, causal=True)
-    out, lse = tfa.flash_attention_cuda(q512, q512, q512)
-    with pytest.raises(NotImplementedError):   # no backward at d=512
-        tfa.flash_attention_bwd_cuda(q512, q512, q512, out, lse, q512)
+    q, k, v, g = (_randn(gen, 1, 1, 64, 512) for _ in range(4))
+    _k1_check(q, k, v, causal=True)        # every mask form at 512
+    out, lse = tfa.flash_attention_cuda(q, k, v)
+    _bwd_close(tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g),
+               tfa.flash_attention_bwd_plain(q, k, v, out, lse, g))
 
 
 def _bwd_close(got, want):
@@ -1653,12 +1663,17 @@ def test_fp32_forms_not_ported_raise_with_the_dtype_to_pass(gen):
     ref, ref_lse = tfa.flash_attention_pos_plain(q128, q128, q128, z, z)
     _f32_close(out, ref, "out")
     _f32_close(lse, ref_lse, "lse")
-    q512 = _randn(gen, 1, 1, 64, 512, **f32)
-    with pytest.raises(NotImplementedError, match="no mask at 512"):
-        tfa.flash_attention_cuda(q512, q512, q512, causal=True)
-    out, lse = tfa.flash_attention_cuda(q512, q512, q512)
-    with pytest.raises(NotImplementedError, match="head dim 512"):
-        tfa.flash_attention_bwd_cuda(q512, q512, q512, out, lse, q512)
+    q, k, v, g = (_randn(gen, 1, 1, 64, 512, **f32) for _ in range(4))
+    out, lse = tfa.flash_attention_cuda(q, k, v, causal=True)   # up to 512
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal=True)
+    _f32_close(out, ref, "out")
+    _f32_close(lse, ref_lse, "lse")
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal=True)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=True)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        _f32_close(a, w, name)
+    with pytest.raises(NotImplementedError, match="1 to 512"):
+        tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 520, **f32),) * 3)
     with pytest.raises(ValueError, match="multiples of 4"):
         tfa.flash_attention_cuda(*(_randn(gen, 1, 1, 64, 66, **f32)[..., :64],)
                                  * 3)
@@ -2403,3 +2418,200 @@ def test_pos_forms_at_every_head_dim(gen, d, dtype, stability):
         assert a.shape == w.shape and torch.isfinite(a.float()).all(), name
         assert ((a.float() - w.float()).abs().max().item()
                 <= 2e-2 * w.float().abs().max().item() + 1e-6), name
+
+
+# ------------------------------------- K1, K3 and K4 above head dim 256
+WIDE_DIMS = (264, 300, 384, 512)
+WIDE_FORMS = [(c, b, s) for c in (False, True) for b in (False, True)
+              for s in (False, True)]           # (causal, bias, segments)
+
+
+def _wide_masks(gen, form, b, h, lq, lk, kind="packed"):
+    causal, bias, seg = form
+    masks = dict(causal=causal)
+    if bias:
+        masks["bias"] = torch.randn((1, h, lq, lk), generator=gen,
+                                    device="cuda")
+    if seg:
+        masks["segment_ids"] = _segments(kind, b, lq, lk)
+    return masks
+
+
+def _wide_check(q, k, v, g, masks, floor=1e-6):
+    """K1, K3 and K4 above 256 against their plain versions (bf16: out 2e-2,
+    lse 1e-3, each gradient 2e-2 of its largest; fp32: 1e-4 as the fp32
+    forms), dbias into a NaN-poisoned pool; one launch of each, on the
+    route of the dtype ("d512" / "wide" in bf16, "fp32"); rows that see no
+    key give out = 0, lse <= -1e29 and finite gradients."""
+    bf16 = q.dtype == torch.bfloat16
+    fns = (tfa.flash_attention_cuda, tfa.flash_attention_bwd_dq_cuda,
+           tfa.flash_attention_bwd_dkv_cuda)
+    names = ("d512", "wide", "wide") if bf16 else ("fp32",) * 3
+    before = [fn.routes[r] for fn, r in zip(fns, names)]
+    out, lse = tfa.flash_attention_cuda(q, k, v, **masks)
+    need = masks.get("bias") is not None
+    if need:     # NaNs in the pool dbias is allocated from
+        del_me = torch.full((*q.shape[:3], k.shape[2]), float("nan"),
+                            device="cuda")
+        del del_me
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **masks,
+                                       need_dbias=need)
+    assert [fn.routes[r] for fn, r in zip(fns, names)] == [
+        n + 1 for n in before]
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, **masks)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g, **masks,
+                                         need_dbias=need)
+    seen = ref_lse > -1e29
+    tol = 2e-2 if bf16 else F32_ATOL
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert (out.float() - ref.float())[seen].abs().max().item() <= tol
+    assert (lse - ref_lse)[seen].abs().max().item() <= (1e-3 if bf16
+                                                          else F32_ATOL)
+    assert bool((lse[~seen] <= -1e29).all()) and not bool(out[~seen].any())
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.shape == w.shape and bool(torch.isfinite(a).all()), name
+        a, w = a.float(), w.float()
+        assert ((a - w).abs().max().item()
+                <= tol * w.abs().max().item() + floor), name
+    return out, lse, got
+
+
+@pytest.mark.parametrize("form", WIDE_FORMS, ids=lambda f: "-".join(
+    n for n, on in zip(("causal", "bias", "segments"), f) if on) or "none")
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_wide_heads_every_form_matches_plain(gen, dtype, d, form):
+    """Every form at the widths 384 (264, 300 padded to 304) and 512, Lq and
+    Lk ragged around the 32- and 64-row tiles."""
+    b, h, lq, lk = 2, 2, 200, 150
+    q, g = (_randn(gen, b, h, lq, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, b, h, lk, d, dtype=dtype) for _ in range(2))
+    _wide_check(q, k, v, g, _wide_masks(gen, form, b, h, lq, lk))
+
+
+@pytest.mark.parametrize("lk", [1, 31, 33, 64, 65, 130])
+@pytest.mark.parametrize("lq", [1, 31, 33, 64, 65, 130])
+def test_wide_heads_lengths_around_their_tiles(gen, lq, lk):
+    """Lq and Lk around the 64-row blocks and 32-row tiles (the fp32 64-row
+    tiles too), at 300 and 512, without a mask and causal (Lq < Lk: keys no
+    query sees get dk = dv = 0), in both dtypes; the floor where one key
+    makes dS rounding noise, as for K4."""
+    floor = 1e-3 if 1 in (lq, lk) else 1e-6
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (300, 512):
+            q, g = (_randn(gen, 1, 2, lq, d, dtype=dtype) for _ in range(2))
+            k, v = (_randn(gen, 1, 2, lk, d, dtype=dtype) for _ in range(2))
+            _wide_check(q, k, v, g, {}, floor)
+            _wide_check(q, k, v, g, dict(causal=True), floor)
+
+
+@pytest.mark.parametrize("kind", ["no key", "ragged", "each", "one"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_wide_heads_segments_and_rows_without_keys(gen, dtype, kind):
+    """Segment ids at the wide kernels' tiles: rows of a segment with no
+    key (out 0, lse -1e30, finite gradients), per-example padding ids,
+    every token its own segment (one key each: the floor), one segment;
+    with causal and a bias too."""
+    b, h, lq, lk = 2, 2, 300, 260
+    floor = 1e-3 if kind == "each" else 1e-6
+    for d in (264, 512):
+        q, g = (_randn(gen, b, h, lq, d, dtype=dtype) for _ in range(2))
+        k, v = (_randn(gen, b, h, lk, d, dtype=dtype) for _ in range(2))
+        for form in ((False, False, True), (True, True, True)):
+            _wide_check(q, k, v, g,
+                        _wide_masks(gen, form, b, h, lq, lk, kind), floor)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("form", [(False, False, False), (True, False, False),
+                                  (False, False, True), (True, True, True)],
+                         ids=["none", "causal", "segments", "all"])
+def test_wide_k1_each_split_count_under_masks(gen, monkeypatch, form, splits):
+    """K1 above 256 in both dtypes with its keys split over 1 - 4 blocks
+    (forced), under causal and segment ids, where a split can hold no key a
+    row sees (weight 0 in the merge), at 300 (width 384) and 512."""
+    monkeypatch.setattr(tfa, "k1_d512_splits", lambda *a: splits)
+    b, h, lq, lk = 1, 2, 130, 700
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (300, 512):
+            q, k, v = (_randn(gen, b, h, n, d, dtype=dtype)
+                       for n in (lq, lk, lk))
+            masks = _wide_masks(gen, form, b, h, lq, lk, "no key")
+            out, lse = tfa.flash_attention_cuda(q, k, v, **masks)
+            ref, ref_lse = tfa.flash_attention_plain(q, k, v, **masks)
+            seen = ref_lse > -1e29
+            bf16 = dtype == torch.bfloat16
+            assert ((out.float() - ref.float())[seen].abs().max()
+                    <= (2e-2 if bf16 else F32_ATOL))
+            assert ((lse - ref_lse)[seen].abs().max()
+                    <= (1e-3 if bf16 else F32_ATOL))
+            assert not bool(out[~seen].any())
+            assert bool((lse[~seen] <= -1e29).all())
+
+
+def test_wide_heads_write_every_row(gen, monkeypatch):
+    """out, lse, dq, dk and dv handed to the kernels filled with NaN (dbias
+    from a NaN-poisoned pool) at 300 and 512 in both dtypes, with segment
+    ids that skip tiles and a causal bias: every row written."""
+    blhd = tfa._blhd
+    monkeypatch.setattr(tfa, "_blhd", lambda like, n: blhd(like, n).fill_(
+        float("nan")))
+    monkeypatch.setattr(tfa, "_lse_like", lambda q: torch.full(
+        q.shape[:3], float("nan"), device=q.device))
+    b, h, lq, lk = 2, 1, 257, 190
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (300, 512):
+            q, g = (_randn(gen, b, h, lq, d, dtype=dtype) for _ in range(2))
+            k, v = (_randn(gen, b, h, lk, d, dtype=dtype) for _ in range(2))
+            for form in ((False, False, True), (True, True, True)):
+                out, lse, grads = _wide_check(
+                    q, k, v, g, _wide_masks(gen, form, b, h, lq, lk))
+                assert bool(torch.isfinite(out).all())
+                assert all(bool(torch.isfinite(t).all()) for t in grads)
+
+
+@pytest.mark.parametrize("d", [264, 384, 512])
+def test_wide_fp32_within_fp64(gen, d):
+    """The fp32 K1, K3 and K4 above 256 against fp64 attention (the plain
+    versions fed fp64): out and lse within F64_ATOL of each, each gradient
+    within 1e-5 of its largest magnitude; the plain version fed operands
+    cut once to TF32 must fall outside 1e-4."""
+    f32 = dict(dtype=torch.float32)
+    q, g = (_randn(gen, 1, 2, 300, d, **f32) for _ in range(2))
+    k, v = (_randn(gen, 1, 2, 260, d, **f32) for _ in range(2))
+    for causal in (False, True):
+        out, lse = tfa.flash_attention_cuda(q, k, v, causal=causal)
+        got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g,
+                                           causal=causal)
+        x64 = [x.double() for x in (q, k, v)]
+        o64, l64 = tfa.flash_attention_plain(*x64, causal=causal)
+        want = tfa.flash_attention_bwd_plain(*x64, o64, l64, g.double(),
+                                             causal=causal)
+        assert (out.double() - o64).abs().max().item() <= F64_ATOL
+        assert (lse.double() - l64).abs().max().item() <= F64_ATOL
+        for a, w in zip(got, want):
+            assert ((a.double() - w).abs().max().item()
+                    <= 1e-5 * w.abs().max().item())
+        bad = tfa.flash_attention_bwd_plain(*_tf32(q, k, v), out, lse,
+                                            *_tf32(g), causal=causal)
+        assert max(((a.double() - w).abs().max() / w.abs().max()).item()
+                   for a, w in zip(bad, want)) > 1e-4
+
+
+def test_wide_k4_is_one_launch_of_both_roles(gen):
+    """K4 above 256 launches the dk and the dv blocks together: one launch
+    and one count on the route, both outputs right; K3 the dq blocks."""
+    q, g = (_randn(gen, 1, 1, 256, 512) for _ in range(2))
+    k, v = (_randn(gen, 1, 1, 256, 512) for _ in range(2))
+    out, lse = tfa.flash_attention_cuda(q, k, v)
+    delta = (g.float() * out.float()).sum(-1)
+    n3 = tfa.flash_attention_bwd_dq_cuda.launches
+    n4 = tfa.flash_attention_bwd_dkv_cuda.launches
+    dk, dv = tfa.flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta)
+    dq = tfa.flash_attention_bwd_dq_cuda(q, k, v, g, lse, delta)
+    assert tfa.flash_attention_bwd_dkv_cuda.launches == n4 + 1
+    assert tfa.flash_attention_bwd_dq_cuda.launches == n3 + 1
+    _bwd_close((dq, dk, dv),
+               tfa.flash_attention_bwd_plain(q, k, v, out, lse, g))

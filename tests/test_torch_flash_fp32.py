@@ -271,7 +271,7 @@ def test_use_flash_true_on_cpu_raises():
 
 def test_fp32_forms_that_are_not_ported_say_what_to_pass():
     """The bias and segment-id forms take fp32 as bf16 does; only a head
-    dim past 256 is refused, naming the entry point and what it takes.
+    dim past 512 is refused, naming the entry point and what it takes.
     Causal takes fp32 at every head dim up to 256, on the TF32 kernels
     throughout: above 160 the forward on the streaming kernel, where the
     resident Q tile does not fit."""
@@ -281,10 +281,11 @@ def test_fp32_forms_that_are_not_ported_say_what_to_pass():
     for kw in (dict(bias=True, segments=False, causal=False),
                dict(bias=False, segments=True, causal=True)):
         assert tfa.k3_route(torch.float32, 64, **kw) == "fp32"
+        assert tfa.k3_route(torch.float32, 320, **kw) == "fp32"
         with pytest.raises(NotImplementedError,
                            match="flash_attention_bwd_dq_cuda takes head "
-                                 "dims 1 to 256"):
-            tfa.k3_route(torch.float32, 320, **kw)
+                                 "dims 1 to 512"):
+            tfa.k3_route(torch.float32, 520, **kw)
     assert tfa.k3_route(torch.float32, 128, causal=True) == "fp32"
     assert tfa.k3_route(torch.float32, 96, causal=True) == "fp32"
     assert tfa.k3_route(torch.float32, 192, causal=True) == "fp32"

@@ -289,9 +289,12 @@ def test_masked_wrappers_refuse_what_the_kernels_do_not_take():
     n = tfa.flash_attention_cuda.launches
     tfa.flash_attention(q, q, q, causal=True)      # CPU: the plain version
     assert tfa.flash_attention_cuda.launches == n
-    # every mask form at every head dim up to 256, K1 and the backward
-    assert tfa._MAX_HEAD_DIM == 256
-    for route in (tfa.k1_route, tfa.k3_route, tfa.k4_route):
+    # every mask form at every head dim up to 512, K1 and the backward (the
+    # position-masked kernels up to 256)
+    assert (tfa._MAX_HEAD_DIM, tfa._MAX_WIDE) == (256, 512)
+    for route, wide in ((tfa.k1_route, "d512"), (tfa.k3_route, "wide"),
+                        (tfa.k4_route, "wide")):
         assert route(torch.bfloat16, 96, True, True, True) == "sm90"
-        with pytest.raises(NotImplementedError, match="1 to 256"):
-            route(torch.bfloat16, 320, True, True, True)
+        assert route(torch.bfloat16, 320, True, True, True) == wide
+        with pytest.raises(NotImplementedError, match="1 to 512"):
+            route(torch.bfloat16, 520, True, True, True)

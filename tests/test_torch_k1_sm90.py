@@ -4,10 +4,10 @@ Which kernel a CUDA launch of K1 runs is decided in Python before anything
 reaches the card (``k1_route``): the TMA / wgmma kernel of
 ``csrc/flash_attention_sm90.cuh`` for bf16 at every head dim from 1 to 256
 in every mask form, the TMA / wgmma kernel of ``csrc/flash_attention.cu``
-for bf16 at head dim 512, the fp32 library for fp32 (its TF32 kernels at
-every head dim up to 256 and at 512; causal at each but 512, T5's bias alone
-at head dim 64); every other (dtype, head dim,
-form) raises before a launch. The ctypes signatures are held against the
+for bf16 from 257 to 512 in every mask form, the fp32 library for fp32 (its
+TF32 kernels at every head dim up to 512 in every form, T5's bias alone at
+head dim 64 on its own); every other (dtype, head dim) raises before a
+launch. The ctypes signatures are held against the
 argument counts of the ``extern "C"`` declarations in the sources, which
 nothing compiles here. The kernels themselves are tested on the card
 (``tests/test_torch_cuda_kernels.py``).
@@ -40,13 +40,10 @@ FORMS = {  # name -> (causal, bias, segments)
 def _want(dtype, d, form):
     """The route the port's contract gives, or the exception it raises."""
     causal, bias, seg = FORMS[form]
-    if d == 512 and form != "none":
-        return NotImplementedError
     if dtype == F32:
-        # the TF32 kernels at every head dim up to 256 in every form, and at
-        # 512 without a mask
+        # the TF32 kernels at every head dim up to 512 in every form
         return "fp32"
-    return "d512" if d == 512 else "sm90"
+    return "d512" if d > 256 else "sm90"
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))
@@ -64,7 +61,7 @@ def test_k1_route_by_dtype_head_dim_and_form(dtype, d, form):
         assert tfa.k1_route(dtype, d, causal, bias, seg) == want
 
 
-@pytest.mark.parametrize("d", [0, 257, 320])
+@pytest.mark.parametrize("d", [0, 513, 640])
 def test_k1_route_refuses_other_head_dims_and_dtypes(d):
     for dtype in (BF16, F32):
         with pytest.raises(NotImplementedError, match=str(d)):
