@@ -76,7 +76,12 @@ two summary lines:
    fp64, within FORMS_FP64_RATIO of the no-mask form's error), then timed
    at full width: a (1, 8, 4096, 4096) fp32 bias at (2, 8, 4096, 4096, 128),
    packed segment ids at (2, 12, 4096, 4096, 64), and SD3-medium's joint
-   attention cut into heads of 32 - 256.
+   attention cut into heads of 32 - 256; above 256 K1, K3 and K4 in every
+   mask form (``phase_kernels_wide_heads``) and K5, K6 and K7 in every
+   position form (``phase_kernels_wide_pos``: at d 264 - 512 against the
+   plain versions, then SD3-medium's joint attention cut into heads of 384
+   and 512 forward and backward, and the 4-shard ring at heads of 512, as
+   paths of their own).
 4. SD1: full-width SD1 (CLIP, 860M UNet, VAE decoder) with random weights
    from a seed, ``SD1Generator`` at 512x512, 50 k-LMS steps, CFG 7.5: one
    batch-1 request, then one batch-4 request. Checks the images, the final
@@ -291,7 +296,7 @@ exponentials at the SFU's rate.
 The trajectory group (after the tp_fsdp stretch of SD1, on the resident
 bf16 bundle): ``SD1Generator(loop="trajectory")``, the whole denoise loop
 as one captured CUDA graph per (batch, start_step), against
-``loop="steps"`` on the same draws at 512^2 / 20 k-LMS steps / CFG 7.5:
+``loop="steps"`` on the same draws at 512^2 / 10 k-LMS steps / CFG 7.5:
 the captures at batch 1 and 4 with the K1 / K2 launches inside each graph,
 a second seed through the batch-1 graph, img2img at strength 0.6,
 ``k_euler_ancestral`` and TP over {"model": 2} of the card repeated, each
@@ -531,15 +536,15 @@ BF16_FAMILY = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv",
 # K5 bounded and ANY (K1 with a bias or segment ids) at the 5 widths 32 -
 # 160, T5's bias form; the streaming kernel at the widths 192, 224, 256 in
 # its 4 forms (no mask, causal, ANY, bounded), at 384 without a mask,
-# causal and ANY, at 512 causal and ANY, and at 512 without a mask under its
-# own name. The fp32 backward (TF32 split): dq and dk/dv at the 8 widths 16
+# causal, ANY and bounded (K5), at 512 causal, ANY and bounded, and at 512
+# without a mask under its own name. The fp32 backward (TF32 split): dq and dk/dv at the 8 widths 16
 # - 128 without a mask and masked (K3 / K4 causal, K6 / K7), ANY at 32, 64,
 # 96, 128, the two-block (one cluster) dq and dk/dv at the 4 widths 160 -
 # 256 without a mask, masked and ANY, and the streaming dq / dk / dv kernel
 # (its role per block) at 384 and 512 without a mask and ANY.
 FP32_KERNELS = {
     "K1/K5 fp32": ("flash_fwd_f32_kernel", 13 + 13 + 5 + 5 + 1),
-    "K1/K5 fp32 wide": ("flash_fwd_f32_wide_kernel", 3 * 4 + 3 + 2),
+    "K1/K5 fp32 wide": ("flash_fwd_f32_wide_kernel", 3 * 4 + 4 + 3),
     "K1 fp32 d512": ("flash_fwd_f32_d512_kernel", 1),
     "K3/K6 fp32": ("flash_bwd_dq_f32_kernel", 16 + 4),
     "K4/K7 fp32": ("flash_bwd_dkv_f32_kernel", 16 + 4),
@@ -710,9 +715,9 @@ class Counts(dict):
     """Launches by kernel; ``k1_routes``: K1's launches by the kernel they
     ran (``flash_attention_cuda.routes``: "sm90", "d512", "fp32");
     ``k3_routes`` - ``k7_routes`` (but K2's): K3's - K7's
-    (``.routes`` of their wrappers: "sm90", "wide", "fp32");
-    ``k1_head_dims``, ``k3_head_dims``, ``k4_head_dims``: K1's, K3's and
-    K4's launches by head dim."""
+    (``.routes`` of their wrappers: "sm90", "wide", "d512" (K5), "fp32");
+    ``k1_head_dims`` - ``k7_head_dims`` (but K2's): their launches by head
+    dim."""
 
 
 ROUTED = ("K1", "K3", "K4", "K5", "K6", "K7")  # counted by route
@@ -724,7 +729,7 @@ def read_counts():
     for k in ROUTED:
         setattr(counts, k.lower() + "_routes",
                 dict(getattr(fns[k], "routes", {})))
-    for k in ("K1", "K3", "K4"):
+    for k in ROUTED:
         setattr(counts, k.lower() + "_head_dims",
                 dict(getattr(fns[k], "head_dims", {})))
     return counts
@@ -3257,7 +3262,7 @@ def phase_mmdit_training(card):
                           dtype="bf16")
     check((model_cfg.depth, model_cfg.hidden_size) == (SD3_DEPTH, 1536),
           "MMDiTConfig() is not SD3-medium's")
-    warm, timed = 2, 5
+    warm, timed = 2, 3   # timed cut from 5 for the wide position phase
     n_steps = warm + timed + 1          # the last one under the profiler
     t0 = time.perf_counter()
     trainer = MMDiTTrainer(model_cfg, cfg, device="cuda")
@@ -6993,16 +6998,19 @@ def _grad_errors(what, got, want, tol=2e-2):
     return ", ".join(line) + f" (tol {tol} of the largest)"
 
 
-def hop_kernels(card, what, qs, ks, vs, gs, q_off, k_off, valid, extra):
+def hop_kernels(card, what, qs, ks, vs, gs, q_off, k_off, valid, extra,
+                fams=("K5 flash fwd pos", "K6 flash bwd pos dq",
+                      "K7 flash bwd pos dk/dv")):
     """K5, K6 and K7 at one ring hop: a query shard (B, H, Lq, D) against a
     key shard at their global offsets (``q_off``, ``k_off``: the first
     segment's start, the second unused) under ``valid_len`` ``valid``.
     Each against its plain version (K5 out 2e-2, lse 1e-3; K6 / K7 2e-2 of
     each gradient's largest magnitude, under K5's lse), then timed with its
-    device time, the plain version, the library call (one
-    scaled_dot_product_attention on the shard, its whole backward for K6 /
-    K7) and the bound over the visible keys. Returns ({name: record}, the
-    errors as a line); ``extra`` goes into each record."""
+    device time (the profiler families ``fams`` of K5, K6, K7), the plain
+    version, the library call (one scaled_dot_product_attention on the
+    shard, its whole backward for K6 / K7) and the bound over the visible
+    keys. Returns ({name: record}, the errors as a line); ``extra`` goes
+    into each record."""
     import torch
     import torch.nn.functional as F
 
@@ -7040,13 +7048,13 @@ def hop_kernels(card, what, qs, ks, vs, gs, q_off, k_off, valid, extra):
     for name, fn, fam, products, counts in (
             ("K5", lambda: fa.flash_attention_pos_cuda(qs, ks, vs, qo, ko,
                                                         **kw),
-             "K5 flash fwd pos", 2, (2, 2, 1)),
+             fams[0], 2, (2, 2, 1)),
             ("K6", lambda: fa.flash_bwd_pos_dq_cuda(
                 qs, ks, vs, gs_k, lse_s, delta_s, qo, ko, **kw),
-             "K6 flash bwd pos dq", 3, (3, 2, 2)),
+             fams[1], 3, (3, 2, 2)),
             ("K7", lambda: fa.flash_bwd_pos_dkv_cuda(
                 qs, ks, vs, gs_k, lse_s, delta_s, qo, ko, **kw),
-             "K7 flash bwd pos dk/dv", 4, (2, 4, 2))):
+             fams[2], 4, (2, 4, 2))):
         bound_ms, bound_by = attn_bound(b, h, n_q, visible, d, products,
                                         *counts)
         hop[name] = dict(
@@ -8354,7 +8362,9 @@ def phase_ddpm_fsdp(card):
 # outside the graph. So a cold 512^2 / 50-step request launches K1 10 + 500
 # + 1 and K2 61 + 3050 + 30 times, of which 500 and 3050 inside the graph,
 # and a warm one only the decoder's 1 and 30 (the replay calls no wrapper).
-TRAJ_STEPS = 20   # cut from 50 to pay for the forms phase
+# cut from 50 to 20 to pay for the forms phase, to 10 for the wide
+# position-kernel phase
+TRAJ_STEPS = 10
 TRAJ_STRENGTH = 0.6
 TRAJ_GRAPH = dict(K1=10 * TRAJ_STEPS, K2=61 * TRAJ_STEPS)
 TRAJ_COLD = dict(K1=10 + 10 * TRAJ_STEPS + 1, K2=61 + 61 * TRAJ_STEPS + 30,
@@ -8363,8 +8373,8 @@ TRAJ_COLD = dict(K1=10 + 10 * TRAJ_STEPS + 1, K2=61 + 61 * TRAJ_STEPS + 30,
 
 def phase_trajectory(card, models, image):
     """``SD1Generator(loop="trajectory")`` on the resident bf16 bundle at
-    512^2, 20 k-LMS steps, CFG 7.5, against ``loop="steps"`` on the same
-    draws: captures at batch 1 and 4 (K1 / K2 launches inside each graph
+    512^2, TRAJ_STEPS k-LMS steps, CFG 7.5, against ``loop="steps"`` on the
+    same draws: captures at batch 1 and 4 (K1 / K2 launches inside each graph
     counted), a second seed through the batch-1 graph, img2img at strength
     0.6 (a second key), ``k_euler_ancestral`` (step noise staged from the
     generator in the step loop's order) and TP over {"model": 2} of the card
@@ -9208,6 +9218,55 @@ def forms_pos_check(fa, rnd, dtype, d, masked):
         2 * 2 * 30 if masked else 0)
 
 
+def joint_calls(fa, c_, x_, gs, z):
+    """The four stream pairs of one joint attention call, each query stream
+    (q of ``c_`` or ``x_``, [q, k, v] lists) against each key stream, and
+    the calls that run them: ``fwd(stability)()`` K5 over the pairs,
+    ``dq()`` K6, ``dkv()`` K7 (under each query stream's merged lse and
+    delta with its cotangent in ``gs``), ``plain_fwd()`` and ``plain_bwd()``
+    their plain versions. Returns them in a dict beside the pairs, the
+    query streams and the merged row statistics."""
+    qs = dict(c=c_[0], x=x_[0])
+    pairs = [(sq, kv) for sq in ("c", "x") for kv in (c_, x_)]
+    stats = {}
+    for sq in ("c", "x"):
+        o, l = fa.merge_attention_partials(
+            *fa.flash_attention_pos(qs[sq], c_[1], c_[2], z, z),
+            *fa.flash_attention_pos(qs[sq], x_[1], x_[2], z, z))
+        stats[sq] = (l.contiguous(), (gs[sq].float() * o.float()).sum(-1))
+    return dict(
+        qs=qs, pairs=pairs, stats=stats,
+        fwd=lambda st: lambda: [fa.flash_attention_pos_cuda(
+            qs[sq], kv[1], kv[2], z, z, stability=st) for sq, kv in pairs],
+        dq=lambda: [fa.flash_bwd_pos_dq_cuda(
+            qs[sq], kv[1], kv[2], gs[sq], *stats[sq], z, z)
+            for sq, kv in pairs],
+        dkv=lambda: [fa.flash_bwd_pos_dkv_cuda(
+            qs[sq], kv[1], kv[2], gs[sq], *stats[sq], z, z)
+            for sq, kv in pairs],
+        plain_fwd=lambda: [fa.flash_attention_pos_plain(
+            qs[sq], kv[1], kv[2], z, z) for sq, kv in pairs],
+        plain_bwd=lambda: [fa.flash_bwd_pos_plain(
+            qs[sq], kv[1], kv[2], gs[sq], *stats[sq], z, z)
+            for sq, kv in pairs])
+
+
+def joint_library_ms(cat, gcat):
+    """One scaled_dot_product_attention over the concatenated streams
+    ``cat`` ([q, k, v]) and its whole backward under ``gcat``: (forward ms,
+    backward ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    sdpa = F.scaled_dot_product_attention
+    ql, kl, vl = (t.detach().requires_grad_() for t in cat)
+    ol = sdpa(ql, kl, vl)
+    lib_f = cuda_ms(lambda: sdpa(*cat), 3, 1)
+    lib_b = cuda_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), gcat, retain_graph=True), 3, 1)
+    return lib_f, lib_b
+
+
 def phase_kernels_forms(card, tail):
     """The forms this slice added, against their plain versions at
     FORMS_DIMS (:func:`forms_masks_check`, :func:`forms_pos_check`), then
@@ -9416,40 +9475,16 @@ def phase_kernels_forms(card, tail):
             x_ = [rnd(b, h, 4096, d).to(dtype) for _ in range(3)]
             gs = dict(c=rnd(b, h, 154, d).to(dtype),
                       x=rnd(b, h, 4096, d).to(dtype))
-            qs = dict(c=c_[0], x=x_[0])
-            pairs = [(sq, kv) for sq in ("c", "x") for kv in (c_, x_)]
-            stats = {}
-            for sq in ("c", "x"):
-                o, l = fa.merge_attention_partials(
-                    *fa.flash_attention_pos(qs[sq], c_[1], c_[2], z, z),
-                    *fa.flash_attention_pos(qs[sq], x_[1], x_[2], z, z))
-                stats[sq] = (l.contiguous(),
-                             (gs[sq].float() * o.float()).sum(-1))
-            fwd = lambda st: lambda: [fa.flash_attention_pos_cuda(
-                qs[sq], kv[1], kv[2], z, z, stability=st)
-                for sq, kv in pairs]
-            dq = lambda: [fa.flash_bwd_pos_dq_cuda(
-                qs[sq], kv[1], kv[2], gs[sq], *stats[sq], z, z)
-                for sq, kv in pairs]
-            dkv = lambda: [fa.flash_bwd_pos_dkv_cuda(
-                qs[sq], kv[1], kv[2], gs[sq], *stats[sq], z, z)
-                for sq, kv in pairs]
+            jc = joint_calls(fa, c_, x_, gs, z)
+            qs, pairs, stats = jc["qs"], jc["pairs"], jc["stats"]
+            fwd, dq, dkv = jc["fwd"], jc["dq"], jc["dkv"]
             cat = [torch.cat([c, x], dim=2) for c, x in zip(c_, x_)]
-            gcat = torch.cat([gs["c"], gs["x"]], dim=2)
-            ql, kl, vl = (t.detach().requires_grad_() for t in cat)
-            ol = sdpa(ql, kl, vl)
-            lib_f = cuda_ms(lambda: sdpa(*cat), 3, 1)
-            lib_b = cuda_ms(lambda: torch.autograd.grad(
-                ol, (ql, kl, vl), gcat, retain_graph=True), 3, 1)
-            del ol, ql, kl, vl
+            lib_f, lib_b = joint_library_ms(
+                cat, torch.cat([gs["c"], gs["x"]], dim=2))
             # the kernels held to the plain versions at this full width, pair
             # by pair; the plain calls' first run gives the outputs and warms
             # their timing below
-            want_f = [fa.flash_attention_pos_plain(qs[sq], kv[1], kv[2], z, z)
-                      for sq, kv in pairs]
-            want_b = [fa.flash_bwd_pos_plain(qs[sq], kv[1], kv[2], gs[sq],
-                                             *stats[sq], z, z)
-                      for sq, kv in pairs]
+            want_f, want_b = jc["plain_fwd"](), jc["plain_bwd"]()
             got_f = {st: fwd(st)() for st in ("online", "bounded")}
             got_b = [(a, *b_) for a, b_ in zip(dq(), dkv())]
             torch.cuda.synchronize()
@@ -9481,11 +9516,8 @@ def phase_kernels_forms(card, tail):
             check(all(full[k_] <= tol[k_] for k_ in full),
                   f"K5/K6/K7 {dt} at SD3's joint attention, heads of {d}, "
                   f"disagree with the plain versions: {full}")
-            pf = cuda_ms(lambda: [fa.flash_attention_pos_plain(
-                qs[sq], kv[1], kv[2], z, z) for sq, kv in pairs], 1, 0)
-            pb = cuda_ms(lambda: [fa.flash_bwd_pos_plain(
-                qs[sq], kv[1], kv[2], gs[sq], *stats[sq], z, z)
-                for sq, kv in pairs], 1, 0)
+            pf = cuda_ms(jc["plain_fwd"], 1, 0)
+            pb = cuda_ms(jc["plain_bwd"], 1, 0)
             torch.cuda.empty_cache()
             n = 154 + 4096
 
@@ -9522,7 +9554,7 @@ def phase_kernels_forms(card, tail):
                   f"library backward compute dq, dk, dv together; the "
                   f"library attends over the 4250 tokens concatenated): "
                   + "; ".join(parts), flush=True)
-            del c_, x_, gs, qs, stats, cat, gcat
+            del c_, x_, gs, qs, stats, cat, jc, fwd, dq, dkv
             torch.cuda.empty_cache()
     return records
 
@@ -9754,6 +9786,411 @@ def phase_kernels_wide_heads(card, tail):
             del q, k, v, g, out, lse, delta
             torch.cuda.empty_cache()
     return errs, records
+
+
+# ---------------------------------------------------------------------------
+# K5, K6 and K7 above head dim 256 (every head dim 257 - 512 in every
+# position form): bf16 K5 on K1's kernel of csrc/flash_attention.cu (the
+# position predicate and the bounded flag in its ANY form, key splits merged
+# by lse), K6 / K7 on the wide backward kernel, fp32 on the streaming TF32
+# kernels. At WIDE_DIMS in the forms of WIDE_POS_FORMS at WIDE_CASE (ragged;
+# the two segments of FORMS_POS cut off a multiple of 64), K5 online and
+# bounded, K6 and K7 under the plain forward's lse: bf16 against the plain
+# versions at the wide phase's bounds (out 2e-2, lse 1e-3 over the rows that
+# see a key, each gradient 2e-2 of its largest), fp32 against the plain
+# versions in fp64 within WIDE_FP64_TOL of each largest; the outputs
+# allocated from a pool poisoned with NaNs, rows that see no key blank. Then
+# the main path at full width: SD3-medium's joint attention (hidden 1536,
+# 154 + 4096 tokens, batch 2) cut into heads of WIDE_JOINT_DIMS, through
+# joint_flash_attention forward and backward(), bf16 and fp32, online and
+# bounded, held to the plain joint attention (attention over the
+# concatenated streams) and timed by kernel beside one
+# scaled_dot_product_attention (TF32 off) and the bound; and the ring over a
+# 4-shard mesh of the card at WIDE_RING_SHAPE (the parallel group's ring at
+# heads of 512) against the one-device joint attention and the plain
+# version, its hop kernels at (2, 3, 1063, 1063, 512) timed.
+WIDE_POS_FORMS = {  # name -> (q offsets, k offsets, keywords)
+    "none": ((0, 0), (0, 0), {}),
+    "causal": ((0, 0), (0, 0), dict(causal=True)),
+    "valid_len": ((0, 0), (0, 0), dict(valid_len=450)),
+    "two segments": (FORMS_POS["q_off"], FORMS_POS["k_off"],
+                     dict(causal=True, valid_len=FORMS_POS["valid_len"],
+                          seg_q=FORMS_POS["seg_q"],
+                          seg_k=FORMS_POS["seg_k"])),
+}
+WIDE_JOINT_DIMS = (384, 512)
+WIDE_RING_SHAPE = (2, 3, 4252, 512)
+WIDE_POS_FAMS = dict(bf16=("K1 flash fwd", "K3/K4 flash bwd wide",
+                           "K3/K4 flash bwd wide"),
+                     fp32=(F32_FWD, "K3/K4 fp32 flash bwd stream",
+                           "K3/K4 fp32 flash bwd stream"))
+WIDE_POS_DESIGN = (
+    "every head dim 257 - 512 in every position form: bf16 K5 on K1's d512 "
+    "kernel at the padded widths 384 and 512 (its ANY form: pos_pair per "
+    "(64, 64) tile in every role, the per-logit mask on partly visible "
+    "tiles, the bounded softmax a launch flag keeping the max at 0; key "
+    "splits merged by lse, a split without a visible key weighing 0), K6 / "
+    "K7 on the wide backward kernel under the caller's global lse and "
+    "delta (64 rows a block, pos_pair with the query and key tiles whichever "
+    "axis the rows are, masked probabilities selected to 0; dk and dv blocks "
+    "in one launch); fp32 on the streaming TF32 kernels (the forward's "
+    "kWideAny / kWideBounded at 384 and 512 with key splits, the streaming "
+    "backward's ANY form reading the offsets, segments and valid_len)")
+
+
+def wide_pos_check(fa, rnd, dtype, d, form):
+    """K5 (online and bounded), K6 and K7 at head dim ``d`` in one form of
+    WIDE_POS_FORMS at WIDE_CASE against the plain versions (fp64 ones for
+    fp32 inputs), the outputs drawn from a NaN-poisoned pool; each launch
+    counted on its route and at ``d``. Returns the errors by kernel (bf16:
+    out and lse absolute, gradients of their largest; fp32: each of its
+    largest) and whether the check held."""
+    import torch
+
+    bf16 = dtype == torch.bfloat16
+    b, h, lq, lk = WIDE_CASE
+    q_off, k_off, kw = WIDE_POS_FORMS[form]
+    off = lambda a: torch.tensor(a, dtype=torch.int32, device="cuda")
+    qo, ko = off(q_off), off(k_off)
+    q, g = (rnd(b, h, lq, d).to(dtype) for _ in range(2))
+    k, v = (rnd(b, h, lk, d).to(dtype) for _ in range(2))
+    ins = [q, k, v] if bf16 else [x.double() for x in (q, k, v)]
+    ref, ref_lse = fa.flash_attention_pos_plain(*ins, qo, ko, **kw)
+    seen = ref_lse > -1e29
+    lse32 = ref_lse.float().contiguous()
+    delta = (g.double() * ref.double()).sum(-1)
+    gw = g if bf16 else g.double()
+    want = fa.flash_bwd_pos_plain(*ins, gw, lse32 if bf16 else ref_lse,
+                                  delta.float() if bf16 else delta, qo, ko,
+                                  **kw)
+    fns = (fa.flash_attention_pos_cuda, fa.flash_bwd_pos_dq_cuda,
+           fa.flash_bwd_pos_dkv_cuda)
+    routes = [fa.k5_route(dtype, d), fa.k6_route(dtype, d),
+              fa.k7_route(dtype, d)]
+    before = [(fn.routes[r], fn.head_dims[d]) for fn, r in zip(fns, routes)]
+    errs, blank = {}, True
+    for stability in ("online", "bounded"):
+        _poison(b, lq, h, d)
+        out, lse = fa.flash_attention_pos_cuda(q, k, v, qo, ko,
+                                               stability=stability, **kw)
+        torch.cuda.synchronize()
+        blank = blank and bool((lse[~seen] <= -1e29).all()) and not bool(
+            out[~seen].any()) and bool(torch.isfinite(out).all())
+        if bf16:
+            errs["K5 " + stability] = max(
+                (out.double() - ref.double())[seen].abs().max().item(),
+                (lse.double() - ref_lse.double())[seen].abs().max().item())
+            errs["K5 " + stability + " lse"] = (
+                lse.double() - ref_lse.double())[seen].abs().max().item()
+        else:
+            errs["K5 " + stability] = max(
+                _rel_err(out[seen], ref[seen]),
+                _rel_err(lse[seen], ref_lse[seen]))
+    _poison(b, lk, h, 2 * d)
+    got = (fa.flash_bwd_pos_dq_cuda(q, k, v, g, lse32, delta.float(), qo,
+                                    ko, **kw),
+           *fa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse32, delta.float(), qo,
+                                      ko, **kw))
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    rel = [_rel_err(a, w) if finite else float("inf")
+           for a, w in zip(got, want)]
+    errs["K6"], errs["K7"] = rel[0], max(rel[1:])
+    counted = [(fn.routes[r], fn.head_dims[d]) for fn, r in
+               zip(fns, routes)] == [(n + m, c + m) for (n, c), m in
+                                     zip(before, (2, 1, 1))]
+    if bf16:
+        ok = (errs["K5 online"] <= 2e-2 and errs["K5 bounded"] <= 2e-2
+              and errs["K5 online lse"] <= 1e-3
+              and errs["K5 bounded lse"] <= 1e-3
+              and errs["K6"] <= 2e-2 and errs["K7"] <= 2e-2)
+    else:
+        ok = max(errs.values()) <= WIDE_FP64_TOL
+    n_blank = int((~seen).sum())
+    ok = ok and blank and counted
+    return errs, ok, f"{'/'.join(routes)}, {n_blank} rows blank", blank, \
+        counted
+
+
+def _joint_inputs(rnd, dtype, d):
+    """SD3-medium's joint attention cut into heads of ``d``: the six
+    streams (B, H, L, d) and the cotangents of both outputs."""
+    b, h = 2, SD3_HIDDEN // d
+    xs = [rnd(b, h, n, d).to(dtype) for n in (154,) * 3 + (4096,) * 3]
+    gs = [rnd(b, h, n, d).to(dtype) for n in (154, 4096)]
+    return xs, gs
+
+
+def _joint_pass(fa, xs, gs, stability):
+    """One joint attention forward and backward() through autograd: the
+    outputs and the six gradients."""
+    import torch
+
+    leaves = [x.detach().requires_grad_() for x in xs]
+    oc, ox = fa.joint_flash_attention(*leaves, stability=stability)
+    torch.autograd.backward((oc, ox), gs)
+    return (oc.detach(), ox.detach()), [x.grad for x in leaves]
+
+
+def phase_kernels_wide_pos(card, tail):
+    """K5, K6 and K7 above head dim 256: every form of WIDE_POS_FORMS at
+    WIDE_DIMS in both dtypes against the plain versions; SD3-medium's joint
+    attention at heads of WIDE_JOINT_DIMS forward and backward in both
+    dtypes and softmaxes (the launches counted from 0, one path a dtype)
+    against the plain joint attention, then timed by kernel; the ring at
+    WIDE_RING_SHAPE over 4 shards of the card (its own path). Returns
+    (largest error by kernel, the records by kernel, the three paths'
+    launches)."""
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+    from from_ddpm_to_stable_diffusion_tpu_torch.parallel.ring_attention import (
+        ring_attention)
+
+    gen = torch.Generator(device="cuda").manual_seed(2800)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    errs = dict(K5=0.0, K6=0.0, K7=0.0)
+    records = dict(K5=[], K6=[], K7=[])
+    n_cases = 0
+    for dtype in (bf16, fp32):
+        dt = "bf16" if dtype == bf16 else "fp32"
+        for d in WIDE_DIMS:
+            for form in WIDE_POS_FORMS:
+                e, ok, said, blank, counted = wide_pos_check(fa, rnd, dtype,
+                                                            d, form)
+                what = (f"{dt} d={d} (width {fa._wide_width(d)}) "
+                        f"{WIDE_CASE} {form}")
+                print(f"wide pos: {what} ({said}): " + ", ".join(
+                    f"{k} {x:.2e}" for k, x in e.items())
+                    + f"; blank rows blank {blank}, counted {counted}",
+                    flush=True)
+                check(ok, f"K5/K6/K7 at {what} off their plain versions: "
+                      f"{e}, blank {blank}, counted {counted}")
+                for k, x in e.items():
+                    kern = k.split()[0]
+                    errs[kern] = max(errs[kern], x)
+                n_cases += 1
+    print(f"wide pos: {n_cases} cases held (K5 online and bounded, K6, K7; "
+          f"bf16 against the plain versions, fp32 against fp64); largest "
+          f"errors {errs}", flush=True)
+
+    z = torch.zeros(2, dtype=torch.int32, device="cuda")
+    runs = []
+    for dtype in (bf16, fp32):
+        dt = "bf16" if dtype == bf16 else "fp32"
+        inputs = {d: _joint_inputs(rnd, dtype, d) for d in WIDE_JOINT_DIMS}
+        # the path: the joint attention forward and backward at both widths
+        # and softmaxes, the launches counted from 0
+        reset_counts()
+        got = {(d, st): _joint_pass(fa, *inputs[d], st)
+               for d in WIDE_JOINT_DIMS for st in ("online", "bounded")}
+        torch.cuda.synchronize()
+        counts = read_counts()
+        runs.append(counts)
+        n = 4 * len(got)
+        want_route = dict(K5="d512", K6="wide", K7="wide") if dtype == bf16 \
+            else dict(K5="fp32", K6="fp32", K7="fp32")
+        half = {d: n // 2 for d in WIDE_JOINT_DIMS}
+        ok_counts = all(
+            counts[k] == n and getattr(counts, k.lower() + "_routes") == {
+                r: n} and getattr(counts, k.lower() + "_head_dims") == half
+            for k, r in want_route.items()) and not any(
+            counts[k] for k in ("K1", "K3", "K4"))
+        print(f"wide pos: {dt} joint attention path, heads of "
+              f"{WIDE_JOINT_DIMS} online and bounded, forward + backward: "
+              f"launches {dict(counts)}, K5 {counts.k5_routes} "
+              f"{counts.k5_head_dims}, K6 {counts.k6_routes}, K7 "
+              f"{counts.k7_routes}", flush=True)
+        check(ok_counts, f"{dt} wide joint attention launches: "
+              f"{dict(counts)} {counts.k5_routes} {counts.k6_routes} "
+              f"{counts.k7_routes} {counts.k5_head_dims}")
+        for d in WIDE_JOINT_DIMS:
+            xs, gs = inputs[d]
+            b, h = xs[0].shape[:2]
+            cat = [torch.cat([c, x], 2) for c, x in zip(xs[:3], xs[3:])]
+            gcat = torch.cat(gs, 2)
+            want_o, want_l = fa.flash_attention_plain(*cat)
+            want_g = fa.flash_attention_bwd_plain(*cat, want_o, want_l, gcat)
+            jc = joint_calls(fa, xs[:3], xs[3:], dict(c=gs[0], x=gs[1]), z)
+            # the merged lse of the query streams (K5 online over their two
+            # key streams, merged as the joint attention merges them)
+            merged_l = torch.cat([jc["stats"][sq][0] for sq in ("c", "x")], 2)
+            full = {}
+            for st in ("online", "bounded"):
+                outs, grads = got[(d, st)]
+                e = full_width_errors(
+                    (torch.cat(outs, 2), merged_l), (want_o, want_l),
+                    [torch.cat([grads[i], grads[i + 3]], 2)
+                     for i in range(3)], want_g)
+                full[f"K5 {st} out"] = e["out"]
+                if st == "online":
+                    full["K5 merged lse"] = e["lse"]
+                full["K6"] = max(full.get("K6", 0.0), e["dq"])
+                full["K7"] = max(full.get("K7", 0.0), e["dk"], e["dv"])
+            del want_o, want_l, want_g, merged_l
+            # each stream pair's out and lse, both softmaxes, against the
+            # plain K5; the plain calls' first run warms their timing below
+            want_f = jc["plain_fwd"]()
+            for st in ("online", "bounded"):
+                for got_p, want_p in zip(jc["fwd"](st)(), want_f):
+                    e = full_width_errors(got_p, want_p, (), ())
+                    for part in ("out", "lse"):
+                        key = f"K5 {st} pair {part}"
+                        full[key] = max(full.get(key, 0.0), e[part])
+            del want_f
+            # bf16: the merged out (4250 keys, |out| ~ 0.02) within 4e-3,
+            # each pair's out (154 keys give |out| ~ 0.1) within 2e-2, lse
+            # within 1e-3, the gradients within 2e-2 of their largest
+            tol = ({k_: 1e-3 if k_.endswith("lse") else 4e-3
+                    if k_.endswith(" out") and "pair" not in k_ else 2e-2
+                    for k_ in full} if dtype == bf16
+                   else {k_: FP32_TOL for k_ in full})
+            print(f"wide pos: {dt} SD3 joint attention, {h} heads of {d}, "
+                  f"forward and backward() against the plain joint "
+                  f"attention and each stream pair against the plain K5 "
+                  f"({'merged out 4e-3, pair out 2e-2, lse 1e-3 absolute, gradients 2e-2 of their largest' if dtype == bf16 else f'fp32, TF32 off: out and lse within {FP32_TOL} absolute, gradients of their largest'}): "
+                  + ", ".join(f"{k_} {x:.3e}" for k_, x in full.items()),
+                  flush=True)
+            check(all(full[k_] <= tol[k_] for k_ in full),
+                  f"{dt} wide joint attention at heads of {d} off the plain "
+                  f"joint attention: {full}")
+            for k_, x in full.items():
+                kern = k_.split()[0]
+                errs[kern] = max(errs[kern], x)
+
+            # each kernel over the four stream pairs, timed
+            fwd, dq, dkv = jc["fwd"], jc["dq"], jc["dkv"]
+            lib_f, lib_b = joint_library_ms(cat, gcat)
+            pf = cuda_ms(jc["plain_fwd"], 1, 0)
+            pb = cuda_ms(jc["plain_bwd"], 1, 0)
+            torch.cuda.empty_cache()
+            n_tok = 154 + 4096
+
+            def bnd(n_p, n_q, n_k, n_s):
+                if dtype == bf16:
+                    return dict(zip(("bound_ms", "bound_by"), attn_bound(
+                        b, h, n_tok, n_tok, d, n_p, n_q, n_k, n_s)),
+                        bound_basis="bf16 at 989 TFLOP/s")
+                return tf32_bound(b, h, n_tok, n_tok, d, 1.0, n_p, n_q, n_k,
+                                  n_s)
+
+            parts = []
+            for kern, label, run, plain, lib, work, fam in (
+                    ("K5", "online", fwd("online"), pf, lib_f, (2, 2, 2, 1),
+                     WIDE_POS_FAMS[dt][0]),
+                    ("K5", "bounded", fwd("bounded"), pf, lib_f,
+                     (2, 2, 2, 1), WIDE_POS_FAMS[dt][0]),
+                    ("K6", "", dq, pb, lib_b, (3, 3, 2, 2),
+                     WIDE_POS_FAMS[dt][1]),
+                    ("K7", "", dkv, pb, lib_b, (4, 2, 4, 2),
+                     WIDE_POS_FAMS[dt][2])):
+                bb = bnd(*work)
+                n_it = 3 if dtype == fp32 else 5
+                t = dict(ms=cuda_ms(run, n_it, 1), plain_ms=plain,
+                         library_ms=lib, bound_ms=bb["bound_ms"],
+                         bound_by=bb["bound_by"])
+                dev = device_families(run, fam)
+                t["device_ms"] = dev.get(fam)
+                rec = dict(dtype=dt, shape=[b, h, n_tok, d],
+                           width=fa._wide_width(d),
+                           pairs="four stream pairs, 154 + 4096 tokens",
+                           stability=label or None,
+                           route=want_route[kern],
+                           bound_basis=bb["bound_basis"],
+                           launches_per_call=4, **t)
+                rec["bound_share"] = t["bound_ms"] / t["ms"]
+                records[kern].append(rec)
+                parts.append(
+                    f"{kern}{' ' + label if label else ''} "
+                    f"({want_route[kern]}): "
+                    + tail(**{k_: x for k_, x in t.items()
+                              if k_ != "device_ms"})
+                    + f", device {fmt_ms(t['device_ms'])}")
+            print(f"wide pos: timed {dt} SD3 joint attention, {h} heads of "
+                  f"{d} (B, H, Lc + Lx, D)=({b},{h},154+4096,{d}), four "
+                  f"launches each over the stream pairs (the plain and "
+                  f"library backward compute dq, dk, dv together; the "
+                  f"library attends over the 4250 tokens concatenated): "
+                  + "; ".join(parts), flush=True)
+            del jc, fwd, dq, dkv, cat, gcat
+            torch.cuda.empty_cache()
+        del inputs, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the ring at heads of 512: a path of its own, then its hop kernels
+    mesh = card_mesh()
+    b, h, l, d = WIDE_RING_SHAPE
+    V, lc = RING_VALID, RING_LC
+    q, k, v, g = (rnd(b, h, l, d).to(bf16) for _ in range(4))
+    g[:, :, V:] = 0          # the padded rows are sliced off: no gradient
+    streams = lambda t: (t[:, :, :lc], t[:, :, lc:V])
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    reset_counts()
+    out = ring_attention(*leaves, mesh, kv_valid_len=V)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    runs.append(counts)
+    n2 = RING_N ** 2
+    ok_counts = (counts["K5"] == counts["K6"] == counts["K7"] == n2
+                 and counts.k5_routes == {"d512": n2}
+                 and counts.k6_routes == {"wide": n2}
+                 and counts.k7_routes == {"wide": n2}
+                 and counts.k5_head_dims == {d: n2})
+    check(ok_counts, f"the ring at d {d}: launches {dict(counts)} "
+          f"{counts.k5_routes} {counts.k6_routes} {counts.k7_routes}")
+    (qc, qx), (kc, kx), (vc, vx) = streams(q), streams(k), streams(v)
+    jl = [t.detach().requires_grad_() for t in (qc, kc, vc, qx, kx, vx)]
+    oc, ox = fa.joint_flash_attention(*jl)
+    jg = torch.autograd.grad((oc, ox), jl, streams(g))
+    joint = torch.cat([oc, ox], 2)
+    joint_g = [torch.cat([jg[i], jg[i + 3]], 2) for i in range(3)]
+    plain, plain_lse = fa.flash_attention_pos_plain(q, k, v, z, z,
+                                                    valid_len=V)
+    delta = (g.float() * plain.float()).sum(-1)
+    plain_g = fa.flash_bwd_pos_plain(q, k, v, g, plain_lse, delta, z, z,
+                                     valid_len=V)
+    e_joint = (out[:, :, :V].float() - joint.float()).abs().max().item()
+    e_plain = (out[:, :, :V].float() - plain[:, :, :V].float()).abs().max(
+    ).item()
+    check(e_joint <= 2e-2 and e_plain <= 2e-2,
+          f"ring at d {d} forward off: joint {e_joint}, plain {e_plain}")
+    check(all(float(t[:, :, V:].abs().max()) == 0.0 for t in grads[1:]),
+          f"ring at d {d}: the padded keys got a gradient")
+    mine = [t[:, :, :V] for t in grads]
+    errs_joint = _grad_errors(f"ring at d {d} backward vs joint", mine,
+                              joint_g)
+    errs_plain = _grad_errors(f"ring at d {d} backward vs plain", mine,
+                              [t[:, :, :V] for t in plain_g])
+    errs["K5"] = max(errs["K5"], e_joint, e_plain)
+    del jl, oc, ox, jg, joint, joint_g, plain, plain_g, leaves, grads
+    gc.collect()
+    ring_ms = cuda_ms(lambda: ring_attention(q, k, v, mesh, kv_valid_len=V),
+                      3, 1)
+    print(f"wide pos: ring attention (B,H,L,D)={WIDE_RING_SHAPE} bf16 over "
+          f"{RING_N} shards of the card, kv_valid_len {V}: forward max|err| "
+          f"against the joint attention {e_joint:.3e}, against plain "
+          f"{e_plain:.3e} (atol 2e-2); backward against the joint attention "
+          f"{errs_joint}, against plain {errs_plain}; launches forward + "
+          f"backward {dict(counts)}, K5 {counts.k5_routes} K6 "
+          f"{counts.k6_routes} K7 {counts.k7_routes}; forward "
+          f"{ring_ms:.3f} ms a call [{card}]", flush=True)
+    n_l = l // RING_N
+    hop, errs_hop = hop_kernels(
+        card, "the ring hop at d 512", q[:, :, :n_l], k[:, :, 3 * n_l:],
+        v[:, :, 3 * n_l:], g[:, :, :n_l], (0, 0), (3 * n_l, 0), V,
+        dict(launches_per_ring_call=n2), fams=WIDE_POS_FAMS["bf16"])
+    print(f"wide pos: ring hop at d 512 errors: {errs_hop}", flush=True)
+    for kern in ("K5", "K6", "K7"):
+        records[kern].append(dict(hop[kern], dtype="bf16",
+                                  route=fa.k5_route(bf16, d) if kern == "K5"
+                                  else "wide", ring_fwd_ms=ring_ms))
+    del out, q, k, v, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs, records, runs
 
 
 # The gradient through the SD1 VAE decoder at its operating point (latent
@@ -10185,7 +10622,9 @@ def main():
         kernels[k]["err"] = max(kernels[k]["err"], err)
     every_form = phase_kernels_forms(card, tail)
     wide_errs, wide_timed = phase_kernels_wide_heads(card, tail)
-    for k, err in wide_errs.items():
+    wide_pos_errs, wide_pos_timed, wide_pos_runs = phase_kernels_wide_pos(
+        card, tail)
+    for k, err in (*wide_errs.items(), *wide_pos_errs.items()):
         kernels[k]["err"] = max(kernels[k]["err"], err)
     mark("head_dims")
     vae_runs = phase_vae_grad(card)
@@ -10194,7 +10633,8 @@ def main():
     mark("parallel")
     import torch
 
-    paths = ("sd1", "sd1_slice", "vae_grad_bf16", "vae_grad_fp32", "sd1_tp",
+    paths = ("sd1", "sd1_slice", "vae_grad_bf16", "vae_grad_fp32",
+             "joint_wide_bf16", "joint_wide_fp32", "ring_d512", "sd1_tp",
              "sd1_trajectory", "serving", "sd1_cli", "sd1_768",
              "sd1_checkpoint", "sd1_int8",
              "sd3", "t5", "sd3_ring", "sd3_ulysses", "mmdit_pp",
@@ -10217,7 +10657,8 @@ def main():
              "tiny_sd_fp32", "mmdit_fp32", "mmdit_fp32_latent64",
              "clip_fp32", "checks")
     sd1_launches, sd1_models, sd1_image = phase_sd1(card)
-    runs = [sd1_launches, phase_sd1_slice(card, sd1_models), *vae_runs]
+    runs = [sd1_launches, phase_sd1_slice(card, sd1_models), *vae_runs,
+            *wide_pos_runs]
     mark("sd1")
     kernels_tp = phase_kernels_tp(card)
     kernels_tp_sp = phase_kernels_tp_sp(card)
@@ -10621,7 +11062,12 @@ def main():
                       "visible; the bounded form fixes the max at 0; one Q "
                       "buffer where two do not fit beside the ring (DP 160, "
                       "240, 256)"),
-              sm90=by_route("sm90", "k5"), shapes=kernels["K5 shapes"],
+              sm90=by_route("sm90", "k5"),
+              wide_heads=dict(
+                  source=pkg + "flash_attention.cu", fp32_source=pkg + "fp32/flash_f32_fwd_wide.cuh",
+                  widths=list(fa._WIDE_WIDTHS), design=WIDE_POS_DESIGN,
+                  timed=wide_pos_timed["K5"],
+                  **by_route("d512", "k5")), shapes=kernels["K5 shapes"],
               every_form=every_form["K5"],
               ring=kernels_ring["K5"], ring_call=kernels_ring["call"],
               tp_shard=kernels_tp["K5"], tp_sp_hop=kernels_tp_sp["K5"],
@@ -10641,7 +11087,12 @@ def main():
                       "operand of dQ += dS K with K MN-major); every role "
                       "skips the same pairs from their position bounds, "
                       "masked P selected to 0"),
-              sm90=by_route("sm90", "k6"), shapes=kernels["K6"]["shapes"],
+              sm90=by_route("sm90", "k6"),
+              wide_heads=dict(
+                  source=pkg + "flash_attention_wide_bwd_sm90.cuh", fp32_source=pkg + "fp32/flash_f32_bwd_stream.cuh",
+                  widths=list(fa._WIDE_WIDTHS), design=WIDE_POS_DESIGN,
+                  timed=wide_pos_timed["K6"],
+                  **by_route("wide", "k6")), shapes=kernels["K6"]["shapes"],
               every_form=every_form["K6"],
               ring=kernels_ring["K6"], tp_sp_hop=kernels_tp_sp["K6"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",
@@ -10661,7 +11112,12 @@ def main():
                       "the RS A operand of dV += P^T dO and dK += dS^T Q); "
                       "every role skips the same pairs from their position "
                       "bounds, masked P selected to 0"),
-              sm90=by_route("sm90", "k7"), shapes=kernels["K7"]["shapes"],
+              sm90=by_route("sm90", "k7"),
+              wide_heads=dict(
+                  source=pkg + "flash_attention_wide_bwd_sm90.cuh", fp32_source=pkg + "fp32/flash_f32_bwd_stream.cuh",
+                  widths=list(fa._WIDE_WIDTHS), design=WIDE_POS_DESIGN,
+                  timed=wide_pos_timed["K7"],
+                  **by_route("wide", "k7")), shapes=kernels["K7"]["shapes"],
               every_form=every_form["K7"],
               ring=kernels_ring["K7"], tp_sp_hop=kernels_tp_sp["K7"],
               timed_at="(B,H,Lq,Lk,D)=(2,24,4096,4096,64), global lse",

@@ -2,16 +2,20 @@
 // wgmma, bf16 in, fp32 softmax, out bf16 + lse fp32: K1 at the padded widths
 // DP = 384 (head dims 257 to 384) and 512 (385 to 512), without a mask and
 // in every mask form (causal, an additive bias, segment ids and their
-// combinations). At 512 it is the VAEs' one-head mid attention (SD1 decoder
-// and encoder, (B, 1, 4096, 512); SD3 decoder, (1, 1, 16384, 512)). Head
-// dims up to 256 are the kernel of flash_attention_sm90.cu.
+// combinations), and K5 (the position masks, online and bounded) at the same
+// widths. At 512 it is the VAEs' one-head mid attention (SD1 decoder and
+// encoder, (B, 1, 4096, 512); SD3 decoder, (1, 1, 16384, 512)). Head dims up
+// to 256 are the kernels of flash_attention_sm90.cu.
 //
 // Replaces, above head dim 256, the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_wide
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel
-// (the latter in its bias, causal and segment-id forms), computing what they
-// compute (out in bf16, lse = m + log l in fp32) with the TPU's sequential
-// key-block grid axis as a loop in the block.
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_fwd_kernel_pos
+// (the second in its bias, causal and segment-id forms, the third in its
+// position forms: two offset segments a side, valid_len, causal by position,
+// online or bounded), computing what they compute (out in bf16, lse = m +
+// log l in fp32) with the TPU's sequential key-block grid axis as a loop in
+// the block.
 //
 // What bounds it on the H100: operations (4096 keys: ~2,000 flop per byte),
 // so the tensor cores' issue rate. The mma.sync kernel it replaces reached
@@ -44,28 +48,42 @@
 //    the two parts are added once, at the end.
 //  - the key tail is masked on the last tile only (TMA's zeros are logits of
 //    0, not masked ones).
-//  - masks (the ANY instantiation, every path chosen per launch): causal
-//    (key <= query from index 0) stops at the diagonal tile and masks per
-//    logit there; the bias is read from global memory into each consumer's
-//    logits (logit = scale s + bias in fp32; a bias of -1e30 or -inf hides
-//    the key, narrowing the key-tail mask); segment ids walk the tile range
-//    [lo, hi] of mask.cuh at (64, 64), skip a tile whose id range is
-//    disjoint and compare ids per logit. A masked probability is selected
-//    to 0, so a row that sees no key gives out = 0 and lse = -1e30.
+//  - masks (the ANY instantiation, every path chosen per launch): the
+//    position masks of pos_tile.cuh (two offset segments a side, valid_len,
+//    causal by position; K1's causal is the same predicate with offsets 0,
+//    key <= query from index 0) judge each (query tile, key tile) pair by
+//    pos_pair in every role: a pair that shows nothing is skipped, a
+//    partly visible one masked per logit; the bias is read from global
+//    memory into each consumer's logits (logit = scale s + bias in fp32; a
+//    bias of -1e30 or -inf hides the key, narrowing the key-tail mask);
+//    segment ids walk the tile range [lo, hi] of mask.cuh at (64, 64), skip
+//    a tile whose id range is disjoint and compare ids per logit. A masked
+//    probability is selected to 0, so a row that sees no key gives out = 0
+//    and lse = -1e30. The bounded softmax (K5's, a launch flag) keeps the
+//    max at 0: no row maxima exchanged, no rescale.
 //  - key split: with fewer 64-query blocks than SMs (SD1's 4096 queries give
 //    64) the host splits the key tiles over up to four blocks per query
 //    tile; each writes O / l in fp32 and its lse into a workspace, and
 //    merge_d512_kernel combines them by their lse into out and lse. A split
-//    whose keys a row does not see (past the diagonal, other segments, or
-//    all masked) gets lse = -1e30 there and weight 0.
+//    whose keys a row does not see (past the diagonal, past valid_len, other
+//    segments, or all masked; a whole split or launch past them) gets lse =
+//    -1e30 there and weight 0. Under the bounded softmax each split's sum is
+//    taken under the fixed max 0, its lse = log l; the merge's max is over
+//    the splits' lse, not the logits, so the merged lse is log of the sum of
+//    the splits' sums, what one block over every key would give.
 
 #include "mask.cuh"
+#include "pos_tile.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 namespace s9 = fdsd::sm90;
 using fdsd::MaskArgs;
+using fdsd::PosArgs;
+using fdsd::pos_bounds;
+using fdsd::pos_of;
+using fdsd::pos_pair;
 using fdsd::seg_overlap;
 
 constexpr float kNegInf = -1e30f;
@@ -100,10 +118,11 @@ struct Params {
   float* lse;
   float* work;  // splits > 1: O / l (splits, rows, DP), then lse (splits, rows)
   int H, Lq, Lk, d, n_qt, splits, kt_per_split;
-  int causal;   // ANY: key <= query
+  int bounded;  // ANY: the max fixed at 0 (K5's bounded softmax)
   long long rows;   // B * H * Lq
   long long os[3];  // out's (batch, head, seq) element strides
   float scale;
+  PosArgs pos;  // ANY: the position masks (K1: null offsets, read as 0)
   MaskArgs m;   // ANY: the bias and the segment arrays at (64, 64)
 };
 
@@ -133,7 +152,10 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
   const int tile = blockIdx.x / p.splits;
   const int bh = tile / p.n_qt;
   int qt = tile % p.n_qt;
-  const bool causal = ANY && p.causal != 0;
+  const bool causal = ANY && p.pos.causal != 0;
+  const bool has_valid = ANY && p.pos.has_valid != 0;
+  const bool masked = causal || has_valid;  // positions matter
+  const bool bounded = ANY && p.bounded != 0;
   const bool has_bias = ANY && p.m.bias != nullptr;
   const bool has_seg = ANY && p.m.q_ids != nullptr;
   if (causal) qt = p.n_qt - 1 - qt;  // the longest rows start first
@@ -142,10 +164,19 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_kt = (p.Lk + kBK - 1) / kBK;
   int kt_begin = split * p.kt_per_split;
   int kt_end = min(n_kt, kt_begin + p.kt_per_split);
+  // The offsets, read where a mask needs positions (null reads as 0).
+  int q_off0 = 0, q_off1 = 0, k_off0 = 0, k_off1 = 0;
+  if (masked && p.pos.q_off != nullptr) {
+    q_off0 = p.pos.q_off[0];
+    q_off1 = p.pos.q_off[1];
+  }
+  if (masked && p.pos.k_off != nullptr) {
+    k_off0 = p.pos.k_off[0];
+    k_off1 = p.pos.k_off[1];
+  }
   // The key tiles this block visits, the same walk in every role: its
-  // split's; up to the diagonal when causal; the range whose segment ids
+  // split's; those pos_pair does not skip; the range whose segment ids
   // overlap this query tile's, less the disjoint tiles inside it.
-  if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBK + 1);
   const int* q_bound = nullptr;
   const int* k_bounds = nullptr;
   if (has_seg) {
@@ -155,8 +186,16 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
     q_bound = p.m.q_bounds + 2 * seg_tile;
     k_bounds = p.m.kv_bounds + 2 * b * n_kt;
   }
-  auto visits = [&](int kt) {
-    return !has_seg || seg_overlap(q_bound, k_bounds + 2 * kt);
+  // what the (query tile, key tile kt) pair needs: 0 skip, 1 visible, 2
+  // masked per logit by position; the same call in every role keeps the
+  // barriers' phases in step (pos_tile.cuh)
+  auto pair = [&](int kt) {
+    if (has_seg && !seg_overlap(q_bound, k_bounds + 2 * kt)) return 0;
+    if (!masked) return 1;
+    int q_lo, q_hi, k_lo, k_hi;
+    pos_bounds(q0, kBQ, q_off0, q_off1, p.pos.seg_q, p.Lq, q_lo, q_hi);
+    pos_bounds(kt * kBK, kBK, k_off0, k_off1, p.pos.seg_k, p.Lk, k_lo, k_hi);
+    return pos_pair(p.pos, q_lo, q_hi, k_lo, k_hi);
   };
 
   if (tid == 0) {
@@ -182,7 +221,7 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
         s9::tma_load_4d(q_s + c * kQChunk, &tq, q_full, c * W, q0, h, b);
       uint32_t phase = 0;
       for (int kt = kt_begin; kt < kt_end; ++kt) {
-        if (!visits(kt)) continue;
+        if (pair(kt) == 0) continue;
         const int k0 = kt * kBK;
         s9::mbar_wait(k_empty, phase ^ 1);
         s9::mbar_expect_tx(k_full, C::kKBytes);
@@ -205,7 +244,8 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
     const int r0 = q0 + rl0, r1 = q0 + rl1;
     // exp(x * scale) = exp2(x * c); with a bias the logits are scaled first
     const float c = has_bias ? kLog2e : p.scale * kLog2e;
-    float m0 = kNegInf, m1 = kNegInf;  // running row max (logit units)
+    // running row max (logit units; bounded: fixed at 0)
+    float m0 = bounded ? 0.f : kNegInf, m1 = m0;
     float l0 = 0.f, l1 = 0.f;  // this thread's share of its half's row sums
     float o[NC / 2];
 #pragma unroll
@@ -223,11 +263,19 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
       if (r1 < p.Lq) qid1 = ids[r1];
     }
     const long long bias_base = has_bias ? b * p.m.bs[0] + h * p.m.bs[1] : 0;
+    // ANY: the positions of this thread's two rows (rows past Lq are not
+    // written, whatever they see)
+    int qpos0 = 0, qpos1 = 0;
+    if (masked) {
+      qpos0 = pos_of(r0, q_off0, q_off1, p.pos.seg_q);
+      qpos1 = pos_of(r1, q_off0, q_off1, p.pos.seg_q);
+    }
 
     s9::mbar_wait(q_full, 0);  // also when no tile is visited: TMA is done
     uint32_t phase = 0;
     for (int kt = kt_begin; kt < kt_end; ++kt) {
-      if (!visits(kt)) continue;
+      const int state = pair(kt);
+      if (state == 0) continue;
       const int k0 = kt * kBK;
       s9::mbar_wait(k_full, phase);
 
@@ -263,20 +311,24 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
             s[4 * j + e] = fmaf(s[4 * j + e], p.scale, bias);
           }
       }
-      // The key tail (last tile only), the diagonal tile's keys past each
-      // row's query, and keys of another segment, to -1e30; the key tail
-      // after the bias, which narrows it and never replaces it.
-      const bool diag = causal && k0 + kBK - 1 > q0;
-      if (k0 + kBK > p.Lk || diag || has_seg) {
+      // The key tail (last tile only), on a partly visible pair the keys
+      // past valid_len and past each row's position, and keys of another
+      // segment, to -1e30; the key tail after the bias, which narrows it
+      // and never replaces it.
+      if (k0 + kBK > p.Lk || state == 2 || has_seg) {
 #pragma unroll
         for (int j = 0; j < kHalf / 8; ++j)
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             const int key = k0 + kHalf * cw + 8 * j + 2 * t + u;
             bool v0 = key < p.Lk, v1 = v0;
-            if (diag) {
-              v0 = v0 && key <= r0;
-              v1 = v1 && key <= r1;
+            if (state == 2) {
+              const int kpos = pos_of(key, k_off0, k_off1, p.pos.seg_k);
+              if (has_valid && kpos >= p.pos.valid_len) v0 = v1 = false;
+              if (causal) {
+                v0 = v0 && kpos <= qpos0;
+                v1 = v1 && kpos <= qpos1;
+              }
             }
             if (has_seg && key < p.Lk) {
               const int kid = kv_ids[key];
@@ -288,33 +340,41 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
           }
       }
 
-      // The row max over both halves of the tile, through shared memory; a
-      // row with nothing visible yet subtracts 0.
+      // The row max over both halves of the tile, through shared memory (the
+      // bounded softmax keeps 0 and exchanges nothing); a row with nothing
+      // visible yet subtracts 0. The barrier also keeps this group from
+      // writing P while the other still reads the last tile's.
+      float al0 = 1.f, al1 = 1.f, sub0 = 0.f, sub1 = 0.f;
       float mx0 = kNegInf, mx1 = kNegInf;
+      if (!bounded) {
 #pragma unroll
-      for (int j = 0; j < kHalf / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-      }
+        for (int j = 0; j < kHalf / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
 #pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      if (t == 0) {
-        my_max[rl0] = mx0;
-        my_max[rl1] = mx1;
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        if (t == 0) {
+          my_max[rl0] = mx0;
+          my_max[rl1] = mx1;
+        }
       }
       s9::named_barrier_sync(1, kConsumers);
-      const float mn0 = fmaxf(m0, fmaxf(mx0, other_max[rl0]));
-      const float mn1 = fmaxf(m1, fmaxf(mx1, other_max[rl1]));
-      const float mu0 = ANY && mn0 <= kNegInf ? 0.f : mn0;
-      const float mu1 = ANY && mn1 <= kNegInf ? 0.f : mn1;
-      const float al0 = s9::exp2_approx((m0 - mu0) * c);
-      const float al1 = s9::exp2_approx((m1 - mu1) * c);
-      m0 = mn0;
-      m1 = mn1;
-      const float sub0 = mu0 * c, sub1 = mu1 * c;
+      if (!bounded) {
+        const float mn0 = fmaxf(m0, fmaxf(mx0, other_max[rl0]));
+        const float mn1 = fmaxf(m1, fmaxf(mx1, other_max[rl1]));
+        const float mu0 = ANY && mn0 <= kNegInf ? 0.f : mn0;
+        const float mu1 = ANY && mn1 <= kNegInf ? 0.f : mn1;
+        al0 = s9::exp2_approx((m0 - mu0) * c);
+        al1 = s9::exp2_approx((m1 - mu1) * c);
+        m0 = mn0;
+        m1 = mn1;
+        sub0 = mu0 * c;
+        sub1 = mu1 * c;
+      }
 
       // P = exp(scale * (S - m)) in bf16 into this group's half of the P
       // tile: row r, keys 8u .. 8u + 7 at unit u ^ (r % 8) of the row. A
@@ -518,6 +578,45 @@ cudaError_t launch_width(bool any, const void* q, const void* k,
              : launch<DP, false>(q, k, v, B, strides, p, s);
 }
 
+// The Params of a launch of B * H * ceil(Lq / 64) query tiles with
+// `splits` key splits; no mask, no position.
+Params make_params(void* out, void* lse, void* work, int B, int H, int Lq,
+                   int Lk, int d, const long long* strides, float scale,
+                   int splits) {
+  Params p = {};
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.work = static_cast<float*>(work);
+  p.H = H;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.d = d;
+  p.n_qt = (Lq + kBQ - 1) / kBQ;
+  p.splits = splits;
+  const int n_kt = (Lk + kBK - 1) / kBK;
+  p.kt_per_split = (n_kt + splits - 1) / splits;
+  p.rows = static_cast<long long>(B) * H * Lq;
+  for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
+  p.scale = scale;
+  p.pos = PosArgs{nullptr, nullptr, Lq, Lk, 0, 0, 0};
+  return p;
+}
+
+// The head dims (multiples of 8 from 264 to 512) and split counts (1 to 4,
+// with their scratch above 1) the kernels take.
+bool takes(int d, int splits, const void* work) {
+  return splits >= 1 && splits <= kMaxSplits &&
+         (splits == 1 || work != nullptr) && d > 256 && d <= 512 &&
+         d % 8 == 0;
+}
+
+cudaError_t launch_d(int d, bool any, const void* q, const void* k,
+                     const void* v, int B, const long long* strides,
+                     const Params& p, cudaStream_t s) {
+  return d <= 384 ? launch_width<384>(any, q, k, v, B, strides, p, s)
+                  : launch_width<512>(any, q, k, v, B, strides, p, s);
+}
+
 }  // namespace
 
 // K1 above head dim 256. strides: 16 element strides, (batch, head, seq) for
@@ -539,31 +638,41 @@ extern "C" int fdsd_flash_fwd_d512(const void* q, const void* k, const void* v,
                                    int Lk, int d, const long long* strides,
                                    float scale, int causal, int bias_bf16,
                                    int splits, void* stream) {
-  if (splits < 1 || splits > kMaxSplits || (splits > 1 && work == nullptr) ||
-      d <= 256 || d > 512 || d % 8 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Params p;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.lse = static_cast<float*>(lse);
-  p.work = static_cast<float*>(work);
-  p.H = H;
-  p.Lq = Lq;
-  p.Lk = Lk;
-  p.d = d;
-  p.n_qt = (Lq + kBQ - 1) / kBQ;
-  p.splits = splits;
-  const int n_kt = (Lk + kBK - 1) / kBK;
-  p.kt_per_split = (n_kt + splits - 1) / splits;
-  p.causal = causal != 0;
-  p.rows = static_cast<long long>(B) * H * Lq;
-  for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
-  p.scale = scale;
+  if (!takes(d, splits, work)) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(out, lse, work, B, H, Lq, Lk, d, strides, scale,
+                         splits);
+  p.pos.causal = causal != 0;  // by index: the positions with offsets 0
   p.m = fdsd::make_mask_args(bias, strides + 12, bias_bf16, q_ids, kv_ids,
                              q_bounds, kv_bounds, lo, hi);
   const bool any = causal != 0 || bias != nullptr || q_ids != nullptr;
-  const cudaError_t err =
-      d <= 384 ? launch_width<384>(any, q, k, v, B, strides, p, s)
-               : launch_width<512>(any, q, k, v, B, strides, p, s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_d(d, any, q, k, v, B, strides, p,
+                                   static_cast<cudaStream_t>(stream)));
 }
+
+// K5 above head dim 256, called by fdsd_flash_fwd_pos
+// (flash_attention_sm90.cu) with its arguments (strides: 12 element strides,
+// (batch, head, seq) for q, k, v, out; q_off and k_off int32[2] in device
+// memory; the scratch and key splits of fdsd_flash_fwd_d512), at the head
+// dims and split counts of fdsd_flash_fwd_d512. Without causal, valid_len
+// and bounded it runs the no-mask instantiation (offsets unread), else ANY
+// with the positions.
+namespace fdsd::d512 {
+
+cudaError_t fwd_pos(const void* q, const void* k, const void* v, void* out,
+                    void* lse, const void* q_off, const void* k_off,
+                    void* work, int B, int H, int Lq, int Lk, int d,
+                    const long long* strides, float scale, int seg_q,
+                    int seg_k, int valid_len, int has_valid, int causal,
+                    int bounded, int splits, cudaStream_t stream) {
+  if (!takes(d, splits, work)) return cudaErrorInvalidValue;
+  Params p = make_params(out, lse, work, B, H, Lq, Lk, d, strides, scale,
+                         splits);
+  p.pos = PosArgs{static_cast<const int*>(q_off),
+                  static_cast<const int*>(k_off), seg_q, seg_k, valid_len,
+                  has_valid != 0, causal != 0};
+  p.bounded = bounded != 0;
+  const bool any = causal != 0 || has_valid != 0 || bounded != 0;
+  return launch_d(d, any, q, k, v, B, strides, p, stream);
+}
+
+}  // namespace fdsd::d512

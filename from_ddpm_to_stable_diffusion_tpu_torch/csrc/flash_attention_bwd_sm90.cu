@@ -1,7 +1,7 @@
-// The C entries of K4 (bf16, every head dim up to 512) and K7 (up to 256):
+// The C entries of K4 and K7 (bf16, every head dim up to 512):
 // the kernels of flash_attention_bwd_sm90.cuh up to 256, their widths
-// instantiated in flash_attention_bwd_sm90_w*.cu; above 256 K4 is the kernel
-// of flash_attention_wide_bwd_sm90.cuh.
+// instantiated in flash_attention_bwd_sm90_w*.cu; above 256 K4 and K7 are
+// the kernel of flash_attention_wide_bwd_sm90.cuh.
 
 #include "flash_attention_bwd_sm90.cuh"
 #include "flash_attention_wide_bwd_sm90.cuh"
@@ -30,7 +30,8 @@ extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return static_cast<int>(fdsd::kw::launch_wide(
         1, q, k, v, g, dk, dv, nullptr, lse, delta, bias, bias_bf16, q_ids,
         kv_ids, q_bounds, kv_bounds, lo, hi, B, H, Lq, Lk, d, strides, scale,
-        causal, static_cast<cudaStream_t>(stream)));
+        fdsd::PosArgs{nullptr, nullptr, Lq, Lk, 0, 0, causal != 0},
+        static_cast<cudaStream_t>(stream)));
   Params p;
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
@@ -69,13 +70,22 @@ extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // values); the head-dim stride is 1. lse and delta are (B, H, Lq) contiguous
 // fp32, the global ones; q_off and k_off are int32[2] in device memory.
 // Every head dim from 1 to 256, at the padded width DP of padded_width;
-// others return cudaErrorInvalidValue.
+// from 264 to 512 (multiples of 8) the wide kernel under the same masks, the
+// dk and the dv blocks in one launch; others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_bwd_pos_dkv(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dk, void* dv, const void* q_off,
     const void* k_off, int B, int H, int Lq, int Lk, int d,
     const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
     int has_valid, int causal, void* stream) {
+  const fdsd::PosArgs pos{static_cast<const int*>(q_off),
+                          static_cast<const int*>(k_off), seg_q, seg_k,
+                          valid_len, has_valid, causal};
+  if (d > 256)
+    return static_cast<int>(fdsd::kw::launch_wide(
+        1, q, k, v, g, dk, dv, nullptr, lse, delta, nullptr, 0, nullptr,
+        nullptr, nullptr, nullptr, nullptr, nullptr, B, H, Lq, Lk, d, strides,
+        scale, pos, static_cast<cudaStream_t>(stream)));
   Params p = {};
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
@@ -90,9 +100,7 @@ extern "C" int fdsd_flash_bwd_pos_dkv(
     p.dvs[i] = strides[15 + i];
   }
   p.scale = scale;
-  p.pos = fdsd::PosArgs{static_cast<const int*>(q_off),
-                  static_cast<const int*>(k_off), seg_q, seg_k, valid_len,
-                  has_valid, causal};
+  p.pos = pos;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d < 1 || d > 256) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;

@@ -1,7 +1,7 @@
-// The C entries of K3 (bf16, every head dim up to 512) and K6 (up to 256):
+// The C entries of K3 and K6 (bf16, every head dim up to 512):
 // the kernels of flash_attention_dq_sm90.cuh up to 256, their widths
-// instantiated in flash_attention_dq_sm90_w*.cu; above 256 K3 is the kernel
-// of flash_attention_wide_bwd_sm90.cuh.
+// instantiated in flash_attention_dq_sm90_w*.cu; above 256 K3 and K6 are
+// the kernel of flash_attention_wide_bwd_sm90.cuh.
 
 #include "flash_attention_dq_sm90.cuh"
 #include "flash_attention_wide_bwd_sm90.cuh"
@@ -31,7 +31,8 @@ extern "C" int fdsd_flash_bwd_dq(const void* q, const void* k, const void* v,
     return static_cast<int>(fdsd::kw::launch_wide(
         0, q, k, v, g, dq, nullptr, dbias, lse, delta, bias, bias_bf16, q_ids,
         kv_ids, q_bounds, kv_bounds, lo, hi, B, H, Lq, Lk, d, strides, scale,
-        causal, static_cast<cudaStream_t>(stream)));
+        fdsd::PosArgs{nullptr, nullptr, Lq, Lk, 0, 0, causal != 0},
+        static_cast<cudaStream_t>(stream)));
   Params p = {};
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dbias = bias != nullptr ? static_cast<float*>(dbias) : nullptr;
@@ -67,6 +68,7 @@ extern "C" int fdsd_flash_bwd_dq(const void* q, const void* k, const void* v,
 // values); the head-dim stride is 1. lse and delta are (B, H, Lq) contiguous
 // fp32, the global ones; q_off and k_off are int32[2] in device memory.
 // Every head dim from 1 to 256, at the padded width DP = d rounded up to 16;
+// from 264 to 512 (multiples of 8) the wide kernel under the same masks;
 // others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_bwd_pos_dq(
     const void* q, const void* k, const void* v, const void* g,
@@ -74,6 +76,14 @@ extern "C" int fdsd_flash_bwd_pos_dq(
     const void* k_off, int B, int H, int Lq, int Lk, int d,
     const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
     int has_valid, int causal, void* stream) {
+  const fdsd::PosArgs pos{static_cast<const int*>(q_off),
+                          static_cast<const int*>(k_off), seg_q, seg_k,
+                          valid_len, has_valid, causal};
+  if (d > 256)
+    return static_cast<int>(fdsd::kw::launch_wide(
+        0, q, k, v, g, dq, nullptr, nullptr, lse, delta, nullptr, 0, nullptr,
+        nullptr, nullptr, nullptr, nullptr, nullptr, B, H, Lq, Lk, d, strides,
+        scale, pos, static_cast<cudaStream_t>(stream)));
   Params p = {};
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.lse = static_cast<const float*>(lse);
@@ -85,9 +95,7 @@ extern "C" int fdsd_flash_bwd_pos_dq(
   p.n_qt = (Lq + kBQ - 1) / kBQ;
   for (int i = 0; i < 3; ++i) p.dqs[i] = strides[12 + i];
   p.scale = scale;
-  p.pos = fdsd::PosArgs{static_cast<const int*>(q_off),
-                  static_cast<const int*>(k_off), seg_q, seg_k, valid_len,
-                  has_valid, causal};
+  p.pos = pos;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d < 1 || d > 256) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;

@@ -1,10 +1,22 @@
-// The C entries of K1 and K5 (bf16, every head dim up to 256), the kernels
-// of flash_attention_sm90.cuh; their widths are instantiated in
-// flash_attention_sm90_w*.cu.
+// The C entries of K1 (bf16, every head dim up to 256) and K5 (bf16, every
+// head dim up to 512), the kernels of flash_attention_sm90.cuh up to 256,
+// their widths instantiated in flash_attention_sm90_w*.cu; above 256 K5 is
+// the kernel of flash_attention.cu.
 
 #include "flash_attention_sm90.cuh"
 
 using namespace fdsd::k1;
+
+namespace fdsd::d512 {
+// K5 above head dim 256 (flash_attention.cu): the arguments of
+// fdsd_flash_fwd_pos.
+cudaError_t fwd_pos(const void* q, const void* k, const void* v, void* out,
+                    void* lse, const void* q_off, const void* k_off,
+                    void* work, int B, int H, int Lq, int Lk, int d,
+                    const long long* strides, float scale, int seg_q,
+                    int seg_k, int valid_len, int has_valid, int causal,
+                    int bounded, int splits, cudaStream_t stream);
+}  // namespace fdsd::d512
 
 // strides: 16 element strides, (batch, head, seq) for q, k, v, out, then
 // (batch, head, row, col) for the bias; the head-dim stride is 1. lse is
@@ -54,14 +66,23 @@ extern "C" int fdsd_flash_fwd(const void* q, const void* k, const void* v,
 // head-dim stride is 1. lse is (B, H, Lq) contiguous fp32. q_off and k_off
 // are int32[2] in device memory. Every head dim from 1 to 256, at the padded
 // width DP = d rounded up to 16 (the columns past d read as zeros and not
-// written); others return cudaErrorInvalidValue.
+// written; work and splits unread); from 264 to 512 (multiples of 8) the
+// kernel of flash_attention.cu at DP = 384 or 512, its keys in `splits`
+// splits (1 to 4) with the scratch of fdsd_flash_fwd_d512 in `work`; others
+// return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_fwd_pos(const void* q, const void* k, const void* v,
                                   void* out, void* lse, const void* q_off,
-                                  const void* k_off, int B, int H, int Lq,
-                                  int Lk, int d, const long long* strides,
-                                  float scale, int seg_q, int seg_k,
-                                  int valid_len, int has_valid, int causal,
-                                  int bounded, void* stream) {
+                                  const void* k_off, void* work, int B, int H,
+                                  int Lq, int Lk, int d,
+                                  const long long* strides, float scale,
+                                  int seg_q, int seg_k, int valid_len,
+                                  int has_valid, int causal, int bounded,
+                                  int splits, void* stream) {
+  if (d > 256)
+    return static_cast<int>(fdsd::d512::fwd_pos(
+        q, k, v, out, lse, q_off, k_off, work, B, H, Lq, Lk, d, strides,
+        scale, seg_q, seg_k, valid_len, has_valid, causal, bounded, splits,
+        static_cast<cudaStream_t>(stream)));
   PosParams p;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse = static_cast<float*>(lse);

@@ -2,7 +2,8 @@
 // fp32 softmax, out bf16 + lse fp32. K1 at every padded head dim DP that is
 // a multiple of 16 up to 256 (head dims 1 to 256; the wrapper pads a head dim
 // that is not a multiple of 8 with zero columns), in every mask form; d = 512
-// is the kernel of flash_attention.cu, with its own C entry. K5, the
+// is the kernel of flash_attention.cu, with its own C entry (K5 above 256
+// too, through fdsd_flash_fwd_pos). K5, the
 // position-masked forward, at the same widths, is K1's design under
 // position masks, on the same per-tile steps. The kernels and their launch
 // templates live here; flash_attention_sm90.cu holds the C entries, and each

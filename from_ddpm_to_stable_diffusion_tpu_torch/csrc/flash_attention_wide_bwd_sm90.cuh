@@ -2,21 +2,26 @@
 // wgmma: bf16 in and out, fp32 softmax reconstruction and accumulators. K3
 // (dq, and dbias) and K4 (dk, dv) at the padded widths DP = 384 (head dims
 // 257 to 384) and 512 (385 to 512), without a mask and in every mask form
-// (causal, an additive bias, segment ids and their combinations). The
-// kernel and its launch templates live here; the C entries of K3 and K4
-// (flash_attention_dq_sm90.cu, flash_attention_bwd_sm90.cu) send head dims
-// above 256 here, and flash_attention_wide_bwd_sm90_w*.cu instantiate the
-// two widths apart, so that the build compiles them in parallel.
+// (causal, an additive bias, segment ids and their combinations), and K6
+// (dq) and K7 (dk, dv) under the position masks at the same widths. The
+// kernel and its launch templates live here; the C entries of K3 / K6 and
+// K4 / K7 (flash_attention_dq_sm90.cu, flash_attention_bwd_sm90.cu) send
+// head dims above 256 here, and flash_attention_wide_bwd_sm90_w*.cu
+// instantiate the two widths apart, so that the build compiles them in
+// parallel.
 //
 // Replaces, above head dim 256 (the VAEs' one-head mid attention at 512:
-// SD1's decoder and encoder at (B, 1, 4096, 4096, 512), SD3's), the Pallas
-// TPU kernels
+// SD1's decoder and encoder at (B, 1, 4096, 4096, 512), SD3's; the joint
+// attention and the ring hop at heads above 256), the Pallas TPU kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dkv_kernel
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel_pos
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dkv_kernel_pos
 // in every form of theirs. It recomputes the probabilities under the
-// forward's lse, P = exp(scale Q K^T + bias - lse), selected to 0 where a
-// mask hides the key (never multiplied: a row that saw no key has lse =
-// -1e30), with delta = rowsum(dO * out) computed by the caller:
+// forward's lse (K6 / K7: the caller's global one, merged over every key
+// block), P = exp(scale Q K^T + bias - lse), selected to 0 where a mask
+// hides the key (never multiplied: a row that saw no key has lse = -1e30),
+// with delta = rowsum(dO * out) computed by the caller:
 //   dS = P * (dO V^T - delta),  dQ = scale dS K,
 //   dV = P^T dO,  dK = scale dS^T Q;
 // with a bias that needs a gradient, K3 also writes dbias = dS, fp32 (B, H,
@@ -65,25 +70,35 @@
 //    logit from global memory (dk / dv). Query rows past Lq get lse = +1e30
 //    (P = 0) and are not written; a query column past Lq and a key past Lk
 //    are selected to P = 0.
-//  - masks (the ANY instantiation, every path chosen per launch): causal
-//    (key <= query from index 0) walks the column tiles up to the diagonal
-//    (dq) or from it (dk / dv) and masks per logit; the bias is read from
-//    global memory into each logit (scale s + bias in fp32; a bias of -1e30
-//    or -inf hides the key); segment ids walk the tile range [lo, hi] of
-//    mask.cuh at (64 rows, 32 columns), skip a tile whose id range is
-//    disjoint and compare ids per logit.
+//  - masks (the ANY instantiation, every path chosen per launch): the
+//    position masks of pos_tile.cuh (two offset segments a side, valid_len,
+//    causal by position; K3 / K4's causal is the same predicate with
+//    offsets 0, key <= query from index 0) judge each (row tile, column
+//    tile) pair by pos_pair, called with the query tile's and the key
+//    tile's ranges whichever axis the rows are, in every role: a pair that
+//    shows nothing is skipped, a partly visible one masked per logit; the
+//    bias is read from global memory into each logit (scale s + bias in
+//    fp32; a bias of -1e30 or -inf hides the key); segment ids walk the
+//    tile range [lo, hi] of mask.cuh at (64 rows, 32 columns), skip a tile
+//    whose id range is disjoint and compare ids per logit.
 // dq and dk (times scale) and dv are written in bf16 through their strides;
-// rows whose tiles were all skipped as 0; columns past d are not written.
+// rows whose tiles were all skipped as 0 (a dk / dv block whose keys no
+// query sees writes its zeros too); columns past d are not written.
 
 #pragma once
 
 #include "mask.cuh"
+#include "pos_tile.cuh"
 #include "sm90.cuh"
 
 namespace fdsd::kw {
 
 namespace s9 = fdsd::sm90;
 using fdsd::MaskArgs;
+using fdsd::PosArgs;
+using fdsd::pos_bounds;
+using fdsd::pos_of;
+using fdsd::pos_pair;
 using fdsd::seg_overlap;
 
 constexpr float kNegInf = -1e30f;
@@ -122,9 +137,9 @@ struct Params {
   int B, H, Lq, Lk, d;
   int n_rt;    // row tiles of 64 per (b, h)
   int k4;      // 1: roles dk and dv (a launch of twice the blocks), 0: dq
-  int causal;  // ANY: key <= query
   long long o0s[3], o1s[3];  // outputs' (batch, head, seq) element strides
   float scale;
+  PosArgs pos;  // ANY: the position masks (K3 / K4: null offsets, read as 0)
   MaskArgs m;  // ANY: the bias and the segment arrays at (64, 32) tiles
 };
 
@@ -155,7 +170,9 @@ flash_bwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap ta1,
   int rt = rest % p.n_rt;
   const bool rows_q = role == kDQ;  // rows are queries (dq) or keys
   const bool need_y = role != kDV;  // Y = A2 B2^T: dP (dq) or dP^T (dk)
-  const bool causal = ANY && p.causal != 0;
+  const bool causal = ANY && p.pos.causal != 0;
+  const bool has_valid = ANY && p.pos.has_valid != 0;
+  const bool masked = causal || has_valid;  // positions matter
   const bool has_bias = ANY && p.m.bias != nullptr;
   const bool has_seg = ANY && p.m.q_ids != nullptr;
   if (causal && rows_q) rt = p.n_rt - 1 - rt;  // the longest rows first
@@ -163,18 +180,22 @@ flash_bwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap ta1,
   const int r0_tile = rt * kBR;
   const int n_rows = rows_q ? p.Lq : p.Lk, n_cols = rows_q ? p.Lk : p.Lq;
   const int n_ct = (n_cols + kBC - 1) / kBC;
-
-  // The column tiles this block visits, the same walk in every role: all;
-  // under causal those on or before the diagonal (dq) or on or after it
-  // (dk, dv); the range whose segment ids overlap this row tile's, less the
-  // disjoint tiles inside it.
-  int ct_begin = 0, ct_end = n_ct;
-  if (causal) {
-    if (rows_q)
-      ct_end = min(n_ct, (r0_tile + kBR - 1) / kBC + 1);
-    else
-      ct_begin = r0_tile / kBC;
+  // The offsets, read where a mask needs positions (null reads as 0).
+  int q_off0 = 0, q_off1 = 0, k_off0 = 0, k_off1 = 0;
+  if (masked && p.pos.q_off != nullptr) {
+    q_off0 = p.pos.q_off[0];
+    q_off1 = p.pos.q_off[1];
   }
+  if (masked && p.pos.k_off != nullptr) {
+    k_off0 = p.pos.k_off[0];
+    k_off1 = p.pos.k_off[1];
+  }
+
+  // The column tiles this block visits, the same walk in every role: those
+  // pos_pair does not skip (the query tile and the key tile passed as such
+  // whichever axis the rows are); the range whose segment ids overlap this
+  // row tile's, less the disjoint tiles inside it.
+  int ct_begin = 0, ct_end = n_ct;
   const int* row_bound = nullptr;
   const int* col_bounds = nullptr;
   if (has_seg) {
@@ -184,9 +205,19 @@ flash_bwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap ta1,
     row_bound = (rows_q ? p.m.q_bounds : p.m.kv_bounds) + 2 * seg_tile;
     col_bounds = (rows_q ? p.m.kv_bounds : p.m.q_bounds) + 2 * b * n_ct;
   }
-  auto visits = [&](int ct) {
-    return ct >= ct_begin && ct < ct_end &&
-           (!has_seg || seg_overlap(row_bound, col_bounds + 2 * ct));
+  // what the (row tile, column tile ct) pair needs: 0 skip, 1 visible, 2
+  // masked per logit by position
+  auto pair = [&](int ct) {
+    if (ct < ct_begin || ct >= ct_end ||
+        (has_seg && !seg_overlap(row_bound, col_bounds + 2 * ct)))
+      return 0;
+    if (!masked) return 1;
+    const int q0 = rows_q ? r0_tile : ct * kBC, nq = rows_q ? kBR : kBC;
+    const int k0 = rows_q ? ct * kBC : r0_tile, nk = rows_q ? kBC : kBR;
+    int q_lo, q_hi, k_lo, k_hi;
+    pos_bounds(q0, nq, q_off0, q_off1, p.pos.seg_q, p.Lq, q_lo, q_hi);
+    pos_bounds(k0, nk, k_off0, k_off1, p.pos.seg_k, p.Lk, k_lo, k_hi);
+    return pos_pair(p.pos, q_lo, q_hi, k_lo, k_hi);
   };
 
   if (tid == 0) {
@@ -216,7 +247,7 @@ flash_bwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap ta1,
       }
       uint32_t phase = 0;
       for (int ct = ct_begin; ct < ct_end; ++ct) {
-        if (!visits(ct)) continue;
+        if (pair(ct) == 0) continue;
         const int c0 = ct * kBC;
         s9::mbar_wait(b_empty, phase ^ 1);
         s9::mbar_expect_tx(b_full, 2 * C::kBBytes);
@@ -260,6 +291,15 @@ flash_bwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap ta1,
     if (r1 < n_rows) rid1 = row_ids[r1];
   }
   const long long bias_base = has_bias ? b * p.m.bs[0] + h * p.m.bs[1] : 0;
+  // ANY: the positions of this thread's two rows (queries for dq, keys for
+  // dk / dv; rows past L are not written, whatever they see)
+  int rpos0 = 0, rpos1 = 0;
+  if (masked) {
+    const int off0 = rows_q ? q_off0 : k_off0, off1 = rows_q ? q_off1 : k_off1;
+    const int seg = rows_q ? p.pos.seg_q : p.pos.seg_k;
+    rpos0 = pos_of(r0, off0, off1, seg);
+    rpos1 = pos_of(r1, off0, off1, seg);
+  }
   // exp(x) = exp2(x log2 e); without a bias the scale is folded in too
   const float c = has_bias ? kLog2e : p.scale * kLog2e;
   // dbias (dq): every tile of this block's rows is written, skipped ones 0
@@ -291,7 +331,8 @@ flash_bwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap ta1,
   const int ct_last = db != nullptr ? n_ct : ct_end;
   for (int ct = ct_first; ct < ct_last; ++ct) {
     const int c0 = ct * kBC;
-    if (!visits(ct)) {
+    const int state = pair(ct);
+    if (state == 0) {
       if (db != nullptr) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) x[i] = 0.f;
@@ -349,7 +390,15 @@ flash_bwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap ta1,
                     visible ? fdsd::load_bias(p.m, bias_base, qi, ki) : 0.f);
           visible = visible && lg > kNegInf;
         }
-        if (causal) visible = visible && ki <= qi;
+        if (state == 2) {  // a partly visible pair: by position
+          const int cpos = pos_of(col, rows_q ? k_off0 : q_off0,
+                                  rows_q ? k_off1 : q_off1,
+                                  rows_q ? p.pos.seg_k : p.pos.seg_q);
+          const int rpos = e < 2 ? rpos0 : rpos1;
+          const int qpos = rows_q ? rpos : cpos, kpos = rows_q ? cpos : rpos;
+          if (has_valid) visible = visible && kpos < p.pos.valid_len;
+          if (causal) visible = visible && kpos <= qpos;
+        }
         if (has_seg)
           visible = visible && col < n_cols &&
                     col_ids[col] == (e < 2 ? rid0 : rid1);
@@ -463,9 +512,11 @@ cudaError_t launch(bool any, const void* q, const void* k, const void* v,
 FDSD_KW_WIDTH_(extern, 384)
 FDSD_KW_WIDTH_(extern, 512)
 
-// K3 (k4 = 0) or K4 above head dim 256: d a multiple of 8 from 264 to 512,
-// at DP = 384 up to 384, else 512. strides: (batch, head, seq) of q, k, v,
-// dO, then of the outputs (dq; or dk, dv), then the bias's 4.
+// K3 / K6 (k4 = 0) or K4 / K7 above head dim 256: d a multiple of 8 from
+// 264 to 512, at DP = 384 up to 384, else 512. strides: (batch, head, seq)
+// of q, k, v, dO, then of the outputs (dq; or dk, dv), then the bias's 4
+// (K3 / K4). pos: the position masks (K6 / K7), or offsets null with seg_q
+// = Lq, seg_k = Lk and causal the flag of K3 / K4.
 inline cudaError_t launch_wide(int k4, const void* q, const void* k,
                                const void* v, const void* g, void* o0,
                                void* o1, void* dbias, const void* lse,
@@ -475,7 +526,7 @@ inline cudaError_t launch_wide(int k4, const void* q, const void* k,
                                const void* kv_bounds, const void* lo,
                                const void* hi, int B, int H, int Lq, int Lk,
                                int d, const long long* strides, float scale,
-                               int causal, cudaStream_t stream) {
+                               const PosArgs& pos, cudaStream_t stream) {
   if (d <= 256 || d > 512 || d % 8 != 0) return cudaErrorInvalidValue;
   Params p = {};
   p.o0 = static_cast<__nv_bfloat16*>(o0);
@@ -489,15 +540,17 @@ inline cudaError_t launch_wide(int k4, const void* q, const void* k,
   p.Lk = Lk;
   p.d = d;
   p.k4 = k4;
-  p.causal = causal != 0;
+  p.pos = pos;
   for (int i = 0; i < 3; ++i) {
     p.o0s[i] = strides[12 + i];
     p.o1s[i] = k4 ? strides[15 + i] : 0;
   }
   p.scale = scale;
-  p.m = fdsd::make_mask_args(bias, strides + (k4 ? 18 : 15), bias_bf16,
-                             q_ids, kv_ids, q_bounds, kv_bounds, lo, hi);
-  const bool any = causal != 0 || bias != nullptr || q_ids != nullptr;
+  if (bias != nullptr || q_ids != nullptr)  // K6 / K7 pass no bias strides
+    p.m = fdsd::make_mask_args(bias, strides + (k4 ? 18 : 15), bias_bf16,
+                               q_ids, kv_ids, q_bounds, kv_bounds, lo, hi);
+  const bool any = pos.causal != 0 || pos.has_valid != 0 ||
+                   bias != nullptr || q_ids != nullptr;
   return d <= 384 ? launch<384>(any, q, k, v, g, strides, p, stream)
                   : launch<512>(any, q, k, v, g, strides, p, stream);
 }

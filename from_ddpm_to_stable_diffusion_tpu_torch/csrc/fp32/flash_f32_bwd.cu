@@ -2,7 +2,7 @@
 // cores: the fp32 form of K3 (dq, and dbias) and K4 (dk, dv) in every mask
 // form (no mask, causal, an additive bias, segment ids and their
 // combinations) at every head dim up to 512, and of K6 / K7 (position masks
-// under a caller-supplied global lse and delta) at every head dim up to 256.
+// under a caller-supplied global lse and delta) at every head dim up to 512.
 // The kernels live in flash_f32_bwd.cuh: up to 128 one block per tile; head
 // dims 129 to 256 one cluster of two blocks, each owning half of the columns
 // (above 128 the resident Q and dO (dq) or K and V (dk / dv) terms of a
@@ -252,14 +252,15 @@ cudaError_t any_width(int d, bool dq, const Work& w, const Params& p,
 }
 
 // Head dims the kernels take: multiples of 4 up to 256, of 8 from 264 to
-// 512 (K3 and K4 only: not with position offsets).
+// 512.
 bool takes(int d) {
   return (d >= 4 && d <= 256 && d % 4 == 0) ||
          (d > 256 && d <= 512 && d % 8 == 0);
 }
 
-// K3 / K4 above 256 on the streaming kernel (flash_f32_bwd_stream.cuh) at
-// DP 384 or 512, without a mask or ANY (causal, a bias, segment ids).
+// K3 / K4 (K6 / K7) above 256 on the streaming kernel
+// (flash_f32_bwd_stream.cuh) at DP 384 or 512, without a mask or ANY
+// (causal, a bias, segment ids; the position masks).
 cudaError_t stream_width(int d, bool masked, const Work& w, const Params& p,
                          cudaStream_t s) {
   if (d <= 384)
@@ -369,14 +370,14 @@ extern "C" int fdsd_flash_bwd_dkv_f32(
 
 // K6 in fp32: the arguments of fdsd_flash_bwd_pos_dq on fp32 tensors, with
 // the workspace of fdsd_flash_bwd_dq_f32 after the offsets. Every head dim
-// up to 256 that is a multiple of 4.
+// up to 256 that is a multiple of 4, and every multiple of 8 from 264 to 512
+// (the streaming kernel).
 extern "C" int fdsd_flash_bwd_pos_dq_f32(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dq, const void* q_off,
     const void* k_off, void* work, int B, int H, int Lq, int Lk, int d,
     const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
     int has_valid, int causal, void* stream) {
-  if (d > 256) return static_cast<int>(cudaErrorInvalidValue);
   Params p = bwd_params(lse, delta, dq, nullptr, B, H, Lq, Lk, d, strides,
                        scale);
   p.pos = pos_args(q_off, k_off, seg_q, seg_k, valid_len, has_valid, causal);
@@ -387,14 +388,14 @@ extern "C" int fdsd_flash_bwd_pos_dq_f32(
 
 // K7 in fp32: the arguments of fdsd_flash_bwd_pos_dkv on fp32 tensors, with
 // the workspace of fdsd_flash_bwd_dkv_f32 after the offsets. Every head dim
-// up to 256 that is a multiple of 4.
+// up to 256 that is a multiple of 4, and every multiple of 8 from 264 to 512
+// (the streaming kernel, the dk and the dv blocks in one launch).
 extern "C" int fdsd_flash_bwd_pos_dkv_f32(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dk, void* dv, const void* q_off,
     const void* k_off, void* work, int B, int H, int Lq, int Lk, int d,
     const long long* strides, float scale, int seg_q, int seg_k, int valid_len,
     int has_valid, int causal, void* stream) {
-  if (d > 256) return static_cast<int>(cudaErrorInvalidValue);
   Params p = bwd_params(lse, delta, dk, dv, B, H, Lq, Lk, d, strides,
                        scale);
   p.pos = pos_args(q_off, k_off, seg_q, seg_k, valid_len, has_valid, causal);

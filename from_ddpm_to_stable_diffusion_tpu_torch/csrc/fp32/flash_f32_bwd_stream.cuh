@@ -1,8 +1,9 @@
 // The fp32 flash backward above head dim 256: K3 (dq, and dbias) and K4
 // (dk, dv) on fp32 inputs on the tensor cores at the padded widths DP = 384
 // (head dims 257 to 384) and 512 (385 to 512), without a mask and in every
-// mask form (causal, a bias with dbias, segment ids; ANY), on the split
-// terms the pre-pass of flash_f32_bwd.cu writes. The dispatch and the C
+// mask form (causal, a bias with dbias, segment ids; ANY), and K6 (dq) and
+// K7 (dk, dv) under the position masks (ANY), on the split terms the
+// pre-pass of flash_f32_bwd.cu writes. The dispatch and the C
 // entries are flash_f32_bwd.cu's; each width is instantiated in its own
 // flash_f32_bwd_w*.cu.
 //
@@ -11,7 +12,10 @@
 // kernels
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel
 //   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dkv_kernel
-// under Precision.HIGHEST. The contract and the numerical plan are those of
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dq_kernel_pos
+//   from_ddpm_to_stable_diffusion_tpu/ops/flash_attention.py:_bwd_dkv_kernel_pos
+// under Precision.HIGHEST (K6 / K7 under the caller's global lse and
+// delta). The contract and the numerical plan are those of
 // the kernels up to 256 (flash_f32_bwd.cu): the three-term TF32 split on
 // every product, P and dS fp32 and selected to 0 where hidden, query rows
 // past Lq at lse = +1e30, dq, dk, dv fp32, the same pre-pass and workspace.
@@ -56,11 +60,14 @@
 //    pieces (m64n64k8 SS, three passes, each piece into a fresh
 //    accumulator); a second named barrier before T is written keeps a
 //    consumer from overwriting the tile the other still reads.
-//  - masks (ANY: causal, an fp32 bias read per logit from global memory, a
-//    logit at -1e30 or -inf hidden, segment ids walking the tile range
-//    [lo, hi] of mask.cuh at (64, 64) and compared per logit) and dbias
-//    (dq: dS for every tile of the block's rows, zeros where a tile is
-//    skipped), as the bf16 kernel above 256.
+//  - masks (ANY: the position masks of pos_tile.cuh, two offset segments a
+//    side, valid_len and causal by position, judged per (query tile, key
+//    tile) pair by tile_pair whichever axis the rows are and per logit on a
+//    partly visible pair (K3 / K4's causal: offsets 0); an fp32 bias read
+//    per logit from global memory, a logit at -1e30 or -inf hidden, segment
+//    ids walking the tile range [lo, hi] of mask.cuh at (64, 64) and
+//    compared per logit) and dbias (dq: dS for every tile of the block's
+//    rows, zeros where a tile is skipped), as the bf16 kernel above 256.
 
 #pragma once
 
@@ -114,8 +121,10 @@ flash_bwd_f32_stream_kernel(const __grid_constant__ CUtensorMap ta1,
   const bool rows_q = role == kDQ;
   const bool need_y = role != kDV;
   const bool causal = ANY && p.pos.causal != 0;
+  const bool masked = causal || (ANY && p.pos.has_valid != 0);
   const bool has_bias = ANY && p.m.bias != nullptr;
   const bool has_seg = ANY && p.m.q_ids != nullptr;
+  const Offsets offs(p.pos, masked);  // positions matter only to a mask
   if (causal && rows_q) rt = p.n_tiles - 1 - rt;  // the longest rows first
   const int b = bh / p.H, h = bh % p.H;
   const int r0_tile = rt * kBR;
@@ -124,14 +133,10 @@ flash_bwd_f32_stream_kernel(const __grid_constant__ CUtensorMap ta1,
   const CUtensorMap* tt = role == kDV ? &tt2 : &tt1;
 
   // The column tiles this block visits, the same walk in every role (as the
-  // bf16 kernel above 256).
+  // bf16 kernel above 256): those tile_pair does not skip, the query tile
+  // and the key tile passed as such whichever axis the rows are; the range
+  // whose segment ids overlap this row tile's, less the disjoint tiles.
   int ct_begin = 0, ct_end = n_ct;
-  if (causal) {
-    if (rows_q)
-      ct_end = min(n_ct, (r0_tile + kBR - 1) / kBC + 1);
-    else
-      ct_begin = r0_tile / kBC;
-  }
   const int* row_bound = nullptr;
   const int* col_bounds = nullptr;
   if (has_seg) {
@@ -141,9 +146,13 @@ flash_bwd_f32_stream_kernel(const __grid_constant__ CUtensorMap ta1,
     row_bound = (rows_q ? p.m.q_bounds : p.m.kv_bounds) + 2 * seg_tile;
     col_bounds = (rows_q ? p.m.kv_bounds : p.m.q_bounds) + 2 * b * n_ct;
   }
-  auto visits = [&](int ct) {
-    return ct >= ct_begin && ct < ct_end &&
-           (!has_seg || seg_overlap(row_bound, col_bounds + 2 * ct));
+  // 0 skip, 1 visible, 2 masked per logit by position
+  auto pair = [&](int ct) {
+    if (ct < ct_begin || ct >= ct_end ||
+        (has_seg && !seg_overlap(row_bound, col_bounds + 2 * ct)))
+      return 0;
+    return rows_q ? tile_pair(p, offs, masked, r0_tile, kBR, ct * kBC, kBC)
+                  : tile_pair(p, offs, masked, ct * kBC, kBC, r0_tile, kBR);
   };
 
   if (tid == 0) {
@@ -175,7 +184,7 @@ flash_bwd_f32_stream_kernel(const __grid_constant__ CUtensorMap ta1,
     s9::reg_dealloc<kProducerRegs>();
     if (tid != 0) return;
     for (int ct = ct_begin; ct < ct_end; ++ct) {
-      if (!visits(ct)) continue;
+      if (pair(ct) == 0) continue;
       const int c0 = ct * kBC;
       for (int pass = 0; pass < (need_y ? 2 : 1); ++pass) {  // X, then Y
         const CUtensorMap* ta = pass == 0 ? &ta1 : &ta2;
@@ -245,6 +254,13 @@ flash_bwd_f32_stream_kernel(const __grid_constant__ CUtensorMap ta1,
   }
   const long long bias_base = has_bias ? b * p.m.bs[0] + h * p.m.bs[1] : 0;
   const float c = has_bias ? kLog2e : p.scale * kLog2e;
+  // dq: the positions of this thread's two query rows (rows past Lq are not
+  // written, whatever they see)
+  int qpos0 = 0, qpos1 = 0;
+  if (masked && rows_q) {
+    qpos0 = pos_of(r0, offs.q0, offs.q1, p.pos.seg_q);
+    qpos1 = pos_of(r1, offs.q0, offs.q1, p.pos.seg_q);
+  }
   float* db = ANY && rows_q && has_bias && p.ds != nullptr ? p.ds + bq * p.Lk
                                                            : nullptr;
   auto write_db = [&](const float (&x)[16], int c0) {
@@ -286,7 +302,8 @@ flash_bwd_f32_stream_kernel(const __grid_constant__ CUtensorMap ta1,
   const int ct_last = db != nullptr ? n_ct : ct_end;
   for (int ct = ct_first; ct < ct_last; ++ct) {
     const int c0 = ct * kBC;
-    if (!visits(ct)) {
+    const int state = pair(ct);
+    if (state == 0) {
       if (db != nullptr) {
 #pragma unroll
         for (int i = 0; i < 16; ++i) x[i] = 0.f;
@@ -313,7 +330,11 @@ flash_bwd_f32_stream_kernel(const __grid_constant__ CUtensorMap ta1,
                     visible ? fdsd::load_bias(p.m, bias_base, qi, ki) : 0.f);
           visible = visible && lg > kNegInf;
         }
-        if (causal) visible = visible && ki <= qi;
+        if (state == 2 && visible) {  // a partly visible pair: by position
+          const int qpos = rows_q ? (e < 2 ? qpos0 : qpos1)
+                                  : pos_of(qi, offs.q0, offs.q1, p.pos.seg_q);
+          visible = pos_sees(p, offs, qpos, ki);
+        }
         if (has_seg)
           visible = visible && col < n_cols &&
                     col_ids[col] == (e < 2 ? rid0 : rid1);

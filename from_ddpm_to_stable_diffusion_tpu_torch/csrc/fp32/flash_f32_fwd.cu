@@ -1,7 +1,7 @@
 // Flash-attention forward on fp32 inputs for Hopper (sm_90a) on the tensor
 // cores: the fp32 form of K1 (every mask form at every head dim up to 512:
 // no mask, causal, an additive bias, segment ids, and their combinations)
-// and of K5 (the position masks at every head dim up to 256, online and
+// and of K5 (the position masks at every head dim up to 512, online and
 // bounded). Up to 160 the resident kernel of flash_f32_fwd.cuh; head dims
 // 161 to 512 run the streaming kernel of flash_f32_fwd_wide.cuh (widths in
 // flash_f32_fwd_w*.cu). This file holds the split pre-pass, the d = 512
@@ -223,9 +223,9 @@ cudaError_t split_inputs(const void* q, const void* k, const void* v,
   return split_transposed(v, st + 6, w.vt, w.nv, B, H, Lk, d, s);
 }
 
-// K1 on the streaming kernel at width DP (192, 224, 256 in a WideForm; 384
-// and 512 without a mask, causal and ANY, with their key splits and the
-// merge).
+// K1 or K5 on the streaming kernel at width DP (192, 224, 256 in a
+// WideForm; 384 and 512 without a mask, causal, ANY and bounded, with their
+// key splits and the merge).
 template <int DP>
 cudaError_t run_stream(const Work& w, const Params& q, int splits, int form,
                        cudaStream_t s) {
@@ -424,11 +424,14 @@ extern "C" int fdsd_flash_fwd_f32(const void* q, const void* k, const void* v,
   }));
 }
 
-// K5 in fp32: the arguments of fdsd_flash_fwd_pos on fp32 tensors, with the
-// workspace of fdsd_flash_fwd_f32 after the offsets. Every head dim up to
-// 256 that is a multiple of 4: online on the resident kernel's masked form
-// up to 160, bounded at the head dim rounded up to 32; above 160 the
-// streaming kernel.
+// K5 in fp32: the arguments of fdsd_flash_fwd_pos (flash_attention_sm90.cu)
+// on fp32 tensors, with the workspace of fdsd_flash_fwd_f32 after the
+// offsets and the key splits (1 to 4, read above 256 only, where the
+// workspace holds them) before the stream. Every
+// head dim up to 256 that is a multiple of 4: online on the resident
+// kernel's masked form up to 160, bounded at the head dim rounded up to 32;
+// above 160 the streaming kernel; every multiple of 8 from 264 to 512 the
+// streaming kernel at 384 or 512 with its key splits.
 extern "C" int fdsd_flash_fwd_pos_f32(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       const void* q_off, const void* k_off,
@@ -436,8 +439,10 @@ extern "C" int fdsd_flash_fwd_pos_f32(const void* q, const void* k,
                                       int Lk, int d, const long long* strides,
                                       float scale, int seg_q, int seg_k,
                                       int valid_len, int has_valid,
-                                      int causal, int bounded, void* stream) {
-  if (d < 4 || d > 256 || d % 4 != 0)
+                                      int causal, int bounded, int splits,
+                                      void* stream) {
+  if (!((d >= 4 && d <= 256 && d % 4 == 0) ||
+        (d > 256 && d <= 512 && d % 8 == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p = fwd_params(out, lse, B, H, Lq, Lk, d, strides, scale);
@@ -447,9 +452,11 @@ extern "C" int fdsd_flash_fwd_pos_f32(const void* q, const void* k,
   const Work w = carve(work, B, H, Lq, Lk, d);
   cudaError_t err = split_inputs(q, k, v, strides, B, H, Lq, Lk, d, w, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (d > 160)
-    return static_cast<int>(
-        stream_width(d, w, p, bounded ? kWideBounded : kWideAny, s));
+  const int form = bounded ? kWideBounded : kWideAny;
+  if (d > 256)
+    return static_cast<int>(d <= 384 ? run_stream<384>(w, p, splits, form, s)
+                                     : run_stream<512>(w, p, splits, form, s));
+  if (d > 160) return static_cast<int>(stream_width(d, w, p, form, s));
   if (bounded)
     return static_cast<int>(mask_width(d, [&](auto dp) {
       return run_masks<decltype(dp)::value>(true, w, p, s);

@@ -3,9 +3,10 @@
 // rounded up to 32; the columns past d read as TMA's zeros and not written)
 // in four forms (WideForm: no mask; causal; ANY, the position masks, a bias
 // and segment ids chosen per launch; the position masks under the bounded
-// softmax), and K1 at 384 (head dims 257 to 384) and 512 (385 to 512)
-// without a mask, causal and ANY, with key splits (at 512 without a mask:
-// the VAEs' mid attention). The width kernels are instantiated a few to a
+// softmax), and K1 and K5 at 384 (head dims 257 to 384) and 512 (385 to
+// 512): without a mask (K1), causal (K1), ANY (K1's masks, K5 online) and
+// bounded (K5), with key splits (at 512 without a mask: the VAEs' mid
+// attention). The width kernels are instantiated a few to a
 // file in flash_f32_fwd_w*.cu, so that the build compiles them in parallel;
 // flash_f32_fwd.cu holds the d = 512 kernel, the key-split merge, the split
 // pre-pass, the tensor maps and the C entry.
@@ -49,8 +50,12 @@
 // by pos_pair and the segment tiles' id ranges in every role, as the
 // resident kernel does, reads the bias from global memory into each
 // consumer's logits, and selects a masked logit to probability 0; the
-// bounded form keeps the max at 0 and exchanges no row maxima. No key split below 512: at the shapes the
-// paths give these widths (>= 512 query tiles) the tiles fill the card.
+// bounded form keeps the max at 0 and exchanges no row maxima. No key split
+// up to 256: at the shapes the paths give these widths (>= 512 query tiles)
+// the tiles fill the card. Above 256 a split that a row sees no key of
+// (skipped tiles, past valid_len, above the diagonal) writes lse -1e30 and
+// O = 0, and weighs 0 in the merge; a bounded split's lse is log of its sum
+// under the fixed max 0.
 // Against the layout kept resident up to 160, this one moves more bytes
 // through L2 and the slots and needs no resident tile: it is the layout
 // that exists at every width up to 512.
@@ -578,10 +583,11 @@ cudaError_t launch_wide(int form, const CUtensorMap& tq,
   return cudaErrorInvalidValue;
 }
 
-// K1 above head dim 256 at the width DP (384: head dims 257 to 384; 512:
-// 385 to 512) in the WideForm `form`: without a mask at 384 (512's is
-// flash_fwd_f32_d512_kernel of flash_f32_fwd.cu), causal and ANY at both,
-// on B * H * n_qt * splits blocks (the key splits merged by the caller).
+// K1 and K5 above head dim 256 at the width DP (384: head dims 257 to 384;
+// 512: 385 to 512) in the WideForm `form`: without a mask at 384 (512's is
+// flash_fwd_f32_d512_kernel of flash_f32_fwd.cu), causal, ANY (K1's masks,
+// K5 online) and bounded (K5) at both, on B * H * n_qt * splits blocks (the
+// key splits merged by the caller).
 template <int DP>
 cudaError_t launch_wide_k1(int form, const CUtensorMap& tq,
                            const CUtensorMap& tk, const CUtensorMap& tv,
@@ -599,6 +605,9 @@ cudaError_t launch_wide_k1(int form, const CUtensorMap& tq,
   if (form == kWideAny)
     return s9::launch_kernel(flash_fwd_f32_wide_kernel<DP, kWideAny>, grid,
                              kWideThreads, kSmem, s, tq, tk, tv, p);
+  if (form == kWideBounded)
+    return s9::launch_kernel(flash_fwd_f32_wide_kernel<DP, kWideBounded>,
+                             grid, kWideThreads, kSmem, s, tq, tk, tv, p);
   return cudaErrorInvalidValue;
 }
 

@@ -58,10 +58,11 @@ _SIGNATURES = {
     # strides[18 + 4], scale, causal, bias_bf16, stream
     "fdsd_flash_bwd_dkv": [_P] * 8 + [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I,
                                                              _P],
-    # q, k, v, out, lse, q_off, k_off, B, H, Lq, Lk, d, strides[12], scale,
-    # seg_q, seg_k, valid_len, has_valid, causal, bounded, stream
-    "fdsd_flash_fwd_pos": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                           _F, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, lse, q_off, k_off, work, B, H, Lq, Lk, d, strides[12],
+    # scale, seg_q, seg_k, valid_len, has_valid, causal, bounded, splits,
+    # stream (work and splits: the key splits above head dim 256)
+    "fdsd_flash_fwd_pos": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _P, _F, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, dO, lse, delta, dq, q_off, k_off, B, H, Lq, Lk, d, strides[15],
     # scale, seg_q, seg_k, valid_len, has_valid, causal, stream
     "fdsd_flash_bwd_pos_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -80,9 +81,9 @@ _SIGNATURES_FP32 = {
     # scale, causal, splits, stream
     "fdsd_flash_fwd_f32": [_P] * 6 + [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I,
                                                              _P],
-    # the arguments of fdsd_flash_fwd_pos with the workspace after k_off
-    "fdsd_flash_fwd_pos_f32": (_SIGNATURES["fdsd_flash_fwd_pos"][:7] + [_P]
-                               + _SIGNATURES["fdsd_flash_fwd_pos"][7:]),
+    # the arguments of fdsd_flash_fwd_pos: the workspace after k_off, the
+    # key splits (read above head dim 256) before the stream
+    "fdsd_flash_fwd_pos_f32": _SIGNATURES["fdsd_flash_fwd_pos"],
     # q, k, v, dO, lse, delta, dq, dbias, work, masks[7], B, H, Lq, Lk, d,
     # strides[15 + 4], scale, causal, stream
     "fdsd_flash_bwd_dq_f32": [_P] * 9 + [_P] * 7 + [_I] * 5 + [_P, _F, _I,

@@ -34,8 +34,9 @@ Position-masked forward: :func:`flash_attention_pos` masks by global
 position (two offset segments per side, ``valid_len``, causal, the ragged
 key tail) and returns (out, lse); on CUDA tensors it launches K5 (the Pallas
 ``_fwd_kernel_pos``: in bf16 the position-mask form of the TMA / wgmma kernel
-of ``csrc/flash_attention_sm90.cuh``, :func:`k5_route`), on CPU tensors
-:func:`flash_attention_pos_plain`. Position-masked backward:
+of ``csrc/flash_attention_sm90.cuh``, from 257 to 512 K1's kernel of
+``csrc/flash_attention.cu`` under the position masks, :func:`k5_route`), on
+CPU tensors :func:`flash_attention_pos_plain`. Position-masked backward:
 :func:`flash_bwd_pos` gives (dq, dk, dv) of one query block against one key
 block under a caller-supplied *global* lse and delta, with the same masks;
 on CUDA tensors K6 (dq, the Pallas ``_bwd_dq_kernel_pos``: in bf16 the
@@ -43,8 +44,10 @@ position-mask form of the TMA / wgmma kernel of
 ``csrc/flash_attention_dq_sm90.cuh``, :func:`k6_route`) and K7 (dk with dv,
 the Pallas ``_bwd_dkv_kernel_pos``: in bf16 the position-mask form of the
 TMA / wgmma kernels of ``csrc/flash_attention_bwd_sm90.cuh``,
-:func:`k7_route`), on CPU tensors :func:`flash_bwd_pos_plain`. All three
-take every head dim from 1 to 256 in both dtypes. :func:`joint_flash_attention` is the MMDiT's
+:func:`k7_route`), from 257 to 512 both the kernel of
+``csrc/flash_attention_wide_bwd_sm90.cuh`` under the position masks, on CPU
+tensors :func:`flash_bwd_pos_plain`. All three take every head dim from 1
+to 512 in both dtypes. :func:`joint_flash_attention` is the MMDiT's
 attention over [context | x] without concatenation: four position-masked
 calls merged exactly through their log-sum-exps by
 :func:`merge_attention_partials`, and in the backward four
@@ -58,12 +61,12 @@ dq kernel's dS tiles), ``causal`` (col <= row from index 0 on both sides) and
 ``segment_ids`` with tile skipping from per-tile id ranges, built at the
 launching kernel's own tiles (:func:`_k1_tiles`, :func:`_dq_tiles`,
 :func:`_dkv_tiles` in bf16, :func:`_f32_tiles` in fp32); they compose, in
-both dtypes at every head dim from 1 to 512 (K5, K6, K7: 1 to 256). A row
+both dtypes at every head dim from 1 to 512. A row
 that sees no key gives out = 0 and lse = -1e30, and the backward selects
 masked probabilities to 0.
 
-Head dims: every kernel takes every head dim from 1 to 256, and K1, K3 and
-K4 every head dim from 257 to 512, in every form and both dtypes. The
+Head dims: every kernel takes every head dim from 1 to 512 in every form
+and both dtypes. The
 kernels pad the head dim to their width with TMA's zero fill (to a
 multiple of 16; above 128 K4, and K3 in fp32, and above 160 K1 in fp32, to a
 multiple of 32; the fp32 mask forms to a multiple of 32; above 256 to 384 or
@@ -95,10 +98,11 @@ compiled in, chosen per launch; the bias read from global memory, except
 T5's bias alone at 64, which keeps its staged tile), at the head dim
 rounded up to 32; K5 / K6 / K7 run the masked forms. The fp32 forms are a
 shared library of their own, built when an fp32 launch first asks for it.
-Above 256, K3 and K4 in both dtypes are one kernel each that owns 64 rows
-a block (queries for dq, keys for dk and dv; K4's dk and dv blocks in one
-launch, each recomputing the tile's logits). A head dim above 512 (above
-256 for K5, K6, K7) raises ``NotImplementedError``.
+Above 256, K3 and K4 (and K6 and K7 under the position masks) in both
+dtypes are one kernel each that owns 64 rows a block (queries for dq, keys
+for dk and dv; the dk and dv blocks in one launch, each recomputing the
+tile's logits), and K5 runs on K1's kernels there, its keys split as K1's
+are. A head dim above 512 raises ``NotImplementedError``.
 Each wrapper counts its launches by dtype in ``.dtypes`` beside
 ``.launches``; each, as it runs more than one kernel, also by kernel in
 ``.routes``, and by head dim in ``.head_dims``.
@@ -118,8 +122,8 @@ from . import _build
 # Every kernel takes every head dim up to _MAX_HEAD_DIM in every form, in
 # bf16 and in fp32 (the fp32 forms on the tensor cores, a TF32 split; 8: the
 # ``checks sd1`` UNet, SD1UNet(model_channels=64) with 8 heads, runs its
-# 32^2 level in fp32); K1, K3 and K4 also every head dim up to _MAX_WIDE in
-# every form (the wide kernels, at the padded widths _WIDE_WIDTHS)
+# 32^2 level in fp32), and every head dim up to _MAX_WIDE in every form on
+# the wide kernels, at the padded widths _WIDE_WIDTHS
 _MAX_HEAD_DIM, _MAX_WIDE = 256, 512
 _WIDE_WIDTHS = (384, 512)
 NEG_INF = -1e30   # lse of a row with no visible key
@@ -128,9 +132,10 @@ NEG_INF = -1e30   # lse of a row with no visible key
 # kernel are built at; wider widths halve the key tile (_k1_tiles,
 # _dq_tiles, _dkv_tiles)
 _FWD_TILES, _DQ_TILES, _DKV_TILES = (128, 128), (128, 64), (64, 128)
-# K1 above head dim 256 (bf16 and fp32): 64-query blocks, 64-key tiles, at
-# most 4 key splits; K3 and K4 above 256 in bf16: 64 rows a block, tiles of
-# 32 of the other axis (queries, keys for dq; keys, queries for dk / dv)
+# K1 and K5 above head dim 256 (bf16 and fp32): 64-query blocks, 64-key
+# tiles, at most 4 key splits; K3, K4, K6 and K7 above 256 in bf16: 64 rows
+# a block, tiles of 32 of the other axis (queries, keys for dq; keys,
+# queries for dk / dv)
 _D512_TILE, _D512_MAX_SPLITS = 64, 4
 _WIDE_BWD_TILES = (64, 32)
 # The fp32 forward (csrc/fp32/flash_f32_fwd.cu): TF32 passes per product, and
@@ -149,8 +154,8 @@ def _width(d: int, step: int = 16) -> int:
 
 
 def _wide_width(d: int) -> int:
-    """The padded width the kernels above head dim 256 (K1, K3, K4, both
-    dtypes) run ``d`` at: 384 up to 384, else 512."""
+    """The padded width the kernels above head dim 256 (every flash kernel,
+    both dtypes) run ``d`` at: 384 up to 384, else 512."""
     return next(w for w in _WIDE_WIDTHS if d <= w)
 
 
@@ -616,56 +621,64 @@ def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
                       segments)
 
 
-def _pos_route(fn, dtype, d: int) -> str:
+def _pos_route(fn, dtype, d: int, wide: str) -> str:
     """The route of a position-masked kernel (K5, K6, K7), whatever its
-    masks: "sm90" for bf16 and "fp32" for fp32, at every head dim from 1 to
-    256; raises for any other."""
+    masks: for bf16 "sm90" up to 256 and ``wide`` from 257 to 512, "fp32"
+    for fp32 up to 512; raises for any other."""
     _check_dtype(dtype)
-    _check_head_dim(fn, d)
-    return "fp32" if dtype == torch.float32 else "sm90"
+    _check_head_dim(fn, d, wide=True)
+    if dtype == torch.float32:
+        return "fp32"
+    return wide if d > _MAX_HEAD_DIM else "sm90"
 
 
 def k5_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
              segments: bool = False, bounded: bool = False) -> str:
     """Which K5 kernel a CUDA launch of this dtype, head dim and form runs
     (the form: causal, a ``valid_len``, two segments on a side, the bounded
-    softmax): "sm90" (the position-mask form of
-    ``csrc/flash_attention_sm90.cuh``, TMA and wgmma, a persistent grid:
-    bf16 at every head dim from 1 to 256 in every form) or "fp32"
-    (``csrc/fp32/flash_f32_fwd.cuh`` up to 160, the streaming kernel of
-    ``flash_f32_fwd_wide.cuh`` above; TMA and TF32 wgmma, three passes, at
-    the same head dims in every form). Raises ``NotImplementedError`` naming
-    what the kernels take for any other."""
-    return _pos_route("flash_attention_pos_cuda", dtype, d)
+    softmax), at every head dim from 1 to 512 in every form: "sm90" (the
+    position-mask form of ``csrc/flash_attention_sm90.cuh``, TMA and wgmma,
+    a persistent grid: bf16 up to 256), "d512" (K1's TMA / wgmma kernel of
+    ``csrc/flash_attention.cu`` under the position masks: bf16 from 257 to
+    512 at the padded width 384 or 512, the keys split as
+    :func:`k1_d512_splits` says) or "fp32" (``csrc/fp32/flash_f32_fwd.cuh``
+    up to 160, the streaming kernel of ``flash_f32_fwd_wide.cuh`` above,
+    from 257 with key splits too; TMA and TF32 wgmma, three passes). Raises
+    ``NotImplementedError`` naming what the kernels take above 512."""
+    return _pos_route("flash_attention_pos_cuda", dtype, d, "d512")
 
 
 def k6_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
              segments: bool = False) -> str:
-    """Which K6 kernel a CUDA launch of this dtype, head dim and form runs:
-    "sm90" (the position-mask form of ``csrc/flash_attention_dq_sm90.cuh``,
-    TMA and wgmma: bf16 at every head dim from 1 to 256 in every form) or
-    "fp32" (the masked TF32 kernels of ``csrc/fp32/flash_f32_bwd.cuh`` at
-    the same head dims). Raises ``NotImplementedError`` naming what the
-    kernels take for any other."""
-    return _pos_route("flash_bwd_pos_dq_cuda", dtype, d)
+    """Which K6 kernel a CUDA launch of this dtype, head dim and form runs,
+    at every head dim from 1 to 512 in every form: "sm90" (the position-mask
+    form of ``csrc/flash_attention_dq_sm90.cuh``, TMA and wgmma: bf16 up to
+    256), "wide" (``csrc/flash_attention_wide_bwd_sm90.cuh`` under the
+    position masks: bf16 from 257 to 512 at the padded width 384 or 512) or
+    "fp32" (the masked TF32 kernels of ``csrc/fp32/flash_f32_bwd.cuh`` up to
+    256, ``csrc/fp32/flash_f32_bwd_stream.cuh`` above). Raises
+    ``NotImplementedError`` naming what the kernels take above 512."""
+    return _pos_route("flash_bwd_pos_dq_cuda", dtype, d, "wide")
 
 
 def k7_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
              segments: bool = False) -> str:
-    """Which K7 kernel a CUDA launch of this dtype, head dim and form runs:
-    "sm90" (the position-mask form of ``csrc/flash_attention_bwd_sm90.cuh``,
-    TMA and wgmma, above 128 on K4's one-block-a-64-key-tile body: bf16 at
-    every head dim from 1 to 256 in every form) or "fp32" (the masked TF32
-    kernels of ``csrc/fp32/flash_f32_bwd.cuh`` at the same head dims).
-    Raises ``NotImplementedError`` naming what the kernels take for any
-    other."""
-    return _pos_route("flash_bwd_pos_dkv_cuda", dtype, d)
+    """Which K7 kernel a CUDA launch of this dtype, head dim and form runs,
+    at every head dim from 1 to 512 in every form: "sm90" (the position-mask
+    form of ``csrc/flash_attention_bwd_sm90.cuh``, TMA and wgmma, above 128
+    on K4's one-block-a-64-key-tile body: bf16 up to 256), "wide"
+    (``csrc/flash_attention_wide_bwd_sm90.cuh`` under the position masks,
+    the dk and the dv blocks in one launch: bf16 from 257 to 512) or "fp32"
+    (the masked TF32 kernels of ``csrc/fp32/flash_f32_bwd.cuh`` up to 256,
+    ``csrc/fp32/flash_f32_bwd_stream.cuh`` above). Raises
+    ``NotImplementedError`` naming what the kernels take above 512."""
+    return _pos_route("flash_bwd_pos_dkv_cuda", dtype, d, "wide")
 
 
 def k1_d512_splits(b: int, h: int, lq: int, lk: int, n_sm: int) -> int:
-    """How many blocks share the keys of one 64-query tile in K1's kernels
-    above head dim 256 (bf16 and fp32; every form, a split that a row sees
-    no key of weighing 0 in the merge): 1 when the B·H·⌈Lq/64⌉ query
+    """How many blocks share the keys of one 64-query tile in K1's and K5's
+    kernels above head dim 256 (bf16 and fp32; every form, a split that a
+    row sees no key of weighing 0 in the merge): 1 when the B·H·⌈Lq/64⌉ query
     tiles fill the ``n_sm`` SMs, else as many as fit beside them (at most
     4, at most one per 64-key tile), so that no split is left without a key
     tile."""
@@ -696,6 +709,17 @@ def f32_backward_work(b: int, h: int, lq: int, lk: int, d: int) -> int:
     (2, B, H, d, Lq8) for dk / dv, L8 = L rounded up to ``_F32_KEY_GROUP``."""
     l8 = lambda n: _cdiv(n, _F32_KEY_GROUP) * _F32_KEY_GROUP
     return 2 * b * h * d * (2 * lq + 2 * lk + l8(lk) + 2 * l8(lq))
+
+
+def _d512_work(q, splits):
+    """The scratch of the bf16 kernel above head dim 256 (K1, K5) for
+    ``splits`` key splits: the partial outputs and their lse, fp32 (splits,
+    B·H·Lq, DP + 1) at the padded width DP; None with one split."""
+    if splits == 1:
+        return None
+    b, h, lq, d = q.shape
+    return torch.empty(splits * b * h * lq * (_wide_width(d) + 1),
+                       device=q.device, dtype=torch.float32)
 
 
 def _f32_work(q, lk, splits=1):
@@ -821,9 +845,7 @@ def _flash_fwd_d512(q, k, v, scale: float, splits: int, *, bias=None,
                                           _k1_tiles(d, True), "q")
     out = _blhd(q, lq)
     lse = _lse_like(q)
-    work = (torch.empty(splits * b * h * lq * (_wide_width(d) + 1),
-                        device=q.device, dtype=torch.float32)
-            if splits > 1 else None)
+    work = _d512_work(q, splits)
     strides = _strides(q, k, v, out, bias=bias)
     err = _build.load().fdsd_flash_fwd_d512(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -1164,33 +1186,39 @@ def flash_attention_pos_cuda(q, k, v, q_offsets, kv_offsets, *,
                              valid_len: Optional[int] = None,
                              stability: str = "online"):
     """K5: (out, lse) for bf16 or fp32 (B, H, L, D) CUDA tensors at every
-    head dim from 1 to 256; one that is not a multiple of 8 is padded with
-    zero columns and ``out`` cut back (:func:`_pad_head_dim`). The offsets
-    are int32 (2,) tensors on q's device; the kernel reads them, so nothing
-    waits for the host. Which kernel runs: :func:`k5_route`; launches are
-    counted by route in ``.routes`` and by head dim in ``.head_dims``."""
+    head dim from 1 to 512; one that is not a multiple of 8 is padded with
+    zero columns and ``out`` cut back (:func:`_pad_head_dim`), the scale
+    taken from the head dim given. The offsets are int32 (2,) tensors on q's
+    device; the kernel reads them, so nothing waits for the host. Above 256
+    the keys are split as K1's are (:func:`k1_d512_splits`). Which kernel
+    runs: :func:`k5_route`; launches are counted by route in ``.routes`` and
+    by head dim in ``.head_dims``."""
     b, h, lq, lk, d = _check_qkv(q, k, v, "flash_attention_pos_cuda")
     scale, seg_q, seg_k = _pos_args(q, k, scale, seg_q, seg_k, stability)
     route = k5_route(q.dtype, d, bool(causal), valid_len is not None,
                      seg_q < lq or seg_k < lk, stability == "bounded")
     _check_pos(q, scale, q_offsets, kv_offsets)
     qp, kp, vp = _pad_head_dim(q, k, v)
-    # the fp32 kernel takes a workspace for its split terms after the offsets
-    work = []
-    if route == "sm90":
-        qp, kp, vp = _tma_operand(qp), _tma_operand(kp), _tma_operand(vp)
+    splits = (k1_d512_splits(b, h, lq, lk, _sm_count(q.device))
+              if d > _MAX_HEAD_DIM else 1)
+    # the scratch after the offsets: in fp32 the split terms, in bf16 above
+    # 256 the key splits' partial outputs (none with one split)
+    if route == "fp32":
+        work = _f32_work(qp, lk, splits)
     else:
-        work = [_f32_work(qp, lk)]
+        qp, kp, vp = _tma_operand(qp), _tma_operand(kp), _tma_operand(vp)
+        work = _d512_work(qp, splits) if route == "d512" else None
     out = _blhd(qp, lq)
     lse = _lse_like(qp)
     strides = _strides(qp, kp, vp, out)
     err = _pos_entry(q, "fdsd_flash_fwd_pos")(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
         lse.data_ptr(), q_offsets.data_ptr(), kv_offsets.data_ptr(),
-        *(w.data_ptr() for w in work), b, h, lq, lk, qp.shape[-1],
-        ctypes.cast(strides, ctypes.c_void_p), scale, seg_q, seg_k,
-        0 if valid_len is None else int(valid_len), int(valid_len is not None),
-        int(bool(causal)), int(stability == "bounded"), _stream(q))
+        None if work is None else work.data_ptr(), b, h, lq, lk,
+        qp.shape[-1], ctypes.cast(strides, ctypes.c_void_p), scale, seg_q,
+        seg_k, 0 if valid_len is None else int(valid_len),
+        int(valid_len is not None), int(bool(causal)),
+        int(stability == "bounded"), splits, _stream(q))
     _build.check(err, "fdsd_flash_fwd_pos")
     _count_launch(flash_attention_pos_cuda, q, route=route)
     return (out if out.shape[-1] == d else out[..., :d]), lse
@@ -1262,7 +1290,7 @@ def flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
                           seg_k: Optional[int] = None,
                           valid_len: Optional[int] = None):
     """K6: dq of :func:`flash_bwd_pos` for bf16 or fp32 (B, H, L, D) CUDA
-    tensors at every head dim from 1 to 256 (padded as K5 pads it, dq cut
+    tensors at every head dim from 1 to 512 (padded as K5 pads it, dq cut
     back); ``lse`` and ``delta`` contiguous fp32 (B, H, Lq), the offsets
     int32 (2,) tensors on q's device. Which kernel runs: :func:`k6_route`;
     launches are counted by route in ``.routes`` and by head dim in
@@ -1273,10 +1301,10 @@ def flash_bwd_pos_dq_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
                      seg_q < lq or seg_k < lk)
     qp, kp, vp, gp = _pad_head_dim(q, k, v, g)
     work = []   # the fp32 kernel's workspace, after the offsets
-    if route == "sm90":
-        qp, kp, vp, gp = (_tma_operand(x) for x in (qp, kp, vp, gp))
-    else:
+    if route == "fp32":
         work = [_f32_bwd_work(qp, lk)]
+    else:
+        qp, kp, vp, gp = (_tma_operand(x) for x in (qp, kp, vp, gp))
     dq = _blhd(qp, lq)
     strides = _strides(qp, kp, vp, gp, dq)
     err = _pos_entry(q, "fdsd_flash_bwd_pos_dq")(
@@ -1307,10 +1335,10 @@ def flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, q_offsets, kv_offsets, *,
                      seg_q < lq or seg_k < lk)
     qp, kp, vp, gp = _pad_head_dim(q, k, v, g)
     work = []   # the fp32 kernel's workspace, after the offsets
-    if route == "sm90":
-        qp, kp, vp, gp = (_tma_operand(x) for x in (qp, kp, vp, gp))
-    else:
+    if route == "fp32":
         work = [_f32_bwd_work(qp, lk)]
+    else:
+        qp, kp, vp, gp = (_tma_operand(x) for x in (qp, kp, vp, gp))
     dk, dv = _blhd(kp, lk), _blhd(vp, lk)
     strides = _strides(qp, kp, vp, gp, dk, dv)
     err = _pos_entry(q, "fdsd_flash_bwd_pos_dkv")(

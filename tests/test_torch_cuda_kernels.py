@@ -81,7 +81,15 @@ tolerances above (fp32: 1e-4 against plain fp32, 1e-5 against fp64, one
 TF32 pass caught): lengths around their 32- and 64-row tiles, segment ids
 with rows that see no key, each key-split count of K1 forced under causal
 and segment ids, NaN-filled outputs and dbias from a NaN-poisoned pool;
-K4's dk and dv blocks one launch.
+K4's dk and dv blocks one launch. K5, K6 and K7 above head dim 256 (K1's
+kernel of ``csrc/flash_attention.cu`` under the position masks, the wide
+backward kernel, the fp32 streaming kernels) at 264, 300, 384 and 512 in
+the position forms (causal, ``valid_len``, two offset segments, a launch
+past ``valid_len``), online and bounded, against the plain versions (bf16:
+out 2e-2, lse 1e-3, each gradient 2e-2 of its largest; fp32 against fp64,
+1e-5 of each largest); each key-split count of K5 forced under the masks;
+NaN-filled outputs written on every row; the joint attention at heads of
+384 and the ring hop at 512.
 The int8 product of the W8A8 serving path (``ops/quantize.py``, a
 ``torch._int_mm`` library call): its int32 accumulators equal the exact
 product (fp64 of the same int8 operands) at the MMDiT's, T5's and the SD1
@@ -441,13 +449,13 @@ def test_pos_kernel_refuses_what_it_does_not_take(gen):
         tfa.flash_attention_pos(q.half(), q.half(), q.half(), z, z)
     assert tfa.flash_attention_pos(q.float(), q.float(), q.float(), z,
                                    z)[0].dtype == torch.float32
-    q40 = _randn(gen, 1, 1, 64, 40)    # every head dim up to 256
+    q40 = _randn(gen, 1, 1, 64, 40)    # every head dim up to 512
     out, lse = tfa.flash_attention_pos(q40, q40, q40, z, z)
     ref, ref_lse = tfa.flash_attention_pos_plain(q40, q40, q40, z, z)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-3
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_pos(*(_randn(gen, 1, 1, 64, 320),) * 3, z, z)
+    with pytest.raises(NotImplementedError, match="1 to 512"):
+        tfa.flash_attention_pos(*(_randn(gen, 1, 1, 64, 520),) * 3, z, z)
     with pytest.raises(ValueError):
         tfa.flash_attention_pos(q, q, q, z.cpu(), z)
     with pytest.raises(ValueError):
@@ -572,11 +580,11 @@ def test_pos_backward_kernels_refuse_what_they_do_not_take(gen):
         tfa.flash_bwd_pos_dq_cuda(*(q.half(),) * 4, st, st, z, z)
     assert tfa.flash_bwd_pos_dq_cuda(*(q.float(),) * 4, st, st, z,
                                      z).dtype == torch.float32
-    q40 = _randn(gen, 1, 1, 64, 40)    # every head dim up to 256
+    q40 = _randn(gen, 1, 1, 64, 40)    # every head dim up to 512
     lse40, delta40 = _global_stats(q40, [(q40, q40)], q40, z, [z])
     _pos_bwd_check(q40, q40, q40, q40, lse40, delta40, z, z)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_bwd_pos_dkv_cuda(*(_randn(gen, 1, 1, 64, 320),) * 4, st,
+    with pytest.raises(NotImplementedError, match="1 to 512"):
+        tfa.flash_bwd_pos_dkv_cuda(*(_randn(gen, 1, 1, 64, 520),) * 4, st,
                                    st, z, z)
     with pytest.raises(ValueError):
         tfa.flash_bwd_pos_dq_cuda(q, q, q, q, st.double(), st, z, z)
@@ -2615,3 +2623,199 @@ def test_wide_k4_is_one_launch_of_both_roles(gen):
     assert tfa.flash_attention_bwd_dq_cuda.launches == n3 + 1
     _bwd_close((dq, dk, dv),
                tfa.flash_attention_bwd_plain(q, k, v, out, lse, g))
+
+
+# ------------------------------------- K5, K6 and K7 above head dim 256
+# form -> (offsets of q and k, keywords of flash_attention_pos, rows per
+# (b, h) that see no key); q (2, 2, 300, d) against k (2, 2, 260, d)
+WIDE_POS_FORMS = {
+    "none": ((0, 0), (0, 0), {}, 0),
+    "causal": ((0, 0), (0, 0), dict(causal=True), 0),
+    "valid_len": ((0, 0), (0, 0), dict(valid_len=200), 0),
+    "two segments": ((20, 1000), (50, 900),
+                     dict(causal=True, valid_len=1000, seg_q=150,
+                          seg_k=130), 30),
+    "past valid_len": ((0, 0), (0, 0), dict(valid_len=0), 300),
+}
+
+
+def _wide_pos_check(q, k, v, g, qo, ko, stability="online", floor=1e-6,
+                    **kw):
+    """K5 (in ``stability``), K6 and K7 above 256 on one input, each one
+    launch on its route ("d512" / "wide" in bf16, "fp32"), against the plain
+    versions (bf16: out 2e-2 and lse 1e-3 on the rows that see a key, each
+    gradient 2e-2 of its largest; fp32 against fp64, 1e-5 of each largest)
+    under the plain forward's lse; rows that see no key give out = 0, lse
+    <= -1e29 and finite gradients. Returns (out, lse, the gradients)."""
+    bf16 = q.dtype == torch.bfloat16
+    fns = (tfa.flash_attention_pos_cuda, tfa.flash_bwd_pos_dq_cuda,
+           tfa.flash_bwd_pos_dkv_cuda)
+    names = ("d512", "wide", "wide") if bf16 else ("fp32",) * 3
+    before = [fn.routes[r] for fn, r in zip(fns, names)]
+    ins = [q, k, v] if bf16 else [x.double() for x in (q, k, v)]
+    ref, ref_lse = tfa.flash_attention_pos_plain(*ins, qo, ko, **kw)
+    seen = ref_lse > -1e29
+    out, lse = tfa.flash_attention_pos_cuda(q, k, v, qo, ko,
+                                            stability=stability, **kw)
+    lse32 = ref_lse.float().contiguous()
+    delta = (g.double() * ref.double()).sum(-1)
+    got = (tfa.flash_bwd_pos_dq_cuda(q, k, v, g, lse32, delta.float(), qo,
+                                     ko, **kw),
+           *tfa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse32, delta.float(), qo,
+                                       ko, **kw))
+    assert [fn.routes[r] for fn, r in zip(fns, names)] == [
+        n + 1 for n in before]
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert bool((lse[~seen] <= -1e29).all()) and not bool(out[~seen].any())
+    if bf16:
+        want = tfa.flash_bwd_pos_plain(q, k, v, g, lse32, delta.float(), qo,
+                                       ko, **kw)
+        if bool(seen.any()):
+            assert (out.float() - ref.float())[seen].abs().max() <= 2e-2
+            assert (lse - ref_lse)[seen].abs().max() <= 1e-3
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert a.shape == w.shape and bool(torch.isfinite(a).all()), name
+            assert ((a.float() - w.float()).abs().max().item()
+                    <= 2e-2 * w.float().abs().max().item() + floor), name
+        return out, lse, got
+    want = tfa.flash_bwd_pos_plain(*ins, g.double(), ref_lse, delta, qo, ko,
+                                   **kw)
+    if bool(seen.any()):
+        _rel_close(out[seen], ref[seen], F64_REL, "out")
+        _rel_close(lse[seen], ref_lse[seen], F64_REL, "lse")
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert ((a.double() - w).abs().max().item()
+                <= F64_REL * w.abs().max().item() + floor * 1e-3), name
+    return out, lse, got
+
+
+@pytest.mark.parametrize("stability", ["online", "bounded"])
+@pytest.mark.parametrize("form", sorted(WIDE_POS_FORMS))
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_wide_pos_forms_match_plain(gen, dtype, d, form, stability):
+    """K5 (online and bounded), K6 and K7 at the widths 384 (264, 300
+    padded to 304) and 512 in each position form, Lq and Lk ragged around
+    the 32- and 64-row tiles, segment boundaries off a multiple of 64; a
+    launch whose every key lies past valid_len writes out = 0 and lse =
+    -1e30, never NaN."""
+    q_off, k_off, kw, blank = WIDE_POS_FORMS[form]
+    b, h, lq, lk = 2, 2, 300, 260
+    q, g = (_randn(gen, b, h, lq, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, b, h, lk, d, dtype=dtype) for _ in range(2))
+    qo, ko = _offsets(*q_off), _offsets(*k_off)
+    out, lse, _ = _wide_pos_check(q, k, v, g, qo, ko, stability, **kw)
+    assert int((lse <= -1e29).sum()) == b * h * blank
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("form", ["none", "causal", "two segments",
+                                  "past valid_len"])
+def test_wide_k5_each_split_count_under_the_masks(gen, monkeypatch, form,
+                                                  splits):
+    """K5 above 256 in both dtypes and softmaxes with its keys split over 1
+    - 4 blocks (forced), where a split, or every one, holds no key a row
+    sees (weight 0 in the merge; the bounded splits' sums merged without a
+    running max), at 300 (width 384) and 512."""
+    monkeypatch.setattr(tfa, "k1_d512_splits", lambda *a: splits)
+    q_off, k_off, kw, _ = WIDE_POS_FORMS[form]
+    b, h, lq, lk = 1, 2, 130, 700
+    qo, ko = _offsets(*q_off), _offsets(*k_off)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (300, 512):
+            q, k, v = (_randn(gen, b, h, n, d, dtype=dtype)
+                       for n in (lq, lk, lk))
+            ins = [x.double() for x in (q, k, v)] if dtype == torch.float32 \
+                else [q, k, v]
+            ref, ref_lse = tfa.flash_attention_pos_plain(*ins, qo, ko, **kw)
+            seen = ref_lse > -1e29
+            for stability in ("online", "bounded"):
+                out, lse = tfa.flash_attention_pos_cuda(
+                    q, k, v, qo, ko, stability=stability, **kw)
+                assert not bool(out[~seen].any())
+                assert bool((lse[~seen] <= -1e29).all())
+                if not bool(seen.any()):
+                    continue
+                if dtype == torch.bfloat16:
+                    assert ((out.float() - ref.float())[seen].abs().max()
+                            <= 2e-2)
+                    assert (lse - ref_lse)[seen].abs().max() <= 1e-3
+                else:
+                    _rel_close(out[seen], ref[seen], F64_REL, "out")
+                    _rel_close(lse[seen], ref_lse[seen], F64_REL, "lse")
+
+
+def test_wide_pos_write_every_row(gen, monkeypatch):
+    """out, lse, dq, dk and dv handed to K5, K6 and K7 filled with NaN at
+    300 and 512 in both dtypes, under two segments with causal and
+    valid_len (rows that see no key, key tiles no query sees): every row
+    written, nothing NaN."""
+    blhd = tfa._blhd
+    monkeypatch.setattr(tfa, "_blhd", lambda like, n: blhd(like, n).fill_(
+        float("nan")))
+    monkeypatch.setattr(tfa, "_lse_like", lambda q: torch.full(
+        q.shape[:3], float("nan"), device=q.device))
+    q_off, k_off, kw, _ = WIDE_POS_FORMS["two segments"]
+    qo, ko = _offsets(*q_off), _offsets(*k_off)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (300, 512):
+            q, g = (_randn(gen, 2, 1, 300, d, dtype=dtype) for _ in range(2))
+            k, v = (_randn(gen, 2, 1, 260, d, dtype=dtype) for _ in range(2))
+            out, lse, grads = _wide_pos_check(q, k, v, g, qo, ko, **kw)
+            assert bool(torch.isfinite(out).all())
+            assert bool(torch.isfinite(lse).all())
+            assert all(bool(torch.isfinite(t).all()) for t in grads)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_wide_joint_attention_matches_concatenated(gen, dtype):
+    """``joint_flash_attention`` at heads of 384 (SD3's 154 context tokens
+    against 600 x tokens): both outputs and the six gradients against
+    attention over the concatenated streams (the plain K1 / K3 / K4; fp32:
+    fp64), 4 x K5, 4 x K6 and 4 x K7 on their wide routes."""
+    d, lc, lx = 384, 154, 600
+    xs = [_randn(gen, 2, 2, n, d, dtype=dtype)
+          for n in (lc, lc, lc, lx, lx, lx)]
+    gc_, gx = (_randn(gen, 2, 2, n, d, dtype=dtype) for n in (lc, lx))
+    before = [fn.launches for fn in (tfa.flash_attention_pos_cuda,
+                                     tfa.flash_bwd_pos_dq_cuda,
+                                     tfa.flash_bwd_pos_dkv_cuda)]
+    leaves = [x.detach().requires_grad_() for x in xs]
+    oc, ox = tfa.joint_flash_attention(*leaves)
+    grads = torch.autograd.grad((oc, ox), leaves, (gc_, gx))
+    assert [fn.launches for fn in (tfa.flash_attention_pos_cuda,
+                                   tfa.flash_bwd_pos_dq_cuda,
+                                   tfa.flash_bwd_pos_dkv_cuda)] == [
+        n + 4 for n in before]
+    wide = (lambda x: x) if dtype == torch.bfloat16 else (
+        lambda x: x.double())
+    cat = [torch.cat([wide(c), wide(x)], 2) for c, x in zip(xs[:3], xs[3:])]
+    gcat = torch.cat([wide(gc_), wide(gx)], 2)
+    ref, ref_lse = tfa.flash_attention_plain(*cat)
+    want = tfa.flash_attention_bwd_plain(*cat, ref, ref_lse, gcat)
+    out = torch.cat([oc, ox], 2)
+    got = [torch.cat([grads[i], grads[i + 3]], 2) for i in range(3)]
+    if dtype == torch.bfloat16:
+        assert (out.float() - ref.float()).abs().max() <= 2e-2
+        _bwd_close(got, want)
+    else:
+        _rel_close(out, ref, F64_REL, "out")
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            _rel_close(a, w, F64_REL, name)
+
+
+def test_wide_ring_hop_at_512(gen):
+    """The ring hop at head dim 512 (shard 0's queries against shard 3's
+    keys of a 4-shard ring over SD3's 4250 tokens padded to 4252, 3 heads:
+    offsets (0, 0) / (3189, 0), valid_len 4250, the last two keys padding)
+    in both dtypes: K5, K6 and K7 on their wide routes against the plain
+    versions."""
+    n = 1063
+    for dtype in (torch.bfloat16, torch.float32):
+        q, g = (_randn(gen, 2, 3, n, 512, dtype=dtype) for _ in range(2))
+        k, v = (_randn(gen, 2, 3, n, 512, dtype=dtype) for _ in range(2))
+        _wide_pos_check(q, k, v, g, _offsets(0, 0), _offsets(3 * n, 0),
+                        seg_q=n, seg_k=n, valid_len=4250)

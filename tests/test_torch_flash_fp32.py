@@ -328,13 +328,17 @@ def test_fp32_kernels_are_a_library_of_their_own():
         assert len(head.split(",")) == len(argtypes), name
     # the fp32 position-masked kernels take the arguments of their bf16
     # namesakes (one call site serves both) with their split terms'
-    # workspace after the offsets
-    for name, offsets_end in (("fdsd_flash_fwd_pos", 7),
-                              ("fdsd_flash_bwd_pos_dq", 9),
+    # workspace after the offsets; the forward's are its bf16 namesake's
+    # own, whose scratch after the offsets and key splits before the stream
+    # serve the bf16 K5 above head dim 256
+    pos = _build._SIGNATURES["fdsd_flash_fwd_pos"]
+    assert pos[7] == ctypes.c_void_p and pos[-2] == ctypes.c_int
+    assert _build._SIGNATURES_FP32["fdsd_flash_fwd_pos_f32"] == pos
+    for name, offsets_end in (("fdsd_flash_bwd_pos_dq", 9),
                               ("fdsd_flash_bwd_pos_dkv", 10)):
         pos = _build._SIGNATURES[name]
-        assert _build._SIGNATURES_FP32[name + "_f32"] == (
-            pos[:offsets_end] + [ctypes.c_void_p] + pos[offsets_end:]), name
+        want = pos[:offsets_end] + [ctypes.c_void_p] + pos[offsets_end:]
+        assert _build._SIGNATURES_FP32[name + "_f32"] == want, name
 
 
 def test_wrappers_count_launches_by_dtype():

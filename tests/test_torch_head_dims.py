@@ -3,8 +3,8 @@
 - The routes: on a CUDA tensor K1 (``k1_route``), K3 (``k3_route``) and K4
   (``k4_route``) take every head dim from 1 to 256 in every mask form, in
   bf16 and in fp32, as K5 / K6 / K7 do (and up to 512:
-  ``tests/test_torch_wide_heads.py``); K1, K3 and K4 above 512 and K5, K6
-  and K7 above 256 still raise, naming the entry point.
+  ``tests/test_torch_wide_heads.py``, ``tests/test_torch_wide_pos.py``);
+  every route above 512 still raises, naming the entry point.
 - The tiles: the segment-id tiles the wrappers build at each width are the
   kernels' own (the Cfg rules of ``csrc/flash_attention*_sm90.cuh``), and
   every width's tiles fit in an H100 block's shared memory, the fp32 K1's
@@ -73,16 +73,16 @@ def test_routes_take_every_head_dim_up_to_256(kernel, dtype):
             assert ROUTES[kernel](dtype, d, *form) == want, (d, form)
 
 
-REFUSED_D = 320      # above 256: K5, K6 and K7 take it in no form
-REFUSED_WIDE = 520   # above 512: K1, K3 and K4 take it in no form
+REFUSED_WIDE = 520   # above 512: no kernel takes it in any form
 WIDE_ROUTES = {tfa.k1_route: "d512", tfa.k3_route: "wide",
-               tfa.k4_route: "wide"}
+               tfa.k4_route: "wide", tfa.k5_route: "d512",
+               tfa.k6_route: "wide", tfa.k7_route: "wide"}
 CASES = [
     # (route, dtype, head dim, form keywords, the entry point named); those
     # up to 256 were refused before the fp32 mask forms and the position
-    # kernels took every head dim, those of K1, K3 and K4 from 257 to 512
-    # before the wide kernels: they now have their route, and the same form
-    # stays refused above the route's limit (REFUSED_D, REFUSED_WIDE)
+    # kernels took every head dim, those from 257 to 512 before the wide
+    # kernels: they now have their route, and the same form stays refused
+    # above 512 (REFUSED_WIDE)
     (tfa.k3_route, BF16, 512, {}, "flash_attention_bwd_dq_cuda"),
     (tfa.k4_route, F32, 512, {}, "flash_attention_bwd_dkv_cuda"),
     (tfa.k1_route, BF16, 320, {}, "flash_attention_cuda"),
@@ -104,15 +104,14 @@ CASES = [
                          ids=lambda x: getattr(x, "__name__", str(x)))
 def test_what_stays_refused_raises_naming_the_entry_point(route, dtype, d,
                                                           form, entry):
-    """Above 512 (K1, K3, K4) or 256 (K5, K6, K7) a route raises naming its
-    entry point. A case at a head dim the route takes has its route in its
-    dtype, and raises so in the same form above the limit."""
-    wide = route in WIDE_ROUTES
-    if d <= (512 if wide else 256):
+    """Above 512 a route raises naming its entry point. A case at a head
+    dim the route takes has its route in its dtype, and raises so in the
+    same form above the limit."""
+    if d <= 512:
         want = ("fp32" if dtype == F32 else "sm90" if d <= 256
                 else WIDE_ROUTES[route])
         assert route(dtype, d, **form) == want
-        d = REFUSED_WIDE if wide else REFUSED_D
+        d = REFUSED_WIDE
     with pytest.raises(NotImplementedError, match=entry):
         route(dtype, d, **form)
 

@@ -8,7 +8,9 @@ position-mask forms of the TMA / wgmma kernels of
 (K6) and ``csrc/flash_attention_bwd_sm90.cuh`` (K7) for bf16, the fp32
 library for fp32, at every head dim from 1 to 256 whatever the masks
 (causal by position, ``valid_len``, two segments on a side, the bounded
-softmax); a head dim above 256 raises before a launch. On CPU tensors the
+softmax), and from 257 to 512 K1's wide kernel (K5, "d512") and the wide
+backward kernel (K6, K7, "wide") in bf16; a head dim above 512 raises
+before a launch (``tests/test_torch_wide_pos.py``). On CPU tensors the
 public entries run the plain versions and no counter moves. The kernels
 themselves are tested on the card (``tests/test_torch_cuda_kernels.py``).
 """
@@ -32,12 +34,14 @@ FORMS = {
 HEAD_DIMS = [40, 64, 80, 128, 512]
 
 
-def _want(dtype, d):
-    """The route the port's contract gives K5, K6 and K7 (any form), or the
-    exception it raises."""
-    if d > 256:
+def _want(dtype, d, wide="wide"):
+    """The route the port's contract gives K5 (``wide`` "d512"), K6 and K7
+    (any form), or the exception it raises."""
+    if d > 512:
         return NotImplementedError
-    return "fp32" if dtype == F32 else "sm90"
+    if dtype == F32:
+        return "fp32"
+    return wide if d > 256 else "sm90"
 
 
 def _check_route(route, want, *args):
@@ -45,7 +49,7 @@ def _check_route(route, want, *args):
         with pytest.raises(NotImplementedError) as err:
             route(*args)
         # the message names what the kernels take
-        assert "takes head dims 1 to 256" in str(err.value)
+        assert "takes head dims 1 to 512" in str(err.value)
     else:
         assert route(*args) == want
 
@@ -54,7 +58,8 @@ def _check_route(route, want, *args):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
 def test_k5_route_by_dtype_head_dim_and_form(dtype, d, form):
-    _check_route(tfa.k5_route, _want(dtype, d), dtype, d, *FORMS[form])
+    _check_route(tfa.k5_route, _want(dtype, d, "d512"), dtype, d,
+                 *FORMS[form])
 
 
 @pytest.mark.parametrize("form", sorted(f for f in FORMS if f != "bounded"))

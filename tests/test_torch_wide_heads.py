@@ -3,7 +3,8 @@
 - The routes: on a CUDA tensor K1 (``k1_route``), K3 (``k3_route``) and K4
   (``k4_route``) take every head dim from 257 to 512 in every mask form and
   both dtypes ("d512" for K1 in bf16, "wide" for K3 / K4 in bf16, "fp32");
-  above 512 they raise, and K5, K6 and K7 above 256, naming the entry point.
+  above 512 they raise, naming the entry point, and so do K5, K6 and K7,
+  which take 257 to 512 too (``tests/test_torch_wide_pos.py``).
 - The widths: the padded widths 384 and 512 of the kernels above 256
   (``csrc/flash_attention.cu``, ``csrc/flash_attention_wide_bwd_sm90.cuh``,
   ``csrc/fp32/flash_f32_fwd_wide.cuh``, ``csrc/fp32/flash_f32_bwd_stream.cuh``)
@@ -104,11 +105,18 @@ def test_routes_above_512_raise_naming_the_entry_point(route, entry):
     (tfa.k6_route, "flash_bwd_pos_dq_cuda"),
     (tfa.k7_route, "flash_bwd_pos_dkv_cuda")], ids=["K5", "K6", "K7"])
 def test_position_kernels_still_raise_above_256(route, entry):
+    """K5, K6 and K7 raise above 512 only, naming the entry point: from 257
+    to 512 they take their wide route, as K1, K3 and K4 do. (The name is
+    older than the wide routes: the refusal it names now starts at 513.)"""
+    wide = "d512" if route is tfa.k5_route else "wide"
     for dtype in (BF16, F32):
         assert route(dtype, 256) == ("fp32" if dtype == F32 else "sm90")
         for d in (257, 300, 384, 512):
+            assert route(dtype, d) == ("fp32" if dtype == F32 else wide)
+        for d in (513, 520, 640, 1024):
             with pytest.raises(NotImplementedError,
-                               match=f"{entry} takes head dims 1 to 256"):
+                               match=f"head dim {d}: {entry} takes head "
+                                     "dims 1 to 512"):
                 route(dtype, d)
 
 
