@@ -514,12 +514,12 @@ def phase_build():
 # every mask path (ANY) at the 14 others; the sm90 K4 the same at its 12
 # widths (16 - 128, then 160, 192, 224, 256); K1 above 256 (the d512
 # kernel) at the widths 384 and 512 without a mask and ANY, and K3 / K4
-# above 256 (one kernel, its role per block) the same; the sm90 K5: online
+# above 256 (a cluster pair, a kernel for each role) the same; the sm90 K5: online
 # and bounded at K1's 16 widths; K6 at K3's 16, K7 at K4's 12.
 SM90_KERNELS = {  # kind -> (kernel name, instantiations)
     "K1 sm90": ("flash_fwd_sm90_kernel", 16 + 2 * 7 + 14),
     "K1 d512": ("flash_fwd_d512", 2 * 2),
-    "K3/K4 wide": ("flash_bwd_wide_sm90_kernel", 2 * 2),
+    "K3/K4 wide": ("flash_bwd_wide_sm90_kernel", 2 * 2 * 2),
     "K3 sm90": ("flash_bwd_dq_sm90_kernel", 16 + 2 * 7 + 14),
     "K4 sm90": ("flash_bwd_dkv_sm90_kernel", 12 + 2 * 7 + 10),
     "K5 sm90": ("flash_fwd_pos_sm90_kernel", 16 * 2),
@@ -540,8 +540,8 @@ BF16_FAMILY = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_pos_dkv",
 # without a mask under its own name. The fp32 backward (TF32 split): dq and dk/dv at the 8 widths 16
 # - 128 without a mask and masked (K3 / K4 causal, K6 / K7), ANY at 32, 64,
 # 96, 128, the two-block (one cluster) dq and dk/dv at the 4 widths 160 -
-# 256 without a mask, masked and ANY, and the streaming dq / dk / dv kernel
-# (its role per block) at 384 and 512 without a mask and ANY.
+# 256 without a mask, masked and ANY, and the streaming dq and dk / dv
+# kernels (one cluster pair each) at 384 and 512 without a mask and ANY.
 FP32_KERNELS = {
     "K1/K5 fp32": ("flash_fwd_f32_kernel", 13 + 13 + 5 + 5 + 1),
     "K1/K5 fp32 wide": ("flash_fwd_f32_wide_kernel", 3 * 4 + 4 + 3),
@@ -550,7 +550,7 @@ FP32_KERNELS = {
     "K4/K7 fp32": ("flash_bwd_dkv_f32_kernel", 16 + 4),
     "K3/K6 fp32 wide": ("flash_bwd_dq_f32_wide_kernel", 3 * 4),
     "K4/K7 fp32 wide": ("flash_bwd_dkv_f32_wide_kernel", 3 * 4),
-    "K3/K4 fp32 stream": ("flash_bwd_f32_stream_kernel", 2 * 2),
+    "K3/K4 fp32 stream": ("flash_bwd_f32_stream_kernel", 2 * 2 * 2),
 }
 FP32_FAMILY = ("flash_fwd", "flash_bwd")
 
@@ -584,7 +584,7 @@ def sass_check(sass, table, family):
              "K3/K6 fp32": "masked/any", "K4/K7 fp32": "masked/any",
              "K3/K6 fp32 wide": "masked/any", "K4/K7 fp32 wide": "masked/any",
              "K1/K5 fp32 wide": "form", "K1 d512": "any",
-             "K3/K4 wide": "any", "K3/K4 fp32 stream": "any"}
+             "K3/K4 wide": "any/dkv", "K3/K4 fp32 stream": "any/dkv"}
     for kind, fns in found.items():
         for f, (hgmma, tma) in sorted(fns.items()):
             # template arguments: padded head dim, then the form's flags
@@ -9578,16 +9578,22 @@ def phase_kernels_forms(card, tail):
 WIDE_DIMS = (264, 300, 384, 512)
 WIDE_BWD_DESIGN = (
     "every head dim 257 - 512 in every mask form, at the padded widths 384 "
-    "and 512: one kernel for dq, dk and dv, a block owning 64 rows (queries "
-    "for dq, keys for dk and dv; K4's dk and dv blocks in one launch, each "
-    "recomputing S^T) with A1 / A2 resident (Q, dO; or K, V) and B1 / B2 "
-    "tiles of 32 rows on one mbarrier pair (bf16, TMA + wgmma): two "
-    "consumers split X = A1 B1^T and Y = A2 B2^T by columns (m64n16k16 SS), "
-    "form P or dS, write it in bf16 to a double-buffered swizzled tile and "
-    "each accumulate its half of the columns (m64n(DP/2)k16 SS); masks per "
-    "launch (ANY), dbias written once a tile; fp32 the same roles on the "
-    "streaming TF32 layout of the fp32 forward (three 64 KB slots, 64-column "
-    "tiles, three passes, the transposed split terms of K, Q or dO)")
+    "and 512, on a cluster of two blocks that split the head dim (bf16, TMA "
+    "+ wgmma; a kernel for dq and one for dk / dv): a pair owns 64 rows, "
+    "each block A1 / A2 resident at its DH = DP / 2 columns and B1 / B2 "
+    "tiles of 32 rows on a ring of 3 - 4 stages; the partial X = A1 B1^T "
+    "and Y = A2 B2^T (m64n32k16 SS) stored into the other block by "
+    "st.async and added; dq: the two consumers take alternate tiles "
+    "(ping-pong), the swap in two halves, dQ += dS K in RS form "
+    "(m64nDHk16) and the consumers' dQ added at the end; dk / dv: both "
+    "accumulators in the pair (S^T once a tile), consumer 0 X and dK += "
+    "dS^T Q, consumer 1 Y and dV += P^T dO (m64nDHk16 SS from a swizzled T "
+    "tile), the column tile's lse and delta staged once a tile; masks per "
+    "launch (ANY; a tile without bias, segment ids or a partial position "
+    "pair takes a plain loop), dbias written once a tile by block 0; fp32 "
+    "the same roles and pairs on the streaming TF32 layout (four 32 KB "
+    "slots, 64-column tiles, three passes, the transposed split terms of "
+    "K, Q or dO)")
 WIDE_CASE = (2, 2, 600, 520)
 WIDE_FORMS = [(False, False, False), (True, False, False),
               (False, True, False), (False, False, True), (True, True, True)]
@@ -9831,11 +9837,12 @@ WIDE_POS_DESIGN = (
     "tiles, the bounded softmax a launch flag keeping the max at 0; key "
     "splits merged by lse, a split without a visible key weighing 0), K6 / "
     "K7 on the wide backward kernel under the caller's global lse and "
-    "delta (64 rows a block, pos_pair with the query and key tiles whichever "
-    "axis the rows are, masked probabilities selected to 0; dk and dv blocks "
-    "in one launch); fp32 on the streaming TF32 kernels (the forward's "
-    "kWideAny / kWideBounded at 384 and 512 with key splits, the streaming "
-    "backward's ANY form reading the offsets, segments and valid_len)")
+    "delta (64 rows a cluster pair splitting the head dim, pos_pair with "
+    "the query and key tiles whichever axis the rows are, masked "
+    "probabilities selected to 0; dk and dv in one pair); fp32 on the "
+    "streaming TF32 kernels (the forward's kWideAny / kWideBounded at 384 "
+    "and 512 with key splits, the streaming backward's pair in its ANY form "
+    "reading the offsets, segments and valid_len)")
 
 
 def wide_pos_check(fa, rnd, dtype, d, form):

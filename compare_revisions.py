@@ -57,7 +57,14 @@ Parts, all of them unless ``--only`` names some:
     through the fp32 kernels (CUDA events);
   - fp32bias: K1 on fp32 tensors with T5's bias (``chip_smoke.FP32_T5_SHAPE``,
     a (1, H, L, L) bias shared over the batch, scale 1.0), wall and device
-    ms per call as in fp32.
+    ms per call as in fp32;
+  - wide: the flash backward above head dim 256 in bf16 and fp32: K3 and
+    K4 at ``chip_smoke.WIDE_VAE_SHAPE`` and causal at ``WIDE_MASKED``, K6
+    and K7 over the four stream pairs of SD3's joint attention at heads of
+    ``chip_smoke.WIDE_JOINT_DIMS`` (one call each: four launches), and K6 /
+    K7 at the ring hop of ``chip_smoke.WIDE_RING_SHAPE`` (bf16, the ring's
+    only dtype): wall ms per call and the wide kernel's own device ms per
+    call (profiler rows of its family; fp32 without the split pre-pass).
 Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -72,7 +79,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PARTS = ("launch", "kernels", "training", "widths", "vlm", "mmdit", "sd1",
-         "t5", "sd3", "fp32", "fp32train", "fp32bias")
+         "t5", "sd3", "fp32", "fp32train", "fp32bias", "wide")
 K1 = "K1 flash fwd"
 # K5's fp32 shapes of the SD3 joint attention (K1's: chip_smoke.FP32_CASES)
 FP32_POS_SHAPES = [(2, 24, 4096, 4096, 64), (2, 24, 4096, 154, 64)]
@@ -198,6 +205,67 @@ def _other_kernels(cs, out, rnd):
                lambda: fa.flash_bwd_pos_dkv_cuda(q, k, v, g, lse, delta, z,
                                                  z))
     del fused, stats
+    torch.cuda.empty_cache()
+
+
+def _wide(cs, out):
+    import torch
+
+    from from_ddpm_to_stable_diffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2900)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    z = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+        fam = cs.WIDE_POS_FAMS[dt][1]    # the wide backward kernel's rows
+        n, w = (10, 2) if dt == "bf16" else (3, 1)
+
+        def timed(key, call):
+            out[f"{key} {dt} wall ms"] = cs.cuda_ms(call, n, w)
+            out[f"{key} {dt} device ms"] = cs.kernel_device_ms(call, fam, n)
+
+        for shape, causal in ((cs.WIDE_VAE_SHAPE, False),
+                              (cs.WIDE_MASKED, True)):
+            b, h, lq, lk, d = shape
+            q, k, v, g, _ = cs.head_dim_inputs(rnd, dtype, d,
+                                               cs.MASK_FORMS[0],
+                                               (b, h, lq, lk))
+            o, lse = fa.flash_attention_cuda(q, k, v, causal=causal)
+            delta = (g.float() * o.float()).sum(-1)
+            key = f"{'causal ' if causal else ''}{shape}"
+            timed("K3 " + key, lambda: fa.flash_attention_bwd_dq_cuda(
+                q, k, v, g, lse, delta, causal=causal))
+            timed("K4 " + key, lambda: fa.flash_attention_bwd_dkv_cuda(
+                q, k, v, g, lse, delta, causal=causal))
+            del q, k, v, g, o, lse, delta
+        for d in cs.WIDE_JOINT_DIMS:
+            xs, gs = cs._joint_inputs(rnd, dtype, d)
+            jc = cs.joint_calls(fa, xs[:3], xs[3:], dict(c=gs[0], x=gs[1]),
+                                z)
+            key = f"joint attention, heads of {d}, four stream pairs"
+            timed("K6 " + key, jc["dq"])
+            timed("K7 " + key, jc["dkv"])
+            del xs, gs, jc
+        torch.cuda.empty_cache()
+    # the ring hop at d 512: the first query shard against the last key
+    # shard at their global offsets, under the ring's valid length
+    b, h, l, d = cs.WIDE_RING_SHAPE
+    n_l = l // cs.RING_N
+    q, k, v, g = (rnd(b, h, n_l, d).to(torch.bfloat16) for _ in range(4))
+    qo = torch.zeros(2, dtype=torch.int32, device="cuda")
+    ko = torch.tensor((3 * n_l, 0), dtype=torch.int32, device="cuda")
+    kw = dict(seg_q=n_l, seg_k=n_l, valid_len=cs.RING_VALID)
+    o, lse = fa.flash_attention_pos_cuda(q, k, v, qo, ko, **kw)
+    delta = (g.float() * o.float()).sum(-1)
+    fam = cs.WIDE_POS_FAMS["bf16"][1]
+    key = f"ring hop {(b, h, n_l, n_l, d)}"
+    for name, fn in (("K6", fa.flash_bwd_pos_dq_cuda),
+                     ("K7", fa.flash_bwd_pos_dkv_cuda)):
+        call = lambda: fn(q, k, v, g, lse, delta, qo, ko, **kw)
+        out[f"{name} {key} bf16 wall ms"] = cs.cuda_ms(call, 20, 3)
+        out[f"{name} {key} bf16 device ms"] = cs.kernel_device_ms(call, fam)
+    del q, k, v, g, o, lse, delta
     torch.cuda.empty_cache()
 
 
@@ -442,6 +510,8 @@ def measure(parts):
         _fp32(cs, out)
     if "fp32bias" in parts:
         _fp32_bias(cs, out)
+    if "wide" in parts:
+        _wide(cs, out)
     if "fp32train" in parts:
         for name, (counts, _) in zip(
                 ("TinyVLM", "tiny-SD", "MMDiT latent 128 batch 1",

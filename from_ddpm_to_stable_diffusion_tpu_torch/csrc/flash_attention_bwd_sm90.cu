@@ -70,8 +70,8 @@ extern "C" int fdsd_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // values); the head-dim stride is 1. lse and delta are (B, H, Lq) contiguous
 // fp32, the global ones; q_off and k_off are int32[2] in device memory.
 // Every head dim from 1 to 256, at the padded width DP of padded_width;
-// from 264 to 512 (multiples of 8) the wide kernel under the same masks, the
-// dk and the dv blocks in one launch; others return cudaErrorInvalidValue.
+// from 264 to 512 (multiples of 8) the wide kernel under the same masks, dk
+// and dv in one cluster pair; others return cudaErrorInvalidValue.
 extern "C" int fdsd_flash_bwd_pos_dkv(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dk, void* dv, const void* q_off,

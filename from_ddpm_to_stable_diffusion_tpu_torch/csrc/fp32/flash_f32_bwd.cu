@@ -7,7 +7,8 @@
 // dims 129 to 256 one cluster of two blocks, each owning half of the columns
 // (above 128 the resident Q and dO (dq) or K and V (dk / dv) terms of a
 // 64-row tile no longer fit in one block beside the rings); above 256 the
-// streaming kernel of flash_f32_bwd_stream.cuh, nothing resident. This file
+// streaming kernel of flash_f32_bwd_stream.cuh, nothing resident, on a
+// cluster of two blocks that split the head dim. This file
 // holds the split pre-pass, the dispatch and the C entries; every form (no
 // mask, masked, and ANY: a bias with dbias, segment ids, causal, at the head
 // dim rounded up to 32; above 256 at 384 or 512) is instantiated a few

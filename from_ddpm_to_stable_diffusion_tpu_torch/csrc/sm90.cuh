@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks in raw PTX, for kernels built on TMA and
 // wgmma: mbarriers (also arrived on and waited for across the blocks of a
-// cluster), the cluster's rank, address map, barrier and shared-to-shared
-// bulk copy, named barriers, the 4-D TMA tile load and its host-side
-// tensor map (bf16 or fp32), the 1-D bulk copy, shared-memory matrix
+// cluster), the cluster's rank, address map, barrier, shared-to-shared
+// bulk copy and asynchronous remote store, named barriers, the 4-D TMA
+// tile load and its host-side tensor map (bf16 or fp32), the 1-D bulk
+// copy, shared-memory matrix
 // descriptors, wgmma m64nNk16 (bf16 in, fp32 accumulators) in SS and RS form
 // and m64nNk8 in TF32 (fp32 operands rounded to TF32, both K-major), with its
 // fence / commit / wait, the rounding to TF32, the proxy fence that hands
@@ -165,6 +166,19 @@ __device__ __forceinline__ void bulk_commit() {
 // Waits until the bulk copies this thread committed have read their source.
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Four floats from this thread's registers into another block's shared
+// memory at `dst` (a cluster_map address, 16-byte aligned), asynchronously:
+// the thread does not wait for the remote write, whose 16 bytes complete on
+// that block's barrier `bar` (a cluster_map address).
+__device__ __forceinline__ void st_async_v4(uint32_t dst, float a, float b,
+                                            float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
 }
 
 // Every thread of every block of the cluster: arrive (release), then wait

@@ -99,10 +99,10 @@ T5's bias alone at 64, which keeps its staged tile), at the head dim
 rounded up to 32; K5 / K6 / K7 run the masked forms. The fp32 forms are a
 shared library of their own, built when an fp32 launch first asks for it.
 Above 256, K3 and K4 (and K6 and K7 under the position masks) in both
-dtypes are one kernel each that owns 64 rows a block (queries for dq, keys
-for dk and dv; the dk and dv blocks in one launch, each recomputing the
-tile's logits), and K5 runs on K1's kernels there, its keys split as K1's
-are. A head dim above 512 raises ``NotImplementedError``.
+dtypes run on clusters of two blocks that split the head dim, a pair
+owning 64 rows (queries for dq, keys for dk and dv; dk and dv in one pair,
+the tile's logits computed once), and K5 runs on K1's kernels there, its
+keys split as K1's are. A head dim above 512 raises ``NotImplementedError``.
 Each wrapper counts its launches by dtype in ``.dtypes`` beside
 ``.launches``; each, as it runs more than one kernel, also by kernel in
 ``.routes``, and by head dim in ``.head_dims``.
@@ -134,8 +134,8 @@ NEG_INF = -1e30   # lse of a row with no visible key
 _FWD_TILES, _DQ_TILES, _DKV_TILES = (128, 128), (128, 64), (64, 128)
 # K1 and K5 above head dim 256 (bf16 and fp32): 64-query blocks, 64-key
 # tiles, at most 4 key splits; K3, K4, K6 and K7 above 256 in bf16: 64 rows
-# a block, tiles of 32 of the other axis (queries, keys for dq; keys,
-# queries for dk / dv)
+# a cluster pair (two blocks splitting the head dim), tiles of 32 of the
+# other axis (queries, keys for dq; keys, queries for dk / dv)
 _D512_TILE, _D512_MAX_SPLITS = 64, 4
 _WIDE_BWD_TILES = (64, 32)
 # The fp32 forward (csrc/fp32/flash_f32_fwd.cu): TF32 passes per product, and
@@ -173,7 +173,7 @@ def _k1_tiles(d: int, masked: bool) -> tuple:
 
 def _dq_tiles(d: int) -> tuple:
     """K3's (query tile, key tile): 64 keys up to DP = 192, 32 above; above
-    256 the wide kernel's (64, 32)."""
+    256 the wide pair kernel's (64, 32)."""
     if d > _MAX_HEAD_DIM:
         return _WIDE_BWD_TILES
     wide = _width(d) > 192
@@ -188,7 +188,7 @@ def _dkv_width(d: int) -> int:
 
 def _dkv_tiles(d: int) -> tuple:
     """K4's (query tile, key tile): 128 keys up to DP = 128, 64 above; above
-    256 the wide kernel's (32, 64)."""
+    256 the wide pair kernel's (32, 64)."""
     if d > _MAX_HEAD_DIM:
         return _WIDE_BWD_TILES[::-1]
     wide = _dkv_width(d) > 128
@@ -204,7 +204,8 @@ def _f32_tiles(kernel: str, d: int) -> tuple:
     streaming one above 160 (64, 64); K3: 128 queries up to 64, 64 above,
     32 keys (16 above 192 on the block pairs); K4: 128 keys up to 64, 64
     above, 32 queries up to 64, 16 to 128, 32 at 160 and 16 above. Above
-    256 the streaming kernels: (64, 64) for all three."""
+    256 the streaming kernels (the backward's on cluster pairs of 64 rows):
+    (64, 64) for all three."""
     if d > _MAX_HEAD_DIM:
         return 64, 64
     dp = _width(d, 32)
@@ -598,9 +599,11 @@ def k3_route(dtype, d: int, causal: bool = False, bias: bool = False,
     at every head dim from 1 to 512 in every form (with a bias also dbias):
     "sm90" (``csrc/flash_attention_dq_sm90.cuh``, TMA and wgmma: bf16 up to
     256), "wide" (``csrc/flash_attention_wide_bwd_sm90.cuh``, TMA and wgmma:
-    bf16 from 257 to 512 at the padded width 384 or 512) or "fp32" (TF32
-    kernels: ``csrc/fp32/flash_f32_bwd.cuh``, one block up to 128, two from
-    129 to 256; ``csrc/fp32/flash_f32_bwd_stream.cuh`` from 257 to 512).
+    bf16 from 257 to 512 at the padded width 384 or 512, a cluster of two
+    blocks a 64-query tile splitting the head dim) or "fp32" (TF32 kernels:
+    ``csrc/fp32/flash_f32_bwd.cuh``, one block up to 128, two from 129 to
+    256; ``csrc/fp32/flash_f32_bwd_stream.cuh`` from 257 to 512, streaming
+    on a cluster pair that splits the head dim).
     Raises ``NotImplementedError`` naming what the kernels take above
     512."""
     return _bwd_route("flash_attention_bwd_dq_cuda", dtype, d, causal, bias,
@@ -613,9 +616,11 @@ def k4_route(dtype, d: int, causal: bool = False, bias: bool = False,
     at every head dim from 1 to 512 in every form: "sm90"
     (``csrc/flash_attention_bwd_sm90.cuh``, TMA and wgmma: bf16 up to 256),
     "wide" (``csrc/flash_attention_wide_bwd_sm90.cuh``: bf16 from 257 to
-    512, the dk and the dv blocks in one launch) or "fp32" (TF32 kernels:
+    512, a cluster of two blocks a 64-key tile splitting the head dim and
+    holding dk and dv, S^T computed once) or "fp32" (TF32 kernels:
     ``csrc/fp32/flash_f32_bwd.cuh`` up to 256,
-    ``csrc/fp32/flash_f32_bwd_stream.cuh`` above). Raises
+    ``csrc/fp32/flash_f32_bwd_stream.cuh`` above, streaming on a cluster
+    pair the same way). Raises
     ``NotImplementedError`` naming what the kernels take above 512."""
     return _bwd_route("flash_attention_bwd_dkv_cuda", dtype, d, causal, bias,
                       segments)
@@ -654,9 +659,11 @@ def k6_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
     at every head dim from 1 to 512 in every form: "sm90" (the position-mask
     form of ``csrc/flash_attention_dq_sm90.cuh``, TMA and wgmma: bf16 up to
     256), "wide" (``csrc/flash_attention_wide_bwd_sm90.cuh`` under the
-    position masks: bf16 from 257 to 512 at the padded width 384 or 512) or
-    "fp32" (the masked TF32 kernels of ``csrc/fp32/flash_f32_bwd.cuh`` up to
-    256, ``csrc/fp32/flash_f32_bwd_stream.cuh`` above). Raises
+    position masks: bf16 from 257 to 512 at the padded width 384 or 512, a
+    cluster pair splitting the head dim) or "fp32" (the masked TF32 kernels
+    of ``csrc/fp32/flash_f32_bwd.cuh`` up to 256,
+    ``csrc/fp32/flash_f32_bwd_stream.cuh`` above, a streaming cluster pair).
+    Raises
     ``NotImplementedError`` naming what the kernels take above 512."""
     return _pos_route("flash_bwd_pos_dq_cuda", dtype, d, "wide")
 
@@ -668,9 +675,11 @@ def k7_route(dtype, d: int, causal: bool = False, valid_len: bool = False,
     form of ``csrc/flash_attention_bwd_sm90.cuh``, TMA and wgmma, above 128
     on K4's one-block-a-64-key-tile body: bf16 up to 256), "wide"
     (``csrc/flash_attention_wide_bwd_sm90.cuh`` under the position masks,
-    the dk and the dv blocks in one launch: bf16 from 257 to 512) or "fp32"
-    (the masked TF32 kernels of ``csrc/fp32/flash_f32_bwd.cuh`` up to 256,
-    ``csrc/fp32/flash_f32_bwd_stream.cuh`` above). Raises
+    a cluster pair a 64-key tile splitting the head dim and holding dk and
+    dv: bf16 from 257 to 512) or "fp32" (the masked TF32 kernels of
+    ``csrc/fp32/flash_f32_bwd.cuh`` up to 256,
+    ``csrc/fp32/flash_f32_bwd_stream.cuh`` above, a streaming cluster
+    pair). Raises
     ``NotImplementedError`` naming what the kernels take above 512."""
     return _pos_route("flash_bwd_pos_dkv_cuda", dtype, d, "wide")
 

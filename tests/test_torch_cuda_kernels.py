@@ -81,7 +81,9 @@ tolerances above (fp32: 1e-4 against plain fp32, 1e-5 against fp64, one
 TF32 pass caught): lengths around their 32- and 64-row tiles, segment ids
 with rows that see no key, each key-split count of K1 forced under causal
 and segment ids, NaN-filled outputs and dbias from a NaN-poisoned pool;
-K4's dk and dv blocks one launch. K5, K6 and K7 above head dim 256 (K1's
+K4's dk and dv one launch of cluster pairs; a causal diagonal at ragged
+lengths; dbias written once per tile at width 512. K5, K6 and K7 above
+head dim 256 (K1's
 kernel of ``csrc/flash_attention.cu`` under the position masks, the wide
 backward kernel, the fp32 streaming kernels) at 264, 300, 384 and 512 in
 the position forms (causal, ``valid_len``, two offset segments, a launch
@@ -2609,8 +2611,8 @@ def test_wide_fp32_within_fp64(gen, d):
 
 
 def test_wide_k4_is_one_launch_of_both_roles(gen):
-    """K4 above 256 launches the dk and the dv blocks together: one launch
-    and one count on the route, both outputs right; K3 the dq blocks."""
+    """K4 above 256 computes dk and dv in the same cluster pairs: one launch
+    and one count on the route, both outputs right; K3 the dq pairs."""
     q, g = (_randn(gen, 1, 1, 256, 512) for _ in range(2))
     k, v = (_randn(gen, 1, 1, 256, 512) for _ in range(2))
     out, lse = tfa.flash_attention_cuda(q, k, v)
@@ -2623,6 +2625,56 @@ def test_wide_k4_is_one_launch_of_both_roles(gen):
     assert tfa.flash_attention_bwd_dq_cuda.launches == n3 + 1
     _bwd_close((dq, dk, dv),
                tfa.flash_attention_bwd_plain(q, k, v, out, lse, g))
+
+
+@pytest.mark.parametrize("lq,lk", [(97, 161), (161, 97), (223, 190)])
+def test_wide_pair_causal_diagonal_at_ragged_lengths(gen, lq, lk):
+    """The two blocks of a cluster pair split the head dim and walk one
+    tile list: causal at lengths that are no multiple of the 64-row blocks
+    or the 32- and 64-column tiles, so that the diagonal tile pairs are
+    partly visible and ragged, with and without a bias (dbias), in both
+    dtypes at 300 (width 384: block 1 holds columns 192 - 299 and zeros)
+    and 512."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (300, 512):
+            q, g = (_randn(gen, 1, 2, lq, d, dtype=dtype) for _ in range(2))
+            k, v = (_randn(gen, 1, 2, lk, d, dtype=dtype) for _ in range(2))
+            _wide_check(q, k, v, g, dict(causal=True))
+            _wide_check(q, k, v, g, _wide_masks(gen, (True, True, False), 1,
+                                                2, lq, lk))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_wide_dbias_written_once_per_tile(gen, dtype):
+    """dbias at width 512 from a pool poisoned with NaN, under causal and
+    segment ids that skip tiles: every element written (finite), equal to
+    the plain dS, zeros where the masks hide a pair in every batch element
+    (dbias sums the batch: the bias is (1, H, Lq, Lk)), and two calls equal
+    bit for bit (block 0 of each pair writes a tile, once)."""
+    b, h, lq, lk, d = 2, 2, 300, 260, 512
+    q, g = (_randn(gen, b, h, lq, d, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, b, h, lk, d, dtype=dtype) for _ in range(2))
+    masks = _wide_masks(gen, (True, True, True), b, h, lq, lk)
+    out, lse = tfa.flash_attention_cuda(q, k, v, **masks)
+    dbs = []
+    for _ in range(2):
+        poison = torch.full((b, h, lq, lk), float("nan"), device="cuda")
+        del poison
+        dbs.append(tfa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **masks,
+                                                need_dbias=True)[3])
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g, **masks,
+                                         need_dbias=True)[3]
+    db = dbs[0]
+    assert db.shape == want.shape and bool(torch.isfinite(db).all())
+    assert torch.equal(dbs[0], dbs[1])
+    tol = 2e-2 if dtype == torch.bfloat16 else F32_ATOL
+    assert ((db.float() - want.float()).abs().max().item()
+            <= tol * want.float().abs().max().item() + 1e-6)
+    visible = tfa._visible_pairs(lq, lk, masks["segment_ids"], True,
+                                 q.device).expand(b, h, lq, lk)
+    hidden = ~visible.any(0, keepdim=True)     # in every batch element
+    assert bool(hidden.any()) and not bool(db[hidden].any())
 
 
 # ------------------------------------- K5, K6 and K7 above head dim 256

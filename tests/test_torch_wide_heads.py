@@ -104,10 +104,9 @@ def test_routes_above_512_raise_naming_the_entry_point(route, entry):
     (tfa.k5_route, "flash_attention_pos_cuda"),
     (tfa.k6_route, "flash_bwd_pos_dq_cuda"),
     (tfa.k7_route, "flash_bwd_pos_dkv_cuda")], ids=["K5", "K6", "K7"])
-def test_position_kernels_still_raise_above_256(route, entry):
+def test_position_kernels_raise_above_512(route, entry):
     """K5, K6 and K7 raise above 512 only, naming the entry point: from 257
-    to 512 they take their wide route, as K1, K3 and K4 do. (The name is
-    older than the wide routes: the refusal it names now starts at 513.)"""
+    to 512 they take their wide route, as K1, K3 and K4 do."""
     wide = "d512" if route is tfa.k5_route else "wide"
     for dtype in (BF16, F32):
         assert route(dtype, 256) == ("fp32" if dtype == F32 else "sm90")
@@ -149,69 +148,153 @@ def _k1_wide_smem(dp):
 
 
 def _bwd_wide_smem(dp):
-    """A1 and A2 (64 x DP), B1 and B2 (32 x DP), two T buffers (64 x 64
-    bf16), three barriers and the alignment."""
-    return 2 * 64 * dp * 2 + 2 * 32 * dp * 2 + 2 * 64 * 64 * 2 + 8 * 3 + 1024
+    """(bytes, stages) of the bf16 pair kernel's block at width DP, as its
+    Cfg lays them out: A1 and A2 (64 x DH, DH = DP / 2, the block's half of
+    the columns), two T tiles (64 x 64 bf16), the swap's `in` and `out`
+    (X and Y of a 64 x 32 tile in fp32 each; dq: one `in` for each of its
+    two swap channels), then as many stages of B1 and B2 (32 x DH) with the
+    column tile's lse and delta as fit (at most 4), the barriers (A full,
+    full / empty a stage, the two channels' five each) and the
+    alignment."""
+    dh = dp // 2
+    fixed = 2 * 64 * dh * 2 + 2 * 64 * 64 * 2 + 2 * (2 * 64 * 32 * 4)
+    stage = 2 * 32 * dh * 2
+    room = SMEM_LIMIT - fixed - 8 * (1 + 2 * 5) - 1024
+    stages = min(4, room // (stage + 2 * 32 * 4 + 16))
+    return (fixed + stages * (stage + 2 * 32 * 4)
+            + 8 * (1 + 2 * stages + 2 * 5) + 1024, stages)
 
 
-def _f32_stream_smem():
-    """The fp32 forward's streaming layout, shared by the backward above
-    256: three 64 KB slots, the P / T hi / lo tile, the row statistics, six
-    barriers and the alignment (the same at every width)."""
-    return 3 * 65536 + 2 * 64 * 64 * 4 + 4 * 64 * 4 + 8 * 6 + 1024
+def _f32_stream_smem(dkv):
+    """(bytes, slots) of the fp32 pair kernel's block (the same at both
+    widths): the T tiles (hi / lo of dS, and of P^T for dk / dv: 16 KB a
+    term), the swap's `in` (X and Y of a 64 x 64 tile in fp32: the other
+    block stores there), two entries of a column tile's lse and delta, as
+    many 32 KB slots as fit (at most 4), the barriers (full / empty a slot
+    and a statistics entry, the swap's five) and the alignment."""
+    slot = 32768
+    fixed = (2 if dkv else 1) * 2 * 16384 + 2 * 64 * 64 * 4 + 2 * 2 * 64 * 4
+    room = SMEM_LIMIT - fixed - 8 * (2 * 2 + 5) - 1024
+    slots = min(4, room // (slot + 16))
+    return fixed + slots * slot + 8 * (2 * slots + 2 * 2 + 5) + 1024, slots
 
 
 @pytest.mark.parametrize("dp", WIDTHS)
 def test_each_wide_kernel_fits_a_block(dp):
-    """Shared memory (as each Cfg lays it out) within the 232,448 bytes a
-    block may take, and each consumer's accumulators within the registers
-    it holds beside 48 for addresses, indices and the row statistics: K1's
-    O (DP / 4 a thread) and S (16); K3's / K4's acc (DP / 4), X and Y (8
-    each); the fp32 backward's acc (DP / 4), X, Y and a chunk (16 each) —
-    a piece (32) lives when X and Y no longer do."""
+    """Shared memory (as each Cfg lays it out, the swap's buffers counted)
+    within the 232,448 bytes a block may take, the column operands on a
+    ring of at least two stages (bf16: three, tiles j - 1, j and j + 1),
+    and each consumer's accumulators within the registers it holds beside
+    48 for addresses, indices and the
+    statistics: K1's O (DP / 4 a thread) and S (16); the bf16 backward's
+    pair: dq (each consumer its own, over whole tiles: X and Y, 16 each,
+    and dS's fragments, 8), or dk (consumer 0) / dv (consumer 1), over the
+    block's DH = DP / 2 columns (DH / 2 a thread), X or Y (16), the pulled
+    sums (16) and P, dS (16); the fp32 pair: dq or dk and dv, each over a consumer's
+    DH / 2 columns (DH / 4 a thread each), X, Y and a chunk (16 each) — a
+    piece (at most 32) lives when a chunk no longer does."""
+    dh = dp // 2
+    smem, stages = _bwd_wide_smem(dp)
+    assert smem == {384: 198808, 512: 214920}[dp] <= SMEM_LIMIT
+    assert stages == {384: 4, 512: 3}[dp] >= 3
+    for dkv, want in ((False, 198792), (True, 231560)):
+        f32, slots = _f32_stream_smem(dkv)
+        assert f32 == want <= SMEM_LIMIT and slots == 4
     assert _k1_wide_smem(dp) <= SMEM_LIMIT
-    assert _bwd_wide_smem(dp) <= SMEM_LIMIT
-    assert _f32_stream_smem() <= SMEM_LIMIT
     assert dp // 4 + 16 + 48 <= REGS
-    assert dp // 4 + 2 * 8 + 48 <= REGS
-    assert dp // 4 + 3 * 16 + 48 <= REGS
+    assert dh // 2 + 3 * 16 + 48 <= REGS
+    assert 2 * (dh // 4) + 3 * 16 + 48 <= REGS
     k1, bwd = _source("flash_attention.cu"), _source(
         "flash_attention_wide_bwd_sm90.cuh")
     stream = _source("fp32/flash_f32_bwd_stream.cuh")
-    for text in (k1, bwd):
-        assert 'static_assert(kSmemBytes <= 232448, "shared memory");' in text
-        assert "kProducerRegs = 40, kConsumerRegs = 232" in text
-        assert "static constexpr int kNC = DP / 2;" in text
+    assert 'static_assert(kSmemBytes <= 232448, "shared memory");' in k1
+    assert "kProducerRegs = 40, kConsumerRegs = 232" in k1
+    assert "static constexpr int kNC = DP / 2;" in k1
     assert "float o[NC / 2];" in k1 and "float s[kHalf / 2];" in k1
-    assert "float acc[NC / 2];" in bwd and "float x[8], y[8];" in bwd
-    assert ("kSmemBytes = kBarOff + 8 * kBars + 1024" in bwd
-            and "kTOff = kB2Off + kBBytes" in bwd
-            and "kBarOff = kTOff + 2 * kTBytes" in bwd)
+    assert 'static_assert(kSmemBytes <= 232448, "shared memory");' in bwd
+    assert "kProducerRegs = 40, kConsumerRegs = 232" in bwd
+    assert 'static_assert(kStages >= 3, "a pipelined ring");' in bwd
+    assert "static constexpr int kStages = kFit < 4 ? kFit : 4;" in bwd
+    assert "kInOff = kTOff + 2 * kTBytes" in bwd
+    assert "constexpr int kXBytes = 2 * kBR * kBC * 4;" in bwd
+    assert "float acc[DH / 2];" in bwd and "float xy[kBC / 2];" in bwd
+    assert "float x[kBC / 2], y[kBC / 2];" in bwd
+    assert "uint32_t frag[kBC / 16][4];" in bwd
+    assert "float sx[8], sy[8];" in bwd and "float ds[8], pr[8];" in bwd
+    assert "static constexpr int kSlotBytes = 32768;" in stream
+    assert 'static_assert(kSlots >= 2, "a pipelined ring");' in stream
+    assert "float o[kAccs][C::kVSlots][kVR / 2];" in stream
     assert "float x[16], y[16], part[16];" in stream
     assert "kConsumerRegs = 232" in stream
-    assert "using C = fdsd::f32fwd::WideCfg<DP>;" in stream
+
+
+@pytest.mark.parametrize("source", ["flash_attention_wide_bwd_sm90.cuh",
+                                    "fp32/flash_f32_bwd_stream.cuh"])
+def test_wide_backward_kernels_split_the_head_dim_on_a_pair(source):
+    """Both wide backward kernels run on a cluster of two blocks that split
+    the head dim: the cluster attribute on the kernel, block r's first
+    column r DH, the partials stored into the other block by st.async
+    (asynchronous: no consumer waits on the other SM) and the swap's helper
+    arming and freeing `in`, the column tile's lse and delta staged in
+    shared memory once a tile by a producer warp, dbias written by block 0
+    alone, dk and dv one launch of pairs (no role per block; each role a
+    kernel of its own), and a cluster barrier after the barriers are set up
+    and again before exit."""
+    text = _source(source)
+    swap = _source("pair_swap.cuh")
+    assert "__cluster_dims__(2, 1, 1)" in text
+    assert "s9::cluster_rank()) * DH;  // first column" in text
+    assert re.search(r"fdsd::swap_helper\(xbars[^;]*, tiles, kXBytes[,)]",
+                     text)
+    assert "s9::st_async_v4(peer.in + " in text and "peer.full);" in text
+    assert "st.async.shared::cluster.mbarrier::complete_tx::bytes" in \
+        _source("sm90.cuh")
+    assert "bulk_copy_cluster" not in text + swap   # no copy hop
+    assert text.count("s9::cluster_sync();") == 2
+    body = text.split("s9::cluster_sync();")[-1]
+    assert body.lstrip().startswith("}"), "the last cluster barrier exits"
+    assert "tid >= 64 && tid < 96" in text   # the statistics' warp
+    assert re.search(r"float\* db = [^;]*&& c0 == 0", text)
+    assert "per_role" not in text and "2 * p.B * p.H * p." in text
+    assert "template <int DP, bool ANY, bool DKV>" in text  # a kernel a role
 
 
 @pytest.mark.parametrize("dp", WIDTHS)
 def test_wide_kernels_issue_wgmma_shapes_that_exist(dp):
-    """bf16: S and the backward's X / Y per consumer as m64n32k16 (K1) and
-    m64n16k16 (K3 / K4), O and acc over a consumer's DP / 2 columns as
-    m64n(DP/2)k16 SS; fp32: each piece of 64 rows of d as m64n64k8."""
+    """bf16: K1's S per consumer as m64n32k16; the backward pair's X / Y
+    per consumer as m64n32k16 (a 32-column tile over the block's DH
+    columns), dq's two k-steps as m64nDHk16 RS and dk / dv's as m64nDHk16
+    SS, B MN-major (DH = DP / 2, 192 or 256); K1's O as m64n(DP/2)k16 SS;
+    fp32:
+    X / Y as m64n32k8 and the pieces as m64n(kVR)k8, 32 rows of d on the
+    32 KB slots."""
+    dh = dp // 2
     bf16 = re.search(r'static_assert\(([^;]*)"wgmma_ss: N"\)',
                      _source("sm90.cuh")).group(1)
-    for n in (16, 32, dp // 2):
+    for n in (32, dh, dp // 2):
         assert f"N == {n}" in bf16, n
     tf32 = re.search(r'static_assert\(([^;]*)"wgmma_tf32_ss: N"\)',
                      _source("sm90.cuh")).group(1)
-    v_slots = -(-(dp // 2) // 64)
-    assert dp // 2 // v_slots == 64 and "N == 64" in tf32
-    assert "wgmma_ss<16>(" in _source("flash_attention_wide_bwd_sm90.cuh")
+    slot = 32768
+    most = slot // 1024
+    pieces = -(-(dh // 2) // most)
+    rows = dh // 2 // pieces
+    assert rows == 32 and f"N == {rows}" in tf32, dp
+    assert dh % most == 0 and 8 * rows * 128 <= slot
+    assert "N == 32" in tf32
+    bwd = _source("flash_attention_wide_bwd_sm90.cuh")
+    assert "wgmma_ss<kBC>(" in bwd and "wgmma_ss<DH, 1>(" in bwd
+    assert "wgmma_rs<DH>(" in bwd
+    stream = _source("fp32/flash_f32_bwd_stream.cuh")
+    assert "wgmma_tf32_ss<32>(" in stream and "wgmma_tf32_ss<kVR>(" in stream
     assert "wgmma_ss<NC, 1>(" in _source("flash_attention.cu")
 
 
 def test_each_wide_width_is_instantiated_once():
-    """384 and 512 once each for K3 / K4 in bf16 (one header, two sources),
-    the fp32 K1's forms above 256 and the fp32 backward above 256."""
+    """384 and 512 once each for K3 / K4 in bf16 (one header, two sources;
+    each width's launch holds the pair kernel without a mask and ANY), the
+    fp32 K1's forms above 256 and the fp32 backward above 256 (each width's
+    run_stream holds the dq and the dk / dv pair kernels)."""
     for prefix, mac in (
             ("flash_attention_wide_bwd_sm90_w", "FDSD_KW_WIDTH"),
             ("fp32/flash_f32_fwd_w", "FDSD_F32_FWD_K1"),
@@ -223,15 +306,20 @@ def test_each_wide_width_is_instantiated_once():
         assert sorted(found) == list(WIDTHS), prefix
     k1 = _source("flash_attention.cu")
     assert "launch_width<384>" in k1 and "launch_width<512>" in k1
+    stream = _source("fp32/flash_f32_bwd_stream.cuh")
+    assert ("run_stream_role<DP, ANY, true>(w, p, s)" in stream
+            and "run_stream_role<DP, ANY, false>(w, p, s)" in stream)
 
 
 @pytest.mark.parametrize("d", [264, 300, 384, 512])
 def test_wide_segment_tiles_are_the_kernels_tiles(d):
     """The (query tile, key tile) the wrappers build segment ids at above
     256: K1 (64, 64) in bf16 and fp32; K3 (64, 32) and K4 (32, 64) in bf16
-    (64 rows a block, tiles of 32 of the other axis), (64, 64) in fp32."""
+    (a pair owns 64 rows and walks tiles of 32 of the other axis), (64, 64)
+    in fp32 (64 rows, tiles of 64)."""
     assert tfa._k1_tiles(d, True) == tfa._k1_tiles(d, False) == (64, 64)
     assert tfa._dq_tiles(d) == (64, 32) and tfa._dkv_tiles(d) == (32, 64)
+    assert tfa._WIDE_BWD_TILES == (64, 32)
     for kernel in ("k1", "k3", "k4"):
         assert tfa._f32_tiles(kernel, d) == (64, 64)
     bwd = _source("flash_attention_wide_bwd_sm90.cuh")
@@ -239,6 +327,37 @@ def test_wide_segment_tiles_are_the_kernels_tiles(d):
     assert "constexpr int kBR = 64, kBC = 64;" in _source(
         "fp32/flash_f32_bwd_stream.cuh")
     assert "constexpr int kBQ = 64, kBK = 64" in _source("flash_attention.cu")
+
+
+def _launch_plan(source, lq, lk, b, h, dkv):
+    """The grid the launch function of ``source`` computes for (B, H, Lq,
+    Lk) and the role, evaluated from its own expressions: the row tiles
+    (``(la + kBR - 1) / kBR``) and the blocks (``2 * p.B * p.H * ...``)."""
+    text = _source(source)
+    rows = re.search(r"p\.(n_rt|n_tiles) = \(la \+ (?:stream::)?kBR - 1\) "
+                     r"/ (?:stream::)?kBR;", text)
+    blocks = re.search(r"(2 \* p\.B \* p\.H \* p\.(?:n_rt|n_tiles))", text)
+    assert rows and blocks, source
+    env = dict(p=type("P", (), dict(B=b, H=h)))
+    la = lk if dkv else lq
+    setattr(env["p"], rows.group(1), -(-la // 64))
+    return eval(blocks.group(1), env), getattr(env["p"], rows.group(1))
+
+
+@pytest.mark.parametrize("lq,lk", [(1000, 777), (777, 1000), (1, 65),
+                                   (4096, 4096)])
+@pytest.mark.parametrize("source", ["flash_attention_wide_bwd_sm90.cuh",
+                                    "fp32/flash_f32_bwd_stream.cuh"])
+def test_wide_launch_grids_are_whole_cluster_pairs(source, lq, lk):
+    """At odd row counts each launch plan's grid is a whole number of
+    clusters of two, one cluster a 64-row tile of every (b, h), the tiles
+    covering every row: dq over the queries, dk / dv over the keys."""
+    for b, h in ((1, 1), (2, 3)):
+        for dkv in (False, True):
+            blocks, tiles = _launch_plan(source, lq, lk, b, h, dkv)
+            rows = lk if dkv else lq
+            assert blocks % 2 == 0 and blocks // 2 == b * h * tiles
+            assert 64 * tiles >= rows > 64 * (tiles - 1)
 
 
 @pytest.mark.parametrize("d,splits", [(300, 1), (300, 4), (512, 2)])

@@ -100,9 +100,11 @@ def test_the_position_forms_are_in_the_sources():
     """K5 above 256 has its own bf16 entry on K1's kernel (the position
     predicate and the bounded flag in its ANY form, no new instantiation)
     and the fp32 streaming kernel's bounded form at 384 and 512; K6 / K7
-    route above 256 to the wide backward kernel, which takes PosArgs; the
-    fp32 streaming backward reads the offsets, segments and valid_len of
-    p.pos through tile_pair / pos_sees."""
+    route above 256 to the wide backward kernel, which takes PosArgs and
+    judges each tile pair by pos_pair in a walk both blocks of its cluster
+    pair take alike; the fp32 streaming backward, a cluster pair too, reads
+    the offsets, segments and valid_len of p.pos through tile_pair /
+    pos_sees."""
     k1 = _source("flash_attention.cu")
     assert "cudaError_t fwd_pos(" in k1
     entry = _source("flash_attention_sm90.cu").split(
@@ -112,6 +114,9 @@ def test_the_position_forms_are_in_the_sources():
     assert "const bool bounded = ANY && p.bounded != 0;" in k1
     wide = _source("flash_attention_wide_bwd_sm90.cuh")
     assert "PosArgs pos;" in wide and "pos_pair(p.pos" in wide
+    walk = "for (int ct = visible(ct_begin); ct < ct_end; ct = visible(ct + 1))"
+    for text in (wide, _source("fp32/flash_f32_bwd_stream.cuh")):
+        assert "__cluster_dims__(2, 1, 1)" in text and walk in text
     for src in ("flash_attention_dq_sm90.cu", "flash_attention_bwd_sm90.cu"):
         text = _source(src)
         entry = text.split('extern "C" int fdsd_flash_bwd_pos_')[1]
